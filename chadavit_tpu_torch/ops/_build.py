@@ -1,0 +1,117 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled by ONE ``nvcc`` call into one shared library
+with a plain C interface, loaded with :mod:`ctypes`. No PyTorch header, no
+CUTLASS and no ``torch.utils.cpp_extension`` take part, so a cold build takes
+seconds. The library lands in ``chadavit_tpu_torch/_build/<hash>/``, keyed by
+a hash of the sources and the flags (``.gitignore`` lists ``_build/``), and is
+built at first use, never at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# argument types of every C entry point: pointers and the stream as c_void_p,
+# so that ctypes never cuts a 64-bit pointer to a 32-bit int
+SIGNATURES = {
+    "ln_linear_fwd": [_P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "linear_relu_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "linear_residual_ln_fwd": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I,
+                               _I, _P],
+    "prefix_attention_fwd": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F,
+                             _P],
+}
+
+_lib = None
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, then ``nvcc`` on PATH, then the default
+    toolkit location; raises if there is none."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and /usr/local/cuda/bin); "
+        "the CUDA kernels of chadavit_tpu_torch need the CUDA toolkit")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the library unless a build of these exact sources exists;
+    returns its path. Prints the build seconds when it compiles."""
+    out_dir = BUILD_DIR / source_hash()
+    lib_path = out_dir / "libchadavit_kernels.so"
+    if lib_path.exists():
+        return lib_path
+    nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # build under a name of this process, then rename: two processes that
+    # build at once never load a half-written library
+    tmp = out_dir / f"libchadavit_kernels.{os.getpid()}.so"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib_path)
+    print(f"[chadavit_tpu_torch] built {lib_path.name} from "
+          f"{len(sources())} sources in {time.perf_counter() - t0:.2f} s",
+          file=sys.stderr, flush=True)
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(status: int, name: str) -> None:
+    """Raise when a C launcher reports a CUDA error (a refused launch never
+    runs, and a later synchronize would not say so)."""
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {status}")
