@@ -18,8 +18,11 @@
 // A block whose first query lies at or past valid_len[b] writes zeros and
 // returns. That decision is the same for every thread of the block and is taken
 // before the first barrier, so no thread can wait at a barrier that another has
-// left. There is no lse output: the base-2 lse belongs to the backward, which is
-// a later kernel.
+// left. For training the kernel also writes the base-2 lse of every query row
+// (lse = m + log2(l), flash_attention.py:137-138), which the backward
+// (prefix_attention_bwd.cu) reads; the output is optional (a null pointer), so
+// the serving path writes none. Skipped blocks write lse = 1e30 there, the TPU
+// kernel's +LARGE, so a recomputed p underflows to 0 on those rows.
 //
 // Plain C interface (loaded with ctypes); the launcher returns
 // cudaGetLastError() so that the Python wrapper can raise on a refused launch.
@@ -48,18 +51,22 @@ __global__ void __launch_bounds__(NT)
 prefix_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, int ld,
                         const int* __restrict__ valid_len,
-                        float* __restrict__ out, int ldo, int s_pad,
-                        float qscale) {
+                        float* __restrict__ out, int ldo,
+                        float* __restrict__ lse, int s_pad, float qscale) {
   constexpr int TN = HD / 16;  // output columns per thread
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int vl = min(max(valid_len[b], 0), s_pad);  // a bad length cannot read past the image
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const size_t row0 = (size_t)b * s_pad;
   float* o = out + (row0 + q0) * ldo + h * HD;
+  // lse of (image b, head h, row q) at lse[(b * heads + h) * s_pad + q]
+  float* lse_row = lse == nullptr ? nullptr
+                                  : lse + ((size_t)b * gridDim.y + h) * s_pad + q0;
 
   if (q0 >= vl) {  // uniform across the block, before any barrier
     for (int idx = tid; idx < BQ * HD; idx += NT)
       o[(size_t)(idx / HD) * ldo + idx % HD] = 0.f;
+    if (lse_row != nullptr && tid < BQ) lse_row[tid] = 1e30f;
     return;
   }
 
@@ -194,19 +201,20 @@ prefix_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
     for (int j = 0; j < TN; ++j)
       o[(size_t)(4 * ty + i) * ldo + tx + 16 * j] = acc[i][j] * inv;
   }
+  if (lse_row != nullptr && tid < BQ) lse_row[tid] = row_m[tid] + log2f(row_l[tid]);
 }
 
 template <int HD>
 int launch(const float* q, const float* k, const float* v, int ld,
-           const int* valid_len, float* out, int ldo, int batch, int heads,
-           int s_pad, float qscale, cudaStream_t st) {
+           const int* valid_len, float* out, int ldo, float* lse, int batch,
+           int heads, int s_pad, float qscale, cudaStream_t st) {
   constexpr int bytes = smem_floats<HD>() * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(prefix_attention_kernel<HD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        bytes);
   if (e != cudaSuccess) return (int)e;
   prefix_attention_kernel<HD><<<dim3(s_pad / BQ, heads, batch), NT, bytes, st>>>(
-      q, k, v, ld, valid_len, out, ldo, s_pad, qscale);
+      q, k, v, ld, valid_len, out, ldo, lse, s_pad, qscale);
   return (int)cudaGetLastError();
 }
 
@@ -215,17 +223,19 @@ int launch(const float* q, const float* k, const float* v, int ld,
 extern "C" {
 
 // q, k, v: (batch * s_pad) rows of ld floats (they may be column slices of one
-// packed qkv buffer); out: (batch * s_pad) rows of ldo floats. valid_len is
-// clamped to [0, s_pad]. head_dim must be 96. qscale = log2(e) / sqrt(96).
+// packed qkv buffer); out: (batch * s_pad) rows of ldo floats. lse, when not
+// null: (batch, heads, s_pad), the base-2 log-sum-exp of each query row.
+// valid_len is clamped to [0, s_pad]. head_dim must be 96.
+// qscale = log2(e) / sqrt(96).
 int prefix_attention_fwd(const float* q, const float* k, const float* v, int ld,
-                         const int* valid_len, float* out, int ldo, int batch,
-                         int heads, int head_dim, int s_pad, float qscale,
-                         void* stream) {
+                         const int* valid_len, float* out, int ldo, float* lse,
+                         int batch, int heads, int head_dim, int s_pad,
+                         float qscale, void* stream) {
   if (batch <= 0 || heads <= 0 || head_dim != HEAD_DIM || s_pad % BQ != 0 ||
       s_pad % BKV != 0 || ld % 4 != 0 || ldo % 4 != 0)
     return (int)cudaErrorInvalidValue;
-  return launch<HEAD_DIM>(q, k, v, ld, valid_len, out, ldo, batch, heads, s_pad,
-                          qscale, static_cast<cudaStream_t>(stream));
+  return launch<HEAD_DIM>(q, k, v, ld, valid_len, out, ldo, lse, batch, heads,
+                          s_pad, qscale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -14,7 +14,12 @@ Parameter names follow the reference torch state-dict layout
 (``cls_token``, ``channel_token``, ``pos_embed``, ``token_learner.proj``,
 ``blocks.{i}.self_attn.*``, ``blocks.{i}.linear{1,2}``, ``blocks.{i}.norm{1,2}``,
 ``norm``), so a reference checkpoint loads through ``load_state_dict``.
-Dropout is not ported: the embedding path runs at rate 0.
+
+With grad enabled (the DINO student) each layer runs
+``fused_block.FusedEncoderBlock``, whose backward is the layer's kernels; the
+tokenizer, the pos/channel tokens and the final norm stay plain torch ops with
+autograd, as the JAX package leaves them to XLA. Dropout is not ported: a
+rate above 0 raises.
 """
 
 from __future__ import annotations
@@ -88,10 +93,13 @@ class EncoderLayer(nn.Module):
     """
 
     def __init__(self, embed_dim: int, num_heads: int, ffn_dim: int = 2048,
-                 layer_norm_eps: float = 1e-5, block_impl: str = "auto"):
+                 layer_norm_eps: float = 1e-5, block_impl: str = "auto",
+                 dropout_rate: float = 0.0):
         super().__init__()
         if block_impl not in ("auto", "xla"):
             raise ValueError(f"block impl {block_impl!r}: want 'auto' or 'xla'")
+        if dropout_rate > 0:
+            raise NotImplementedError(f"dropout rate {dropout_rate}: dropout is not ported")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.layer_norm_eps = layer_norm_eps
@@ -142,7 +150,8 @@ class ChAdaViT(nn.Module):
                  embed_dim: int = 192, depth: int = 12, num_heads: int = 2,
                  ffn_dim: int = 2048, max_channels: int = 10,
                  return_all_tokens: bool = True, layer_norm_eps: float = 1e-5,
-                 final_norm_eps: float = 1e-6, block_impl: str = "auto"):
+                 final_norm_eps: float = 1e-6, block_impl: str = "auto",
+                 drop_path_rate: float = 0.0):
         super().__init__()
         self.img_size = img_size
         self.patch_size = patch_size
@@ -156,8 +165,10 @@ class ChAdaViT(nn.Module):
         self.channel_token = nn.Parameter(torch.zeros(1, max_channels, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, 1, n + 1, embed_dim))
         self.blocks = nn.ModuleList(
-            EncoderLayer(embed_dim, num_heads, ffn_dim, layer_norm_eps, block_impl)
-            for _ in range(depth))
+            # the JAX model's per-layer dropout rates (chada_vit.py:341-349)
+            EncoderLayer(embed_dim, num_heads, ffn_dim, layer_norm_eps, block_impl,
+                         dropout_rate=drop_path_rate * i / max(depth - 1, 1))
+            for i in range(depth))
         self.norm = nn.LayerNorm(embed_dim, eps=final_norm_eps)
 
     @property
@@ -255,6 +266,7 @@ def chada_vit(**kwargs) -> ChAdaViT:
         max_channels=kwargs.get("max_number_channels", 10),
         img_size=kwargs.get("img_size", 224),
         block_impl=kwargs.get("block_impl", "auto"),
+        drop_path_rate=kwargs.get("drop_path_rate", 0.0),
     )
 
 

@@ -1,4 +1,4 @@
-"""Checkpoint loading for the port, and the JAX-params bridge.
+"""Checkpoint loading for the port, and the JAX-params bridges.
 
 Counterpart of ``chadavit_tpu/models/import_torch.py`` (``_np``,
 ``load_torch_state_dict``, ``remap_backbone_keys`` :26-57,
@@ -6,7 +6,8 @@ Counterpart of ``chadavit_tpu/models/import_torch.py`` (``_np``,
 reference torch layout, so importing is the ``encoder -> backbone -> strip``
 key remap alone. :func:`state_dict_from_jax_params` goes the other way from
 the JAX importer ``chada_vit_params_from_torch`` (:59): flax params (nested
-numpy) to the port's state dict.
+numpy) to the port's state dict; :func:`head_state_dict_from_jax_params` does
+the same for the DINO head (inverse of ``dino_head_params_from_torch`` :123).
 """
 
 from __future__ import annotations
@@ -86,4 +87,25 @@ def state_dict_from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Ten
         for nrm in ("norm1", "norm2"):
             sd[pre + nrm + ".weight"] = t(blk[nrm]["scale"])
             sd[pre + nrm + ".bias"] = t(blk[nrm]["bias"])
+    return sd
+
+
+def head_state_dict_from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax params of the JAX ``DINOHead`` -> the port's head state dict (the
+    inverse of the JAX package's ``dino_head_params_from_torch``, :123): the
+    kernels ``mlp_j`` ``(in, out)`` become ``mlp.{2 j}.weight`` ``(out, in)``
+    (``mlp.weight`` for a one-layer head), ``last_layer_v`` ``(bottleneck, P)``
+    becomes ``last_layer.weight_v`` ``(P, bottleneck)`` and ``last_layer_g``
+    ``(P,)`` becomes ``last_layer.weight_g`` ``(P, 1)``."""
+    def t(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(_np(a), dtype=np.float32))
+
+    n = sum(1 for k in params if k.startswith("mlp_"))
+    sd: Dict[str, torch.Tensor] = {}
+    for j in range(n):
+        pre = "mlp." if n == 1 else f"mlp.{2 * j}."
+        sd[pre + "weight"] = t(_np(params[f"mlp_{j}"]["kernel"]).T)
+        sd[pre + "bias"] = t(params[f"mlp_{j}"]["bias"])
+    sd["last_layer.weight_v"] = t(_np(params["last_layer_v"]).T)
+    sd["last_layer.weight_g"] = t(_np(params["last_layer_g"]).reshape(-1, 1))
     return sd

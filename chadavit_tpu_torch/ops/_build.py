@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ONE ``nvcc`` call into one shared library
-with a plain C interface, loaded with :mod:`ctypes`. No PyTorch header, no
-CUTLASS and no ``torch.utils.cpp_extension`` take part, so a cold build takes
-seconds. The library lands in ``chadavit_tpu_torch/_build/<hash>/``, keyed by
-a hash of the sources and the flags (``.gitignore`` lists ``_build/``), and is
+Every ``csrc/*.cu`` is compiled by its own ``nvcc -c``, all started together,
+and one more ``nvcc`` links the objects into one shared library with a plain C
+interface, loaded with :mod:`ctypes`. No PyTorch header, no CUTLASS and no
+``torch.utils.cpp_extension`` take part, so a cold build takes seconds. The
+library lands in ``chadavit_tpu_torch/_build/<hash>/``, keyed by a hash of the
+sources, the headers and the flags (``.gitignore`` lists ``_build/``), and is
 built at first use, never at import.
 """
 
@@ -23,7 +24,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,12 +32,20 @@ _F = ctypes.c_float
 # argument types of every C entry point: pointers and the stream as c_void_p,
 # so that ctypes never cuts a 64-bit pointer to a 32-bit int
 SIGNATURES = {
-    "ln_linear_fwd": [_P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ln_linear_fwd": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _P],
     "linear_relu_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "linear_residual_ln_fwd": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I,
-                               _I, _P],
-    "prefix_attention_fwd": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F,
-                             _P],
+    "linear_residual_ln_fwd": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _P],
+    "prefix_attention_fwd": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I,
+                             _F, _P],
+    "prefix_attention_bwd": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
+                             _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    "layernorm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+                      _P],
+    "linear_dgrad": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+    "linear_wgrad": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _P],
 }
 
 _lib = None
@@ -66,10 +75,21 @@ def sources() -> list[Path]:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands at once; raise with the output of the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}")
 
 
 def build() -> Path:
@@ -81,15 +101,17 @@ def build() -> Path:
         return lib_path
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    # build under a name of this process, then rename: two processes that
+    # build under names of this process, then rename: two processes that
     # build at once never load a half-written library
-    tmp = out_dir / f"libchadavit_kernels.{os.getpid()}.so"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    tag = os.getpid()
+    tmp = out_dir / f"libchadavit_kernels.{tag}.so"
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+          for src, obj in zip(sources(), objs)])
+    _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, lib_path)
     print(f"[chadavit_tpu_torch] built {lib_path.name} from "
           f"{len(sources())} sources in {time.perf_counter() - t0:.2f} s",
