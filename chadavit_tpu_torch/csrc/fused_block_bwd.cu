@@ -1,4 +1,5 @@
-// The backward of one ChAdaViT encoder layer, float32 on CUDA cores.
+// The backward of one ChAdaViT encoder layer, on CUDA cores, in float32 and
+// in bf16 (f32 sums, f32 parameter gradients).
 //
 // Replaces the TPU kernel chadavit_tpu/ops/fused_block.py::_bwd_kernel (reached
 // through _vjp_bwd, the custom VJP of fused_encoder_block). That kernel runs the
@@ -29,16 +30,25 @@
 // bound by bytes. The weight gradients contract over all M = B * S_pad rows into
 // outputs of at most 2048 x 192: one block per output tile would leave most of
 // the 132 SMs idle, so the rows are cut into chunks of up to 1024 (grid z) and
-// each (tile, chunk) block writes a partial sum. Chunks, tiles and rows at or
+// each (tile, chunk) block writes a partial sum. Chunks and 32-row tiles wholly
 // past valid_len[b] are skipped (the forward wrote zeros there, and its saved
 // stats there mean nothing): the partial of a skipped chunk is never written
-// and the second pass skips it by the same rule. Every skip decision is uniform
-// per block and taken before the first barrier.
+// and the second pass skips it by the same rule. Every skip decision is uniform per block and taken before the first
+// barrier.
 //
-// The contract: the cotangent dy is zero on rows >= valid_len (the model reads
-// only CLS). Under it, dx on rows < valid_len and the twelve parameter
-// gradients equal autograd through the plain forward, and dx on rows >=
-// valid_len is written as zero.
+// The contract, the TPU kernel's (fused_block.py:33-39): the forward computes
+// every row of a 32-row tile that holds a valid row for real, also the rows
+// past valid_len, and zero-fills the tiles wholly past it. The backward is
+// exact for any cotangent on the rows it computed: dx on those rows and the
+// twelve parameter gradients equal autograd through the plain forward. Rows of
+// the zero-filled tiles give nothing and get dx = 0. Keys past valid_len stay
+// masked (prefix_attention_bwd.cu).
+//
+// The bf16 instances (T = bf16) take bf16 activations and weights and write a
+// bf16 dx; the LN parameters, the saved stats, the partial sums and the
+// parameter gradients stay f32, so the fixed-order reduce is the f32 one. They
+// round where the TPU kernel casts to dt: the LN'ed X of the QKV weight
+// gradient (h), and each output.
 //
 // Plain C interface (loaded with ctypes); every launcher returns
 // cudaGetLastError() so that the Python wrapper can raise on a refused launch.
@@ -47,22 +57,16 @@
 
 namespace {
 
-// Row r of the flattened (B * s_pad, .) activation is a real token.
-__device__ __forceinline__ bool row_is_valid(int r, int s_pad,
-                                             const int* valid_len) {
-  const int b = r / s_pad;
-  return r - b * s_pad < valid_len[b];
-}
-
 // ---- layernorm_bwd: grid (M / BM), one warp per row, 6 columns per lane ------
 constexpr int LN_COLS = D_MODEL / 32;
 
+template <typename T>
 __global__ void __launch_bounds__(NT)
-layernorm_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ xin,
+layernorm_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ xin,
                      const float* __restrict__ mean,
                      const float* __restrict__ rstd,
-                     const float* __restrict__ g, const float* __restrict__ res,
-                     float* __restrict__ dx, float* __restrict__ partial,
+                     const float* __restrict__ g, const T* __restrict__ res,
+                     T* __restrict__ dx, float* __restrict__ partial,
                      const int* __restrict__ valid_len, int s_pad) {
   const int m0 = blockIdx.x * BM;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -80,17 +84,12 @@ layernorm_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ xin
   for (int r = warp; r < BM; r += WARPS) {  // the whole warp takes one row
     const int row = m0 + r;
     const size_t off = (size_t)row * D_MODEL;
-    if (!row_is_valid(row, s_pad, valid_len)) {
-#pragma unroll
-      for (int j = 0; j < LN_COLS; ++j) dx[off + lane + 32 * j] = 0.f;
-      continue;
-    }
     const float mu = mean[row], rs = rstd[row];
     float d[LN_COLS], xh[LN_COLS], s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int j = 0; j < LN_COLS; ++j) {
-      d[j] = dy[off + lane + 32 * j];
-      xh[j] = (xin[off + lane + 32 * j] - mu) * rs;
+      d[j] = to_f(dy[off + lane + 32 * j]);
+      xh[j] = (to_f(xin[off + lane + 32 * j]) - mu) * rs;
       const float dyg = d[j] * gc[j];
       s1 += dyg;
       s2 += dyg * xh[j];
@@ -99,8 +98,8 @@ layernorm_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ xin
 #pragma unroll
     for (int j = 0; j < LN_COLS; ++j) {
       float v = rs * (d[j] * gc[j] - m1 - xh[j] * m2);
-      if (res != nullptr) v += res[off + lane + 32 * j];
-      dx[off + lane + 32 * j] = v;
+      if (res != nullptr) v += to_f(res[off + lane + 32 * j]);
+      dx[off + lane + 32 * j] = from_f<T>(v);
       pg[j] += d[j] * xh[j];
       pb[j] += d[j];
     }
@@ -151,10 +150,10 @@ reduce_chunks_kernel(const float* __restrict__ partial, float* __restrict__ out,
 // ---- linear_dgrad: out = dY @ W (+ epilogue), grid (M / BM, N / BN) ----------
 enum Epilogue { EPI_NONE = 0, EPI_RELU_MASK = 1, EPI_RESIDUAL = 2 };
 
-template <int BN, int EPI>
+template <int BN, int EPI, typename T>
 __global__ void __launch_bounds__(NT)
-linear_dgrad_kernel(const float* __restrict__ dy, const float* __restrict__ w,
-                    const float* __restrict__ aux, float* __restrict__ out,
+linear_dgrad_kernel(const T* __restrict__ dy, const T* __restrict__ w,
+                    const T* __restrict__ aux, T* __restrict__ out,
                     const int* __restrict__ valid_len, int K, int N, int s_pad) {
   constexpr int TN = BN / 16;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
@@ -171,29 +170,29 @@ linear_dgrad_kernel(const float* __restrict__ dy, const float* __restrict__ w,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = m0 + 2 * ty + i;
-    const bool valid = row_is_valid(row, s_pad, valid_len);
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const size_t o = (size_t)row * N + n0 + tx + 16 * j;
       float v = acc[i][j];
-      if (EPI == EPI_RELU_MASK) v = aux[o] > 0.f ? v : 0.f;
-      if (EPI == EPI_RESIDUAL) v = aux[o] + v;
-      out[o] = valid ? v : 0.f;
+      if (EPI == EPI_RELU_MASK) v = to_f(aux[o]) > 0.f ? v : 0.f;
+      if (EPI == EPI_RESIDUAL) v = to_f(aux[o]) + v;
+      out[o] = from_f<T>(v);
     }
   }
 }
 
 // ---- linear_wgrad: partial dW = dY^T X', db = colsum dY per row chunk --------
 // Grid (K / WT, N / WT, M / chunk). A block owns a WT x WT tile of dW (thread
-// (ty, tx) the outputs n = ty + 16 i, k = tx + 16 j) and the rows of one chunk,
-// staged WM at a time; blocks of the first K tile also sum dY's columns.
-// partial is (n_chunks, N * K + N): dW row-major, then db.
+// (ty, tx) the outputs n = ty + 16 i, k = tx + 16 j) and the rows of one chunk
+// up to the end of the image's last tile that holds a valid row, staged WM at
+// a time; blocks of the first K tile also sum dY's columns. partial is
+// (n_chunks, N * K + N): dW row-major, then db.
 constexpr int WT = 64;
 constexpr int WM = 32;
 
-template <bool LN_X>
+template <bool LN_X, typename T>
 __global__ void __launch_bounds__(NT)
-linear_wgrad_kernel(const float* __restrict__ dy, const float* __restrict__ x,
+linear_wgrad_kernel(const T* __restrict__ dy, const T* __restrict__ x,
                     const float* __restrict__ mean, const float* __restrict__ rstd,
                     const float* __restrict__ g, const float* __restrict__ beta,
                     float* __restrict__ partial, const int* __restrict__ valid_len,
@@ -201,7 +200,8 @@ linear_wgrad_kernel(const float* __restrict__ dy, const float* __restrict__ x,
   const int k0 = blockIdx.x * WT, n0 = blockIdx.y * WT;
   const int r0 = blockIdx.z * chunk;  // first row of the chunk
   const int b = r0 / s_pad;
-  const int rows = min(chunk, valid_len[b] - (r0 - b * s_pad));
+  const int computed = (valid_len[b] + BM - 1) / BM * BM;  // rows of real tiles
+  const int rows = min(chunk, computed - (r0 - b * s_pad));
   if (rows <= 0) return;  // uniform; the second pass skips this chunk
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const bool col_sums = blockIdx.x == 0;
@@ -215,8 +215,8 @@ linear_wgrad_kernel(const float* __restrict__ dy, const float* __restrict__ x,
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
   }
   for (int m0 = 0; m0 < rows; m0 += WM) {
-    // stage WM rows of dY[:, n0:n0+WT] and X'[:, k0:k0+WT]: two float4 each
-    // per thread; rows past the prefix are staged as zeros
+    // stage WM rows of dY[:, n0:n0+WT] and X'[:, k0:k0+WT]: two groups of
+    // four each per thread; rows past the chunk's computed rows as zeros
 #pragma unroll
     for (int it = 0; it < 2; ++it) {
       const int idx = tid + it * NT, r = idx / (WT / 4), c = (idx % (WT / 4)) * 4;
@@ -224,14 +224,14 @@ linear_wgrad_kernel(const float* __restrict__ dy, const float* __restrict__ x,
       const size_t row = (size_t)r0 + m0 + r;
       float4 yv = make_float4(0.f, 0.f, 0.f, 0.f), xv = yv;
       if (ok) {
-        yv = *reinterpret_cast<const float4*>(dy + row * N + n0 + c);
-        xv = *reinterpret_cast<const float4*>(x + row * K + k0 + c);
-        if (LN_X) {
+        yv = load4(dy + row * N + n0 + c);
+        xv = load4(x + row * K + k0 + c);
+        if (LN_X) {  // h = LN1(x), rounded to T as the forward's
           const float mu = mean[row], rs = rstd[row];
-          xv.x = (xv.x - mu) * rs * g[k0 + c] + beta[k0 + c];
-          xv.y = (xv.y - mu) * rs * g[k0 + c + 1] + beta[k0 + c + 1];
-          xv.z = (xv.z - mu) * rs * g[k0 + c + 2] + beta[k0 + c + 2];
-          xv.w = (xv.w - mu) * rs * g[k0 + c + 3] + beta[k0 + c + 3];
+          xv.x = rnd<T>((xv.x - mu) * rs * g[k0 + c] + beta[k0 + c]);
+          xv.y = rnd<T>((xv.y - mu) * rs * g[k0 + c + 1] + beta[k0 + c + 1]);
+          xv.z = rnd<T>((xv.z - mu) * rs * g[k0 + c + 2] + beta[k0 + c + 2]);
+          xv.w = rnd<T>((xv.w - mu) * rs * g[k0 + c + 3] + beta[k0 + c + 3]);
         }
       }
       *reinterpret_cast<float4*>(&Ys[r][c]) = yv;
@@ -278,8 +278,72 @@ bool is_weight_shape(int N, int K) {  // the four Linear layers of the layer
          (N == D_FFN && K == D_MODEL) || (N == D_MODEL && K == D_FFN);
 }
 
+template <typename T>
+int layernorm_bwd_launch(const T* dy, const T* xin, const float* mean,
+                         const float* rstd, const float* g, const T* res, T* dx,
+                         float* partial, float* dgb, int accumulate,
+                         const int* valid_len, int M, int N, int s_pad,
+                         void* stream) {
+  if (!rows_ok(M, BK, s_pad) || N != D_MODEL) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  layernorm_bwd_kernel<T><<<M / BM, NT, 0, st>>>(dy, xin, mean, rstd, g, res, dx,
+                                                 partial, valid_len, s_pad);
+  int e = (int)cudaGetLastError();
+  if (e != 0) return e;
+  return reduce_chunks(partial, dgb, 2 * D_MODEL, M / BM, BM, s_pad, valid_len,
+                       accumulate, st);
+}
+
+template <typename T>
+int linear_dgrad_launch(const T* dy, const T* w, const T* aux, T* out,
+                        int epilogue, const int* valid_len, int M, int K, int N,
+                        int s_pad, void* stream) {
+  if (!rows_ok(M, K, s_pad) || !is_weight_shape(K, N) ||
+      (epilogue != EPI_NONE) != (aux != nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N == D_FFN && epilogue == EPI_RELU_MASK)
+    linear_dgrad_kernel<128, EPI_RELU_MASK, T><<<dim3(M / BM, N / 128), NT, 0, st>>>(
+        dy, w, aux, out, valid_len, K, N, s_pad);
+  else if (N == D_MODEL && epilogue == EPI_RESIDUAL)
+    linear_dgrad_kernel<D_MODEL, EPI_RESIDUAL, T><<<dim3(M / BM), NT, 0, st>>>(
+        dy, w, aux, out, valid_len, K, N, s_pad);
+  else if (N == D_MODEL && epilogue == EPI_NONE)
+    linear_dgrad_kernel<D_MODEL, EPI_NONE, T><<<dim3(M / BM), NT, 0, st>>>(
+        dy, w, aux, out, valid_len, K, N, s_pad);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int linear_wgrad_launch(const T* dy, const T* x, const float* mean,
+                        const float* rstd, const float* g, const float* beta,
+                        float* partial, float* dwb, const int* valid_len, int M,
+                        int N, int K, int s_pad, int chunk, void* stream) {
+  if (!rows_ok(M, BK, s_pad) || !is_weight_shape(N, K) || chunk < WM ||
+      chunk > 1024 || (chunk & (chunk - 1)) || s_pad % chunk)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(K / WT, N / WT, M / chunk);
+  if (mean != nullptr)
+    linear_wgrad_kernel<true, T><<<grid, NT, 0, st>>>(
+        dy, x, mean, rstd, g, beta, partial, valid_len, N, K, s_pad, chunk);
+  else
+    linear_wgrad_kernel<false, T><<<grid, NT, 0, st>>>(
+        dy, x, nullptr, nullptr, nullptr, nullptr, partial, valid_len, N, K,
+        s_pad, chunk);
+  int e = (int)cudaGetLastError();
+  if (e != 0) return e;
+  return reduce_chunks(partial, dwb, N * K + N, M / chunk, chunk, s_pad,
+                       valid_len, 0, st);
+}
+
 }  // namespace
 
+// The float entry points keep their names; the bf16 ones end in _bf16 and take
+// the same arguments, with every activation and weight pointer to bf16 and the
+// LN parameters, stats, scratch and gradients still f32.
 extern "C" {
 
 // dy, xin, dx (and res, when not null): (M, 192); mean, rstd: (M,);
@@ -289,14 +353,15 @@ int layernorm_bwd(const float* dy, const float* xin, const float* mean,
                   const float* rstd, const float* g, const float* res, float* dx,
                   float* partial, float* dgb, int accumulate,
                   const int* valid_len, int M, int N, int s_pad, void* stream) {
-  if (!rows_ok(M, BK, s_pad) || N != D_MODEL) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  layernorm_bwd_kernel<<<M / BM, NT, 0, st>>>(dy, xin, mean, rstd, g, res, dx,
-                                              partial, valid_len, s_pad);
-  int e = (int)cudaGetLastError();
-  if (e != 0) return e;
-  return reduce_chunks(partial, dgb, 2 * D_MODEL, M / BM, BM, s_pad, valid_len,
-                       accumulate, st);
+  return layernorm_bwd_launch(dy, xin, mean, rstd, g, res, dx, partial, dgb,
+                              accumulate, valid_len, M, N, s_pad, stream);
+}
+int layernorm_bwd_bf16(const bf16* dy, const bf16* xin, const float* mean,
+                       const float* rstd, const float* g, const bf16* res, bf16* dx,
+                       float* partial, float* dgb, int accumulate,
+                       const int* valid_len, int M, int N, int s_pad, void* stream) {
+  return layernorm_bwd_launch(dy, xin, mean, rstd, g, res, dx, partial, dgb,
+                              accumulate, valid_len, M, N, s_pad, stream);
 }
 
 // dy (M, K), w (K, N) (the forward's Linear weight, out x in), out (M, N).
@@ -306,22 +371,14 @@ int layernorm_bwd(const float* dy, const float* xin, const float* mean,
 int linear_dgrad(const float* dy, const float* w, const float* aux, float* out,
                  int epilogue, const int* valid_len, int M, int K, int N,
                  int s_pad, void* stream) {
-  if (!rows_ok(M, K, s_pad) || !is_weight_shape(K, N) ||
-      (epilogue != EPI_NONE) != (aux != nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N == D_FFN && epilogue == EPI_RELU_MASK)
-    linear_dgrad_kernel<128, EPI_RELU_MASK><<<dim3(M / BM, N / 128), NT, 0, st>>>(
-        dy, w, aux, out, valid_len, K, N, s_pad);
-  else if (N == D_MODEL && epilogue == EPI_RESIDUAL)
-    linear_dgrad_kernel<D_MODEL, EPI_RESIDUAL><<<dim3(M / BM), NT, 0, st>>>(
-        dy, w, aux, out, valid_len, K, N, s_pad);
-  else if (N == D_MODEL && epilogue == EPI_NONE)
-    linear_dgrad_kernel<D_MODEL, EPI_NONE><<<dim3(M / BM), NT, 0, st>>>(
-        dy, w, aux, out, valid_len, K, N, s_pad);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return linear_dgrad_launch(dy, w, aux, out, epilogue, valid_len, M, K, N, s_pad,
+                             stream);
+}
+int linear_dgrad_bf16(const bf16* dy, const bf16* w, const bf16* aux, bf16* out,
+                      int epilogue, const int* valid_len, int M, int K, int N,
+                      int s_pad, void* stream) {
+  return linear_dgrad_launch(dy, w, aux, out, epilogue, valid_len, M, K, N, s_pad,
+                             stream);
 }
 
 // dy (M, N), x (M, K); dwb: (N * K + N,) = dW (N, K) row-major, then db (N,).
@@ -332,22 +389,15 @@ int linear_wgrad(const float* dy, const float* x, const float* mean,
                  const float* rstd, const float* g, const float* beta,
                  float* partial, float* dwb, const int* valid_len, int M, int N,
                  int K, int s_pad, int chunk, void* stream) {
-  if (!rows_ok(M, BK, s_pad) || !is_weight_shape(N, K) || chunk < WM ||
-      chunk > 1024 || (chunk & (chunk - 1)) || s_pad % chunk)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(K / WT, N / WT, M / chunk);
-  if (mean != nullptr)
-    linear_wgrad_kernel<true><<<grid, NT, 0, st>>>(
-        dy, x, mean, rstd, g, beta, partial, valid_len, N, K, s_pad, chunk);
-  else
-    linear_wgrad_kernel<false><<<grid, NT, 0, st>>>(
-        dy, x, nullptr, nullptr, nullptr, nullptr, partial, valid_len, N, K,
-        s_pad, chunk);
-  int e = (int)cudaGetLastError();
-  if (e != 0) return e;
-  return reduce_chunks(partial, dwb, N * K + N, M / chunk, chunk, s_pad,
-                       valid_len, 0, st);
+  return linear_wgrad_launch(dy, x, mean, rstd, g, beta, partial, dwb, valid_len, M,
+                             N, K, s_pad, chunk, stream);
+}
+int linear_wgrad_bf16(const bf16* dy, const bf16* x, const float* mean,
+                      const float* rstd, const float* g, const float* beta,
+                      float* partial, float* dwb, const int* valid_len, int M, int N,
+                      int K, int s_pad, int chunk, void* stream) {
+  return linear_wgrad_launch(dy, x, mean, rstd, g, beta, partial, dwb, valid_len, M,
+                             N, K, s_pad, chunk, stream);
 }
 
 }  // extern "C"

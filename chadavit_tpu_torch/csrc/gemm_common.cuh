@@ -1,11 +1,13 @@
 // Helpers shared by the GEMM kernels of one ChAdaViT encoder layer, forward
-// (fused_block.cu) and backward (fused_block_bwd.cu): float32 on CUDA cores, a
-// block of NT threads owns BM rows, K is staged through shared memory in BK
-// slices. Each including file gets its own copy (anonymous namespace).
+// (fused_block.cu) and backward (fused_block_bwd.cu): a block of NT threads
+// owns BM rows, K is staged through shared memory in BK slices, and every sum
+// is float32 on CUDA cores. The kernels are templates on the storage type T of
+// the activations and weights (storage.cuh). Each including file gets its own
+// copy (anonymous namespace).
 
 #pragma once
 
-#include <cuda_runtime.h>
+#include "storage.cuh"
 
 namespace {
 
@@ -21,7 +23,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // True when rows [m0, m0 + BM) of the flattened (B * s_pad, .) activation are
-// all padding. BM divides s_pad, so the tile lies inside one image.
+// all padding. BM divides s_pad, so the tile lies inside one image. Every row
+// of a tile that is not padding is computed for real, also the rows past
+// valid_len[b]; the forward zero-fills the padding tiles.
 __device__ __forceinline__ bool tile_is_padding(int m0, int s_pad,
                                                 const int* valid_len) {
   const int b = m0 / s_pad;
@@ -31,14 +35,15 @@ __device__ __forceinline__ bool tile_is_padding(int m0, int s_pad,
 // Row stats of rows [m0, m0 + BM) over their K columns, f32, in the JAX
 // package's form (fused_block.py::_stats): mu = mean(x),
 // var = max(mean(x^2) - mu^2, 0), rstd = rsqrt(var + eps).
-__device__ void row_stats(const float* x, int ld, int K, int m0, float eps,
+template <typename T>
+__device__ void row_stats(const T* x, int ld, int K, int m0, float eps,
                           float* s_mu, float* s_rstd) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < BM; r += WARPS) {
-    const float* xr = x + (size_t)(m0 + r) * ld;
+    const T* xr = x + (size_t)(m0 + r) * ld;
     float s = 0.f, ss = 0.f;
     for (int k = lane; k < K; k += 32) {
-      const float v = xr[k];
+      const float v = to_f(xr[k]);
       s += v;
       ss += v * v;
     }
@@ -55,12 +60,13 @@ __device__ void row_stats(const float* x, int ld, int K, int m0, float eps,
 
 // acc[i][j] = sum_k A'[m0 + 2 ty + i, k] * W'[n0 + tx + 16 j, k], where A' is
 // A, or LN(A) with the row stats in s_mu/s_rstd and the affine g/beta when
-// LN_A. A is (rows, lda) row-major. W' is W when W_NK (W (N, K) row-major, the
-// torch Linear layout: the forward's x @ W^T), else W^T (W (K, N) row-major:
-// the backward's dY @ W). ldw is W's row stride.
-template <int BN, bool LN_A, bool W_NK = true>
-__device__ void gemm_tile(const float* __restrict__ A, int lda,
-                          const float* __restrict__ W, int ldw, int K, int m0,
+// LN_A (rounded to T, as the JAX kernel casts h to dt). A is (rows, lda)
+// row-major. W' is W when W_NK (W (N, K) row-major, the torch Linear layout:
+// the forward's x @ W^T), else W^T (W (K, N) row-major: the backward's
+// dY @ W). ldw is W's row stride.
+template <int BN, bool LN_A, bool W_NK = true, typename T = float>
+__device__ void gemm_tile(const T* __restrict__ A, int lda,
+                          const T* __restrict__ W, int ldw, int K, int m0,
                           int n0,
                           const float* s_mu, const float* s_rstd,
                           const float* __restrict__ g,
@@ -75,33 +81,31 @@ __device__ void gemm_tile(const float* __restrict__ A, int lda,
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
   for (int k0 = 0; k0 < K; k0 += BK) {
-    {  // A tile: BM x BK floats, one float4 per thread, stored k-major
+    {  // A tile: BM x BK elements, four per thread, stored k-major
       const int r = tid / 8, c = (tid % 8) * 4;
-      const float4 v = *reinterpret_cast<const float4*>(
-          A + (size_t)(m0 + r) * lda + k0 + c);
+      const float4 v = load4(A + (size_t)(m0 + r) * lda + k0 + c);
       float e[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         if (LN_A)
-          e[q] = (e[q] - s_mu[r]) * s_rstd[r] * g[k0 + c + q] + beta[k0 + c + q];
+          e[q] = rnd<T>((e[q] - s_mu[r]) * s_rstd[r] * g[k0 + c + q] +
+                        beta[k0 + c + q]);
         As[c + q][r] = e[q];
       }
     }
 #pragma unroll
     for (int it = 0; it < BN * BK / 4 / NT; ++it) {  // W tile: BN x BK
       const int idx = tid + it * NT;
-      if (W_NK) {  // float4 along k
+      if (W_NK) {  // four along k
         const int n = idx / 8, c = (idx % 8) * 4;
-        const float4 v = *reinterpret_cast<const float4*>(
-            W + (size_t)(n0 + n) * ldw + k0 + c);
+        const float4 v = load4(W + (size_t)(n0 + n) * ldw + k0 + c);
         Ws[c][n] = v.x;
         Ws[c + 1][n] = v.y;
         Ws[c + 2][n] = v.z;
         Ws[c + 3][n] = v.w;
-      } else {  // float4 along n
+      } else {  // four along n
         const int c = idx / (BN / 4), n = (idx % (BN / 4)) * 4;
-        const float4 v = *reinterpret_cast<const float4*>(
-            W + (size_t)(k0 + c) * ldw + n0 + n);
+        const float4 v = load4(W + (size_t)(k0 + c) * ldw + n0 + n);
         Ws[c][n] = v.x;
         Ws[c][n + 1] = v.y;
         Ws[c][n + 2] = v.z;
@@ -123,10 +127,10 @@ __device__ void gemm_tile(const float* __restrict__ A, int lda,
   }
 }
 
-template <int BN>
-__device__ void zero_tile(float* out, int ldo, int m0, int n0) {
+template <int BN, typename T>
+__device__ void zero_tile(T* out, int ldo, int m0, int n0) {
   for (int idx = threadIdx.x; idx < BM * BN; idx += NT)
-    out[(size_t)(m0 + idx / BN) * ldo + n0 + idx % BN] = 0.f;
+    out[(size_t)(m0 + idx / BN) * ldo + n0 + idx % BN] = from_f<T>(0.f);
 }
 
 bool rows_ok(int M, int K, int s_pad) {

@@ -1,4 +1,5 @@
-// Prefix-masked multi-head attention, backward, float32 on CUDA cores.
+// Prefix-masked multi-head attention, backward, on CUDA cores, in float32 and
+// in bf16 (f32 scores, lse, delta and sums).
 //
 // Replaces the TPU kernel chadavit_tpu/ops/flash_attention.py::_bwd_kernel
 // (reached through _vjp_bwd, the custom VJP of prefix_flash_attention), and the
@@ -26,17 +27,29 @@
 //
 // dkdv_kernel: a block owns BKV = 64 keys of one head and walks the query
 // tiles below valid_len[b]; dq_kernel: a block owns BQ = 64 queries and walks
-// the key tiles below valid_len[b]. Query rows and keys at or past valid_len
-// get p = 0 (the cotangent is zero there by the model's contract, and the
-// forward's values there mean nothing), so their dq, dk and dv are written as
-// exact zeros; a block wholly past the prefix writes zeros and returns. That
-// decision is uniform per block and taken before the first barrier.
+// the key tiles below valid_len[b]. The contract is the TPU kernel's: the
+// forward (prefix_attention.cu) computes every query of a 64-row tile that
+// holds a valid query for real, also those past valid_len, so the backward is
+// exact for any cotangent on them: every query row of such a tile takes part,
+// with the forward's lse. Tiles wholly past the prefix were zero-filled (lse
+// 1e30): they give nothing, and a block that owns one writes zeros and returns
+// (dq 0 there). Keys at or past valid_len stay masked (p = 0), so their dk and
+// dv are exact zeros. Every such decision is uniform per block and taken
+// before the first barrier.
+//
+// The kernels are templates on the storage type T of q, k, v, o, do and the
+// gradients: float, or bf16 (the JAX body is dtype-generic,
+// flash_attention.py:157-230). The bf16 instances round where the TPU kernel
+// casts: the scaled q (qscale rounded to bf16 by the wrapper, as the forward),
+// p before dv = p^T do, ds before dk and dq, and each output; lse, delta and
+// every sum stay f32, and shared memory holds float for both instances.
 //
 // Plain C interface (loaded with ctypes); the launcher returns
 // cudaGetLastError() so that the Python wrapper can raise on a refused launch.
 
-#include <cuda_runtime.h>
 #include <math.h>
+
+#include "storage.cuh"
 
 namespace {
 
@@ -47,10 +60,12 @@ constexpr int LD = HEAD_DIM + 1;  // shared-memory row stride of a head tile
 constexpr int TN = HEAD_DIM / 16;  // head columns per thread
 constexpr float INV_LOG2E = 0.6931471805599453f;
 
-// delta[(b * heads + h) * s_pad + r] = rowsum over head h of do * o, 0 past the
-// prefix. One warp per (row, head); grid (B * s_pad * heads / 8).
+// delta[(b * heads + h) * s_pad + r] = rowsum over head h of do * o, 0 on the
+// query tiles wholly past the prefix. One warp per (row, head); grid
+// (B * s_pad * heads / 8).
+template <typename T>
 __global__ void __launch_bounds__(NT)
-delta_kernel(const float* __restrict__ o, const float* __restrict__ dout, int ldo,
+delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, int ldo,
              const int* __restrict__ valid_len, float* __restrict__ delta,
              int heads, int s_pad, int total) {
   const int item = blockIdx.x * (NT / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -58,31 +73,33 @@ delta_kernel(const float* __restrict__ o, const float* __restrict__ dout, int ld
   const int h = item % heads, row = item / heads, b = row / s_pad;
   const int r = row - b * s_pad;
   float s = 0.f;
-  if (r < valid_len[b]) {
+  if (r / BT * BT < valid_len[b]) {  // a query tile the forward computed
     const size_t off = (size_t)row * ldo + h * HEAD_DIM;
 #pragma unroll
     for (int j = 0; j < HEAD_DIM / 32; ++j)
-      s += dout[off + lane + 32 * j] * o[off + lane + 32 * j];
+      s += to_f(dout[off + lane + 32 * j]) * to_f(o[off + lane + 32 * j]);
   }
 #pragma unroll
   for (int w = 16; w > 0; w >>= 1) s += __shfl_xor_sync(0xffffffffu, s, w);
   if (lane == 0) delta[((size_t)b * heads + h) * s_pad + r] = s;
 }
 
-// Stage BT rows x HEAD_DIM of a head (rows of ld floats from row0) into a
-// (BT, LD) shared tile, times mul.
-__device__ __forceinline__ void stage(const float* __restrict__ src, int ld,
+// Stage BT rows x HEAD_DIM of a head (rows of ld elements from row0) into a
+// (BT, LD) shared tile, times mul and rounded to T (the scaled q; a
+// multiplier of 1 leaves a T value as it is).
+template <typename T>
+__device__ __forceinline__ void stage(const T* __restrict__ src, int ld,
                                       size_t row0, int col0, float* dst,
                                       float mul) {
   constexpr int V4 = HEAD_DIM / 4;
   for (int idx = threadIdx.x; idx < BT * V4; idx += NT) {
     const int r = idx / V4, c = (idx % V4) * 4;
-    const float4 t = *reinterpret_cast<const float4*>(src + (row0 + r) * ld + col0 + c);
+    const float4 t = load4(src + (row0 + r) * ld + col0 + c);
     float* d = dst + r * LD + c;
-    d[0] = t.x * mul;
-    d[1] = t.y * mul;
-    d[2] = t.z * mul;
-    d[3] = t.w * mul;
+    d[0] = rnd<T>(t.x * mul);
+    d[1] = rnd<T>(t.y * mul);
+    d[2] = rnd<T>(t.z * mul);
+    d[3] = rnd<T>(t.w * mul);
   }
 }
 
@@ -120,23 +137,24 @@ __device__ __forceinline__ void two_score_tiles(const float* A, const float* Bm,
 }
 
 // dk and dv of BT keys of one head. Grid (s_pad / BT, heads, B).
+template <typename T>
 __global__ void __launch_bounds__(NT)
-dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, int ld, const float* __restrict__ dout,
+dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, int ld, const T* __restrict__ dout,
             int ldo, const float* __restrict__ lse, const float* __restrict__ delta,
-            const int* __restrict__ valid_len, float* __restrict__ dk,
-            float* __restrict__ dv, int ldg, int s_pad, float qscale) {
+            const int* __restrict__ valid_len, T* __restrict__ dk,
+            T* __restrict__ dv, int ldg, int s_pad, float qscale) {
   const int k0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
   const int heads = gridDim.y;
   const int vl = min(max(valid_len[b], 0), s_pad);
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const size_t row0 = (size_t)b * s_pad;
-  float* dkb = dk + (row0 + k0) * ldg + h * HEAD_DIM;
-  float* dvb = dv + (row0 + k0) * ldg + h * HEAD_DIM;
+  T* dkb = dk + (row0 + k0) * ldg + h * HEAD_DIM;
+  T* dvb = dv + (row0 + k0) * ldg + h * HEAD_DIM;
   if (k0 >= vl) {  // uniform across the block, before any barrier
     for (int idx = tid; idx < BT * HEAD_DIM; idx += NT) {
-      dkb[(size_t)(idx / HEAD_DIM) * ldg + idx % HEAD_DIM] = 0.f;
-      dvb[(size_t)(idx / HEAD_DIM) * ldg + idx % HEAD_DIM] = 0.f;
+      dkb[(size_t)(idx / HEAD_DIM) * ldg + idx % HEAD_DIM] = from_f<T>(0.f);
+      dvb[(size_t)(idx / HEAD_DIM) * ldg + idx % HEAD_DIM] = from_f<T>(0.f);
     }
     return;
   }
@@ -160,6 +178,7 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
 
+  // every query tile the forward computed, all 64 rows of it
   for (int q0 = 0; q0 < vl; q0 += BT) {  // vl is uniform: barriers are safe
     __syncthreads();  // the previous tile's Qs/dOs/Ps/dSs are no longer read
     stage(q, ld, row0 + q0, h * HEAD_DIM, Qs, qscale);
@@ -177,10 +196,9 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kr = 4 * ty + i, qc = tx + 16 * j;
-        const bool ok = k0 + kr < vl && q0 + qc < vl;
-        const float p = ok ? exp2f(s[i][j] - lse_s[qc]) : 0.f;
-        Ps[kr * (BT + 1) + qc] = p;
-        dSs[kr * (BT + 1) + qc] = p * (dp[i][j] - delta_s[qc]);
+        const float p = k0 + kr < vl ? exp2f(s[i][j] - lse_s[qc]) : 0.f;
+        Ps[kr * (BT + 1) + qc] = rnd<T>(p);
+        dSs[kr * (BT + 1) + qc] = rnd<T>(p * (dp[i][j] - delta_s[qc]));
       }
     __syncthreads();
     // dv += p^T do, dk += ds^T q_scaled over this tile's queries
@@ -209,27 +227,28 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const size_t o = (size_t)(4 * ty + i) * ldg + tx + 16 * j;
-      dkb[o] = acc_k[i][j] * INV_LOG2E;
-      dvb[o] = acc_v[i][j];
+      dkb[o] = from_f<T>(acc_k[i][j] * INV_LOG2E);
+      dvb[o] = from_f<T>(acc_v[i][j]);
     }
 }
 
 // dq of BT queries of one head. Grid (s_pad / BT, heads, B).
+template <typename T>
 __global__ void __launch_bounds__(NT)
-dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, int ld, const float* __restrict__ dout,
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, int ld, const T* __restrict__ dout,
           int ldo, const float* __restrict__ lse, const float* __restrict__ delta,
-          const int* __restrict__ valid_len, float* __restrict__ dq, int ldg,
+          const int* __restrict__ valid_len, T* __restrict__ dq, int ldg,
           int s_pad, float qscale, float scale) {
   const int q0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
   const int heads = gridDim.y;
   const int vl = min(max(valid_len[b], 0), s_pad);
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const size_t row0 = (size_t)b * s_pad;
-  float* dqb = dq + (row0 + q0) * ldg + h * HEAD_DIM;
+  T* dqb = dq + (row0 + q0) * ldg + h * HEAD_DIM;
   if (q0 >= vl) {  // uniform across the block, before any barrier
     for (int idx = tid; idx < BT * HEAD_DIM; idx += NT)
-      dqb[(size_t)(idx / HEAD_DIM) * ldg + idx % HEAD_DIM] = 0.f;
+      dqb[(size_t)(idx / HEAD_DIM) * ldg + idx % HEAD_DIM] = from_f<T>(0.f);
     return;
   }
   extern __shared__ float smem[];
@@ -267,9 +286,8 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int qr = 4 * ty + i, kc = tx + 16 * j;
-        const bool ok = q0 + qr < vl && k0 + kc < vl;
-        const float p = ok ? exp2f(s[i][j] - lse_s[qr]) : 0.f;
-        dSs[qr * (BT + 1) + kc] = p * (dp[i][j] - delta_s[qr]);
+        const float p = k0 + kc < vl ? exp2f(s[i][j] - lse_s[qr]) : 0.f;
+        dSs[qr * (BT + 1) + kc] = rnd<T>(p * (dp[i][j] - delta_s[qr]));
       }
     __syncthreads();
     // dq += ds k over this tile's keys
@@ -290,21 +308,52 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j)
-      dqb[(size_t)(4 * ty + i) * ldg + tx + 16 * j] = acc[i][j] * scale;
+      dqb[(size_t)(4 * ty + i) * ldg + tx + 16 * j] = from_f<T>(acc[i][j] * scale);
 }
 
 constexpr int DKDV_SMEM = (4 * BT * LD + 2 * BT * (BT + 1) + 2 * BT) * (int)sizeof(float);
 constexpr int DQ_SMEM = (4 * BT * LD + BT * (BT + 1) + 2 * BT) * (int)sizeof(float);
 
+template <typename T>
+int launch(const T* q, const T* k, const T* v, int ld, const T* o, const T* dout,
+           int ldo, const float* lse, float* delta, const int* valid_len, T* dq,
+           T* dk, T* dv, int ldg, int batch, int heads, int head_dim, int s_pad,
+           float qscale, float scale, cudaStream_t st) {
+  if (batch <= 0 || heads <= 0 || head_dim != HEAD_DIM || s_pad % BT != 0 ||
+      ld % 4 != 0 || ldo % 4 != 0 || ldg % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int total = batch * s_pad * heads;
+  delta_kernel<T><<<(total + NT / 32 - 1) / (NT / 32), NT, 0, st>>>(
+      o, dout, ldo, valid_len, delta, heads, s_pad, total);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(dkdv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           DKDV_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           DQ_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(s_pad / BT, heads, batch);
+  dkdv_kernel<T><<<grid, NT, DKDV_SMEM, st>>>(q, k, v, ld, dout, ldo, lse, delta,
+                                              valid_len, dk, dv, ldg, s_pad, qscale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dq_kernel<T><<<grid, NT, DQ_SMEM, st>>>(q, k, v, ld, dout, ldo, lse, delta,
+                                          valid_len, dq, ldg, s_pad, qscale, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// q, k, v: (batch * s_pad) rows of ld floats (they may be column slices of one
-// packed qkv buffer); o (the forward's output) and dout: rows of ldo floats;
-// lse: (batch, heads, s_pad), the forward's base-2 lse; delta: (batch, heads,
-// s_pad) scratch. dq, dk, dv: rows of ldg floats (they may be column slices of
-// one packed dqkv buffer). head_dim must be 96; qscale = log2(e) / sqrt(96),
+// q, k, v: (batch * s_pad) rows of ld elements (they may be column slices of
+// one packed qkv buffer); o (the forward's output) and dout: rows of ldo
+// elements; lse: (batch, heads, s_pad) f32, the forward's base-2 lse; delta:
+// (batch, heads, s_pad) f32 scratch. dq, dk, dv: rows of ldg elements (they may
+// be column slices of one packed dqkv buffer). head_dim must be 96; ld, ldo and
+// ldg are multiples of 4 and every pointer is aligned to 4 elements.
+// qscale = log2(e) / sqrt(96) (rounded to bf16 for the bf16 entry point),
 // scale = 1 / sqrt(96). Three launches: delta, dk/dv, dq.
 int prefix_attention_bwd(const float* q, const float* k, const float* v, int ld,
                          const float* o, const float* dout, int ldo,
@@ -312,29 +361,19 @@ int prefix_attention_bwd(const float* q, const float* k, const float* v, int ld,
                          float* dq, float* dk, float* dv, int ldg, int batch,
                          int heads, int head_dim, int s_pad, float qscale,
                          float scale, void* stream) {
-  if (batch <= 0 || heads <= 0 || head_dim != HEAD_DIM || s_pad % BT != 0 ||
-      ld % 4 != 0 || ldo % 4 != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int total = batch * s_pad * heads;
-  delta_kernel<<<(total + NT / 32 - 1) / (NT / 32), NT, 0, st>>>(
-      o, dout, ldo, valid_len, delta, heads, s_pad, total);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           DKDV_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           DQ_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(s_pad / BT, heads, batch);
-  dkdv_kernel<<<grid, NT, DKDV_SMEM, st>>>(q, k, v, ld, dout, ldo, lse, delta,
-                                           valid_len, dk, dv, ldg, s_pad, qscale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  dq_kernel<<<grid, NT, DQ_SMEM, st>>>(q, k, v, ld, dout, ldo, lse, delta,
-                                       valid_len, dq, ldg, s_pad, qscale, scale);
-  return (int)cudaGetLastError();
+  return launch(q, k, v, ld, o, dout, ldo, lse, delta, valid_len, dq, dk, dv, ldg,
+                batch, heads, head_dim, s_pad, qscale, scale,
+                static_cast<cudaStream_t>(stream));
+}
+int prefix_attention_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, int ld,
+                              const bf16* o, const bf16* dout, int ldo,
+                              const float* lse, float* delta, const int* valid_len,
+                              bf16* dq, bf16* dk, bf16* dv, int ldg, int batch,
+                              int heads, int head_dim, int s_pad, float qscale,
+                              float scale, void* stream) {
+  return launch(q, k, v, ld, o, dout, ldo, lse, delta, valid_len, dq, dk, dv, ldg,
+                batch, heads, head_dim, s_pad, qscale, scale,
+                static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

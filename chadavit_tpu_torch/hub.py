@@ -28,11 +28,13 @@ def load_chadavit16_moyen(checkpoint: Optional[str] = None, img_size: int = 224,
                           verify_md5: bool = False) -> ChAdaViT:
     """The canonical checkpoint config, in eval mode on ``device``.
 
-    ``device=None`` means ``"cuda"``, and raises where CUDA is absent: pass
-    ``device="cpu"`` to run the plain versions on the CPU. With no
-    ``checkpoint`` the weights come from ``seed`` through numpy
-    (:func:`random_state_dict`). ``verify_md5=True`` checks the published
-    checkpoint hash (cell-8/9).
+    ``dtype`` is the compute dtype (float32 or bfloat16), as in the JAX hub
+    (``hub.py:31-32``): the parameters stay float32 on the device, LayerNorm
+    parameters included, and are cast at use. ``device=None`` means
+    ``"cuda"``, and raises where CUDA is absent: pass ``device="cpu"`` to run
+    the plain versions on the CPU. With no ``checkpoint`` the weights come
+    from ``seed`` through numpy (:func:`random_state_dict`).
+    ``verify_md5=True`` checks the published checkpoint hash (cell-8/9).
     """
     if device is None:
         if not torch.cuda.is_available():
@@ -40,7 +42,7 @@ def load_chadavit16_moyen(checkpoint: Optional[str] = None, img_size: int = 224,
                                "pass device='cpu' to run on the CPU")
         device = "cuda"
     model = chada_vit(patch_size=16, embed_dim=192, return_all_tokens=False,
-                      max_number_channels=10, img_size=img_size)
+                      max_number_channels=10, img_size=img_size, dtype=dtype)
     if checkpoint and verify_md5:
         with open(checkpoint, "rb") as f:
             digest = hashlib.md5(f.read()).hexdigest()
@@ -49,7 +51,7 @@ def load_chadavit16_moyen(checkpoint: Optional[str] = None, img_size: int = 224,
                 f"checkpoint md5 {digest} != published {CHADAVIT16_MOYEN_MD5}")
     sd = import_backbone_checkpoint(checkpoint) if checkpoint else random_state_dict(model, seed)
     model.load_state_dict(sd)
-    return model.to(device=device, dtype=dtype).eval()
+    return model.to(device=device).eval()
 
 
 def collate_images(images: Sequence[np.ndarray], max_channels: int = 10
@@ -73,14 +75,15 @@ def collate_images(images: Sequence[np.ndarray], max_channels: int = 10
 @torch.inference_mode()
 def extract_embeddings(model: ChAdaViT, images: Sequence[np.ndarray],
                        batch_size: int = 64, max_channels: int = 10) -> np.ndarray:
-    """``(B, D)`` CLS embeddings for a ragged list of multi-channel images,
-    ``batch_size`` images per forward, on the model's device."""
-    param = next(model.parameters())
+    """``(B, D)`` float32 CLS embeddings for a ragged list of multi-channel
+    images, ``batch_size`` images per forward, on the model's device and in
+    its compute dtype (the images are cast to it)."""
+    device = next(model.parameters()).device
     out = []
     for s in range(0, len(images), batch_size):
         x, cc = collate_images(images[s:s + batch_size], max_channels)
-        x = x.to(device=param.device, dtype=param.dtype)
-        emb = model(x, cc.to(param.device))
+        x = x.to(device=device, dtype=model.dtype)
+        emb = model(x, cc.to(device))
         out.append(emb.float().cpu().numpy())
     return np.concatenate(out)
 

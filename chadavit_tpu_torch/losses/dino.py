@@ -39,7 +39,10 @@ def dino_loss_and_center(student_logits: torch.Tensor, teacher_logits: torch.Ten
                          center_momentum: float = 0.9) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(loss, new_center)``. ``student_logits`` ``(crops * B, P)``
     crop-major, ``teacher_logits`` ``(2 B, P)``, ``center`` ``(1, P)``. The
-    teacher side gets no gradient."""
+    teacher side gets no gradient. Logits in a narrower dtype (a bfloat16
+    head) are upcast to float32 first, as the JAX step does
+    (``dino_step.py:111``): the loss and the center are float32."""
+    student_logits, teacher_logits = student_logits.float(), teacher_logits.float()
     student_chunks = (student_logits / student_temp).chunk(num_large_crops, dim=0)
     teacher_probs = F.softmax((teacher_logits - center) / teacher_temp, dim=-1).detach()
     total = torch.zeros((), dtype=torch.float32, device=student_logits.device)

@@ -20,6 +20,12 @@ With grad enabled (the DINO student) each layer runs
 tokenizer, the pos/channel tokens and the final norm stay plain torch ops with
 autograd, as the JAX package leaves them to XLA. Dropout is not ported: a
 rate above 0 raises.
+
+``dtype`` is the compute dtype, float32 or bfloat16, as the JAX modules'
+``dtype``: the parameters stay float32 (``param_dtype``, the only one
+honoured) and are cast at use; the tokenizer, the layers and the final norm
+compute in ``dtype`` (LayerNorm statistics in float32), and the embeddings
+come out in ``dtype``.
 """
 
 from __future__ import annotations
@@ -34,6 +40,16 @@ import torch.nn.functional as F
 from chadavit_tpu_torch.ops import fused_block
 from chadavit_tpu_torch.ops.attention import masked_multihead_attention
 from chadavit_tpu_torch.ops.layernorm import layernorm
+
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_dtypes(dtype: torch.dtype, param_dtype: torch.dtype) -> None:
+    if dtype not in COMPUTE_DTYPES:
+        raise NotImplementedError(f"dtype {dtype}: the port computes in float32 or bfloat16")
+    if param_dtype != torch.float32:
+        raise NotImplementedError(
+            f"param_dtype {param_dtype}: the port keeps its parameters in float32")
 
 
 def channel_padding_mask(channel_counts: torch.Tensor, max_channels: int,
@@ -51,7 +67,9 @@ def channel_padding_mask(channel_counts: torch.Tensor, max_channels: int,
 class TokenLearner(nn.Module):
     """Single-channel patch embedding (reference ``TokenLearner``). The
     stride == kernel convolution runs as unfold + matmul, the JAX
-    ``use_conv=False`` path, so no TF32 convolution enters the f32 path."""
+    ``use_conv=False`` lowering of the same function, so no TF32 convolution
+    enters the f32 path. It computes in the input's dtype: kernel and bias
+    are cast to it, as the JAX ``PatchEmbed`` casts to its ``dtype``."""
 
     def __init__(self, patch_size: int, embed_dim: int):
         super().__init__()
@@ -66,8 +84,8 @@ class TokenLearner(nn.Module):
         n = len(lead)
         x = x.reshape(*lead, gh, p, gw, p).permute(*range(n), n, n + 2, n + 1, n + 3)
         x = x.reshape(*lead, gh * gw, p * p)
-        kernel = self.proj.weight.reshape(self.proj.weight.shape[0], p * p)
-        return torch.matmul(x, kernel.t()) + self.proj.bias
+        kernel = self.proj.weight.reshape(self.proj.weight.shape[0], p * p).to(x.dtype)
+        return torch.matmul(x, kernel.t()) + self.proj.bias.to(x.dtype)
 
 
 class SelfAttentionParams(nn.Module):
@@ -89,17 +107,21 @@ class EncoderLayer(nn.Module):
     attention weights are asked for: on CUDA that is the kernel chain, which
     raises without ``valid_len`` or at widths it is not built for. ``"xla"``
     forces the unfused plain path, which also returns attention weights and
-    serves CPU calls without ``valid_len``.
+    serves CPU calls without ``valid_len``. The layer computes in ``dtype``
+    (its input is cast to it) with float32 parameters cast at use.
     """
 
     def __init__(self, embed_dim: int, num_heads: int, ffn_dim: int = 2048,
                  layer_norm_eps: float = 1e-5, block_impl: str = "auto",
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         if block_impl not in ("auto", "xla"):
             raise ValueError(f"block impl {block_impl!r}: want 'auto' or 'xla'")
         if dropout_rate > 0:
             raise NotImplementedError(f"dropout rate {dropout_rate}: dropout is not ported")
+        _check_dtypes(dtype, param_dtype)
+        self.dtype = dtype
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.layer_norm_eps = layer_norm_eps
@@ -121,24 +143,29 @@ class EncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor],
                 valid_len: Optional[torch.Tensor] = None,
                 return_attention: bool = False) -> torch.Tensor:
-        eps = self.layer_norm_eps
+        eps, dt = self.layer_norm_eps, self.dtype
+        x = x.to(dt)
         if (self.block_impl == "auto" and not return_attention
                 and (valid_len is not None or x.is_cuda)):
             return fused_block.fused_encoder_block(
                 x, valid_len, *self.weights(), self.num_heads, eps, eps)
 
+        def linear(t, lin):
+            return F.linear(t, lin.weight.to(dt), lin.bias.to(dt))
+
         d = self.embed_dim
         qkv = torch.matmul(layernorm(x, self.norm1.weight, self.norm1.bias, eps),
-                           self.self_attn.in_proj_weight.t()) + self.self_attn.in_proj_bias
+                           self.self_attn.in_proj_weight.to(dt).t()) \
+            + self.self_attn.in_proj_bias.to(dt)
         q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
         attn_out, attn_weights = masked_multihead_attention(
             q, k, v, key_padding_mask, self.num_heads,
             return_weights=return_attention, valid_len=valid_len)
         if return_attention:
             return attn_weights
-        attn_out = self.self_attn.out_proj(attn_out)
+        attn_out = linear(attn_out, self.self_attn.out_proj)
         x = layernorm(attn_out, self.norm1.weight, self.norm1.bias, eps, residual=x)
-        h = self.linear2(torch.relu(self.linear1(x)))
+        h = linear(torch.relu(linear(x, self.linear1)), self.linear2)
         return layernorm(h, self.norm2.weight, self.norm2.bias, eps, residual=x)
 
 
@@ -151,8 +178,11 @@ class ChAdaViT(nn.Module):
                  ffn_dim: int = 2048, max_channels: int = 10,
                  return_all_tokens: bool = True, layer_norm_eps: float = 1e-5,
                  final_norm_eps: float = 1e-6, block_impl: str = "auto",
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
+        _check_dtypes(dtype, param_dtype)
+        self.dtype = dtype
         self.img_size = img_size
         self.patch_size = patch_size
         self.embed_dim = embed_dim
@@ -167,7 +197,8 @@ class ChAdaViT(nn.Module):
         self.blocks = nn.ModuleList(
             # the JAX model's per-layer dropout rates (chada_vit.py:341-349)
             EncoderLayer(embed_dim, num_heads, ffn_dim, layer_norm_eps, block_impl,
-                         dropout_rate=drop_path_rate * i / max(depth - 1, 1))
+                         dropout_rate=drop_path_rate * i / max(depth - 1, 1),
+                         dtype=dtype, param_dtype=param_dtype)
             for i in range(depth))
         self.norm = nn.LayerNorm(embed_dim, eps=final_norm_eps)
 
@@ -201,12 +232,14 @@ class ChAdaViT(nn.Module):
             raise ValueError(f"x has {c} channels, the model takes {self.max_channels}")
         n = (h // self.patch_size) * (w // self.patch_size)
         mask = channel_padding_mask(channel_counts, c, n)
-        tokens = self.token_learner(x)  # (B, C, N, D)
-        tokens = tokens + self._patch_pos_embed(w, h)
+        dt = self.dtype
+        tokens = self.token_learner(x.to(dt))  # (B, C, N, D)
+        tokens = tokens + self._patch_pos_embed(w, h).to(dt)
         if add_channel_tokens:
-            tokens = tokens + self.channel_token[:, :c]
+            tokens = tokens + self.channel_token[:, :c].to(dt)
         tokens = tokens.reshape(b, c * n, self.embed_dim)
-        cls = (self.cls_token + self.pos_embed[:, :, 0]).expand(b, 1, self.embed_dim)
+        cls = (self.cls_token.to(dt) + self.pos_embed[:, :, 0].to(dt)).expand(
+            b, 1, self.embed_dim)
         return torch.cat([cls, tokens], dim=1), mask
 
     def forward(self, x: torch.Tensor, channel_counts: torch.Tensor,
@@ -254,9 +287,34 @@ class ChAdaViT(nn.Module):
         return outputs
 
 
+# The JAX factory's keys that the port takes only at the values it honours;
+# any other value raises with the key's name. ``patch_embed_conv`` selects one
+# of two lowerings of the same patch embedding, both honoured by the port's
+# one. The Pallas LayerNorm (``ln_impl="pallas"``) and a device mesh belong to
+# later slices.
+_FACTORY_VALUES = {
+    "param_dtype": (torch.float32,),
+    "attn_impl": ("auto",),
+    "ln_impl": ("auto", "xla"),
+    "seq_pad_multiple": (fused_block.SEQ_PAD,),
+    "patch_embed_conv": (True, False),
+    "shard_mesh": (None,),
+}
+
+
 def chada_vit(**kwargs) -> ChAdaViT:
     """Canonical factory (reference ``chada_vit.py:333-339``): depth 12,
-    heads 2, final-norm eps 1e-6."""
+    heads 2, final-norm eps 1e-6. It reads the JAX factory's keys
+    (``chadavit_tpu/models/chada_vit.py:533-552``): ``dtype`` (float32 or
+    bfloat16) is honoured, and ``param_dtype``, ``attn_impl``, ``ln_impl``,
+    ``seq_pad_multiple``, ``patch_embed_conv`` and ``shard_mesh`` are taken at
+    the values in :data:`_FACTORY_VALUES`; any other value raises
+    ``NotImplementedError``."""
+    for key, honoured in _FACTORY_VALUES.items():
+        if key in kwargs and kwargs[key] not in honoured:
+            raise NotImplementedError(
+                f"chada_vit: {key}={kwargs[key]!r} is not ported; the port takes "
+                f"{key} in {honoured}")
     return ChAdaViT(
         patch_size=kwargs.get("patch_size", 16),
         embed_dim=kwargs.get("embed_dim", 192),
@@ -267,6 +325,8 @@ def chada_vit(**kwargs) -> ChAdaViT:
         img_size=kwargs.get("img_size", 224),
         block_impl=kwargs.get("block_impl", "auto"),
         drop_path_rate=kwargs.get("drop_path_rate", 0.0),
+        dtype=kwargs.get("dtype", torch.float32),
+        param_dtype=kwargs.get("param_dtype", torch.float32),
     )
 
 

@@ -10,12 +10,17 @@ gradient under ``norm_last_layer`` (reference ``dino.py:78-84``).
 Parameter names follow the reference torch state dict: ``mlp.0``, ``mlp.2``,
 ``mlp.4`` (GELUs between) and ``last_layer.weight_v`` /
 ``last_layer.weight_g``. BatchNorm in the head is not ported.
+
+``dtype`` is the compute dtype, as the JAX head's (``dino_head.py:65-72``):
+the parameters stay float32 and are cast to it at use, and the logits come
+out in it; the train step upcasts them to float32 for the loss.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -32,10 +37,14 @@ class _WeightNormPrototypes(nn.Module):
 class DINOHead(nn.Module):
     def __init__(self, in_dim: int, num_prototypes: int, use_bn: bool = False,
                  norm_last_layer: bool = True, num_layers: int = 3,
-                 hidden_dim: int = 2048, bottleneck_dim: int = 256):
+                 hidden_dim: int = 2048, bottleneck_dim: int = 256,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if use_bn:
             raise NotImplementedError("BatchNorm in the DINO head is not ported")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise NotImplementedError(f"dtype {dtype}: the head computes in float32 or bfloat16")
+        self.dtype = dtype
         self.norm_last_layer = norm_last_layer
         num_layers = max(num_layers, 1)
         if num_layers == 1:
@@ -50,11 +59,17 @@ class DINOHead(nn.Module):
                                                 train_g=not norm_last_layer)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.mlp(x)
+        dt = self.dtype
+        x = x.to(dt)
+        for layer in (self.mlp if isinstance(self.mlp, nn.Sequential) else [self.mlp]):
+            if isinstance(layer, nn.Linear):
+                x = F.linear(x, layer.weight.to(dt), layer.bias.to(dt))
+            else:
+                x = layer(x)
         x = x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-12)
-        v = self.last_layer.weight_v
+        v = self.last_layer.weight_v.to(dt)
         w = v / torch.clamp(torch.linalg.vector_norm(v, dim=1, keepdim=True), min=1e-12)
-        g = self.last_layer.weight_g
+        g = self.last_layer.weight_g.to(dt)
         w = w * (g.detach() if self.norm_last_layer else g)
         return torch.matmul(x, w.t())
 

@@ -30,7 +30,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # argument types of every C entry point: pointers and the stream as c_void_p,
-# so that ctypes never cuts a 64-bit pointer to a 32-bit int
+# so that ctypes never cuts a 64-bit pointer to a 32-bit int. The float32
+# entry points; each has a bf16 twin (below).
 SIGNATURES = {
     "ln_linear_fwd": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _P],
@@ -47,6 +48,8 @@ SIGNATURES = {
     "linear_wgrad": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _P],
 }
+# the bf16 instance of each kernel: the same arguments, bf16 activations
+SIGNATURES.update({f"{name}_bf16": argtypes for name, argtypes in list(SIGNATURES.items())})
 
 _lib = None
 

@@ -2,7 +2,18 @@
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
+
+# Launches per C entry point (``ln_linear_fwd``, ``ln_linear_fwd_bf16``, ...),
+# counted where a wrapper launches its kernel and nowhere else.
+LAUNCHES: Counter = Counter()
+
+
+def counted(name: str) -> None:
+    """Count one launch of entry point ``name``."""
+    LAUNCHES[name] += 1
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
@@ -21,14 +32,32 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     return False
 
 
-def float_operand(t: torch.Tensor, name: str) -> int:
-    """Pointer of a contiguous float32 CUDA tensor, aligned for float4 loads."""
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the kernels take float32, got {t.dtype}")
+# The activation dtypes the kernels are built for, and the suffix of their C
+# entry points: the float32 instances keep the plain names, the bf16 ones end
+# in _bf16. Every call takes one activation dtype; LN parameters, row stats,
+# lse and parameter gradients are float32 in both.
+KERNEL_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
+def entry_point(name: str, dtype: torch.dtype) -> str:
+    """The C entry point of kernel ``name`` for activations of ``dtype``;
+    raises on a dtype there is no kernel for (nothing is cast quietly)."""
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: the kernels take float32 or bfloat16 activations, "
+                        f"got {dtype}")
+    return name + KERNEL_DTYPES[dtype]
+
+
+def vector_operand(t: torch.Tensor, name: str, dtype: torch.dtype = torch.float32) -> int:
+    """Pointer of a contiguous CUDA tensor of ``dtype`` (float32 or bfloat16),
+    aligned for the kernels' loads of four elements: 16 bytes for float32, 8
+    for bfloat16."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: the kernel takes {dtype} here, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: must be 16-byte aligned")
+    if t.data_ptr() % (4 * t.element_size()):
+        raise ValueError(f"{name}: must be aligned to {4 * t.element_size()} bytes")
     return t.data_ptr()
 
 

@@ -13,10 +13,21 @@ With grad enabled, :func:`prefix_flash_attention` runs
 :class:`PrefixFlashAttention`: its forward also writes the base-2 lse of each
 query row, and its backward is ``csrc/prefix_attention_bwd.cu``
 (:func:`prefix_attention_bwd`), with the TPU kernel's explicit-lse and
-``delta = rowsum(do * o)`` formulation. The backward keeps the model's
-contract: the cotangent is zero on query rows ``>= valid_len`` (the model
-reads only CLS), so those rows contribute nothing and their dq, dk and dv are
-zero.
+``delta = rowsum(do * o)`` formulation. The backward keeps the TPU kernel's
+contract (``flash_attention.py:166-172``): the forward computes every query
+row of a :data:`SEQ_BLOCK` (64-row) tile that holds a valid query for real,
+also the rows past ``valid_len``, and the backward is exact for any
+cotangent on those rows. Query tiles wholly past the prefix (zero-filled,
+lse 1e30) give nothing and get dq = 0; keys past ``valid_len`` stay masked,
+so their dk and dv are 0. The JAX kernel's tile is its 128/256 block, the
+port's is 64.
+
+Both kernels exist for float32 and bfloat16 q/k/v (one dtype per call; the
+lse is float32). The bfloat16 instances and plain versions round where the
+JAX kernels cast to the input dtype: the scaled q (the scale itself rounded
+to bfloat16, as JAX multiplies by a weak-typed scalar), the probabilities
+before ``P V`` and ``dv = p^T do``, ``ds`` before ``dk`` and ``dq``, and every
+output; scores, softmax statistics, ``delta`` and every sum stay float32.
 """
 
 from __future__ import annotations
@@ -43,12 +54,33 @@ def _merge(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * hd)
 
 
+def _qscale(head_dim: int, dtype: torch.dtype) -> float:
+    """``log2(e) / sqrt(head_dim)``, the factor folded into q; for a bfloat16 q
+    rounded to bfloat16, as the JAX kernels multiply a bfloat16 q by a
+    weak-typed Python scalar (``flash_attention.py:123-125``)."""
+    qscale = _LOG2E / math.sqrt(head_dim)
+    return qscale if dtype == torch.float32 else torch.tensor(qscale, dtype=dtype).item()
+
+
+def _scaled_q(q, num_heads):
+    """``q scale log2(e)`` per head ``(B, H, S, hd)`` in f32, rounded to q's
+    dtype when that is narrower."""
+    qs = _split(q, num_heads).float() * _qscale(q.shape[-1] // num_heads, q.dtype)
+    return qs if q.dtype == torch.float32 else qs.to(q.dtype).float()
+
+
+def computed_rows(s: int, valid_len, device) -> torch.Tensor:
+    """``(B, S)`` bool: row ``r`` lies in a :data:`SEQ_BLOCK` query tile that
+    holds a valid query, so the forward computes it for real."""
+    start = torch.arange(s, device=device) // SEQ_BLOCK * SEQ_BLOCK
+    return start[None, :] < valid_len.to(device)[:, None]
+
+
 def _masked_scores(q, k, valid_len, num_heads):
     """Base-2 scores ``q k^T scale log2(e)`` (B, H, S, S) in f32, keys
     ``>= valid_len`` set to -inf."""
-    b, s, d = q.shape
-    qscale = _LOG2E / math.sqrt(d // num_heads)
-    scores = torch.matmul(_split(q, num_heads).float() * qscale,
+    s = q.shape[1]
+    scores = torch.matmul(_scaled_q(q, num_heads),
                           _split(k, num_heads).float().transpose(-1, -2))
     key_ok = torch.arange(s, device=q.device)[None, :] < valid_len.to(q.device)[:, None]
     return scores.masked_fill(~key_ok[:, None, None, :], float("-inf"))
@@ -58,12 +90,19 @@ def prefix_flash_attention_reference(q, k, v, valid_len, num_heads: int,
                                      return_lse: bool = False):
     """Plain version: f32 scores, keys ``>= valid_len`` masked, an explicit
     softmax in base 2. q/k/v ``(B, S, D)``; returns ``(B, S, D)`` in q's dtype,
-    and with ``return_lse`` also the base-2 lse ``(B, H, S)``."""
+    and with ``return_lse`` also the base-2 lse ``(B, H, S)``. For bfloat16 the
+    scaled q and the probabilities are rounded to bfloat16 before their
+    products, and the sum ``l`` is of the unrounded probabilities
+    (``flash_attention.py:123-136``)."""
     scores = _masked_scores(q, k, valid_len, num_heads)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp2(scores - m)
     l = p.sum(dim=-1, keepdim=True)
-    out = _merge(torch.matmul(p / l, _split(v, num_heads).float())).to(q.dtype)
+    vh = _split(v, num_heads).float()
+    if q.dtype == torch.float32:
+        out = _merge(torch.matmul(p / l, vh)).to(q.dtype)
+    else:
+        out = _merge(torch.matmul(p.to(q.dtype).float(), vh) / l).to(q.dtype)
     if return_lse:
         return out, (m + torch.log2(l))[..., 0]
     return out
@@ -74,38 +113,50 @@ def prefix_flash_attention_backward_reference(q, k, v, o, lse, do, valid_len,
     """Plain version of the backward (the TPU kernel's formulation,
     ``flash_attention.py:157-230,353-407``): ``delta = rowsum(do * o)`` per
     head, ``p = exp2(q k^T scale log2(e) - lse)``, ``ds = p (do v^T - delta)``,
-    ``dq = ds k scale``, ``dk = ds^T q scale``, ``dv = p^T do``. Query rows
-    ``>= valid_len`` are taken as zero cotangent (the model's contract).
-    Returns ``dqkv = [dq, dk, dv]``, ``(B, S, 3 D)``."""
+    ``dq = ds k scale``, ``dk = ds^T q scale``, ``dv = p^T do``. Every query row
+    the forward computes (:func:`computed_rows`) takes part with its
+    cotangent; the rows of query tiles wholly past the prefix give nothing
+    and get dq = 0. For bfloat16, p is rounded before ``dv``, ds before ``dk``
+    and ``dq``, and ``dk`` is taken against the rounded scaled q, as the TPU
+    kernel does. Returns ``dqkv = [dq, dk, dv]``, ``(B, S, 3 D)``."""
     b, s, d = q.shape
     scale = 1.0 / math.sqrt(d // num_heads)
-    row_ok = (torch.arange(s, device=q.device)[None, :]
-              < valid_len.to(q.device)[:, None])[:, None, :, None]  # (B, 1, S, 1)
+    row_ok = computed_rows(s, valid_len, q.device)[:, None, :, None]  # (B, 1, S, 1)
     doh = torch.where(row_ok, _split(do, num_heads).float(), 0.0)
     oh = _split(o, num_heads).float()
     delta = (doh * oh).sum(-1, keepdim=True)
     p = torch.where(row_ok, torch.exp2(_masked_scores(q, k, valid_len, num_heads)
                                        - lse[..., None]), 0.0)
-    vh, kh, qh = (_split(t, num_heads).float() for t in (v, k, q))
-    dv = torch.matmul(p.transpose(-1, -2), doh)
-    ds = p * (torch.matmul(doh, vh.transpose(-1, -2)) - delta)
-    dq = torch.matmul(ds, kh) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
+    vh, kh = (_split(t, num_heads).float() for t in (v, k))
+    if q.dtype == torch.float32:
+        qh = _split(q, num_heads).float()
+        dv = torch.matmul(p.transpose(-1, -2), doh)
+        ds = p * (torch.matmul(doh, vh.transpose(-1, -2)) - delta)
+        dq = torch.matmul(ds, kh) * scale
+        dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
+    else:
+        dt = q.dtype
+        dv = torch.matmul(p.to(dt).float().transpose(-1, -2), doh)
+        ds = (p * (torch.matmul(doh, vh.transpose(-1, -2)) - delta)).to(dt).float()
+        dq = torch.matmul(ds, kh) * scale
+        dk = torch.matmul(ds.transpose(-1, -2), _scaled_q(q, num_heads)) * (1.0 / _LOG2E)
     return torch.cat([_merge(t) for t in (dq, dk, dv)], dim=-1).to(q.dtype)
 
 
 # ---------------------------------------------------------------- kernels ----
 def _packed_rows(*ts):
-    """Row stride shared by the tensors when each is a column slice of rows
-    with unit inner stride (as the q/k/v thirds of one packed qkv tensor
-    are), else None."""
+    """Row stride (in elements) shared by the tensors when each is a column
+    slice of rows with unit inner stride (as the q/k/v thirds of one packed
+    qkv tensor are) that the kernels' loads of four elements can read: the
+    stride a multiple of 4 and every start aligned to 4 elements (16 bytes of
+    float32, 8 of bfloat16). Else None."""
     b, s, d = ts[0].shape
     ld = ts[0].stride(1)
     if ld % 4:
         return None
     for t in ts:
         if (t.stride(2) != 1 or t.stride(1) != ld or t.stride(0) != s * ld
-                or t.data_ptr() % 16):
+                or t.data_ptr() % (4 * t.element_size())):
             return None
     return ld
 
@@ -117,9 +168,11 @@ def _check_heads(q, k, v, num_heads):
     hd = d // num_heads
     if hd != HEAD_DIM:
         raise ValueError(f"head dim {hd}: the kernel is built for {HEAD_DIM}")
-    for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+    if q.dtype not in _launch.KERNEL_DTYPES:
+        raise TypeError(f"q: the kernels take float32 or bfloat16, got {q.dtype}")
+    for t, name in ((k, "k"), (v, "v")):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: {t.dtype}, q {q.dtype}: one dtype per call")
     return b, s, d, hd
 
 
@@ -138,17 +191,19 @@ def attention_forward(q, k, v, valid_len, num_heads: int, with_lse: bool):
     if ld is None:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         ld = d
+    dt = q.dtype
     vl = _launch.valid_len_operand(valid_len, b, q.device)
-    out = torch.empty((b, s_pad, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, s_pad, d), dtype=dt, device=q.device)
     lse = (torch.empty((b, num_heads, s_pad), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    status = _build.library().prefix_attention_fwd(
+    name = _launch.entry_point("prefix_attention_fwd", dt)
+    status = getattr(_build.library(), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, vl,
-        _launch.float_operand(out, "out"), d,
+        _launch.vector_operand(out, "out", dt), d,
         None if lse is None else lse.data_ptr(), b, num_heads, hd, s_pad,
-        _LOG2E / math.sqrt(hd), _launch.stream(q.device))
-    _build.check(status, "prefix_attention_fwd")
-    prefix_flash_attention.launches += 1
+        _qscale(hd, dt), _launch.stream(q.device))
+    _build.check(status, name)
+    _launch.counted(name)
     if s_pad != s:
         out = out[:, :s]
         lse = None if lse is None else lse[..., :s]
@@ -172,18 +227,21 @@ def prefix_attention_bwd(q, k, v, o, lse, do, valid_len, num_heads: int):
     if ld is None:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         ld = d
+    dt = q.dtype
     o, do = o.contiguous(), do.contiguous()
     vl = _launch.valid_len_operand(valid_len, b, q.device)
-    dqkv = torch.empty((b, s, 3 * d), dtype=q.dtype, device=q.device)
+    dqkv = torch.empty((b, s, 3 * d), dtype=dt, device=q.device)
     delta = torch.empty((b, num_heads, s), dtype=torch.float32, device=q.device)
-    status = _build.library().prefix_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, _launch.float_operand(o, "o"),
-        _launch.float_operand(do, "do"), d, _launch.float_operand(lse, "lse"),
-        delta.data_ptr(), vl, dqkv.data_ptr(), dqkv.data_ptr() + 4 * d,
-        dqkv.data_ptr() + 8 * d, 3 * d, b, num_heads, hd, s,
-        _LOG2E / math.sqrt(hd), 1.0 / math.sqrt(hd), _launch.stream(q.device))
-    _build.check(status, "prefix_attention_bwd")
-    prefix_attention_bwd.launches += 1
+    third = d * dqkv.element_size()  # bytes from dq to dk to dv in a packed row
+    name = _launch.entry_point("prefix_attention_bwd", dt)
+    status = getattr(_build.library(), name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, _launch.vector_operand(o, "o", dt),
+        _launch.vector_operand(do, "do", dt), d, _launch.vector_operand(lse, "lse"),
+        delta.data_ptr(), vl, dqkv.data_ptr(), dqkv.data_ptr() + third,
+        dqkv.data_ptr() + 2 * third, 3 * d, b, num_heads, hd, s,
+        _qscale(hd, dt), 1.0 / math.sqrt(hd), _launch.stream(q.device))
+    _build.check(status, name)
+    _launch.counted(name)
     return dqkv
 
 
@@ -212,8 +270,9 @@ def prefix_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            valid_len: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Masked MHA where key ``j`` of image ``b`` is valid iff ``j < valid_len[b]``.
 
-    q/k/v: ``(B, S, D)`` float32; valid_len ``(B,)`` int32. On CUDA tensors
-    it launches ``prefix_attention_fwd``, whose head width is :data:`HEAD_DIM`,
+    q/k/v: ``(B, S, D)`` float32 or bfloat16; valid_len ``(B,)`` int32. On
+    CUDA tensors it launches ``prefix_attention_fwd`` (``_bf16`` for bfloat16),
+    whose head width is :data:`HEAD_DIM`,
     and raises on any other; on CPU tensors it runs
     :func:`prefix_flash_attention_reference`. When autograd records the call
     it goes through :class:`PrefixFlashAttention`, whose backward is
@@ -231,5 +290,3 @@ def prefix_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out if s_pad == s else out[:, :s]
 
 
-prefix_flash_attention.launches = 0
-prefix_attention_bwd.launches = 0

@@ -27,13 +27,29 @@ JAX kernels. The GEMM kernels are ``csrc/fused_block.cu`` and
 ``csrc/fused_block_bwd.cu``. Each step has a plain version here; a CPU tensor
 takes it, a CUDA tensor the kernel.
 
-Row tiles wholly past ``valid_len`` are skipped and written as zeros, as the
-TPU kernel skips its fully-invalid sequence blocks. Rows past ``valid_len``
-are not contractual (``chadavit_tpu/models/chada_vit.py:461-465``). The
-backward keeps the contract the model needs: the cotangent is zero on rows
-``>= valid_len`` (the model reads only CLS). Under it, dx on rows
-``< valid_len`` and all 12 parameter gradients equal autograd through the
-plain forward, and dx on rows ``>= valid_len`` is zero.
+Row tiles of :data:`ROW_BLOCK` (32) rows wholly past ``valid_len`` are
+skipped and written as zeros, as the TPU kernel skips its fully-invalid
+sequence blocks; every row of a tile that holds a valid row is computed for
+real, also its rows past ``valid_len``. That 32-row tile is what "computed
+for real" means for the port's layer (the JAX kernel's is its 128/256-row
+block); padded positions are not contractual either way
+(``chadavit_tpu/models/chada_vit.py:461-465``). The backward keeps the TPU
+kernel's contract (``fused_block.py:33-39``): it is exact for any cotangent
+on the rows the forward computed, so dx on those rows and all 12 parameter
+gradients equal autograd through the plain forward; rows of the zero-filled
+tiles give nothing and get dx = 0. Keys past ``valid_len`` stay masked.
+
+Precision follows the JAX kernels, not ``torch.autocast``: the layer takes
+float32 or bfloat16 activations. The parameters stay float32; the matrices
+and biases are cast to the activation dtype at use (:func:`pack_weights`,
+the JAX ``_pack_weights``) and the LayerNorm parameters stay float32. In
+bfloat16 every product sums in float32 and rounds to bfloat16 before its
+bfloat16 bias add; residual adds are bfloat16; LayerNorm statistics are
+float32 and the LN output is rounded to bfloat16; the saved residuals
+(``x``, ``attn``, ``x2``, ``r2``) are bfloat16 and the lse and stats float32;
+dx is bfloat16 and the parameter gradients float32. The kernels have a
+bfloat16 instance each (C entry points ending in ``_bf16``), and the plain
+versions round at the same points.
 """
 
 from __future__ import annotations
@@ -61,24 +77,32 @@ def _ln(x, mu, rstd, g, b):
     return ((x.float() - mu) * rstd * g.float() + b.float()).to(x.dtype)
 
 
-def _row_mask(x: torch.Tensor, valid_len) -> torch.Tensor:
-    """``(B, S, 1)`` bool: row ``< valid_len`` of its image."""
-    s = x.shape[1]
-    return (torch.arange(s, device=x.device)[None, :]
-            < valid_len.to(x.device)[:, None])[..., None]
+def _mm(a, w):
+    """``a @ w^T`` (w ``(N, K)``); a bfloat16 product sums in float32 and
+    rounds to bfloat16, as the JAX kernels' ``_nn(...).astype(dt)``."""
+    if a.dtype == torch.float32:
+        return torch.matmul(a, w.t())
+    return torch.matmul(a.float(), w.float().t()).to(a.dtype)
+
+
+def computed_rows(x: torch.Tensor, valid_len) -> torch.Tensor:
+    """``(B, S, 1)`` bool: the row lies in a :data:`ROW_BLOCK` tile that holds
+    a valid row of its image, so the forward computes it for real."""
+    start = torch.arange(x.shape[1], device=x.device) // ROW_BLOCK * ROW_BLOCK
+    return (start[None, :] < valid_len.to(x.device)[:, None])[..., None]
 
 
 def ln_linear_reference(x, g, b, eps, w, bias, valid_len=None, save: bool = False):
     """``LN(x) @ w^T + bias``; x ``(B, S, K)``, w ``(N, K)``. With ``save``
     also the LN row mean and rstd, ``(B, S)`` each."""
     mu, rstd = layernorm_stats(x, eps)
-    out = torch.matmul(_ln(x, mu, rstd, g, b), w.t()) + bias
+    out = _mm(_ln(x, mu, rstd, g, b), w) + bias
     return (out, mu[..., 0], rstd[..., 0]) if save else out
 
 
 def linear_relu_reference(x, w, bias, valid_len=None):
     """``relu(x @ w^T + bias)``."""
-    return torch.relu(torch.matmul(x, w.t()) + bias)
+    return torch.relu(_mm(x, w) + bias)
 
 
 def linear_residual_ln_reference(a, w, bias, residual, g, b, eps, valid_len=None,
@@ -86,7 +110,7 @@ def linear_residual_ln_reference(a, w, bias, residual, g, b, eps, valid_len=None
     """``LN(residual + (a @ w^T + bias))``: the residual add in the input
     dtype, then f32 LayerNorm (the double-norm1 site and the LN2 site). With
     ``save`` also the LN row mean and rstd ``(B, S)`` and the pre-LN sum r."""
-    r = residual + (torch.matmul(a, w.t()) + bias)
+    r = residual + (_mm(a, w) + bias)
     mu, rstd = layernorm_stats(r, eps)
     out = _ln(r, mu, rstd, g, b)
     return (out, mu[..., 0], rstd[..., 0], r) if save else out
@@ -96,10 +120,12 @@ def layernorm_bwd_reference(dy, xin, mean, rstd, g, valid_len, residual=None,
                             dgb=None):
     """Backward of ``y = LN(xin) g + beta`` from the saved row stats
     (``fused_block.py:242-252``): ``dx = rstd (dy g - mean(dy g) - xhat
-    mean(dy g xhat))`` plus ``residual``, and ``dgb = [dgamma, dbeta]``
-    ``(2 D,)``, summed into ``dgb`` when it is given. Rows ``>= valid_len``
-    give nothing and get ``dx = 0``. Returns ``(dx, dgb)``."""
-    ok = _row_mask(dy, valid_len)
+    mean(dy g xhat))`` plus ``residual``, in f32 and rounded once to dy's
+    dtype, and ``dgb = [dgamma, dbeta]`` ``(2 D,)`` in f32, summed into
+    ``dgb`` when it is given. Rows the forward did not compute
+    (:func:`computed_rows`) give nothing and get ``dx = 0``. Returns
+    ``(dx, dgb)``."""
+    ok = computed_rows(dy, valid_len)
     d = dy.shape[-1]
     dyf = torch.where(ok, dy.float(), 0.0)
     xhat = torch.where(ok, (xin.float() - mean[..., None]) * rstd[..., None], 0.0)
@@ -118,24 +144,31 @@ def layernorm_bwd_reference(dy, xin, mean, rstd, g, valid_len, residual=None,
 
 def linear_dgrad_reference(dy, w, valid_len, relu_of=None, residual=None):
     """``dX = dY @ W`` (W in Linear layout ``(N_out, N_in)``), masked by
-    ``relu_of > 0`` or plus ``residual``; rows ``>= valid_len`` are zero."""
-    out = torch.matmul(dy, w)
+    ``relu_of > 0`` or plus ``residual``, summed in f32 and rounded once to
+    dy's dtype; rows the forward did not compute are zero."""
+    if dy.dtype == torch.float32:
+        out = torch.matmul(dy, w)
+    else:
+        out = torch.matmul(dy.float(), w.float())
     if relu_of is not None:
         out = torch.where(relu_of > 0, out, 0.0)
     if residual is not None:
         out = residual + out
-    return torch.where(_row_mask(dy, valid_len), out, 0.0)
+    return torch.where(computed_rows(dy, valid_len), out, 0.0).to(dy.dtype)
 
 
 def linear_wgrad_reference(dy, x, valid_len, ln=None):
-    """``(dW, db) = (dY^T X', colsum dY)`` over the rows ``< valid_len``;
-    ``X' = LN(X)`` with ``ln = (mean, rstd, g, beta)``, else X."""
-    ok = _row_mask(dy, valid_len)
+    """``(dW, db) = (dY^T X', colsum dY)`` in f32 over the rows the forward
+    computed; ``X' = LN(X)`` (rounded to X's dtype, the forward's h) with
+    ``ln = (mean, rstd, g, beta)``, else X."""
+    ok = computed_rows(dy, valid_len)
     if ln is not None:
         mean, rstd, g, b = ln
         x = _ln(x, mean[..., None], rstd[..., None], g, b)
     dyf = torch.where(ok, dy, 0.0).reshape(-1, dy.shape[-1])
     xf = torch.where(ok, x, 0.0).reshape(-1, x.shape[-1])
+    if dy.dtype != torch.float32:
+        dyf, xf = dyf.float(), xf.float()
     return torch.matmul(dyf.t(), xf), dyf.sum(0)
 
 
@@ -162,49 +195,59 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _library_fn(name: str, dtype: torch.dtype):
+    """``(C entry point name, its function)`` of kernel ``name`` for
+    activations of ``dtype`` (``_bf16`` for bfloat16)."""
+    full = _launch.entry_point(name, dtype)
+    return full, getattr(_build.library(), full)
+
+
 def ln_linear(x, g, b, eps: float, w, bias, valid_len, save: bool = False):
     """``LN(x) @ w^T + bias`` (kernel ``ln_linear_fwd`` on CUDA); with
-    ``save`` also the LN row mean and rstd. Forward only: raises where
+    ``save`` also the LN row mean and rstd. x, w and bias of one dtype
+    (float32 or bfloat16), g and b float32. Forward only: raises where
     autograd would record the call."""
     _launch.refuse_grad("ln_linear", x, g, b, w, bias)
     if _launch.on_cpu(x, g, b, w, bias, valid_len):
         return ln_linear_reference(x, g, b, eps, w, bias, valid_len, save)
-    n = 3 * D_MODEL
+    n, dt = 3 * D_MODEL, x.dtype
     bsz, s, k = _check("ln_linear", x, w, (D_MODEL,), n)
     if g.shape != (k,) or b.shape != (k,) or bias.shape != (n,):
         raise ValueError(f"ln_linear: g {tuple(g.shape)}, b {tuple(b.shape)}, "
                          f"bias {tuple(bias.shape)}")
-    out = torch.empty((bsz, s, n), dtype=x.dtype, device=x.device)
+    out = torch.empty((bsz, s, n), dtype=dt, device=x.device)
     mean, rstd = _stats_out(save, bsz, s, x)
-    status = _build.library().ln_linear_fwd(
-        _launch.float_operand(x, "x"), _launch.float_operand(g, "g"),
-        _launch.float_operand(b, "b"), eps, _launch.float_operand(w, "w"),
-        _launch.float_operand(bias, "bias"), _launch.float_operand(out, "out"),
+    name, fn = _library_fn("ln_linear_fwd", dt)
+    status = fn(
+        _launch.vector_operand(x, "x", dt), _launch.vector_operand(g, "g"),
+        _launch.vector_operand(b, "b"), eps, _launch.vector_operand(w, "w", dt),
+        _launch.vector_operand(bias, "bias", dt), _launch.vector_operand(out, "out", dt),
         _ptr(mean), _ptr(rstd), _launch.valid_len_operand(valid_len, bsz, x.device),
         bsz * s, k, n, s, _launch.stream(x.device))
-    _build.check(status, "ln_linear_fwd")
-    ln_linear.launches += 1
+    _build.check(status, name)
+    _launch.counted(name)
     return (out, mean, rstd) if save else out
 
 
 def linear_relu(x, w, bias, valid_len):
-    """``relu(x @ w^T + bias)`` (kernel ``linear_relu_fwd`` on CUDA).
-    Forward only: raises where autograd would record the call."""
+    """``relu(x @ w^T + bias)`` (kernel ``linear_relu_fwd`` on CUDA), all of
+    one dtype. Forward only: raises where autograd would record the call."""
     _launch.refuse_grad("linear_relu", x, w, bias)
     if _launch.on_cpu(x, w, bias, valid_len):
         return linear_relu_reference(x, w, bias, valid_len)
-    n = D_FFN
+    n, dt = D_FFN, x.dtype
     bsz, s, k = _check("linear_relu", x, w, (D_MODEL,), n)
     if bias.shape != (n,):
         raise ValueError(f"linear_relu: bias {tuple(bias.shape)}")
-    out = torch.empty((bsz, s, n), dtype=x.dtype, device=x.device)
-    status = _build.library().linear_relu_fwd(
-        _launch.float_operand(x, "x"), _launch.float_operand(w, "w"),
-        _launch.float_operand(bias, "bias"), _launch.float_operand(out, "out"),
+    out = torch.empty((bsz, s, n), dtype=dt, device=x.device)
+    name, fn = _library_fn("linear_relu_fwd", dt)
+    status = fn(
+        _launch.vector_operand(x, "x", dt), _launch.vector_operand(w, "w", dt),
+        _launch.vector_operand(bias, "bias", dt), _launch.vector_operand(out, "out", dt),
         _launch.valid_len_operand(valid_len, bsz, x.device), bsz * s, k, n, s,
         _launch.stream(x.device))
-    _build.check(status, "linear_relu_fwd")
-    linear_relu.launches += 1
+    _build.check(status, name)
+    _launch.counted(name)
     return out
 
 
@@ -212,58 +255,62 @@ def linear_residual_ln(a, w, bias, residual, g, b, eps: float, valid_len,
                        save: bool = False):
     """``LN(residual + (a @ w^T + bias))`` (kernel ``linear_residual_ln_fwd``
     on CUDA; one block owns whole output rows, so the LayerNorm is local).
-    With ``save`` also the LN row mean and rstd and the pre-LN sum r. Forward
-    only: raises where autograd would record the call."""
+    With ``save`` also the LN row mean and rstd and the pre-LN sum r. a, w,
+    bias and residual of one dtype, g and b float32. Forward only: raises
+    where autograd would record the call."""
     _launch.refuse_grad("linear_residual_ln", a, w, bias, residual, g, b)
     if _launch.on_cpu(a, w, bias, residual, g, b, valid_len):
         return linear_residual_ln_reference(a, w, bias, residual, g, b, eps, valid_len,
                                             save)
-    n = D_MODEL
+    n, dt = D_MODEL, a.dtype
     bsz, s, k = _check("linear_residual_ln", a, w, (D_MODEL, D_FFN), n)
     if (bias.shape != (n,) or residual.shape != (bsz, s, n) or g.shape != (n,)
             or b.shape != (n,)):
         raise ValueError(f"linear_residual_ln: residual {tuple(residual.shape)}, "
                          f"bias {tuple(bias.shape)}")
-    out = torch.empty((bsz, s, n), dtype=a.dtype, device=a.device)
+    out = torch.empty((bsz, s, n), dtype=dt, device=a.device)
     mean, rstd = _stats_out(save, bsz, s, a)
     r = torch.empty_like(out) if save else None
-    status = _build.library().linear_residual_ln_fwd(
-        _launch.float_operand(a, "a"), _launch.float_operand(w, "w"),
-        _launch.float_operand(bias, "bias"),
-        _launch.float_operand(residual, "residual"),
-        _launch.float_operand(g, "g"), _launch.float_operand(b, "b"), eps,
-        _launch.float_operand(out, "out"), _ptr(mean), _ptr(rstd), _ptr(r),
+    name, fn = _library_fn("linear_residual_ln_fwd", dt)
+    status = fn(
+        _launch.vector_operand(a, "a", dt), _launch.vector_operand(w, "w", dt),
+        _launch.vector_operand(bias, "bias", dt),
+        _launch.vector_operand(residual, "residual", dt),
+        _launch.vector_operand(g, "g"), _launch.vector_operand(b, "b"), eps,
+        _launch.vector_operand(out, "out", dt), _ptr(mean), _ptr(rstd), _ptr(r),
         _launch.valid_len_operand(valid_len, bsz, a.device), bsz * s, k, n, s,
         _launch.stream(a.device))
-    _build.check(status, "linear_residual_ln_fwd")
-    linear_residual_ln.launches += 1
+    _build.check(status, name)
+    _launch.counted(name)
     return (out, mean, rstd, r) if save else out
 
 
-def _rows(name: str, t, bsz: int, s: int, n: int) -> int:
-    """Pointer of a contiguous f32 ``(bsz, s, n)`` CUDA tensor."""
+def _rows(name: str, t, bsz: int, s: int, n: int, dtype: torch.dtype) -> int:
+    """Pointer of a contiguous ``(bsz, s, n)`` CUDA tensor of ``dtype``."""
     if t.shape != (bsz, s, n):
         raise ValueError(f"{name}: want ({bsz}, {s}, {n}), got {tuple(t.shape)}")
-    return _launch.float_operand(t, name)
+    return _launch.vector_operand(t, name, dtype)
 
 
 def _row_stats(name: str, t, bsz: int, s: int) -> int:
     if t.shape != (bsz, s):
         raise ValueError(f"{name}: want ({bsz}, {s}), got {tuple(t.shape)}")
-    return _launch.float_operand(t, name)
+    return _launch.vector_operand(t, name)
 
 
 def layernorm_bwd(dy, xin, mean, rstd, g, valid_len, residual=None, dgb=None):
     """Backward of a LayerNorm site from its saved row stats (kernel
     ``layernorm_bwd`` on CUDA): ``(dx, dgb)`` with ``dgb = [dgamma, dbeta]``
-    ``(2 D,)``, summed into ``dgb`` in place when it is given (the two norm1
-    sites). See :func:`layernorm_bwd_reference`."""
+    ``(2 D,)`` float32, summed into ``dgb`` in place when it is given (the two
+    norm1 sites). dy, xin, residual and dx of one dtype; stats and g float32.
+    See :func:`layernorm_bwd_reference`."""
     if _launch.on_cpu(dy, xin, mean, rstd, g, valid_len):
         return layernorm_bwd_reference(dy, xin, mean, rstd, g, valid_len, residual, dgb)
     if dy.dim() != 3 or dy.shape[2] != D_MODEL or dy.shape[1] % ROW_BLOCK:
         raise ValueError(f"layernorm_bwd: the kernel takes (B, S, {D_MODEL}) with S a "
                          f"multiple of {ROW_BLOCK}, got {tuple(dy.shape)}")
     bsz, s, d = dy.shape
+    dt = dy.dtype
     if g.shape != (d,):
         raise ValueError(f"layernorm_bwd: g {tuple(g.shape)}")
     dx = torch.empty_like(dy)
@@ -275,16 +322,17 @@ def layernorm_bwd(dy, xin, mean, rstd, g, valid_len, residual=None, dgb=None):
         accumulate = 1
     partial = torch.empty((bsz * s // ROW_BLOCK, 2 * d), dtype=torch.float32,
                           device=dy.device)
-    status = _build.library().layernorm_bwd(
-        _rows("dy", dy, bsz, s, d), _rows("xin", xin, bsz, s, d),
+    name, fn = _library_fn("layernorm_bwd", dt)
+    status = fn(
+        _rows("dy", dy, bsz, s, d, dt), _rows("xin", xin, bsz, s, d, dt),
         _row_stats("mean", mean, bsz, s), _row_stats("rstd", rstd, bsz, s),
-        _launch.float_operand(g, "g"),
-        None if residual is None else _rows("residual", residual, bsz, s, d),
-        dx.data_ptr(), partial.data_ptr(), _launch.float_operand(dgb, "dgb"), accumulate,
+        _launch.vector_operand(g, "g"),
+        None if residual is None else _rows("residual", residual, bsz, s, d, dt),
+        dx.data_ptr(), partial.data_ptr(), _launch.vector_operand(dgb, "dgb"), accumulate,
         _launch.valid_len_operand(valid_len, bsz, dy.device), bsz * s, d, s,
         _launch.stream(dy.device))
-    _build.check(status, "layernorm_bwd")
-    layernorm_bwd.launches += 1
+    _build.check(status, name)
+    _launch.counted(name)
     return dx, dgb
 
 
@@ -297,7 +345,7 @@ _DGRAD_SITES = {  # (K, N, epilogue) of the layer's four data-gradient GEMMs
 def linear_dgrad(dy, w, valid_len, relu_of=None, residual=None):
     """``dX = dY @ W`` (W in Linear layout), masked by ``relu_of > 0`` or plus
     ``residual`` (kernel ``linear_dgrad`` on CUDA, at the layer's four sites
-    only). See :func:`linear_dgrad_reference`."""
+    only), all of one dtype. See :func:`linear_dgrad_reference`."""
     if _launch.on_cpu(dy, w, valid_len):
         return linear_dgrad_reference(dy, w, valid_len, relu_of, residual)
     if relu_of is not None and residual is not None:
@@ -310,15 +358,16 @@ def linear_dgrad(dy, w, valid_len, relu_of=None, residual=None):
         raise ValueError(f"linear_dgrad: dy {tuple(dy.shape)}, w {tuple(w.shape)}, "
                          f"epilogue {epilogue}: not a site the kernel is built for")
     bsz, s, k = dy.shape
-    n = w.shape[1]
-    out = torch.empty((bsz, s, n), dtype=dy.dtype, device=dy.device)
-    status = _build.library().linear_dgrad(
-        _rows("dy", dy, bsz, s, k), _launch.float_operand(w, "w"),
-        None if aux is None else _rows("aux", aux, bsz, s, n), out.data_ptr(), epilogue,
+    n, dt = w.shape[1], dy.dtype
+    out = torch.empty((bsz, s, n), dtype=dt, device=dy.device)
+    name, fn = _library_fn("linear_dgrad", dt)
+    status = fn(
+        _rows("dy", dy, bsz, s, k, dt), _launch.vector_operand(w, "w", dt),
+        None if aux is None else _rows("aux", aux, bsz, s, n, dt), out.data_ptr(), epilogue,
         _launch.valid_len_operand(valid_len, bsz, dy.device), bsz * s, k, n, s,
         _launch.stream(dy.device))
-    _build.check(status, "linear_dgrad")
-    linear_dgrad.launches += 1
+    _build.check(status, name)
+    _launch.counted(name)
     return out
 
 
@@ -336,10 +385,12 @@ def wgrad_chunk(s_pad: int) -> int:
 
 
 def linear_wgrad(dy, x, valid_len, ln=None):
-    """``(dW, db) = (dY^T X', colsum dY)`` over the rows ``< valid_len``, with
-    ``X' = LN(X)`` from ``ln = (mean, rstd, g, beta)`` applied as X is staged
-    (kernel ``linear_wgrad`` on CUDA, at the layer's four weight shapes only).
-    See :func:`linear_wgrad_reference`."""
+    """``(dW, db) = (dY^T X', colsum dY)`` in float32 over the rows the
+    forward computed, with ``X' = LN(X)`` from ``ln = (mean, rstd, g, beta)``
+    applied as X is staged (kernel ``linear_wgrad`` on CUDA, at the layer's
+    four weight shapes only). dy and x of one dtype; the partial sums, their
+    fixed-order reduce and the result are float32 for both dtypes. See
+    :func:`linear_wgrad_reference`."""
     if _launch.on_cpu(dy, x, valid_len):
         return linear_wgrad_reference(dy, x, valid_len, ln)
     if dy.dim() != 3 or x.dim() != 3 or dy.shape[:2] != x.shape[:2] \
@@ -347,7 +398,7 @@ def linear_wgrad(dy, x, valid_len, ln=None):
         raise ValueError(f"linear_wgrad: dy {tuple(dy.shape)}, x {tuple(x.shape)}: not a "
                          "weight shape the kernel is built for")
     bsz, s, n = dy.shape
-    k = x.shape[2]
+    k, dt = x.shape[2], dy.dtype
     chunk = wgrad_chunk(s)
     dwb = torch.empty(n * k + n, dtype=torch.float32, device=dy.device)
     partial = torch.empty((bsz * s // chunk, n * k + n), dtype=torch.float32,
@@ -359,23 +410,18 @@ def linear_wgrad(dy, x, valid_len, ln=None):
         if g.shape != (k,) or b.shape != (k,):
             raise ValueError(f"linear_wgrad: g {tuple(g.shape)}, b {tuple(b.shape)}")
         ln_ptrs = (_row_stats("mean", mean, bsz, s), _row_stats("rstd", rstd, bsz, s),
-                   _launch.float_operand(g, "g"), _launch.float_operand(b, "b"))
-    status = _build.library().linear_wgrad(
-        _rows("dy", dy, bsz, s, n), _rows("x", x, bsz, s, k), *ln_ptrs,
+                   _launch.vector_operand(g, "g"), _launch.vector_operand(b, "b"))
+    name, fn = _library_fn("linear_wgrad", dt)
+    status = fn(
+        _rows("dy", dy, bsz, s, n, dt), _rows("x", x, bsz, s, k, dt), *ln_ptrs,
         partial.data_ptr(), dwb.data_ptr(),
         _launch.valid_len_operand(valid_len, bsz, dy.device), bsz * s, n, k, s, chunk,
         _launch.stream(dy.device))
-    _build.check(status, "linear_wgrad")
-    linear_wgrad.launches += 1
+    _build.check(status, name)
+    _launch.counted(name)
     return dwb[:n * k].view(n, k), dwb[n * k:]
 
 
-ln_linear.launches = 0
-linear_relu.launches = 0
-linear_residual_ln.launches = 0
-layernorm_bwd.launches = 0
-linear_dgrad.launches = 0
-linear_wgrad.launches = 0
 
 
 # ------------------------------------------------------------- the layer ----
@@ -406,10 +452,22 @@ def _pad_seq(x: torch.Tensor) -> torch.Tensor:
     return x if s == s_pad else F.pad(x, (0, 0, 0, s_pad - s))
 
 
+def pack_weights(weights, dtype: torch.dtype) -> tuple:
+    """The 12 layer parameters as the kernels take them
+    (``fused_block.py:467-479``, ``_pack_weights``): the matrices and biases
+    cast to the activation dtype, the LayerNorm parameters as they are
+    (float32). A no-op for float32."""
+    wqkv, bqkv, wout, bout, g1, b1, g2, b2, w1, b1f, w2, b2f = weights
+    c = [t.to(dtype) for t in (wqkv, bqkv, wout, bout, w1, b1f, w2, b2f)]
+    return (*c[:4], g1, b1, g2, b2, *c[4:])
+
+
 def layer_forward(steps, x, valid_len, weights, num_heads, eps1, eps2, save):
     """``y``, and with ``save`` the residuals ``(attn, x2, r2, lse, stats)``,
-    stats the (mean, rstd) pairs of LN1, the site-2 norm1 and LN2."""
-    wqkv, bqkv, wout, bout, g1, b1, g2, b2, w1, b1f, w2, b2f = weights
+    stats the (mean, rstd) pairs of LN1, the site-2 norm1 and LN2. The
+    weights are the float32 parameters; they are cast here to x's dtype."""
+    wqkv, bqkv, wout, bout, g1, b1, g2, b2, w1, b1f, w2, b2f = pack_weights(weights,
+                                                                             x.dtype)
     d = x.shape[2]
     if not save:
         qkv = steps.ln_linear(x, g1, b1, eps1, wqkv, bqkv, valid_len)
@@ -433,8 +491,10 @@ def layer_backward(steps, dy, x, valid_len, attn, x2, r2, lse, stats, weights,
                     num_heads, eps1):
     """``(dx, 12 parameter grads)`` of the layer from the saved residuals, the
     TPU kernel's phases B', C' and D' (``fused_block.py:254-432``) as a chain;
-    h, qkv and the FFN hidden are recomputed, not saved."""
-    wqkv, bqkv, wout, bout, g1, b1, g2, b2, w1, b1f, w2, b2f = weights
+    h, qkv and the FFN hidden are recomputed, not saved. dx has dy's dtype,
+    the parameter gradients are float32."""
+    wqkv, bqkv, wout, bout, g1, b1, g2, b2, w1, b1f, w2, b2f = pack_weights(weights,
+                                                                             dy.dtype)
     mu1, rstd1, mu2, rstd2, mu3, rstd3 = stats
     d = x.shape[2]
     # B': LN2, the FFN, then the site-2 norm1
@@ -468,25 +528,30 @@ def layer_backward(steps, dy, x, valid_len, attn, x2, r2, lse, stats, weights,
 
 class FusedEncoderBlock(torch.autograd.Function):
     """The layer with a gradient. Forward: the chain with the save outputs on;
-    it saves exactly the JAX residual set (``fused_block.py:587-595``).
-    Backward: :func:`layer_backward` through the kernel wrappers. Takes x
-    already padded to :data:`SEQ_PAD`."""
+    it saves exactly the JAX residual set (``fused_block.py:587-595``), the
+    activations in x's dtype and the lse and stats in float32. Backward:
+    :func:`layer_backward`. ``steps`` is :data:`KERNEL_STEPS` (the kernel
+    wrappers) or :data:`PLAIN_STEPS` (the plain chains forward and backward,
+    which keep no graph of their insides: the reference at sizes where
+    autograd of the plain forward would not fit). Takes x already padded to
+    :data:`SEQ_PAD`; the weights are the float32 parameters, whose gradients
+    come back in float32."""
 
     @staticmethod
-    def forward(ctx, x, valid_len, num_heads, eps1, eps2, *weights):
+    def forward(ctx, x, valid_len, num_heads, eps1, eps2, steps, *weights):
         y, (attn, x2, r2, lse, stats) = layer_forward(
-            KERNEL_STEPS, x, valid_len, weights, num_heads, eps1, eps2, save=True)
+            steps, x, valid_len, weights, num_heads, eps1, eps2, save=True)
         ctx.save_for_backward(x, valid_len, attn, x2, r2, lse, *stats, *weights)
-        ctx.num_heads, ctx.eps1 = num_heads, eps1
+        ctx.num_heads, ctx.eps1, ctx.steps = num_heads, eps1, steps
         return y
 
     @staticmethod
     def backward(ctx, dy):
         x, valid_len, attn, x2, r2, lse, *rest = ctx.saved_tensors
         stats, weights = rest[:6], rest[6:]
-        dx, *grads = layer_backward(KERNEL_STEPS, dy.contiguous(), x, valid_len, attn,
+        dx, *grads = layer_backward(ctx.steps, dy.contiguous(), x, valid_len, attn,
                                      x2, r2, lse, stats, weights, ctx.num_heads, ctx.eps1)
-        return (dx, None, None, None, None,
+        return (dx, None, None, None, None, None,
                 *(gr.reshape(w.shape) for gr, w in zip(grads, weights)))
 
 
@@ -496,11 +561,12 @@ def fused_encoder_block(x, valid_len, wqkv, bqkv, wout, bout, g1, b1, g2, b2,
     """One ChAdaViT encoder layer. x ``(B, S, D)``; returns ``(B, S, D)``.
 
     Weights in ``nn.Linear`` layout: wqkv ``(3D, D)``, wout ``(D, D)``,
-    w1 ``(F, D)``, w2 ``(D, F)``. On CUDA every step is a kernel launch, at
-    D = :data:`D_MODEL`, F = :data:`D_FFN` and 2 heads only. When autograd
-    records the call (grad mode on and an input that requires grad) it runs
-    :class:`FusedEncoderBlock`; otherwise (the teacher, serving) the chain
-    without the save outputs.
+    w1 ``(F, D)``, w2 ``(D, F)``, float32. x is float32 or bfloat16, and the
+    layer computes in x's dtype (module docstring). On CUDA every step is a
+    kernel launch, at D = :data:`D_MODEL`, F = :data:`D_FFN` and 2 heads
+    only. When autograd records the call (grad mode on and an input that
+    requires grad) it runs :class:`FusedEncoderBlock`; otherwise (the
+    teacher, serving) the chain without the save outputs.
     """
     if valid_len is None:
         raise ValueError("fused_encoder_block needs valid_len")
@@ -508,7 +574,8 @@ def fused_encoder_block(x, valid_len, wqkv, bqkv, wout, bout, g1, b1, g2, b2,
     s = x.shape[1]
     xp = _pad_seq(x)
     if _launch.needs_grad(x, *weights):
-        y = FusedEncoderBlock.apply(xp, valid_len, num_heads, eps1, eps2, *weights)
+        y = FusedEncoderBlock.apply(xp, valid_len, num_heads, eps1, eps2, KERNEL_STEPS,
+                                    *weights)
     else:
         y = layer_forward(KERNEL_STEPS, xp, valid_len, weights, num_heads, eps1, eps2,
                            save=False)

@@ -1,11 +1,13 @@
-"""Plain float32 LayerNorm with the JAX package's numerics.
+"""Plain LayerNorm with the JAX package's numerics.
 
 Counterpart of the XLA branch of ``chadavit_tpu/ops/layernorm.py::layernorm``
-and of ``chadavit_tpu/ops/fused_block.py::_stats``: the residual add in the
-input dtype, f32 stats, fast variance ``mean(x^2) - mean(x)^2`` clamped at 0.
-It serves the final norm (eps 1e-6), the unfused encoder layer and the plain
-versions of the layer's kernels. The Pallas LayerNorm kernel is opt-in in the
-JAX package and not on the port's path.
+(``impl="auto"`` and ``"xla"``) and of ``chadavit_tpu/ops/fused_block.py::_stats``:
+the residual add in the input dtype, f32 stats, fast variance
+``mean(x^2) - mean(x)^2`` clamped at 0, f32 scale and bias, the output cast
+to the input dtype (float32 or bfloat16 in, the same out). It serves the
+final norm (eps 1e-6), the unfused encoder layer and the plain versions of
+the layer's kernels. The Pallas LayerNorm kernels (``impl="pallas"``) are
+opt-in in the JAX package, on no path of the port yet.
 """
 
 from __future__ import annotations

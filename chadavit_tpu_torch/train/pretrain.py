@@ -5,6 +5,11 @@ Counterpart of ``chadavit_tpu/train/pretrain.py`` (``DinoPretrainSpec`` :26,
 batches come from numpy seeds. The JAX ``mesh``, ``fsdp`` and
 ``device_augmentations`` options belong to later slices of the port and
 raise, as do the backbones other than ChAdaViT and the online classifier.
+
+``spec.dtype`` is the compute dtype of the backbone and the head, float32 or
+bfloat16 (the canonical pretrain config's ``precision: "bf16"``, which the
+JAX trainer maps to bfloat16 activations, ``train/loop.py:45``). The
+parameters, the optimizer state, LARS and the EMA stay float32.
 """
 
 from __future__ import annotations
@@ -104,16 +109,19 @@ def build_dino(spec: DinoPretrainSpec, device: Optional[str] = None, seed: int =
         raise NotImplementedError(f"backbone {spec.backbone!r}: only ChAdaViT is ported")
     if spec.online_classifier and spec.num_classes > 0:
         raise NotImplementedError("the online classifier is not ported yet")
-    if spec.dtype != torch.float32:
-        raise NotImplementedError(f"dtype {spec.dtype}: the port trains in float32")
+    if spec.dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"dtype {spec.dtype}: the port trains in float32 or bfloat16")
     dev = _device(device)
     bk = dict(spec.backbone_kwargs)
     bk.setdefault("img_size", spec.img_size)
+    bk["dtype"] = spec.dtype  # as the JAX build_dino (pretrain.py:124)
     model = chada_vit(**bk)
     model.load_state_dict(random_state_dict(model, seed))
     head = DINOHead(in_dim=model.embed_dim, num_prototypes=spec.num_prototypes,
                     use_bn=spec.use_bn_in_head, norm_last_layer=spec.norm_last_layer,
-                    hidden_dim=spec.proj_hidden_dim, bottleneck_dim=spec.proj_output_dim)
+                    hidden_dim=spec.proj_hidden_dim, bottleneck_dim=spec.proj_output_dim,
+                    dtype=spec.dtype)
     head.load_state_dict(random_head_state_dict(head, seed + 1))
     student = {"backbone": model.to(dev), "head": head.to(dev)}
 
@@ -154,7 +162,8 @@ def synthetic_dino_batch(spec: DinoPretrainSpec, batch_size: int, seed: int = 0,
                          device: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """Random mixed-channel batch in the train-step layout, from a numpy seed:
     the JAX function's draws (crops, then the counts unless ``channel_counts``
-    fixes them), padded channels zeroed. ``device=None`` means ``"cuda"``."""
+    fixes them), padded channels zeroed, crops in ``spec.dtype`` (JAX
+    ``pretrain.py:359``). ``device=None`` means ``"cuda"``."""
     rng = np.random.default_rng(seed)
     crops = rng.standard_normal(
         (spec.num_large_crops, batch_size, spec.max_channels, spec.img_size, spec.img_size)
@@ -166,5 +175,5 @@ def synthetic_dino_batch(spec: DinoPretrainSpec, batch_size: int, seed: int = 0,
     for i, c in enumerate(counts):
         crops[:, i, c:] = 0.0
     dev = _device(device)
-    return {"crops": torch.from_numpy(crops).to(dev),
+    return {"crops": torch.from_numpy(crops).to(device=dev, dtype=spec.dtype),
             "channel_counts": torch.from_numpy(counts).to(dev)}

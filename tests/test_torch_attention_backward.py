@@ -3,7 +3,8 @@ flash_attention.py: PrefixFlashAttention and prefix_attention_bwd) held
 against the JAX package on the CPU: ``jax.vjp`` of the Pallas kernel in
 interpret mode (its custom VJP, the TPU backward kernel), and torch autograd
 through the plain forward. The cotangent is zero on query rows past
-``valid_len``, the contract the model keeps (it reads only CLS).
+``valid_len``, as the model's (it reads only CLS); a cotangent on the tail
+rows the forward computes is tested in tests/test_torch_bf16.py.
 
 On the CPU the Function runs the plain versions; the CUDA kernels are held
 against those on the card (test_torch_kernels_gpu.py, chip_smoke.py). The
@@ -21,7 +22,7 @@ import pytest
 import torch
 
 from chadavit_tpu.ops.flash_attention import prefix_flash_attention as jax_flash
-from chadavit_tpu_torch.ops import flash_attention
+from chadavit_tpu_torch.ops import _launch, flash_attention
 from tests.test_torch_fused_block_backward import fake_cuda  # noqa: F401 (a fixture)
 
 B, S, D, H = 3, 256, 32, 2
@@ -94,10 +95,10 @@ def test_cuda_route_with_grad_is_the_function_and_its_backward_launches(fake_cud
     out = flash_attention.prefix_flash_attention(q, k, v, vl, 2)
     assert type(out.grad_fn).__name__ == "PrefixFlashAttentionBackward"
     assert fake_cuda.calls == ["prefix_attention_fwd"]
-    before = flash_attention.prefix_attention_bwd.launches
+    before = _launch.LAUNCHES["prefix_attention_bwd"]
     out.backward(torch.zeros_like(out))
     assert fake_cuda.calls == ["prefix_attention_fwd", "prefix_attention_bwd"]
-    assert flash_attention.prefix_attention_bwd.launches == before + 1
+    assert _launch.LAUNCHES["prefix_attention_bwd"] == before + 1
     assert q.grad is not None and q.grad.shape == q.shape
 
 

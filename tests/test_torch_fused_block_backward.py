@@ -3,9 +3,10 @@ fused_block.py: FusedEncoderBlock and its backward chain) held against the
 JAX package on the CPU: ``jax.vjp`` of the fused Pallas layer in interpret
 mode (its custom VJP, the TPU backward kernel), ``jax.vjp`` of one unfused JAX
 EncoderLayer (block_impl="xla"), and torch autograd through the plain
-forward. The cotangent is zero on rows past ``valid_len``, the contract the
-model keeps (it reads only CLS): dx on the valid rows and all 12 parameter
-gradients must agree, and dx past ``valid_len`` must be zero.
+forward. The cotangent is zero on rows past ``valid_len``, as the model's
+(it reads only CLS): dx on the valid rows and all 12 parameter gradients
+must agree, and dx past ``valid_len`` must be zero. A cotangent on the tail
+rows the forward computes is tested in tests/test_torch_bf16.py.
 
 On the CPU each step of the chain runs its plain version; the CUDA kernels
 are held against those on the card (test_torch_kernels_gpu.py,

@@ -3,7 +3,9 @@ on the card, at the widths of ChAdaViT-moyen (D 192, 2 heads of 96, FFN 2048)
 with ragged prefixes (single-token, partial and full, row tiles past the
 prefix), the forward kernels and the backward kernels (each on the inputs
 the layer's backward chain gives it), and the gradients of the layer and of
-the attention through their autograd Functions. Marked ``gpu``; skips without
+the attention through their autograd Functions; then the bfloat16 instances
+the same way, and the gradients with a cotangent on the tail rows the
+forward computes, in both dtypes. Marked ``gpu``; skips without
 a CUDA device. It imports no JAX, so on the card's machine it runs without the
 repository's conftest:
 
@@ -18,9 +20,9 @@ import numpy as np
 import pytest
 import torch
 
-from chadavit_tpu_torch.ops import fused_block
+from chadavit_tpu_torch.ops import _launch, fused_block
 from chadavit_tpu_torch.ops import flash_attention as fa
-from chip_smoke import Recorder
+from chip_smoke import BF16_COS, Recorder, bf16_err
 
 pytestmark = pytest.mark.gpu
 TOL = 1e-4
@@ -57,9 +59,9 @@ def test_prefix_attention(dev, valid):
     qkv = _randn(rng, dev, len(valid), s, 3 * D)
     q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
     vl = torch.tensor(valid, dtype=torch.int32, device=dev)
-    before = fa.prefix_flash_attention.launches
+    before = _launch.LAUNCHES["prefix_attention_fwd"]
     out = fa.prefix_flash_attention(q, k, v, vl, HEADS)
-    assert fa.prefix_flash_attention.launches == before + 1
+    assert _launch.LAUNCHES["prefix_attention_fwd"] == before + 1
     _assert_valid_rows_close(out, fa.prefix_flash_attention_reference(q, k, v, vl, HEADS), valid)
     # query blocks wholly past the prefix are written as zeros
     for i, n in enumerate(valid):
@@ -157,9 +159,10 @@ def test_backward_kernels(dev, valid):
     for name, (args, kwargs), ref in rec.calls:
         if name not in kernels:
             continue
-        before = kernels[name].launches
+        entry = "prefix_attention_bwd" if name == "attention_bwd" else name
+        before = _launch.LAUNCHES[entry]
         out = kernels[name](*args, **kwargs)
-        assert kernels[name].launches == before + 1
+        assert _launch.LAUNCHES[entry] == before + 1
         seen.append(name)
         for o, r in zip(out if isinstance(out, tuple) else (out,),
                         ref if isinstance(ref, tuple) else (ref,)):
@@ -205,3 +208,158 @@ def test_attention_gradient_through_the_function(dev, valid):
         out = fn(t[..., :D], t[..., D:2 * D], t[..., 2 * D:], vl, HEADS)
         grads.append(torch.autograd.grad(out, t, dout)[0])
     _assert_grad_close(grads[0], grads[1], valid)
+
+
+# ---- bfloat16 instances, and cotangents on the tail rows the forward computes --
+# bf16 on both sides, rounded at the same points (the JAX kernels' casts); the
+# two sides sum in other orders, so a value can round to a neighbouring bf16
+# and the chain carries such steps. The bounds are chip_smoke.py's (BF16_STEPS
+# bf16 steps at the largest entry of a bf16 output, BF16_F32_REL of the
+# largest entry of a float32 one, a cosine of at least BF16_COS over the whole
+# tensor).
+
+
+def _bf16_weights(w):
+    return fused_block.pack_weights(w, torch.bfloat16)
+
+
+def _assert_bf16_close(out, ref, rows=None):
+    torch.cuda.synchronize()
+    err, tol, cos = bf16_err(out, ref, rows)
+    assert err <= tol, (err, tol)
+    assert cos >= BF16_COS, cos
+
+
+@pytest.mark.parametrize("valid", VALIDS)
+def test_bf16_forward_kernels_and_chain(dev, valid):
+    rng = np.random.default_rng(sum(valid) + 4)
+    x, w, _, vl = _layer_inputs(rng, dev, valid)
+    x = x.bfloat16()
+    wqkv, bqkv, wout, bout, g1, b1, g2, b2, w1, b1f, w2, b2f = _bf16_weights(w)
+    qkv = fused_block.ln_linear_reference(x, g1, b1, 1e-5, wqkv, bqkv)
+    _assert_bf16_close(fused_block.ln_linear(x, g1, b1, 1e-5, wqkv, bqkv, vl), qkv, valid)
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    a = fa.prefix_flash_attention_reference(q, k, v, vl, HEADS)
+    before = _launch.LAUNCHES["prefix_attention_fwd_bf16"]
+    _assert_bf16_close(fa.prefix_flash_attention(q, k, v, vl, HEADS), a, valid)
+    assert _launch.LAUNCHES["prefix_attention_fwd_bf16"] == before + 1
+    x2 = fused_block.linear_residual_ln_reference(a, wout, bout, x, g1, b1, 1e-5)
+    _assert_bf16_close(fused_block.linear_residual_ln(a, wout, bout, x, g1, b1, 1e-5, vl),
+                       x2, valid)
+    hid = fused_block.linear_relu_reference(x2, w1, b1f)
+    _assert_bf16_close(fused_block.linear_relu(x2, w1, b1f, vl), hid, valid)
+    _assert_bf16_close(fused_block.linear_residual_ln(hid, w2, b2f, x2, g2, b2, 1e-5, vl),
+                       fused_block.linear_residual_ln_reference(hid, w2, b2f, x2, g2, b2,
+                                                                1e-5), valid)
+    out = fused_block.fused_encoder_block(x, vl, *w, HEADS)
+    assert out.dtype == torch.bfloat16
+    _assert_bf16_close(out, fused_block.fused_encoder_block_reference(x, vl, *w, HEADS),
+                       valid)
+    for i, n in enumerate(valid):
+        assert not out[i, -(-n // 32) * 32:].any().item()
+
+
+def _tail_cotangent(dy, valid, tile):
+    """dy kept on every row of the tiles that hold a valid row, zero past."""
+    dy = dy.clone()
+    for i, n in enumerate(valid):
+        dy[i, -(-n // tile) * tile:] = 0
+    return dy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("valid", VALIDS)
+def test_backward_kernels_with_tail_cotangent(dev, valid, dtype):
+    # every backward kernel on the inputs the plain backward chain gives it,
+    # with a cotangent on the tail rows of the partially valid 32-row tiles
+    rng = np.random.default_rng(sum(valid) + 5)
+    x, w, dy, vl = _layer_inputs(rng, dev, valid)
+    dy = _randn(rng, dev, *dy.shape)
+    dy = _tail_cotangent(dy, valid, fused_block.ROW_BLOCK).to(dtype)
+    x = x.to(dtype)
+    rows = [min(-(-n // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK, x.shape[1])
+            for n in valid]
+    _, (attn, x2, r2, lse, stats) = fused_block.layer_forward(
+        fused_block.PLAIN_STEPS, x, vl, tuple(w), HEADS, 1e-5, 1e-5, save=True)
+    rec = Recorder(fused_block.PLAIN_STEPS)
+    fused_block.layer_backward(rec, dy, x, vl, attn, x2, r2, lse, stats, w, HEADS, 1e-5)
+    kernels = {"layernorm_bwd": fused_block.layernorm_bwd,
+               "linear_dgrad": fused_block.linear_dgrad,
+               "linear_wgrad": fused_block.linear_wgrad,
+               "attention_bwd": fa.prefix_attention_bwd}
+    for name, (args, kwargs), ref in rec.calls:
+        if name not in kernels:
+            continue
+        out = kernels[name](*args, **kwargs)
+        for o, r in zip(out if isinstance(out, tuple) else (out,),
+                        ref if isinstance(ref, tuple) else (ref,)):
+            if dtype == torch.float32:
+                torch.cuda.synchronize()
+                if o.dim() == 3:
+                    for i, n in enumerate(rows):
+                        scale = max(1.0, r[i, :n].abs().max().item())
+                        assert (o[i, :n] - r[i, :n]).abs().max().item() <= TOL * scale
+                else:
+                    assert (o - r).abs().max().item() <= TOL * max(1.0, r.abs().max().item())
+            else:
+                _assert_bf16_close(o, r, rows if o.dim() == 3 else None)
+            if o.dim() == 3:  # the zero-filled tiles get exact zeros
+                for i, n in enumerate(rows):
+                    assert not o[i, n:].any().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("valid", VALIDS)
+def test_layer_gradient_with_tail_cotangent(dev, valid, dtype):
+    # the Function's backward against the plain backward chain on its own
+    # residuals, with a cotangent on the tail rows the forward computed
+    rng = np.random.default_rng(sum(valid) + 6)
+    x, w, dy, vl = _layer_inputs(rng, dev, valid)
+    dy = _tail_cotangent(_randn(rng, dev, *dy.shape), valid, fused_block.ROW_BLOCK).to(dtype)
+    x = x.to(dtype)
+    rows = [-(-n // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK for n in valid]
+    xg = x.clone().requires_grad_(True)
+    wg = [t.clone().requires_grad_(True) for t in w]
+    y = fused_block.fused_encoder_block(xg, vl, *wg, HEADS)
+    got = torch.autograd.grad(y, [xg, *wg], dy)
+    assert got[0].dtype == dtype and all(g.dtype == torch.float32 for g in got[1:])
+    with torch.no_grad():
+        _, (attn, x2, r2, lse, stats) = fused_block.layer_forward(
+            fused_block.KERNEL_STEPS, x, vl, tuple(w), HEADS, 1e-5, 1e-5, save=True)
+        ref = fused_block.fused_encoder_block_backward_reference(
+            dy, x, vl, attn, x2, r2, lse, stats, w, HEADS, 1e-5)
+    for i, (o, r) in enumerate(zip(got, ref)):
+        r = r.reshape(o.shape)
+        if dtype == torch.float32:
+            _assert_grad_close(o, r, rows) if i == 0 else _assert_grad_close(o, r, valid)
+        else:
+            _assert_bf16_close(o, r, rows if i == 0 else None)
+    for i, n in enumerate(rows):
+        assert not got[0][i, n:].any().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("valid", VALIDS)
+def test_attention_gradient_with_tail_cotangent(dev, valid, dtype):
+    # the Function's backward against the plain backward on the Function's
+    # own forward (its out and lse), with a cotangent on the tail rows of the
+    # partially valid 64-query tiles
+    rng = np.random.default_rng(sum(valid) + 7)
+    s = max(256, -(-max(valid) // 64) * 64)
+    qkv = _randn(rng, dev, len(valid), s, 3 * D).to(dtype)
+    dout = _tail_cotangent(_randn(rng, dev, len(valid), s, D), valid, fa.SEQ_BLOCK).to(dtype)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    rows = [-(-n // fa.SEQ_BLOCK) * fa.SEQ_BLOCK for n in valid]
+    t = qkv.clone().requires_grad_(True)
+    out = fa.prefix_flash_attention(t[..., :D], t[..., D:2 * D], t[..., 2 * D:], vl, HEADS)
+    got = torch.autograd.grad(out, t, dout)[0]
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    with torch.no_grad():
+        o, lse = fa.attention_forward(q, k, v, vl, HEADS, with_lse=True)
+        ref = fa.prefix_flash_attention_backward_reference(q, k, v, o, lse, dout, vl, HEADS)
+    if dtype == torch.float32:
+        _assert_grad_close(got, ref, rows)
+    else:
+        _assert_bf16_close(got, ref, rows)
+        for i, n in enumerate(rows):
+            assert not got[i, n:].any().item()

@@ -16,11 +16,18 @@ and a teacher-temperature warmup over 2 epochs. It records each step's
 after the last step every student and teacher parameter's L2 norm and the L2
 norm of each student parameter's change, under the port's names.
 
+``torch_port_cls_bf16_depth2.npz`` and ``torch_port_dino_bf16_depth2.npz``:
+the same two runs with the compute dtype bfloat16 (the JAX ``chada_vit(dtype=
+jnp.bfloat16)`` and ``DinoPretrainSpec(dtype=jnp.bfloat16)``, the canonical
+pretrain precision), from the same float32 weights; the CLS is stored in
+float32.
+
 The card's machine has no JAX, so ``chip_smoke.py`` reads only the npz files
 and rebuilds the weights and inputs from the seeds recorded in them.
 
-Regenerate with ``JAX_PLATFORMS=cpu python -m tests.torch_port_fixture``;
-``tests/test_torch_fixture.py`` recomputes both and checks the committed files.
+Regenerate all four with ``JAX_PLATFORMS=cpu python -m tests.torch_port_fixture``;
+``tests/test_torch_fixture.py`` and ``tests/test_torch_fixture_bf16.py``
+recompute them and check the committed files.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from pathlib import Path
 import numpy as np
 
 PATH = Path(__file__).resolve().parent / "goldens" / "torch_port_cls_depth2.npz"
+BF16_PATH = PATH.parent / "torch_port_cls_bf16_depth2.npz"
 WEIGHT_SEED = 0
 IMAGE_SEED = 1
 COUNTS = (10, 7, 3, 1)
@@ -45,26 +53,30 @@ def port_state_dict() -> dict:
     return {k: v.numpy() for k, v in random_state_dict(model, WEIGHT_SEED).items()}
 
 
-def jax_cls() -> np.ndarray:
+def jax_cls(dtype: str = "float32") -> np.ndarray:
     """``(4, 192)`` CLS embeddings of the fixture's images from the JAX model
-    (its XLA path on the CPU)."""
+    (its XLA path on the CPU) computing in ``dtype``, as float32."""
+    import jax.numpy as jnp
+
     from chadavit_tpu.hub import collate_images
     from chadavit_tpu.models import chada_vit
     from chadavit_tpu.models.import_torch import chada_vit_params_from_torch
     from chadavit_tpu_torch.hub import random_images
 
     params = chada_vit_params_from_torch(port_state_dict(), depth=DEPTH)
-    model = chada_vit(depth=DEPTH, return_all_tokens=False, img_size=IMG_SIZE)
+    model = chada_vit(depth=DEPTH, return_all_tokens=False, img_size=IMG_SIZE,
+                      dtype=getattr(jnp, dtype))
     x, cc = collate_images(random_images(COUNTS, IMG_SIZE, IMAGE_SEED))
-    return np.asarray(model.apply({"params": params}, x, cc), np.float32)
+    return np.asarray(model.apply({"params": params}, x, cc).astype(jnp.float32), np.float32)
 
 
-def write(path: Path = PATH) -> None:
-    np.savez(path, cls=jax_cls(), weight_seed=WEIGHT_SEED, image_seed=IMAGE_SEED,
+def write(path: Path = PATH, dtype: str = "float32") -> None:
+    np.savez(path, cls=jax_cls(dtype), weight_seed=WEIGHT_SEED, image_seed=IMAGE_SEED,
              counts=np.asarray(COUNTS, np.int32), img_size=IMG_SIZE, depth=DEPTH)
 
 
 DINO_PATH = PATH.parent / "torch_port_dino_depth2.npz"
+DINO_BF16_PATH = PATH.parent / "torch_port_dino_bf16_depth2.npz"
 DINO_BATCH_SEED = 3
 DINO_COUNTS = (3, 1)
 DINO_STEPS = 3
@@ -116,9 +128,9 @@ def _named_norms(tree) -> dict:
             for k, v in sd.items()}
 
 
-def jax_dino() -> dict:
-    """Run the JAX ``build_dino`` step (XLA on the CPU) from the port's init
-    and return the fixture's arrays."""
+def jax_dino(dtype: str = "float32") -> dict:
+    """Run the JAX ``build_dino`` step (XLA on the CPU) from the port's init,
+    computing in ``dtype``, and return the fixture's arrays."""
     import jax
     import jax.numpy as jnp
 
@@ -134,11 +146,13 @@ def jax_dino() -> dict:
                "head": dino_head_params_from_torch(head_sd)}
     student = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float32), student)
     mesh = make_mesh(n_model=1, devices=jax.devices()[:1])
-    state, step, _, _ = build_dino(DinoPretrainSpec(**DINO_SPEC), mesh=mesh)
+    state, step, _, _ = build_dino(DinoPretrainSpec(**DINO_SPEC, dtype=getattr(jnp, dtype)),
+                                   mesh=mesh)
     state = state.replace(student=student,
                           teacher=jax.tree_util.tree_map(jnp.copy, student))
     before = _named_norms(student)
     batch = {k: jnp.asarray(v) for k, v in dino_batch().items()}
+    batch["crops"] = batch["crops"].astype(getattr(jnp, dtype))
     hist = {k: [] for k in DINO_METRICS}
     for _ in range(DINO_STEPS):
         state, metrics = step(state, batch)
@@ -155,8 +169,8 @@ def jax_dino() -> dict:
                                         for n in names]))
 
 
-def write_dino(path: Path = DINO_PATH) -> None:
-    np.savez(path, **jax_dino(), weight_seed=WEIGHT_SEED, batch_seed=DINO_BATCH_SEED,
+def write_dino(path: Path = DINO_PATH, dtype: str = "float32") -> None:
+    np.savez(path, **jax_dino(dtype), weight_seed=WEIGHT_SEED, batch_seed=DINO_BATCH_SEED,
              counts=np.asarray(DINO_COUNTS, np.int32), steps=DINO_STEPS, depth=DEPTH)
 
 
@@ -164,7 +178,9 @@ if __name__ == "__main__":
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    write()
-    print(f"wrote {PATH}")
-    write_dino()
-    print(f"wrote {DINO_PATH}")
+    for dtype, cls_path, dino_path in (("float32", PATH, DINO_PATH),
+                                       ("bfloat16", BF16_PATH, DINO_BF16_PATH)):
+        write(cls_path, dtype)
+        print(f"wrote {cls_path}")
+        write_dino(dino_path, dtype)
+        print(f"wrote {dino_path}")
