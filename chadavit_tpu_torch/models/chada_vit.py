@@ -18,8 +18,11 @@ Parameter names follow the reference torch state-dict layout
 With grad enabled (the DINO student) each layer runs
 ``fused_block.FusedEncoderBlock``, whose backward is the layer's kernels; the
 tokenizer, the pos/channel tokens and the final norm stay plain torch ops with
-autograd, as the JAX package leaves them to XLA. Dropout is not ported: a
-rate above 0 raises.
+autograd, as the JAX package leaves them to XLA. With ``ln_impl="pallas"``
+the final norm, and with ``block_impl="xla"`` also the three LayerNorms of
+each unfused layer, run the LayerNorm kernels (``ops/layernorm.py``), as the
+JAX model's ``ln_impl`` does (``chada_vit.py:229-234``, ``:363-365``).
+Dropout is not ported: a rate above 0 raises.
 
 ``dtype`` is the compute dtype, float32 or bfloat16, as the JAX modules'
 ``dtype``: the parameters stay float32 (``param_dtype``, the only one
@@ -42,6 +45,7 @@ from chadavit_tpu_torch.ops.attention import masked_multihead_attention
 from chadavit_tpu_torch.ops.layernorm import layernorm
 
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+LN_IMPLS = ("auto", "xla", "pallas")  # ops/layernorm.py::layernorm's impl
 
 
 def _check_dtypes(dtype: torch.dtype, param_dtype: torch.dtype) -> None:
@@ -109,15 +113,21 @@ class EncoderLayer(nn.Module):
     forces the unfused plain path, which also returns attention weights and
     serves CPU calls without ``valid_len``. The layer computes in ``dtype``
     (its input is cast to it) with float32 parameters cast at use.
+    ``ln_impl`` selects the unfused path's three LayerNorms, as the JAX
+    layer's (``chada_vit.py:229-234``): ``"auto"``/``"xla"`` the plain one,
+    ``"pallas"`` the LayerNorm kernels (``ops/layernorm.py``); the fused
+    path keeps its own.
     """
 
     def __init__(self, embed_dim: int, num_heads: int, ffn_dim: int = 2048,
                  layer_norm_eps: float = 1e-5, block_impl: str = "auto",
                  dropout_rate: float = 0.0, dtype: torch.dtype = torch.float32,
-                 param_dtype: torch.dtype = torch.float32):
+                 param_dtype: torch.dtype = torch.float32, ln_impl: str = "auto"):
         super().__init__()
         if block_impl not in ("auto", "xla"):
             raise ValueError(f"block impl {block_impl!r}: want 'auto' or 'xla'")
+        if ln_impl not in LN_IMPLS:
+            raise ValueError(f"ln impl {ln_impl!r}: want one of {LN_IMPLS}")
         if dropout_rate > 0:
             raise NotImplementedError(f"dropout rate {dropout_rate}: dropout is not ported")
         _check_dtypes(dtype, param_dtype)
@@ -126,6 +136,7 @@ class EncoderLayer(nn.Module):
         self.num_heads = num_heads
         self.layer_norm_eps = layer_norm_eps
         self.block_impl = block_impl
+        self.ln_impl = ln_impl
         self.self_attn = SelfAttentionParams(embed_dim)
         self.linear1 = nn.Linear(embed_dim, ffn_dim)
         self.linear2 = nn.Linear(ffn_dim, embed_dim)
@@ -153,9 +164,12 @@ class EncoderLayer(nn.Module):
         def linear(t, lin):
             return F.linear(t, lin.weight.to(dt), lin.bias.to(dt))
 
+        def ln(v, norm, residual=None):
+            return layernorm(v, norm.weight, norm.bias, eps, impl=self.ln_impl,
+                             residual=residual)
+
         d = self.embed_dim
-        qkv = torch.matmul(layernorm(x, self.norm1.weight, self.norm1.bias, eps),
-                           self.self_attn.in_proj_weight.to(dt).t()) \
+        qkv = torch.matmul(ln(x, self.norm1), self.self_attn.in_proj_weight.to(dt).t()) \
             + self.self_attn.in_proj_bias.to(dt)
         q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
         attn_out, attn_weights = masked_multihead_attention(
@@ -164,9 +178,9 @@ class EncoderLayer(nn.Module):
         if return_attention:
             return attn_weights
         attn_out = linear(attn_out, self.self_attn.out_proj)
-        x = layernorm(attn_out, self.norm1.weight, self.norm1.bias, eps, residual=x)
+        x = ln(attn_out, self.norm1, residual=x)
         h = linear(torch.relu(linear(x, self.linear1)), self.linear2)
-        return layernorm(h, self.norm2.weight, self.norm2.bias, eps, residual=x)
+        return ln(h, self.norm2, residual=x)
 
 
 class ChAdaViT(nn.Module):
@@ -179,10 +193,11 @@ class ChAdaViT(nn.Module):
                  return_all_tokens: bool = True, layer_norm_eps: float = 1e-5,
                  final_norm_eps: float = 1e-6, block_impl: str = "auto",
                  drop_path_rate: float = 0.0, dtype: torch.dtype = torch.float32,
-                 param_dtype: torch.dtype = torch.float32):
+                 param_dtype: torch.dtype = torch.float32, ln_impl: str = "auto"):
         super().__init__()
         _check_dtypes(dtype, param_dtype)
         self.dtype = dtype
+        self.ln_impl = ln_impl
         self.img_size = img_size
         self.patch_size = patch_size
         self.embed_dim = embed_dim
@@ -198,7 +213,7 @@ class ChAdaViT(nn.Module):
             # the JAX model's per-layer dropout rates (chada_vit.py:341-349)
             EncoderLayer(embed_dim, num_heads, ffn_dim, layer_norm_eps, block_impl,
                          dropout_rate=drop_path_rate * i / max(depth - 1, 1),
-                         dtype=dtype, param_dtype=param_dtype)
+                         dtype=dtype, param_dtype=param_dtype, ln_impl=ln_impl)
             for i in range(depth))
         self.norm = nn.LayerNorm(embed_dim, eps=final_norm_eps)
 
@@ -207,7 +222,8 @@ class ChAdaViT(nn.Module):
         return (self.img_size // self.patch_size) ** 2
 
     def final_norm(self, x: torch.Tensor) -> torch.Tensor:
-        return layernorm(x, self.norm.weight, self.norm.bias, self.final_norm_eps)
+        return layernorm(x, self.norm.weight, self.norm.bias, self.final_norm_eps,
+                         impl=self.ln_impl)
 
     def _patch_pos_embed(self, w: int, h: int) -> torch.Tensor:
         p = self.patch_size
@@ -290,12 +306,12 @@ class ChAdaViT(nn.Module):
 # The JAX factory's keys that the port takes only at the values it honours;
 # any other value raises with the key's name. ``patch_embed_conv`` selects one
 # of two lowerings of the same patch embedding, both honoured by the port's
-# one. The Pallas LayerNorm (``ln_impl="pallas"``) and a device mesh belong to
-# later slices.
+# one. ``ln_impl="pallas"`` runs the LayerNorm kernels. A device mesh belongs
+# to a later slice.
 _FACTORY_VALUES = {
     "param_dtype": (torch.float32,),
     "attn_impl": ("auto",),
-    "ln_impl": ("auto", "xla"),
+    "ln_impl": LN_IMPLS,
     "seq_pad_multiple": (fused_block.SEQ_PAD,),
     "patch_embed_conv": (True, False),
     "shard_mesh": (None,),
@@ -306,9 +322,10 @@ def chada_vit(**kwargs) -> ChAdaViT:
     """Canonical factory (reference ``chada_vit.py:333-339``): depth 12,
     heads 2, final-norm eps 1e-6. It reads the JAX factory's keys
     (``chadavit_tpu/models/chada_vit.py:533-552``): ``dtype`` (float32 or
-    bfloat16) is honoured, and ``param_dtype``, ``attn_impl``, ``ln_impl``,
-    ``seq_pad_multiple``, ``patch_embed_conv`` and ``shard_mesh`` are taken at
-    the values in :data:`_FACTORY_VALUES`; any other value raises
+    bfloat16) and ``block_impl`` are honoured, and ``param_dtype``,
+    ``attn_impl``, ``ln_impl``, ``seq_pad_multiple``, ``patch_embed_conv`` and
+    ``shard_mesh`` are taken at the values in :data:`_FACTORY_VALUES`
+    (``ln_impl`` at all three of the JAX package's); any other value raises
     ``NotImplementedError``."""
     for key, honoured in _FACTORY_VALUES.items():
         if key in kwargs and kwargs[key] not in honoured:
@@ -324,6 +341,7 @@ def chada_vit(**kwargs) -> ChAdaViT:
         max_channels=kwargs.get("max_number_channels", 10),
         img_size=kwargs.get("img_size", 224),
         block_impl=kwargs.get("block_impl", "auto"),
+        ln_impl=kwargs.get("ln_impl", "auto"),
         drop_path_rate=kwargs.get("drop_path_rate", 0.0),
         dtype=kwargs.get("dtype", torch.float32),
         param_dtype=kwargs.get("param_dtype", torch.float32),

@@ -33,7 +33,8 @@ from chadavit_tpu_torch.train.state import DinoState
 class DinoPretrainSpec:
     """The knobs of the DINO pretrain step (the reference YAML,
     ``scripts/knn/bbbc048/dino_chada_vit_moyen.yaml:36-84``); the defaults are
-    the canonical ChAdaViT-moyen run."""
+    the canonical ChAdaViT-moyen run. ``backbone_kwargs`` go to the factory
+    ``chada_vit`` as they are, ``ln_impl`` and ``block_impl`` among them."""
 
     backbone: str = "vit_channels"
     backbone_kwargs: Dict[str, Any] = field(default_factory=lambda: dict(

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Smoke run of chadavit_tpu_torch on one NVIDIA GPU: the served embedding path
-and the DINO train step of ChAdaViT-moyen through the port's hand-written CUDA
-kernels, in float32 and in bfloat16 (the canonical pretrain precision: float32
-parameters, bfloat16 activations). Every kernel has a float32 and a bfloat16
-instance (C entry points ``name`` and ``name_bf16``).
+"""Smoke run of chadavit_tpu_torch on one NVIDIA GPU: the served embedding path,
+the DINO train step and the pretrain entry point of ChAdaViT-moyen through the
+port's hand-written CUDA kernels, in float32 and in bfloat16 (the canonical
+pretrain precision: float32 parameters, bfloat16 activations). Every kernel
+has a float32 and a bfloat16 instance (C entry points ``name`` and
+``name_bf16``).
 
 Run from the root of the repository, with no arguments:
 
@@ -14,8 +15,8 @@ Phases, each printed with its elapsed seconds at its start and end:
 0. guard: a watchdog ends a hang after WATCHDOG_S with a traceback; no CUDA
    device means exit 1 (there is no CPU path); TF32 off; the card's name and
    power limit from nvidia-smi.
-1. build: nvcc compiles csrc/*.cu, one process per source, into one library
-   (cold build seconds).
+1. build: nvcc compiles csrc/*.cu (layernorm.cu among them), one process per
+   source, into one library (cold build seconds).
 2. each kernel instance against its plain PyTorch version at hub shapes (B 8,
    S_pad 2048, D 192, F 2048, 2 heads, 1..10 channels), float32 on the
    inputs of seed 0, then bfloat16 on those of each of BF16_SEEDS (the worst
@@ -30,6 +31,9 @@ Phases, each printed with its elapsed seconds at its start and end:
    hold a valid row (32-row tiles of the layer, 64-query tiles of the
    attention), K2 through FusedEncoderBlock and K4 through
    PrefixFlashAttention against the plain backward chains, in both dtypes.
+   Then the LayerNorm kernels (ln_fwd, ln_bwd) against their plain versions
+   on the same rows (B x S_pad rows of D 192), with and without the residual,
+   eps 1e-5 and 1e-6, and run twice for the same bits (fixed-order sums).
 3. the JAX fixtures: the depth-2, full-width model's CLS embeddings
    (tests/goldens/torch_port_cls_depth2.npz) and three DINO train steps of
    that backbone with the canonical head (tests/goldens/torch_port_dino_depth2.npz),
@@ -54,9 +58,26 @@ Phases, each printed with its elapsed seconds at its start and end:
    through the plain chains (FusedEncoderBlock with the plain steps, forward
    and backward) in the same way, and the first layer's backward at these 64
    sequences holds to the bounds of phase 2.
+4c. the pretrain entry point: main_pretrain.main (the command line) and
+   run_dino_pretrain on the canonical YAML
+   (scripts/pretrain/dino_chada_vit_moyen.yaml: batch 32, bf16, depth 12)
+   with data.dataset=synthetic and backbone.kwargs.ln_impl=pallas, the host
+   multicrop loader and checkpoints in a temporary directory. (a) 4 steps
+   straight through the command line; (b) 2 steps with a step checkpoint;
+   (c) auto-resume from it to
+   step 4: the metrics of steps 3-4 and the final train state of (c) equal
+   (a)'s bit for bit. The launch count of every kernel in (a) is what 12
+   layers x 4 steps x (teacher + student) imply, plus the final norm's
+   ln_fwd (teacher and student) and ln_bwd (student). The host loader's time
+   per batch beside the step's time, its device span and the time the step
+   waited for its batch. Then block_impl=xla in float32 (batch 16): 2 steps,
+   every LayerNorm (3 per layer and the final norm) through ln_fwd / ln_bwd,
+   and step 1 against the same run with ln_impl=xla (plain LayerNorms): the
+   loss, and the per-tensor cosine of the update directions.
 5. times with CUDA events: each kernel instance, its plain version, one
    PyTorch call for the same function (a yardstick the port never calls), its
-   bound; the whole layer forward and backward; the served batch and the
+   bound (ln_fwd and ln_bwd at the final norm's site, and their device time
+   from the profiler, since CUDA events read the host's launch rate there); the whole layer forward and backward; the served batch and the
    train step, in both dtypes.
 6. one JSON line with every kernel instance, then the last line
    {"ok": true, "device": {...}}. A failed phase prints no last line and
@@ -68,6 +89,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -77,6 +99,7 @@ FIXTURE = GOLDENS / "torch_port_cls_depth2.npz"
 DINO_FIXTURE = GOLDENS / "torch_port_dino_depth2.npz"
 FIXTURE_BF16 = GOLDENS / "torch_port_cls_bf16_depth2.npz"
 DINO_FIXTURE_BF16 = GOLDENS / "torch_port_dino_bf16_depth2.npz"
+CANONICAL = Path(__file__).resolve().parent / "scripts" / "pretrain" / "dino_chada_vit_moyen.yaml"
 
 # hub shapes
 B, S_PAD, D, H, FFN = 8, 2048, 192, 2, 2048
@@ -132,6 +155,18 @@ TRAIN_BF16_B = 32
 TRAIN_BF16_LOSS_REL = 5e-5
 TRAIN_UPDATE_COS = 1 - 1e-7       # float32, kernels against the plain backbone
 TRAIN_BF16_UPDATE_COS = 1 - 3e-3  # bfloat16, kernels against the plain chains
+# the pretrain entry point: the canonical recipe on synthetic data through the
+# LayerNorm kernels; (a) straight, (b) stop with a step checkpoint, (c) resume
+ENTRY = ["data.dataset=synthetic", "backbone.kwargs.ln_impl=pallas", "log_every=1",
+         "checkpoint.enabled=true", "auto_resume.enabled=true"]
+ENTRY_STEPS, ENTRY_STOP = 4, 2
+# block_impl=xla, float32, LayerNorm kernels against plain LayerNorms: step 1's
+# loss and update directions, the bounds of the float32 train path (4b)
+ENTRY_XLA = ["precision=f32", "backbone.kwargs.block_impl=xla", "optimizer.batch_size=16",
+             "checkpoint.step_frequency=1", "checkpoint.keep_prev=true"]
+ENTRY_XLA_STEPS = 2
+ENTRY_METRICS = ("dino_loss", "lr", "tau", "teacher_temp", "teacher_entropy",
+                 "center_norm", "epoch")
 
 # the card's peaks (NVIDIA H100 SXM data sheet): f32 outside the tensor cores,
 # dense bf16 on the tensor cores, and HBM3 bandwidth. The bound of a float32
@@ -250,9 +285,10 @@ def plain_chain_backbone(model, x, cc):
     return model.final_norm(emb)[:, 0]
 
 
-def check_updates(ph, what, kernel_dirs, plain_state, spec, bound):
-    """Step 1's update of every trainable tensor, the kernels' run against
-    the plain run from the same state: a cosine of at least bound per tensor.
+def check_updates(ph, what, names, kernel_dirs, plain_dirs, spec, bound):
+    """Step 1's update of every trainable tensor (``names``, in the train
+    state's order), the kernels' run against the plain run from the same
+    state: a cosine of at least bound per tensor.
     The update is read from the LARS momentum buffer, which after the first
     step holds the step's direction (the update over -lr) before it meets
     the parameter (an update below half an ulp of a parameter near 1 leaves
@@ -266,8 +302,7 @@ def check_updates(ph, what, kernel_dirs, plain_state, spec, bound):
 
     frozen = LAST_LAYER if spec.freeze_last_layer > 0 else ()
     cosines, still, bad = [], [], []
-    for (n, _), dk, dp in zip(plain_state.trainable(), kernel_dirs,
-                              plain_state.opt_state.momentum):
+    for n, dk, dp in zip(names, kernel_dirs, plain_dirs):
         dk, dp = dk.double().flatten(), dp.double().flatten()
         if n in frozen:
             (bad if dk.any() or dp.any() else still).append(n)
@@ -339,6 +374,54 @@ def check_layer_backward(ph, backbone, batch, dt, seed=5):
              f"shapes ({x.shape[0]} sequences of {x.shape[1]}, valid_len {min(valid.tolist())}"
              f"..{max(valid.tolist())}), FusedEncoderBlock against the plain backward chain: "
              f"{what}; dx zero on the zero-filled tiles: {tail_zero}")
+
+
+def entry_cfg(extra):
+    """The canonical pretrain config with ENTRY and ``extra`` applied, parsed
+    as the entry point parses it."""
+    from chadavit_tpu_torch.cli import apply_overrides
+    from chadavit_tpu_torch.config import load_yaml, parse_pretrain_cfg
+
+    return parse_pretrain_cfg(apply_overrides(load_yaml(str(CANONICAL)), ENTRY + extra))
+
+
+def run_dir(base) -> Path:
+    (run,) = [p for p in (Path(base) / "dino").iterdir() if p.is_dir()]
+    return run
+
+
+def read_logs(base) -> dict:
+    """The run's logged metrics by step."""
+    with open(run_dir(base) / "training_logs.txt") as f:
+        return {r["step"]: r for r in map(json.loads, f)}
+
+
+def final_ckpt(base) -> Path:
+    (ckpt,) = [p for p in run_dir(base).iterdir() if p.is_dir()]
+    return ckpt
+
+
+def step_ckpt(base, step: int) -> Path:
+    (ckpt,) = [p for p in run_dir(base).iterdir() if p.name.endswith(f"-step={step}")]
+    return ckpt
+
+
+def differing_entries(a, b, where="state") -> list:
+    """The entries of two saved train states that are not equal bit for bit."""
+    import torch
+
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [where]
+        return [d for k in a for d in differing_entries(a[k], b[k], f"{where}.{k}")]
+    if isinstance(a, list):
+        if len(a) != len(b):
+            return [where]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in differing_entries(x, y, f"{where}[{i}]")]
+    if isinstance(a, torch.Tensor):
+        return [] if torch.equal(a, b) else [where]
+    return [] if a == b else [where]
 
 
 def bf16_step(x: float) -> float:
@@ -424,6 +507,9 @@ def main() -> int:
     fb_cu = "chadavit_tpu_torch/csrc/fused_block.cu"
     fbb_cu = "chadavit_tpu_torch/csrc/fused_block_bwd.cu"
     k1, k2 = "chadavit_tpu/ops/fused_block.py:91", "chadavit_tpu/ops/fused_block.py:211"
+    from chadavit_tpu_torch.ops import layernorm as ln
+
+    ln_cu = "chadavit_tpu_torch/csrc/layernorm.cu"
     kernels = {  # name -> wrapper, source, the TPU kernel it replaces
         "ln_linear_fwd": (fused_block.ln_linear, fb_cu, k1),
         "prefix_attention_fwd": (fa.prefix_flash_attention,
@@ -437,6 +523,8 @@ def main() -> int:
         "layernorm_bwd": (fused_block.layernorm_bwd, fbb_cu, k2),
         "linear_dgrad": (fused_block.linear_dgrad, fbb_cu, k2),
         "linear_wgrad": (fused_block.linear_wgrad, fbb_cu, k2),
+        "ln_fwd": (ln.ln_fwd, ln_cu, "chadavit_tpu/ops/layernorm.py:38"),
+        "ln_bwd": (ln.ln_bwd, ln_cu, "chadavit_tpu/ops/layernorm.py:55"),
     }
     # every kernel instance: the float32 one keeps the kernel's name, the
     # bfloat16 one ends in _bf16 (its C entry point)
@@ -757,6 +845,42 @@ def main() -> int:
                      f"valid query; PrefixFlashAttention against the plain backward: {what}; "
                      f"zero on the zero-filled tiles: {tail_zero}")
             del t, out, got, o, lse, ref
+
+            # K5/K6, the LayerNorm kernels, on every row of the layer input (the
+            # function has no valid_len), with the attention output as the
+            # residual; the backward from the forward's own stats
+            for res, eps in ((None, EPS1), (None, 1e-6), (attn, EPS1), (attn, 1e-6)):
+                what = f" ({'LN(x + r)' if res is not None else 'LN(x)'}, eps {eps:g})"
+                y, mu, rstd = ln.ln_fwd(xd, res, g1, b1, eps)
+                dxl, dgl, dbl = ln.ln_bwd(xd, res, g1, mu, rstd, dyd)
+                again = ln.ln_bwd(xd, res, g1, mu, rstd, dyd)
+                torch.cuda.synchronize()
+                ry, rmu, rrstd = ln.ln_fwd_reference(xd, res, g1, b1, eps)
+                rdx, rdg, rdb = ln.ln_bwd_reference(xd, res, g1, mu, rstd, dyd)
+                ph.check(all(torch.equal(a_, b_) for a_, b_ in zip((dxl, dgl, dbl), again)),
+                         f"ln_bwd{tag}{what}: the same bits on a second run")
+                ph.check(y.dtype == dxl.dtype == dt and all(
+                    t_.dtype == torch.float32 for t_ in (mu, rstd, dgl, dbl)),
+                         f"ln_fwd{tag}/ln_bwd{tag}: y, dx {dt}; stats, dgamma, dbeta f32")
+                if f32:
+                    note("ln_fwd", max((a_ - b_).abs().max().item() for a_, b_ in
+                                       ((y, ry), (mu, rmu), (rstd, rrstd))),
+                         KERNEL_TOL, what + " y, mean, rstd")
+                    for out_, ref_, part in ((dxl, rdx, "dx"), (dgl, rdg, "dgamma"),
+                                             (dbl, rdb, "dbeta")):
+                        mag = ref_.abs().max().item()
+                        note("ln_bwd", (out_ - ref_).abs().max().item(),
+                             GRAD_REL * max(1.0, mag), f"{what} {part} (output scale {mag:.3g})")
+                else:
+                    note_bf16("ln_fwd_bf16", y, ry, what + " y", None)
+                    note_bf16("ln_fwd_bf16", torch.stack((mu, rstd), -1),
+                              torch.stack((rmu, rrstd), -1), what + " mean, rstd", None)
+                    for out_, ref_, part in ((dxl, rdx, "dx"), (dgl, rdg, "dgamma"),
+                                             (dbl, rdb, "dbeta")):
+                        note_bf16("ln_bwd_bf16", out_, ref_, f"{what} {part}", None)
+                if res is None and eps == 1e-6:  # the final norm's site, timed in phase 5
+                    inp["ln"] = dict(mu=mu, rstd=rstd)
+                del y, mu, rstd, dxl, dgl, dbl, again, ry, rmu, rrstd, rdx, rdg, rdb
         log("  bf16 instances, worst readings over seeds "
             f"{', '.join(map(str, BF16_SEEDS))}: " + "; ".join(
                 f"{k} {v:.3g} ({where})" for k, (v, where) in worst_bf16.items())
@@ -998,7 +1122,8 @@ def main() -> int:
                  f"step 1, kernels against the plain backbone: loss rel {loss_rel:.2e} "
                  f"(<= {TRAIN_LOSS_REL:g}), worst per-tensor cosine of the updated "
                  f"parameters 1 - {1 - worst_cos:.2e} (>= 1 - {1 - TRAIN_PARAM_COS:.0e})")
-        check_updates(ph, "step 1", dirs_step1, pstate, spec, TRAIN_UPDATE_COS)
+        check_updates(ph, "step 1", [n for n, _ in pstate.trainable()], dirs_step1,
+                      pstate.opt_state.momentum, spec, TRAIN_UPDATE_COS)
         del pstate, pstep, after_step1, dirs_step1
         torch.cuda.empty_cache()
         check_layer_backward(ph, backbone, train_batch, torch.float32)
@@ -1040,10 +1165,152 @@ def main() -> int:
         ph.check(loss_rel <= TRAIN_BF16_LOSS_REL,
                  f"bf16 step 1, kernels against the plain chains: loss rel {loss_rel:.2e} "
                  f"(<= {TRAIN_BF16_LOSS_REL:g})")
-        check_updates(ph, "bf16 step 1", dirs_step1, pstate, spec_b, TRAIN_BF16_UPDATE_COS)
+        check_updates(ph, "bf16 step 1", [n for n, _ in pstate.trainable()], dirs_step1,
+                      pstate.opt_state.momentum, spec_b, TRAIN_BF16_UPDATE_COS)
         del pstate, pstep, dirs_step1
         torch.cuda.empty_cache()
         check_layer_backward(ph, backbone_b, train_batch_b, bf16)
+        torch.cuda.empty_cache()
+
+    # ---- 4c. the pretrain entry point ------------------------------------------
+    with Phase("4c pretrain entry point", failures) as ph, \
+            tempfile.TemporaryDirectory() as tmp:
+        from chadavit_tpu_torch import main_pretrain
+        from chadavit_tpu_torch.train import loop
+        from chadavit_tpu_torch.utils.checkpoint import STATE_FILE
+
+        # every step's device span: CUDA events around the step the loop builds
+        spans = []
+        real_build = loop.build_dino
+
+        def timed_build(*args, **kwargs):
+            st_, stp_, m_, h_ = real_build(*args, **kwargs)
+
+            def timed_step(state_, batch_):
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                out = stp_(state_, batch_)
+                ev[1].record()
+                spans.append(ev)
+                return out
+            return st_, timed_step, m_, h_
+
+        cfg_a = entry_cfg([f"checkpoint.dir={tmp}/a"])
+        ph.check(cfg_a.optimizer.batch_size == 32 and cfg_a.precision == "bf16"
+                 and cfg_a.data.num_large_crops == 2,
+                 f"canonical recipe: batch {cfg_a.optimizer.batch_size}, precision "
+                 f"{cfg_a.precision}, {cfg_a.data.num_large_crops} global crops of "
+                 f"{cfg_a['augmentations'][0]['crop_size']} px, lr {cfg_a.optimizer.lr:g}")
+        loop.build_dino = timed_build
+        try:
+            reset_launches()
+            t = time.perf_counter()
+            # (a) through the command line a user types, as its argument list
+            metrics_a = main_pretrain.main(
+                ["--config-path", str(CANONICAL.parent), "--config-name", CANONICAL.name,
+                 *ENTRY, f"checkpoint.dir={tmp}/a", f"max_steps={ENTRY_STEPS}"])
+            torch.cuda.synchronize()
+            entry_s = time.perf_counter() - t
+            launches = read_launches()
+        finally:
+            loop.build_dino = real_build
+        depth = 12
+        runs = depth * ENTRY_STEPS
+        expected = {name: 0 for name in instances}
+        expected.update({f"{name}_bf16": n for name, n in {
+            "ln_linear_fwd": 3 * runs, "prefix_attention_fwd": 2 * runs,
+            "linear_relu_fwd": 3 * runs, "linear_residual_ln_fwd": 5 * runs,
+            "prefix_attention_bwd": runs, "layernorm_bwd": 3 * runs, "linear_dgrad": 4 * runs,
+            "linear_wgrad": 4 * runs, "ln_fwd": 2 * ENTRY_STEPS, "ln_bwd": ENTRY_STEPS}.items()})
+        for name in ("ln_fwd_bf16", "ln_bwd_bf16"):
+            stats[name]["launches"] = launches[name]
+        logs_a = read_logs(f"{tmp}/a")
+        ph.check(sorted(logs_a) == list(range(1, ENTRY_STEPS + 1))
+                 and all(math.isfinite(logs_a[i]["dino_loss"]) for i in logs_a),
+                 f"(a) python -m chadavit_tpu_torch.main_pretrain ... max_steps={ENTRY_STEPS}: "
+                 f"dino_loss "
+                 f"{[logs_a[i]['dino_loss'] for i in sorted(logs_a)]}, finite "
+                 f"({entry_s:.2f} s with set-up)")
+        ph.check(launches == expected, f"(a) launches {launches} == expected {expected} "
+                 f"({depth} layers x {ENTRY_STEPS} steps x (teacher + student), the final "
+                 "norm's ln_fwd twice and ln_bwd once a step)")
+
+        # the host loader beside the step: wall time, device span, the wait
+        steady = [i for i in sorted(logs_a) if i > 2]
+        step_ms = 1e3 * logs_a[steady[-1]]["step_time_s"]
+        wait_ms = 1e3 * logs_a[steady[-1]]["data_wait_s"]
+        span_ms = [s_.elapsed_time(e_) for s_, e_ in spans]
+        loader = loop.build_pretrain_loader(cfg_a, seed=5)
+        it = iter(loader)
+        next(it)  # the workers' first batch
+        t = time.perf_counter()
+        n_batches = min(4, len(loader) - 1)
+        for _ in range(n_batches):
+            next(it)
+        loader_ms = 1e3 * (time.perf_counter() - t) / n_batches
+        del it, loader
+        log(f"  entry point, {cfg_a.precision}, B {cfg_a.optimizer.batch_size} x "
+            f"{cfg_a.data.num_large_crops} crops of {cfg_a['augmentations'][0]['crop_size']} "
+            f"px, {cfg_a.data.num_workers} loader "
+            f"threads: host loader {loader_ms:.1f} ms per batch on its own; steps 3-{ENTRY_STEPS}"
+            f": wall {step_ms:.1f} ms per step, waiting for the batch {wait_ms:.1f} ms "
+            f"({100 * wait_ms / step_ms:.1f} % of the step, the card idle); device span of "
+            f"each step {', '.join(f'{v:.1f}' for v in span_ms)} ms ({smi})")
+
+        # (b) stop at step 2 with a step checkpoint; (c) auto-resume to step 4
+        cfg_b = entry_cfg([f"checkpoint.dir={tmp}/b", f"checkpoint.step_frequency={ENTRY_STOP}"])
+        loop.run_dino_pretrain(cfg_b, max_steps=ENTRY_STOP)
+        metrics_c = loop.run_dino_pretrain(cfg_b, max_steps=ENTRY_STEPS - ENTRY_STOP)
+        logs_c = read_logs(f"{tmp}/b")
+        same_logs = all(logs_a[i][k] == logs_c[i][k] for i in range(ENTRY_STOP + 1,
+                                                                    ENTRY_STEPS + 1)
+                        for k in ENTRY_METRICS)
+        state_a, state_c = (torch.load(final_ckpt(f"{tmp}/{d}") / STATE_FILE,
+                                       weights_only=True) for d in ("a", "b"))
+        diff = differing_entries(state_a, state_c)
+        ph.check(sorted(logs_c) == list(range(1, ENTRY_STEPS + 1)) and same_logs
+                 and metrics_c == metrics_a and state_c["step"] == ENTRY_STEPS and not diff,
+                 f"(b) {ENTRY_STOP} steps + (c) auto-resume to step {ENTRY_STEPS}: metrics of "
+                 f"steps {ENTRY_STOP + 1}-{ENTRY_STEPS} equal (a)'s bit for bit: {same_logs}; "
+                 f"final train state (step {state_c['step']}) equal bit for bit: entries that "
+                 f"differ {diff[:5]}")
+        del state_a, state_c
+        torch.cuda.empty_cache()
+
+        # block_impl=xla, float32: every LayerNorm through ln_fwd / ln_bwd, step 1
+        # against the same run with plain LayerNorms (ln_impl=xla)
+        cfg_x = entry_cfg(ENTRY_XLA + [f"checkpoint.dir={tmp}/x"])
+        reset_launches()
+        loop.run_dino_pretrain(cfg_x, max_steps=ENTRY_XLA_STEPS)
+        launches = read_launches()
+        n = ENTRY_XLA_STEPS
+        expected = {name: 0 for name in instances}
+        expected.update({"prefix_attention_fwd": 2 * depth * n, "prefix_attention_bwd": depth * n,
+                         "ln_fwd": 2 * (3 * depth + 1) * n, "ln_bwd": (3 * depth + 1) * n})
+        for name in ("ln_fwd", "ln_bwd"):
+            stats[name]["launches"] = launches[name]
+        ph.check(launches == expected, f"block_impl=xla, f32, {n} steps: launches {launches} == "
+                 f"expected {expected} (3 LayerNorms a layer and the final norm, teacher and "
+                 "student; the attention kernels; the projections in torch.matmul)")
+        cfg_y = entry_cfg(ENTRY_XLA + [f"checkpoint.dir={tmp}/y", "backbone.kwargs.ln_impl=xla"])
+        loop.run_dino_pretrain(cfg_y, max_steps=1)
+        logs_x, logs_y = read_logs(f"{tmp}/x"), read_logs(f"{tmp}/y")
+        loss_rel = abs(logs_x[1]["dino_loss"] / logs_y[1]["dino_loss"] - 1)
+        ph.check(loss_rel <= TRAIN_LOSS_REL and all(math.isfinite(logs_x[i]["dino_loss"])
+                                                    for i in logs_x),
+                 f"block_impl=xla step 1, LayerNorm kernels against plain LayerNorms: loss "
+                 f"{logs_x[1]['dino_loss']:.6f} vs {logs_y[1]['dino_loss']:.6f}, rel "
+                 f"{loss_rel:.2e} (<= {TRAIN_LOSS_REL:g}); step 2 loss "
+                 f"{logs_x[n]['dino_loss']:.6f}")
+        st_x, st_y = (torch.load(step_ckpt(f"{tmp}/{d}", 1) / STATE_FILE, weights_only=True)
+                      for d in ("x", "y"))
+        spec_x = loop.spec_from_cfg(cfg_x, 1)
+        ph.check(st_x["opt_state"]["names"] == st_y["opt_state"]["names"],
+                 "the two runs train the same tensors")
+        check_updates(ph, "block_impl=xla step 1", st_x["opt_state"]["names"],
+                          st_x["opt_state"]["momentum"], st_y["opt_state"]["momentum"],
+                          spec_x, TRAIN_UPDATE_COS)
+        del st_x, st_y
         torch.cuda.empty_cache()
 
     # ---- 5. times -------------------------------------------------------------
@@ -1166,6 +1433,22 @@ def main() -> int:
                     2 * rows * FFN * D,
                     es * (rows * FFN + rows * D + FFN * D + D + m_all * D) + 4 * 2 * D)],
             }
+            # K5/K6 at the final norm's site (LN(x), eps 1e-6) on the hub rows;
+            # the bound counts the rows < valid_len
+            mu_l, rstd_l = inp["ln"]["mu"], inp["ln"]["rstd"]
+            dy2d = dyd.reshape(-1, D)
+            runs["ln_fwd"] = [site(
+                lambda: ln.ln_fwd(xd, None, g1, b1, 1e-6),
+                lambda: ln.ln_fwd_reference(xd, None, g1, b1, 1e-6),
+                lambda: F.layer_norm(x2d, (D,), gl1, bl1, 1e-6),
+                8 * rows * D, es * (2 * rows * D + 2 * D) + 4 * 2 * rows)]
+            runs["ln_bwd"] = [site(
+                lambda: ln.ln_bwd(xd, None, g1, mu_l, rstd_l, dyd),
+                lambda: ln.ln_bwd_reference(xd, None, g1, mu_l, rstd_l, dyd),
+                lambda: torch.ops.aten.native_layer_norm_backward(
+                    dy2d, x2d, [D], mu_l.reshape(-1, 1), rstd_l.reshape(-1, 1), gl1, bl1,
+                    [True, True, True]),
+                12 * rows * D, es * (3 * rows * D + D) + 4 * (2 * rows + 2 * D))]
             # the backward steps, every site of one layer's backward summed, on
             # the inputs recorded in phase 2
             for name, calls in inp["bwd_inputs"].items():
@@ -1192,7 +1475,7 @@ def main() -> int:
                     bound += max(t_ops, t_bytes)
                     ops_bound += t_ops
                     bytes_bound += t_bytes
-                if name.endswith("_fwd"):
+                if name.endswith("_fwd") and name != "ln_fwd":  # the layer's own steps
                     layer_bound += bound
                 stats[name + tag].update(
                     ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
@@ -1200,6 +1483,27 @@ def main() -> int:
                 log(f"  {name + tag} ({len(sites)} site{'s' * (len(sites) > 1)} of a layer): "
                     f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
                     f"bound {bound:.4f} ms ({stats[name + tag]['bound_by']})")
+
+            # K5/K6 finish on the device faster than the host launches them, so
+            # CUDA events read the launch rate; the profiler reads their kernels
+            from torch.profiler import ProfilerActivity, profile
+
+            reps = 20
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    ln.ln_fwd(xd, None, g1, b1, 1e-6)
+                    ln.ln_bwd(xd, None, g1, mu_l, rstd_l, dyd)
+                torch.cuda.synchronize()
+            ln_dev = {"ln_fwd": 0.0, "ln_bwd": 0.0}
+            for e in prof.key_averages():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    for name, kernels_of in (("ln_fwd", ("ln_fwd_kernel",)),
+                                             ("ln_bwd", ("ln_bwd_kernel", "ln_reduce_kernel"))):
+                        if any(k in e.key for k in kernels_of):
+                            ln_dev[name] += e.self_device_time_total / 1e3 / reps
+            log(f"  ln_fwd{tag} / ln_bwd{tag} device time per call (profiler, {reps} calls): "
+                f"{ln_dev['ln_fwd']:.4f} / {ln_dev['ln_bwd']:.4f} ms, bound "
+                f"{stats['ln_fwd' + tag]['bound_ms']:.4f} / {stats['ln_bwd' + tag]['bound_ms']:.4f} ms")
 
             layer_ms = time_ms(lambda: fused_block.fused_encoder_block(xd, vl, *w, H, EPS1, EPS2))
             layer_plain_ms = time_ms(

@@ -34,7 +34,7 @@ HUB_COS = 0.999
 # ---- the factory ------------------------------------------------------------------
 @pytest.mark.parametrize("key, value", [
     ("dtype", torch.float32), ("dtype", torch.bfloat16), ("param_dtype", torch.float32),
-    ("attn_impl", "auto"), ("ln_impl", "auto"), ("ln_impl", "xla"),
+    ("attn_impl", "auto"), ("ln_impl", "auto"), ("ln_impl", "xla"), ("ln_impl", "pallas"),
     ("seq_pad_multiple", 128), ("patch_embed_conv", True), ("patch_embed_conv", False),
     ("shard_mesh", None)])
 def test_factory_accepts_the_jax_defaults_and_the_honoured_values(key, value):
@@ -46,7 +46,7 @@ def test_factory_accepts_the_jax_defaults_and_the_honoured_values(key, value):
 
 @pytest.mark.parametrize("key, value", [
     ("dtype", torch.float16), ("param_dtype", torch.bfloat16), ("attn_impl", "pallas"),
-    ("attn_impl", "xla"), ("ln_impl", "pallas"), ("seq_pad_multiple", 0),
+    ("attn_impl", "xla"), ("ln_impl", "triton"), ("seq_pad_multiple", 0),
     ("seq_pad_multiple", 256), ("shard_mesh", object())])
 def test_factory_raises_on_each_value_it_does_not_honour(key, value):
     with pytest.raises(NotImplementedError, match=key):

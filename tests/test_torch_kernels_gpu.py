@@ -363,3 +363,86 @@ def test_attention_gradient_with_tail_cotangent(dev, valid, dtype):
         _assert_bf16_close(got, ref, rows)
         for i, n in enumerate(rows):
             assert not got[i, n:].any().item()
+
+
+# ---- K5/K6: the standalone LayerNorm kernels (csrc/layernorm.cu) -------------------
+LN_SHAPES = [(4, 2048, D), (3, 45, D), (7, 11, 64), (2, 5, 1024)]
+
+
+@pytest.mark.parametrize("eps", [1e-5, 1e-6])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LN_SHAPES)
+def test_layernorm_kernels(dev, shape, dtype, residual, eps):
+    from chadavit_tpu_torch.ops import layernorm as ln
+
+    rng = np.random.default_rng(shape[1] + residual)
+    d = shape[-1]
+    x = (_randn(rng, dev, *shape) * 2 + 0.5).to(dtype)
+    r = _randn(rng, dev, *shape).to(dtype) if residual else None
+    g, b = 1 + _randn(rng, dev, d, scale=0.1), _randn(rng, dev, d, scale=0.05)
+    dy = _randn(rng, dev, *shape).to(dtype)
+    before = dict(_launch.LAUNCHES)
+    y, mu, rstd = ln.ln_fwd(x, r, g, b, eps)
+    dx, dg, db = ln.ln_bwd(x, r, g, mu, rstd, dy)
+    name = _launch.entry_point("ln_fwd", dtype), _launch.entry_point("ln_bwd", dtype)
+    assert [_launch.LAUNCHES[n] - before.get(n, 0) for n in name] == [1, 1]
+    ry, rmu, rrstd = ln.ln_fwd_reference(x, r, g, b, eps)
+    rdx, rdg, rdb = ln.ln_bwd_reference(x, r, g, mu, rstd, dy)
+    assert y.dtype == dtype and dx.dtype == dtype
+    assert all(t.dtype == torch.float32 for t in (mu, rstd, dg, db))
+    if dtype == torch.float32:
+        for out, ref in ((y, ry), (mu, rmu), (rstd, rrstd), (dx, rdx)):
+            torch.cuda.synchronize()
+            assert (out - ref).abs().max().item() <= TOL * max(1.0, ref.abs().max().item())
+        for out, ref in ((dg, rdg), (db, rdb)):
+            assert (out - ref).abs().max().item() <= TOL * max(1.0, ref.abs().max().item())
+    else:
+        for out, ref in ((y, ry), (dx, rdx), (mu, rmu), (rstd, rrstd), (dg, rdg), (db, rdb)):
+            _assert_bf16_close(out, ref)
+    # the same bits from run to run: no atomics, fixed-order sums
+    dx2, dg2, db2 = ln.ln_bwd(x, r, g, mu, rstd, dy)
+    assert torch.equal(dx, dx2) and torch.equal(dg, dg2) and torch.equal(db, db2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [False, True])
+def test_layernorm_gradient_through_the_functions(dev, dtype, residual):
+    # layernorm(impl="pallas") under autograd against autograd of the plain
+    # version of the kernel path (scale and bias rounded to x's dtype)
+    from chadavit_tpu_torch.ops import layernorm as ln
+
+    rng = np.random.default_rng(11 + residual)
+    x = _randn(rng, dev, 4, 300, D).to(dtype).requires_grad_(True)
+    r = _randn(rng, dev, 4, 300, D).to(dtype).requires_grad_(True) if residual else None
+    g = (1 + _randn(rng, dev, D, scale=0.1)).requires_grad_(True)
+    b = _randn(rng, dev, D, scale=0.05).requires_grad_(True)
+    t = _randn(rng, dev, 4, 300, D)
+    leaves = [x, g, b] + ([r] if residual else [])
+
+    def loss(y):  # not LN-invariant: sum((y - t)^2)
+        return ((y.float() - t) ** 2).sum()
+
+    got = torch.autograd.grad(loss(ln.layernorm(x, g, b, 1e-6, impl="pallas", residual=r)),
+                              leaves)
+    ref = torch.autograd.grad(loss(ln.ln_fwd_reference(x, r, g, b, 1e-6)[0]), leaves)
+    assert got[1].dtype == torch.float32 and got[2].dtype == torch.float32
+    if residual:
+        assert torch.equal(got[0], got[3])  # one cotangent for both addends
+    for o, rf in zip(got, ref):
+        if dtype == torch.float32:
+            torch.cuda.synchronize()
+            assert (o - rf).abs().max().item() <= TOL * max(1.0, rf.abs().max().item())
+        else:
+            _assert_bf16_close(o, rf)
+
+
+def test_layernorm_refuses_other_widths(dev):
+    from chadavit_tpu_torch.ops import layernorm as ln
+
+    g = torch.ones(2048 + 4, device=dev)
+    with pytest.raises(ValueError, match="at most"):
+        ln.ln_fwd(torch.ones(3, 2048 + 4, device=dev), None, g, g, 1e-5)
+    g = torch.ones(6, device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ln.ln_fwd(torch.ones(3, 6, device=dev), None, g, g, 1e-5)
