@@ -44,11 +44,12 @@
 // the zero-filled tiles give nothing and get dx = 0. Keys past valid_len stay
 // masked (prefix_attention_bwd.cu).
 //
-// The bf16 instances (T = bf16) take bf16 activations and weights and write a
-// bf16 dx; the LN parameters, the saved stats, the partial sums and the
-// parameter gradients stay f32, so the fixed-order reduce is the f32 one. They
-// round where the TPU kernel casts to dt: the LN'ed X of the QKV weight
-// gradient (h), and each output.
+// The bf16 instances of linear_dgrad and linear_wgrad are tensor-core kernels
+// of their own (linear_bwd_bf16.cu); the float32 ones here stay on CUDA cores.
+// The bf16 instance of layernorm_bwd (T = bf16) takes bf16 activations and
+// writes a bf16 dx, rounded once; the LN parameters, the saved stats, the
+// partial sums and dgamma/dbeta stay f32, so the fixed-order reduce is the f32
+// one.
 //
 // Plain C interface (loaded with ctypes); every launcher returns
 // cudaGetLastError() so that the Python wrapper can raise on a refused launch.
@@ -148,8 +149,6 @@ reduce_chunks_kernel(const float* __restrict__ partial, float* __restrict__ out,
 }
 
 // ---- linear_dgrad: out = dY @ W (+ epilogue), grid (M / BM, N / BN) ----------
-enum Epilogue { EPI_NONE = 0, EPI_RELU_MASK = 1, EPI_RESIDUAL = 2 };
-
 template <int BN, int EPI, typename T>
 __global__ void __launch_bounds__(NT)
 linear_dgrad_kernel(const T* __restrict__ dy, const T* __restrict__ w,
@@ -273,11 +272,6 @@ int reduce_chunks(const float* partial, float* out, int n_out, int n_chunks,
   return (int)cudaGetLastError();
 }
 
-bool is_weight_shape(int N, int K) {  // the four Linear layers of the layer
-  return (N == 3 * D_MODEL && K == D_MODEL) || (N == D_MODEL && K == D_MODEL) ||
-         (N == D_FFN && K == D_MODEL) || (N == D_MODEL && K == D_FFN);
-}
-
 template <typename T>
 int layernorm_bwd_launch(const T* dy, const T* xin, const float* mean,
                          const float* rstd, const float* g, const T* res, T* dx,
@@ -341,9 +335,10 @@ int linear_wgrad_launch(const T* dy, const T* x, const float* mean,
 
 }  // namespace
 
-// The float entry points keep their names; the bf16 ones end in _bf16 and take
-// the same arguments, with every activation and weight pointer to bf16 and the
-// LN parameters, stats, scratch and gradients still f32.
+// The float entry points keep their names; layernorm_bwd_bf16 takes the same
+// arguments, with every activation pointer to bf16 and the LN parameters,
+// stats, scratch and gradients still f32. linear_dgrad_bf16 and
+// linear_wgrad_bf16 are in linear_bwd_bf16.cu.
 extern "C" {
 
 // dy, xin, dx (and res, when not null): (M, 192); mean, rstd: (M,);
@@ -374,12 +369,6 @@ int linear_dgrad(const float* dy, const float* w, const float* aux, float* out,
   return linear_dgrad_launch(dy, w, aux, out, epilogue, valid_len, M, K, N, s_pad,
                              stream);
 }
-int linear_dgrad_bf16(const bf16* dy, const bf16* w, const bf16* aux, bf16* out,
-                      int epilogue, const int* valid_len, int M, int K, int N,
-                      int s_pad, void* stream) {
-  return linear_dgrad_launch(dy, w, aux, out, epilogue, valid_len, M, K, N, s_pad,
-                             stream);
-}
 
 // dy (M, N), x (M, K); dwb: (N * K + N,) = dW (N, K) row-major, then db (N,).
 // With mean (not null), x is layer-normed with mean, rstd, g, beta as it is
@@ -389,13 +378,6 @@ int linear_wgrad(const float* dy, const float* x, const float* mean,
                  const float* rstd, const float* g, const float* beta,
                  float* partial, float* dwb, const int* valid_len, int M, int N,
                  int K, int s_pad, int chunk, void* stream) {
-  return linear_wgrad_launch(dy, x, mean, rstd, g, beta, partial, dwb, valid_len, M,
-                             N, K, s_pad, chunk, stream);
-}
-int linear_wgrad_bf16(const bf16* dy, const bf16* x, const float* mean,
-                      const float* rstd, const float* g, const float* beta,
-                      float* partial, float* dwb, const int* valid_len, int M, int N,
-                      int K, int s_pad, int chunk, void* stream) {
   return linear_wgrad_launch(dy, x, mean, rstd, g, beta, partial, dwb, valid_len, M,
                              N, K, s_pad, chunk, stream);
 }

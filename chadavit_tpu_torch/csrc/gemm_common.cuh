@@ -143,4 +143,12 @@ bool rows_ok(int M, int K, int s_pad) {
 constexpr int D_MODEL = 192;
 constexpr int D_FFN = 2048;
 
+bool is_weight_shape(int N, int K) {  // the four Linear layers of the layer
+  return (N == 3 * D_MODEL && K == D_MODEL) || (N == D_MODEL && K == D_MODEL) ||
+         (N == D_FFN && K == D_MODEL) || (N == D_MODEL && K == D_FFN);
+}
+
+// linear_dgrad's epilogues: none; out = (dY @ W) [aux > 0]; out = aux + dY @ W
+enum Epilogue { EPI_NONE = 0, EPI_RELU_MASK = 1, EPI_RESIDUAL = 2 };
+
 }  // namespace

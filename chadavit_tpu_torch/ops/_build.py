@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -51,6 +52,7 @@ SIGNATURES = {
     "ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 # the bf16 instance of each kernel: the same arguments, bf16 activations
+# (linear_wgrad_bf16 takes its row splits where linear_wgrad takes its chunk)
 SIGNATURES.update({f"{name}_bf16": argtypes for name, argtypes in list(SIGNATURES.items())})
 
 _lib = None
@@ -122,6 +124,48 @@ def build() -> Path:
           f"{len(sources())} sources in {time.perf_counter() - t0:.2f} s",
           file=sys.stderr, flush=True)
     return lib_path
+
+
+def ptxas_report(source: str) -> subprocess.Popen:
+    """Start ``nvcc -Xptxas -v -c`` on ``csrc/<source>`` with the build's
+    flags; its output (text, on stdout) gives each kernel's registers, shared
+    memory and spills. The object file is a throwaway in the build
+    directory, removed by :func:`ptxas_lines`."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj = BUILD_DIR / f"ptxas.{os.getpid()}.o"
+    proc = subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+                             str(CSRC / source)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    proc.obj = obj
+    return proc
+
+
+def ptxas_lines(proc: subprocess.Popen) -> list[dict]:
+    """Wait for a :func:`ptxas_report` and parse it: one dict per kernel
+    (``name``, mangled, then ``registers``, ``smem`` bytes, ``spill_stores``,
+    ``spill_loads`` bytes). Raises if nvcc failed."""
+    out = proc.communicate()[0]
+    proc.obj.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v failed ({proc.returncode}):\n{out}")
+    kernels, cur = [], None
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"name": m.group(1)}
+            kernels.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return kernels
 
 
 def library() -> ctypes.CDLL:

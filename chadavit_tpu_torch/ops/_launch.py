@@ -48,16 +48,19 @@ def entry_point(name: str, dtype: torch.dtype) -> str:
     return name + KERNEL_DTYPES[dtype]
 
 
-def vector_operand(t: torch.Tensor, name: str, dtype: torch.dtype = torch.float32) -> int:
+def vector_operand(t: torch.Tensor, name: str, dtype: torch.dtype = torch.float32,
+                   align: int = 0) -> int:
     """Pointer of a contiguous CUDA tensor of ``dtype`` (float32 or bfloat16),
-    aligned for the kernels' loads of four elements: 16 bytes for float32, 8
-    for bfloat16."""
+    aligned for the kernels' loads of four elements (16 bytes for float32, 8
+    for bfloat16), or to ``align`` bytes where that is more (the tensor-core
+    kernels' 16-byte copies)."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: the kernel takes {dtype} here, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-    if t.data_ptr() % (4 * t.element_size()):
-        raise ValueError(f"{name}: must be aligned to {4 * t.element_size()} bytes")
+    align = max(align, 4 * t.element_size())
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: must be aligned to {align} bytes")
     return t.data_ptr()
 
 

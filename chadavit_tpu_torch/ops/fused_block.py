@@ -69,7 +69,16 @@ SEQ_PAD = 128   # the chain pads sequences to this multiple, as the model does
 # CUDA tensors the wrappers raise on any other.
 D_MODEL = 192
 D_FFN = 2048
-WGRAD_CHUNK = 1024  # the most rows one block of linear_wgrad sums
+WGRAD_CHUNK = 1024  # the most rows one block of the float32 linear_wgrad sums
+# The bfloat16 linear_dgrad / linear_wgrad are tensor-core kernels
+# (csrc/linear_bwd_bf16.cu): dgrad's blocks own 64 rows, so s_pad must be a
+# multiple of 64 (the chain pads to SEQ_PAD); wgrad's grid is its output tiles
+# (the (TN, TK) of each weight shape (N, K) below, as the kernel has them)
+# times a number of splits of the rows that fills the card's 132 SMs once.
+DGRAD_BF16_ROWS = 64
+WGRAD_BF16_TILES = {(3 * D_MODEL, D_MODEL): (64, D_MODEL), (D_MODEL, D_MODEL): (64, D_MODEL),
+                    (D_FFN, D_MODEL): (128, D_MODEL), (D_MODEL, D_FFN): (D_MODEL, 128)}
+WGRAD_BF16_BLOCKS = 132
 
 
 # ---------------------------------------------------------- plain versions ----
@@ -285,11 +294,11 @@ def linear_residual_ln(a, w, bias, residual, g, b, eps: float, valid_len,
     return (out, mean, rstd, r) if save else out
 
 
-def _rows(name: str, t, bsz: int, s: int, n: int, dtype: torch.dtype) -> int:
+def _rows(name: str, t, bsz: int, s: int, n: int, dtype: torch.dtype, align: int = 0) -> int:
     """Pointer of a contiguous ``(bsz, s, n)`` CUDA tensor of ``dtype``."""
     if t.shape != (bsz, s, n):
         raise ValueError(f"{name}: want ({bsz}, {s}, {n}), got {tuple(t.shape)}")
-    return _launch.vector_operand(t, name, dtype)
+    return _launch.vector_operand(t, name, dtype, align)
 
 
 def _row_stats(name: str, t, bsz: int, s: int) -> int:
@@ -345,7 +354,9 @@ _DGRAD_SITES = {  # (K, N, epilogue) of the layer's four data-gradient GEMMs
 def linear_dgrad(dy, w, valid_len, relu_of=None, residual=None):
     """``dX = dY @ W`` (W in Linear layout), masked by ``relu_of > 0`` or plus
     ``residual`` (kernel ``linear_dgrad`` on CUDA, at the layer's four sites
-    only), all of one dtype. See :func:`linear_dgrad_reference`."""
+    only; in bfloat16 on the tensor cores, S a multiple of
+    :data:`DGRAD_BF16_ROWS`), all of one dtype. See
+    :func:`linear_dgrad_reference`."""
     if _launch.on_cpu(dy, w, valid_len):
         return linear_dgrad_reference(dy, w, valid_len, relu_of, residual)
     if relu_of is not None and residual is not None:
@@ -359,11 +370,16 @@ def linear_dgrad(dy, w, valid_len, relu_of=None, residual=None):
                          f"epilogue {epilogue}: not a site the kernel is built for")
     bsz, s, k = dy.shape
     n, dt = w.shape[1], dy.dtype
+    # the bf16 kernel: 64-row blocks and 16-byte copies
+    tc = 16 if dt == torch.bfloat16 else 0
+    if tc and s % DGRAD_BF16_ROWS:
+        raise ValueError(f"linear_dgrad: the bfloat16 kernel takes S a multiple of "
+                         f"{DGRAD_BF16_ROWS}, got {s}")
     out = torch.empty((bsz, s, n), dtype=dt, device=dy.device)
     name, fn = _library_fn("linear_dgrad", dt)
     status = fn(
-        _rows("dy", dy, bsz, s, k, dt), _launch.vector_operand(w, "w", dt),
-        None if aux is None else _rows("aux", aux, bsz, s, n, dt), out.data_ptr(), epilogue,
+        _rows("dy", dy, bsz, s, k, dt, tc), _launch.vector_operand(w, "w", dt, tc),
+        None if aux is None else _rows("aux", aux, bsz, s, n, dt, tc), out.data_ptr(), epilogue,
         _launch.valid_len_operand(valid_len, bsz, dy.device), bsz * s, k, n, s,
         _launch.stream(dy.device))
     _build.check(status, name)
@@ -376,19 +392,42 @@ _WGRAD_SHAPES = {(3 * D_MODEL, D_MODEL), (D_MODEL, D_MODEL), (D_FFN, D_MODEL),
 
 
 def wgrad_chunk(s_pad: int) -> int:
-    """Rows per block of ``linear_wgrad``: the largest power of two up to
-    :data:`WGRAD_CHUNK` that divides ``s_pad``."""
+    """Rows per block of the float32 ``linear_wgrad``: the largest power of
+    two up to :data:`WGRAD_CHUNK` that divides ``s_pad``."""
     chunk = WGRAD_CHUNK
     while s_pad % chunk:
         chunk //= 2
     return chunk
 
 
+def wgrad_splits(bsz: int, s_pad: int, n: int, k: int) -> int:
+    """Row splits of the bfloat16 ``linear_wgrad`` at weight shape ``(n, k)``:
+    output tiles x splits fill :data:`WGRAD_BF16_BLOCKS` blocks once, and no
+    split is planned beyond the batch's 32-row tiles. Its partial sums are
+    ``(splits, n * k + n)`` float32, bounded whatever the batch."""
+    tn, tk = WGRAD_BF16_TILES[(n, k)]
+    tiles = (n // tn) * (k // tk)
+    return max(1, min(WGRAD_BF16_BLOCKS // tiles, bsz * s_pad // ROW_BLOCK))
+
+
+def wgrad_split_tiles(valid_len, s_pad: int, splits: int) -> list:
+    """The first rows of the 32-row tiles each split of the bfloat16
+    ``linear_wgrad`` sums, as its kernel assigns them: the computed tiles
+    (those that hold a valid row), image by image, cut into ``splits``
+    contiguous shares, split ``i`` taking list entries
+    ``[i * T // splits, (i + 1) * T // splits)`` of the T tiles."""
+    rows = [b * s_pad + t * ROW_BLOCK for b, n in enumerate(valid_len)
+            for t in range(min(s_pad // ROW_BLOCK, -(-max(int(n), 0) // ROW_BLOCK)))]
+    total = len(rows)
+    return [rows[i * total // splits:(i + 1) * total // splits] for i in range(splits)]
+
+
 def linear_wgrad(dy, x, valid_len, ln=None):
     """``(dW, db) = (dY^T X', colsum dY)`` in float32 over the rows the
     forward computed, with ``X' = LN(X)`` from ``ln = (mean, rstd, g, beta)``
     applied as X is staged (kernel ``linear_wgrad`` on CUDA, at the layer's
-    four weight shapes only). dy and x of one dtype; the partial sums, their
+    four weight shapes only; in bfloat16 on the tensor cores, its rows split
+    by :func:`wgrad_splits`). dy and x of one dtype; the partial sums, their
     fixed-order reduce and the result are float32 for both dtypes. See
     :func:`linear_wgrad_reference`."""
     if _launch.on_cpu(dy, x, valid_len):
@@ -399,23 +438,27 @@ def linear_wgrad(dy, x, valid_len, ln=None):
                          "weight shape the kernel is built for")
     bsz, s, n = dy.shape
     k, dt = x.shape[2], dy.dtype
-    chunk = wgrad_chunk(s)
+    # the bf16 kernel splits the rows by a plan that does not grow with the
+    # batch; the float32 one writes a partial per chunk of rows
+    tc = 16 if dt == torch.bfloat16 else 0
+    rows_arg = wgrad_splits(bsz, s, n, k) if tc else wgrad_chunk(s)
+    n_partials = rows_arg if tc else bsz * s // rows_arg
     dwb = torch.empty(n * k + n, dtype=torch.float32, device=dy.device)
-    partial = torch.empty((bsz * s // chunk, n * k + n), dtype=torch.float32,
-                          device=dy.device)
+    partial = torch.empty((n_partials, n * k + n), dtype=torch.float32, device=dy.device)
     if ln is None:
         ln_ptrs = (None,) * 4
     else:
         mean, rstd, g, b = ln
-        if g.shape != (k,) or b.shape != (k,):
-            raise ValueError(f"linear_wgrad: g {tuple(g.shape)}, b {tuple(b.shape)}")
+        if g.shape != (k,) or b.shape != (k,) or (tc and k != D_MODEL):
+            raise ValueError(f"linear_wgrad: g {tuple(g.shape)}, b {tuple(b.shape)} (the "
+                             f"bfloat16 kernel norms X of width {D_MODEL} only)")
         ln_ptrs = (_row_stats("mean", mean, bsz, s), _row_stats("rstd", rstd, bsz, s),
                    _launch.vector_operand(g, "g"), _launch.vector_operand(b, "b"))
     name, fn = _library_fn("linear_wgrad", dt)
     status = fn(
-        _rows("dy", dy, bsz, s, n, dt), _rows("x", x, bsz, s, k, dt), *ln_ptrs,
+        _rows("dy", dy, bsz, s, n, dt, tc), _rows("x", x, bsz, s, k, dt, tc), *ln_ptrs,
         partial.data_ptr(), dwb.data_ptr(),
-        _launch.valid_len_operand(valid_len, bsz, dy.device), bsz * s, n, k, s, chunk,
+        _launch.valid_len_operand(valid_len, bsz, dy.device), bsz * s, n, k, s, rows_arg,
         _launch.stream(dy.device))
     _build.check(status, name)
     _launch.counted(name)

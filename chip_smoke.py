@@ -16,14 +16,17 @@ Phases, each printed with its elapsed seconds at its start and end:
    device means exit 1 (there is no CPU path); TF32 off; the card's name and
    power limit from nvidia-smi.
 1. build: nvcc compiles csrc/*.cu (layernorm.cu among them), one process per
-   source, into one library (cold build seconds).
+   source, into one library (cold build seconds); beside it, nvcc -Xptxas -v
+   on csrc/linear_bwd_bf16.cu prints the registers, shared memory and spills
+   of the tensor-core kernels, none of which may spill.
 2. each kernel instance against its plain PyTorch version at hub shapes (B 8,
    S_pad 2048, D 192, F 2048, 2 heads, 1..10 channels), float32 on the
    inputs of seed 0, then bfloat16 on those of each of BF16_SEEDS (the worst
    bf16 readings are printed, the bounds are a few times them): the forward
    kernels, their save outputs (LN stats, pre-LN sum,
    lse), then every backward kernel on the inputs the layer's backward gives
-   it; the whole layer forward; the layer's backward through
+   it (linear_dgrad and linear_wgrad twice, for the same bits); the whole
+   layer forward; the layer's backward through
    FusedEncoderBlock against the plain backward chain on the Function's own
    residuals (and, in float32, against torch.autograd.grad of
    fused_encoder_block_reference), with a cotangent that is zero past
@@ -57,7 +60,8 @@ Phases, each printed with its elapsed seconds at its start and end:
    bfloat16 instances launch, step 1 agrees with step 1 of the same model
    through the plain chains (FusedEncoderBlock with the plain steps, forward
    and backward) in the same way, and the first layer's backward at these 64
-   sequences holds to the bounds of phase 2.
+   sequences holds to the bounds of phase 2; the partial-sum scratch of
+   linear_wgrad_bf16 at this batch.
 4c. the pretrain entry point: main_pretrain.main (the command line) and
    run_dino_pretrain on the canonical YAML
    (scripts/pretrain/dino_chada_vit_moyen.yaml: batch 32, bf16, depth 12)
@@ -74,10 +78,13 @@ Phases, each printed with its elapsed seconds at its start and end:
    every LayerNorm (3 per layer and the final norm) through ln_fwd / ln_bwd,
    and step 1 against the same run with ln_impl=xla (plain LayerNorms): the
    loss, and the per-tensor cosine of the update directions.
-5. times with CUDA events: each kernel instance, its plain version, one
-   PyTorch call for the same function (a yardstick the port never calls), its
-   bound (ln_fwd and ln_bwd at the final norm's site, and their device time
-   from the profiler, since CUDA events read the host's launch rate there); the whole layer forward and backward; the served batch and the
+5. times with CUDA events: each kernel instance (and the share of its bound
+   it reaches; linear_dgrad and linear_wgrad also site by site), its plain
+   version, one PyTorch call for the same function (a yardstick the port
+   never calls), its bound (ln_fwd and ln_bwd at the final norm's site); the
+   device time by the profiler of ln_fwd, ln_bwd, linear_dgrad and
+   linear_wgrad, whose small calls CUDA events time by the host's launch
+   rate; the whole layer forward and backward; the served batch and the
    train step, in both dtypes.
 6. one JSON line with every kernel instance, then the last line
    {"ok": true, "device": {...}}. A failed phase prints no last line and
@@ -424,6 +431,17 @@ def differing_entries(a, b, where="state") -> list:
     return [] if a == b else [where]
 
 
+def demangle(names):
+    """C++ names as c++filt gives them, or as they are where it is missing."""
+    import shutil
+
+    if not names or shutil.which("c++filt") is None:
+        return list(names)
+    out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                         text=True).stdout.splitlines()
+    return out if len(out) == len(names) else list(names)
+
+
 def bf16_step(x: float) -> float:
     """The spacing of bfloat16 values at |x| (8 significant bits)."""
     return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0 ** -126))) - 7)
@@ -506,6 +524,7 @@ def main() -> int:
     dev = torch.device("cuda")
     fb_cu = "chadavit_tpu_torch/csrc/fused_block.cu"
     fbb_cu = "chadavit_tpu_torch/csrc/fused_block_bwd.cu"
+    tc_cu = "chadavit_tpu_torch/csrc/linear_bwd_bf16.cu"
     k1, k2 = "chadavit_tpu/ops/fused_block.py:91", "chadavit_tpu/ops/fused_block.py:211"
     from chadavit_tpu_torch.ops import layernorm as ln
 
@@ -532,6 +551,9 @@ def main() -> int:
     instances = {name + tag: (wrapper, src, replaces, dt)
                  for tag, dt in (("", torch.float32), ("_bf16", bf16))
                  for name, (wrapper, src, replaces) in kernels.items()}
+    for name in ("linear_dgrad_bf16", "linear_wgrad_bf16"):  # the tensor-core kernels
+        wrapper, _, replaces, dt = instances[name]
+        instances[name] = (wrapper, tc_cu, replaces, dt)
     stats = {name: {"max_abs_err": 0.0} for name in instances}
 
     def reset_launches():
@@ -544,9 +566,20 @@ def main() -> int:
     with Phase("1 build", failures) as ph:
         cold = not (_build.BUILD_DIR / _build.source_hash()).exists()
         t = time.perf_counter()
+        ptxas = _build.ptxas_report(Path(tc_cu).name)  # beside the build
         _build.library()
         ph.check(True, f"{'cold' if cold else 'warm'} build of {len(_build.sources())} "
                        f"sources: {time.perf_counter() - t:.2f} s")
+        # registers, shared memory and spills of the tensor-core kernels
+        report = _build.ptxas_lines(ptxas)
+        names = demangle([k["name"] for k in report])
+        for k, short in zip(report, names):
+            log(f"  ptxas {short}: {k.get('registers')} registers, {k.get('smem')} bytes "
+                f"static smem, spill stores {k.get('spill_stores')} B, spill loads "
+                f"{k.get('spill_loads')} B")
+        ph.check(len(report) > 0 and all(k.get("spill_stores") == 0 == k.get("spill_loads")
+                                         for k in report),
+                 f"{Path(tc_cu).name}: {len(report)} kernels, none spills")
 
     # ---- 2. kernels against their plain versions at hub shapes --------------
     valid_len = [1 + N_PATCHES * c for c in COUNTS]
@@ -698,6 +731,12 @@ def main() -> int:
                 out = kernel_step[name](*args, **kwargs)
                 torch.cuda.synchronize()
                 outs = out if isinstance(out, tuple) else (out,)
+                if name in ("linear_dgrad", "linear_wgrad"):  # fixed-order sums
+                    again = kernel_step[name](*args, **kwargs)
+                    again = again if isinstance(again, tuple) else (again,)
+                    ph.check(all(torch.equal(a_, b_) for a_, b_ in zip(outs, again)),
+                             f"{name}{tag} ({tuple(outs[0].shape)}): the same bits on a "
+                             f"second call")
                 refs = ref_out if isinstance(ref_out, tuple) else (ref_out,)
                 kname = ("prefix_attention_bwd" if name == "attention_bwd" else name) + tag
                 for o, r in zip(outs, refs):
@@ -1157,6 +1196,18 @@ def main() -> int:
                  f"{tcounts_b}), depth {len(backbone_b.blocks)}: dino_loss {losses_b}, finite "
                  f"({train_b_s:.2f} s)")
         ph.check(launches == expected_b, f"bf16 launches {launches} == expected {expected_b}")
+        # linear_wgrad_bf16's partial sums at this batch (2 crops a sequence,
+        # s_pad up to 2048), against the float32 instance's plan of one
+        # partial per chunk of rows
+        seqs, s_max = 2 * TRAIN_BF16_B, 2048
+        scratch = []
+        for n, k in fused_block.WGRAD_BF16_TILES:
+            splits = fused_block.wgrad_splits(seqs, s_max, n, k)
+            chunks = seqs * s_max // fused_block.wgrad_chunk(s_max)
+            scratch.append(f"({n}, {k}) {splits} splits {splits * (n * k + n) * 4 / 1e6:.2f} MB "
+                           f"(chunk plan {chunks * (n * k + n) * 4 / 1e6:.1f} MB)")
+        log(f"  linear_wgrad_bf16 partial scratch per weight shape (N, K) at {seqs} sequences "
+            f"of {s_max} rows: " + ", ".join(scratch))
 
         # step 1 again, the same state, through the plain chains
         pstate, pstep, _, _ = build_dino(spec_b, backbone_apply=plain_chain_backbone)
@@ -1451,18 +1502,22 @@ def main() -> int:
                 12 * rows * D, es * (3 * rows * D + D) + 4 * (2 * rows + 2 * D))]
             # the backward steps, every site of one layer's backward summed, on
             # the inputs recorded in phase 2
+            # the GEMM sites by their weight, (out, in) as in nn.Linear
+            site_weights = {}
             for name, calls in inp["bwd_inputs"].items():
                 kname = "prefix_attention_bwd" if name == "attention_bwd" else name
                 runs[kname] = [site(
                     (lambda a=a, kw=kw, n=name: kernel_step[n](*a, **fresh(kw))),
                     (lambda a=a, kw=kw, n=name: plain_step[n](*a, **fresh(kw))),
                     library_of[name](a, kw), *bwd_cost(name, a, kw)) for a, kw in calls]
+                site_weights[kname] = [tuple(a[1].shape) if name == "linear_dgrad"
+                                       else (a[0].shape[-1], a[1].shape[-1]) for a, _ in calls]
 
             layer_bound = 0.0
             for name, sites in runs.items():
                 ms = plain_ms = lib_ms = bound = 0.0
                 ops_bound = bytes_bound = 0.0
-                for kernel_fn, plain_fn, lib_fn, ops, nbytes in sites:
+                for i_site, (kernel_fn, plain_fn, lib_fn, ops, nbytes) in enumerate(sites):
                     # kernel, plain, plain, kernel: two readings each, in turns
                     t1 = time_ms(kernel_fn)
                     p1 = time_ms(plain_fn)
@@ -1470,8 +1525,13 @@ def main() -> int:
                     t2 = time_ms(kernel_fn)
                     ms += (t1 + t2) / 2
                     plain_ms += (p1 + p2) / 2
+                    lib_before = lib_ms
                     lib_ms += time_ms(lib_fn)
                     t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+                    if name in ("linear_dgrad", "linear_wgrad"):  # each site on its own
+                        log(f"    {name + tag} site, weight {site_weights[name][i_site]}: kernel "
+                            f"{(t1 + t2) / 2:.4f} ms, library {lib_ms - lib_before:.4f} ms, "
+                            f"bound {max(t_ops, t_bytes):.4f} ms")
                     bound += max(t_ops, t_bytes)
                     ops_bound += t_ops
                     bytes_bound += t_bytes
@@ -1481,8 +1541,9 @@ def main() -> int:
                     ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                     bound_by="operations" if ops_bound >= bytes_bound else "bytes")
                 log(f"  {name + tag} ({len(sites)} site{'s' * (len(sites) > 1)} of a layer): "
-                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
-                    f"bound {bound:.4f} ms ({stats[name + tag]['bound_by']})")
+                    f"kernel {ms:.4f} ms ({100 * bound / ms:.1f} % of its bound), plain "
+                    f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {bound:.4f} ms "
+                    f"({stats[name + tag]['bound_by']})")
 
             # K5/K6 finish on the device faster than the host launches them, so
             # CUDA events read the launch rate; the profiler reads their kernels
@@ -1504,6 +1565,20 @@ def main() -> int:
             log(f"  ln_fwd{tag} / ln_bwd{tag} device time per call (profiler, {reps} calls): "
                 f"{ln_dev['ln_fwd']:.4f} / {ln_dev['ln_bwd']:.4f} ms, bound "
                 f"{stats['ln_fwd' + tag]['bound_ms']:.4f} / {stats['ln_bwd' + tag]['bound_ms']:.4f} ms")
+            # the GEMM steps of the backward by the profiler too: at the small
+            # sites CUDA events read the wrapper's launch rate; every kernel of
+            # the call (wgrad's second pass included), the layer's sites summed
+            for name in ("linear_dgrad", "linear_wgrad"):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(reps):
+                        for kernel_fn, *_ in runs[name]:
+                            kernel_fn()
+                    torch.cuda.synchronize()
+                dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                             if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+                log(f"  {name + tag} device time per layer (profiler, {reps} x {len(runs[name])} "
+                    f"sites): {dev_ms:.4f} ms, bound {stats[name + tag]['bound_ms']:.4f} ms "
+                    f"({100 * stats[name + tag]['bound_ms'] / dev_ms:.1f} %)")
 
             layer_ms = time_ms(lambda: fused_block.fused_encoder_block(xd, vl, *w, H, EPS1, EPS2))
             layer_plain_ms = time_ms(

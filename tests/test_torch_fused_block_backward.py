@@ -166,14 +166,16 @@ def test_unfused_port_layer_trains_through_the_attention_function():
 # ---- the CUDA route, with the launch stubbed --------------------------------
 class FakeLibrary:
     """Stands in for the kernel library: every launch succeeds, writes
-    nothing and is recorded by name."""
+    nothing and is recorded by name (``calls``) and with its arguments
+    (``args``)."""
 
     def __init__(self):
-        self.calls = []
+        self.calls, self.args = [], []
 
     def __getattr__(self, name):
         def launch(*args):
             self.calls.append(name)
+            self.args.append(args)
             return 0
         return launch
 
@@ -326,3 +328,76 @@ def test_dgrad_takes_one_epilogue(cuda_route):
 @pytest.mark.parametrize("s_pad, chunk", [(2048, 1024), (640, 128), (1792, 256), (128, 128)])
 def test_wgrad_chunk_divides_the_sequence(s_pad, chunk):
     assert fused_block.wgrad_chunk(s_pad) == chunk
+
+
+# ---- the split plan of the bf16 linear_wgrad ---------------------------------
+def _computed_tiles(valid_len, s_pad):
+    rb = fused_block.ROW_BLOCK
+    return [b * s_pad + t for b, n in enumerate(valid_len) for t in range(0, s_pad, rb)
+            if t < n]
+
+
+@pytest.mark.parametrize("s_pad, valid_len, splits", [
+    (2048, [197, 589, 981, 1961, 393, 1373, 1765, 1961], 8),  # hub shapes
+    (2048, [197, 589, 981, 1961, 393, 1373, 1765, 1961], 44),
+    (384, [1, 0, 33, 127, 129, 383, 200, 65], 14),  # ragged, a padded image
+    (128, [0, 0, 0], 5),  # nothing to sum: every split empty
+    (256, [256, 1], 40),  # more splits than tiles
+    (2048, [1 + 196 * c for c in np.random.default_rng(64).integers(1, 11, 64)], 8),
+])
+def test_wgrad_split_plan_covers_every_computed_tile_once_in_order(s_pad, valid_len, splits):
+    plan = fused_block.wgrad_split_tiles(valid_len, s_pad, splits)
+    assert len(plan) == splits
+    assert [r for share in plan for r in share] == _computed_tiles(valid_len, s_pad)
+    sizes = [len(share) for share in plan]
+    assert max(sizes) - min(sizes) <= 1  # contiguous shares of near-equal size
+
+
+@pytest.mark.parametrize("n, k", sorted(fused_block.WGRAD_BF16_TILES))
+def test_wgrad_splits_stay_bounded_as_the_batch_grows(n, k):
+    tn, tk = fused_block.WGRAD_BF16_TILES[(n, k)]
+    assert n % tn == 0 and k % tk == 0
+    tiles = (n // tn) * (k // tk)
+    splits = [fused_block.wgrad_splits(bsz, 2048, n, k) for bsz in (1, 8, 64, 256, 1024)]
+    assert splits[0] <= 2048 // fused_block.ROW_BLOCK
+    assert len(set(splits)) == 1  # the partial scratch does not grow with the batch
+    assert tiles * splits[0] <= fused_block.WGRAD_BF16_BLOCKS  # one wave on the card
+    assert fused_block.wgrad_splits(1, 32, n, k) == 1  # no more splits than 32-row tiles
+
+
+@pytest.mark.parametrize("n, k", sorted(fused_block.WGRAD_BF16_TILES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wgrad_passes_its_row_plan_to_the_kernel(fake_cuda, n, k, dtype):
+    bsz, s = 3, 640
+    vl = torch.tensor([640, 3, 100], dtype=torch.int32)
+    z = torch.zeros(bsz, s, dtype=torch.float32)
+    dm = fused_block.D_MODEL
+    ln = (z, z, torch.ones(k), torch.zeros(k)) if (n, k) == (3 * dm, dm) else None
+    fused_block.linear_wgrad(torch.zeros(bsz, s, n, dtype=dtype),
+                             torch.zeros(bsz, s, k, dtype=dtype), vl, ln=ln)
+    (name,), (args,) = fake_cuda.calls, fake_cuda.args
+    plan = (fused_block.wgrad_splits(bsz, s, n, k) if dtype == torch.bfloat16
+            else fused_block.wgrad_chunk(s))
+    assert name == _launch.entry_point("linear_wgrad", dtype)
+    assert args[-2] == plan and args[-6:-2] == (bsz * s, n, k, s)
+
+
+def test_bf16_dgrad_refuses_rows_off_its_block(cuda_route):
+    d = fused_block.D_MODEL
+    vl = torch.tensor([3], dtype=torch.int32)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        fused_block.linear_dgrad(torch.zeros(1, 96, d, dtype=torch.bfloat16),
+                                 torch.zeros(d, d, dtype=torch.bfloat16), vl)
+    with pytest.raises(KernelReached):  # 128 rows are two of its blocks
+        fused_block.linear_dgrad(torch.zeros(1, 128, d, dtype=torch.bfloat16),
+                                 torch.zeros(d, d, dtype=torch.bfloat16), vl)
+
+
+def test_bf16_wgrad_norms_x_of_the_model_width_only(cuda_route):
+    d, f = fused_block.D_MODEL, fused_block.D_FFN
+    z = torch.zeros(1, 128)
+    with pytest.raises(ValueError, match="norms X of width"):
+        fused_block.linear_wgrad(torch.zeros(1, 128, d, dtype=torch.bfloat16),
+                                 torch.zeros(1, 128, f, dtype=torch.bfloat16),
+                                 torch.tensor([3], dtype=torch.int32),
+                                 ln=(z, z, torch.ones(f), torch.zeros(f)))

@@ -446,3 +446,67 @@ def test_layernorm_refuses_other_widths(dev):
     g = torch.ones(6, device=dev)
     with pytest.raises(ValueError, match="multiple of 4"):
         ln.ln_fwd(torch.ones(3, 6, device=dev), None, g, g, 1e-5)
+
+
+# ---- the bf16 linear_dgrad / linear_wgrad (tensor cores) at every site ------
+# Each site on its own, bf16 inputs drawn with numpy, against the plain bf16
+# version (the bounds above), at the hub's shapes, at the train batch's 64
+# sequences and at ragged lengths: valid_len not a multiple of 32 or 128, an
+# image with one valid row and one wholly padded image. A second call repeats
+# the bits (fixed-order sums, no atomics).
+_HUB = [1 + 196 * c for c in (1, 3, 5, 10, 2, 7, 9, 10)]
+_TRAIN = [1 + 196 * c for c in np.random.default_rng(64).integers(1, 11, 64)]
+TC_BATCHES = {"hub": (2048, _HUB), "train": (2048, _TRAIN),
+              "ragged": (384, [1, 0, 33, 127, 129, 383, 200, 65])}
+TC_SITES = ["dgrad_ffn1", "dgrad_ffn2", "dgrad_out", "dgrad_qkv",
+            "wgrad_qkv", "wgrad_out", "wgrad_ffn1", "wgrad_ffn2"]
+
+
+def _tc_call(site, rng, dev, bsz, s, vl):
+    """The site's kernel call and its plain version, on fresh bf16 inputs."""
+    def bf(*shape, scale=1.0):
+        return _randn(rng, dev, *shape, scale=scale).bfloat16()
+
+    if site.startswith("dgrad"):
+        k, n, epi = {"dgrad_ffn1": (D, F, "relu_of"), "dgrad_ffn2": (F, D, "residual"),
+                     "dgrad_out": (D, D, None), "dgrad_qkv": (3 * D, D, None)}[site]
+        dy, w = bf(bsz, s, k), bf(k, n, scale=k ** -0.5)
+        kw = {} if epi is None else {epi: bf(bsz, s, n)}
+        return (lambda: fused_block.linear_dgrad(dy, w, vl, **kw),
+                lambda: fused_block.linear_dgrad_reference(dy, w, vl, **kw))
+    n, k = {"wgrad_qkv": (3 * D, D), "wgrad_out": (D, D), "wgrad_ffn1": (F, D),
+            "wgrad_ffn2": (D, F)}[site]
+    dy, x = bf(bsz, s, n), bf(bsz, s, k)
+    ln = None
+    if site == "wgrad_qkv":
+        ln = (_randn(rng, dev, bsz, s, scale=0.1), 1 + _randn(rng, dev, bsz, s, scale=0.1).abs(),
+              1 + _randn(rng, dev, k, scale=0.1), _randn(rng, dev, k, scale=0.1))
+    return (lambda: fused_block.linear_wgrad(dy, x, vl, ln=ln),
+            lambda: fused_block.linear_wgrad_reference(dy, x, vl, ln=ln))
+
+
+@pytest.mark.parametrize("site", TC_SITES)
+@pytest.mark.parametrize("batch", list(TC_BATCHES))
+def test_bf16_tensor_core_gemms_at_every_site(dev, batch, site):
+    s, valid = TC_BATCHES[batch]
+    rng = np.random.default_rng(len(valid) + TC_SITES.index(site))
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    kernel, plain = _tc_call(site, rng, dev, len(valid), s, vl)
+    entry = ("linear_dgrad" if site.startswith("dgrad") else "linear_wgrad") + "_bf16"
+    before = _launch.LAUNCHES[entry]
+    out, again = kernel(), kernel()
+    assert _launch.LAUNCHES[entry] == before + 2
+    ref = plain()
+    outs, agains = (out, again) if isinstance(out, tuple) else ((out,), (again,))
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    rows = [min(-(-n // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK, s) for n in valid]
+    for o, a, r in zip(outs, agains, refs):
+        assert torch.equal(o, a), "a second call gives other bits"
+        if o.dim() == 3:
+            assert o.dtype == torch.bfloat16
+            _assert_bf16_close(o, r, rows)
+            for i, n in enumerate(rows):  # the zero-filled tiles get exact zeros
+                assert not o[i, n:].any().item()
+        else:
+            assert o.dtype == torch.float32
+            _assert_bf16_close(o, r)
