@@ -10,9 +10,9 @@
 //   C 16 x 8:   c0, c1 (row g, cols 2t, 2t+1)  c2, c3 (row g + 8, same cols)
 // ldmatrix .x4 loads four 8 x 8 matrices; lanes 8q..8q+7 give the row
 // addresses of matrix q, and register q of every lane receives its part of
-// matrix q: the A fragment of a row-major tile (rows, k), or with .trans the
-// B fragment of a tile stored (k, cols), or the A fragment of a tile stored
-// (k, rows). The ldsm_* helpers below take the tile's top-left element and
+// matrix q: the A fragment of a row-major tile (rows, k) or the B fragment of
+// a tile stored (cols, k), or with .trans the B fragment of a tile stored
+// (k, cols) or the A fragment of a tile stored (k, rows). The ldsm_* helpers below take the tile's top-left element and
 // compute each lane's row address themselves.
 //
 // Shared-memory tiles are row-major with WIDTH bf16 a row, WIDTH a multiple of
@@ -20,6 +20,13 @@
 // c ^ (r % 8) inside its group of eight. Eight rows read at one logical chunk
 // (an ldmatrix matrix) then hit eight different chunks, all 32 banks, and a
 // warp's 16-byte copies of consecutive chunks stay conflict-free too.
+// A row of an odd multiple of 32 bf16 (the attention's head of 96: 12 chunks)
+// starts 4 chunks further along the 8 chunks of a 128-byte line than the row
+// before it, so rows r and r + 2 share their chunks' banks; there chunk c is
+// stored at c ^ ((r / 2) % 4), inside its aligned group of four (so it stays
+// inside the row): the line offset 4 (r % 2) and the XOR (r / 2) % 4 together
+// give eight rows eight different chunks of the line, and groups of four
+// consecutive chunks stay whole for the copies.
 
 #pragma once
 
@@ -30,8 +37,11 @@ namespace {
 // element offset of (row, col) in a swizzled tile of WIDTH bf16 a row
 template <int WIDTH>
 __device__ __forceinline__ int swz(int row, int col) {
-  static_assert(WIDTH % 64 == 0, "swizzled rows are multiples of 128 bytes");
-  return row * WIDTH + ((((col >> 3) ^ row) & 7) | ((col >> 3) & ~7)) * 8 + (col & 7);
+  static_assert(WIDTH % 32 == 0, "swizzled rows are multiples of 64 bytes");
+  if constexpr (WIDTH % 64 == 0)
+    return row * WIDTH + ((((col >> 3) ^ row) & 7) | ((col >> 3) & ~7)) * 8 + (col & 7);
+  else
+    return row * WIDTH + ((col >> 3) ^ ((row >> 1) & 3)) * 8 + (col & 7);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -79,6 +89,15 @@ template <int WIDTH>
 __device__ __forceinline__ void ldsm_a_t(uint32_t (&a)[4], const bf16* tile, int row0, int k0) {
   const int lane = threadIdx.x & 31, q = lane >> 3;
   ldsm_x4_t(a, tile + swz<WIDTH>(k0 + (q >> 1) * 8 + (lane & 7), row0 + (q & 1) * 8));
+}
+// The B fragments of two n8 blocks, columns col0..col0+15 and k k0..k0+15, of
+// a tile stored (cols, k), WIDTH columns (each row a column of B, as K's rows
+// are in Q K^T): {b[0], b[1]} for columns col0..+7, {b[2], b[3]} for
+// col0+8..+15.
+template <int WIDTH>
+__device__ __forceinline__ void ldsm_b(uint32_t (&b)[4], const bf16* tile, int k0, int col0) {
+  const int lane = threadIdx.x & 31, q = lane >> 3;
+  ldsm_x4(b, tile + swz<WIDTH>(col0 + (q >> 1) * 8 + (lane & 7), k0 + (q & 1) * 8));
 }
 // The B fragments of two n8 blocks, columns col0..col0+15 and k k0..k0+15, of
 // a tile stored (k, cols), WIDTH columns: {b[0], b[1]} for columns col0..+7,

@@ -1,5 +1,5 @@
-// Prefix-masked multi-head attention, forward, on CUDA cores, in float32 and
-// in bf16 (f32 scores, softmax and sums).
+// Prefix-masked multi-head attention, forward, on CUDA cores, in float32. The
+// bf16 instance is a tensor-core kernel of its own (prefix_attention_bf16.cu).
 //
 // Replaces the TPU kernel chadavit_tpu/ops/flash_attention.py::_fwd_kernel
 // (reached through _fwd_impl / prefix_flash_attention), and the attention step
@@ -27,13 +27,8 @@
 // of a 64-query tile that is not skipped is computed for real, also its rows
 // past valid_len[b].
 //
-// The kernel is a template on the storage type T of q, k, v and out: float,
-// or bf16 (the JAX kernel's dtype-generic body, flash_attention.py:103-138).
-// The bf16 instance rounds where the TPU kernel casts: the scaled q (the
-// wrapper passes qscale rounded to bf16, as JAX multiplies a bf16 q by a weak
-// scalar), the probabilities before P.V (p.astype(v.dtype), :133), and the
-// output. The running max, the sum l (of the unrounded p) and the lse stay
-// f32, and shared memory holds float for both instances.
+// q, k, v and out are float32, so nothing rounds where the JAX kernel's
+// dtype-generic body (flash_attention.py:103-138) casts to the input dtype.
 //
 // Plain C interface (loaded with ctypes); the launcher returns
 // cudaGetLastError() so that the Python wrapper can raise on a refused launch.
@@ -58,26 +53,26 @@ constexpr int smem_floats() {
 // q, k, v: rows of `ld` elements, image b's rows start at b * s_pad; head h
 // occupies columns [h * HD, (h + 1) * HD). out: rows of `ldo` elements, the
 // same row layout. Grid (s_pad / BQ, heads, B).
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(NT)
-prefix_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, int ld,
+prefix_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, int ld,
                         const int* __restrict__ valid_len,
-                        T* __restrict__ out, int ldo,
+                        float* __restrict__ out, int ldo,
                         float* __restrict__ lse, int s_pad, float qscale) {
   constexpr int TN = HD / 16;  // output columns per thread
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int vl = min(max(valid_len[b], 0), s_pad);  // a bad length cannot read past the image
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const size_t row0 = (size_t)b * s_pad;
-  T* o = out + (row0 + q0) * ldo + h * HD;
+  float* o = out + (row0 + q0) * ldo + h * HD;
   // lse of (image b, head h, row q) at lse[(b * heads + h) * s_pad + q]
   float* lse_row = lse == nullptr ? nullptr
                                   : lse + ((size_t)b * gridDim.y + h) * s_pad + q0;
 
   if (q0 >= vl) {  // uniform across the block, before any barrier
     for (int idx = tid; idx < BQ * HD; idx += NT)
-      o[(size_t)(idx / HD) * ldo + idx % HD] = from_f<T>(0.f);
+      o[(size_t)(idx / HD) * ldo + idx % HD] = 0.f;
     if (lse_row != nullptr && tid < BQ) lse_row[tid] = 1e30f;
     return;
   }
@@ -96,10 +91,10 @@ prefix_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = idx / V4, c = (idx % V4) * 4;
     const float4 t = load4(q + (row0 + q0 + r) * ld + h * HD + c);
     float* dst = Qs + r * (HD + 1) + c;
-    dst[0] = rnd<T>(t.x * qscale);
-    dst[1] = rnd<T>(t.y * qscale);
-    dst[2] = rnd<T>(t.z * qscale);
-    dst[3] = rnd<T>(t.w * qscale);
+    dst[0] = t.x * qscale;
+    dst[1] = t.y * qscale;
+    dst[2] = t.z * qscale;
+    dst[3] = t.w * qscale;
   }
   if (tid < BQ) {
     row_m[tid] = -INFINITY;
@@ -172,8 +167,8 @@ prefix_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      pr[lane] = rnd<T>(p0);  // P.V takes p in T; l sums it unrounded
-      pr[lane + 32] = rnd<T>(p1);
+      pr[lane] = p0;
+      pr[lane + 32] = p1;
       if (lane == 0) {
         const float alpha = exp2f(m_old - m_new);
         row_a[r] = alpha;
@@ -210,24 +205,24 @@ prefix_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / row_l[4 * ty + i];
 #pragma unroll
     for (int j = 0; j < TN; ++j)
-      o[(size_t)(4 * ty + i) * ldo + tx + 16 * j] = from_f<T>(acc[i][j] * inv);
+      o[(size_t)(4 * ty + i) * ldo + tx + 16 * j] = acc[i][j] * inv;
   }
   if (lse_row != nullptr && tid < BQ) lse_row[tid] = row_m[tid] + log2f(row_l[tid]);
 }
 
-template <int HD, typename T>
-int launch(const T* q, const T* k, const T* v, int ld, const int* valid_len,
-           T* out, int ldo, float* lse, int batch, int heads, int head_dim,
+template <int HD>
+int launch(const float* q, const float* k, const float* v, int ld, const int* valid_len,
+           float* out, int ldo, float* lse, int batch, int heads, int head_dim,
            int s_pad, float qscale, cudaStream_t st) {
   if (batch <= 0 || heads <= 0 || head_dim != HD || s_pad % BQ != 0 ||
       s_pad % BKV != 0 || ld % 4 != 0 || ldo % 4 != 0)
     return (int)cudaErrorInvalidValue;
   constexpr int bytes = smem_floats<HD>() * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(prefix_attention_kernel<HD, T>,
+  cudaError_t e = cudaFuncSetAttribute(prefix_attention_kernel<HD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        bytes);
   if (e != cudaSuccess) return (int)e;
-  prefix_attention_kernel<HD, T><<<dim3(s_pad / BQ, heads, batch), NT, bytes, st>>>(
+  prefix_attention_kernel<HD><<<dim3(s_pad / BQ, heads, batch), NT, bytes, st>>>(
       q, k, v, ld, valid_len, out, ldo, lse, s_pad, qscale);
   return (int)cudaGetLastError();
 }
@@ -241,18 +236,11 @@ extern "C" {
 // not null: (batch, heads, s_pad) f32, the base-2 log-sum-exp of each query
 // row. valid_len is clamped to [0, s_pad]. head_dim must be 96; ld and ldo are
 // multiples of 4 and every pointer is aligned to 4 elements.
-// qscale = log2(e) / sqrt(96), rounded to bf16 for the bf16 entry point.
+// qscale = log2(e) / sqrt(96).
 int prefix_attention_fwd(const float* q, const float* k, const float* v, int ld,
                          const int* valid_len, float* out, int ldo, float* lse,
                          int batch, int heads, int head_dim, int s_pad,
                          float qscale, void* stream) {
-  return launch<HEAD_DIM>(q, k, v, ld, valid_len, out, ldo, lse, batch, heads,
-                          head_dim, s_pad, qscale, static_cast<cudaStream_t>(stream));
-}
-int prefix_attention_fwd_bf16(const bf16* q, const bf16* k, const bf16* v, int ld,
-                              const int* valid_len, bf16* out, int ldo, float* lse,
-                              int batch, int heads, int head_dim, int s_pad,
-                              float qscale, void* stream) {
   return launch<HEAD_DIM>(q, k, v, ld, valid_len, out, ldo, lse, batch, heads,
                           head_dim, s_pad, qscale, static_cast<cudaStream_t>(stream));
 }

@@ -1,5 +1,5 @@
-// Prefix-masked multi-head attention, backward, on CUDA cores, in float32 and
-// in bf16 (f32 scores, lse, delta and sums).
+// Prefix-masked multi-head attention, backward, on CUDA cores, in float32. The
+// bf16 instance is a tensor-core kernel of its own (prefix_attention_bf16.cu).
 //
 // Replaces the TPU kernel chadavit_tpu/ops/flash_attention.py::_bwd_kernel
 // (reached through _vjp_bwd, the custom VJP of prefix_flash_attention), and the
@@ -37,15 +37,9 @@
 // dv are exact zeros. Every such decision is uniform per block and taken
 // before the first barrier.
 //
-// The kernels are templates on the storage type T of q, k, v, o, do and the
-// gradients: float, or bf16 (the JAX body is dtype-generic,
-// flash_attention.py:157-230). The bf16 instances round where the TPU kernel
-// casts: the scaled q (qscale rounded to bf16 by the wrapper, as the forward),
-// p before dv = p^T do, ds before dk and dq, and each output; lse, delta and
-// every sum stay f32, and shared memory holds float for both instances.
-//
-// Plain C interface (loaded with ctypes); the launcher returns
-// cudaGetLastError() so that the Python wrapper can raise on a refused launch.
+// q, k, v, o, do and the gradients are float32, so nothing rounds where the
+// JAX body (dtype-generic, flash_attention.py:157-230) casts to the input
+// dtype.
 
 #include <math.h>
 
@@ -63,9 +57,8 @@ constexpr float INV_LOG2E = 0.6931471805599453f;
 // delta[(b * heads + h) * s_pad + r] = rowsum over head h of do * o, 0 on the
 // query tiles wholly past the prefix. One warp per (row, head); grid
 // (B * s_pad * heads / 8).
-template <typename T>
 __global__ void __launch_bounds__(NT)
-delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, int ldo,
+delta_kernel(const float* __restrict__ o, const float* __restrict__ dout, int ldo,
              const int* __restrict__ valid_len, float* __restrict__ delta,
              int heads, int s_pad, int total) {
   const int item = blockIdx.x * (NT / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -77,7 +70,7 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, int ldo,
     const size_t off = (size_t)row * ldo + h * HEAD_DIM;
 #pragma unroll
     for (int j = 0; j < HEAD_DIM / 32; ++j)
-      s += to_f(dout[off + lane + 32 * j]) * to_f(o[off + lane + 32 * j]);
+      s += dout[off + lane + 32 * j] * o[off + lane + 32 * j];
   }
 #pragma unroll
   for (int w = 16; w > 0; w >>= 1) s += __shfl_xor_sync(0xffffffffu, s, w);
@@ -85,10 +78,8 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, int ldo,
 }
 
 // Stage BT rows x HEAD_DIM of a head (rows of ld elements from row0) into a
-// (BT, LD) shared tile, times mul and rounded to T (the scaled q; a
-// multiplier of 1 leaves a T value as it is).
-template <typename T>
-__device__ __forceinline__ void stage(const T* __restrict__ src, int ld,
+// (BT, LD) shared tile, times mul (the scaled q; 1 for the others).
+__device__ __forceinline__ void stage(const float* __restrict__ src, int ld,
                                       size_t row0, int col0, float* dst,
                                       float mul) {
   constexpr int V4 = HEAD_DIM / 4;
@@ -96,10 +87,10 @@ __device__ __forceinline__ void stage(const T* __restrict__ src, int ld,
     const int r = idx / V4, c = (idx % V4) * 4;
     const float4 t = load4(src + (row0 + r) * ld + col0 + c);
     float* d = dst + r * LD + c;
-    d[0] = rnd<T>(t.x * mul);
-    d[1] = rnd<T>(t.y * mul);
-    d[2] = rnd<T>(t.z * mul);
-    d[3] = rnd<T>(t.w * mul);
+    d[0] = t.x * mul;
+    d[1] = t.y * mul;
+    d[2] = t.z * mul;
+    d[3] = t.w * mul;
   }
 }
 
@@ -137,24 +128,23 @@ __device__ __forceinline__ void two_score_tiles(const float* A, const float* Bm,
 }
 
 // dk and dv of BT keys of one head. Grid (s_pad / BT, heads, B).
-template <typename T>
 __global__ void __launch_bounds__(NT)
-dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, int ld, const T* __restrict__ dout,
+dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, int ld, const float* __restrict__ dout,
             int ldo, const float* __restrict__ lse, const float* __restrict__ delta,
-            const int* __restrict__ valid_len, T* __restrict__ dk,
-            T* __restrict__ dv, int ldg, int s_pad, float qscale) {
+            const int* __restrict__ valid_len, float* __restrict__ dk,
+            float* __restrict__ dv, int ldg, int s_pad, float qscale) {
   const int k0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
   const int heads = gridDim.y;
   const int vl = min(max(valid_len[b], 0), s_pad);
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const size_t row0 = (size_t)b * s_pad;
-  T* dkb = dk + (row0 + k0) * ldg + h * HEAD_DIM;
-  T* dvb = dv + (row0 + k0) * ldg + h * HEAD_DIM;
+  float* dkb = dk + (row0 + k0) * ldg + h * HEAD_DIM;
+  float* dvb = dv + (row0 + k0) * ldg + h * HEAD_DIM;
   if (k0 >= vl) {  // uniform across the block, before any barrier
     for (int idx = tid; idx < BT * HEAD_DIM; idx += NT) {
-      dkb[(size_t)(idx / HEAD_DIM) * ldg + idx % HEAD_DIM] = from_f<T>(0.f);
-      dvb[(size_t)(idx / HEAD_DIM) * ldg + idx % HEAD_DIM] = from_f<T>(0.f);
+      dkb[(size_t)(idx / HEAD_DIM) * ldg + idx % HEAD_DIM] = 0.f;
+      dvb[(size_t)(idx / HEAD_DIM) * ldg + idx % HEAD_DIM] = 0.f;
     }
     return;
   }
@@ -197,8 +187,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int kr = 4 * ty + i, qc = tx + 16 * j;
         const float p = k0 + kr < vl ? exp2f(s[i][j] - lse_s[qc]) : 0.f;
-        Ps[kr * (BT + 1) + qc] = rnd<T>(p);
-        dSs[kr * (BT + 1) + qc] = rnd<T>(p * (dp[i][j] - delta_s[qc]));
+        Ps[kr * (BT + 1) + qc] = p;
+        dSs[kr * (BT + 1) + qc] = p * (dp[i][j] - delta_s[qc]);
       }
     __syncthreads();
     // dv += p^T do, dk += ds^T q_scaled over this tile's queries
@@ -227,28 +217,27 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const size_t o = (size_t)(4 * ty + i) * ldg + tx + 16 * j;
-      dkb[o] = from_f<T>(acc_k[i][j] * INV_LOG2E);
-      dvb[o] = from_f<T>(acc_v[i][j]);
+      dkb[o] = acc_k[i][j] * INV_LOG2E;
+      dvb[o] = acc_v[i][j];
     }
 }
 
 // dq of BT queries of one head. Grid (s_pad / BT, heads, B).
-template <typename T>
 __global__ void __launch_bounds__(NT)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, int ld, const T* __restrict__ dout,
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, int ld, const float* __restrict__ dout,
           int ldo, const float* __restrict__ lse, const float* __restrict__ delta,
-          const int* __restrict__ valid_len, T* __restrict__ dq, int ldg,
+          const int* __restrict__ valid_len, float* __restrict__ dq, int ldg,
           int s_pad, float qscale, float scale) {
   const int q0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
   const int heads = gridDim.y;
   const int vl = min(max(valid_len[b], 0), s_pad);
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const size_t row0 = (size_t)b * s_pad;
-  T* dqb = dq + (row0 + q0) * ldg + h * HEAD_DIM;
+  float* dqb = dq + (row0 + q0) * ldg + h * HEAD_DIM;
   if (q0 >= vl) {  // uniform across the block, before any barrier
     for (int idx = tid; idx < BT * HEAD_DIM; idx += NT)
-      dqb[(size_t)(idx / HEAD_DIM) * ldg + idx % HEAD_DIM] = from_f<T>(0.f);
+      dqb[(size_t)(idx / HEAD_DIM) * ldg + idx % HEAD_DIM] = 0.f;
     return;
   }
   extern __shared__ float smem[];
@@ -287,7 +276,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int qr = 4 * ty + i, kc = tx + 16 * j;
         const float p = k0 + kc < vl ? exp2f(s[i][j] - lse_s[qr]) : 0.f;
-        dSs[qr * (BT + 1) + kc] = rnd<T>(p * (dp[i][j] - delta_s[qr]));
+        dSs[qr * (BT + 1) + kc] = p * (dp[i][j] - delta_s[qr]);
       }
     __syncthreads();
     // dq += ds k over this tile's keys
@@ -308,37 +297,36 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j)
-      dqb[(size_t)(4 * ty + i) * ldg + tx + 16 * j] = from_f<T>(acc[i][j] * scale);
+      dqb[(size_t)(4 * ty + i) * ldg + tx + 16 * j] = acc[i][j] * scale;
 }
 
 constexpr int DKDV_SMEM = (4 * BT * LD + 2 * BT * (BT + 1) + 2 * BT) * (int)sizeof(float);
 constexpr int DQ_SMEM = (4 * BT * LD + BT * (BT + 1) + 2 * BT) * (int)sizeof(float);
 
-template <typename T>
-int launch(const T* q, const T* k, const T* v, int ld, const T* o, const T* dout,
-           int ldo, const float* lse, float* delta, const int* valid_len, T* dq,
-           T* dk, T* dv, int ldg, int batch, int heads, int head_dim, int s_pad,
+int launch(const float* q, const float* k, const float* v, int ld, const float* o, const float* dout,
+           int ldo, const float* lse, float* delta, const int* valid_len, float* dq,
+           float* dk, float* dv, int ldg, int batch, int heads, int head_dim, int s_pad,
            float qscale, float scale, cudaStream_t st) {
   if (batch <= 0 || heads <= 0 || head_dim != HEAD_DIM || s_pad % BT != 0 ||
       ld % 4 != 0 || ldo % 4 != 0 || ldg % 4 != 0)
     return (int)cudaErrorInvalidValue;
   const int total = batch * s_pad * heads;
-  delta_kernel<T><<<(total + NT / 32 - 1) / (NT / 32), NT, 0, st>>>(
+  delta_kernel<<<(total + NT / 32 - 1) / (NT / 32), NT, 0, st>>>(
       o, dout, ldo, valid_len, delta, heads, s_pad, total);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(dkdv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  e = cudaFuncSetAttribute(dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            DKDV_SMEM);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  e = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            DQ_SMEM);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(s_pad / BT, heads, batch);
-  dkdv_kernel<T><<<grid, NT, DKDV_SMEM, st>>>(q, k, v, ld, dout, ldo, lse, delta,
+  dkdv_kernel<<<grid, NT, DKDV_SMEM, st>>>(q, k, v, ld, dout, ldo, lse, delta,
                                               valid_len, dk, dv, ldg, s_pad, qscale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  dq_kernel<T><<<grid, NT, DQ_SMEM, st>>>(q, k, v, ld, dout, ldo, lse, delta,
+  dq_kernel<<<grid, NT, DQ_SMEM, st>>>(q, k, v, ld, dout, ldo, lse, delta,
                                           valid_len, dq, ldg, s_pad, qscale, scale);
   return (int)cudaGetLastError();
 }
@@ -353,24 +341,14 @@ extern "C" {
 // (batch, heads, s_pad) f32 scratch. dq, dk, dv: rows of ldg elements (they may
 // be column slices of one packed dqkv buffer). head_dim must be 96; ld, ldo and
 // ldg are multiples of 4 and every pointer is aligned to 4 elements.
-// qscale = log2(e) / sqrt(96) (rounded to bf16 for the bf16 entry point),
-// scale = 1 / sqrt(96). Three launches: delta, dk/dv, dq.
+// qscale = log2(e) / sqrt(96), scale = 1 / sqrt(96). Three launches: delta,
+// dk/dv, dq.
 int prefix_attention_bwd(const float* q, const float* k, const float* v, int ld,
                          const float* o, const float* dout, int ldo,
                          const float* lse, float* delta, const int* valid_len,
                          float* dq, float* dk, float* dv, int ldg, int batch,
                          int heads, int head_dim, int s_pad, float qscale,
                          float scale, void* stream) {
-  return launch(q, k, v, ld, o, dout, ldo, lse, delta, valid_len, dq, dk, dv, ldg,
-                batch, heads, head_dim, s_pad, qscale, scale,
-                static_cast<cudaStream_t>(stream));
-}
-int prefix_attention_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, int ld,
-                              const bf16* o, const bf16* dout, int ldo,
-                              const float* lse, float* delta, const int* valid_len,
-                              bf16* dq, bf16* dk, bf16* dv, int ldg, int batch,
-                              int heads, int head_dim, int s_pad, float qscale,
-                              float scale, void* stream) {
   return launch(q, k, v, ld, o, dout, ldo, lse, delta, valid_len, dq, dk, dv, ldg,
                 batch, heads, head_dim, s_pad, qscale, scale,
                 static_cast<cudaStream_t>(stream));

@@ -132,7 +132,7 @@ def ptxas_report(source: str) -> subprocess.Popen:
     memory and spills. The object file is a throwaway in the build
     directory, removed by :func:`ptxas_lines`."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    obj = BUILD_DIR / f"ptxas.{os.getpid()}.o"
+    obj = BUILD_DIR / f"ptxas.{Path(source).stem}.{os.getpid()}.o"  # one per source
     proc = subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
                              str(CSRC / source)], stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)

@@ -28,6 +28,14 @@ JAX kernels cast to the input dtype: the scaled q (the scale itself rounded
 to bfloat16, as JAX multiplies by a weak-typed scalar), the probabilities
 before ``P V`` and ``dv = p^T do``, ``ds`` before ``dk`` and ``dq``, and every
 output; scores, softmax statistics, ``delta`` and every sum stay float32.
+
+The float32 instances run on CUDA cores (the two files above); the bfloat16
+ones are tensor-core kernels of their own, ``csrc/prefix_attention_bf16.cu``,
+whose 16-byte copies need q/k/v rows of a stride that is a multiple of 8
+elements and every operand 16-byte aligned: the bfloat16 wrappers raise
+``ValueError`` on anything else (the packed qkv's column slices, ld 576 and
+offsets of 384 bytes, qualify). Their backward also takes a scratch for the
+scaled q (:func:`_bwd_scratch`).
 """
 
 from __future__ import annotations
@@ -144,21 +152,59 @@ def prefix_flash_attention_backward_reference(q, k, v, o, lse, do, valid_len,
 
 
 # ---------------------------------------------------------------- kernels ----
-def _packed_rows(*ts):
+# bytes every operand is aligned to: the float32 kernels load four elements,
+# the bf16 tensor-core kernels copy 16 bytes, at a time
+_ALIGN = 16
+
+
+def _row_stride(*ts):
     """Row stride (in elements) shared by the tensors when each is a column
     slice of rows with unit inner stride (as the q/k/v thirds of one packed
-    qkv tensor are) that the kernels' loads of four elements can read: the
-    stride a multiple of 4 and every start aligned to 4 elements (16 bytes of
-    float32, 8 of bfloat16). Else None."""
+    qkv tensor are), else None."""
     b, s, d = ts[0].shape
     ld = ts[0].stride(1)
-    if ld % 4:
-        return None
     for t in ts:
-        if (t.stride(2) != 1 or t.stride(1) != ld or t.stride(0) != s * ld
-                or t.data_ptr() % (4 * t.element_size())):
+        if t.stride(2) != 1 or t.stride(1) != ld or t.stride(0) != s * ld:
             return None
     return ld
+
+
+def _operand_rows(q, k, v):
+    """``(q, k, v, ld)`` as the kernels take them: the tensors themselves
+    when they share a row layout, else contiguous copies. float32 also copies
+    rows that its loads of four elements cannot read (a stride that is not a
+    multiple of 4, a start not 16-byte aligned). bfloat16 raises
+    ``ValueError`` on a stride that is not a multiple of 8 or a start that is
+    not 16-byte aligned: the tensor-core kernels copy 16 bytes at a time."""
+    d = q.shape[2]
+    ld = _row_stride(q, k, v)
+    if q.dtype == torch.float32:
+        if ld is None or ld % 4 or any(t.data_ptr() % _ALIGN for t in (q, k, v)):
+            return q.contiguous(), k.contiguous(), v.contiguous(), d
+        return q, k, v, ld
+    if ld is None:
+        q, k, v, ld = q.contiguous(), k.contiguous(), v.contiguous(), d
+    if ld % 8:
+        raise ValueError(f"q/k/v: the bf16 kernels copy 16 bytes at a time, so the row "
+                         f"stride must be a multiple of 8 elements, got {ld}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        if t.data_ptr() % _ALIGN:
+            raise ValueError(f"{name}: must be aligned to {_ALIGN} bytes")
+    return q, k, v, ld
+
+
+def _bwd_scratch(b: int, num_heads: int, s: int, d: int, dtype: torch.dtype, device):
+    """``(delta, qs)``: the backward's scratch. delta ``(B, heads, S)``
+    float32; for bfloat16 also the scaled q ``(B, S, D)`` bfloat16, written by
+    the kernel's prep pass and read by its dk/dv and dq kernels, which the C
+    entry point finds right after delta in one buffer (qs is None for
+    float32)."""
+    n_delta = b * num_heads * s
+    if dtype == torch.float32:
+        return torch.empty((b, num_heads, s), dtype=torch.float32, device=device), None
+    buf = torch.empty(n_delta + b * s * d // 2, dtype=torch.float32, device=device)
+    return (buf[:n_delta].view(b, num_heads, s),
+            buf[n_delta:].view(torch.bfloat16).view(b, s, d))
 
 
 def _check_heads(q, k, v, num_heads):
@@ -187,10 +233,7 @@ def attention_forward(q, k, v, valid_len, num_heads: int, with_lse: bool):
     s_pad = -(-s // SEQ_BLOCK) * SEQ_BLOCK
     if s_pad != s:
         q, k, v = (F.pad(t, (0, 0, 0, s_pad - s)) for t in (q, k, v))
-    ld = _packed_rows(q, k, v)
-    if ld is None:
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        ld = d
+    q, k, v, ld = _operand_rows(q, k, v)
     dt = q.dtype
     vl = _launch.valid_len_operand(valid_len, b, q.device)
     out = torch.empty((b, s_pad, d), dtype=dt, device=q.device)
@@ -199,7 +242,7 @@ def attention_forward(q, k, v, valid_len, num_heads: int, with_lse: bool):
     name = _launch.entry_point("prefix_attention_fwd", dt)
     status = getattr(_build.library(), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, vl,
-        _launch.vector_operand(out, "out", dt), d,
+        _launch.vector_operand(out, "out", dt, align=_ALIGN), d,
         None if lse is None else lse.data_ptr(), b, num_heads, hd, s_pad,
         _qscale(hd, dt), _launch.stream(q.device))
     _build.check(status, name)
@@ -223,20 +266,19 @@ def prefix_attention_bwd(q, k, v, o, lse, do, valid_len, num_heads: int):
             or lse.shape != (b, num_heads, s):
         raise ValueError(f"prefix_attention_bwd: S {s} must be a multiple of {SEQ_BLOCK}; "
                          f"o {tuple(o.shape)}, do {tuple(do.shape)}, lse {tuple(lse.shape)}")
-    ld = _packed_rows(q, k, v)
-    if ld is None:
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        ld = d
+    q, k, v, ld = _operand_rows(q, k, v)
     dt = q.dtype
     o, do = o.contiguous(), do.contiguous()
     vl = _launch.valid_len_operand(valid_len, b, q.device)
     dqkv = torch.empty((b, s, 3 * d), dtype=dt, device=q.device)
-    delta = torch.empty((b, num_heads, s), dtype=torch.float32, device=q.device)
+    delta, _ = _bwd_scratch(b, num_heads, s, d, dt, q.device)
     third = d * dqkv.element_size()  # bytes from dq to dk to dv in a packed row
     name = _launch.entry_point("prefix_attention_bwd", dt)
     status = getattr(_build.library(), name)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, _launch.vector_operand(o, "o", dt),
-        _launch.vector_operand(do, "do", dt), d, _launch.vector_operand(lse, "lse"),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ld,
+        _launch.vector_operand(o, "o", dt, align=_ALIGN),
+        _launch.vector_operand(do, "do", dt, align=_ALIGN), d,
+        _launch.vector_operand(lse, "lse"),
         delta.data_ptr(), vl, dqkv.data_ptr(), dqkv.data_ptr() + third,
         dqkv.data_ptr() + 2 * third, 3 * d, b, num_heads, hd, s,
         _qscale(hd, dt), 1.0 / math.sqrt(hd), _launch.stream(q.device))

@@ -17,8 +17,9 @@ Phases, each printed with its elapsed seconds at its start and end:
    power limit from nvidia-smi.
 1. build: nvcc compiles csrc/*.cu (layernorm.cu among them), one process per
    source, into one library (cold build seconds); beside it, nvcc -Xptxas -v
-   on csrc/linear_bwd_bf16.cu prints the registers, shared memory and spills
-   of the tensor-core kernels, none of which may spill.
+   on csrc/linear_bwd_bf16.cu and csrc/prefix_attention_bf16.cu prints the
+   registers, shared memory and spills of the tensor-core kernels, none of
+   which may spill.
 2. each kernel instance against its plain PyTorch version at hub shapes (B 8,
    S_pad 2048, D 192, F 2048, 2 heads, 1..10 channels), float32 on the
    inputs of seed 0, then bfloat16 on those of each of BF16_SEEDS (the worst
@@ -84,8 +85,9 @@ Phases, each printed with its elapsed seconds at its start and end:
    never calls), its bound (ln_fwd and ln_bwd at the final norm's site); the
    device time by the profiler of ln_fwd, ln_bwd, linear_dgrad and
    linear_wgrad, whose small calls CUDA events time by the host's launch
-   rate; the whole layer forward and backward; the served batch and the
-   train step, in both dtypes.
+   rate, and of the attention forward and backward (K3, K4), kernel by
+   kernel; K3 and K4 run twice for the same bits; the whole layer forward
+   and backward; the served batch and the train step, in both dtypes.
 6. one JSON line with every kernel instance, then the last line
    {"ok": true, "device": {...}}. A failed phase prints no last line and
    exits 1.
@@ -551,9 +553,12 @@ def main() -> int:
     instances = {name + tag: (wrapper, src, replaces, dt)
                  for tag, dt in (("", torch.float32), ("_bf16", bf16))
                  for name, (wrapper, src, replaces) in kernels.items()}
-    for name in ("linear_dgrad_bf16", "linear_wgrad_bf16"):  # the tensor-core kernels
+    attn_tc_cu = "chadavit_tpu_torch/csrc/prefix_attention_bf16.cu"
+    for name, src in (("linear_dgrad_bf16", tc_cu), ("linear_wgrad_bf16", tc_cu),
+                      ("prefix_attention_fwd_bf16", attn_tc_cu),
+                      ("prefix_attention_bwd_bf16", attn_tc_cu)):  # the tensor-core kernels
         wrapper, _, replaces, dt = instances[name]
-        instances[name] = (wrapper, tc_cu, replaces, dt)
+        instances[name] = (wrapper, src, replaces, dt)
     stats = {name: {"max_abs_err": 0.0} for name in instances}
 
     def reset_launches():
@@ -566,20 +571,22 @@ def main() -> int:
     with Phase("1 build", failures) as ph:
         cold = not (_build.BUILD_DIR / _build.source_hash()).exists()
         t = time.perf_counter()
-        ptxas = _build.ptxas_report(Path(tc_cu).name)  # beside the build
+        ptxas = [_build.ptxas_report(Path(src).name)  # beside the build
+                 for src in (tc_cu, attn_tc_cu)]
         _build.library()
         ph.check(True, f"{'cold' if cold else 'warm'} build of {len(_build.sources())} "
                        f"sources: {time.perf_counter() - t:.2f} s")
         # registers, shared memory and spills of the tensor-core kernels
-        report = _build.ptxas_lines(ptxas)
-        names = demangle([k["name"] for k in report])
-        for k, short in zip(report, names):
-            log(f"  ptxas {short}: {k.get('registers')} registers, {k.get('smem')} bytes "
-                f"static smem, spill stores {k.get('spill_stores')} B, spill loads "
-                f"{k.get('spill_loads')} B")
-        ph.check(len(report) > 0 and all(k.get("spill_stores") == 0 == k.get("spill_loads")
-                                         for k in report),
-                 f"{Path(tc_cu).name}: {len(report)} kernels, none spills")
+        for src, proc in zip((tc_cu, attn_tc_cu), ptxas):
+            report = _build.ptxas_lines(proc)
+            names = demangle([k["name"] for k in report])
+            for k, short in zip(report, names):
+                log(f"  ptxas {short}: {k.get('registers')} registers, {k.get('smem')} bytes "
+                    f"static smem, spill stores {k.get('spill_stores')} B, spill loads "
+                    f"{k.get('spill_loads')} B")
+            ph.check(len(report) > 0 and all(k.get("spill_stores") == 0 == k.get("spill_loads")
+                                             for k in report),
+                     f"{Path(src).name}: {len(report)} kernels, none spills")
 
     # ---- 2. kernels against their plain versions at hub shapes --------------
     valid_len = [1 + N_PATCHES * c for c in COUNTS]
@@ -1565,20 +1572,35 @@ def main() -> int:
             log(f"  ln_fwd{tag} / ln_bwd{tag} device time per call (profiler, {reps} calls): "
                 f"{ln_dev['ln_fwd']:.4f} / {ln_dev['ln_bwd']:.4f} ms, bound "
                 f"{stats['ln_fwd' + tag]['bound_ms']:.4f} / {stats['ln_bwd' + tag]['bound_ms']:.4f} ms")
-            # the GEMM steps of the backward by the profiler too: at the small
-            # sites CUDA events read the wrapper's launch rate; every kernel of
-            # the call (wgrad's second pass included), the layer's sites summed
-            for name in ("linear_dgrad", "linear_wgrad"):
+            # the GEMM steps of the backward and the attention (K3, K4) by the
+            # profiler too: at the small sites CUDA events read the wrapper's
+            # launch rate; every kernel of the call (wgrad's second pass, the
+            # attention backward's three launches), the layer's sites summed,
+            # each kernel also on its own
+            for name in ("linear_dgrad", "linear_wgrad", "prefix_attention_fwd",
+                         "prefix_attention_bwd"):
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     for _ in range(reps):
                         for kernel_fn, *_ in runs[name]:
                             kernel_fn()
                     torch.cuda.synchronize()
-                dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                             if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+                per_kernel = {e.key: e.self_device_time_total / 1e3 / reps
+                              for e in prof.key_averages()
+                              if e.device_type == torch.autograd.DeviceType.CUDA}
+                dev_ms = sum(per_kernel.values())
                 log(f"  {name + tag} device time per layer (profiler, {reps} x {len(runs[name])} "
                     f"sites): {dev_ms:.4f} ms, bound {stats[name + tag]['bound_ms']:.4f} ms "
-                    f"({100 * stats[name + tag]['bound_ms'] / dev_ms:.1f} %)")
+                    f"({100 * stats[name + tag]['bound_ms'] / dev_ms:.1f} %); CUDA events "
+                    f"{stats[name + tag]['ms']:.4f} ms; "
+                    + ", ".join(f"{k[:60]} {v:.4f}" for k, v in
+                                sorted(per_kernel.items(), key=lambda kv: -kv[1])))
+            # K3 and K4 repeat their bits: fixed-order sums, no atomics
+            for name in ("prefix_attention_fwd", "prefix_attention_bwd"):
+                for kernel_fn, *_ in runs[name]:
+                    first, again = kernel_fn(), kernel_fn()
+                    torch.cuda.synchronize()
+                    ph.check(torch.equal(first, again),
+                             f"{name + tag} ({tuple(first.shape)}): the same bits on a second call")
 
             layer_ms = time_ms(lambda: fused_block.fused_encoder_block(xd, vl, *w, H, EPS1, EPS2))
             layer_plain_ms = time_ms(

@@ -118,3 +118,77 @@ def test_cuda_route_backward_refuses_other_head_widths(fake_cuda, d):
         flash_attention.prefix_attention_bwd(q, k, v, q, lse, q,
                                              torch.tensor([128, 3], dtype=torch.int32), 2)
     assert fake_cuda.calls == []
+
+
+# ---- the bf16 tensor-core kernels' operands (16-byte copies) ------------------
+def _bf16_slices(row, offset, b=2, s=128):
+    """q, k, v: column slices of rows of ``row`` bf16 elements, q's first
+    column at ``offset``."""
+    hd = flash_attention.HEAD_DIM
+    buf = torch.zeros(b, s, row, dtype=torch.bfloat16)
+    return [buf[..., offset + i * 2 * hd:offset + (i + 1) * 2 * hd] for i in range(3)]
+
+
+def _bf16_call(which, q, k, v, o=None):
+    vl = torch.tensor([128, 3], dtype=torch.int32)
+    if which == "forward":
+        with torch.no_grad():
+            return flash_attention.prefix_flash_attention(q, k, v, vl, 2)
+    o = torch.zeros_like(q, memory_format=torch.contiguous_format) if o is None else o
+    return flash_attention.prefix_attention_bwd(q, k, v, o, torch.zeros(2, 2, 128), o, vl, 2)
+
+
+@pytest.mark.parametrize("which", ["forward", "backward"])
+@pytest.mark.parametrize("row, offset, what", [(580, 0, "multiple of 8"),
+                                               (584, 4, "aligned")])
+def test_cuda_route_bf16_refuses_rows_the_copies_cannot_take(fake_cuda, which, row, offset,
+                                                            what):
+    # a row stride of 580 elements, or q starting 8 bytes past a 16-byte boundary
+    q, k, v = _bf16_slices(row, offset)
+    with pytest.raises(ValueError, match=what):
+        _bf16_call(which, q, k, v)
+    assert fake_cuda.calls == []
+
+
+def test_cuda_route_bf16_backward_refuses_a_misaligned_cotangent(fake_cuda):
+    q, k, v = _bf16_slices(3 * 2 * flash_attention.HEAD_DIM, 0)
+    flat = torch.zeros(q.numel() + 4, dtype=torch.bfloat16)
+    o = flat[4:].view(q.shape)  # contiguous, 8 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        _bf16_call("backward", q, k, v, o)
+    assert fake_cuda.calls == []
+
+
+@pytest.mark.parametrize("which", ["forward", "backward"])
+def test_cuda_route_bf16_takes_the_packed_slices_as_they_are(fake_cuda, which):
+    # the layer's packed qkv: rows of 576, q/k/v 384 bytes apart
+    q, k, v = _bf16_slices(3 * 2 * flash_attention.HEAD_DIM, 0)
+    _bf16_call(which, q, k, v)
+    (args,) = fake_cuda.args
+    assert fake_cuda.calls == [{"forward": "prefix_attention_fwd_bf16",
+                                "backward": "prefix_attention_bwd_bf16"}[which]]
+    assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), 576)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_route_backward_allocates_its_scratch(fake_cuda, monkeypatch, dtype):
+    # delta, and for bf16 the scaled q right after it in the same buffer
+    made = []
+
+    def spy(*args):
+        made.append(scratch(*args))
+        return made[-1]
+
+    scratch = flash_attention._bwd_scratch
+    monkeypatch.setattr(flash_attention, "_bwd_scratch", spy)
+    q, k, v = (t.to(dtype) for t in _bf16_slices(3 * 2 * flash_attention.HEAD_DIM, 0))
+    _bf16_call("backward", q, k, v)
+    ((delta, qs),) = made
+    assert delta.dtype == torch.float32 and delta.shape == (2, 2, 128)
+    assert fake_cuda.args[0][8] == delta.data_ptr()
+    if dtype == torch.float32:
+        assert qs is None
+    else:
+        assert qs.dtype == torch.bfloat16 and qs.shape == q.shape
+        assert qs.data_ptr() == delta.data_ptr() + 4 * delta.numel()
+        assert qs.data_ptr() % 16 == 0

@@ -510,3 +510,60 @@ def test_bf16_tensor_core_gemms_at_every_site(dev, batch, site):
         else:
             assert o.dtype == torch.float32
             _assert_bf16_close(o, r)
+
+
+# ---- the bf16 prefix attention (tensor cores, csrc/prefix_attention_bf16.cu) --
+# K3 and K4 against their plain bf16 versions (the bounds above) at every kind
+# of prefix: one token, a 64-query tile less one, exactly one and one more,
+# the hub's 197 and 1961, and the whole padded sequence; on the column slices
+# of one packed qkv (rows of 576, as the layer passes them) and on contiguous
+# q, k, v; with and without the lse; the backward with a cotangent on every
+# row of the computed query tiles. A second call repeats the bits.
+ATTN_VALID, ATTN_S = [1, 63, 64, 65, 197, 1961, 2048], 2048
+ATTN_ROWS = [min(-(-n // 64) * 64, ATTN_S) for n in ATTN_VALID]
+
+
+def _bf16_qkv(rng, dev, layout):
+    qkv = _randn(rng, dev, len(ATTN_VALID), ATTN_S, 3 * D).bfloat16()
+    if layout == "packed":
+        return qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    return tuple(qkv[..., i * D:(i + 1) * D].contiguous() for i in range(3))
+
+
+@pytest.mark.parametrize("layout", ["packed", "contiguous"])
+def test_bf16_tensor_core_attention_forward(dev, layout):
+    q, k, v = _bf16_qkv(np.random.default_rng(11), dev, layout)
+    vl = torch.tensor(ATTN_VALID, dtype=torch.int32, device=dev)
+    before = _launch.LAUNCHES["prefix_attention_fwd_bf16"]
+    out, lse = fa.attention_forward(q, k, v, vl, HEADS, with_lse=True)
+    again, lse_again = fa.attention_forward(q, k, v, vl, HEADS, with_lse=True)
+    bare, none = fa.attention_forward(q, k, v, vl, HEADS, with_lse=False)
+    assert _launch.LAUNCHES["prefix_attention_fwd_bf16"] == before + 3 and none is None
+    assert torch.equal(out, again) and torch.equal(lse, lse_again) and torch.equal(out, bare)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    ref, rlse = fa.prefix_flash_attention_reference(q, k, v, vl, HEADS, return_lse=True)
+    _assert_bf16_close(out, ref, ATTN_ROWS)
+    _assert_bf16_close(lse.transpose(1, 2), rlse.transpose(1, 2), ATTN_ROWS)
+    for i, n in enumerate(ATTN_ROWS):  # the tiles past the prefix: zeros, lse 1e30
+        assert not out[i, n:].any().item()
+        assert (lse[i, :, n:] == 1e30).all().item()
+
+
+@pytest.mark.parametrize("layout", ["packed", "contiguous"])
+def test_bf16_tensor_core_attention_backward(dev, layout):
+    rng = np.random.default_rng(12)
+    q, k, v = _bf16_qkv(rng, dev, layout)
+    vl = torch.tensor(ATTN_VALID, dtype=torch.int32, device=dev)
+    dout = _tail_cotangent(_randn(rng, dev, len(ATTN_VALID), ATTN_S, D), ATTN_VALID,
+                           fa.SEQ_BLOCK).bfloat16()
+    o, lse = fa.attention_forward(q, k, v, vl, HEADS, with_lse=True)
+    before = _launch.LAUNCHES["prefix_attention_bwd_bf16"]
+    got = fa.prefix_attention_bwd(q, k, v, o, lse, dout, vl, HEADS)
+    again = fa.prefix_attention_bwd(q, k, v, o, lse, dout, vl, HEADS)
+    assert _launch.LAUNCHES["prefix_attention_bwd_bf16"] == before + 2
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    ref = fa.prefix_flash_attention_backward_reference(q, k, v, o, lse, dout, vl, HEADS)
+    for j in range(3):  # dq, dk, dv
+        _assert_bf16_close(got[..., j * D:(j + 1) * D], ref[..., j * D:(j + 1) * D], ATTN_ROWS)
+    for i, n in enumerate(ATTN_ROWS):  # the zero-filled tiles get exact zeros
+        assert not got[i, n:].any().item()
