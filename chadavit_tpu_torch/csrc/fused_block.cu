@@ -22,17 +22,19 @@
 // block, and the LayerNorm prologue of ln_linear_fwd is applied as the A tile is
 // staged. Tensor cores (wgmma) and TMA are later work.
 //
-// Every kernel is a template on the storage type T of activations and weights:
+// ln_linear_fwd is a template on the storage type T of activations and weights:
 // float, or bf16 for the path the JAX package trains in (precision "bf16":
 // bf16 activations, f32 parameters cast to bf16 at use, _pack_weights
 // fused_block.py:467-479). The LN parameters and the saved row stats stay
-// f32. The bf16 instances round where the TPU kernel casts to dt
+// f32. The bf16 path rounds where the TPU kernel casts to dt
 // (fused_block.py:106-186): h = LN1(x) before the QKV product, every product's
 // f32 sum before its bias add, the bias add, the residual add, and the LN
-// output. Both instances keep float in shared memory and registers; a bf16
-// operand is 2 bytes in device memory and is loaded four elements (8 bytes)
-// at a time.
-//
+// output. ln_linear_fwd's instances keep float in shared memory and
+// registers; a bf16 operand is loaded four elements (8 bytes) at a time. The
+// bf16 linear_relu_fwd and linear_residual_ln_fwd are tensor-core kernels of
+// their own (linear_fwd_bf16.cu), with these rounding points and this row
+// contract; the two kernels here are float32 only.
+
 // Row tiles that lie wholly past valid_len[b] are skipped and written as zeros,
 // as the TPU kernel skips its fully-invalid sequence blocks. The skip decision is
 // the same for every thread of a block and is taken before the first barrier.
@@ -96,10 +98,11 @@ ln_linear_kernel(const T* __restrict__ x, const float* __restrict__ g,
 }
 
 // ---- linear_relu_fwd: out = relu(x @ W^T + bias), grid (M / BM, N / BN) ----
-template <int BN, typename T>
+// float32 only (the bf16 instance is linear_fwd_bf16.cu's)
+template <int BN>
 __global__ void __launch_bounds__(NT)
-linear_relu_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                   const T* __restrict__ bias, T* __restrict__ out,
+linear_relu_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ bias, float* __restrict__ out,
                    const int* __restrict__ valid_len, int K, int N, int s_pad) {
   constexpr int TN = BN / 16;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
@@ -118,23 +121,23 @@ linear_relu_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx + 16 * j;
-      out[(size_t)(m0 + 2 * ty + i) * N + n] =
-          from_f<T>(fmaxf(rnd<T>(acc[i][j]) + to_f(bias[n]), 0.f));
+      out[(size_t)(m0 + 2 * ty + i) * N + n] = fmaxf(acc[i][j] + bias[n], 0.f);
     }
 }
 
 // ---- linear_residual_ln_fwd: out = LN(res + (a @ W^T + bias)), grid (M / BM)
 // The block owns all N = BN output columns, so the LayerNorm is local.
-template <int BN, typename T>
+// float32 only (the bf16 instance is linear_fwd_bf16.cu's)
+template <int BN>
 __global__ void __launch_bounds__(NT)
-linear_residual_ln_kernel(const T* __restrict__ a,
-                          const T* __restrict__ w,
-                          const T* __restrict__ bias,
-                          const T* __restrict__ res,
+linear_residual_ln_kernel(const float* __restrict__ a,
+                          const float* __restrict__ w,
+                          const float* __restrict__ bias,
+                          const float* __restrict__ res,
                           const float* __restrict__ g,
                           const float* __restrict__ beta, float eps,
-                          T* __restrict__ out, float* __restrict__ mean_out,
-                          float* __restrict__ rstd_out, T* __restrict__ r_out,
+                          float* __restrict__ out, float* __restrict__ mean_out,
+                          float* __restrict__ rstd_out, float* __restrict__ r_out,
                           const int* __restrict__ valid_len, int K, int s_pad) {
   constexpr int TN = BN / 16;
   const int m0 = blockIdx.x * BM;
@@ -161,8 +164,7 @@ linear_residual_ln_kernel(const T* __restrict__ a,
     for (int j = 0; j < TN; ++j) {
       const int r = 2 * ty + i, n = tx + 16 * j;
       // (a @ W^T + bias) first, then the residual: the JAX order
-      R[r][n] = rnd<T>(to_f(res[(size_t)(m0 + r) * BN + n]) +
-                       rnd<T>(rnd<T>(acc[i][j]) + to_f(bias[n])));
+      R[r][n] = res[(size_t)(m0 + r) * BN + n] + (acc[i][j] + bias[n]);
     }
   __syncthreads();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -178,9 +180,8 @@ linear_residual_ln_kernel(const T* __restrict__ a,
     const float mu = s / BN;
     const float rstd = rsqrtf(fmaxf(ss / BN - mu * mu, 0.f) + eps);
     for (int n = lane; n < BN; n += 32) {
-      out[(size_t)(m0 + r) * BN + n] =
-          from_f<T>((R[r][n] - mu) * rstd * g[n] + beta[n]);
-      if (r_out != nullptr) r_out[(size_t)(m0 + r) * BN + n] = from_f<T>(R[r][n]);
+      out[(size_t)(m0 + r) * BN + n] = (R[r][n] - mu) * rstd * g[n] + beta[n];
+      if (r_out != nullptr) r_out[(size_t)(m0 + r) * BN + n] = R[r][n];
     }
     if (mean_out != nullptr && lane == 0) {
       mean_out[m0 + r] = mu;
@@ -202,38 +203,11 @@ int ln_linear_launch(const T* x, const float* g, const float* beta, float eps,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int linear_relu_launch(const T* x, const T* w, const T* bias, T* out,
-                       const int* valid_len, int M, int K, int N, int s_pad,
-                       void* stream) {
-  if (!rows_ok(M, K, s_pad) || K != D_MODEL || N != D_FFN)
-    return (int)cudaErrorInvalidValue;
-  linear_relu_kernel<128, T><<<dim3(M / BM, N / 128), NT, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      x, w, bias, out, valid_len, K, N, s_pad);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int linear_residual_ln_launch(const T* a, const T* w, const T* bias, const T* res,
-                              const float* g, const float* beta, float eps, T* out,
-                              float* mean_out, float* rstd_out, T* r_out,
-                              const int* valid_len, int M, int K, int N, int s_pad,
-                              void* stream) {
-  if (!rows_ok(M, K, s_pad) || N != D_MODEL || (K != D_MODEL && K != D_FFN))
-    return (int)cudaErrorInvalidValue;
-  linear_residual_ln_kernel<D_MODEL, T><<<dim3(M / BM), NT, 0,
-                                          static_cast<cudaStream_t>(stream)>>>(
-      a, w, bias, res, g, beta, eps, out, mean_out, rstd_out, r_out, valid_len, K,
-      s_pad);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// The float entry points keep their names; the bf16 ones end in _bf16 and take
-// the same arguments, with every activation and weight pointer to bf16 and the
-// LN parameters and stats still f32.
+// The float entry points keep their names; ln_linear_fwd_bf16 takes the same
+// arguments, with every activation and weight pointer to bf16 and the LN
+// parameters and stats still f32.
 extern "C" {
 
 // x (M, 192), w (576, 192), out (M, 576). mean_out and rstd_out, (M,) each,
@@ -258,12 +232,12 @@ int ln_linear_fwd_bf16(const bf16* x, const float* g, const float* beta, float e
 int linear_relu_fwd(const float* x, const float* w, const float* bias,
                     float* out, const int* valid_len, int M, int K, int N,
                     int s_pad, void* stream) {
-  return linear_relu_launch(x, w, bias, out, valid_len, M, K, N, s_pad, stream);
-}
-int linear_relu_fwd_bf16(const bf16* x, const bf16* w, const bf16* bias, bf16* out,
-                         const int* valid_len, int M, int K, int N, int s_pad,
-                         void* stream) {
-  return linear_relu_launch(x, w, bias, out, valid_len, M, K, N, s_pad, stream);
+  if (!rows_ok(M, K, s_pad) || K != D_MODEL || N != D_FFN)
+    return (int)cudaErrorInvalidValue;
+  linear_relu_kernel<128><<<dim3(M / BM, N / 128), NT, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      x, w, bias, out, valid_len, K, N, s_pad);
+  return (int)cudaGetLastError();
 }
 
 // a (M, K) with K 192 (out-proj) or 2048 (FFN2), w (192, K), res and out (M, 192).
@@ -274,16 +248,13 @@ int linear_residual_ln_fwd(const float* a, const float* w, const float* bias,
                            float eps, float* out, float* mean_out,
                            float* rstd_out, float* r_out, const int* valid_len,
                            int M, int K, int N, int s_pad, void* stream) {
-  return linear_residual_ln_launch(a, w, bias, res, g, beta, eps, out, mean_out,
-                                   rstd_out, r_out, valid_len, M, K, N, s_pad, stream);
-}
-int linear_residual_ln_fwd_bf16(const bf16* a, const bf16* w, const bf16* bias,
-                                const bf16* res, const float* g, const float* beta,
-                                float eps, bf16* out, float* mean_out,
-                                float* rstd_out, bf16* r_out, const int* valid_len,
-                                int M, int K, int N, int s_pad, void* stream) {
-  return linear_residual_ln_launch(a, w, bias, res, g, beta, eps, out, mean_out,
-                                   rstd_out, r_out, valid_len, M, K, N, s_pad, stream);
+  if (!rows_ok(M, K, s_pad) || N != D_MODEL || (K != D_MODEL && K != D_FFN))
+    return (int)cudaErrorInvalidValue;
+  linear_residual_ln_kernel<D_MODEL><<<dim3(M / BM), NT, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
+      a, w, bias, res, g, beta, eps, out, mean_out, rstd_out, r_out, valid_len, K,
+      s_pad);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

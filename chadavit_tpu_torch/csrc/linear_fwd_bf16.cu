@@ -1,0 +1,441 @@
+// The bf16 forward GEMMs of one ChAdaViT encoder layer's output projection
+// and FFN, on Hopper's tensor cores: linear_relu_fwd_bf16 (K1c,
+// hid = relu(x2 W1^T + b1)) and linear_residual_ln_fwd_bf16 (K1b,
+// y = LN(res + (a W^T + b)), at the out-projection site, K 192, and the FFN2
+// site, K 2048). Their float32 instances stay the CUDA-core kernels of
+// fused_block.cu; the function, the sites, the rounding points and the row
+// contract are theirs (the header of fused_block.cu).
+//
+// Replaces, with fused_block.cu, the TPU kernel
+// chadavit_tpu/ops/fused_block.py::_fwd_kernel (:91), whose bf16 dots run on
+// the MXU with f32 accumulation.
+//
+// What bounds them on an H100: each product has 192 on one side, so at the
+// layer's shapes K1c does about 190 operations a byte of its (M, 2048)
+// output and K1b about 190 a byte of its (M, K) input a, both under the 295
+// at which the bf16 tensor cores become the limit: both are bound by bytes,
+// K1c by the hidden it writes, K1b by the a it reads. The design is the one
+// of linear_bwd_bf16.cu's linear_dgrad (mma_bf16.cuh's helpers):
+//
+// - mma.sync m16n8k16 (bf16 in, f32 sums) from ldmatrix fragments of
+//   swizzled shared-memory tiles; W is in nn.Linear layout (N, K), so its
+//   tiles are stored (n, k) and read by ldsm_b. Products of bf16 are exact in
+//   f32, so only the order of the f32 sums differs from the plain version.
+// - A block owns 64 rows, two 32-row tiles of the contract; cp.async 16-byte
+//   copies go through a ring of three stages, so the next slice loads while
+//   the current one is multiplied.
+// - K1c keeps the block's (64, 192) x rows in shared memory and walks 512 of
+//   the 2048 columns in slices of 128, W in (128, 64) tiles through the
+//   ring. Its epilogue rounds the f32 sums to bf16, adds the bias, rounds,
+//   applies the ReLU, and stores 16-byte rows through a shared-memory tile.
+// - K1b owns all 192 columns, so the LayerNorm stays in the block, and walks
+//   K in slices of 64 (3 at the out projection, 32 at FFN2), a's (64, 64)
+//   and W's (192, 64) tiles through the ring. The residual comes with
+//   cp.async into the stage the slice after the last would take, while the
+//   last two slices multiply. The epilogue rounds the sums, adds the bias,
+//   rounds, adds the residual (the JAX order, res + (a W^T + b)) and rounds
+//   to r, in place of the residual in shared memory; then one warp a row
+//   takes the f32 row stats in fast-variance form with the max(0, .) clamp
+//   and writes out, and r, mean and rstd where their pointers are not null.
+// - 32-row tiles wholly past valid_len are written as zeros (their stats and
+//   r too), also inside a computed 64-row block; every row of a tile that
+//   holds a valid row is computed for real. No atomics: the same bits on
+//   every run.
+//
+// Plain C interface (loaded with ctypes); each launcher returns
+// cudaGetLastError() so that the Python wrapper can raise on a refused launch.
+
+#include "gemm_common.cuh"
+#include "mma_bf16.cuh"
+
+namespace {
+
+constexpr int TC_THREADS = 256;  // 8 warps, 2 (rows) x 4 (columns)
+constexpr int STAGES = 3;        // the cp.async ring
+constexpr int ROW_TILE = BM;     // the contract's 32-row tile
+constexpr int FW_BM = 64;        // rows of a block
+constexpr int FW_BK = 64;        // K slice of a ring stage
+
+// Rows of the block [m0, m0 + FW_BM) that lie in 32-row tiles holding a
+// valid row: the block computes them, and writes zeros past them. FW_BM
+// divides s_pad, so the block lies inside one image.
+__device__ __forceinline__ int live_rows(int m0, int s_pad, const int* valid_len) {
+  const int b = m0 / s_pad, local = m0 - b * s_pad;
+  const int ahead = valid_len[b] - local;
+  return ahead <= 0 ? 0 : min(FW_BM, (ahead + ROW_TILE - 1) / ROW_TILE * ROW_TILE);
+}
+
+// ---- linear_relu_fwd_bf16 -----------------------------------------------------
+// Grid (M / FW_BM, D_FFN / (RELU_SLICES * RELU_BN)). A block owns FW_BM rows
+// and RELU_SLICES column slices of RELU_BN, walked in order; each warp a
+// 32 x 32 tile of the slice.
+constexpr int RELU_BN = 128;
+constexpr int RELU_SLICES = 4;
+
+struct Relu {
+  static constexpr int K = D_MODEL;
+  static constexpr int KT = K / FW_BK;            // K slices of a column slice
+  static constexpr int ITERS = RELU_SLICES * KT;
+  static constexpr int WN = RELU_BN / 4;          // a warp's columns
+  static constexpr int NT8 = WN / 8;              // its n8 blocks
+  static constexpr int A_ELEMS = FW_BM * K;       // the block's x rows, staged once
+  static constexpr int B_STAGE = RELU_BN * FW_BK;  // a (n, k) tile of W
+  static constexpr int E_ELEMS = FW_BM * RELU_BN;  // the epilogue's tile
+  static constexpr int SMEM = 2 * (A_ELEMS + STAGES * B_STAGE + E_ELEMS);
+  static constexpr int CHUNKS = E_ELEMS / 8 / TC_THREADS;  // 16 B of a slice a thread
+  static_assert(K % FW_BK == 0 && NT8 % 2 == 0 && ITERS >= STAGES - 1 &&
+                    CHUNKS * 8 * TC_THREADS == E_ELEMS,
+                "linear_relu tile shape");
+};
+
+__global__ void __launch_bounds__(TC_THREADS, 2)
+linear_relu_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                        const bf16* __restrict__ bias, bf16* __restrict__ out,
+                        const int* __restrict__ valid_len, int s_pad) {
+  using C = Relu;
+  constexpr int N = D_FFN, K = C::K;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* As = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Bs = As + C::A_ELEMS;
+  bf16* Es = Bs + STAGES * C::B_STAGE;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int m0 = blockIdx.x * FW_BM;
+  const int ncol0 = blockIdx.y * RELU_SLICES * RELU_BN;
+  const int live = live_rows(m0, s_pad, valid_len);
+  if (live == 0) {  // both 32-row tiles are padding: uniform, before any barrier
+    constexpr int ROW_CHUNKS = RELU_SLICES * RELU_BN / 8;
+    for (int c = tid; c < FW_BM * ROW_CHUNKS; c += TC_THREADS)
+      *reinterpret_cast<uint4*>(out + (size_t)(m0 + c / ROW_CHUNKS) * N + ncol0 +
+                                (c % ROW_CHUNKS) * 8) = make_uint4(0, 0, 0, 0);
+    return;
+  }
+
+  auto load = [&](int it) {  // W rows of column slice it / KT, K slice it % KT
+    const int j = it / C::KT, i = it % C::KT;
+    bf16* bs = Bs + (it % STAGES) * C::B_STAGE;
+    const bf16* src = w + (size_t)(ncol0 + j * RELU_BN) * K + i * FW_BK;
+#pragma unroll
+    for (int q = 0; q < C::B_STAGE / 8 / TC_THREADS; ++q) {
+      const int c = tid + q * TC_THREADS, r = c / (FW_BK / 8), cc = c % (FW_BK / 8);
+      cp_async_16(bs + swz<FW_BK>(r, cc * 8), src + (size_t)r * K + cc * 8);
+    }
+  };
+#pragma unroll
+  for (int q = 0; q < C::A_ELEMS / 8 / TC_THREADS; ++q) {  // in the first group, with slice 0
+    const int c = tid + q * TC_THREADS, r = c / (K / 8), cc = c % (K / 8);
+    cp_async_16(As + swz<K>(r, cc * 8), x + (size_t)(m0 + r) * K + cc * 8);
+  }
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    load(s);
+    cp_async_commit();
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+  float acc[2][C::NT8][4];
+  for (int it = 0; it < C::ITERS; ++it) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // slice it is in; every warp is done with slice it - 1
+    if (it + STAGES - 1 < C::ITERS) load(it + STAGES - 1);
+    cp_async_commit();
+    const int j = it / C::KT, i = it % C::KT;
+    if (i == 0) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < C::NT8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+    }
+    const bf16* bs = Bs + (it % STAGES) * C::B_STAGE;
+#pragma unroll
+    for (int kk = 0; kk < FW_BK; kk += 16) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) ldsm_a<K>(af[mt], As, wm * 32 + mt * 16, i * FW_BK + kk);
+#pragma unroll
+      for (int np = 0; np < C::NT8 / 2; ++np) {
+        uint32_t bf[4];
+        ldsm_b<FW_BK>(bf, bs, kk, wn * C::WN + np * 16);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(acc[mt][2 * np], af[mt], bf[0], bf[1]);
+          mma_bf16(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
+        }
+      }
+    }
+    if (i != C::KT - 1) continue;
+
+    // ---- epilogue of column slice j: sums -> bf16 -> + bias -> bf16 -> relu ----
+    // (Es was last read by the previous slice's stores, before the barriers
+    // at the top of this slice's iterations)
+    const int n0 = ncol0 + j * RELU_BN;
+#pragma unroll
+    for (int nt = 0; nt < C::NT8; ++nt) {
+      const int col = wn * C::WN + nt * 8 + 2 * t;
+      const float2 bb = unpack_bf16x2(__ldg(reinterpret_cast<const unsigned int*>(bias + n0 + col)));
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wm * 32 + mt * 16 + g + 8 * h;
+          float v0 = fmaxf(rnd<bf16>(rnd<bf16>(acc[mt][nt][2 * h]) + bb.x), 0.f);
+          float v1 = fmaxf(rnd<bf16>(rnd<bf16>(acc[mt][nt][2 * h + 1]) + bb.y), 0.f);
+          if (r >= live) v0 = v1 = 0.f;
+          *reinterpret_cast<uint32_t*>(Es + swz<RELU_BN>(r, col)) = pack_bf16x2(v0, v1);
+        }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < C::CHUNKS; ++q) {
+      const int c = tid + q * TC_THREADS, r = c / (RELU_BN / 8), cc = c % (RELU_BN / 8);
+      *reinterpret_cast<uint4*>(out + (size_t)(m0 + r) * N + n0 + cc * 8) =
+          *reinterpret_cast<const uint4*>(Es + swz<RELU_BN>(r, cc * 8));
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// ---- linear_residual_ln_fwd_bf16 ------------------------------------------------
+// Grid (M / FW_BM). A block owns FW_BM rows and all LN_N = 192 columns; each
+// warp a 32 x 48 tile. The ring's stages hold a's (64, 64) and W's (192, 64)
+// tiles of one K slice.
+constexpr int LN_N = D_MODEL;
+
+template <int K>
+struct ResLn {
+  static constexpr int KT = K / FW_BK;
+  static constexpr int WN = LN_N / 4;
+  static constexpr int NT8 = WN / 8;
+  static constexpr int A_STAGE = FW_BM * FW_BK;
+  static constexpr int STAGE = A_STAGE + LN_N * FW_BK;
+  static constexpr int SMEM = 2 * STAGES * STAGE;
+  static constexpr int CHUNKS = FW_BM * LN_N / 8 / TC_THREADS;  // 16 B of the rows a thread
+  static_assert(K % FW_BK == 0 && KT >= STAGES - 1 && NT8 % 2 == 0 &&
+                    CHUNKS * 8 * TC_THREADS == FW_BM * LN_N,
+                "linear_residual_ln tile shape");
+  static_assert(FW_BM * LN_N <= STAGE, "the residual tile fits a stage");
+};
+
+template <int K>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+linear_residual_ln_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
+                               const bf16* __restrict__ bias, const bf16* __restrict__ res,
+                               const float* __restrict__ gamma,
+                               const float* __restrict__ beta, float eps,
+                               bf16* __restrict__ out, float* __restrict__ mean_out,
+                               float* __restrict__ rstd_out, bf16* __restrict__ r_out,
+                               const int* __restrict__ valid_len, int s_pad) {
+  using C = ResLn<K>;
+  constexpr int N = LN_N;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  // the residual, then r in its place: the stage that slice KT would take
+  bf16* Rs = ring + (C::KT % STAGES) * C::STAGE;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int m0 = blockIdx.x * FW_BM;
+  const int live = live_rows(m0, s_pad, valid_len);
+  if (live == 0) {  // both 32-row tiles are padding: uniform, before any barrier
+#pragma unroll
+    for (int q = 0; q < C::CHUNKS; ++q) {
+      const size_t o = (size_t)m0 * N + (tid + q * TC_THREADS) * 8;
+      *reinterpret_cast<uint4*>(out + o) = make_uint4(0, 0, 0, 0);
+      if (r_out != nullptr) *reinterpret_cast<uint4*>(r_out + o) = make_uint4(0, 0, 0, 0);
+    }
+    if (mean_out != nullptr && tid < FW_BM) {
+      mean_out[m0 + tid] = 0.f;
+      rstd_out[m0 + tid] = 0.f;
+    }
+    return;
+  }
+
+  auto load = [&](int i) {  // K slice i: a's rows of the block, W's 192 rows
+    bf16* as = ring + (i % STAGES) * C::STAGE;
+    bf16* bs = as + C::A_STAGE;
+#pragma unroll
+    for (int q = 0; q < C::A_STAGE / 8 / TC_THREADS; ++q) {
+      const int c = tid + q * TC_THREADS, r = c / (FW_BK / 8), cc = c % (FW_BK / 8);
+      cp_async_16(as + swz<FW_BK>(r, cc * 8), a + (size_t)(m0 + r) * K + i * FW_BK + cc * 8);
+    }
+#pragma unroll
+    for (int q = 0; q < N * FW_BK / 8 / TC_THREADS; ++q) {
+      const int c = tid + q * TC_THREADS, r = c / (FW_BK / 8), cc = c % (FW_BK / 8);
+      cp_async_16(bs + swz<FW_BK>(r, cc * 8), w + (size_t)r * K + i * FW_BK + cc * 8);
+    }
+  };
+  auto load_residual = [&]() {
+#pragma unroll
+    for (int q = 0; q < C::CHUNKS; ++q) {
+      const int c = tid + q * TC_THREADS, r = c / (N / 8), cc = c % (N / 8);
+      cp_async_16(Rs + swz<N>(r, cc * 8), res + (size_t)(m0 + r) * N + cc * 8);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    load(s);
+    cp_async_commit();
+  }
+
+  float acc[2][C::NT8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < C::NT8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  for (int i = 0; i < C::KT; ++i) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // slice i is in; every warp is done with slice i - 1
+    if (i + STAGES - 1 < C::KT) load(i + STAGES - 1);
+    else if (i + STAGES - 1 == C::KT) load_residual();  // into the stage slice KT would take
+    cp_async_commit();
+    const bf16* as = ring + (i % STAGES) * C::STAGE;
+    const bf16* bs = as + C::A_STAGE;
+    // k16 steps one at a time: the fragments of four steps of a 32 x 48 warp
+    // tile do not fit the 128 registers of two blocks an SM
+#pragma unroll 1
+    for (int kk = 0; kk < FW_BK; kk += 16) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) ldsm_a<FW_BK>(af[mt], as, wm * 32 + mt * 16, kk);
+#pragma unroll
+      for (int np = 0; np < C::NT8 / 2; ++np) {
+        uint32_t bf[4];
+        ldsm_b<FW_BK>(bf, bs, kk, wn * C::WN + np * 16);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(acc[mt][2 * np], af[mt], bf[0], bf[1]);
+          mma_bf16(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the residual is in
+
+  // ---- r = res + bf16(bf16(sums) + bias), rounded, in place of the residual ----
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < C::NT8; ++nt) {
+    const int col = wn * C::WN + nt * 8 + 2 * t;
+    const float2 bb = unpack_bf16x2(__ldg(reinterpret_cast<const unsigned int*>(bias + col)));
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t* p = reinterpret_cast<uint32_t*>(Rs + swz<N>(wm * 32 + mt * 16 + g + 8 * h, col));
+        const float2 rv = unpack_bf16x2(*p);
+        *p = pack_bf16x2(rv.x + rnd<bf16>(rnd<bf16>(acc[mt][nt][2 * h]) + bb.x),
+                         rv.y + rnd<bf16>(rnd<bf16>(acc[mt][nt][2 * h + 1]) + bb.y));
+      }
+  }
+  __syncthreads();
+
+  // ---- the LayerNorm: one warp a row; lanes 0..23 own 8 columns each ----------
+  constexpr int LANES = N / 8;
+  const int c8 = lane * 8;
+  float ga[8], ba[8];
+  if (lane < LANES) {
+    *reinterpret_cast<float4*>(ga) = __ldg(reinterpret_cast<const float4*>(gamma + c8));
+    *reinterpret_cast<float4*>(ga + 4) = __ldg(reinterpret_cast<const float4*>(gamma + c8 + 4));
+    *reinterpret_cast<float4*>(ba) = __ldg(reinterpret_cast<const float4*>(beta + c8));
+    *reinterpret_cast<float4*>(ba + 4) = __ldg(reinterpret_cast<const float4*>(beta + c8 + 4));
+  }
+  for (int row = warp; row < FW_BM; row += TC_THREADS / 32) {
+    const size_t o = (size_t)(m0 + row) * N + c8;
+    if (row >= live) {  // a zero-filled 32-row tile: uniform across the warp
+      if (lane < LANES) {
+        *reinterpret_cast<uint4*>(out + o) = make_uint4(0, 0, 0, 0);
+        if (r_out != nullptr) *reinterpret_cast<uint4*>(r_out + o) = make_uint4(0, 0, 0, 0);
+      }
+      if (mean_out != nullptr && lane == 0) {
+        mean_out[m0 + row] = 0.f;
+        rstd_out[m0 + row] = 0.f;
+      }
+      continue;
+    }
+    uint4 u = make_uint4(0, 0, 0, 0);
+    float v[8];
+    float s = 0.f, ss = 0.f;
+    if (lane < LANES) u = *reinterpret_cast<const uint4*>(Rs + swz<N>(row, c8));
+    const uint32_t* uw = reinterpret_cast<const uint32_t*>(&u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = unpack_bf16x2(uw[e]);
+      v[2 * e] = f.x;
+      v[2 * e + 1] = f.y;
+      s += f.x + f.y;
+      ss += f.x * f.x + f.y * f.y;
+    }
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    const float mu = s / N;
+    const float rstd = rsqrtf(fmaxf(ss / N - mu * mu, 0.f) + eps);
+    if (lane < LANES) {
+      uint4 y;
+      uint32_t* yw = reinterpret_cast<uint32_t*>(&y);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        yw[e] = pack_bf16x2((v[2 * e] - mu) * rstd * ga[2 * e] + ba[2 * e],
+                            (v[2 * e + 1] - mu) * rstd * ga[2 * e + 1] + ba[2 * e + 1]);
+      *reinterpret_cast<uint4*>(out + o) = y;
+      if (r_out != nullptr) *reinterpret_cast<uint4*>(r_out + o) = u;
+    }
+    if (mean_out != nullptr && lane == 0) {
+      mean_out[m0 + row] = mu;
+      rstd_out[m0 + row] = rstd;
+    }
+  }
+}
+
+bool rows_ok_bf16(int M, int s_pad) {
+  return M > 0 && s_pad > 0 && s_pad % FW_BM == 0 && M % s_pad == 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// x (M, 192), w (2048, 192), bias (2048,), out (M, 2048), all bf16; s_pad a
+// multiple of 64, the block's rows. The float32 instance is fused_block.cu's.
+int linear_relu_fwd_bf16(const bf16* x, const bf16* w, const bf16* bias, bf16* out,
+                         const int* valid_len, int M, int K, int N, int s_pad, void* stream) {
+  if (!rows_ok_bf16(M, s_pad) || K != D_MODEL || N != D_FFN) return (int)cudaErrorInvalidValue;
+  int e = (int)cudaFuncSetAttribute(linear_relu_bf16_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, Relu::SMEM);
+  if (e != 0) return e;
+  linear_relu_bf16_kernel<<<dim3(M / FW_BM, D_FFN / (RELU_SLICES * RELU_BN)), TC_THREADS,
+                            Relu::SMEM, static_cast<cudaStream_t>(stream)>>>(x, w, bias, out,
+                                                                             valid_len, s_pad);
+  return (int)cudaGetLastError();
+}
+
+// a (M, K) with K 192 (out projection) or 2048 (FFN2), w (192, K), bias (192,),
+// res and out (M, 192), bf16; g and beta (192,) f32. When not null: mean_out
+// and rstd_out (M,) f32 get the LN row stats (both or neither), r_out (M, 192)
+// bf16 the pre-LN sum; zeros on the zero-filled tiles. s_pad a multiple of 64.
+int linear_residual_ln_fwd_bf16(const bf16* a, const bf16* w, const bf16* bias,
+                                const bf16* res, const float* g, const float* beta,
+                                float eps, bf16* out, float* mean_out, float* rstd_out,
+                                bf16* r_out, const int* valid_len, int M, int K, int N,
+                                int s_pad, void* stream) {
+  if (!rows_ok_bf16(M, s_pad) || N != D_MODEL || (K != D_MODEL && K != D_FFN) ||
+      (mean_out == nullptr) != (rstd_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto kernel, int smem) {
+    int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != 0) return e;
+    kernel<<<dim3(M / FW_BM), TC_THREADS, smem, st>>>(a, w, bias, res, g, beta, eps, out,
+                                                      mean_out, rstd_out, r_out, valid_len,
+                                                      s_pad);
+    return (int)cudaGetLastError();
+  };
+  if (K == D_MODEL)
+    return run(linear_residual_ln_bf16_kernel<D_MODEL>, ResLn<D_MODEL>::SMEM);
+  return run(linear_residual_ln_bf16_kernel<D_FFN>, ResLn<D_FFN>::SMEM);
+}
+
+}  // extern "C"

@@ -24,8 +24,10 @@ launches.
 
 Weights are in torch ``nn.Linear`` layout, ``(out, in)``: the transpose of the
 JAX kernels. The GEMM kernels are ``csrc/fused_block.cu`` and
-``csrc/fused_block_bwd.cu``. Each step has a plain version here; a CPU tensor
-takes it, a CUDA tensor the kernel.
+``csrc/fused_block_bwd.cu``, with the bfloat16 instances of all but
+``ln_linear`` and ``layernorm_bwd`` on the tensor cores
+(``csrc/linear_fwd_bf16.cu``, ``csrc/linear_bwd_bf16.cu``). Each step has a
+plain version here; a CPU tensor takes it, a CUDA tensor the kernel.
 
 Row tiles of :data:`ROW_BLOCK` (32) rows wholly past ``valid_len`` are
 skipped and written as zeros, as the TPU kernel skips its fully-invalid
@@ -70,12 +72,14 @@ SEQ_PAD = 128   # the chain pads sequences to this multiple, as the model does
 D_MODEL = 192
 D_FFN = 2048
 WGRAD_CHUNK = 1024  # the most rows one block of the float32 linear_wgrad sums
-# The bfloat16 linear_dgrad / linear_wgrad are tensor-core kernels
-# (csrc/linear_bwd_bf16.cu): dgrad's blocks own 64 rows, so s_pad must be a
-# multiple of 64 (the chain pads to SEQ_PAD); wgrad's grid is its output tiles
-# (the (TN, TK) of each weight shape (N, K) below, as the kernel has them)
-# times a number of splits of the rows that fills the card's 132 SMs once.
-DGRAD_BF16_ROWS = 64
+# The bfloat16 linear_relu / linear_residual_ln / linear_dgrad / linear_wgrad
+# are tensor-core kernels (csrc/linear_fwd_bf16.cu, csrc/linear_bwd_bf16.cu)
+# that copy 16 bytes at a time. The first three own 64-row blocks, so s_pad
+# must be a multiple of 64 (the chain pads to SEQ_PAD); wgrad's grid is its
+# output tiles (the (TN, TK) of each weight shape (N, K) below, as the kernel
+# has them) times a number of splits of the rows that fills the card's 132
+# SMs once.
+BF16_GEMM_ROWS = 64
 WGRAD_BF16_TILES = {(3 * D_MODEL, D_MODEL): (64, D_MODEL), (D_MODEL, D_MODEL): (64, D_MODEL),
                     (D_FFN, D_MODEL): (128, D_MODEL), (D_MODEL, D_FFN): (D_MODEL, 128)}
 WGRAD_BF16_BLOCKS = 132
@@ -204,6 +208,19 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _copy_align(name: str, dtype: torch.dtype, s: int) -> int:
+    """The alignment in bytes that a GEMM kernel's 16-byte copies need of its
+    operands: 16 for the bfloat16 tensor-core kernels, whose 64-row blocks
+    also need S a multiple of :data:`BF16_GEMM_ROWS` (raises otherwise); 0
+    for float32."""
+    if dtype != torch.bfloat16:
+        return 0
+    if s % BF16_GEMM_ROWS:
+        raise ValueError(f"{name}: the bfloat16 kernel takes S a multiple of "
+                         f"{BF16_GEMM_ROWS}, got {s}")
+    return 16
+
+
 def _library_fn(name: str, dtype: torch.dtype):
     """``(C entry point name, its function)`` of kernel ``name`` for
     activations of ``dtype`` (``_bf16`` for bfloat16)."""
@@ -239,8 +256,10 @@ def ln_linear(x, g, b, eps: float, w, bias, valid_len, save: bool = False):
 
 
 def linear_relu(x, w, bias, valid_len):
-    """``relu(x @ w^T + bias)`` (kernel ``linear_relu_fwd`` on CUDA), all of
-    one dtype. Forward only: raises where autograd would record the call."""
+    """``relu(x @ w^T + bias)`` (kernel ``linear_relu_fwd`` on CUDA; in
+    bfloat16 on the tensor cores, S a multiple of :data:`BF16_GEMM_ROWS` and
+    x, w 16-byte aligned), all of one dtype. Forward only: raises where
+    autograd would record the call."""
     _launch.refuse_grad("linear_relu", x, w, bias)
     if _launch.on_cpu(x, w, bias, valid_len):
         return linear_relu_reference(x, w, bias, valid_len)
@@ -248,11 +267,12 @@ def linear_relu(x, w, bias, valid_len):
     bsz, s, k = _check("linear_relu", x, w, (D_MODEL,), n)
     if bias.shape != (n,):
         raise ValueError(f"linear_relu: bias {tuple(bias.shape)}")
+    tc = _copy_align("linear_relu", dt, s)
     out = torch.empty((bsz, s, n), dtype=dt, device=x.device)
     name, fn = _library_fn("linear_relu_fwd", dt)
     status = fn(
-        _launch.vector_operand(x, "x", dt), _launch.vector_operand(w, "w", dt),
-        _launch.vector_operand(bias, "bias", dt), _launch.vector_operand(out, "out", dt),
+        _launch.vector_operand(x, "x", dt, tc), _launch.vector_operand(w, "w", dt, tc),
+        _launch.vector_operand(bias, "bias", dt), _launch.vector_operand(out, "out", dt, tc),
         _launch.valid_len_operand(valid_len, bsz, x.device), bsz * s, k, n, s,
         _launch.stream(x.device))
     _build.check(status, name)
@@ -263,10 +283,11 @@ def linear_relu(x, w, bias, valid_len):
 def linear_residual_ln(a, w, bias, residual, g, b, eps: float, valid_len,
                        save: bool = False):
     """``LN(residual + (a @ w^T + bias))`` (kernel ``linear_residual_ln_fwd``
-    on CUDA; one block owns whole output rows, so the LayerNorm is local).
-    With ``save`` also the LN row mean and rstd and the pre-LN sum r. a, w,
-    bias and residual of one dtype, g and b float32. Forward only: raises
-    where autograd would record the call."""
+    on CUDA; one block owns whole output rows, so the LayerNorm is local; in
+    bfloat16 on the tensor cores, S a multiple of :data:`BF16_GEMM_ROWS` and
+    a, w, residual 16-byte aligned). With ``save`` also the LN row mean and
+    rstd and the pre-LN sum r. a, w, bias and residual of one dtype, g and b
+    float32. Forward only: raises where autograd would record the call."""
     _launch.refuse_grad("linear_residual_ln", a, w, bias, residual, g, b)
     if _launch.on_cpu(a, w, bias, residual, g, b, valid_len):
         return linear_residual_ln_reference(a, w, bias, residual, g, b, eps, valid_len,
@@ -277,16 +298,17 @@ def linear_residual_ln(a, w, bias, residual, g, b, eps: float, valid_len,
             or b.shape != (n,)):
         raise ValueError(f"linear_residual_ln: residual {tuple(residual.shape)}, "
                          f"bias {tuple(bias.shape)}")
+    tc = _copy_align("linear_residual_ln", dt, s)
     out = torch.empty((bsz, s, n), dtype=dt, device=a.device)
     mean, rstd = _stats_out(save, bsz, s, a)
     r = torch.empty_like(out) if save else None
     name, fn = _library_fn("linear_residual_ln_fwd", dt)
     status = fn(
-        _launch.vector_operand(a, "a", dt), _launch.vector_operand(w, "w", dt),
+        _launch.vector_operand(a, "a", dt, tc), _launch.vector_operand(w, "w", dt, tc),
         _launch.vector_operand(bias, "bias", dt),
-        _launch.vector_operand(residual, "residual", dt),
+        _launch.vector_operand(residual, "residual", dt, tc),
         _launch.vector_operand(g, "g"), _launch.vector_operand(b, "b"), eps,
-        _launch.vector_operand(out, "out", dt), _ptr(mean), _ptr(rstd), _ptr(r),
+        _launch.vector_operand(out, "out", dt, tc), _ptr(mean), _ptr(rstd), _ptr(r),
         _launch.valid_len_operand(valid_len, bsz, a.device), bsz * s, k, n, s,
         _launch.stream(a.device))
     _build.check(status, name)
@@ -355,7 +377,7 @@ def linear_dgrad(dy, w, valid_len, relu_of=None, residual=None):
     """``dX = dY @ W`` (W in Linear layout), masked by ``relu_of > 0`` or plus
     ``residual`` (kernel ``linear_dgrad`` on CUDA, at the layer's four sites
     only; in bfloat16 on the tensor cores, S a multiple of
-    :data:`DGRAD_BF16_ROWS`), all of one dtype. See
+    :data:`BF16_GEMM_ROWS`), all of one dtype. See
     :func:`linear_dgrad_reference`."""
     if _launch.on_cpu(dy, w, valid_len):
         return linear_dgrad_reference(dy, w, valid_len, relu_of, residual)
@@ -370,11 +392,7 @@ def linear_dgrad(dy, w, valid_len, relu_of=None, residual=None):
                          f"epilogue {epilogue}: not a site the kernel is built for")
     bsz, s, k = dy.shape
     n, dt = w.shape[1], dy.dtype
-    # the bf16 kernel: 64-row blocks and 16-byte copies
-    tc = 16 if dt == torch.bfloat16 else 0
-    if tc and s % DGRAD_BF16_ROWS:
-        raise ValueError(f"linear_dgrad: the bfloat16 kernel takes S a multiple of "
-                         f"{DGRAD_BF16_ROWS}, got {s}")
+    tc = _copy_align("linear_dgrad", dt, s)
     out = torch.empty((bsz, s, n), dtype=dt, device=dy.device)
     name, fn = _library_fn("linear_dgrad", dt)
     status = fn(

@@ -17,21 +17,25 @@ Phases, each printed with its elapsed seconds at its start and end:
    power limit from nvidia-smi.
 1. build: nvcc compiles csrc/*.cu (layernorm.cu among them), one process per
    source, into one library (cold build seconds); beside it, nvcc -Xptxas -v
-   on csrc/linear_bwd_bf16.cu and csrc/prefix_attention_bf16.cu prints the
-   registers, shared memory and spills of the tensor-core kernels, none of
-   which may spill.
+   on csrc/linear_fwd_bf16.cu, csrc/linear_bwd_bf16.cu and
+   csrc/prefix_attention_bf16.cu prints the registers, shared memory and
+   spills of the tensor-core kernels, none of which may spill.
 2. each kernel instance against its plain PyTorch version at hub shapes (B 8,
    S_pad 2048, D 192, F 2048, 2 heads, 1..10 channels), float32 on the
    inputs of seed 0, then bfloat16 on those of each of BF16_SEEDS (the worst
    bf16 readings are printed, the bounds are a few times them): the forward
    kernels, their save outputs (LN stats, pre-LN sum,
    lse), then every backward kernel on the inputs the layer's backward gives
-   it (linear_dgrad and linear_wgrad twice, for the same bits); the whole
+   it (linear_dgrad and linear_wgrad twice, for the same bits); in bfloat16
+   the tensor-core linear_relu and linear_residual_ln (K1c, K1b) once more,
+   each K1b site with and without its save outputs, every call twice for the
+   same bits and with zeros on the tiles past valid_len; the whole
    layer forward; the layer's backward through
    FusedEncoderBlock against the plain backward chain on the Function's own
-   residuals (and, in float32, against torch.autograd.grad of
-   fused_encoder_block_reference), with a cotangent that is zero past
-   valid_len. Then the tail rows: a cotangent on every row of the tiles that
+   residuals (in bfloat16 with the kernel's recompute of the FFN hidden, as
+   the Function's: backward_reference; and, in float32, against
+   torch.autograd.grad of fused_encoder_block_reference), with a cotangent
+   that is zero past valid_len. Then the tail rows: a cotangent on every row of the tiles that
    hold a valid row (32-row tiles of the layer, 64-query tiles of the
    attention), K2 through FusedEncoderBlock and K4 through
    PrefixFlashAttention against the plain backward chains, in both dtypes.
@@ -80,10 +84,11 @@ Phases, each printed with its elapsed seconds at its start and end:
    and step 1 against the same run with ln_impl=xla (plain LayerNorms): the
    loss, and the per-tensor cosine of the update directions.
 5. times with CUDA events: each kernel instance (and the share of its bound
-   it reaches; linear_dgrad and linear_wgrad also site by site), its plain
-   version, one PyTorch call for the same function (a yardstick the port
-   never calls), its bound (ln_fwd and ln_bwd at the final norm's site); the
-   device time by the profiler of ln_fwd, ln_bwd, linear_dgrad and
+   it reaches; linear_residual_ln, linear_dgrad and linear_wgrad also site
+   by site), its plain version, one PyTorch call for the same function (a
+   yardstick the port never calls), its bound (ln_fwd and ln_bwd at the
+   final norm's site); the device time by the profiler of ln_fwd, ln_bwd,
+   linear_relu, linear_residual_ln (also site by site), linear_dgrad and
    linear_wgrad, whose small calls CUDA events time by the host's launch
    rate, and of the attention forward and backward (K3, K4), kernel by
    kernel; K3 and K4 run twice for the same bits; the whole layer forward
@@ -328,6 +333,27 @@ def check_updates(ph, what, names, kernel_dirs, plain_dirs, spec, bound):
              f"frozen, zero on both sides: {still}; zero update, or frozen and moved: {bad}")
 
 
+def backward_reference(dy, x, valid_len, res, w, heads, eps):
+    """The plain backward chain that FusedEncoderBlock's backward is held
+    against, on the residuals ``res`` its own forward saved. In bfloat16 the
+    chain's recompute of the FFN hidden is the kernel's, as the Function's
+    is: the tensor-core linear_relu sums in another order than the plain
+    version (which equals the CUDA-core kernel bit for bit), and a
+    pre-activation that the two round to opposite sides of 0 flips a ReLU
+    mask and moves a whole gradient row, the kink of ReLU and not a fault of
+    a backward kernel. The forward kernels are held to their plain versions
+    on their own in phase 2, which counts such flips."""
+    import torch
+    from types import SimpleNamespace
+
+    from chadavit_tpu_torch.ops import fused_block
+
+    steps = fused_block.PLAIN_STEPS
+    if dy.dtype != torch.float32:
+        steps = SimpleNamespace(**{**vars(steps), "linear_relu": fused_block.linear_relu})
+    return fused_block.layer_backward(steps, dy, x, valid_len, *res, w, heads, eps)
+
+
 def check_layer_backward(ph, backbone, batch, dt, seed=5):
     """The first encoder layer's backward at the train path's shapes (the
     batch's global crops as one pass, tokenized by backbone), with a seeded
@@ -362,8 +388,7 @@ def check_layer_backward(ph, backbone, batch, dt, seed=5):
     with torch.no_grad():
         _, res = fused_block.layer_forward(fused_block.KERNEL_STEPS, x, valid, tuple(w), heads,
                                            eps, eps, save=True)
-        same = fused_block.fused_encoder_block_backward_reference(dy, x, valid, *res, w, heads,
-                                                                  eps)
+        same = backward_reference(dy, x, valid, res, w, heads, eps)
     torch.cuda.synchronize()
     pairs = [(gk, gr.reshape(gk.shape)) for gk, gr in zip(grads[1:], same[1:])]
     if dt == torch.float32:
@@ -527,6 +552,7 @@ def main() -> int:
     fb_cu = "chadavit_tpu_torch/csrc/fused_block.cu"
     fbb_cu = "chadavit_tpu_torch/csrc/fused_block_bwd.cu"
     tc_cu = "chadavit_tpu_torch/csrc/linear_bwd_bf16.cu"
+    fwd_tc_cu = "chadavit_tpu_torch/csrc/linear_fwd_bf16.cu"
     k1, k2 = "chadavit_tpu/ops/fused_block.py:91", "chadavit_tpu/ops/fused_block.py:211"
     from chadavit_tpu_torch.ops import layernorm as ln
 
@@ -554,7 +580,9 @@ def main() -> int:
                  for tag, dt in (("", torch.float32), ("_bf16", bf16))
                  for name, (wrapper, src, replaces) in kernels.items()}
     attn_tc_cu = "chadavit_tpu_torch/csrc/prefix_attention_bf16.cu"
-    for name, src in (("linear_dgrad_bf16", tc_cu), ("linear_wgrad_bf16", tc_cu),
+    for name, src in (("linear_relu_fwd_bf16", fwd_tc_cu),
+                      ("linear_residual_ln_fwd_bf16", fwd_tc_cu),
+                      ("linear_dgrad_bf16", tc_cu), ("linear_wgrad_bf16", tc_cu),
                       ("prefix_attention_fwd_bf16", attn_tc_cu),
                       ("prefix_attention_bwd_bf16", attn_tc_cu)):  # the tensor-core kernels
         wrapper, _, replaces, dt = instances[name]
@@ -571,13 +599,14 @@ def main() -> int:
     with Phase("1 build", failures) as ph:
         cold = not (_build.BUILD_DIR / _build.source_hash()).exists()
         t = time.perf_counter()
+        tc_sources = (fwd_tc_cu, tc_cu, attn_tc_cu)
         ptxas = [_build.ptxas_report(Path(src).name)  # beside the build
-                 for src in (tc_cu, attn_tc_cu)]
+                 for src in tc_sources]
         _build.library()
         ph.check(True, f"{'cold' if cold else 'warm'} build of {len(_build.sources())} "
                        f"sources: {time.perf_counter() - t:.2f} s")
         # registers, shared memory and spills of the tensor-core kernels
-        for src, proc in zip((tc_cu, attn_tc_cu), ptxas):
+        for src, proc in zip(tc_sources, ptxas):
             report = _build.ptxas_lines(proc)
             names = demangle([k["name"] for k in report])
             for k, short in zip(report, names):
@@ -692,6 +721,41 @@ def main() -> int:
                         note_bf16(name + tag, out, plain_fn(), "")
                 if f32:
                     note(name, worst[0], KERNEL_TOL, f" (max rel {worst[1]:.3e})")
+            if not f32:
+                # the tensor-core K1c and K1b (csrc/linear_fwd_bf16.cu): each K1b
+                # site also with its save outputs (out, LN stats, r), every call
+                # twice for the same bits, and zeros on the zero-filled tiles
+                tc_cases = [("linear_relu_fwd_bf16", "", False,
+                             lambda: fused_block.linear_relu(x2, w1, b1f, vl), lambda: hid)]
+                for site, args, eps in ((" out projection", (attn, wout, bout, xd, g1, b1),
+                                         EPS1),
+                                        (" FFN2", (hid, w2, b2f, x2, g2, b2), EPS2)):
+                    for save in (False, True):
+                        tc_cases.append((
+                            "linear_residual_ln_fwd_bf16", site + " save" * save, save,
+                            (lambda a=args, e=eps, sv=save: fused_block.linear_residual_ln(
+                                *a, e, vl, save=sv)),
+                            (lambda a=args, e=eps, sv=save:
+                             fused_block.linear_residual_ln_reference(*a, e, save=sv))))
+                for name, what, save, kernel_fn, plain_fn in tc_cases:
+                    first, again = kernel_fn(), kernel_fn()
+                    torch.cuda.synchronize()
+                    firsts = first if save else (first,)
+                    agains = again if save else (again,)
+                    ph.check(all(torch.equal(a_, b_) for a_, b_ in zip(firsts, agains)),
+                             f"{name}{what}: the same bits on a second call")
+                    ph.check(all(not o[i, n:].any().item() for o in firsts
+                                 for i, n in enumerate(layer_rows)),
+                             f"{name}{what}: zeros on the 32-row tiles past valid_len")
+                    refs = plain_fn()
+                    if save:
+                        note_bf16(name, first[0], refs[0], what + " out")
+                        note_bf16(name, torch.stack(first[1:3], -1),
+                                  torch.stack(refs[1:3], -1), what + " mean, rstd")
+                        note_bf16(name, first[3], refs[3], what + " r")
+                    else:
+                        note_bf16(name, first, refs, what + ", run twice")
+                del tc_cases
 
             # the save outputs: LN stats, the pre-LN sum, the lse
             _, (ra, rx2, rr2, rlse, rst) = fused_block.layer_forward(
@@ -700,6 +764,18 @@ def main() -> int:
                 fused_block.KERNEL_STEPS, xd, vl, tuple(w), H, EPS1, EPS2, save=True)
             torch.cuda.synchronize()
             inp.update(ra=ra, rx2=rx2, rr2=rr2, rlse=rlse, rst=rst)
+            if not f32:  # ReLU masks of the kernel's and the plain hid on the layer's x2
+                hk = fused_block.linear_relu(kx2, w1, b1f, vl)
+                hp = fused_block.linear_relu_reference(kx2, w1, b1f)
+                flips = sum(int(((hk[i, :n] > 0) != (hp[i, :n] > 0)).sum())
+                            for i, n in enumerate(layer_rows))
+                differ = sum(int((hk[i, :n] != hp[i, :n]).sum())
+                             for i, n in enumerate(layer_rows))
+                log(f"  linear_relu_fwd_bf16 on the layer's own x2: {differ} entries differ "
+                    f"from the plain version, {flips} of them ReLU mask flips, in "
+                    f"{sum(layer_rows) * FFN} entries (the backward chain it is held against "
+                    f"recomputes hid with the kernel)")
+                del hk, hp
             st_err = [valid_rows_err(a[..., None], b_[..., None], valid_len)[0]
                       for a, b_ in zip(kst, rst)]
             lse_err = max((klse[i, :, :n] - rlse[i, :, :n]).abs().max().item()
@@ -778,11 +854,13 @@ def main() -> int:
 
             # the layer's backward: FusedEncoderBlock against the plain backward
             # chain on the residuals the Function's own forward saves, which
-            # isolates the backward kernels; in f32 also against plain autograd. A
-            # pre-activation within rounding of 0 can flip its ReLU mask between
-            # the kernel and the plain forward and move a whole gradient row (the
-            # kink of ReLU; the seeded f32 inputs have none, and in bf16 such flips
-            # are common), so the autograd comparison is made in f32 only
+            # isolates the backward kernels (in bf16 the chain recomputes the FFN
+            # hidden with the kernel: backward_reference); in f32 also against
+            # plain autograd. A pre-activation within rounding of 0 can flip its
+            # ReLU mask between the kernel and the plain forward and move a whole
+            # gradient row (the kink of ReLU; the seeded f32 inputs have none, and
+            # in bf16 such flips are common), so the autograd comparison is made
+            # in f32 only
             names = ["wqkv", "bqkv", "wout", "bout", "g1", "b1", "g2", "b2", "w1", "b1f", "w2",
                      "b2f"]
             xg = xd.clone().requires_grad_(True)
@@ -816,8 +894,7 @@ def main() -> int:
                 del y_ref, grads_ref
             ph.check(all(not grads[0][i, n:].any().item() for i, n in enumerate(valid_len)),
                      f"layer backward{tag} dx past valid_len is exactly zero")
-            same = fused_block.fused_encoder_block_backward_reference(
-                dyd, xd, vl, ka, kx2, kr2, klse, kst, w, H, EPS1)
+            same = backward_reference(dyd, xd, vl, (ka, kx2, kr2, klse, kst), w, H, EPS1)
             if f32:
                 err = valid_rows_err(grads[0], same[0], valid_len)[0]
                 worst = max(((gk - gr.reshape(gk.shape)).abs().max().item()
@@ -848,8 +925,7 @@ def main() -> int:
             wg = [t.clone().requires_grad_(True) for t in w]
             grads = torch.autograd.grad(fused_block.fused_encoder_block(xg, vl, *wg, H, EPS1,
                                                                         EPS2), [xg, *wg], dyt)
-            same = fused_block.fused_encoder_block_backward_reference(
-                dyt, xd, vl, ka, kx2, kr2, klse, kst, w, H, EPS1)
+            same = backward_reference(dyt, xd, vl, (ka, kx2, kr2, klse, kst), w, H, EPS1)
             tail_zero = all(not grads[0][i, n:].any().item() for i, n in enumerate(layer_rows))
             if f32:
                 err = valid_rows_err(grads[0], same[0], layer_rows)[0]
@@ -1510,7 +1586,8 @@ def main() -> int:
             # the backward steps, every site of one layer's backward summed, on
             # the inputs recorded in phase 2
             # the GEMM sites by their weight, (out, in) as in nn.Linear
-            site_weights = {}
+            site_weights = {"linear_residual_ln_fwd": [(D, D), (D, FFN)]}
+            site_ms = {}  # (name, site index): CUDA events of the site alone
             for name, calls in inp["bwd_inputs"].items():
                 kname = "prefix_attention_bwd" if name == "attention_bwd" else name
                 runs[kname] = [site(
@@ -1531,11 +1608,13 @@ def main() -> int:
                     p2 = time_ms(plain_fn)
                     t2 = time_ms(kernel_fn)
                     ms += (t1 + t2) / 2
+                    site_ms[name, i_site] = (t1 + t2) / 2
                     plain_ms += (p1 + p2) / 2
                     lib_before = lib_ms
                     lib_ms += time_ms(lib_fn)
                     t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-                    if name in ("linear_dgrad", "linear_wgrad"):  # each site on its own
+                    if name in ("linear_residual_ln_fwd", "linear_dgrad", "linear_wgrad"):
+                        # each site on its own
                         log(f"    {name + tag} site, weight {site_weights[name][i_site]}: kernel "
                             f"{(t1 + t2) / 2:.4f} ms, library {lib_ms - lib_before:.4f} ms, "
                             f"bound {max(t_ops, t_bytes):.4f} ms")
@@ -1572,21 +1651,24 @@ def main() -> int:
             log(f"  ln_fwd{tag} / ln_bwd{tag} device time per call (profiler, {reps} calls): "
                 f"{ln_dev['ln_fwd']:.4f} / {ln_dev['ln_bwd']:.4f} ms, bound "
                 f"{stats['ln_fwd' + tag]['bound_ms']:.4f} / {stats['ln_bwd' + tag]['bound_ms']:.4f} ms")
-            # the GEMM steps of the backward and the attention (K3, K4) by the
-            # profiler too: at the small sites CUDA events read the wrapper's
-            # launch rate; every kernel of the call (wgrad's second pass, the
-            # attention backward's three launches), the layer's sites summed,
-            # each kernel also on its own
-            for name in ("linear_dgrad", "linear_wgrad", "prefix_attention_fwd",
-                         "prefix_attention_bwd"):
+            # the GEMM steps (K1b, K1c, K2b, K2c) and the attention (K3, K4)
+            # by the profiler too: at the small sites CUDA events read the
+            # wrapper's launch rate; every kernel of the call (wgrad's second
+            # pass, the attention backward's three launches), the layer's
+            # sites summed, each kernel also on its own; K1b also site by site
+            def device_ms(fns):
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     for _ in range(reps):
-                        for kernel_fn, *_ in runs[name]:
-                            kernel_fn()
+                        for fn in fns:
+                            fn()
                     torch.cuda.synchronize()
-                per_kernel = {e.key: e.self_device_time_total / 1e3 / reps
-                              for e in prof.key_averages()
-                              if e.device_type == torch.autograd.DeviceType.CUDA}
+                return {e.key: e.self_device_time_total / 1e3 / reps
+                        for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA}
+
+            for name in ("linear_relu_fwd", "linear_residual_ln_fwd", "linear_dgrad",
+                         "linear_wgrad", "prefix_attention_fwd", "prefix_attention_bwd"):
+                per_kernel = device_ms([kernel_fn for kernel_fn, *_ in runs[name]])
                 dev_ms = sum(per_kernel.values())
                 log(f"  {name + tag} device time per layer (profiler, {reps} x {len(runs[name])} "
                     f"sites): {dev_ms:.4f} ms, bound {stats[name + tag]['bound_ms']:.4f} ms "
@@ -1594,6 +1676,13 @@ def main() -> int:
                     f"{stats[name + tag]['ms']:.4f} ms; "
                     + ", ".join(f"{k[:60]} {v:.4f}" for k, v in
                                 sorted(per_kernel.items(), key=lambda kv: -kv[1])))
+                if name == "linear_residual_ln_fwd":
+                    for i_site, (kernel_fn, *_, ops, nbytes) in enumerate(runs[name]):
+                        site_dev = sum(device_ms([kernel_fn]).values())
+                        site_bound = max(ops / peak, nbytes / PEAK_BYTES) * 1e3
+                        log(f"    {name + tag} site, weight {site_weights[name][i_site]}: "
+                            f"device {site_dev:.4f} ms (profiler), CUDA events "
+                            f"{site_ms[name, i_site]:.4f} ms, bound {site_bound:.4f} ms")
             # K3 and K4 repeat their bits: fixed-order sums, no atomics
             for name in ("prefix_attention_fwd", "prefix_attention_bwd"):
                 for kernel_fn, *_ in runs[name]:

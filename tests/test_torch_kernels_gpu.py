@@ -567,3 +567,74 @@ def test_bf16_tensor_core_attention_backward(dev, layout):
         _assert_bf16_close(got[..., j * D:(j + 1) * D], ref[..., j * D:(j + 1) * D], ATTN_ROWS)
     for i, n in enumerate(ATTN_ROWS):  # the zero-filled tiles get exact zeros
         assert not got[i, n:].any().item()
+
+
+# ---- the bf16 linear_relu / linear_residual_ln (tensor cores, K1c / K1b) ------
+# csrc/linear_fwd_bf16.cu against the plain bf16 versions (the bounds above)
+# at every site (K1c; K1b at the out projection, K 192, and at FFN2, K 2048),
+# with and without the save outputs, at the hub's shapes, at the train batch's
+# 64 sequences and at every kind of prefix: one row, a 32-row tile less one,
+# exactly one and one more, a 64-row block less one, exactly one and one
+# more, the hub's 197 and 1961, and the whole padded sequence. The 32-row
+# tiles past the prefix are zeros, also the second tile of a computed 64-row
+# block. A second call repeats the bits.
+FWD_BATCHES = {"ragged": (2048, [1, 31, 32, 33, 63, 64, 65, 197, 1961, 2048]),
+               "hub": (2048, _HUB), "train": (2048, _TRAIN)}
+FWD_SITES = {"relu": D, "residual_ln_out": D, "residual_ln_ffn2": F}
+
+
+FWD_CASES = [("relu", False), ("residual_ln_out", False), ("residual_ln_out", True),
+             ("residual_ln_ffn2", False), ("residual_ln_ffn2", True)]
+
+
+@pytest.mark.parametrize("site, save", FWD_CASES)
+@pytest.mark.parametrize("batch", list(FWD_BATCHES))
+def test_bf16_tensor_core_forward_gemms(dev, batch, site, save):
+    s, valid = FWD_BATCHES[batch]
+    rng = np.random.default_rng(len(valid) + list(FWD_SITES).index(site))
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    bsz, k = len(valid), FWD_SITES[site]
+
+    def bf(*shape, scale=1.0):
+        return _randn(rng, dev, *shape, scale=scale).bfloat16()
+
+    if site == "relu":
+        x, w, b = bf(bsz, s, D), bf(F, D, scale=D ** -0.5), bf(F, scale=0.1)
+        entry = "linear_relu_fwd_bf16"
+
+        def kernel():
+            return fused_block.linear_relu(x, w, b, vl)
+
+        def plain():
+            return fused_block.linear_relu_reference(x, w, b)
+    else:
+        a, w, b = bf(bsz, s, k), bf(D, k, scale=k ** -0.5), bf(D, scale=0.1)
+        res = bf(bsz, s, D)
+        g, beta = 1 + _randn(rng, dev, D, scale=0.1), _randn(rng, dev, D, scale=0.1)
+        entry = "linear_residual_ln_fwd_bf16"
+
+        def kernel():
+            return fused_block.linear_residual_ln(a, w, b, res, g, beta, 1e-5, vl, save=save)
+
+        def plain():
+            return fused_block.linear_residual_ln_reference(a, w, b, res, g, beta, 1e-5,
+                                                            save=save)
+    before = _launch.LAUNCHES[entry]
+    with torch.no_grad():
+        out, again = kernel(), kernel()
+    assert _launch.LAUNCHES[entry] == before + 2
+    ref = plain()
+    outs, agains, refs = ((out, again, ref) if save else ((out,), (again,), (ref,)))
+    for o, ag in zip(outs, agains):
+        assert torch.equal(o, ag), "a second call gives other bits"
+    dtypes = [torch.bfloat16]
+    if save:  # out, the LN stats (mean, rstd) as one f32 tensor, r
+        outs = (outs[0], torch.stack(outs[1:3], -1), outs[3])
+        refs = (refs[0], torch.stack(refs[1:3], -1), refs[3])
+        dtypes = [torch.bfloat16, torch.float32, torch.bfloat16]
+    rows = [min(-(-n // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK, s) for n in valid]
+    for o, r, dt in zip(outs, refs, dtypes):
+        assert o.dtype == dt
+        _assert_bf16_close(o, r, rows)
+        for i, n in enumerate(rows):  # the zero-filled tiles get exact zeros
+            assert not o[i, n:].any().item()
