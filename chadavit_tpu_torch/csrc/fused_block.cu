@@ -1,5 +1,5 @@
 // The GEMM steps of one ChAdaViT encoder layer, forward, on CUDA cores, in
-// float32 and in bf16 (f32 sums).
+// float32.
 //
 // Replaces the TPU kernel chadavit_tpu/ops/fused_block.py::_fwd_kernel (reached
 // through _run_fwd / fused_encoder_block). That kernel keeps a whole layer of one
@@ -22,18 +22,14 @@
 // block, and the LayerNorm prologue of ln_linear_fwd is applied as the A tile is
 // staged. Tensor cores (wgmma) and TMA are later work.
 //
-// ln_linear_fwd is a template on the storage type T of activations and weights:
-// float, or bf16 for the path the JAX package trains in (precision "bf16":
-// bf16 activations, f32 parameters cast to bf16 at use, _pack_weights
-// fused_block.py:467-479). The LN parameters and the saved row stats stay
-// f32. The bf16 path rounds where the TPU kernel casts to dt
-// (fused_block.py:106-186): h = LN1(x) before the QKV product, every product's
-// f32 sum before its bias add, the bias add, the residual add, and the LN
-// output. ln_linear_fwd's instances keep float in shared memory and
-// registers; a bf16 operand is loaded four elements (8 bytes) at a time. The
-// bf16 linear_relu_fwd and linear_residual_ln_fwd are tensor-core kernels of
-// their own (linear_fwd_bf16.cu), with these rounding points and this row
-// contract; the two kernels here are float32 only.
+// The three kernels here are float32 only. The bf16 path the JAX package
+// trains in (precision "bf16": bf16 activations, f32 parameters cast to bf16
+// at use, _pack_weights fused_block.py:467-479) has tensor-core kernels of its
+// own for all three steps (linear_fwd_bf16.cu), which round where the TPU
+// kernel casts to dt (fused_block.py:106-186): h = LN1(x) before the QKV
+// product, every product's f32 sum before its bias add, the bias add, the
+// residual add, and the LN output; the LN parameters and the saved row stats
+// stay f32, and the row contract below is theirs too.
 
 // Row tiles that lie wholly past valid_len[b] are skipped and written as zeros,
 // as the TPU kernel skips its fully-invalid sequence blocks. The skip decision is
@@ -56,12 +52,12 @@
 namespace {
 
 // ---- ln_linear_fwd: out = LN(x) @ W^T + bias, grid (M / BM, N / BN) --------
-template <int BN, typename T>
+template <int BN>
 __global__ void __launch_bounds__(NT)
-ln_linear_kernel(const T* __restrict__ x, const float* __restrict__ g,
+ln_linear_kernel(const float* __restrict__ x, const float* __restrict__ g,
                  const float* __restrict__ beta, float eps,
-                 const T* __restrict__ w, const T* __restrict__ bias,
-                 T* __restrict__ out, float* __restrict__ mean_out,
+                 const float* __restrict__ w, const float* __restrict__ bias,
+                 float* __restrict__ out, float* __restrict__ mean_out,
                  float* __restrict__ rstd_out, const int* __restrict__ valid_len,
                  int K, int N, int s_pad) {
   constexpr int TN = BN / 16;
@@ -92,8 +88,7 @@ ln_linear_kernel(const T* __restrict__ x, const float* __restrict__ g,
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx + 16 * j;
-      out[(size_t)(m0 + 2 * ty + i) * N + n] =
-          from_f<T>(rnd<T>(acc[i][j]) + to_f(bias[n]));
+      out[(size_t)(m0 + 2 * ty + i) * N + n] = acc[i][j] + bias[n];
     }
 }
 
@@ -190,24 +185,8 @@ linear_residual_ln_kernel(const float* __restrict__ a,
   }
 }
 
-template <typename T>
-int ln_linear_launch(const T* x, const float* g, const float* beta, float eps,
-                     const T* w, const T* bias, T* out, float* mean_out,
-                     float* rstd_out, const int* valid_len, int M, int K, int N,
-                     int s_pad, void* stream) {
-  if (!rows_ok(M, K, s_pad) || K != D_MODEL || N != 3 * D_MODEL)
-    return (int)cudaErrorInvalidValue;
-  ln_linear_kernel<D_MODEL, T><<<dim3(M / BM, N / D_MODEL), NT, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      x, g, beta, eps, w, bias, out, mean_out, rstd_out, valid_len, K, N, s_pad);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// The float entry points keep their names; ln_linear_fwd_bf16 takes the same
-// arguments, with every activation and weight pointer to bf16 and the LN
-// parameters and stats still f32.
 extern "C" {
 
 // x (M, 192), w (576, 192), out (M, 576). mean_out and rstd_out, (M,) each,
@@ -217,15 +196,12 @@ int ln_linear_fwd(const float* x, const float* g, const float* beta, float eps,
                   const float* w, const float* bias, float* out, float* mean_out,
                   float* rstd_out, const int* valid_len, int M, int K, int N,
                   int s_pad, void* stream) {
-  return ln_linear_launch(x, g, beta, eps, w, bias, out, mean_out, rstd_out,
-                          valid_len, M, K, N, s_pad, stream);
-}
-int ln_linear_fwd_bf16(const bf16* x, const float* g, const float* beta, float eps,
-                       const bf16* w, const bf16* bias, bf16* out, float* mean_out,
-                       float* rstd_out, const int* valid_len, int M, int K, int N,
-                       int s_pad, void* stream) {
-  return ln_linear_launch(x, g, beta, eps, w, bias, out, mean_out, rstd_out,
-                          valid_len, M, K, N, s_pad, stream);
+  if (!rows_ok(M, K, s_pad) || K != D_MODEL || N != 3 * D_MODEL)
+    return (int)cudaErrorInvalidValue;
+  ln_linear_kernel<D_MODEL><<<dim3(M / BM, N / D_MODEL), NT, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      x, g, beta, eps, w, bias, out, mean_out, rstd_out, valid_len, K, N, s_pad);
+  return (int)cudaGetLastError();
 }
 
 // x (M, 192), w (2048, 192), out (M, 2048).

@@ -33,7 +33,13 @@
 // each (tile, chunk) block writes a partial sum. Chunks and 32-row tiles wholly
 // past valid_len[b] are skipped (the forward wrote zeros there, and its saved
 // stats there mean nothing): the partial of a skipped chunk is never written
-// and the second pass skips it by the same rule. Every skip decision is uniform per block and taken before the first
+// and the second pass skips it by the same rule. layernorm_bwd instead cuts
+// the rows into a number of splits that does not grow with the batch: each
+// block walks a contiguous share of the 32-row tiles and keeps dgamma/dbeta
+// in registers, so its partial sums are (splits, 384), every split writes
+// its own (zeros when all its tiles are padding), and the second pass, 12
+// blocks of 32 warps, adds them in split order with every load in flight at
+// once. Every skip decision is uniform per block and taken before the first
 // barrier.
 //
 // The contract, the TPU kernel's (fused_block.py:33-39): the forward computes
@@ -58,7 +64,13 @@
 
 namespace {
 
-// ---- layernorm_bwd: grid (M / BM), one warp per row, 6 columns per lane ------
+// ---- layernorm_bwd: grid (splits), one warp per row, 6 columns per lane ------
+// Block `split` walks the 32-row tiles [split T / splits, (split + 1) T /
+// splits) of the T = M / BM in order: dx of every row of a tile that holds a
+// valid row, zeros on the others, and dgamma/dbeta summed in registers over
+// its tiles; then one partial sum per split, warps in a fixed order. splits is
+// the caller's plan (ops/fused_block.py::layernorm_bwd_splits), a bound that
+// does not grow with the batch, so the scratch and the second pass stay small.
 constexpr int LN_COLS = D_MODEL / 32;
 
 template <typename T>
@@ -68,13 +80,12 @@ layernorm_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ xin,
                      const float* __restrict__ rstd,
                      const float* __restrict__ g, const T* __restrict__ res,
                      T* __restrict__ dx, float* __restrict__ partial,
-                     const int* __restrict__ valid_len, int s_pad) {
-  const int m0 = blockIdx.x * BM;
+                     const int* __restrict__ valid_len, int s_pad, int n_tiles,
+                     int splits) {
+  const int split = blockIdx.x;
+  const int t0 = (int)((long long)split * n_tiles / splits);
+  const int t1 = (int)((long long)(split + 1) * n_tiles / splits);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (tile_is_padding(m0, s_pad, valid_len)) {  // uniform, before any barrier
-    zero_tile<D_MODEL>(dx, D_MODEL, m0, 0);
-    return;  // the second pass skips this tile's partial
-  }
   float gc[LN_COLS], pg[LN_COLS], pb[LN_COLS];
 #pragma unroll
   for (int j = 0; j < LN_COLS; ++j) {
@@ -82,30 +93,37 @@ layernorm_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ xin,
     pg[j] = 0.f;
     pb[j] = 0.f;
   }
-  for (int r = warp; r < BM; r += WARPS) {  // the whole warp takes one row
-    const int row = m0 + r;
-    const size_t off = (size_t)row * D_MODEL;
-    const float mu = mean[row], rs = rstd[row];
-    float d[LN_COLS], xh[LN_COLS], s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < LN_COLS; ++j) {
-      d[j] = to_f(dy[off + lane + 32 * j]);
-      xh[j] = (to_f(xin[off + lane + 32 * j]) - mu) * rs;
-      const float dyg = d[j] * gc[j];
-      s1 += dyg;
-      s2 += dyg * xh[j];
+  for (int tile = t0; tile < t1; ++tile) {
+    const int m0 = tile * BM;
+    if (tile_is_padding(m0, s_pad, valid_len)) {  // uniform across the block
+      zero_tile<D_MODEL>(dx, D_MODEL, m0, 0);
+      continue;  // adds nothing to the sums
     }
-    const float m1 = warp_sum(s1) / D_MODEL, m2 = warp_sum(s2) / D_MODEL;
+    for (int r = warp; r < BM; r += WARPS) {  // the whole warp takes one row
+      const int row = m0 + r;
+      const size_t off = (size_t)row * D_MODEL;
+      const float mu = mean[row], rs = rstd[row];
+      float d[LN_COLS], xh[LN_COLS], s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int j = 0; j < LN_COLS; ++j) {
-      float v = rs * (d[j] * gc[j] - m1 - xh[j] * m2);
-      if (res != nullptr) v += to_f(res[off + lane + 32 * j]);
-      dx[off + lane + 32 * j] = from_f<T>(v);
-      pg[j] += d[j] * xh[j];
-      pb[j] += d[j];
+      for (int j = 0; j < LN_COLS; ++j) {
+        d[j] = to_f(dy[off + lane + 32 * j]);
+        xh[j] = (to_f(xin[off + lane + 32 * j]) - mu) * rs;
+        const float dyg = d[j] * gc[j];
+        s1 += dyg;
+        s2 += dyg * xh[j];
+      }
+      const float m1 = warp_sum(s1) / D_MODEL, m2 = warp_sum(s2) / D_MODEL;
+#pragma unroll
+      for (int j = 0; j < LN_COLS; ++j) {
+        float v = rs * (d[j] * gc[j] - m1 - xh[j] * m2);
+        if (res != nullptr) v += to_f(res[off + lane + 32 * j]);
+        dx[off + lane + 32 * j] = from_f<T>(v);
+        pg[j] += d[j] * xh[j];
+        pb[j] += d[j];
+      }
     }
   }
-  // the block's partial sums: warps in a fixed order
+  // the split's partial sums, zeros when it summed no tile: warps in a fixed order
   __shared__ float red[WARPS][2 * D_MODEL];
 #pragma unroll
   for (int j = 0; j < LN_COLS; ++j) {
@@ -117,11 +135,39 @@ layernorm_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ xin,
     float s = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) s += red[w][c];
-    partial[(size_t)blockIdx.x * 2 * D_MODEL + c] = s;
+    partial[(size_t)split * 2 * D_MODEL + c] = s;
   }
 }
 
-// ---- the second pass: out[i] (+)= sum over the chunks not skipped -----------
+// ---- layernorm_bwd's second pass: dgb[i] (+)= the splits' partials at i -----
+// Grid (2 D / 32), LN_RED_WARPS warps: lane -> output, warp w -> the splits
+// w, w + LN_RED_WARPS, ... in order, then the warps' sums in order. Every
+// split wrote its partial, so the loads are independent of each other and of
+// valid_len, and stay in flight together.
+constexpr int LN_RED_WARPS = 32;
+static_assert((2 * D_MODEL) % 32 == 0, "whole warps of outputs");
+
+__global__ void __launch_bounds__(LN_RED_WARPS * 32)
+reduce_ln_splits_kernel(const float* __restrict__ partial, float* __restrict__ out,
+                        int splits, int accumulate) {
+  constexpr int N_OUT = 2 * D_MODEL;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int i = blockIdx.x * 32 + lane;
+  float s = 0.f;
+#pragma unroll 8
+  for (int sp = warp; sp < splits; sp += LN_RED_WARPS) s += partial[(size_t)sp * N_OUT + i];
+  __shared__ float red[LN_RED_WARPS][32];
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < LN_RED_WARPS; ++w) t += red[w][lane];
+    out[i] = accumulate ? out[i] + t : t;
+  }
+}
+
+// ---- linear_wgrad's second pass: out[i] = sum over the chunks not skipped ----
 // partial is (n_chunks, n_out); chunk c covers rows [c * chunk, (c + 1) * chunk)
 // of the flattened activation and was skipped iff its first row is padding.
 // Grid (ceil(n_out / 32)), 8 warps: lane -> output, warp -> every 8th chunk,
@@ -129,7 +175,7 @@ layernorm_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ xin,
 __global__ void __launch_bounds__(NT)
 reduce_chunks_kernel(const float* __restrict__ partial, float* __restrict__ out,
                      int n_out, int n_chunks, int chunk, int s_pad,
-                     const int* __restrict__ valid_len, int accumulate) {
+                     const int* __restrict__ valid_len) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int i = blockIdx.x * 32 + lane;
   float s = 0.f;
@@ -144,7 +190,7 @@ reduce_chunks_kernel(const float* __restrict__ partial, float* __restrict__ out,
     float t = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) t += red[w][lane];
-    out[i] = accumulate ? out[i] + t : t;
+    out[i] = t;
   }
 }
 
@@ -264,28 +310,22 @@ linear_wgrad_kernel(const T* __restrict__ dy, const T* __restrict__ x,
   }
 }
 
-int reduce_chunks(const float* partial, float* out, int n_out, int n_chunks,
-                  int chunk, int s_pad, const int* valid_len, int accumulate,
-                  cudaStream_t st) {
-  reduce_chunks_kernel<<<(n_out + 31) / 32, NT, 0, st>>>(
-      partial, out, n_out, n_chunks, chunk, s_pad, valid_len, accumulate);
-  return (int)cudaGetLastError();
-}
-
 template <typename T>
 int layernorm_bwd_launch(const T* dy, const T* xin, const float* mean,
                          const float* rstd, const float* g, const T* res, T* dx,
                          float* partial, float* dgb, int accumulate,
-                         const int* valid_len, int M, int N, int s_pad,
+                         const int* valid_len, int M, int N, int s_pad, int splits,
                          void* stream) {
-  if (!rows_ok(M, BK, s_pad) || N != D_MODEL) return (int)cudaErrorInvalidValue;
+  if (!rows_ok(M, BK, s_pad) || N != D_MODEL || splits < 1 || splits > M / BM)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  layernorm_bwd_kernel<T><<<M / BM, NT, 0, st>>>(dy, xin, mean, rstd, g, res, dx,
-                                                 partial, valid_len, s_pad);
+  layernorm_bwd_kernel<T><<<splits, NT, 0, st>>>(dy, xin, mean, rstd, g, res, dx, partial,
+                                                 valid_len, s_pad, M / BM, splits);
   int e = (int)cudaGetLastError();
   if (e != 0) return e;
-  return reduce_chunks(partial, dgb, 2 * D_MODEL, M / BM, BM, s_pad, valid_len,
-                       accumulate, st);
+  reduce_ln_splits_kernel<<<2 * D_MODEL / 32, LN_RED_WARPS * 32, 0, st>>>(partial, dgb, splits,
+                                                                           accumulate);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -329,8 +369,10 @@ int linear_wgrad_launch(const T* dy, const T* x, const float* mean,
         s_pad, chunk);
   int e = (int)cudaGetLastError();
   if (e != 0) return e;
-  return reduce_chunks(partial, dwb, N * K + N, M / chunk, chunk, s_pad,
-                       valid_len, 0, st);
+  const int n_out = N * K + N;
+  reduce_chunks_kernel<<<(n_out + 31) / 32, NT, 0, st>>>(partial, dwb, n_out, M / chunk, chunk,
+                                                         s_pad, valid_len);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -342,21 +384,22 @@ int linear_wgrad_launch(const T* dy, const T* x, const float* mean,
 extern "C" {
 
 // dy, xin, dx (and res, when not null): (M, 192); mean, rstd: (M,);
-// partial: (M / 32, 384) scratch; dgb: (384,) = dgamma then dbeta, summed
-// into when accumulate is 1, else overwritten.
+// partial: (splits, 384) scratch, 1 <= splits <= M / 32; dgb: (384,) =
+// dgamma then dbeta, summed into when accumulate is 1, else overwritten.
 int layernorm_bwd(const float* dy, const float* xin, const float* mean,
                   const float* rstd, const float* g, const float* res, float* dx,
                   float* partial, float* dgb, int accumulate,
-                  const int* valid_len, int M, int N, int s_pad, void* stream) {
+                  const int* valid_len, int M, int N, int s_pad, int splits, void* stream) {
   return layernorm_bwd_launch(dy, xin, mean, rstd, g, res, dx, partial, dgb,
-                              accumulate, valid_len, M, N, s_pad, stream);
+                              accumulate, valid_len, M, N, s_pad, splits, stream);
 }
 int layernorm_bwd_bf16(const bf16* dy, const bf16* xin, const float* mean,
                        const float* rstd, const float* g, const bf16* res, bf16* dx,
                        float* partial, float* dgb, int accumulate,
-                       const int* valid_len, int M, int N, int s_pad, void* stream) {
+                       const int* valid_len, int M, int N, int s_pad, int splits,
+                       void* stream) {
   return layernorm_bwd_launch(dy, xin, mean, rstd, g, res, dx, partial, dgb,
-                              accumulate, valid_len, M, N, s_pad, stream);
+                              accumulate, valid_len, M, N, s_pad, splits, stream);
 }
 
 // dy (M, K), w (K, N) (the forward's Linear weight, out x in), out (M, N).

@@ -1,10 +1,11 @@
-// The bf16 forward GEMMs of one ChAdaViT encoder layer's output projection
-// and FFN, on Hopper's tensor cores: linear_relu_fwd_bf16 (K1c,
-// hid = relu(x2 W1^T + b1)) and linear_residual_ln_fwd_bf16 (K1b,
-// y = LN(res + (a W^T + b)), at the out-projection site, K 192, and the FFN2
-// site, K 2048). Their float32 instances stay the CUDA-core kernels of
-// fused_block.cu; the function, the sites, the rounding points and the row
-// contract are theirs (the header of fused_block.cu).
+// The bf16 forward GEMMs of one ChAdaViT encoder layer, on Hopper's tensor
+// cores: ln_linear_fwd_bf16 (K1a, qkv = LN1(x) Wqkv^T + bqkv),
+// linear_relu_fwd_bf16 (K1c, hid = relu(x2 W1^T + b1)) and
+// linear_residual_ln_fwd_bf16 (K1b, y = LN(res + (a W^T + b)), at the
+// out-projection site, K 192, and the FFN2 site, K 2048). Their float32
+// instances stay the CUDA-core kernels of fused_block.cu; the function, the
+// sites, the rounding points and the row contract are theirs (the header of
+// fused_block.cu).
 //
 // Replaces, with fused_block.cu, the TPU kernel
 // chadavit_tpu/ops/fused_block.py::_fwd_kernel (:91), whose bf16 dots run on
@@ -12,10 +13,11 @@
 //
 // What bounds them on an H100: each product has 192 on one side, so at the
 // layer's shapes K1c does about 190 operations a byte of its (M, 2048)
-// output and K1b about 190 a byte of its (M, K) input a, both under the 295
-// at which the bf16 tensor cores become the limit: both are bound by bytes,
-// K1c by the hidden it writes, K1b by the a it reads. The design is the one
-// of linear_bwd_bf16.cu's linear_dgrad (mma_bf16.cuh's helpers):
+// output, K1a about 150 a byte of its (M, 576) output and K1b about 190 a
+// byte of its (M, K) input a, all under the 295 at which the bf16 tensor
+// cores become the limit: all are bound by bytes, K1a and K1c by what they
+// write, K1b by the a it reads. The design is the one of linear_bwd_bf16.cu's
+// linear_dgrad (mma_bf16.cuh's helpers):
 //
 // - mma.sync m16n8k16 (bf16 in, f32 sums) from ldmatrix fragments of
 //   swizzled shared-memory tiles; W is in nn.Linear layout (N, K), so its
@@ -24,6 +26,18 @@
 // - A block owns 64 rows, two 32-row tiles of the contract; cp.async 16-byte
 //   copies go through a ring of three stages, so the next slice loads while
 //   the current one is multiplied.
+// - K1a owns one 192-wide third of the 576 columns (q, k or v) of its 64
+//   rows, so the grid is (M / 64, 3) and each block takes the LN1 row stats
+//   of its rows itself (the first third's blocks write them). K 192 fits the
+//   block whole: its x rows and the third's (192, 192) W tile come once, in
+//   three cp.async groups of 64 K columns (the ring's three stages, never
+//   reused); while the later groups land, one warp a row takes the f32 stats
+//   in fast-variance form with the max(0, .) clamp and overwrites the staged
+//   x with h = bf16((x - mean) rstd g + b), so h is the A operand and never
+//   reaches device memory. Warps of 32 x 48 multiply each group as it
+//   arrives, k16 steps one at a time. The epilogue rounds the sums to bf16,
+//   adds the bias, rounds, and stores 16-byte rows through the x tile, free
+//   by then.
 // - K1c keeps the block's (64, 192) x rows in shared memory and walks 512 of
 //   the 2048 columns in slices of 128, W in (128, 64) tiles through the
 //   ring. Its epilogue rounds the f32 sums to bf16, adds the bias, rounds,
@@ -63,6 +77,192 @@ __device__ __forceinline__ int live_rows(int m0, int s_pad, const int* valid_len
   const int b = m0 / s_pad, local = m0 - b * s_pad;
   const int ahead = valid_len[b] - local;
   return ahead <= 0 ? 0 : min(FW_BM, (ahead + ROW_TILE - 1) / ROW_TILE * ROW_TILE);
+}
+
+// ---- ln_linear_fwd_bf16 -------------------------------------------------------
+// Grid (M / FW_BM, 3). A block owns FW_BM rows and one LNL_BN-wide third of
+// the 576 columns; each warp a 32 x 48 tile of it. x's rows and the third's W
+// tile are staged whole, in KG groups of FW_BK K columns (x with the first).
+constexpr int LNL_BN = D_MODEL;
+
+struct LnLinear {
+  static constexpr int K = D_MODEL;
+  static constexpr int N = 3 * D_MODEL;
+  static constexpr int KG = K / FW_BK;                 // copy groups
+  static constexpr int WN = LNL_BN / 4;                // a warp's columns
+  static constexpr int NT8 = WN / 8;                   // its n8 blocks
+  static constexpr int A_ELEMS = FW_BM * K;            // x, then h, then the output rows
+  static constexpr int W_ELEMS = LNL_BN * K;           // the third's (n, k) W tile
+  static constexpr int SMEM = 2 * (A_ELEMS + W_ELEMS);
+  static constexpr int A_CHUNKS = A_ELEMS / 8 / TC_THREADS;           // 16 B of x a thread
+  static constexpr int W_CHUNKS = LNL_BN * FW_BK / 8 / TC_THREADS;    // of a group's W
+  static_assert(KG == 3 && NT8 % 2 == 0 && A_CHUNKS * 8 * TC_THREADS == A_ELEMS &&
+                    W_CHUNKS * 8 * TC_THREADS == LNL_BN * FW_BK && N % LNL_BN == 0,
+                "ln_linear tile shape");
+};
+
+__global__ void __launch_bounds__(TC_THREADS, 2)
+ln_linear_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
+                      const float* __restrict__ beta, float eps, const bf16* __restrict__ w,
+                      const bf16* __restrict__ bias, bf16* __restrict__ out,
+                      float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                      const int* __restrict__ valid_len, int s_pad) {
+  using C = LnLinear;
+  constexpr int K = C::K, N = C::N;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* As = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ws = As + C::A_ELEMS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int m0 = blockIdx.x * FW_BM, n0 = blockIdx.y * LNL_BN;
+  const bool write_stats = mean_out != nullptr && blockIdx.y == 0;
+  const int live = live_rows(m0, s_pad, valid_len);
+  if (live == 0) {  // both 32-row tiles are padding: uniform, before any barrier
+    constexpr int ROW_CHUNKS = LNL_BN / 8;
+    for (int c = tid; c < FW_BM * ROW_CHUNKS; c += TC_THREADS)
+      *reinterpret_cast<uint4*>(out + (size_t)(m0 + c / ROW_CHUNKS) * N + n0 +
+                                (c % ROW_CHUNKS) * 8) = make_uint4(0, 0, 0, 0);
+    if (write_stats && tid < FW_BM) {
+      mean_out[m0 + tid] = 0.f;
+      rstd_out[m0 + tid] = 0.f;
+    }
+    return;
+  }
+
+  // group 0: the live x rows (the rows of a padding tile give rows of sums
+  // that are never stored) and W's first FW_BK K columns; groups 1, 2: the rest
+#pragma unroll
+  for (int q = 0; q < C::A_CHUNKS; ++q) {
+    const int c = tid + q * TC_THREADS, r = c / (K / 8), cc = c % (K / 8);
+    if (r < live) cp_async_16(As + swz<K>(r, cc * 8), x + (size_t)(m0 + r) * K + cc * 8);
+  }
+#pragma unroll
+  for (int gq = 0; gq < C::KG; ++gq) {
+#pragma unroll
+    for (int q = 0; q < C::W_CHUNKS; ++q) {
+      const int c = tid + q * TC_THREADS, r = c / (FW_BK / 8);
+      const int cc = gq * (FW_BK / 8) + c % (FW_BK / 8);
+      cp_async_16(Ws + swz<K>(r, cc * 8), w + (size_t)(n0 + r) * K + cc * 8);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<C::KG - 1>();
+  __syncthreads();  // the x rows are in
+
+  // ---- LN1, one warp a row (lanes 0..23 own 8 columns each): the stats, then
+  // h = bf16((x - mean) rstd g + b) in place of x ----------------------------
+  {
+    constexpr int LANES = K / 8;
+    const int c8 = lane * 8;
+    float ga[8], ba[8];
+    if (lane < LANES) {
+      *reinterpret_cast<float4*>(ga) = __ldg(reinterpret_cast<const float4*>(gamma + c8));
+      *reinterpret_cast<float4*>(ga + 4) = __ldg(reinterpret_cast<const float4*>(gamma + c8 + 4));
+      *reinterpret_cast<float4*>(ba) = __ldg(reinterpret_cast<const float4*>(beta + c8));
+      *reinterpret_cast<float4*>(ba + 4) = __ldg(reinterpret_cast<const float4*>(beta + c8 + 4));
+    }
+    for (int row = warp; row < FW_BM; row += TC_THREADS / 32) {
+      if (row >= live) {  // a zero-filled 32-row tile: uniform across the warp
+        if (write_stats && lane == 0) {
+          mean_out[m0 + row] = 0.f;
+          rstd_out[m0 + row] = 0.f;
+        }
+        continue;
+      }
+      uint4 u = make_uint4(0, 0, 0, 0);
+      uint4* p = reinterpret_cast<uint4*>(As + swz<K>(row, c8));
+      if (lane < LANES) u = *p;
+      uint32_t* uw = reinterpret_cast<uint32_t*>(&u);
+      float v[8];
+      float s = 0.f, ss = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = unpack_bf16x2(uw[e]);
+        v[2 * e] = f.x;
+        v[2 * e + 1] = f.y;
+        s += f.x + f.y;
+        ss += f.x * f.x + f.y * f.y;
+      }
+      s = warp_sum(s);
+      ss = warp_sum(ss);
+      const float mu = s / K;
+      const float rstd = rsqrtf(fmaxf(ss / K - mu * mu, 0.f) + eps);
+      if (lane < LANES) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          uw[e] = pack_bf16x2((v[2 * e] - mu) * rstd * ga[2 * e] + ba[2 * e],
+                              (v[2 * e + 1] - mu) * rstd * ga[2 * e + 1] + ba[2 * e + 1]);
+        *p = u;
+      }
+      if (write_stats && lane == 0) {
+        mean_out[m0 + row] = mu;
+        rstd_out[m0 + row] = rstd;
+      }
+    }
+  }
+
+  float acc[2][C::NT8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < C::NT8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  auto multiply = [&](int gq) {  // the K columns of copy group gq
+    // k16 steps one at a time: the fragments of four steps of a 32 x 48 warp
+    // tile do not fit the 128 registers of two blocks an SM
+#pragma unroll 1
+    for (int kk = gq * FW_BK; kk < (gq + 1) * FW_BK; kk += 16) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) ldsm_a<K>(af[mt], As, wm * 32 + mt * 16, kk);
+#pragma unroll
+      for (int np = 0; np < C::NT8 / 2; ++np) {
+        uint32_t bf[4];
+        ldsm_b<K>(bf, Ws, kk, wn * C::WN + np * 16);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(acc[mt][2 * np], af[mt], bf[0], bf[1]);
+          mma_bf16(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
+        }
+      }
+    }
+  };
+  __syncthreads();  // h is in place (and group 0's W columns)
+  multiply(0);
+  cp_async_wait<C::KG - 2>();
+  __syncthreads();  // group 1 is in
+  multiply(1);
+  cp_async_wait<0>();
+  __syncthreads();  // group 2 is in
+  multiply(2);
+  __syncthreads();  // every warp is done with h: its tile takes the output rows
+
+  // ---- epilogue: sums -> bf16 -> + bias -> bf16, 16-byte rows via the tile ----
+  bf16* Es = As;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < C::NT8; ++nt) {
+    const int col = wn * C::WN + nt * 8 + 2 * t;
+    const float2 bb = unpack_bf16x2(__ldg(reinterpret_cast<const unsigned int*>(bias + n0 + col)));
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * 32 + mt * 16 + g + 8 * h;
+        float v0 = rnd<bf16>(rnd<bf16>(acc[mt][nt][2 * h]) + bb.x);
+        float v1 = rnd<bf16>(rnd<bf16>(acc[mt][nt][2 * h + 1]) + bb.y);
+        if (r >= live) v0 = v1 = 0.f;
+        *reinterpret_cast<uint32_t*>(Es + swz<LNL_BN>(r, col)) = pack_bf16x2(v0, v1);
+      }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < C::A_CHUNKS; ++q) {
+    const int c = tid + q * TC_THREADS, r = c / (LNL_BN / 8), cc = c % (LNL_BN / 8);
+    *reinterpret_cast<uint4*>(out + (size_t)(m0 + r) * N + n0 + cc * 8) =
+        *reinterpret_cast<const uint4*>(Es + swz<LNL_BN>(r, cc * 8));
+  }
 }
 
 // ---- linear_relu_fwd_bf16 -----------------------------------------------------
@@ -397,6 +597,27 @@ bool rows_ok_bf16(int M, int s_pad) {
 }  // namespace
 
 extern "C" {
+
+// x (M, 192), w (576, 192), bias (576,), out (M, 576), bf16; g and beta
+// (192,) f32. mean_out and rstd_out (M,) f32 get the LN1 row stats when not
+// null (both or neither); zeros on the zero-filled tiles. s_pad a multiple of
+// 64, the block's rows. The float32 instance is fused_block.cu's.
+int ln_linear_fwd_bf16(const bf16* x, const float* g, const float* beta, float eps,
+                       const bf16* w, const bf16* bias, bf16* out, float* mean_out,
+                       float* rstd_out, const int* valid_len, int M, int K, int N,
+                       int s_pad, void* stream) {
+  if (!rows_ok_bf16(M, s_pad) || K != LnLinear::K || N != LnLinear::N ||
+      (mean_out == nullptr) != (rstd_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  int e = (int)cudaFuncSetAttribute(ln_linear_bf16_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, LnLinear::SMEM);
+  if (e != 0) return e;
+  ln_linear_bf16_kernel<<<dim3(M / FW_BM, N / LNL_BN), TC_THREADS, LnLinear::SMEM,
+                          static_cast<cudaStream_t>(stream)>>>(x, g, beta, eps, w, bias, out,
+                                                               mean_out, rstd_out, valid_len,
+                                                               s_pad);
+  return (int)cudaGetLastError();
+}
 
 // x (M, 192), w (2048, 192), bias (2048,), out (M, 2048), all bf16; s_pad a
 // multiple of 64, the block's rows. The float32 instance is fused_block.cu's.

@@ -44,7 +44,7 @@ SIGNATURES = {
     "prefix_attention_bwd": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
                              _P, _I, _I, _I, _I, _I, _F, _F, _P],
     "layernorm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
-                      _P],
+                      _I, _P],
     "linear_dgrad": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
     "linear_wgrad": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _P],

@@ -24,10 +24,10 @@ launches.
 
 Weights are in torch ``nn.Linear`` layout, ``(out, in)``: the transpose of the
 JAX kernels. The GEMM kernels are ``csrc/fused_block.cu`` and
-``csrc/fused_block_bwd.cu``, with the bfloat16 instances of all but
-``ln_linear`` and ``layernorm_bwd`` on the tensor cores
-(``csrc/linear_fwd_bf16.cu``, ``csrc/linear_bwd_bf16.cu``). Each step has a
-plain version here; a CPU tensor takes it, a CUDA tensor the kernel.
+``csrc/fused_block_bwd.cu``, with the bfloat16 instances of every GEMM step
+on the tensor cores (``csrc/linear_fwd_bf16.cu``, ``csrc/linear_bwd_bf16.cu``);
+``layernorm_bwd`` stays on CUDA cores in both dtypes. Each step has a plain
+version here; a CPU tensor takes it, a CUDA tensor the kernel.
 
 Row tiles of :data:`ROW_BLOCK` (32) rows wholly past ``valid_len`` are
 skipped and written as zeros, as the TPU kernel skips its fully-invalid
@@ -72,17 +72,23 @@ SEQ_PAD = 128   # the chain pads sequences to this multiple, as the model does
 D_MODEL = 192
 D_FFN = 2048
 WGRAD_CHUNK = 1024  # the most rows one block of the float32 linear_wgrad sums
-# The bfloat16 linear_relu / linear_residual_ln / linear_dgrad / linear_wgrad
-# are tensor-core kernels (csrc/linear_fwd_bf16.cu, csrc/linear_bwd_bf16.cu)
-# that copy 16 bytes at a time. The first three own 64-row blocks, so s_pad
-# must be a multiple of 64 (the chain pads to SEQ_PAD); wgrad's grid is its
-# output tiles (the (TN, TK) of each weight shape (N, K) below, as the kernel
-# has them) times a number of splits of the rows that fills the card's 132
-# SMs once.
+# The bfloat16 ln_linear / linear_relu / linear_residual_ln / linear_dgrad /
+# linear_wgrad are tensor-core kernels (csrc/linear_fwd_bf16.cu,
+# csrc/linear_bwd_bf16.cu) that copy 16 bytes at a time. The first four own
+# 64-row blocks, so s_pad must be a multiple of 64 (the chain pads to
+# SEQ_PAD); wgrad's grid is its output tiles (the (TN, TK) of each weight
+# shape (N, K) below, as the kernel has them) times a number of splits of the
+# rows that fills the card's 132 SMs once.
 BF16_GEMM_ROWS = 64
 WGRAD_BF16_TILES = {(3 * D_MODEL, D_MODEL): (64, D_MODEL), (D_MODEL, D_MODEL): (64, D_MODEL),
                     (D_FFN, D_MODEL): (128, D_MODEL), (D_MODEL, D_FFN): (D_MODEL, 128)}
 WGRAD_BF16_BLOCKS = 132
+# layernorm_bwd (both dtypes) cuts the batch's 32-row tiles into at most this
+# many contiguous shares, one block each, whatever the batch: its partial sums
+# are (splits, 2 D) float32 (layernorm_bwd_splits), 3.1 MB at most. A few
+# blocks an SM, so the first pass keeps the card's loads in flight and its
+# second pass stays a few microseconds (scripts/bench_layernorm_bwd.py).
+LN_BWD_SPLITS = 2048
 
 
 # ---------------------------------------------------------- plain versions ----
@@ -229,10 +235,11 @@ def _library_fn(name: str, dtype: torch.dtype):
 
 
 def ln_linear(x, g, b, eps: float, w, bias, valid_len, save: bool = False):
-    """``LN(x) @ w^T + bias`` (kernel ``ln_linear_fwd`` on CUDA); with
-    ``save`` also the LN row mean and rstd. x, w and bias of one dtype
-    (float32 or bfloat16), g and b float32. Forward only: raises where
-    autograd would record the call."""
+    """``LN(x) @ w^T + bias`` (kernel ``ln_linear_fwd`` on CUDA; in
+    bfloat16 on the tensor cores, S a multiple of :data:`BF16_GEMM_ROWS` and
+    x, w, bias 16-byte aligned); with ``save`` also the LN row mean and rstd.
+    x, w and bias of one dtype (float32 or bfloat16), g and b float32.
+    Forward only: raises where autograd would record the call."""
     _launch.refuse_grad("ln_linear", x, g, b, w, bias)
     if _launch.on_cpu(x, g, b, w, bias, valid_len):
         return ln_linear_reference(x, g, b, eps, w, bias, valid_len, save)
@@ -241,13 +248,15 @@ def ln_linear(x, g, b, eps: float, w, bias, valid_len, save: bool = False):
     if g.shape != (k,) or b.shape != (k,) or bias.shape != (n,):
         raise ValueError(f"ln_linear: g {tuple(g.shape)}, b {tuple(b.shape)}, "
                          f"bias {tuple(bias.shape)}")
+    tc = _copy_align("ln_linear", dt, s)
     out = torch.empty((bsz, s, n), dtype=dt, device=x.device)
     mean, rstd = _stats_out(save, bsz, s, x)
     name, fn = _library_fn("ln_linear_fwd", dt)
     status = fn(
-        _launch.vector_operand(x, "x", dt), _launch.vector_operand(g, "g"),
-        _launch.vector_operand(b, "b"), eps, _launch.vector_operand(w, "w", dt),
-        _launch.vector_operand(bias, "bias", dt), _launch.vector_operand(out, "out", dt),
+        _launch.vector_operand(x, "x", dt, tc), _launch.vector_operand(g, "g"),
+        _launch.vector_operand(b, "b"), eps, _launch.vector_operand(w, "w", dt, tc),
+        _launch.vector_operand(bias, "bias", dt, tc),
+        _launch.vector_operand(out, "out", dt, tc),
         _ptr(mean), _ptr(rstd), _launch.valid_len_operand(valid_len, bsz, x.device),
         bsz * s, k, n, s, _launch.stream(x.device))
     _build.check(status, name)
@@ -329,12 +338,36 @@ def _row_stats(name: str, t, bsz: int, s: int) -> int:
     return _launch.vector_operand(t, name)
 
 
+def layernorm_bwd_splits(bsz: int, s_pad: int) -> int:
+    """Row splits of ``layernorm_bwd``: one block each, walking a contiguous
+    share of the batch's 32-row tiles; at most :data:`LN_BWD_SPLITS` and never
+    more than the tiles, so the partial sums ``(splits, 2 D)`` stay bounded
+    whatever the batch."""
+    return max(1, min(LN_BWD_SPLITS, bsz * s_pad // ROW_BLOCK))
+
+
+def layernorm_bwd_split_tiles(valid_len, s_pad: int, splits: int) -> list:
+    """The first rows of the 32-row tiles each split of ``layernorm_bwd``
+    sums, as its kernel assigns them: split ``i`` walks tiles ``[i * T //
+    splits, (i + 1) * T // splits)`` of the ``T = B * s_pad / 32`` in order
+    and sums those that hold a valid row (it writes dx = 0 on the others)."""
+    per = s_pad // ROW_BLOCK
+    total = len(valid_len) * per
+
+    def computed(t):
+        return t % per * ROW_BLOCK < int(valid_len[t // per])
+
+    return [[t * ROW_BLOCK for t in range(i * total // splits, (i + 1) * total // splits)
+             if computed(t)] for i in range(splits)]
+
+
 def layernorm_bwd(dy, xin, mean, rstd, g, valid_len, residual=None, dgb=None):
     """Backward of a LayerNorm site from its saved row stats (kernel
-    ``layernorm_bwd`` on CUDA): ``(dx, dgb)`` with ``dgb = [dgamma, dbeta]``
-    ``(2 D,)`` float32, summed into ``dgb`` in place when it is given (the two
-    norm1 sites). dy, xin, residual and dx of one dtype; stats and g float32.
-    See :func:`layernorm_bwd_reference`."""
+    ``layernorm_bwd`` on CUDA, its rows cut by :func:`layernorm_bwd_splits`):
+    ``(dx, dgb)`` with ``dgb = [dgamma, dbeta]`` ``(2 D,)`` float32, summed
+    into ``dgb`` in place when it is given (the two norm1 sites). dy, xin,
+    residual and dx of one dtype; stats and g float32. See
+    :func:`layernorm_bwd_reference`."""
     if _launch.on_cpu(dy, xin, mean, rstd, g, valid_len):
         return layernorm_bwd_reference(dy, xin, mean, rstd, g, valid_len, residual, dgb)
     if dy.dim() != 3 or dy.shape[2] != D_MODEL or dy.shape[1] % ROW_BLOCK:
@@ -351,8 +384,8 @@ def layernorm_bwd(dy, xin, mean, rstd, g, valid_len, residual=None, dgb=None):
         if dgb.shape != (2 * d,):
             raise ValueError(f"layernorm_bwd: dgb {tuple(dgb.shape)}")
         accumulate = 1
-    partial = torch.empty((bsz * s // ROW_BLOCK, 2 * d), dtype=torch.float32,
-                          device=dy.device)
+    splits = layernorm_bwd_splits(bsz, s)
+    partial = torch.empty((splits, 2 * d), dtype=torch.float32, device=dy.device)
     name, fn = _library_fn("layernorm_bwd", dt)
     status = fn(
         _rows("dy", dy, bsz, s, d, dt), _rows("xin", xin, bsz, s, d, dt),
@@ -360,7 +393,7 @@ def layernorm_bwd(dy, xin, mean, rstd, g, valid_len, residual=None, dgb=None):
         _launch.vector_operand(g, "g"),
         None if residual is None else _rows("residual", residual, bsz, s, d, dt),
         dx.data_ptr(), partial.data_ptr(), _launch.vector_operand(dgb, "dgb"), accumulate,
-        _launch.valid_len_operand(valid_len, bsz, dy.device), bsz * s, d, s,
+        _launch.valid_len_operand(valid_len, bsz, dy.device), bsz * s, d, s, splits,
         _launch.stream(dy.device))
     _build.check(status, name)
     _launch.counted(name)

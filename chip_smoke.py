@@ -17,9 +17,10 @@ Phases, each printed with its elapsed seconds at its start and end:
    power limit from nvidia-smi.
 1. build: nvcc compiles csrc/*.cu (layernorm.cu among them), one process per
    source, into one library (cold build seconds); beside it, nvcc -Xptxas -v
-   on csrc/linear_fwd_bf16.cu, csrc/linear_bwd_bf16.cu and
-   csrc/prefix_attention_bf16.cu prints the registers, shared memory and
-   spills of the tensor-core kernels, none of which may spill.
+   on csrc/linear_fwd_bf16.cu, csrc/linear_bwd_bf16.cu,
+   csrc/prefix_attention_bf16.cu and csrc/fused_block_bwd.cu prints the
+   registers, shared memory and spills of the tensor-core kernels and of
+   layernorm_bwd's two passes, none of which may spill.
 2. each kernel instance against its plain PyTorch version at hub shapes (B 8,
    S_pad 2048, D 192, F 2048, 2 heads, 1..10 channels), float32 on the
    inputs of seed 0, then bfloat16 on those of each of BF16_SEEDS (the worst
@@ -27,10 +28,11 @@ Phases, each printed with its elapsed seconds at its start and end:
    kernels, their save outputs (LN stats, pre-LN sum,
    lse), then every backward kernel on the inputs the layer's backward gives
    it (linear_dgrad and linear_wgrad twice, for the same bits); in bfloat16
-   the tensor-core linear_relu and linear_residual_ln (K1c, K1b) once more,
-   each K1b site with and without its save outputs, every call twice for the
-   same bits and with zeros on the tiles past valid_len; the whole
-   layer forward; the layer's backward through
+   the tensor-core ln_linear, linear_relu and linear_residual_ln (K1a, K1c,
+   K1b) once more, K1a and each K1b site with and without its save outputs,
+   every call twice for the same bits and with zeros on the tiles past
+   valid_len (and how many qkv entries and hid ReLU masks differ from the
+   plain versions); the whole layer forward; the layer's backward through
    FusedEncoderBlock against the plain backward chain on the Function's own
    residuals (in bfloat16 with the kernel's recompute of the FFN hidden, as
    the Function's: backward_reference; and, in float32, against
@@ -66,7 +68,7 @@ Phases, each printed with its elapsed seconds at its start and end:
    through the plain chains (FusedEncoderBlock with the plain steps, forward
    and backward) in the same way, and the first layer's backward at these 64
    sequences holds to the bounds of phase 2; the partial-sum scratch of
-   linear_wgrad_bf16 at this batch.
+   linear_wgrad_bf16 and layernorm_bwd at this batch.
 4c. the pretrain entry point: main_pretrain.main (the command line) and
    run_dino_pretrain on the canonical YAML
    (scripts/pretrain/dino_chada_vit_moyen.yaml: batch 32, bf16, depth 12)
@@ -88,10 +90,11 @@ Phases, each printed with its elapsed seconds at its start and end:
    by site), its plain version, one PyTorch call for the same function (a
    yardstick the port never calls), its bound (ln_fwd and ln_bwd at the
    final norm's site); the device time by the profiler of ln_fwd, ln_bwd,
-   linear_relu, linear_residual_ln (also site by site), linear_dgrad and
-   linear_wgrad, whose small calls CUDA events time by the host's launch
-   rate, and of the attention forward and backward (K3, K4), kernel by
-   kernel; K3 and K4 run twice for the same bits; the whole layer forward
+   ln_linear, linear_relu, linear_residual_ln (also site by site),
+   layernorm_bwd, linear_dgrad and linear_wgrad, whose small calls CUDA
+   events time by the host's launch rate, and of the attention forward and
+   backward (K3, K4), kernel by kernel (so each pass of layernorm_bwd and
+   linear_wgrad on its own); K3 and K4 run twice for the same bits; the whole layer forward
    and backward; the served batch and the train step, in both dtypes.
 6. one JSON line with every kernel instance, then the last line
    {"ok": true, "device": {...}}. A failed phase prints no last line and
@@ -580,7 +583,7 @@ def main() -> int:
                  for tag, dt in (("", torch.float32), ("_bf16", bf16))
                  for name, (wrapper, src, replaces) in kernels.items()}
     attn_tc_cu = "chadavit_tpu_torch/csrc/prefix_attention_bf16.cu"
-    for name, src in (("linear_relu_fwd_bf16", fwd_tc_cu),
+    for name, src in (("ln_linear_fwd_bf16", fwd_tc_cu), ("linear_relu_fwd_bf16", fwd_tc_cu),
                       ("linear_residual_ln_fwd_bf16", fwd_tc_cu),
                       ("linear_dgrad_bf16", tc_cu), ("linear_wgrad_bf16", tc_cu),
                       ("prefix_attention_fwd_bf16", attn_tc_cu),
@@ -599,23 +602,30 @@ def main() -> int:
     with Phase("1 build", failures) as ph:
         cold = not (_build.BUILD_DIR / _build.source_hash()).exists()
         t = time.perf_counter()
-        tc_sources = (fwd_tc_cu, tc_cu, attn_tc_cu)
+        # every kernel of the tensor-core sources, and layernorm_bwd's two
+        # passes (K2a) of fused_block_bwd.cu
+        ptxas_sources = {fwd_tc_cu: (), tc_cu: (), attn_tc_cu: (),
+                         fbb_cu: ("layernorm_bwd", "reduce_ln_splits")}
         ptxas = [_build.ptxas_report(Path(src).name)  # beside the build
-                 for src in tc_sources]
+                 for src in ptxas_sources]
         _build.library()
         ph.check(True, f"{'cold' if cold else 'warm'} build of {len(_build.sources())} "
                        f"sources: {time.perf_counter() - t:.2f} s")
-        # registers, shared memory and spills of the tensor-core kernels
-        for src, proc in zip(tc_sources, ptxas):
+        # registers, shared memory and spills of those kernels
+        for (src, only), proc in zip(ptxas_sources.items(), ptxas):
             report = _build.ptxas_lines(proc)
             names = demangle([k["name"] for k in report])
+            if only:
+                kept = [i for i, n in enumerate(names) if any(o + "_kernel" in n for o in only)]
+                report, names = [report[i] for i in kept], [names[i] for i in kept]
             for k, short in zip(report, names):
                 log(f"  ptxas {short}: {k.get('registers')} registers, {k.get('smem')} bytes "
                     f"static smem, spill stores {k.get('spill_stores')} B, spill loads "
                     f"{k.get('spill_loads')} B")
             ph.check(len(report) > 0 and all(k.get("spill_stores") == 0 == k.get("spill_loads")
                                              for k in report),
-                     f"{Path(src).name}: {len(report)} kernels, none spills")
+                     f"{Path(src).name}: {len(report)} kernels"
+                     f"{' (' + ', '.join(only) + ')' if only else ''}, none spills")
 
     # ---- 2. kernels against their plain versions at hub shapes --------------
     valid_len = [1 + N_PATCHES * c for c in COUNTS]
@@ -722,10 +732,19 @@ def main() -> int:
                 if f32:
                     note(name, worst[0], KERNEL_TOL, f" (max rel {worst[1]:.3e})")
             if not f32:
-                # the tensor-core K1c and K1b (csrc/linear_fwd_bf16.cu): each K1b
-                # site also with its save outputs (out, LN stats, r), every call
-                # twice for the same bits, and zeros on the zero-filled tiles
-                tc_cases = [("linear_relu_fwd_bf16", "", False,
+                # the tensor-core K1a, K1c and K1b (csrc/linear_fwd_bf16.cu): K1a
+                # and each K1b site also with its save outputs (out, LN stats,
+                # and r), every call twice for the same bits, and zeros on the
+                # zero-filled tiles
+                tc_cases = [("ln_linear_fwd_bf16", "", False,
+                             lambda: fused_block.ln_linear(xd, g1, b1, EPS1, wqkv, bqkv, vl),
+                             lambda: qkv),
+                            ("ln_linear_fwd_bf16", " save", True,
+                             lambda: fused_block.ln_linear(xd, g1, b1, EPS1, wqkv, bqkv, vl,
+                                                           save=True),
+                             lambda: fused_block.ln_linear_reference(xd, g1, b1, EPS1, wqkv,
+                                                                     bqkv, save=True)),
+                            ("linear_relu_fwd_bf16", "", False,
                              lambda: fused_block.linear_relu(x2, w1, b1f, vl), lambda: hid)]
                 for site, args, eps in ((" out projection", (attn, wout, bout, xd, g1, b1),
                                          EPS1),
@@ -752,7 +771,8 @@ def main() -> int:
                         note_bf16(name, first[0], refs[0], what + " out")
                         note_bf16(name, torch.stack(first[1:3], -1),
                                   torch.stack(refs[1:3], -1), what + " mean, rstd")
-                        note_bf16(name, first[3], refs[3], what + " r")
+                        if len(first) > 3:
+                            note_bf16(name, first[3], refs[3], what + " r")
                     else:
                         note_bf16(name, first, refs, what + ", run twice")
                 del tc_cases
@@ -764,7 +784,12 @@ def main() -> int:
                 fused_block.KERNEL_STEPS, xd, vl, tuple(w), H, EPS1, EPS2, save=True)
             torch.cuda.synchronize()
             inp.update(ra=ra, rx2=rx2, rr2=rr2, rlse=rlse, rst=rst)
-            if not f32:  # ReLU masks of the kernel's and the plain hid on the layer's x2
+            if not f32:  # qkv and ReLU masks of the kernels against the plain versions
+                qk = fused_block.ln_linear(xd, g1, b1, EPS1, wqkv, bqkv, vl)
+                differ = sum(int((qk[i, :n] != qkv[i, :n]).sum()) for i, n in enumerate(layer_rows))
+                log(f"  ln_linear_fwd_bf16: {differ} entries of qkv differ from the plain version, "
+                    f"in {sum(layer_rows) * 3 * D} entries")
+                del qk
                 hk = fused_block.linear_relu(kx2, w1, b1f, vl)
                 hp = fused_block.linear_relu_reference(kx2, w1, b1f)
                 flips = sum(int(((hk[i, :n] > 0) != (hp[i, :n] > 0)).sum())
@@ -1291,6 +1316,10 @@ def main() -> int:
                            f"(chunk plan {chunks * (n * k + n) * 4 / 1e6:.1f} MB)")
         log(f"  linear_wgrad_bf16 partial scratch per weight shape (N, K) at {seqs} sequences "
             f"of {s_max} rows: " + ", ".join(scratch))
+        splits = fused_block.layernorm_bwd_splits(seqs, s_max)
+        log(f"  layernorm_bwd partial scratch at {seqs} sequences of {s_max} rows: {splits} splits "
+            f"{splits * 2 * D * 4 / 1e6:.2f} MB (one partial per 32-row tile: "
+            f"{seqs * s_max // fused_block.ROW_BLOCK * 2 * D * 4 / 1e6:.2f} MB)")
 
         # step 1 again, the same state, through the plain chains
         pstate, pstep, _, _ = build_dino(spec_b, backbone_apply=plain_chain_backbone)
@@ -1651,11 +1680,12 @@ def main() -> int:
             log(f"  ln_fwd{tag} / ln_bwd{tag} device time per call (profiler, {reps} calls): "
                 f"{ln_dev['ln_fwd']:.4f} / {ln_dev['ln_bwd']:.4f} ms, bound "
                 f"{stats['ln_fwd' + tag]['bound_ms']:.4f} / {stats['ln_bwd' + tag]['bound_ms']:.4f} ms")
-            # the GEMM steps (K1b, K1c, K2b, K2c) and the attention (K3, K4)
-            # by the profiler too: at the small sites CUDA events read the
-            # wrapper's launch rate; every kernel of the call (wgrad's second
-            # pass, the attention backward's three launches), the layer's
-            # sites summed, each kernel also on its own; K1b also site by site
+            # the GEMM steps (K1a, K1b, K1c, K2b, K2c), layernorm_bwd (K2a)
+            # and the attention (K3, K4) by the profiler too: at the small
+            # sites CUDA events read the wrapper's launch rate; every kernel of
+            # the call (K2a's and wgrad's second pass, the attention backward's
+            # three launches), the layer's sites summed, each kernel also on
+            # its own; K1b also site by site
             def device_ms(fns):
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     for _ in range(reps):
@@ -1666,8 +1696,9 @@ def main() -> int:
                         for e in prof.key_averages()
                         if e.device_type == torch.autograd.DeviceType.CUDA}
 
-            for name in ("linear_relu_fwd", "linear_residual_ln_fwd", "linear_dgrad",
-                         "linear_wgrad", "prefix_attention_fwd", "prefix_attention_bwd"):
+            for name in ("ln_linear_fwd", "linear_relu_fwd", "linear_residual_ln_fwd",
+                         "layernorm_bwd", "linear_dgrad", "linear_wgrad", "prefix_attention_fwd",
+                         "prefix_attention_bwd"):
                 per_kernel = device_ms([kernel_fn for kernel_fn, *_ in runs[name]])
                 dev_ms = sum(per_kernel.values())
                 log(f"  {name + tag} device time per layer (profiler, {reps} x {len(runs[name])} "
@@ -1782,9 +1813,14 @@ def main() -> int:
             log(f"  profiled train step{tag}: wall {wall * 1e3:.2f} ms, device busy "
                 f"{busy:.2f} ms ({100 * busy / (wall * 1e3):.1f} %), {len(events)} kernel "
                 f"names; by device time:")
-            for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
-                ms = e.self_device_time_total / 1e3
-                log(f"    {ms:9.3f} ms {100 * ms / busy:5.1f} % x{e.count:<5d} {e.key[:90]}")
+            ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+            # the top kernels, and K1a's and K2a's (both passes) wherever they rank
+            for rank, e in enumerate(ranked):
+                if rank < top or any(k in e.key for k in ("ln_linear", "layernorm_bwd",
+                                                          "reduce_ln_splits")):
+                    ms = e.self_device_time_total / 1e3
+                    log(f"    {ms:9.3f} ms {100 * ms / busy:5.1f} % x{e.count:<5d} "
+                        f"#{rank + 1:<3d} {e.key[:90]}")
         _launch.LAUNCHES.clear()
         _launch.LAUNCHES.update(saved)
         ph.check(all(math.isfinite(stats[n]["ms"]) for n in instances),

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Times the bf16 tensor-core ``linear_relu_fwd`` (K1c) and
-``linear_residual_ln_fwd`` (K1b, at the out projection, K 192, and at FFN2,
-K 2048) of ``chadavit_tpu_torch/csrc/linear_fwd_bf16.cu`` site by site on one
-NVIDIA GPU, as built and in two diagnostic builds of the same source:
+"""Times the bf16 tensor-core ``ln_linear_fwd`` (K1a, LN1 + QKV),
+``linear_relu_fwd`` (K1c) and ``linear_residual_ln_fwd`` (K1b, at the out
+projection, K 192, and at FFN2, K 2048) of
+``chadavit_tpu_torch/csrc/linear_fwd_bf16.cu`` site by site on one NVIDIA GPU,
+as built and in two diagnostic builds of the same source:
 
 - ``no_copy``: the ``cp.async`` copies do nothing, so the kernels multiply
   whatever shared memory holds: the time left is the tensor-core loop, the
@@ -24,8 +25,8 @@ counts of chip_smoke.py's bf16 train batch) padded to 2048 rows; ``hub``:
 chip_smoke.py's hub shapes (8 images, 2048 rows). Times are CUDA events over
 20 calls after 3 of warm-up and the profiler's device time per call over the
 same 20, each call one launch of the C entry point, without the Python
-wrapper. The K1b sites run without and with the save outputs (LN stats and
-r, as the train step's student forward writes them). Each site's bound is
+wrapper. K1a and the K1b sites run without and with the save outputs (LN
+stats, and r at K1b, as the train step's student forward writes them). Each site's bound is
 the larger of its operations over 989 TFLOP/s and its bytes over 3.35 TB/s
 (inputs on the rows < valid_len read once, the whole output written once),
 as chip_smoke.py counts them. Prints one line per build, then what holds each
@@ -48,7 +49,7 @@ TRAIN_CHANNELS = [2, 5, 10, 8, 2, 10, 8, 7, 1, 5, 1, 6, 6, 10, 9, 6, 7, 10, 2, 2
 HUB_CHANNELS = [1, 3, 5, 10, 2, 7, 9, 10]
 S_PAD = 2048
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
-ENTRIES = ("linear_relu_fwd_bf16", "linear_residual_ln_fwd_bf16")
+ENTRIES = ("linear_relu_fwd_bf16", "linear_residual_ln_fwd_bf16", "ln_linear_fwd_bf16")
 
 
 def _no_copy(header: str) -> str:
@@ -119,6 +120,8 @@ def main() -> int:
 
     x, hid, res = bf(m, d), bf(m, f), bf(m, d)
     w1, b1 = bf(f, d, scale=d ** -0.5), bf(f, scale=0.1)
+    wqkv, bqkv = bf(3 * d, d, scale=d ** -0.5), bf(3 * d, scale=0.1)
+    out_qkv = torch.empty(m, 3 * d, dtype=torch.bfloat16, device=dev)
     wk = {d: bf(d, d, scale=d ** -0.5), f: bf(d, f, scale=f ** -0.5)}
     bk = bf(d, scale=0.1)
     g, beta = torch.ones(d, device=dev), torch.zeros(d, device=dev)
@@ -128,10 +131,19 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
 
     # (site, entry, its arguments but the library, operations, bytes)
-    sites = [("K1c relu 192->2048", ENTRIES[0],
-              (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), out_relu.data_ptr(), vl.data_ptr(),
-               m, d, f, S_PAD, stream),
-              2 * rows * d * f, 2 * (rows * d + f * d + f + m * f))]
+    sites = []
+    for save in (False, True):
+        stats = (mean.data_ptr(), rstd.data_ptr()) if save else (None, None)
+        sites.append((
+            f"K1a LN1+QKV 192->576{' save' if save else ''}", ENTRIES[2],
+            (x.data_ptr(), g.data_ptr(), beta.data_ptr(), 1e-5, wqkv.data_ptr(), bqkv.data_ptr(),
+             out_qkv.data_ptr(), *stats, vl.data_ptr(), m, d, 3 * d, S_PAD, stream),
+            2 * rows * d * 3 * d,
+            2 * (rows * d + 3 * d * d + 3 * d + m * 3 * d) + 4 * 2 * d + save * 4 * 2 * m))
+    sites.append(("K1c relu 192->2048", ENTRIES[0],
+                  (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), out_relu.data_ptr(),
+                   vl.data_ptr(), m, d, f, S_PAD, stream),
+                  2 * rows * d * f, 2 * (rows * d + f * d + f + m * f)))
     for k, a in ((d, x), (f, hid)):
         for save in (False, True):
             saved = (mean.data_ptr(), rstd.data_ptr(), r.data_ptr()) if save else (None,) * 3

@@ -382,6 +382,47 @@ def test_wgrad_passes_its_row_plan_to_the_kernel(fake_cuda, n, k, dtype):
     assert args[-2] == plan and args[-6:-2] == (bsz * s, n, k, s)
 
 
+# ---- the split plan of layernorm_bwd (both dtypes) ----------------------------
+@pytest.mark.parametrize("s_pad, valid_len, splits", [
+    (2048, [197, 589, 981, 1961, 393, 1373, 1765, 1961], 512),  # hub shapes: a tile a split
+    (2048, [197, 589, 981, 1961, 393, 1373, 1765, 1961], 44),
+    (384, [1, 0, 33, 127, 129, 383, 200, 65], 14),  # ragged, a padded image
+    (128, [0, 0, 0], 5),  # nothing to sum: every split empty
+    (2048, [1 + 196 * c for c in np.random.default_rng(64).integers(1, 11, 64)], 2048),
+])
+def test_layernorm_bwd_split_plan_covers_every_computed_tile_once_in_order(s_pad, valid_len,
+                                                                          splits):
+    plan = fused_block.layernorm_bwd_split_tiles(valid_len, s_pad, splits)
+    assert len(plan) == splits
+    assert [r for share in plan for r in share] == _computed_tiles(valid_len, s_pad)
+    # each split walks a contiguous share of all the tiles, near-equal in size
+    tiles = len(valid_len) * s_pad // fused_block.ROW_BLOCK
+    walked = [(i + 1) * tiles // splits - i * tiles // splits for i in range(splits)]
+    assert sum(walked) == tiles and max(walked) - min(walked) <= 1
+    assert all(len(share) <= n for share, n in zip(plan, walked))
+
+
+def test_layernorm_bwd_splits_stay_bounded_as_the_batch_grows():
+    splits = [fused_block.layernorm_bwd_splits(bsz, 2048) for bsz in (64, 256, 1024, 4096)]
+    assert splits == [fused_block.LN_BWD_SPLITS] * 4  # the scratch does not grow
+    assert fused_block.layernorm_bwd_splits(1, 64) == 2  # no more splits than 32-row tiles
+    assert fused_block.layernorm_bwd_splits(8, 2048) == 8 * 2048 // fused_block.ROW_BLOCK
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bsz, s", [(3, 640), (64, 2048)])
+def test_layernorm_bwd_passes_its_split_plan_to_the_kernel(fake_cuda, dtype, bsz, s):
+    d = fused_block.D_MODEL
+    vl = torch.full((bsz,), 3, dtype=torch.int32)
+    z = torch.zeros(bsz, s, d, dtype=dtype)
+    stats = torch.zeros(bsz, s)
+    dx, dgb = fused_block.layernorm_bwd(z, z, stats, stats, torch.ones(d), vl)
+    (name,), (args,) = fake_cuda.calls, fake_cuda.args
+    assert name == _launch.entry_point("layernorm_bwd", dtype)
+    assert args[-5:-1] == (bsz * s, d, s, fused_block.layernorm_bwd_splits(bsz, s))
+    assert dx.shape == z.shape and dx.dtype == dtype and dgb.shape == (2 * d,)
+
+
 def test_bf16_dgrad_refuses_rows_off_its_block(cuda_route):
     d = fused_block.D_MODEL
     vl = torch.tensor([3], dtype=torch.int32)

@@ -638,3 +638,86 @@ def test_bf16_tensor_core_forward_gemms(dev, batch, site, save):
         _assert_bf16_close(o, r, rows)
         for i, n in enumerate(rows):  # the zero-filled tiles get exact zeros
             assert not o[i, n:].any().item()
+
+
+# ---- the bf16 ln_linear (tensor cores, K1a) ---------------------------------------
+# csrc/linear_fwd_bf16.cu's LN1 + QKV against the plain bf16 version (the
+# bounds above) on three seeds, with and without the saved LN1 stats, at every
+# kind of prefix (an image of one valid row and one of 31, a 64-row block
+# whose second 32-row tile is padding), at the hub's shapes and at the train
+# batch's 64 sequences. The 32-row tiles past the prefix are zeros in qkv and
+# in the stats; a second call repeats the bits.
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("save", [False, True])
+@pytest.mark.parametrize("batch", list(FWD_BATCHES))
+def test_bf16_tensor_core_ln_linear(dev, batch, save, seed):
+    s, valid = FWD_BATCHES[batch]
+    rng = np.random.default_rng(100 + seed)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    x = _randn(rng, dev, len(valid), s, D).bfloat16()
+    w = _randn(rng, dev, 3 * D, D, scale=D ** -0.5).bfloat16()
+    b = _randn(rng, dev, 3 * D, scale=0.1).bfloat16()
+    g, beta = 1 + _randn(rng, dev, D, scale=0.1), _randn(rng, dev, D, scale=0.05)
+    before = _launch.LAUNCHES["ln_linear_fwd_bf16"]
+    with torch.no_grad():
+        out = fused_block.ln_linear(x, g, beta, 1e-5, w, b, vl, save=save)
+        again = fused_block.ln_linear(x, g, beta, 1e-5, w, b, vl, save=save)
+    assert _launch.LAUNCHES["ln_linear_fwd_bf16"] == before + 2
+    ref = fused_block.ln_linear_reference(x, g, beta, 1e-5, w, b, save=save)
+    outs, agains, refs = (out, again, ref) if save else ((out,), (again,), (ref,))
+    for o, ag in zip(outs, agains):
+        assert torch.equal(o, ag), "a second call gives other bits"
+    dtypes = [torch.bfloat16]
+    if save:  # qkv, then the LN1 stats (mean, rstd) as one f32 tensor
+        outs, refs = (outs[0], torch.stack(outs[1:], -1)), (refs[0], torch.stack(refs[1:], -1))
+        dtypes.append(torch.float32)
+    rows = [min(-(-n // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK, s) for n in valid]
+    for o, r, dt in zip(outs, refs, dtypes):
+        assert o.dtype == dt
+        _assert_bf16_close(o, r, rows)
+        for i, n in enumerate(rows):  # the zero-filled tiles get exact zeros
+            assert not o[i, n:].any().item()
+
+
+# ---- layernorm_bwd (K2a) at the train batch: 64 sequences of 2048 rows ---------------
+# 4096 32-row tiles cut into fused_block.layernorm_bwd_splits shares: dx and
+# dgamma/dbeta against the plain version (float32: the tolerance above; bf16:
+# the bounds above), with the site-1 residual and dgb summed into (accumulate
+# 1) and without (accumulate 0); the zero-filled tiles get dx = 0 and dgb
+# repeats its bits.
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layernorm_bwd_at_the_train_batch(dev, dtype, accumulate):
+    from chadavit_tpu_torch.ops.layernorm import layernorm_stats
+
+    s, valid = 2048, _TRAIN
+    rng = np.random.default_rng(7 + accumulate)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    xin = (_randn(rng, dev, len(valid), s, D) * 2 + 0.5).to(dtype)
+    dy = _tail_cotangent(_randn(rng, dev, len(valid), s, D), valid,
+                         fused_block.ROW_BLOCK).to(dtype)
+    res = _randn(rng, dev, len(valid), s, D).to(dtype) if accumulate else None
+    g = 1 + _randn(rng, dev, D, scale=0.1)
+    mean, rstd = (t[..., 0] for t in layernorm_stats(xin, 1e-5))
+    dgb0 = _randn(rng, dev, 2 * D) if accumulate else None
+    entry = _launch.entry_point("layernorm_bwd", dtype)
+    before = _launch.LAUNCHES[entry]
+    runs = [fused_block.layernorm_bwd(dy, xin, mean, rstd, g, vl, residual=res,
+                                      dgb=None if dgb0 is None else dgb0.clone())
+            for _ in range(2)]
+    assert _launch.LAUNCHES[entry] == before + 2
+    assert fused_block.layernorm_bwd_splits(len(valid), s) == fused_block.LN_BWD_SPLITS
+    (dx, dgb), (dx2, dgb2) = runs
+    assert torch.equal(dx, dx2) and torch.equal(dgb, dgb2), "a second call gives other bits"
+    rdx, rdgb = fused_block.layernorm_bwd_reference(
+        dy, xin, mean, rstd, g, vl, residual=res, dgb=None if dgb0 is None else dgb0.clone())
+    rows = [-(-n // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK for n in valid]
+    assert dx.dtype == dtype and dgb.dtype == torch.float32
+    if dtype == torch.float32:
+        _assert_grad_close(dx, rdx, rows)
+        _assert_grad_close(dgb, rdgb, rows)
+    else:
+        _assert_bf16_close(dx, rdx, rows)
+        _assert_bf16_close(dgb, rdgb)
+        for i, n in enumerate(rows):
+            assert not dx[i, n:].any().item()

@@ -1,6 +1,7 @@
 """The CUDA route of the bfloat16 forward GEMM steps whose kernels run on the
-tensor cores (``csrc/linear_fwd_bf16.cu``: ``linear_relu_fwd_bf16``, K1c, and
-``linear_residual_ln_fwd_bf16``, K1b), with the launch stubbed: the wrappers
+tensor cores (``csrc/linear_fwd_bf16.cu``: ``ln_linear_fwd_bf16``, K1a,
+``linear_relu_fwd_bf16``, K1c, and ``linear_residual_ln_fwd_bf16``, K1b), with
+the launch stubbed: the wrappers
 check every operand before the launch and raise on one the kernels' 16-byte
 copies cannot take (an operand 8 bytes past a 16-byte boundary, a strided
 view, S off the 64-row blocks), and they pass the layer chain's own tensors
@@ -32,12 +33,18 @@ def _misaligned(*shape):
 
 
 def _strided(*shape):
-    """A bf16 view with every row twice as far apart as its width."""
+    """A bf16 view with every row twice as far apart as its width (a vector:
+    every element twice as far apart as its size)."""
+    if len(shape) == 1:
+        return torch.zeros(2 * shape[0], dtype=BF16)[::2]
     return torch.zeros(*shape[:-1], 2 * shape[-1], dtype=BF16)[..., :shape[-1]]
 
 
 def _operands(step, k=D, s=128):
     """The operands of one call of ``step`` by name, bf16, B 2."""
+    if step == "ln_linear":
+        return {"x": _z(2, s, D), "w": _z(3 * D, D), "bias": _z(3 * D),
+                "g": _z(D, dtype=torch.float32), "b": _z(D, dtype=torch.float32)}
     if step == "linear_relu":
         return {"x": _z(2, s, D), "w": _z(F, D), "bias": _z(F)}
     return {"a": _z(2, s, k), "w": _z(D, k), "bias": _z(D), "residual": _z(2, s, D),
@@ -46,6 +53,9 @@ def _operands(step, k=D, s=128):
 
 def _call(step, ops, save=False):
     with torch.no_grad():
+        if step == "ln_linear":
+            return fused_block.ln_linear(ops["x"], ops["g"], ops["b"], 1e-5, ops["w"],
+                                         ops["bias"], VL, save=save)
         if step == "linear_relu":
             return fused_block.linear_relu(ops["x"], ops["w"], ops["bias"], VL)
         return fused_block.linear_residual_ln(ops["a"], ops["w"], ops["bias"], ops["residual"],
@@ -53,7 +63,8 @@ def _call(step, ops, save=False):
 
 
 # (step, K, the operand the kernel copies 16 bytes at a time)
-COPIED = [("linear_relu", D, "x"), ("linear_relu", D, "w"),
+COPIED = [("ln_linear", D, "x"), ("ln_linear", D, "w"), ("ln_linear", D, "bias"),
+          ("linear_relu", D, "x"), ("linear_relu", D, "w"),
           ("linear_residual_ln", D, "a"), ("linear_residual_ln", D, "w"),
           ("linear_residual_ln", D, "residual"), ("linear_residual_ln", F, "a"),
           ("linear_residual_ln", F, "w"), ("linear_residual_ln", F, "residual")]
@@ -77,8 +88,8 @@ def test_bf16_refuses_a_strided_operand(fake_cuda, step, k, name):
     assert fake_cuda.calls == []
 
 
-@pytest.mark.parametrize("step, k", [("linear_relu", D), ("linear_residual_ln", D),
-                                     ("linear_residual_ln", F)])
+@pytest.mark.parametrize("step, k", [("ln_linear", D), ("linear_relu", D),
+                                     ("linear_residual_ln", D), ("linear_residual_ln", F)])
 def test_bf16_refuses_rows_off_its_64_row_blocks(fake_cuda, step, k):
     with pytest.raises(ValueError, match="multiple of 64"):
         _call(step, _operands(step, k, s=96))
@@ -88,7 +99,8 @@ def test_bf16_refuses_rows_off_its_64_row_blocks(fake_cuda, step, k):
     assert fake_cuda.calls == [step + "_fwd"]
 
 
-@pytest.mark.parametrize("step, k, save", [("linear_relu", D, False),
+@pytest.mark.parametrize("step, k, save", [("ln_linear", D, False), ("ln_linear", D, True),
+                                           ("linear_relu", D, False),
                                            ("linear_residual_ln", D, False),
                                            ("linear_residual_ln", D, True),
                                            ("linear_residual_ln", F, False),
@@ -100,6 +112,13 @@ def test_bf16_hands_its_operands_over_as_they_are(fake_cuda, step, k, save):
     assert name == step + "_fwd_bf16"
     outs = out if isinstance(out, tuple) else (out,)
     assert all(o.is_contiguous() and o.data_ptr() % 16 == 0 for o in outs)
+    if step == "ln_linear":
+        assert args[:7] == (ops["x"].data_ptr(), ops["g"].data_ptr(), ops["b"].data_ptr(), 1e-5,
+                            ops["w"].data_ptr(), ops["bias"].data_ptr(), outs[0].data_ptr())
+        assert args[7:9] == ((outs[1].data_ptr(), outs[2].data_ptr()) if save else (None, None))
+        assert outs[0].dtype == BF16 and all(t.dtype == torch.float32 for t in outs[1:])
+        assert args[10:14] == (2 * 128, D, 3 * D, 128)
+        return
     if step == "linear_relu":
         assert args[:4] == (ops["x"].data_ptr(), ops["w"].data_ptr(), ops["bias"].data_ptr(),
                             out.data_ptr())
