@@ -14,13 +14,14 @@
 //
 // What bounds them on an H100: at B*S_pad = 16384 rows the FFN GEMMs do 12.9
 // GFLOP each against ~0.14 GB of traffic, so all three are bound by operations
-// (67 TFLOP/s of f32 FMA outside the tensor cores). This first version is the
-// simple shape of an f32 GEMM: a block owns BM = 32 rows and BN output columns,
-// walks K in BK = 32 slices staged through shared memory, and each of its 256
-// threads keeps a 2 x BN/16 tile of sums in registers. D = 192 fits one block's
-// columns, so the LayerNorm epilogue of linear_residual_ln_fwd stays in the
-// block, and the LayerNorm prologue of ln_linear_fwd is applied as the A tile is
-// staged. Tensor cores (wgmma) and TMA are later work.
+// (67 TFLOP/s of f32 FMA outside the tensor cores). ln_linear_fwd and
+// linear_relu_fwd are the simple shape of an f32 GEMM: a block owns BM = 32
+// rows and BN output columns, walks K in BK = 32 slices staged through shared
+// memory, and each of its 256 threads keeps a 2 x BN/16 tile of sums in
+// registers; the LayerNorm prologue of ln_linear_fwd is applied as the A tile
+// is staged. linear_residual_ln_fwd is redesigned for Hopper on the shared
+// main loop of sgemm_f32.cuh (its note below). D = 192 fits one block's
+// columns, so its LayerNorm epilogue stays in the block.
 //
 // The three kernels here are float32 only. The bf16 path the JAX package
 // trains in (precision "bf16": bf16 activations, f32 parameters cast to bf16
@@ -48,6 +49,9 @@
 // cudaGetLastError() so that the Python wrapper can raise on a refused launch.
 
 #include "gemm_common.cuh"
+#include "sgemm_f32.cuh"
+
+#include <cooperative_groups.h>
 
 namespace {
 
@@ -120,69 +124,198 @@ linear_relu_kernel(const float* __restrict__ x, const float* __restrict__ w,
     }
 }
 
-// ---- linear_residual_ln_fwd: out = LN(res + (a @ W^T + bias)), grid (M / BM)
-// The block owns all N = BN output columns, so the LayerNorm is local.
-// float32 only (the bf16 instance is linear_fwd_bf16.cu's)
-template <int BN>
-__global__ void __launch_bounds__(NT)
-linear_residual_ln_kernel(const float* __restrict__ a,
-                          const float* __restrict__ w,
-                          const float* __restrict__ bias,
-                          const float* __restrict__ res,
-                          const float* __restrict__ g,
-                          const float* __restrict__ beta, float eps,
-                          float* __restrict__ out, float* __restrict__ mean_out,
+// ---- linear_residual_ln_fwd: out = LN(res + (a @ W^T + bias)) --------------
+// float32 only (the bf16 instance is linear_fwd_bf16.cu's). Redesigned for
+// Hopper's CUDA cores on the shared main loop of sgemm_f32.cuh.
+//
+// Replaces the out-projection and FFN2 steps of the TPU kernel
+// chadavit_tpu/ops/fused_block.py::_fwd_kernel (:91), lines :162-186: the
+// product, its bias, the residual add and the f32 LayerNorm with its
+// fast-variance stats (_stats, :68-72).
+//
+// What bounds it: operations. At hub shapes the FFN2 site (K 2048) does
+// 7.4 GFLOP on the rows it must compute and the out-projection (K 192) 0.7,
+// against 15-30 MB of device memory, so 67 TFLOP/s of f32 FMA is the limit.
+// The design keeps the FMA units fed and the SMs evenly loaded:
+// - a cluster of SPLIT blocks owns one 32-row tile of the contract and all
+//   192 columns; block `rank` of the cluster sums the K range [rank K /
+//   SPLIT, (rank + 1) K / SPLIT). At FFN2 SPLIT is 2: the hub's 293 computed
+//   row tiles are 586 blocks, 4.4 an SM, where whole tiles would be 2.2 an
+//   SM and the SMs that get 3 would set the time; W2 is still read from L2
+//   once a row tile (scripts/bench_linear_f32.py times 1, 2, 4 and 8);
+// - its 4 warps each take 32 rows x 48 columns, a thread 4 rows x 12 columns
+//   (48 sums), rows ty + 8 i and columns tx + 4 j of its warp's tile;
+// - the A rows and all of W are staged LRN_BK = 16 columns of K at a time,
+//   as they lie in memory (K contiguous), by 16-byte cp.async copies into a
+//   ring of LRN_STAGES slots; rows are padded to 20 floats, so the rows a
+//   quarter warp reads at one k lie in distinct banks, and each 16-byte read
+//   of A or W feeds 16 or 12 FMAs (sgemm::dot4). 72 KB of shared memory a
+//   block, three blocks an SM;
+// - each block writes its sums into a row tile that reuses the ring; after a
+//   cluster barrier, block `rank` adds the SPLIT tiles of its 32 / SPLIT rows
+//   in rank order through distributed shared memory (a fixed order: the same
+//   bits on every run), adds the bias and then the residual (the JAX order:
+//   the product and its bias first), and takes the stats and the LayerNorm
+//   one warp a row. A second cluster barrier keeps every tile in place until
+//   its readers are done.
+// A 32-row tile wholly past valid_len is written as zeros (out, r and the
+// stats); its rows are not copied. The decision is the same for every block
+// of the cluster.
+// LRN_SPLIT_FFN sets the FFN2 site's cluster size, so that
+// scripts/bench_linear_f32.py can time other splits of the same source; the
+// out-projection (K 192) takes no split.
+#ifndef LRN_SPLIT_FFN
+#define LRN_SPLIT_FFN 2
+#endif
+constexpr int LRN_BM = BM;  // the contract's 32-row tile
+constexpr int LRN_BN = D_MODEL;
+constexpr int LRN_BK = 16;
+constexpr int LRN_LD = LRN_BK + 4;  // a staged row, padded
+constexpr int LRN_STAGES = 4;
+constexpr int LRN_WARPS = 4;        // 32 rows x 48 columns a warp
+constexpr int LRN_THREADS = LRN_WARPS * 32;
+constexpr int LRN_TM = 4, LRN_TN = 12;  // a thread's rows and columns
+constexpr int LRN_STAGE = (LRN_BM + LRN_BN) * LRN_LD;  // floats
+constexpr int LRN_LDR = LRN_BN + 4;     // the row tile of sums
+constexpr int LRN_SMEM = LRN_STAGES * LRN_STAGE * 4;
+static_assert(LRN_BN == LRN_WARPS * 4 * LRN_TN && LRN_BM == 8 * LRN_TM &&
+                  LRN_BM * LRN_LDR <= LRN_STAGES * LRN_STAGE,
+              "linear_residual_ln tile shape");
+
+template <int SPLIT>
+__global__ void __launch_bounds__(LRN_THREADS)
+linear_residual_ln_kernel(const float* __restrict__ a, const float* __restrict__ w,
+                          const float* __restrict__ bias, const float* __restrict__ res,
+                          const float* __restrict__ g, const float* __restrict__ beta,
+                          float eps, float* __restrict__ out, float* __restrict__ mean_out,
                           float* __restrict__ rstd_out, float* __restrict__ r_out,
                           const int* __restrict__ valid_len, int K, int s_pad) {
-  constexpr int TN = BN / 16;
-  const int m0 = blockIdx.x * BM;
-  if (tile_is_padding(m0, s_pad, valid_len)) {
-    zero_tile<BN>(out, BN, m0, 0);
-    if (r_out != nullptr) zero_tile<BN>(r_out, BN, m0, 0);
-    if (mean_out != nullptr && threadIdx.x < BM) {
-      mean_out[m0 + threadIdx.x] = 0.f;
-      rstd_out[m0 + threadIdx.x] = 0.f;
+  constexpr int BN = LRN_BN, ROWS = LRN_BM / SPLIT;  // rows a block normalises
+  static_assert(LRN_BM % SPLIT == 0, "whole rows a block");
+  namespace cg = cooperative_groups;
+  const int rank = SPLIT > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int m0 = blockIdx.x / SPLIT * LRN_BM;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tile_is_padding(m0, s_pad, valid_len)) {  // the whole cluster, before any barrier
+    const int r0 = m0 + rank * ROWS;
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = tid; c < ROWS * BN / 4; c += LRN_THREADS) {
+      reinterpret_cast<float4*>(out + (size_t)r0 * BN)[c] = z;
+      if (r_out != nullptr) reinterpret_cast<float4*>(r_out + (size_t)r0 * BN)[c] = z;
+    }
+    if (mean_out != nullptr && tid < ROWS) {
+      mean_out[r0 + tid] = 0.f;
+      rstd_out[r0 + tid] = 0.f;
     }
     return;
   }
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Ws[BK][BN + 1];  // reused below as the (BM, BN) row tile
-  float acc[2][TN];
-  gemm_tile<BN, false>(a, K, w, K, K, m0, 0, nullptr, nullptr, nullptr, nullptr,
-                       As, Ws, acc);
-  static_assert(BK == BM, "the W tile doubles as the row tile");
-  float (*R)[BN + 1] = Ws;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int r = 2 * ty + i, n = tx + 16 * j;
-      // (a @ W^T + bias) first, then the residual: the JAX order
-      R[r][n] = res[(size_t)(m0 + r) * BN + n] + (acc[i][j] + bias[n]);
+  extern __shared__ __align__(16) float lrn_smem[];
+  const int ty = lane >> 2, tx = lane & 3;
+  const int kpart = K / SPLIT, kbase = rank * kpart;
+
+  auto load = [&](int s, int slot) {  // K columns [s BK, (s + 1) BK) of the block's range
+    float* as = lrn_smem + slot * LRN_STAGE;
+    float* ws = as + LRN_BM * LRN_LD;
+    const int k0 = kbase + s * LRN_BK;
+    {
+      const int r = tid / (LRN_BK / 4), c = tid % (LRN_BK / 4) * 4;
+      sgemm::cp_async_16(as + r * LRN_LD + c, a + (size_t)(m0 + r) * K + k0 + c);
     }
-  __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < BM; r += WARPS) {
-    float s = 0.f, ss = 0.f;
-    for (int n = lane; n < BN; n += 32) {
-      const float v = R[r][n];
-      s += v;
-      ss += v * v;
+#pragma unroll
+    for (int q = 0; q < BN * LRN_BK / 4 / LRN_THREADS; ++q) {
+      const int idx = tid + q * LRN_THREADS;
+      const int r = idx / (LRN_BK / 4), c = idx % (LRN_BK / 4) * 4;
+      sgemm::cp_async_16(ws + r * LRN_LD + c, w + (size_t)r * K + k0 + c);
+    }
+  };
+  float acc[LRN_TM][LRN_TN];
+#pragma unroll
+  for (int i = 0; i < LRN_TM; ++i)
+#pragma unroll
+    for (int j = 0; j < LRN_TN; ++j) acc[i][j] = 0.f;
+  sgemm::ring<LRN_STAGES>(kpart / LRN_BK, load, [&](int, int slot) {
+    const float* as = lrn_smem + slot * LRN_STAGE + ty * LRN_LD;
+    const float* ws = lrn_smem + slot * LRN_STAGE + (LRN_BM + warp * 48 + tx) * LRN_LD;
+#pragma unroll
+    for (int kk = 0; kk < LRN_BK; kk += 4) {
+      float4 av[LRN_TM];
+#pragma unroll
+      for (int i = 0; i < LRN_TM; ++i) av[i] = load4(as + i * 8 * LRN_LD + kk);
+#pragma unroll
+      for (int j = 0; j < LRN_TN; ++j) sgemm::dot4(acc, j, av, load4(ws + j * 4 * LRN_LD + kk));
+    }
+  });
+  __syncthreads();  // every warp is done with the ring: it becomes the row tile
+  float* rt = lrn_smem;
+#pragma unroll
+  for (int i = 0; i < LRN_TM; ++i)
+#pragma unroll
+    for (int j = 0; j < LRN_TN; ++j) rt[(ty + 8 * i) * LRN_LDR + warp * 48 + tx + 4 * j] = acc[i][j];
+  if constexpr (SPLIT > 1) cg::this_cluster().sync();  // every block's sums are in place
+  else __syncthreads();
+  const float* tiles[SPLIT] = {rt};  // every block's row tile, by rank
+  if constexpr (SPLIT > 1)
+#pragma unroll
+    for (int q = 0; q < SPLIT; ++q) tiles[q] = cg::this_cluster().map_shared_rank(rt, q);
+  for (int rr = warp; rr < ROWS; rr += LRN_WARPS) {  // one warp a row
+    const int r = rank * ROWS + rr;
+    const size_t o = (size_t)(m0 + r) * BN;
+    float v[BN / 32], s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int c = 0; c < BN / 32; ++c) {
+      const int n = lane + 32 * c;
+      float p = tiles[0][r * LRN_LDR + n];
+#pragma unroll
+      for (int q = 1; q < SPLIT; ++q) p += tiles[q][r * LRN_LDR + n];  // in rank order
+      // (a @ W^T + bias) first, then the residual: the JAX order
+      v[c] = res[o + n] + (p + bias[n]);
+      s += v[c];
+      ss += v[c] * v[c];
     }
     s = warp_sum(s);
     ss = warp_sum(ss);
     const float mu = s / BN;
     const float rstd = rsqrtf(fmaxf(ss / BN - mu * mu, 0.f) + eps);
-    for (int n = lane; n < BN; n += 32) {
-      out[(size_t)(m0 + r) * BN + n] = (R[r][n] - mu) * rstd * g[n] + beta[n];
-      if (r_out != nullptr) r_out[(size_t)(m0 + r) * BN + n] = R[r][n];
+#pragma unroll
+    for (int c = 0; c < BN / 32; ++c) {
+      const int n = lane + 32 * c;
+      out[o + n] = (v[c] - mu) * rstd * g[n] + beta[n];
+      if (r_out != nullptr) r_out[o + n] = v[c];
     }
     if (mean_out != nullptr && lane == 0) {
       mean_out[m0 + r] = mu;
       rstd_out[m0 + r] = rstd;
     }
   }
+  if constexpr (SPLIT > 1) cg::this_cluster().sync();  // the tiles stay until read
+}
+
+template <int SPLIT>
+int linear_residual_ln_launch(const float* a, const float* w, const float* bias,
+                              const float* res, const float* g, const float* beta, float eps,
+                              float* out, float* mean_out, float* rstd_out, float* r_out,
+                              const int* valid_len, int M, int K, int s_pad,
+                              cudaStream_t st) {
+  auto kernel = linear_residual_ln_kernel<SPLIT>;
+  int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    LRN_SMEM);
+  if (e != 0) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(M / LRN_BM * SPLIT);
+  cfg.blockDim = dim3(LRN_THREADS);
+  cfg.dynamicSmemBytes = LRN_SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = SPLIT;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = (int)cudaLaunchKernelEx(&cfg, kernel, a, w, bias, res, g, beta, eps, out, mean_out,
+                              rstd_out, r_out, valid_len, K, s_pad);
+  if (e != 0) return e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -226,11 +359,13 @@ int linear_residual_ln_fwd(const float* a, const float* w, const float* bias,
                            int M, int K, int N, int s_pad, void* stream) {
   if (!rows_ok(M, K, s_pad) || N != D_MODEL || (K != D_MODEL && K != D_FFN))
     return (int)cudaErrorInvalidValue;
-  linear_residual_ln_kernel<D_MODEL><<<dim3(M / BM), NT, 0,
-                                       static_cast<cudaStream_t>(stream)>>>(
-      a, w, bias, res, g, beta, eps, out, mean_out, rstd_out, r_out, valid_len, K,
-      s_pad);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K == D_FFN)
+    return linear_residual_ln_launch<LRN_SPLIT_FFN>(a, w, bias, res, g, beta, eps, out,
+                                                    mean_out, rstd_out, r_out, valid_len, M,
+                                                    K, s_pad, st);
+  return linear_residual_ln_launch<1>(a, w, bias, res, g, beta, eps, out, mean_out, rstd_out,
+                                      r_out, valid_len, M, K, s_pad, st);
 }
 
 }  // extern "C"

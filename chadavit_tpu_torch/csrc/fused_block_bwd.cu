@@ -29,18 +29,17 @@
 // cores); layernorm_bwd reads three (M, 192) tensors and writes one, so it is
 // bound by bytes. The weight gradients contract over all M = B * S_pad rows into
 // outputs of at most 2048 x 192: one block per output tile would leave most of
-// the 132 SMs idle, so the rows are cut into chunks of up to 1024 (grid z) and
-// each (tile, chunk) block writes a partial sum. Chunks and 32-row tiles wholly
-// past valid_len[b] are skipped (the forward wrote zeros there, and its saved
-// stats there mean nothing): the partial of a skipped chunk is never written
-// and the second pass skips it by the same rule. layernorm_bwd instead cuts
-// the rows into a number of splits that does not grow with the batch: each
-// block walks a contiguous share of the 32-row tiles and keeps dgamma/dbeta
-// in registers, so its partial sums are (splits, 384), every split writes
-// its own (zeros when all its tiles are padding), and the second pass, 12
-// blocks of 32 warps, adds them in split order with every load in flight at
-// once. Every skip decision is uniform per block and taken before the first
-// barrier.
+// the 132 SMs idle, so the rows are cut into a number of splits that does not
+// grow with the batch, each (tile, split) block writes a partial sum, and a
+// second pass adds the partials in split order (linear_wgrad's note below).
+// layernorm_bwd cuts its rows the same way: each block walks a contiguous
+// share of the 32-row tiles and keeps dgamma/dbeta in registers, so its
+// partial sums are (splits, 384), every split writes its own (zeros when all
+// its tiles are padding), and the second pass, 12 blocks of 32 warps, adds
+// them in split order with every load in flight at once. 32-row tiles wholly
+// past valid_len[b] add nothing (the forward wrote zeros there, and its saved
+// stats there mean nothing). Every skip decision is uniform per block and
+// taken before the first barrier.
 //
 // The contract, the TPU kernel's (fused_block.py:33-39): the forward computes
 // every row of a 32-row tile that holds a valid row for real, also the rows
@@ -51,7 +50,8 @@
 // masked (prefix_attention_bwd.cu).
 //
 // The bf16 instances of linear_dgrad and linear_wgrad are tensor-core kernels
-// of their own (linear_bwd_bf16.cu); the float32 ones here stay on CUDA cores.
+// of their own (linear_bwd_bf16.cu); the float32 ones here stay on CUDA cores,
+// linear_wgrad on the shared main loop of sgemm_f32.cuh.
 // The bf16 instance of layernorm_bwd (T = bf16) takes bf16 activations and
 // writes a bf16 dx, rounded once; the LN parameters, the saved stats, the
 // partial sums and dgamma/dbeta stay f32, so the fixed-order reduce is the f32
@@ -61,6 +61,7 @@
 // cudaGetLastError() so that the Python wrapper can raise on a refused launch.
 
 #include "gemm_common.cuh"
+#include "sgemm_f32.cuh"
 
 namespace {
 
@@ -167,33 +168,6 @@ reduce_ln_splits_kernel(const float* __restrict__ partial, float* __restrict__ o
   }
 }
 
-// ---- linear_wgrad's second pass: out[i] = sum over the chunks not skipped ----
-// partial is (n_chunks, n_out); chunk c covers rows [c * chunk, (c + 1) * chunk)
-// of the flattened activation and was skipped iff its first row is padding.
-// Grid (ceil(n_out / 32)), 8 warps: lane -> output, warp -> every 8th chunk,
-// then the warps' sums in order.
-__global__ void __launch_bounds__(NT)
-reduce_chunks_kernel(const float* __restrict__ partial, float* __restrict__ out,
-                     int n_out, int n_chunks, int chunk, int s_pad,
-                     const int* __restrict__ valid_len) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int i = blockIdx.x * 32 + lane;
-  float s = 0.f;
-  if (i < n_out)
-    for (int c = warp; c < n_chunks; c += WARPS)
-      if (!tile_is_padding(c * chunk, s_pad, valid_len))
-        s += partial[(size_t)c * n_out + i];
-  __shared__ float red[WARPS][32];
-  red[warp][lane] = s;
-  __syncthreads();
-  if (warp == 0 && i < n_out) {
-    float t = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) t += red[w][lane];
-    out[i] = t;
-  }
-}
-
 // ---- linear_dgrad: out = dY @ W (+ epilogue), grid (M / BM, N / BN) ----------
 template <int BN, int EPI, typename T>
 __global__ void __launch_bounds__(NT)
@@ -226,88 +200,206 @@ linear_dgrad_kernel(const T* __restrict__ dy, const T* __restrict__ w,
   }
 }
 
-// ---- linear_wgrad: partial dW = dY^T X', db = colsum dY per row chunk --------
-// Grid (K / WT, N / WT, M / chunk). A block owns a WT x WT tile of dW (thread
-// (ty, tx) the outputs n = ty + 16 i, k = tx + 16 j) and the rows of one chunk
-// up to the end of the image's last tile that holds a valid row, staged WM at
-// a time; blocks of the first K tile also sum dY's columns. partial is
-// (n_chunks, N * K + N): dW row-major, then db.
-constexpr int WT = 64;
-constexpr int WM = 32;
+// ---- linear_wgrad (float32): partial dW = dY^T X', db = colsum dY per split ---
+// Redesigned for Hopper's CUDA cores on the shared main loop of
+// sgemm_f32.cuh; the bf16 instance is linear_bwd_bf16.cu's.
+//
+// Replaces the weight gradients and bias sums of the TPU kernel
+// chadavit_tpu/ops/fused_block.py::_bwd_kernel (:211): the _tn products and
+// column sums at :316-317 (FFN2), :321-322 (FFN1), :337-338 (out-projection)
+// and :420-422 (QKV, with h = LN1(x) recomputed).
+//
+// What bounds it: operations. At hub shapes the four sites do 17.5 GFLOP on
+// the rows the forward computed, against about 0.1 GB of inputs, so 67
+// TFLOP/s of f32 FMA is the limit. The design:
+// - the grid is output tiles x splits. A tile spans the 192-wide side of dW
+//   whole (K at the QKV, out-projection and FFN1 sites, N at FFN2) and 64 of
+//   the other, so the 2048-wide operand (dz1 or hid) is read from device
+//   memory once; each of its 6 warps owns 32 x 64 of the tile, a thread 8 x 8
+//   sums (n at 4 ln + {0..3} and 16 + 4 ln + {0..3}, k at 4 lk + {0..3} and
+//   32 + 4 lk + {0..3} of its warp's tile), so each 16-byte shared read feeds
+//   16 FMAs (sgemm::outer) and a quarter warp reads 128 contiguous bytes;
+// - a split takes a fixed, contiguous share of the list of computed 32-row
+//   tiles (those that hold a valid row; every block builds it from
+//   valid_len), as the bf16 instance does, so the partial sums are
+//   (splits, N * K + N) whatever the batch; the splits are the caller's plan
+//   (ops/fused_block.py::wgrad_splits, WGRAD_F32_TILES);
+// - a split's tiles are staged one at a time, dY's and X's columns of the
+//   tile as they lie in memory, by 16-byte cp.async copies into a ring of
+//   three 32 KB slots: two tiles in flight while one is multiplied, one
+//   barrier a tile, two blocks an SM;
+// - the QKV site applies LN1 with the saved f32 stats (copied with the tile)
+//   to the staged X tile in place, with the forward's expression
+//   (gemm_common.cuh, gemm_tile's prologue), so X' is the forward's h;
+// - db = colsum(dY) in the blocks of the first K tile: one thread a column
+//   adds the staged dY tile's rows in order.
+// Every split writes its partial whole (zeros when it has no tile), so the
+// second pass adds the splits in split order with 16-byte loads and no test:
+// the same bits on every run, no atomics.
+constexpr int WG_TM = 8;         // a thread's sums along n (and 8 along k)
+constexpr int WG_WN = 32;        // a warp's tile: 32 (n) x 64 (k)
+constexpr int WG_THREADS = 192;  // 6 warps
+constexpr int WG_ROWS = BM;      // a stage: one 32-row tile of the contract
+constexpr int WG_STAGES = 3;
+constexpr int WG_MAX_IMAGES = 1024;
+constexpr int WG_STATS = 2 * WG_ROWS;  // a stage's LN stats: mean, then rstd
 
-template <bool LN_X, typename T>
-__global__ void __launch_bounds__(NT)
-linear_wgrad_kernel(const T* __restrict__ dy, const T* __restrict__ x,
+template <int TN, int TK>
+constexpr int wgrad_smem() {  // bytes of the ring: dY tile, X tile, stats
+  return WG_STAGES * (WG_ROWS * (TN + TK) + WG_STATS) * 4;
+}
+
+template <int TN, int TK, bool LN_X>
+__global__ void __launch_bounds__(WG_THREADS, 2)
+linear_wgrad_kernel(const float* __restrict__ dy, const float* __restrict__ x,
                     const float* __restrict__ mean, const float* __restrict__ rstd,
                     const float* __restrict__ g, const float* __restrict__ beta,
-                    float* __restrict__ partial, const int* __restrict__ valid_len,
-                    int N, int K, int s_pad, int chunk) {
-  const int k0 = blockIdx.x * WT, n0 = blockIdx.y * WT;
-  const int r0 = blockIdx.z * chunk;  // first row of the chunk
-  const int b = r0 / s_pad;
-  const int computed = (valid_len[b] + BM - 1) / BM * BM;  // rows of real tiles
-  const int rows = min(chunk, computed - (r0 - b * s_pad));
-  if (rows <= 0) return;  // uniform; the second pass skips this chunk
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const bool col_sums = blockIdx.x == 0;
-  __shared__ __align__(16) float Ys[WM][WT];
-  __shared__ __align__(16) float Xs[WM][WT];
-  float acc[4][4], db[4];
+                    float* __restrict__ partial, const int* __restrict__ valid_len, int N,
+                    int K, int s_pad, int bsz, int splits) {
+  constexpr int WARPS_K = TK / 64;
+  constexpr int Y_STAGE = WG_ROWS * TN, X_STAGE = WG_ROWS * TK;
+  constexpr int STAGE = Y_STAGE + X_STAGE + WG_STATS;
+  static_assert(TN % WG_WN == 0 && TK % 64 == 0 && (TN / WG_WN) * WARPS_K * 32 == WG_THREADS,
+                "wgrad tile shape");
+  extern __shared__ __align__(16) float wg_smem[];
+  __shared__ int first[WG_MAX_IMAGES + 1];  // index of each image's first computed tile
+  __shared__ __align__(16) float gb[LN_X ? 2 * TK : 4];  // LN_X: g, then beta
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ktiles = K / TK;
+  const int n0 = (blockIdx.x / ktiles) * TN, k0 = (blockIdx.x % ktiles) * TK;
+  const int split = blockIdx.y;
+  const int wn = warp / WARPS_K, wk = warp % WARPS_K, ln = lane >> 3, lk = lane & 7;
+  const int na = wn * WG_WN + ln * 4, ka = wk * 64 + lk * 4;  // the thread's first n, k
+  if constexpr (LN_X)
+    for (int c = tid; c < TK; c += WG_THREADS) {
+      gb[c] = g[k0 + c];
+      gb[TK + c] = beta[k0 + c];
+    }
+
+  // the list of computed tiles, image by image: warp 0 scans the counts
+  if (warp == 0) {
+    const int per = (bsz + 31) / 32, lo = min(bsz, lane * per), hi = min(bsz, lo + per);
+    const int most = s_pad / WG_ROWS;
+    auto count = [&](int i) {
+      return min(most, (max(valid_len[i], 0) + WG_ROWS - 1) / WG_ROWS);
+    };
+    int mine = 0;
+    for (int i = lo; i < hi; ++i) mine += count(i);
+    int incl = mine;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    db[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    int run = incl - mine;
+    for (int i = lo; i < hi; ++i) {
+      first[i] = run;
+      run += count(i);
+    }
+    if (lane == 31) first[bsz] = incl;
   }
-  for (int m0 = 0; m0 < rows; m0 += WM) {
-    // stage WM rows of dY[:, n0:n0+WT] and X'[:, k0:k0+WT]: two groups of
-    // four each per thread; rows past the chunk's computed rows as zeros
+  __syncthreads();
+  const int total = first[bsz];
+  const int begin = (int)((long long)split * total / splits);
+  const int n_tiles = (int)((long long)(split + 1) * total / splits) - begin;
+  auto tile_row = [&](int idx) -> size_t {  // first row of computed tile idx
+    int lo = 0, hi = bsz;                   // first[lo] <= idx < first[hi]
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) >> 1;
+      if (first[mid] <= idx) lo = mid;
+      else hi = mid;
+    }
+    return (size_t)lo * s_pad + (size_t)(idx - first[lo]) * WG_ROWS;
+  };
+  auto load = [&](int s, int slot) {
+    const size_t row0 = tile_row(begin + s);
+    float* ys = wg_smem + slot * STAGE;
+    float* xs = ys + Y_STAGE;
+    for (int c = tid; c < Y_STAGE / 4; c += WG_THREADS) {
+      const int r = c / (TN / 4), cc = c % (TN / 4) * 4;
+      sgemm::cp_async_16(ys + r * TN + cc, dy + (row0 + r) * N + n0 + cc);
+    }
+    for (int c = tid; c < X_STAGE / 4; c += WG_THREADS) {
+      const int r = c / (TK / 4), cc = c % (TK / 4) * 4;
+      sgemm::cp_async_16(xs + r * TK + cc, x + (row0 + r) * K + k0 + cc);
+    }
+    if constexpr (LN_X) {  // 32 means, then 32 rstds: 16 copies of 16 bytes
+      if (tid < WG_STATS / 4)
+        sgemm::cp_async_16(xs + X_STAGE + tid * 4, (tid < WG_ROWS / 4 ? mean + row0
+                                                                     : rstd + row0 - WG_ROWS) +
+                                                        tid * 4);
+    }
+  };
+
+  const bool col_sums = k0 == 0;  // db, in the blocks of the first K tile
+  static_assert(TN <= WG_THREADS, "a thread a column of db");
+  float acc[WG_TM][8], db = 0.f;
 #pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int idx = tid + it * NT, r = idx / (WT / 4), c = (idx % (WT / 4)) * 4;
-      const bool ok = m0 + r < rows;
-      const size_t row = (size_t)r0 + m0 + r;
-      float4 yv = make_float4(0.f, 0.f, 0.f, 0.f), xv = yv;
-      if (ok) {
-        yv = load4(dy + row * N + n0 + c);
-        xv = load4(x + row * K + k0 + c);
-        if (LN_X) {  // h = LN1(x), rounded to T as the forward's
-          const float mu = mean[row], rs = rstd[row];
-          xv.x = rnd<T>((xv.x - mu) * rs * g[k0 + c] + beta[k0 + c]);
-          xv.y = rnd<T>((xv.y - mu) * rs * g[k0 + c + 1] + beta[k0 + c + 1]);
-          xv.z = rnd<T>((xv.z - mu) * rs * g[k0 + c + 2] + beta[k0 + c + 2]);
-          xv.w = rnd<T>((xv.w - mu) * rs * g[k0 + c + 3] + beta[k0 + c + 3]);
-        }
+  for (int i = 0; i < WG_TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  sgemm::ring<WG_STAGES>(n_tiles, load, [&](int, int slot) {
+    const float* ys = wg_smem + slot * STAGE;
+    float* xs = wg_smem + slot * STAGE + Y_STAGE;
+    if constexpr (LN_X) {  // h = LN1(x), in place: the forward's expression
+      const float* st = xs + X_STAGE;
+      for (int c = tid; c < X_STAGE / 4; c += WG_THREADS) {
+        const int r = c / (TK / 4), cc = c % (TK / 4) * 4;
+        const float mu = st[r], rs = st[WG_ROWS + r];
+        float4 v = *reinterpret_cast<float4*>(xs + r * TK + cc);
+        v.x = (v.x - mu) * rs * gb[cc] + gb[TK + cc];
+        v.y = (v.y - mu) * rs * gb[cc + 1] + gb[TK + cc + 1];
+        v.z = (v.z - mu) * rs * gb[cc + 2] + gb[TK + cc + 2];
+        v.w = (v.w - mu) * rs * gb[cc + 3] + gb[TK + cc + 3];
+        *reinterpret_cast<float4*>(xs + r * TK + cc) = v;
       }
-      *reinterpret_cast<float4*>(&Ys[r][c]) = yv;
-      *reinterpret_cast<float4*>(&Xs[r][c]) = xv;
+      __syncthreads();  // the normed tile
     }
-    __syncthreads();
+    if (col_sums && tid < TN)
 #pragma unroll 8
-    for (int m = 0; m < WM; ++m) {
-      float yv[4], xv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) yv[i] = Ys[m][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) xv[j] = Xs[m][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(yv[i], xv[j], acc[i][j]);
-      if (col_sums && tx == 0)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) db[i] += yv[i];
+      for (int m = 0; m < WG_ROWS; ++m) db += ys[m * TN + tid];
+#pragma unroll 8
+    for (int m = 0; m < WG_ROWS; ++m) {
+      float yv[WG_TM], xv[8];
+      *reinterpret_cast<float4*>(yv) = load4(ys + m * TN + na);
+      *reinterpret_cast<float4*>(yv + 4) = load4(ys + m * TN + na + 16);
+      *reinterpret_cast<float4*>(xv) = load4(xs + m * TK + ka);
+      *reinterpret_cast<float4*>(xv + 4) = load4(xs + m * TK + ka + 32);
+      sgemm::outer(acc, yv, xv);
     }
-    __syncthreads();
-  }
-  float* p = partial + (size_t)blockIdx.z * ((size_t)N * K + N);
+  });
+
+  // this split's partial, written whole (zeros when it got no tiles)
+  float* p = partial + (size_t)split * ((size_t)N * K + N);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      p[(size_t)(n0 + ty + 16 * i) * K + k0 + tx + 16 * j] = acc[i][j];
-    if (col_sums && tx == 0) p[(size_t)N * K + n0 + ty + 16 * i] = db[i];
+  for (int i = 0; i < WG_TM; ++i) {
+    const size_t n = n0 + na + (i & 3) + (i >> 2) * 16;
+    *reinterpret_cast<float4*>(p + n * K + k0 + ka) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(p + n * K + k0 + ka + 32) =
+        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
   }
+  if (col_sums && tid < TN) p[(size_t)N * K + n0 + tid] = db;
+}
+
+// ---- linear_wgrad's second pass: out[i] = the splits' partials at i ---------
+// added in split order, four outputs a thread; every split wrote its partial,
+// so the loads carry no test and stay in flight together
+__global__ void __launch_bounds__(NT)
+reduce_wgrad_splits_kernel(const float4* __restrict__ partial, float4* __restrict__ out,
+                           int n_out4, int splits) {
+  const int i = blockIdx.x * NT + threadIdx.x;
+  if (i >= n_out4) return;
+  float4 s = partial[i];
+#pragma unroll 8
+  for (int sp = 1; sp < splits; ++sp) {
+    const float4 v = partial[(size_t)sp * n_out4 + i];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  out[i] = s;
 }
 
 template <typename T>
@@ -350,29 +442,22 @@ int linear_dgrad_launch(const T* dy, const T* w, const T* aux, T* out,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int linear_wgrad_launch(const T* dy, const T* x, const float* mean,
-                        const float* rstd, const float* g, const float* beta,
-                        float* partial, float* dwb, const int* valid_len, int M,
-                        int N, int K, int s_pad, int chunk, void* stream) {
-  if (!rows_ok(M, BK, s_pad) || !is_weight_shape(N, K) || chunk < WM ||
-      chunk > 1024 || (chunk & (chunk - 1)) || s_pad % chunk)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(K / WT, N / WT, M / chunk);
-  if (mean != nullptr)
-    linear_wgrad_kernel<true, T><<<grid, NT, 0, st>>>(
-        dy, x, mean, rstd, g, beta, partial, valid_len, N, K, s_pad, chunk);
-  else
-    linear_wgrad_kernel<false, T><<<grid, NT, 0, st>>>(
-        dy, x, nullptr, nullptr, nullptr, nullptr, partial, valid_len, N, K,
-        s_pad, chunk);
-  int e = (int)cudaGetLastError();
-  if (e != 0) return e;
-  const int n_out = N * K + N;
-  reduce_chunks_kernel<<<(n_out + 31) / 32, NT, 0, st>>>(partial, dwb, n_out, M / chunk, chunk,
-                                                         s_pad, valid_len);
-  return (int)cudaGetLastError();
+template <int TN, int TK>
+int wgrad_launch(const float* dy, const float* x, const float* mean, const float* rstd,
+                 const float* g, const float* beta, float* partial, const int* valid_len,
+                 int N, int K, int s_pad, int bsz, int splits, cudaStream_t st) {
+  constexpr int smem = wgrad_smem<TN, TK>();
+  const dim3 grid(N / TN * (K / TK), splits);
+  auto launch = [&](auto kernel) {
+    int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      smem);
+    if (e != 0) return e;
+    kernel<<<grid, WG_THREADS, smem, st>>>(dy, x, mean, rstd, g, beta, partial, valid_len, N,
+                                           K, s_pad, bsz, splits);
+    return (int)cudaGetLastError();
+  };
+  if (mean != nullptr) return launch(linear_wgrad_kernel<TN, TK, true>);
+  return launch(linear_wgrad_kernel<TN, TK, false>);
 }
 
 }  // namespace
@@ -414,15 +499,32 @@ int linear_dgrad(const float* dy, const float* w, const float* aux, float* out,
 }
 
 // dy (M, N), x (M, K); dwb: (N * K + N,) = dW (N, K) row-major, then db (N,).
-// With mean (not null), x is layer-normed with mean, rstd, g, beta as it is
-// staged. partial: (M / chunk, N * K + N) scratch; chunk is a power of two,
-// 32 <= chunk <= 1024, that divides s_pad.
+// With mean (not null; K 192 only), x is layer-normed with mean, rstd, g,
+// beta as it is staged. partial: (splits, N * K + N) scratch, 1 <= splits
+// <= 1024; the tile shapes and so the grid are those of
+// ops/fused_block.py::WGRAD_F32_TILES. Every operand 16-byte aligned.
 int linear_wgrad(const float* dy, const float* x, const float* mean,
                  const float* rstd, const float* g, const float* beta,
                  float* partial, float* dwb, const int* valid_len, int M, int N,
-                 int K, int s_pad, int chunk, void* stream) {
-  return linear_wgrad_launch(dy, x, mean, rstd, g, beta, partial, dwb, valid_len, M,
-                             N, K, s_pad, chunk, stream);
+                 int K, int s_pad, int splits, void* stream) {
+  if (M <= 0 || s_pad <= 0 || s_pad % WG_ROWS || M % s_pad || M / s_pad > WG_MAX_IMAGES ||
+      splits < 1 || splits > 1024 || !is_weight_shape(N, K) ||
+      (mean != nullptr && K != D_MODEL))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int bsz = M / s_pad;
+  int e;
+  if (K == D_FFN)  // FFN2: the 192 columns of dY whole, 64 of hid's
+    e = wgrad_launch<D_MODEL, 64>(dy, x, mean, rstd, g, beta, partial, valid_len, N, K, s_pad,
+                                  bsz, splits, st);
+  else  // QKV, out-projection, FFN1: 64 of dY's columns, the 192 of X whole
+    e = wgrad_launch<64, D_MODEL>(dy, x, mean, rstd, g, beta, partial, valid_len, N, K, s_pad,
+                                  bsz, splits, st);
+  if (e != 0) return e;
+  const int n_out4 = (N * K + N) / 4;
+  reduce_wgrad_splits_kernel<<<(n_out4 + NT - 1) / NT, NT, 0, st>>>(
+      reinterpret_cast<const float4*>(partial), reinterpret_cast<float4*>(dwb), n_out4, splits);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

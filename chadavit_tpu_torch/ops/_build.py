@@ -52,7 +52,6 @@ SIGNATURES = {
     "ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 # the bf16 instance of each kernel: the same arguments, bf16 activations
-# (linear_wgrad_bf16 takes its row splits where linear_wgrad takes its chunk)
 SIGNATURES.update({f"{name}_bf16": argtypes for name, argtypes in list(SIGNATURES.items())})
 
 _lib = None

@@ -71,7 +71,6 @@ SEQ_PAD = 128   # the chain pads sequences to this multiple, as the model does
 # CUDA tensors the wrappers raise on any other.
 D_MODEL = 192
 D_FFN = 2048
-WGRAD_CHUNK = 1024  # the most rows one block of the float32 linear_wgrad sums
 # The bfloat16 ln_linear / linear_relu / linear_residual_ln / linear_dgrad /
 # linear_wgrad are tensor-core kernels (csrc/linear_fwd_bf16.cu,
 # csrc/linear_bwd_bf16.cu) that copy 16 bytes at a time. The first four own
@@ -83,6 +82,16 @@ BF16_GEMM_ROWS = 64
 WGRAD_BF16_TILES = {(3 * D_MODEL, D_MODEL): (64, D_MODEL), (D_MODEL, D_MODEL): (64, D_MODEL),
                     (D_FFN, D_MODEL): (128, D_MODEL), (D_MODEL, D_FFN): (D_MODEL, 128)}
 WGRAD_BF16_BLOCKS = 132
+# The float32 linear_wgrad (CUDA cores, csrc/fused_block_bwd.cu) takes the same
+# plan with tiles of its own: the 192-wide side of dW whole and 64 of the
+# other (6 warps of 32 x 64 outputs), two blocks an SM, so the splits fill
+# 264 blocks once, and never more than WGRAD_F32_SPLITS: the out-projection's
+# 3 tiles would take 88, whose partials (13 MB) the second pass would read
+# for a product of 0.7 GFLOP at hub shapes.
+WGRAD_F32_TILES = {(3 * D_MODEL, D_MODEL): (64, D_MODEL), (D_MODEL, D_MODEL): (64, D_MODEL),
+                   (D_FFN, D_MODEL): (64, D_MODEL), (D_MODEL, D_FFN): (D_MODEL, 64)}
+WGRAD_F32_BLOCKS = 264
+WGRAD_F32_SPLITS = 64
 # layernorm_bwd (both dtypes) cuts the batch's 32-row tiles into at most this
 # many contiguous shares, one block each, whatever the batch: its partial sums
 # are (splits, 2 D) float32 (layernorm_bwd_splits), 3.1 MB at most. A few
@@ -216,9 +225,11 @@ def _ptr(t):
 
 def _copy_align(name: str, dtype: torch.dtype, s: int) -> int:
     """The alignment in bytes that a GEMM kernel's 16-byte copies need of its
-    operands: 16 for the bfloat16 tensor-core kernels, whose 64-row blocks
-    also need S a multiple of :data:`BF16_GEMM_ROWS` (raises otherwise); 0
-    for float32."""
+    operands beyond the four elements ``vector_operand`` always asks: 16 for
+    the bfloat16 tensor-core kernels, whose 64-row blocks also need S a
+    multiple of :data:`BF16_GEMM_ROWS` (raises otherwise); 0 for float32,
+    whose four elements are the 16 bytes that the cp.async copies of the
+    float32 ``linear_residual_ln`` and ``linear_wgrad`` need."""
     if dtype != torch.bfloat16:
         return 0
     if s % BF16_GEMM_ROWS:
@@ -442,28 +453,26 @@ _WGRAD_SHAPES = {(3 * D_MODEL, D_MODEL), (D_MODEL, D_MODEL), (D_FFN, D_MODEL),
                  (D_MODEL, D_FFN)}
 
 
-def wgrad_chunk(s_pad: int) -> int:
-    """Rows per block of the float32 ``linear_wgrad``: the largest power of
-    two up to :data:`WGRAD_CHUNK` that divides ``s_pad``."""
-    chunk = WGRAD_CHUNK
-    while s_pad % chunk:
-        chunk //= 2
-    return chunk
-
-
-def wgrad_splits(bsz: int, s_pad: int, n: int, k: int) -> int:
-    """Row splits of the bfloat16 ``linear_wgrad`` at weight shape ``(n, k)``:
-    output tiles x splits fill :data:`WGRAD_BF16_BLOCKS` blocks once, and no
-    split is planned beyond the batch's 32-row tiles. Its partial sums are
-    ``(splits, n * k + n)`` float32, bounded whatever the batch."""
-    tn, tk = WGRAD_BF16_TILES[(n, k)]
-    tiles = (n // tn) * (k // tk)
-    return max(1, min(WGRAD_BF16_BLOCKS // tiles, bsz * s_pad // ROW_BLOCK))
+def wgrad_splits(bsz: int, s_pad: int, n: int, k: int, dtype=torch.bfloat16) -> int:
+    """Row splits of ``linear_wgrad`` at weight shape ``(n, k)`` for
+    activations of ``dtype``: output tiles (:data:`WGRAD_BF16_TILES` or
+    :data:`WGRAD_F32_TILES`) x splits fill :data:`WGRAD_BF16_BLOCKS` or
+    :data:`WGRAD_F32_BLOCKS` blocks once (float32: at most
+    :data:`WGRAD_F32_SPLITS`), and no split is planned beyond the batch's
+    32-row tiles. Its partial sums are ``(splits, n * k + n)`` float32,
+    bounded whatever the batch."""
+    if dtype == torch.float32:
+        tn, tk = WGRAD_F32_TILES[(n, k)]
+        most = min(WGRAD_F32_BLOCKS // ((n // tn) * (k // tk)), WGRAD_F32_SPLITS)
+    else:
+        tn, tk = WGRAD_BF16_TILES[(n, k)]
+        most = WGRAD_BF16_BLOCKS // ((n // tn) * (k // tk))
+    return max(1, min(most, bsz * s_pad // ROW_BLOCK))
 
 
 def wgrad_split_tiles(valid_len, s_pad: int, splits: int) -> list:
-    """The first rows of the 32-row tiles each split of the bfloat16
-    ``linear_wgrad`` sums, as its kernel assigns them: the computed tiles
+    """The first rows of the 32-row tiles each split of ``linear_wgrad`` sums
+    (both dtypes), as its kernel assigns them: the computed tiles
     (those that hold a valid row), image by image, cut into ``splits``
     contiguous shares, split ``i`` taking list entries
     ``[i * T // splits, (i + 1) * T // splits)`` of the T tiles."""
@@ -477,10 +486,10 @@ def linear_wgrad(dy, x, valid_len, ln=None):
     """``(dW, db) = (dY^T X', colsum dY)`` in float32 over the rows the
     forward computed, with ``X' = LN(X)`` from ``ln = (mean, rstd, g, beta)``
     applied as X is staged (kernel ``linear_wgrad`` on CUDA, at the layer's
-    four weight shapes only; in bfloat16 on the tensor cores, its rows split
-    by :func:`wgrad_splits`). dy and x of one dtype; the partial sums, their
-    fixed-order reduce and the result are float32 for both dtypes. See
-    :func:`linear_wgrad_reference`."""
+    four weight shapes only, its rows split by :func:`wgrad_splits`; in
+    bfloat16 on the tensor cores). dy and x of one dtype, 16-byte aligned;
+    the partial sums, their fixed-order reduce and the result are float32 for
+    both dtypes. See :func:`linear_wgrad_reference`."""
     if _launch.on_cpu(dy, x, valid_len):
         return linear_wgrad_reference(dy, x, valid_len, ln)
     if dy.dim() != 3 or x.dim() != 3 or dy.shape[:2] != x.shape[:2] \
@@ -489,27 +498,24 @@ def linear_wgrad(dy, x, valid_len, ln=None):
                          "weight shape the kernel is built for")
     bsz, s, n = dy.shape
     k, dt = x.shape[2], dy.dtype
-    # the bf16 kernel splits the rows by a plan that does not grow with the
-    # batch; the float32 one writes a partial per chunk of rows
-    tc = 16 if dt == torch.bfloat16 else 0
-    rows_arg = wgrad_splits(bsz, s, n, k) if tc else wgrad_chunk(s)
-    n_partials = rows_arg if tc else bsz * s // rows_arg
+    # both instances split the rows by a plan that does not grow with the batch
+    splits = wgrad_splits(bsz, s, n, k, dt)
     dwb = torch.empty(n * k + n, dtype=torch.float32, device=dy.device)
-    partial = torch.empty((n_partials, n * k + n), dtype=torch.float32, device=dy.device)
+    partial = torch.empty((splits, n * k + n), dtype=torch.float32, device=dy.device)
     if ln is None:
         ln_ptrs = (None,) * 4
     else:
         mean, rstd, g, b = ln
-        if g.shape != (k,) or b.shape != (k,) or (tc and k != D_MODEL):
+        if g.shape != (k,) or b.shape != (k,) or k != D_MODEL:
             raise ValueError(f"linear_wgrad: g {tuple(g.shape)}, b {tuple(b.shape)} (the "
-                             f"bfloat16 kernel norms X of width {D_MODEL} only)")
+                             f"kernel norms X of width {D_MODEL} only)")
         ln_ptrs = (_row_stats("mean", mean, bsz, s), _row_stats("rstd", rstd, bsz, s),
                    _launch.vector_operand(g, "g"), _launch.vector_operand(b, "b"))
     name, fn = _library_fn("linear_wgrad", dt)
     status = fn(
-        _rows("dy", dy, bsz, s, n, dt, tc), _rows("x", x, bsz, s, k, dt, tc), *ln_ptrs,
+        _rows("dy", dy, bsz, s, n, dt, 16), _rows("x", x, bsz, s, k, dt, 16), *ln_ptrs,
         partial.data_ptr(), dwb.data_ptr(),
-        _launch.valid_len_operand(valid_len, bsz, dy.device), bsz * s, n, k, s, rows_arg,
+        _launch.valid_len_operand(valid_len, bsz, dy.device), bsz * s, n, k, s, splits,
         _launch.stream(dy.device))
     _build.check(status, name)
     _launch.counted(name)

@@ -18,16 +18,20 @@ Phases, each printed with its elapsed seconds at its start and end:
 1. build: nvcc compiles csrc/*.cu (layernorm.cu among them), one process per
    source, into one library (cold build seconds); beside it, nvcc -Xptxas -v
    on csrc/linear_fwd_bf16.cu, csrc/linear_bwd_bf16.cu,
-   csrc/prefix_attention_bf16.cu and csrc/fused_block_bwd.cu prints the
-   registers, shared memory and spills of the tensor-core kernels and of
-   layernorm_bwd's two passes, none of which may spill.
+   csrc/prefix_attention_bf16.cu, csrc/fused_block.cu and
+   csrc/fused_block_bwd.cu prints the registers, shared memory and spills of
+   the tensor-core kernels, of the float32 linear_residual_ln and of
+   layernorm_bwd's and the float32 linear_wgrad's two passes, none of which
+   may spill.
 2. each kernel instance against its plain PyTorch version at hub shapes (B 8,
    S_pad 2048, D 192, F 2048, 2 heads, 1..10 channels), float32 on the
    inputs of seed 0, then bfloat16 on those of each of BF16_SEEDS (the worst
    bf16 readings are printed, the bounds are a few times them): the forward
    kernels, their save outputs (LN stats, pre-LN sum,
    lse), then every backward kernel on the inputs the layer's backward gives
-   it (linear_dgrad and linear_wgrad twice, for the same bits); in bfloat16
+   it (linear_dgrad and linear_wgrad twice, for the same bits); in float32
+   linear_residual_ln twice at each site, with and without its save outputs,
+   for the same bits; in bfloat16
    the tensor-core ln_linear, linear_relu and linear_residual_ln (K1a, K1c,
    K1b) once more, K1a and each K1b site with and without its save outputs,
    every call twice for the same bits and with zeros on the tiles past
@@ -68,7 +72,8 @@ Phases, each printed with its elapsed seconds at its start and end:
    through the plain chains (FusedEncoderBlock with the plain steps, forward
    and backward) in the same way, and the first layer's backward at these 64
    sequences holds to the bounds of phase 2; the partial-sum scratch of
-   linear_wgrad_bf16 and layernorm_bwd at this batch.
+   linear_wgrad_bf16 and layernorm_bwd at this batch, and of the float32
+   linear_wgrad at the float32 train batch and at this one.
 4c. the pretrain entry point: main_pretrain.main (the command line) and
    run_dino_pretrain on the canonical YAML
    (scripts/pretrain/dino_chada_vit_moyen.yaml: batch 32, bf16, depth 12)
@@ -602,10 +607,14 @@ def main() -> int:
     with Phase("1 build", failures) as ph:
         cold = not (_build.BUILD_DIR / _build.source_hash()).exists()
         t = time.perf_counter()
-        # every kernel of the tensor-core sources, and layernorm_bwd's two
-        # passes (K2a) of fused_block_bwd.cu
+        # every kernel of the tensor-core sources, the float32
+        # linear_residual_ln (K1b) of fused_block.cu, and the two passes of
+        # layernorm_bwd (K2a) and of the float32 linear_wgrad (K2c) of
+        # fused_block_bwd.cu
         ptxas_sources = {fwd_tc_cu: (), tc_cu: (), attn_tc_cu: (),
-                         fbb_cu: ("layernorm_bwd", "reduce_ln_splits")}
+                         fb_cu: ("linear_residual_ln",),
+                         fbb_cu: ("layernorm_bwd", "reduce_ln_splits", "linear_wgrad",
+                                  "reduce_wgrad_splits")}
         ptxas = [_build.ptxas_report(Path(src).name)  # beside the build
                  for src in ptxas_sources]
         _build.library()
@@ -731,6 +740,22 @@ def main() -> int:
                         note_bf16(name + tag, out, plain_fn(), "")
                 if f32:
                     note(name, worst[0], KERNEL_TOL, f" (max rel {worst[1]:.3e})")
+            if f32:
+                # the float32 K1b (csrc/fused_block.cu, sgemm_f32.cuh): each site
+                # twice, with and without its save outputs, for the same bits
+                for site, args, eps in ((" out projection", (attn, wout, bout, xd, g1, b1),
+                                         EPS1),
+                                        (" FFN2", (hid, w2, b2f, x2, g2, b2), EPS2)):
+                    for save in (False, True):
+                        first, again = (fused_block.linear_residual_ln(*args, eps, vl, save=save)
+                                        for _ in range(2))
+                        torch.cuda.synchronize()
+                        firsts = first if save else (first,)
+                        agains = again if save else (again,)
+                        ph.check(all(torch.equal(a_, b_) for a_, b_ in zip(firsts, agains)),
+                                 f"linear_residual_ln_fwd{site}{' save' * save}: the same bits "
+                                 f"on a second call")
+                        del first, again, firsts, agains
             if not f32:
                 # the tensor-core K1a, K1c and K1b (csrc/linear_fwd_bf16.cu): K1a
                 # and each K1b site also with its save outputs (out, LN stats,
@@ -1304,18 +1329,21 @@ def main() -> int:
                  f"{tcounts_b}), depth {len(backbone_b.blocks)}: dino_loss {losses_b}, finite "
                  f"({train_b_s:.2f} s)")
         ph.check(launches == expected_b, f"bf16 launches {launches} == expected {expected_b}")
-        # linear_wgrad_bf16's partial sums at this batch (2 crops a sequence,
-        # s_pad up to 2048), against the float32 instance's plan of one
-        # partial per chunk of rows
-        seqs, s_max = 2 * TRAIN_BF16_B, 2048
-        scratch = []
-        for n, k in fused_block.WGRAD_BF16_TILES:
-            splits = fused_block.wgrad_splits(seqs, s_max, n, k)
-            chunks = seqs * s_max // fused_block.wgrad_chunk(s_max)
-            scratch.append(f"({n}, {k}) {splits} splits {splits * (n * k + n) * 4 / 1e6:.2f} MB "
-                           f"(chunk plan {chunks * (n * k + n) * 4 / 1e6:.1f} MB)")
-        log(f"  linear_wgrad_bf16 partial scratch per weight shape (N, K) at {seqs} sequences "
-            f"of {s_max} rows: " + ", ".join(scratch))
+        # the partial sums of linear_wgrad_bf16 at this batch (2 crops a
+        # sequence, s_pad up to 2048), and of the float32 linear_wgrad at the
+        # float32 train batch and at this one: a plan that does not grow with
+        # the batch
+        s_max = 2048
+        for tag, dt, batches in (("_bf16", bf16, (2 * TRAIN_BF16_B,)),
+                                 ("", torch.float32, (2 * TRAIN_B, 2 * TRAIN_BF16_B))):
+            for seqs in batches:
+                scratch = []
+                for n, k in fused_block.WGRAD_BF16_TILES:
+                    splits = fused_block.wgrad_splits(seqs, s_max, n, k, dt)
+                    scratch.append(f"({n}, {k}) {splits} splits "
+                                   f"{splits * (n * k + n) * 4 / 1e6:.2f} MB")
+                log(f"  linear_wgrad{tag} partial scratch per weight shape (N, K) at {seqs} "
+                    f"sequences of {s_max} rows: " + ", ".join(scratch))
         splits = fused_block.layernorm_bwd_splits(seqs, s_max)
         log(f"  layernorm_bwd partial scratch at {seqs} sequences of {s_max} rows: {splits} splits "
             f"{splits * 2 * D * 4 / 1e6:.2f} MB (one partial per 32-row tile: "
@@ -1814,10 +1842,12 @@ def main() -> int:
                 f"{busy:.2f} ms ({100 * busy / (wall * 1e3):.1f} %), {len(events)} kernel "
                 f"names; by device time:")
             ranked = sorted(events, key=lambda e: -e.self_device_time_total)
-            # the top kernels, and K1a's and K2a's (both passes) wherever they rank
+            # the top kernels, and K1a's, K1b's and the two passes of K2a and
+            # K2c wherever they rank
             for rank, e in enumerate(ranked):
-                if rank < top or any(k in e.key for k in ("ln_linear", "layernorm_bwd",
-                                                          "reduce_ln_splits")):
+                if rank < top or any(k in e.key for k in (
+                        "ln_linear", "linear_residual_ln", "layernorm_bwd", "reduce_ln_splits",
+                        "linear_wgrad", "reduce_wgrad_splits")):
                     ms = e.self_device_time_total / 1e3
                     log(f"    {ms:9.3f} ms {100 * ms / busy:5.1f} % x{e.count:<5d} "
                         f"#{rank + 1:<3d} {e.key[:90]}")

@@ -325,12 +325,7 @@ def test_dgrad_takes_one_epilogue(cuda_route):
                                  relu_of=_z(2, 128, f), residual=_z(2, 128, f))
 
 
-@pytest.mark.parametrize("s_pad, chunk", [(2048, 1024), (640, 128), (1792, 256), (128, 128)])
-def test_wgrad_chunk_divides_the_sequence(s_pad, chunk):
-    assert fused_block.wgrad_chunk(s_pad) == chunk
-
-
-# ---- the split plan of the bf16 linear_wgrad ---------------------------------
+# ---- the split plan of linear_wgrad (both dtypes) ------------------------------
 def _computed_tiles(valid_len, s_pad):
     rb = fused_block.ROW_BLOCK
     return [b * s_pad + t for b, n in enumerate(valid_len) for t in range(0, s_pad, rb)
@@ -353,16 +348,33 @@ def test_wgrad_split_plan_covers_every_computed_tile_once_in_order(s_pad, valid_
     assert max(sizes) - min(sizes) <= 1  # contiguous shares of near-equal size
 
 
+WGRAD_TILES = {torch.bfloat16: (fused_block.WGRAD_BF16_TILES, fused_block.WGRAD_BF16_BLOCKS),
+               torch.float32: (fused_block.WGRAD_F32_TILES, fused_block.WGRAD_F32_BLOCKS)}
+
+
 @pytest.mark.parametrize("n, k", sorted(fused_block.WGRAD_BF16_TILES))
-def test_wgrad_splits_stay_bounded_as_the_batch_grows(n, k):
-    tn, tk = fused_block.WGRAD_BF16_TILES[(n, k)]
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wgrad_splits_stay_bounded_as_the_batch_grows(n, k, dtype):
+    table, blocks = WGRAD_TILES[dtype]
+    tn, tk = table[(n, k)]
     assert n % tn == 0 and k % tk == 0
     tiles = (n // tn) * (k // tk)
-    splits = [fused_block.wgrad_splits(bsz, 2048, n, k) for bsz in (1, 8, 64, 256, 1024)]
+    splits = [fused_block.wgrad_splits(bsz, 2048, n, k, dtype) for bsz in (1, 8, 64, 256, 1024)]
     assert splits[0] <= 2048 // fused_block.ROW_BLOCK
     assert len(set(splits)) == 1  # the partial scratch does not grow with the batch
-    assert tiles * splits[0] <= fused_block.WGRAD_BF16_BLOCKS  # one wave on the card
-    assert fused_block.wgrad_splits(1, 32, n, k) == 1  # no more splits than 32-row tiles
+    assert tiles * splits[0] <= blocks  # one wave on the card
+    assert fused_block.wgrad_splits(1, 32, n, k, dtype) == 1  # no more splits than 32-row tiles
+
+
+@pytest.mark.parametrize("n, k", sorted(fused_block.WGRAD_F32_TILES))
+def test_wgrad_f32_tiles_span_the_192_wide_side(n, k):
+    """The float32 kernel's tile takes the 192-wide side of dW whole and 64 of
+    the other, so the 2048-wide operand is read once; six warps of 32 x 64."""
+    tn, tk = fused_block.WGRAD_F32_TILES[(n, k)]
+    d = fused_block.D_MODEL
+    assert (tn, tk) == ((d, 64) if k == fused_block.D_FFN else (64, d))
+    assert (tn // 32) * (tk // 64) == 6 and n % tn == 0 and k % tk == 0
+    assert set(fused_block.WGRAD_F32_TILES) == set(fused_block.WGRAD_BF16_TILES)
 
 
 @pytest.mark.parametrize("n, k", sorted(fused_block.WGRAD_BF16_TILES))
@@ -376,8 +388,7 @@ def test_wgrad_passes_its_row_plan_to_the_kernel(fake_cuda, n, k, dtype):
     fused_block.linear_wgrad(torch.zeros(bsz, s, n, dtype=dtype),
                              torch.zeros(bsz, s, k, dtype=dtype), vl, ln=ln)
     (name,), (args,) = fake_cuda.calls, fake_cuda.args
-    plan = (fused_block.wgrad_splits(bsz, s, n, k) if dtype == torch.bfloat16
-            else fused_block.wgrad_chunk(s))
+    plan = fused_block.wgrad_splits(bsz, s, n, k, dtype)
     assert name == _launch.entry_point("linear_wgrad", dtype)
     assert args[-2] == plan and args[-6:-2] == (bsz * s, n, k, s)
 

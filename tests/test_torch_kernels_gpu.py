@@ -721,3 +721,70 @@ def test_layernorm_bwd_at_the_train_batch(dev, dtype, accumulate):
         _assert_bf16_close(dgb, rdgb)
         for i, n in enumerate(rows):
             assert not dx[i, n:].any().item()
+
+
+# ---- the float32 linear_residual_ln (K1b) and linear_wgrad (K2c) redesigned ----
+# on the shared main loop of csrc/sgemm_f32.cuh: each against its plain float32
+# version (the tolerances above: 1e-4 absolute on the rows the forward computes;
+# for dW and db 1e-4 times the reference's largest entry where that exceeds 1),
+# at every kind of prefix (an image with no valid row, one row, 33 rows and a
+# whole sequence), with S_pad a multiple of 32 but not of 64, at the hub's
+# shapes and at the f32 train batch's 16 sequences. The 32-row tiles past the
+# prefix get exact zeros; a second call repeats the bits.
+F32_BATCHES = {"ragged": (2048, [0, 1, 33, 2048, 197, 1961]),
+               "odd": (96, [0, 1, 33, 96, 64, 65]),
+               "hub": (2048, _HUB), "train": (2048, _TRAIN[:16])}
+F32_WGRAD_SITES = {"qkv": (3 * D, D), "qkv_ln": (3 * D, D), "out": (D, D), "ffn1": (F, D),
+                   "ffn2": (D, F)}
+
+
+@pytest.mark.parametrize("save", [False, True])
+@pytest.mark.parametrize("k", [D, F])
+@pytest.mark.parametrize("batch", list(F32_BATCHES))
+def test_f32_linear_residual_ln_at_both_sites(dev, batch, k, save):
+    s, valid = F32_BATCHES[batch]
+    rng = np.random.default_rng(len(valid) + k + save)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    bsz = len(valid)
+    a, w, b = _randn(rng, dev, bsz, s, k), _randn(rng, dev, D, k, scale=k ** -0.5), \
+        _randn(rng, dev, D, scale=0.1)
+    res = _randn(rng, dev, bsz, s, D)
+    g, beta = 1 + _randn(rng, dev, D, scale=0.1), _randn(rng, dev, D, scale=0.1)
+    before = _launch.LAUNCHES["linear_residual_ln_fwd"]
+    with torch.no_grad():
+        out, again = (fused_block.linear_residual_ln(a, w, b, res, g, beta, 1e-5, vl, save=save)
+                      for _ in range(2))
+    assert _launch.LAUNCHES["linear_residual_ln_fwd"] == before + 2
+    ref = fused_block.linear_residual_ln_reference(a, w, b, res, g, beta, 1e-5, save=save)
+    outs, agains, refs = (out, again, ref) if save else ((out,), (again,), (ref,))
+    rows = [min(-(-n // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK, s) for n in valid]
+    for o, ag, r in zip(outs, agains, refs):
+        assert torch.equal(o, ag), "a second call gives other bits"
+        assert o.dtype == torch.float32
+        o, r = (o, r) if o.dim() == 3 else (o[..., None], r[..., None])
+        some = [i for i, n in enumerate(rows) if n]  # images with a computed tile
+        _assert_valid_rows_close(o[some], r[some], [rows[i] for i in some])
+        for i, n in enumerate(rows):  # the zero-filled tiles get exact zeros
+            assert not o[i, n:].any().item()
+
+
+@pytest.mark.parametrize("site", list(F32_WGRAD_SITES))
+@pytest.mark.parametrize("batch", list(F32_BATCHES))
+def test_f32_linear_wgrad_at_every_site(dev, batch, site):
+    s, valid = F32_BATCHES[batch]
+    rng = np.random.default_rng(len(valid) + list(F32_WGRAD_SITES).index(site))
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    bsz, (n, k) = len(valid), F32_WGRAD_SITES[site]
+    dy, x = _randn(rng, dev, bsz, s, n), _randn(rng, dev, bsz, s, k)
+    ln = None
+    if site == "qkv_ln":
+        ln = (_randn(rng, dev, bsz, s, scale=0.1), 1 + _randn(rng, dev, bsz, s, scale=0.1).abs(),
+              1 + _randn(rng, dev, k, scale=0.1), _randn(rng, dev, k, scale=0.1))
+    before = _launch.LAUNCHES["linear_wgrad"]
+    out, again = (fused_block.linear_wgrad(dy, x, vl, ln=ln) for _ in range(2))
+    assert _launch.LAUNCHES["linear_wgrad"] == before + 2
+    ref = fused_block.linear_wgrad_reference(dy, x, vl, ln=ln)
+    for o, ag, r in zip(out, again, ref):
+        assert torch.equal(o, ag), "a second call gives other bits"
+        assert o.dtype == torch.float32 and o.shape == r.shape
+        _assert_grad_close(o, r, valid)
