@@ -51,7 +51,7 @@
 //
 // The bf16 instances of linear_dgrad and linear_wgrad are tensor-core kernels
 // of their own (linear_bwd_bf16.cu); the float32 ones here stay on CUDA cores,
-// linear_wgrad on the shared main loop of sgemm_f32.cuh.
+// on the shared main loop of sgemm_f32.cuh.
 // The bf16 instance of layernorm_bwd (T = bf16) takes bf16 activations and
 // writes a bf16 dx, rounded once; the LN parameters, the saved stats, the
 // partial sums and dgamma/dbeta stay f32, so the fixed-order reduce is the f32
@@ -62,6 +62,8 @@
 
 #include "gemm_common.cuh"
 #include "sgemm_f32.cuh"
+
+#include <cooperative_groups.h>
 
 namespace {
 
@@ -168,35 +170,179 @@ reduce_ln_splits_kernel(const float* __restrict__ partial, float* __restrict__ o
   }
 }
 
-// ---- linear_dgrad: out = dY @ W (+ epilogue), grid (M / BM, N / BN) ----------
-template <int BN, int EPI, typename T>
-__global__ void __launch_bounds__(NT)
-linear_dgrad_kernel(const T* __restrict__ dy, const T* __restrict__ w,
-                    const T* __restrict__ aux, T* __restrict__ out,
+// ---- linear_dgrad (float32): out = dY @ W (+ epilogue) -----------------------
+// Redesigned for Hopper's CUDA cores on the shared main loop of
+// sgemm_f32.cuh; the bf16 instance is linear_bwd_bf16.cu's.
+//
+// Replaces the data gradients of the TPU kernel
+// chadavit_tpu/ops/fused_block.py::_bwd_kernel (:211): the _nt products at
+// :318 (FFN2 -> hid, with the ReLU mask), :323 (FFN1 -> x2, plus the
+// residual's cotangent), :339 (the out-projection) and :423 (QKV -> h).
+//
+// What bounds it: operations. At hub shapes the four sites do 17 GFLOP on
+// the rows the forward computed, against about 0.2 GB of inputs and outputs,
+// so 67 TFLOP/s of f32 FMA is the limit. The design:
+// - a block owns one 32-row tile of the contract and BN output columns: all
+//   192 at the out-projection, QKV and FFN1 sites, 256 of hid's 2048 at FFN2
+//   (so that site's grid is 8 column slices a row tile); each warp takes 32
+//   rows x 64 columns, a thread 8 rows x 8 columns (64 sums: rows ty + 4 i,
+//   columns 4 tx + {0..3} and 32 + 4 tx + {0..3} of its warp's);
+// - dY (K contiguous) and W (read as (K, N): N contiguous) are staged as they
+//   lie in memory, DG_BK = 16 columns of K a stage, by 16-byte cp.async
+//   copies into a ring of DG_STAGES slots, one barrier a stage; dY's rows are
+//   padded to 20 floats. A thread reads a float4 of each of its 8 rows over
+//   four k (a quarter warp reads one row: a broadcast) and two float4 of each
+//   of those four rows of W (a quarter warp reads 128 contiguous bytes):
+//   16 reads of 16 bytes feed 256 FMAs (sgemm::outer4), summed in k order;
+// - at FFN1 (K 2048) and QKV (K 576) a cluster of two blocks shares the row
+//   tile and block `rank` sums K range [rank K / SPLIT, (rank + 1) K /
+//   SPLIT): the hub's 293 computed row tiles become 586 blocks, 4.4 an SM,
+//   where whole tiles are 2.2 an SM and the SMs that get 3 set the time
+//   (scripts/bench_linear_f32.py: FFN1 0.3155 ms whole, 0.2696 split in
+//   two; QKV 0.1006 and 0.0833, NVIDIA H100 80GB HBM3, 700 W). Each block
+//   writes its sums into a row tile that reuses the ring; after a cluster
+//   barrier block `rank` adds the SPLIT tiles of its 32 / SPLIT rows in rank
+//   order through distributed shared memory (the same bits on every run)
+//   and adds the residual; a second cluster barrier keeps every tile in
+//   place until its readers are done;
+// - the epilogue (ReLU mask from the recomputed hid, the residual add) works
+//   on 16-byte loads and stores.
+// A 32-row tile wholly past valid_len is written as zeros and not read; the
+// decision is the same for every block of a cluster and taken before any
+// barrier. DG_SPLIT_FFN and DG_SPLIT_QKV set the cluster sizes of the FFN1
+// and QKV (K 576) sites, so that scripts/bench_linear_f32.py can time other
+// splits of the same source; the out-projection (K 192) takes no split.
+#ifndef DG_SPLIT_FFN
+#define DG_SPLIT_FFN 2
+#endif
+#ifndef DG_SPLIT_QKV
+#define DG_SPLIT_QKV 2
+#endif
+constexpr int DG_BK = 16;
+constexpr int DG_LDA = DG_BK + 4;  // a staged dY row, padded
+constexpr int DG_STAGES = 4;
+constexpr int DG_TM = 8, DG_TN = 8;  // a thread's rows and columns
+constexpr int DG_WN = 64;            // a warp's columns: 4 row groups x 8 column groups
+
+template <int BN>
+__host__ __device__ constexpr int dgrad_stage() {  // floats of a stage: dY's slice, W's
+  return BM * DG_LDA + DG_BK * BN;
+}
+template <int BN>
+constexpr int dgrad_smem() {
+  return DG_STAGES * dgrad_stage<BN>() * 4;
+}
+
+template <int BN, int EPI, int SPLIT>
+__global__ void __launch_bounds__(BN / DG_WN * 32, 3)
+linear_dgrad_kernel(const float* __restrict__ dy, const float* __restrict__ w,
+                    const float* __restrict__ aux, float* __restrict__ out,
                     const int* __restrict__ valid_len, int K, int N, int s_pad) {
-  constexpr int TN = BN / 16;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  if (tile_is_padding(m0, s_pad, valid_len)) {
-    zero_tile<BN>(out, N, m0, n0);
+  constexpr int THREADS = BN / DG_WN * 32, STAGE = dgrad_stage<BN>();
+  constexpr int ROWS = BM / SPLIT;  // rows a block writes
+  constexpr int LDR = BN + 4;       // the row tile of sums (SPLIT > 1)
+  static_assert(BN % DG_WN == 0 && BM == 4 * DG_TM && BM % SPLIT == 0 &&
+                    BM * LDR <= DG_STAGES * STAGE,
+                "linear_dgrad tile shape");
+  namespace cg = cooperative_groups;
+  const int rank = SPLIT > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int m0 = blockIdx.x / SPLIT * BM, n0 = blockIdx.y * BN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tile_is_padding(m0, s_pad, valid_len)) {  // the whole cluster, before any barrier
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = tid; c < ROWS * BN / 4; c += THREADS) {
+      const int r = m0 + rank * ROWS + c / (BN / 4), cc = c % (BN / 4) * 4;
+      *reinterpret_cast<float4*>(out + (size_t)r * N + n0 + cc) = z;
+    }
     return;
   }
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Ws[BK][BN + 1];
-  float acc[2][TN];
-  gemm_tile<BN, false, false>(dy, K, w, N, K, m0, n0, nullptr, nullptr, nullptr,
-                              nullptr, As, Ws, acc);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = m0 + 2 * ty + i;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const size_t o = (size_t)row * N + n0 + tx + 16 * j;
-      float v = acc[i][j];
-      if (EPI == EPI_RELU_MASK) v = to_f(aux[o]) > 0.f ? v : 0.f;
-      if (EPI == EPI_RESIDUAL) v = to_f(aux[o]) + v;
-      out[o] = from_f<T>(v);
+  extern __shared__ __align__(16) float dg_smem[];
+  const int ty = lane >> 3, tx = lane & 7, wc = warp * DG_WN;
+  const int kpart = K / SPLIT, kbase = rank * kpart;
+
+  auto load = [&](int s, int slot) {  // K columns [s BK, (s + 1) BK) of the block's range
+    float* as = dg_smem + slot * STAGE;
+    float* ws = as + BM * DG_LDA;
+    const int k0 = kbase + s * DG_BK;
+    for (int c = tid; c < BM * DG_BK / 4; c += THREADS) {
+      const int r = c / (DG_BK / 4), cc = c % (DG_BK / 4) * 4;
+      sgemm::cp_async_16(as + r * DG_LDA + cc, dy + (size_t)(m0 + r) * K + k0 + cc);
     }
+#pragma unroll
+    for (int q = 0; q < DG_BK * BN / 4 / THREADS; ++q) {
+      const int c = tid + q * THREADS;
+      const int r = c / (BN / 4), cc = c % (BN / 4) * 4;
+      sgemm::cp_async_16(ws + r * BN + cc, w + (size_t)(k0 + r) * N + n0 + cc);
+    }
+  };
+  float acc[DG_TM][DG_TN];
+#pragma unroll
+  for (int i = 0; i < DG_TM; ++i)
+#pragma unroll
+    for (int j = 0; j < DG_TN; ++j) acc[i][j] = 0.f;
+  sgemm::ring<DG_STAGES>(kpart / DG_BK, load, [&](int, int slot) {
+    const float* as = dg_smem + slot * STAGE + ty * DG_LDA;
+    const float* ws = dg_smem + slot * STAGE + BM * DG_LDA + wc + 4 * tx;
+#pragma unroll
+    for (int kk = 0; kk < DG_BK; kk += 4) {
+      float4 av[DG_TM];
+      float bv[4][DG_TN];
+#pragma unroll
+      for (int i = 0; i < DG_TM; ++i) av[i] = load4(as + i * 4 * DG_LDA + kk);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        *reinterpret_cast<float4*>(bv[q]) = load4(ws + (kk + q) * BN);
+        *reinterpret_cast<float4*>(bv[q] + 4) = load4(ws + (kk + q) * BN + 32);
+      }
+      sgemm::outer4(acc, av, bv);
+    }
+  });
+
+  // out = acc [aux > 0] or aux + acc, 16 bytes at a time
+  auto finish = [&](float4 v, size_t o) {
+    if constexpr (EPI == EPI_RELU_MASK) {
+      const float4 h = load4(aux + o);
+      v.x = h.x > 0.f ? v.x : 0.f;
+      v.y = h.y > 0.f ? v.y : 0.f;
+      v.z = h.z > 0.f ? v.z : 0.f;
+      v.w = h.w > 0.f ? v.w : 0.f;
+    } else if constexpr (EPI == EPI_RESIDUAL) {
+      const float4 r = load4(aux + o);
+      v = make_float4(r.x + v.x, r.y + v.y, r.z + v.z, r.w + v.w);
+    }
+    *reinterpret_cast<float4*>(out + o) = v;
+  };
+  if constexpr (SPLIT == 1) {
+#pragma unroll
+    for (int i = 0; i < DG_TM; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        finish(make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]),
+               (size_t)(m0 + ty + 4 * i) * N + n0 + wc + 4 * tx + 32 * h);
+  } else {
+    __syncthreads();  // every warp is done with the ring: it becomes the row tile
+    float* rt = dg_smem;
+#pragma unroll
+    for (int i = 0; i < DG_TM; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float4*>(rt + (ty + 4 * i) * LDR + wc + 4 * tx + 32 * h) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+    cg::this_cluster().sync();  // every block's sums are in place
+    const float* tiles[SPLIT];
+#pragma unroll
+    for (int q = 0; q < SPLIT; ++q) tiles[q] = cg::this_cluster().map_shared_rank(rt, q);
+    for (int c = tid; c < ROWS * BN / 4; c += THREADS) {
+      const int r = rank * ROWS + c / (BN / 4), cc = c % (BN / 4) * 4;
+      float4 p = load4(tiles[0] + r * LDR + cc);
+#pragma unroll
+      for (int q = 1; q < SPLIT; ++q) {  // in rank order
+        const float4 t = load4(tiles[q] + r * LDR + cc);
+        p = make_float4(p.x + t.x, p.y + t.y, p.z + t.z, p.w + t.w);
+      }
+      finish(p, (size_t)(m0 + r) * N + n0 + cc);
+    }
+    cg::this_cluster().sync();  // the tiles stay until read
   }
 }
 
@@ -420,25 +566,28 @@ int layernorm_bwd_launch(const T* dy, const T* xin, const float* mean,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int linear_dgrad_launch(const T* dy, const T* w, const T* aux, T* out,
-                        int epilogue, const int* valid_len, int M, int K, int N,
-                        int s_pad, void* stream) {
-  if (!rows_ok(M, K, s_pad) || !is_weight_shape(K, N) ||
-      (epilogue != EPI_NONE) != (aux != nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N == D_FFN && epilogue == EPI_RELU_MASK)
-    linear_dgrad_kernel<128, EPI_RELU_MASK, T><<<dim3(M / BM, N / 128), NT, 0, st>>>(
-        dy, w, aux, out, valid_len, K, N, s_pad);
-  else if (N == D_MODEL && epilogue == EPI_RESIDUAL)
-    linear_dgrad_kernel<D_MODEL, EPI_RESIDUAL, T><<<dim3(M / BM), NT, 0, st>>>(
-        dy, w, aux, out, valid_len, K, N, s_pad);
-  else if (N == D_MODEL && epilogue == EPI_NONE)
-    linear_dgrad_kernel<D_MODEL, EPI_NONE, T><<<dim3(M / BM), NT, 0, st>>>(
-        dy, w, aux, out, valid_len, K, N, s_pad);
-  else
-    return (int)cudaErrorInvalidValue;
+template <int BN, int EPI, int SPLIT>
+int dgrad_launch(const float* dy, const float* w, const float* aux, float* out,
+                 const int* valid_len, int M, int K, int N, int s_pad, cudaStream_t st) {
+  constexpr int smem = dgrad_smem<BN>();
+  if (K % (SPLIT * DG_BK)) return (int)cudaErrorInvalidValue;  // whole K slices a block
+  auto kernel = linear_dgrad_kernel<BN, EPI, SPLIT>;
+  int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != 0) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(M / BM * SPLIT, N / BN);
+  cfg.blockDim = dim3(BN / DG_WN * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = SPLIT;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = (int)cudaLaunchKernelEx(&cfg, kernel, dy, w, aux, out, valid_len, K, N, s_pad);
+  if (e != 0) return e;
   return (int)cudaGetLastError();
 }
 
@@ -494,8 +643,21 @@ int layernorm_bwd_bf16(const bf16* dy, const bf16* xin, const float* mean,
 int linear_dgrad(const float* dy, const float* w, const float* aux, float* out,
                  int epilogue, const int* valid_len, int M, int K, int N,
                  int s_pad, void* stream) {
-  return linear_dgrad_launch(dy, w, aux, out, epilogue, valid_len, M, K, N, s_pad,
-                             stream);
+  if (!rows_ok(M, K, s_pad) || !is_weight_shape(K, N) ||
+      (epilogue != EPI_NONE) != (aux != nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N == D_FFN && epilogue == EPI_RELU_MASK)  // FFN2 -> hid
+    return dgrad_launch<256, EPI_RELU_MASK, 1>(dy, w, aux, out, valid_len, M, K, N, s_pad, st);
+  if (N == D_MODEL && epilogue == EPI_RESIDUAL)  // FFN1 -> x2
+    return dgrad_launch<D_MODEL, EPI_RESIDUAL, DG_SPLIT_FFN>(dy, w, aux, out, valid_len, M, K,
+                                                             N, s_pad, st);
+  if (N == D_MODEL && K == 3 * D_MODEL && epilogue == EPI_NONE)  // QKV
+    return dgrad_launch<D_MODEL, EPI_NONE, DG_SPLIT_QKV>(dy, w, aux, out, valid_len, M, K, N,
+                                                         s_pad, st);
+  if (N == D_MODEL && epilogue == EPI_NONE)  // out-projection
+    return dgrad_launch<D_MODEL, EPI_NONE, 1>(dy, w, aux, out, valid_len, M, K, N, s_pad, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // dy (M, N), x (M, K); dwb: (N * K + N,) = dW (N, K) row-major, then db (N,).

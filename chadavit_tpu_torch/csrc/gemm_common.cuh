@@ -58,13 +58,12 @@ __device__ void row_stats(const T* x, int ld, int K, int m0, float eps,
   }
 }
 
-// acc[i][j] = sum_k A'[m0 + 2 ty + i, k] * W'[n0 + tx + 16 j, k], where A' is
+// acc[i][j] = sum_k A'[m0 + 2 ty + i, k] * W[n0 + tx + 16 j, k], where A' is
 // A, or LN(A) with the row stats in s_mu/s_rstd and the affine g/beta when
 // LN_A (rounded to T, as the JAX kernel casts h to dt). A is (rows, lda)
-// row-major. W' is W when W_NK (W (N, K) row-major, the torch Linear layout:
-// the forward's x @ W^T), else W^T (W (K, N) row-major: the backward's
-// dY @ W). ldw is W's row stride.
-template <int BN, bool LN_A, bool W_NK = true, typename T = float>
+// row-major, W (N, K) row-major (the torch Linear layout: the forward's
+// x @ W^T) with row stride ldw.
+template <int BN, bool LN_A, typename T = float>
 __device__ void gemm_tile(const T* __restrict__ A, int lda,
                           const T* __restrict__ W, int ldw, int K, int m0,
                           int n0,
@@ -94,23 +93,14 @@ __device__ void gemm_tile(const T* __restrict__ A, int lda,
       }
     }
 #pragma unroll
-    for (int it = 0; it < BN * BK / 4 / NT; ++it) {  // W tile: BN x BK
+    for (int it = 0; it < BN * BK / 4 / NT; ++it) {  // W tile: BN x BK, four along k
       const int idx = tid + it * NT;
-      if (W_NK) {  // four along k
-        const int n = idx / 8, c = (idx % 8) * 4;
-        const float4 v = load4(W + (size_t)(n0 + n) * ldw + k0 + c);
-        Ws[c][n] = v.x;
-        Ws[c + 1][n] = v.y;
-        Ws[c + 2][n] = v.z;
-        Ws[c + 3][n] = v.w;
-      } else {  // four along n
-        const int c = idx / (BN / 4), n = (idx % (BN / 4)) * 4;
-        const float4 v = load4(W + (size_t)(k0 + c) * ldw + n0 + n);
-        Ws[c][n] = v.x;
-        Ws[c][n + 1] = v.y;
-        Ws[c][n + 2] = v.z;
-        Ws[c][n + 3] = v.w;
-      }
+      const int n = idx / 8, c = (idx % 8) * 4;
+      const float4 v = load4(W + (size_t)(n0 + n) * ldw + k0 + c);
+      Ws[c][n] = v.x;
+      Ws[c + 1][n] = v.y;
+      Ws[c + 2][n] = v.z;
+      Ws[c + 3][n] = v.w;
     }
     __syncthreads();
 #pragma unroll

@@ -8,34 +8,68 @@
 //
 // The formulation is the TPU kernel's: the forward's base-2 lse makes the
 // softmax exact without a running max, and per query row
-//   delta = rowsum(do * o)                       (one small pass, delta_kernel)
+//   delta = rowsum(do * o)                       (the prep pass)
 //   p     = exp2(q k^T scale log2(e) - lse)
 //   dv    = p^T do,  dp = do v^T,  ds = p (dp - delta)
 //   dk    = ds^T q scale,  dq = ds k scale
-// The scale and log2(e) are folded into q as it is staged, so dk carries a
-// 1/log2(e) fix at write-out and dq the plain scale.
+// The scale and log2(e) are folded into q once, by the prep pass (qs = q
+// qscale, into scratch), so dk carries a 1/log2(e) fix at write-out and dq
+// the plain scale.
 //
-// What bounds it on an H100: per (image, head) it does 10 * vl^2 * hd
-// operations (the scores twice, dp twice, dv, dk, dq), so it is bound by
-// operations (67 TFLOP/s of f32 FMA). The TPU kernel recomputes the scores once
-// per key block for all queries and sums dq in one VMEM scratch across its
-// sequential key loop. Blocks on Hopper run in no order, so dq is not summed
-// across blocks: a second kernel (dq_kernel) owns 64 queries and walks the key
-// blocks itself, recomputing the scores once more. Every sum then has one
-// owner and a fixed order, and the result is the same from run to run; the
-// price is the second score recompute (2 of the 10 vl^2 hd terms).
+// What bounds it on an H100: per (image, head) it needs 10 * vl^2 * hd
+// operations (the scores, dp, dv, dk, dq) on about 7 vl hd floats, so it is
+// bound by operations (67 TFLOP/s of f32 FMA). The TPU kernel recomputes the
+// scores once per key block for all queries and sums dq in one VMEM scratch
+// across its sequential key loop. Blocks on Hopper run in no order, so dq is
+// not summed across blocks: other blocks (dq_block) own 64 queries and walk
+// the key blocks themselves, recomputing the scores once more. Every sum
+// then has one owner and a fixed order, and the result is the same from run
+// to run; the price is the second score recompute (the kernels do 14 vl^2 hd
+// operations for the 10 the function needs).
 //
-// dkdv_kernel: a block owns BKV = 64 keys of one head and walks the query
-// tiles below valid_len[b]; dq_kernel: a block owns BQ = 64 queries and walks
-// the key tiles below valid_len[b]. The contract is the TPU kernel's: the
-// forward (prefix_attention.cu) computes every query of a 64-row tile that
-// holds a valid query for real, also those past valid_len, so the backward is
-// exact for any cotangent on them: every query row of such a tile takes part,
-// with the forward's lse. Tiles wholly past the prefix were zero-filled (lse
-// 1e30): they give nothing, and a block that owns one writes zeros and returns
-// (dq 0 there). Keys at or past valid_len stay masked (p = 0), so their dk and
-// dv are exact zeros. Every such decision is uniform per block and taken
-// before the first barrier.
+// After the prep pass, one launch (attention_bwd_kernel) runs both kinds of
+// block: dkdv_block owns BT = 64 keys of one head and walks the query tiles
+// below valid_len[b]; dq_block owns BT = 64 queries and walks the key tiles
+// below valid_len[b]. The design, for the CUDA cores:
+// - the walked tiles (qs, dO, lse and delta in dkdv; K and V in dq) come
+//   through a two-slot ring of 16-byte cp.async copies (sgemm_f32.cuh), one
+//   barrier a tile, the next tile in flight while this one is multiplied; the
+//   block's own tiles (K and V; qs, dO, lse and delta) join the first copy
+//   group. Head rows are staged as they lie, d contiguous, padded to 100
+//   floats so that the 8 rows a quarter warp reads lie in distinct banks;
+// - the 8 warps pair up: warp w < 4 computes the scores S (K qs^T in dkdv, qs
+//   K^T in dq) of 16 of the block's rows against the tile's 64, warp w + 4
+//   dP (V dO^T, dO V^T) of the same entries; a thread holds 4 x 8 of them and
+//   reads a float4 of each of its 4 rows and 8 columns over four d (dot4:
+//   12 reads of 16 bytes for 128 FMAs). Warp w writes P = exp2(S - lse) (0
+//   past valid_len) into shared memory and hands it to warp w + 4 through a
+//   named barrier of the two warps; warp w + 4 forms dS = P (dP - delta);
+// - the second products read P or dS a float4 of 4 rows at a time and dO, qs
+//   or K three float4 of 12 head columns (sgemm::outer: 4 reads for 48
+//   FMAs): in dkdv warp w sums dV += P^T dO and warp w + 4 dK += dS^T qs, in
+//   dq warp w + 4 sums dq += dS K; each warp reads only the P or dS rows that
+//   it wrote itself;
+// - one block an SM: K and V (or qs and dO) stay resident, and with the ring
+//   and P and dS a block takes 185 KB of shared memory. Two blocks an SM
+//   would leave room for no ring at all (one stage alone is 137 KB);
+// - the blocks take the images longest first: the prep pass writes the
+//   images' order by decreasing valid_len, and blocks 2 i and 2 i + 1 take
+//   the dk/dv and the dq of the i-th item of that order (image, head, tile),
+//   so the longest walks start first and the short ones, of both kinds, fill
+//   in behind them.
+// Every sum runs in the order of the old one-thread-a-product loops (d in
+// order, then queries or keys in order), so only the order against the plain
+// versions' matmuls differs.
+//
+// The contract is the TPU kernel's: the forward (prefix_attention.cu)
+// computes every query of a 64-row tile that holds a valid query for real,
+// also those past valid_len, so the backward is exact for any cotangent on
+// them: every query row of such a tile takes part, with the forward's lse.
+// Tiles wholly past the prefix were zero-filled (lse 1e30): they give nothing,
+// and a block that owns one writes zeros and returns (dq 0 there). Keys at or
+// past valid_len stay masked (p = 0), so their dk and dv are exact zeros.
+// Every such decision is uniform per block and taken before the first
+// barrier.
 //
 // q, k, v, o, do and the gradients are float32, so nothing rounds where the
 // JAX body (dtype-generic, flash_attention.py:157-230) casts to the input
@@ -43,25 +77,47 @@
 
 #include <math.h>
 
-#include "storage.cuh"
+#include "sgemm_f32.cuh"
 
 namespace {
 
-constexpr int BT = 64;    // query and key tile
-constexpr int NT = 256;   // threads, as a 16 x 16 grid
-constexpr int HEAD_DIM = 96;  // ChAdaViT-moyen: D 192, 2 heads; other widths are refused
-constexpr int LD = HEAD_DIM + 1;  // shared-memory row stride of a head tile
-constexpr int TN = HEAD_DIM / 16;  // head columns per thread
+constexpr int BT = 64;            // query and key tile
+constexpr int THREADS = 256;      // 8 warps: 4 pairs
+constexpr int HEAD_DIM = 96;      // ChAdaViT-moyen: D 192, 2 heads; other widths are refused
+constexpr int LDH = HEAD_DIM + 4;  // a staged head row, padded
+constexpr int LDP = BT + 4;        // a row of P or dS in shared memory
+constexpr int TILE_F = BT * LDH;   // floats of a staged (BT, HEAD_DIM) tile
+constexpr int STAGES = 2;
+constexpr int PREP_THREADS = 256;
 constexpr float INV_LOG2E = 0.6931471805599453f;
 
-// delta[(b * heads + h) * s_pad + r] = rowsum over head h of do * o, 0 on the
-// query tiles wholly past the prefix. One warp per (row, head); grid
-// (B * s_pad * heads / 8).
-__global__ void __launch_bounds__(NT)
-delta_kernel(const float* __restrict__ o, const float* __restrict__ dout, int ldo,
-             const int* __restrict__ valid_len, float* __restrict__ delta,
-             int heads, int s_pad, int total) {
-  const int item = blockIdx.x * (NT / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+// The prep pass. delta[(b * heads + h) * s_pad + r] = rowsum over head h of
+// do * o, 0 on the query tiles wholly past the prefix; qs = q qscale (rows of
+// heads * HEAD_DIM); one warp per (row, head), grid (B * s_pad * heads / 8).
+// Block 0 also writes order: the images by decreasing valid_len, ties by
+// index, the order in which attention_bwd_kernel takes them (in index
+// order when ATTN_BWD_IN_ORDER is defined: scripts/bench_attention_f32.py
+// times what the order is worth).
+__global__ void __launch_bounds__(PREP_THREADS)
+attention_bwd_prep_kernel(const float* __restrict__ q, int ld, const float* __restrict__ o,
+                          const float* __restrict__ dout, int ldo,
+                          const int* __restrict__ valid_len, float* __restrict__ delta,
+                          float* __restrict__ qs, int* __restrict__ order, int batch,
+                          int heads, int s_pad, int total, float qscale) {
+  if (blockIdx.x == 0)
+    for (int t = threadIdx.x; t < batch; t += PREP_THREADS) {
+      const int vt = valid_len[t];
+      int rank = 0;
+      for (int j = 0; j < batch; ++j) {
+        const int vj = valid_len[j];
+        rank += vj > vt || (vj == vt && j < t);
+      }
+#ifdef ATTN_BWD_IN_ORDER
+      rank = t;
+#endif
+      order[rank] = t;
+    }
+  const int item = blockIdx.x * (PREP_THREADS / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (item >= total) return;  // whole warps leave; there is no barrier
   const int h = item % heads, row = item / heads, b = row / s_pad;
   const int r = row - b * s_pad;
@@ -75,259 +131,320 @@ delta_kernel(const float* __restrict__ o, const float* __restrict__ dout, int ld
 #pragma unroll
   for (int w = 16; w > 0; w >>= 1) s += __shfl_xor_sync(0xffffffffu, s, w);
   if (lane == 0) delta[((size_t)b * heads + h) * s_pad + r] = s;
+  const float* qr = q + (size_t)row * ld + h * HEAD_DIM;
+  float* qsr = qs + (size_t)row * heads * HEAD_DIM + h * HEAD_DIM;
+#pragma unroll
+  for (int j = 0; j < HEAD_DIM / 32; ++j) qsr[lane + 32 * j] = qr[lane + 32 * j] * qscale;
 }
 
-// Stage BT rows x HEAD_DIM of a head (rows of ld elements from row0) into a
-// (BT, LD) shared tile, times mul (the scaled q; 1 for the others).
-__device__ __forceinline__ void stage(const float* __restrict__ src, int ld,
-                                      size_t row0, int col0, float* dst,
-                                      float mul) {
+// BT rows of a head (rows of ld floats from src) into a (BT, LDH) shared
+// tile, by cp.async; the caller commits
+__device__ __forceinline__ void copy_tile(float* dst, const float* __restrict__ src, int ld) {
   constexpr int V4 = HEAD_DIM / 4;
-  for (int idx = threadIdx.x; idx < BT * V4; idx += NT) {
-    const int r = idx / V4, c = (idx % V4) * 4;
-    const float4 t = load4(src + (row0 + r) * ld + col0 + c);
-    float* d = dst + r * LD + c;
-    d[0] = t.x * mul;
-    d[1] = t.y * mul;
-    d[2] = t.z * mul;
-    d[3] = t.w * mul;
+#pragma unroll
+  for (int i = 0; i < BT * V4 / THREADS; ++i) {
+    const int c = threadIdx.x + i * THREADS, r = c / V4, cc = c % V4 * 4;
+    sgemm::cp_async_16(dst + r * LDH + cc, src + (size_t)r * ld + cc);
   }
 }
 
-// sa[i][j] = A[4 ty + i] . B[tx + 16 j] and sb[i][j] = C[4 ty + i] . E[tx + 16 j]
-// over the head dim, A/B/C/E (BT, LD) shared tiles.
-__device__ __forceinline__ void two_score_tiles(const float* A, const float* Bm,
-                                                const float* C, const float* E,
-                                                float sa[4][4], float sb[4][4]) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+// BT rows of a head, of row stride ld, set to zero
+__device__ __forceinline__ void zero_rows(float* dst, int ld) {
+  constexpr int V4 = HEAD_DIM / 4;
+  for (int c = threadIdx.x; c < BT * V4; c += THREADS)
+    *reinterpret_cast<float4*>(dst + (size_t)(c / V4) * ld + c % V4 * 4) =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Warp w < 4 hands the P it wrote to warp w + 4 through named barrier 1 + w
+// of the two warps (64 threads): bar.arrive on one side, bar.sync on the other.
+__device__ __forceinline__ void pair_arrive(int pair) {
+  asm volatile("bar.arrive %0, 64;\n" ::"r"(pair + 1) : "memory");
+}
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(pair + 1) : "memory");
+}
+
+// A block's item: (image, head, first row of its tile).
+struct Item {
+  int b, h, t0;
+};
+
+// sc[i][j] = A[r + i] . B[c + 8 j] over the head's d, A and B (BT, LDH)
+// shared tiles: the thread's 4 rows of A against its 8 rows of B
+__device__ __forceinline__ void scores(float (&sc)[4][8], const float* A, int r, const float* B,
+                                       int c) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) sa[i][j] = sb[i][j] = 0.f;
+    for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
 #pragma unroll 4
-  for (int d = 0; d < HEAD_DIM; ++d) {
-    float a[4], bb[4], c[4], e[4];
+  for (int d = 0; d < HEAD_DIM; d += 4) {
+    float4 a[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = A[(4 * ty + i) * LD + d];
-      c[i] = C[(4 * ty + i) * LD + d];
-    }
+    for (int i = 0; i < 4; ++i) a[i] = load4(A + (r + i) * LDH + d);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      bb[j] = Bm[(tx + 16 * j) * LD + d];
-      e[j] = E[(tx + 16 * j) * LD + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sa[i][j] = fmaf(a[i], bb[j], sa[i][j]);
-        sb[i][j] = fmaf(c[i], e[j], sb[i][j]);
-      }
+    for (int j = 0; j < 8; ++j) sgemm::dot4(sc, j, a, load4(B + (c + 8 * j) * LDH + d));
   }
 }
 
-// dk and dv of BT keys of one head. Grid (s_pad / BT, heads, B).
-__global__ void __launch_bounds__(NT)
-dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, int ld, const float* __restrict__ dout,
-            int ldo, const float* __restrict__ lse, const float* __restrict__ delta,
-            const int* __restrict__ valid_len, float* __restrict__ dk,
-            float* __restrict__ dv, int ldg, int s_pad, float qscale) {
-  const int k0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
-  const int heads = gridDim.y;
-  const int vl = min(max(valid_len[b], 0), s_pad);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+// acc[i][j] += sum over the tile's 64 rows n of P[n][r + i] H[n][4 c + 32 (j / 4) + j % 4]:
+// P (BT, LDP) with the thread's 4 columns contiguous, H (BT, LDH)
+__device__ __forceinline__ void second_product(float (&acc)[4][12], const float* P, int r,
+                                               const float* H, int c) {
+#pragma unroll 4
+  for (int n = 0; n < BT; ++n) {
+    float a[4], bv[12];
+    *reinterpret_cast<float4*>(a) = load4(P + n * LDP + r);
+#pragma unroll
+    for (int jj = 0; jj < 3; ++jj)
+      *reinterpret_cast<float4*>(bv + 4 * jj) = load4(H + n * LDH + 4 * c + 32 * jj);
+    sgemm::outer(acc, a, bv);
+  }
+}
+
+// the thread's 4 rows x 12 head columns of acc times mul into dst (rows of ld)
+__device__ __forceinline__ void store_rows(float* dst, int ld, int r, int c,
+                                           const float (&acc)[4][12], float mul) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 3; ++jj)
+      *reinterpret_cast<float4*>(dst + (size_t)(r + i) * ld + 4 * c + 32 * jj) =
+          make_float4(acc[i][4 * jj] * mul, acc[i][4 * jj + 1] * mul, acc[i][4 * jj + 2] * mul,
+                      acc[i][4 * jj + 3] * mul);
+}
+
+// dk and dv of BT keys of one head.
+// Shared memory: K, V (resident), then the ring's STAGES slots of (qs, dO,
+// lse, delta) of a query tile, then P and dS (queries x keys).
+constexpr int DKDV_STAGE = 2 * TILE_F + 2 * BT;
+constexpr int DKDV_SMEM = (2 * TILE_F + STAGES * DKDV_STAGE + 2 * BT * LDP) * (int)sizeof(float);
+
+__device__ __forceinline__ void dkdv_block(Item it, float* smem, const float* __restrict__ qs,
+                                           const float* __restrict__ k,
+                                           const float* __restrict__ v, int ld,
+                                           const float* __restrict__ dout, int ldo,
+                                           const float* __restrict__ lse,
+                                           const float* __restrict__ delta, int vl,
+                                           float* __restrict__ dk, float* __restrict__ dv,
+                                           int ldg, int heads, int s_pad) {
+  const int b = it.b, h = it.h, k0 = it.t0;
   const size_t row0 = (size_t)b * s_pad;
   float* dkb = dk + (row0 + k0) * ldg + h * HEAD_DIM;
   float* dvb = dv + (row0 + k0) * ldg + h * HEAD_DIM;
   if (k0 >= vl) {  // uniform across the block, before any barrier
-    for (int idx = tid; idx < BT * HEAD_DIM; idx += NT) {
-      dkb[(size_t)(idx / HEAD_DIM) * ldg + idx % HEAD_DIM] = 0.f;
-      dvb[(size_t)(idx / HEAD_DIM) * ldg + idx % HEAD_DIM] = 0.f;
-    }
+    zero_rows(dkb, ldg);
+    zero_rows(dvb, ldg);
     return;
   }
-  extern __shared__ float smem[];
-  float* Ks = smem;            // BT x LD
-  float* Vs = Ks + BT * LD;    // BT x LD
-  float* Qs = Vs + BT * LD;    // BT x LD, pre-scaled
-  float* dOs = Qs + BT * LD;   // BT x LD
-  float* Ps = dOs + BT * LD;   // BT x (BT + 1): p^T, keys x queries
-  float* dSs = Ps + BT * (BT + 1);  // ds^T
-  float* lse_s = dSs + BT * (BT + 1);
-  float* delta_s = lse_s + BT;
+  float* Ks = smem;
+  float* Vs = Ks + TILE_F;
+  float* ring = Vs + TILE_F;
+  float* Ps = ring + STAGES * DKDV_STAGE;  // P[query][key]
+  float* dSs = Ps + BT * LDP;             // dS[query][key]
+  const int ldq = heads * HEAD_DIM;
   const float* lse_h = lse + ((size_t)b * heads + h) * s_pad;
   const float* delta_h = delta + ((size_t)b * heads + h) * s_pad;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // warp w < 4: S, P, dV; warp w + 4: dP, dS, dK; of keys kr .. kr + 3 (and in
+  // the scores, of queries qg + 8 j; in dV and dK, of head columns 4 qg + 32 jj
+  // + {0..3})
+  const int role = warp >> 2, pair = warp & 3;
+  const int kr = 16 * pair + 4 * (lane >> 3), qg = lane & 7;
 
-  stage(k, ld, row0 + k0, h * HEAD_DIM, Ks, 1.f);
-  stage(v, ld, row0 + k0, h * HEAD_DIM, Vs, 1.f);
-  float acc_k[4][TN], acc_v[4][TN];
+  copy_tile(Ks, k + (row0 + k0) * ld + h * HEAD_DIM, ld);  // with query tile 0's copies
+  copy_tile(Vs, v + (row0 + k0) * ld + h * HEAD_DIM, ld);
+  auto load = [&](int s, int slot) {
+    float* st = ring + slot * DKDV_STAGE;
+    copy_tile(st, qs + (row0 + s * BT) * ldq + h * HEAD_DIM, ldq);
+    copy_tile(st + TILE_F, dout + (row0 + s * BT) * ldo + h * HEAD_DIM, ldo);
+    if (tid < 2 * BT / 4)  // 64 lse, then 64 delta
+      sgemm::cp_async_16(st + 2 * TILE_F + 4 * tid,
+                         (tid < BT / 4 ? lse_h : delta_h - BT) + s * BT + 4 * tid);
+  };
+  float acc[4][12];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+    for (int j = 0; j < 12; ++j) acc[i][j] = 0.f;
 
   // every query tile the forward computed, all 64 rows of it
-  for (int q0 = 0; q0 < vl; q0 += BT) {  // vl is uniform: barriers are safe
-    __syncthreads();  // the previous tile's Qs/dOs/Ps/dSs are no longer read
-    stage(q, ld, row0 + q0, h * HEAD_DIM, Qs, qscale);
-    stage(dout, ldo, row0 + q0, h * HEAD_DIM, dOs, 1.f);
-    if (tid < BT) {
-      lse_s[tid] = lse_h[q0 + tid];
-      delta_s[tid] = delta_h[q0 + tid];
-    }
-    __syncthreads();
-    // s^T[key][query] = k . q_scaled, dp^T[key][query] = v . do
-    float s[4][4], dp[4][4];
-    two_score_tiles(Ks, Qs, Vs, dOs, s, dp);
+  sgemm::ring<STAGES>((vl + BT - 1) / BT, load, [&](int, int slot) {
+    const float* st = ring + slot * DKDV_STAGE;
+    const float* lse_s = st + 2 * TILE_F;
+    const float* delta_s = lse_s + BT;
+    // S^T = K qs^T (role 0) or dP^T = V dO^T (role 1), keys x queries
+    float sc[4][8];
+    scores(sc, role == 0 ? Ks : Vs, kr, st + role * TILE_F, qg);
+    if (role == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 8; ++j) {
+        const int qc = qg + 8 * j;
+        const float l = lse_s[qc];
+        float p[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kr = 4 * ty + i, qc = tx + 16 * j;
-        const float p = k0 + kr < vl ? exp2f(s[i][j] - lse_s[qc]) : 0.f;
-        Ps[kr * (BT + 1) + qc] = p;
-        dSs[kr * (BT + 1) + qc] = p * (dp[i][j] - delta_s[qc]);
+        for (int i = 0; i < 4; ++i) p[i] = k0 + kr + i < vl ? exp2f(sc[i][j] - l) : 0.f;
+        *reinterpret_cast<float4*>(Ps + qc * LDP + kr) = make_float4(p[0], p[1], p[2], p[3]);
       }
-    __syncthreads();
-    // dv += p^T do, dk += ds^T q_scaled over this tile's queries
-#pragma unroll 4
-    for (int qq = 0; qq < BT; ++qq) {
-      float pv[4], dsv[4];
+      pair_arrive(pair);  // warp pair + 4 may read them
+      __syncwarp();
+      second_product(acc, Ps, kr, st + TILE_F, qg);  // dV += P^T dO
+    } else {
+      pair_sync(pair);  // P of these keys is in place
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = Ps[(4 * ty + i) * (BT + 1) + qq];
-        dsv[i] = dSs[(4 * ty + i) * (BT + 1) + qq];
+      for (int j = 0; j < 8; ++j) {
+        const int qc = qg + 8 * j;
+        const float dl = delta_s[qc];
+        const float4 p = load4(Ps + qc * LDP + kr);
+        *reinterpret_cast<float4*>(dSs + qc * LDP + kr) =
+            make_float4(p.x * (sc[0][j] - dl), p.y * (sc[1][j] - dl), p.z * (sc[2][j] - dl),
+                        p.w * (sc[3][j] - dl));
       }
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const float dov = dOs[qq * LD + tx + 16 * j];
-        const float qv = Qs[qq * LD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc_v[i][j] = fmaf(pv[i], dov, acc_v[i][j]);
-          acc_k[i][j] = fmaf(dsv[i], qv, acc_k[i][j]);
-        }
-      }
+      __syncwarp();
+      second_product(acc, dSs, kr, st, qg);  // dK += dS^T qs
     }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const size_t o = (size_t)(4 * ty + i) * ldg + tx + 16 * j;
-      dkb[o] = acc_k[i][j] * INV_LOG2E;
-      dvb[o] = acc_v[i][j];
-    }
+  });
+  if (role == 0) store_rows(dvb, ldg, kr, qg, acc, 1.f);
+  else store_rows(dkb, ldg, kr, qg, acc, INV_LOG2E);
 }
 
-// dq of BT queries of one head. Grid (s_pad / BT, heads, B).
-__global__ void __launch_bounds__(NT)
-dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, int ld, const float* __restrict__ dout,
-          int ldo, const float* __restrict__ lse, const float* __restrict__ delta,
-          const int* __restrict__ valid_len, float* __restrict__ dq, int ldg,
-          int s_pad, float qscale, float scale) {
-  const int q0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
-  const int heads = gridDim.y;
-  const int vl = min(max(valid_len[b], 0), s_pad);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+// dq of BT queries of one head.
+// Shared memory: qs, dO, lse, delta (resident), then the ring's STAGES slots
+// of (K, V) of a key tile, then P and dS (keys x queries).
+constexpr int DQ_STAGE = 2 * TILE_F;
+constexpr int DQ_SMEM = (2 * TILE_F + 2 * BT + STAGES * DQ_STAGE + 2 * BT * LDP) * (int)sizeof(float);
+
+__device__ __forceinline__ void dq_block(Item it, float* smem, const float* __restrict__ qs,
+                                         const float* __restrict__ k,
+                                         const float* __restrict__ v, int ld,
+                                         const float* __restrict__ dout, int ldo,
+                                         const float* __restrict__ lse,
+                                         const float* __restrict__ delta, int vl,
+                                         float* __restrict__ dq, int ldg, int heads, int s_pad,
+                                         float scale) {
+  const int b = it.b, h = it.h, q0 = it.t0;
   const size_t row0 = (size_t)b * s_pad;
   float* dqb = dq + (row0 + q0) * ldg + h * HEAD_DIM;
   if (q0 >= vl) {  // uniform across the block, before any barrier
-    for (int idx = tid; idx < BT * HEAD_DIM; idx += NT)
-      dqb[(size_t)(idx / HEAD_DIM) * ldg + idx % HEAD_DIM] = 0.f;
+    zero_rows(dqb, ldg);
     return;
   }
-  extern __shared__ float smem[];
-  float* Qs = smem;            // BT x LD, pre-scaled
-  float* dOs = Qs + BT * LD;   // BT x LD
-  float* Ks = dOs + BT * LD;   // BT x LD
-  float* Vs = Ks + BT * LD;    // BT x LD
-  float* dSs = Vs + BT * LD;   // BT x (BT + 1): ds, queries x keys
-  float* lse_s = dSs + BT * (BT + 1);
+  float* Qs = smem;
+  float* dOs = Qs + TILE_F;
+  float* lse_s = dOs + TILE_F;
   float* delta_s = lse_s + BT;
-  const float* lse_h = lse + ((size_t)b * heads + h) * s_pad;
-  const float* delta_h = delta + ((size_t)b * heads + h) * s_pad;
+  float* ring = delta_s + BT;
+  float* Ps = ring + STAGES * DQ_STAGE;  // P[key][query]
+  float* dSs = Ps + BT * LDP;            // dS[key][query]
+  const int ldq = heads * HEAD_DIM;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // warp w < 4: S, P; warp w + 4: dP, dS, dq; of queries qr .. qr + 3 (and in
+  // the scores, of keys kg + 8 j; in dq, of head columns 4 kg + 32 jj + {0..3})
+  const int role = warp >> 2, pair = warp & 3;
+  const int qr = 16 * pair + 4 * (lane >> 3), kg = lane & 7;
 
-  stage(q, ld, row0 + q0, h * HEAD_DIM, Qs, qscale);
-  stage(dout, ldo, row0 + q0, h * HEAD_DIM, dOs, 1.f);
-  if (tid < BT) {
-    lse_s[tid] = lse_h[q0 + tid];
-    delta_s[tid] = delta_h[q0 + tid];
-  }
-  float acc[4][TN];
+  // the block's qs, dO, lse and delta, with key tile 0's copies
+  copy_tile(Qs, qs + (row0 + q0) * ldq + h * HEAD_DIM, ldq);
+  copy_tile(dOs, dout + (row0 + q0) * ldo + h * HEAD_DIM, ldo);
+  if (tid < 2 * BT / 4)
+    sgemm::cp_async_16(lse_s + 4 * tid,
+                       (tid < BT / 4 ? lse : delta - BT) + ((size_t)b * heads + h) * s_pad + q0 +
+                           4 * tid);
+  auto load = [&](int s, int slot) {
+    float* st = ring + slot * DQ_STAGE;
+    copy_tile(st, k + (row0 + s * BT) * ld + h * HEAD_DIM, ld);
+    copy_tile(st + TILE_F, v + (row0 + s * BT) * ld + h * HEAD_DIM, ld);
+  };
+  float acc[4][12];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 12; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < vl; k0 += BT) {  // vl is uniform: barriers are safe
-    __syncthreads();  // the previous tile's Ks/Vs/dSs are no longer read
-    stage(k, ld, row0 + k0, h * HEAD_DIM, Ks, 1.f);
-    stage(v, ld, row0 + k0, h * HEAD_DIM, Vs, 1.f);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    two_score_tiles(Qs, Ks, dOs, Vs, s, dp);
+  // every key tile below valid_len
+  sgemm::ring<STAGES>((vl + BT - 1) / BT, load, [&](int s, int slot) {
+    const float* st = ring + slot * DQ_STAGE;
+    const int k0 = s * BT;
+    // S = qs K^T (role 0) or dP = dO V^T (role 1), queries x keys
+    float sc[4][8];
+    scores(sc, role == 0 ? Qs : dOs, qr, st + role * TILE_F, kg);
+    if (role == 0) {
+      float l[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i) l[i] = lse_s[qr + i];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qr = 4 * ty + i, kc = tx + 16 * j;
-        const float p = k0 + kc < vl ? exp2f(s[i][j] - lse_s[qr]) : 0.f;
-        dSs[qr * (BT + 1) + kc] = p * (dp[i][j] - delta_s[qr]);
+      for (int j = 0; j < 8; ++j) {
+        const int kc = kg + 8 * j;
+        const bool ok = k0 + kc < vl;
+        *reinterpret_cast<float4*>(Ps + kc * LDP + qr) =
+            make_float4(ok ? exp2f(sc[0][j] - l[0]) : 0.f, ok ? exp2f(sc[1][j] - l[1]) : 0.f,
+                        ok ? exp2f(sc[2][j] - l[2]) : 0.f, ok ? exp2f(sc[3][j] - l[3]) : 0.f);
       }
-    __syncthreads();
-    // dq += ds k over this tile's keys
-#pragma unroll 4
-    for (int kk = 0; kk < BT; ++kk) {
-      float dsv[4];
+      pair_arrive(pair);  // warp pair + 4 may read them
+    } else {
+      float dl[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dSs[(4 * ty + i) * (BT + 1) + kk];
+      for (int i = 0; i < 4; ++i) dl[i] = delta_s[qr + i];
+      pair_sync(pair);  // P of these queries is in place
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const float kv = Ks[kk * LD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dsv[i], kv, acc[i][j]);
+      for (int j = 0; j < 8; ++j) {
+        const int kc = kg + 8 * j;
+        const float4 p = load4(Ps + kc * LDP + qr);
+        *reinterpret_cast<float4*>(dSs + kc * LDP + qr) =
+            make_float4(p.x * (sc[0][j] - dl[0]), p.y * (sc[1][j] - dl[1]),
+                        p.z * (sc[2][j] - dl[2]), p.w * (sc[3][j] - dl[3]));
       }
+      __syncwarp();
+      second_product(acc, dSs, qr, st, kg);  // dq += dS K
     }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j)
-      dqb[(size_t)(4 * ty + i) * ldg + tx + 16 * j] = acc[i][j] * scale;
+  });
+  if (role == 1) store_rows(dqb, ldg, qr, kg, acc, scale);
 }
 
-constexpr int DKDV_SMEM = (4 * BT * LD + 2 * BT * (BT + 1) + 2 * BT) * (int)sizeof(float);
-constexpr int DQ_SMEM = (4 * BT * LD + BT * (BT + 1) + 2 * BT) * (int)sizeof(float);
+// dk/dv and dq in one launch, so that each fills the other's tail: blocks
+// 2 i and 2 i + 1 take the dk/dv and the dq of item i of the longest-first
+// order (image, head, tile). Grid (2 * batch * heads * s_pad / BT).
+constexpr int BWD_SMEM = DKDV_SMEM > DQ_SMEM ? DKDV_SMEM : DQ_SMEM;
+
+__global__ void __launch_bounds__(THREADS, 1)
+attention_bwd_kernel(const float* __restrict__ qs, const float* __restrict__ k,
+                     const float* __restrict__ v, int ld, const float* __restrict__ dout,
+                     int ldo, const float* __restrict__ lse, const float* __restrict__ delta,
+                     const int* __restrict__ valid_len, const int* __restrict__ order,
+                     float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+                     int ldg, int heads, int s_pad, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int nt = s_pad / BT, per_image = heads * nt, item = blockIdx.x / 2;
+  const Item it = {order[item / per_image], item % per_image / nt, item % nt * BT};
+  const int vl = min(max(valid_len[it.b], 0), s_pad);
+  if (blockIdx.x % 2 == 0)
+    dkdv_block(it, smem, qs, k, v, ld, dout, ldo, lse, delta, vl, dk, dv, ldg, heads, s_pad);
+  else
+    dq_block(it, smem, qs, k, v, ld, dout, ldo, lse, delta, vl, dq, ldg, heads, s_pad, scale);
+}
 
 int launch(const float* q, const float* k, const float* v, int ld, const float* o, const float* dout,
            int ldo, const float* lse, float* delta, const int* valid_len, float* dq,
            float* dk, float* dv, int ldg, int batch, int heads, int head_dim, int s_pad,
            float qscale, float scale, cudaStream_t st) {
-  if (batch <= 0 || heads <= 0 || head_dim != HEAD_DIM || s_pad % BT != 0 ||
+  if (batch <= 0 || heads <= 0 || head_dim != HEAD_DIM || s_pad <= 0 || s_pad % BT != 0 ||
       ld % 4 != 0 || ldo % 4 != 0 || ldg % 4 != 0)
     return (int)cudaErrorInvalidValue;
   const int total = batch * s_pad * heads;
-  delta_kernel<<<(total + NT / 32 - 1) / (NT / 32), NT, 0, st>>>(
-      o, dout, ldo, valid_len, delta, heads, s_pad, total);
+  float* qs = delta + (size_t)total;
+  int* order = reinterpret_cast<int*>(qs + (size_t)total * HEAD_DIM);
+  attention_bwd_prep_kernel<<<(total + PREP_THREADS / 32 - 1) / (PREP_THREADS / 32),
+                              PREP_THREADS, 0, st>>>(q, ld, o, dout, ldo, valid_len, delta, qs,
+                                                     order, batch, heads, s_pad, total, qscale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           DKDV_SMEM);
+  e = cudaFuncSetAttribute(attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           BWD_SMEM);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           DQ_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(s_pad / BT, heads, batch);
-  dkdv_kernel<<<grid, NT, DKDV_SMEM, st>>>(q, k, v, ld, dout, ldo, lse, delta,
-                                              valid_len, dk, dv, ldg, s_pad, qscale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  dq_kernel<<<grid, NT, DQ_SMEM, st>>>(q, k, v, ld, dout, ldo, lse, delta,
-                                          valid_len, dq, ldg, s_pad, qscale, scale);
+  attention_bwd_kernel<<<2 * batch * heads * (s_pad / BT), THREADS, BWD_SMEM, st>>>(
+      qs, k, v, ld, dout, ldo, lse, delta, valid_len, order, dq, dk, dv, ldg, heads, s_pad,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -338,11 +455,13 @@ extern "C" {
 // q, k, v: (batch * s_pad) rows of ld elements (they may be column slices of
 // one packed qkv buffer); o (the forward's output) and dout: rows of ldo
 // elements; lse: (batch, heads, s_pad) f32, the forward's base-2 lse; delta:
-// (batch, heads, s_pad) f32 scratch. dq, dk, dv: rows of ldg elements (they may
-// be column slices of one packed dqkv buffer). head_dim must be 96; ld, ldo and
-// ldg are multiples of 4 and every pointer is aligned to 4 elements.
-// qscale = log2(e) / sqrt(96), scale = 1 / sqrt(96). Three launches: delta,
-// dk/dv, dq.
+// scratch of batch * heads * s_pad f32 (delta), followed by batch * s_pad *
+// heads * 96 f32 (the scaled q) and batch int32 (the images' order). dq, dk,
+// dv: rows of ldg elements (they may be column slices of one packed dqkv
+// buffer). head_dim must be 96; ld, ldo and ldg are multiples of 4 and every
+// pointer, delta included, is 16-byte aligned (the 16-byte copies).
+// qscale = log2(e) / sqrt(96), scale = 1 / sqrt(96). Two launches: the prep
+// pass, then dk/dv and dq in one.
 int prefix_attention_bwd(const float* q, const float* k, const float* v, int ld,
                          const float* o, const float* dout, int ldo,
                          const float* lse, float* delta, const int* valid_len,

@@ -1,26 +1,31 @@
 // The float32 GEMM main loop on Hopper's CUDA cores, shared by the redesigned
-// linear_residual_ln_fwd (fused_block.cu, K1b) and linear_wgrad
-// (fused_block_bwd.cu, K2c):
+// linear_residual_ln_fwd (fused_block.cu, K1b), linear_wgrad and linear_dgrad
+// (fused_block_bwd.cu, K2c and K2b) and the float32 attention backward
+// (prefix_attention_bwd.cu, K4):
 //
 // - a cp.async ring of shared-memory stages (16-byte cp.async.cg copies, L2
 //   only), with one barrier a stage: the copies of the stages ahead are in
 //   flight while the current one is multiplied;
-// - two register-blocked micro-kernels that read shared memory 16 bytes at a
-//   time: dot4 for tiles stored with K contiguous (a block's rows of A and W,
-//   as x @ W^T reads them) and outer for tiles stored with the output's
-//   columns contiguous (dY^T X over the rows of a batch).
+// - three register-blocked micro-kernels that read shared memory 16 bytes at
+//   a time: dot4 for tiles stored with K contiguous (a block's rows of A and
+//   W, as x @ W^T reads them), outer for tiles stored with the output's
+//   columns contiguous (dY^T X over the rows of a batch), and outer4 for an A
+//   stored with K contiguous against a B stored with the output's columns
+//   contiguous (dY @ W, W read as (K, N)).
 //
 // Every sum is fmaf on the CUDA cores, in float32, in the order of K (no TF32
 // and no split-TF32 emulation): the float32 instances are held to the JAX
 // package's float32, so only the order of the sums differs from the plain
-// versions. What bounds both kernels at the layer's shapes is operations
-// (67 TFLOP/s of f32 FMA): their tiles keep 48 or 64 sums a thread, so each
-// 16-byte shared load feeds 12 or 16 FMAs. Larger tiles would need fewer
+// versions. What bounds these kernels at the layer's shapes is operations
+// (67 TFLOP/s of f32 FMA): their tiles keep 32 to 64 sums a thread, so each
+// 16-byte shared load feeds 10 to 16 FMAs. Larger tiles would need fewer
 // loads a FMA but more registers than two or three blocks an SM leave; the
 // diagnostic builds below show the shared loads and the copies, as much as
-// the FMAs, holding both kernels (scripts/bench_linear_f32.py, PERF.md).
+// the FMAs, holding the GEMMs (scripts/bench_linear_f32.py,
+// scripts/bench_attention_f32.py, PERF.md).
 //
-// Two diagnostic builds (scripts/bench_linear_f32.py) define
+// Two diagnostic builds (scripts/bench_linear_f32.py,
+// scripts/bench_attention_f32.py) define
 // SGEMM_NO_COPY (the copies do nothing) or SGEMM_NO_FMA (each operand is
 // added once instead of multiplied into every sum); their results mean
 // nothing, only their times are read. Each including file gets its own copy
@@ -115,6 +120,32 @@ __device__ __forceinline__ void dot4(float (&acc)[RM][CN], int j, const float4 (
 #pragma unroll
     for (int i = 0; i < RM; ++i) acc[i][0] += (a[i].x + a[i].y) + (a[i].z + a[i].w);
   acc[0][j] += (b.x + b.y) + (b.z + b.w);
+#endif
+}
+
+// acc[i][j] += a[i].x b[0][j] + a[i].y b[1][j] + a[i].z b[2][j] + a[i].w b[3][j],
+// one step of K after the other: four outer products, a float4 of each of the
+// thread's rows of A over four steps of K (A stored with K contiguous) against
+// those four rows of B (B stored with the output's columns contiguous).
+template <int RM, int CN>
+__device__ __forceinline__ void outer4(float (&acc)[RM][CN], const float4 (&a)[RM],
+                                       const float (&b)[4][CN]) {
+#ifndef SGEMM_NO_FMA
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < CN; ++j) {
+      float s = acc[i][j];
+      s = fmaf(a[i].x, b[0][j], s);
+      s = fmaf(a[i].y, b[1][j], s);
+      s = fmaf(a[i].z, b[2][j], s);
+      acc[i][j] = fmaf(a[i].w, b[3][j], s);
+    }
+#else
+#pragma unroll
+  for (int i = 0; i < RM; ++i) acc[i][0] += (a[i].x + a[i].y) + (a[i].z + a[i].w);
+#pragma unroll
+  for (int j = 0; j < CN; ++j) acc[0][j] += (b[0][j] + b[1][j]) + (b[2][j] + b[3][j]);
 #endif
 }
 

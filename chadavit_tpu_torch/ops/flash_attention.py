@@ -34,8 +34,10 @@ ones are tensor-core kernels of their own, ``csrc/prefix_attention_bf16.cu``,
 whose 16-byte copies need q/k/v rows of a stride that is a multiple of 8
 elements and every operand 16-byte aligned: the bfloat16 wrappers raise
 ``ValueError`` on anything else (the packed qkv's column slices, ld 576 and
-offsets of 384 bytes, qualify). Their backward also takes a scratch for the
-scaled q (:func:`_bwd_scratch`).
+offsets of 384 bytes, qualify). The float32 backward copies 16 bytes at a
+time too (rows of a stride that is a multiple of 4, starts 16-byte aligned:
+:func:`_operand_rows` copies anything else). Both backwards take a scratch
+for the scaled q (:func:`_bwd_scratch`).
 """
 
 from __future__ import annotations
@@ -194,14 +196,17 @@ def _operand_rows(q, k, v):
 
 
 def _bwd_scratch(b: int, num_heads: int, s: int, d: int, dtype: torch.dtype, device):
-    """``(delta, qs)``: the backward's scratch. delta ``(B, heads, S)``
-    float32; for bfloat16 also the scaled q ``(B, S, D)`` bfloat16, written by
-    the kernel's prep pass and read by its dk/dv and dq kernels, which the C
-    entry point finds right after delta in one buffer (qs is None for
-    float32)."""
+    """``(delta, qs)``: the backward's scratch, one buffer that the C entry
+    point finds through delta: delta ``(B, heads, S)`` float32, then the scaled
+    q ``(B, S, D)`` in q's dtype, written by the kernel's prep pass and read by
+    its dk/dv and dq kernels; for float32 then also ``B`` int32, the order in
+    which those kernels take the images (longest first), written by the prep
+    pass."""
     n_delta = b * num_heads * s
     if dtype == torch.float32:
-        return torch.empty((b, num_heads, s), dtype=torch.float32, device=device), None
+        buf = torch.empty(n_delta + b * s * d + b, dtype=torch.float32, device=device)
+        return (buf[:n_delta].view(b, num_heads, s),
+                buf[n_delta:n_delta + b * s * d].view(b, s, d))
     buf = torch.empty(n_delta + b * s * d // 2, dtype=torch.float32, device=device)
     return (buf[:n_delta].view(b, num_heads, s),
             buf[n_delta:].view(torch.bfloat16).view(b, s, d))

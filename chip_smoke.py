@@ -18,18 +18,20 @@ Phases, each printed with its elapsed seconds at its start and end:
 1. build: nvcc compiles csrc/*.cu (layernorm.cu among them), one process per
    source, into one library (cold build seconds); beside it, nvcc -Xptxas -v
    on csrc/linear_fwd_bf16.cu, csrc/linear_bwd_bf16.cu,
-   csrc/prefix_attention_bf16.cu, csrc/fused_block.cu and
-   csrc/fused_block_bwd.cu prints the registers, shared memory and spills of
-   the tensor-core kernels, of the float32 linear_residual_ln and of
-   layernorm_bwd's and the float32 linear_wgrad's two passes, none of which
-   may spill.
+   csrc/prefix_attention_bf16.cu, csrc/prefix_attention_bwd.cu,
+   csrc/fused_block.cu and csrc/fused_block_bwd.cu prints the registers,
+   shared memory and spills of the tensor-core kernels, of the float32
+   attention backward's two kernels, of the float32 linear_residual_ln and
+   linear_dgrad and of layernorm_bwd's and the float32 linear_wgrad's two
+   passes, none of which may spill.
 2. each kernel instance against its plain PyTorch version at hub shapes (B 8,
    S_pad 2048, D 192, F 2048, 2 heads, 1..10 channels), float32 on the
    inputs of seed 0, then bfloat16 on those of each of BF16_SEEDS (the worst
    bf16 readings are printed, the bounds are a few times them): the forward
    kernels, their save outputs (LN stats, pre-LN sum,
    lse), then every backward kernel on the inputs the layer's backward gives
-   it (linear_dgrad and linear_wgrad twice, for the same bits); in float32
+   it (linear_dgrad, linear_wgrad and the attention backward twice, for the
+   same bits); in float32
    linear_residual_ln twice at each site, with and without its save outputs,
    for the same bits; in bfloat16
    the tensor-core ln_linear, linear_relu and linear_residual_ln (K1a, K1c,
@@ -95,7 +97,8 @@ Phases, each printed with its elapsed seconds at its start and end:
    by site), its plain version, one PyTorch call for the same function (a
    yardstick the port never calls), its bound (ln_fwd and ln_bwd at the
    final norm's site); the device time by the profiler of ln_fwd, ln_bwd,
-   ln_linear, linear_relu, linear_residual_ln (also site by site),
+   ln_linear, linear_relu, linear_residual_ln and linear_dgrad (both also
+   site by site),
    layernorm_bwd, linear_dgrad and linear_wgrad, whose small calls CUDA
    events time by the host's launch rate, and of the attention forward and
    backward (K3, K4), kernel by kernel (so each pass of layernorm_bwd and
@@ -561,6 +564,7 @@ def main() -> int:
     fbb_cu = "chadavit_tpu_torch/csrc/fused_block_bwd.cu"
     tc_cu = "chadavit_tpu_torch/csrc/linear_bwd_bf16.cu"
     fwd_tc_cu = "chadavit_tpu_torch/csrc/linear_fwd_bf16.cu"
+    attn_bwd_cu = "chadavit_tpu_torch/csrc/prefix_attention_bwd.cu"
     k1, k2 = "chadavit_tpu/ops/fused_block.py:91", "chadavit_tpu/ops/fused_block.py:211"
     from chadavit_tpu_torch.ops import layernorm as ln
 
@@ -572,8 +576,7 @@ def main() -> int:
                                  "chadavit_tpu/ops/flash_attention.py:103"),
         "linear_relu_fwd": (fused_block.linear_relu, fb_cu, k1),
         "linear_residual_ln_fwd": (fused_block.linear_residual_ln, fb_cu, k1),
-        "prefix_attention_bwd": (fa.prefix_attention_bwd,
-                                 "chadavit_tpu_torch/csrc/prefix_attention_bwd.cu",
+        "prefix_attention_bwd": (fa.prefix_attention_bwd, attn_bwd_cu,
                                  "chadavit_tpu/ops/flash_attention.py:157"),
         "layernorm_bwd": (fused_block.layernorm_bwd, fbb_cu, k2),
         "linear_dgrad": (fused_block.linear_dgrad, fbb_cu, k2),
@@ -607,14 +610,15 @@ def main() -> int:
     with Phase("1 build", failures) as ph:
         cold = not (_build.BUILD_DIR / _build.source_hash()).exists()
         t = time.perf_counter()
-        # every kernel of the tensor-core sources, the float32
-        # linear_residual_ln (K1b) of fused_block.cu, and the two passes of
-        # layernorm_bwd (K2a) and of the float32 linear_wgrad (K2c) of
+        # every kernel of the tensor-core sources and of the float32
+        # attention backward (K4), the float32 linear_residual_ln (K1b) of
+        # fused_block.cu, and the two passes of layernorm_bwd (K2a) and of the
+        # float32 linear_wgrad (K2c) and the float32 linear_dgrad (K2b) of
         # fused_block_bwd.cu
-        ptxas_sources = {fwd_tc_cu: (), tc_cu: (), attn_tc_cu: (),
+        ptxas_sources = {fwd_tc_cu: (), tc_cu: (), attn_tc_cu: (), attn_bwd_cu: (),
                          fb_cu: ("linear_residual_ln",),
                          fbb_cu: ("layernorm_bwd", "reduce_ln_splits", "linear_wgrad",
-                                  "reduce_wgrad_splits")}
+                                  "reduce_wgrad_splits", "linear_dgrad")}
         ptxas = [_build.ptxas_report(Path(src).name)  # beside the build
                  for src in ptxas_sources]
         _build.library()
@@ -864,7 +868,7 @@ def main() -> int:
                 out = kernel_step[name](*args, **kwargs)
                 torch.cuda.synchronize()
                 outs = out if isinstance(out, tuple) else (out,)
-                if name in ("linear_dgrad", "linear_wgrad"):  # fixed-order sums
+                if name in ("linear_dgrad", "linear_wgrad", "attention_bwd"):  # fixed-order sums
                     again = kernel_step[name](*args, **kwargs)
                     again = again if isinstance(again, tuple) else (again,)
                     ph.check(all(torch.equal(a_, b_) for a_, b_ in zip(outs, again)),
@@ -1712,17 +1716,23 @@ def main() -> int:
             # and the attention (K3, K4) by the profiler too: at the small
             # sites CUDA events read the wrapper's launch rate; every kernel of
             # the call (K2a's and wgrad's second pass, the attention backward's
-            # three launches), the layer's sites summed, each kernel also on
-            # its own; K1b also site by site
-            def device_ms(fns):
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    for _ in range(reps):
-                        for fn in fns:
-                            fn()
-                    torch.cuda.synchronize()
-                return {e.key: e.self_device_time_total / 1e3 / reps
-                        for e in prof.key_averages()
-                        if e.device_type == torch.autograd.DeviceType.CUDA}
+            # launches), the layer's sites summed, each kernel also on its own;
+            # K1b and K2b also site by site
+            def device_ms(fns, attempts=3):
+                # a trace can come back without device events (one of 24 such
+                # traces in one run on an H100): it is taken again
+                for _ in range(attempts):
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        for _ in range(reps):
+                            for fn in fns:
+                                fn()
+                        torch.cuda.synchronize()
+                    found = {e.key: e.self_device_time_total / 1e3 / reps
+                             for e in prof.key_averages()
+                             if e.device_type == torch.autograd.DeviceType.CUDA}
+                    if found:
+                        return found
+                raise RuntimeError(f"the profiler recorded no device time in {attempts} traces")
 
             for name in ("ln_linear_fwd", "linear_relu_fwd", "linear_residual_ln_fwd",
                          "layernorm_bwd", "linear_dgrad", "linear_wgrad", "prefix_attention_fwd",
@@ -1735,7 +1745,7 @@ def main() -> int:
                     f"{stats[name + tag]['ms']:.4f} ms; "
                     + ", ".join(f"{k[:60]} {v:.4f}" for k, v in
                                 sorted(per_kernel.items(), key=lambda kv: -kv[1])))
-                if name == "linear_residual_ln_fwd":
+                if name in ("linear_residual_ln_fwd", "linear_dgrad"):
                     for i_site, (kernel_fn, *_, ops, nbytes) in enumerate(runs[name]):
                         site_dev = sum(device_ms([kernel_fn]).values())
                         site_bound = max(ops / peak, nbytes / PEAK_BYTES) * 1e3

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Times the float32 ``linear_residual_ln_fwd`` (K1b, both sites) and
-``linear_wgrad`` (K2c, all four sites, both passes) of
-``chadavit_tpu_torch/csrc/fused_block.cu`` and ``fused_block_bwd.cu`` on one
-NVIDIA GPU, as built and in diagnostic builds of the same sources:
+"""Times the float32 ``linear_residual_ln_fwd`` (K1b, both sites),
+``linear_wgrad`` (K2c, all four sites, both passes) and ``linear_dgrad``
+(K2b, all four sites) of ``chadavit_tpu_torch/csrc/fused_block.cu`` and
+``fused_block_bwd.cu`` on one NVIDIA GPU, as built and in diagnostic builds of
+the same sources:
 
 - ``no_copy``: the ``cp.async`` copies do nothing (``-DSGEMM_NO_COPY``), so the
   kernels multiply whatever shared memory holds: the time left is the FMA
@@ -10,18 +11,19 @@ NVIDIA GPU, as built and in diagnostic builds of the same sources:
 - ``no_fma``: each operand the FMA loop reads is added once instead of
   multiplied into every sum (``-DSGEMM_NO_FMA``): the time left is the copies,
   the shared-memory reads, the barriers and the epilogue;
-- ``split_ffn1``, ``split_ffn4``, ``split_ffn8``: K1b's FFN2 site with
-  clusters of 1, 4 or 8 blocks splitting K (``-DLRN_SPLIT_FFN``; as built 2).
-  More blocks even out the SMs' share of the row tiles; fewer leave each
-  block a longer K loop.
+- ``split_ffn1`` ... ``split_ffn8``: K1b's FFN2 site, K2b's FFN1 site
+  (both K 2048) and K2b's QKV site (K 576) with clusters of 1, 2, 4 or 8
+  blocks splitting K (``-DLRN_SPLIT_FFN``, ``-DDG_SPLIT_FFN``,
+  ``-DDG_SPLIT_QKV``; as built 2 each). More blocks even out the SMs'
+  share of the row tiles; fewer leave each block a longer K loop.
 
 A site near ``no_copy`` is held by its loop, one near ``no_fma`` by its
 loads. Each build also prints the registers and spills of the two kernels
 (``nvcc -Xptxas -v``). The diagnostic builds compute nothing meaningful; only their times are
 read. It also times each wgrad site at other split counts than the plan
 (``ops/fused_block.py::wgrad_splits``), one PyTorch call for the same function
-per site (``torch.mm``; ``addmm`` + ``layer_norm``), and prints the wgrad
-partial scratch at 8, 16 and 64 sequences. Run from the root of the
+per site (``torch.mm``; ``addmm``, with ``layer_norm`` for K1b), and prints the
+wgrad partial scratch at 8, 16 and 64 sequences. Run from the root of the
 repository:
 
     python3 scripts/bench_linear_f32.py [train|hub]
@@ -31,7 +33,8 @@ first 8 channel counts of chip_smoke.py's bf16 train batch) padded to 2048
 rows; ``hub``: chip_smoke.py's hub shapes (8 images, 2048 rows). Times are
 CUDA events over 20 calls after 3 of warm-up, each call one launch of the C
 entry point (wgrad: both passes), without the Python wrapper. Prints one
-line per build and the card's name and power limit.
+line per build, the bound of each K2b site (its operations at the f32 peak)
+and the card's name and power limit.
 """
 
 import ctypes
@@ -50,8 +53,10 @@ S_PAD = 2048
 SOURCES = ("fused_block.cu", "fused_block_bwd.cu", "sgemm_f32.cuh", "gemm_common.cuh",
            "storage.cuh")
 BUILDS = {"as built": [], "no_copy": ["-DSGEMM_NO_COPY"], "no_fma": ["-DSGEMM_NO_FMA"],
-          "split_ffn1": ["-DLRN_SPLIT_FFN=1"], "split_ffn4": ["-DLRN_SPLIT_FFN=4"],
-          "split_ffn8": ["-DLRN_SPLIT_FFN=8"]}
+          **{f"split_ffn{n}": [f"-DLRN_SPLIT_FFN={n}", f"-DDG_SPLIT_FFN={n}",
+                               f"-DDG_SPLIT_QKV={n}"] for n in (1, 2, 4, 8)}}
+PEAK_F32_FLOPS = 67e12  # f32 FMA outside the tensor cores, NVIDIA H100 SXM data sheet
+KERNELS = ("linear_residual_ln", "linear_wgrad", "linear_dgrad")
 
 
 def build(out_dir: Path) -> dict:
@@ -77,10 +82,9 @@ def build(out_dir: Path) -> dict:
         print(f"{name}: ptxas " + ", ".join(
             f"{k['name'].split('_kernel')[0][-18:]}{'<' + k['name'].split('ILi')[1][:8] if 'ILi' in k['name'] else ''}"
             f" {k.get('registers')} regs {k.get('spill_stores')}/{k.get('spill_loads')} B spilled"
-            for k in report if "linear_residual_ln" in k["name"] or "linear_wgrad" in k["name"]),
-              flush=True)
+            for k in report if any(n in k["name"] for n in KERNELS)), flush=True)
         lib = ctypes.CDLL(str(path))
-        for fn in ("linear_residual_ln_fwd", "linear_wgrad"):
+        for fn in ("linear_residual_ln_fwd", "linear_wgrad", "linear_dgrad"):
             getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
@@ -151,19 +155,38 @@ def main() -> int:
                 vl.data_ptr(), m, n, k, S_PAD, splits, stream), (partial, dwb)
 
     wgrad_shapes = ((3 * d, d), (d, d), (f, d), (d, f))
+    # K2b: dy (M, K) @ w (K, N), epilogue 1 (ReLU mask from aux) or 2 (aux + ...)
+    dgrad_sites = ((d, f, 1), (f, d, 2), (d, d, 0), (3 * d, d, 0))
+    dgrad_w = {(k, n): rn(k, n, scale=k ** -0.5) for k, n, _ in dgrad_sites}
+    dgrad_out = {n: torch.empty(m, n, device=dev) for n in (d, f)}
+
+    def dgrad_args(k, n, epi):
+        return (act[k].data_ptr(), dgrad_w[k, n].data_ptr(), act[n].data_ptr() if epi else None,
+                dgrad_out[n].data_ptr(), epi, vl.data_ptr(), m, k, n, S_PAD, stream)
+
     for name, lib in libs.items():
         cells = []
         for site in lrn_sites:
             args = lrn_args(*site)
             assert lib.linear_residual_ln_fwd(*args) == 0
             cells.append(f"K1b K {site[0]} {time_ms(lambda: lib.linear_residual_ln_fwd(*args)):.4f}")
-        if not name.startswith("split"):  # the splits change K1b only
+        for k, n, epi in dgrad_sites:
+            if name.startswith("split") and (n != d or k == d or name == "split_ffn8" and k != f):
+                continue  # the splits change the K 2048 and 576 sites; 576 / 8 is no K slice
+            args = dgrad_args(k, n, epi)
+            assert lib.linear_dgrad(*args) == 0
+            cells.append(f"K2b K {k} -> N {n} {time_ms(lambda: lib.linear_dgrad(*args)):.4f}")
+        if not name.startswith("split"):  # the splits change K1b and K2b only
             for n, k in wgrad_shapes:
                 args, keep = wgrad_args(n, k, fused_block.wgrad_splits(bsz, S_PAD, n, k,
                                                                        torch.float32))
                 assert lib.linear_wgrad(*args) == 0
                 cells.append(f"K2c ({n}, {k}) {time_ms(lambda: lib.linear_wgrad(*args)):.4f}")
         print(f"{name}: " + ", ".join(cells) + " (ms)", flush=True)
+    print("K2b bound (operations on the rows of computed tiles at "
+          f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s): " + ", ".join(
+              f"K {k} -> N {n} {2 * rows * k * n / PEAK_F32_FLOPS * 1e3:.4f}"
+              for k, n, _ in dgrad_sites) + " (ms)", flush=True)
 
     # wgrad at other split counts than the plan, as built
     lib = libs["as built"]
@@ -184,6 +207,11 @@ def main() -> int:
         cells.append(f"K1b K {k} {time_ms(lambda: F.layer_norm(torch.addmm(bias, a, w.t()) + res, (d,), g, beta, 1e-5)):.4f}")
     for n, k in wgrad_shapes:
         cells.append(f"K2c ({n}, {k}) {time_ms(lambda: torch.mm(act[n].t(), act[k])):.4f}")
+    for k, n, epi in dgrad_sites:
+        wk = dgrad_w[k, n]
+        fn = ((lambda: torch.addmm(act[n], act[k], wk)) if epi == 2 else
+              (lambda: torch.mm(act[k], wk)))
+        cells.append(f"K2b K {k} -> N {n} {time_ms(fn):.4f}")
     print("library: " + ", ".join(cells) + " (ms)", flush=True)
 
     cells = []

@@ -172,7 +172,8 @@ def test_cuda_route_bf16_takes_the_packed_slices_as_they_are(fake_cuda, which):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_route_backward_allocates_its_scratch(fake_cuda, monkeypatch, dtype):
-    # delta, and for bf16 the scaled q right after it in the same buffer
+    # delta, then the scaled q in q's dtype right after it in the same buffer,
+    # and for float32 then room for the images' order (one int32 an image)
     made = []
 
     def spy(*args):
@@ -186,9 +187,46 @@ def test_cuda_route_backward_allocates_its_scratch(fake_cuda, monkeypatch, dtype
     ((delta, qs),) = made
     assert delta.dtype == torch.float32 and delta.shape == (2, 2, 128)
     assert fake_cuda.args[0][8] == delta.data_ptr()
+    assert qs.dtype == dtype and qs.shape == q.shape
+    assert qs.data_ptr() == delta.data_ptr() + 4 * delta.numel()
+    assert qs.data_ptr() % 16 == 0
     if dtype == torch.float32:
-        assert qs is None
+        end = qs.data_ptr() + 4 * qs.numel() + 4 * q.shape[0]  # the order, one int32 an image
+        storage = delta.untyped_storage()
+        assert storage.data_ptr() + storage.nbytes() >= end
+
+
+# ---- the float32 backward's operands (its 16-byte cp.async copies) ------------
+def _f32_slices(row, offset, b=2, s=128):
+    """q, k, v: float32 column slices of rows of ``row`` elements, q's first
+    column at ``offset``."""
+    hd = flash_attention.HEAD_DIM
+    buf = torch.zeros(b, s, row)
+    return [buf[..., offset + i * 2 * hd:offset + (i + 1) * 2 * hd] for i in range(3)]
+
+
+@pytest.mark.parametrize("row, offset, copied", [(576, 0, False), (578, 0, True),
+                                                 (580, 2, True)])
+def test_cuda_route_f32_backward_copies_rows_its_copies_cannot_take(fake_cuda, row, offset,
+                                                                    copied):
+    # the packed qkv (rows of 576) goes as it is; a row stride that is not a
+    # multiple of 4 elements, or q 8 bytes past a 16-byte boundary, is copied
+    # into contiguous rows of 192
+    q, k, v = _f32_slices(row, offset)
+    _bf16_call("backward", q, k, v)
+    (args,) = fake_cuda.args
+    assert fake_cuda.calls == ["prefix_attention_bwd"]
+    if copied:
+        assert args[3] == q.shape[2] and q.data_ptr() not in args[:3]
+        assert all(p % 16 == 0 for p in args[:3])
     else:
-        assert qs.dtype == torch.bfloat16 and qs.shape == q.shape
-        assert qs.data_ptr() == delta.data_ptr() + 4 * delta.numel()
-        assert qs.data_ptr() % 16 == 0
+        assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), 576)
+
+
+def test_cuda_route_f32_backward_refuses_a_misaligned_cotangent(fake_cuda):
+    q, k, v = _f32_slices(3 * 2 * flash_attention.HEAD_DIM, 0)
+    flat = torch.zeros(q.numel() + 2)
+    o = flat[2:].view(q.shape)  # contiguous, 8 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        _bf16_call("backward", q, k, v, o)
+    assert fake_cuda.calls == []

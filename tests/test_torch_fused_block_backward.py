@@ -20,6 +20,8 @@ Tolerance: float32 on both sides, through two LayerNorms and the FFN: a
 max abs error of 1e-4 times the gradient's largest entry (at least 1).
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -453,3 +455,21 @@ def test_bf16_wgrad_norms_x_of_the_model_width_only(cuda_route):
                                  torch.zeros(1, 128, f, dtype=torch.bfloat16),
                                  torch.tensor([3], dtype=torch.int32),
                                  ln=(z, z, torch.ones(f), torch.zeros(f)))
+
+
+def _misaligned(*shape):
+    """A contiguous float32 tensor 8 bytes past a 16-byte boundary."""
+    return torch.zeros(math.prod(shape) + 2)[2:].view(shape)
+
+
+@pytest.mark.parametrize("which", ["dy", "w", "residual"])
+def test_f32_dgrad_refuses_operands_its_copies_cannot_take(fake_cuda, which):
+    # the float32 linear_dgrad copies 16 bytes at a time (cp.async): an operand
+    # 8 bytes past a 16-byte boundary is refused before the launch
+    d, f = fused_block.D_MODEL, fused_block.D_FFN
+    shapes = {"dy": (2, 128, f), "w": (f, d), "residual": (2, 128, d)}
+    ops = {n: _misaligned(*sh) if n == which else torch.zeros(sh) for n, sh in shapes.items()}
+    with pytest.raises(ValueError, match="aligned"):
+        fused_block.linear_dgrad(ops["dy"], ops["w"], torch.tensor([128, 3], dtype=torch.int32),
+                                 residual=ops["residual"])
+    assert fake_cuda.calls == []

@@ -788,3 +788,71 @@ def test_f32_linear_wgrad_at_every_site(dev, batch, site):
         assert torch.equal(o, ag), "a second call gives other bits"
         assert o.dtype == torch.float32 and o.shape == r.shape
         _assert_grad_close(o, r, valid)
+
+
+# ---- the float32 linear_dgrad (K2b) and attention backward (K4) redesigned ----
+# linear_dgrad on the shared main loop of csrc/sgemm_f32.cuh (the FFN1 site a
+# two-block cluster splitting K), at every site, and the attention backward
+# of csrc/prefix_attention_bwd.cu (its prep pass, dk/dv and dq, the images
+# taken longest first), each against its plain float32 version with the
+# tolerances above, at every kind of prefix, at the hub's shapes and at the
+# f32 train batch's 16 sequences. The cotangent covers every row of the
+# tiles the forward computes, also those past valid_len (32-row tiles of the
+# layer, 64-query tiles of the attention); the zero-filled tiles get exact
+# zeros, and a second call repeats the bits.
+F32_DGRAD_SITES = {"ffn2_hid": (D, F, "relu_of"), "ffn1_x2": (F, D, "residual"),
+                   "out": (D, D, None), "qkv": (3 * D, D, None)}
+
+
+def _assert_computed_rows_close(out, ref, rows):
+    """float32 within the gradient tolerance on the rows the forward computes
+    (images with none are skipped), exact zeros past them."""
+    some = [i for i, n in enumerate(rows) if n]
+    _assert_grad_close(out[some], ref[some], [rows[i] for i in some])
+    for i, n in enumerate(rows):
+        assert not out[i, n:].any().item(), ("past the computed tiles", i, n)
+
+
+@pytest.mark.parametrize("site", list(F32_DGRAD_SITES))
+@pytest.mark.parametrize("batch", list(F32_BATCHES))
+def test_f32_linear_dgrad_at_every_site(dev, batch, site):
+    s, valid = F32_BATCHES[batch]
+    rng = np.random.default_rng(len(valid) + list(F32_DGRAD_SITES).index(site))
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    bsz, (k, n, epi) = len(valid), F32_DGRAD_SITES[site]
+    rows = [min(-(-m // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK, s) for m in valid]
+    dy = _tail_cotangent(_randn(rng, dev, bsz, s, k), valid, fused_block.ROW_BLOCK)
+    w = _randn(rng, dev, k, n, scale=k ** -0.5)
+    kw = {} if epi is None else {epi: _randn(rng, dev, bsz, s, n)}
+    before = _launch.LAUNCHES["linear_dgrad"]
+    out, again = (fused_block.linear_dgrad(dy, w, vl, **kw) for _ in range(2))
+    assert _launch.LAUNCHES["linear_dgrad"] == before + 2
+    assert out.dtype == torch.float32 and torch.equal(out, again), "a second call gives other bits"
+    _assert_computed_rows_close(out, fused_block.linear_dgrad_reference(dy, w, vl, **kw), rows)
+
+
+F32_ATTN_BATCHES = {"ragged": (2048, [0] + ATTN_VALID), "hub": (2048, _HUB),
+                    "train": (2048, _TRAIN[:16])}
+
+
+@pytest.mark.parametrize("layout", ["packed", "contiguous"])
+@pytest.mark.parametrize("batch", list(F32_ATTN_BATCHES))
+def test_f32_attention_backward(dev, batch, layout):
+    s, valid = F32_ATTN_BATCHES[batch]
+    rng = np.random.default_rng(len(valid) + 13)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    qkv = _randn(rng, dev, len(valid), s, 3 * D)
+    q, k, v = ((qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]) if layout == "packed" else
+               tuple(qkv[..., i * D:(i + 1) * D].contiguous() for i in range(3)))
+    dout = _tail_cotangent(_randn(rng, dev, len(valid), s, D), valid, fa.SEQ_BLOCK)
+    rows = [min(-(-n // fa.SEQ_BLOCK) * fa.SEQ_BLOCK, s) for n in valid]
+    o, lse = fa.attention_forward(q, k, v, vl, HEADS, with_lse=True)
+    before = _launch.LAUNCHES["prefix_attention_bwd"]
+    got = fa.prefix_attention_bwd(q, k, v, o, lse, dout, vl, HEADS)
+    again = fa.prefix_attention_bwd(q, k, v, o, lse, dout, vl, HEADS)
+    assert _launch.LAUNCHES["prefix_attention_bwd"] == before + 2
+    assert got.dtype == torch.float32 and torch.equal(got, again), "a second call gives other bits"
+    ref = fa.prefix_flash_attention_backward_reference(q, k, v, o, lse, dout, vl, HEADS)
+    for j in range(3):  # dq, dk, dv
+        _assert_computed_rows_close(got[..., j * D:(j + 1) * D], ref[..., j * D:(j + 1) * D],
+                                    rows)
