@@ -14,14 +14,15 @@
 //
 // What bounds them on an H100: at B*S_pad = 16384 rows the FFN GEMMs do 12.9
 // GFLOP each against ~0.14 GB of traffic, so all three are bound by operations
-// (67 TFLOP/s of f32 FMA outside the tensor cores). ln_linear_fwd and
-// linear_relu_fwd are the simple shape of an f32 GEMM: a block owns BM = 32
-// rows and BN output columns, walks K in BK = 32 slices staged through shared
-// memory, and each of its 256 threads keeps a 2 x BN/16 tile of sums in
-// registers; the LayerNorm prologue of ln_linear_fwd is applied as the A tile
-// is staged. linear_residual_ln_fwd is redesigned for Hopper on the shared
-// main loop of sgemm_f32.cuh (its note below). D = 192 fits one block's
-// columns, so its LayerNorm epilogue stays in the block.
+// (67 TFLOP/s of f32 FMA outside the tensor cores). ln_linear_fwd is the
+// simple shape of an f32 GEMM: a block owns BM = 32 rows and BN output
+// columns, walks K in BK = 32 slices staged through shared memory, and each
+// of its 256 threads keeps a 2 x BN/16 tile of sums in registers; the
+// LayerNorm prologue is applied as the A tile is staged. linear_relu_fwd and
+// linear_residual_ln_fwd are redesigned for Hopper on the shared main loop of
+// sgemm_f32.cuh (their notes below): cp.async rings, register tiles of 48-64
+// sums a thread fed by 16-byte shared reads. D = 192 fits one block's
+// columns, so linear_residual_ln_fwd's LayerNorm epilogue stays in the block.
 //
 // The three kernels here are float32 only. The bf16 path the JAX package
 // trains in (precision "bf16": bf16 activations, f32 parameters cast to bf16
@@ -96,32 +97,126 @@ ln_linear_kernel(const float* __restrict__ x, const float* __restrict__ g,
     }
 }
 
-// ---- linear_relu_fwd: out = relu(x @ W^T + bias), grid (M / BM, N / BN) ----
-// float32 only (the bf16 instance is linear_fwd_bf16.cu's)
-template <int BN>
-__global__ void __launch_bounds__(NT)
+// ---- linear_relu_fwd: out = relu(x @ W^T + bias) ----------------------------
+// float32 only (the bf16 instance is linear_fwd_bf16.cu's). Redesigned for
+// Hopper's CUDA cores on the shared main loop of sgemm_f32.cuh.
+//
+// Replaces the FFN1 step of the TPU kernel
+// chadavit_tpu/ops/fused_block.py::_fwd_kernel (:91), lines :172-173:
+// hid = relu(x2 @ W1 + b1).
+//
+// What bounds it: operations. At hub shapes it does 7.4 GFLOP on the rows it
+// must compute (0.11 ms at 67 TFLOP/s of f32 FMA), against 0.023 ms of output
+// bytes. The design keeps the FMA units fed from shared memory:
+// - a block owns one 32-row tile of the contract and one slab of 256 of W1's
+//   2048 rows (the output's columns): grid (M / 32, 8), at hub shapes 293
+//   computed row tiles x 8 = 17.8 blocks of work an SM. Its 32 x 192 x rows
+//   stay resident in shared memory (rows padded to 196 floats), copied with
+//   the ring's first stage;
+// - W1 is staged as it lies (K contiguous), 16 columns of K a stage, by
+//   16-byte cp.async copies into a ring of LR_STAGES = 3 slots (rows padded
+//   to 20 floats, so the 8 rows a quarter warp reads lie in distinct banks),
+//   one barrier a stage. 84.5 KB of shared memory, two blocks an SM. A block
+//   that walks LR_SLABS > 1 slabs (the bench's builds) keeps one ring across
+//   them, so the x copy and the ring's prologue are paid once a walk; at hub
+//   shapes one slab is the fastest (scripts/bench_linear_f32.py: more blocks
+//   even out the SMs);
+// - each of the 4 warps takes 32 rows x 64 columns of a slab, a thread 8 x 8
+//   sums (rows ty + 4 i, columns tx + 8 j of its warp's), reading a float4 of
+//   each of its 8 x rows (a quarter warp reads one row: a broadcast) and of
+//   its 8 W1 rows over four k: 16 reads of 16 bytes feed 256 FMAs
+//   (sgemm::dot4);
+// - every sum runs from k = 0 upward with fmaf, then the bias is added and
+//   then fmaxf(., 0): the order of gemm_tile (gemm_common.cuh), which this
+//   step ran on before, so hid keeps its bits; the layer's backward
+//   recomputes hid with this kernel, and its ReLU mask reads hid > 0.
+// A 32-row tile wholly past valid_len is written as zeros over the block's
+// columns and not read; the decision is the same for every thread of the
+// block and taken before any barrier. LR_SLABS and LR_STAGES set the walk and
+// the ring, so that scripts/bench_linear_f32.py can time other choices of
+// the same source (the ring's trip count stays a constant: a runtime count
+// made the kernel slower).
+#ifndef LR_SLABS
+#define LR_SLABS 1
+#endif
+#ifndef LR_STAGES
+#define LR_STAGES 3
+#endif
+constexpr int LR_BN = 256;           // a slab of output columns
+constexpr int LR_BK = 16;
+constexpr int LR_LDW = LR_BK + 4;    // a staged W1 row, padded
+constexpr int LR_LDX = D_MODEL + 4;  // a resident x row, padded
+constexpr int LR_THREADS = 128;      // 4 warps of 32 rows x 64 columns
+constexpr int LR_TM = 8, LR_TN = 8;  // a thread's rows and columns
+constexpr int LR_STAGE = LR_BN * LR_LDW;  // floats
+constexpr int LR_SMEM = (BM * LR_LDX + LR_STAGES * LR_STAGE) * 4;
+static_assert(LR_BN == LR_THREADS / 32 * 8 * LR_TN && BM == 4 * LR_TM &&
+                  D_FFN % (LR_SLABS * LR_BN) == 0,
+              "linear_relu tile shape");
+
+__global__ void __launch_bounds__(LR_THREADS, 2)
 linear_relu_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ bias, float* __restrict__ out,
-                   const int* __restrict__ valid_len, int K, int N, int s_pad) {
-  constexpr int TN = BN / 16;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  if (tile_is_padding(m0, s_pad, valid_len)) {
-    zero_tile<BN>(out, N, m0, n0);
+                   const int* __restrict__ valid_len, int s_pad) {
+  constexpr int K = D_MODEL, N = D_FFN, KS = K / LR_BK;  // stages a slab
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * LR_SLABS * LR_BN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tile_is_padding(m0, s_pad, valid_len)) {  // uniform, before any barrier
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = tid; c < BM * LR_SLABS * LR_BN / 4; c += LR_THREADS) {
+      const int r = c / (LR_SLABS * LR_BN / 4), cc = c % (LR_SLABS * LR_BN / 4) * 4;
+      *reinterpret_cast<float4*>(out + (size_t)(m0 + r) * N + n0 + cc) = z;
+    }
     return;
   }
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Ws[BK][BN + 1];
-  float acc[2][TN];
-  gemm_tile<BN, false>(x, K, w, K, K, m0, n0, nullptr, nullptr, nullptr, nullptr,
-                       As, Ws, acc);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  extern __shared__ __align__(16) float lr_smem[];
+  float* xs = lr_smem;                 // the block's x rows, resident
+  float* ring = xs + BM * LR_LDX;
+  const int ty = lane >> 3, tx = lane & 7, wc = warp * 64;
+
+  for (int c = tid; c < BM * K / 4; c += LR_THREADS) {  // joins the first stage's copies
+    const int r = c / (K / 4), cc = c % (K / 4) * 4;
+    sgemm::cp_async_16(xs + r * LR_LDX + cc, x + (size_t)(m0 + r) * K + cc);
+  }
+  auto load = [&](int s, int slot) {  // slab s / KS, K columns [(s % KS) BK, + BK)
+    float* ws = ring + slot * LR_STAGE;
+    const float* src = w + (size_t)(n0 + s / KS * LR_BN) * K + s % KS * LR_BK;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + 16 * j;
-      out[(size_t)(m0 + 2 * ty + i) * N + n] = fmaxf(acc[i][j] + bias[n], 0.f);
+    for (int q = 0; q < LR_BN * LR_BK / 4 / LR_THREADS; ++q) {
+      const int c = tid + q * LR_THREADS;
+      const int r = c / (LR_BK / 4), cc = c % (LR_BK / 4) * 4;
+      sgemm::cp_async_16(ws + r * LR_LDW + cc, src + (size_t)r * K + cc);
     }
+  };
+  float acc[LR_TM][LR_TN] = {};
+  sgemm::ring<LR_STAGES>(LR_SLABS * KS, load, [&](int s, int slot) {
+    const int ks = s % KS;
+    if (ks == 0)
+#pragma unroll
+      for (int i = 0; i < LR_TM; ++i)
+#pragma unroll
+        for (int j = 0; j < LR_TN; ++j) acc[i][j] = 0.f;
+    const float* as = xs + ty * LR_LDX + ks * LR_BK;
+    const float* ws = ring + slot * LR_STAGE + (wc + tx) * LR_LDW;
+#pragma unroll
+    for (int kk = 0; kk < LR_BK; kk += 4) {
+      float4 av[LR_TM];
+#pragma unroll
+      for (int i = 0; i < LR_TM; ++i) av[i] = load4(as + i * 4 * LR_LDX + kk);
+#pragma unroll
+      for (int j = 0; j < LR_TN; ++j) sgemm::dot4(acc, j, av, load4(ws + j * 8 * LR_LDW + kk));
+    }
+    if (ks == KS - 1) {  // the slab's sums are whole: the bias, then the ReLU
+      const int nc = n0 + s / KS * LR_BN + wc + tx;
+#pragma unroll
+      for (int j = 0; j < LR_TN; ++j) {
+        const float bj = bias[nc + 8 * j];
+#pragma unroll
+        for (int i = 0; i < LR_TM; ++i)
+          out[(size_t)(m0 + ty + 4 * i) * N + nc + 8 * j] = fmaxf(acc[i][j] + bj, 0.f);
+      }
+    }
+  });
 }
 
 // ---- linear_residual_ln_fwd: out = LN(res + (a @ W^T + bias)) --------------
@@ -343,9 +438,11 @@ int linear_relu_fwd(const float* x, const float* w, const float* bias,
                     int s_pad, void* stream) {
   if (!rows_ok(M, K, s_pad) || K != D_MODEL || N != D_FFN)
     return (int)cudaErrorInvalidValue;
-  linear_relu_kernel<128><<<dim3(M / BM, N / 128), NT, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      x, w, bias, out, valid_len, K, N, s_pad);
+  int e = (int)cudaFuncSetAttribute(linear_relu_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, LR_SMEM);
+  if (e != 0) return e;
+  linear_relu_kernel<<<dim3(M / BM, N / (LR_SLABS * LR_BN)), LR_THREADS, LR_SMEM,
+                       static_cast<cudaStream_t>(stream)>>>(x, w, bias, out, valid_len, s_pad);
   return (int)cudaGetLastError();
 }
 

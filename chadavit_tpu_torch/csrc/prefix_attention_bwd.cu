@@ -36,7 +36,8 @@
 //   barrier a tile, the next tile in flight while this one is multiplied; the
 //   block's own tiles (K and V; qs, dO, lse and delta) join the first copy
 //   group. Head rows are staged as they lie, d contiguous, padded to 100
-//   floats so that the 8 rows a quarter warp reads lie in distinct banks;
+//   floats so that the 8 rows a quarter warp reads lie in distinct banks
+//   (attention_f32.cuh: the tiles and products the forward shares);
 // - the 8 warps pair up: warp w < 4 computes the scores S (K qs^T in dkdv, qs
 //   K^T in dq) of 16 of the block's rows against the tile's 64, warp w + 4
 //   dP (V dO^T, dO V^T) of the same entries; a thread holds 4 x 8 of them and
@@ -77,16 +78,12 @@
 
 #include <math.h>
 
-#include "sgemm_f32.cuh"
+#include "attention_f32.cuh"
 
 namespace {
 
-constexpr int BT = 64;            // query and key tile
 constexpr int THREADS = 256;      // 8 warps: 4 pairs
-constexpr int HEAD_DIM = 96;      // ChAdaViT-moyen: D 192, 2 heads; other widths are refused
-constexpr int LDH = HEAD_DIM + 4;  // a staged head row, padded
 constexpr int LDP = BT + 4;        // a row of P or dS in shared memory
-constexpr int TILE_F = BT * LDH;   // floats of a staged (BT, HEAD_DIM) tile
 constexpr int STAGES = 2;
 constexpr int PREP_THREADS = 256;
 constexpr float INV_LOG2E = 0.6931471805599453f;
@@ -137,17 +134,6 @@ attention_bwd_prep_kernel(const float* __restrict__ q, int ld, const float* __re
   for (int j = 0; j < HEAD_DIM / 32; ++j) qsr[lane + 32 * j] = qr[lane + 32 * j] * qscale;
 }
 
-// BT rows of a head (rows of ld floats from src) into a (BT, LDH) shared
-// tile, by cp.async; the caller commits
-__device__ __forceinline__ void copy_tile(float* dst, const float* __restrict__ src, int ld) {
-  constexpr int V4 = HEAD_DIM / 4;
-#pragma unroll
-  for (int i = 0; i < BT * V4 / THREADS; ++i) {
-    const int c = threadIdx.x + i * THREADS, r = c / V4, cc = c % V4 * 4;
-    sgemm::cp_async_16(dst + r * LDH + cc, src + (size_t)r * ld + cc);
-  }
-}
-
 // BT rows of a head, of row stride ld, set to zero
 __device__ __forceinline__ void zero_rows(float* dst, int ld) {
   constexpr int V4 = HEAD_DIM / 4;
@@ -169,39 +155,6 @@ __device__ __forceinline__ void pair_sync(int pair) {
 struct Item {
   int b, h, t0;
 };
-
-// sc[i][j] = A[r + i] . B[c + 8 j] over the head's d, A and B (BT, LDH)
-// shared tiles: the thread's 4 rows of A against its 8 rows of B
-__device__ __forceinline__ void scores(float (&sc)[4][8], const float* A, int r, const float* B,
-                                       int c) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HEAD_DIM; d += 4) {
-    float4 a[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = load4(A + (r + i) * LDH + d);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) sgemm::dot4(sc, j, a, load4(B + (c + 8 * j) * LDH + d));
-  }
-}
-
-// acc[i][j] += sum over the tile's 64 rows n of P[n][r + i] H[n][4 c + 32 (j / 4) + j % 4]:
-// P (BT, LDP) with the thread's 4 columns contiguous, H (BT, LDH)
-__device__ __forceinline__ void second_product(float (&acc)[4][12], const float* P, int r,
-                                               const float* H, int c) {
-#pragma unroll 4
-  for (int n = 0; n < BT; ++n) {
-    float a[4], bv[12];
-    *reinterpret_cast<float4*>(a) = load4(P + n * LDP + r);
-#pragma unroll
-    for (int jj = 0; jj < 3; ++jj)
-      *reinterpret_cast<float4*>(bv + 4 * jj) = load4(H + n * LDH + 4 * c + 32 * jj);
-    sgemm::outer(acc, a, bv);
-  }
-}
 
 // the thread's 4 rows x 12 head columns of acc times mul into dst (rows of ld)
 __device__ __forceinline__ void store_rows(float* dst, int ld, int r, int c,
@@ -253,12 +206,12 @@ __device__ __forceinline__ void dkdv_block(Item it, float* smem, const float* __
   const int role = warp >> 2, pair = warp & 3;
   const int kr = 16 * pair + 4 * (lane >> 3), qg = lane & 7;
 
-  copy_tile(Ks, k + (row0 + k0) * ld + h * HEAD_DIM, ld);  // with query tile 0's copies
-  copy_tile(Vs, v + (row0 + k0) * ld + h * HEAD_DIM, ld);
+  copy_tile<THREADS>(Ks, k + (row0 + k0) * ld + h * HEAD_DIM, ld);  // with query tile 0's copies
+  copy_tile<THREADS>(Vs, v + (row0 + k0) * ld + h * HEAD_DIM, ld);
   auto load = [&](int s, int slot) {
     float* st = ring + slot * DKDV_STAGE;
-    copy_tile(st, qs + (row0 + s * BT) * ldq + h * HEAD_DIM, ldq);
-    copy_tile(st + TILE_F, dout + (row0 + s * BT) * ldo + h * HEAD_DIM, ldo);
+    copy_tile<THREADS>(st, qs + (row0 + s * BT) * ldq + h * HEAD_DIM, ldq);
+    copy_tile<THREADS>(st + TILE_F, dout + (row0 + s * BT) * ldo + h * HEAD_DIM, ldo);
     if (tid < 2 * BT / 4)  // 64 lse, then 64 delta
       sgemm::cp_async_16(st + 2 * TILE_F + 4 * tid,
                          (tid < BT / 4 ? lse_h : delta_h - BT) + s * BT + 4 * tid);
@@ -289,7 +242,7 @@ __device__ __forceinline__ void dkdv_block(Item it, float* smem, const float* __
       }
       pair_arrive(pair);  // warp pair + 4 may read them
       __syncwarp();
-      second_product(acc, Ps, kr, st + TILE_F, qg);  // dV += P^T dO
+      second_product<LDP>(acc, Ps, kr, st + TILE_F, qg);  // dV += P^T dO
     } else {
       pair_sync(pair);  // P of these keys is in place
 #pragma unroll
@@ -302,7 +255,7 @@ __device__ __forceinline__ void dkdv_block(Item it, float* smem, const float* __
                         p.w * (sc[3][j] - dl));
       }
       __syncwarp();
-      second_product(acc, dSs, kr, st, qg);  // dK += dS^T qs
+      second_product<LDP>(acc, dSs, kr, st, qg);  // dK += dS^T qs
     }
   });
   if (role == 0) store_rows(dvb, ldg, kr, qg, acc, 1.f);
@@ -345,16 +298,16 @@ __device__ __forceinline__ void dq_block(Item it, float* smem, const float* __re
   const int qr = 16 * pair + 4 * (lane >> 3), kg = lane & 7;
 
   // the block's qs, dO, lse and delta, with key tile 0's copies
-  copy_tile(Qs, qs + (row0 + q0) * ldq + h * HEAD_DIM, ldq);
-  copy_tile(dOs, dout + (row0 + q0) * ldo + h * HEAD_DIM, ldo);
+  copy_tile<THREADS>(Qs, qs + (row0 + q0) * ldq + h * HEAD_DIM, ldq);
+  copy_tile<THREADS>(dOs, dout + (row0 + q0) * ldo + h * HEAD_DIM, ldo);
   if (tid < 2 * BT / 4)
     sgemm::cp_async_16(lse_s + 4 * tid,
                        (tid < BT / 4 ? lse : delta - BT) + ((size_t)b * heads + h) * s_pad + q0 +
                            4 * tid);
   auto load = [&](int s, int slot) {
     float* st = ring + slot * DQ_STAGE;
-    copy_tile(st, k + (row0 + s * BT) * ld + h * HEAD_DIM, ld);
-    copy_tile(st + TILE_F, v + (row0 + s * BT) * ld + h * HEAD_DIM, ld);
+    copy_tile<THREADS>(st, k + (row0 + s * BT) * ld + h * HEAD_DIM, ld);
+    copy_tile<THREADS>(st + TILE_F, v + (row0 + s * BT) * ld + h * HEAD_DIM, ld);
   };
   float acc[4][12];
 #pragma unroll
@@ -396,7 +349,7 @@ __device__ __forceinline__ void dq_block(Item it, float* smem, const float* __re
                         p.z * (sc[2][j] - dl[2]), p.w * (sc[3][j] - dl[3]));
       }
       __syncwarp();
-      second_product(acc, dSs, qr, st, kg);  // dq += dS K
+      second_product<LDP>(acc, dSs, qr, st, kg);  // dq += dS K
     }
   });
   if (role == 1) store_rows(dqb, ldg, qr, kg, acc, scale);

@@ -1,7 +1,8 @@
 // The float32 GEMM main loop on Hopper's CUDA cores, shared by the redesigned
-// linear_residual_ln_fwd (fused_block.cu, K1b), linear_wgrad and linear_dgrad
-// (fused_block_bwd.cu, K2c and K2b) and the float32 attention backward
-// (prefix_attention_bwd.cu, K4):
+// linear_relu_fwd and linear_residual_ln_fwd (fused_block.cu, K1c and K1b),
+// linear_wgrad and linear_dgrad (fused_block_bwd.cu, K2c and K2b) and the
+// float32 attention forward and backward (prefix_attention.cu and
+// prefix_attention_bwd.cu, K3 and K4, through attention_f32.cuh):
 //
 // - a cp.async ring of shared-memory stages (16-byte cp.async.cg copies, L2
 //   only), with one barrier a stage: the copies of the stages ahead are in

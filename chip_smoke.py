@@ -18,12 +18,13 @@ Phases, each printed with its elapsed seconds at its start and end:
 1. build: nvcc compiles csrc/*.cu (layernorm.cu among them), one process per
    source, into one library (cold build seconds); beside it, nvcc -Xptxas -v
    on csrc/linear_fwd_bf16.cu, csrc/linear_bwd_bf16.cu,
-   csrc/prefix_attention_bf16.cu, csrc/prefix_attention_bwd.cu,
-   csrc/fused_block.cu and csrc/fused_block_bwd.cu prints the registers,
-   shared memory and spills of the tensor-core kernels, of the float32
-   attention backward's two kernels, of the float32 linear_residual_ln and
-   linear_dgrad and of layernorm_bwd's and the float32 linear_wgrad's two
-   passes, none of which may spill.
+   csrc/prefix_attention_bf16.cu, csrc/prefix_attention.cu,
+   csrc/prefix_attention_bwd.cu, csrc/fused_block.cu and
+   csrc/fused_block_bwd.cu prints the registers, shared memory and spills of
+   the tensor-core kernels, of the float32 attention forward and of the
+   backward's two kernels, of the float32 linear_relu, linear_residual_ln
+   and linear_dgrad and of layernorm_bwd's and the float32 linear_wgrad's
+   two passes, none of which may spill.
 2. each kernel instance against its plain PyTorch version at hub shapes (B 8,
    S_pad 2048, D 192, F 2048, 2 heads, 1..10 channels), float32 on the
    inputs of seed 0, then bfloat16 on those of each of BF16_SEEDS (the worst
@@ -33,7 +34,8 @@ Phases, each printed with its elapsed seconds at its start and end:
    it (linear_dgrad, linear_wgrad and the attention backward twice, for the
    same bits); in float32
    linear_residual_ln twice at each site, with and without its save outputs,
-   for the same bits; in bfloat16
+   for the same bits, and the attention forward with its lse for zeros and
+   lse 1e30 on the 64-query tiles past valid_len; in bfloat16
    the tensor-core ln_linear, linear_relu and linear_residual_ln (K1a, K1c,
    K1b) once more, K1a and each K1b site with and without its save outputs,
    every call twice for the same bits and with zeros on the tiles past
@@ -564,6 +566,7 @@ def main() -> int:
     fbb_cu = "chadavit_tpu_torch/csrc/fused_block_bwd.cu"
     tc_cu = "chadavit_tpu_torch/csrc/linear_bwd_bf16.cu"
     fwd_tc_cu = "chadavit_tpu_torch/csrc/linear_fwd_bf16.cu"
+    attn_cu = "chadavit_tpu_torch/csrc/prefix_attention.cu"
     attn_bwd_cu = "chadavit_tpu_torch/csrc/prefix_attention_bwd.cu"
     k1, k2 = "chadavit_tpu/ops/fused_block.py:91", "chadavit_tpu/ops/fused_block.py:211"
     from chadavit_tpu_torch.ops import layernorm as ln
@@ -571,8 +574,7 @@ def main() -> int:
     ln_cu = "chadavit_tpu_torch/csrc/layernorm.cu"
     kernels = {  # name -> wrapper, source, the TPU kernel it replaces
         "ln_linear_fwd": (fused_block.ln_linear, fb_cu, k1),
-        "prefix_attention_fwd": (fa.prefix_flash_attention,
-                                 "chadavit_tpu_torch/csrc/prefix_attention.cu",
+        "prefix_attention_fwd": (fa.prefix_flash_attention, attn_cu,
                                  "chadavit_tpu/ops/flash_attention.py:103"),
         "linear_relu_fwd": (fused_block.linear_relu, fb_cu, k1),
         "linear_residual_ln_fwd": (fused_block.linear_residual_ln, fb_cu, k1),
@@ -611,12 +613,12 @@ def main() -> int:
         cold = not (_build.BUILD_DIR / _build.source_hash()).exists()
         t = time.perf_counter()
         # every kernel of the tensor-core sources and of the float32
-        # attention backward (K4), the float32 linear_residual_ln (K1b) of
-        # fused_block.cu, and the two passes of layernorm_bwd (K2a) and of the
-        # float32 linear_wgrad (K2c) and the float32 linear_dgrad (K2b) of
-        # fused_block_bwd.cu
-        ptxas_sources = {fwd_tc_cu: (), tc_cu: (), attn_tc_cu: (), attn_bwd_cu: (),
-                         fb_cu: ("linear_residual_ln",),
+        # attention forward and backward (K3, K4), the float32 linear_relu
+        # (K1c) and linear_residual_ln (K1b) of fused_block.cu, and the two
+        # passes of layernorm_bwd (K2a) and of the float32 linear_wgrad (K2c)
+        # and the float32 linear_dgrad (K2b) of fused_block_bwd.cu
+        ptxas_sources = {fwd_tc_cu: (), tc_cu: (), attn_tc_cu: (), attn_cu: (), attn_bwd_cu: (),
+                         fb_cu: ("linear_relu", "linear_residual_ln"),
                          fbb_cu: ("layernorm_bwd", "reduce_ln_splits", "linear_wgrad",
                                   "reduce_wgrad_splits", "linear_dgrad")}
         ptxas = [_build.ptxas_report(Path(src).name)  # beside the build
@@ -840,6 +842,15 @@ def main() -> int:
                      max(st_err[2:] + [valid_rows_err(kr2, rr2, valid_len)[0]]),
                      KERNEL_TOL, " save outputs mean, rstd, r2")
                 note("prefix_attention_fwd", lse_err, KERNEL_TOL, " save output lse")
+                # the 64-query tiles wholly past valid_len: zeros, and lse 1e30
+                ko, kl = fa.attention_forward(q, k, v, vl, H, with_lse=True)
+                torch.cuda.synchronize()
+                ph.check(all(not ko[i, n:].any().item() and (kl[i, :, n:] == 1e30).all().item()
+                             for i, n in enumerate(query_rows)),
+                         "prefix_attention_fwd: zeros and lse 1e30 on the "
+                         f"{sum(S_PAD - n for n in query_rows) // fa.SEQ_BLOCK} 64-query tiles "
+                         "past valid_len")
+                del ko, kl
             else:
                 # f32 stats of bf16 rows that can differ by a rounding step
                 ph.check(all(t.dtype == torch.float32 for t in (*kst, klse))

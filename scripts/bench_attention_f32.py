@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Times the float32 prefix-attention backward (K4) of
-``chadavit_tpu_torch/csrc/prefix_attention_bwd.cu`` on one NVIDIA GPU: its
-two launches (the prep pass, then dk/dv and dq in one kernel) by the
-profiler's device time, as built and in diagnostic builds of the same
-source:
+"""Times the float32 prefix-attention forward (K3) of
+``chadavit_tpu_torch/csrc/prefix_attention.cu`` and backward (K4) of
+``chadavit_tpu_torch/csrc/prefix_attention_bwd.cu`` on one NVIDIA GPU: the
+forward's one launch, and the backward's two (the prep pass, then dk/dv and
+dq in one kernel), by CUDA events and by the profiler's device time, as built
+and in diagnostic builds of the same sources:
 
 - ``no_copy``: the ``cp.async`` copies do nothing (``-DSGEMM_NO_COPY``), so
   the kernels multiply whatever shared memory holds: the time left is the FMA
@@ -13,14 +14,20 @@ source:
   multiplied into every sum (``-DSGEMM_NO_FMA``): the time left is the
   copies, the shared-memory reads, the barriers, the exponentials and the
   writes;
-- ``in_order``: the blocks take the images in index order rather than
-  longest first (``-DATTN_BWD_IN_ORDER``): what the order is worth.
+- ``in_order``: the blocks of both take the images in index order rather
+  than longest first (``-DATTN_FWD_IN_ORDER``, ``-DATTN_BWD_IN_ORDER``): what
+  the order is worth;
+- ``fwd_split1``, ``fwd_split2``: the forward's key walk whole in one block,
+  or split across a cluster of two blocks whose shares are added in rank
+  order through distributed shared memory (``-DATTN_FWD_SPLIT``; as built
+  1): what the ragged tail of the long walks costs.
 
 A kernel near ``no_copy`` is held by its loops, one near ``no_fma`` by its
 loads. The diagnostic builds ``no_copy`` and ``no_fma`` compute nothing
-meaningful; only their times are read. Each build also prints the registers,
-shared memory and spills of the two kernels (``nvcc -Xptxas -v``). Run
-from the root of the repository:
+meaningful; only their times are read. The others print the largest
+difference of their forward's o and lse from the build as built. Each build
+also prints the registers, shared memory and spills of the three kernels
+(``nvcc -Xptxas -v``). Run from the root of the repository:
 
     python3 scripts/bench_attention_f32.py [train|hub]
 
@@ -28,13 +35,14 @@ from the root of the repository:
 crops of the first 8 channel counts of chip_smoke.py's bf16 train batch) of
 2048 rows; ``hub``: chip_smoke.py's hub shapes (8 images, 2048 rows). q, k and
 v are the column slices of one packed qkv (rows of 576), as the layer passes
-them; o and the lse come from the float32 forward kernel. Each call is one
-launch of the C entry point, without the Python wrapper; the whole backward
-is timed with CUDA events over 20 calls after 3 of warm-up, and each kernel
-by the profiler's device time over the same 20 calls. Prints one line per
-build, the bound (the function's operations at the f32 peak), one PyTorch
-call for the same function (autograd of ``scaled_dot_product_attention``,
-which the port never calls) and the card's name and power limit.
+them; the backward's o and lse come from the forward kernel as built. Each
+call is one launch of the C entry point, without the Python wrapper; the
+forward (with its lse) and the whole backward are timed with CUDA events over
+20 calls after 3 of warm-up, and each kernel by the profiler's device time
+over the same 20 calls. Prints one line per build, the bounds (the
+functions' operations at the f32 peak), one PyTorch call for each function
+(``scaled_dot_product_attention`` and its autograd, which the port never
+calls) and the card's name and power limit.
 """
 
 import ctypes
@@ -52,10 +60,12 @@ TRAIN_CHANNELS = [2, 5, 10, 8, 2, 10, 8, 7, 1, 5, 1, 6, 6, 10, 9, 6, 7, 10, 2, 2
 HUB_CHANNELS = [1, 3, 5, 10, 2, 7, 9, 10]
 S_PAD, D, HEADS = 2048, 192, 2
 PEAK_F32_FLOPS = 67e12  # f32 FMA outside the tensor cores, NVIDIA H100 SXM data sheet
-KERNELS = ("attention_bwd_prep_kernel", "attention_bwd_kernel")
-SOURCES = ("prefix_attention_bwd.cu", "prefix_attention.cu", "sgemm_f32.cuh", "storage.cuh")
+KERNELS = ("prefix_attention_kernel", "attention_bwd_prep_kernel", "attention_bwd_kernel")
+SOURCES = ("prefix_attention_bwd.cu", "prefix_attention.cu", "attention_f32.cuh",
+           "sgemm_f32.cuh", "storage.cuh")
 BUILDS = {"as built": [], "no_copy": ["-DSGEMM_NO_COPY"], "no_fma": ["-DSGEMM_NO_FMA"],
-          "in_order": ["-DATTN_BWD_IN_ORDER"]}
+          "in_order": ["-DATTN_FWD_IN_ORDER", "-DATTN_BWD_IN_ORDER"],
+          **{f"fwd_split{n}": [f"-DATTN_FWD_SPLIT={n}"] for n in (1, 2)}}
 
 
 def build(out_dir: Path) -> dict:
@@ -140,33 +150,56 @@ def main() -> int:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / iters
 
-    assert libs["as built"].prefix_attention_fwd(*fwd_args) == 0  # o and lse, kept
     sq = sum(n * n for n in valid) * HEADS * hd  # sum of vl^2 hd over images and heads
     print(f"{which}: {bsz} sequences of {S_PAD} rows, {sum(valid)} valid; bound (f32 "
-          f"operations at {PEAK_F32_FLOPS / 1e12:g} TFLOP/s): backward "
+          f"operations at {PEAK_F32_FLOPS / 1e12:g} TFLOP/s): forward "
+          f"{4 * sq / PEAK_F32_FLOPS * 1e3:.4f} ms, backward "
           f"{10 * sq / PEAK_F32_FLOPS * 1e3:.4f} ms", flush=True)
-    for name, lib in libs.items():
-        assert lib.prefix_attention_bwd(*bwd_args) == 0
-        bwd_ms = time_ms(lambda: lib.prefix_attention_bwd(*bwd_args))
+
+    def device_ms(fn):
+        """Each kernel's profiler device time a call, over iters calls of fn."""
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
-                lib.prefix_attention_bwd(*bwd_args)
+                fn()
             torch.cuda.synchronize()
-        dev_ms = {kn: sum(e.self_device_time_total for e in prof.key_averages()
-                          if e.device_type == torch.autograd.DeviceType.CUDA and kn in e.key)
-                  / 1e3 / iters for kn in KERNELS}
-        print(f"{name}: backward {bwd_ms:.4f} ms (prep {dev_ms[KERNELS[0]]:.4f}, dk/dv and "
-              f"dq {dev_ms[KERNELS[1]]:.4f} ms device time)", flush=True)
+        return {kn: sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA and kn in e.key)
+                / 1e3 / iters for kn in KERNELS}
+
+    assert libs["as built"].prefix_attention_fwd(*fwd_args) == 0
+    torch.cuda.synchronize()
+    ref_out, ref_lse = out.clone(), lse.clone()
+    for name, lib in libs.items():
+        assert lib.prefix_attention_fwd(*fwd_args) == 0
+        torch.cuda.synchronize()
+        diff = ("" if name.startswith("no_") else
+                f", o and lse differ from as built by at most "
+                f"{(out - ref_out).abs().max().item():.3e} and "
+                f"{(lse - ref_lse).abs().max().item():.3e}")
+        fwd_ms = time_ms(lambda: lib.prefix_attention_fwd(*fwd_args))
+        fwd_dev = device_ms(lambda: lib.prefix_attention_fwd(*fwd_args))[KERNELS[0]]
+        # the backward reads the forward's o and lse as built
+        assert libs["as built"].prefix_attention_fwd(*fwd_args) == 0
+        assert lib.prefix_attention_bwd(*bwd_args) == 0
+        bwd_ms = time_ms(lambda: lib.prefix_attention_bwd(*bwd_args))
+        dev_ms = device_ms(lambda: lib.prefix_attention_bwd(*bwd_args))
+        print(f"{name}: forward {fwd_ms:.4f} ms ({fwd_dev:.4f} ms device time{diff}); backward "
+              f"{bwd_ms:.4f} ms (prep {dev_ms[KERNELS[1]]:.4f}, dk/dv and dq "
+              f"{dev_ms[KERNELS[2]]:.4f} ms device time)", flush=True)
 
     def heads(t):
         return t.reshape(bsz, S_PAD, HEADS, hd).transpose(1, 2)
 
     key_ok = (torch.arange(S_PAD, device=dev)[None, :] < vl[:, None])[:, None, None, :]
     qh, kh, vh = (heads(t).detach().requires_grad_(True) for t in (q, k, v))
+    with torch.no_grad():
+        fwd_lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                                    attn_mask=key_ok))
     lib_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=key_ok)
     lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qh, kh, vh), heads(dout),
                                                  retain_graph=True))
-    print(f"library: autograd of scaled_dot_product_attention {lib_ms:.4f} ms", flush=True)
+    print(f"library: scaled_dot_product_attention {fwd_lib_ms:.4f} ms, its autograd "
+          f"{lib_ms:.4f} ms", flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     return 0

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Times the float32 ``linear_residual_ln_fwd`` (K1b, both sites),
-``linear_wgrad`` (K2c, all four sites, both passes) and ``linear_dgrad``
-(K2b, all four sites) of ``chadavit_tpu_torch/csrc/fused_block.cu`` and
+"""Times the float32 ``linear_relu_fwd`` (K1c), ``linear_residual_ln_fwd``
+(K1b, both sites), ``linear_wgrad`` (K2c, all four sites, both passes) and
+``linear_dgrad`` (K2b, all four sites) of
+``chadavit_tpu_torch/csrc/fused_block.cu`` and
 ``fused_block_bwd.cu`` on one NVIDIA GPU, as built and in diagnostic builds of
 the same sources:
 
@@ -15,14 +16,20 @@ the same sources:
   (both K 2048) and K2b's QKV site (K 576) with clusters of 1, 2, 4 or 8
   blocks splitting K (``-DLRN_SPLIT_FFN``, ``-DDG_SPLIT_FFN``,
   ``-DDG_SPLIT_QKV``; as built 2 each). More blocks even out the SMs'
-  share of the row tiles; fewer leave each block a longer K loop.
+  share of the row tiles; fewer leave each block a longer K loop;
+- ``k1c_slabs1`` ... ``k1c_slabs8``: K1c's block walks 1, 2, 4 or 8 slabs of
+  256 output columns (``-DLR_SLABS``; as built 1): more slabs copy the
+  block's x rows and fill the ring fewer times, fewer make more blocks;
+- ``k1c_stages2``, ``k1c_stages4``: K1c's ring of 2 or 4 slots
+  (``-DLR_STAGES``; as built 3).
 
 A site near ``no_copy`` is held by its loop, one near ``no_fma`` by its
 loads. Each build also prints the registers and spills of the two kernels
 (``nvcc -Xptxas -v``). The diagnostic builds compute nothing meaningful; only their times are
 read. It also times each wgrad site at other split counts than the plan
 (``ops/fused_block.py::wgrad_splits``), one PyTorch call for the same function
-per site (``torch.mm``; ``addmm``, with ``layer_norm`` for K1b), and prints the
+per site (``torch.mm``; ``addmm``, with ``layer_norm`` for K1b and ``relu``
+for K1c), and prints the
 wgrad partial scratch at 8, 16 and 64 sequences. Run from the root of the
 repository:
 
@@ -33,8 +40,8 @@ first 8 channel counts of chip_smoke.py's bf16 train batch) padded to 2048
 rows; ``hub``: chip_smoke.py's hub shapes (8 images, 2048 rows). Times are
 CUDA events over 20 calls after 3 of warm-up, each call one launch of the C
 entry point (wgrad: both passes), without the Python wrapper. Prints one
-line per build, the bound of each K2b site (its operations at the f32 peak)
-and the card's name and power limit.
+line per build, the bound of K1c and of each K2b site (its operations at the
+f32 peak) and the card's name and power limit.
 """
 
 import ctypes
@@ -54,13 +61,16 @@ SOURCES = ("fused_block.cu", "fused_block_bwd.cu", "sgemm_f32.cuh", "gemm_common
            "storage.cuh")
 BUILDS = {"as built": [], "no_copy": ["-DSGEMM_NO_COPY"], "no_fma": ["-DSGEMM_NO_FMA"],
           **{f"split_ffn{n}": [f"-DLRN_SPLIT_FFN={n}", f"-DDG_SPLIT_FFN={n}",
-                               f"-DDG_SPLIT_QKV={n}"] for n in (1, 2, 4, 8)}}
+                               f"-DDG_SPLIT_QKV={n}"] for n in (1, 2, 4, 8)},
+          **{f"k1c_slabs{n}": [f"-DLR_SLABS={n}"] for n in (1, 2, 4, 8)},
+          **{f"k1c_stages{n}": [f"-DLR_STAGES={n}"] for n in (2, 4)}}
 PEAK_F32_FLOPS = 67e12  # f32 FMA outside the tensor cores, NVIDIA H100 SXM data sheet
-KERNELS = ("linear_residual_ln", "linear_wgrad", "linear_dgrad")
+KERNELS = ("linear_relu", "linear_residual_ln", "linear_wgrad", "linear_dgrad")
 
 
 def build(out_dir: Path) -> dict:
-    """One library of the two sources per build, all compiled at once."""
+    """One library of the two sources per build (the K1c builds: of
+    fused_block.cu alone), all compiled at once."""
     from chadavit_tpu_torch.ops import _build
 
     procs = {}
@@ -69,9 +79,11 @@ def build(out_dir: Path) -> dict:
         d.mkdir(parents=True, exist_ok=True)
         for src in SOURCES:
             (d / src).write_text((_build.CSRC / src).read_text())
+        files = ("fused_block.cu",) if name.startswith("k1c") else ("fused_block.cu",
+                                                                     "fused_block_bwd.cu")
         procs[name] = (d / "lib.so", subprocess.Popen(
             [_build.find_nvcc(), *_build.NVCC_FLAGS, *flags, "-Xptxas", "-v", "-shared", "-o",
-             str(d / "lib.so"), str(d / "fused_block.cu"), str(d / "fused_block_bwd.cu")],
+             str(d / "lib.so"), *(str(d / f) for f in files)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     for _, proc in procs.values():  # every nvcc ends before any failure is raised
         proc.wait()
@@ -84,7 +96,8 @@ def build(out_dir: Path) -> dict:
             f" {k.get('registers')} regs {k.get('spill_stores')}/{k.get('spill_loads')} B spilled"
             for k in report if any(n in k["name"] for n in KERNELS)), flush=True)
         lib = ctypes.CDLL(str(path))
-        for fn in ("linear_residual_ln_fwd", "linear_wgrad", "linear_dgrad"):
+        for fn in ("linear_relu_fwd", "linear_residual_ln_fwd") + (
+                () if name.startswith("k1c") else ("linear_wgrad", "linear_dgrad")):
             getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
@@ -164,8 +177,16 @@ def main() -> int:
         return (act[k].data_ptr(), dgrad_w[k, n].data_ptr(), act[n].data_ptr() if epi else None,
                 dgrad_out[n].data_ptr(), epi, vl.data_ptr(), m, k, n, S_PAD, stream)
 
+    w1, b1 = rn(f, d, scale=d ** -0.5), rn(f, scale=0.1)
+    hid = torch.empty(m, f, device=dev)
+    k1c_args = (act[d].data_ptr(), w1.data_ptr(), b1.data_ptr(), hid.data_ptr(), vl.data_ptr(),
+                m, d, f, S_PAD, stream)
     for name, lib in libs.items():
-        cells = []
+        assert lib.linear_relu_fwd(*k1c_args) == 0
+        cells = [f"K1c {time_ms(lambda: lib.linear_relu_fwd(*k1c_args)):.4f}"]
+        if name.startswith("k1c"):  # the K1c builds change K1c only
+            print(f"{name}: " + ", ".join(cells) + " (ms)", flush=True)
+            continue
         for site in lrn_sites:
             args = lrn_args(*site)
             assert lib.linear_residual_ln_fwd(*args) == 0
@@ -183,8 +204,9 @@ def main() -> int:
                 assert lib.linear_wgrad(*args) == 0
                 cells.append(f"K2c ({n}, {k}) {time_ms(lambda: lib.linear_wgrad(*args)):.4f}")
         print(f"{name}: " + ", ".join(cells) + " (ms)", flush=True)
-    print("K2b bound (operations on the rows of computed tiles at "
-          f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s): " + ", ".join(
+    print("K1c and K2b bound (operations on the rows of computed tiles at "
+          f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s): K1c {2 * rows * d * f / PEAK_F32_FLOPS * 1e3:.4f}, "
+          + ", ".join(
               f"K {k} -> N {n} {2 * rows * k * n / PEAK_F32_FLOPS * 1e3:.4f}"
               for k, n, _ in dgrad_sites) + " (ms)", flush=True)
 
@@ -201,7 +223,7 @@ def main() -> int:
         print(f"K2c ({n}, {k}) as built: " + ", ".join(cells) + " (ms)", flush=True)
 
     # one PyTorch call for the same function (all M rows: the library skips none)
-    cells = []
+    cells = [f"K1c {time_ms(lambda: torch.relu(torch.addmm(b1, act[d], w1.t()))):.4f}"]
     for k, w, bias, res, _ in lrn_sites:
         a = act[k]
         cells.append(f"K1b K {k} {time_ms(lambda: F.layer_norm(torch.addmm(bias, a, w.t()) + res, (d,), g, beta, 1e-5)):.4f}")

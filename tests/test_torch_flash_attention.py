@@ -5,7 +5,8 @@ run in interpret mode, and the XLA masked attention.
 On the CPU the wrapper runs its plain version; the CUDA kernel is held
 against that plain version on the card (test_torch_kernels_gpu.py,
 chip_smoke.py). Tolerance: both sides compute in float32, so 2e-5 absolute
-and relative covers the different summation orders.
+and relative covers the different summation orders; the same holds the
+base-2 lse.
 """
 
 import jax.numpy as jnp
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from chadavit_tpu.ops.attention import xla_masked_attention as jax_xla_attention
+from chadavit_tpu.ops.flash_attention import _fwd_impl as jax_flash_fwd_impl
 from chadavit_tpu.ops.flash_attention import prefix_flash_attention as jax_flash
 from chadavit_tpu_torch.ops import _launch, attention, flash_attention
 
@@ -42,6 +44,27 @@ def test_matches_jax_pallas_interpret(num_heads):
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         torch.from_numpy(vl), num_heads)
     _assert_valid_rows_close(out.numpy(), ref, vl, **TOL)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 128, 129])
+def test_f32_forward_and_lse_match_jax_pallas_at_tile_edges(n):
+    """The wrapper's plain float32 forward on the CPU, at the model's widths (D 192, 2 heads of 96)
+    with a prefix at an edge of the CUDA kernel's 64-query tiles, beside a
+    whole sequence: o and the base-2 lse on the valid rows, against the
+    Pallas kernel in interpret mode (its 128-row blocks)."""
+    s, d, heads = 256, 192, 2
+    rng = np.random.default_rng(n)
+    q, k, v = (rng.standard_normal((2, s, d)).astype(np.float32) for _ in range(3))
+    vl = np.asarray([n, s], np.int32)
+    jq, jk, jv, jvl = (jnp.asarray(t) for t in (q, k, v, vl))
+    ref = jax_flash(jq, jk, jv, jvl, heads, 128, True)
+    _, ref_lse, _ = jax_flash_fwd_impl(jq, jk, jv, jvl, heads, 128, True)
+    out, lse = flash_attention.attention_forward(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(vl), heads, with_lse=True)
+    _assert_valid_rows_close(out.numpy(), ref, vl, **TOL)
+    _assert_valid_rows_close(lse.transpose(1, 2).numpy(),
+                             np.asarray(ref_lse)[..., 0].transpose(0, 2, 1), vl, **TOL)
 
 
 def test_matches_jax_xla_masked_attention():

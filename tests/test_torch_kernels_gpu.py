@@ -856,3 +856,89 @@ def test_f32_attention_backward(dev, batch, layout):
     for j in range(3):  # dq, dk, dv
         _assert_computed_rows_close(got[..., j * D:(j + 1) * D], ref[..., j * D:(j + 1) * D],
                                     rows)
+
+
+# ---- the float32 attention forward (K3) and FFN1 + ReLU (K1c) redesigned ----
+# K3 (csrc/prefix_attention.cu: register softmax, a cp.async ring of K and V
+# tiles, the images longest first) and K1c (csrc/fused_block.cu on the shared
+# main loop of csrc/sgemm_f32.cuh: resident x rows, a ring of W1 slices), each
+# against its plain float32 version with the tolerances above, at every kind
+# of prefix (an image with no valid row, one row, the 64-tile edges 63, 64, 65
+# and a whole sequence; for K1c also S_pad a multiple of 32 but not of 64), at
+# the hub's shapes and at the f32 train batch's 16 sequences; K3 on the column
+# slices of one packed qkv and on contiguous q, k, v, with and without the lse.
+# The tiles past the prefix get exact zeros (and lse 1e30), and a second call
+# repeats the bits. Then K3's o and lse feed the float32 K4 at the train
+# batch, against the plain forward and backward: the backward's recomputed
+# scores agree with the forward's.
+def _f32_qkv(rng, dev, valid, s, layout):
+    qkv = _randn(rng, dev, len(valid), s, 3 * D)
+    if layout == "packed":
+        return qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    return tuple(qkv[..., i * D:(i + 1) * D].contiguous() for i in range(3))
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("layout", ["packed", "contiguous"])
+@pytest.mark.parametrize("batch", list(F32_ATTN_BATCHES))
+def test_f32_attention_forward(dev, batch, layout, with_lse):
+    s, valid = F32_ATTN_BATCHES[batch]
+    rng = np.random.default_rng(len(valid) + 17)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    q, k, v = _f32_qkv(rng, dev, valid, s, layout)
+    rows = [min(-(-n // fa.SEQ_BLOCK) * fa.SEQ_BLOCK, s) for n in valid]
+    before = _launch.LAUNCHES["prefix_attention_fwd"]
+    out, lse = fa.attention_forward(q, k, v, vl, HEADS, with_lse=with_lse)
+    again, lse_again = fa.attention_forward(q, k, v, vl, HEADS, with_lse=with_lse)
+    assert _launch.LAUNCHES["prefix_attention_fwd"] == before + 2
+    assert out.dtype == torch.float32 and torch.equal(out, again), "a second call gives other bits"
+    ref, rlse = fa.prefix_flash_attention_reference(q, k, v, vl, HEADS, return_lse=True)
+    some = [i for i, n in enumerate(rows) if n]  # images with a computed tile
+    _assert_valid_rows_close(out[some], ref[some], [rows[i] for i in some])
+    for i, n in enumerate(rows):  # the query tiles past the prefix: zeros
+        assert not out[i, n:].any().item(), ("past the computed tiles", i, n)
+    if not with_lse:
+        assert lse is None and lse_again is None
+        return
+    assert lse.dtype == torch.float32 and lse.shape == (len(valid), HEADS, s)
+    assert torch.equal(lse, lse_again), "a second call gives other bits"
+    _assert_valid_rows_close(lse.transpose(1, 2)[some], rlse.transpose(1, 2)[some],
+                             [rows[i] for i in some])
+    for i, n in enumerate(rows):  # and lse 1e30
+        assert (lse[i, :, n:] == 1e30).all().item(), ("lse past the computed tiles", i, n)
+
+
+@pytest.mark.parametrize("batch", list(F32_BATCHES))
+def test_f32_linear_relu_at_every_batch(dev, batch):
+    s, valid = F32_BATCHES[batch]
+    rng = np.random.default_rng(len(valid) + 19)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    x = _randn(rng, dev, len(valid), s, D)
+    w, b = _randn(rng, dev, F, D, scale=D ** -0.5), _randn(rng, dev, F, scale=0.1)
+    rows = [min(-(-n // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK, s) for n in valid]
+    before = _launch.LAUNCHES["linear_relu_fwd"]
+    with torch.no_grad():
+        out, again = (fused_block.linear_relu(x, w, b, vl) for _ in range(2))
+    assert _launch.LAUNCHES["linear_relu_fwd"] == before + 2
+    assert out.dtype == torch.float32 and torch.equal(out, again), "a second call gives other bits"
+    some = [i for i, n in enumerate(rows) if n]
+    _assert_valid_rows_close(out[some], fused_block.linear_relu_reference(x, w, b)[some],
+                             [rows[i] for i in some])
+    for i, n in enumerate(rows):  # the zero-filled 32-row tiles
+        assert not out[i, n:].any().item(), ("past the computed tiles", i, n)
+
+
+def test_f32_attention_forward_lse_feeds_the_backward(dev):
+    s, valid = F32_ATTN_BATCHES["train"]
+    rng = np.random.default_rng(23)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    q, k, v = _f32_qkv(rng, dev, valid, s, "packed")
+    dout = _tail_cotangent(_randn(rng, dev, len(valid), s, D), valid, fa.SEQ_BLOCK)
+    rows = [min(-(-n // fa.SEQ_BLOCK) * fa.SEQ_BLOCK, s) for n in valid]
+    o, lse = fa.attention_forward(q, k, v, vl, HEADS, with_lse=True)
+    got = fa.prefix_attention_bwd(q, k, v, o, lse, dout, vl, HEADS)
+    ro, rlse = fa.prefix_flash_attention_reference(q, k, v, vl, HEADS, return_lse=True)
+    ref = fa.prefix_flash_attention_backward_reference(q, k, v, ro, rlse, dout, vl, HEADS)
+    for j in range(3):  # dq, dk, dv
+        _assert_computed_rows_close(got[..., j * D:(j + 1) * D], ref[..., j * D:(j + 1) * D],
+                                    rows)
