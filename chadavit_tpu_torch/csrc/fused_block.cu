@@ -14,15 +14,13 @@
 //
 // What bounds them on an H100: at B*S_pad = 16384 rows the FFN GEMMs do 12.9
 // GFLOP each against ~0.14 GB of traffic, so all three are bound by operations
-// (67 TFLOP/s of f32 FMA outside the tensor cores). ln_linear_fwd is the
-// simple shape of an f32 GEMM: a block owns BM = 32 rows and BN output
-// columns, walks K in BK = 32 slices staged through shared memory, and each
-// of its 256 threads keeps a 2 x BN/16 tile of sums in registers; the
-// LayerNorm prologue is applied as the A tile is staged. linear_relu_fwd and
-// linear_residual_ln_fwd are redesigned for Hopper on the shared main loop of
-// sgemm_f32.cuh (their notes below): cp.async rings, register tiles of 48-64
-// sums a thread fed by 16-byte shared reads. D = 192 fits one block's
-// columns, so linear_residual_ln_fwd's LayerNorm epilogue stays in the block.
+// (67 TFLOP/s of f32 FMA outside the tensor cores). All three are redesigned
+// for Hopper on the shared main loop of sgemm_f32.cuh (their notes below):
+// cp.async rings, register tiles of 48-64 sums a thread fed by 16-byte shared
+// reads. ln_linear_fwd and linear_relu_fwd keep a block's 32 x 192 input rows
+// resident in shared memory (ln_linear_fwd normalises them there once) and
+// stream the weight through the ring; D = 192 fits one block's columns, so
+// linear_residual_ln_fwd's LayerNorm epilogue stays in the block.
 //
 // The three kernels here are float32 only. The bf16 path the JAX package
 // trains in (precision "bf16": bf16 activations, f32 parameters cast to bf16
@@ -56,45 +54,174 @@
 
 namespace {
 
-// ---- ln_linear_fwd: out = LN(x) @ W^T + bias, grid (M / BM, N / BN) --------
-template <int BN>
-__global__ void __launch_bounds__(NT)
+// ---- ln_linear_fwd: out = LN(x) @ W^T + bias ---------------------------------
+// float32 only (the bf16 instance is linear_fwd_bf16.cu's). Redesigned for
+// Hopper's CUDA cores on the shared main loop of sgemm_f32.cuh.
+//
+// Replaces the LN1 + QKV step of the TPU kernel
+// chadavit_tpu/ops/fused_block.py::_fwd_kernel (:91), lines :111-124: the
+// fast-variance row stats (_stats, :68), h = (x - mu) rstd g1 + b1 and
+// qkv = h @ Wqkv + bqkv.
+//
+// What bounds it: operations. At hub shapes it does 2.04 GFLOP on the rows it
+// must compute (0.030 ms at 67 TFLOP/s of f32 FMA), against 0.011 ms of
+// output bytes. The design is K1c's (linear_relu_fwd below):
+// - a block owns one 32-row tile of the contract and LL_SLABS slabs of
+//   LL_BN = 192 of Wqkv's 576 rows (the output's columns): as built one slab,
+//   grid (M / 32, 3), at hub shapes 293 computed row tiles x 3 = 6.7 blocks of
+//   work an SM. Its 32 x 192 x rows are copied by cp.async into shared memory
+//   (rows padded to 196 floats), in a group of their own ahead of the ring's;
+// - while the ring's first copies are in flight, the block takes the row
+//   stats from that copy (row_stats, one warp a row, a warp's 8 rows at once)
+//   and normalises the rows in place, once: the prologue is not applied again
+//   per K slice;
+// - Wqkv is staged as it lies (K contiguous), 16 columns of K a stage, by
+//   16-byte cp.async copies into a ring of LL_STAGES = 3 slots (rows padded to
+//   20 floats), one barrier a stage. 69.5 KB of shared memory, three blocks an
+//   SM (12 warps: a sub-partition's registers give a thread at most 168). A
+//   block that walks LL_SLABS > 1 slabs (a bench build) keeps one ring across
+//   them, so the copy, the stats and the normalisation are paid once a walk;
+// - each of the 4 warps takes 32 rows x 48 columns of a slab, a thread 8 x
+//   LL_TN = 6 sums (rows ty + 4 i, columns tx + 8 j of its warp's), by
+//   sgemm::dot4: 14 reads of 16 bytes feed 192 FMAs. 8 x 8 sums (3 warps)
+//   need more registers than 168 and spill (scripts/bench_linear_f32.py).
+// The bits are those of the first port's kernel (gemm_tile, which this step
+// ran on before), which qkv, and through the attention hid, depend on: the
+// stats in row_stats' order, the prologue as (x - mu) * rstd * g + beta, every
+// sum from k = 0 upward with fmaf, then the bias. A 32-row tile wholly past
+// valid_len is written as zeros over the block's columns, its stats too, and
+// not read; the decision is the same for every thread of the block and taken
+// before any barrier. LL_BN, LL_TN, LL_SLABS and LL_STAGES set the cut of N,
+// the thread tile and the ring, and LL_NO_STATS leaves the stats out (mean
+// 0, rstd 1: a diagnostic), so that scripts/bench_linear_f32.py can time
+// other choices of the same source.
+#ifndef LL_BN
+#define LL_BN 192
+#endif
+#ifndef LL_TN
+#define LL_TN 6
+#endif
+#ifndef LL_SLABS
+#define LL_SLABS 1
+#endif
+#ifndef LL_STAGES
+#define LL_STAGES 3
+#endif
+constexpr int LL_N = 3 * D_MODEL;    // qkv's columns
+constexpr int LL_BK = 16;
+constexpr int LL_LDW = LL_BK + 4;    // a staged Wqkv row, padded
+constexpr int LL_LDX = D_MODEL + 4;  // a resident x row, padded
+constexpr int LL_TM = 8;             // a thread's rows; LL_TN its columns
+constexpr int LL_WARPS = LL_BN / (8 * LL_TN);  // 32 rows x 8 LL_TN columns a warp
+constexpr int LL_THREADS = LL_WARPS * 32;
+constexpr int LL_STAGE = LL_BN * LL_LDW;  // floats
+constexpr int LL_SMEM = (BM * LL_LDX + LL_STAGES * LL_STAGE) * 4;
+// blocks an SM by shared memory (227 KB, 1 KB of it reserved a block): the
+// register budget follows from it
+constexpr int LL_BLOCKS_SM = 232448 / (LL_SMEM + 1024) > 0 ? 232448 / (LL_SMEM + 1024) : 1;
+static_assert(LL_BN % (8 * LL_TN) == 0 && BM == 4 * LL_TM &&
+                  LL_N % (LL_SLABS * LL_BN) == 0 && LL_BN * LL_BK / 4 % LL_THREADS == 0,
+              "ln_linear tile shape");
+
+__global__ void __launch_bounds__(LL_THREADS, LL_BLOCKS_SM)
 ln_linear_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                 const float* __restrict__ beta, float eps,
-                 const float* __restrict__ w, const float* __restrict__ bias,
-                 float* __restrict__ out, float* __restrict__ mean_out,
-                 float* __restrict__ rstd_out, const int* __restrict__ valid_len,
-                 int K, int N, int s_pad) {
-  constexpr int TN = BN / 16;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+                 const float* __restrict__ beta, float eps, const float* __restrict__ w,
+                 const float* __restrict__ bias, float* __restrict__ out,
+                 float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                 const int* __restrict__ valid_len, int s_pad) {
+  constexpr int K = D_MODEL, N = LL_N, KS = K / LL_BK;  // stages a slab
+  constexpr int COLS = LL_SLABS * LL_BN;                 // the block's columns
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * COLS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const bool write_stats = mean_out != nullptr && blockIdx.y == 0;
   if (tile_is_padding(m0, s_pad, valid_len)) {  // uniform, before any barrier
-    zero_tile<BN>(out, N, m0, n0);
-    if (write_stats && threadIdx.x < BM) {
-      mean_out[m0 + threadIdx.x] = 0.f;
-      rstd_out[m0 + threadIdx.x] = 0.f;
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = tid; c < BM * COLS / 4; c += LL_THREADS) {
+      const int r = c / (COLS / 4), cc = c % (COLS / 4) * 4;
+      *reinterpret_cast<float4*>(out + (size_t)(m0 + r) * N + n0 + cc) = z;
     }
+    if (write_stats)
+      for (int r = tid; r < BM; r += LL_THREADS) {
+        mean_out[m0 + r] = 0.f;
+        rstd_out[m0 + r] = 0.f;
+      }
     return;
   }
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Ws[BK][BN + 1];
+  extern __shared__ __align__(16) float ll_smem[];
   __shared__ float s_mu[BM], s_rstd[BM];
-  row_stats(x, K, K, m0, eps, s_mu, s_rstd);
-  __syncthreads();
-  if (write_stats && threadIdx.x < BM) {
-    mean_out[m0 + threadIdx.x] = s_mu[threadIdx.x];
-    rstd_out[m0 + threadIdx.x] = s_rstd[threadIdx.x];
+  float* xs = ll_smem;                 // the block's x rows, resident, then LN1(x)
+  float* ring = xs + BM * LL_LDX;
+  const int ty = lane >> 3, tx = lane & 7, wc = warp * 8 * LL_TN;
+
+  for (int c = tid; c < BM * K / 4; c += LL_THREADS) {
+    const int r = c / (K / 4), cc = c % (K / 4) * 4;
+    sgemm::cp_async_16(xs + r * LL_LDX + cc, x + (size_t)(m0 + r) * K + cc);
   }
-  float acc[2][TN];
-  gemm_tile<BN, true>(x, K, w, K, K, m0, n0, s_mu, s_rstd, g, beta, As, Ws, acc);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  sgemm::cp_async_commit();  // the x rows: a group of their own, ahead of the ring's
+  auto load = [&](int s, int slot) {  // slab s / KS, K columns [(s % KS) BK, + BK)
+    float* ws = ring + slot * LL_STAGE;
+    const float* src = w + (size_t)(n0 + s / KS * LL_BN) * K + s % KS * LL_BK;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + 16 * j;
-      out[(size_t)(m0 + 2 * ty + i) * N + n] = acc[i][j] + bias[n];
+    for (int q = 0; q < LL_BN * LL_BK / 4 / LL_THREADS; ++q) {
+      const int c = tid + q * LL_THREADS;
+      const int r = c / (LL_BK / 4), cc = c % (LL_BK / 4) * 4;
+      sgemm::cp_async_16(ws + r * LL_LDW + cc, src + (size_t)r * K + cc);
     }
+  };
+  auto head = [&] {  // while the ring's first stages are in flight
+    sgemm::cp_async_wait<LL_STAGES - 1>();  // the x rows have landed for this thread
+    __syncthreads();                        // and for every thread
+#ifndef LL_NO_STATS
+    row_stats<LL_WARPS>(xs, LL_LDX, K, 0, eps, s_mu, s_rstd);
+#else
+    if (tid < BM) s_mu[tid] = 0.f, s_rstd[tid] = 1.f;
+#endif
+    __syncthreads();
+    if (write_stats)
+      for (int r = tid; r < BM; r += LL_THREADS) {
+        mean_out[m0 + r] = s_mu[r];
+        rstd_out[m0 + r] = s_rstd[r];
+      }
+    for (int c = tid; c < BM * K / 4; c += LL_THREADS) {  // LN1 in place, once
+      const int r = c / (K / 4), k = c % (K / 4) * 4;
+      float* p = xs + r * LL_LDX + k;
+      const float4 v = load4(p), gv = load4(g + k), bv = load4(beta + k);
+      const float mu = s_mu[r], rs = s_rstd[r];
+      *reinterpret_cast<float4*>(p) =
+          make_float4((v.x - mu) * rs * gv.x + bv.x, (v.y - mu) * rs * gv.y + bv.y,
+                      (v.z - mu) * rs * gv.z + bv.z, (v.w - mu) * rs * gv.w + bv.w);
+    }
+    // the ring's first barrier makes the normalised rows visible to every warp
+  };
+  float acc[LL_TM][LL_TN] = {};
+  sgemm::ring<LL_STAGES>(LL_SLABS * KS, load, [&](int s, int slot) {
+    const int ks = s % KS;
+    if (ks == 0)
+#pragma unroll
+      for (int i = 0; i < LL_TM; ++i)
+#pragma unroll
+        for (int j = 0; j < LL_TN; ++j) acc[i][j] = 0.f;
+    const float* as = xs + ty * LL_LDX + ks * LL_BK;
+    const float* ws = ring + slot * LL_STAGE + (wc + tx) * LL_LDW;
+#pragma unroll
+    for (int kk = 0; kk < LL_BK; kk += 4) {
+      float4 av[LL_TM];
+#pragma unroll
+      for (int i = 0; i < LL_TM; ++i) av[i] = load4(as + i * 4 * LL_LDX + kk);
+#pragma unroll
+      for (int j = 0; j < LL_TN; ++j) sgemm::dot4(acc, j, av, load4(ws + j * 8 * LL_LDW + kk));
+    }
+    if (ks == KS - 1) {  // the slab's sums are whole: then the bias
+      const int nc = n0 + s / KS * LL_BN + wc + tx;
+#pragma unroll
+      for (int j = 0; j < LL_TN; ++j) {
+        const float bj = bias[nc + 8 * j];
+#pragma unroll
+        for (int i = 0; i < LL_TM; ++i)
+          out[(size_t)(m0 + ty + 4 * i) * N + nc + 8 * j] = acc[i][j] + bj;
+      }
+    }
+  }, head);
 }
 
 // ---- linear_relu_fwd: out = relu(x @ W^T + bias) ----------------------------
@@ -127,7 +254,7 @@ ln_linear_kernel(const float* __restrict__ x, const float* __restrict__ g,
 //   its 8 W1 rows over four k: 16 reads of 16 bytes feed 256 FMAs
 //   (sgemm::dot4);
 // - every sum runs from k = 0 upward with fmaf, then the bias is added and
-//   then fmaxf(., 0): the order of gemm_tile (gemm_common.cuh), which this
+//   then fmaxf(., 0): the order of the first port's gemm_tile, which this
 //   step ran on before, so hid keeps its bits; the layer's backward
 //   recomputes hid with this kernel, and its ReLU mask reads hid > 0.
 // A 32-row tile wholly past valid_len is written as zeros over the block's
@@ -424,11 +551,14 @@ int ln_linear_fwd(const float* x, const float* g, const float* beta, float eps,
                   const float* w, const float* bias, float* out, float* mean_out,
                   float* rstd_out, const int* valid_len, int M, int K, int N,
                   int s_pad, void* stream) {
-  if (!rows_ok(M, K, s_pad) || K != D_MODEL || N != 3 * D_MODEL)
+  if (!rows_ok(M, K, s_pad) || K != D_MODEL || N != LL_N)
     return (int)cudaErrorInvalidValue;
-  ln_linear_kernel<D_MODEL><<<dim3(M / BM, N / D_MODEL), NT, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      x, g, beta, eps, w, bias, out, mean_out, rstd_out, valid_len, K, N, s_pad);
+  int e = (int)cudaFuncSetAttribute(ln_linear_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, LL_SMEM);
+  if (e != 0) return e;
+  ln_linear_kernel<<<dim3(M / BM, N / (LL_SLABS * LL_BN)), LL_THREADS, LL_SMEM,
+                     static_cast<cudaStream_t>(stream)>>>(x, g, beta, eps, w, bias, out,
+                                                          mean_out, rstd_out, valid_len, s_pad);
   return (int)cudaGetLastError();
 }
 

@@ -376,7 +376,7 @@ linear_dgrad_kernel(const float* __restrict__ dy, const float* __restrict__ w,
 //   barrier a tile, two blocks an SM;
 // - the QKV site applies LN1 with the saved f32 stats (copied with the tile)
 //   to the staged X tile in place, with the forward's expression
-//   (gemm_common.cuh, gemm_tile's prologue), so X' is the forward's h;
+//   (ln_linear_fwd's prologue, fused_block.cu), so X' is the forward's h;
 // - db = colsum(dY) in the blocks of the first K tile: one thread a column
 //   adds the staged dY tile's rows in order.
 // Every split writes its partial whole (zeros when it has no tile), so the

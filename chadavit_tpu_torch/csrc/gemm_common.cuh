@@ -1,9 +1,10 @@
-// Helpers shared by the GEMM kernels of one ChAdaViT encoder layer, forward
-// (fused_block.cu) and backward (fused_block_bwd.cu): a block of NT threads
-// owns BM rows, K is staged through shared memory in BK slices, and every sum
-// is float32 on CUDA cores. The kernels are templates on the storage type T of
-// the activations and weights (storage.cuh). Each including file gets its own
-// copy (anonymous namespace).
+// Helpers shared by the kernels of one ChAdaViT encoder layer, forward
+// (fused_block.cu) and backward (fused_block_bwd.cu): the 32-row tile (BM) of
+// the layer's contract and its padding test, the LayerNorm row stats, the
+// widths the kernels are built for and the launchers' shape checks. Every sum
+// is float32 on CUDA cores. The helpers are templates on the storage type T of
+// the activations (storage.cuh). Each including file gets its own copy
+// (anonymous namespace).
 
 #pragma once
 
@@ -12,8 +13,8 @@
 namespace {
 
 constexpr int BM = 32;        // rows per block
-constexpr int BK = 32;        // K slice staged in shared memory
-constexpr int NT = 256;       // threads per block, as a 16 x 16 grid
+constexpr int BK = 32;        // K is a multiple of this
+constexpr int NT = 256;       // threads of layernorm_bwd's block
 constexpr int WARPS = NT / 32;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -34,86 +35,45 @@ __device__ __forceinline__ bool tile_is_padding(int m0, int s_pad,
 
 // Row stats of rows [m0, m0 + BM) over their K columns, f32, in the JAX
 // package's form (fused_block.py::_stats): mu = mean(x),
-// var = max(mean(x^2) - mu^2, 0), rstd = rsqrt(var + eps).
-template <typename T>
+// var = max(mean(x^2) - mu^2, 0), rstd = rsqrt(var + eps). A block of NWARPS
+// warps, one warp a row: each lane sums its columns k = lane, lane + 32, ...
+// in order, then the warp adds the lanes' sums (warp_sum). A warp takes its
+// rows w, w + NWARPS, ... at once, so that their sums and shuffles overlap;
+// each row's arithmetic is the same as one row at a time.
+template <int NWARPS, typename T>
 __device__ void row_stats(const T* x, int ld, int K, int m0, float eps,
                           float* s_mu, float* s_rstd) {
+  constexpr int R = (BM + NWARPS - 1) / NWARPS;  // rows a warp
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < BM; r += WARPS) {
-    const T* xr = x + (size_t)(m0 + r) * ld;
-    float s = 0.f, ss = 0.f;
-    for (int k = lane; k < K; k += 32) {
-      const float v = to_f(xr[k]);
-      s += v;
-      ss += v * v;
+  float s[R], ss[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = warp + i * NWARPS;
+    s[i] = 0.f;
+    ss[i] = 0.f;
+    if (r < BM) {
+      const T* xr = x + (size_t)(m0 + r) * ld;
+      for (int k = lane; k < K; k += 32) {
+        const float v = to_f(xr[k]);
+        s[i] += v;
+        ss[i] += v * v;
+      }
     }
-    s = warp_sum(s);
-    ss = warp_sum(ss);
-    if (lane == 0) {
-      const float mu = s / K;
-      const float var = fmaxf(ss / K - mu * mu, 0.f);
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {  // every lane of the warp, also past BM
+    s[i] = warp_sum(s[i]);
+    ss[i] = warp_sum(ss[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = warp + i * NWARPS;
+    if (lane == 0 && r < BM) {
+      const float mu = s[i] / K;
+      const float var = fmaxf(ss[i] / K - mu * mu, 0.f);
       s_mu[r] = mu;
       s_rstd[r] = rsqrtf(var + eps);
     }
-  }
-}
-
-// acc[i][j] = sum_k A'[m0 + 2 ty + i, k] * W[n0 + tx + 16 j, k], where A' is
-// A, or LN(A) with the row stats in s_mu/s_rstd and the affine g/beta when
-// LN_A (rounded to T, as the JAX kernel casts h to dt). A is (rows, lda)
-// row-major, W (N, K) row-major (the torch Linear layout: the forward's
-// x @ W^T) with row stride ldw.
-template <int BN, bool LN_A, typename T = float>
-__device__ void gemm_tile(const T* __restrict__ A, int lda,
-                          const T* __restrict__ W, int ldw, int K, int m0,
-                          int n0,
-                          const float* s_mu, const float* s_rstd,
-                          const float* __restrict__ g,
-                          const float* __restrict__ beta,
-                          float (*As)[BM + 1], float (*Ws)[BN + 1],
-                          float acc[2][BN / 16]) {
-  constexpr int TN = BN / 16;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    {  // A tile: BM x BK elements, four per thread, stored k-major
-      const int r = tid / 8, c = (tid % 8) * 4;
-      const float4 v = load4(A + (size_t)(m0 + r) * lda + k0 + c);
-      float e[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (LN_A)
-          e[q] = rnd<T>((e[q] - s_mu[r]) * s_rstd[r] * g[k0 + c + q] +
-                        beta[k0 + c + q]);
-        As[c + q][r] = e[q];
-      }
-    }
-#pragma unroll
-    for (int it = 0; it < BN * BK / 4 / NT; ++it) {  // W tile: BN x BK, four along k
-      const int idx = tid + it * NT;
-      const int n = idx / 8, c = (idx % 8) * 4;
-      const float4 v = load4(W + (size_t)(n0 + n) * ldw + k0 + c);
-      Ws[c][n] = v.x;
-      Ws[c + 1][n] = v.y;
-      Ws[c + 2][n] = v.z;
-      Ws[c + 3][n] = v.w;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float a0 = As[kk][2 * ty], a1 = As[kk][2 * ty + 1];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const float w = Ws[kk][tx + 16 * j];
-        acc[0][j] = fmaf(a0, w, acc[0][j]);
-        acc[1][j] = fmaf(a1, w, acc[1][j]);
-      }
-    }
-    __syncthreads();
   }
 }
 

@@ -1,8 +1,9 @@
 // The float32 GEMM main loop on Hopper's CUDA cores, shared by the redesigned
-// linear_relu_fwd and linear_residual_ln_fwd (fused_block.cu, K1c and K1b),
-// linear_wgrad and linear_dgrad (fused_block_bwd.cu, K2c and K2b) and the
-// float32 attention forward and backward (prefix_attention.cu and
-// prefix_attention_bwd.cu, K3 and K4, through attention_f32.cuh):
+// ln_linear_fwd, linear_relu_fwd and linear_residual_ln_fwd (fused_block.cu,
+// K1a, K1c and K1b), linear_wgrad and linear_dgrad (fused_block_bwd.cu, K2c
+// and K2b) and the float32 attention forward and backward
+// (prefix_attention.cu and prefix_attention_bwd.cu, K3 and K4, through
+// attention_f32.cuh):
 //
 // - a cp.async ring of shared-memory stages (16-byte cp.async.cg copies, L2
 //   only), with one barrier a stage: the copies of the stages ahead are in
@@ -60,17 +61,21 @@ __device__ __forceinline__ void cp_async_wait() {
 // issues the copies of stage s into ring slot s % STAGES, STAGES - 1 stages
 // ahead. One barrier a stage: after it, stage s has landed for every thread,
 // and every thread is done with stage s - 1, whose slot the next load takes.
-// Every thread of the block calls it with the same n. compute may hold
-// barriers of its own. On return all copies have landed; the caller
-// synchronises before it reuses the ring.
-template <int STAGES, typename Load, typename Compute>
-__device__ __forceinline__ void ring(int n, Load&& load, Compute&& compute) {
+// Every thread of the block calls it with the same n. head() runs once, after
+// the copies of the first STAGES - 1 stages are issued (each stage one
+// cp.async group) and before the first barrier, so work that waits for
+// copies committed before the ring overlaps the ring's first copies; it may
+// hold barriers. compute may hold barriers of its own. On return all copies
+// have landed; the caller synchronises before it reuses the ring.
+template <int STAGES, typename Load, typename Compute, typename Head>
+__device__ __forceinline__ void ring(int n, Load&& load, Compute&& compute, Head&& head) {
   static_assert(STAGES >= 2, "a ring of at least two stages");
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < n) load(s, s);
     cp_async_commit();
   }
+  head();
   int slot = 0, next_slot = STAGES - 1;
   for (int s = 0; s < n; ++s) {
     cp_async_wait<STAGES - 2>();
@@ -82,6 +87,10 @@ __device__ __forceinline__ void ring(int n, Load&& load, Compute&& compute) {
     next_slot = next_slot + 1 == STAGES ? 0 : next_slot + 1;
   }
   cp_async_wait<0>();
+}
+template <int STAGES, typename Load, typename Compute>
+__device__ __forceinline__ void ring(int n, Load&& load, Compute&& compute) {
+  ring<STAGES>(n, load, compute, [] {});
 }
 
 // acc[i][j] += a[i] * b[j] for every pair: one step of K of an outer product

@@ -49,7 +49,7 @@ SIGNATURES = {
     "linear_wgrad": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _P],
     "ln_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
-    "ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 # the bf16 instance of each kernel: the same arguments, bf16 activations
 SIGNATURES.update({f"{name}_bf16": argtypes for name, argtypes in list(SIGNATURES.items())})

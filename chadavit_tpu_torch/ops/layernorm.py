@@ -34,7 +34,34 @@ import torch
 from chadavit_tpu_torch.ops import _build, _launch
 
 LN_MAX_D = 1024  # the widest row the kernels take; D must also be a multiple of 4
-LN_BWD_ROWS = 128  # the backward kernel's rows per block (one partial row each)
+# The backward kernel cuts the M rows into ln_bwd_splits(M) contiguous
+# splits, one block each: LN_BWD_SPLIT_ROWS rows a split at most, and never
+# more than LN_BWD_MAX_SPLITS splits. A function of M alone, so dgamma and
+# dbeta are the same bits on every card and run, and the (splits, 2 D) f32
+# partial sums stay at most 2 MB (384 KB at D 192) whatever the batch. At the
+# hub's 16 384 rows that is 256 splits of 64 rows, two blocks an SM; more rows
+# make the 256 splits longer (scripts/bench_layernorm_bwd.py times other
+# choices).
+LN_BWD_SPLIT_ROWS = 64
+LN_BWD_MAX_SPLITS = 256
+
+
+def ln_bwd_splits(m: int) -> int:
+    """Row splits of the backward kernel for ``m`` rows: one block each."""
+    return max(1, min(LN_BWD_MAX_SPLITS, -(-m // LN_BWD_SPLIT_ROWS)))
+
+
+def ln_bwd_split_rows(m: int, splits: int) -> list:
+    """The rows each split of the backward kernel walks, as the kernel
+    assigns them: split ``i`` takes ``[i * m // splits, (i + 1) * m // splits)``
+    and writes one partial row of ``[dgamma, dbeta]``."""
+    return [range(i * m // splits, (i + 1) * m // splits) for i in range(splits)]
+
+
+def ln_bwd_scratch(m: int, d: int, device) -> torch.Tensor:
+    """The backward kernel's partial sums for ``m`` rows of width ``d``:
+    ``(ln_bwd_splits(m), 2 d)`` f32, one row ``[dgamma, dbeta]`` a split."""
+    return torch.empty((ln_bwd_splits(m), 2 * d), dtype=torch.float32, device=device)
 
 
 def layernorm_stats(x: torch.Tensor, eps: float):
@@ -128,7 +155,8 @@ def ln_fwd(x, residual, gamma, beta, eps: float):
 def ln_bwd(x, residual, gamma, mean, rstd, dy):
     """``(dx, dgamma, dbeta)`` of ``LN(x [+ residual])`` from its saved stats
     (kernel ``ln_bwd`` on CUDA); dgamma and dbeta are f32, summed over the
-    rows in a fixed order (per-block partials, then a second pass)."""
+    rows in a fixed order (one partial row a split of :func:`ln_bwd_splits`,
+    then a second pass in split order)."""
     if _launch.on_cpu(x, gamma, mean, rstd, dy):
         return ln_bwd_reference(x, residual, gamma, mean, rstd, dy)
     dt, d = x.dtype, x.shape[-1]
@@ -138,8 +166,8 @@ def ln_bwd(x, residual, gamma, mean, rstd, dy):
         raise ValueError("ln_bwd: no rows")
     g = gamma.to(dt).contiguous()
     dx = torch.empty_like(x, memory_format=torch.contiguous_format)
-    partial = torch.empty((-(-m // LN_BWD_ROWS), 2 * d), dtype=torch.float32,
-                          device=x.device)
+    partial = ln_bwd_scratch(m, d, x.device)
+    splits = partial.shape[0]
     dgb = torch.empty(2 * d, dtype=torch.float32, device=x.device)
     name = _launch.entry_point("ln_bwd", dt)
     status = getattr(_build.library(), name)(
@@ -148,7 +176,7 @@ def ln_bwd(x, residual, gamma, mean, rstd, dy):
         _rows_of("gamma", g, (d,), dt), _rows_of("mean", mean, x.shape[:-1], torch.float32),
         _rows_of("rstd", rstd, x.shape[:-1], torch.float32),
         _rows_of("dy", dy, x.shape, dt), dx.data_ptr(), partial.data_ptr(), dgb.data_ptr(),
-        m, d, _launch.stream(x.device))
+        m, d, splits, _launch.stream(x.device))
     _build.check(status, name)
     _launch.counted(name)
     return dx, dgb[:d], dgb[d:]

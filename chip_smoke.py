@@ -19,12 +19,13 @@ Phases, each printed with its elapsed seconds at its start and end:
    source, into one library (cold build seconds); beside it, nvcc -Xptxas -v
    on csrc/linear_fwd_bf16.cu, csrc/linear_bwd_bf16.cu,
    csrc/prefix_attention_bf16.cu, csrc/prefix_attention.cu,
-   csrc/prefix_attention_bwd.cu, csrc/fused_block.cu and
-   csrc/fused_block_bwd.cu prints the registers, shared memory and spills of
+   csrc/prefix_attention_bwd.cu, csrc/fused_block.cu, csrc/fused_block_bwd.cu
+   and csrc/layernorm.cu prints the registers, shared memory and spills of
    the tensor-core kernels, of the float32 attention forward and of the
-   backward's two kernels, of the float32 linear_relu, linear_residual_ln
-   and linear_dgrad and of layernorm_bwd's and the float32 linear_wgrad's
-   two passes, none of which may spill.
+   backward's two kernels, of the float32 ln_linear, linear_relu,
+   linear_residual_ln and linear_dgrad, of layernorm_bwd's and the float32
+   linear_wgrad's two passes and of ln_bwd's four instances at D 192 (the
+   model's width), none of which may spill.
 2. each kernel instance against its plain PyTorch version at hub shapes (B 8,
    S_pad 2048, D 192, F 2048, 2 heads, 1..10 channels), float32 on the
    inputs of seed 0, then bfloat16 on those of each of BF16_SEEDS (the worst
@@ -98,7 +99,9 @@ Phases, each printed with its elapsed seconds at its start and end:
    it reaches; linear_residual_ln, linear_dgrad and linear_wgrad also site
    by site), its plain version, one PyTorch call for the same function (a
    yardstick the port never calls), its bound (ln_fwd and ln_bwd at the
-   final norm's site); the device time by the profiler of ln_fwd, ln_bwd,
+   final norm's site, over every row: they take no valid_len); the device
+   time by the profiler of ln_fwd, ln_bwd (ln_bwd also with the L2 cold: a
+   buffer larger than the 50 MB L2 written before each call),
    ln_linear, linear_relu, linear_residual_ln and linear_dgrad (both also
    site by site),
    layernorm_bwd, linear_dgrad and linear_wgrad, whose small calls CUDA
@@ -613,14 +616,16 @@ def main() -> int:
         cold = not (_build.BUILD_DIR / _build.source_hash()).exists()
         t = time.perf_counter()
         # every kernel of the tensor-core sources and of the float32
-        # attention forward and backward (K3, K4), the float32 linear_relu
-        # (K1c) and linear_residual_ln (K1b) of fused_block.cu, and the two
-        # passes of layernorm_bwd (K2a) and of the float32 linear_wgrad (K2c)
-        # and the float32 linear_dgrad (K2b) of fused_block_bwd.cu
+        # attention forward and backward (K3, K4), the float32 ln_linear
+        # (K1a), linear_relu (K1c) and linear_residual_ln (K1b) of
+        # fused_block.cu, the two passes of layernorm_bwd (K2a) and of the
+        # float32 linear_wgrad (K2c) and the float32 linear_dgrad (K2b) of
+        # fused_block_bwd.cu, and the instances of ln_bwd (K6, layernorm.cu)
         ptxas_sources = {fwd_tc_cu: (), tc_cu: (), attn_tc_cu: (), attn_cu: (), attn_bwd_cu: (),
-                         fb_cu: ("linear_relu", "linear_residual_ln"),
+                         fb_cu: ("ln_linear", "linear_relu", "linear_residual_ln"),
                          fbb_cu: ("layernorm_bwd", "reduce_ln_splits", "linear_wgrad",
-                                  "reduce_wgrad_splits", "linear_dgrad")}
+                                  "reduce_wgrad_splits", "linear_dgrad"),
+                         ln_cu: ("ln_bwd",)}
         ptxas = [_build.ptxas_report(Path(src).name)  # beside the build
                  for src in ptxas_sources]
         _build.library()
@@ -632,6 +637,9 @@ def main() -> int:
             names = demangle([k["name"] for k in report])
             if only:
                 kept = [i for i, n in enumerate(names) if any(o + "_kernel" in n for o in only)]
+                report, names = [report[i] for i in kept], [names[i] for i in kept]
+            if src == ln_cu:  # ln_bwd's instances at D 192, the model's width
+                kept = [i for i, n in enumerate(names) if "16, 3>" in n]
                 report, names = [report[i] for i in kept], [names[i] for i in kept]
             for k, short in zip(report, names):
                 log(f"  ptxas {short}: {k.get('registers')} registers, {k.get('smem')} bytes "
@@ -1640,21 +1648,23 @@ def main() -> int:
                     es * (rows * FFN + rows * D + FFN * D + D + m_all * D) + 4 * 2 * D)],
             }
             # K5/K6 at the final norm's site (LN(x), eps 1e-6) on the hub rows;
-            # the bound counts the rows < valid_len
+            # the bound counts every row: ln_fwd and ln_bwd take no valid_len
+            # (the JAX package's plain LayerNorm over all M rows), so they read
+            # and write all of them
             mu_l, rstd_l = inp["ln"]["mu"], inp["ln"]["rstd"]
             dy2d = dyd.reshape(-1, D)
             runs["ln_fwd"] = [site(
                 lambda: ln.ln_fwd(xd, None, g1, b1, 1e-6),
                 lambda: ln.ln_fwd_reference(xd, None, g1, b1, 1e-6),
                 lambda: F.layer_norm(x2d, (D,), gl1, bl1, 1e-6),
-                8 * rows * D, es * (2 * rows * D + 2 * D) + 4 * 2 * rows)]
+                8 * m_all * D, es * (2 * m_all * D + 2 * D) + 4 * 2 * m_all)]
             runs["ln_bwd"] = [site(
                 lambda: ln.ln_bwd(xd, None, g1, mu_l, rstd_l, dyd),
                 lambda: ln.ln_bwd_reference(xd, None, g1, mu_l, rstd_l, dyd),
                 lambda: torch.ops.aten.native_layer_norm_backward(
                     dy2d, x2d, [D], mu_l.reshape(-1, 1), rstd_l.reshape(-1, 1), gl1, bl1,
                     [True, True, True]),
-                12 * rows * D, es * (3 * rows * D + D) + 4 * (2 * rows + 2 * D))]
+                12 * m_all * D, es * (3 * m_all * D + D) + 4 * (2 * m_all + 2 * D))]
             # the backward steps, every site of one layer's backward summed, on
             # the inputs recorded in phase 2
             # the GEMM sites by their weight, (out, in) as in nn.Linear
@@ -1720,8 +1730,23 @@ def main() -> int:
                                              ("ln_bwd", ("ln_bwd_kernel", "ln_reduce_kernel"))):
                         if any(k in e.key for k in kernels_of):
                             ln_dev[name] += e.self_device_time_total / 1e3 / reps
+            # the loop above reads its 12.6 MB tensors back to back from the 50
+            # MB L2; ln_bwd once more with the L2 cold, as a caller that has
+            # run other work between calls finds it: a 128 MB buffer written
+            # before each call (its kernel not counted)
+            flush = torch.empty(32 * 2 ** 20, device=dev)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    flush.zero_()
+                    ln.ln_bwd(xd, None, g1, mu_l, rstd_l, dyd)
+                torch.cuda.synchronize()
+            ln_cold = sum(e.self_device_time_total / 1e3 / reps for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and any(k in e.key for k in ("ln_bwd_kernel", "ln_reduce_kernel")))
+            del flush
             log(f"  ln_fwd{tag} / ln_bwd{tag} device time per call (profiler, {reps} calls): "
-                f"{ln_dev['ln_fwd']:.4f} / {ln_dev['ln_bwd']:.4f} ms, bound "
+                f"{ln_dev['ln_fwd']:.4f} / {ln_dev['ln_bwd']:.4f} ms warm, ln_bwd{tag} "
+                f"{ln_cold:.4f} ms with the L2 cold; bound (every row) "
                 f"{stats['ln_fwd' + tag]['bound_ms']:.4f} / {stats['ln_bwd' + tag]['bound_ms']:.4f} ms")
             # the GEMM steps (K1a, K1b, K1c, K2b, K2c), layernorm_bwd (K2a)
             # and the attention (K3, K4) by the profiler too: at the small

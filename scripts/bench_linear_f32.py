@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times the float32 ``linear_relu_fwd`` (K1c), ``linear_residual_ln_fwd``
-(K1b, both sites), ``linear_wgrad`` (K2c, all four sites, both passes) and
-``linear_dgrad`` (K2b, all four sites) of
+"""Times the float32 ``ln_linear_fwd`` (K1a), ``linear_relu_fwd`` (K1c),
+``linear_residual_ln_fwd`` (K1b, both sites), ``linear_wgrad`` (K2c, all four
+sites, both passes) and ``linear_dgrad`` (K2b, all four sites) of
 ``chadavit_tpu_torch/csrc/fused_block.cu`` and
 ``fused_block_bwd.cu`` on one NVIDIA GPU, as built and in diagnostic builds of
 the same sources:
@@ -21,15 +21,25 @@ the same sources:
   256 output columns (``-DLR_SLABS``; as built 1): more slabs copy the
   block's x rows and fill the ring fewer times, fewer make more blocks;
 - ``k1c_stages2``, ``k1c_stages4``: K1c's ring of 2 or 4 slots
-  (``-DLR_STAGES``; as built 3).
+  (``-DLR_STAGES``; as built 3);
+- ``k1a_slabs3``, ``k1a_tn8``, ``k1a_tn9_bn288``: K1a's cut of
+  qkv's 576 columns: as built a block owns one slab of 192 (4 warps of 32 rows
+  x 48 columns, 8 x 6 sums a thread; grid M / 32 x 3); ``k1a_slabs3`` one
+  block walks all three slabs (``-DLL_SLABS=3``: the x copy, the row stats
+  and the normalisation once a row tile, a third of the blocks); ``k1a_tn8``
+  3 warps of 8 x 8 sums (``-DLL_TN=8``, K1c's tile), ``k1a_tn9_bn288`` slabs
+  of 288 columns, 4 warps of 8 x 9 (``-DLL_BN=288``);
+  ``k1a_stages2``, ``k1a_stages4``: its ring of 2 or 4 slots (``-DLL_STAGES``;
+  as built 3); ``k1a_no_stats``: no row stats (mean 0, rstd 1: the time the
+  stats take).
 
 A site near ``no_copy`` is held by its loop, one near ``no_fma`` by its
 loads. Each build also prints the registers and spills of the two kernels
 (``nvcc -Xptxas -v``). The diagnostic builds compute nothing meaningful; only their times are
 read. It also times each wgrad site at other split counts than the plan
 (``ops/fused_block.py::wgrad_splits``), one PyTorch call for the same function
-per site (``torch.mm``; ``addmm``, with ``layer_norm`` for K1b and ``relu``
-for K1c), and prints the
+per site (``torch.mm``; ``addmm``, with ``layer_norm`` for K1a and K1b and
+``relu`` for K1c), and prints the
 wgrad partial scratch at 8, 16 and 64 sequences. Run from the root of the
 repository:
 
@@ -40,8 +50,9 @@ first 8 channel counts of chip_smoke.py's bf16 train batch) padded to 2048
 rows; ``hub``: chip_smoke.py's hub shapes (8 images, 2048 rows). Times are
 CUDA events over 20 calls after 3 of warm-up, each call one launch of the C
 entry point (wgrad: both passes), without the Python wrapper. Prints one
-line per build, the bound of K1c and of each K2b site (its operations at the
-f32 peak) and the card's name and power limit.
+line per build, the bound of K1a, K1c and of each K2b site (its operations at
+the f32 peak, and K1a's output bytes at 3.35 TB/s) and the card's name and
+power limit.
 """
 
 import ctypes
@@ -63,24 +74,37 @@ BUILDS = {"as built": [], "no_copy": ["-DSGEMM_NO_COPY"], "no_fma": ["-DSGEMM_NO
           **{f"split_ffn{n}": [f"-DLRN_SPLIT_FFN={n}", f"-DDG_SPLIT_FFN={n}",
                                f"-DDG_SPLIT_QKV={n}"] for n in (1, 2, 4, 8)},
           **{f"k1c_slabs{n}": [f"-DLR_SLABS={n}"] for n in (1, 2, 4, 8)},
-          **{f"k1c_stages{n}": [f"-DLR_STAGES={n}"] for n in (2, 4)}}
+          **{f"k1c_stages{n}": [f"-DLR_STAGES={n}"] for n in (2, 4)},
+          "k1a_slabs3": ["-DLL_SLABS=3"], "k1a_tn8": ["-DLL_TN=8"],
+          "k1a_tn9_bn288": ["-DLL_TN=9", "-DLL_BN=288"],
+          **{f"k1a_stages{n}": [f"-DLL_STAGES={n}"] for n in (2, 4)},
+          "k1a_no_stats": ["-DLL_NO_STATS"]}
 PEAK_F32_FLOPS = 67e12  # f32 FMA outside the tensor cores, NVIDIA H100 SXM data sheet
-KERNELS = ("linear_relu", "linear_residual_ln", "linear_wgrad", "linear_dgrad")
+PEAK_BYTES = 3.35e12    # HBM3, the same data sheet
+KERNELS = ("ln_linear", "linear_relu", "linear_residual_ln", "linear_wgrad", "linear_dgrad")
 
 
-def build(out_dir: Path) -> dict:
-    """One library of the two sources per build (the K1c builds: of
-    fused_block.cu alone), all compiled at once."""
+def forward_only(name: str) -> bool:
+    """The K1a and K1c builds change fused_block.cu alone."""
+    return name.startswith(("k1a", "k1c"))
+
+
+def build(out_dir: Path, names=None) -> dict:
+    """One library of the two sources per build (the K1a and K1c builds: of
+    fused_block.cu alone), all compiled at once; ``names`` picks builds of
+    BUILDS (all by default)."""
     from chadavit_tpu_torch.ops import _build
 
     procs = {}
     for name, flags in BUILDS.items():
+        if names is not None and name not in names:
+            continue
         d = out_dir / name.replace(" ", "_")
         d.mkdir(parents=True, exist_ok=True)
         for src in SOURCES:
             (d / src).write_text((_build.CSRC / src).read_text())
-        files = ("fused_block.cu",) if name.startswith("k1c") else ("fused_block.cu",
-                                                                     "fused_block_bwd.cu")
+        files = ("fused_block.cu",) if forward_only(name) else ("fused_block.cu",
+                                                                 "fused_block_bwd.cu")
         procs[name] = (d / "lib.so", subprocess.Popen(
             [_build.find_nvcc(), *_build.NVCC_FLAGS, *flags, "-Xptxas", "-v", "-shared", "-o",
              str(d / "lib.so"), *(str(d / f) for f in files)],
@@ -96,8 +120,8 @@ def build(out_dir: Path) -> dict:
             f" {k.get('registers')} regs {k.get('spill_stores')}/{k.get('spill_loads')} B spilled"
             for k in report if any(n in k["name"] for n in KERNELS)), flush=True)
         lib = ctypes.CDLL(str(path))
-        for fn in ("linear_relu_fwd", "linear_residual_ln_fwd") + (
-                () if name.startswith("k1c") else ("linear_wgrad", "linear_dgrad")):
+        for fn in ("ln_linear_fwd", "linear_relu_fwd", "linear_residual_ln_fwd") + (
+                () if forward_only(name) else ("linear_wgrad", "linear_dgrad")):
             getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
@@ -181,10 +205,18 @@ def main() -> int:
     hid = torch.empty(m, f, device=dev)
     k1c_args = (act[d].data_ptr(), w1.data_ptr(), b1.data_ptr(), hid.data_ptr(), vl.data_ptr(),
                 m, d, f, S_PAD, stream)
+    wqkv, bqkv = rn(3 * d, d, scale=d ** -0.5), rn(3 * d, scale=0.02)
+    qkv = torch.empty(m, 3 * d, device=dev)
+    stats_out = torch.empty(2, m, device=dev)  # K1a's saved mean and rstd (the train path)
+    k1a_args = (act[d].data_ptr(), g.data_ptr(), beta.data_ptr(), 1e-5, wqkv.data_ptr(),
+                bqkv.data_ptr(), qkv.data_ptr(), stats_out[0].data_ptr(),
+                stats_out[1].data_ptr(), vl.data_ptr(), m, d, 3 * d, S_PAD, stream)
     for name, lib in libs.items():
+        assert lib.ln_linear_fwd(*k1a_args) == 0
         assert lib.linear_relu_fwd(*k1c_args) == 0
-        cells = [f"K1c {time_ms(lambda: lib.linear_relu_fwd(*k1c_args)):.4f}"]
-        if name.startswith("k1c"):  # the K1c builds change K1c only
+        cells = [f"K1a {time_ms(lambda: lib.ln_linear_fwd(*k1a_args)):.4f}",
+                 f"K1c {time_ms(lambda: lib.linear_relu_fwd(*k1c_args)):.4f}"]
+        if forward_only(name):  # the K1a and K1c builds change K1a or K1c only
             print(f"{name}: " + ", ".join(cells) + " (ms)", flush=True)
             continue
         for site in lrn_sites:
@@ -204,6 +236,12 @@ def main() -> int:
                 assert lib.linear_wgrad(*args) == 0
                 cells.append(f"K2c ({n}, {k}) {time_ms(lambda: lib.linear_wgrad(*args)):.4f}")
         print(f"{name}: " + ", ".join(cells) + " (ms)", flush=True)
+    # K1a's bound: its operations on the rows < valid_len, and its bytes (x on
+    # those rows, Wqkv, qkv written whole, the saved stats), the larger
+    k1a_ops = 2 * sum(valid) * d * 3 * d / PEAK_F32_FLOPS * 1e3
+    k1a_bytes = 4 * (sum(valid) * d + 3 * d * d + 3 * d + m * 3 * d + 2 * m) / PEAK_BYTES * 1e3
+    print(f"K1a bound: operations {k1a_ops:.4f} ms, bytes {k1a_bytes:.4f} ms (the rows < "
+          "valid_len)", flush=True)
     print("K1c and K2b bound (operations on the rows of computed tiles at "
           f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s): K1c {2 * rows * d * f / PEAK_F32_FLOPS * 1e3:.4f}, "
           + ", ".join(
@@ -223,7 +261,8 @@ def main() -> int:
         print(f"K2c ({n}, {k}) as built: " + ", ".join(cells) + " (ms)", flush=True)
 
     # one PyTorch call for the same function (all M rows: the library skips none)
-    cells = [f"K1c {time_ms(lambda: torch.relu(torch.addmm(b1, act[d], w1.t()))):.4f}"]
+    cells = [f"K1a {time_ms(lambda: torch.addmm(bqkv, F.layer_norm(act[d], (d,), g, beta, 1e-5), wqkv.t())):.4f}",
+             f"K1c {time_ms(lambda: torch.relu(torch.addmm(b1, act[d], w1.t()))):.4f}"]
     for k, w, bias, res, _ in lrn_sites:
         a = act[k]
         cells.append(f"K1b K {k} {time_ms(lambda: F.layer_norm(torch.addmm(bias, a, w.t()) + res, (d,), g, beta, 1e-5)):.4f}")

@@ -436,6 +436,58 @@ def test_layernorm_bwd_passes_its_split_plan_to_the_kernel(fake_cuda, dtype, bsz
     assert dx.shape == z.shape and dx.dtype == dtype and dgb.shape == (2 * d,)
 
 
+# ---- the split plan of ln_bwd (K6, both dtypes) -----------------------------------
+@pytest.mark.parametrize("m", [1, 5, 63, 64, 65, 2200, 16384, 65573, 10 ** 6])
+def test_ln_bwd_split_plan_covers_every_row_once_in_order(m):
+    from chadavit_tpu_torch.ops import layernorm as ln
+
+    splits = ln.ln_bwd_splits(m)
+    plan = ln.ln_bwd_split_rows(m, splits)
+    assert len(plan) == splits and 1 <= splits <= m
+    assert [r for share in plan for r in share] == list(range(m))  # each row in one split
+    sizes = [len(share) for share in plan]
+    assert max(sizes) - min(sizes) <= 1  # near-equal contiguous shares
+    if splits < ln.LN_BWD_MAX_SPLITS:  # below the cap, no split walks more than its rows
+        assert max(sizes) <= ln.LN_BWD_SPLIT_ROWS
+
+
+def test_ln_bwd_splits_depend_on_the_rows_alone_and_stay_bounded():
+    from chadavit_tpu_torch.ops import layernorm as ln
+
+    rows, most = ln.LN_BWD_SPLIT_ROWS, ln.LN_BWD_MAX_SPLITS
+    assert [ln.ln_bwd_splits(m) for m in (1, rows, rows + 1, 16384)] == [1, 1, 2, 16384 // rows]
+    big = [ln.ln_bwd_splits(m) for m in (most * rows, most * rows + 1, 10 ** 6, 10 ** 8)]
+    assert big == [most] * 4  # the scratch does not grow with the batch
+    # the scratch at the widest row the kernel takes: at most 2 MB
+    assert most * 2 * ln.LN_MAX_D * 4 <= 2 * 2 ** 20
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 45, 192), (1, 5, 64), (40, 2048, 192)])
+def test_ln_bwd_passes_its_split_plan_and_scratch_to_the_kernel(fake_cuda, monkeypatch, shape,
+                                                                dtype, residual):
+    from chadavit_tpu_torch.ops import layernorm as ln
+
+    made, scratch = [], ln.ln_bwd_scratch
+    monkeypatch.setattr(ln, "ln_bwd_scratch",
+                        lambda m, d, device: made.append(scratch(m, d, device)) or made[-1])
+    d, m = shape[-1], shape[0] * shape[1]
+    x = torch.zeros(shape, dtype=dtype)
+    stats = torch.zeros(shape[:-1])
+    dx, dg, db = ln.ln_bwd(x, x if residual else None, torch.ones(d), stats, stats, x)
+    (name,), (args,) = fake_cuda.calls, fake_cuda.args
+    splits = ln.ln_bwd_splits(m)
+    assert name == _launch.entry_point("ln_bwd", dtype)
+    assert len(args) == len(_build.SIGNATURES[name]) and args[-4:-1] == (m, d, splits)
+    assert (args[1] is not None) == residual
+    # the kernel writes one partial row of [dgamma, dbeta] a split, into that scratch
+    (partial,) = made
+    assert partial.shape == (splits, 2 * d) and partial.dtype == torch.float32
+    assert args[7] == partial.data_ptr()
+    assert dx.shape == shape and dx.dtype == dtype and dg.shape == db.shape == (d,)
+
+
 def test_bf16_dgrad_refuses_rows_off_its_block(cuda_route):
     d = fused_block.D_MODEL
     vl = torch.tensor([3], dtype=torch.int32)

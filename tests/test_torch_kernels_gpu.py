@@ -16,6 +16,11 @@ gradients, 1e-4 times the largest entry of the reference where that exceeds 1
 (weight gradients sum over every valid row).
 """
 
+import functools
+import importlib.util
+import math
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -942,3 +947,161 @@ def test_f32_attention_forward_lse_feeds_the_backward(dev):
     for j in range(3):  # dq, dk, dv
         _assert_computed_rows_close(got[..., j * D:(j + 1) * D], ref[..., j * D:(j + 1) * D],
                                     rows)
+
+
+# ---- the float32 LN1 + QKV (K1a) redesigned on csrc/sgemm_f32.cuh ----------------
+# Its qkv, mean and rstd are the bits of the first port's kernel (gemm_tile):
+# the plain version below repeats that kernel's arithmetic step by step in
+# float32 (row_stats' lane-strided sums and warp butterfly, the prologue, every
+# sum from k = 0 upward with fmaf, then the bias), and the kernel must equal it
+# exactly, in every column cut that scripts/bench_linear_f32.py builds (as
+# built 192 columns a block of 4 warps of 8 x 6 sums; 3 slabs of 192 walked by
+# one block; 192 columns a block of 3 warps of 8 x 8 sums; 288 columns a block
+# of 4 warps of 8 x 9 sums), at prefixes on either side of a 32-row tile edge
+# and at the hub's shapes. The tiles past the prefix get exact zeros, stats
+# included.
+def _fmaf(a, b, c):
+    """CUDA's fmaf on float32 tensors: a * b + c rounded once, computed exactly
+    in float64 (the product is exact there; the sum's rounding error is
+    recovered by TwoSum, and a float64 sum that lies halfway between two
+    float32 values is rounded to the side that error lies on)."""
+    p, cd = a.double() * b.double(), c.double()
+    s = p + cd
+    bb = s - p
+    e = (p - (s - bb)) + (cd - bb)
+    f = s.float()
+    back = f.double()
+    other = torch.nextafter(f, torch.where(s > back, math.inf, -math.inf).float())
+    tie = (s != back) & (s - back == (other.double() - back) / 2)
+    return torch.where(tie & (e != 0) & ((e > 0) == (other.double() > back)), other, f)
+
+
+def _ln_linear_first_port_order(x, g, b, eps, w, bias):
+    """``(qkv, mean, rstd)`` in the order of the first port's ln_linear_fwd
+    as nvcc compiles it: lane l sums columns l, l + 32, ... in order (s += v;
+    ss = fmaf(v, v, ss)), the warp adds the lanes by the xor butterfly 16, 8,
+    4, 2, 1, mu = s / K, var = max(ss / K - mu * mu, 0) with the product
+    rounded on its own (nvcc fuses no fmaf there), rstd = rsqrtf(var + eps);
+    h = fmaf((x - mu) * rstd, g, beta); qkv = the fmaf chain over k from 0,
+    then + bias. (Which products nvcc fuses was read on the card, against
+    the first port's own kernel.)"""
+    bsz, s_pad, k = x.shape
+    m, n = bsz * s_pad, w.shape[0]
+    xr = x.reshape(m, k)
+    lanes = xr.reshape(m, k // 32, 32)  # column lane + 32 c
+    s = torch.zeros(m, 32, device=x.device)
+    ss = torch.zeros_like(s)
+    for c in range(k // 32):
+        s = s + lanes[:, c]
+        ss = _fmaf(lanes[:, c], lanes[:, c], ss)
+    idx = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        s, ss = s + s[:, idx ^ o], ss + ss[:, idx ^ o]
+    kk = torch.full((m,), float(k), device=x.device)
+    mu = s[:, 0] / kk
+    rstd = torch.rsqrt(torch.clamp(ss[:, 0] / kk - mu * mu, min=0.0) + eps)
+    h = _fmaf((xr - mu[:, None]) * rstd[:, None], g.expand(m, k), b.expand(m, k))
+    acc = torch.zeros(m, n, device=x.device)
+    for j in range(k):
+        acc = _fmaf(h[:, j:j + 1].expand(m, n), w[:, j].expand(m, n), acc)
+    return ((acc + bias).reshape(bsz, s_pad, n), mu.reshape(bsz, s_pad),
+            rstd.reshape(bsz, s_pad))
+
+
+K1A_BATCHES = {"edges": (256, [0, 1, 31, 32, 33, 63, 64, 65, 255, 256]), "hub": (2048, _HUB)}
+K1A_CUTS = ["as built", "k1a_slabs3", "k1a_tn8", "k1a_tn9_bn288"]  # the bench's column cuts
+
+
+@functools.lru_cache(maxsize=None)
+def _bench_builds():
+    """The K1a column-cut builds of scripts/bench_linear_f32.py, built once."""
+    path = Path(__file__).resolve().parent.parent / "scripts" / "bench_linear_f32.py"
+    spec = importlib.util.spec_from_file_location("bench_linear_f32", path)
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    from chadavit_tpu_torch.ops._build import BUILD_DIR
+    return bench.build(BUILD_DIR / "bench_linear_f32", [c for c in K1A_CUTS if c != "as built"])
+
+
+def _ln_linear_cut(cut, x, g, b, eps, w, bias, vl, save):
+    if cut == "as built":
+        before = _launch.LAUNCHES["ln_linear_fwd"]
+        got = fused_block.ln_linear(x, g, b, eps, w, bias, vl, save=save)
+        assert _launch.LAUNCHES["ln_linear_fwd"] == before + 1
+        return got if save else (got,)
+    bsz, s, k = x.shape
+    n = w.shape[0]
+    out = torch.empty(bsz, s, n, device=x.device)
+    mean, rstd = (torch.empty(bsz, s, device=x.device) for _ in range(2)) if save else (None,
+                                                                                      None)
+    status = _bench_builds()[cut].ln_linear_fwd(
+        x.data_ptr(), g.data_ptr(), b.data_ptr(), eps, w.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), None if mean is None else mean.data_ptr(),
+        None if rstd is None else rstd.data_ptr(), vl.data_ptr(), bsz * s, k, n, s,
+        torch.cuda.current_stream().cuda_stream)
+    assert status == 0
+    return (out, mean, rstd) if save else (out,)
+
+
+@pytest.mark.parametrize("save", [False, True])
+@pytest.mark.parametrize("cut", K1A_CUTS)
+@pytest.mark.parametrize("batch", list(K1A_BATCHES))
+def test_f32_ln_linear_keeps_the_first_port_bits(dev, batch, cut, save):
+    s, valid = K1A_BATCHES[batch]
+    rng = np.random.default_rng(len(valid) + 29)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    x = _randn(rng, dev, len(valid), s, D) * 2 + 0.5
+    w, bias = _randn(rng, dev, 3 * D, D, scale=D ** -0.5), _randn(rng, dev, 3 * D, scale=0.02)
+    g, b = 1 + _randn(rng, dev, D, scale=0.1), _randn(rng, dev, D, scale=0.05)
+    with torch.no_grad():
+        got = _ln_linear_cut(cut, x, g, b, 1e-5, w, bias, vl, save)
+        again = _ln_linear_cut(cut, x, g, b, 1e-5, w, bias, vl, save)
+    torch.cuda.synchronize()
+    ref = _ln_linear_first_port_order(x, g, b, 1e-5, w, bias)
+    rows = [min(-(-n // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK, s) for n in valid]
+    for o, ag, r, what in zip(got, again, ref, ("qkv", "mean", "rstd")):
+        assert torch.equal(o, ag), f"{what}: a second call gives other bits"
+        for i, n in enumerate(rows):
+            assert torch.equal(o[i, :n], r[i, :n]), (what, i, n)
+            assert not o[i, n:].any().item(), (what, "past the computed tiles", i, n)
+
+
+# ---- K6, ln_bwd redesigned: a split plan of M alone, half a warp a row at D 192 ----
+# Both dtypes, with and without the residual: M smaller than one split, M no
+# multiple of the split's rows, M past the most splits (LN_BWD_MAX_SPLITS
+# times LN_BWD_SPLIT_ROWS: the cap holds), and D 64, 192 and 1024, against the
+# plain version (float32: TOL of the reference's largest entry where that
+# exceeds 1; bf16: the bounds above); one launch a call; a second call repeats
+# the bits.
+LN6_SHAPES = [(1, 5, D), (3, 45, D), (1, 200, 64), (2, 37, 1024), (33, 2048, D)]
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LN6_SHAPES)
+def test_ln_bwd_splits_on_the_card(dev, shape, dtype, residual):
+    from chadavit_tpu_torch.ops import layernorm as ln
+
+    rng = np.random.default_rng(shape[1] + 31 * residual)
+    d, m = shape[-1], shape[0] * shape[1]
+    x = (_randn(rng, dev, *shape) * 2 + 0.5).to(dtype)
+    r = _randn(rng, dev, *shape).to(dtype) if residual else None
+    g = 1 + _randn(rng, dev, d, scale=0.1)
+    dy = _randn(rng, dev, *shape).to(dtype)
+    _, mu, rstd = ln.ln_fwd_reference(x, r, g, g, 1e-5)
+    entry = _launch.entry_point("ln_bwd", dtype)
+    before = _launch.LAUNCHES[entry]
+    got = ln.ln_bwd(x, r, g, mu, rstd, dy)
+    assert _launch.LAUNCHES[entry] == before + 1
+    again = ln.ln_bwd(x, r, g, mu, rstd, dy)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), "a second call gives other bits"
+    splits = ln.ln_bwd_splits(m)
+    assert splits == min(ln.LN_BWD_MAX_SPLITS, -(-m // ln.LN_BWD_SPLIT_ROWS))
+    ref = ln.ln_bwd_reference(x, r, g, mu, rstd, dy)
+    assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == torch.float32
+    for o, rf in zip(got, ref):
+        if dtype == torch.float32:
+            assert (o - rf).abs().max().item() <= TOL * max(1.0, rf.abs().max().item())
+        else:
+            _assert_bf16_close(o, rf)

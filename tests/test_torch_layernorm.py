@@ -7,7 +7,9 @@ custom VJPs), on the CPU.
 
 Cases: float32 and bfloat16; eps 1e-5 (the layers) and 1e-6 (the final
 norm); with and without the residual; rows (7, 11, 64), 77 rows that are not
-a multiple of 8, and (3, 50, 192), ChAdaViT-moyen's width. The loss is
+a multiple of 8, (3, 50, 192), ChAdaViT-moyen's width, and (2, 1100, 192),
+2200 rows: more than one of the JAX kernel's 2048-row blocks and no multiple
+of it, so its dgamma and dbeta are summed over several blocks. The loss is
 ``sum((y - t)^2)`` (not LN-invariant); the gradients are those of x, of the
 residual (the same array as x's), and of scale and bias (float32).
 
@@ -37,7 +39,7 @@ from chadavit_tpu_torch.ops import layernorm as ln
 
 F32_ABS, F32_GRAD_REL = 3e-6, 2e-6
 BF16_ABS, BF16_STEPS, BF16_F32_REL = 3e-2, 2, 1e-2
-SHAPES = [(7, 11, 64), (3, 50, 192)]
+SHAPES = [(7, 11, 64), (3, 50, 192), (2, 1100, 192)]
 
 
 def _bf16_step(a: np.ndarray) -> np.ndarray:
