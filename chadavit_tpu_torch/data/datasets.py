@@ -3,8 +3,9 @@
 manifest engine + declarative metadata per dataset).
 
 The port's copy of ``chadavit_tpu/data/datasets.py``: the same classes and
-disk formats, decoded with PIL/cv2 (the JAX package's native C++ decoder,
-``chadavit_tpu/data/native.py``, is not ported yet). Each dataset has
+disk formats, decoded by the port's native C++ decoder
+(:mod:`chadavit_tpu_torch.data.native`) where it builds, else with PIL/cv2.
+Each dataset has
 ``get(index, rng)``, which hands ``rng`` to the transform; the pretrain
 loader calls it with a generator of the sample's own, and ``dataset[index]``
 is ``get(index, None)`` (the transform's own generator).
@@ -38,11 +39,23 @@ from chadavit_tpu_torch.data.synthetic import SyntheticStructured  # noqa: F401
 
 def _imread(path: str) -> np.ndarray:
     """Decode one single-channel image file in its NATIVE dtype (uint8/uint16
-    raw pixel values) with PIL/cv2 (the reference uses tifffile/cv2 for
-    16-bit TIFF, ``misc.py:465-478``); .npy raw."""
+    raw pixel values): PNG/JPEG/TIFF through the native C++ decoder where it
+    builds, else PIL/cv2 (the reference uses tifffile/cv2 for 16-bit TIFF,
+    ``misc.py:465-478``); .npy raw. A float TIFF, which has no raw integer
+    form, goes to cv2/PIL; a file whose codec the native build lacks raises."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".npy":
         return np.load(path)
+    if ext in (".png", ".jpg", ".jpeg", ".tif", ".tiff"):
+        from chadavit_tpu_torch.data import native
+
+        if native.is_available():
+            try:
+                return native.decode_plane_raw(path)
+            except native.MissingCodecError:
+                raise
+            except RuntimeError:
+                pass  # fall back below (a float TIFF)
     if ext in (".tif", ".tiff"):
         try:
             import cv2

@@ -16,10 +16,13 @@ from the one generator of its augmentation pipeline. Under several worker
 threads that shared generator is consumed in whatever order the threads
 reach it, and a resumed run starts it afresh, so the JAX loader's crops
 change from run to run and after a resume; the port's depend on (seed, epoch,
-index) alone. The native C++ batch decoder, the multi-host shard and the
-raw-plane options of the on-device augmentation path and the evaluation
-loaders' (channels-last integer planes, a user collate, emitted indices) are
-not ported yet.
+index) alone. The raw path of the on-device augmentation has no random host
+op, so its batches equal the JAX loader's bit for bit: ``channels_last``
+and ``dtype`` collate the decoder's HWC integer planes as they are, and
+``native_batch_fn`` decodes a whole batch in the C++ thread pool
+(:func:`chadavit_tpu_torch.data.native.make_dense_batch_fn`). The JAX
+loader's ``collate_fn``, ``emit_index`` and multi-host ``shard`` (for the
+evaluation and parallel paths) are not ported yet.
 
 :func:`device_prefetch` replaces the JAX upload thread: it pins each host
 batch and copies it to the device with ``non_blocking=True`` from a
@@ -107,7 +110,12 @@ class _WorkerError:
 
 class HostLoader:
     """Threaded prefetching batch loader with deterministic per-epoch order
-    and per-sample augmentation generators."""
+    and per-sample augmentation generators.
+
+    ``channels_last`` and ``dtype`` say how samples collate (HWC raw planes
+    of the decoder's dtype on the on-device augmentation path);
+    ``native_batch_fn(idxs, width) -> batch`` replaces the per-sample path
+    with one call per batch (JAX ``pipeline.py:105-117``)."""
 
     def __init__(
         self,
@@ -119,8 +127,11 @@ class HostLoader:
         num_workers: int = 4,
         prefetch: int = 4,
         seed: int = 0,
+        channels_last: bool = False,
         bucket_by_channels: bool = False,
         bucket_round: int = 2,
+        dtype=np.float32,
+        native_batch_fn: Optional[Callable] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -135,6 +146,9 @@ class HostLoader:
         # pad only to the batch's (rounded) max. Requires dataset.channel_count(i).
         self.bucket_by_channels = bucket_by_channels and hasattr(dataset, "channel_count")
         self.bucket_round = bucket_round
+        self.channels_last = channels_last
+        self.dtype = dtype
+        self.native_batch_fn = native_batch_fn
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -194,10 +208,13 @@ class HostLoader:
                             bi, idxs = next(idx_iter)
                         except StopIteration:
                             return
-                    samples = [self._sample(int(i), epoch) for i in idxs]
                     width = (self._bucket_width(idxs) if self.bucket_by_channels
                              else self.max_channels)
-                    batch = dense_collate(samples, width)
+                    if self.native_batch_fn is not None:
+                        batch = self.native_batch_fn(idxs, width)
+                    else:
+                        samples = [self._sample(int(i), epoch) for i in idxs]
+                        batch = dense_collate(samples, width, self.channels_last, self.dtype)
                     # emit strictly in batch order; the put polls `stop` so that a
                     # consumer that abandons the epoch early (max_steps,
                     # preemption) leaves no worker parked on a full queue

@@ -2,16 +2,20 @@
 
 Counterpart of ``chadavit_tpu/train/loop.py`` (``spec_from_cfg`` :39,
 ``build_pretrain_loader`` :91, ``run_dino_pretrain`` :196), on one device: a
-plain Python loop around the DINO step, with the host multicrop loader
-feeding pinned copies to the card a few batches ahead, checkpoints and
-exact-step auto-resume, the SIGTERM/SIGUSR1 preemption hook and offline
-metric logging.
+plain Python loop around the DINO step, with the host loader feeding pinned
+copies to the card a few batches ahead, checkpoints and exact-step
+auto-resume, the SIGTERM/SIGUSR1 preemption hook and offline metric logging.
 
-Not ported yet, each raising ``NotImplementedError`` with its key: on-device
-augmentation (``device_augmentations``), online kNN (``knn_eval``), the
-training-time UMAP (``auto_umap``), tensor parallelism (``model_parallel``),
-``fsdp``, more than one device (``devices``) and more than one host
-(``num_nodes``).
+The loader is the host multicrop loader, or with ``device_augmentations:
+true`` the raw loader of JAX ``loop.py:95-104``/``:128-170``: the host decodes
+(the native C++ decoder where it builds, else PIL) and resizes to the base
+crop size, the raw uint8/uint16 planes go to the card as they are, and the
+step draws its views there from a generator of the step's own index.
+
+Not ported yet, each raising ``NotImplementedError`` with its key: online
+kNN (``knn_eval``), the training-time UMAP (``auto_umap``), tensor
+parallelism (``model_parallel``), ``fsdp``, more than one device
+(``devices``) and more than one host (``num_nodes``).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import threading
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from chadavit_tpu_torch.config import Config
@@ -34,6 +39,9 @@ from chadavit_tpu_torch.data import (
     prepare_datasets,
     to_device,
 )
+from chadavit_tpu_torch.data import native
+from chadavit_tpu_torch.data.device_augment import aug_generator
+from chadavit_tpu_torch.data.transforms import RawResize
 from chadavit_tpu_torch.train.pretrain import DinoPretrainSpec, _device, build_dino
 from chadavit_tpu_torch.utils.checkpoint import AutoResumer, Checkpointer, restore_state
 from chadavit_tpu_torch.utils.logging import MetricLogger
@@ -107,7 +115,6 @@ def unported_keys(cfg: Config) -> None:
     devices = cfg.get("devices", 1)
     n_devices = len(devices) if isinstance(devices, (list, tuple)) else int(devices or 1)
     asks = [
-        ("device_augmentations", bool(cfg.get("device_augmentations", False))),
         ("knn_eval", bool((cfg.get("knn_eval") or {}).get("enabled", False))),
         ("auto_umap", bool((cfg.get("auto_umap") or {}).get("enabled", False))),
         ("model_parallel", int(cfg.get("model_parallel", 1) or 1) > 1),
@@ -119,27 +126,32 @@ def unported_keys(cfg: Config) -> None:
         if asked:
             raise NotImplementedError(
                 f"{key}={cfg.get(key)!r}: not ported yet; the port's pretrain loop runs "
-                "host augmentations on one device of one host")
+                "on one device of one host")
 
 
 def build_pretrain_loader(cfg: Config, seed: int = 0) -> HostLoader:
     """Multi-crop SSL loader from the config's augmentation pipelines
-    (reference ``main_pretrain.py:101-136``), host augmentations only."""
-    if cfg.get("device_augmentations", False):
-        raise NotImplementedError("device_augmentations: on-device augmentation is not "
-                                  "ported yet")
-    pipelines = [
-        NCropAugmentation(
-            build_transform_pipeline(cfg.data.dataset, aug, seed=seed + i),
-            aug.get("num_crops", 1),
-        )
-        for i, aug in enumerate(cfg.get("augmentations", []))
-    ]
-    transform = FullTransformPipeline(pipelines)
+    (reference ``main_pretrain.py:101-136``).
+
+    With ``device_augmentations: true`` the host only decodes and resizes to
+    the base crop size, and the loader yields the raw planes (``images``)
+    for the step to augment on the device (JAX ``loop.py:91-170``)."""
+    device_augs = bool(cfg.get("device_augmentations", False))
+    crop = cfg["augmentations"][0]["crop_size"] if cfg.get("augmentations") else 224
+    if device_augs:
+        transform = RawResize(crop)
+    else:
+        pipelines = [
+            NCropAugmentation(
+                build_transform_pipeline(cfg.data.dataset, aug, seed=seed + i),
+                aug.get("num_crops", 1),
+            )
+            for i, aug in enumerate(cfg.get("augmentations", []))
+        ]
+        transform = FullTransformPipeline(pipelines)
     if cfg.get("debug_augmentations", False):  # reference main_pretrain.py:120-122
         print("Transforms:")
         print(transform)
-    crop = cfg["augmentations"][0]["crop_size"] if cfg.get("augmentations") else 224
     if cfg.data.dataset == "synthetic":
         ds_kwargs = dict(n=cfg.data.get("size", 256), img_size=crop,
                          max_channels=cfg.data.get("max_img_channels", 10))
@@ -150,6 +162,9 @@ def build_pretrain_loader(cfg: Config, seed: int = 0) -> HostLoader:
                          max_channels=cfg.data.get("max_img_channels", 4),
                          num_classes=cfg.data.get("num_classes",
                                                   SyntheticStructured.NUM_CLASSES))
+    elif device_augs:
+        # manifest datasets keep the raw integer planes for the device
+        ds_kwargs = dict(raw=True)
     else:
         ds_kwargs = {}
     dataset = prepare_datasets(
@@ -164,6 +179,25 @@ def build_pretrain_loader(cfg: Config, seed: int = 0) -> HostLoader:
     )
     max_channels = (cfg.backbone.get("kwargs", {}).get("max_number_channels")
                     or cfg.data.get("max_img_channels", 10))
+    loader_kwargs = {}
+    if device_augs:
+        # RawResize keeps the decoder's dtype: 1-2 bytes a pixel to the card
+        probe = np.asarray(dataset[0][0])
+        loader_kwargs = dict(channels_last=True, dtype=probe.dtype)
+        if hasattr(dataset, "file_list"):  # image files on disk
+            batched = (cfg.data.get("native_loader", True)
+                       and probe.dtype in (np.uint8, np.uint16) and native.is_available())
+            print("decoder: " + native.describe() + (
+                ", whole batches in the C++ thread pool" if batched else ", one sample at a time"))
+            if batched:
+                # with data.cache_decoded, epochs after the first decode nothing
+                cache = (native.DecodedPlaneCache(
+                    int(cfg.data.get("cache_decoded_mb", 2048)) * 2**20)
+                    if cfg.data.get("cache_decoded", False) else None)
+                loader_kwargs["native_batch_fn"] = native.make_dense_batch_fn(
+                    dataset, crop, num_threads=int(cfg.data.get("decode_threads", 4) or 4),
+                    out_depth=16 if probe.dtype == np.uint16 else 8,
+                    regression=getattr(dataset, "task", "") == "regression", cache=cache)
     return HostLoader(
         dataset,
         batch_size=cfg.optimizer.batch_size,
@@ -173,6 +207,7 @@ def build_pretrain_loader(cfg: Config, seed: int = 0) -> HostLoader:
         # group batches by channel count and pad only to the bucket width
         bucket_by_channels=cfg.get("bucket_by_channels", False),
         bucket_round=int(cfg.get("bucket_round", 1)),
+        **loader_kwargs,
     )
 
 
@@ -202,7 +237,11 @@ def run_dino_pretrain(cfg: Config, max_steps: Optional[int] = None,
     loader = build_pretrain_loader(cfg, seed=seed)
     steps_per_epoch = max(len(loader), 1)
     spec = spec_from_cfg(cfg, steps_per_epoch)
-    state, train_step, model, head = build_dino(spec, device=str(dev), seed=seed)
+    # with on-device augmentation the multicrop runs inside the step
+    device_augs = ([dict(a) for a in cfg.get("augmentations", [])]
+                   if cfg.get("device_augmentations", False) else None)
+    state, train_step, model, head = build_dino(spec, device=str(dev), seed=seed,
+                                                device_augmentations=device_augs)
 
     print("student parameters (backbone):\n" + pretty_param_summary(state.student["backbone"]))
     print("student parameters (head):\n" + pretty_param_summary(state.student["head"]))
@@ -251,7 +290,8 @@ def run_dino_pretrain(cfg: Config, max_steps: Optional[int] = None,
                 pass
     try:
         return _train(cfg, loader, spec, state, train_step, ckptr, dev, start_epoch,
-                      start_step, steps_per_epoch, max_steps, preempted)
+                      start_step, steps_per_epoch, max_steps, preempted, seed,
+                      device_augs is not None)
     finally:
         for _sig, handler in previous.items():
             # None: the handler was not installed from Python
@@ -259,7 +299,7 @@ def run_dino_pretrain(cfg: Config, max_steps: Optional[int] = None,
 
 
 def _train(cfg, loader, spec, state, train_step, ckptr, dev, start_epoch, start_step,
-           steps_per_epoch, max_steps, preempted) -> Dict:
+           steps_per_epoch, max_steps, preempted, seed, device_augs) -> Dict:
     step_ckpt_every = int(cfg.checkpoint.get("step_frequency", 0) or 0) \
         if cfg.checkpoint.enabled else 0
     log_every = cfg.get("log_every", 50)
@@ -269,7 +309,15 @@ def _train(cfg, loader, spec, state, train_step, ckptr, dev, start_epoch, start_
     # the crops go over as float32 and are cast on the device
     casts = {"crops": spec.dtype} if spec.dtype != torch.float32 else {}
 
-    def _upload(batch):
+    def _upload(item):
+        g, batch = item  # the global step this batch feeds
+        if device_augs:
+            # the raw planes as they are; the step converts them and draws
+            # its views from a generator of (seed + 1, g), as JAX folds g in
+            out = to_device({"images": batch["images"],
+                             "channel_counts": batch["channel_counts"]}, dev)
+            out["generator"] = aug_generator(seed + 1, g, dev)
+            return out
         return to_device({"crops": batch["crops"], "channel_counts": batch["channel_counts"]},
                          dev, casts)
 
@@ -281,8 +329,8 @@ def _train(cfg, loader, spec, state, train_step, ckptr, dev, start_epoch, start_
         skip = start_step % steps_per_epoch if epoch == start_epoch else 0
         # mid-epoch resume starts the loader AT the skip point: the consumed
         # prefix is neither decoded nor collated (HostLoader.iter_from)
-        batches = device_prefetch(loader.iter_from(skip), upload=_upload,
-                                  depth=int(cfg.get("device_prefetch", 2)))
+        batches = device_prefetch(enumerate(loader.iter_from(skip), start=gstep),
+                                  upload=_upload, depth=int(cfg.get("device_prefetch", 2)))
         for wait, dev_batch in _timed(batches):
             state, metrics = train_step(state, dev_batch)
             timer.tick(wait)

@@ -2,9 +2,12 @@
 
 Counterpart of ``chadavit_tpu/train/pretrain.py`` (``DinoPretrainSpec`` :26,
 ``build_dino`` :99, ``synthetic_dino_batch`` :348), on one device. Weights and
-batches come from numpy seeds. The JAX ``mesh``, ``fsdp`` and
-``device_augmentations`` options belong to later slices of the port and
-raise, as do the backbones other than ChAdaViT and the online classifier.
+batches come from numpy seeds. The JAX ``mesh`` and ``fsdp`` options belong
+to later slices of the port and raise, as do the backbones other than
+ChAdaViT and the online classifier. ``device_augmentations`` (the config's
+augmentation list) puts the multicrop into the step, as JAX
+``pretrain.py:309-321`` compiles it into one program: the step takes the
+raw decoded batch and draws its views on the device.
 
 ``spec.dtype`` is the compute dtype of the backbone and the head, float32 or
 bfloat16 (the canonical pretrain config's ``precision: "bf16"``, which the
@@ -21,6 +24,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from chadavit_tpu_torch.data.device_augment import make_multicrop_fn
 from chadavit_tpu_torch.models.chada_vit import ChAdaViT, chada_vit, random_state_dict
 from chadavit_tpu_torch.models.dino_head import DINOHead, random_head_state_dict
 from chadavit_tpu_torch.train.dino_step import DinoStepConfig, make_dino_train_step
@@ -103,9 +107,15 @@ def build_dino(spec: DinoPretrainSpec, device: Optional[str] = None, seed: int =
     ``device=None`` means ``"cuda"``, and raises where CUDA is absent.
     ``backbone_apply(backbone, crops, channel_counts)`` replaces the
     backbone's own forward in the step (a plain reference, say).
+
+    With ``device_augmentations`` (a list of augmentation nodes), the step
+    takes ``{"images": raw (B, C, H, W) uint8/uint16 (or float) planes,
+    "channel_counts", "generator" or "draws"}``: :func:`make_multicrop_fn`
+    turns them into the global views on ``device``, in ``spec.dtype``, and
+    the step runs on those crops (small views are not trained on, as in JAX).
     """
-    if mesh is not None or fsdp or device_augmentations is not None:
-        raise NotImplementedError("mesh, fsdp and device_augmentations are not ported yet")
+    if mesh is not None or fsdp:
+        raise NotImplementedError("mesh and fsdp are not ported yet")
     if spec.backbone not in ("vit_channels", "chada_vit"):
         raise NotImplementedError(f"backbone {spec.backbone!r}: only ChAdaViT is ported")
     if spec.online_classifier and spec.num_classes > 0:
@@ -155,7 +165,19 @@ def build_dino(spec: DinoPretrainSpec, device: Optional[str] = None, seed: int =
         return head_module(feats)
 
     step = make_dino_train_step(backbone_apply or ChAdaViT.__call__, head_apply, tx, cfg)
-    return state, step, model, head
+    if device_augmentations is None:
+        return state, step, model, head
+    aug_fn = make_multicrop_fn([dict(a) for a in device_augmentations], dtype=spec.dtype,
+                               device=str(dev))
+
+    def fused_step(st: DinoState, batch: Dict[str, Any]):
+        # the views' kernels under one name, for the profiler
+        with torch.profiler.record_function("device_augment"):
+            out = aug_fn(batch["images"], batch["channel_counts"],
+                         generator=batch.get("generator"), draws=batch.get("draws"))
+        return step(st, {"crops": out["crops"], "channel_counts": out["channel_counts"]})
+
+    return state, fused_step, model, head
 
 
 def synthetic_dino_batch(spec: DinoPretrainSpec, batch_size: int, seed: int = 0,

@@ -49,7 +49,7 @@ class HostMemGuard:
 
     The JAX package's guard checkpoints and re-execs the process when a
     networked TPU client that keeps every uploaded host batch pushes the
-    resident set past a threshold (``chadavit_tpu/utils/misc.py:324-370``).
+    resident set past a threshold (``chadavit_tpu/utils/misc.py:145-191``).
     The CUDA runtime keeps no such copies, so here :meth:`check` never
     fires; ``host_mem_guard_mb`` is read and ignored."""
 

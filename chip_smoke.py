@@ -95,6 +95,23 @@ Phases, each printed with its elapsed seconds at its start and end:
    every LayerNorm (3 per layer and the final norm) through ln_fwd / ln_bwd,
    and step 1 against the same run with ln_impl=xla (plain LayerNorms): the
    loss, and the per-tensor cosine of the update directions.
+4d. on-device augmentation: (a) make_multicrop_fn on the card (a raw uint8
+   batch of 32 images, channels 1..10, bench.ASYMMETRIC_AUGS) against the
+   same function on the CPU on the same draws, float32 and bfloat16; padded
+   planes exactly zero; one seed twice gives the same bits. (b) build_dino
+   (bf16, device_augmentations=ASYMMETRIC_AUGS) for 3 steps on raw batches:
+   the loss is finite, the launch counts are what 12 layers x 3 steps x
+   (teacher + student) imply, and step 1 (on (a)'s draws) agrees with the
+   plain build_dino step fed (a)'s crops within 4b's bf16 bounds. (c) the
+   entry point on scripts/pretrain/dino_idr10k.yaml (device_augmentations:
+   true) over a manifest of 160 images written by the port's generator:
+   4 steps straight through the command line, 2 steps with a step
+   checkpoint, an auto-resume to step 4 whose metrics of steps 3-4 and final
+   state equal the straight run's bit for bit; the decoder used, the
+   loader's time per batch, the wait for the batch and each step's device
+   span. (d) python -m chadavit_tpu_torch.bench's run at 8 steps with its
+   disk phase: its last JSON line parses, its rates are finite and
+   positive, 0 < mfu <= 1 and 0 < device_busy_share <= 1.
 5. times with CUDA events: each kernel instance (and the share of its bound
    it reaches; linear_residual_ln, linear_dgrad and linear_wgrad also site
    by site), its plain version, one PyTorch call for the same function (a
@@ -108,7 +125,8 @@ Phases, each printed with its elapsed seconds at its start and end:
    events time by the host's launch rate, and of the attention forward and
    backward (K3, K4), kernel by kernel (so each pass of layernorm_bwd and
    linear_wgrad on its own); K3 and K4 run twice for the same bits; the whole layer forward
-   and backward; the served batch and the train step, in both dtypes.
+   and backward; the served batch and the train step, in both dtypes; the
+   multicrop's device time per step (bf16, B 32) beside the step's.
 6. one JSON line with every kernel instance, then the last line
    {"ok": true, "device": {...}}. A failed phase prints no last line and
    exits 1.
@@ -197,6 +215,20 @@ ENTRY_XLA = ["precision=f32", "backbone.kwargs.block_impl=xla", "optimizer.batch
 ENTRY_XLA_STEPS = 2
 ENTRY_METRICS = ("dino_loss", "lr", "tau", "teacher_temp", "teacher_entropy",
                  "center_norm", "epoch")
+# on-device augmentation: the multicrop of a raw uint8 batch (B 32, channels
+# 1..10 as COUNTS, 10 planes) on the card against the same function on the
+# CPU on the same draws: float32 within AUG_TOL max abs, bfloat16 within
+# phase 2's bf16 bounds (bf16_err). The card's exp and sqrt of the crop box
+# may differ from the CPU's by an ulp, and one ulp of a box moves a 224 px
+# view of random planes by 2.2e-5 (read on the CPU); the card read 4.0e-5
+AUG_B, AUG_TOL = 32, 1e-4
+IDR10K = Path(__file__).resolve().parent / "scripts" / "pretrain" / "dino_idr10k.yaml"
+# dino_idr10k.yaml on a manifest of IDR_IMAGES images with 7 classes written
+# by the port's generator (5 batches of 32): data.sample_ratio=1.0 (its 0.1
+# would leave less than a batch), the online kNN off (not ported yet)
+IDR_IMAGES = 160
+IDR_ENTRY = ["data.sample_ratio=1.0", "knn_eval.enabled=false", "log_every=1"]
+BENCH_STEPS = 8
 
 # the card's peaks (NVIDIA H100 SXM data sheet): f32 outside the tensor cores,
 # dense bf16 on the tensor cores, and HBM3 bandwidth. The bound of a float32
@@ -424,6 +456,35 @@ def check_layer_backward(ph, backbone, batch, dt, seed=5):
              f"shapes ({x.shape[0]} sequences of {x.shape[1]}, valid_len {min(valid.tolist())}"
              f"..{max(valid.tolist())}), FusedEncoderBlock against the plain backward chain: "
              f"{what}; dx zero on the zero-filled tiles: {tail_zero}")
+
+
+def chain_launches(runs: int) -> dict:
+    """The launches of each layer-chain kernel in ``runs`` layer runs of a
+    train path: teacher forward, student forward with the save outputs,
+    student backward with its three recomputes."""
+    return {"ln_linear_fwd": 3 * runs, "prefix_attention_fwd": 2 * runs,
+            "linear_relu_fwd": 3 * runs, "linear_residual_ln_fwd": 5 * runs,
+            "prefix_attention_bwd": runs, "layernorm_bwd": 3 * runs, "linear_dgrad": 4 * runs,
+            "linear_wgrad": 4 * runs}
+
+
+def span_recording(build, spans: list):
+    """``build`` (build_dino's signature) whose step records each call's
+    device span, a pair of CUDA events, into ``spans``."""
+    import torch
+
+    def timed_build(*args, **kwargs):
+        state, step, model, head = build(*args, **kwargs)
+
+        def timed_step(state_, batch_):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = step(state_, batch_)
+            ev[1].record()
+            spans.append(ev)
+            return out
+        return state, timed_step, model, head
+    return timed_build
 
 
 def entry_cfg(extra):
@@ -1289,10 +1350,7 @@ def main() -> int:
         train_s = time.perf_counter() - t
         launches = read_launches()
         runs = len(backbone.blocks) * TRAIN_STEPS  # layer runs of each model per path
-        per_path = {"ln_linear_fwd": 3 * runs, "prefix_attention_fwd": 2 * runs,
-                    "linear_relu_fwd": 3 * runs, "linear_residual_ln_fwd": 5 * runs,
-                    "prefix_attention_bwd": runs, "layernorm_bwd": 3 * runs,
-                    "linear_dgrad": 4 * runs, "linear_wgrad": 4 * runs}
+        per_path = chain_launches(runs)
         expected = {name: 0 for name in instances}
         expected.update(per_path)
         for name in kernels:  # the slice's main path: what the JSON line reports
@@ -1396,18 +1454,7 @@ def main() -> int:
         # every step's device span: CUDA events around the step the loop builds
         spans = []
         real_build = loop.build_dino
-
-        def timed_build(*args, **kwargs):
-            st_, stp_, m_, h_ = real_build(*args, **kwargs)
-
-            def timed_step(state_, batch_):
-                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-                ev[0].record()
-                out = stp_(state_, batch_)
-                ev[1].record()
-                spans.append(ev)
-                return out
-            return st_, timed_step, m_, h_
+        timed_build = span_recording(real_build, spans)
 
         cfg_a = entry_cfg([f"checkpoint.dir={tmp}/a"])
         ph.check(cfg_a.optimizer.batch_size == 32 and cfg_a.precision == "bf16"
@@ -1432,10 +1479,7 @@ def main() -> int:
         runs = depth * ENTRY_STEPS
         expected = {name: 0 for name in instances}
         expected.update({f"{name}_bf16": n for name, n in {
-            "ln_linear_fwd": 3 * runs, "prefix_attention_fwd": 2 * runs,
-            "linear_relu_fwd": 3 * runs, "linear_residual_ln_fwd": 5 * runs,
-            "prefix_attention_bwd": runs, "layernorm_bwd": 3 * runs, "linear_dgrad": 4 * runs,
-            "linear_wgrad": 4 * runs, "ln_fwd": 2 * ENTRY_STEPS, "ln_bwd": ENTRY_STEPS}.items()})
+            **chain_launches(runs), "ln_fwd": 2 * ENTRY_STEPS, "ln_bwd": ENTRY_STEPS}.items()})
         for name in ("ln_fwd_bf16", "ln_bwd_bf16"):
             stats[name]["launches"] = launches[name]
         logs_a = read_logs(f"{tmp}/a")
@@ -1525,6 +1569,195 @@ def main() -> int:
                           st_x["opt_state"]["momentum"], st_y["opt_state"]["momentum"],
                           spec_x, TRAIN_UPDATE_COS)
         del st_x, st_y
+        torch.cuda.empty_cache()
+
+    # ---- 4d. on-device augmentation -------------------------------------------
+    with Phase("4d on-device augmentation", failures) as ph, \
+            tempfile.TemporaryDirectory() as tmp:
+        from chadavit_tpu_torch import bench, main_pretrain
+        from chadavit_tpu_torch.data import device_augment as da
+        from chadavit_tpu_torch.data import native
+        from chadavit_tpu_torch.data.disk_dataset import generate
+        from chadavit_tpu_torch.train import loop
+        from chadavit_tpu_torch.utils.checkpoint import STATE_FILE
+
+        # (a) the multicrop on the card against the CPU, on the same draws
+        aug_counts = [COUNTS[i % len(COUNTS)] for i in range(AUG_B)]
+        rng = np.random.default_rng(7)
+        raw = rng.integers(0, 256, (AUG_B, 10, 224, 224), dtype=np.uint8)
+        for i, c in enumerate(aug_counts):
+            raw[i, c:] = 0
+        aug_images = torch.from_numpy(raw).to(dev)
+        aug_cc = torch.tensor(aug_counts, dtype=torch.int32, device=dev)
+        aug_fns = {}
+        for dt in (torch.float32, bf16):
+            fn = da.make_multicrop_fn(bench.ASYMMETRIC_AUGS, dtype=dt)  # device None: the card
+            fn_cpu = da.make_multicrop_fn(bench.ASYMMETRIC_AUGS, dtype=dt, device="cpu")
+            aug_fns[dt] = fn
+            gen = torch.Generator(device=dev).manual_seed(11)
+            draws = [pipe.draw(gen, AUG_B, 10, dev) for pipe in fn.pipelines]
+            t = time.perf_counter()
+            out = fn(aug_images, aug_cc, draws=draws)["crops"]
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t
+            ref = fn_cpu(aug_images.cpu(), aug_cc.cpu(), draws=da.draws_to(draws, "cpu"))["crops"]
+            applied = {op: int(sum(v[op]["apply"].sum().item() for v in draws if op in v))
+                       for op in ("color_jitter", "grayscale", "gaussian_blur", "solarization",
+                                  "horizontal_flip")}
+            if dt == torch.float32:
+                err = (out.cpu() - ref).abs().max().item()
+                ok, what = err <= AUG_TOL, f"max abs {err:.3e} (<= {AUG_TOL:g})"
+            else:
+                err, bound, cos = bf16_err(out.cpu(), ref)
+                ok = err <= bound and cos >= BF16_COS
+                what = f"max abs {err:.3e} (<= {bound:.3e}), cosine 1 - {1 - cos:.2e}"
+            pad_zero = all(not out[:, i, c:].any().item() for i, c in enumerate(aug_counts))
+            ph.check(ok and pad_zero and tuple(out.shape) == (2, AUG_B, 10, 224, 224)
+                     and out.dtype == dt,
+                     f"multicrop {dt} on the card ({card_s * 1e3:.1f} ms, first call) against "
+                     f"the CPU on the same draws, {tuple(out.shape)}: {what}; padded planes "
+                     f"exactly zero: {pad_zero}; images each op applied to, over both views: "
+                     f"{applied}")
+            if dt == bf16:
+                step1_draws, step1_crops = draws, out
+            first, again = (fn(aug_images, aug_cc, generator=da.aug_generator(1, 5, dev))["crops"]
+                            for _ in range(2))
+            ph.check(torch.equal(first, again), f"multicrop {dt}: one seed twice, the same bits")
+        del ref, first, again
+
+        # (b) the fused step: raw batches in, the views drawn on the card
+        spec_f = DinoPretrainSpec(dtype=bf16)
+        fstate, fused, fbackbone, _ = build_dino(spec_f,
+                                                 device_augmentations=bench.ASYMMETRIC_AUGS)
+        reset_launches()
+        losses_f = []
+        for i in range(TRAIN_STEPS):
+            fbatch = {"images": aug_images, "channel_counts": aug_cc}
+            if i == 0:
+                fbatch["draws"] = step1_draws
+            else:
+                fbatch["generator"] = da.aug_generator(1, i, dev)
+            fstate, m = fused(fstate, fbatch)
+            losses_f.append(float(m["dino_loss"]))
+            if i == 0:
+                dirs_step1 = [b.clone() for b in fstate.opt_state.momentum]
+        torch.cuda.synchronize()
+        launches = read_launches()
+        runs = len(fbackbone.blocks) * TRAIN_STEPS
+        expected = {name: 0 for name in instances}
+        expected.update({f"{name}_bf16": n for name, n in chain_launches(runs).items()})
+        ph.check(all(math.isfinite(v) for v in losses_f),
+                 f"fused step (bf16, device_augmentations=ASYMMETRIC_AUGS), {TRAIN_STEPS} steps "
+                 f"of B {AUG_B} raw uint8 images: dino_loss {losses_f}, finite")
+        ph.check(launches == expected, f"fused step launches {launches} == expected {expected} "
+                 f"({len(fbackbone.blocks)} layers x {TRAIN_STEPS} steps x (teacher + student))")
+        pstate, pstep, _, _ = build_dino(spec_f)
+        pstate, pm = pstep(pstate, {"crops": step1_crops, "channel_counts": aug_cc})
+        loss_rel = abs(float(pm["dino_loss"]) / losses_f[0] - 1)
+        ph.check(loss_rel <= TRAIN_BF16_LOSS_REL,
+                 f"fused step 1 against the plain build_dino step fed (a)'s bf16 crops: loss "
+                 f"rel {loss_rel:.2e} (<= {TRAIN_BF16_LOSS_REL:g})")
+        check_updates(ph, "fused step 1 against the plain step on (a)'s crops",
+                      [n for n, _ in pstate.trainable()], dirs_step1, pstate.opt_state.momentum,
+                      spec_f, TRAIN_BF16_UPDATE_COS)
+        del fstate, fused, pstate, pstep, dirs_step1, step1_crops
+        torch.cuda.empty_cache()
+
+        # (c) the entry point on dino_idr10k.yaml over the port's generated manifest
+        root = f"{tmp}/idr"
+        t = time.perf_counter()
+        generate(root, IDR_IMAGES, num_classes=7, seed=5, workers=4, image_subdir="")
+        log(f"  wrote {IDR_IMAGES} images with the port's generator in "
+            f"{time.perf_counter() - t:.2f} s; decoder: {native.describe()}")
+
+        def idr_cfg(extra):
+            from chadavit_tpu_torch.cli import apply_overrides
+            from chadavit_tpu_torch.config import load_yaml, parse_pretrain_cfg
+
+            return parse_pretrain_cfg(apply_overrides(load_yaml(str(IDR10K)), [
+                f"data.train_path={root}", f"data.val_path={root}", *IDR_ENTRY, *extra]))
+
+        spans = []
+        real_build = loop.build_dino
+        timed_build = span_recording(real_build, spans)
+
+        cfg_i = idr_cfg([f"checkpoint.dir={tmp}/i"])
+        ph.check(cfg_i.get("device_augmentations") and cfg_i.precision == "bf16"
+                 and cfg_i.optimizer.batch_size == 32 and cfg_i.get("bucket_by_channels"),
+                 f"dino_idr10k.yaml: device_augmentations {cfg_i.get('device_augmentations')}, "
+                 f"precision {cfg_i.precision}, batch {cfg_i.optimizer.batch_size}, "
+                 f"bucket_by_channels {cfg_i.get('bucket_by_channels')}, dataset "
+                 f"{cfg_i.data.dataset}, decode_threads {cfg_i.data.decode_threads}, "
+                 f"cache_decoded {cfg_i.data.cache_decoded}")
+        loop.build_dino = timed_build
+        try:
+            t = time.perf_counter()
+            metrics_i = main_pretrain.main(["--config-path", str(IDR10K.parent), "--config-name",
+                                IDR10K.name, f"data.train_path={root}", f"data.val_path={root}",
+                                *IDR_ENTRY, f"checkpoint.dir={tmp}/i", f"max_steps={ENTRY_STEPS}"])
+            torch.cuda.synchronize()
+            idr_s = time.perf_counter() - t
+        finally:
+            loop.build_dino = real_build
+        logs_i = read_logs(f"{tmp}/i")
+        ph.check(sorted(logs_i) == list(range(1, ENTRY_STEPS + 1))
+                 and all(math.isfinite(logs_i[k]["dino_loss"]) for k in logs_i),
+                 f"(i) main_pretrain on dino_idr10k.yaml, {ENTRY_STEPS} steps: dino_loss "
+                 f"{[logs_i[k]['dino_loss'] for k in sorted(logs_i)]}, finite ({idr_s:.2f} s "
+                 "with set-up)")
+        loader = loop.build_pretrain_loader(cfg_i, seed=5)
+        it = iter(loader)
+        next(it)
+        t = time.perf_counter()
+        n_batches = min(3, len(loader) - 1)
+        for _ in range(n_batches):
+            next(it)
+        loader_ms = 1e3 * (time.perf_counter() - t) / n_batches
+        del it, loader
+        last = logs_i[ENTRY_STEPS]
+        log(f"  dino_idr10k.yaml, bf16, B 32, decoder {native.describe()}: host loader "
+            f"{loader_ms:.1f} ms per batch on its own (first epoch, planes decoded); steps "
+            f"3-{ENTRY_STEPS}: wall {1e3 * last['step_time_s']:.1f} ms per step, data_wait_s "
+            f"{last['data_wait_s']:.6f}; device span of each step (multicrop included) "
+            f"{', '.join(f'{s_.elapsed_time(e_):.1f}' for s_, e_ in spans)} ms ({smi})")
+        cfg_ii = idr_cfg([f"checkpoint.dir={tmp}/ii", f"checkpoint.step_frequency={ENTRY_STOP}"])
+        loop.run_dino_pretrain(cfg_ii, max_steps=ENTRY_STOP)
+        metrics_iii = loop.run_dino_pretrain(cfg_ii, max_steps=ENTRY_STEPS - ENTRY_STOP)
+        logs_iii = read_logs(f"{tmp}/ii")
+        same_logs = all(logs_i[k][key] == logs_iii[k][key]
+                        for k in range(ENTRY_STOP + 1, ENTRY_STEPS + 1) for key in ENTRY_METRICS)
+        state_i, state_iii = (torch.load(final_ckpt(f"{tmp}/{d}") / STATE_FILE, weights_only=True)
+                              for d in ("i", "ii"))
+        diff = differing_entries(state_i, state_iii)
+        ph.check(sorted(logs_iii) == list(range(1, ENTRY_STEPS + 1)) and same_logs
+                 and metrics_iii == metrics_i
+                 and state_iii["step"] == ENTRY_STEPS and not diff,
+                 f"(ii) {ENTRY_STOP} steps + (iii) auto-resume to step {ENTRY_STEPS}: metrics of "
+                 f"steps {ENTRY_STOP + 1}-{ENTRY_STEPS} equal (i)'s bit for bit: {same_logs}; "
+                 f"final train state equal bit for bit: entries that differ {diff[:5]}")
+        del state_i, state_iii
+        torch.cuda.empty_cache()
+
+        # (d) the port's bench, 8 steps, with its disk phase
+        lines = []
+        t = time.perf_counter()
+        bench.run(steps=BENCH_STEPS, repeats=2, disk=True, disk_root=f"{tmp}/bench_disk",
+                  emit=lines.append)
+        rec = json.loads(lines[-1])
+        log(f"  bench ({time.perf_counter() - t:.1f} s): {lines[-1]}")
+        finite_pos = all(isinstance(rec.get(k), (int, float)) and math.isfinite(rec[k])
+                         and rec[k] > 0 for k in ("value", "device_img_s_per_chip",
+                                                  "disk_wall_img_s_per_chip",
+                                                  "disk_decode_planes_per_s"))
+        ph.check(finite_pos and 0 < rec["mfu"] <= 1 and 0 < rec["device_busy_share"] <= 1
+                 and rec["metric"] == "dino_pretrain_images_per_sec_per_chip"
+                 and len(lines) == 3,
+                 f"bench at {BENCH_STEPS} steps: {len(lines)} JSON lines, the last parses: value "
+                 f"{rec.get('value')} img/s, device {rec.get('device_img_s_per_chip')} img/s, "
+                 f"mfu {rec.get('mfu')}, busy share {rec.get('device_busy_share')}, multicrop "
+                 f"{rec.get('aug_device_ms')} ms a step, disk {rec.get('disk_wall_img_s_per_chip')}"
+                 f" img/s, decode {rec.get('disk_decode_planes_per_s')} planes/s, decoder "
+                 f"{rec.get('decoder')}")
         torch.cuda.empty_cache()
 
     # ---- 5. times -------------------------------------------------------------
@@ -1897,6 +2130,19 @@ def main() -> int:
                     ms = e.self_device_time_total / 1e3
                     log(f"    {ms:9.3f} ms {100 * ms / busy:5.1f} % x{e.count:<5d} "
                         f"#{rank + 1:<3d} {e.key[:90]}")
+        # the multicrop of the bf16 fused step at B 32 (4d's raw batch), its
+        # kernels by the profiler, beside the bf16 step's device time above
+        reps = 10
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                aug_fns[bf16](aug_images, aug_cc, generator=da.aug_generator(1, i, dev))
+            torch.cuda.synchronize()
+        aug_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+        log(f"  multicrop bf16 (ASYMMETRIC_AUGS, 2 views of B {AUG_B} x 10 planes of 224 px, "
+            f"channels {aug_counts[:10]}...): device {aug_ms:.3f} ms per step (profiler, {reps} "
+            f"calls), {100 * aug_ms / busy:.1f} % of the profiled bf16 step's {busy:.2f} ms "
+            f"({smi})")
         _launch.LAUNCHES.clear()
         _launch.LAUNCHES.update(saved)
         ph.check(all(math.isfinite(stats[n]["ms"]) for n in instances),

@@ -191,8 +191,7 @@ def test_other_optimizers_raise(name):
         build_group_tx(name, lambda s: 0.1, 0.0)
 
 
-@pytest.mark.parametrize("kwargs", [dict(mesh=object()), dict(fsdp=True),
-                                    dict(device_augmentations=[{"name": "flip"}])])
+@pytest.mark.parametrize("kwargs", [dict(mesh=object()), dict(fsdp=True)])
 def test_build_dino_options_of_later_slices_raise(kwargs):
     with pytest.raises(NotImplementedError):
         build_dino(DinoPretrainSpec(), device="cpu", **kwargs)

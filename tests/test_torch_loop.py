@@ -95,6 +95,59 @@ def test_resume_equals_the_straight_run_bit_for_bit(tmp_path, monkeypatch, capsy
     _assert_states_equal(sa, sb)
 
 
+def test_device_augmentation_resume_equals_the_straight_run_bit_for_bit(tmp_path, monkeypatch,
+                                                                       capsys):
+    """device_augmentations: true, the raw loader and the views drawn in the
+    step from the step's own generator: an exact-step resume draws the same
+    views, so its metrics and final state equal the straight run's."""
+    monkeypatch.chdir(tmp_path)
+    dev_augs = RESUME + ["device_augmentations=true"]
+    straight = loop.run_dino_pretrain(_cfg(dev_augs + [f"checkpoint.dir={tmp_path}/a"]),
+                                      device="cpu")
+    part = dev_augs + [f"checkpoint.dir={tmp_path}/b", "checkpoint.step_frequency=1"]
+    loop.run_dino_pretrain(_cfg(part), max_steps=2, device="cpu")
+    capsys.readouterr()
+    resumed = loop.run_dino_pretrain(_cfg(part), device="cpu")
+    assert "auto-resumed" in capsys.readouterr().out
+    assert resumed == straight
+    a, b = _logs(_run_dir(tmp_path / "a")), _logs(_run_dir(tmp_path / "b"))
+    assert sorted(a) == sorted(b) == [1, 2, 3, 4]
+    for step in (3, 4):
+        for k in fixture.METRICS:
+            assert a[step][k] == b[step][k], (step, k)
+    sa, sb = _final_state(_run_dir(tmp_path / "a")), _final_state(_run_dir(tmp_path / "b"))
+    assert sa["step"] == sb["step"] == 4
+    _assert_states_equal(sa, sb)
+    # and the views differ from the host multicrop run's: the step drew its own
+    host = loop.run_dino_pretrain(_cfg(RESUME + [f"checkpoint.dir={tmp_path}/h"]), device="cpu")
+    assert host["dino_loss"] != straight["dino_loss"]
+
+
+def test_device_augmentation_step_feeds_raw_planes(tmp_path, monkeypatch):
+    """The loop hands the step the loader's raw planes, unconverted, and a
+    generator of the step's index."""
+    monkeypatch.chdir(tmp_path)  # the metric log lands in the working directory
+    seen = []
+    real = loop.build_dino
+
+    def spy_build(*args, **kwargs):
+        state, step, model, head = real(*args, **kwargs)
+
+        def spy(st, batch):
+            seen.append((batch["images"].dtype, batch["generator"].initial_seed()))
+            return step(st, batch)
+        return state, spy, model, head
+
+    monkeypatch.setattr(loop, "build_dino", spy_build)
+    cfg = _cfg(["data.size=32", "device_augmentations=true", "seed=3"])
+    loop.run_dino_pretrain(cfg, max_steps=2, device="cpu")
+    from chadavit_tpu_torch.data.device_augment import aug_generator
+
+    assert [s for _, s in seen] == [aug_generator(3 + 1, g, "cpu").initial_seed()
+                                    for g in range(2)]
+    assert all(dt == torch.float32 for dt, _ in seen)  # SyntheticChannels' float planes
+
+
 def test_args_json_carries_the_should_match_keys(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     from chadavit_tpu.config import load_yaml as jax_load_yaml
@@ -122,7 +175,6 @@ def test_args_json_carries_the_should_match_keys(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("override, key", [
-    ("device_augmentations=true", "device_augmentations"),
     ("knn_eval={'enabled': True}", "knn_eval"),
     ("auto_umap.enabled=true", "auto_umap"),
     ("model_parallel=2", "model_parallel"),

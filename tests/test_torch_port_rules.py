@@ -1,6 +1,8 @@
 """Rules the port keeps: it imports nothing of JAX or of the JAX package, it
 imports without JAX present, its smoke run refuses a machine without CUDA,
-and only sources are tracked under its package directory."""
+only sources are tracked under its package directory (the CUDA sources and
+one C++ source, the native decoder's), and the decoder builds inside the
+package, never into the JAX package's ``native/``."""
 
 import ast
 import os
@@ -14,6 +16,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "chadavit_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "chadavit_tpu")
 SOURCE_SUFFIXES = {".py", ".cu", ".cuh"}
+CPP_SOURCES = {"chadavit_tpu_torch/native/chadaloader.cpp"}
 
 
 def _port_files():
@@ -73,5 +76,15 @@ def test_only_sources_are_tracked_in_the_package():
         files = [p for p in PKG.rglob("*") if p.is_file()
                  and "_build" not in p.parts and "__pycache__" not in p.parts]
     assert files
-    others = [str(f.relative_to(ROOT)) for f in files if f.suffix not in SOURCE_SUFFIXES]
+    others = [str(f.relative_to(ROOT)) for f in files if f.suffix not in SOURCE_SUFFIXES
+              and str(f.relative_to(ROOT)) not in CPP_SOURCES]
     assert not others, others
+
+
+def test_the_native_decoder_builds_inside_the_package():
+    from chadavit_tpu_torch.data import native
+
+    assert native.SRC.is_file() and native.SRC.is_relative_to(PKG)
+    assert native.BUILD_DIR == PKG / "_build"
+    # git-ignored, so a build never shows as a change
+    assert "chadavit_tpu_torch/_build/" in (ROOT / ".gitignore").read_text().split()
