@@ -7,8 +7,9 @@ path as it trains:
 
 The port's counterpart of the root ``bench.py`` (its spec :139-153,
 ``ASYMMETRIC_AUGS`` :50-64, the timed pass :153-205 and the disk-decode
-phase :445-527). The augmentation runs inside the timed loop; exact-width
-channel buckets (``bucket_round=1``), as in training. Run on the card:
+phase :445-527, the ChAdaViT-B/16 phase :529-598). The augmentation runs
+inside the timed loop; exact-width channel buckets (``bucket_round=1``), as
+in training. Run on the card:
 
     python -m chadavit_tpu_torch.bench
 
@@ -16,7 +17,8 @@ It prints ``bench.py``'s canonical JSON line (``metric``, ``value``,
 ``unit``, ``vs_baseline``, ``mfu``, ...) right after the timed passes, then
 again with the device fields (``device_img_s_per_chip``,
 ``device_busy_share``, ``aug_device_ms``, the card) and, when the disk phase
-runs, once more with its fields: take the last line that parses.
+runs, once more with its fields, and when the B/16 phase runs, once more
+with its fields: take the last line that parses.
 
 - There is no compile to warm: one step per bucket width warms the
   allocator and the libraries' handles, then the best of ``REPEATS`` timed
@@ -41,12 +43,23 @@ runs, once more with its fields: take the last line that parses.
   beforehand (what the loader's threads cost the step beside them), and an
   epoch with the decoded planes cached. The decoder is the native one where
   it builds, else PIL.
+- The B/16 phase (``CHADAVIT_BENCH_B16``, default on) times ChAdaViT-B/16's
+  step (:func:`b16_spec`: D 768, 12 heads, 65 536 prototypes, bf16) on
+  ``CHADAVIT_BENCH_B16_BATCH`` (16) raw uint8 images of 10 channels with the
+  same on-device multicrop: every batch pads to 2048 rows, where the JAX
+  layer, and the port's, take the unfused route (library products around
+  the attention kernels at head width 64). Two steps settle, then
+  ``CHADAVIT_BENCH_B16_STEPS`` (6) steps on the wall and as many under the
+  profiler: ``b16_wall_img_s_per_chip``, ``b16_device_img_s_per_chip`` and
+  ``b16_device_mfu`` (``model_flops_per_image(10, d=768, f=2048)``, 3.213
+  TFLOP an image, against 989 TFLOP/s).
 
 Knobs, as ``bench.py``'s: ``CHADAVIT_BENCH_BATCH`` (32),
 ``CHADAVIT_BENCH_STEPS`` (40), ``CHADAVIT_BENCH_REPEATS`` (5),
-``CHADAVIT_BENCH_DISK``, ``CHADAVIT_BENCH_DISK_ROOT`` and
-``CHADAVIT_BENCH_BUDGET_S`` (540: the disk phase is skipped when less than
-its need is left).
+``CHADAVIT_BENCH_DISK``, ``CHADAVIT_BENCH_DISK_ROOT``, ``CHADAVIT_BENCH_B16``,
+``CHADAVIT_BENCH_B16_BATCH``, ``CHADAVIT_BENCH_B16_STEPS`` and
+``CHADAVIT_BENCH_BUDGET_S`` (540: the disk and B/16 phases are each skipped,
+with the reason printed, when less than their need is left).
 """
 
 from __future__ import annotations
@@ -65,6 +78,8 @@ import torch
 A100_EST_IMG_S = 40.0  # analytic A100 estimate for the torch reference; see BASELINE.md
 H100_PEAK_BF16_FLOPS = 989e12  # dense bf16, NVIDIA H100 SXM data sheet
 AUG_RANGE = "device_augment"  # the profiler range of the step's multicrop
+DISK_NEED_S = 120  # the budget left that the disk phase needs
+B16_NEED_S = 120   # and the B/16 phase
 
 # the canonical 2-view asymmetric recipe
 # (reference scripts/knn/bbbc048/augmentations/asymmetric.yaml)
@@ -109,6 +124,18 @@ def bench_spec(dtype=torch.bfloat16):
         max_epochs=400, warmup_epochs=10, dtype=dtype)
 
 
+def b16_spec(dtype=torch.bfloat16):
+    """The root bench's ChAdaViT-B/16 spec (``bench.py:552-561``)."""
+    from chadavit_tpu_torch.train.pretrain import DinoPretrainSpec
+
+    return DinoPretrainSpec(
+        backbone_kwargs=dict(embed_dim=768, num_heads=12, patch_size=16,
+                             return_all_tokens=False, max_number_channels=10, attn_impl="auto"),
+        img_size=224, max_channels=10, num_prototypes=65536,
+        warmup_teacher_temperature_epochs=50, clip_grad=3.0, steps_per_epoch=100,
+        max_epochs=400, warmup_epochs=10, dtype=dtype)
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     try:
@@ -135,19 +162,61 @@ def _log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
+def run_b16(batch: int = 16, steps: int = 6) -> Dict:
+    """The B/16 phase (module docstring; root ``bench.py:529-598``): its
+    fields of the JSON line. Needs a CUDA device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chadavit_tpu_torch.data.device_augment import aug_generator
+    from chadavit_tpu_torch.train.pretrain import build_dino
+
+    dev = torch.device("cuda")
+    state, step, _, _ = build_dino(b16_spec(), device_augmentations=ASYMMETRIC_AUGS)
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.integers(0, 255, (batch, 10, 224, 224), dtype=np.uint8)).to(dev)
+    counts = torch.full((batch,), 10, dtype=torch.int32, device=dev)
+    counter = [0]  # the generator index of the next step
+
+    def run_steps(n):
+        nonlocal state
+        m = None
+        for _ in range(n):
+            state, m = step(state, {"images": images, "channel_counts": counts,
+                                    "generator": aug_generator(0, counter[0], dev)})
+            counter[0] += 1
+        loss = float(m["dino_loss"])  # waits for the last step
+        torch.cuda.synchronize()
+        if not np.isfinite(loss):
+            raise RuntimeError(f"B/16 dino_loss {loss}")
+
+    run_steps(2)  # settle
+    t0 = time.perf_counter()
+    run_steps(steps)
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_steps(steps)
+    dev_s, _ = device_seconds(prof)
+    if dev_s <= 0:
+        raise RuntimeError("the profiler recorded no device time in the B/16 phase")
+    flops = model_flops_per_image(10, d=768, f=2048) * steps * batch
+    return {"b16_wall_img_s_per_chip": round(steps * batch / wall, 2), "b16_batch": batch,
+            "b16_steps": steps,
+            "b16_device_img_s_per_chip": round(steps * batch / dev_s, 2),
+            "b16_device_mfu": round(flops / dev_s / H100_PEAK_BF16_FLOPS, 4),
+            "b16_step_device_ms": round(1e3 * dev_s / steps, 4)}
+
+
 def run(batch: int = 32, steps: int = 40, repeats: int = 5, disk: bool = True,
-        disk_root: Optional[str] = None, budget_s: float = 540.0,
+        disk_root: Optional[str] = None, budget_s: float = 540.0, b16: bool = True,
+        b16_batch: int = 16, b16_steps: int = 6,
         emit: Callable[[str], None] = print) -> Dict:
     """Time the step as the module docstring says; ``emit`` each JSON line
     and return the last record. Needs a CUDA device."""
     if not torch.cuda.is_available():
         raise RuntimeError("the bench times the card: no CUDA device here")
-    from chadavit_tpu_torch.data import native
-    from chadavit_tpu_torch.data.datasets import IDRCell100K, SyntheticChannels
+    from chadavit_tpu_torch.data.datasets import SyntheticChannels
     from chadavit_tpu_torch.data.device_augment import aug_generator
-    from chadavit_tpu_torch.data.disk_dataset import generate
     from chadavit_tpu_torch.data.pipeline import HostLoader, device_prefetch, to_device
-    from chadavit_tpu_torch.data.transforms import RawResize
     from chadavit_tpu_torch.train.pretrain import build_dino
 
     t_start = time.time()
@@ -237,12 +306,33 @@ def run(batch: int = 32, steps: int = 40, repeats: int = 5, disk: bool = True,
     })
     emit(json.dumps(out))
 
-    # ---- the disk phase: the same step fed from per-channel PNG files
-    if not disk:
-        return out
-    if time.time() - t_start > budget_s - 120:
-        _log(f"disk phase skipped: {budget_s - (time.time() - t_start):.0f} s of the budget left")
-        return out
+    def budget_left(phase: str, need: float) -> bool:
+        left = budget_s - (time.time() - t_start)
+        if left < need:
+            _log(f"{phase} phase skipped: {left:.0f} s of the budget left, it needs {need:.0f}")
+        return left >= need
+
+    if disk and budget_left("disk", DISK_NEED_S):
+        out.update(_disk_phase(batch, steps, repeats, disk_root, timed_pass))
+        emit(json.dumps(out))
+    # ---- the B/16 phase: ChAdaViT-B/16's step at width 10
+    if b16 and budget_left("B/16", B16_NEED_S):
+        del state, step
+        torch.cuda.empty_cache()
+        out.update(run_b16(b16_batch, b16_steps))
+        emit(json.dumps(out))
+    return out
+
+
+def _disk_phase(batch, steps, repeats, disk_root, timed_pass) -> Dict:
+    """The disk phase (module docstring): its fields of the JSON line."""
+    from chadavit_tpu_torch.data import native
+    from chadavit_tpu_torch.data.datasets import IDRCell100K
+    from chadavit_tpu_torch.data.disk_dataset import generate
+    from chadavit_tpu_torch.data.pipeline import HostLoader
+    from chadavit_tpu_torch.data.transforms import RawResize
+
+    out = {}
     root = disk_root or os.path.join(tempfile.gettempdir(), "chadavit_torch_disk_bench_v1")
     n_disk = (steps + 10) * batch
     have = 0
@@ -303,7 +393,6 @@ def run(batch: int = 32, steps: int = 40, repeats: int = 5, disk: bool = True,
         out["disk_cached_img_s_per_chip"] = round(n_i / (time.perf_counter() - t0), 2)
         _log(f"disk cached epoch: {out['disk_cached_img_s_per_chip']} img/s "
              f"(cache {cache.bytes / 2**20:.0f} MiB)")
-    emit(json.dumps(out))
     return out
 
 
@@ -316,7 +405,10 @@ def main() -> int:
     run(batch=int(env("CHADAVIT_BENCH_BATCH", 32)), steps=int(env("CHADAVIT_BENCH_STEPS", 40)),
         repeats=int(env("CHADAVIT_BENCH_REPEATS", 5)),
         disk=env("CHADAVIT_BENCH_DISK", "1") != "0", disk_root=env("CHADAVIT_BENCH_DISK_ROOT"),
-        budget_s=float(env("CHADAVIT_BENCH_BUDGET_S", 540)))
+        budget_s=float(env("CHADAVIT_BENCH_BUDGET_S", 540)),
+        b16=env("CHADAVIT_BENCH_B16", "1") != "0",
+        b16_batch=int(env("CHADAVIT_BENCH_B16_BATCH", 16)),
+        b16_steps=int(env("CHADAVIT_BENCH_B16_STEPS", 6)))
     return 0
 
 

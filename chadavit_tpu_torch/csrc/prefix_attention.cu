@@ -29,13 +29,15 @@
 // - P goes through shared memory only within its warp (a thread's score
 //   columns are not its output columns): the warp's P[key][query], then the
 //   second product acc += P V over the tile's 64 keys, a thread's 4 queries x
-//   12 head columns (4 reads of 16 bytes for 48 FMAs, sgemm::outer);
+//   HD / 8 head columns (at HD 96, 4 reads of 16 bytes for 48 FMAs;
+//   sgemm::outer);
 // - the key and value tiles come through a two-slot cp.async ring in turns,
 //   K of tile t, then V of tile t, then K of tile t + 1: each is in flight
 //   while the one before it is multiplied, one barrier a tile each. The
 //   block's own Q tile joins the first copy group, and each warp scales its
-//   16 rows in place once they have landed. Q 25.6 KB, the ring 51.2 KB and
-//   the warps' P 20.5 KB make 95 KB of shared memory: two blocks an SM;
+//   16 rows in place once they have landed. At HD 96, Q 25.6 KB, the ring
+//   51.2 KB and the warps' P 20.5 KB make 95 KB of shared memory: two blocks
+//   an SM (at HD 64, 73 KB);
 // - the blocks take the images longest first: block (tile, head, p) works
 //   on the image of rank p by decreasing valid_len (ties by index), which
 //   every warp ranks itself from valid_len (batches of at most ORDER_MAX
@@ -67,6 +69,12 @@
 // q, k, v and out are float32, so nothing rounds where the JAX kernel's
 // dtype-generic body (flash_attention.py:103-138) casts to the input dtype.
 //
+// The kernel is a template on the head width HD, built for 96 (ChAdaViT-moyen)
+// and 64 (ChAdaViT-B/16, D 768 in 12 heads): one launch covers every head, as
+// the grid's y; the JAX kernel's walk over groups of at most 384 lanes
+// (flash_attention.py:29, :275) bounds its VMEM and is not part of the
+// function, so it has no counterpart here.
+//
 // Plain C interface (loaded with ctypes); the launcher returns
 // cudaGetLastError() so that the Python wrapper can raise on a refused launch.
 
@@ -85,14 +93,18 @@ constexpr int LDP = 16 + 4;         // a key's row of a warp's P: its 16 queries
 constexpr int P_F = BT * LDP;       // floats of a warp's P
 constexpr int STAGES = 2;           // the ring's slots, K and V in turns
 constexpr int ORDER_MAX = 64;       // the most images a block ranks
-constexpr int SMEM = (TILE_F + STAGES * TILE_F + WARPS * P_F) * (int)sizeof(float);
+template <int HD>
+constexpr int SMEM = (TILE_F<HD> + STAGES * TILE_F<HD> + WARPS * P_F) * (int)sizeof(float);
 #ifndef ATTN_FWD_SPLIT
 #define ATTN_FWD_SPLIT 1
 #endif
 constexpr int SPLIT = ATTN_FWD_SPLIT;  // blocks a cluster, each a share of the key walk (2: the bench's)
-constexpr int PART = 4 + 4 + 4 * 12;   // a thread's m, l and acc, handed between them
+template <int HD>
+constexpr int PART = 4 + 4 + 4 * (HD / 8);  // a thread's m, l and acc, handed between them
 static_assert(SPLIT == 1 || SPLIT == 2, "one block, or two splitting the walk");
-static_assert(PART * THREADS <= STAGES * TILE_F, "the partials fit the ring");
+static_assert(PART<64> * THREADS <= STAGES * TILE_F<64> &&
+                  PART<96> * THREADS <= STAGES * TILE_F<96>,
+              "the partials fit the ring");
 
 // The image of rank p when the batch's images are taken by decreasing
 // valid_len, ties by index. Every lane of the warp takes part and gets it.
@@ -122,9 +134,10 @@ __device__ __forceinline__ int image_of_rank(const int* __restrict__ valid_len, 
 }
 
 // q, k, v: rows of `ld` elements, image b's rows start at b * s_pad; head h
-// occupies columns [h * HEAD_DIM, (h + 1) * HEAD_DIM). out: rows of `ldo`
-// elements, the same row layout. Grid (s_pad / BT * SPLIT, heads, B) in
-// clusters of (SPLIT, 1, 1).
+// occupies columns [h * HD, (h + 1) * HD). out: rows of `ldo` elements, the
+// same row layout. Grid (s_pad / BT * SPLIT, heads, B) in clusters of
+// (SPLIT, 1, 1).
+template <int HD>
 __global__ void __launch_bounds__(THREADS, 2)
 prefix_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, int ld,
@@ -138,10 +151,10 @@ prefix_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   const int vl = min(max(valid_len[b], 0), s_pad);  // a bad length cannot read past the image
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t row0 = (size_t)b * s_pad;
-  float* o = out + (row0 + q0) * ldo + h * HEAD_DIM;
+  float* o = out + (row0 + q0) * ldo + h * HD;
   // lse of (image b, head h, row q) at lse[(b * heads + h) * s_pad + q]
   float* lse_row = lse == nullptr ? nullptr : lse + ((size_t)b * heads + h) * s_pad + q0;
-  constexpr int V4 = HEAD_DIM / 4;  // groups of four per head row
+  constexpr int V4 = HD / 4, LD = LDH<HD>, TF = TILE_F<HD>;  // V4: groups of four per head row
 
   if (q0 >= vl) {  // uniform across the cluster, before any barrier
     if (rank != 0) return;
@@ -153,9 +166,9 @@ prefix_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                                 // (BT, LDH), scaled in place
-  float* ring = Qs + TILE_F;                        // STAGES slots of (BT, LDH)
-  float* Pw = ring + STAGES * TILE_F + warp * P_F;  // this warp's P[key][query]
+  float* Qs = smem;                             // (BT, LDH), scaled in place
+  float* ring = Qs + TF;                        // STAGES slots of (BT, LDH)
+  float* Pw = ring + STAGES * TF + warp * P_F;  // this warp's P[key][query]
   // the thread's queries r .. r + 3 (of the scores and of the output); its
   // keys kg + 8 j of a tile; its head columns 4 kg + 32 jj + {0..3}
   const int rg = lane >> 3, kg = lane & 7, r = 16 * warp + 4 * rg;
@@ -163,14 +176,13 @@ prefix_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   // the block's share of the key tiles: [t0, t1) of the nt below valid_len
   const int nt = (vl + BT - 1) / BT, share = (nt + SPLIT - 1) / SPLIT;
   const int t0 = rank * share, t1 = min(nt, t0 + share);
-  copy_tile<THREADS>(Qs, q + (row0 + q0) * ld + h * HEAD_DIM, ld);  // with the first K tile's copies
+  copy_tile<THREADS, HD>(Qs, q + (row0 + q0) * ld + h * HD, ld);  // with the first K tile's copies
   auto load = [&](int s, int slot) {  // K of tile t0 + s / 2 (s even) or its V (s odd)
-    copy_tile<THREADS>(ring + slot * TILE_F,
-                       (s & 1 ? v : k) + (row0 + (size_t)(t0 + (s >> 1)) * BT) * ld +
-                           h * HEAD_DIM,
-                       ld);
+    copy_tile<THREADS, HD>(ring + slot * TF,
+                           (s & 1 ? v : k) + (row0 + (size_t)(t0 + (s >> 1)) * BT) * ld + h * HD,
+                           ld);
   };
-  float acc[4][12] = {};
+  float acc[4][HD / 8] = {};
   float m[4], l[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -179,10 +191,10 @@ prefix_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 
   sgemm::ring<STAGES>(2 * max(t1 - t0, 0), load, [&](int s, int slot) {
-    const float* st = ring + slot * TILE_F;
+    const float* st = ring + slot * TF;
     if (s == 0) {  // the warp's 16 rows of q have landed: qs = q qscale, once
       for (int c = lane; c < 16 * V4; c += 32) {
-        float* p = Qs + (16 * warp + c / V4) * LDH + c % V4 * 4;
+        float* p = Qs + (16 * warp + c / V4) * LD + c % V4 * 4;
         const float4 t = load4(p);
         *reinterpret_cast<float4*>(p) =
             make_float4(t.x * qscale, t.y * qscale, t.z * qscale, t.w * qscale);
@@ -192,7 +204,7 @@ prefix_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
     if ((s & 1) == 0) {  // K of tile s / 2: the scores, the softmax, P
       const int k0 = (t0 + (s >> 1)) * BT;
       float sc[4][8];
-      scores(sc, Qs, r, st, kg);
+      scores<HD>(sc, Qs, r, st, kg);
       // the first key of a share is valid, so each row's max is finite from
       // the share's first tile on
 #pragma unroll
@@ -219,7 +231,7 @@ prefix_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
         for (int off = 1; off < 8; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
         l[i] = l[i] * alpha + sum;
 #pragma unroll
-        for (int j = 0; j < 12; ++j) acc[i][j] *= alpha;
+        for (int j = 0; j < HD / 8; ++j) acc[i][j] *= alpha;
       }
       // the warp's P of the tile before last was read before the ring's barrier
 #pragma unroll
@@ -227,7 +239,7 @@ prefix_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
         *reinterpret_cast<float4*>(Pw + (kg + 8 * j) * LDP + 4 * rg) =
             make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
     } else {  // V of tile s / 2: acc += P V (the ring's barrier put P in place)
-      second_product<LDP>(acc, Pw, 4 * rg, st, kg);
+      second_product<LDP, HD>(acc, Pw, 4 * rg, st, kg);
     }
   });
 
@@ -240,7 +252,7 @@ prefix_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
         part[i * THREADS + tid] = m[i];
         part[(4 + i) * THREADS + tid] = l[i];
 #pragma unroll
-        for (int j = 0; j < 12; ++j) part[(8 + 12 * i + j) * THREADS + tid] = acc[i][j];
+        for (int j = 0; j < HD / 8; ++j) part[(8 + HD / 8 * i + j) * THREADS + tid] = acc[i][j];
       }
     }
     cg::this_cluster().sync();  // block 1's share is in place
@@ -254,8 +266,8 @@ prefix_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
         l[i] = l[i] * a0 + other[(4 + i) * THREADS + tid] * a1;
         m[i] = mt;
 #pragma unroll
-        for (int j = 0; j < 12; ++j)
-          acc[i][j] = acc[i][j] * a0 + other[(8 + 12 * i + j) * THREADS + tid] * a1;
+        for (int j = 0; j < HD / 8; ++j)
+          acc[i][j] = acc[i][j] * a0 + other[(8 + HD / 8 * i + j) * THREADS + tid] * a1;
       }
     }
     cg::this_cluster().sync();  // block 1's share stays until read
@@ -266,7 +278,7 @@ prefix_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   for (int i = 0; i < 4; ++i) {
     const float inv = 1.f / l[i];
 #pragma unroll
-    for (int jj = 0; jj < 3; ++jj)
+    for (int jj = 0; jj < HD / 32; ++jj)
       *reinterpret_cast<float4*>(o + (size_t)(r + i) * ldo + 4 * kg + 32 * jj) =
           make_float4(acc[i][4 * jj] * inv, acc[i][4 * jj + 1] * inv, acc[i][4 * jj + 2] * inv,
                       acc[i][4 * jj + 3] * inv);
@@ -279,24 +291,21 @@ prefix_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+template <int HD>
 int launch(const float* q, const float* k, const float* v, int ld, const int* valid_len,
-           float* out, int ldo, float* lse, int batch, int heads, int head_dim,
-           int s_pad, float qscale, cudaStream_t st) {
-  if (batch <= 0 || heads <= 0 || head_dim != HEAD_DIM || s_pad <= 0 || s_pad % BT != 0 ||
-      ld % 4 != 0 || ldo % 4 != 0 || !aligned16(q) || !aligned16(k) || !aligned16(v) ||
-      !aligned16(out))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(prefix_attention_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+           float* out, int ldo, float* lse, int batch, int heads, int s_pad, float qscale,
+           cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(prefix_attention_kernel<HD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM<HD>);
   if (e != cudaSuccess) return (int)e;
   if constexpr (SPLIT == 1) {
-    prefix_attention_kernel<<<dim3(s_pad / BT, heads, batch), THREADS, SMEM, st>>>(
+    prefix_attention_kernel<HD><<<dim3(s_pad / BT, heads, batch), THREADS, SMEM<HD>, st>>>(
         q, k, v, ld, valid_len, out, ldo, lse, s_pad, qscale);
   } else {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(s_pad / BT * SPLIT, heads, batch);
     cfg.blockDim = dim3(THREADS);
-    cfg.dynamicSmemBytes = SMEM;
+    cfg.dynamicSmemBytes = SMEM<HD>;
     cfg.stream = st;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -305,8 +314,8 @@ int launch(const float* q, const float* k, const float* v, int ld, const int* va
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    e = cudaLaunchKernelEx(&cfg, prefix_attention_kernel, q, k, v, ld, valid_len, out, ldo, lse,
-                           s_pad, qscale);
+    e = cudaLaunchKernelEx(&cfg, prefix_attention_kernel<HD>, q, k, v, ld, valid_len, out, ldo,
+                           lse, s_pad, qscale);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
@@ -319,15 +328,21 @@ extern "C" {
 // q, k, v: (batch * s_pad) rows of ld elements (they may be column slices of
 // one packed qkv buffer); out: (batch * s_pad) rows of ldo elements. lse, when
 // not null: (batch, heads, s_pad) f32, the base-2 log-sum-exp of each query
-// row. valid_len is clamped to [0, s_pad]. head_dim must be 96; ld and ldo are
-// multiples of 4 and q, k, v and out are 16-byte aligned (the 16-byte copies
-// and stores). qscale = log2(e) / sqrt(96).
+// row. valid_len is clamped to [0, s_pad]. head_dim is 64 or 96 (any other
+// is refused); ld and ldo are multiples of 4 and q, k, v and out are 16-byte
+// aligned (the 16-byte copies and stores). qscale = log2(e) / sqrt(head_dim).
 int prefix_attention_fwd(const float* q, const float* k, const float* v, int ld,
                          const int* valid_len, float* out, int ldo, float* lse,
                          int batch, int heads, int head_dim, int s_pad,
                          float qscale, void* stream) {
-  return launch(q, k, v, ld, valid_len, out, ldo, lse, batch, heads, head_dim, s_pad, qscale,
-                static_cast<cudaStream_t>(stream));
+  if (batch <= 0 || heads <= 0 || !built_head_dim(head_dim) || s_pad <= 0 || s_pad % BT != 0 ||
+      ld % 4 != 0 || ldo % 4 != 0 || !aligned16(q) || !aligned16(k) || !aligned16(v) ||
+      !aligned16(out))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return head_dim == 64
+             ? launch<64>(q, k, v, ld, valid_len, out, ldo, lse, batch, heads, s_pad, qscale, st)
+             : launch<96>(q, k, v, ld, valid_len, out, ldo, lse, batch, heads, s_pad, qscale, st);
 }
 
 }  // extern "C"

@@ -35,7 +35,7 @@
 //   through a two-slot ring of 16-byte cp.async copies (sgemm_f32.cuh), one
 //   barrier a tile, the next tile in flight while this one is multiplied; the
 //   block's own tiles (K and V; qs, dO, lse and delta) join the first copy
-//   group. Head rows are staged as they lie, d contiguous, padded to 100
+//   group. Head rows are staged as they lie, d contiguous, padded to HD + 4
 //   floats so that the 8 rows a quarter warp reads lie in distinct banks
 //   (attention_f32.cuh: the tiles and products the forward shares);
 // - the 8 warps pair up: warp w < 4 computes the scores S (K qs^T in dkdv, qs
@@ -46,13 +46,14 @@
 //   past valid_len) into shared memory and hands it to warp w + 4 through a
 //   named barrier of the two warps; warp w + 4 forms dS = P (dP - delta);
 // - the second products read P or dS a float4 of 4 rows at a time and dO, qs
-//   or K three float4 of 12 head columns (sgemm::outer: 4 reads for 48
-//   FMAs): in dkdv warp w sums dV += P^T dO and warp w + 4 dK += dS^T qs, in
+//   or K HD / 32 float4 of HD / 8 head columns (sgemm::outer; at HD 96, 4
+//   reads for 48 FMAs): in dkdv warp w sums dV += P^T dO and warp w + 4 dK += dS^T qs, in
 //   dq warp w + 4 sums dq += dS K; each warp reads only the P or dS rows that
 //   it wrote itself;
 // - one block an SM: K and V (or qs and dO) stay resident, and with the ring
-//   and P and dS a block takes 185 KB of shared memory. Two blocks an SM
-//   would leave room for no ring at all (one stage alone is 137 KB);
+//   and P and dS a block takes 185 KB of shared memory at HD 96 (140 KB at
+//   HD 64). Two blocks an SM would leave room for no ring at all (one stage
+//   alone is 137 KB at HD 96);
 // - the blocks take the images longest first: the prep pass writes the
 //   images' order by decreasing valid_len, and blocks 2 i and 2 i + 1 take
 //   the dk/dv and the dq of the i-th item of that order (image, head, tile),
@@ -75,6 +76,11 @@
 // q, k, v, o, do and the gradients are float32, so nothing rounds where the
 // JAX body (dtype-generic, flash_attention.py:157-230) casts to the input
 // dtype.
+//
+// Every kernel is a template on the head width HD, built for 96
+// (ChAdaViT-moyen) and 64 (ChAdaViT-B/16, D 768 in 12 heads); every head is
+// in one launch, with no counterpart of the JAX kernel's walk over groups of
+// at most 384 lanes (a bound of its VMEM, not part of the function).
 
 #include <math.h>
 
@@ -90,11 +96,12 @@ constexpr float INV_LOG2E = 0.6931471805599453f;
 
 // The prep pass. delta[(b * heads + h) * s_pad + r] = rowsum over head h of
 // do * o, 0 on the query tiles wholly past the prefix; qs = q qscale (rows of
-// heads * HEAD_DIM); one warp per (row, head), grid (B * s_pad * heads / 8).
+// heads * HD); one warp per (row, head), grid (B * s_pad * heads / 8).
 // Block 0 also writes order: the images by decreasing valid_len, ties by
 // index, the order in which attention_bwd_kernel takes them (in index
 // order when ATTN_BWD_IN_ORDER is defined: scripts/bench_attention_f32.py
 // times what the order is worth).
+template <int HD>
 __global__ void __launch_bounds__(PREP_THREADS)
 attention_bwd_prep_kernel(const float* __restrict__ q, int ld, const float* __restrict__ o,
                           const float* __restrict__ dout, int ldo,
@@ -120,23 +127,24 @@ attention_bwd_prep_kernel(const float* __restrict__ q, int ld, const float* __re
   const int r = row - b * s_pad;
   float s = 0.f;
   if (r / BT * BT < valid_len[b]) {  // a query tile the forward computed
-    const size_t off = (size_t)row * ldo + h * HEAD_DIM;
+    const size_t off = (size_t)row * ldo + h * HD;
 #pragma unroll
-    for (int j = 0; j < HEAD_DIM / 32; ++j)
+    for (int j = 0; j < HD / 32; ++j)
       s += dout[off + lane + 32 * j] * o[off + lane + 32 * j];
   }
 #pragma unroll
   for (int w = 16; w > 0; w >>= 1) s += __shfl_xor_sync(0xffffffffu, s, w);
   if (lane == 0) delta[((size_t)b * heads + h) * s_pad + r] = s;
-  const float* qr = q + (size_t)row * ld + h * HEAD_DIM;
-  float* qsr = qs + (size_t)row * heads * HEAD_DIM + h * HEAD_DIM;
+  const float* qr = q + (size_t)row * ld + h * HD;
+  float* qsr = qs + (size_t)row * heads * HD + h * HD;
 #pragma unroll
-  for (int j = 0; j < HEAD_DIM / 32; ++j) qsr[lane + 32 * j] = qr[lane + 32 * j] * qscale;
+  for (int j = 0; j < HD / 32; ++j) qsr[lane + 32 * j] = qr[lane + 32 * j] * qscale;
 }
 
 // BT rows of a head, of row stride ld, set to zero
+template <int HD>
 __device__ __forceinline__ void zero_rows(float* dst, int ld) {
-  constexpr int V4 = HEAD_DIM / 4;
+  constexpr int V4 = HD / 4;
   for (int c = threadIdx.x; c < BT * V4; c += THREADS)
     *reinterpret_cast<float4*>(dst + (size_t)(c / V4) * ld + c % V4 * 4) =
         make_float4(0.f, 0.f, 0.f, 0.f);
@@ -156,13 +164,14 @@ struct Item {
   int b, h, t0;
 };
 
-// the thread's 4 rows x 12 head columns of acc times mul into dst (rows of ld)
+// the thread's 4 rows x HD / 8 head columns of acc times mul into dst (rows of ld)
+template <int HD>
 __device__ __forceinline__ void store_rows(float* dst, int ld, int r, int c,
-                                           const float (&acc)[4][12], float mul) {
+                                           const float (&acc)[4][HD / 8], float mul) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int jj = 0; jj < 3; ++jj)
+    for (int jj = 0; jj < HD / 32; ++jj)
       *reinterpret_cast<float4*>(dst + (size_t)(r + i) * ld + 4 * c + 32 * jj) =
           make_float4(acc[i][4 * jj] * mul, acc[i][4 * jj + 1] * mul, acc[i][4 * jj + 2] * mul,
                       acc[i][4 * jj + 3] * mul);
@@ -171,9 +180,13 @@ __device__ __forceinline__ void store_rows(float* dst, int ld, int r, int c,
 // dk and dv of BT keys of one head.
 // Shared memory: K, V (resident), then the ring's STAGES slots of (qs, dO,
 // lse, delta) of a query tile, then P and dS (queries x keys).
-constexpr int DKDV_STAGE = 2 * TILE_F + 2 * BT;
-constexpr int DKDV_SMEM = (2 * TILE_F + STAGES * DKDV_STAGE + 2 * BT * LDP) * (int)sizeof(float);
+template <int HD>
+constexpr int DKDV_STAGE = 2 * TILE_F<HD> + 2 * BT;
+template <int HD>
+constexpr int DKDV_SMEM =
+    (2 * TILE_F<HD> + STAGES * DKDV_STAGE<HD> + 2 * BT * LDP) * (int)sizeof(float);
 
+template <int HD>
 __device__ __forceinline__ void dkdv_block(Item it, float* smem, const float* __restrict__ qs,
                                            const float* __restrict__ k,
                                            const float* __restrict__ v, int ld,
@@ -182,21 +195,22 @@ __device__ __forceinline__ void dkdv_block(Item it, float* smem, const float* __
                                            const float* __restrict__ delta, int vl,
                                            float* __restrict__ dk, float* __restrict__ dv,
                                            int ldg, int heads, int s_pad) {
+  constexpr int TF = TILE_F<HD>, STAGE = DKDV_STAGE<HD>;
   const int b = it.b, h = it.h, k0 = it.t0;
   const size_t row0 = (size_t)b * s_pad;
-  float* dkb = dk + (row0 + k0) * ldg + h * HEAD_DIM;
-  float* dvb = dv + (row0 + k0) * ldg + h * HEAD_DIM;
+  float* dkb = dk + (row0 + k0) * ldg + h * HD;
+  float* dvb = dv + (row0 + k0) * ldg + h * HD;
   if (k0 >= vl) {  // uniform across the block, before any barrier
-    zero_rows(dkb, ldg);
-    zero_rows(dvb, ldg);
+    zero_rows<HD>(dkb, ldg);
+    zero_rows<HD>(dvb, ldg);
     return;
   }
   float* Ks = smem;
-  float* Vs = Ks + TILE_F;
-  float* ring = Vs + TILE_F;
-  float* Ps = ring + STAGES * DKDV_STAGE;  // P[query][key]
-  float* dSs = Ps + BT * LDP;             // dS[query][key]
-  const int ldq = heads * HEAD_DIM;
+  float* Vs = Ks + TF;
+  float* ring = Vs + TF;
+  float* Ps = ring + STAGES * STAGE;  // P[query][key]
+  float* dSs = Ps + BT * LDP;         // dS[query][key]
+  const int ldq = heads * HD;
   const float* lse_h = lse + ((size_t)b * heads + h) * s_pad;
   const float* delta_h = delta + ((size_t)b * heads + h) * s_pad;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -206,30 +220,30 @@ __device__ __forceinline__ void dkdv_block(Item it, float* smem, const float* __
   const int role = warp >> 2, pair = warp & 3;
   const int kr = 16 * pair + 4 * (lane >> 3), qg = lane & 7;
 
-  copy_tile<THREADS>(Ks, k + (row0 + k0) * ld + h * HEAD_DIM, ld);  // with query tile 0's copies
-  copy_tile<THREADS>(Vs, v + (row0 + k0) * ld + h * HEAD_DIM, ld);
+  copy_tile<THREADS, HD>(Ks, k + (row0 + k0) * ld + h * HD, ld);  // with query tile 0's copies
+  copy_tile<THREADS, HD>(Vs, v + (row0 + k0) * ld + h * HD, ld);
   auto load = [&](int s, int slot) {
-    float* st = ring + slot * DKDV_STAGE;
-    copy_tile<THREADS>(st, qs + (row0 + s * BT) * ldq + h * HEAD_DIM, ldq);
-    copy_tile<THREADS>(st + TILE_F, dout + (row0 + s * BT) * ldo + h * HEAD_DIM, ldo);
+    float* st = ring + slot * STAGE;
+    copy_tile<THREADS, HD>(st, qs + (row0 + s * BT) * ldq + h * HD, ldq);
+    copy_tile<THREADS, HD>(st + TF, dout + (row0 + s * BT) * ldo + h * HD, ldo);
     if (tid < 2 * BT / 4)  // 64 lse, then 64 delta
-      sgemm::cp_async_16(st + 2 * TILE_F + 4 * tid,
+      sgemm::cp_async_16(st + 2 * TF + 4 * tid,
                          (tid < BT / 4 ? lse_h : delta_h - BT) + s * BT + 4 * tid);
   };
-  float acc[4][12];
+  float acc[4][HD / 8];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 12; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < HD / 8; ++j) acc[i][j] = 0.f;
 
   // every query tile the forward computed, all 64 rows of it
   sgemm::ring<STAGES>((vl + BT - 1) / BT, load, [&](int, int slot) {
-    const float* st = ring + slot * DKDV_STAGE;
-    const float* lse_s = st + 2 * TILE_F;
+    const float* st = ring + slot * STAGE;
+    const float* lse_s = st + 2 * TF;
     const float* delta_s = lse_s + BT;
     // S^T = K qs^T (role 0) or dP^T = V dO^T (role 1), keys x queries
     float sc[4][8];
-    scores(sc, role == 0 ? Ks : Vs, kr, st + role * TILE_F, qg);
+    scores<HD>(sc, role == 0 ? Ks : Vs, kr, st + role * TF, qg);
     if (role == 0) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -242,7 +256,7 @@ __device__ __forceinline__ void dkdv_block(Item it, float* smem, const float* __
       }
       pair_arrive(pair);  // warp pair + 4 may read them
       __syncwarp();
-      second_product<LDP>(acc, Ps, kr, st + TILE_F, qg);  // dV += P^T dO
+      second_product<LDP, HD>(acc, Ps, kr, st + TF, qg);  // dV += P^T dO
     } else {
       pair_sync(pair);  // P of these keys is in place
 #pragma unroll
@@ -255,19 +269,23 @@ __device__ __forceinline__ void dkdv_block(Item it, float* smem, const float* __
                         p.w * (sc[3][j] - dl));
       }
       __syncwarp();
-      second_product<LDP>(acc, dSs, kr, st, qg);  // dK += dS^T qs
+      second_product<LDP, HD>(acc, dSs, kr, st, qg);  // dK += dS^T qs
     }
   });
-  if (role == 0) store_rows(dvb, ldg, kr, qg, acc, 1.f);
-  else store_rows(dkb, ldg, kr, qg, acc, INV_LOG2E);
+  if (role == 0) store_rows<HD>(dvb, ldg, kr, qg, acc, 1.f);
+  else store_rows<HD>(dkb, ldg, kr, qg, acc, INV_LOG2E);
 }
 
 // dq of BT queries of one head.
 // Shared memory: qs, dO, lse, delta (resident), then the ring's STAGES slots
 // of (K, V) of a key tile, then P and dS (keys x queries).
-constexpr int DQ_STAGE = 2 * TILE_F;
-constexpr int DQ_SMEM = (2 * TILE_F + 2 * BT + STAGES * DQ_STAGE + 2 * BT * LDP) * (int)sizeof(float);
+template <int HD>
+constexpr int DQ_STAGE = 2 * TILE_F<HD>;
+template <int HD>
+constexpr int DQ_SMEM =
+    (2 * TILE_F<HD> + 2 * BT + STAGES * DQ_STAGE<HD> + 2 * BT * LDP) * (int)sizeof(float);
 
+template <int HD>
 __device__ __forceinline__ void dq_block(Item it, float* smem, const float* __restrict__ qs,
                                          const float* __restrict__ k,
                                          const float* __restrict__ v, int ld,
@@ -276,21 +294,22 @@ __device__ __forceinline__ void dq_block(Item it, float* smem, const float* __re
                                          const float* __restrict__ delta, int vl,
                                          float* __restrict__ dq, int ldg, int heads, int s_pad,
                                          float scale) {
+  constexpr int TF = TILE_F<HD>, STAGE = DQ_STAGE<HD>;
   const int b = it.b, h = it.h, q0 = it.t0;
   const size_t row0 = (size_t)b * s_pad;
-  float* dqb = dq + (row0 + q0) * ldg + h * HEAD_DIM;
+  float* dqb = dq + (row0 + q0) * ldg + h * HD;
   if (q0 >= vl) {  // uniform across the block, before any barrier
-    zero_rows(dqb, ldg);
+    zero_rows<HD>(dqb, ldg);
     return;
   }
   float* Qs = smem;
-  float* dOs = Qs + TILE_F;
-  float* lse_s = dOs + TILE_F;
+  float* dOs = Qs + TF;
+  float* lse_s = dOs + TF;
   float* delta_s = lse_s + BT;
   float* ring = delta_s + BT;
-  float* Ps = ring + STAGES * DQ_STAGE;  // P[key][query]
-  float* dSs = Ps + BT * LDP;            // dS[key][query]
-  const int ldq = heads * HEAD_DIM;
+  float* Ps = ring + STAGES * STAGE;  // P[key][query]
+  float* dSs = Ps + BT * LDP;         // dS[key][query]
+  const int ldq = heads * HD;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   // warp w < 4: S, P; warp w + 4: dP, dS, dq; of queries qr .. qr + 3 (and in
   // the scores, of keys kg + 8 j; in dq, of head columns 4 kg + 32 jj + {0..3})
@@ -298,30 +317,30 @@ __device__ __forceinline__ void dq_block(Item it, float* smem, const float* __re
   const int qr = 16 * pair + 4 * (lane >> 3), kg = lane & 7;
 
   // the block's qs, dO, lse and delta, with key tile 0's copies
-  copy_tile<THREADS>(Qs, qs + (row0 + q0) * ldq + h * HEAD_DIM, ldq);
-  copy_tile<THREADS>(dOs, dout + (row0 + q0) * ldo + h * HEAD_DIM, ldo);
+  copy_tile<THREADS, HD>(Qs, qs + (row0 + q0) * ldq + h * HD, ldq);
+  copy_tile<THREADS, HD>(dOs, dout + (row0 + q0) * ldo + h * HD, ldo);
   if (tid < 2 * BT / 4)
     sgemm::cp_async_16(lse_s + 4 * tid,
                        (tid < BT / 4 ? lse : delta - BT) + ((size_t)b * heads + h) * s_pad + q0 +
                            4 * tid);
   auto load = [&](int s, int slot) {
-    float* st = ring + slot * DQ_STAGE;
-    copy_tile<THREADS>(st, k + (row0 + s * BT) * ld + h * HEAD_DIM, ld);
-    copy_tile<THREADS>(st + TILE_F, v + (row0 + s * BT) * ld + h * HEAD_DIM, ld);
+    float* st = ring + slot * STAGE;
+    copy_tile<THREADS, HD>(st, k + (row0 + s * BT) * ld + h * HD, ld);
+    copy_tile<THREADS, HD>(st + TF, v + (row0 + s * BT) * ld + h * HD, ld);
   };
-  float acc[4][12];
+  float acc[4][HD / 8];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 12; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < HD / 8; ++j) acc[i][j] = 0.f;
 
   // every key tile below valid_len
   sgemm::ring<STAGES>((vl + BT - 1) / BT, load, [&](int s, int slot) {
-    const float* st = ring + slot * DQ_STAGE;
+    const float* st = ring + slot * STAGE;
     const int k0 = s * BT;
     // S = qs K^T (role 0) or dP = dO V^T (role 1), queries x keys
     float sc[4][8];
-    scores(sc, role == 0 ? Qs : dOs, qr, st + role * TILE_F, kg);
+    scores<HD>(sc, role == 0 ? Qs : dOs, qr, st + role * TF, kg);
     if (role == 0) {
       float l[4];
 #pragma unroll
@@ -349,17 +368,19 @@ __device__ __forceinline__ void dq_block(Item it, float* smem, const float* __re
                         p.z * (sc[2][j] - dl[2]), p.w * (sc[3][j] - dl[3]));
       }
       __syncwarp();
-      second_product<LDP>(acc, dSs, qr, st, kg);  // dq += dS K
+      second_product<LDP, HD>(acc, dSs, qr, st, kg);  // dq += dS K
     }
   });
-  if (role == 1) store_rows(dqb, ldg, qr, kg, acc, scale);
+  if (role == 1) store_rows<HD>(dqb, ldg, qr, kg, acc, scale);
 }
 
 // dk/dv and dq in one launch, so that each fills the other's tail: blocks
 // 2 i and 2 i + 1 take the dk/dv and the dq of item i of the longest-first
 // order (image, head, tile). Grid (2 * batch * heads * s_pad / BT).
-constexpr int BWD_SMEM = DKDV_SMEM > DQ_SMEM ? DKDV_SMEM : DQ_SMEM;
+template <int HD>
+constexpr int BWD_SMEM = DKDV_SMEM<HD> > DQ_SMEM<HD> ? DKDV_SMEM<HD> : DQ_SMEM<HD>;
 
+template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 attention_bwd_kernel(const float* __restrict__ qs, const float* __restrict__ k,
                      const float* __restrict__ v, int ld, const float* __restrict__ dout,
@@ -372,30 +393,29 @@ attention_bwd_kernel(const float* __restrict__ qs, const float* __restrict__ k,
   const Item it = {order[item / per_image], item % per_image / nt, item % nt * BT};
   const int vl = min(max(valid_len[it.b], 0), s_pad);
   if (blockIdx.x % 2 == 0)
-    dkdv_block(it, smem, qs, k, v, ld, dout, ldo, lse, delta, vl, dk, dv, ldg, heads, s_pad);
+    dkdv_block<HD>(it, smem, qs, k, v, ld, dout, ldo, lse, delta, vl, dk, dv, ldg, heads, s_pad);
   else
-    dq_block(it, smem, qs, k, v, ld, dout, ldo, lse, delta, vl, dq, ldg, heads, s_pad, scale);
+    dq_block<HD>(it, smem, qs, k, v, ld, dout, ldo, lse, delta, vl, dq, ldg, heads, s_pad, scale);
 }
 
+template <int HD>
 int launch(const float* q, const float* k, const float* v, int ld, const float* o, const float* dout,
            int ldo, const float* lse, float* delta, const int* valid_len, float* dq,
-           float* dk, float* dv, int ldg, int batch, int heads, int head_dim, int s_pad,
-           float qscale, float scale, cudaStream_t st) {
-  if (batch <= 0 || heads <= 0 || head_dim != HEAD_DIM || s_pad <= 0 || s_pad % BT != 0 ||
-      ld % 4 != 0 || ldo % 4 != 0 || ldg % 4 != 0)
-    return (int)cudaErrorInvalidValue;
+           float* dk, float* dv, int ldg, int batch, int heads, int s_pad, float qscale,
+           float scale, cudaStream_t st) {
   const int total = batch * s_pad * heads;
   float* qs = delta + (size_t)total;
-  int* order = reinterpret_cast<int*>(qs + (size_t)total * HEAD_DIM);
-  attention_bwd_prep_kernel<<<(total + PREP_THREADS / 32 - 1) / (PREP_THREADS / 32),
-                              PREP_THREADS, 0, st>>>(q, ld, o, dout, ldo, valid_len, delta, qs,
-                                                     order, batch, heads, s_pad, total, qscale);
+  int* order = reinterpret_cast<int*>(qs + (size_t)total * HD);
+  attention_bwd_prep_kernel<HD><<<(total + PREP_THREADS / 32 - 1) / (PREP_THREADS / 32),
+                                  PREP_THREADS, 0, st>>>(q, ld, o, dout, ldo, valid_len, delta,
+                                                         qs, order, batch, heads, s_pad, total,
+                                                         qscale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           BWD_SMEM);
+  e = cudaFuncSetAttribute(attention_bwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           BWD_SMEM<HD>);
   if (e != cudaSuccess) return (int)e;
-  attention_bwd_kernel<<<2 * batch * heads * (s_pad / BT), THREADS, BWD_SMEM, st>>>(
+  attention_bwd_kernel<HD><<<2 * batch * heads * (s_pad / BT), THREADS, BWD_SMEM<HD>, st>>>(
       qs, k, v, ld, dout, ldo, lse, delta, valid_len, order, dq, dk, dv, ldg, heads, s_pad,
       scale);
   return (int)cudaGetLastError();
@@ -409,21 +429,26 @@ extern "C" {
 // one packed qkv buffer); o (the forward's output) and dout: rows of ldo
 // elements; lse: (batch, heads, s_pad) f32, the forward's base-2 lse; delta:
 // scratch of batch * heads * s_pad f32 (delta), followed by batch * s_pad *
-// heads * 96 f32 (the scaled q) and batch int32 (the images' order). dq, dk,
+// heads * head_dim f32 (the scaled q) and batch int32 (the images' order). dq, dk,
 // dv: rows of ldg elements (they may be column slices of one packed dqkv
-// buffer). head_dim must be 96; ld, ldo and ldg are multiples of 4 and every
-// pointer, delta included, is 16-byte aligned (the 16-byte copies).
-// qscale = log2(e) / sqrt(96), scale = 1 / sqrt(96). Two launches: the prep
-// pass, then dk/dv and dq in one.
+// buffer). head_dim is 64 or 96 (any other is refused); ld, ldo and ldg are
+// multiples of 4 and every pointer, delta included, is 16-byte aligned (the
+// 16-byte copies). qscale = log2(e) / sqrt(head_dim), scale = 1 /
+// sqrt(head_dim). Two launches: the prep pass, then dk/dv and dq in one.
 int prefix_attention_bwd(const float* q, const float* k, const float* v, int ld,
                          const float* o, const float* dout, int ldo,
                          const float* lse, float* delta, const int* valid_len,
                          float* dq, float* dk, float* dv, int ldg, int batch,
                          int heads, int head_dim, int s_pad, float qscale,
                          float scale, void* stream) {
-  return launch(q, k, v, ld, o, dout, ldo, lse, delta, valid_len, dq, dk, dv, ldg,
-                batch, heads, head_dim, s_pad, qscale, scale,
-                static_cast<cudaStream_t>(stream));
+  if (batch <= 0 || heads <= 0 || !built_head_dim(head_dim) || s_pad <= 0 || s_pad % BT != 0 ||
+      ld % 4 != 0 || ldo % 4 != 0 || ldg % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return head_dim == 64 ? launch<64>(q, k, v, ld, o, dout, ldo, lse, delta, valid_len, dq, dk,
+                                     dv, ldg, batch, heads, s_pad, qscale, scale, st)
+                        : launch<96>(q, k, v, ld, o, dout, ldo, lse, delta, valid_len, dq, dk,
+                                     dv, ldg, batch, heads, s_pad, qscale, scale, st);
 }
 
 }  // extern "C"

@@ -15,8 +15,12 @@ Parameter names follow the reference torch state-dict layout
 ``blocks.{i}.self_attn.*``, ``blocks.{i}.linear{1,2}``, ``blocks.{i}.norm{1,2}``,
 ``norm``), so a reference checkpoint loads through ``load_state_dict``.
 
-With grad enabled (the DINO student) each layer runs
-``fused_block.FusedEncoderBlock``, whose backward is the layer's kernels; the
+Each layer takes the JAX layer's route (``EncoderLayer``): the fused layer
+where the JAX layer's VMEM gate lets it run its fused kernel
+(``fused_block.jax_layer_fused``: ChAdaViT-moyen always), with grad enabled
+(the DINO student) ``fused_block.FusedEncoderBlock``, whose backward is the
+layer's kernels; elsewhere (ChAdaViT-B/16 on wide sequences) the unfused
+layer, whose attention is the attention kernels with their backward. The
 tokenizer, the pos/channel tokens and the final norm stay plain torch ops with
 autograd, as the JAX package leaves them to XLA. With ``ln_impl="pallas"``
 the final norm, and with ``block_impl="xla"`` also the three LayerNorms of
@@ -107,11 +111,19 @@ class SelfAttentionParams(nn.Module):
 class EncoderLayer(nn.Module):
     """Post-norm encoder layer with the reference's double-norm1 quirk.
 
-    ``block_impl="auto"`` runs :func:`fused_block.fused_encoder_block` unless
-    attention weights are asked for: on CUDA that is the kernel chain, which
-    raises without ``valid_len`` or at widths it is not built for. ``"xla"``
-    forces the unfused plain path, which also returns attention weights and
-    serves CPU calls without ``valid_len``. The layer computes in ``dtype``
+    ``block_impl="auto"`` takes the JAX layer's route
+    (``chadavit_tpu/models/chada_vit.py:186-200``): where
+    :func:`fused_block.jax_layer_fused` says the JAX layer runs its fused
+    kernel (``valid_len`` given, no weights asked, the kernel's VMEM estimate
+    within budget), :func:`fused_block.fused_encoder_block`, on CUDA the
+    kernel chain, which raises ``NotImplementedError`` at widths it is not
+    built for; elsewhere the unfused layer below, as JAX: plain LayerNorms
+    (or the LayerNorm kernels under ``ln_impl="pallas"``), library products
+    for the projections and the FFN, and the attention through
+    :func:`masked_multihead_attention`, on CUDA the attention kernels
+    (``PrefixFlashAttention`` under grad). ``"xla"`` forces the unfused path,
+    which also returns attention weights and serves CPU calls without
+    ``valid_len``. The layer computes in ``dtype``
     (its input is cast to it) with float32 parameters cast at use.
     ``ln_impl`` selects the unfused path's three LayerNorms, as the JAX
     layer's (``chada_vit.py:229-234``): ``"auto"``/``"xla"`` the plain one,
@@ -134,6 +146,7 @@ class EncoderLayer(nn.Module):
         self.dtype = dtype
         self.embed_dim = embed_dim
         self.num_heads = num_heads
+        self.ffn_dim = ffn_dim
         self.layer_norm_eps = layer_norm_eps
         self.block_impl = block_impl
         self.ln_impl = ln_impl
@@ -156,8 +169,9 @@ class EncoderLayer(nn.Module):
                 return_attention: bool = False) -> torch.Tensor:
         eps, dt = self.layer_norm_eps, self.dtype
         x = x.to(dt)
-        if (self.block_impl == "auto" and not return_attention
-                and (valid_len is not None or x.is_cuda)):
+        if self.block_impl == "auto" and fused_block.jax_layer_fused(
+                x.shape[1], self.embed_dim, self.ffn_dim, self.num_heads, dt,
+                has_valid_len=valid_len is not None, return_attention=return_attention):
             return fused_block.fused_encoder_block(
                 x, valid_len, *self.weights(), self.num_heads, eps, eps)
 

@@ -33,11 +33,23 @@ The float32 instances run on CUDA cores (the two files above); the bfloat16
 ones are tensor-core kernels of their own, ``csrc/prefix_attention_bf16.cu``,
 whose 16-byte copies need q/k/v rows of a stride that is a multiple of 8
 elements and every operand 16-byte aligned: the bfloat16 wrappers raise
-``ValueError`` on anything else (the packed qkv's column slices, ld 576 and
-offsets of 384 bytes, qualify). The float32 backward copies 16 bytes at a
+``ValueError`` on anything else (the packed qkv's column slices qualify:
+ld 576 and offsets of 384 bytes at ChAdaViT-moyen, ld 2304 and offsets of
+1536 bytes at ChAdaViT-B/16). The float32 backward copies 16 bytes at a
 time too (rows of a stride that is a multiple of 4, starts 16-byte aligned:
 :func:`_operand_rows` copies anything else). Both backwards take a scratch
 for the scaled q (:func:`_bwd_scratch`).
+
+Every kernel is built for the head widths :data:`HEAD_DIMS`: 96
+(ChAdaViT-moyen, D 192 in 2 heads) and 64 (ChAdaViT-B/16, D 768 in 12
+heads), one C entry point each that takes the head width as an argument; on
+CUDA tensors the wrappers raise ``ValueError`` at any other width (JAX pads
+a head width that is not a multiple of 8 to 128 lanes; no such instance is
+built). One launch covers every head: the JAX kernels' walk over groups of at
+most ``MAX_GROUP_LANES`` = 384 lanes (``flash_attention.py:29``, ``:275``)
+bounds their VMEM and is not part of the function. Launches are counted
+per instance (:func:`instance`): the head-96 ones under the entry point's
+name, the head-64 ones with ``_hd64`` after it.
 """
 
 from __future__ import annotations
@@ -51,7 +63,16 @@ from chadavit_tpu_torch.ops import _build, _launch
 
 _LOG2E = 1.4426950408889634
 SEQ_BLOCK = 64  # the kernels' query and key tile
-HEAD_DIM = 96   # ChAdaViT-moyen (D 192, 2 heads), the one width the kernels are built for
+# the head widths the kernels are built for: ChAdaViT-moyen's (D 192, 2 heads)
+# and ChAdaViT-B/16's (D 768, 12 heads)
+HEAD_DIMS = (64, 96)
+
+
+def instance(entry_point: str, head_dim: int) -> str:
+    """The name a launch of C entry point ``entry_point`` at ``head_dim`` is
+    counted under (``_launch.LAUNCHES``): the entry point's own at head 96,
+    with ``_hd64`` after it at head 64."""
+    return entry_point if head_dim == 96 else f"{entry_point}_hd{head_dim}"
 
 
 def _split(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -217,8 +238,8 @@ def _check_heads(q, k, v, num_heads):
     if k.shape != q.shape or v.shape != q.shape or d % num_heads:
         raise ValueError(f"q/k/v shapes {q.shape} {k.shape} {v.shape}, heads {num_heads}")
     hd = d // num_heads
-    if hd != HEAD_DIM:
-        raise ValueError(f"head dim {hd}: the kernel is built for {HEAD_DIM}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd}: the kernels are built for {HEAD_DIMS}")
     if q.dtype not in _launch.KERNEL_DTYPES:
         raise TypeError(f"q: the kernels take float32 or bfloat16, got {q.dtype}")
     for t, name in ((k, "k"), (v, "v")):
@@ -251,7 +272,7 @@ def attention_forward(q, k, v, valid_len, num_heads: int, with_lse: bool):
         None if lse is None else lse.data_ptr(), b, num_heads, hd, s_pad,
         _qscale(hd, dt), _launch.stream(q.device))
     _build.check(status, name)
-    _launch.counted(name)
+    _launch.counted(instance(name, hd))
     if s_pad != s:
         out = out[:, :s]
         lse = None if lse is None else lse[..., :s]
@@ -288,7 +309,7 @@ def prefix_attention_bwd(q, k, v, o, lse, do, valid_len, num_heads: int):
         dqkv.data_ptr() + 2 * third, 3 * d, b, num_heads, hd, s,
         _qscale(hd, dt), 1.0 / math.sqrt(hd), _launch.stream(q.device))
     _build.check(status, name)
-    _launch.counted(name)
+    _launch.counted(instance(name, hd))
     return dqkv
 
 
@@ -319,7 +340,7 @@ def prefix_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q/k/v: ``(B, S, D)`` float32 or bfloat16; valid_len ``(B,)`` int32. On
     CUDA tensors it launches ``prefix_attention_fwd`` (``_bf16`` for bfloat16),
-    whose head width is :data:`HEAD_DIM`,
+    whose head widths are :data:`HEAD_DIMS`,
     and raises on any other; on CPU tensors it runs
     :func:`prefix_flash_attention_reference`. When autograd records the call
     it goes through :class:`PrefixFlashAttention`, whose backward is

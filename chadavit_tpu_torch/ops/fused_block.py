@@ -41,6 +41,15 @@ on the rows the forward computed, so dx on those rows and all 12 parameter
 gradients equal autograd through the plain forward; rows of the zero-filled
 tiles give nothing and get dx = 0. Keys past ``valid_len`` stay masked.
 
+The chain's GEMM kernels are built for ChAdaViT-moyen's widths (D
+:data:`D_MODEL`, FFN :data:`D_FFN`). Which layers take the chain at all is
+the JAX layer's choice (:func:`jax_layer_fused`, a copy of its VMEM gate):
+ChAdaViT-B/16 (D 768) at a sequence the gate sends to the unfused layer
+runs ``models/chada_vit.py``'s unfused body with the attention kernels;
+where the gate says fused at a width the chain is not built for, the
+chain raises ``NotImplementedError`` on CUDA tensors (on CPU tensors it
+runs its plain versions, which take any width).
+
 Precision follows the JAX kernels, not ``torch.autocast``: the layer takes
 float32 or bfloat16 activations. The parameters stay float32; the matrices
 and biases are cast to the activation dtype at use (:func:`pack_weights`,
@@ -98,6 +107,69 @@ WGRAD_F32_SPLITS = 64
 # blocks an SM, so the first pass keeps the card's loads in flight and its
 # second pass stays a few microseconds (scripts/bench_layernorm_bwd.py).
 LN_BWD_SPLITS = 2048
+
+
+# --------------------------------------------------------------- the route ----
+# The JAX layer takes its fused Pallas layer kernel only where the kernel's
+# VMEM estimate fits (chadavit_tpu/models/chada_vit.py:186-200); the port's
+# EncoderLayer takes the same route. Host integer arithmetic, copied from
+# chadavit_tpu/ops/flash_attention.py (DEFAULT_BLOCK :75, MIN_BLOCK :76,
+# pick_block :79, LANES :96) and chadavit_tpu/ops/fused_block.py (VMEM_BYTES
+# :65, _bwd_block :482, vmem_estimate :504).
+VMEM_BYTES = 100 * 1024 * 1024  # the JAX fused layer's VMEM budget
+LANES = 8
+DEFAULT_BLOCK = 256
+MIN_BLOCK = 128
+
+
+def pick_block(s: int, default: int = DEFAULT_BLOCK) -> int:
+    """The JAX kernels' sequence block for a sequence of ``s`` rows: 256
+    where it divides ``s``, else 128 where that does, else 256."""
+    if s % default == 0:
+        return default
+    if s % MIN_BLOCK == 0:
+        return MIN_BLOCK
+    return default
+
+
+def _bwd_block(block: int, s_pad: int) -> int:
+    """The JAX backward's key block: doubled where that still divides s_pad."""
+    return 2 * block if s_pad % (2 * block) == 0 else block
+
+
+def vmem_estimate(s_pad: int, d: int, f: int, num_heads: int, block: int,
+                  itemsize: int) -> int:
+    """The JAX fused layer's VMEM estimate in bytes (its backward kernel's)."""
+    act = s_pad * d * itemsize
+    return (4 * act
+            + 2 * s_pad * 3 * d * itemsize
+            + s_pad * d * 4
+            + 4 * num_heads * LANES * s_pad * 4
+            + (2 * d * 3 * d + 2 * d * d + 4 * d * f) * 4
+            + (d * 3 * d + d * d + 2 * d * f) * itemsize
+            + 6 * _bwd_block(block, s_pad) * s_pad * 4
+            + 6 * act)
+
+
+def jax_layer_fused(s: int, d: int, f: int, num_heads: int, dtype: torch.dtype,
+                    has_valid_len: bool = True, return_attention: bool = False) -> bool:
+    """True where the JAX ``EncoderLayer`` with ``block_impl="auto"`` on a
+    TPU runs its fused layer kernel on a sequence of ``s`` rows (as the layer
+    receives it) at width ``d``, FFN ``f``, ``num_heads`` heads and compute
+    ``dtype``: ``valid_len`` given, no attention weights asked, a head width
+    that is a multiple of 8, and the kernel's VMEM estimate at the dtype's
+    item size at most :data:`VMEM_BYTES` (and dropout 0, which the port's
+    layer always has: it refuses a rate above 0). Elsewhere it runs the
+    unfused layer (plain LayerNorms and products around the attention
+    kernels)."""
+    if not has_valid_len or return_attention:
+        return False
+    if d % num_heads or (d // num_heads) % 8:
+        return False
+    blk = pick_block(s)
+    s_pad = -(-s // blk) * blk
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return vmem_estimate(s_pad, d, f, num_heads, blk, itemsize) <= VMEM_BYTES
 
 
 # ---------------------------------------------------------- plain versions ----
@@ -663,14 +735,24 @@ def fused_encoder_block(x, valid_len, wqkv, bqkv, wout, bout, g1, b1, g2, b2,
     Weights in ``nn.Linear`` layout: wqkv ``(3D, D)``, wout ``(D, D)``,
     w1 ``(F, D)``, w2 ``(D, F)``, float32. x is float32 or bfloat16, and the
     layer computes in x's dtype (module docstring). On CUDA every step is a
-    kernel launch, at D = :data:`D_MODEL`, F = :data:`D_FFN` and 2 heads
-    only. When autograd records the call (grad mode on and an input that
-    requires grad) it runs :class:`FusedEncoderBlock`; otherwise (the
-    teacher, serving) the chain without the save outputs.
+    kernel launch, at D = :data:`D_MODEL` and F = :data:`D_FFN` only: at any
+    other width it raises ``NotImplementedError`` (the chain's instances at
+    that width are not ported). When autograd records the call (grad mode on
+    and an input that requires grad) it runs :class:`FusedEncoderBlock`;
+    otherwise (the teacher, serving) the chain without the save outputs.
     """
     if valid_len is None:
         raise ValueError("fused_encoder_block needs valid_len")
     weights = (wqkv, bqkv, wout, bout, g1, b1, g2, b2, w1, b1f, w2, b2f)
+    d, f = x.shape[2], w1.shape[0]
+    if (d, f) != (D_MODEL, D_FFN) and not _launch.on_cpu(x, valid_len):
+        raise NotImplementedError(
+            f"fused_encoder_block: D {d}, FFN {f}, {num_heads} heads: the layer chain's "
+            f"kernels are built for D {D_MODEL}, FFN {D_FFN}; the chain's D {d} instances "
+            "are not ported yet (ROADMAP Queue 2). The JAX layer takes its fused kernel at "
+            "this sequence (jax_layer_fused); pad the batch to more channels, where it takes "
+            "the unfused layer (ChAdaViT-B/16: 8 or more channels in bfloat16, 4 or more in "
+            "float32, e.g. bucket_by_channels=false), or set block_impl='xla'")
     s = x.shape[1]
     xp = _pad_seq(x)
     if _launch.needs_grad(x, *weights):

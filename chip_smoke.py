@@ -2,9 +2,11 @@
 """Smoke run of chadavit_tpu_torch on one NVIDIA GPU: the served embedding path,
 the DINO train step and the pretrain entry point of ChAdaViT-moyen through the
 port's hand-written CUDA kernels, in float32 and in bfloat16 (the canonical
-pretrain precision: float32 parameters, bfloat16 activations). Every kernel
-has a float32 and a bfloat16 instance (C entry points ``name`` and
-``name_bf16``).
+pretrain precision: float32 parameters, bfloat16 activations), then the same
+paths of ChAdaViT-B/16 (D 768, 12 heads of 64, FFN 2048) on its unfused route,
+where the attention kernels run at head width 64. Every kernel has a float32
+and a bfloat16 instance (C entry points ``name`` and ``name_bf16``); the
+attention kernels' head-64 instances are counted as ``name_hd64``.
 
 Run from the root of the repository, with no arguments:
 
@@ -25,7 +27,9 @@ Phases, each printed with its elapsed seconds at its start and end:
    backward's two kernels, of the float32 ln_linear, linear_relu,
    linear_residual_ln and linear_dgrad, of layernorm_bwd's and the float32
    linear_wgrad's two passes and of ln_bwd's four instances at D 192 (the
-   model's width), none of which may spill.
+   model's width), none of which may spill; among them the attention's
+   head-64 instances (the float32 forward, prep and backward; the bfloat16
+   forward, prep, dk/dv and dq).
 2. each kernel instance against its plain PyTorch version at hub shapes (B 8,
    S_pad 2048, D 192, F 2048, 2 heads, 1..10 channels), float32 on the
    inputs of seed 0, then bfloat16 on those of each of BF16_SEEDS (the worst
@@ -53,11 +57,22 @@ Phases, each printed with its elapsed seconds at its start and end:
    Then the LayerNorm kernels (ln_fwd, ln_bwd) against their plain versions
    on the same rows (B x S_pad rows of D 192), with and without the residual,
    eps 1e-5 and 1e-6, and run twice for the same bits (fixed-order sums).
+2b. the attention's head-64 instances at ChAdaViT-B/16's hub shapes (B 8,
+   S_pad 2048, D 768, 12 heads, the same channels), on q, k and v as the layer
+   makes them (column slices of one packed qkv), float32 on seed 0 and
+   bfloat16 on each of BF16_SEEDS, at phase 2's bounds: the forward and its
+   lse, zeros and lse 1e30 on the 64-query tiles past valid_len, the
+   backward with a cotangent on the valid rows and with one on every row of
+   the computed tiles, every call twice for the same bits; then K5/K6 at D
+   768.
 3. the JAX fixtures: the depth-2, full-width model's CLS embeddings
    (tests/goldens/torch_port_cls_depth2.npz) and three DINO train steps of
    that backbone with the canonical head (tests/goldens/torch_port_dino_depth2.npz),
    then both again in bfloat16 (torch_port_cls_bf16_depth2.npz,
-   torch_port_dino_bf16_depth2.npz).
+   torch_port_dino_bf16_depth2.npz); then the four ChAdaViT-B/16 fixtures
+   (torch_port_{cls,dino}_b16{,_bf16}_depth2.npz: the CLS of images of 10, 7,
+   3 and 1 channels, three DINO steps with a 65 536-prototype head on images
+   of 10 and 4 channels; every batch pads to 2048 rows, the unfused route).
 4. the served path: load_chadavit16_moyen() at depth 12 with seeded weights,
    extract_embeddings on 24 images in batches of 8; the launch count of every
    kernel must be what 12 layers x 3 batches imply, and the embeddings must
@@ -111,7 +126,27 @@ Phases, each printed with its elapsed seconds at its start and end:
    loader's time per batch, the wait for the batch and each step's device
    span. (d) python -m chadavit_tpu_torch.bench's run at 8 steps with its
    disk phase: its last JSON line parses, its rates are finite and
-   positive, 0 < mfu <= 1 and 0 < device_busy_share <= 1.
+   positive, 0 < mfu <= 1 and 0 < device_busy_share <= 1; its B/16 phase at
+   2 steps, whose fields are finite and positive.
+4e. ChAdaViT-B/16: (a) chada_vit(embed_dim=768, num_heads=12) with seeded
+   weights through extract_embeddings on 24 images in batches of 8, each
+   batch holding a 10-channel image, in float32 and in bfloat16: only the
+   head-64 attention forward launches, 12 layers x 3 batches, and the
+   embeddings match the same model with the attention's plain version. (b)
+   build_dino at the root bench's B/16 spec (bench.b16_spec), step 1 at
+   depth 12 against the same model with the attention's plain forward and
+   backward in one autograd Function (one layer's scores at a time): the
+   loss and the per-tensor update cosines at 4b's bounds, in float32 at 2
+   images x 2 crops and in bfloat16 at 8; and in bfloat16 at 2 images,
+   where the DINO loss magnifies bf16 noise past those bounds on both
+   sides, the kernels' step and the plain one each against the float32
+   plain step, the kernels no farther from it than B16_F32_GAP times the
+   plain bf16 step; then 3 steps of 16 raw uint8 images of 10
+   channels with the multicrop inside, 24 launches of the head-64 forward
+   and 12 of its backward a step. (c) main_pretrain on
+   scripts/pretrain/dino_chada_vit_b16_pod.yaml with model_parallel=1
+   fsdp=false devices=1 data.dataset=synthetic bucket_by_channels=false, 2
+   steps: finite loss and those launches.
 5. times with CUDA events: each kernel instance (and the share of its bound
    it reaches; linear_residual_ln, linear_dgrad and linear_wgrad also site
    by site), its plain version, one PyTorch call for the same function (a
@@ -126,12 +161,17 @@ Phases, each printed with its elapsed seconds at its start and end:
    backward (K3, K4), kernel by kernel (so each pass of layernorm_bwd and
    linear_wgrad on its own); K3 and K4 run twice for the same bits; the whole layer forward
    and backward; the served batch and the train step, in both dtypes; the
-   multicrop's device time per step (bf16, B 32) beside the step's.
+   multicrop's device time per step (bf16, B 32) beside the step's. Then the
+   attention's head-64 instances at 2b's shapes in the same way (the
+   library: scaled_dot_product_attention with the key mask), and the B/16
+   bf16 step of 4e by the profiler: the attention kernels' share of its
+   device time against the library's GEMMs.
 6. one JSON line with every kernel instance, then the last line
    {"ok": true, "device": {...}}. A failed phase prints no last line and
    exits 1.
 """
 
+import contextlib
 import faulthandler
 import json
 import math
@@ -148,12 +188,22 @@ DINO_FIXTURE = GOLDENS / "torch_port_dino_depth2.npz"
 FIXTURE_BF16 = GOLDENS / "torch_port_cls_bf16_depth2.npz"
 DINO_FIXTURE_BF16 = GOLDENS / "torch_port_dino_bf16_depth2.npz"
 CANONICAL = Path(__file__).resolve().parent / "scripts" / "pretrain" / "dino_chada_vit_moyen.yaml"
+# ChAdaViT-B/16 (D 768, 12 heads of 64, FFN 2048): its JAX fixtures, the pod YAML
+FIXTURE_B16 = GOLDENS / "torch_port_cls_b16_depth2.npz"
+DINO_FIXTURE_B16 = GOLDENS / "torch_port_dino_b16_depth2.npz"
+FIXTURE_B16_BF16 = GOLDENS / "torch_port_cls_b16_bf16_depth2.npz"
+DINO_FIXTURE_B16_BF16 = GOLDENS / "torch_port_dino_b16_bf16_depth2.npz"
+B16_YAML = CANONICAL.parent / "dino_chada_vit_b16_pod.yaml"
 
 # hub shapes
 B, S_PAD, D, H, FFN = 8, 2048, 192, 2, 2048
 COUNTS = [1, 3, 5, 10, 2, 7, 9, 10]
 N_PATCHES = 196
 EPS1, EPS2 = 1e-5, 1e-5
+# ChAdaViT-B/16 at the hub shapes above: D 768 in 12 heads of 64; every batch
+# pads to S 2048, where the layer takes its unfused route (the attention
+# kernels at head width 64 between library products)
+D16, H16 = 768, 12
 
 # max abs error against the plain version on rows < valid_len (f32 on both
 # sides; the kernels sum in another order than cuBLAS)
@@ -193,6 +243,9 @@ BF16_STEPS, BF16_F32_REL, BF16_COS = 3, 3e-3, 1 - 2e-5
 FIXTURE_BF16_COS, FIXTURE_BF16_TOL = 1 - 5e-5, 5e-2
 DINO_BF16_METRIC_REL, DINO_BF16_NORM_REL, DINO_BF16_DELTA_REL = 5e-3, 1e-3, 5e-2
 SERVED_BF16_COS = 1 - 2e-4  # per-row cosine, kernels against plain versions, 12 layers
+# the B/16 bf16 CLS fixture: cosine 1 - 1e-4 per row and 4 bf16 steps at the
+# CLS's largest entry (tests/test_torch_b16_fixture.py: it reaches past 4)
+FIXTURE_B16_BF16_COS, FIXTURE_B16_BF16_STEPS = 1 - 1e-4, 4
 # the bf16 train path at the canonical batch (scripts/pretrain/
 # dino_chada_vit_moyen.yaml: 32 images, 2 global crops); step 1 against the
 # plain chains: the loss, and the cosine of every parameter tensor's update.
@@ -229,6 +282,26 @@ IDR10K = Path(__file__).resolve().parent / "scripts" / "pretrain" / "dino_idr10k
 IDR_IMAGES = 160
 IDR_ENTRY = ["data.sample_ratio=1.0", "knn_eval.enabled=false", "log_every=1"]
 BENCH_STEPS = 8
+BENCH_B16_STEPS = 2
+# 4e, ChAdaViT-B/16: 24 served images in batches of 8, each batch holding a
+# 10-channel image; the train step at the root bench's B/16 spec, step 1
+# against the plain attention (float32 at 2 images x 2 crops, bfloat16 at 8
+# and, against the float32 step, at 2), then 3 steps of 16 raw
+# images of 10 channels with the multicrop; the pod YAML through the entry
+# point with the overrides that leave one device, synthetic data and every
+# batch padded to 10 channels, 2 steps
+B16_SERVED_COUNTS = [10 if i % 8 == 0 else 1 + 3 * i % 9 for i in range(24)]
+B16_CHECK_COUNTS = [10, 6]
+B16_CHECK_COUNTS_BF16 = [10, 6, 8, 9, 10, 7, 9, 10]
+# the bf16 B/16 step 1 at 2 images, each side against the float32 step: the
+# kernels' distance within this factor of the plain bf16 step's (the readings
+# on an H100 run 0.25-1.15 times it: scripts/b16_bf16_step_gap.py, PERF.md
+# section 6)
+B16_F32_GAP = 2.0
+B16_TRAIN_B = 16
+B16_ENTRY = ["model_parallel=1", "fsdp=false", "devices=1", "data.dataset=synthetic",
+             "bucket_by_channels=false", "log_every=1"]
+B16_ENTRY_STEPS = 2
 
 # the card's peaks (NVIDIA H100 SXM data sheet): f32 outside the tensor cores,
 # dense bf16 on the tensor cores, and HBM3 bandwidth. The bound of a float32
@@ -458,6 +531,150 @@ def check_layer_backward(ph, backbone, batch, dt, seed=5):
              f"{what}; dx zero on the zero-filled tiles: {tail_zero}")
 
 
+def plain_attention_function():
+    """An autograd Function of the attention's plain forward and backward
+    (flash_attention's reference versions), saving only q, k, v, o and the
+    lse as PrefixFlashAttention does: one layer's (B, H, S, S) scores live at a
+    time, where autograd of the plain masked softmax would keep every
+    layer's."""
+    import torch
+
+    from chadavit_tpu_torch.ops import flash_attention as fa
+
+    class PlainAttention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, valid_len, num_heads):
+            out, lse = fa.prefix_flash_attention_reference(q, k, v, valid_len, num_heads,
+                                                          return_lse=True)
+            ctx.save_for_backward(q, k, v, out, lse, valid_len)
+            ctx.num_heads = num_heads
+            return out
+
+        @staticmethod
+        def backward(ctx, dout):
+            q, k, v, out, lse, valid_len = ctx.saved_tensors
+            dqkv = fa.prefix_flash_attention_backward_reference(q, k, v, out, lse, dout,
+                                                                valid_len, ctx.num_heads)
+            d = q.shape[2]
+            return dqkv[..., :d], dqkv[..., d:2 * d], dqkv[..., 2 * d:], None, None
+
+    return PlainAttention
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Within it, ``flash_attention.prefix_flash_attention`` (the unfused
+    layer's attention) runs the plain versions: the reference forward, and
+    under grad :func:`plain_attention_function`. Nothing else of the model
+    changes."""
+    from chadavit_tpu_torch.ops import _launch
+    from chadavit_tpu_torch.ops import flash_attention as fa
+
+    function = plain_attention_function()
+
+    def plain(q, k, v, valid_len, num_heads):
+        if _launch.needs_grad(q, k, v):
+            return function.apply(q, k, v, valid_len, num_heads)
+        return fa.prefix_flash_attention_reference(q, k, v, valid_len, num_heads)
+
+    real, fa.prefix_flash_attention = fa.prefix_flash_attention, plain
+    try:
+        yield
+    finally:
+        fa.prefix_flash_attention = real
+
+
+def check_cls_fixture(ph, label, path, dt, cos_bound, abs_bound):
+    """The depth-2 model of a JAX CLS fixture (its widths, weights and images
+    rebuilt from the seeds in the file) on the card in ``dt``: per-row cosine
+    at least ``cos_bound`` and max abs within ``abs_bound(ref)``."""
+    import numpy as np
+    import torch
+
+    from chadavit_tpu_torch import hub
+    from chadavit_tpu_torch.models.chada_vit import chada_vit, random_state_dict
+
+    with np.load(path) as f:
+        fx = {key: f[key] for key in f.files}
+    widths = {k: int(fx[k]) for k in ("embed_dim", "num_heads") if k in fx}
+    model = chada_vit(depth=int(fx["depth"]), return_all_tokens=False,
+                      img_size=int(fx["img_size"]), dtype=dt, **widths)
+    model.load_state_dict(random_state_dict(model, int(fx["weight_seed"])))
+    model = model.to("cuda").eval()
+    images = hub.random_images(fx["counts"].tolist(), int(fx["img_size"]), int(fx["image_seed"]))
+    xf, ccf = hub.collate_images(images)
+    with torch.inference_mode():
+        cls = model(xf.to("cuda"), ccf.to("cuda"))
+    ref = torch.from_numpy(fx["cls"])
+    ph.check(cls.dtype == dt and cls.shape == ref.shape
+             and bool(torch.isfinite(cls.float()).all()),
+             f"{label}CLS {cls.dtype} {tuple(cls.shape)} ({path.name}), finite")
+    cls = cls.float().cpu()
+    cos = cosine_rows(cls, ref)
+    err = (cls - ref).abs().max().item()
+    bound = abs_bound(ref)
+    spread = (ref - ref[0]).abs().max().item()
+    ph.check(cos.min().item() >= cos_bound and err <= bound,
+             f"{label}against the JAX fixture: min cosine 1 - {1 - cos.min().item():.2e} "
+             f"(>= 1 - {1 - cos_bound:.0e}), max abs {err:.3e} (<= {bound:.3g}); rows differ "
+             f"from each other by up to {spread:.3e}")
+
+
+def check_dino_fixture(ph, label, path, dt, metric_rel, norm_rel, delta_rel):
+    """Three DINO steps of a JAX DINO fixture's depth-2 backbone and head (its
+    widths, seeded init and batch from the file) on the card in ``dt``: each
+    step's metrics within ``metric_rel``, then every student and teacher
+    parameter's norm within ``norm_rel`` (parameters float32) and the norm of
+    each student parameter's change within ``delta_rel``."""
+    import numpy as np
+    import torch
+
+    from chadavit_tpu_torch.train.pretrain import (
+        DinoPretrainSpec,
+        build_dino,
+        synthetic_dino_batch,
+    )
+
+    with np.load(path) as f:
+        dx = {key: f[key] for key in f.files}
+    widths = {k: int(dx[k]) for k in ("embed_dim", "num_heads") if k in dx}
+    head = {"num_prototypes": int(dx["num_prototypes"])} if "num_prototypes" in dx else {}
+    spec = DinoPretrainSpec(
+        backbone_kwargs=dict(dict(embed_dim=D, num_heads=H), patch_size=16,
+                             return_all_tokens=False, max_number_channels=10,
+                             depth=int(dx["depth"]), **widths),
+        steps_per_epoch=2, freeze_last_layer=1, clip_grad=3.0,
+        warmup_teacher_temperature_epochs=2, dtype=dt, **head)
+    state, step, _, _ = build_dino(spec, seed=int(dx["weight_seed"]))
+    batch = synthetic_dino_batch(spec, len(dx["counts"]), int(dx["batch_seed"]),
+                                 dx["counts"].tolist())
+    before = {n: p.detach().clone() for n, p in state.trainable()}
+    worst = {}
+    for i in range(int(dx["steps"])):
+        state, m = step(state, batch)
+        for key in ("dino_loss", "center_norm", "lr", "tau", "teacher_temp"):
+            worst[key] = max(worst.get(key, 0.0), abs(float(m[key]) / dx[key][i] - 1))
+    ph.check(max(worst.values()) <= metric_rel,
+             f"{label}{int(dx['steps'])} steps against the JAX DINO fixture ({path.name}), "
+             "per-step metrics: worst rel " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+             + f" (tolerance {metric_rel:g})")
+    named = {side: {f"{part}.{n}": t for part in ("backbone", "head")
+                    for n, t in getattr(state, side)[part].state_dict().items()}
+             for side in ("student", "teacher")}
+    names = [str(n) for n in dx["names"]]
+    all_f32 = all(t.dtype == torch.float32 for side in named.values() for t in side.values())
+    norm_err = max(abs(named[side][n].double().norm().item() / dx[f"{side}_norms"][i] - 1)
+                   for side in ("student", "teacher") for i, n in enumerate(names))
+    delta_err = max(abs((named["student"][n] - before[n]).double().norm().item()
+                        / dx["student_delta_norms"][i] - 1)
+                    for i, n in enumerate(names)
+                    if n in before and dx["student_delta_norms"][i] > 0)
+    ph.check(all_f32 and norm_err <= norm_rel and delta_err <= delta_rel,
+             f"{label}after {int(dx['steps'])} steps, {len(names)} student and teacher "
+             f"parameter norms (all f32: {all_f32}): worst rel {norm_err:.2e} (<= {norm_rel:g}); "
+             f"norms of the student's changes: worst rel {delta_err:.2e} (<= {delta_rel:g})")
+
+
 def chain_launches(runs: int) -> dict:
     """The launches of each layer-chain kernel in ``runs`` layer runs of a
     train path: teacher forward, student forward with the save outputs,
@@ -664,6 +881,11 @@ def main() -> int:
                       ("prefix_attention_bwd_bf16", attn_tc_cu)):  # the tensor-core kernels
         wrapper, _, replaces, dt = instances[name]
         instances[name] = (wrapper, src, replaces, dt)
+    # the head-64 instances of the attention kernels (ChAdaViT-B/16): the same
+    # entry points, counted under their own names (flash_attention.instance)
+    for name in ("prefix_attention_fwd", "prefix_attention_bwd",
+                 "prefix_attention_fwd_bf16", "prefix_attention_bwd_bf16"):
+        instances[fa.instance(name, 64)] = instances[name]
     stats = {name: {"max_abs_err": 0.0} for name in instances}
 
     def reset_launches():
@@ -689,6 +911,11 @@ def main() -> int:
                          ln_cu: ("ln_bwd",)}
         ptxas = [_build.ptxas_report(Path(src).name)  # beside the build
                  for src in ptxas_sources]
+        hd64_kernels = {  # the attention kernels' head-64 instances (ChAdaViT-B/16)
+            attn_cu: ["prefix_attention_kernel"],
+            attn_bwd_cu: ["attention_bwd_prep_kernel", "attention_bwd_kernel"],
+            attn_tc_cu: ["attention_fwd_bf16_kernel", "attention_bwd_prep_kernel",
+                         "attention_dkdv_bf16_kernel", "attention_dq_bf16_kernel"]}
         _build.library()
         ph.check(True, f"{'cold' if cold else 'warm'} build of {len(_build.sources())} "
                        f"sources: {time.perf_counter() - t:.2f} s")
@@ -710,6 +937,14 @@ def main() -> int:
                                              for k in report),
                      f"{Path(src).name}: {len(report)} kernels"
                      f"{' (' + ', '.join(only) + ')' if only else ''}, none spills")
+            if src in hd64_kernels:  # the attention's head-64 instances among them
+                # (mangled, a template argument 64 reads ILi64E)
+                found = [k_ for k_ in hd64_kernels[src]
+                         if any(k_ + "ILi64E" in k["name"] for k in report)]
+                ph.check(found == hd64_kernels[src],
+                         f"{Path(src).name}: head-64 instances "
+                         f"{[k_ + '<64>' for k_ in found]} (want {len(hd64_kernels[src])}), "
+                         f"none spills")
 
     # ---- 2. kernels against their plain versions at hub shapes --------------
     valid_len = [1 + N_PATCHES * c for c in COUNTS]
@@ -1142,131 +1377,159 @@ def main() -> int:
                 f"{k} {v:.3g} ({where})" for k, (v, where) in worst_bf16.items())
             + f" (bounds {BF16_STEPS} steps, {BF16_F32_REL:g}, {1 - BF16_COS:.0e})")
 
+    # ---- 2b. the head-64 instances (ChAdaViT-B/16) against their plain versions
+    inputs16 = {}  # per dtype tag: the inputs of seed 0, kept for phase 5
+    with Phase("2b head-64 kernels vs plain (B/16)", failures) as ph:
+        worst16 = {"steps": 0.0, "f32": 0.0, "1 - cos": 0.0}
+
+        def note16(name, out, ref, rows, what, f32, scale_tol=False):
+            """A float32 instance: max abs on the rows within KERNEL_TOL (GRAD_REL
+            of the output's largest entry when that is > 1 and scale_tol); a
+            bfloat16 instance: bf16_err's bounds."""
+            torch.cuda.synchronize()
+            if f32:
+                err = valid_rows_err(out, ref, rows)[0] if rows else (out - ref).abs().max().item()
+                mag = (max(ref[i, :n].abs().max().item() for i, n in enumerate(rows)) if rows
+                       else ref.abs().max().item())
+                tol = GRAD_REL * max(1.0, mag) if scale_tol else KERNEL_TOL
+                stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+                ph.check(err <= tol, f"{name}{what}: max abs {err:.3e} (tolerance {tol:.3g})")
+                return
+            err, tol, cos = bf16_err(out, ref, rows)
+            key = "steps" if out.dtype == bf16 else "f32"
+            worst16[key] = max(worst16[key], err * (BF16_STEPS if key == "steps"
+                                                    else BF16_F32_REL) / tol if tol else 0.0)
+            worst16["1 - cos"] = max(worst16["1 - cos"], 1 - cos)
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+            ph.check(err <= tol and cos >= BF16_COS,
+                     f"{name}{what}: max abs {err:.3e} (tolerance {tol:.3g}), cosine "
+                     f"1 - {1 - cos:.2e} (>= 1 - {1 - BF16_COS:.0e})")
+
+        vl = torch.tensor(valid_len, dtype=torch.int32, device=dev)
+        query_rows = [-(-n // fa.SEQ_BLOCK) * fa.SEQ_BLOCK for n in valid_len]
+        for seed, tag, dt in ((0, "", torch.float32),
+                              *((s_, "_bf16", bf16) for s_ in BF16_SEEDS)):
+            rng = np.random.default_rng(100 + seed)
+
+            def dev_randn(*shape, scale=1.0):
+                return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                        .astype(np.float32)).to(dev)
+
+            # q, k, v as the layer makes them: LN1 and the packed QKV
+            # projection (plain), column slices of one (B, S, 3 D) qkv
+            x = dev_randn(B, S_PAD, D16).to(dt)
+            g, b_ = 1 + dev_randn(D16, scale=0.1), dev_randn(D16, scale=0.05)
+            wqkv = dev_randn(3 * D16, D16, scale=D16 ** -0.5).to(dt)
+            bqkv = dev_randn(3 * D16, scale=0.02).to(dt)
+            qkv = fused_block.ln_linear_reference(x, g, b_, EPS1, wqkv, bqkv)
+            q, k, v = qkv[..., :D16], qkv[..., D16:2 * D16], qkv[..., 2 * D16:]
+            dy = dev_randn(B, S_PAD, D16)
+            dout_tail = dev_randn(B, S_PAD, D16)
+            for i, n in enumerate(valid_len):
+                dy[i, n:] = 0
+                dout_tail[i, query_rows[i]:] = 0
+            dy, dout_tail = dy.to(dt), dout_tail.to(dt)
+            fwd, bwd = (fa.instance(_launch.entry_point(n, dt), 64)
+                        for n in ("prefix_attention_fwd", "prefix_attention_bwd"))
+            if dt == bf16:
+                log(f"  bf16 head-64 instances, inputs of seed {seed}")
+            before = (_launch.LAUNCHES[fwd], _launch.LAUNCHES[bwd])
+            out, lse = fa.attention_forward(q, k, v, vl, H16, with_lse=True)
+            again, lse_again = fa.attention_forward(q, k, v, vl, H16, with_lse=True)
+            bare, _ = fa.attention_forward(q, k, v, vl, H16, with_lse=False)
+            torch.cuda.synchronize()
+            ph.check(torch.equal(out, again) and torch.equal(lse, lse_again)
+                     and torch.equal(out, bare) and out.dtype == dt,
+                     f"{fwd} (B {B}, S_pad {S_PAD}, {H16} heads of 64, {out.dtype}): the same "
+                     f"bits on a second call, and without the lse")
+            ref, rlse = fa.prefix_flash_attention_reference(q, k, v, vl, H16, return_lse=True)
+            f32 = dt == torch.float32
+            note16(fwd, out, ref, valid_len, "", f32)
+            note16(fwd, lse.transpose(1, 2), rlse.transpose(1, 2), valid_len,
+                   " save output lse", f32)
+            ph.check(all(not out[i, n:].any().item() and (lse[i, :, n:] == 1e30).all().item()
+                         for i, n in enumerate(query_rows)),
+                     f"{fwd}: zeros and lse 1e30 on the "
+                     f"{sum(S_PAD - n for n in query_rows) // fa.SEQ_BLOCK} 64-query tiles past "
+                     f"valid_len")
+            del again, lse_again, bare, ref, rlse
+            for what, dout, rows in ((" cotangent on the valid rows", dy, valid_len),
+                                     (" tail cotangent (every row of the computed tiles)",
+                                      dout_tail, query_rows)):
+                got = fa.prefix_attention_bwd(q, k, v, out, lse, dout, vl, H16)
+                again = fa.prefix_attention_bwd(q, k, v, out, lse, dout, vl, H16)
+                torch.cuda.synchronize()
+                ph.check(torch.equal(got, again) and got.dtype == dt,
+                         f"{bwd}{what}: the same bits on a second call")
+                gref = fa.prefix_flash_attention_backward_reference(q, k, v, out, lse, dout, vl,
+                                                                    H16)
+                note16(bwd, got, gref, rows, what, f32, scale_tol=True)
+                ph.check(all(not got[i, n:].any().item() for i, n in enumerate(query_rows)),
+                         f"{bwd}{what}: exact zeros on the zero-filled tiles")
+                del got, again, gref
+            ph.check((_launch.LAUNCHES[fwd], _launch.LAUNCHES[bwd]) == (before[0] + 3,
+                                                                      before[1] + 4),
+                     f"{fwd} and {bwd} counted under the head-64 instances' names")
+            if seed == 0:
+                inputs16[tag] = dict(q=q, k=k, v=v, out=out, lse=lse, dout=dy)
+            # K5/K6 at D 768 (the unfused layer's LayerNorms under ln_impl=pallas)
+            for res, eps in ((None, EPS1), (None, 1e-6), (out, EPS1)):
+                lwhat = f" at D {D16} ({'LN(x + r)' if res is not None else 'LN(x)'}, eps {eps:g})"
+                y, mu, rstd = ln.ln_fwd(x, res, g, b_, eps)
+                dxl, dgl, dbl = ln.ln_bwd(x, res, g, mu, rstd, dy)
+                again = ln.ln_bwd(x, res, g, mu, rstd, dy)
+                torch.cuda.synchronize()
+                ph.check(all(torch.equal(a_, b2) for a_, b2 in zip((dxl, dgl, dbl), again)),
+                         f"ln_bwd{tag}{lwhat}: the same bits on a second run")
+                ry, rmu, rrstd = ln.ln_fwd_reference(x, res, g, b_, eps)
+                rdx, rdg, rdb = ln.ln_bwd_reference(x, res, g, mu, rstd, dy)
+                if f32:
+                    err = max((a_ - b2).abs().max().item()
+                              for a_, b2 in ((y, ry), (mu, rmu), (rstd, rrstd)))
+                    stats["ln_fwd"]["max_abs_err"] = max(stats["ln_fwd"]["max_abs_err"], err)
+                    ph.check(err <= KERNEL_TOL, f"ln_fwd{lwhat} y, mean, rstd: max abs {err:.3e}")
+                    for o_, r_, part in ((dxl, rdx, "dx"), (dgl, rdg, "dgamma"),
+                                         (dbl, rdb, "dbeta")):
+                        mag = r_.abs().max().item()
+                        err = (o_ - r_).abs().max().item()
+                        stats["ln_bwd"]["max_abs_err"] = max(stats["ln_bwd"]["max_abs_err"], err)
+                        ph.check(err <= GRAD_REL * max(1.0, mag),
+                                 f"ln_bwd{lwhat} {part}: max abs {err:.3e} (output scale "
+                                 f"{mag:.3g})")
+                else:
+                    note16("ln_fwd_bf16", y, ry, None, lwhat + " y", False)
+                    note16("ln_fwd_bf16", torch.stack((mu, rstd), -1),
+                           torch.stack((rmu, rrstd), -1), None, lwhat + " mean, rstd", False)
+                    for o_, r_, part in ((dxl, rdx, "dx"), (dgl, rdg, "dgamma"),
+                                         (dbl, rdb, "dbeta")):
+                        note16("ln_bwd_bf16", o_, r_, None, f"{lwhat} {part}", False)
+                del y, mu, rstd, dxl, dgl, dbl, again, ry, rmu, rrstd, rdx, rdg, rdb
+            del x, qkv, dout_tail
+            torch.cuda.empty_cache()
+        log("  bf16 head-64 instances and K5/K6 at D 768, worst readings over seeds "
+            f"{', '.join(map(str, BF16_SEEDS))}: bf16 steps {worst16['steps']:.3g}, share of "
+            f"the largest entry {worst16['f32']:.3g}, 1 - cosine {worst16['1 - cos']:.3g} "
+            f"(bounds {BF16_STEPS} steps, {BF16_F32_REL:g}, {1 - BF16_COS:.0e})")
+
     # ---- 3. the JAX fixtures --------------------------------------------------
     with Phase("3 JAX fixtures", failures) as ph:
-        with np.load(FIXTURE) as f:
-            fx = {key: f[key] for key in f.files}
-        depth, img = int(fx["depth"]), int(fx["img_size"])
-        model2 = chada_vit(depth=depth, return_all_tokens=False, img_size=img)
-        model2.load_state_dict(random_state_dict(model2, int(fx["weight_seed"])))
-        model2 = model2.to(dev).eval()
-        images = hub.random_images(fx["counts"].tolist(), img, int(fx["image_seed"]))
-        xf, ccf = hub.collate_images(images)
-        with torch.inference_mode():
-            cls = model2(xf.to(dev), ccf.to(dev)).cpu()
-        ref = torch.from_numpy(fx["cls"])
-        cos = cosine_rows(cls, ref)
-        err = (cls - ref).abs().max().item()
-        spread = (ref - ref[0]).abs().max().item()
-        ph.check(bool(torch.isfinite(cls).all()) and cls.shape == ref.shape,
-                 f"CLS shape {tuple(cls.shape)}, finite")
-        ph.check(cos.min().item() >= FIXTURE_COS and err <= FIXTURE_TOL,
-                 f"against the JAX fixture: min cosine 1 - {1 - cos.min().item():.2e} "
-                 f"(>= 1 - {1 - FIXTURE_COS:.0e}), max abs {err:.3e} (<= {FIXTURE_TOL:g}); "
-                 f"rows differ from each other by up to {spread:.3e}")
-        del model2
-
-        # three DINO steps of the depth-2 backbone and the canonical head
-        with np.load(DINO_FIXTURE) as f:
-            dx_ = {key: f[key] for key in f.files}
-        spec2 = DinoPretrainSpec(
-            backbone_kwargs=dict(embed_dim=D, patch_size=16, return_all_tokens=False,
-                                 max_number_channels=10, depth=int(dx_["depth"])),
-            steps_per_epoch=2, freeze_last_layer=1, clip_grad=3.0,
-            warmup_teacher_temperature_epochs=2)
-        state2, step2, _, _ = build_dino(spec2, seed=int(dx_["weight_seed"]))
-        batch2 = synthetic_dino_batch(spec2, len(dx_["counts"]), int(dx_["batch_seed"]),
-                                      dx_["counts"].tolist())
-        before = {n: p.detach().clone() for n, p in state2.trainable()}
-        worst = {}
-        for i in range(int(dx_["steps"])):
-            state2, m = step2(state2, batch2)
-            for key in ("dino_loss", "center_norm", "lr", "tau", "teacher_temp"):
-                r = abs(float(m[key]) / dx_[key][i] - 1)
-                worst[key] = max(worst.get(key, 0.0), r)
-        ph.check(max(worst.values()) <= DINO_METRIC_REL,
-                 "3 steps against the JAX DINO fixture, per-step metrics: worst rel "
-                 + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
-                 + f" (tolerance {DINO_METRIC_REL:g})")
-        named = {side: {f"{part}.{n}": t for part in ("backbone", "head")
-                        for n, t in getattr(state2, side)[part].state_dict().items()}
-                 for side in ("student", "teacher")}
-        names = [str(n) for n in dx_["names"]]
-        norm_err = max(abs(named[side][n].double().norm().item() / dx_[f"{side}_norms"][i] - 1)
-                       for side in ("student", "teacher") for i, n in enumerate(names))
-        delta_err = max(abs((named["student"][n] - before[n]).double().norm().item()
-                            / dx_["student_delta_norms"][i] - 1)
-                        for i, n in enumerate(names)
-                        if n in before and dx_["student_delta_norms"][i] > 0)
-        ph.check(norm_err <= DINO_NORM_REL and delta_err <= DINO_DELTA_REL,
-                 f"after 3 steps, {len(names)} student and teacher parameter norms: worst rel "
-                 f"{norm_err:.2e} (<= {DINO_NORM_REL:g}); norms of the student's changes: "
-                 f"worst rel {delta_err:.2e} (<= {DINO_DELTA_REL:g})")
-        del state2, step2, batch2, before, named
-
-        # both again in bfloat16, against the JAX package's bfloat16 runs
-        with np.load(FIXTURE_BF16) as f:
-            fxb = {key: f[key] for key in f.files}
-        model2 = chada_vit(depth=int(fxb["depth"]), return_all_tokens=False,
-                           img_size=int(fxb["img_size"]), dtype=bf16)
-        model2.load_state_dict(random_state_dict(model2, int(fxb["weight_seed"])))
-        model2 = model2.to(dev).eval()
-        images = hub.random_images(fxb["counts"].tolist(), int(fxb["img_size"]),
-                                   int(fxb["image_seed"]))
-        xf, ccf = hub.collate_images(images)
-        with torch.inference_mode():
-            cls = model2(xf.to(dev), ccf.to(dev))
-        ref = torch.from_numpy(fxb["cls"])
-        ph.check(cls.dtype == bf16 and cls.shape == ref.shape
-                 and bool(torch.isfinite(cls.float()).all()),
-                 f"bf16 CLS {cls.dtype} {tuple(cls.shape)}, finite")
-        cls = cls.float().cpu()
-        cos = cosine_rows(cls, ref)
-        err = (cls - ref).abs().max().item()
-        ph.check(cos.min().item() >= FIXTURE_BF16_COS and err <= FIXTURE_BF16_TOL,
-                 f"bf16, against the JAX bf16 fixture: min cosine 1 - {1 - cos.min().item():.2e}"
-                 f" (>= 1 - {1 - FIXTURE_BF16_COS:.0e}), max abs {err:.3e} "
-                 f"(<= {FIXTURE_BF16_TOL:g})")
-        del model2
-
-        with np.load(DINO_FIXTURE_BF16) as f:
-            dxb = {key: f[key] for key in f.files}
-        spec2b = DinoPretrainSpec(
-            backbone_kwargs=dict(embed_dim=D, patch_size=16, return_all_tokens=False,
-                                 max_number_channels=10, depth=int(dxb["depth"])),
-            steps_per_epoch=2, freeze_last_layer=1, clip_grad=3.0,
-            warmup_teacher_temperature_epochs=2, dtype=bf16)
-        state2, step2, _, _ = build_dino(spec2b, seed=int(dxb["weight_seed"]))
-        batch2 = synthetic_dino_batch(spec2b, len(dxb["counts"]), int(dxb["batch_seed"]),
-                                      dxb["counts"].tolist())
-        before = {n: p.detach().clone() for n, p in state2.trainable()}
-        worst = {}
-        for i in range(int(dxb["steps"])):
-            state2, m = step2(state2, batch2)
-            for key in ("dino_loss", "center_norm", "lr", "tau", "teacher_temp"):
-                worst[key] = max(worst.get(key, 0.0), abs(float(m[key]) / dxb[key][i] - 1))
-        ph.check(max(worst.values()) <= DINO_BF16_METRIC_REL,
-                 "bf16, 3 steps against the JAX bf16 DINO fixture, per-step metrics: worst rel "
-                 + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
-                 + f" (tolerance {DINO_BF16_METRIC_REL:g})")
-        named = {side: {f"{part}.{n}": t for part in ("backbone", "head")
-                        for n, t in getattr(state2, side)[part].state_dict().items()}
-                 for side in ("student", "teacher")}
-        names = [str(n) for n in dxb["names"]]
-        all_f32 = all(t.dtype == torch.float32 for side in named.values() for t in side.values())
-        norm_err = max(abs(named[side][n].double().norm().item() / dxb[f"{side}_norms"][i] - 1)
-                       for side in ("student", "teacher") for i, n in enumerate(names))
-        delta_err = max(abs((named["student"][n] - before[n]).double().norm().item()
-                            / dxb["student_delta_norms"][i] - 1)
-                        for i, n in enumerate(names)
-                        if n in before and dxb["student_delta_norms"][i] > 0)
-        ph.check(all_f32 and norm_err <= DINO_BF16_NORM_REL
-                 and delta_err <= DINO_BF16_DELTA_REL,
-                 f"bf16, after 3 steps, {len(names)} student and teacher parameter norms (all "
-                 f"f32: {all_f32}): worst rel {norm_err:.2e} (<= {DINO_BF16_NORM_REL:g}); norms "
-                 f"of the student's changes: worst rel {delta_err:.2e} "
-                 f"(<= {DINO_BF16_DELTA_REL:g})")
-        del state2, step2, batch2, before, named
+        # ChAdaViT-moyen, then ChAdaViT-B/16 (its batches pad to 2048 rows: the
+        # unfused route), each in float32 and in bfloat16
+        for label, cls_path, dino_path, dt, cos_bound, abs_bound, dino_bounds in (
+                ("", FIXTURE, DINO_FIXTURE, torch.float32, FIXTURE_COS,
+                 lambda ref: FIXTURE_TOL, (DINO_METRIC_REL, DINO_NORM_REL, DINO_DELTA_REL)),
+                ("bf16, ", FIXTURE_BF16, DINO_FIXTURE_BF16, bf16, FIXTURE_BF16_COS,
+                 lambda ref: FIXTURE_BF16_TOL,
+                 (DINO_BF16_METRIC_REL, DINO_BF16_NORM_REL, DINO_BF16_DELTA_REL)),
+                ("B/16, ", FIXTURE_B16, DINO_FIXTURE_B16, torch.float32, FIXTURE_COS,
+                 lambda ref: FIXTURE_TOL, (DINO_METRIC_REL, DINO_NORM_REL, DINO_DELTA_REL)),
+                ("B/16 bf16, ", FIXTURE_B16_BF16, DINO_FIXTURE_B16_BF16, bf16,
+                 FIXTURE_B16_BF16_COS,
+                 lambda ref: FIXTURE_B16_BF16_STEPS * bf16_step(ref.abs().max().item()),
+                 (DINO_BF16_METRIC_REL, DINO_BF16_NORM_REL, DINO_BF16_DELTA_REL))):
+            check_cls_fixture(ph, label, cls_path, dt, cos_bound, abs_bound)
+            check_dino_fixture(ph, label, dino_path, dt, *dino_bounds)
+            torch.cuda.empty_cache()
 
     # ---- 4. the served path -------------------------------------------------
     n_served, batch = 24, 8
@@ -1742,22 +2005,201 @@ def main() -> int:
         lines = []
         t = time.perf_counter()
         bench.run(steps=BENCH_STEPS, repeats=2, disk=True, disk_root=f"{tmp}/bench_disk",
-                  emit=lines.append)
+                  b16_steps=BENCH_B16_STEPS, emit=lines.append)
         rec = json.loads(lines[-1])
         log(f"  bench ({time.perf_counter() - t:.1f} s): {lines[-1]}")
         finite_pos = all(isinstance(rec.get(k), (int, float)) and math.isfinite(rec[k])
                          and rec[k] > 0 for k in ("value", "device_img_s_per_chip",
                                                   "disk_wall_img_s_per_chip",
-                                                  "disk_decode_planes_per_s"))
+                                                  "disk_decode_planes_per_s",
+                                                  "b16_wall_img_s_per_chip",
+                                                  "b16_device_img_s_per_chip"))
         ph.check(finite_pos and 0 < rec["mfu"] <= 1 and 0 < rec["device_busy_share"] <= 1
+                 and 0 < rec["b16_device_mfu"] <= 1 and rec["b16_batch"] == B16_TRAIN_B
                  and rec["metric"] == "dino_pretrain_images_per_sec_per_chip"
-                 and len(lines) == 3,
+                 and len(lines) == 4,
                  f"bench at {BENCH_STEPS} steps: {len(lines)} JSON lines, the last parses: value "
                  f"{rec.get('value')} img/s, device {rec.get('device_img_s_per_chip')} img/s, "
                  f"mfu {rec.get('mfu')}, busy share {rec.get('device_busy_share')}, multicrop "
                  f"{rec.get('aug_device_ms')} ms a step, disk {rec.get('disk_wall_img_s_per_chip')}"
                  f" img/s, decode {rec.get('disk_decode_planes_per_s')} planes/s, decoder "
-                 f"{rec.get('decoder')}")
+                 f"{rec.get('decoder')}; B/16 at {BENCH_B16_STEPS} steps of "
+                 f"{rec.get('b16_batch')}: wall {rec.get('b16_wall_img_s_per_chip')} img/s, "
+                 f"device {rec.get('b16_device_img_s_per_chip')} img/s, mfu "
+                 f"{rec.get('b16_device_mfu')}")
+        torch.cuda.empty_cache()
+
+    # ---- 4e. ChAdaViT-B/16 on the unfused route ---------------------------------
+    with Phase("4e ChAdaViT-B/16", failures) as ph, tempfile.TemporaryDirectory() as tmp:
+        from chadavit_tpu_torch import main_pretrain
+
+        hd64 = {tag: (fa.instance("prefix_attention_fwd" + tag, 64),
+                      fa.instance("prefix_attention_bwd" + tag, 64)) for tag in ("", "_bf16")}
+
+        def b16_expected(tag, fwd_n, bwd_n):
+            out = {name: 0 for name in instances}
+            out.update({hd64[tag][0]: fwd_n, hd64[tag][1]: bwd_n})
+            return out
+
+        # (a) served: the hub on 24 images in batches of 8, each batch padded
+        # to 10 channels (S 2048), against the same model with the attention's
+        # plain version; only the head-64 forward launches
+        images16 = hub.random_images(B16_SERVED_COUNTS, 224, seed=8)
+        n_batches = math.ceil(len(images16) / batch)
+        emb16 = {}
+        for tag, dt, bound in (("", torch.float32, SERVED_COS), ("_bf16", bf16, SERVED_BF16_COS)):
+            model16 = chada_vit(embed_dim=D16, num_heads=H16, return_all_tokens=False, dtype=dt)
+            model16.load_state_dict(random_state_dict(model16, 0))
+            model16 = model16.to(dev).eval()
+            reset_launches()
+            t = time.perf_counter()
+            emb16[tag] = hub.extract_embeddings(model16, images16, batch_size=batch)
+            served16_s = time.perf_counter() - t
+            launches = read_launches()
+            want = b16_expected(tag, len(model16.blocks) * n_batches, 0)
+            ph.check(emb16[tag].shape == (len(images16), D16)
+                     and bool(np.isfinite(emb16[tag]).all()),
+                     f"B/16{tag} served: embeddings {emb16[tag].shape}, finite ({served16_s:.2f} "
+                     f"s for {len(images16)} images of channels {B16_SERVED_COUNTS[:8]}...)")
+            ph.check(launches == want, f"B/16{tag} served launches {launches} == expected {want} "
+                     f"({len(model16.blocks)} layers x {n_batches} batches of the head-64 forward)")
+            with plain_attention(), torch.inference_mode():
+                plain16 = hub.extract_embeddings(model16, images16, batch_size=batch)
+            cos = cosine_rows(torch.from_numpy(emb16[tag]), torch.from_numpy(plain16))
+            err = np.abs(emb16[tag] - plain16).max()
+            ph.check(cos.min().item() >= bound,
+                     f"B/16{tag} served, kernels against the plain attention on the card: min "
+                     f"cosine 1 - {1 - cos.min().item():.2e} (>= 1 - {1 - bound:.0e}), max abs "
+                     f"{err:.3e}")
+            del model16, plain16
+            torch.cuda.empty_cache()
+
+        # (b) the train step at the root bench's B/16 spec, step 1 from the
+        # seeded init against the same model with the attention's plain forward
+        # and backward (plain_attention_function): the loss and each tensor's
+        # update at 4b's bounds, in float32 at 2 images x 2 crops and in
+        # bfloat16 at 8 (4b's bf16 bounds hold at the canonical 32 images: at 2
+        # images the DINO loss magnifies bf16 noise of both sides past them,
+        # ChAdaViT-moyen's plain chains too); then in bfloat16 at 2 images, each
+        # side against the float32 plain step: the kernels' step no farther from
+        # it than B16_F32_GAP times the plain bf16 step's distance
+        def step1(spec, counts, plain=False):
+            """Step 1 from the seeded init on a synthetic batch of ``counts``:
+            (loss, each tensor's update direction, the names, the launches)."""
+            batch_ = synthetic_dino_batch(spec, len(counts), seed=6, channel_counts=counts)
+            reset_launches()
+            with plain_attention() if plain else contextlib.nullcontext():
+                st, stp, _, _ = build_dino(spec)
+                st, m_ = stp(st, batch_)
+                loss_ = float(m_["dino_loss"])
+            out = (loss_, [b_.clone() for b_ in st.opt_state.momentum],
+                   [n for n, _ in st.trainable()], read_launches())
+            del st, stp, batch_, m_
+            torch.cuda.empty_cache()
+            return out
+
+        def update_cosines(dirs_a, dirs_b, names):
+            """Per-tensor cosines of two runs' update directions, sorted (the
+            tensors that neither run moves, the frozen prototypes, left out)."""
+            cos = []
+            for n, x, y in zip(names, dirs_a, dirs_b):
+                x, y = x.double().flatten(), y.double().flatten()
+                if x.any() or y.any():
+                    cos.append((torch.nn.functional.cosine_similarity(x, y, 0).item(), n))
+            return sorted(cos)
+
+        for tag, dt, counts, loss_bound, cos_bound in (
+                ("", torch.float32, B16_CHECK_COUNTS, TRAIN_LOSS_REL, TRAIN_UPDATE_COS),
+                ("_bf16", bf16, B16_CHECK_COUNTS_BF16, TRAIN_BF16_LOSS_REL,
+                 TRAIN_BF16_UPDATE_COS)):
+            spec16 = bench.b16_spec(dt)
+            t = time.perf_counter()
+            loss16, dirs16, names16, launches = step1(spec16, counts)
+            step16_s = time.perf_counter() - t
+            want = b16_expected(tag, 2 * 12, 12)
+            if tag == "":  # the float32 B/16 train path's launches
+                for name in hd64[tag]:
+                    stats[name]["launches"] = launches[name]
+            ph.check(math.isfinite(loss16) and launches == want,
+                     f"B/16{tag} step 1 of {len(counts)} images x 2 crops (channels {counts}), "
+                     f"depth 12, 65 536 prototypes: dino_loss {loss16:.6f} ({step16_s:.2f} s "
+                     f"with set-up); launches {launches} == expected {want}")
+            ploss, pdirs, _, _ = step1(spec16, counts, plain=True)
+            loss_rel = abs(ploss / loss16 - 1)
+            ph.check(loss_rel <= loss_bound,
+                     f"B/16{tag} step 1, kernels against the plain attention: loss rel "
+                     f"{loss_rel:.2e} (<= {loss_bound:g})")
+            check_updates(ph, f"B/16{tag} step 1", names16, dirs16, pdirs, spec16, cos_bound)
+            del dirs16, pdirs
+
+        spec_b, spec_f = bench.b16_spec(bf16), bench.b16_spec(torch.float32)
+        lk, dk, names16, _ = step1(spec_b, B16_CHECK_COUNTS)
+        lp, dp, _, _ = step1(spec_b, B16_CHECK_COUNTS, plain=True)
+        lf, df, _, _ = step1(spec_f, B16_CHECK_COUNTS, plain=True)
+        gap_k, gap_p = abs(lk / lf - 1), abs(lp / lf - 1)
+        ck, cp = update_cosines(dk, df, names16), update_cosines(dp, df, names16)
+        worst = (1 - ck[0][0], 1 - cp[0][0])
+        median = (1 - ck[len(ck) // 2][0], 1 - cp[len(cp) // 2][0])
+        ph.check(gap_k <= B16_F32_GAP * gap_p + TRAIN_BF16_LOSS_REL
+                 and worst[0] <= B16_F32_GAP * worst[1] and median[0] <= B16_F32_GAP * median[1],
+                 f"B/16_bf16 step 1 of {len(B16_CHECK_COUNTS)} images x 2 crops, each bf16 side "
+                 f"against the float32 plain step: loss rel kernels {gap_k:.2e}, plain "
+                 f"{gap_p:.2e} (kernels <= {B16_F32_GAP:g} x plain + {TRAIN_BF16_LOSS_REL:g}); "
+                 f"update cosines, worst 1 - {worst[0]:.2e} ({ck[0][1]}) against 1 - "
+                 f"{worst[1]:.2e} ({cp[0][1]}), median 1 - {median[0]:.2e} against 1 - "
+                 f"{median[1]:.2e} (kernels <= {B16_F32_GAP:g} x plain); kernels against plain: "
+                 f"loss rel {abs(lk / lp - 1):.2e}, worst update cosine 1 - "
+                 f"{1 - update_cosines(dk, dp, names16)[0][0]:.2e}")
+        del dk, dp, df
+
+        # then 3 steps of the root bench's B/16 batch: 16 raw uint8 images of 10
+        # channels, the multicrop inside the step; K3 24 and K4 12 launches a step
+        state16, fused16, backbone16, _ = build_dino(
+            bench.b16_spec(), device_augmentations=bench.ASYMMETRIC_AUGS)
+        rng = np.random.default_rng(9)
+        raw16 = torch.from_numpy(rng.integers(0, 255, (B16_TRAIN_B, 10, 224, 224),
+                                              dtype=np.uint8)).to(dev)
+        cc16 = torch.full((B16_TRAIN_B,), 10, dtype=torch.int32, device=dev)
+        reset_launches()
+        losses16 = []
+        t = time.perf_counter()
+        for i in range(TRAIN_STEPS):
+            state16, m = fused16(state16, {"images": raw16, "channel_counts": cc16,
+                                           "generator": da.aug_generator(2, i, dev)})
+            losses16.append(float(m["dino_loss"]))
+        torch.cuda.synchronize()
+        train16_s = time.perf_counter() - t
+        launches = read_launches()
+        depth16 = len(backbone16.blocks)
+        want = b16_expected("_bf16", 2 * depth16 * TRAIN_STEPS, depth16 * TRAIN_STEPS)
+        for name in hd64["_bf16"]:
+            stats[name]["launches"] = launches[name]
+        ph.check(all(math.isfinite(v) for v in losses16) and launches == want,
+                 f"B/16 bf16, {TRAIN_STEPS} steps of {B16_TRAIN_B} raw images of 10 channels, "
+                 f"the multicrop inside: dino_loss {losses16}, finite ({train16_s:.2f} s); "
+                 f"launches {launches} == expected {want} ({2 * depth16} of the head-64 forward "
+                 f"and {depth16} of its backward a step)")
+        b16_step = (state16, fused16, raw16, cc16)  # profiled in phase 5
+
+        # (c) the entry point on the B/16 pod YAML: one device, synthetic data,
+        # every batch padded to 10 channels (bucket_by_channels=false)
+        reset_launches()
+        t = time.perf_counter()
+        main_pretrain.main(["--config-path", str(B16_YAML.parent), "--config-name",
+                            B16_YAML.name, *B16_ENTRY, f"checkpoint.dir={tmp}/b16",
+                            f"max_steps={B16_ENTRY_STEPS}"])
+        torch.cuda.synchronize()
+        entry16_s = time.perf_counter() - t
+        launches = read_launches()
+        logs16 = read_logs(f"{tmp}/b16")
+        want = b16_expected("_bf16", 2 * 12 * B16_ENTRY_STEPS, 12 * B16_ENTRY_STEPS)
+        ph.check(sorted(logs16) == list(range(1, B16_ENTRY_STEPS + 1))
+                 and all(math.isfinite(logs16[i]["dino_loss"]) for i in logs16)
+                 and launches == want,
+                 f"python -m chadavit_tpu_torch.main_pretrain ... {B16_YAML.name} "
+                 f"{' '.join(B16_ENTRY)} max_steps={B16_ENTRY_STEPS}: dino_loss "
+                 f"{[logs16[i]['dino_loss'] for i in sorted(logs16)]}, finite ({entry16_s:.2f} s "
+                 f"with set-up); launches {launches} == expected {want}")
         torch.cuda.empty_cache()
 
     # ---- 5. times -------------------------------------------------------------
@@ -2072,6 +2514,62 @@ def main() -> int:
                 f"bound of its backward steps {layer_bwd_bound:.4f} ms (the three forward "
                 f"recomputes not counted)")
 
+            # the head-64 instances (ChAdaViT-B/16) at the hub shapes of phase 2b
+            # (B 8, S_pad 2048, D 768, 12 heads), on its inputs of seed 0: CUDA
+            # events (kernel, plain, plain, kernel), the library's SDPA with the
+            # key mask, the bound, the profiler's device time; the same bits twice
+            i16 = inputs16[tag]
+            q16, k16, v16, o16, lse16, do16 = (i16[n] for n in ("q", "k", "v", "out", "lse",
+                                                               "dout"))
+
+            def heads16(t):
+                return t.reshape(B, S_PAD, H16, D16 // H16).transpose(1, 2)
+
+            qh16, kh16, vh16 = (heads16(t) for t in (q16, k16, v16))
+            ql16 = qh16.detach().requires_grad_(True)
+            kl16, vl16 = (t.detach().requires_grad_(True) for t in (kh16, vh16))
+            sdpa16 = F.scaled_dot_product_attention(ql16, kl16, vl16, attn_mask=key_ok)
+            runs16 = {
+                "prefix_attention_fwd": site(
+                    lambda: fa.prefix_flash_attention(q16, k16, v16, vl, H16),
+                    lambda: fa.prefix_flash_attention_reference(q16, k16, v16, vl, H16),
+                    lambda: F.scaled_dot_product_attention(qh16, kh16, vh16, attn_mask=key_ok),
+                    sum(4 * n * n * D16 for n in valid_len), es * (3 * rows * D16 + m_all * D16)),
+                "prefix_attention_bwd": site(
+                    lambda: fa.prefix_attention_bwd(q16, k16, v16, o16, lse16, do16, vl, H16),
+                    lambda: fa.prefix_flash_attention_backward_reference(
+                        q16, k16, v16, o16, lse16, do16, vl, H16),
+                    lambda: torch.autograd.grad(sdpa16, (ql16, kl16, vl16), heads16(do16),
+                                                retain_graph=True),
+                    sum(10 * n * n * D16 for n in valid_len),
+                    es * (5 * rows * D16 + 3 * m_all * D16) + 4 * (2 * H16 * rows))}
+            for name, (kernel_fn, plain_fn, lib_fn, ops, nbytes) in runs16.items():
+                iname = fa.instance(name + tag, 64)
+                t1, p1, p2, t2 = (time_ms(fn) for fn in (kernel_fn, plain_fn, plain_fn,
+                                                         kernel_fn))
+                lib = time_ms(lib_fn)
+                t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+                ms = (t1 + t2) / 2
+                stats[iname].update(ms=ms, plain_ms=(p1 + p2) / 2, library_ms=lib,
+                                    bound_ms=max(t_ops, t_bytes),
+                                    bound_by="operations" if t_ops >= t_bytes else "bytes")
+                per_kernel = device_ms([kernel_fn])
+                dev16 = sum(per_kernel.values())
+                first, again = kernel_fn(), kernel_fn()
+                torch.cuda.synchronize()
+                ph.check(torch.equal(first, again),
+                         f"{iname} ({tuple(first.shape)}): the same bits on a second call")
+                log(f"  {iname} (B {B}, S_pad {S_PAD}, D {D16}, {H16} heads of 64): kernel "
+                    f"{ms:.4f} ms (CUDA events {t1:.4f}, {t2:.4f}), device {dev16:.4f} ms "
+                    f"(profiler; {100 * stats[iname]['bound_ms'] / dev16:.1f} % of its bound), "
+                    f"plain {(p1 + p2) / 2:.4f} ms, library {lib:.4f} ms, bound "
+                    f"{stats[iname]['bound_ms']:.4f} ms ({stats[iname]['bound_by']}); "
+                    + ", ".join(f"{k_[:60]} {v_:.4f}" for k_, v_ in
+                                sorted(per_kernel.items(), key=lambda kv: -kv[1])))
+                del first, again
+            del ql16, kl16, vl16, sdpa16, runs16
+            torch.cuda.empty_cache()
+
         xb, cb = hub.collate_images(images[:batch])
         xb, cb = xb.to(dev), cb.to(dev)
         for served_model, tag in ((model, ""), (model_b, " bf16")):
@@ -2143,6 +2641,51 @@ def main() -> int:
             f"channels {aug_counts[:10]}...): device {aug_ms:.3f} ms per step (profiler, {reps} "
             f"calls), {100 * aug_ms / busy:.1f} % of the profiled bf16 step's {busy:.2f} ms "
             f"({smi})")
+        # the B/16 bf16 step (4e's batch of 16 raw images of 10 channels, the
+        # multicrop inside): where its device time goes, the attention kernels
+        # against the library's GEMMs and the rest; then the same step with
+        # ln_impl=pallas (the unfused layer's LayerNorms through K5/K6)
+        state16, fused16, raw16, cc16 = b16_step
+        spec_ln = bench.b16_spec()
+        spec_ln.backbone_kwargs = dict(spec_ln.backbone_kwargs, ln_impl="pallas")
+        state_ln, fused_ln, _, _ = build_dino(spec_ln, device_augmentations=bench.ASYMMETRIC_AUGS)
+        for what, st16, fn16 in (("", state16, fused16), (" with ln_impl=pallas", state_ln,
+                                                          fused_ln)):
+            batch16 = {"images": raw16, "channel_counts": cc16,
+                       "generator": da.aug_generator(2, 99, dev)}
+            st16, _ = fn16(st16, dict(batch16))  # a step that warms the allocator
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                st16, m = fn16(st16, batch16)
+                float(m["dino_loss"])
+                torch.cuda.synchronize()
+                wall16 = time.perf_counter() - t
+            # kernels only: the multicrop's range has a device-side record of its own
+            events16 = [e for e in prof.key_averages() if e.self_device_time_total > 0
+                        and e.device_type == torch.autograd.DeviceType.CUDA
+                        and e.key != bench.AUG_RANGE]
+            busy16 = sum(e.self_device_time_total for e in events16) / 1e3
+            attn16 = sum(e.self_device_time_total for e in events16
+                         if "attention" in e.key) / 1e3
+            gemm16 = sum(e.self_device_time_total for e in events16
+                         if "attention" not in e.key
+                         and any(k_ in e.key.lower() for k_ in ("gemm", "cutlass", "sm90_xmma",
+                                                                 "ampere", "nvjet"))) / 1e3
+            useful = bench.model_flops_per_image(10, d=D16, f=FFN) * B16_TRAIN_B
+            log(f"  profiled B/16 bf16 step{what}, {B16_TRAIN_B} raw images of 10 channels, the "
+                f"multicrop inside: wall {wall16 * 1e3:.2f} ms, device busy {busy16:.2f} ms "
+                f"({100 * busy16 / (wall16 * 1e3):.1f} %), useful {useful / 1e12:.2f} TFLOP "
+                f"({useful / (busy16 * 1e-3) / PEAK_BF16_FLOPS:.4f} of 989 TFLOP/s on the device "
+                f"time); the attention kernels {attn16:.2f} ms ({100 * attn16 / busy16:.1f} %), "
+                f"the library's GEMMs {gemm16:.2f} ms ({100 * gemm16 / busy16:.1f} %), the rest "
+                f"{busy16 - attn16 - gemm16:.2f} ms ({smi}); by device time:")
+            for rank, e in enumerate(sorted(events16, key=lambda e: -e.self_device_time_total)
+                                     [:16]):
+                ms = e.self_device_time_total / 1e3
+                log(f"    {ms:9.3f} ms {100 * ms / busy16:5.1f} % x{e.count:<5d} #{rank + 1:<3d} "
+                    f"{e.key[:90]}")
+        del state_ln, fused_ln, st16, fn16
+        del b16_step, state16, fused16
         _launch.LAUNCHES.clear()
         _launch.LAUNCHES.update(saved)
         ph.check(all(math.isfinite(stats[n]["ms"]) for n in instances),

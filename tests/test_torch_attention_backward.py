@@ -28,28 +28,32 @@ from tests.test_torch_fused_block_backward import fake_cuda  # noqa: F401 (a fix
 B, S, D, H = 3, 256, 32, 2
 VALID = [256, 130, 60]
 TOL = dict(rtol=3e-5, atol=3e-5)
+MOYEN_HD = 96  # ChAdaViT-moyen's head width (D 192, 2 heads)
 
 
-def _inputs(seed=0):
+def _inputs(seed=0, d=D):
     rng = np.random.default_rng(seed)
-    q, k, v, g = (rng.standard_normal((B, S, D)).astype(np.float32) for _ in range(4))
+    q, k, v, g = (rng.standard_normal((B, S, d)).astype(np.float32) for _ in range(4))
     for i, n in enumerate(VALID):
         g[i, n:] = 0.0  # the model's contract: no cotangent past the prefix
     return q, k, v, g, np.asarray(VALID, np.int32)
 
 
-def _port_grads(q, k, v, g, vl, forward):
+def _port_grads(q, k, v, g, vl, forward, heads=H):
     qt, kt, vt = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
-    out = forward(qt, kt, vt, torch.from_numpy(vl), H)
+    out = forward(qt, kt, vt, torch.from_numpy(vl), heads)
     return out, torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(g))
 
 
-def test_matches_jax_vjp_of_the_pallas_kernel():
-    q, k, v, g, vl = _inputs()
-    _, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, jnp.asarray(vl), H, 128, True),
+# (D, heads): head widths 32 and 16, a narrow head-64 model, and ChAdaViT-B/16's
+# D 768 in 12 heads of 64, which the JAX kernel walks in two groups of 6 heads
+@pytest.mark.parametrize("d, heads", [(32, 1), (32, 2), (128, 2), (768, 12)])
+def test_matches_jax_vjp_of_the_pallas_kernel(d, heads):
+    q, k, v, g, vl = _inputs(d=d)
+    _, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, jnp.asarray(vl), heads, 128, True),
                      *map(jnp.asarray, (q, k, v)))
     ref = vjp(jnp.asarray(g))
-    out, grads = _port_grads(q, k, v, g, vl, flash_attention.prefix_flash_attention)
+    out, grads = _port_grads(q, k, v, g, vl, flash_attention.prefix_flash_attention, heads)
     assert type(out.grad_fn).__name__ == "PrefixFlashAttentionBackward"
     for name, got, want in zip("qkv", grads, ref):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), err_msg=f"d{name}", **TOL)
@@ -90,7 +94,7 @@ def _qkv(d, requires_grad):
 
 
 def test_cuda_route_with_grad_is_the_function_and_its_backward_launches(fake_cuda):
-    q, k, v = _qkv(2 * flash_attention.HEAD_DIM, True)
+    q, k, v = _qkv(2 * MOYEN_HD, True)
     vl = torch.tensor([128, 3], dtype=torch.int32)
     out = flash_attention.prefix_flash_attention(q, k, v, vl, 2)
     assert type(out.grad_fn).__name__ == "PrefixFlashAttentionBackward"
@@ -103,14 +107,15 @@ def test_cuda_route_with_grad_is_the_function_and_its_backward_launches(fake_cud
 
 
 def test_cuda_route_without_grad_takes_the_save_free_launch(fake_cuda):
-    q, k, v = _qkv(2 * flash_attention.HEAD_DIM, True)
+    q, k, v = _qkv(2 * MOYEN_HD, True)
     vl = torch.tensor([128, 3], dtype=torch.int32)
     with torch.no_grad():
         out = flash_attention.prefix_flash_attention(q, k, v, vl, 2)
     assert out.grad_fn is None and fake_cuda.calls == ["prefix_attention_fwd"]
 
 
-@pytest.mark.parametrize("d", [D, 2 * 64])
+# head widths 16, 128 and 32: none is built (the kernels take 64 and 96)
+@pytest.mark.parametrize("d", [D, 2 * 128, 2 * 32])
 def test_cuda_route_backward_refuses_other_head_widths(fake_cuda, d):
     q, k, v = _qkv(d, False)
     lse = torch.zeros(2, 2, 128)
@@ -120,11 +125,31 @@ def test_cuda_route_backward_refuses_other_head_widths(fake_cuda, d):
     assert fake_cuda.calls == []
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [2, 12])
+def test_cuda_route_head_64_reaches_the_kernels_with_its_width(fake_cuda, dtype, heads):
+    # ChAdaViT-B/16's head width (D 768 in 12 heads) and a narrow model's
+    q, k, v = (t.to(dtype).requires_grad_(True) for t in _qkv(64 * heads, False))
+    vl = torch.tensor([128, 3], dtype=torch.int32)
+    before = dict(_launch.LAUNCHES)
+    out = flash_attention.prefix_flash_attention(q, k, v, vl, heads)
+    out.backward(torch.zeros_like(out))
+    tag = "" if dtype == torch.float32 else "_bf16"
+    assert fake_cuda.calls == [f"prefix_attention_fwd{tag}", f"prefix_attention_bwd{tag}"]
+    fwd, bwd = fake_cuda.args
+    assert (fwd[9], fwd[10]) == (heads, 64) and (bwd[15], bwd[16]) == (heads, 64)
+    assert fwd[12] == pytest.approx(flash_attention._qscale(64, dtype))
+    assert bwd[19] == pytest.approx(1 / 8)
+    for name in (f"prefix_attention_fwd{tag}", f"prefix_attention_bwd{tag}"):
+        assert _launch.LAUNCHES[name + "_hd64"] == before.get(name + "_hd64", 0) + 1
+        assert _launch.LAUNCHES[name] == before.get(name, 0)  # the head-96 count stays
+
+
 # ---- the bf16 tensor-core kernels' operands (16-byte copies) ------------------
 def _bf16_slices(row, offset, b=2, s=128):
     """q, k, v: column slices of rows of ``row`` bf16 elements, q's first
     column at ``offset``."""
-    hd = flash_attention.HEAD_DIM
+    hd = MOYEN_HD
     buf = torch.zeros(b, s, row, dtype=torch.bfloat16)
     return [buf[..., offset + i * 2 * hd:offset + (i + 1) * 2 * hd] for i in range(3)]
 
@@ -151,7 +176,7 @@ def test_cuda_route_bf16_refuses_rows_the_copies_cannot_take(fake_cuda, which, r
 
 
 def test_cuda_route_bf16_backward_refuses_a_misaligned_cotangent(fake_cuda):
-    q, k, v = _bf16_slices(3 * 2 * flash_attention.HEAD_DIM, 0)
+    q, k, v = _bf16_slices(3 * 2 * MOYEN_HD, 0)
     flat = torch.zeros(q.numel() + 4, dtype=torch.bfloat16)
     o = flat[4:].view(q.shape)  # contiguous, 8 bytes past a 16-byte boundary
     with pytest.raises(ValueError, match="aligned"):
@@ -162,12 +187,30 @@ def test_cuda_route_bf16_backward_refuses_a_misaligned_cotangent(fake_cuda):
 @pytest.mark.parametrize("which", ["forward", "backward"])
 def test_cuda_route_bf16_takes_the_packed_slices_as_they_are(fake_cuda, which):
     # the layer's packed qkv: rows of 576, q/k/v 384 bytes apart
-    q, k, v = _bf16_slices(3 * 2 * flash_attention.HEAD_DIM, 0)
+    q, k, v = _bf16_slices(3 * 2 * MOYEN_HD, 0)
     _bf16_call(which, q, k, v)
     (args,) = fake_cuda.args
     assert fake_cuda.calls == [{"forward": "prefix_attention_fwd_bf16",
                                 "backward": "prefix_attention_bwd_bf16"}[which]]
     assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), 576)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["forward", "backward"])
+def test_cuda_route_takes_the_b16_packed_slices_as_they_are(fake_cuda, which, dtype):
+    # ChAdaViT-B/16's packed qkv: rows of 2304, q/k/v 768 elements apart
+    # (1536 bytes in bf16, 3072 in f32): both dtypes' kernels take them
+    buf = torch.zeros(2, 128, 3 * 768, dtype=dtype)
+    q, k, v = (buf[..., i * 768:(i + 1) * 768] for i in range(3))
+    vl = torch.tensor([128, 3], dtype=torch.int32)
+    if which == "forward":
+        with torch.no_grad():
+            flash_attention.prefix_flash_attention(q, k, v, vl, 12)
+    else:
+        o = torch.zeros(2, 128, 768, dtype=dtype)
+        flash_attention.prefix_attention_bwd(q, k, v, o, torch.zeros(2, 12, 128), o, vl, 12)
+    (args,) = fake_cuda.args
+    assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), 2304)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -182,7 +225,7 @@ def test_cuda_route_backward_allocates_its_scratch(fake_cuda, monkeypatch, dtype
 
     scratch = flash_attention._bwd_scratch
     monkeypatch.setattr(flash_attention, "_bwd_scratch", spy)
-    q, k, v = (t.to(dtype) for t in _bf16_slices(3 * 2 * flash_attention.HEAD_DIM, 0))
+    q, k, v = (t.to(dtype) for t in _bf16_slices(3 * 2 * MOYEN_HD, 0))
     _bf16_call("backward", q, k, v)
     ((delta, qs),) = made
     assert delta.dtype == torch.float32 and delta.shape == (2, 2, 128)
@@ -200,7 +243,7 @@ def test_cuda_route_backward_allocates_its_scratch(fake_cuda, monkeypatch, dtype
 def _f32_slices(row, offset, b=2, s=128):
     """q, k, v: float32 column slices of rows of ``row`` elements, q's first
     column at ``offset``."""
-    hd = flash_attention.HEAD_DIM
+    hd = MOYEN_HD
     buf = torch.zeros(b, s, row)
     return [buf[..., offset + i * 2 * hd:offset + (i + 1) * 2 * hd] for i in range(3)]
 
@@ -224,7 +267,7 @@ def test_cuda_route_f32_backward_copies_rows_its_copies_cannot_take(fake_cuda, r
 
 
 def test_cuda_route_f32_backward_refuses_a_misaligned_cotangent(fake_cuda):
-    q, k, v = _f32_slices(3 * 2 * flash_attention.HEAD_DIM, 0)
+    q, k, v = _f32_slices(3 * 2 * MOYEN_HD, 0)
     flat = torch.zeros(q.numel() + 2)
     o = flat[2:].view(q.shape)  # contiguous, 8 bytes past a 16-byte boundary
     with pytest.raises(ValueError, match="aligned"):

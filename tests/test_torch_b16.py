@@ -1,0 +1,177 @@
+"""ChAdaViT-B/16 in the port (D 768, 12 heads of 64, FFN 2048; the root
+bench's B/16 phase and ``scripts/pretrain/dino_chada_vit_b16_pod.yaml``), on
+the CPU, against the JAX package.
+
+- The route: the port's copy of the JAX layer's VMEM gate
+  (``ops/fused_block.py::jax_layer_fused``) equals the JAX arithmetic at
+  every sequence width of 1-10 channels, in both dtypes; on the CUDA route
+  (the launch stubbed) ChAdaViT-moyen takes the layer chain at S 2048,
+  B/16 at S 2048 the unfused layer with one attention forward launch a layer
+  forward and one backward launch a layer backward (and no chain launch),
+  and B/16 where the gate says fused raises ``NotImplementedError`` naming
+  the chain's missing D 768 instances.
+- The weights: the JAX model's init carried into the port
+  (``state_dict_from_jax_params``, the packed ``in_proj`` of 12 heads) gives
+  the same CLS and tokens, at B/16's widths (depth 2, 32 px) and a narrow
+  head-64 model (D 128, 2 heads), through the fused and the unfused layer;
+  the port's seeded weights and a 65 536-prototype head go to JAX and back
+  bit for bit (three DINO steps with that head: ``tests/test_torch_b16_train.py``).
+- The full-width fixtures that ``chip_smoke.py`` holds the card to:
+  ``tests/test_torch_b16_fixture.py``.
+
+Tolerance: float32 on both sides, 2e-5 relative (and absolute) on the CLS
+and tokens.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from chadavit_tpu.models.chada_vit import ChAdaViT as JaxChAdaViT
+from chadavit_tpu.models.import_torch import (
+    chada_vit_params_from_torch,
+    dino_head_params_from_torch,
+)
+from chadavit_tpu.ops import fused_block as jax_fused_block
+from chadavit_tpu_torch.models.chada_vit import ChAdaViT, EncoderLayer, chada_vit
+from chadavit_tpu_torch.models.dino_head import DINOHead
+from chadavit_tpu_torch.models.import_torch import (
+    head_state_dict_from_jax_params,
+    state_dict_from_jax_params,
+)
+from chadavit_tpu_torch.ops import _launch, fused_block
+from tests import torch_port_fixture as fixture
+from tests.test_torch_fused_block_backward import fake_cuda  # noqa: F401 (a fixture)
+
+D, HEADS, FFN = 768, 12, 2048
+# S_pad of a batch whose widest image has 1..10 channels (1 + 196 c, padded to 128)
+S_BY_CHANNELS = [256, 512, 640, 896, 1024, 1280, 1408, 1664, 1792, 2048]
+TOL = dict(rtol=2e-5, atol=2e-5)
+CHAIN = ["ln_linear_fwd", "prefix_attention_fwd", "linear_residual_ln_fwd", "linear_relu_fwd",
+         "linear_residual_ln_fwd"]
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _tag(dtype):
+    return "" if dtype == torch.float32 else "_bf16"
+
+
+# ---- the route: the JAX layer's gate ------------------------------------------------
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s", S_BY_CHANNELS)
+def test_gate_equals_the_jax_arithmetic(s, dtype):
+    itemsize = 4 if dtype == torch.float32 else 2
+    for d, heads in ((D, HEADS), (192, 2)):
+        blk = jax_fused_block.pick_block(s)
+        assert fused_block.pick_block(s) == blk
+        s_pad = -(-s // blk) * blk
+        est = jax_fused_block.vmem_estimate(s_pad, d, FFN, heads, blk, itemsize)
+        assert fused_block.vmem_estimate(s_pad, d, FFN, heads, blk, itemsize) == est
+        want = (d // heads) % 8 == 0 and est <= jax_fused_block.VMEM_BYTES
+        assert fused_block.jax_layer_fused(s, d, FFN, heads, dtype) == want
+
+
+def test_gate_sends_wide_b16_batches_to_the_unfused_layer():
+    # ChAdaViT-B/16: unfused from 8 channels in bf16, from 4 in f32; moyen never
+    fused = {dt: [fused_block.jax_layer_fused(s, D, FFN, HEADS, dt) for s in S_BY_CHANNELS]
+             for dt in DTYPES}
+    assert fused[torch.bfloat16] == [True] * 7 + [False] * 3
+    assert fused[torch.float32] == [True] * 3 + [False] * 7
+    assert all(fused_block.jax_layer_fused(s, 192, FFN, 2, dt)
+               for s in S_BY_CHANNELS for dt in DTYPES)
+    # no valid_len, attention weights asked, or a head width off 8: unfused
+    assert not fused_block.jax_layer_fused(256, D, FFN, HEADS, torch.float32,
+                                           has_valid_len=False)
+    assert not fused_block.jax_layer_fused(256, D, FFN, HEADS, torch.float32,
+                                           return_attention=True)
+    assert not fused_block.jax_layer_fused(256, 60, FFN, 2, torch.float32)
+
+
+# ---- the route on CUDA tensors, the launch stubbed -----------------------------------
+def _layer_run(d, heads, s, dtype, valid):
+    layer = EncoderLayer(d, heads, FFN, dtype=dtype)
+    x = torch.zeros(1, s, d, dtype=dtype, requires_grad=True)
+    return layer, x, layer(x, None, valid_len=torch.tensor([valid], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_moyen_takes_the_chain_at_2048(fake_cuda, dtype):
+    _, _, y = _layer_run(192, 2, 2048, dtype, 1961)
+    assert type(y.grad_fn).__name__ == "FusedEncoderBlockBackward"
+    assert fake_cuda.calls == [name + _tag(dtype) for name in CHAIN]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_b16_takes_the_unfused_layer_at_2048(fake_cuda, dtype):
+    fwd, bwd = "prefix_attention_fwd" + _tag(dtype), "prefix_attention_bwd" + _tag(dtype)
+    before = dict(_launch.LAUNCHES)
+    layer, x, y = _layer_run(D, HEADS, 2048, dtype, 1961)
+    assert fake_cuda.calls == [fwd]  # no chain launch: the library products and norms
+    y.float().sum().backward()
+    assert fake_cuda.calls == [fwd, bwd]
+    (fargs, bargs) = fake_cuda.args
+    assert (fargs[9], fargs[10], bargs[15], bargs[16]) == (HEADS, 64, HEADS, 64)
+    for name in (fwd, bwd):
+        assert _launch.LAUNCHES[name + "_hd64"] == before.get(name + "_hd64", 0) + 1
+    assert x.grad is not None and layer.self_attn.in_proj_weight.grad is not None
+
+
+@pytest.mark.parametrize("dtype, s", [(torch.bfloat16, 640), (torch.float32, 256)])
+def test_b16_where_the_gate_says_fused_raises(fake_cuda, dtype, s):
+    with pytest.raises(NotImplementedError, match="D 768 instances.*ROADMAP Queue 2"):
+        _layer_run(D, HEADS, s, dtype, s - 100)
+    assert fake_cuda.calls == []
+
+
+# ---- the weights and the model against JAX ---------------------------------------------
+SMALL = dict(img_size=32, patch_size=16, depth=2, ffn_dim=FFN, max_channels=10)
+SMALL_COUNTS = np.asarray([10, 1, 4, 7], np.int32)
+
+
+@pytest.mark.parametrize("block_impl", ["auto", "xla"])  # the layer chain; the unfused layer
+@pytest.mark.parametrize("d, heads", [(D, HEADS), (128, 2)])
+def test_jax_init_carried_across_gives_the_same_model(d, heads, block_impl):
+    cfg = dict(SMALL, embed_dim=d, num_heads=heads)
+    x = np.random.default_rng(5).random((len(SMALL_COUNTS), 10, 32, 32), dtype=np.float32)
+    outs = {}
+    for all_tokens in (False, True):
+        jm = JaxChAdaViT(return_all_tokens=all_tokens, block_impl="xla", attn_impl="xla", **cfg)
+        if not outs:
+            params = jm.init(jax.random.PRNGKey(1), jnp.asarray(x),
+                             jnp.asarray(SMALL_COUNTS))["params"]
+            sd = state_dict_from_jax_params(jax.tree_util.tree_map(np.asarray, params))
+            assert sd["blocks.0.self_attn.in_proj_weight"].shape == (3 * d, d)
+        m = ChAdaViT(return_all_tokens=all_tokens, block_impl=block_impl, **cfg)
+        m.load_state_dict(sd)
+        ref = jm.apply({"params": params}, jnp.asarray(x), jnp.asarray(SMALL_COUNTS))
+        with torch.no_grad():
+            out = m.eval()(torch.from_numpy(x), torch.from_numpy(SMALL_COUNTS))
+        if all_tokens:
+            (tok, valid), (ref_tok, ref_valid) = out, ref
+            np.testing.assert_array_equal(valid.numpy(), np.asarray(ref_valid))
+            v = valid.numpy()
+            np.testing.assert_allclose(tok.numpy()[v], np.asarray(ref_tok)[v], **TOL)
+        else:
+            np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+        outs[all_tokens] = out
+
+
+def test_b16_weights_and_head_go_to_jax_and_back_exactly():
+    from chadavit_tpu_torch.models.chada_vit import random_state_dict
+    from chadavit_tpu_torch.models.dino_head import random_head_state_dict
+
+    m = chada_vit(depth=2, img_size=32, embed_dim=D, num_heads=HEADS)
+    sd = {k: v.numpy() for k, v in random_state_dict(m, 7).items()}
+    back = state_dict_from_jax_params(chada_vit_params_from_torch(sd, depth=2))
+    assert set(back) == set(sd)
+    for k in sd:
+        np.testing.assert_array_equal(back[k].numpy(), sd[k], err_msg=k)
+    head = DINOHead(D, num_prototypes=fixture.B16_PROTOTYPES)
+    hsd = {k: v.numpy() for k, v in random_head_state_dict(head, 8).items()}
+    assert hsd["last_layer.weight_v"].shape == (fixture.B16_PROTOTYPES, 256)
+    hback = head_state_dict_from_jax_params(dino_head_params_from_torch(hsd))
+    assert set(hback) == set(hsd)
+    for k in hsd:
+        np.testing.assert_array_equal(hback[k].numpy(), hsd[k], err_msg=k)

@@ -1,8 +1,11 @@
 """The port's bench (``chadavit_tpu_torch/bench.py``) on the CPU: what can be
 checked without the card. Its cost model and recipe are the root
-``bench.py``'s, its spec the root bench's, its device sums count each kernel
-once, and it refuses a machine without CUDA (no CPU fallback, no result)."""
+``bench.py``'s, its specs (moyen's and the B/16 phase's) and knobs the root
+bench's, its device sums count each kernel once, and it refuses a machine
+without CUDA (no CPU fallback, no result), the B/16 phase too."""
 
+import ast
+from pathlib import Path
 from types import SimpleNamespace
 
 import pytest
@@ -49,3 +52,52 @@ def test_no_card_no_result(monkeypatch, capsys):
     assert "{" not in capsys.readouterr().out
     with pytest.raises(RuntimeError, match="CUDA"):
         bench.run(steps=1, disk=False)
+
+
+def _root_b16_spec_kwargs():
+    """The keyword arguments of the root bench's B/16 ``DinoPretrainSpec``
+    (``bench.py:552-561``), read from its source: literals, and the dtype's
+    name."""
+    tree = ast.parse(Path(root_bench.__file__).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and getattr(node.func, "id", None) == "DinoPretrainSpec":
+            bb = [k.value for k in node.keywords if k.arg == "backbone_kwargs"]
+            backbone = {k.arg: ast.literal_eval(k.value) for k in bb[0].keywords} if bb else {}
+            if backbone.get("embed_dim") != 768:
+                continue
+            kw = {k.arg: (k.value.attr if k.arg == "dtype" else ast.literal_eval(k.value))
+                  for k in node.keywords if k.arg != "backbone_kwargs"}
+            return dict(kw, backbone_kwargs=backbone)
+    raise AssertionError("no B/16 DinoPretrainSpec in the root bench")
+
+
+def test_b16_spec_and_knobs_are_the_root_benchs():
+    want = _root_b16_spec_kwargs()
+    spec = bench.b16_spec()
+    for k, v in want.items():
+        if k == "dtype":
+            assert v == "bfloat16" and spec.dtype == torch.bfloat16
+        elif k == "backbone_kwargs":
+            assert {n: spec.backbone_kwargs[n] for n in v} == v
+        else:
+            assert getattr(spec, k) == v, k
+    assert (spec.backbone_kwargs["embed_dim"], spec.backbone_kwargs["num_heads"]) == (768, 12)
+    assert (root_bench.B16_BATCH, root_bench.B16_STEPS) == (16, 6)
+    import inspect
+    defaults = inspect.signature(bench.run).parameters
+    assert (defaults["b16"].default, defaults["b16_batch"].default,
+            defaults["b16_steps"].default) == (True, 16, 6)
+
+
+def test_b16_flops_are_the_root_benchs():
+    f = bench.model_flops_per_image(10, d=768, f=2048)
+    assert f == root_bench.model_flops_per_image(10, d=768, f=2048)
+    assert round(f / 1e12, 3) == 3.213 and round(16 * f / 1e12, 2) == 51.41
+
+
+def test_b16_phase_without_a_card_gives_no_result(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.run(steps=1, disk=False, b16=True)
+    with pytest.raises((RuntimeError, AssertionError)):
+        bench.run_b16(batch=1, steps=1)

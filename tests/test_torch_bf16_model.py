@@ -29,6 +29,7 @@ from tests.test_torch_fused_block_backward import fake_cuda  # noqa: F401 (a fix
 
 SMALL = dict(embed_dim=32, depth=1, num_heads=2, img_size=32, max_number_channels=2)
 HUB_COS = 0.999
+MOYEN_HD = 96  # ChAdaViT-moyen's head width (D 192, 2 heads)
 
 
 # ---- the factory ------------------------------------------------------------------
@@ -164,7 +165,7 @@ def test_cuda_route_bf16_layer_reaches_the_bf16_kernels(fake_cuda):
 
 
 def test_cuda_route_bf16_attention_reaches_the_bf16_kernels(fake_cuda):
-    q, k, v = (_z(2, 128, 2 * flash_attention.HEAD_DIM, requires_grad=True) for _ in range(3))
+    q, k, v = (_z(2, 128, 2 * MOYEN_HD, requires_grad=True) for _ in range(3))
     vl = torch.tensor([128, 3], dtype=torch.int32)
     out = flash_attention.prefix_flash_attention(q, k, v, vl, 2)
     out.backward(torch.zeros_like(out))

@@ -35,9 +35,16 @@ def _assert_valid_rows_close(out, ref, valid, **tol):
         np.testing.assert_allclose(np.asarray(out)[i, :n], np.asarray(ref)[i, :n], **tol)
 
 
-@pytest.mark.parametrize("num_heads", [1, 2])
-def test_matches_jax_pallas_interpret(num_heads):
-    q, k, v, vl = _inputs()
+# (D, heads): head widths 32 and 16, a narrow head-64 model, and ChAdaViT-B/16's
+# D 768 in 12 heads of 64, which the JAX kernel walks in two groups of 6 heads
+# (384 lanes)
+WIDTHS = [pytest.param(32, 1, id="1"), pytest.param(32, 2, id="2"),
+          pytest.param(128, 2, id="128-2"), pytest.param(768, 12, id="768-12")]
+
+
+@pytest.mark.parametrize("d, num_heads", WIDTHS)
+def test_matches_jax_pallas_interpret(d, num_heads):
+    q, k, v, vl = _inputs(d=d)
     ref = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(vl),
                     num_heads, 128, True)
     out = flash_attention.prefix_flash_attention(

@@ -183,9 +183,15 @@ STEPS = ["ln_linear", "linear_relu", "linear_residual_ln", "prefix_flash_attenti
          "masked_multihead_attention", "fused_encoder_block", "EncoderLayer"]
 
 
+# the kernel wrappers refuse a width they are not built for (ValueError); the
+# layer chain, whose instances at other widths are not ported, raises
+# NotImplementedError naming them
+REFUSAL = {"fused_encoder_block": NotImplementedError, "EncoderLayer": NotImplementedError}
+
+
 @pytest.mark.parametrize("step", STEPS)
 def test_cuda_route_refuses_widths_the_kernels_are_not_built_for(cuda_route, step):
-    with pytest.raises(ValueError):
+    with pytest.raises(REFUSAL.get(step, ValueError)):
         _hub_steps(D, F, H)[step]()
 
 

@@ -37,6 +37,7 @@ B, S, D, H, F = 3, 256, 32, 2, 64
 VALID = [256, 130, 60]  # 60 < 128 leaves a whole sequence block to skip
 EPS1, EPS2 = 1e-5, 1e-6
 REL = 1e-4
+MOYEN_HD = 96  # ChAdaViT-moyen's head width (D 192, 2 heads)
 NAMES = ["wqkv", "bqkv", "wout", "bout", "g1", "b1", "g2", "b2", "w1", "b1f", "w2", "b2f"]
 
 
@@ -309,7 +310,7 @@ def test_cuda_route_backward_refuses_widths_the_kernels_are_not_built_for(cuda_r
 @pytest.mark.parametrize("call", BWD)
 def test_cuda_route_backward_launches_at_the_served_widths(cuda_route, call):
     with pytest.raises(KernelReached):
-        _bwd_calls(fused_block.D_MODEL, fused_block.D_FFN, flash_attention.HEAD_DIM)[call]()
+        _bwd_calls(fused_block.D_MODEL, fused_block.D_FFN, MOYEN_HD)[call]()
 
 
 def test_cuda_route_needs_valid_len(fake_cuda):

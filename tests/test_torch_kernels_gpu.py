@@ -1105,3 +1105,55 @@ def test_ln_bwd_splits_on_the_card(dev, shape, dtype, residual):
             assert (o - rf).abs().max().item() <= TOL * max(1.0, rf.abs().max().item())
         else:
             _assert_bf16_close(o, rf)
+
+
+# ---- K3 and K4 at head width 64 (ChAdaViT-B/16: D 768 in 12 heads) -----------------
+# The head-64 instances of both dtypes against their plain versions (the
+# bounds above: float32 1e-4, the gradients 1e-4 of their largest entry;
+# bfloat16 bf16_err) on the column slices of one packed qkv (rows of 3 D), at
+# every kind of prefix and at the hub's shapes, B/16's 12 heads and a narrow
+# model's 2: the lse, zeros and lse 1e30 on the query tiles past the prefix,
+# the backward with a cotangent on every row of the computed tiles (exact
+# zeros past them), each call twice for the same bits, and the launches
+# counted under the head-64 instance's name.
+HD64_WIDTHS = {"b16": (768, 12), "narrow": (128, 2)}
+HD64_BATCHES = {"ragged": (2048, ATTN_VALID), "hub": (2048, _HUB)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", list(HD64_WIDTHS))
+@pytest.mark.parametrize("batch", list(HD64_BATCHES))
+def test_head_64_attention_forward_and_backward(dev, batch, width, dtype):
+    d, heads = HD64_WIDTHS[width]
+    s, valid = HD64_BATCHES[batch]
+    rng = np.random.default_rng(len(valid) + d)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    qkv = _randn(rng, dev, len(valid), s, 3 * d).to(dtype)
+    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    rows = [min(-(-n // fa.SEQ_BLOCK) * fa.SEQ_BLOCK, s) for n in valid]
+    fwd = fa.instance(_launch.entry_point("prefix_attention_fwd", dtype), 64)
+    bwd = fa.instance(_launch.entry_point("prefix_attention_bwd", dtype), 64)
+    before = (_launch.LAUNCHES[fwd], _launch.LAUNCHES[bwd])
+    out, lse = fa.attention_forward(q, k, v, vl, heads, with_lse=True)
+    again, lse_again = fa.attention_forward(q, k, v, vl, heads, with_lse=True)
+    assert torch.equal(out, again) and torch.equal(lse, lse_again), "other bits"
+    assert out.dtype == dtype and lse.shape == (len(valid), heads, s)
+    ref, rlse = fa.prefix_flash_attention_reference(q, k, v, vl, heads, return_lse=True)
+    close = _assert_valid_rows_close if dtype == torch.float32 else _assert_bf16_close
+    close(out, ref, rows)
+    close(lse.transpose(1, 2), rlse.transpose(1, 2), rows)
+    for i, n in enumerate(rows):  # the query tiles past the prefix: zeros, lse 1e30
+        assert not out[i, n:].any().item() and (lse[i, :, n:] == 1e30).all().item()
+    dout = _tail_cotangent(_randn(rng, dev, len(valid), s, d), valid, fa.SEQ_BLOCK).to(dtype)
+    got = fa.prefix_attention_bwd(q, k, v, out, lse, dout, vl, heads)
+    assert torch.equal(got, fa.prefix_attention_bwd(q, k, v, out, lse, dout, vl, heads))
+    assert (_launch.LAUNCHES[fwd], _launch.LAUNCHES[bwd]) == (before[0] + 2, before[1] + 2)
+    gref = fa.prefix_flash_attention_backward_reference(q, k, v, out, lse, dout, vl, heads)
+    for j in range(3):  # dq, dk, dv
+        if dtype == torch.float32:
+            _assert_computed_rows_close(got[..., j * d:(j + 1) * d],
+                                        gref[..., j * d:(j + 1) * d], rows)
+        else:
+            _assert_bf16_close(got[..., j * d:(j + 1) * d], gref[..., j * d:(j + 1) * d], rows)
+    for i, n in enumerate(rows):  # the zero-filled tiles get exact zeros
+        assert not got[i, n:].any().item()

@@ -22,12 +22,23 @@ jnp.bfloat16)`` and ``DinoPretrainSpec(dtype=jnp.bfloat16)``, the canonical
 pretrain precision), from the same float32 weights; the CLS is stored in
 float32.
 
+ChAdaViT-B/16 (``MODELS["b16"]``: D 768, 12 heads of 64, FFN 2048), the same
+four runs at depth 2: ``torch_port_cls_b16_depth2.npz`` and
+``torch_port_cls_b16_bf16_depth2.npz``, the CLS of the same four images
+(10, 7, 3 and 1 channels, so the batch pads to 2048 rows, where the JAX layer
+takes its unfused route), and ``torch_port_dino_b16_depth2.npz`` and
+``torch_port_dino_b16_bf16_depth2.npz``, three DINO steps with the root
+bench's B/16 head (65 536 prototypes) on two images with 10 and 4 channels.
+Each records its widths (``embed_dim``, ``num_heads``, and for DINO
+``num_prototypes``).
+
 The card's machine has no JAX, so ``chip_smoke.py`` reads only the npz files
 and rebuilds the weights and inputs from the seeds recorded in them.
 
-Regenerate all four with ``JAX_PLATFORMS=cpu python -m tests.torch_port_fixture``;
-``tests/test_torch_fixture.py`` and ``tests/test_torch_fixture_bf16.py``
-recompute them and check the committed files.
+Regenerate all eight with ``JAX_PLATFORMS=cpu python -m tests.torch_port_fixture``
+(``... torch_port_fixture b16`` for the four B/16 files alone);
+``tests/test_torch_fixture.py``, ``tests/test_torch_fixture_bf16.py`` and
+``tests/test_torch_b16.py`` recompute them and check the committed files.
 """
 
 from __future__ import annotations
@@ -45,16 +56,23 @@ IMG_SIZE = 224
 DEPTH = 2
 
 
-def port_state_dict() -> dict:
+# the widths of each fixture's backbone (both packages' factory keys)
+MODELS = {"moyen": dict(embed_dim=192, num_heads=2),
+          "b16": dict(embed_dim=768, num_heads=12)}
+B16_PATH = PATH.parent / "torch_port_cls_b16_depth2.npz"
+B16_BF16_PATH = PATH.parent / "torch_port_cls_b16_bf16_depth2.npz"
+
+
+def port_state_dict(model: str = "moyen") -> dict:
     """The fixture's weights, in the port's layout, as numpy."""
     from chadavit_tpu_torch.models.chada_vit import chada_vit, random_state_dict
 
-    model = chada_vit(depth=DEPTH, return_all_tokens=False, img_size=IMG_SIZE)
-    return {k: v.numpy() for k, v in random_state_dict(model, WEIGHT_SEED).items()}
+    m = chada_vit(depth=DEPTH, return_all_tokens=False, img_size=IMG_SIZE, **MODELS[model])
+    return {k: v.numpy() for k, v in random_state_dict(m, WEIGHT_SEED).items()}
 
 
-def jax_cls(dtype: str = "float32") -> np.ndarray:
-    """``(4, 192)`` CLS embeddings of the fixture's images from the JAX model
+def jax_cls(dtype: str = "float32", model: str = "moyen") -> np.ndarray:
+    """``(4, D)`` CLS embeddings of the fixture's images from the JAX model
     (its XLA path on the CPU) computing in ``dtype``, as float32."""
     import jax.numpy as jnp
 
@@ -63,16 +81,17 @@ def jax_cls(dtype: str = "float32") -> np.ndarray:
     from chadavit_tpu.models.import_torch import chada_vit_params_from_torch
     from chadavit_tpu_torch.hub import random_images
 
-    params = chada_vit_params_from_torch(port_state_dict(), depth=DEPTH)
-    model = chada_vit(depth=DEPTH, return_all_tokens=False, img_size=IMG_SIZE,
-                      dtype=getattr(jnp, dtype))
+    params = chada_vit_params_from_torch(port_state_dict(model), depth=DEPTH)
+    m = chada_vit(depth=DEPTH, return_all_tokens=False, img_size=IMG_SIZE,
+                  dtype=getattr(jnp, dtype), **MODELS[model])
     x, cc = collate_images(random_images(COUNTS, IMG_SIZE, IMAGE_SEED))
-    return np.asarray(model.apply({"params": params}, x, cc).astype(jnp.float32), np.float32)
+    return np.asarray(m.apply({"params": params}, x, cc).astype(jnp.float32), np.float32)
 
 
-def write(path: Path = PATH, dtype: str = "float32") -> None:
-    np.savez(path, cls=jax_cls(dtype), weight_seed=WEIGHT_SEED, image_seed=IMAGE_SEED,
-             counts=np.asarray(COUNTS, np.int32), img_size=IMG_SIZE, depth=DEPTH)
+def write(path: Path = PATH, dtype: str = "float32", model: str = "moyen") -> None:
+    widths = MODELS[model] if model != "moyen" else {}  # the moyen files predate the key
+    np.savez(path, cls=jax_cls(dtype, model), weight_seed=WEIGHT_SEED, image_seed=IMAGE_SEED,
+             counts=np.asarray(COUNTS, np.int32), img_size=IMG_SIZE, depth=DEPTH, **widths)
 
 
 DINO_PATH = PATH.parent / "torch_port_dino_depth2.npz"
@@ -90,24 +109,37 @@ DINO_SPEC = dict(
     warmup_teacher_temperature_epochs=2)
 
 
-def dino_port_init():
+# ChAdaViT-B/16 with the root bench's head (bench.py:552-561: 65 536
+# prototypes); two images of 10 and 4 channels pad the batch to 2048 rows
+B16_DINO_PATH = PATH.parent / "torch_port_dino_b16_depth2.npz"
+B16_DINO_BF16_PATH = PATH.parent / "torch_port_dino_b16_bf16_depth2.npz"
+B16_PROTOTYPES = 65536
+B16_DINO_COUNTS = (10, 4)
+B16_DINO_SPEC = dict(
+    DINO_SPEC, num_prototypes=B16_PROTOTYPES,
+    backbone_kwargs=dict(DINO_SPEC["backbone_kwargs"], **MODELS["b16"]))
+DINO_RUNS = {"moyen": (DINO_SPEC, DINO_COUNTS), "b16": (B16_DINO_SPEC, B16_DINO_COUNTS)}
+
+
+def dino_port_init(model: str = "moyen"):
     """The port's seeded init of the fixture's student: ``(backbone state
     dict, head state dict)`` as numpy, as ``build_dino(seed=WEIGHT_SEED)``
     draws them."""
     from chadavit_tpu_torch.train.pretrain import DinoPretrainSpec, build_dino
 
-    state, _, _, _ = build_dino(DinoPretrainSpec(**DINO_SPEC), device="cpu",
+    state, _, _, _ = build_dino(DinoPretrainSpec(**DINO_RUNS[model][0]), device="cpu",
                                 seed=WEIGHT_SEED)
     return tuple({k: v.numpy() for k, v in state.student[part].state_dict().items()}
                  for part in ("backbone", "head"))
 
 
-def dino_batch():
+def dino_batch(model: str = "moyen"):
     """The fixture's batch, ``{"crops", "channel_counts"}`` as numpy."""
     from chadavit_tpu_torch.train.pretrain import DinoPretrainSpec, synthetic_dino_batch
 
-    batch = synthetic_dino_batch(DinoPretrainSpec(**DINO_SPEC), len(DINO_COUNTS),
-                                 DINO_BATCH_SEED, DINO_COUNTS, device="cpu")
+    spec, counts = DINO_RUNS[model]
+    batch = synthetic_dino_batch(DinoPretrainSpec(**spec), len(counts), DINO_BATCH_SEED,
+                                 counts, device="cpu")
     return {k: v.numpy() for k, v in batch.items()}
 
 
@@ -128,7 +160,7 @@ def _named_norms(tree) -> dict:
             for k, v in sd.items()}
 
 
-def jax_dino(dtype: str = "float32") -> dict:
+def jax_dino(dtype: str = "float32", model: str = "moyen") -> dict:
     """Run the JAX ``build_dino`` step (XLA on the CPU) from the port's init,
     computing in ``dtype``, and return the fixture's arrays."""
     import jax
@@ -141,17 +173,17 @@ def jax_dino(dtype: str = "float32") -> dict:
     from chadavit_tpu.parallel.mesh import make_mesh
     from chadavit_tpu.train.pretrain import DinoPretrainSpec, build_dino
 
-    backbone_sd, head_sd = dino_port_init()
+    backbone_sd, head_sd = dino_port_init(model)
     student = {"backbone": chada_vit_params_from_torch(backbone_sd, depth=DEPTH),
                "head": dino_head_params_from_torch(head_sd)}
     student = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float32), student)
     mesh = make_mesh(n_model=1, devices=jax.devices()[:1])
-    state, step, _, _ = build_dino(DinoPretrainSpec(**DINO_SPEC, dtype=getattr(jnp, dtype)),
-                                   mesh=mesh)
+    state, step, _, _ = build_dino(
+        DinoPretrainSpec(**DINO_RUNS[model][0], dtype=getattr(jnp, dtype)), mesh=mesh)
     state = state.replace(student=student,
                           teacher=jax.tree_util.tree_map(jnp.copy, student))
     before = _named_norms(student)
-    batch = {k: jnp.asarray(v) for k, v in dino_batch().items()}
+    batch = {k: jnp.asarray(v) for k, v in dino_batch(model).items()}
     batch["crops"] = batch["crops"].astype(getattr(jnp, dtype))
     hist = {k: [] for k in DINO_METRICS}
     for _ in range(DINO_STEPS):
@@ -169,18 +201,29 @@ def jax_dino(dtype: str = "float32") -> dict:
                                         for n in names]))
 
 
-def write_dino(path: Path = DINO_PATH, dtype: str = "float32") -> None:
-    np.savez(path, **jax_dino(dtype), weight_seed=WEIGHT_SEED, batch_seed=DINO_BATCH_SEED,
-             counts=np.asarray(DINO_COUNTS, np.int32), steps=DINO_STEPS, depth=DEPTH)
+def write_dino(path: Path = DINO_PATH, dtype: str = "float32", model: str = "moyen") -> None:
+    spec, counts = DINO_RUNS[model]
+    widths = {} if model == "moyen" else dict(MODELS[model],
+                                              num_prototypes=spec["num_prototypes"])
+    np.savez(path, **jax_dino(dtype, model), weight_seed=WEIGHT_SEED,
+             batch_seed=DINO_BATCH_SEED, counts=np.asarray(counts, np.int32), steps=DINO_STEPS,
+             depth=DEPTH, **widths)
+
+
+FILES = {"moyen": (("float32", PATH, DINO_PATH), ("bfloat16", BF16_PATH, DINO_BF16_PATH)),
+         "b16": (("float32", B16_PATH, B16_DINO_PATH),
+                 ("bfloat16", B16_BF16_PATH, B16_DINO_BF16_PATH))}
 
 
 if __name__ == "__main__":
+    import sys
+
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    for dtype, cls_path, dino_path in (("float32", PATH, DINO_PATH),
-                                       ("bfloat16", BF16_PATH, DINO_BF16_PATH)):
-        write(cls_path, dtype)
-        print(f"wrote {cls_path}")
-        write_dino(dino_path, dtype)
-        print(f"wrote {dino_path}")
+    for model in sys.argv[1:] or list(FILES):
+        for dtype, cls_path, dino_path in FILES[model]:
+            write(cls_path, dtype, model)
+            print(f"wrote {cls_path}")
+            write_dino(dino_path, dtype, model)
+            print(f"wrote {dino_path}")
