@@ -17,10 +17,19 @@
 // (67 TFLOP/s of f32 FMA outside the tensor cores). All three are redesigned
 // for Hopper on the shared main loop of sgemm_f32.cuh (their notes below):
 // cp.async rings, register tiles of 48-64 sums a thread fed by 16-byte shared
-// reads. ln_linear_fwd and linear_relu_fwd keep a block's 32 x 192 input rows
+// reads. ln_linear_fwd and linear_relu_fwd keep a block's 32 x D input rows
 // resident in shared memory (ln_linear_fwd normalises them there once) and
 // stream the weight through the ring; D = 192 fits one block's columns, so
 // linear_residual_ln_fwd's LayerNorm epilogue stays in the block.
+//
+// Each kernel is built for the layer's two widths, D 192 (ChAdaViT-moyen)
+// and D 768 (ChAdaViT-B/16), FFN 2048 at both: ln_linear_fwd and
+// linear_relu_fwd are templates on K = D (at D 768 the resident rows take
+// 98.8 KB, so one block an SM), and linear_residual_ln_fwd at D 768 is a
+// cluster of four blocks along the columns, each the D 192 tile, that add
+// their rows' partial LayerNorm sums through distributed shared memory. The
+// D 192 instances compile to the code they had. The launchers refuse any
+// other width.
 //
 // The three kernels here are float32 only. The bf16 path the JAX package
 // trains in (precision "bf16": bf16 activations, f32 parameters cast to bf16
@@ -107,29 +116,35 @@ namespace {
 #ifndef LL_STAGES
 #define LL_STAGES 3
 #endif
-constexpr int LL_N = 3 * D_MODEL;    // qkv's columns
 constexpr int LL_BK = 16;
 constexpr int LL_LDW = LL_BK + 4;    // a staged Wqkv row, padded
-constexpr int LL_LDX = D_MODEL + 4;  // a resident x row, padded
 constexpr int LL_TM = 8;             // a thread's rows; LL_TN its columns
 constexpr int LL_WARPS = LL_BN / (8 * LL_TN);  // 32 rows x 8 LL_TN columns a warp
 constexpr int LL_THREADS = LL_WARPS * 32;
 constexpr int LL_STAGE = LL_BN * LL_LDW;  // floats
-constexpr int LL_SMEM = (BM * LL_LDX + LL_STAGES * LL_STAGE) * 4;
-// blocks an SM by shared memory (227 KB, 1 KB of it reserved a block): the
-// register budget follows from it
-constexpr int LL_BLOCKS_SM = 232448 / (LL_SMEM + 1024) > 0 ? 232448 / (LL_SMEM + 1024) : 1;
-static_assert(LL_BN % (8 * LL_TN) == 0 && BM == 4 * LL_TM &&
-                  LL_N % (LL_SLABS * LL_BN) == 0 && LL_BN * LL_BK / 4 % LL_THREADS == 0,
-              "ln_linear tile shape");
 
-__global__ void __launch_bounds__(LL_THREADS, LL_BLOCKS_SM)
+template <int K>  // K = D, the width
+struct LnLinearF32 {
+  static constexpr int N = 3 * K;     // qkv's columns
+  static constexpr int LDX = K + 4;   // a resident x row, padded
+  static constexpr int SMEM = (BM * LDX + LL_STAGES * LL_STAGE) * 4;
+  // blocks an SM by shared memory (227 KB, 1 KB of it reserved a block): the
+  // register budget follows from it (D 192: three; D 768: one)
+  static constexpr int BLOCKS_SM = 232448 / (SMEM + 1024) > 0 ? 232448 / (SMEM + 1024) : 1;
+  static_assert(LL_BN % (8 * LL_TN) == 0 && BM == 4 * LL_TM && N % (LL_SLABS * LL_BN) == 0 &&
+                    LL_BN * LL_BK / 4 % LL_THREADS == 0,
+                "ln_linear tile shape");
+};
+
+template <int K>
+__global__ void __launch_bounds__(LL_THREADS, LnLinearF32<K>::BLOCKS_SM)
 ln_linear_kernel(const float* __restrict__ x, const float* __restrict__ g,
                  const float* __restrict__ beta, float eps, const float* __restrict__ w,
                  const float* __restrict__ bias, float* __restrict__ out,
                  float* __restrict__ mean_out, float* __restrict__ rstd_out,
                  const int* __restrict__ valid_len, int s_pad) {
-  constexpr int K = D_MODEL, N = LL_N, KS = K / LL_BK;  // stages a slab
+  constexpr int N = LnLinearF32<K>::N, KS = K / LL_BK;  // stages a slab
+  constexpr int LL_LDX = LnLinearF32<K>::LDX;
   constexpr int COLS = LL_SLABS * LL_BN;                 // the block's columns
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * COLS;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -272,20 +287,27 @@ ln_linear_kernel(const float* __restrict__ x, const float* __restrict__ g,
 constexpr int LR_BN = 256;           // a slab of output columns
 constexpr int LR_BK = 16;
 constexpr int LR_LDW = LR_BK + 4;    // a staged W1 row, padded
-constexpr int LR_LDX = D_MODEL + 4;  // a resident x row, padded
 constexpr int LR_THREADS = 128;      // 4 warps of 32 rows x 64 columns
 constexpr int LR_TM = 8, LR_TN = 8;  // a thread's rows and columns
 constexpr int LR_STAGE = LR_BN * LR_LDW;  // floats
-constexpr int LR_SMEM = (BM * LR_LDX + LR_STAGES * LR_STAGE) * 4;
 static_assert(LR_BN == LR_THREADS / 32 * 8 * LR_TN && BM == 4 * LR_TM &&
                   D_FFN % (LR_SLABS * LR_BN) == 0,
               "linear_relu tile shape");
 
+template <int K>  // K = D, the width
+struct LinearReluF32 {
+  static constexpr int LDX = K + 4;  // a resident x row, padded
+  // D 192: 84.5 KB, two blocks an SM; D 768: 156.5 KB, one
+  static constexpr int SMEM = (BM * LDX + LR_STAGES * LR_STAGE) * 4;
+};
+
+template <int K>
 __global__ void __launch_bounds__(LR_THREADS, 2)
 linear_relu_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ bias, float* __restrict__ out,
                    const int* __restrict__ valid_len, int s_pad) {
-  constexpr int K = D_MODEL, N = D_FFN, KS = K / LR_BK;  // stages a slab
+  constexpr int N = D_FFN, KS = K / LR_BK;  // stages a slab
+  constexpr int LR_LDX = LinearReluF32<K>::LDX;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * LR_SLABS * LR_BN;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (tile_is_padding(m0, s_pad, valid_len)) {  // uniform, before any barrier
@@ -386,6 +408,20 @@ linear_relu_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // LRN_SPLIT_FFN sets the FFN2 site's cluster size, so that
 // scripts/bench_linear_f32.py can time other splits of the same source; the
 // out-projection (K 192) takes no split.
+//
+// At D 768 (CB = 4 column blocks) a row is four of the D 192 tiles: a
+// cluster of CB blocks owns one 32-row tile and block `rank` its 192
+// columns [192 rank, 192 (rank + 1)), over all of K (no K split: the four
+// column blocks already give the FFN2 site four times the blocks, and the
+// cluster stays at 4, under the portable 8). Each block computes the D 192
+// tile (the same ring, warps and sums, with W's rows and the residual's
+// columns of its slice), adds bias and residual, and takes each row's
+// partial sums of r and r^2 over its columns, one warp a row; after a
+// cluster barrier every block adds the CB partials in rank order through
+// distributed shared memory (the same bits in every block and on every run),
+// forms the stats with the max(0, .) clamp and normalises its own columns; a
+// second cluster barrier keeps the partials in place until every block has
+// read them. Block 0 of the cluster writes the stats.
 #ifndef LRN_SPLIT_FFN
 #define LRN_SPLIT_FFN 2
 #endif
@@ -404,7 +440,7 @@ static_assert(LRN_BN == LRN_WARPS * 4 * LRN_TN && LRN_BM == 8 * LRN_TM &&
                   LRN_BM * LRN_LDR <= LRN_STAGES * LRN_STAGE,
               "linear_residual_ln tile shape");
 
-template <int SPLIT>
+template <int SPLIT, int CB>
 __global__ void __launch_bounds__(LRN_THREADS)
 linear_residual_ln_kernel(const float* __restrict__ a, const float* __restrict__ w,
                           const float* __restrict__ bias, const float* __restrict__ res,
@@ -413,27 +449,42 @@ linear_residual_ln_kernel(const float* __restrict__ a, const float* __restrict__
                           float* __restrict__ rstd_out, float* __restrict__ r_out,
                           const int* __restrict__ valid_len, int K, int s_pad) {
   constexpr int BN = LRN_BN, ROWS = LRN_BM / SPLIT;  // rows a block normalises
+  constexpr int D = CB * BN;                          // a row's columns
   static_assert(LRN_BM % SPLIT == 0, "whole rows a block");
+  static_assert(CB == 1 || SPLIT == 1, "a cluster splits K or the columns, not both");
   namespace cg = cooperative_groups;
-  const int rank = SPLIT > 1 ? (int)cg::this_cluster().block_rank() : 0;
-  const int m0 = blockIdx.x / SPLIT * LRN_BM;
+  const int rank = SPLIT * CB > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int m0 = blockIdx.x / (SPLIT * CB) * LRN_BM;
+  const int c0 = CB > 1 ? rank * BN : 0;  // the block's first column
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (tile_is_padding(m0, s_pad, valid_len)) {  // the whole cluster, before any barrier
-    const int r0 = m0 + rank * ROWS;
     const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int c = tid; c < ROWS * BN / 4; c += LRN_THREADS) {
-      reinterpret_cast<float4*>(out + (size_t)r0 * BN)[c] = z;
-      if (r_out != nullptr) reinterpret_cast<float4*>(r_out + (size_t)r0 * BN)[c] = z;
-    }
-    if (mean_out != nullptr && tid < ROWS) {
-      mean_out[r0 + tid] = 0.f;
-      rstd_out[r0 + tid] = 0.f;
+    if constexpr (CB > 1) {
+      for (int c = tid; c < LRN_BM * BN / 4; c += LRN_THREADS) {
+        const size_t o = (size_t)(m0 + c / (BN / 4)) * D + c0 + c % (BN / 4) * 4;
+        *reinterpret_cast<float4*>(out + o) = z;
+        if (r_out != nullptr) *reinterpret_cast<float4*>(r_out + o) = z;
+      }
+      if (mean_out != nullptr && rank == 0 && tid < LRN_BM) {
+        mean_out[m0 + tid] = 0.f;
+        rstd_out[m0 + tid] = 0.f;
+      }
+    } else {
+      const int r0 = m0 + rank * ROWS;
+      for (int c = tid; c < ROWS * BN / 4; c += LRN_THREADS) {
+        reinterpret_cast<float4*>(out + (size_t)r0 * BN)[c] = z;
+        if (r_out != nullptr) reinterpret_cast<float4*>(r_out + (size_t)r0 * BN)[c] = z;
+      }
+      if (mean_out != nullptr && tid < ROWS) {
+        mean_out[r0 + tid] = 0.f;
+        rstd_out[r0 + tid] = 0.f;
+      }
     }
     return;
   }
   extern __shared__ __align__(16) float lrn_smem[];
   const int ty = lane >> 2, tx = lane & 3;
-  const int kpart = K / SPLIT, kbase = rank * kpart;
+  const int kpart = K / SPLIT, kbase = (CB > 1 ? 0 : rank) * kpart;
 
   auto load = [&](int s, int slot) {  // K columns [s BK, (s + 1) BK) of the block's range
     float* as = lrn_smem + slot * LRN_STAGE;
@@ -447,7 +498,7 @@ linear_residual_ln_kernel(const float* __restrict__ a, const float* __restrict__
     for (int q = 0; q < BN * LRN_BK / 4 / LRN_THREADS; ++q) {
       const int idx = tid + q * LRN_THREADS;
       const int r = idx / (LRN_BK / 4), c = idx % (LRN_BK / 4) * 4;
-      sgemm::cp_async_16(ws + r * LRN_LD + c, w + (size_t)r * K + k0 + c);
+      sgemm::cp_async_16(ws + r * LRN_LD + c, w + (size_t)(c0 + r) * K + k0 + c);
     }
   };
   float acc[LRN_TM][LRN_TN];
@@ -473,63 +524,115 @@ linear_residual_ln_kernel(const float* __restrict__ a, const float* __restrict__
   for (int i = 0; i < LRN_TM; ++i)
 #pragma unroll
     for (int j = 0; j < LRN_TN; ++j) rt[(ty + 8 * i) * LRN_LDR + warp * 48 + tx + 4 * j] = acc[i][j];
-  if constexpr (SPLIT > 1) cg::this_cluster().sync();  // every block's sums are in place
-  else __syncthreads();
-  const float* tiles[SPLIT] = {rt};  // every block's row tile, by rank
-  if constexpr (SPLIT > 1)
-#pragma unroll
-    for (int q = 0; q < SPLIT; ++q) tiles[q] = cg::this_cluster().map_shared_rank(rt, q);
-  for (int rr = warp; rr < ROWS; rr += LRN_WARPS) {  // one warp a row
-    const int r = rank * ROWS + rr;
-    const size_t o = (size_t)(m0 + r) * BN;
-    float v[BN / 32], s = 0.f, ss = 0.f;
-#pragma unroll
-    for (int c = 0; c < BN / 32; ++c) {
+  if constexpr (CB > 1) {
+    // D 768: r = res + (a @ W^T + bias) (the JAX order) over the block's
+    // columns, one warp a row: its partial sums, then the row after the
+    // cluster barrier, with the CB blocks' partials added in rank order
+    __shared__ float2 part[LRN_BM];  // each row's sum of r and of r^2 over the block's columns
+    __syncthreads();
+    auto r_of = [&](int r, int c) {
       const int n = lane + 32 * c;
-      float p = tiles[0][r * LRN_LDR + n];
+      return res[(size_t)(m0 + r) * D + c0 + n] + (rt[r * LRN_LDR + n] + bias[c0 + n]);
+    };
+    for (int r = warp; r < LRN_BM; r += LRN_WARPS) {
+      float s = 0.f, ss = 0.f;
 #pragma unroll
-      for (int q = 1; q < SPLIT; ++q) p += tiles[q][r * LRN_LDR + n];  // in rank order
-      // (a @ W^T + bias) first, then the residual: the JAX order
-      v[c] = res[o + n] + (p + bias[n]);
-      s += v[c];
-      ss += v[c] * v[c];
+      for (int c = 0; c < BN / 32; ++c) {
+        const float v = r_of(r, c);
+        s += v;
+        ss += v * v;
+      }
+      s = warp_sum(s);
+      ss = warp_sum(ss);
+      if (lane == 0) part[r] = make_float2(s, ss);
     }
-    s = warp_sum(s);
-    ss = warp_sum(ss);
-    const float mu = s / BN;
-    const float rstd = rsqrtf(fmaxf(ss / BN - mu * mu, 0.f) + eps);
+    cg::this_cluster().sync();  // every block's partials are in place
+    const float2* parts[CB];
 #pragma unroll
-    for (int c = 0; c < BN / 32; ++c) {
-      const int n = lane + 32 * c;
-      out[o + n] = (v[c] - mu) * rstd * g[n] + beta[n];
-      if (r_out != nullptr) r_out[o + n] = v[c];
+    for (int q = 0; q < CB; ++q) parts[q] = cg::this_cluster().map_shared_rank(part, q);
+    for (int r = warp; r < LRN_BM; r += LRN_WARPS) {
+      float2 t = parts[0][r];
+#pragma unroll
+      for (int q = 1; q < CB; ++q) {  // in rank order
+        const float2 u = parts[q][r];
+        t.x += u.x;
+        t.y += u.y;
+      }
+      const float mu = t.x / D;
+      const float rstd = rsqrtf(fmaxf(t.y / D - mu * mu, 0.f) + eps);
+      const size_t o = (size_t)(m0 + r) * D + c0;
+#pragma unroll
+      for (int c = 0; c < BN / 32; ++c) {
+        const int n = lane + 32 * c;
+        const float v = r_of(r, c);
+        out[o + n] = (v - mu) * rstd * g[c0 + n] + beta[c0 + n];
+        if (r_out != nullptr) r_out[o + n] = v;
+      }
+      if (mean_out != nullptr && rank == 0 && lane == 0) {
+        mean_out[m0 + r] = mu;
+        rstd_out[m0 + r] = rstd;
+      }
     }
-    if (mean_out != nullptr && lane == 0) {
-      mean_out[m0 + r] = mu;
-      rstd_out[m0 + r] = rstd;
+    cg::this_cluster().sync();  // the partials stay until read
+  } else {
+    if constexpr (SPLIT > 1) cg::this_cluster().sync();  // every block's sums are in place
+    else __syncthreads();
+    const float* tiles[SPLIT] = {rt};  // every block's row tile, by rank
+    if constexpr (SPLIT > 1)
+#pragma unroll
+      for (int q = 0; q < SPLIT; ++q) tiles[q] = cg::this_cluster().map_shared_rank(rt, q);
+    for (int rr = warp; rr < ROWS; rr += LRN_WARPS) {  // one warp a row
+      const int r = rank * ROWS + rr;
+      const size_t o = (size_t)(m0 + r) * BN;
+      float v[BN / 32], s = 0.f, ss = 0.f;
+#pragma unroll
+      for (int c = 0; c < BN / 32; ++c) {
+        const int n = lane + 32 * c;
+        float p = tiles[0][r * LRN_LDR + n];
+#pragma unroll
+        for (int q = 1; q < SPLIT; ++q) p += tiles[q][r * LRN_LDR + n];  // in rank order
+        // (a @ W^T + bias) first, then the residual: the JAX order
+        v[c] = res[o + n] + (p + bias[n]);
+        s += v[c];
+        ss += v[c] * v[c];
+      }
+      s = warp_sum(s);
+      ss = warp_sum(ss);
+      const float mu = s / BN;
+      const float rstd = rsqrtf(fmaxf(ss / BN - mu * mu, 0.f) + eps);
+#pragma unroll
+      for (int c = 0; c < BN / 32; ++c) {
+        const int n = lane + 32 * c;
+        out[o + n] = (v[c] - mu) * rstd * g[n] + beta[n];
+        if (r_out != nullptr) r_out[o + n] = v[c];
+      }
+      if (mean_out != nullptr && lane == 0) {
+        mean_out[m0 + r] = mu;
+        rstd_out[m0 + r] = rstd;
+      }
     }
+    if constexpr (SPLIT > 1) cg::this_cluster().sync();  // the tiles stay until read
   }
-  if constexpr (SPLIT > 1) cg::this_cluster().sync();  // the tiles stay until read
 }
 
-template <int SPLIT>
+template <int SPLIT, int CB = 1>
 int linear_residual_ln_launch(const float* a, const float* w, const float* bias,
                               const float* res, const float* g, const float* beta, float eps,
                               float* out, float* mean_out, float* rstd_out, float* r_out,
                               const int* valid_len, int M, int K, int s_pad,
                               cudaStream_t st) {
-  auto kernel = linear_residual_ln_kernel<SPLIT>;
+  auto kernel = linear_residual_ln_kernel<SPLIT, CB>;
   int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     LRN_SMEM);
   if (e != 0) return e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(M / LRN_BM * SPLIT);
+  cfg.gridDim = dim3(M / LRN_BM * SPLIT * CB);
   cfg.blockDim = dim3(LRN_THREADS);
   cfg.dynamicSmemBytes = LRN_SMEM;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = SPLIT;
+  attr[0].val.clusterDim.x = SPLIT * CB;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -544,49 +647,59 @@ int linear_residual_ln_launch(const float* a, const float* w, const float* bias,
 
 extern "C" {
 
-// x (M, 192), w (576, 192), out (M, 576). mean_out and rstd_out, (M,) each,
-// are written when not null (both or neither): the LN1 row stats, zeros on
-// skipped tiles.
+// x (M, D), w (3 D, D), out (M, 3 D), D 192 or 768. mean_out and rstd_out,
+// (M,) each, are written when not null (both or neither): the LN1 row stats,
+// zeros on skipped tiles.
 int ln_linear_fwd(const float* x, const float* g, const float* beta, float eps,
                   const float* w, const float* bias, float* out, float* mean_out,
                   float* rstd_out, const int* valid_len, int M, int K, int N,
                   int s_pad, void* stream) {
-  if (!rows_ok(M, K, s_pad) || K != D_MODEL || N != LL_N)
+  if (!rows_ok(M, K, s_pad) || !is_width(K) || N != 3 * K)
     return (int)cudaErrorInvalidValue;
-  int e = (int)cudaFuncSetAttribute(ln_linear_kernel,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize, LL_SMEM);
-  if (e != 0) return e;
-  ln_linear_kernel<<<dim3(M / BM, N / (LL_SLABS * LL_BN)), LL_THREADS, LL_SMEM,
-                     static_cast<cudaStream_t>(stream)>>>(x, g, beta, eps, w, bias, out,
-                                                          mean_out, rstd_out, valid_len, s_pad);
-  return (int)cudaGetLastError();
+  auto run = [&](auto kernel, int smem) {
+    int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != 0) return e;
+    kernel<<<dim3(M / BM, N / (LL_SLABS * LL_BN)), LL_THREADS, smem,
+             static_cast<cudaStream_t>(stream)>>>(x, g, beta, eps, w, bias, out, mean_out,
+                                                  rstd_out, valid_len, s_pad);
+    return (int)cudaGetLastError();
+  };
+  if (K == D_MODEL) return run(ln_linear_kernel<D_MODEL>, LnLinearF32<D_MODEL>::SMEM);
+  return run(ln_linear_kernel<D_WIDE>, LnLinearF32<D_WIDE>::SMEM);
 }
 
-// x (M, 192), w (2048, 192), out (M, 2048).
+// x (M, D), w (2048, D), out (M, 2048), D 192 or 768.
 int linear_relu_fwd(const float* x, const float* w, const float* bias,
                     float* out, const int* valid_len, int M, int K, int N,
                     int s_pad, void* stream) {
-  if (!rows_ok(M, K, s_pad) || K != D_MODEL || N != D_FFN)
+  if (!rows_ok(M, K, s_pad) || !is_width(K) || N != D_FFN)
     return (int)cudaErrorInvalidValue;
-  int e = (int)cudaFuncSetAttribute(linear_relu_kernel,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize, LR_SMEM);
-  if (e != 0) return e;
-  linear_relu_kernel<<<dim3(M / BM, N / (LR_SLABS * LR_BN)), LR_THREADS, LR_SMEM,
-                       static_cast<cudaStream_t>(stream)>>>(x, w, bias, out, valid_len, s_pad);
-  return (int)cudaGetLastError();
+  auto run = [&](auto kernel, int smem) {
+    int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != 0) return e;
+    kernel<<<dim3(M / BM, N / (LR_SLABS * LR_BN)), LR_THREADS, smem,
+             static_cast<cudaStream_t>(stream)>>>(x, w, bias, out, valid_len, s_pad);
+    return (int)cudaGetLastError();
+  };
+  if (K == D_MODEL) return run(linear_relu_kernel<D_MODEL>, LinearReluF32<D_MODEL>::SMEM);
+  return run(linear_relu_kernel<D_WIDE>, LinearReluF32<D_WIDE>::SMEM);
 }
 
-// a (M, K) with K 192 (out-proj) or 2048 (FFN2), w (192, K), res and out (M, 192).
-// When not null: mean_out and rstd_out (M,) get the LN row stats (both or
-// neither), r_out (M, 192) the pre-LN sum; zeros on skipped tiles.
+// a (M, K) with K = N (out-proj) or 2048 (FFN2), w (N, K), res and out (M, N),
+// N = D 192 or 768. When not null: mean_out and rstd_out (M,) get the LN row
+// stats (both or neither), r_out (M, N) the pre-LN sum; zeros on skipped tiles.
 int linear_residual_ln_fwd(const float* a, const float* w, const float* bias,
                            const float* res, const float* g, const float* beta,
                            float eps, float* out, float* mean_out,
                            float* rstd_out, float* r_out, const int* valid_len,
                            int M, int K, int N, int s_pad, void* stream) {
-  if (!rows_ok(M, K, s_pad) || N != D_MODEL || (K != D_MODEL && K != D_FFN))
+  if (!rows_ok(M, K, s_pad) || !is_width(N) || (K != N && K != D_FFN))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N == D_WIDE)  // both sites: four column blocks a cluster, no K split
+    return linear_residual_ln_launch<1, D_WIDE / LRN_BN>(a, w, bias, res, g, beta, eps, out,
+                                                          mean_out, rstd_out, r_out, valid_len,
+                                                          M, K, s_pad, st);
   if (K == D_FFN)
     return linear_residual_ln_launch<LRN_SPLIT_FFN>(a, w, bias, res, g, beta, eps, out,
                                                     mean_out, rstd_out, r_out, valid_len, M,

@@ -41,6 +41,12 @@
 // stats there mean nothing). Every skip decision is uniform per block and
 // taken before the first barrier.
 //
+// Every kernel here is built for both of the layer's widths, D 192
+// (ChAdaViT-moyen) and D 768 (ChAdaViT-B/16, FFN 2048 in both): linear_dgrad
+// and linear_wgrad take the same tiles at both, and at D 768 their grids hold
+// four times as many 192-wide tiles; layernorm_bwd is a template on D. The
+// launchers refuse any other width.
+//
 // The contract, the TPU kernel's (fused_block.py:33-39): the forward computes
 // every row of a 32-row tile that holds a valid row for real, also the rows
 // past valid_len, and zero-fills the tiles wholly past it. The backward is
@@ -67,16 +73,17 @@
 
 namespace {
 
-// ---- layernorm_bwd: grid (splits), one warp per row, 6 columns per lane ------
+// ---- layernorm_bwd: grid (splits), one warp per row, D / 32 columns per lane --
 // Block `split` walks the 32-row tiles [split T / splits, (split + 1) T /
 // splits) of the T = M / BM in order: dx of every row of a tile that holds a
 // valid row, zeros on the others, and dgamma/dbeta summed in registers over
 // its tiles; then one partial sum per split, warps in a fixed order. splits is
 // the caller's plan (ops/fused_block.py::layernorm_bwd_splits), a bound that
 // does not grow with the batch, so the scratch and the second pass stay small.
-constexpr int LN_COLS = D_MODEL / 32;
-
-template <typename T>
+// D is the width: 192 (6 columns a lane, the warps' sums staged at once) or
+// 768 (24 a lane; dgamma's sums, then dbeta's, so that the staging stays 24 KB
+// of static shared memory).
+template <int D, typename T>
 __global__ void __launch_bounds__(NT)
 layernorm_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ xin,
                      const float* __restrict__ mean,
@@ -85,6 +92,7 @@ layernorm_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ xin,
                      T* __restrict__ dx, float* __restrict__ partial,
                      const int* __restrict__ valid_len, int s_pad, int n_tiles,
                      int splits) {
+  constexpr int LN_COLS = D / 32;
   const int split = blockIdx.x;
   const int t0 = (int)((long long)split * n_tiles / splits);
   const int t1 = (int)((long long)(split + 1) * n_tiles / splits);
@@ -99,12 +107,12 @@ layernorm_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ xin,
   for (int tile = t0; tile < t1; ++tile) {
     const int m0 = tile * BM;
     if (tile_is_padding(m0, s_pad, valid_len)) {  // uniform across the block
-      zero_tile<D_MODEL>(dx, D_MODEL, m0, 0);
+      zero_tile<D>(dx, D, m0, 0);
       continue;  // adds nothing to the sums
     }
     for (int r = warp; r < BM; r += WARPS) {  // the whole warp takes one row
       const int row = m0 + r;
-      const size_t off = (size_t)row * D_MODEL;
+      const size_t off = (size_t)row * D;
       const float mu = mean[row], rs = rstd[row];
       float d[LN_COLS], xh[LN_COLS], s1 = 0.f, s2 = 0.f;
 #pragma unroll
@@ -115,7 +123,7 @@ layernorm_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ xin,
         s1 += dyg;
         s2 += dyg * xh[j];
       }
-      const float m1 = warp_sum(s1) / D_MODEL, m2 = warp_sum(s2) / D_MODEL;
+      const float m1 = warp_sum(s1) / D, m2 = warp_sum(s2) / D;
 #pragma unroll
       for (int j = 0; j < LN_COLS; ++j) {
         float v = rs * (d[j] * gc[j] - m1 - xh[j] * m2);
@@ -127,18 +135,35 @@ layernorm_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ xin,
     }
   }
   // the split's partial sums, zeros when it summed no tile: warps in a fixed order
-  __shared__ float red[WARPS][2 * D_MODEL];
+  if constexpr (D == D_MODEL) {
+    __shared__ float red[WARPS][2 * D];
 #pragma unroll
-  for (int j = 0; j < LN_COLS; ++j) {
-    red[warp][lane + 32 * j] = pg[j];
-    red[warp][D_MODEL + lane + 32 * j] = pb[j];
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < 2 * D_MODEL; c += NT) {
-    float s = 0.f;
+    for (int j = 0; j < LN_COLS; ++j) {
+      red[warp][lane + 32 * j] = pg[j];
+      red[warp][D + lane + 32 * j] = pb[j];
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < 2 * D; c += NT) {
+      float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) s += red[w][c];
-    partial[(size_t)split * 2 * D_MODEL + c] = s;
+      for (int w = 0; w < WARPS; ++w) s += red[w][c];
+      partial[(size_t)split * 2 * D + c] = s;
+    }
+  } else {
+    __shared__ float red[WARPS][D];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {  // dgamma's sums, then dbeta's
+      if (half) __syncthreads();  // every thread is done with dgamma's
+#pragma unroll
+      for (int j = 0; j < LN_COLS; ++j) red[warp][lane + 32 * j] = half ? pb[j] : pg[j];
+      __syncthreads();
+      for (int c = threadIdx.x; c < D; c += NT) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) s += red[w][c];
+        partial[(size_t)split * 2 * D + half * D + c] = s;
+      }
+    }
   }
 }
 
@@ -148,12 +173,13 @@ layernorm_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ xin,
 // split wrote its partial, so the loads are independent of each other and of
 // valid_len, and stay in flight together.
 constexpr int LN_RED_WARPS = 32;
-static_assert((2 * D_MODEL) % 32 == 0, "whole warps of outputs");
 
+template <int D>
 __global__ void __launch_bounds__(LN_RED_WARPS * 32)
 reduce_ln_splits_kernel(const float* __restrict__ partial, float* __restrict__ out,
                         int splits, int accumulate) {
-  constexpr int N_OUT = 2 * D_MODEL;
+  constexpr int N_OUT = 2 * D;
+  static_assert(N_OUT % 32 == 0, "whole warps of outputs");
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int i = blockIdx.x * 32 + lane;
   float s = 0.f;
@@ -184,7 +210,9 @@ reduce_ln_splits_kernel(const float* __restrict__ partial, float* __restrict__ o
 // so 67 TFLOP/s of f32 FMA is the limit. The design:
 // - a block owns one 32-row tile of the contract and BN output columns: all
 //   192 at the out-projection, QKV and FFN1 sites, 256 of hid's 2048 at FFN2
-//   (so that site's grid is 8 column slices a row tile); each warp takes 32
+//   (so that site's grid is 8 column slices a row tile; at D 768 the three
+//   N 768 sites take 4 slices of 192, the epilogues being elementwise, and
+//   the D 192 instances run as they did); each warp takes 32
 //   rows x 64 columns, a thread 8 rows x 8 columns (64 sums: rows ty + 4 i,
 //   columns 4 tx + {0..3} and 32 + 4 tx + {0..3} of its warp's);
 // - dY (K contiguous) and W (read as (K, N): N contiguous) are staged as they
@@ -358,8 +386,9 @@ linear_dgrad_kernel(const float* __restrict__ dy, const float* __restrict__ w,
 // What bounds it: operations. At hub shapes the four sites do 17.5 GFLOP on
 // the rows the forward computed, against about 0.1 GB of inputs, so 67
 // TFLOP/s of f32 FMA is the limit. The design:
-// - the grid is output tiles x splits. A tile spans the 192-wide side of dW
-//   whole (K at the QKV, out-projection and FFN1 sites, N at FFN2) and 64 of
+// - the grid is output tiles x splits. A tile spans 192 of the D-wide side of
+//   dW (K at the QKV, out-projection and FFN1 sites, N at FFN2: the whole
+//   side at D 192, a quarter at D 768) and 64 of
 //   the other, so the 2048-wide operand (dz1 or hid) is read from device
 //   memory once; each of its 6 warps owns 32 x 64 of the tile, a thread 8 x 8
 //   sums (n at 4 ln + {0..3} and 16 + 4 ln + {0..3}, k at 4 lk + {0..3} and
@@ -554,16 +583,20 @@ int layernorm_bwd_launch(const T* dy, const T* xin, const float* mean,
                          float* partial, float* dgb, int accumulate,
                          const int* valid_len, int M, int N, int s_pad, int splits,
                          void* stream) {
-  if (!rows_ok(M, BK, s_pad) || N != D_MODEL || splits < 1 || splits > M / BM)
+  if (!rows_ok(M, BK, s_pad) || !is_width(N) || splits < 1 || splits > M / BM)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  layernorm_bwd_kernel<T><<<splits, NT, 0, st>>>(dy, xin, mean, rstd, g, res, dx, partial,
-                                                 valid_len, s_pad, M / BM, splits);
-  int e = (int)cudaGetLastError();
-  if (e != 0) return e;
-  reduce_ln_splits_kernel<<<2 * D_MODEL / 32, LN_RED_WARPS * 32, 0, st>>>(partial, dgb, splits,
-                                                                           accumulate);
-  return (int)cudaGetLastError();
+  auto run = [&](auto kernel, auto reduce, int d) {
+    kernel<<<splits, NT, 0, st>>>(dy, xin, mean, rstd, g, res, dx, partial, valid_len, s_pad,
+                                   M / BM, splits);
+    int e = (int)cudaGetLastError();
+    if (e != 0) return e;
+    reduce<<<2 * d / 32, LN_RED_WARPS * 32, 0, st>>>(partial, dgb, splits, accumulate);
+    return (int)cudaGetLastError();
+  };
+  if (N == D_MODEL)
+    return run(layernorm_bwd_kernel<D_MODEL, T>, reduce_ln_splits_kernel<D_MODEL>, D_MODEL);
+  return run(layernorm_bwd_kernel<D_WIDE, T>, reduce_ln_splits_kernel<D_WIDE>, D_WIDE);
 }
 
 template <int BN, int EPI, int SPLIT>
@@ -617,8 +650,8 @@ int wgrad_launch(const float* dy, const float* x, const float* mean, const float
 // linear_wgrad_bf16 are in linear_bwd_bf16.cu.
 extern "C" {
 
-// dy, xin, dx (and res, when not null): (M, 192); mean, rstd: (M,);
-// partial: (splits, 384) scratch, 1 <= splits <= M / 32; dgb: (384,) =
+// dy, xin, dx (and res, when not null): (M, N), N 192 or 768; mean, rstd:
+// (M,); partial: (splits, 2 N) scratch, 1 <= splits <= M / 32; dgb: (2 N,) =
 // dgamma then dbeta, summed into when accumulate is 1, else overwritten.
 int layernorm_bwd(const float* dy, const float* xin, const float* mean,
                   const float* rstd, const float* g, const float* res, float* dx,
@@ -638,8 +671,9 @@ int layernorm_bwd_bf16(const bf16* dy, const bf16* xin, const float* mean,
 
 // dy (M, K), w (K, N) (the forward's Linear weight, out x in), out (M, N).
 // epilogue 0: none; 1: out = (dy @ w) [aux > 0]; 2: out = aux + dy @ w; aux is
-// (M, N). The sites of one layer: K 192 -> N 2048 (mask), K 2048 -> N 192
-// (residual), K 192 -> N 192 and K 576 -> N 192 (none).
+// (M, N). The sites of one layer of width D (192 or 768): K D -> N 2048
+// (mask), K 2048 -> N D (residual), K D -> N D and K 3 D -> N D (none); at
+// D 768 the N D sites take four 192-column tiles of the grid.
 int linear_dgrad(const float* dy, const float* w, const float* aux, float* out,
                  int epilogue, const int* valid_len, int M, int K, int N,
                  int s_pad, void* stream) {
@@ -649,20 +683,20 @@ int linear_dgrad(const float* dy, const float* w, const float* aux, float* out,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (N == D_FFN && epilogue == EPI_RELU_MASK)  // FFN2 -> hid
     return dgrad_launch<256, EPI_RELU_MASK, 1>(dy, w, aux, out, valid_len, M, K, N, s_pad, st);
-  if (N == D_MODEL && epilogue == EPI_RESIDUAL)  // FFN1 -> x2
+  if (is_width(N) && epilogue == EPI_RESIDUAL)  // FFN1 -> x2
     return dgrad_launch<D_MODEL, EPI_RESIDUAL, DG_SPLIT_FFN>(dy, w, aux, out, valid_len, M, K,
                                                              N, s_pad, st);
-  if (N == D_MODEL && K == 3 * D_MODEL && epilogue == EPI_NONE)  // QKV
+  if (is_width(N) && K == 3 * N && epilogue == EPI_NONE)  // QKV
     return dgrad_launch<D_MODEL, EPI_NONE, DG_SPLIT_QKV>(dy, w, aux, out, valid_len, M, K, N,
                                                          s_pad, st);
-  if (N == D_MODEL && epilogue == EPI_NONE)  // out-projection
+  if (is_width(N) && epilogue == EPI_NONE)  // out-projection
     return dgrad_launch<D_MODEL, EPI_NONE, 1>(dy, w, aux, out, valid_len, M, K, N, s_pad, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // dy (M, N), x (M, K); dwb: (N * K + N,) = dW (N, K) row-major, then db (N,).
-// With mean (not null; K 192 only), x is layer-normed with mean, rstd, g,
-// beta as it is staged. partial: (splits, N * K + N) scratch, 1 <= splits
+// With mean (not null; K 192 or 768 only), x is layer-normed with mean,
+// rstd, g, beta as it is staged. partial: (splits, N * K + N) scratch, 1 <= splits
 // <= 1024; the tile shapes and so the grid are those of
 // ops/fused_block.py::WGRAD_F32_TILES. Every operand 16-byte aligned.
 int linear_wgrad(const float* dy, const float* x, const float* mean,
@@ -671,15 +705,15 @@ int linear_wgrad(const float* dy, const float* x, const float* mean,
                  int K, int s_pad, int splits, void* stream) {
   if (M <= 0 || s_pad <= 0 || s_pad % WG_ROWS || M % s_pad || M / s_pad > WG_MAX_IMAGES ||
       splits < 1 || splits > 1024 || !is_weight_shape(N, K) ||
-      (mean != nullptr && K != D_MODEL))
+      (mean != nullptr && !is_width(K)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int bsz = M / s_pad;
   int e;
-  if (K == D_FFN)  // FFN2: the 192 columns of dY whole, 64 of hid's
+  if (K == D_FFN)  // FFN2: 192 columns of dY (all of them at D 192), 64 of hid's
     e = wgrad_launch<D_MODEL, 64>(dy, x, mean, rstd, g, beta, partial, valid_len, N, K, s_pad,
                                   bsz, splits, st);
-  else  // QKV, out-projection, FFN1: 64 of dY's columns, the 192 of X whole
+  else  // QKV, out-projection, FFN1: 64 of dY's columns, 192 of X's (all at D 192)
     e = wgrad_launch<64, D_MODEL>(dy, x, mean, rstd, g, beta, partial, valid_len, N, K, s_pad,
                                   bsz, splits, st);
   if (e != 0) return e;

@@ -88,14 +88,22 @@ bool rows_ok(int M, int K, int s_pad) {
          K % BK == 0;
 }
 
-// The widths of ChAdaViT-moyen, the one model these kernels are built for:
-// D = 192, FFN 2048, so qkv has 3 * D = 576 columns. Other widths are refused.
+// The widths these kernels are built for: ChAdaViT-moyen's D = 192 and
+// ChAdaViT-B/16's D_WIDE = 768, both with FFN 2048, so qkv has 3 D columns.
+// D_MODEL (192) is also the column tile of the kernels that own whole rows at
+// D 192: at D 768 a row is four such tiles. Other widths are refused.
 constexpr int D_MODEL = 192;
+constexpr int D_WIDE = 768;
 constexpr int D_FFN = 2048;
 
-bool is_weight_shape(int N, int K) {  // the four Linear layers of the layer
-  return (N == 3 * D_MODEL && K == D_MODEL) || (N == D_MODEL && K == D_MODEL) ||
-         (N == D_FFN && K == D_MODEL) || (N == D_MODEL && K == D_FFN);
+__host__ __device__ constexpr bool is_width(int d) { return d == D_MODEL || d == D_WIDE; }
+
+bool is_weight_shape_at(int N, int K, int d) {  // the four Linear layers of a layer of width d
+  return (N == 3 * d && K == d) || (N == d && K == d) || (N == D_FFN && K == d) ||
+         (N == d && K == D_FFN);
+}
+bool is_weight_shape(int N, int K) {
+  return is_weight_shape_at(N, K, D_MODEL) || is_weight_shape_at(N, K, D_WIDE);
 }
 
 // linear_dgrad's epilogues: none; out = (dY @ W) [aux > 0]; out = aux + dY @ W

@@ -41,6 +41,16 @@
 //   tensor-core product (a B fragment of ones) in the blocks of the first K
 //   tile.
 //
+// Both kernels are built for the layer's two widths, D 192 (ChAdaViT-moyen)
+// and D 768 (ChAdaViT-B/16), FFN 2048: the tiles stay those of D 192 and
+// the grids hold more of them at D 768 (dgrad's N 768 sites four column
+// slices of 192; wgrad's tiles over the wider weights), so most D 768 sites
+// run the D 192 sites' own instances. dgrad's FFN site at D 768 streams dY
+// through the ring with W (its (64, 768) rows would leave one block an SM).
+// At D 768 every product has 768 or more on both sides, 380 to 580
+// operations a byte, over the 295 at which the bf16 tensor cores become the
+// limit: these instances are bound by operations.
+//
 // Plain C interface (loaded with ctypes); each launcher returns
 // cudaGetLastError() so that the Python wrapper can raise on a refused launch.
 
@@ -493,9 +503,9 @@ extern "C" {
 
 // dy (M, K), w (K, N) (the forward's Linear weight, out x in), out (M, N),
 // all bf16; epilogue and aux as linear_dgrad's (fused_block_bwd.cu). The
-// layer's four sites only: K 192 -> N 2048 (mask), K 2048 -> N 192
-// (residual), K 192 -> N 192 and K 576 -> N 192 (none); s_pad a multiple of
-// 64, the block's rows.
+// four sites of a layer of width D (192 or 768) only: K D -> N 2048 (mask),
+// K 2048 -> N D (residual), K D -> N D and K 3 D -> N D (none); s_pad a
+// multiple of 64, the block's rows.
 int linear_dgrad_bf16(const bf16* dy, const bf16* w, const bf16* aux, bf16* out, int epilogue,
                       const int* valid_len, int M, int K, int N, int s_pad, void* stream) {
   if (M <= 0 || s_pad <= 0 || s_pad % DG_BM || M % s_pad ||
@@ -514,12 +524,25 @@ int linear_dgrad_bf16(const bf16* dy, const bf16* w, const bf16* aux, bf16* out,
   if (K == 3 * D_MODEL && N == D_MODEL && epilogue == EPI_NONE)
     return dgrad_launch<D_MODEL, 3 * D_MODEL, 1, EPI_NONE, false>(dy, w, aux, out, valid_len, M,
                                                                   N, s_pad, st);
+  // D 768: the FFN site streams dY; the N 768 sites take four slices of 192
+  if (K == D_WIDE && N == D_FFN && epilogue == EPI_RELU_MASK)
+    return dgrad_launch<128, D_WIDE, 4, EPI_RELU_MASK, false>(dy, w, aux, out, valid_len, M, N,
+                                                              s_pad, st);
+  if (K == D_FFN && N == D_WIDE && epilogue == EPI_RESIDUAL)
+    return dgrad_launch<D_MODEL, D_FFN, 1, EPI_RESIDUAL, false>(dy, w, aux, out, valid_len, M,
+                                                                N, s_pad, st);
+  if (K == D_WIDE && N == D_WIDE && epilogue == EPI_NONE)
+    return dgrad_launch<D_MODEL, D_WIDE, 1, EPI_NONE, false>(dy, w, aux, out, valid_len, M, N,
+                                                             s_pad, st);
+  if (K == 3 * D_WIDE && N == D_WIDE && epilogue == EPI_NONE)
+    return dgrad_launch<D_MODEL, 3 * D_WIDE, 1, EPI_NONE, false>(dy, w, aux, out, valid_len, M,
+                                                                 N, s_pad, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // dy (M, N), x (M, K) bf16; dwb: (N * K + N,) f32 = dW (N, K) row-major, then
-// db (N,). With mean (not null; K 192 only), x is layer-normed with mean,
-// rstd, g, beta (f32) and rounded to bf16 as it is staged. partial:
+// db (N,). With mean (not null; K 192 or 768 only), x is layer-normed with
+// mean, rstd, g, beta (f32) and rounded to bf16 as it is staged. partial:
 // (splits, N * K + N) f32 scratch, 1 <= splits <= 1024; the tile shapes and
 // so the grid are those of ops/fused_block.py::WGRAD_BF16_TILES.
 int linear_wgrad_bf16(const bf16* dy, const bf16* x, const float* mean, const float* rstd,
@@ -528,12 +551,15 @@ int linear_wgrad_bf16(const bf16* dy, const bf16* x, const float* mean, const fl
                       void* stream) {
   if (M <= 0 || s_pad <= 0 || s_pad % ROW_TILE || M % s_pad || M / s_pad > MAX_IMAGES ||
       splits < 1 || splits > 1024 || !is_weight_shape(N, K) ||
-      (mean != nullptr && K != D_MODEL))
+      (mean != nullptr && !is_width(K)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int bsz = M / s_pad;
   int e;
-  if (N == D_FFN)
+  // the same tiles at both widths: at D 768 the grid holds four times as many
+  // (the QKV weight takes FFN1's 128-row tiles there: 72 tiles, where 144 of
+  // 64 rows would be more blocks than SMs)
+  if (N == D_FFN || N == 3 * D_WIDE)
     e = wgrad_launch<128, D_MODEL, 2>(dy, x, mean, rstd, g, beta, partial, valid_len, N, K,
                                       s_pad, bsz, splits, st);
   else if (K == D_FFN)

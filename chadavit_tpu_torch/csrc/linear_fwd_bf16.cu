@@ -56,11 +56,24 @@
 //   holds a valid row is computed for real. No atomics: the same bits on
 //   every run.
 //
+// At D 768 (ChAdaViT-B/16, FFN 2048) each step has an instance of its own:
+// K1c is the same template with the (64, 768) x rows resident (160 KB, one
+// block an SM); K1a streams W through the ring in K slices, 192 of the 2304
+// columns a block (ln_linear_wide_bf16_kernel); K1b is a cluster of four
+// blocks along the columns, each the D 192 tile, that add their rows'
+// partial LayerNorm sums through distributed shared memory
+// (layernorm_cols). Every product then has 768 or more on both sides, 380
+// to 580 operations a byte: the D 768 instances are bound by the tensor
+// cores' operations, which mma.sync reaches only a share of. The D 192
+// instances compile to the code they had.
+//
 // Plain C interface (loaded with ctypes); each launcher returns
 // cudaGetLastError() so that the Python wrapper can raise on a refused launch.
 
 #include "gemm_common.cuh"
 #include "mma_bf16.cuh"
+
+#include <cooperative_groups.h>
 
 namespace {
 
@@ -265,15 +278,212 @@ ln_linear_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ gamm
   }
 }
 
+// ---- ln_linear_fwd_bf16 at D 768 ------------------------------------------------
+// Grid (M / FW_BM, 3 D / LNL_BN = 12). At K 768 the third's W tile would be
+// (768, 768), 1.1 MB, so a block owns FW_BM rows and one LNL_BN = 192-wide
+// slab of the 2304 columns, and W's slab streams through the ring in K
+// slices of FW_BK ((192, 64) tiles, three stages). The block's x rows come
+// whole (96 KB) with the first slice; while the second lands, one warp a row
+// takes the f32 stats over the 768 columns (each lane 3 chunks of 8) in
+// fast-variance form with the max(0, .) clamp and overwrites x with
+// h = bf16((x - mean) rstd g + b), the A operand, as at D 192. Each of the
+// twelve slab blocks of a row block computes the same stats and h (the
+// blocks of the first slab write the stats). Warps of 32 x 48, k16 steps
+// unrolled (one block an SM: 168 KB of shared memory). The epilogue is
+// K1a's at D 192: sums -> bf16 -> + bias -> bf16, 16-byte rows through the
+// x tile, free by then.
+struct LnLinearWide {
+  static constexpr int K = D_WIDE;
+  static constexpr int N = 3 * D_WIDE;
+  static constexpr int KT = K / FW_BK;                   // K slices
+  static constexpr int WN = LNL_BN / 4;                  // a warp's columns
+  static constexpr int NT8 = WN / 8;                     // its n8 blocks
+  static constexpr int A_ELEMS = FW_BM * K;              // x, then h, then the output rows
+  static constexpr int B_STAGE = LNL_BN * FW_BK;         // a (n, k) tile of the slab's W
+  static constexpr int SMEM = 2 * (A_ELEMS + STAGES * B_STAGE);
+  static constexpr int A_CHUNKS = A_ELEMS / 8 / TC_THREADS;  // 16 B of x a thread
+  static constexpr int B_CHUNKS = B_STAGE / 8 / TC_THREADS;  // of a stage's W
+  static constexpr int E_CHUNKS = FW_BM * LNL_BN / 8 / TC_THREADS;  // of the output rows
+  static constexpr int LN_CHUNKS = K / 8 / 32;           // 16-byte chunks of a row a lane
+  static_assert(K % FW_BK == 0 && KT >= STAGES - 1 && NT8 % 2 == 0 &&
+                    A_CHUNKS * 8 * TC_THREADS == A_ELEMS && B_CHUNKS * 8 * TC_THREADS == B_STAGE &&
+                    LN_CHUNKS * 8 * 32 == K && N % LNL_BN == 0,
+                "ln_linear at D 768 tile shape");
+};
+
+__global__ void __launch_bounds__(TC_THREADS, 1)
+ln_linear_wide_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
+                           const float* __restrict__ beta, float eps, const bf16* __restrict__ w,
+                           const bf16* __restrict__ bias, bf16* __restrict__ out,
+                           float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                           const int* __restrict__ valid_len, int s_pad) {
+  using C = LnLinearWide;
+  constexpr int K = C::K, N = C::N;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* As = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Bs = As + C::A_ELEMS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int m0 = blockIdx.x * FW_BM, n0 = blockIdx.y * LNL_BN;
+  const bool write_stats = mean_out != nullptr && blockIdx.y == 0;
+  const int live = live_rows(m0, s_pad, valid_len);
+  if (live == 0) {  // both 32-row tiles are padding: uniform, before any barrier
+    constexpr int ROW_CHUNKS = LNL_BN / 8;
+    for (int c = tid; c < FW_BM * ROW_CHUNKS; c += TC_THREADS)
+      *reinterpret_cast<uint4*>(out + (size_t)(m0 + c / ROW_CHUNKS) * N + n0 +
+                                (c % ROW_CHUNKS) * 8) = make_uint4(0, 0, 0, 0);
+    if (write_stats && tid < FW_BM) {
+      mean_out[m0 + tid] = 0.f;
+      rstd_out[m0 + tid] = 0.f;
+    }
+    return;
+  }
+
+  auto load = [&](int i) {  // the slab's W rows, K slice i
+    bf16* bs = Bs + (i % STAGES) * C::B_STAGE;
+    const bf16* src = w + (size_t)n0 * K + i * FW_BK;
+#pragma unroll
+    for (int q = 0; q < C::B_CHUNKS; ++q) {
+      const int c = tid + q * TC_THREADS, r = c / (FW_BK / 8), cc = c % (FW_BK / 8);
+      cp_async_16(bs + swz<FW_BK>(r, cc * 8), src + (size_t)r * K + cc * 8);
+    }
+  };
+  // group 0: the live x rows (the rows of a padding tile give rows of sums
+  // that are never stored) and slice 0; group 1: slice 1
+#pragma unroll
+  for (int q = 0; q < C::A_CHUNKS; ++q) {
+    const int c = tid + q * TC_THREADS, r = c / (K / 8), cc = c % (K / 8);
+    if (r < live) cp_async_16(As + swz<K>(r, cc * 8), x + (size_t)(m0 + r) * K + cc * 8);
+  }
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    load(i);
+    cp_async_commit();
+  }
+  cp_async_wait<STAGES - 2>();
+  __syncthreads();  // the x rows are in
+
+  // ---- LN1, one warp a row (each lane 3 chunks of 8 columns): the stats, then
+  // h = bf16((x - mean) rstd g + b) in place of x ------------------------------
+  for (int row = warp; row < FW_BM; row += TC_THREADS / 32) {
+    if (row >= live) {  // a zero-filled 32-row tile: uniform across the warp
+      if (write_stats && lane == 0) {
+        mean_out[m0 + row] = 0.f;
+        rstd_out[m0 + row] = 0.f;
+      }
+      continue;
+    }
+    uint4 u[C::LN_CHUNKS];
+    float s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < C::LN_CHUNKS; ++j) {
+      u[j] = *reinterpret_cast<const uint4*>(As + swz<K>(row, (lane + 32 * j) * 8));
+      const uint32_t* uw = reinterpret_cast<const uint32_t*>(&u[j]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = unpack_bf16x2(uw[e]);
+        s += f.x + f.y;
+        ss += f.x * f.x + f.y * f.y;
+      }
+    }
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    const float mu = s / K;
+    const float rstd = rsqrtf(fmaxf(ss / K - mu * mu, 0.f) + eps);
+#pragma unroll
+    for (int j = 0; j < C::LN_CHUNKS; ++j) {
+      const int c8 = (lane + 32 * j) * 8;
+      float ga[8], ba[8];
+      *reinterpret_cast<float4*>(ga) = __ldg(reinterpret_cast<const float4*>(gamma + c8));
+      *reinterpret_cast<float4*>(ga + 4) = __ldg(reinterpret_cast<const float4*>(gamma + c8 + 4));
+      *reinterpret_cast<float4*>(ba) = __ldg(reinterpret_cast<const float4*>(beta + c8));
+      *reinterpret_cast<float4*>(ba + 4) = __ldg(reinterpret_cast<const float4*>(beta + c8 + 4));
+      uint32_t* uw = reinterpret_cast<uint32_t*>(&u[j]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = unpack_bf16x2(uw[e]);
+        uw[e] = pack_bf16x2((f.x - mu) * rstd * ga[2 * e] + ba[2 * e],
+                            (f.y - mu) * rstd * ga[2 * e + 1] + ba[2 * e + 1]);
+      }
+      *reinterpret_cast<uint4*>(As + swz<K>(row, c8)) = u[j];
+    }
+    if (write_stats && lane == 0) {
+      mean_out[m0 + row] = mu;
+      rstd_out[m0 + row] = rstd;
+    }
+  }
+
+  float acc[2][C::NT8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < C::NT8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  for (int i = 0; i < C::KT; ++i) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // slice i is in (and h, at i = 0); every warp is done with slice i - 1
+    if (i + STAGES - 1 < C::KT) load(i + STAGES - 1);
+    cp_async_commit();
+    const bf16* bs = Bs + (i % STAGES) * C::B_STAGE;
+#pragma unroll
+    for (int kk = 0; kk < FW_BK; kk += 16) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) ldsm_a<K>(af[mt], As, wm * 32 + mt * 16, i * FW_BK + kk);
+#pragma unroll
+      for (int np = 0; np < C::NT8 / 2; ++np) {
+        uint32_t bf[4];
+        ldsm_b<FW_BK>(bf, bs, kk, wn * C::WN + np * 16);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(acc[mt][2 * np], af[mt], bf[0], bf[1]);
+          mma_bf16(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with h: its tile takes the output rows
+
+  // ---- epilogue: sums -> bf16 -> + bias -> bf16, 16-byte rows via the tile ----
+  bf16* Es = As;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < C::NT8; ++nt) {
+    const int col = wn * C::WN + nt * 8 + 2 * t;
+    const float2 bb = unpack_bf16x2(__ldg(reinterpret_cast<const unsigned int*>(bias + n0 + col)));
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * 32 + mt * 16 + g + 8 * h;
+        float v0 = rnd<bf16>(rnd<bf16>(acc[mt][nt][2 * h]) + bb.x);
+        float v1 = rnd<bf16>(rnd<bf16>(acc[mt][nt][2 * h + 1]) + bb.y);
+        if (r >= live) v0 = v1 = 0.f;
+        *reinterpret_cast<uint32_t*>(Es + swz<LNL_BN>(r, col)) = pack_bf16x2(v0, v1);
+      }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < C::E_CHUNKS; ++q) {
+    const int c = tid + q * TC_THREADS, r = c / (LNL_BN / 8), cc = c % (LNL_BN / 8);
+    *reinterpret_cast<uint4*>(out + (size_t)(m0 + r) * N + n0 + cc * 8) =
+        *reinterpret_cast<const uint4*>(Es + swz<LNL_BN>(r, cc * 8));
+  }
+}
+
 // ---- linear_relu_fwd_bf16 -----------------------------------------------------
 // Grid (M / FW_BM, D_FFN / (RELU_SLICES * RELU_BN)). A block owns FW_BM rows
 // and RELU_SLICES column slices of RELU_BN, walked in order; each warp a
-// 32 x 32 tile of the slice.
+// 32 x 32 tile of the slice. K = D: at D 768 the resident x rows take 96 KB
+// and the block 160 KB, one block an SM.
 constexpr int RELU_BN = 128;
 constexpr int RELU_SLICES = 4;
 
+template <int K_>
 struct Relu {
-  static constexpr int K = D_MODEL;
+  static constexpr int K = K_;
   static constexpr int KT = K / FW_BK;            // K slices of a column slice
   static constexpr int ITERS = RELU_SLICES * KT;
   static constexpr int WN = RELU_BN / 4;          // a warp's columns
@@ -288,11 +498,12 @@ struct Relu {
                 "linear_relu tile shape");
 };
 
+template <int K_>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 linear_relu_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                         const bf16* __restrict__ bias, bf16* __restrict__ out,
                         const int* __restrict__ valid_len, int s_pad) {
-  using C = Relu;
+  using C = Relu<K_>;
   constexpr int N = D_FFN, K = C::K;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* As = reinterpret_cast<bf16*>(smem_raw);
@@ -398,9 +609,17 @@ linear_relu_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 }
 
 // ---- linear_residual_ln_fwd_bf16 ------------------------------------------------
-// Grid (M / FW_BM). A block owns FW_BM rows and all LN_N = 192 columns; each
+// Grid (M / FW_BM x CB). A block owns FW_BM rows and LN_N = 192 columns; each
 // warp a 32 x 48 tile. The ring's stages hold a's (64, 64) and W's (192, 64)
-// tiles of one K slice.
+// tiles of one K slice. At D 192 (CB = 1) the block owns whole rows. At D 768
+// a cluster of CB = 4 blocks owns the rows, block `rank` the 192 columns
+// [192 rank, 192 (rank + 1)): each computes the D 192 tile (W's rows and the
+// residual's columns of its slice) up to r, takes each row's partial sums of
+// r and r^2 over its columns, one warp a row, and after a cluster barrier
+// adds the CB partials in rank order through distributed shared memory (the
+// same bits in every block and on every run) for the stats with the
+// max(0, .) clamp; a second barrier keeps the partials until every block has
+// read them. Block 0 of the cluster writes the stats.
 constexpr int LN_N = D_MODEL;
 
 template <int K>
@@ -418,7 +637,102 @@ struct ResLn {
   static_assert(FW_BM * LN_N <= STAGE, "the residual tile fits a stage");
 };
 
-template <int K>
+// The LayerNorm of K1b at D 768: rows [m0, m0 + FW_BM) of r (bf16, in the
+// swizzled tile Rs), the block's columns [c0, c0 + LN_N) of D = CB LN_N.
+// One warp a row, lanes 0..23 8 columns each: the row's partial sums over
+// the block's columns, then after a cluster barrier the CB partials in rank
+// order, the stats, and the block's columns of out and r. Rows at and past
+// live (zero-filled 32-row tiles) are written as zeros. Every block of the
+// cluster calls it.
+template <int CB>
+__device__ __forceinline__ void layernorm_cols(const bf16* Rs, const float* __restrict__ gamma,
+                                               const float* __restrict__ beta, float eps,
+                                               bf16* __restrict__ out, float* __restrict__ mean_out,
+                                               float* __restrict__ rstd_out,
+                                               bf16* __restrict__ r_out, int m0, int c0, int rank,
+                                               int live) {
+  namespace cg = cooperative_groups;
+  constexpr int N = LN_N, D = CB * LN_N, LANES = N / 8;
+  __shared__ float2 part[FW_BM];  // each row's sum of r and of r^2 over the block's columns
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, c8 = lane * 8;
+  auto row_values = [&](int row, float (&v)[8]) {  // zeros on lanes past the columns
+    uint4 u = make_uint4(0, 0, 0, 0);
+    if (lane < LANES) u = *reinterpret_cast<const uint4*>(Rs + swz<N>(row, c8));
+    const uint32_t* uw = reinterpret_cast<const uint32_t*>(&u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = unpack_bf16x2(uw[e]);
+      v[2 * e] = f.x;
+      v[2 * e + 1] = f.y;
+    }
+    return u;
+  };
+  for (int row = warp; row < live; row += TC_THREADS / 32) {
+    float v[8], s = 0.f, ss = 0.f;
+    row_values(row, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      s += v[e];
+      ss += v[e] * v[e];
+    }
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    if (lane == 0) part[row] = make_float2(s, ss);
+  }
+  cg::this_cluster().sync();  // every block's partials are in place
+  const float2* parts[CB];
+#pragma unroll
+  for (int q = 0; q < CB; ++q) parts[q] = cg::this_cluster().map_shared_rank(part, q);
+  float ga[8], ba[8];
+  if (lane < LANES) {
+    *reinterpret_cast<float4*>(ga) = __ldg(reinterpret_cast<const float4*>(gamma + c0 + c8));
+    *reinterpret_cast<float4*>(ga + 4) = __ldg(reinterpret_cast<const float4*>(gamma + c0 + c8 + 4));
+    *reinterpret_cast<float4*>(ba) = __ldg(reinterpret_cast<const float4*>(beta + c0 + c8));
+    *reinterpret_cast<float4*>(ba + 4) = __ldg(reinterpret_cast<const float4*>(beta + c0 + c8 + 4));
+  }
+  for (int row = warp; row < FW_BM; row += TC_THREADS / 32) {
+    const size_t o = (size_t)(m0 + row) * D + c0 + c8;
+    if (row >= live) {  // a zero-filled 32-row tile: uniform across the cluster
+      if (lane < LANES) {
+        *reinterpret_cast<uint4*>(out + o) = make_uint4(0, 0, 0, 0);
+        if (r_out != nullptr) *reinterpret_cast<uint4*>(r_out + o) = make_uint4(0, 0, 0, 0);
+      }
+      if (mean_out != nullptr && rank == 0 && lane == 0) {
+        mean_out[m0 + row] = 0.f;
+        rstd_out[m0 + row] = 0.f;
+      }
+      continue;
+    }
+    float2 t = parts[0][row];
+#pragma unroll
+    for (int q = 1; q < CB; ++q) {  // in rank order
+      const float2 p = parts[q][row];
+      t.x += p.x;
+      t.y += p.y;
+    }
+    const float mu = t.x / D;
+    const float rstd = rsqrtf(fmaxf(t.y / D - mu * mu, 0.f) + eps);
+    float v[8];
+    const uint4 u = row_values(row, v);
+    if (lane < LANES) {
+      uint4 y;
+      uint32_t* yw = reinterpret_cast<uint32_t*>(&y);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        yw[e] = pack_bf16x2((v[2 * e] - mu) * rstd * ga[2 * e] + ba[2 * e],
+                            (v[2 * e + 1] - mu) * rstd * ga[2 * e + 1] + ba[2 * e + 1]);
+      *reinterpret_cast<uint4*>(out + o) = y;
+      if (r_out != nullptr) *reinterpret_cast<uint4*>(r_out + o) = u;
+    }
+    if (mean_out != nullptr && rank == 0 && lane == 0) {
+      mean_out[m0 + row] = mu;
+      rstd_out[m0 + row] = rstd;
+    }
+  }
+  cg::this_cluster().sync();  // the partials stay until read
+}
+
+template <int K, int CB>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 linear_residual_ln_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
                                const bf16* __restrict__ bias, const bf16* __restrict__ res,
@@ -428,23 +742,37 @@ linear_residual_ln_bf16_kernel(const bf16* __restrict__ a, const bf16* __restric
                                float* __restrict__ rstd_out, bf16* __restrict__ r_out,
                                const int* __restrict__ valid_len, int s_pad) {
   using C = ResLn<K>;
-  constexpr int N = LN_N;
+  constexpr int N = LN_N;       // the block's columns
+  constexpr int D = CB * LN_N;  // a row's
+  namespace cg = cooperative_groups;
+  const int rank = CB > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int c0 = rank * N;      // the block's first column
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);
   // the residual, then r in its place: the stage that slice KT would take
   bf16* Rs = ring + (C::KT % STAGES) * C::STAGE;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.x * FW_BM;
+  const int m0 = blockIdx.x / CB * FW_BM;
   const int live = live_rows(m0, s_pad, valid_len);
   if (live == 0) {  // both 32-row tiles are padding: uniform, before any barrier
+    if constexpr (CB == 1) {
 #pragma unroll
-    for (int q = 0; q < C::CHUNKS; ++q) {
-      const size_t o = (size_t)m0 * N + (tid + q * TC_THREADS) * 8;
-      *reinterpret_cast<uint4*>(out + o) = make_uint4(0, 0, 0, 0);
-      if (r_out != nullptr) *reinterpret_cast<uint4*>(r_out + o) = make_uint4(0, 0, 0, 0);
+      for (int q = 0; q < C::CHUNKS; ++q) {
+        const size_t o = (size_t)m0 * N + (tid + q * TC_THREADS) * 8;
+        *reinterpret_cast<uint4*>(out + o) = make_uint4(0, 0, 0, 0);
+        if (r_out != nullptr) *reinterpret_cast<uint4*>(r_out + o) = make_uint4(0, 0, 0, 0);
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < C::CHUNKS; ++q) {
+        const int c = tid + q * TC_THREADS;
+        const size_t o = (size_t)(m0 + c / (N / 8)) * D + c0 + c % (N / 8) * 8;
+        *reinterpret_cast<uint4*>(out + o) = make_uint4(0, 0, 0, 0);
+        if (r_out != nullptr) *reinterpret_cast<uint4*>(r_out + o) = make_uint4(0, 0, 0, 0);
+      }
     }
-    if (mean_out != nullptr && tid < FW_BM) {
+    if (mean_out != nullptr && rank == 0 && tid < FW_BM) {
       mean_out[m0 + tid] = 0.f;
       rstd_out[m0 + tid] = 0.f;
     }
@@ -462,14 +790,14 @@ linear_residual_ln_bf16_kernel(const bf16* __restrict__ a, const bf16* __restric
 #pragma unroll
     for (int q = 0; q < N * FW_BK / 8 / TC_THREADS; ++q) {
       const int c = tid + q * TC_THREADS, r = c / (FW_BK / 8), cc = c % (FW_BK / 8);
-      cp_async_16(bs + swz<FW_BK>(r, cc * 8), w + (size_t)r * K + i * FW_BK + cc * 8);
+      cp_async_16(bs + swz<FW_BK>(r, cc * 8), w + (size_t)(c0 + r) * K + i * FW_BK + cc * 8);
     }
   };
   auto load_residual = [&]() {
 #pragma unroll
     for (int q = 0; q < C::CHUNKS; ++q) {
       const int c = tid + q * TC_THREADS, r = c / (N / 8), cc = c % (N / 8);
-      cp_async_16(Rs + swz<N>(r, cc * 8), res + (size_t)(m0 + r) * N + cc * 8);
+      cp_async_16(Rs + swz<N>(r, cc * 8), res + (size_t)(m0 + r) * D + c0 + cc * 8);
     }
   };
 #pragma unroll
@@ -520,7 +848,8 @@ linear_residual_ln_bf16_kernel(const bf16* __restrict__ a, const bf16* __restric
 #pragma unroll
   for (int nt = 0; nt < C::NT8; ++nt) {
     const int col = wn * C::WN + nt * 8 + 2 * t;
-    const float2 bb = unpack_bf16x2(__ldg(reinterpret_cast<const unsigned int*>(bias + col)));
+    const float2 bb =
+        unpack_bf16x2(__ldg(reinterpret_cast<const unsigned int*>(bias + c0 + col)));
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -532,6 +861,10 @@ linear_residual_ln_bf16_kernel(const bf16* __restrict__ a, const bf16* __restric
       }
   }
   __syncthreads();
+  if constexpr (CB > 1) {
+    layernorm_cols<CB>(Rs, gamma, beta, eps, out, mean_out, rstd_out, r_out, m0, c0, rank, live);
+    return;
+  }
 
   // ---- the LayerNorm: one warp a row; lanes 0..23 own 8 columns each ----------
   constexpr int LANES = N / 8;
@@ -598,17 +931,27 @@ bool rows_ok_bf16(int M, int s_pad) {
 
 extern "C" {
 
-// x (M, 192), w (576, 192), bias (576,), out (M, 576), bf16; g and beta
-// (192,) f32. mean_out and rstd_out (M,) f32 get the LN1 row stats when not
-// null (both or neither); zeros on the zero-filled tiles. s_pad a multiple of
-// 64, the block's rows. The float32 instance is fused_block.cu's.
+// x (M, D), w (3 D, D), bias (3 D,), out (M, 3 D), bf16, D 192 or 768; g and
+// beta (D,) f32. mean_out and rstd_out (M,) f32 get the LN1 row stats when
+// not null (both or neither); zeros on the zero-filled tiles. s_pad a
+// multiple of 64, the block's rows. The float32 instance is fused_block.cu's.
 int ln_linear_fwd_bf16(const bf16* x, const float* g, const float* beta, float eps,
                        const bf16* w, const bf16* bias, bf16* out, float* mean_out,
                        float* rstd_out, const int* valid_len, int M, int K, int N,
                        int s_pad, void* stream) {
-  if (!rows_ok_bf16(M, s_pad) || K != LnLinear::K || N != LnLinear::N ||
+  if (!rows_ok_bf16(M, s_pad) || !is_width(K) || N != 3 * K ||
       (mean_out == nullptr) != (rstd_out == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (K == D_WIDE) {
+    int e = (int)cudaFuncSetAttribute(ln_linear_wide_bf16_kernel,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      LnLinearWide::SMEM);
+    if (e != 0) return e;
+    ln_linear_wide_bf16_kernel<<<dim3(M / FW_BM, N / LNL_BN), TC_THREADS, LnLinearWide::SMEM,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        x, g, beta, eps, w, bias, out, mean_out, rstd_out, valid_len, s_pad);
+    return (int)cudaGetLastError();
+  }
   int e = (int)cudaFuncSetAttribute(ln_linear_bf16_kernel,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, LnLinear::SMEM);
   if (e != 0) return e;
@@ -619,30 +962,34 @@ int ln_linear_fwd_bf16(const bf16* x, const float* g, const float* beta, float e
   return (int)cudaGetLastError();
 }
 
-// x (M, 192), w (2048, 192), bias (2048,), out (M, 2048), all bf16; s_pad a
-// multiple of 64, the block's rows. The float32 instance is fused_block.cu's.
+// x (M, D), w (2048, D), bias (2048,), out (M, 2048), all bf16, D 192 or 768;
+// s_pad a multiple of 64, the block's rows. The float32 instance is
+// fused_block.cu's.
 int linear_relu_fwd_bf16(const bf16* x, const bf16* w, const bf16* bias, bf16* out,
                          const int* valid_len, int M, int K, int N, int s_pad, void* stream) {
-  if (!rows_ok_bf16(M, s_pad) || K != D_MODEL || N != D_FFN) return (int)cudaErrorInvalidValue;
-  int e = (int)cudaFuncSetAttribute(linear_relu_bf16_kernel,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize, Relu::SMEM);
-  if (e != 0) return e;
-  linear_relu_bf16_kernel<<<dim3(M / FW_BM, D_FFN / (RELU_SLICES * RELU_BN)), TC_THREADS,
-                            Relu::SMEM, static_cast<cudaStream_t>(stream)>>>(x, w, bias, out,
-                                                                             valid_len, s_pad);
-  return (int)cudaGetLastError();
+  if (!rows_ok_bf16(M, s_pad) || !is_width(K) || N != D_FFN) return (int)cudaErrorInvalidValue;
+  auto run = [&](auto kernel, int smem) {
+    int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != 0) return e;
+    kernel<<<dim3(M / FW_BM, D_FFN / (RELU_SLICES * RELU_BN)), TC_THREADS, smem,
+             static_cast<cudaStream_t>(stream)>>>(x, w, bias, out, valid_len, s_pad);
+    return (int)cudaGetLastError();
+  };
+  if (K == D_MODEL) return run(linear_relu_bf16_kernel<D_MODEL>, Relu<D_MODEL>::SMEM);
+  return run(linear_relu_bf16_kernel<D_WIDE>, Relu<D_WIDE>::SMEM);
 }
 
-// a (M, K) with K 192 (out projection) or 2048 (FFN2), w (192, K), bias (192,),
-// res and out (M, 192), bf16; g and beta (192,) f32. When not null: mean_out
-// and rstd_out (M,) f32 get the LN row stats (both or neither), r_out (M, 192)
-// bf16 the pre-LN sum; zeros on the zero-filled tiles. s_pad a multiple of 64.
+// a (M, K) with K = N (out projection) or 2048 (FFN2), w (N, K), bias (N,),
+// res and out (M, N), bf16, N = D 192 or 768; g and beta (N,) f32. When not
+// null: mean_out and rstd_out (M,) f32 get the LN row stats (both or
+// neither), r_out (M, N) bf16 the pre-LN sum; zeros on the zero-filled tiles.
+// s_pad a multiple of 64.
 int linear_residual_ln_fwd_bf16(const bf16* a, const bf16* w, const bf16* bias,
                                 const bf16* res, const float* g, const float* beta,
                                 float eps, bf16* out, float* mean_out, float* rstd_out,
                                 bf16* r_out, const int* valid_len, int M, int K, int N,
                                 int s_pad, void* stream) {
-  if (!rows_ok_bf16(M, s_pad) || N != D_MODEL || (K != D_MODEL && K != D_FFN) ||
+  if (!rows_ok_bf16(M, s_pad) || !is_width(N) || (K != N && K != D_FFN) ||
       (mean_out == nullptr) != (rstd_out == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -654,9 +1001,37 @@ int linear_residual_ln_fwd_bf16(const bf16* a, const bf16* w, const bf16* bias,
                                                       s_pad);
     return (int)cudaGetLastError();
   };
+  // D 768: a cluster of four column blocks a row block
+  auto run_cluster = [&](auto kernel, int smem) {
+    constexpr int CB = D_WIDE / LN_N;
+    int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != 0) return e;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(M / FW_BM * CB);
+    cfg.blockDim = dim3(TC_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CB;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    e = (int)cudaLaunchKernelEx(&cfg, kernel, a, w, bias, res, g, beta, eps, out, mean_out,
+                                rstd_out, r_out, valid_len, s_pad);
+    if (e != 0) return e;
+    return (int)cudaGetLastError();
+  };
+  if (N == D_WIDE) {
+    if (K == D_WIDE)
+      return run_cluster(linear_residual_ln_bf16_kernel<D_WIDE, D_WIDE / LN_N>,
+                         ResLn<D_WIDE>::SMEM);
+    return run_cluster(linear_residual_ln_bf16_kernel<D_FFN, D_WIDE / LN_N>, ResLn<D_FFN>::SMEM);
+  }
   if (K == D_MODEL)
-    return run(linear_residual_ln_bf16_kernel<D_MODEL>, ResLn<D_MODEL>::SMEM);
-  return run(linear_residual_ln_bf16_kernel<D_FFN>, ResLn<D_FFN>::SMEM);
+    return run(linear_residual_ln_bf16_kernel<D_MODEL, 1>, ResLn<D_MODEL>::SMEM);
+  return run(linear_residual_ln_bf16_kernel<D_FFN, 1>, ResLn<D_FFN>::SMEM);
 }
 
 }  // extern "C"

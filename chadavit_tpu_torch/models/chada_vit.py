@@ -17,10 +17,12 @@ Parameter names follow the reference torch state-dict layout
 
 Each layer takes the JAX layer's route (``EncoderLayer``): the fused layer
 where the JAX layer's VMEM gate lets it run its fused kernel
-(``fused_block.jax_layer_fused``: ChAdaViT-moyen always), with grad enabled
-(the DINO student) ``fused_block.FusedEncoderBlock``, whose backward is the
-layer's kernels; elsewhere (ChAdaViT-B/16 on wide sequences) the unfused
-layer, whose attention is the attention kernels with their backward. The
+(``fused_block.jax_layer_fused``: ChAdaViT-moyen always, ChAdaViT-B/16 at
+1-7 channels in bfloat16 and 1-3 in float32, through the chain's D 768
+instances), with grad enabled (the DINO student)
+``fused_block.FusedEncoderBlock``, whose backward is the layer's kernels;
+elsewhere (ChAdaViT-B/16 on wide sequences) the unfused layer, whose
+attention is the attention kernels with their backward. The
 tokenizer, the pos/channel tokens and the final norm stay plain torch ops with
 autograd, as the JAX package leaves them to XLA. With ``ln_impl="pallas"``
 the final norm, and with ``block_impl="xla"`` also the three LayerNorms of
@@ -116,8 +118,9 @@ class EncoderLayer(nn.Module):
     :func:`fused_block.jax_layer_fused` says the JAX layer runs its fused
     kernel (``valid_len`` given, no weights asked, the kernel's VMEM estimate
     within budget), :func:`fused_block.fused_encoder_block`, on CUDA the
-    kernel chain, which raises ``NotImplementedError`` at widths it is not
-    built for; elsewhere the unfused layer below, as JAX: plain LayerNorms
+    kernel chain, built for D 192 and 768 (``fused_block.WIDTHS``), which
+    raises ``NotImplementedError`` at other widths; elsewhere the unfused
+    layer below, as JAX: plain LayerNorms
     (or the LayerNorm kernels under ``ln_impl="pallas"``), library products
     for the projections and the FFN, and the attention through
     :func:`masked_multihead_attention`, on CUDA the attention kernels

@@ -41,12 +41,15 @@ on the rows the forward computed, so dx on those rows and all 12 parameter
 gradients equal autograd through the plain forward; rows of the zero-filled
 tiles give nothing and get dx = 0. Keys past ``valid_len`` stay masked.
 
-The chain's GEMM kernels are built for ChAdaViT-moyen's widths (D
-:data:`D_MODEL`, FFN :data:`D_FFN`). Which layers take the chain at all is
-the JAX layer's choice (:func:`jax_layer_fused`, a copy of its VMEM gate):
-ChAdaViT-B/16 (D 768) at a sequence the gate sends to the unfused layer
-runs ``models/chada_vit.py``'s unfused body with the attention kernels;
-where the gate says fused at a width the chain is not built for, the
+The chain's kernels are built for the widths of :data:`WIDTHS`:
+ChAdaViT-moyen's (D 192, FFN 2048, 2 heads of 96) and ChAdaViT-B/16's (D
+768, FFN 2048, 12 heads of 64). Launches at D 192 are counted under the C
+entry point's name, those at D 768 with ``_d768`` after it
+(:func:`instance`). Which layers take the chain at all is the JAX layer's
+choice (:func:`jax_layer_fused`, a copy of its VMEM gate): ChAdaViT-B/16 at
+a sequence the gate sends to the unfused layer runs ``models/chada_vit.py``'s
+unfused body with the attention kernels, and the chain where the gate says
+fused (1-7 channels in bfloat16, 1-3 in float32). At any other width the
 chain raises ``NotImplementedError`` on CUDA tensors (on CPU tensors it
 runs its plain versions, which take any width).
 
@@ -76,8 +79,10 @@ from chadavit_tpu_torch.ops.layernorm import layernorm_stats
 
 ROW_BLOCK = 32  # the GEMM kernels' row tile and K slice
 SEQ_PAD = 128   # the chain pads sequences to this multiple, as the model does
-# The widths of ChAdaViT-moyen, the one model the kernels are built for; on
-# CUDA tensors the wrappers raise on any other.
+# The widths the kernels are built for, D -> FFN: ChAdaViT-moyen's and
+# ChAdaViT-B/16's; on CUDA tensors the wrappers raise on any other.
+WIDTHS = {192: 2048, 768: 2048}
+# ChAdaViT-moyen's widths: launches at D_MODEL keep the entry point's name
 D_MODEL = 192
 D_FFN = 2048
 # The bfloat16 ln_linear / linear_relu / linear_residual_ln / linear_dgrad /
@@ -86,27 +91,55 @@ D_FFN = 2048
 # 64-row blocks, so s_pad must be a multiple of 64 (the chain pads to
 # SEQ_PAD); wgrad's grid is its output tiles (the (TN, TK) of each weight
 # shape (N, K) below, as the kernel has them) times a number of splits of the
-# rows that fills the card's 132 SMs once.
+# rows that fills the card's 132 SMs once. The tiles are those of D 192 at
+# both widths (192 of the D-wide side, the whole of it at D 192): at D 768
+# the grid holds four times as many.
 BF16_GEMM_ROWS = 64
-WGRAD_BF16_TILES = {(3 * D_MODEL, D_MODEL): (64, D_MODEL), (D_MODEL, D_MODEL): (64, D_MODEL),
-                    (D_FFN, D_MODEL): (128, D_MODEL), (D_MODEL, D_FFN): (D_MODEL, 128)}
+
+
+def _weight_shapes(d: int, f: int, qkv, square, ffn1, ffn2) -> dict:
+    """``{(N, K): tile}`` for the four weight shapes of a layer of width d."""
+    return {(3 * d, d): qkv, (d, d): square, (f, d): ffn1, (d, f): ffn2}
+
+
+# (the QKV weight at D 768 takes FFN1's 128-row tiles: its 144 of 64 rows would
+# be more blocks than SMs)
+WGRAD_BF16_TILES = {k: v for d, f in WIDTHS.items() for k, v in _weight_shapes(
+    d, f, (64 if d == D_MODEL else 128, D_MODEL), (64, D_MODEL), (128, D_MODEL),
+    (D_MODEL, 128)).items()}
 WGRAD_BF16_BLOCKS = 132
 # The float32 linear_wgrad (CUDA cores, csrc/fused_block_bwd.cu) takes the same
-# plan with tiles of its own: the 192-wide side of dW whole and 64 of the
+# plan with tiles of its own: 192 of the D-wide side of dW and 64 of the
 # other (6 warps of 32 x 64 outputs), two blocks an SM, so the splits fill
 # 264 blocks once, and never more than WGRAD_F32_SPLITS: the out-projection's
 # 3 tiles would take 88, whose partials (13 MB) the second pass would read
 # for a product of 0.7 GFLOP at hub shapes.
-WGRAD_F32_TILES = {(3 * D_MODEL, D_MODEL): (64, D_MODEL), (D_MODEL, D_MODEL): (64, D_MODEL),
-                   (D_FFN, D_MODEL): (64, D_MODEL), (D_MODEL, D_FFN): (D_MODEL, 64)}
+WGRAD_F32_TILES = {k: v for d, f in WIDTHS.items() for k, v in _weight_shapes(
+    d, f, (64, D_MODEL), (64, D_MODEL), (64, D_MODEL), (D_MODEL, 64)).items()}
 WGRAD_F32_BLOCKS = 264
 WGRAD_F32_SPLITS = 64
 # layernorm_bwd (both dtypes) cuts the batch's 32-row tiles into at most this
-# many contiguous shares, one block each, whatever the batch: its partial sums
-# are (splits, 2 D) float32 (layernorm_bwd_splits), 3.1 MB at most. A few
-# blocks an SM, so the first pass keeps the card's loads in flight and its
-# second pass stays a few microseconds (scripts/bench_layernorm_bwd.py).
+# many contiguous shares at D 192 (a quarter as many at D 768), one block
+# each, whatever the batch: its partial sums are (splits, 2 D) float32
+# (layernorm_bwd_splits), 3.1 MB at most at either width. A few blocks an SM,
+# so the first pass keeps the card's loads in flight and its second pass
+# stays a few microseconds (scripts/bench_layernorm_bwd.py).
 LN_BWD_SPLITS = 2048
+
+
+def instance(entry_point: str, d: int) -> str:
+    """The name a launch of C entry point ``entry_point`` at width ``d`` is
+    counted under (``_launch.LAUNCHES``): the entry point's own at D 192,
+    with ``_d768`` after it at D 768."""
+    return entry_point if d == D_MODEL else f"{entry_point}_d{d}"
+
+
+def _built_width(name: str, d: int) -> int:
+    """``d`` when the kernels are built for it (:data:`WIDTHS`), else raises
+    ``ValueError``."""
+    if d not in WIDTHS:
+        raise ValueError(f"{name}: the kernels are built for D in {sorted(WIDTHS)}, got {d}")
+    return d
 
 
 # --------------------------------------------------------------- the route ----
@@ -326,8 +359,9 @@ def ln_linear(x, g, b, eps: float, w, bias, valid_len, save: bool = False):
     _launch.refuse_grad("ln_linear", x, g, b, w, bias)
     if _launch.on_cpu(x, g, b, w, bias, valid_len):
         return ln_linear_reference(x, g, b, eps, w, bias, valid_len, save)
-    n, dt = 3 * D_MODEL, x.dtype
-    bsz, s, k = _check("ln_linear", x, w, (D_MODEL,), n)
+    d = _built_width("ln_linear", x.shape[-1])
+    n, dt = 3 * d, x.dtype
+    bsz, s, k = _check("ln_linear", x, w, (d,), n)
     if g.shape != (k,) or b.shape != (k,) or bias.shape != (n,):
         raise ValueError(f"ln_linear: g {tuple(g.shape)}, b {tuple(b.shape)}, "
                          f"bias {tuple(bias.shape)}")
@@ -343,7 +377,7 @@ def ln_linear(x, g, b, eps: float, w, bias, valid_len, save: bool = False):
         _ptr(mean), _ptr(rstd), _launch.valid_len_operand(valid_len, bsz, x.device),
         bsz * s, k, n, s, _launch.stream(x.device))
     _build.check(status, name)
-    _launch.counted(name)
+    _launch.counted(instance(name, d))
     return (out, mean, rstd) if save else out
 
 
@@ -355,8 +389,9 @@ def linear_relu(x, w, bias, valid_len):
     _launch.refuse_grad("linear_relu", x, w, bias)
     if _launch.on_cpu(x, w, bias, valid_len):
         return linear_relu_reference(x, w, bias, valid_len)
-    n, dt = D_FFN, x.dtype
-    bsz, s, k = _check("linear_relu", x, w, (D_MODEL,), n)
+    d = _built_width("linear_relu", x.shape[-1])
+    n, dt = WIDTHS[d], x.dtype
+    bsz, s, k = _check("linear_relu", x, w, (d,), n)
     if bias.shape != (n,):
         raise ValueError(f"linear_relu: bias {tuple(bias.shape)}")
     tc = _copy_align("linear_relu", dt, s)
@@ -368,7 +403,7 @@ def linear_relu(x, w, bias, valid_len):
         _launch.valid_len_operand(valid_len, bsz, x.device), bsz * s, k, n, s,
         _launch.stream(x.device))
     _build.check(status, name)
-    _launch.counted(name)
+    _launch.counted(instance(name, d))
     return out
 
 
@@ -384,8 +419,9 @@ def linear_residual_ln(a, w, bias, residual, g, b, eps: float, valid_len,
     if _launch.on_cpu(a, w, bias, residual, g, b, valid_len):
         return linear_residual_ln_reference(a, w, bias, residual, g, b, eps, valid_len,
                                             save)
-    n, dt = D_MODEL, a.dtype
-    bsz, s, k = _check("linear_residual_ln", a, w, (D_MODEL, D_FFN), n)
+    n = _built_width("linear_residual_ln", w.shape[0] if w.dim() == 2 else -1)
+    dt = a.dtype
+    bsz, s, k = _check("linear_residual_ln", a, w, (n, WIDTHS[n]), n)
     if (bias.shape != (n,) or residual.shape != (bsz, s, n) or g.shape != (n,)
             or b.shape != (n,)):
         raise ValueError(f"linear_residual_ln: residual {tuple(residual.shape)}, "
@@ -404,7 +440,7 @@ def linear_residual_ln(a, w, bias, residual, g, b, eps: float, valid_len,
         _launch.valid_len_operand(valid_len, bsz, a.device), bsz * s, k, n, s,
         _launch.stream(a.device))
     _build.check(status, name)
-    _launch.counted(name)
+    _launch.counted(instance(name, n))
     return (out, mean, rstd, r) if save else out
 
 
@@ -421,12 +457,13 @@ def _row_stats(name: str, t, bsz: int, s: int) -> int:
     return _launch.vector_operand(t, name)
 
 
-def layernorm_bwd_splits(bsz: int, s_pad: int) -> int:
-    """Row splits of ``layernorm_bwd``: one block each, walking a contiguous
-    share of the batch's 32-row tiles; at most :data:`LN_BWD_SPLITS` and never
-    more than the tiles, so the partial sums ``(splits, 2 D)`` stay bounded
-    whatever the batch."""
-    return max(1, min(LN_BWD_SPLITS, bsz * s_pad // ROW_BLOCK))
+def layernorm_bwd_splits(bsz: int, s_pad: int, d: int = D_MODEL) -> int:
+    """Row splits of ``layernorm_bwd`` at width ``d``: one block each, walking
+    a contiguous share of the batch's 32-row tiles; at most
+    :data:`LN_BWD_SPLITS` at D 192 (that times 192 / d at a wider D, whose
+    rows are each that much more work) and never more than the tiles, so the
+    partial sums ``(splits, 2 d)`` stay bounded whatever the batch."""
+    return max(1, min(LN_BWD_SPLITS * D_MODEL // d, bsz * s_pad // ROW_BLOCK))
 
 
 def layernorm_bwd_split_tiles(valid_len, s_pad: int, splits: int) -> list:
@@ -453,9 +490,9 @@ def layernorm_bwd(dy, xin, mean, rstd, g, valid_len, residual=None, dgb=None):
     :func:`layernorm_bwd_reference`."""
     if _launch.on_cpu(dy, xin, mean, rstd, g, valid_len):
         return layernorm_bwd_reference(dy, xin, mean, rstd, g, valid_len, residual, dgb)
-    if dy.dim() != 3 or dy.shape[2] != D_MODEL or dy.shape[1] % ROW_BLOCK:
-        raise ValueError(f"layernorm_bwd: the kernel takes (B, S, {D_MODEL}) with S a "
-                         f"multiple of {ROW_BLOCK}, got {tuple(dy.shape)}")
+    if dy.dim() != 3 or dy.shape[2] not in WIDTHS or dy.shape[1] % ROW_BLOCK:
+        raise ValueError(f"layernorm_bwd: the kernel takes (B, S, D), D in {sorted(WIDTHS)}, "
+                         f"with S a multiple of {ROW_BLOCK}, got {tuple(dy.shape)}")
     bsz, s, d = dy.shape
     dt = dy.dtype
     if g.shape != (d,):
@@ -467,7 +504,7 @@ def layernorm_bwd(dy, xin, mean, rstd, g, valid_len, residual=None, dgb=None):
         if dgb.shape != (2 * d,):
             raise ValueError(f"layernorm_bwd: dgb {tuple(dgb.shape)}")
         accumulate = 1
-    splits = layernorm_bwd_splits(bsz, s)
+    splits = layernorm_bwd_splits(bsz, s, d)
     partial = torch.empty((splits, 2 * d), dtype=torch.float32, device=dy.device)
     name, fn = _library_fn("layernorm_bwd", dt)
     status = fn(
@@ -479,14 +516,20 @@ def layernorm_bwd(dy, xin, mean, rstd, g, valid_len, residual=None, dgb=None):
         _launch.valid_len_operand(valid_len, bsz, dy.device), bsz * s, d, s, splits,
         _launch.stream(dy.device))
     _build.check(status, name)
-    _launch.counted(name)
+    _launch.counted(instance(name, d))
     return dx, dgb
 
 
 _EPILOGUE_NONE, _EPILOGUE_RELU_MASK, _EPILOGUE_RESIDUAL = 0, 1, 2
-_DGRAD_SITES = {  # (K, N, epilogue) of the layer's four data-gradient GEMMs
-    (D_MODEL, D_FFN, _EPILOGUE_RELU_MASK), (D_FFN, D_MODEL, _EPILOGUE_RESIDUAL),
-    (D_MODEL, D_MODEL, _EPILOGUE_NONE), (3 * D_MODEL, D_MODEL, _EPILOGUE_NONE)}
+_DGRAD_SITES = {  # (K, N, epilogue) of the four data-gradient GEMMs of a layer of each width
+    site for d, f in WIDTHS.items() for site in (
+        (d, f, _EPILOGUE_RELU_MASK), (f, d, _EPILOGUE_RESIDUAL), (d, d, _EPILOGUE_NONE),
+        (3 * d, d, _EPILOGUE_NONE))}
+
+
+def _layer_width(n: int, k: int) -> int:
+    """The width D of the layer whose weight shape ``(n, k)`` is (its narrow side)."""
+    return min(n, k)
 
 
 def linear_dgrad(dy, w, valid_len, relu_of=None, residual=None):
@@ -517,12 +560,11 @@ def linear_dgrad(dy, w, valid_len, relu_of=None, residual=None):
         _launch.valid_len_operand(valid_len, bsz, dy.device), bsz * s, k, n, s,
         _launch.stream(dy.device))
     _build.check(status, name)
-    _launch.counted(name)
+    _launch.counted(instance(name, _layer_width(k, n)))
     return out
 
 
-_WGRAD_SHAPES = {(3 * D_MODEL, D_MODEL), (D_MODEL, D_MODEL), (D_FFN, D_MODEL),
-                 (D_MODEL, D_FFN)}
+_WGRAD_SHAPES = set(WGRAD_BF16_TILES)  # the four weight shapes of a layer of each width
 
 
 def wgrad_splits(bsz: int, s_pad: int, n: int, k: int, dtype=torch.bfloat16) -> int:
@@ -578,9 +620,9 @@ def linear_wgrad(dy, x, valid_len, ln=None):
         ln_ptrs = (None,) * 4
     else:
         mean, rstd, g, b = ln
-        if g.shape != (k,) or b.shape != (k,) or k != D_MODEL:
+        if g.shape != (k,) or b.shape != (k,) or k not in WIDTHS:
             raise ValueError(f"linear_wgrad: g {tuple(g.shape)}, b {tuple(b.shape)} (the "
-                             f"kernel norms X of width {D_MODEL} only)")
+                             f"kernel norms X of width {' or '.join(map(str, WIDTHS))} only)")
         ln_ptrs = (_row_stats("mean", mean, bsz, s), _row_stats("rstd", rstd, bsz, s),
                    _launch.vector_operand(g, "g"), _launch.vector_operand(b, "b"))
     name, fn = _library_fn("linear_wgrad", dt)
@@ -590,7 +632,7 @@ def linear_wgrad(dy, x, valid_len, ln=None):
         _launch.valid_len_operand(valid_len, bsz, dy.device), bsz * s, n, k, s, splits,
         _launch.stream(dy.device))
     _build.check(status, name)
-    _launch.counted(name)
+    _launch.counted(instance(name, _layer_width(n, k)))
     return dwb[:n * k].view(n, k), dwb[n * k:]
 
 
@@ -735,24 +777,22 @@ def fused_encoder_block(x, valid_len, wqkv, bqkv, wout, bout, g1, b1, g2, b2,
     Weights in ``nn.Linear`` layout: wqkv ``(3D, D)``, wout ``(D, D)``,
     w1 ``(F, D)``, w2 ``(D, F)``, float32. x is float32 or bfloat16, and the
     layer computes in x's dtype (module docstring). On CUDA every step is a
-    kernel launch, at D = :data:`D_MODEL` and F = :data:`D_FFN` only: at any
-    other width it raises ``NotImplementedError`` (the chain's instances at
-    that width are not ported). When autograd records the call (grad mode on
-    and an input that requires grad) it runs :class:`FusedEncoderBlock`;
-    otherwise (the teacher, serving) the chain without the save outputs.
+    kernel launch, at the widths (D, F) of :data:`WIDTHS` only (ChAdaViT-moyen's
+    192/2048 and ChAdaViT-B/16's 768/2048): at any other width it raises
+    ``NotImplementedError`` (the chain's instances at that width are not
+    ported). When autograd records the call (grad mode on and an input that
+    requires grad) it runs :class:`FusedEncoderBlock`; otherwise (the teacher,
+    serving) the chain without the save outputs.
     """
     if valid_len is None:
         raise ValueError("fused_encoder_block needs valid_len")
     weights = (wqkv, bqkv, wout, bout, g1, b1, g2, b2, w1, b1f, w2, b2f)
     d, f = x.shape[2], w1.shape[0]
-    if (d, f) != (D_MODEL, D_FFN) and not _launch.on_cpu(x, valid_len):
+    if WIDTHS.get(d) != f and not _launch.on_cpu(x, valid_len):
         raise NotImplementedError(
             f"fused_encoder_block: D {d}, FFN {f}, {num_heads} heads: the layer chain's "
-            f"kernels are built for D {D_MODEL}, FFN {D_FFN}; the chain's D {d} instances "
-            "are not ported yet (ROADMAP Queue 2). The JAX layer takes its fused kernel at "
-            "this sequence (jax_layer_fused); pad the batch to more channels, where it takes "
-            "the unfused layer (ChAdaViT-B/16: 8 or more channels in bfloat16, 4 or more in "
-            "float32, e.g. bucket_by_channels=false), or set block_impl='xla'")
+            f"kernels are built for (D, FFN) in {sorted(WIDTHS.items())}; the chain's D {d} "
+            "instances are not ported. Set block_impl='xla' (the unfused layer)")
     s = x.shape[1]
     xp = _pad_seq(x)
     if _launch.needs_grad(x, *weights):

@@ -3,10 +3,13 @@
 the DINO train step and the pretrain entry point of ChAdaViT-moyen through the
 port's hand-written CUDA kernels, in float32 and in bfloat16 (the canonical
 pretrain precision: float32 parameters, bfloat16 activations), then the same
-paths of ChAdaViT-B/16 (D 768, 12 heads of 64, FFN 2048) on its unfused route,
-where the attention kernels run at head width 64. Every kernel has a float32
+paths of ChAdaViT-B/16 (D 768, 12 heads of 64, FFN 2048) on both of its
+routes: the unfused layer, where the attention kernels run at head width 64,
+and, where the JAX gate takes the fused layer (1-7 channels in bfloat16, 1-3
+in float32), the layer chain's D 768 instances. Every kernel has a float32
 and a bfloat16 instance (C entry points ``name`` and ``name_bf16``); the
-attention kernels' head-64 instances are counted as ``name_hd64``.
+attention kernels' head-64 instances are counted as ``name_hd64``, the layer
+chain's D 768 instances as ``name_d768``.
 
 Run from the root of the repository, with no arguments:
 
@@ -29,34 +32,34 @@ Phases, each printed with its elapsed seconds at its start and end:
    linear_wgrad's two passes and of ln_bwd's four instances at D 192 (the
    model's width), none of which may spill; among them the attention's
    head-64 instances (the float32 forward, prep and backward; the bfloat16
-   forward, prep, dk/dv and dq).
+   forward, prep, dk/dv and dq) and the layer chain's D 768 instances, none of
+   which may spill.
 2. each kernel instance against its plain PyTorch version at hub shapes (B 8,
    S_pad 2048, D 192, F 2048, 2 heads, 1..10 channels), float32 on the
    inputs of seed 0, then bfloat16 on those of each of BF16_SEEDS (the worst
-   bf16 readings are printed, the bounds are a few times them): the forward
-   kernels, their save outputs (LN stats, pre-LN sum,
-   lse), then every backward kernel on the inputs the layer's backward gives
-   it (linear_dgrad, linear_wgrad and the attention backward twice, for the
-   same bits); in float32
-   linear_residual_ln twice at each site, with and without its save outputs,
-   for the same bits, and the attention forward with its lse for zeros and
-   lse 1e30 on the 64-query tiles past valid_len; in bfloat16
-   the tensor-core ln_linear, linear_relu and linear_residual_ln (K1a, K1c,
-   K1b) once more, K1a and each K1b site with and without its save outputs,
-   every call twice for the same bits and with zeros on the tiles past
-   valid_len (and how many qkv entries and hid ReLU masks differ from the
-   plain versions); the whole layer forward; the layer's backward through
-   FusedEncoderBlock against the plain backward chain on the Function's own
-   residuals (in bfloat16 with the kernel's recompute of the FFN hidden, as
-   the Function's: backward_reference; and, in float32, against
-   torch.autograd.grad of fused_encoder_block_reference), with a cotangent
-   that is zero past valid_len. Then the tail rows: a cotangent on every row of the tiles that
-   hold a valid row (32-row tiles of the layer, 64-query tiles of the
-   attention), K2 through FusedEncoderBlock and K4 through
-   PrefixFlashAttention against the plain backward chains, in both dtypes.
-   Then the LayerNorm kernels (ln_fwd, ln_bwd) against their plain versions
-   on the same rows (B x S_pad rows of D 192), with and without the residual,
-   eps 1e-5 and 1e-6, and run twice for the same bits (fixed-order sums).
+   bf16 readings are printed, the bounds are a few times them). The layer
+   chain by check_chain: every forward step (ln_linear, linear_relu and
+   linear_residual_ln at both sites, with and without their save outputs)
+   on the plain chain's intermediates, every call twice for the same bits,
+   with zeros on the 32-row tiles past valid_len and counted under its
+   instance's name (and how many qkv entries and hid ReLU masks differ from
+   the plain versions); the chain's save outputs (LN stats, pre-LN sum)
+   against the plain chain's; every backward GEMM and layernorm_bwd call on
+   the inputs the layer's backward gives it, twice for the same bits; the
+   whole layer forward; the layer's backward through FusedEncoderBlock
+   against the plain backward chain on the Function's own residuals (in
+   bfloat16 with the kernel's recompute of the FFN hidden, as the
+   Function's: backward_reference; and, in float32, against
+   torch.autograd.grad of the plain forward with the backward's ReLU mask),
+   with a cotangent that is zero past valid_len and one on every row of the
+   32-row tiles that hold a valid row. Then the attention: the forward and
+   its lse (in float32 zeros and lse 1e30 on the 64-query tiles past
+   valid_len), the backward on the layer's inputs twice for the same bits,
+   and K4 through PrefixFlashAttention with a cotangent on every row of the
+   64-query tiles that hold a valid query. Then the LayerNorm kernels
+   (ln_fwd, ln_bwd) against their plain versions on the same rows (B x
+   S_pad rows of D 192), with and without the residual, eps 1e-5 and 1e-6,
+   and run twice for the same bits (fixed-order sums).
 2b. the attention's head-64 instances at ChAdaViT-B/16's hub shapes (B 8,
    S_pad 2048, D 768, 12 heads, the same channels), on q, k and v as the layer
    makes them (column slices of one packed qkv), float32 on seed 0 and
@@ -65,6 +68,12 @@ Phases, each printed with its elapsed seconds at its start and end:
    backward with a cotangent on the valid rows and with one on every row of
    the computed tiles, every call twice for the same bits; then K5/K6 at D
    768.
+2c. the layer chain's D 768 instances (ChAdaViT-B/16 where the JAX gate
+   takes the fused layer) against their plain versions at narrow hub shapes:
+   bfloat16 at B 8, S_pad 1408 (channels 1, 3, 5, 7, 2, 7, 4, 6) on each of
+   BF16_SEEDS, float32 at S_pad 640 (channels 3, 1, 2, 3, 1, 2, 3, 2): phase
+   2's check_chain at D 768 and phase 2's bounds, launches counted under the
+   _d768 names.
 3. the JAX fixtures: the depth-2, full-width model's CLS embeddings
    (tests/goldens/torch_port_cls_depth2.npz) and three DINO train steps of
    that backbone with the canonical head (tests/goldens/torch_port_dino_depth2.npz),
@@ -72,7 +81,11 @@ Phases, each printed with its elapsed seconds at its start and end:
    torch_port_dino_bf16_depth2.npz); then the four ChAdaViT-B/16 fixtures
    (torch_port_{cls,dino}_b16{,_bf16}_depth2.npz: the CLS of images of 10, 7,
    3 and 1 channels, three DINO steps with a 65 536-prototype head on images
-   of 10 and 4 channels; every batch pads to 2048 rows, the unfused route).
+   of 10 and 4 channels; every batch pads to 2048 rows, the unfused route),
+   and the four narrow B/16 fixtures that JAX computed through its fused
+   layer kernel (torch_port_{cls,dino}_b16_narrow{,_bf16}_depth2.npz: the CLS
+   of images of 3, 2 and 1 channels, three DINO steps on crops of 3 planes;
+   640 rows, the layer chain's D 768 instances).
 4. the served path: load_chadavit16_moyen() at depth 12 with seeded weights,
    extract_embeddings on 24 images in batches of 8; the launch count of every
    kernel must be what 12 layers x 3 batches imply, and the embeddings must
@@ -132,7 +145,10 @@ Phases, each printed with its elapsed seconds at its start and end:
    weights through extract_embeddings on 24 images in batches of 8, each
    batch holding a 10-channel image, in float32 and in bfloat16: only the
    head-64 attention forward launches, 12 layers x 3 batches, and the
-   embeddings match the same model with the attention's plain version. (b)
+   embeddings match the same model with the attention's plain version; then
+   at max_channels 3 (float32) and 7 (bfloat16), where only the chain's D 768
+   forward instances and the head-64 attention forward launch, against the
+   same model through the plain versions. (b)
    build_dino at the root bench's B/16 spec (bench.b16_spec), step 1 at
    depth 12 against the same model with the attention's plain forward and
    backward in one autograd Function (one layer's scores at a time): the
@@ -143,35 +159,43 @@ Phases, each printed with its elapsed seconds at its start and end:
    plain step, the kernels no farther from it than B16_F32_GAP times the
    plain bf16 step; then 3 steps of 16 raw uint8 images of 10
    channels with the multicrop inside, 24 launches of the head-64 forward
-   and 12 of its backward a step. (c) main_pretrain on
-   scripts/pretrain/dino_chada_vit_b16_pod.yaml with model_parallel=1
-   fsdp=false devices=1 data.dataset=synthetic bucket_by_channels=false, 2
-   steps: finite loss and those launches.
-5. times with CUDA events: each kernel instance (and the share of its bound
-   it reaches; linear_residual_ln, linear_dgrad and linear_wgrad also site
-   by site), its plain version, one PyTorch call for the same function (a
-   yardstick the port never calls), its bound (ln_fwd and ln_bwd at the
-   final norm's site, over every row: they take no valid_len); the device
-   time by the profiler of ln_fwd, ln_bwd (ln_bwd also with the L2 cold: a
-   buffer larger than the 50 MB L2 written before each call),
-   ln_linear, linear_relu, linear_residual_ln and linear_dgrad (both also
-   site by site),
-   layernorm_bwd, linear_dgrad and linear_wgrad, whose small calls CUDA
-   events time by the host's launch rate, and of the attention forward and
-   backward (K3, K4), kernel by kernel (so each pass of layernorm_bwd and
-   linear_wgrad on its own); K3 and K4 run twice for the same bits; the whole layer forward
-   and backward; the served batch and the train step, in both dtypes; the
-   multicrop's device time per step (bf16, B 32) beside the step's. Then the
-   attention's head-64 instances at 2b's shapes in the same way (the
-   library: scaled_dot_product_attention with the key mask), and the B/16
-   bf16 step of 4e by the profiler: the attention kernels' share of its
-   device time against the library's GEMMs.
+   and 12 of its backward a step; then step 1 on a 7-channel bucket (bfloat16,
+   8 images) and a 3-channel bucket (float32, 2 images) through the layer
+   chain's D 768 instances, against the same model through the plain chains
+   at 4b's bounds (the chain's D 768 launches of the JSON line); in bfloat16,
+   where any change of the chain's summation order moves the DINO loss past
+   4b's loss bound, the loss against the float32 plain step instead (within
+   B16_FUSED_LOSS_F32) and every layer of the step's backbone forward no
+   farther from the float32 chain than B16_LAYER_F32_RATIO times the plain
+   bf16 chain (layer_gaps). (c)
+   main_pretrain on scripts/pretrain/dino_chada_vit_b16_pod.yaml with
+   model_parallel=1 fsdp=false devices=1 data.dataset=synthetic and its
+   channel buckets as written, 2 steps (batches of 4 and 8 channels, from the
+   loader's plan): finite loss, the layer chain's launches at the first and
+   the unfused layer's at the second, printed by route.
+5. times, entry point by entry point (time_entry), at phase 2's shapes for
+   D 192, 2b's for the head-64 attention and 2c's for the D 768 chain
+   (chain_runs builds the chain's sites at either width): CUDA events of the
+   kernel and its plain version in turns, one PyTorch call for the same
+   function (a yardstick the port never calls), its bound (ln_fwd and ln_bwd
+   at the final norm's site, over every row: they take no valid_len), and
+   the profiler's device time of every kernel of the calls (small calls
+   CUDA events time by the host's launch rate), each site on its own where
+   an entry point has several; ln_bwd also with the L2 cold (a buffer
+   larger than the 50 MB L2 written before each call); K3 and K4 run twice
+   for the same bits; the whole layer forward and backward; the served
+   batch and the train step, in both dtypes; the multicrop's device time per
+   step (bf16, B 32) beside the step's; and the B/16 bf16 step of 4e by the
+   profiler, on 10 channels and on a 7-channel bucket: the attention
+   kernels' and the layer chain's share of its device time against the
+   library's GEMMs.
 6. one JSON line with every kernel instance, then the last line
    {"ok": true, "device": {...}}. A failed phase prints no last line and
    exits 1.
 """
 
 import contextlib
+import dataclasses
 import faulthandler
 import json
 import math
@@ -194,6 +218,13 @@ DINO_FIXTURE_B16 = GOLDENS / "torch_port_dino_b16_depth2.npz"
 FIXTURE_B16_BF16 = GOLDENS / "torch_port_cls_b16_bf16_depth2.npz"
 DINO_FIXTURE_B16_BF16 = GOLDENS / "torch_port_dino_b16_bf16_depth2.npz"
 B16_YAML = CANONICAL.parent / "dino_chada_vit_b16_pod.yaml"
+# ChAdaViT-B/16 where the JAX gate takes the fused layer (3 channels, 640
+# rows), computed by JAX through its fused layer kernel: the layer chain's
+# D 768 instances on the card
+FIXTURE_B16_NARROW = GOLDENS / "torch_port_cls_b16_narrow_depth2.npz"
+DINO_FIXTURE_B16_NARROW = GOLDENS / "torch_port_dino_b16_narrow_depth2.npz"
+FIXTURE_B16_NARROW_BF16 = GOLDENS / "torch_port_cls_b16_narrow_bf16_depth2.npz"
+DINO_FIXTURE_B16_NARROW_BF16 = GOLDENS / "torch_port_dino_b16_narrow_bf16_depth2.npz"
 
 # hub shapes
 B, S_PAD, D, H, FFN = 8, 2048, 192, 2, 2048
@@ -299,9 +330,55 @@ B16_CHECK_COUNTS_BF16 = [10, 6, 8, 9, 10, 7, 9, 10]
 # section 6)
 B16_F32_GAP = 2.0
 B16_TRAIN_B = 16
+# the narrow widths, where the JAX gate takes the fused layer (the layer
+# chain's D 768 instances): served images of 1-3 channels in float32 and 1-7
+# in bfloat16 (max_channels 3 and 7); step 1 on a 7-channel bucket of 8
+# images in bfloat16 and a 3-channel bucket of 2 in float32
+B16_NARROW_SERVED = {"": (3, [1 + i % 3 for i in range(24)]),
+                     "_bf16": (7, [1 + 5 * i % 7 for i in range(24)])}
+B16_BUCKET_BF16 = (7, [7, 7, 6, 7, 5, 7, 7, 3])
+B16_BUCKET_F32 = (3, [3, 2])
+# the bf16 step 1 on the fused route. Any change of the bf16 chain's
+# summation order moves the DINO loss past 4b's 5e-5: the plain chains with
+# each product's even and odd K summed apart read 3.4e-06 to 5.3e-05 from
+# the plain chains on five 7-channel batches of 8 and 32 images, the kernels
+# 1.5e-06 to 9.4e-05 (scripts/b16_bf16_step_gap.py layers, PERF.md section
+# 6). So the kernels' loss is held to the float32 plain step's, where every
+# bf16 side of those batches and of the fused mode's six reads at most
+# 1.5e-04 (bound twice that), and the forward to the float32 chain layer by
+# layer, where the kernels' relative distance reads 0.9980 to 1.0006 times
+# the plain bf16 chain's at all 60 layers of those five batches (one rounding
+# more or less at one site of a layer moves it by a few per cent). The
+# update cosines keep 4b's bound.
+B16_FUSED_LOSS_F32 = 3e-4
+B16_LAYER_F32_RATIO = 1.01
+# the pod YAML with its channel buckets as written (bucket_by_channels: True),
+# one device and synthetic data: its first two batches are 4 and 8 channels
+# wide, so step 1 takes the layer chain and step 2 the unfused layer
 B16_ENTRY = ["model_parallel=1", "fsdp=false", "devices=1", "data.dataset=synthetic",
-             "bucket_by_channels=false", "log_every=1"]
+             "log_every=1"]
 B16_ENTRY_STEPS = 2
+
+# 2c, ChAdaViT-B/16 where the JAX gate takes the fused layer: the layer
+# chain's D 768 instances at narrow hub shapes, bfloat16 at B 8, S_pad 1408
+# (channels up to 7: 6 976 computed rows) on each of BF16_SEEDS, float32 at
+# S_pad 640 (up to 3: 3 520 computed rows) on seed 0
+NARROW_BF16 = (1408, [1, 3, 5, 7, 2, 7, 4, 6])
+NARROW_F32 = (640, [3, 1, 2, 3, 1, 2, 3, 2])
+CHAIN_ENTRIES = ("ln_linear_fwd", "linear_relu_fwd", "linear_residual_ln_fwd", "layernorm_bwd",
+                 "linear_dgrad", "linear_wgrad")
+
+# phase 1: the layer chain's D 768 instances that must be among the kernels
+# built (demangled names, without the anonymous namespace)
+D768_KERNELS = [
+    "ln_linear_wide_bf16_kernel(", "linear_relu_bf16_kernel<768>(",
+    "linear_residual_ln_bf16_kernel<768, 4>(", "linear_residual_ln_bf16_kernel<2048, 4>(",
+    "linear_dgrad_bf16_kernel<128, 768, 4, 1, false>(",
+    "linear_dgrad_bf16_kernel<192, 768, 1, 0, false>(",
+    "linear_dgrad_bf16_kernel<192, 2304, 1, 0, false>(",
+    "ln_linear_kernel<768>(", "linear_relu_kernel<768>(", "linear_residual_ln_kernel<1, 4>(",
+    "layernorm_bwd_kernel<768, float>(", "layernorm_bwd_kernel<768, __nv_bfloat16>(",
+    "reduce_ln_splits_kernel<768>("]
 
 # the card's peaks (NVIDIA H100 SXM data sheet): f32 outside the tensor cores,
 # dense bf16 on the tensor cores, and HBM3 bandwidth. The bound of a float32
@@ -420,6 +497,49 @@ def plain_chain_backbone(model, x, cc):
     return model.final_norm(emb)[:, 0]
 
 
+def layer_gaps(spec_bf16, spec_f32, counts, seed=6):
+    """Step 1's student backbone on the synthetic batch of ``counts`` (its
+    global crops as one pass), layer by layer through the kernels and the
+    plain chains in bfloat16 and the plain chains in float32 from the same
+    init: each layer's relative L2 distance of the two bf16 outputs from the
+    float32 one over the valid rows, ``[(kernels, plain), ...]``."""
+    import torch
+    import torch.nn.functional as F
+
+    from chadavit_tpu_torch.ops import fused_block
+    from chadavit_tpu_torch.train.pretrain import build_dino, synthetic_dino_batch
+
+    def embed(spec):
+        _, _, backbone, _ = build_dino(spec)
+        batch = synthetic_dino_batch(spec, len(counts), seed=seed, channel_counts=counts)
+        crops = batch["crops"]
+        cc = batch["channel_counts"].repeat(crops.shape[0])
+        with torch.no_grad():
+            x, _ = backbone.tokenize(crops.reshape((-1,) + tuple(crops.shape[2:])), cc)
+        s = x.shape[1]
+        x = F.pad(x, (0, 0, 0, -(-s // fused_block.SEQ_PAD) * fused_block.SEQ_PAD - s))
+        return backbone, x, (1 + cc.to(torch.int32) * backbone.num_patches).to(torch.int32)
+
+    model_b, xk, vl = embed(spec_bf16)
+    model_f, xf, _ = embed(spec_f32)
+    ok = torch.arange(xk.shape[1], device=xk.device)[None, :] < vl[:, None]
+    xp, gaps = xk, []
+    with torch.no_grad():
+        for blk_b, blk_f in zip(model_b.blocks, model_f.blocks):
+            eps, heads = blk_b.layer_norm_eps, blk_b.num_heads
+            xk, xp, xf = (fused_block.layer_forward(steps, x_, vl, blk.weights(), heads, eps,
+                                                    eps, save=False)
+                          for steps, x_, blk in ((fused_block.KERNEL_STEPS, xk, blk_b),
+                                                 (fused_block.PLAIN_STEPS, xp, blk_b),
+                                                 (fused_block.PLAIN_STEPS, xf, blk_f)))
+            ref = xf[ok].double()
+            gaps.append(tuple(((t[ok].double() - ref).norm() / ref.norm()).item()
+                              for t in (xk, xp)))
+    del model_b, model_f, xk, xp, xf
+    torch.cuda.empty_cache()
+    return gaps
+
+
 def check_updates(ph, what, names, kernel_dirs, plain_dirs, spec, bound):
     """Step 1's update of every trainable tensor (``names``, in the train
     state's order), the kernels' run against the plain run from the same
@@ -531,6 +651,314 @@ def check_layer_backward(ph, backbone, batch, dt, seed=5):
              f"{what}; dx zero on the zero-filled tiles: {tail_zero}")
 
 
+class Bf16Notes:
+    """The bfloat16 readings of a phase: an instance's output against its
+    plain version within bf16_err's bounds, its max abs error kept in
+    ``stats[name]`` (when name is an instance), and the worst readings (bf16
+    steps of a bf16 output, share of the largest entry of an f32 one,
+    1 - cosine), of which the bounds are a few times; ``where`` (the seed)
+    is added to each reading's label."""
+
+    def __init__(self, ph, stats):
+        self.ph, self.stats, self.where = ph, stats, ""
+        self.worst = {"steps": (0.0, ""), "f32": (0.0, ""), "1 - cos": (0.0, "")}
+
+    def measure(self, out, ref, rows=None, what=""):
+        """(max abs error, its bound, cosine), kept among the worst readings."""
+        import torch
+
+        torch.cuda.synchronize()
+        err, tol, cos = bf16_err(out, ref, rows)
+        key, unit = (("steps", BF16_STEPS) if out.dtype == torch.bfloat16
+                     else ("f32", BF16_F32_REL))
+        for k, v in ((key, err * unit / tol if tol else 0.0), ("1 - cos", 1 - cos)):
+            if v > self.worst[k][0]:
+                self.worst[k] = (v, what + self.where)
+        return err, tol, cos
+
+    def note(self, name, out, ref, what, rows=None):
+        """The reading, checked against its bounds."""
+        err, tol, cos = self.measure(out, ref, rows, name + what)
+        if name in self.stats:
+            self.stats[name]["max_abs_err"] = max(self.stats[name]["max_abs_err"], err)
+        self.ph.check(err <= tol and cos >= BF16_COS,
+                      f"{name}{what}: max abs {err:.3e} (tolerance {tol:.3g}), cosine "
+                      f"1 - {1 - cos:.2e} (>= 1 - {1 - BF16_COS:.0e})")
+
+    def summary(self):
+        return ("; ".join(f"{k} {v:.3g} ({where})" for k, (v, where) in self.worst.items())
+                + f" (bounds {BF16_STEPS} steps, {BF16_F32_REL:g}, {1 - BF16_COS:.0e})")
+
+
+def draw_layer(rng, dev, bsz, s_pad, d, f, valid_len):
+    """A layer's input x, its 12 float32 parameters and two cotangents from
+    the numpy generator ``rng``: dy on the valid rows, dy_tail on every row
+    of the 32-row tiles that hold a valid row."""
+    import numpy as np
+    import torch
+
+    from chadavit_tpu_torch.ops import fused_block
+
+    def dev_randn(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    x = dev_randn(bsz, s_pad, d)
+    w = [dev_randn(3 * d, d, scale=d ** -0.5), dev_randn(3 * d, scale=0.02),
+         dev_randn(d, d, scale=d ** -0.5), dev_randn(d, scale=0.02),
+         1 + dev_randn(d, scale=0.1), dev_randn(d, scale=0.05),
+         1 + dev_randn(d, scale=0.1), dev_randn(d, scale=0.05),
+         dev_randn(f, d, scale=d ** -0.5), dev_randn(f, scale=0.02),
+         dev_randn(d, f, scale=f ** -0.5), dev_randn(d, scale=0.02)]
+    dy, dy_tail = dev_randn(bsz, s_pad, d), dev_randn(bsz, s_pad, d)
+    for i, n in enumerate(valid_len):
+        dy[i, n:] = 0
+        dy_tail[i, -(-n // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK:] = 0
+    return x, w, dy, dy_tail
+
+
+def check_chain(ph, stats, note_bf16, x, w, dy, dy_tail, valid_len, heads, what_shape):
+    """The layer chain's instances at x's width and dtype against their plain
+    versions (phases 2 and 2c): the forward steps with and without their
+    save outputs (both K1b sites) on the plain chain's intermediates, each
+    call twice for the same bits, with zeros on the 32-row tiles past
+    valid_len and counted under the width's instance names; the chain's
+    save outputs against the plain chain's; every backward step except the
+    attention's on the inputs the plain backward chain gives it, twice for
+    the same bits; the layer forward, and its backward through
+    FusedEncoderBlock against the plain backward chain on the Function's own
+    residuals (backward_reference; in float32 also against autograd of the
+    plain forward with the backward's ReLU mask), with the cotangent dy on
+    the valid rows and dy_tail on every row of the computed tiles. The hid
+    ReLU masks that flip against the plain versions are counted. Float32
+    outputs are held within KERNEL_TOL (GRAD_REL of the largest entry for
+    the backward's), bfloat16 ones by ``note_bf16(name, out, ref, what,
+    rows)``. Returns the inputs, the plain chain's intermediates and
+    residuals and the backward steps' recorded calls (the attention's
+    among them), for the phase's attention checks and phase 5."""
+    import torch
+    from types import SimpleNamespace
+
+    from chadavit_tpu_torch.ops import _launch, fused_block
+    from chadavit_tpu_torch.ops import flash_attention as fa
+
+    bsz, _, d = x.shape
+    dt, h, f = x.dtype, heads, w[8].shape[0]
+    f32 = dt == torch.float32
+    rows = [-(-n // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK for n in valid_len]
+    vl = torch.tensor(valid_len, dtype=torch.int32, device=x.device)
+    tag = "" if f32 else "_bf16"
+
+    def name_of(entry):
+        return fused_block.instance(entry + tag, d)
+
+    def note(name, out, ref, what, rows_=valid_len, tol=KERNEL_TOL):
+        torch.cuda.synchronize()
+        if not f32:
+            note_bf16(name, out, ref, what, rows_)
+            return
+        if out.dim() == 3:
+            err = valid_rows_err(out, ref, rows_)[0]
+        else:
+            err = (out - ref).abs().max().item()
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+        ph.check(err <= tol, f"{name}{what}: max abs {err:.3e} (tolerance {tol:.3g})")
+
+    wd = fused_block.pack_weights(tuple(w), dt)
+    wqkv, bqkv, wout, bout, g1, b1, g2, b2, w1, b1f, w2, b2f = wd
+    qkv = fused_block.ln_linear_reference(x, g1, b1, EPS1, wqkv, bqkv)
+    attn = fa.prefix_flash_attention_reference(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:],
+                                               vl, h)
+    x2 = fused_block.linear_residual_ln_reference(attn, wout, bout, x, g1, b1, EPS1)
+    hid = fused_block.linear_relu_reference(x2, w1, b1f)
+
+    # the forward steps: each twice, the same bits, zeros past the computed tiles
+    cases = [("ln_linear_fwd", "", False,
+              lambda: fused_block.ln_linear(x, g1, b1, EPS1, wqkv, bqkv, vl), lambda: qkv),
+             ("ln_linear_fwd", " save", True,
+              lambda: fused_block.ln_linear(x, g1, b1, EPS1, wqkv, bqkv, vl, save=True),
+              lambda: fused_block.ln_linear_reference(x, g1, b1, EPS1, wqkv, bqkv, save=True)),
+             ("linear_relu_fwd", "", False, lambda: fused_block.linear_relu(x2, w1, b1f, vl),
+              lambda: hid)]
+    for site, args, eps in ((" out projection", (attn, wout, bout, x, g1, b1), EPS1),
+                            (" FFN2", (hid, w2, b2f, x2, g2, b2), EPS2)):
+        for save in (False, True):
+            cases.append(("linear_residual_ln_fwd", site + " save" * save, save,
+                          (lambda a=args, e=eps, sv=save: fused_block.linear_residual_ln(
+                              *a, e, vl, save=sv)),
+                          (lambda a=args, e=eps, sv=save:
+                           fused_block.linear_residual_ln_reference(*a, e, save=sv))))
+    for entry, what, save, kernel_fn, plain_fn in cases:
+        name = name_of(entry)
+        before = _launch.LAUNCHES[name]
+        first, again = kernel_fn(), kernel_fn()
+        torch.cuda.synchronize()
+        firsts = first if save else (first,)
+        agains = again if save else (again,)
+        ph.check(_launch.LAUNCHES[name] == before + 2 and firsts[0].dtype == dt
+                 and all(torch.equal(a_, b_) for a_, b_ in zip(firsts, agains))
+                 and all(not o[i, n:].any().item() for o in firsts for i, n in enumerate(rows)),
+                 f"{name}{what}{what_shape}: counted as {name}, writes {dt}, the same bits on a "
+                 f"second call, zeros on the 32-row tiles past valid_len")
+        refs = plain_fn()
+        refs = refs if save else (refs,)
+        for o, r, part in zip(firsts, refs, ("", " mean", " rstd", " r")):
+            if o.dim() == 2:  # the row stats
+                o, r = o[..., None], r[..., None]
+            note(name, o, r, what + part)
+        del first, again, firsts, agains, refs
+    if not f32:
+        qk = fused_block.ln_linear(x, g1, b1, EPS1, wqkv, bqkv, vl)
+        differ = sum(int((qk[i, :n] != qkv[i, :n]).sum()) for i, n in enumerate(rows))
+        log(f"  {name_of('ln_linear_fwd')}{what_shape}: {differ} entries of qkv differ from the "
+            f"plain version, in {sum(rows) * 3 * d} entries")
+        del qk
+
+    # the chain's save outputs against the plain chain's: the LN1 stats, the
+    # site-2 norm1's and LN2's (mean and rstd of a site as one tensor), r2
+    _, (ra, rx2, rr2, rlse, rst) = fused_block.layer_forward(
+        fused_block.PLAIN_STEPS, x, vl, tuple(w), h, EPS1, EPS2, save=True)
+    _, (ka, kx2, kr2, klse, kst) = fused_block.layer_forward(
+        fused_block.KERNEL_STEPS, x, vl, tuple(w), h, EPS1, EPS2, save=True)
+    torch.cuda.synchronize()
+    ph.check(all(t.dtype == torch.float32 for t in (*kst, klse))
+             and all(t.dtype == dt for t in (ka, kx2, kr2)),
+             f"save outputs{what_shape}: activations {dt}, stats and lse float32")
+    note(name_of("ln_linear_fwd"), torch.stack(kst[:2], -1), torch.stack(rst[:2], -1),
+         " save outputs mean, rstd")
+    note(name_of("linear_residual_ln_fwd"), torch.stack(kst[2:], -1), torch.stack(rst[2:], -1),
+         " save outputs mean, rstd")
+    note(name_of("linear_residual_ln_fwd"), kr2, rr2, " save output r2")
+    # the FFN hidden of the kernels' forward chain against the plain chain's:
+    # entries whose ReLU mask the two sums put on opposite sides of 0 (each
+    # moves a whole row of dz1, the kink of ReLU, not a fault of a kernel)
+    hk = fused_block.linear_relu(kx2, w1, b1f, vl)
+    hp = fused_block.linear_relu_reference(kx2, w1, b1f)
+    chain_flips = sum(int(((hk[i, :n] > 0) != (hid[i, :n] > 0)).sum())
+                      for i, n in enumerate(rows))
+    flips = sum(int(((hk[i, :n] > 0) != (hp[i, :n] > 0)).sum()) for i, n in enumerate(rows))
+    differ = sum(int((hk[i, :n] != hp[i, :n]).sum()) for i, n in enumerate(rows))
+    log(f"  {name_of('linear_relu_fwd')} on the layer's own x2{what_shape}: {differ} entries "
+        f"differ from the plain version, {flips} of them ReLU mask flips, in "
+        f"{sum(rows) * f} entries; against the plain forward chain's hid, {chain_flips} "
+        f"mask flips")
+    del hk, hp
+
+    # every backward step on the inputs the plain backward chain gives it
+    rec = Recorder(fused_block.PLAIN_STEPS)
+    fused_block.layer_backward(rec, dy, x, vl, ra, rx2, rr2, rlse, rst, w, h, EPS1)
+    kernel_step = {"layernorm_bwd": fused_block.layernorm_bwd,
+                   "linear_dgrad": fused_block.linear_dgrad,
+                   "linear_wgrad": fused_block.linear_wgrad}
+    bwd_inputs = {name: [] for name in (*kernel_step, "attention_bwd")}
+    for entry, (args, kwargs), ref_out in rec.calls:
+        if entry in bwd_inputs:
+            bwd_inputs[entry].append((args, kwargs))
+        if entry not in kernel_step:
+            continue
+        name = name_of(entry)
+        before = _launch.LAUNCHES[name]
+        outs, agains = ((o if isinstance(o, tuple) else (o,)) for o in (
+            kernel_step[entry](*args, **{k: (v.clone() if k == "dgb" else v)
+                                         for k, v in kwargs.items()}) for _ in range(2)))
+        torch.cuda.synchronize()
+        shape = tuple(outs[0].shape)
+        ph.check(_launch.LAUNCHES[name] == before + 2
+                 and all(torch.equal(a_, b_) for a_, b_ in zip(outs, agains))
+                 and all(o.dtype == (dt if o.dim() == 3 else torch.float32) for o in outs)
+                 and all(not o[i, n:].any().item() for o in outs if o.dim() == 3
+                         for i, n in enumerate(valid_len)),
+                 f"{name} ({shape}){what_shape}: counted, activations {dt} and parameter "
+                 f"gradients float32, the same bits on a second call, zeros past valid_len")
+        for o, r in zip(outs, ref_out if isinstance(ref_out, tuple) else (ref_out,)):
+            if f32:
+                mag = (max(r[i, :n].abs().max().item() for i, n in enumerate(valid_len))
+                       if o.dim() == 3 else r.abs().max().item())
+                note(name, o, r, f" ({tuple(o.shape)}, output scale {mag:.3g})",
+                     tol=GRAD_REL * max(1.0, mag))
+            else:
+                note(name, o, r, f" ({tuple(o.shape)})", valid_len if o.dim() == 3 else None)
+        del outs, agains
+
+    # the layer: forward, and its backward through FusedEncoderBlock
+    layer = fused_block.fused_encoder_block(x, vl, *w, h, EPS1, EPS2)
+    layer_ref = fused_block.fused_encoder_block_reference(x, vl, *w, h, EPS1, EPS2)
+    if f32:
+        err, rel = valid_rows_err(layer, layer_ref, valid_len)
+        ph.check(err <= LAYER_TOL, f"fused_encoder_block at D {d}{what_shape}: max abs "
+                                   f"{err:.3e}, max rel {rel:.3e} (tolerance {LAYER_TOL:g})")
+    else:
+        note_bf16("layer", layer, layer_ref, f" fused_encoder_block at D {d}", valid_len)
+    names = ["wqkv", "bqkv", "wout", "bout", "g1", "b1", "g2", "b2", "w1", "b1f", "w2", "b2f"]
+    attn_bwd = fa.instance(_launch.entry_point("prefix_attention_bwd", dt), d // h)
+    for what, dy_, rows_ in ((" cotangent on the valid rows", dy, valid_len),
+                             (" tail cotangent (every row of the computed tiles)", dy_tail,
+                              rows)):
+        xg = x.clone().requires_grad_(True)
+        wg = [t.clone().requires_grad_(True) for t in w]
+        counted = {"layernorm_bwd": name_of("layernorm_bwd"),
+                   "linear_dgrad": name_of("linear_dgrad"),
+                   "linear_wgrad": name_of("linear_wgrad"), "attention_bwd": attn_bwd}
+        before = {n: _launch.LAUNCHES[c] for n, c in counted.items()}
+        y = fused_block.fused_encoder_block(xg, vl, *wg, h, EPS1, EPS2)
+        grads = torch.autograd.grad(y, [xg, *wg], dy_)
+        torch.cuda.synchronize()
+        launched = {n: _launch.LAUNCHES[c] - before[n] for n, c in counted.items()}
+        same = backward_reference(dy_, x, vl, (ka, kx2, kr2, klse, kst), w, h, EPS1)
+        # dx is zero past the rows the cotangent reaches: past valid_len with
+        # dy, on the zero-filled tiles with dy_tail
+        tail_zero = all(not grads[0][i, n:].any().item() for i, n in enumerate(rows_))
+        ph.check(type(y.grad_fn).__name__ == "FusedEncoderBlockBackward" and tail_zero
+                 and launched == {"layernorm_bwd": 3, "linear_dgrad": 4, "linear_wgrad": 4,
+                                  "attention_bwd": 1}
+                 and grads[0].dtype == dt and all(g.dtype == torch.float32 for g in grads[1:]),
+                 f"layer backward at D {d}{what}{what_shape}: the Function, launches "
+                 f"{launched}, dx {grads[0].dtype} and zero past the rows of the cotangent")
+        if f32:
+            err = valid_rows_err(grads[0], same[0], rows_)[0]
+            worst = max(((gk - gr.reshape(gk.shape)).abs().max().item() / gr.abs().max().item(), n)
+                        for n, gk, gr in zip(names, grads[1:], same[1:]))
+            ph.check(err <= KERNEL_TOL * max(1.0, same[0].abs().max().item())
+                     and worst[0] <= GRAD_REL,
+                     f"layer backward at D {d}{what}, against the plain backward chain on the "
+                     f"Function's own residuals: dx max abs {err:.3e}, 12 grads worst max abs "
+                     f"over max |ref| {worst[0]:.3e} ({worst[1]})")
+            if dy_ is dy:  # and against autograd of the plain forward
+                # with its ReLU mask pinned to the one the Function's backward
+                # recomputes (the kernel's hid of the chain's own x2): an FFN
+                # pre-activation that the two forward chains sum to opposite
+                # sides of 0 flips a mask and moves a whole gradient row (the
+                # kink of ReLU, counted above), and both masks are gradients of
+                # the layer there
+                mask = fused_block.linear_relu(kx2, w1, b1f, vl) > 0
+                pinned = SimpleNamespace(**{**vars(fused_block.PLAIN_STEPS), "linear_relu": (
+                    lambda a_, w_, b_, v_=None: torch.where(mask, torch.matmul(a_, w_.t()) + b_,
+                                                            0.0))})
+                y_ref = fused_block.layer_forward(pinned, xg, vl, tuple(wg), h, EPS1, EPS2,
+                                                  save=False)
+                grads_ref = torch.autograd.grad(y_ref, [xg, *wg], dy_)
+                err = valid_rows_err(grads[0], grads_ref[0], valid_len)[0]
+                worst = max(((gk - gr).abs().max().item() / gr.abs().max().item(), n)
+                            for n, gk, gr in zip(names, grads[1:], grads_ref[1:]))
+                ph.check(err <= KERNEL_TOL * max(1.0, grads_ref[0].abs().max().item())
+                         and worst[0] <= GRAD_REL,
+                         f"layer backward at D {d}, against autograd of the plain forward with "
+                         f"the backward's ReLU mask ({chain_flips} entries flip against the "
+                         f"plain forward's): dx max abs {err:.3e}, 12 grads worst max abs over "
+                         f"max |ref| {worst[0]:.3e} ({worst[1]})")
+                del y_ref, grads_ref, mask
+        else:
+            note_bf16("layer backward", grads[0], same[0], f" dx at D {d}{what}", rows_)
+            for n, gk, gr in zip(names, grads[1:], same[1:]):
+                note_bf16("layer backward", gk, gr.reshape(gk.shape), f" {n} at D {d}{what}",
+                          None)
+        del xg, wg, y, grads, same
+    out = dict(x=x, w=w, wd=wd, qkv=qkv, attn=attn, x2=x2, hid=hid, dy=dy, vl=vl,
+               valid_len=valid_len, bwd_inputs=bwd_inputs, ra=ra, rx2=rx2, rr2=rr2, rlse=rlse,
+               rst=rst, klse=klse)
+    del ka, kx2, kr2, kst, layer, layer_ref, rec
+    return out
+
+
 def plain_attention_function():
     """An autograd Function of the attention's plain forward and backward
     (flash_attention's reference versions), saving only q, k, v, o and the
@@ -602,7 +1030,7 @@ def check_cls_fixture(ph, label, path, dt, cos_bound, abs_bound):
     model.load_state_dict(random_state_dict(model, int(fx["weight_seed"])))
     model = model.to("cuda").eval()
     images = hub.random_images(fx["counts"].tolist(), int(fx["img_size"]), int(fx["image_seed"]))
-    xf, ccf = hub.collate_images(images)
+    xf, ccf = hub.collate_images(images, int(fx["counts"].max()))  # padded to the widest
     with torch.inference_mode():
         cls = model(xf.to("cuda"), ccf.to("cuda"))
     ref = torch.from_numpy(fx["cls"])
@@ -639,6 +1067,8 @@ def check_dino_fixture(ph, label, path, dt, metric_rel, norm_rel, delta_rel):
         dx = {key: f[key] for key in f.files}
     widths = {k: int(dx[k]) for k in ("embed_dim", "num_heads") if k in dx}
     head = {"num_prototypes": int(dx["num_prototypes"])} if "num_prototypes" in dx else {}
+    if "max_channels" in dx:  # the crops' planes, where not 10
+        head["max_channels"] = int(dx["max_channels"])
     spec = DinoPretrainSpec(
         backbone_kwargs=dict(dict(embed_dim=D, num_heads=H), patch_size=16,
                              return_all_tokens=False, max_number_channels=10,
@@ -761,6 +1191,12 @@ def demangle(names):
     out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
                          text=True).stdout.splitlines()
     return out if len(out) == len(names) else list(names)
+
+
+def padded_seq(channels: int) -> int:
+    """The sequence the encoder layers receive for a batch ``channels``
+    wide: 1 + 196 c tokens, padded to a multiple of 128."""
+    return -(-(1 + N_PATCHES * channels) // 128) * 128
 
 
 def bf16_step(x: float) -> float:
@@ -886,6 +1322,12 @@ def main() -> int:
     for name in ("prefix_attention_fwd", "prefix_attention_bwd",
                  "prefix_attention_fwd_bf16", "prefix_attention_bwd_bf16"):
         instances[fa.instance(name, 64)] = instances[name]
+    # the layer chain's D 768 instances (ChAdaViT-B/16 where the JAX gate takes
+    # the fused layer): the same entry points, counted as name_d768
+    # (fused_block.instance)
+    for name in CHAIN_ENTRIES:
+        for tag in ("", "_bf16"):
+            instances[fused_block.instance(name + tag, D16)] = instances[name + tag]
     stats = {name: {"max_abs_err": 0.0} for name in instances}
 
     def reset_launches():
@@ -920,6 +1362,7 @@ def main() -> int:
         ph.check(True, f"{'cold' if cold else 'warm'} build of {len(_build.sources())} "
                        f"sources: {time.perf_counter() - t:.2f} s")
         # registers, shared memory and spills of those kernels
+        seen768 = []
         for (src, only), proc in zip(ptxas_sources.items(), ptxas):
             report = _build.ptxas_lines(proc)
             names = demangle([k["name"] for k in report])
@@ -937,6 +1380,9 @@ def main() -> int:
                                              for k in report),
                      f"{Path(src).name}: {len(report)} kernels"
                      f"{' (' + ', '.join(only) + ')' if only else ''}, none spills")
+            short_names = [n.replace("(anonymous namespace)::", "").removeprefix("void ")
+                           for n in names]
+            seen768.extend(p_ for p_ in D768_KERNELS if any(n.startswith(p_) for n in short_names))
             if src in hd64_kernels:  # the attention's head-64 instances among them
                 # (mangled, a template argument 64 reads ILi64E)
                 found = [k_ for k_ in hd64_kernels[src]
@@ -946,205 +1392,69 @@ def main() -> int:
                          f"{[k_ + '<64>' for k_ in found]} (want {len(hd64_kernels[src])}), "
                          f"none spills")
 
+        ph.check(sorted(seen768) == sorted(D768_KERNELS),
+                 f"the layer chain's D 768 instances built, none spills: {len(seen768)} of "
+                 f"{len(D768_KERNELS)} (the others share a D 192 instance: "
+                 f"{sorted(set(D768_KERNELS) - set(seen768)) or 'none missing'})")
+
     # ---- 2. kernels against their plain versions at hub shapes --------------
     valid_len = [1 + N_PATCHES * c for c in COUNTS]
     inputs = {}  # per dtype tag: the plain chain's intermediates, kept for phase 5
     with Phase("2 kernels vs plain", failures) as ph:
         vl = torch.tensor(valid_len, dtype=torch.int32, device=dev)
-        # the tail cotangents cover every row of the tiles the forward computes
-        layer_rows = [-(-n // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK for n in valid_len]
+        # the attention's tail cotangent covers every row of the tiles it computes
         query_rows = [-(-n // fa.SEQ_BLOCK) * fa.SEQ_BLOCK for n in valid_len]
 
         def draw(seed):
-            """The layer's input, weights and cotangents of one seed."""
+            """The layer's input, weights and cotangents of one seed, and the
+            attention's cotangent on every row of the 64-query tiles that hold
+            a valid query."""
             rng = np.random.default_rng(seed)
-
-            def dev_randn(*shape, scale=1.0):
-                return torch.from_numpy((rng.standard_normal(shape) * scale)
-                                        .astype(np.float32)).to(dev)
-
-            x = dev_randn(B, S_PAD, D)
-            w = [dev_randn(3 * D, D, scale=D ** -0.5), dev_randn(3 * D, scale=0.02),
-                 dev_randn(D, D, scale=D ** -0.5), dev_randn(D, scale=0.02),
-                 1 + dev_randn(D, scale=0.1), dev_randn(D, scale=0.05),
-                 1 + dev_randn(D, scale=0.1), dev_randn(D, scale=0.05),
-                 dev_randn(FFN, D, scale=D ** -0.5), dev_randn(FFN, scale=0.02),
-                 dev_randn(D, FFN, scale=FFN ** -0.5), dev_randn(D, scale=0.02)]
-            dy = dev_randn(B, S_PAD, D)
-            dy_tail = dev_randn(B, S_PAD, D)
-            dout_tail = dev_randn(B, S_PAD, D)
-            for i, n in enumerate(valid_len):
-                dy[i, n:] = 0
-                dy_tail[i, layer_rows[i]:] = 0
-                dout_tail[i, query_rows[i]:] = 0
+            x, w, dy, dy_tail = draw_layer(rng, dev, B, S_PAD, D, FFN, valid_len)
+            dout_tail = torch.from_numpy(rng.standard_normal((B, S_PAD, D))
+                                         .astype(np.float32)).to(dev)
+            for i, n in enumerate(query_rows):
+                dout_tail[i, n:] = 0
             return x, w, dy, dy_tail, dout_tail
 
-        # the worst bf16 readings over BF16_SEEDS, which the bf16 bounds come from:
-        # bf16 steps of a bf16 output, share of the largest entry of an f32
-        # output, 1 - cosine
-        worst_bf16 = {"steps": (0.0, ""), "f32": (0.0, ""), "1 - cos": (0.0, "")}
-
-        def bf16_check(out, ref, rows=None, what=""):
-            err, tol, cos = bf16_err(out, ref, rows)
-            key, unit = (("steps", BF16_STEPS) if out.dtype == bf16 else ("f32", BF16_F32_REL))
-            for k, v in ((key, err * unit / tol if tol else 0.0), ("1 - cos", 1 - cos)):
-                if v > worst_bf16[k][0]:
-                    worst_bf16[k] = (v, f"{what}, seed {seed}")
-            return err, tol, cos
+        notes = Bf16Notes(ph, stats)  # the worst bf16 readings over BF16_SEEDS
 
         for seed, tag, dt in ((0, "", torch.float32),
                               *((s_, "_bf16", bf16) for s_ in BF16_SEEDS)):
             x, w, dy, dy_tail, dout_tail = draw(seed)
+            notes.where = f", seed {seed}"
             if dt == bf16:
                 log(f"  bf16 instances, inputs of seed {seed}")
             f32 = dt == torch.float32
             xd, dyd = x.to(dt), dy.to(dt)
-            wd = fused_block.pack_weights(tuple(w), dt)  # the kernels' operands
-            wqkv, bqkv, wout, bout, g1, b1, g2, b2, w1, b1f, w2, b2f = wd
-            # inputs of each step are the plain chain's own intermediates
-            qkv = fused_block.ln_linear_reference(xd, g1, b1, EPS1, wqkv, bqkv)
-            q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
-            attn = fa.prefix_flash_attention_reference(q, k, v, vl, H)
-            x2 = fused_block.linear_residual_ln_reference(attn, wout, bout, xd, g1, b1, EPS1)
-            hid = fused_block.linear_relu_reference(x2, w1, b1f)
-            inp = dict(x=xd, wd=wd, qkv=qkv, q=q, k=k, v=v, attn=attn, x2=x2, hid=hid, dy=dyd)
-            if seed == 0:
-                inputs[tag] = inp
 
             def note(name, err, tol, what):
                 stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
                 ph.check(err <= tol, f"{name}{what}: max abs {err:.3e} (tolerance {tol:.3g})")
 
             def note_bf16(name, out, ref, what, rows=valid_len):
-                err, tol, cos = bf16_check(out, ref, rows, name + what)
-                stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
-                ph.check(err <= tol and cos >= BF16_COS,
-                         f"{name}{what}: max abs {err:.3e} (tolerance {tol:.3g}), cosine "
-                         f"1 - {1 - cos:.2e} (>= 1 - {1 - BF16_COS:.0e})")
+                notes.note(name, out, ref, what, rows)
 
-            cases = {
-                "ln_linear_fwd": [(lambda: fused_block.ln_linear(xd, g1, b1, EPS1, wqkv, bqkv, vl),
-                                   lambda: qkv)],
-                "prefix_attention_fwd": [(lambda: fa.prefix_flash_attention(q, k, v, vl, H),
-                                          lambda: attn)],
-                "linear_relu_fwd": [(lambda: fused_block.linear_relu(x2, w1, b1f, vl),
-                                     lambda: hid)],
-                "linear_residual_ln_fwd": [
-                    (lambda: fused_block.linear_residual_ln(attn, wout, bout, xd, g1, b1, EPS1,
-                                                            vl),
-                     lambda: x2),
-                    (lambda: fused_block.linear_residual_ln(hid, w2, b2f, x2, g2, b2, EPS2, vl),
-                     lambda: fused_block.linear_residual_ln_reference(hid, w2, b2f, x2, g2, b2,
-                                                                      EPS2)),
-                ],
-            }
-            for name, runs in cases.items():
-                worst = (0.0, 0.0)
-                for kernel_fn, plain_fn in runs:
-                    out = kernel_fn()
-                    torch.cuda.synchronize()
-                    if f32:
-                        worst = max(worst, valid_rows_err(out, plain_fn(), valid_len))
-                    else:
-                        ph.check(out.dtype == bf16, f"{name + tag} writes bfloat16")
-                        note_bf16(name + tag, out, plain_fn(), "")
-                if f32:
-                    note(name, worst[0], KERNEL_TOL, f" (max rel {worst[1]:.3e})")
-            if f32:
-                # the float32 K1b (csrc/fused_block.cu, sgemm_f32.cuh): each site
-                # twice, with and without its save outputs, for the same bits
-                for site, args, eps in ((" out projection", (attn, wout, bout, xd, g1, b1),
-                                         EPS1),
-                                        (" FFN2", (hid, w2, b2f, x2, g2, b2), EPS2)):
-                    for save in (False, True):
-                        first, again = (fused_block.linear_residual_ln(*args, eps, vl, save=save)
-                                        for _ in range(2))
-                        torch.cuda.synchronize()
-                        firsts = first if save else (first,)
-                        agains = again if save else (again,)
-                        ph.check(all(torch.equal(a_, b_) for a_, b_ in zip(firsts, agains)),
-                                 f"linear_residual_ln_fwd{site}{' save' * save}: the same bits "
-                                 f"on a second call")
-                        del first, again, firsts, agains
-            if not f32:
-                # the tensor-core K1a, K1c and K1b (csrc/linear_fwd_bf16.cu): K1a
-                # and each K1b site also with its save outputs (out, LN stats,
-                # and r), every call twice for the same bits, and zeros on the
-                # zero-filled tiles
-                tc_cases = [("ln_linear_fwd_bf16", "", False,
-                             lambda: fused_block.ln_linear(xd, g1, b1, EPS1, wqkv, bqkv, vl),
-                             lambda: qkv),
-                            ("ln_linear_fwd_bf16", " save", True,
-                             lambda: fused_block.ln_linear(xd, g1, b1, EPS1, wqkv, bqkv, vl,
-                                                           save=True),
-                             lambda: fused_block.ln_linear_reference(xd, g1, b1, EPS1, wqkv,
-                                                                     bqkv, save=True)),
-                            ("linear_relu_fwd_bf16", "", False,
-                             lambda: fused_block.linear_relu(x2, w1, b1f, vl), lambda: hid)]
-                for site, args, eps in ((" out projection", (attn, wout, bout, xd, g1, b1),
-                                         EPS1),
-                                        (" FFN2", (hid, w2, b2f, x2, g2, b2), EPS2)):
-                    for save in (False, True):
-                        tc_cases.append((
-                            "linear_residual_ln_fwd_bf16", site + " save" * save, save,
-                            (lambda a=args, e=eps, sv=save: fused_block.linear_residual_ln(
-                                *a, e, vl, save=sv)),
-                            (lambda a=args, e=eps, sv=save:
-                             fused_block.linear_residual_ln_reference(*a, e, save=sv))))
-                for name, what, save, kernel_fn, plain_fn in tc_cases:
-                    first, again = kernel_fn(), kernel_fn()
-                    torch.cuda.synchronize()
-                    firsts = first if save else (first,)
-                    agains = again if save else (again,)
-                    ph.check(all(torch.equal(a_, b_) for a_, b_ in zip(firsts, agains)),
-                             f"{name}{what}: the same bits on a second call")
-                    ph.check(all(not o[i, n:].any().item() for o in firsts
-                                 for i, n in enumerate(layer_rows)),
-                             f"{name}{what}: zeros on the 32-row tiles past valid_len")
-                    refs = plain_fn()
-                    if save:
-                        note_bf16(name, first[0], refs[0], what + " out")
-                        note_bf16(name, torch.stack(first[1:3], -1),
-                                  torch.stack(refs[1:3], -1), what + " mean, rstd")
-                        if len(first) > 3:
-                            note_bf16(name, first[3], refs[3], what + " r")
-                    else:
-                        note_bf16(name, first, refs, what + ", run twice")
-                del tc_cases
+            # the layer chain's steps, its save outputs, the layer forward and
+            # backward (check_chain), on the plain chain's own intermediates
+            inp = check_chain(ph, stats, note_bf16, xd, w, dyd, dy_tail.to(dt), valid_len, H,
+                              f" (B {B}, S_pad {S_PAD}, seed {seed})")
+            qkv, attn = inp["qkv"], inp["attn"]
+            q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+            inp.update(q=q, k=k, v=v)
+            if seed == 0:
+                inputs[tag] = inp
+            g1, b1 = inp["wd"][4:6]
 
-            # the save outputs: LN stats, the pre-LN sum, the lse
-            _, (ra, rx2, rr2, rlse, rst) = fused_block.layer_forward(
-                fused_block.PLAIN_STEPS, xd, vl, tuple(w), H, EPS1, EPS2, save=True)
-            _, (ka, kx2, kr2, klse, kst) = fused_block.layer_forward(
-                fused_block.KERNEL_STEPS, xd, vl, tuple(w), H, EPS1, EPS2, save=True)
+            # the attention (K3) and its lse, then its backward (K4) on the
+            # inputs the layer's backward chain gives it
+            out = fa.prefix_flash_attention(q, k, v, vl, H)
             torch.cuda.synchronize()
-            inp.update(ra=ra, rx2=rx2, rr2=rr2, rlse=rlse, rst=rst)
-            if not f32:  # qkv and ReLU masks of the kernels against the plain versions
-                qk = fused_block.ln_linear(xd, g1, b1, EPS1, wqkv, bqkv, vl)
-                differ = sum(int((qk[i, :n] != qkv[i, :n]).sum()) for i, n in enumerate(layer_rows))
-                log(f"  ln_linear_fwd_bf16: {differ} entries of qkv differ from the plain version, "
-                    f"in {sum(layer_rows) * 3 * D} entries")
-                del qk
-                hk = fused_block.linear_relu(kx2, w1, b1f, vl)
-                hp = fused_block.linear_relu_reference(kx2, w1, b1f)
-                flips = sum(int(((hk[i, :n] > 0) != (hp[i, :n] > 0)).sum())
-                            for i, n in enumerate(layer_rows))
-                differ = sum(int((hk[i, :n] != hp[i, :n]).sum())
-                             for i, n in enumerate(layer_rows))
-                log(f"  linear_relu_fwd_bf16 on the layer's own x2: {differ} entries differ "
-                    f"from the plain version, {flips} of them ReLU mask flips, in "
-                    f"{sum(layer_rows) * FFN} entries (the backward chain it is held against "
-                    f"recomputes hid with the kernel)")
-                del hk, hp
-            st_err = [valid_rows_err(a[..., None], b_[..., None], valid_len)[0]
-                      for a, b_ in zip(kst, rst)]
-            lse_err = max((klse[i, :, :n] - rlse[i, :, :n]).abs().max().item()
+            lse_err = max((inp["klse"][i, :, :n] - inp["rlse"][i, :, :n]).abs().max().item()
                           for i, n in enumerate(valid_len))
             if f32:
-                note("ln_linear_fwd", max(st_err[:2]), KERNEL_TOL, " save outputs mean, rstd")
-                note("linear_residual_ln_fwd",
-                     max(st_err[2:] + [valid_rows_err(kr2, rr2, valid_len)[0]]),
-                     KERNEL_TOL, " save outputs mean, rstd, r2")
+                note("prefix_attention_fwd", valid_rows_err(out, attn, valid_len)[0],
+                     KERNEL_TOL, "")
                 note("prefix_attention_fwd", lse_err, KERNEL_TOL, " save output lse")
                 # the 64-query tiles wholly past valid_len: zeros, and lse 1e30
                 ko, kl = fa.attention_forward(q, k, v, vl, H, with_lse=True)
@@ -1156,164 +1466,29 @@ def main() -> int:
                          "past valid_len")
                 del ko, kl
             else:
-                # f32 stats of bf16 rows that can differ by a rounding step
-                ph.check(all(t.dtype == torch.float32 for t in (*kst, klse))
-                         and all(t.dtype == bf16 for t in (ka, kx2, kr2)),
-                         "bf16 save outputs: activations bf16, stats and lse f32")
-                note_bf16("ln_linear_fwd_bf16", torch.stack(kst[:2], -1),
-                          torch.stack(rst[:2], -1), " save outputs mean, rstd")
-                note_bf16("linear_residual_ln_fwd_bf16", torch.stack(kst[2:], -1),
-                          torch.stack(rst[2:], -1), " save outputs mean, rstd")
-                note_bf16("linear_residual_ln_fwd_bf16", kr2, rr2, " save output r2")
-                note_bf16("prefix_attention_fwd_bf16", klse.transpose(1, 2),
-                          rlse.transpose(1, 2), " save output lse")
-
-            # every backward step on the inputs the layer's backward chain gives it
-            rec = Recorder(fused_block.PLAIN_STEPS)
-            fused_block.layer_backward(rec, dyd, xd, vl, ra, rx2, rr2, rlse, rst, w, H, EPS1)
-            kernel_step = {"layernorm_bwd": fused_block.layernorm_bwd,
-                           "linear_dgrad": fused_block.linear_dgrad,
-                           "linear_wgrad": fused_block.linear_wgrad,
-                           "attention_bwd": fa.prefix_attention_bwd}
-            bwd_inputs = inp["bwd_inputs"] = {name: [] for name in kernel_step}
-            for name, (args, kwargs), ref_out in rec.calls:
-                if name not in kernel_step:
-                    continue
-                bwd_inputs[name].append((args, kwargs))
-                out = kernel_step[name](*args, **kwargs)
+                ph.check(out.dtype == bf16, "prefix_attention_fwd_bf16 writes bfloat16")
+                note_bf16("prefix_attention_fwd_bf16", out, attn, "")
+                note_bf16("prefix_attention_fwd_bf16", inp["klse"].transpose(1, 2),
+                          inp["rlse"].transpose(1, 2), " save output lse")
+            del out
+            kname = "prefix_attention_bwd" + tag
+            for args, kwargs in inp["bwd_inputs"]["attention_bwd"]:
+                got, again = (fa.prefix_attention_bwd(*args, **kwargs) for _ in range(2))
                 torch.cuda.synchronize()
-                outs = out if isinstance(out, tuple) else (out,)
-                if name in ("linear_dgrad", "linear_wgrad", "attention_bwd"):  # fixed-order sums
-                    again = kernel_step[name](*args, **kwargs)
-                    again = again if isinstance(again, tuple) else (again,)
-                    ph.check(all(torch.equal(a_, b_) for a_, b_ in zip(outs, again)),
-                             f"{name}{tag} ({tuple(outs[0].shape)}): the same bits on a "
-                             f"second call")
-                refs = ref_out if isinstance(ref_out, tuple) else (ref_out,)
-                kname = ("prefix_attention_bwd" if name == "attention_bwd" else name) + tag
-                for o, r in zip(outs, refs):
-                    if o.dim() == 3:  # rows of the activation: the valid ones, and zeros past
-                        pad_ok = all(not o[i, n:].any().item() for i, n in enumerate(valid_len))
-                        ph.check(pad_ok, f"{name}{tag}: rows past valid_len are zero")
-                    if not f32:
-                        ph.check(o.dtype == (bf16 if o.dim() == 3 else torch.float32),
-                                 f"{kname} writes {o.dtype}")
-                        note_bf16(kname, o, r, f" ({tuple(o.shape)})",
-                                  valid_len if o.dim() == 3 else None)
-                        continue
-                    if o.dim() == 3:
-                        err = valid_rows_err(o, r, valid_len)[0]
-                        mag = max(r[i, :n].abs().max().item() for i, n in enumerate(valid_len))
-                    else:
-                        err, mag = (o - r).abs().max().item(), r.abs().max().item()
-                    note(kname, err, GRAD_REL * max(1.0, mag), f" (output scale {mag:.3g})")
+                ph.check(torch.equal(got, again)
+                         and all(not got[i, n:].any().item() for i, n in enumerate(valid_len)),
+                         f"{kname} ({tuple(got.shape)}): the same bits on a second call, rows "
+                         f"past valid_len zero")
+                ref = fa.prefix_flash_attention_backward_reference(*args, **kwargs)
+                if f32:
+                    mag = max(ref[i, :n].abs().max().item() for i, n in enumerate(valid_len))
+                    note(kname, valid_rows_err(got, ref, valid_len)[0],
+                         GRAD_REL * max(1.0, mag), f" (output scale {mag:.3g})")
+                else:
+                    ph.check(got.dtype == bf16, f"{kname} writes bfloat16")
+                    note_bf16(kname, got, ref, f" ({tuple(got.shape)})")
+                del got, again, ref
 
-            layer = fused_block.fused_encoder_block(xd, vl, *w, H, EPS1, EPS2)
-            layer_ref = fused_block.fused_encoder_block_reference(xd, vl, *w, H, EPS1, EPS2)
-            torch.cuda.synchronize()
-            if f32:
-                err, rel = valid_rows_err(layer, layer_ref, valid_len)
-                ph.check(err <= LAYER_TOL, f"fused_encoder_block chain: max abs {err:.3e}, "
-                                           f"max rel {rel:.3e} (tolerance {LAYER_TOL:g} abs)")
-            else:
-                err, tol, cos = bf16_check(layer, layer_ref, valid_len, "layer chain")
-                ph.check(layer.dtype == bf16 and err <= tol and cos >= BF16_COS,
-                         f"fused_encoder_block chain, bf16: max abs {err:.3e} (tolerance "
-                         f"{tol:.3g}), cosine 1 - {1 - cos:.2e}")
-
-            # the layer's backward: FusedEncoderBlock against the plain backward
-            # chain on the residuals the Function's own forward saves, which
-            # isolates the backward kernels (in bf16 the chain recomputes the FFN
-            # hidden with the kernel: backward_reference); in f32 also against
-            # plain autograd. A pre-activation within rounding of 0 can flip its
-            # ReLU mask between the kernel and the plain forward and move a whole
-            # gradient row (the kink of ReLU; the seeded f32 inputs have none, and
-            # in bf16 such flips are common), so the autograd comparison is made
-            # in f32 only
-            names = ["wqkv", "bqkv", "wout", "bout", "g1", "b1", "g2", "b2", "w1", "b1f", "w2",
-                     "b2f"]
-            xg = xd.clone().requires_grad_(True)
-            wg = [t.clone().requires_grad_(True) for t in w]
-            before = read_launches()
-            y = fused_block.fused_encoder_block(xg, vl, *wg, H, EPS1, EPS2)
-            ph.check(type(y.grad_fn).__name__ == "FusedEncoderBlockBackward",
-                     f"grad_fn of the layer on CUDA: {type(y.grad_fn).__name__}")
-            grads = torch.autograd.grad(y, [xg, *wg], dyd)
-            torch.cuda.synchronize()
-            bwd_launched = {n: read_launches()[n + tag] - before[n + tag] for n in
-                            ("prefix_attention_bwd", "layernorm_bwd", "linear_dgrad",
-                             "linear_wgrad")}
-            ph.check(bwd_launched == {"prefix_attention_bwd": 1, "layernorm_bwd": 3,
-                                      "linear_dgrad": 4, "linear_wgrad": 4},
-                     f"one layer backward launched {bwd_launched} ({tag or 'f32'} instances)")
-            ph.check(grads[0].dtype == dt and all(g.dtype == torch.float32 for g in grads[1:]),
-                     f"layer backward: dx {grads[0].dtype}, parameter grads "
-                     f"{sorted({str(g.dtype) for g in grads[1:]})}")
-            if f32:
-                y_ref = fused_block.fused_encoder_block_reference(xg, vl, *wg, H, EPS1, EPS2)
-                grads_ref = torch.autograd.grad(y_ref, [xg, *wg], dy)
-                err, rel = valid_rows_err(grads[0], grads_ref[0], valid_len)
-                ph.check(err <= KERNEL_TOL * max(1.0, grads_ref[0].abs().max().item()),
-                         f"layer backward dx on valid rows: max abs {err:.3e}, max rel {rel:.3e}")
-                worst = max(((gk - gr).abs().max().item() / gr.abs().max().item(), n)
-                            for n, gk, gr in zip(names, grads[1:], grads_ref[1:]))
-                ph.check(worst[0] <= GRAD_REL, f"layer backward, 12 parameter grads: worst max "
-                                               f"abs over max |ref| {worst[0]:.3e} ({worst[1]}; "
-                                               f"tolerance {GRAD_REL:g})")
-                del y_ref, grads_ref
-            ph.check(all(not grads[0][i, n:].any().item() for i, n in enumerate(valid_len)),
-                     f"layer backward{tag} dx past valid_len is exactly zero")
-            same = backward_reference(dyd, xd, vl, (ka, kx2, kr2, klse, kst), w, H, EPS1)
-            if f32:
-                err = valid_rows_err(grads[0], same[0], valid_len)[0]
-                worst = max(((gk - gr.reshape(gk.shape)).abs().max().item()
-                             / gr.abs().max().item(), n)
-                            for n, gk, gr in zip(names, grads[1:], same[1:]))
-                ph.check(err <= KERNEL_TOL * max(1.0, same[0].abs().max().item())
-                         and worst[0] <= GRAD_REL,
-                         f"layer backward against the plain backward chain on the Function's "
-                         f"own residuals: dx max abs {err:.3e}, 12 grads worst max abs over max "
-                         f"|ref| {worst[0]:.3e} ({worst[1]})")
-            else:
-                checks = [("dx", *bf16_check(grads[0], same[0], valid_len, "layer bwd dx"))] + [
-                    (n, *bf16_check(gk, gr.reshape(gk.shape), None, f"layer bwd {n}"))
-                    for n, gk, gr in zip(names, grads[1:], same[1:])]
-                bad = [c for c in checks if c[1] > c[2] or c[3] < BF16_COS]
-                worst_cos = min(checks, key=lambda c: c[3])
-                ph.check(not bad, f"layer backward, bf16, against the plain backward chain on "
-                                  f"the Function's own residuals: dx and 12 grads, worst cosine "
-                                  f"1 - {1 - worst_cos[3]:.2e} ({worst_cos[0]}); out of bounds: "
-                                  f"{[c[0] for c in bad]}")
-            del xg, wg, y, grads, rec, same
-
-            # the tail rows: K2 and K4 with a cotangent on every row the forward
-            # computes, against the plain backward chains on the Functions' own
-            # forwards; the zero-filled tiles get exact zeros
-            dyt = dy_tail.to(dt)
-            xg = xd.clone().requires_grad_(True)
-            wg = [t.clone().requires_grad_(True) for t in w]
-            grads = torch.autograd.grad(fused_block.fused_encoder_block(xg, vl, *wg, H, EPS1,
-                                                                        EPS2), [xg, *wg], dyt)
-            same = backward_reference(dyt, xd, vl, (ka, kx2, kr2, klse, kst), w, H, EPS1)
-            tail_zero = all(not grads[0][i, n:].any().item() for i, n in enumerate(layer_rows))
-            if f32:
-                err = valid_rows_err(grads[0], same[0], layer_rows)[0]
-                worst = max((gk - gr.reshape(gk.shape)).abs().max().item()
-                            / gr.abs().max().item() for gk, gr in zip(grads[1:], same[1:]))
-                ok = (err <= KERNEL_TOL * max(1.0, same[0].abs().max().item())
-                      and worst <= GRAD_REL)
-                what = f"dx max abs {err:.3e}, 12 grads worst max abs over max |ref| {worst:.3e}"
-            else:
-                checks = [bf16_check(grads[0], same[0], layer_rows, "K2 tail dx")] + [
-                    bf16_check(gk, gr.reshape(gk.shape), None, f"K2 tail {n}")
-                    for n, gk, gr in zip(names, grads[1:], same[1:])]
-                ok = all(e <= t and c >= BF16_COS for e, t, c in checks)
-                what = f"dx and 12 grads, worst cosine 1 - {1 - min(c[2] for c in checks):.2e}"
-            ph.check(ok and tail_zero,
-                     f"K2 tail{tag}: a cotangent on every row of the 32-row tiles that hold a "
-                     f"valid row; FusedEncoderBlock against the plain backward chain: {what}; "
-                     f"dx zero on the zero-filled tiles: {tail_zero}")
-            del xg, wg, grads, same
             t = qkv.clone().requires_grad_(True)
             out = fa.prefix_flash_attention(t[..., :D], t[..., D:2 * D], t[..., 2 * D:], vl, H)
             got = torch.autograd.grad(out, t, dout_tail.to(dt))[0]
@@ -1328,7 +1503,7 @@ def main() -> int:
                 mag = max(ref[i, :n].abs().max().item() for i, n in enumerate(query_rows))
                 ok, what = err <= GRAD_REL * max(1.0, mag), f"max abs {err:.3e}"
             else:
-                err, tol, cos = bf16_check(got, ref, query_rows, "K4 tail")
+                err, tol, cos = notes.measure(got, ref, query_rows, "K4 tail")
                 ok = err <= tol and cos >= BF16_COS
                 what = f"max abs {err:.3e} (tolerance {tol:.3g}), cosine 1 - {1 - cos:.2e}"
             ph.check(ok and tail_zero,
@@ -1372,15 +1547,13 @@ def main() -> int:
                 if res is None and eps == 1e-6:  # the final norm's site, timed in phase 5
                     inp["ln"] = dict(mu=mu, rstd=rstd)
                 del y, mu, rstd, dxl, dgl, dbl, again, ry, rmu, rrstd, rdx, rdg, rdb
-        log("  bf16 instances, worst readings over seeds "
-            f"{', '.join(map(str, BF16_SEEDS))}: " + "; ".join(
-                f"{k} {v:.3g} ({where})" for k, (v, where) in worst_bf16.items())
-            + f" (bounds {BF16_STEPS} steps, {BF16_F32_REL:g}, {1 - BF16_COS:.0e})")
+        log(f"  bf16 instances, worst readings over seeds {', '.join(map(str, BF16_SEEDS))}: "
+            + notes.summary())
 
     # ---- 2b. the head-64 instances (ChAdaViT-B/16) against their plain versions
     inputs16 = {}  # per dtype tag: the inputs of seed 0, kept for phase 5
     with Phase("2b head-64 kernels vs plain (B/16)", failures) as ph:
-        worst16 = {"steps": 0.0, "f32": 0.0, "1 - cos": 0.0}
+        notes16 = Bf16Notes(ph, stats)
 
         def note16(name, out, ref, rows, what, f32, scale_tol=False):
             """A float32 instance: max abs on the rows within KERNEL_TOL (GRAD_REL
@@ -1395,21 +1568,14 @@ def main() -> int:
                 stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
                 ph.check(err <= tol, f"{name}{what}: max abs {err:.3e} (tolerance {tol:.3g})")
                 return
-            err, tol, cos = bf16_err(out, ref, rows)
-            key = "steps" if out.dtype == bf16 else "f32"
-            worst16[key] = max(worst16[key], err * (BF16_STEPS if key == "steps"
-                                                    else BF16_F32_REL) / tol if tol else 0.0)
-            worst16["1 - cos"] = max(worst16["1 - cos"], 1 - cos)
-            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
-            ph.check(err <= tol and cos >= BF16_COS,
-                     f"{name}{what}: max abs {err:.3e} (tolerance {tol:.3g}), cosine "
-                     f"1 - {1 - cos:.2e} (>= 1 - {1 - BF16_COS:.0e})")
+            notes16.note(name, out, ref, what, rows)
 
         vl = torch.tensor(valid_len, dtype=torch.int32, device=dev)
         query_rows = [-(-n // fa.SEQ_BLOCK) * fa.SEQ_BLOCK for n in valid_len]
         for seed, tag, dt in ((0, "", torch.float32),
                               *((s_, "_bf16", bf16) for s_ in BF16_SEEDS)):
             rng = np.random.default_rng(100 + seed)
+            notes16.where = f", seed {seed}"
 
             def dev_randn(*shape, scale=1.0):
                 return torch.from_numpy((rng.standard_normal(shape) * scale)
@@ -1507,14 +1673,34 @@ def main() -> int:
             del x, qkv, dout_tail
             torch.cuda.empty_cache()
         log("  bf16 head-64 instances and K5/K6 at D 768, worst readings over seeds "
-            f"{', '.join(map(str, BF16_SEEDS))}: bf16 steps {worst16['steps']:.3g}, share of "
-            f"the largest entry {worst16['f32']:.3g}, 1 - cosine {worst16['1 - cos']:.3g} "
-            f"(bounds {BF16_STEPS} steps, {BF16_F32_REL:g}, {1 - BF16_COS:.0e})")
+            f"{', '.join(map(str, BF16_SEEDS))}: " + notes16.summary())
+
+    # ---- 2c. the layer chain's D 768 instances (B/16 on the fused route) -------
+    inputs768 = {}  # per dtype tag: the inputs of seed 0, kept for phase 5
+    with Phase("2c D 768 chain kernels vs plain (B/16 fused route)", failures) as ph:
+        notes768 = Bf16Notes(ph, stats)
+        for seed, tag, dt, (s_pad, counts) in (
+                (0, "", torch.float32, NARROW_F32),
+                *((s_, "_bf16", bf16, NARROW_BF16) for s_ in BF16_SEEDS)):
+            notes768.where = f", seed {seed}"
+            valid7 = [1 + N_PATCHES * c for c in counts]
+            x, w, dy, dy_tail = draw_layer(np.random.default_rng(200 + seed), dev, len(counts),
+                                           s_pad, D16, FFN, valid7)
+            inp = check_chain(ph, stats, notes768.note, x.to(dt), w, dy.to(dt), dy_tail.to(dt),
+                              valid7, H16, f" (B {len(counts)}, S_pad {s_pad}, channels "
+                                           f"{counts}, seed {seed})")
+            if seed == 0:
+                inputs768[tag] = inp
+            del inp, x, w, dy, dy_tail
+            torch.cuda.empty_cache()
+        log("  bf16 D 768 instances, worst readings over seeds "
+            f"{', '.join(map(str, BF16_SEEDS))}: " + notes768.summary())
 
     # ---- 3. the JAX fixtures --------------------------------------------------
     with Phase("3 JAX fixtures", failures) as ph:
         # ChAdaViT-moyen, then ChAdaViT-B/16 (its batches pad to 2048 rows: the
-        # unfused route), each in float32 and in bfloat16
+        # unfused route), then ChAdaViT-B/16 at 3 channels (640 rows: the layer
+        # chain's D 768 instances), each in float32 and in bfloat16
         for label, cls_path, dino_path, dt, cos_bound, abs_bound, dino_bounds in (
                 ("", FIXTURE, DINO_FIXTURE, torch.float32, FIXTURE_COS,
                  lambda ref: FIXTURE_TOL, (DINO_METRIC_REL, DINO_NORM_REL, DINO_DELTA_REL)),
@@ -1525,6 +1711,13 @@ def main() -> int:
                  lambda ref: FIXTURE_TOL, (DINO_METRIC_REL, DINO_NORM_REL, DINO_DELTA_REL)),
                 ("B/16 bf16, ", FIXTURE_B16_BF16, DINO_FIXTURE_B16_BF16, bf16,
                  FIXTURE_B16_BF16_COS,
+                 lambda ref: FIXTURE_B16_BF16_STEPS * bf16_step(ref.abs().max().item()),
+                 (DINO_BF16_METRIC_REL, DINO_BF16_NORM_REL, DINO_BF16_DELTA_REL)),
+                ("B/16 fused route, ", FIXTURE_B16_NARROW, DINO_FIXTURE_B16_NARROW,
+                 torch.float32, FIXTURE_COS, lambda ref: FIXTURE_TOL,
+                 (DINO_METRIC_REL, DINO_NORM_REL, DINO_DELTA_REL)),
+                ("B/16 fused route bf16, ", FIXTURE_B16_NARROW_BF16, DINO_FIXTURE_B16_NARROW_BF16,
+                 bf16, FIXTURE_B16_BF16_COS,
                  lambda ref: FIXTURE_B16_BF16_STEPS * bf16_step(ref.abs().max().item()),
                  (DINO_BF16_METRIC_REL, DINO_BF16_NORM_REL, DINO_BF16_DELTA_REL))):
             check_cls_fixture(ph, label, cls_path, dt, cos_bound, abs_bound)
@@ -2029,7 +2222,7 @@ def main() -> int:
                  f"{rec.get('b16_device_mfu')}")
         torch.cuda.empty_cache()
 
-    # ---- 4e. ChAdaViT-B/16 on the unfused route ---------------------------------
+    # ---- 4e. ChAdaViT-B/16 on both routes ---------------------------------------
     with Phase("4e ChAdaViT-B/16", failures) as ph, tempfile.TemporaryDirectory() as tmp:
         from chadavit_tpu_torch import main_pretrain
 
@@ -2074,6 +2267,57 @@ def main() -> int:
             del model16, plain16
             torch.cuda.empty_cache()
 
+        def d768_expected(tag, layer_runs):
+            """The launches of ``layer_runs`` layer runs of a train path on
+            the layer chain at D 768: the chain's _d768 instances and the
+            attention's head-64 ones."""
+            out = {name: 0 for name in instances}
+            for name, n in chain_launches(layer_runs).items():
+                out[fa.instance(name + tag, 64) if name.startswith("prefix_attention")
+                    else fused_block.instance(name + tag, D16)] = n
+            return out
+
+        # the narrow widths: max_channels 3 in float32 and 7 in bfloat16, where
+        # the JAX gate takes the fused layer; only the chain's D 768 forward
+        # instances and the head-64 attention forward launch, and the
+        # embeddings match the same model through the plain versions
+        for tag, dt, bound in (("", torch.float32, SERVED_COS), ("_bf16", bf16, SERVED_BF16_COS)):
+            maxc, counts7 = B16_NARROW_SERVED[tag]
+            images7 = hub.random_images(counts7, 224, seed=11)
+            model16 = chada_vit(embed_dim=D16, num_heads=H16, return_all_tokens=False, dtype=dt)
+            model16.load_state_dict(random_state_dict(model16, 0))
+            model16 = model16.to(dev).eval()
+            reset_launches()
+            t = time.perf_counter()
+            emb7 = hub.extract_embeddings(model16, images7, batch_size=batch, max_channels=maxc)
+            served7_s = time.perf_counter() - t
+            launches = read_launches()
+            runs7 = len(model16.blocks) * math.ceil(len(images7) / batch)
+            want = {name: 0 for name in instances}
+            want.update({fused_block.instance("ln_linear_fwd" + tag, D16): runs7,
+                         fused_block.instance("linear_relu_fwd" + tag, D16): runs7,
+                         fused_block.instance("linear_residual_ln_fwd" + tag, D16): 2 * runs7,
+                         hd64[tag][0]: runs7})
+            ph.check(emb7.shape == (len(images7), D16) and bool(np.isfinite(emb7).all())
+                     and launches == want,
+                     f"B/16{tag} served at max_channels {maxc} ({len(images7)} images of channels "
+                     f"{counts7[:8]}..., {served7_s:.2f} s): embeddings {emb7.shape}, finite; "
+                     f"launches {launches} == expected {want}")
+            with torch.inference_mode():
+                plain7 = []
+                for s_ in range(0, len(images7), batch):
+                    xb_, cb_ = hub.collate_images(images7[s_:s_ + batch], maxc)
+                    plain7.append(plain_backbone(model16, xb_.to(dev, dt), cb_.to(dev))
+                                  .float().cpu())
+            cos = cosine_rows(torch.from_numpy(emb7), torch.cat(plain7))
+            ph.check(cos.min().item() >= bound,
+                     f"B/16{tag} served at max_channels {maxc}, the layer chain against the plain "
+                     f"versions on the card: min cosine 1 - {1 - cos.min().item():.2e} (>= 1 - "
+                     f"{1 - bound:.0e}), max abs "
+                     f"{(torch.from_numpy(emb7) - torch.cat(plain7)).abs().max().item():.3e}")
+            del model16, plain7
+            torch.cuda.empty_cache()
+
         # (b) the train step at the root bench's B/16 spec, step 1 from the
         # seeded init against the same model with the attention's plain forward
         # and backward (plain_attention_function): the loss and each tensor's
@@ -2083,13 +2327,13 @@ def main() -> int:
         # ChAdaViT-moyen's plain chains too); then in bfloat16 at 2 images, each
         # side against the float32 plain step: the kernels' step no farther from
         # it than B16_F32_GAP times the plain bf16 step's distance
-        def step1(spec, counts, plain=False):
+        def step1(spec, counts, plain=False, backbone_apply=None):
             """Step 1 from the seeded init on a synthetic batch of ``counts``:
             (loss, each tensor's update direction, the names, the launches)."""
             batch_ = synthetic_dino_batch(spec, len(counts), seed=6, channel_counts=counts)
             reset_launches()
             with plain_attention() if plain else contextlib.nullcontext():
-                st, stp, _, _ = build_dino(spec)
+                st, stp, _, _ = build_dino(spec, backbone_apply=backbone_apply)
                 st, m_ = stp(st, batch_)
                 loss_ = float(m_["dino_loss"])
             out = (loss_, [b_.clone() for b_ in st.opt_state.momentum],
@@ -2152,6 +2396,55 @@ def main() -> int:
                  f"{1 - update_cosines(dk, dp, names16)[0][0]:.2e}")
         del dk, dp, df
 
+        # the narrow buckets, where the JAX gate takes the fused layer: step 1
+        # through the layer chain's D 768 instances against the same model
+        # through the plain chains (plain_chain_backbone), at 4b's bounds:
+        # bfloat16 on a 7-channel bucket of 8 images, float32 on a 3-channel
+        # bucket of 2; the chain's D 768 launches of the JSON line are these
+        for tag, dt, (width, counts), loss_bound, cos_bound in (
+                ("_bf16", bf16, B16_BUCKET_BF16, TRAIN_BF16_LOSS_REL, TRAIN_BF16_UPDATE_COS),
+                ("", torch.float32, B16_BUCKET_F32, TRAIN_LOSS_REL, TRAIN_UPDATE_COS)):
+            spec7 = dataclasses.replace(bench.b16_spec(dt), max_channels=width)
+            assert fused_block.jax_layer_fused(padded_seq(width), D16, FFN, H16, dt)
+            t = time.perf_counter()
+            loss7, dirs7, names7, launches = step1(spec7, counts)
+            step7_s = time.perf_counter() - t
+            want = d768_expected(tag, 12)
+            for name in CHAIN_ENTRIES:
+                stats[fused_block.instance(name + tag, D16)]["launches"] = launches[
+                    fused_block.instance(name + tag, D16)]
+            ph.check(math.isfinite(loss7) and launches == want,
+                     f"B/16{tag} step 1 on a {width}-channel bucket of {len(counts)} images x 2 "
+                     f"crops (channels {counts}), depth 12, the layer chain: dino_loss "
+                     f"{loss7:.6f} ({step7_s:.2f} s with set-up); launches {launches} == "
+                     f"expected {want}")
+            ploss, pdirs, _, _ = step1(spec7, counts, backbone_apply=plain_chain_backbone)
+            loss_rel = abs(ploss / loss7 - 1)
+            if dt == torch.float32:
+                ph.check(loss_rel <= loss_bound,
+                         f"B/16{tag} step 1 on a {width}-channel bucket, kernels against the plain "
+                         f"chains: loss rel {loss_rel:.2e} (<= {loss_bound:g})")
+            else:
+                spec7f = dataclasses.replace(bench.b16_spec(torch.float32), max_channels=width)
+                floss = step1(spec7f, counts, backbone_apply=plain_chain_backbone)[0]
+                gap_k, gap_p = abs(loss7 / floss - 1), abs(ploss / floss - 1)
+                ph.check(gap_k <= B16_FUSED_LOSS_F32,
+                         f"B/16{tag} step 1 on a {width}-channel bucket against the float32 plain "
+                         f"step: loss rel kernels {gap_k:.2e} (<= {B16_FUSED_LOSS_F32:g}), plain "
+                         f"bf16 chains {gap_p:.2e}; kernels against the plain bf16 chains "
+                         f"{loss_rel:.2e}")
+                gaps = layer_gaps(spec7, spec7f, counts)
+                ratios = [k_ / p_ for k_, p_ in gaps]
+                ph.check(max(ratios) <= B16_LAYER_F32_RATIO,
+                         f"B/16{tag} step 1's backbone forward on the {width}-channel bucket, "
+                         f"each layer's distance to the float32 plain chain: kernels over the "
+                         f"plain bf16 chains {min(ratios):.4f} to {max(ratios):.4f} (<= "
+                         f"{B16_LAYER_F32_RATIO:g}); kernels {gaps[0][0]:.3e} after layer 0, "
+                         f"{gaps[-1][0]:.3e} after layer {len(gaps) - 1}")
+            check_updates(ph, f"B/16{tag} step 1 on a {width}-channel bucket", names7, dirs7,
+                          pdirs, spec7, cos_bound)
+            del dirs7, pdirs
+
         # then 3 steps of the root bench's B/16 batch: 16 raw uint8 images of 10
         # channels, the multicrop inside the step; K3 24 and K4 12 launches a step
         state16, fused16, backbone16, _ = build_dino(
@@ -2182,7 +2475,25 @@ def main() -> int:
         b16_step = (state16, fused16, raw16, cc16)  # profiled in phase 5
 
         # (c) the entry point on the B/16 pod YAML: one device, synthetic data,
-        # every batch padded to 10 channels (bucket_by_channels=false)
+        # its channel buckets as written; the launches each batch's width
+        # implies, from the loader's own batch plan: the layer chain where the
+        # JAX gate says fused, the unfused layer elsewhere, both among them
+        from chadavit_tpu_torch.cli import apply_overrides
+        from chadavit_tpu_torch.config import load_yaml, parse_pretrain_cfg
+        from chadavit_tpu_torch.train import loop as train_loop
+
+        cfg16 = parse_pretrain_cfg(apply_overrides(load_yaml(str(B16_YAML)), B16_ENTRY))
+        loader16 = train_loop.build_pretrain_loader(cfg16, seed=train_loop.resolve_seed(cfg16))
+        loader16.set_epoch(0)
+        widths16 = [loader16._bucket_width(idxs)
+                    for idxs in loader16._batches()[:B16_ENTRY_STEPS]]
+        fused_steps = [fused_block.jax_layer_fused(padded_seq(w_), D16, FFN, H16, bf16)
+                       for w_ in widths16]
+        want = d768_expected("_bf16", 12 * sum(fused_steps))
+        for name in hd64["_bf16"]:  # the unfused steps' attention
+            want[name] += (2 if name.startswith("prefix_attention_fwd") else 1) * 12 * (
+                len(fused_steps) - sum(fused_steps))
+        del loader16
         reset_launches()
         t = time.perf_counter()
         main_pretrain.main(["--config-path", str(B16_YAML.parent), "--config-name",
@@ -2192,14 +2503,20 @@ def main() -> int:
         entry16_s = time.perf_counter() - t
         launches = read_launches()
         logs16 = read_logs(f"{tmp}/b16")
-        want = b16_expected("_bf16", 2 * 12 * B16_ENTRY_STEPS, 12 * B16_ENTRY_STEPS)
         ph.check(sorted(logs16) == list(range(1, B16_ENTRY_STEPS + 1))
                  and all(math.isfinite(logs16[i]["dino_loss"]) for i in logs16)
-                 and launches == want,
+                 and launches == want and any(fused_steps) and not all(fused_steps),
                  f"python -m chadavit_tpu_torch.main_pretrain ... {B16_YAML.name} "
-                 f"{' '.join(B16_ENTRY)} max_steps={B16_ENTRY_STEPS}: dino_loss "
+                 f"{' '.join(B16_ENTRY)} max_steps={B16_ENTRY_STEPS}: batches of "
+                 f"{widths16} channels (bucket_by_channels as written; the layer chain at "
+                 f"{[w_ for w_, f_ in zip(widths16, fused_steps) if f_]}, the unfused layer at "
+                 f"{[w_ for w_, f_ in zip(widths16, fused_steps) if not f_]}), dino_loss "
                  f"{[logs16[i]['dino_loss'] for i in sorted(logs16)]}, finite ({entry16_s:.2f} s "
                  f"with set-up); launches {launches} == expected {want}")
+        log("  the pod YAML's launches by route: layer chain (D 768) " + ", ".join(
+            f"{n} {launches[n]}" for n in launches if n.endswith("_d768") and launches[n])
+            + "; attention (head 64, both routes) " + ", ".join(
+                f"{n} {launches[n]}" for n in hd64["_bf16"]))
         torch.cuda.empty_cache()
 
     # ---- 5. times -------------------------------------------------------------
@@ -2229,8 +2546,8 @@ def main() -> int:
 
         def ln_bwd_library(args, kwargs):  # the site-1 residual add is left out
             dy_, xin, mean, rstd, g = args[:5]
-            g = g.to(dy_.dtype)
-            args2 = (dy_.reshape(-1, D), xin.reshape(-1, D), [D], mean.reshape(-1, 1),
+            g, d_ = g.to(dy_.dtype), dy_.shape[-1]
+            args2 = (dy_.reshape(-1, d_), xin.reshape(-1, d_), [d_], mean.reshape(-1, 1),
                      rstd.reshape(-1, 1), g, g, [True, True, True])
             return lambda: torch.ops.aten.native_layer_norm_backward(*args2)
 
@@ -2255,73 +2572,161 @@ def main() -> int:
 
         library_of = {"layernorm_bwd": ln_bwd_library, "linear_dgrad": dgrad_library,
                       "linear_wgrad": wgrad_library, "attention_bwd": attention_bwd_library}
+        from torch.profiler import ProfilerActivity, profile
+
+        prof_reps = 20
+
+        def device_ms(fns, attempts=3):
+            """The profiler's device time of each kernel the calls ``fns``
+            launch, per round of them. A trace can come back without device
+            events (one of 24 such traces in one run on an H100): it is taken
+            again."""
+            for _ in range(attempts):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(prof_reps):
+                        for fn in fns:
+                            fn()
+                    torch.cuda.synchronize()
+                found = {e.key: e.self_device_time_total / 1e3 / prof_reps
+                         for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA}
+                if found:
+                    return found
+            raise RuntimeError(f"the profiler recorded no device time in {attempts} traces")
+
+        def step_cost(name, args, kwargs, es, rows_, m_):
+            """(operations, bytes) a backward GEMM or layernorm_bwd call must do
+            on ``rows_`` computed rows of ``m_``; f32 stats, LN parameters and
+            parameter gradients are 4 bytes."""
+            if name == "layernorm_bwd":
+                d_ = args[0].shape[-1]
+                nres = kwargs.get("residual") is not None
+                return 10 * rows_ * d_, (es * ((2 + nres) * rows_ * d_ + m_ * d_)
+                                         + 4 * (2 * rows_ + 3 * d_))
+            if name == "linear_dgrad":
+                kk, nn_ = args[1].shape
+                aux = kwargs.get("relu_of") is not None or kwargs.get("residual") is not None
+                return 2 * rows_ * kk * nn_, es * (rows_ * kk + kk * nn_ + aux * rows_ * nn_
+                                                   + m_ * nn_)
+            nn_, kk = args[0].shape[-1], args[1].shape[-1]
+            return (2 * rows_ * nn_ * kk + rows_ * nn_,
+                    es * rows_ * (nn_ + kk) + 4 * (nn_ * kk + nn_))
+
+        def chain_runs(inp, dt):
+            """The layer chain's steps on an input set of phase 2 or 2c: for each
+            entry point its sites of one layer (kernel, plain version, library
+            call, operations and bytes on the computed rows) and their weights
+            ((out, in) as in nn.Linear)."""
+            es = 4 if dt == torch.float32 else 2
+            x, x2, hid, attn, vl_ = (inp[n] for n in ("x", "x2", "hid", "attn", "vl"))
+            bsz, s_pad, d = x.shape
+            f = hid.shape[-1]
+            rows_, m_ = sum(inp["valid_len"]), bsz * s_pad
+            wqkv, bqkv, wout, bout, g1, b1, g2, b2, w1, b1f, w2, b2f = inp["wd"]
+            # the library calls take the LN parameters in the activation dtype
+            gl1, bl1, gl2, bl2 = (t.to(dt) for t in (g1, b1, g2, b2))
+            xf, x2f, hidf, attnf = (t.reshape(-1, t.shape[-1]) for t in (x, x2, hid, attn))
+            runs = {
+                "ln_linear_fwd": [site(
+                    lambda: fused_block.ln_linear(x, g1, b1, EPS1, wqkv, bqkv, vl_),
+                    lambda: fused_block.ln_linear_reference(x, g1, b1, EPS1, wqkv, bqkv),
+                    lambda: torch.addmm(bqkv, F.layer_norm(xf, (d,), gl1, bl1, EPS1), wqkv.t()),
+                    2 * rows_ * d * 3 * d,
+                    es * (rows_ * d + 3 * d * d + 3 * d + m_ * 3 * d) + 4 * 2 * d)],
+                "linear_relu_fwd": [site(
+                    lambda: fused_block.linear_relu(x2, w1, b1f, vl_),
+                    lambda: fused_block.linear_relu_reference(x2, w1, b1f),
+                    lambda: torch.relu(torch.addmm(b1f, x2f, w1.t())),
+                    2 * rows_ * d * f, es * (rows_ * d + f * d + f + m_ * f))],
+                "linear_residual_ln_fwd": [site(  # both sites of a layer
+                    lambda: fused_block.linear_residual_ln(attn, wout, bout, x, g1, b1, EPS1,
+                                                           vl_),
+                    lambda: fused_block.linear_residual_ln_reference(attn, wout, bout, x, g1,
+                                                                     b1, EPS1),
+                    lambda: F.layer_norm(torch.addmm(bout, attnf, wout.t()) + xf, (d,), gl1, bl1,
+                                         EPS1),
+                    2 * rows_ * d * d,
+                    es * (2 * rows_ * d + d * d + d + m_ * d) + 4 * 2 * d), site(
+                    lambda: fused_block.linear_residual_ln(hid, w2, b2f, x2, g2, b2, EPS2, vl_),
+                    lambda: fused_block.linear_residual_ln_reference(hid, w2, b2f, x2, g2, b2,
+                                                                     EPS2),
+                    lambda: F.layer_norm(torch.addmm(b2f, hidf, w2.t()) + x2f, (d,), gl2, bl2,
+                                         EPS2),
+                    2 * rows_ * f * d,
+                    es * (rows_ * f + rows_ * d + f * d + d + m_ * d) + 4 * 2 * d)],
+            }
+            weights = {"linear_residual_ln_fwd": [(d, d), (d, f)]}
+            # the backward steps, every call of one layer's backward, on the
+            # inputs recorded by check_chain
+            for name in ("layernorm_bwd", "linear_dgrad", "linear_wgrad"):
+                calls = inp["bwd_inputs"][name]
+                runs[name] = [site(
+                    (lambda a=a, kw=kw, n=name: kernel_step[n](*a, **fresh(kw))),
+                    (lambda a=a, kw=kw, n=name: plain_step[n](*a, **fresh(kw))),
+                    library_of[name](a, kw), *step_cost(name, a, kw, es, rows_, m_))
+                    for a, kw in calls]
+                weights[name] = [tuple(a[1].shape) if name == "linear_dgrad"
+                                 else (a[0].shape[-1], a[1].shape[-1]) for a, _ in calls]
+            return runs, weights
+
+        def time_entry(iname, sites, peak, what, weights=None):
+            """An entry point's sites of one layer on the card, kept in
+            stats[iname]: CUDA events (kernel, plain, plain, kernel: two
+            readings each, in turns), one library call, the bound (the larger
+            of the operations over the dtype's peak and the bytes over the
+            memory rate, summed over the sites), and the profiler's device
+            time of every kernel the calls launch; where there are several
+            sites, each site also on its own."""
+            ms = plain_ms = lib_ms = bound = ops_bound = bytes_bound = 0.0
+            for i_site, (kernel_fn, plain_fn, lib_fn, ops, nbytes) in enumerate(sites):
+                t1, p1, p2, t2 = (time_ms(fn) for fn in (kernel_fn, plain_fn, plain_fn,
+                                                         kernel_fn))
+                lib = time_ms(lib_fn)
+                t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+                if len(sites) > 1:
+                    site_dev = sum(device_ms([kernel_fn]).values())
+                    log(f"    {iname} site, weight {weights[i_site]}: kernel "
+                        f"{(t1 + t2) / 2:.4f} ms, device {site_dev:.4f} ms (profiler), "
+                        f"library {lib:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms")
+                ms += (t1 + t2) / 2
+                plain_ms += (p1 + p2) / 2
+                lib_ms += lib
+                bound += max(t_ops, t_bytes)
+                ops_bound += t_ops
+                bytes_bound += t_bytes
+            per_kernel = device_ms([kernel_fn for kernel_fn, *_ in sites])
+            dev_ms = sum(per_kernel.values())
+            stats[iname].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                                bound_by="operations" if ops_bound >= bytes_bound else "bytes")
+            log(f"  {iname} ({what}, {len(sites)} site{'s' * (len(sites) > 1)} of a layer): "
+                f"kernel {ms:.4f} ms, device {dev_ms:.4f} ms (profiler; {100 * bound / dev_ms:.1f} "
+                f"% of its bound), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                f"{bound:.4f} ms ({stats[iname]['bound_by']}); "
+                + ", ".join(f"{k_[:60]} {v_:.4f}" for k_, v_ in
+                            sorted(per_kernel.items(), key=lambda kv: -kv[1])))
 
         for tag, dt in (("", torch.float32), ("_bf16", bf16)):
             f32 = dt == torch.float32
             es = 4 if f32 else 2  # bytes of an activation or weight element
             peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
             inp = inputs[tag]
-            xd, q, k, v, attn, x2, hid, dyd = (inp[n] for n in ("x", "q", "k", "v", "attn",
-                                                                 "x2", "hid", "dy"))
+            xd, q, k, v, dyd, w = (inp[n] for n in ("x", "q", "k", "v", "dy", "w"))
             wqkv, bqkv, wout, bout, g1, b1, g2, b2, w1, b1f, w2, b2f = inp["wd"]
-            # the library calls take the LN parameters in the activation dtype
             gl1, bl1, gl2, bl2 = (t.to(dt) for t in (g1, b1, g2, b2))
-            x2d, attn2d, x22d, hid2d = (t.reshape(-1, t.shape[-1]) for t in (xd, attn, x2, hid))
+            x2d = xd.reshape(-1, D)
             qh, kh, vh = heads(q), heads(k), heads(v)
-
-            def bwd_cost(name, args, kwargs):
-                """(operations, bytes) the step must do on this run's rows; f32
-                stats, LN parameters and parameter gradients are 4 bytes."""
-                if name == "layernorm_bwd":
-                    nres = kwargs.get("residual") is not None
-                    return 10 * rows * D, (es * ((2 + nres) * rows * D + m_all * D)
-                                           + 4 * (2 * rows + D + 2 * D))
-                if name == "linear_dgrad":
-                    kk, nn_ = args[1].shape
-                    aux = kwargs.get("relu_of") is not None or kwargs.get("residual") is not None
-                    return 2 * rows * kk * nn_, es * (rows * kk + kk * nn_ + aux * rows * nn_
-                                                      + m_all * nn_)
-                if name == "linear_wgrad":
-                    nn_, kk = args[0].shape[-1], args[1].shape[-1]
-                    return (2 * rows * nn_ * kk + rows * nn_,
-                            es * rows * (nn_ + kk) + 4 * (nn_ * kk + nn_))
-                return (sum(10 * n * n * D for n in valid_len),
-                        es * (5 * rows * D + 3 * m_all * D) + 4 * (2 * H * rows))
-
-            runs = {
-                "ln_linear_fwd": [site(
-                    lambda: fused_block.ln_linear(xd, g1, b1, EPS1, wqkv, bqkv, vl),
-                    lambda: fused_block.ln_linear_reference(xd, g1, b1, EPS1, wqkv, bqkv),
-                    lambda: torch.addmm(bqkv, F.layer_norm(x2d, (D,), gl1, bl1, EPS1), wqkv.t()),
-                    2 * rows * D * 3 * D,
-                    es * (rows * D + 3 * D * D + 3 * D + m_all * 3 * D) + 4 * 2 * D)],
-                "prefix_attention_fwd": [site(
-                    lambda: fa.prefix_flash_attention(q, k, v, vl, H),
-                    lambda: fa.prefix_flash_attention_reference(q, k, v, vl, H),
-                    lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=key_ok),
-                    sum(4 * n * n * D for n in valid_len), es * (3 * rows * D + m_all * D))],
-                "linear_relu_fwd": [site(
-                    lambda: fused_block.linear_relu(x2, w1, b1f, vl),
-                    lambda: fused_block.linear_relu_reference(x2, w1, b1f),
-                    lambda: torch.relu(torch.addmm(b1f, x22d, w1.t())),
-                    2 * rows * D * FFN, es * (rows * D + FFN * D + FFN + m_all * FFN))],
-                "linear_residual_ln_fwd": [site(  # both sites of a layer, summed
-                    lambda: fused_block.linear_residual_ln(attn, wout, bout, xd, g1, b1, EPS1,
-                                                           vl),
-                    lambda: fused_block.linear_residual_ln_reference(attn, wout, bout, xd, g1,
-                                                                     b1, EPS1),
-                    lambda: F.layer_norm(torch.addmm(bout, attn2d, wout.t()) + x2d, (D,), gl1,
-                                         bl1, EPS1),
-                    2 * rows * D * D,
-                    es * (2 * rows * D + D * D + D + m_all * D) + 4 * 2 * D), site(
-                    lambda: fused_block.linear_residual_ln(hid, w2, b2f, x2, g2, b2, EPS2, vl),
-                    lambda: fused_block.linear_residual_ln_reference(hid, w2, b2f, x2, g2, b2,
-                                                                     EPS2),
-                    lambda: F.layer_norm(torch.addmm(b2f, hid2d, w2.t()) + x22d, (D,), gl2,
-                                         bl2, EPS2),
-                    2 * rows * FFN * D,
-                    es * (rows * FFN + rows * D + FFN * D + D + m_all * D) + 4 * 2 * D)],
-            }
+            runs, site_weights = chain_runs(inp, dt)
+            runs["prefix_attention_fwd"] = [site(
+                lambda: fa.prefix_flash_attention(q, k, v, vl, H),
+                lambda: fa.prefix_flash_attention_reference(q, k, v, vl, H),
+                lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=key_ok),
+                sum(4 * n * n * D for n in valid_len), es * (3 * rows * D + m_all * D))]
+            runs["prefix_attention_bwd"] = [site(
+                (lambda a=a, kw=kw: fa.prefix_attention_bwd(*a, **kw)),
+                (lambda a=a, kw=kw: fa.prefix_flash_attention_backward_reference(*a, **kw)),
+                attention_bwd_library(a, kw), sum(10 * n * n * D for n in valid_len),
+                es * (5 * rows * D + 3 * m_all * D) + 4 * (2 * H * rows))
+                for a, kw in inp["bwd_inputs"]["attention_bwd"]]
             # K5/K6 at the final norm's site (LN(x), eps 1e-6) on the hub rows;
             # the bound counts every row: ln_fwd and ln_bwd take no valid_len
             # (the JAX package's plain LayerNorm over all M rows), so they read
@@ -2340,129 +2745,32 @@ def main() -> int:
                     dy2d, x2d, [D], mu_l.reshape(-1, 1), rstd_l.reshape(-1, 1), gl1, bl1,
                     [True, True, True]),
                 12 * m_all * D, es * (3 * m_all * D + D) + 4 * (2 * m_all + 2 * D))]
-            # the backward steps, every site of one layer's backward summed, on
-            # the inputs recorded in phase 2
-            # the GEMM sites by their weight, (out, in) as in nn.Linear
-            site_weights = {"linear_residual_ln_fwd": [(D, D), (D, FFN)]}
-            site_ms = {}  # (name, site index): CUDA events of the site alone
-            for name, calls in inp["bwd_inputs"].items():
-                kname = "prefix_attention_bwd" if name == "attention_bwd" else name
-                runs[kname] = [site(
-                    (lambda a=a, kw=kw, n=name: kernel_step[n](*a, **fresh(kw))),
-                    (lambda a=a, kw=kw, n=name: plain_step[n](*a, **fresh(kw))),
-                    library_of[name](a, kw), *bwd_cost(name, a, kw)) for a, kw in calls]
-                site_weights[kname] = [tuple(a[1].shape) if name == "linear_dgrad"
-                                       else (a[0].shape[-1], a[1].shape[-1]) for a, _ in calls]
-
-            layer_bound = 0.0
             for name, sites in runs.items():
-                ms = plain_ms = lib_ms = bound = 0.0
-                ops_bound = bytes_bound = 0.0
-                for i_site, (kernel_fn, plain_fn, lib_fn, ops, nbytes) in enumerate(sites):
-                    # kernel, plain, plain, kernel: two readings each, in turns
-                    t1 = time_ms(kernel_fn)
-                    p1 = time_ms(plain_fn)
-                    p2 = time_ms(plain_fn)
-                    t2 = time_ms(kernel_fn)
-                    ms += (t1 + t2) / 2
-                    site_ms[name, i_site] = (t1 + t2) / 2
-                    plain_ms += (p1 + p2) / 2
-                    lib_before = lib_ms
-                    lib_ms += time_ms(lib_fn)
-                    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-                    if name in ("linear_residual_ln_fwd", "linear_dgrad", "linear_wgrad"):
-                        # each site on its own
-                        log(f"    {name + tag} site, weight {site_weights[name][i_site]}: kernel "
-                            f"{(t1 + t2) / 2:.4f} ms, library {lib_ms - lib_before:.4f} ms, "
-                            f"bound {max(t_ops, t_bytes):.4f} ms")
-                    bound += max(t_ops, t_bytes)
-                    ops_bound += t_ops
-                    bytes_bound += t_bytes
-                if name.endswith("_fwd") and name != "ln_fwd":  # the layer's own steps
-                    layer_bound += bound
-                stats[name + tag].update(
-                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                    bound_by="operations" if ops_bound >= bytes_bound else "bytes")
-                log(f"  {name + tag} ({len(sites)} site{'s' * (len(sites) > 1)} of a layer): "
-                    f"kernel {ms:.4f} ms ({100 * bound / ms:.1f} % of its bound), plain "
-                    f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {bound:.4f} ms "
-                    f"({stats[name + tag]['bound_by']})")
+                time_entry(name + tag, sites, peak, f"B {B}, S_pad {S_PAD}, D {D}",
+                           site_weights.get(name))
+            layer_bound = sum(stats[n + tag]["bound_ms"] for n in (
+                "ln_linear_fwd", "prefix_attention_fwd", "linear_relu_fwd",
+                "linear_residual_ln_fwd"))
 
             # K5/K6 finish on the device faster than the host launches them, so
-            # CUDA events read the launch rate; the profiler reads their kernels
-            from torch.profiler import ProfilerActivity, profile
-
-            reps = 20
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    ln.ln_fwd(xd, None, g1, b1, 1e-6)
-                    ln.ln_bwd(xd, None, g1, mu_l, rstd_l, dyd)
-                torch.cuda.synchronize()
-            ln_dev = {"ln_fwd": 0.0, "ln_bwd": 0.0}
-            for e in prof.key_averages():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
-                    for name, kernels_of in (("ln_fwd", ("ln_fwd_kernel",)),
-                                             ("ln_bwd", ("ln_bwd_kernel", "ln_reduce_kernel"))):
-                        if any(k in e.key for k in kernels_of):
-                            ln_dev[name] += e.self_device_time_total / 1e3 / reps
-            # the loop above reads its 12.6 MB tensors back to back from the 50
-            # MB L2; ln_bwd once more with the L2 cold, as a caller that has
+            # CUDA events read the launch rate and the profiler their kernels
+            # (above), which read their 12.6 MB tensors back to back from the
+            # 50 MB L2; ln_bwd once more with the L2 cold, as a caller that has
             # run other work between calls finds it: a 128 MB buffer written
             # before each call (its kernel not counted)
             flush = torch.empty(32 * 2 ** 20, device=dev)
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
+                for _ in range(prof_reps):
                     flush.zero_()
                     ln.ln_bwd(xd, None, g1, mu_l, rstd_l, dyd)
                 torch.cuda.synchronize()
-            ln_cold = sum(e.self_device_time_total / 1e3 / reps for e in prof.key_averages()
+            ln_cold = sum(e.self_device_time_total / 1e3 / prof_reps for e in prof.key_averages()
                           if e.device_type == torch.autograd.DeviceType.CUDA
                           and any(k in e.key for k in ("ln_bwd_kernel", "ln_reduce_kernel")))
             del flush
-            log(f"  ln_fwd{tag} / ln_bwd{tag} device time per call (profiler, {reps} calls): "
-                f"{ln_dev['ln_fwd']:.4f} / {ln_dev['ln_bwd']:.4f} ms warm, ln_bwd{tag} "
-                f"{ln_cold:.4f} ms with the L2 cold; bound (every row) "
-                f"{stats['ln_fwd' + tag]['bound_ms']:.4f} / {stats['ln_bwd' + tag]['bound_ms']:.4f} ms")
-            # the GEMM steps (K1a, K1b, K1c, K2b, K2c), layernorm_bwd (K2a)
-            # and the attention (K3, K4) by the profiler too: at the small
-            # sites CUDA events read the wrapper's launch rate; every kernel of
-            # the call (K2a's and wgrad's second pass, the attention backward's
-            # launches), the layer's sites summed, each kernel also on its own;
-            # K1b and K2b also site by site
-            def device_ms(fns, attempts=3):
-                # a trace can come back without device events (one of 24 such
-                # traces in one run on an H100): it is taken again
-                for _ in range(attempts):
-                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                        for _ in range(reps):
-                            for fn in fns:
-                                fn()
-                        torch.cuda.synchronize()
-                    found = {e.key: e.self_device_time_total / 1e3 / reps
-                             for e in prof.key_averages()
-                             if e.device_type == torch.autograd.DeviceType.CUDA}
-                    if found:
-                        return found
-                raise RuntimeError(f"the profiler recorded no device time in {attempts} traces")
-
-            for name in ("ln_linear_fwd", "linear_relu_fwd", "linear_residual_ln_fwd",
-                         "layernorm_bwd", "linear_dgrad", "linear_wgrad", "prefix_attention_fwd",
-                         "prefix_attention_bwd"):
-                per_kernel = device_ms([kernel_fn for kernel_fn, *_ in runs[name]])
-                dev_ms = sum(per_kernel.values())
-                log(f"  {name + tag} device time per layer (profiler, {reps} x {len(runs[name])} "
-                    f"sites): {dev_ms:.4f} ms, bound {stats[name + tag]['bound_ms']:.4f} ms "
-                    f"({100 * stats[name + tag]['bound_ms'] / dev_ms:.1f} %); CUDA events "
-                    f"{stats[name + tag]['ms']:.4f} ms; "
-                    + ", ".join(f"{k[:60]} {v:.4f}" for k, v in
-                                sorted(per_kernel.items(), key=lambda kv: -kv[1])))
-                if name in ("linear_residual_ln_fwd", "linear_dgrad"):
-                    for i_site, (kernel_fn, *_, ops, nbytes) in enumerate(runs[name]):
-                        site_dev = sum(device_ms([kernel_fn]).values())
-                        site_bound = max(ops / peak, nbytes / PEAK_BYTES) * 1e3
-                        log(f"    {name + tag} site, weight {site_weights[name][i_site]}: "
-                            f"device {site_dev:.4f} ms (profiler), CUDA events "
-                            f"{site_ms[name, i_site]:.4f} ms, bound {site_bound:.4f} ms")
+            log(f"  ln_bwd{tag} device time per call with the L2 cold (profiler, {prof_reps} "
+                f"calls): {ln_cold:.4f} ms; bound (every row) "
+                f"{stats['ln_bwd' + tag]['bound_ms']:.4f} ms")
             # K3 and K4 repeat their bits: fixed-order sums, no atomics
             for name in ("prefix_attention_fwd", "prefix_attention_bwd"):
                 for kernel_fn, *_ in runs[name]:
@@ -2543,31 +2851,34 @@ def main() -> int:
                                                 retain_graph=True),
                     sum(10 * n * n * D16 for n in valid_len),
                     es * (5 * rows * D16 + 3 * m_all * D16) + 4 * (2 * H16 * rows))}
-            for name, (kernel_fn, plain_fn, lib_fn, ops, nbytes) in runs16.items():
+            for name, one in runs16.items():
                 iname = fa.instance(name + tag, 64)
-                t1, p1, p2, t2 = (time_ms(fn) for fn in (kernel_fn, plain_fn, plain_fn,
-                                                         kernel_fn))
-                lib = time_ms(lib_fn)
-                t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-                ms = (t1 + t2) / 2
-                stats[iname].update(ms=ms, plain_ms=(p1 + p2) / 2, library_ms=lib,
-                                    bound_ms=max(t_ops, t_bytes),
-                                    bound_by="operations" if t_ops >= t_bytes else "bytes")
-                per_kernel = device_ms([kernel_fn])
-                dev16 = sum(per_kernel.values())
-                first, again = kernel_fn(), kernel_fn()
+                time_entry(iname, [one], peak, f"B {B}, S_pad {S_PAD}, D {D16}, {H16} heads of 64")
+                first, again = one[0](), one[0]()
                 torch.cuda.synchronize()
                 ph.check(torch.equal(first, again),
                          f"{iname} ({tuple(first.shape)}): the same bits on a second call")
-                log(f"  {iname} (B {B}, S_pad {S_PAD}, D {D16}, {H16} heads of 64): kernel "
-                    f"{ms:.4f} ms (CUDA events {t1:.4f}, {t2:.4f}), device {dev16:.4f} ms "
-                    f"(profiler; {100 * stats[iname]['bound_ms'] / dev16:.1f} % of its bound), "
-                    f"plain {(p1 + p2) / 2:.4f} ms, library {lib:.4f} ms, bound "
-                    f"{stats[iname]['bound_ms']:.4f} ms ({stats[iname]['bound_by']}); "
-                    + ", ".join(f"{k_[:60]} {v_:.4f}" for k_, v_ in
-                                sorted(per_kernel.items(), key=lambda kv: -kv[1])))
                 del first, again
             del ql16, kl16, vl16, sdpa16, runs16
+            torch.cuda.empty_cache()
+
+            # the layer chain's D 768 instances at 2c's narrow hub shapes, on
+            # its inputs of seed 0
+            i7 = inputs768[tag]
+            runs7, weights7 = chain_runs(i7, dt)
+            bsz7, s7 = i7["x"].shape[:2]
+            for name, sites in runs7.items():
+                time_entry(fused_block.instance(name + tag, D16), sites, peak,
+                           f"B {bsz7}, S_pad {s7}, D {D16}", weights7.get(name))
+            layer7_ms = time_ms(lambda: fused_block.fused_encoder_block(
+                i7["x"], i7["vl"], *i7["w"], H16, EPS1, EPS2))
+            layer7_plain = time_ms(lambda: fused_block.fused_encoder_block_reference(
+                i7["x"], i7["vl"], *i7["w"], H16, EPS1, EPS2))
+            log(f"  fused_encoder_block{tag} at D {D16} forward (B {bsz7}, S_pad {s7}): kernels "
+                f"{layer7_ms:.4f} ms, plain {layer7_plain:.4f} ms, bound of its chain steps "
+                f"{sum(stats[fused_block.instance(n + tag, D16)]['bound_ms'] for n in ('ln_linear_fwd', 'linear_relu_fwd', 'linear_residual_ln_fwd')):.4f} ms "
+                f"(the attention not counted)")
+            del runs7, i7
             torch.cuda.empty_cache()
 
         xb, cb = hub.collate_images(images[:batch])
@@ -2649,9 +2960,15 @@ def main() -> int:
         spec_ln = bench.b16_spec()
         spec_ln.backbone_kwargs = dict(spec_ln.backbone_kwargs, ln_impl="pallas")
         state_ln, fused_ln, _, _ = build_dino(spec_ln, device_augmentations=bench.ASYMMETRIC_AUGS)
-        for what, st16, fn16 in (("", state16, fused16), (" with ln_impl=pallas", state_ln,
-                                                          fused_ln)):
-            batch16 = {"images": raw16, "channel_counts": cc16,
+        # and the same step on a 7-channel bucket (raw images of 7 planes),
+        # where the layers take the layer chain's D 768 instances
+        raw7 = raw16[:, :7].contiguous()
+        cc7 = torch.full_like(cc16, 7)
+        for what, st16, fn16, raw_, cc_ in (
+                ("", state16, fused16, raw16, cc16),
+                (" with ln_impl=pallas", state_ln, fused_ln, raw16, cc16),
+                (" on a 7-channel bucket (the layer chain)", state16, fused16, raw7, cc7)):
+            batch16 = {"images": raw_, "channel_counts": cc_,
                        "generator": da.aug_generator(2, 99, dev)}
             st16, _ = fn16(st16, dict(batch16))  # a step that warms the allocator
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2671,14 +2988,21 @@ def main() -> int:
                          if "attention" not in e.key
                          and any(k_ in e.key.lower() for k_ in ("gemm", "cutlass", "sm90_xmma",
                                                                  "ampere", "nvjet"))) / 1e3
-            useful = bench.model_flops_per_image(10, d=D16, f=FFN) * B16_TRAIN_B
-            log(f"  profiled B/16 bf16 step{what}, {B16_TRAIN_B} raw images of 10 channels, the "
+            useful = bench.model_flops_per_image(int(cc_[0]), d=D16, f=FFN) * B16_TRAIN_B
+            chain16 = sum(e.self_device_time_total for e in events16
+                          if any(k_ in e.key for k_ in ("ln_linear", "linear_relu",
+                                                        "linear_residual_ln", "layernorm_bwd",
+                                                        "linear_dgrad", "linear_wgrad",
+                                                        "reduce_ln_splits", "reduce_splits",
+                                                        "reduce_wgrad"))) / 1e3
+            log(f"  profiled B/16 bf16 step{what}, {B16_TRAIN_B} raw images of {int(cc_[0])} "
+                f"channels, the layer chain's kernels {chain16:.2f} ms, the "
                 f"multicrop inside: wall {wall16 * 1e3:.2f} ms, device busy {busy16:.2f} ms "
                 f"({100 * busy16 / (wall16 * 1e3):.1f} %), useful {useful / 1e12:.2f} TFLOP "
                 f"({useful / (busy16 * 1e-3) / PEAK_BF16_FLOPS:.4f} of 989 TFLOP/s on the device "
                 f"time); the attention kernels {attn16:.2f} ms ({100 * attn16 / busy16:.1f} %), "
                 f"the library's GEMMs {gemm16:.2f} ms ({100 * gemm16 / busy16:.1f} %), the rest "
-                f"{busy16 - attn16 - gemm16:.2f} ms ({smi}); by device time:")
+                f"{busy16 - attn16 - gemm16 - chain16:.2f} ms ({smi}); by device time:")
             for rank, e in enumerate(sorted(events16, key=lambda e: -e.self_device_time_total)
                                      [:16]):
                 ms = e.self_device_time_total / 1e3

@@ -8,12 +8,17 @@ the CPU, against the JAX package.
   (the launch stubbed) ChAdaViT-moyen takes the layer chain at S 2048,
   B/16 at S 2048 the unfused layer with one attention forward launch a layer
   forward and one backward launch a layer backward (and no chain launch),
-  and B/16 where the gate says fused raises ``NotImplementedError`` naming
-  the chain's missing D 768 instances.
+  and B/16 where the gate says fused the layer chain, its forward and
+  backward launches counted under the chain's D 768 instances (``_d768``)
+  and the attention's head-64 ones; a width the chain is not built for (D
+  384) still raises ``NotImplementedError`` there.
 - The weights: the JAX model's init carried into the port
   (``state_dict_from_jax_params``, the packed ``in_proj`` of 12 heads) gives
   the same CLS and tokens, at B/16's widths (depth 2, 32 px) and a narrow
   head-64 model (D 128, 2 heads), through the fused and the unfused layer;
+  on the fused route the port matches the JAX model with
+  ``block_impl="fused"`` (its Pallas layer kernel in interpret mode): the CLS
+  and every parameter's gradient of a loss on it;
   the port's seeded weights and a 65 536-prototype head go to JAX and back
   bit for bit (three DINO steps with that head: ``tests/test_torch_b16_train.py``).
 - The full-width fixtures that ``chip_smoke.py`` holds the card to:
@@ -118,10 +123,48 @@ def test_b16_takes_the_unfused_layer_at_2048(fake_cuda, dtype):
     assert x.grad is not None and layer.self_attn.in_proj_weight.grad is not None
 
 
+CHAIN_BWD = {"layernorm_bwd": 3, "linear_dgrad": 4, "linear_wgrad": 4, "prefix_attention_bwd": 1,
+             "ln_linear_fwd": 1, "linear_relu_fwd": 1, "linear_residual_ln_fwd": 1}
+
+
+def _counted(name, dtype):
+    """The instance a launch of chain entry ``name`` at D 768 is counted under."""
+    entry = name + _tag(dtype)
+    if name.startswith("prefix_attention"):
+        return entry + "_hd64"
+    return fused_block.instance(entry, D)
+
+
 @pytest.mark.parametrize("dtype, s", [(torch.bfloat16, 640), (torch.float32, 256)])
 def test_b16_where_the_gate_says_fused_raises(fake_cuda, dtype, s):
-    with pytest.raises(NotImplementedError, match="D 768 instances.*ROADMAP Queue 2"):
-        _layer_run(D, HEADS, s, dtype, s - 100)
+    # (the name is from when the chain had no D 768 instances and this raised)
+    # where the gate says fused, B/16 takes the layer chain: its forward
+    # launches, then its backward's, each counted under its D 768 instance
+    before = dict(_launch.LAUNCHES)
+    layer, x, y = _layer_run(D, HEADS, s, dtype, s - 100)
+    assert type(y.grad_fn).__name__ == "FusedEncoderBlockBackward"
+    assert fake_cuda.calls == [name + _tag(dtype) for name in CHAIN]
+    y.float().sum().backward()
+    backward = fake_cuda.calls[len(CHAIN):]
+    assert {n: backward.count(n + _tag(dtype)) for n in CHAIN_BWD} == CHAIN_BWD
+    assert len(backward) == sum(CHAIN_BWD.values())
+    launched = {k: v - before.get(k, 0) for k, v in _launch.LAUNCHES.items()
+                if v != before.get(k, 0)}
+    want = {}
+    for name in CHAIN:
+        want[_counted(name, dtype)] = want.get(_counted(name, dtype), 0) + 1
+    for name, n in CHAIN_BWD.items():
+        want[_counted(name, dtype)] = want.get(_counted(name, dtype), 0) + n
+    assert launched == want
+    assert x.grad is not None and layer.self_attn.in_proj_weight.grad is not None
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_a_width_the_chain_is_not_built_for_still_raises(fake_cuda, dtype):
+    # D 384 in 3 heads of 128, where the JAX gate says fused
+    assert fused_block.jax_layer_fused(256, 384, FFN, 3, dtype)
+    with pytest.raises(NotImplementedError, match="D 384"):
+        _layer_run(384, 3, 256, dtype, 156)
     assert fake_cuda.calls == []
 
 
@@ -156,6 +199,42 @@ def test_jax_init_carried_across_gives_the_same_model(d, heads, block_impl):
         else:
             np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
         outs[all_tokens] = out
+
+
+def test_b16_on_the_fused_route_matches_the_jax_fused_kernel():
+    # B/16 at depth 2, 32 px, images of 3, 1 and 2 channels (13 tokens, padded
+    # to 128: the JAX gate takes the fused layer): the port, whose layers take
+    # the layer chain (plain versions on the CPU), against the JAX model with
+    # block_impl="fused" (its Pallas layer kernel and custom VJP in interpret
+    # mode) from the same weights: the CLS, and the gradient of every
+    # parameter of a loss on it (sum of (CLS - target)^2), within 1e-4 of each
+    # gradient's largest entry (at least 1), the port's float32 gradient bound
+    cfg = dict(SMALL, embed_dim=D, num_heads=HEADS)
+    counts = np.asarray([3, 1, 2], np.int32)
+    rng = np.random.default_rng(9)
+    x = rng.random((len(counts), 3, 32, 32), dtype=np.float32)
+    tgt = rng.standard_normal((len(counts), D)).astype(np.float32)
+    assert fused_block.jax_layer_fused(128, D, FFN, HEADS, torch.float32)
+    jm = JaxChAdaViT(return_all_tokens=False, block_impl="fused", attn_impl="xla", **cfg)
+    params = jm.init(jax.random.PRNGKey(3), jnp.asarray(x), jnp.asarray(counts))["params"]
+
+    def jloss(p):
+        cls = jm.apply({"params": p}, jnp.asarray(x), jnp.asarray(counts))
+        return jnp.sum((cls - tgt) ** 2), cls
+
+    (_, ref), jgrads = jax.value_and_grad(jloss, has_aux=True)(params)
+    sd = state_dict_from_jax_params(jax.tree_util.tree_map(np.asarray, params))
+    gref = state_dict_from_jax_params(jax.tree_util.tree_map(np.asarray, jgrads))
+    m = ChAdaViT(return_all_tokens=False, **cfg)
+    m.load_state_dict(sd)
+    out = m(torch.from_numpy(x), torch.from_numpy(counts))
+    ((out - torch.from_numpy(tgt)) ** 2).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **TOL)
+    grads = dict(m.named_parameters())
+    assert set(grads) == set(gref)
+    for name, g in gref.items():
+        got = grads[name].grad.numpy()
+        assert np.abs(got - g.numpy()).max() <= 1e-4 * max(1.0, np.abs(g.numpy()).max()), name
 
 
 def test_b16_weights_and_head_go_to_jax_and_back_exactly():

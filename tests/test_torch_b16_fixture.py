@@ -110,3 +110,92 @@ def test_port_on_cpu_matches_the_b16_dino_fixture(dtype):
                     delta = (sd[n] - before[n]).double().norm().item()
                     np.testing.assert_allclose(delta, d["student_delta_norms"][i],
                                                rtol=delta_rel, err_msg=n)
+
+
+# ---- B/16 where the JAX gate takes its fused layer kernel ---------------------------
+# The narrow fixtures (tests/torch_port_fixture.py, MODELS["b16_narrow"]): the
+# CLS of images of 3, 2 and 1 channels and three DINO steps on crops of 3
+# planes, 640 rows, where the JAX layer and the port's take the fused route
+# (the port's layer chain, its D 768 instances on the card), computed by JAX
+# through its fused Pallas layer kernel (block_impl="fused", interpret mode).
+# The recompute here takes JAX's XLA route, held to the fused kernel's file at
+# 2e-5 absolute in float32 (read: 2.4e-6) and in bfloat16 at a cosine of
+# 1 - 1e-4 per row and 4 bfloat16 steps at the CLS's largest entry (read:
+# 1 - 2.0e-5 and 2 steps at |x| 4.6); the port's plain path on the CPU is
+# held at the bounds above.
+NARROW_CLS = {"float32": fixture.B16_NARROW_PATH, "bfloat16": fixture.B16_NARROW_BF16_PATH}
+NARROW_DINO = {"float32": fixture.B16_NARROW_DINO_PATH,
+               "bfloat16": fixture.B16_NARROW_DINO_BF16_PATH}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_b16_narrow_cls_fixture_is_what_jax_computes(dtype):
+    d = _load(NARROW_CLS[dtype])
+    assert (int(d["embed_dim"]), int(d["num_heads"])) == (D, HEADS)
+    assert tuple(d["counts"]) == fixture.NARROW_COUNTS and str(d["block_impl"]) == "fused"
+    ref = fixture.jax_cls(dtype, "b16_narrow", block_impl="xla")
+    if dtype == "float32":
+        np.testing.assert_allclose(ref, d["cls"], rtol=0, atol=2e-5)
+    else:
+        g = d["cls"]
+        cos = (ref * g).sum(-1) / (np.linalg.norm(ref, axis=-1) * np.linalg.norm(g, axis=-1))
+        assert cos.min() >= 1 - 1e-4, cos
+        assert np.abs(ref - g).max() <= 4 * 2.0 ** (np.floor(np.log2(np.abs(g).max())) - 7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_port_on_cpu_matches_the_b16_narrow_cls_fixture(dtype):
+    d = _load(NARROW_CLS[dtype])
+    model = chada_vit(depth=int(d["depth"]), return_all_tokens=False,
+                      img_size=int(d["img_size"]), embed_dim=int(d["embed_dim"]),
+                      num_heads=int(d["num_heads"]), dtype=getattr(torch, dtype))
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in fixture.port_state_dict("b16_narrow").items()})
+    width = int(d["counts"].max())
+    x, cc = collate_images(random_images(d["counts"].tolist(), int(d["img_size"]),
+                                         int(d["image_seed"])), width)
+    assert fused_block.jax_layer_fused(-(-(1 + 196 * width) // 128) * 128, D, FFN, HEADS,
+                                       model.dtype)
+    with torch.no_grad():
+        out = model.eval()(x, cc).float().numpy()
+    ref = d["cls"]
+    cos = (out * ref).sum(-1) / (np.linalg.norm(out, axis=-1) * np.linalg.norm(ref, axis=-1))
+    if dtype == "float32":
+        assert cos.min() >= 1 - 1e-5, cos
+        np.testing.assert_allclose(out, ref, rtol=0, atol=1e-4)
+    else:
+        top = np.abs(ref).max()
+        assert cos.min() >= 1 - 1e-4, cos
+        assert np.abs(out - ref).max() <= 4 * 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_port_on_cpu_matches_the_b16_narrow_dino_fixture(dtype):
+    d = _load(NARROW_DINO[dtype])
+    assert (int(d["embed_dim"]), int(d["num_heads"]), int(d["num_prototypes"]),
+            int(d["max_channels"]), str(d["block_impl"])) == (
+        D, HEADS, fixture.B16_PROTOTYPES, 3, "fused")
+    metric_rel, norm_rel, delta_rel = DINO_BOUNDS[dtype]
+    spec = DinoPretrainSpec(**fixture.B16_NARROW_DINO_SPEC, dtype=getattr(torch, dtype))
+    state, step, _, _ = build_dino(spec, device="cpu", seed=int(d["weight_seed"]))
+    batch = synthetic_dino_batch(spec, len(d["counts"]), int(d["batch_seed"]),
+                                 d["counts"].tolist(), device="cpu")
+    assert batch["crops"].shape[2] == 3  # 640 rows: the fused route
+    before = {n: p.detach().clone() for n, p in state.trainable()}
+    for i in range(int(d["steps"])):
+        state, m = step(state, batch)
+        for k in fixture.DINO_METRICS:
+            np.testing.assert_allclose(float(m[k]), d[k][i], rtol=metric_rel, err_msg=k)
+    names = [str(n) for n in d["names"]]
+    for side in ("student", "teacher"):
+        sd = {f"{part}.{k}": v for part in ("backbone", "head")
+              for k, v in getattr(state, side)[part].state_dict().items()}
+        assert sorted(sd) == names
+        norms = [sd[n].double().norm().item() for n in names]
+        np.testing.assert_allclose(norms, d[f"{side}_norms"], rtol=norm_rel, err_msg=side)
+        if side == "student":
+            for i, n in enumerate(names):
+                if n in before and d["student_delta_norms"][i] > 0:
+                    delta = (sd[n] - before[n]).double().norm().item()
+                    np.testing.assert_allclose(delta, d["student_delta_norms"][i],
+                                               rtol=delta_rel, err_msg=n)

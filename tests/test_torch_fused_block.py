@@ -196,9 +196,23 @@ def test_cuda_route_refuses_widths_the_kernels_are_not_built_for(cuda_route, ste
 
 
 @pytest.mark.parametrize("step", STEPS)
+def test_cuda_route_refuses_a_width_between_the_built_ones(cuda_route, step):
+    # D 384 in 3 heads of 128, where the JAX gate says fused
+    with pytest.raises(REFUSAL.get(step, ValueError)):
+        _hub_steps(384, 2048, 3)[step]()
+
+
+@pytest.mark.parametrize("step", STEPS)
 def test_cuda_route_launches_at_the_served_widths(cuda_route, step):
     with pytest.raises(KernelReached):
         _hub_steps(fused_block.D_MODEL, fused_block.D_FFN, 2)[step]()
+
+
+@pytest.mark.parametrize("step", STEPS)
+def test_cuda_route_launches_at_the_b16_widths(cuda_route, step):
+    # ChAdaViT-B/16: D 768 in 12 heads of 64, FFN 2048
+    with pytest.raises(KernelReached):
+        _hub_steps(768, 2048, 12)[step]()
 
 
 def test_chain_needs_valid_len(cuda_route):

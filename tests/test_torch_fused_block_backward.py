@@ -308,9 +308,23 @@ def test_cuda_route_backward_refuses_widths_the_kernels_are_not_built_for(cuda_r
 
 
 @pytest.mark.parametrize("call", BWD)
+def test_cuda_route_backward_refuses_a_width_between_the_built_ones(cuda_route, call):
+    # D 384 in 3 heads of 128
+    with pytest.raises(ValueError):
+        _bwd_calls(384, 2048, 128)[call]()
+
+
+@pytest.mark.parametrize("call", BWD)
 def test_cuda_route_backward_launches_at_the_served_widths(cuda_route, call):
     with pytest.raises(KernelReached):
         _bwd_calls(fused_block.D_MODEL, fused_block.D_FFN, MOYEN_HD)[call]()
+
+
+@pytest.mark.parametrize("call", BWD)
+def test_cuda_route_backward_launches_at_the_b16_widths(cuda_route, call):
+    # ChAdaViT-B/16: D 768 in 12 heads of 64, FFN 2048
+    with pytest.raises(KernelReached):
+        _bwd_calls(768, 2048, 64)[call]()
 
 
 def test_cuda_route_needs_valid_len(fake_cuda):
@@ -386,8 +400,7 @@ def test_wgrad_passes_its_row_plan_to_the_kernel(fake_cuda, n, k, dtype):
     bsz, s = 3, 640
     vl = torch.tensor([640, 3, 100], dtype=torch.int32)
     z = torch.zeros(bsz, s, dtype=torch.float32)
-    dm = fused_block.D_MODEL
-    ln = (z, z, torch.ones(k), torch.zeros(k)) if (n, k) == (3 * dm, dm) else None
+    ln = (z, z, torch.ones(k), torch.zeros(k)) if n == 3 * k else None  # the QKV site
     fused_block.linear_wgrad(torch.zeros(bsz, s, n, dtype=dtype),
                              torch.zeros(bsz, s, k, dtype=dtype), vl, ln=ln)
     (name,), (args,) = fake_cuda.calls, fake_cuda.args
@@ -423,17 +436,36 @@ def test_layernorm_bwd_splits_stay_bounded_as_the_batch_grows():
     assert fused_block.layernorm_bwd_splits(8, 2048) == 8 * 2048 // fused_block.ROW_BLOCK
 
 
+def test_layernorm_bwd_splits_at_d768_stay_bounded_as_the_batch_grows():
+    d = 768
+    splits = [fused_block.layernorm_bwd_splits(bsz, 2048, d) for bsz in (64, 256, 1024, 4096)]
+    # a quarter of D 192's cap: (splits, 2 d) float32 stays 3.1 MB
+    assert splits == [fused_block.LN_BWD_SPLITS * fused_block.D_MODEL // d] * 4
+    assert splits[0] * 2 * d * 4 <= 3.2e6
+    assert fused_block.layernorm_bwd_splits(1, 64, d) == 2  # no more splits than 32-row tiles
+    assert fused_block.layernorm_bwd_splits(8, 2048, d) == 8 * 2048 // fused_block.ROW_BLOCK
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bsz, s", [(3, 640), (64, 2048)])
 def test_layernorm_bwd_passes_its_split_plan_to_the_kernel(fake_cuda, dtype, bsz, s):
-    d = fused_block.D_MODEL
+    _layernorm_bwd_plan_reaches_the_kernel(fake_cuda, dtype, bsz, s, fused_block.D_MODEL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bsz, s", [(3, 640), (64, 2048)])
+def test_layernorm_bwd_passes_its_split_plan_to_the_kernel_at_d768(fake_cuda, dtype, bsz, s):
+    _layernorm_bwd_plan_reaches_the_kernel(fake_cuda, dtype, bsz, s, 768)
+
+
+def _layernorm_bwd_plan_reaches_the_kernel(fake_cuda, dtype, bsz, s, d):
     vl = torch.full((bsz,), 3, dtype=torch.int32)
     z = torch.zeros(bsz, s, d, dtype=dtype)
     stats = torch.zeros(bsz, s)
     dx, dgb = fused_block.layernorm_bwd(z, z, stats, stats, torch.ones(d), vl)
     (name,), (args,) = fake_cuda.calls, fake_cuda.args
     assert name == _launch.entry_point("layernorm_bwd", dtype)
-    assert args[-5:-1] == (bsz * s, d, s, fused_block.layernorm_bwd_splits(bsz, s))
+    assert args[-5:-1] == (bsz * s, d, s, fused_block.layernorm_bwd_splits(bsz, s, d))
     assert dx.shape == z.shape and dx.dtype == dtype and dgb.shape == (2 * d,)
 
 

@@ -32,11 +32,23 @@ bench's B/16 head (65 536 prototypes) on two images with 10 and 4 channels.
 Each records its widths (``embed_dim``, ``num_heads``, and for DINO
 ``num_prototypes``).
 
+ChAdaViT-B/16 where the JAX gate takes its fused layer kernel
+(``MODELS["b16_narrow"]``, the same widths; ``block_impl="fused"``, which
+runs the Pallas layer kernel, in interpret mode on the CPU, so the golden is
+that kernel's own output): ``torch_port_cls_b16_narrow{,_bf16}_depth2.npz``,
+the CLS of three images of 3, 2 and 1 channels (the batch pads to 3
+channels, 640 rows: fused in both dtypes), and
+``torch_port_dino_b16_narrow{,_bf16}_depth2.npz``, three DINO steps with the
+65 536-prototype head on two images of 3 and 1 channels, crops of 3 planes
+(640 rows). Each records ``block_impl``.
+
 The card's machine has no JAX, so ``chip_smoke.py`` reads only the npz files
 and rebuilds the weights and inputs from the seeds recorded in them.
 
-Regenerate all eight with ``JAX_PLATFORMS=cpu python -m tests.torch_port_fixture``
-(``... torch_port_fixture b16`` for the four B/16 files alone);
+Regenerate all twelve with ``JAX_PLATFORMS=cpu python -m tests.torch_port_fixture``
+(``... torch_port_fixture b16`` for the four B/16 files alone, ``b16_narrow``
+for the four narrow ones: about half an hour of the CPU, the fused kernel's
+interpret mode);
 ``tests/test_torch_fixture.py``, ``tests/test_torch_fixture_bf16.py`` and
 ``tests/test_torch_b16.py`` recompute them and check the committed files.
 """
@@ -58,9 +70,18 @@ DEPTH = 2
 
 # the widths of each fixture's backbone (both packages' factory keys)
 MODELS = {"moyen": dict(embed_dim=192, num_heads=2),
-          "b16": dict(embed_dim=768, num_heads=12)}
+          "b16": dict(embed_dim=768, num_heads=12),
+          "b16_narrow": dict(embed_dim=768, num_heads=12)}
 B16_PATH = PATH.parent / "torch_port_cls_b16_depth2.npz"
 B16_BF16_PATH = PATH.parent / "torch_port_cls_b16_bf16_depth2.npz"
+# ChAdaViT-B/16 at widths where the JAX gate takes its fused layer kernel,
+# computed through it (block_impl="fused")
+B16_NARROW_PATH = PATH.parent / "torch_port_cls_b16_narrow_depth2.npz"
+B16_NARROW_BF16_PATH = PATH.parent / "torch_port_cls_b16_narrow_bf16_depth2.npz"
+NARROW_COUNTS = (3, 2, 1)
+# each model's CLS images and JAX layer route
+CLS_RUNS = {"moyen": (COUNTS, "auto"), "b16": (COUNTS, "auto"),
+            "b16_narrow": (NARROW_COUNTS, "fused")}
 
 
 def port_state_dict(model: str = "moyen") -> dict:
@@ -71,9 +92,11 @@ def port_state_dict(model: str = "moyen") -> dict:
     return {k: v.numpy() for k, v in random_state_dict(m, WEIGHT_SEED).items()}
 
 
-def jax_cls(dtype: str = "float32", model: str = "moyen") -> np.ndarray:
-    """``(4, D)`` CLS embeddings of the fixture's images from the JAX model
-    (its XLA path on the CPU) computing in ``dtype``, as float32."""
+def jax_cls(dtype: str = "float32", model: str = "moyen", block_impl: str = None) -> np.ndarray:
+    """``(len(counts), D)`` CLS embeddings of the fixture's images from the
+    JAX model computing in ``dtype``, as float32: on the CPU its XLA path, or
+    with ``block_impl="fused"`` its Pallas layer kernel in interpret mode
+    (the model's own route, ``CLS_RUNS``, when None)."""
     import jax.numpy as jnp
 
     from chadavit_tpu.hub import collate_images
@@ -81,17 +104,22 @@ def jax_cls(dtype: str = "float32", model: str = "moyen") -> np.ndarray:
     from chadavit_tpu.models.import_torch import chada_vit_params_from_torch
     from chadavit_tpu_torch.hub import random_images
 
+    counts, route = CLS_RUNS[model]
     params = chada_vit_params_from_torch(port_state_dict(model), depth=DEPTH)
     m = chada_vit(depth=DEPTH, return_all_tokens=False, img_size=IMG_SIZE,
-                  dtype=getattr(jnp, dtype), **MODELS[model])
-    x, cc = collate_images(random_images(COUNTS, IMG_SIZE, IMAGE_SEED))
+                  dtype=getattr(jnp, dtype), block_impl=block_impl or route, **MODELS[model])
+    # the batch pads to its widest image (10 channels for the moyen and b16 runs)
+    x, cc = collate_images(random_images(counts, IMG_SIZE, IMAGE_SEED), max(counts))
     return np.asarray(m.apply({"params": params}, x, cc).astype(jnp.float32), np.float32)
 
 
 def write(path: Path = PATH, dtype: str = "float32", model: str = "moyen") -> None:
     widths = MODELS[model] if model != "moyen" else {}  # the moyen files predate the key
+    counts, route = CLS_RUNS[model]
+    route = {"block_impl": route} if model == "b16_narrow" else {}
     np.savez(path, cls=jax_cls(dtype, model), weight_seed=WEIGHT_SEED, image_seed=IMAGE_SEED,
-             counts=np.asarray(COUNTS, np.int32), img_size=IMG_SIZE, depth=DEPTH, **widths)
+             counts=np.asarray(counts, np.int32), img_size=IMG_SIZE, depth=DEPTH, **widths,
+             **route)
 
 
 DINO_PATH = PATH.parent / "torch_port_dino_depth2.npz"
@@ -118,7 +146,14 @@ B16_DINO_COUNTS = (10, 4)
 B16_DINO_SPEC = dict(
     DINO_SPEC, num_prototypes=B16_PROTOTYPES,
     backbone_kwargs=dict(DINO_SPEC["backbone_kwargs"], **MODELS["b16"]))
-DINO_RUNS = {"moyen": (DINO_SPEC, DINO_COUNTS), "b16": (B16_DINO_SPEC, B16_DINO_COUNTS)}
+# the narrow B/16 run: crops of 3 planes (640 rows), through the JAX fused
+# layer kernel
+B16_NARROW_DINO_PATH = PATH.parent / "torch_port_dino_b16_narrow_depth2.npz"
+B16_NARROW_DINO_BF16_PATH = PATH.parent / "torch_port_dino_b16_narrow_bf16_depth2.npz"
+B16_NARROW_DINO_COUNTS = (3, 1)
+B16_NARROW_DINO_SPEC = dict(B16_DINO_SPEC, max_channels=3)
+DINO_RUNS = {"moyen": (DINO_SPEC, DINO_COUNTS), "b16": (B16_DINO_SPEC, B16_DINO_COUNTS),
+             "b16_narrow": (B16_NARROW_DINO_SPEC, B16_NARROW_DINO_COUNTS)}
 
 
 def dino_port_init(model: str = "moyen"):
@@ -161,7 +196,8 @@ def _named_norms(tree) -> dict:
 
 
 def jax_dino(dtype: str = "float32", model: str = "moyen") -> dict:
-    """Run the JAX ``build_dino`` step (XLA on the CPU) from the port's init,
+    """Run the JAX ``build_dino`` step (XLA on the CPU; for the narrow B/16
+    run its fused layer kernel in interpret mode) from the port's init,
     computing in ``dtype``, and return the fixture's arrays."""
     import jax
     import jax.numpy as jnp
@@ -178,8 +214,11 @@ def jax_dino(dtype: str = "float32", model: str = "moyen") -> dict:
                "head": dino_head_params_from_torch(head_sd)}
     student = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float32), student)
     mesh = make_mesh(n_model=1, devices=jax.devices()[:1])
-    state, step, _, _ = build_dino(
-        DinoPretrainSpec(**DINO_RUNS[model][0], dtype=getattr(jnp, dtype)), mesh=mesh)
+    spec = dict(DINO_RUNS[model][0])
+    if model == "b16_narrow":
+        spec["backbone_kwargs"] = dict(spec["backbone_kwargs"], block_impl="fused")
+    state, step, _, _ = build_dino(DinoPretrainSpec(**spec, dtype=getattr(jnp, dtype)),
+                                   mesh=mesh)
     state = state.replace(student=student,
                           teacher=jax.tree_util.tree_map(jnp.copy, student))
     before = _named_norms(student)
@@ -205,6 +244,8 @@ def write_dino(path: Path = DINO_PATH, dtype: str = "float32", model: str = "moy
     spec, counts = DINO_RUNS[model]
     widths = {} if model == "moyen" else dict(MODELS[model],
                                               num_prototypes=spec["num_prototypes"])
+    if model == "b16_narrow":
+        widths.update(block_impl="fused", max_channels=spec["max_channels"])
     np.savez(path, **jax_dino(dtype, model), weight_seed=WEIGHT_SEED,
              batch_seed=DINO_BATCH_SEED, counts=np.asarray(counts, np.int32), steps=DINO_STEPS,
              depth=DEPTH, **widths)
@@ -212,7 +253,9 @@ def write_dino(path: Path = DINO_PATH, dtype: str = "float32", model: str = "moy
 
 FILES = {"moyen": (("float32", PATH, DINO_PATH), ("bfloat16", BF16_PATH, DINO_BF16_PATH)),
          "b16": (("float32", B16_PATH, B16_DINO_PATH),
-                 ("bfloat16", B16_BF16_PATH, B16_DINO_BF16_PATH))}
+                 ("bfloat16", B16_BF16_PATH, B16_DINO_BF16_PATH)),
+         "b16_narrow": (("float32", B16_NARROW_PATH, B16_NARROW_DINO_PATH),
+                        ("bfloat16", B16_NARROW_BF16_PATH, B16_NARROW_DINO_BF16_PATH))}
 
 
 if __name__ == "__main__":
