@@ -41,15 +41,16 @@
 //   tensor-core product (a B fragment of ones) in the blocks of the first K
 //   tile.
 //
-// Both kernels are built for the layer's two widths, D 192 (ChAdaViT-moyen)
-// and D 768 (ChAdaViT-B/16), FFN 2048: the tiles stay those of D 192 and
-// the grids hold more of them at D 768 (dgrad's N 768 sites four column
-// slices of 192; wgrad's tiles over the wider weights), so most D 768 sites
-// run the D 192 sites' own instances. dgrad's FFN site at D 768 streams dY
-// through the ring with W (its (64, 768) rows would leave one block an SM).
-// At D 768 every product has 768 or more on both sides, 380 to 580
-// operations a byte, over the 295 at which the bf16 tensor cores become the
-// limit: these instances are bound by operations.
+// dgrad is built for the layer's two widths, D 192 (ChAdaViT-moyen) and D
+// 768 (ChAdaViT-B/16), FFN 2048: the tiles stay those of D 192 and the grid
+// holds more of them at D 768 (the N 768 sites four column slices of 192),
+// so most D 768 sites run the D 192 sites' own instances; the FFN site at D
+// 768 streams dY through the ring with W (its (64, 768) rows would leave one
+// block an SM). At D 768 every product has 768 or more on both sides, 380 to
+// 580 operations a byte, over the 295 at which the bf16 tensor cores become
+// the limit: these instances are bound by operations. wgrad here takes D
+// 192's four weight shapes only; at D 768 it is linear_wgmma_bf16.cu's
+// linear_wgrad_wgmma_bf16 (wgmma and TMA).
 //
 // Plain C interface (loaded with ctypes); each launcher returns
 // cudaGetLastError() so that the Python wrapper can raise on a refused launch.
@@ -540,26 +541,24 @@ int linear_dgrad_bf16(const bf16* dy, const bf16* w, const bf16* aux, bf16* out,
   return (int)cudaErrorInvalidValue;
 }
 
-// dy (M, N), x (M, K) bf16; dwb: (N * K + N,) f32 = dW (N, K) row-major, then
-// db (N,). With mean (not null; K 192 or 768 only), x is layer-normed with
-// mean, rstd, g, beta (f32) and rounded to bf16 as it is staged. partial:
-// (splits, N * K + N) f32 scratch, 1 <= splits <= 1024; the tile shapes and
-// so the grid are those of ops/fused_block.py::WGRAD_BF16_TILES.
+// dy (M, N), x (M, K) bf16 at the four weight shapes (N, K) of a D 192
+// layer; dwb: (N * K + N,) f32 = dW (N, K) row-major, then db (N,). With
+// mean (not null; K 192 only), x is layer-normed with mean, rstd, g, beta
+// (f32) and rounded to bf16 as it is staged. partial: (splits, N * K + N) f32
+// scratch, 1 <= splits <= 1024; the tile shapes and so the grid are those of
+// ops/fused_block.py::WGRAD_BF16_TILES.
 int linear_wgrad_bf16(const bf16* dy, const bf16* x, const float* mean, const float* rstd,
                       const float* g, const float* beta, float* partial, float* dwb,
                       const int* valid_len, int M, int N, int K, int s_pad, int splits,
                       void* stream) {
   if (M <= 0 || s_pad <= 0 || s_pad % ROW_TILE || M % s_pad || M / s_pad > MAX_IMAGES ||
-      splits < 1 || splits > 1024 || !is_weight_shape(N, K) ||
-      (mean != nullptr && !is_width(K)))
+      splits < 1 || splits > 1024 || !is_weight_shape_at(N, K, D_MODEL) ||
+      (mean != nullptr && K != D_MODEL))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int bsz = M / s_pad;
   int e;
-  // the same tiles at both widths: at D 768 the grid holds four times as many
-  // (the QKV weight takes FFN1's 128-row tiles there: 72 tiles, where 144 of
-  // 64 rows would be more blocks than SMs)
-  if (N == D_FFN || N == 3 * D_WIDE)
+  if (N == D_FFN)
     e = wgrad_launch<128, D_MODEL, 2>(dy, x, mean, rstd, g, beta, partial, valid_len, N, K,
                                       s_pad, bsz, splits, st);
   else if (K == D_FFN)

@@ -56,15 +56,15 @@
 //   holds a valid row is computed for real. No atomics: the same bits on
 //   every run.
 //
-// At D 768 (ChAdaViT-B/16, FFN 2048) each step has an instance of its own:
-// K1c is the same template with the (64, 768) x rows resident (160 KB, one
-// block an SM); K1a streams W through the ring in K slices, 192 of the 2304
-// columns a block (ln_linear_wide_bf16_kernel); K1b is a cluster of four
-// blocks along the columns, each the D 192 tile, that add their rows'
-// partial LayerNorm sums through distributed shared memory
-// (layernorm_cols). Every product then has 768 or more on both sides, 380
-// to 580 operations a byte: the D 768 instances are bound by the tensor
-// cores' operations, which mma.sync reaches only a share of. The D 192
+// At D 768 (ChAdaViT-B/16, FFN 2048) K1c and K1b have instances of their
+// own: K1c is the same template with the (64, 768) x rows resident (160 KB,
+// one block an SM); K1b is a cluster of four blocks along the columns, each
+// the D 192 tile, that add their rows' partial LayerNorm sums through
+// distributed shared memory (layernorm_cols). Every product then has 768 or
+// more on both sides, 380 to 580 operations a byte: the D 768 instances are
+// bound by the tensor cores' operations, which mma.sync reaches only a share
+// of. K1a at D 768 is linear_wgmma_bf16.cu's ln_linear_fwd_wgmma_bf16 (wgmma
+// and TMA); this file's ln_linear_fwd_bf16 takes D 192 only. The D 192
 // instances compile to the code they had.
 //
 // Plain C interface (loaded with ctypes); each launcher returns
@@ -272,201 +272,6 @@ ln_linear_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ gamm
   __syncthreads();
 #pragma unroll
   for (int q = 0; q < C::A_CHUNKS; ++q) {
-    const int c = tid + q * TC_THREADS, r = c / (LNL_BN / 8), cc = c % (LNL_BN / 8);
-    *reinterpret_cast<uint4*>(out + (size_t)(m0 + r) * N + n0 + cc * 8) =
-        *reinterpret_cast<const uint4*>(Es + swz<LNL_BN>(r, cc * 8));
-  }
-}
-
-// ---- ln_linear_fwd_bf16 at D 768 ------------------------------------------------
-// Grid (M / FW_BM, 3 D / LNL_BN = 12). At K 768 the third's W tile would be
-// (768, 768), 1.1 MB, so a block owns FW_BM rows and one LNL_BN = 192-wide
-// slab of the 2304 columns, and W's slab streams through the ring in K
-// slices of FW_BK ((192, 64) tiles, three stages). The block's x rows come
-// whole (96 KB) with the first slice; while the second lands, one warp a row
-// takes the f32 stats over the 768 columns (each lane 3 chunks of 8) in
-// fast-variance form with the max(0, .) clamp and overwrites x with
-// h = bf16((x - mean) rstd g + b), the A operand, as at D 192. Each of the
-// twelve slab blocks of a row block computes the same stats and h (the
-// blocks of the first slab write the stats). Warps of 32 x 48, k16 steps
-// unrolled (one block an SM: 168 KB of shared memory). The epilogue is
-// K1a's at D 192: sums -> bf16 -> + bias -> bf16, 16-byte rows through the
-// x tile, free by then.
-struct LnLinearWide {
-  static constexpr int K = D_WIDE;
-  static constexpr int N = 3 * D_WIDE;
-  static constexpr int KT = K / FW_BK;                   // K slices
-  static constexpr int WN = LNL_BN / 4;                  // a warp's columns
-  static constexpr int NT8 = WN / 8;                     // its n8 blocks
-  static constexpr int A_ELEMS = FW_BM * K;              // x, then h, then the output rows
-  static constexpr int B_STAGE = LNL_BN * FW_BK;         // a (n, k) tile of the slab's W
-  static constexpr int SMEM = 2 * (A_ELEMS + STAGES * B_STAGE);
-  static constexpr int A_CHUNKS = A_ELEMS / 8 / TC_THREADS;  // 16 B of x a thread
-  static constexpr int B_CHUNKS = B_STAGE / 8 / TC_THREADS;  // of a stage's W
-  static constexpr int E_CHUNKS = FW_BM * LNL_BN / 8 / TC_THREADS;  // of the output rows
-  static constexpr int LN_CHUNKS = K / 8 / 32;           // 16-byte chunks of a row a lane
-  static_assert(K % FW_BK == 0 && KT >= STAGES - 1 && NT8 % 2 == 0 &&
-                    A_CHUNKS * 8 * TC_THREADS == A_ELEMS && B_CHUNKS * 8 * TC_THREADS == B_STAGE &&
-                    LN_CHUNKS * 8 * 32 == K && N % LNL_BN == 0,
-                "ln_linear at D 768 tile shape");
-};
-
-__global__ void __launch_bounds__(TC_THREADS, 1)
-ln_linear_wide_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
-                           const float* __restrict__ beta, float eps, const bf16* __restrict__ w,
-                           const bf16* __restrict__ bias, bf16* __restrict__ out,
-                           float* __restrict__ mean_out, float* __restrict__ rstd_out,
-                           const int* __restrict__ valid_len, int s_pad) {
-  using C = LnLinearWide;
-  constexpr int K = C::K, N = C::N;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Bs = As + C::A_ELEMS;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.x * FW_BM, n0 = blockIdx.y * LNL_BN;
-  const bool write_stats = mean_out != nullptr && blockIdx.y == 0;
-  const int live = live_rows(m0, s_pad, valid_len);
-  if (live == 0) {  // both 32-row tiles are padding: uniform, before any barrier
-    constexpr int ROW_CHUNKS = LNL_BN / 8;
-    for (int c = tid; c < FW_BM * ROW_CHUNKS; c += TC_THREADS)
-      *reinterpret_cast<uint4*>(out + (size_t)(m0 + c / ROW_CHUNKS) * N + n0 +
-                                (c % ROW_CHUNKS) * 8) = make_uint4(0, 0, 0, 0);
-    if (write_stats && tid < FW_BM) {
-      mean_out[m0 + tid] = 0.f;
-      rstd_out[m0 + tid] = 0.f;
-    }
-    return;
-  }
-
-  auto load = [&](int i) {  // the slab's W rows, K slice i
-    bf16* bs = Bs + (i % STAGES) * C::B_STAGE;
-    const bf16* src = w + (size_t)n0 * K + i * FW_BK;
-#pragma unroll
-    for (int q = 0; q < C::B_CHUNKS; ++q) {
-      const int c = tid + q * TC_THREADS, r = c / (FW_BK / 8), cc = c % (FW_BK / 8);
-      cp_async_16(bs + swz<FW_BK>(r, cc * 8), src + (size_t)r * K + cc * 8);
-    }
-  };
-  // group 0: the live x rows (the rows of a padding tile give rows of sums
-  // that are never stored) and slice 0; group 1: slice 1
-#pragma unroll
-  for (int q = 0; q < C::A_CHUNKS; ++q) {
-    const int c = tid + q * TC_THREADS, r = c / (K / 8), cc = c % (K / 8);
-    if (r < live) cp_async_16(As + swz<K>(r, cc * 8), x + (size_t)(m0 + r) * K + cc * 8);
-  }
-#pragma unroll
-  for (int i = 0; i < STAGES - 1; ++i) {
-    load(i);
-    cp_async_commit();
-  }
-  cp_async_wait<STAGES - 2>();
-  __syncthreads();  // the x rows are in
-
-  // ---- LN1, one warp a row (each lane 3 chunks of 8 columns): the stats, then
-  // h = bf16((x - mean) rstd g + b) in place of x ------------------------------
-  for (int row = warp; row < FW_BM; row += TC_THREADS / 32) {
-    if (row >= live) {  // a zero-filled 32-row tile: uniform across the warp
-      if (write_stats && lane == 0) {
-        mean_out[m0 + row] = 0.f;
-        rstd_out[m0 + row] = 0.f;
-      }
-      continue;
-    }
-    uint4 u[C::LN_CHUNKS];
-    float s = 0.f, ss = 0.f;
-#pragma unroll
-    for (int j = 0; j < C::LN_CHUNKS; ++j) {
-      u[j] = *reinterpret_cast<const uint4*>(As + swz<K>(row, (lane + 32 * j) * 8));
-      const uint32_t* uw = reinterpret_cast<const uint32_t*>(&u[j]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = unpack_bf16x2(uw[e]);
-        s += f.x + f.y;
-        ss += f.x * f.x + f.y * f.y;
-      }
-    }
-    s = warp_sum(s);
-    ss = warp_sum(ss);
-    const float mu = s / K;
-    const float rstd = rsqrtf(fmaxf(ss / K - mu * mu, 0.f) + eps);
-#pragma unroll
-    for (int j = 0; j < C::LN_CHUNKS; ++j) {
-      const int c8 = (lane + 32 * j) * 8;
-      float ga[8], ba[8];
-      *reinterpret_cast<float4*>(ga) = __ldg(reinterpret_cast<const float4*>(gamma + c8));
-      *reinterpret_cast<float4*>(ga + 4) = __ldg(reinterpret_cast<const float4*>(gamma + c8 + 4));
-      *reinterpret_cast<float4*>(ba) = __ldg(reinterpret_cast<const float4*>(beta + c8));
-      *reinterpret_cast<float4*>(ba + 4) = __ldg(reinterpret_cast<const float4*>(beta + c8 + 4));
-      uint32_t* uw = reinterpret_cast<uint32_t*>(&u[j]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = unpack_bf16x2(uw[e]);
-        uw[e] = pack_bf16x2((f.x - mu) * rstd * ga[2 * e] + ba[2 * e],
-                            (f.y - mu) * rstd * ga[2 * e + 1] + ba[2 * e + 1]);
-      }
-      *reinterpret_cast<uint4*>(As + swz<K>(row, c8)) = u[j];
-    }
-    if (write_stats && lane == 0) {
-      mean_out[m0 + row] = mu;
-      rstd_out[m0 + row] = rstd;
-    }
-  }
-
-  float acc[2][C::NT8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < C::NT8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-  for (int i = 0; i < C::KT; ++i) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // slice i is in (and h, at i = 0); every warp is done with slice i - 1
-    if (i + STAGES - 1 < C::KT) load(i + STAGES - 1);
-    cp_async_commit();
-    const bf16* bs = Bs + (i % STAGES) * C::B_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < FW_BK; kk += 16) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) ldsm_a<K>(af[mt], As, wm * 32 + mt * 16, i * FW_BK + kk);
-#pragma unroll
-      for (int np = 0; np < C::NT8 / 2; ++np) {
-        uint32_t bf[4];
-        ldsm_b<FW_BK>(bf, bs, kk, wn * C::WN + np * 16);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc[mt][2 * np], af[mt], bf[0], bf[1]);
-          mma_bf16(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with h: its tile takes the output rows
-
-  // ---- epilogue: sums -> bf16 -> + bias -> bf16, 16-byte rows via the tile ----
-  bf16* Es = As;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < C::NT8; ++nt) {
-    const int col = wn * C::WN + nt * 8 + 2 * t;
-    const float2 bb = unpack_bf16x2(__ldg(reinterpret_cast<const unsigned int*>(bias + n0 + col)));
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wm * 32 + mt * 16 + g + 8 * h;
-        float v0 = rnd<bf16>(rnd<bf16>(acc[mt][nt][2 * h]) + bb.x);
-        float v1 = rnd<bf16>(rnd<bf16>(acc[mt][nt][2 * h + 1]) + bb.y);
-        if (r >= live) v0 = v1 = 0.f;
-        *reinterpret_cast<uint32_t*>(Es + swz<LNL_BN>(r, col)) = pack_bf16x2(v0, v1);
-      }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int q = 0; q < C::E_CHUNKS; ++q) {
     const int c = tid + q * TC_THREADS, r = c / (LNL_BN / 8), cc = c % (LNL_BN / 8);
     *reinterpret_cast<uint4*>(out + (size_t)(m0 + r) * N + n0 + cc * 8) =
         *reinterpret_cast<const uint4*>(Es + swz<LNL_BN>(r, cc * 8));
@@ -931,27 +736,18 @@ bool rows_ok_bf16(int M, int s_pad) {
 
 extern "C" {
 
-// x (M, D), w (3 D, D), bias (3 D,), out (M, 3 D), bf16, D 192 or 768; g and
-// beta (D,) f32. mean_out and rstd_out (M,) f32 get the LN1 row stats when
-// not null (both or neither); zeros on the zero-filled tiles. s_pad a
-// multiple of 64, the block's rows. The float32 instance is fused_block.cu's.
+// x (M, 192), w (576, 192), bias (576,), out (M, 576), bf16; g and beta
+// (192,) f32. mean_out and rstd_out (M,) f32 get the LN1 row stats when not
+// null (both or neither); zeros on the zero-filled tiles. s_pad a multiple
+// of 64, the block's rows. The float32 instance is fused_block.cu's; at D
+// 768 the bf16 one is linear_wgmma_bf16.cu's ln_linear_fwd_wgmma_bf16.
 int ln_linear_fwd_bf16(const bf16* x, const float* g, const float* beta, float eps,
                        const bf16* w, const bf16* bias, bf16* out, float* mean_out,
                        float* rstd_out, const int* valid_len, int M, int K, int N,
                        int s_pad, void* stream) {
-  if (!rows_ok_bf16(M, s_pad) || !is_width(K) || N != 3 * K ||
+  if (!rows_ok_bf16(M, s_pad) || K != D_MODEL || N != 3 * K ||
       (mean_out == nullptr) != (rstd_out == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (K == D_WIDE) {
-    int e = (int)cudaFuncSetAttribute(ln_linear_wide_bf16_kernel,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      LnLinearWide::SMEM);
-    if (e != 0) return e;
-    ln_linear_wide_bf16_kernel<<<dim3(M / FW_BM, N / LNL_BN), TC_THREADS, LnLinearWide::SMEM,
-                                 static_cast<cudaStream_t>(stream)>>>(
-        x, g, beta, eps, w, bias, out, mean_out, rstd_out, valid_len, s_pad);
-    return (int)cudaGetLastError();
-  }
   int e = (int)cudaFuncSetAttribute(ln_linear_bf16_kernel,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, LnLinear::SMEM);
   if (e != 0) return e;

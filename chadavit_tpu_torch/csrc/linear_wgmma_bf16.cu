@@ -1,0 +1,623 @@
+// The bf16 LN1 + QKV forward (K1a, ln_linear_fwd_wgmma_bf16) and the bf16
+// weight gradient (K2c, linear_wgrad_wgmma_bf16) of a ChAdaViT-B/16 encoder
+// layer (D 768, FFN 2048) on Hopper's warpgroup products: TMA tiles through an
+// mbarrier ring, one producer thread and two consumer warpgroups, wgmma
+// m64n256k16 from 128-byte-swizzled shared memory (wgmma_bf16.cuh). The
+// functions, sites, rounding points and row contract are those of the D 192
+// instances (linear_fwd_bf16.cu, linear_bwd_bf16.cu), which stay as they are.
+//
+// Replaces, with linear_fwd_bf16.cu and linear_bwd_bf16.cu, the TPU kernels
+// chadavit_tpu/ops/fused_block.py::_fwd_kernel (:91) and _bwd_kernel (:211)
+// at D 768, whose bf16 dots run on the MXU with f32 accumulation.
+//
+// What bounds them on an H100: at D 768 every product has 768 or more on both
+// sides, 380 to 580 operations a byte of device memory, over the 295 at which
+// the bf16 tensor cores become the limit: both are bound by operations, which
+// only wgmma reaches. The design:
+//
+// - One warp a row takes LN1 (ln_rows_kernel, shared by both): h =
+//   bf16((x - mean) rstd g + b) on the rows of the 32-row tiles that hold a
+//   valid row, with the row stats taken here (K1a, f32 fast variance with the
+//   max(0, .) clamp, written where asked; zeros on the zero-filled tiles) or
+//   read from the forward's saved stats (K2c's QKV site: the forward's h,
+//   exactly). The GEMMs then read h by TMA: the LayerNorm runs once a row,
+//   not once for each column block. K1a's pre-pass also writes the zeros of
+//   qkv's rows on the zero-filled tiles.
+// - K1a: out = bf16(bf16(h W^T) + b) on tiles of two 64-row units (one a
+//   warpgroup) by 256 columns, 12 K slices of 64 through a three-stage ring.
+//   The units are the 64-row blocks that hold a valid row, listed image by
+//   image, so a persistent grid of at most 132 blocks walks computed rows
+//   only and every block gets the same share of tiles. The epilogue stages
+//   each warpgroup's rows in shared memory and stores the rows of the unit's
+//   computed 32-row tiles 16 bytes a thread (stored from the fragments, 4
+//   bytes a thread, the stores took 60 % of the kernel on an H100).
+// - K2c: dW = dY^T X' and db = colsum dY summed over the computed 32-row
+//   tiles, two a unit (64 rows; an odd last tile pairs with a box past the
+//   tensor's end, which TMA fills with zeros). dY and X' stay as they are in
+//   device memory (rows, features): both operands are MN-major, so TMA boxes
+//   of 32 rows x 64 features feed wgmma with no copies by hand. db is one
+//   more product, dY^T times a column of ones (m64n8k16), issued with every
+//   unit's products (a product under a branch made ptxas serialize the
+//   wgmma) and written by the segments of the first column tile only. The
+//   work is a stream-K walk: the units of every output tile
+//   (tile-major) are cut into 132 contiguous, near-equal shares, one block
+//   each, so every SM has work whatever the tile count; a block writes the
+//   partial of each tile segment it holds into slot tile + block
+//   (tiles + 131 slots at most, whatever the batch), and a second pass adds
+//   each tile's slots in block order: no atomics, the same bits on every
+//   run.
+//
+// Plain C interface (loaded with ctypes); each launcher returns
+// cudaGetLastError() (or the first error of the tensor maps) so that the
+// Python wrapper can raise on a refused launch. Diagnostic builds: those of
+// wgmma_bf16.cuh, and -DWGMMA_NO_STORE, which drops the GEMMs' stores of
+// their results (scripts/bench_wgmma_bf16.py --builds).
+
+#include "gemm_common.cuh"
+#include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
+
+namespace {
+
+constexpr int CONSUMERS = 2;                        // consumer warpgroups
+constexpr int PRODUCER_WARP = 4 * CONSUMERS;        // then one producer warp
+constexpr int WG_THREADS = 128 * CONSUMERS + 32;
+constexpr int TILE_M = 64 * CONSUMERS;              // rows of a block's output tile
+constexpr int TILE_N = 256;                         // its columns: m64n256k16
+constexpr int BOX = 64;                             // bf16 a box row: 128 bytes
+constexpr int ROW_TILE = BM;                        // the contract's 32-row tile
+constexpr int MAX_IMAGES = 1024;
+constexpr int RELEASES = 4 * CONSUMERS;             // arrivals that free a stage: a consumer warp each
+#ifdef WGMMA_NO_STORE
+constexpr bool STORE = false;
+#else
+constexpr bool STORE = true;
+#endif
+
+// the dynamic shared memory's first 1024-byte boundary: the swizzled tiles' base
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (wg::smem_u32(p) & 1023)) & 1023);
+}
+
+__device__ __forceinline__ float ln_one(float v, float mu, float rs, float g, float b) {
+  return __fmaf_rn(__fmul_rn(__fsub_rn(v, mu), rs), g, b);
+}
+
+// ---- LN1 over the computed rows ------------------------------------------------
+// One warp a row, rows strided over the grid. Each lane holds its 16-byte
+// chunks (lane, lane + 32, ...) of the row; the stats sum them in the order of
+// the D 192 K1a (per lane, then warp_sum), and h = bf16((x - mean) rstd g + b)
+// as the D 192 K2c's staging computes it (ln_one). K1a's pre-pass also writes
+// the zeros of its output's rows on the zero-filled tiles (zero_out, n_out
+// columns), so that its GEMM walks the computed rows alone.
+template <int K>
+__global__ void __launch_bounds__(256)
+ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
+               const float* __restrict__ beta, float eps, const float* __restrict__ mean_in,
+               const float* __restrict__ rstd_in, bf16* __restrict__ h,
+               float* __restrict__ mean_out, float* __restrict__ rstd_out,
+               bf16* __restrict__ zero_out, int n_out, const int* __restrict__ valid_len, int M,
+               int s_pad) {
+  constexpr int CHUNKS = K / 8;
+  constexpr int PER_LANE = (CHUNKS + 31) / 32;
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * (blockDim.x / 32);
+  for (int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32; row < M; row += warps) {
+    const int b = row / s_pad, local = row - b * s_pad;
+    if (local / ROW_TILE * ROW_TILE >= valid_len[b]) {  // a zero-filled tile: uniform
+      if (mean_out != nullptr && lane == 0) {
+        mean_out[row] = 0.f;
+        rstd_out[row] = 0.f;
+      }
+      if (zero_out != nullptr)
+        for (int c = lane; c < n_out / 8; c += 32)
+          *reinterpret_cast<uint4*>(zero_out + (size_t)row * n_out + c * 8) =
+              make_uint4(0, 0, 0, 0);
+      continue;
+    }
+    uint4 u[PER_LANE];
+#pragma unroll
+    for (int j = 0; j < PER_LANE; ++j) {
+      u[j] = make_uint4(0, 0, 0, 0);
+      if (lane + 32 * j < CHUNKS)
+        u[j] = *reinterpret_cast<const uint4*>(x + (size_t)row * K + (lane + 32 * j) * 8);
+    }
+    float mu, rs;
+    if (mean_in != nullptr) {
+      mu = mean_in[row];
+      rs = rstd_in[row];
+    } else {
+      float s = 0.f, ss = 0.f;
+#pragma unroll
+      for (int j = 0; j < PER_LANE; ++j) {
+        const uint32_t* uw = reinterpret_cast<const uint32_t*>(&u[j]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = unpack_bf16x2(uw[e]);
+          s += f.x + f.y;
+          ss += f.x * f.x + f.y * f.y;
+        }
+      }
+      s = warp_sum(s);
+      ss = warp_sum(ss);
+      mu = s / K;
+      rs = rsqrtf(fmaxf(ss / K - mu * mu, 0.f) + eps);
+      if (mean_out != nullptr && lane == 0) {
+        mean_out[row] = mu;
+        rstd_out[row] = rs;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < PER_LANE; ++j) {
+      const int c8 = (lane + 32 * j) * 8;
+      if (c8 >= K) continue;
+      float ga[8], ba[8];
+      *reinterpret_cast<float4*>(ga) = __ldg(reinterpret_cast<const float4*>(gamma + c8));
+      *reinterpret_cast<float4*>(ga + 4) = __ldg(reinterpret_cast<const float4*>(gamma + c8 + 4));
+      *reinterpret_cast<float4*>(ba) = __ldg(reinterpret_cast<const float4*>(beta + c8));
+      *reinterpret_cast<float4*>(ba + 4) = __ldg(reinterpret_cast<const float4*>(beta + c8 + 4));
+      uint32_t* uw = reinterpret_cast<uint32_t*>(&u[j]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = unpack_bf16x2(uw[e]);
+        uw[e] = pack_bf16x2(ln_one(f.x, mu, rs, ga[2 * e], ba[2 * e]),
+                            ln_one(f.y, mu, rs, ga[2 * e + 1], ba[2 * e + 1]));
+      }
+      *reinterpret_cast<uint4*>(h + (size_t)row * K + c8) = u[j];
+    }
+  }
+}
+
+template <int K>
+int ln_rows_launch(const bf16* x, const float* g, const float* beta, float eps,
+                   const float* mean_in, const float* rstd_in, bf16* h, float* mean_out,
+                   float* rstd_out, const int* valid_len, int M, int s_pad, cudaStream_t st,
+                   bf16* zero_out = nullptr, int n_out = 0) {
+  const int blocks = min((M + 7) / 8, 132 * 16);  // 8 warps a block
+  ln_rows_kernel<K><<<blocks, 256, 0, st>>>(x, g, beta, eps, mean_in, rstd_in, h, mean_out,
+                                            rstd_out, zero_out, n_out, valid_len, M, s_pad);
+  return (int)cudaGetLastError();
+}
+
+// ---- the computed rows as a list of units ----------------------------------------
+// The units of UNIT rows (32 or 64; s_pad a multiple of UNIT) that hold a
+// valid row, image by image: image i's first unit is list entry first[i],
+// first[bsz] the count. warp 0 of the block builds first[] in shared memory.
+template <int UNIT>
+__device__ __forceinline__ int units_of(int valid_len, int s_pad) {
+  return min(s_pad / UNIT, (max(valid_len, 0) + UNIT - 1) / UNIT);
+}
+
+template <int UNIT>
+__device__ void list_units(int* first, const int* valid_len, int bsz, int s_pad) {
+  const int lane = threadIdx.x & 31;
+  const int per = (bsz + 31) / 32, lo = min(bsz, lane * per), hi = min(bsz, lo + per);
+  int mine = 0;
+  for (int i = lo; i < hi; ++i) mine += units_of<UNIT>(valid_len[i], s_pad);
+  int incl = mine;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  int run = incl - mine;
+  for (int i = lo; i < hi; ++i) {
+    first[i] = run;
+    run += units_of<UNIT>(valid_len[i], s_pad);
+  }
+  if (lane == 31) first[bsz] = incl;
+}
+
+// first row of list entry idx (first[lo] <= idx < first[lo + 1])
+template <int UNIT>
+__device__ __forceinline__ int unit_row(const int* first, int bsz, int s_pad, int idx) {
+  int lo = 0, hi = bsz;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (first[mid] <= idx) lo = mid;
+    else hi = mid;
+  }
+  return lo * s_pad + (idx - first[lo]) * UNIT;
+}
+
+// ---- K1a: qkv = bf16(bf16(h Wqkv^T) + bqkv) --------------------------------------
+// A tile is two units of 64 rows (a warpgroup each, consecutive in the list,
+// so maybe of two images) by 256 of the 2304 columns: a persistent grid walks
+// the tiles of the computed units only, so every block gets the same share of
+// products; the rows of the zero-filled 32-row tiles are the pre-pass's.
+constexpr int LQ_K = D_WIDE, LQ_N = 3 * D_WIDE;
+constexpr int LQ_UNIT = 64;                         // rows of a unit: a warpgroup's
+constexpr int LQ_KT = LQ_K / BOX;                   // K slices of a tile
+constexpr int LQ_CT = LQ_N / TILE_N;                // column tiles
+constexpr int LQ_STAGES = 3;
+constexpr int LQ_HALF = LQ_UNIT * BOX * 2;          // a unit's rows of h, 64 K
+constexpr int LQ_A = 2 * LQ_HALF;
+constexpr int LQ_B = TILE_N * BOX * 2;              // 256 rows of W, 64 K
+constexpr int LQ_STAGE = LQ_A + LQ_B;
+// a warpgroup's output rows staged for 16-byte stores; rows of 264 bf16, so
+// that the eight rows of a fragment's store fall in different banks
+constexpr int LQ_OUT_LD = TILE_N + 8;
+constexpr int LQ_OUT = LQ_UNIT * LQ_OUT_LD * 2;
+constexpr int LQ_SMEM = LQ_STAGES * LQ_STAGE + CONSUMERS * LQ_OUT + 1024;
+// K1a's block: the two consumer warpgroups and a whole producer warpgroup
+// (one thread of it works), so that setmaxnreg can give the consumers 232
+// registers a thread and the producers 40: at the launch's 168 (65 536 over
+// three warpgroups) the staged epilogue spilled
+constexpr int LQ_THREADS = 128 * (CONSUMERS + 1);
+constexpr int GRID_MAX = 132;                       // the card's SMs: a block each
+
+__global__ void __launch_bounds__(LQ_THREADS, 1)
+ln_linear_wgmma_kernel(const __grid_constant__ CUtensorMap h_map,
+                       const __grid_constant__ CUtensorMap w_map, const bf16* __restrict__ bias,
+                       bf16* __restrict__ out, const int* __restrict__ valid_len, int M,
+                       int s_pad, int bsz) {
+  __shared__ int first[MAX_IMAGES + 1];  // index of each image's first computed unit
+  __shared__ __align__(8) uint64_t full[LQ_STAGES], empty[LQ_STAGES];
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align_1024(smem_raw);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  if (warp == 0) list_units<LQ_UNIT>(first, valid_len, bsz, s_pad);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < LQ_STAGES; ++s) {
+      wg::mbar_init(&full[s], 1);
+      wg::mbar_init(&empty[s], RELEASES);
+    }
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+  const int units = first[bsz], tiles = (units + 1) / 2 * LQ_CT;
+
+  if (warp >= PRODUCER_WARP) {  // one thread keeps the ring's loads in flight
+    wg::setmaxnreg_dec<40>();
+    if (warp == PRODUCER_WARP && lane == 0) {
+      wg::tma_prefetch(&h_map);
+      wg::tma_prefetch(&w_map);
+      int it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int p = t / LQ_CT, n0 = t % LQ_CT * TILE_N;
+        // the tile's two units; an odd last one pairs with rows past M (zeros)
+        const int ra = unit_row<LQ_UNIT>(first, bsz, s_pad, 2 * p);
+        const int rb = 2 * p + 1 < units ? unit_row<LQ_UNIT>(first, bsz, s_pad, 2 * p + 1) : M;
+        for (int kt = 0; kt < LQ_KT; ++kt, ++it) {
+          const int s = it % LQ_STAGES;
+          wg::mbar_wait(&empty[s], ((it / LQ_STAGES) & 1) ^ 1);
+          unsigned char* st = ring + s * LQ_STAGE;
+          wg::mbar_expect_tx(&full[s], LQ_STAGE);
+          wg::tma_load_2d(st, &h_map, &full[s], kt * BOX, ra);
+          wg::tma_load_2d(st + LQ_HALF, &h_map, &full[s], kt * BOX, rb);
+          wg::tma_load_2d(st + LQ_A, &w_map, &full[s], kt * BOX, n0);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wgi owns unit 2 p + wgi of tile p's pair
+  wg::setmaxnreg_inc<232>();
+  const int wgi = warp / 4, q = warp % 4;
+  const int g = lane >> 2, tq = lane & 3;
+  float acc[128];
+  int it = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int unit = t / LQ_CT * 2 + wgi, n0 = t % LQ_CT * TILE_N;
+    for (int kt = 0; kt < LQ_KT; ++kt, ++it) {
+      const int s = it % LQ_STAGES;
+      wg::mbar_wait(&full[s], (it / LQ_STAGES) & 1);
+      const unsigned char* a = ring + s * LQ_STAGE + wgi * LQ_HALF;
+      const unsigned char* b = ring + s * LQ_STAGE + LQ_A;
+      wg::fence_operand(acc);
+      wg::fence();
+#pragma unroll
+      for (int j = 0; j < BOX / 16; ++j)  // k16 steps: 32 bytes along the swizzled rows
+        wg::mma_m64n256k16<0, 0>(acc, wg::desc_sw128(a + 32 * j, 16, 1024),
+                                 wg::desc_sw128(b + 32 * j, 16, 1024), (kt | j) != 0);
+      wg::commit();
+      wg::fence_operand(acc);
+      if (kt > 0) {  // the previous slice's products are done: its stage is free
+        wg::wait<1>();
+        if (lane == 0) wg::mbar_arrive(&empty[(it - 1) % LQ_STAGES]);
+      }
+    }
+    wg::wait<0>();
+    if (lane == 0) wg::mbar_arrive(&empty[(it - 1) % LQ_STAGES]);
+    wg::fence_operand(acc);
+    if (unit >= units) continue;  // the odd last tile's empty half
+
+    // epilogue: sums -> bf16 -> + bias -> bf16, staged in shared memory, then
+    // stored 16 bytes a thread on the rows of the unit's computed 32-row tiles
+    // (the pre-pass wrote the others' zeros)
+    bf16* staged = reinterpret_cast<bf16*>(ring + LQ_STAGES * LQ_STAGE + wgi * LQ_OUT);
+    wg::bar_sync(1 + wgi, 128);  // the warpgroup is done with its previous tile's rows
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int rl = 16 * q + g + 8 * hh;
+#pragma unroll
+      for (int j = 0; j < TILE_N / 8; ++j) {
+        const float2 bb = unpack_bf16x2(
+            __ldg(reinterpret_cast<const unsigned int*>(bias + n0 + 8 * j + 2 * tq)));
+        *reinterpret_cast<uint32_t*>(staged + rl * LQ_OUT_LD + 8 * j + 2 * tq) =
+            pack_bf16x2(rnd<bf16>(rnd<bf16>(acc[4 * j + 2 * hh]) + bb.x),
+                        rnd<bf16>(rnd<bf16>(acc[4 * j + 2 * hh + 1]) + bb.y));
+      }
+    }
+    wg::bar_sync(1 + wgi, 128);
+    const int r0 = unit_row<LQ_UNIT>(first, bsz, s_pad, unit);
+    const int img = r0 / s_pad;
+    const int live = min(LQ_UNIT, (valid_len[img] - (r0 - img * s_pad) + ROW_TILE - 1) /
+                                      ROW_TILE * ROW_TILE);
+    for (int c = threadIdx.x % 128; c < live * (TILE_N / 8) && STORE; c += 128) {
+      const int r = c / (TILE_N / 8), ch = c % (TILE_N / 8);
+      *reinterpret_cast<uint4*>(out + (size_t)(r0 + r) * LQ_N + n0 + ch * 8) =
+          *reinterpret_cast<const uint4*>(staged + r * LQ_OUT_LD + ch * 8);
+    }
+  }
+}
+
+// ---- K2c: dW = dY^T X', db = colsum dY ----------------------------------------------
+constexpr int WQ_STAGES = 4;
+constexpr int WQ_UNIT = 2 * ROW_TILE;               // rows of a unit: two computed 32-row tiles
+constexpr int WQ_CHUNK = WQ_UNIT * BOX * 2;         // 64 rows of 64 features
+constexpr int WQ_A = (TILE_M / BOX) * WQ_CHUNK;     // dY: the tile's 128 columns
+constexpr int WQ_B = (TILE_N / BOX) * WQ_CHUNK;     // X': the tile's 256 columns
+constexpr int WQ_STAGE = WQ_A + WQ_B;
+constexpr int WQ_SMEM = WQ_STAGES * WQ_STAGE + 1024;
+constexpr int WQ_SLOT = TILE_M * TILE_N + TILE_M;   // floats of a partial: the dW tile, then db
+
+__global__ void __launch_bounds__(WG_THREADS, 1)
+linear_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap dy_map,
+                          const __grid_constant__ CUtensorMap x_map, float* __restrict__ partial,
+                          const int* __restrict__ valid_len, int M, int N, int K, int s_pad,
+                          int bsz) {
+  __shared__ int first[MAX_IMAGES + 1];  // index of each image's first computed tile
+  __shared__ __align__(8) uint64_t full[WQ_STAGES], empty[WQ_STAGES];
+  __shared__ __align__(128) bf16 ones[256];  // the B operand of db = dY^T 1
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align_1024(smem_raw);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+
+  // the list of computed tiles, image by image
+  if (warp == 0) list_units<ROW_TILE>(first, valid_len, bsz, s_pad);
+  for (int i = threadIdx.x; i < 256; i += WG_THREADS) ones[i] = __float2bfloat16(1.f);
+  wg::fence_proxy_async();  // the ones, written by plain stores, are read by wgmma
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WQ_STAGES; ++s) {
+      wg::mbar_init(&full[s], 1);
+      wg::mbar_init(&empty[s], RELEASES);
+    }
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // this block's share of the units (tile-major): [ub, ue) of T * C
+  const int n32 = first[bsz], units = (n32 + 1) / 2;  // C: units of a tile
+  const int ktiles = K / TILE_N;
+  const long long total = (long long)(N / TILE_M) * ktiles * units;
+  const int ub = (int)(blockIdx.x * total / gridDim.x);
+  const int ue = (int)((blockIdx.x + 1) * total / gridDim.x);
+
+  if (warp == PRODUCER_WARP) {
+    if (lane == 0) {
+      wg::tma_prefetch(&dy_map);
+      wg::tma_prefetch(&x_map);
+      auto tile_row = [&](int idx) { return unit_row<ROW_TILE>(first, bsz, s_pad, idx); };
+      for (int u = ub, it = 0; u < ue; ++u, ++it) {
+        const int t = u / units, c = u % units;
+        const int n0 = t / ktiles * TILE_M, k0 = t % ktiles * TILE_N;
+        // the unit's two tiles; an odd last one pairs with rows past M (zeros)
+        const int ra = tile_row(2 * c), rb = 2 * c + 1 < n32 ? tile_row(2 * c + 1) : M;
+        const int s = it % WQ_STAGES;
+        wg::mbar_wait(&empty[s], ((it / WQ_STAGES) & 1) ^ 1);
+        unsigned char* st = ring + s * WQ_STAGE;
+        wg::mbar_expect_tx(&full[s], WQ_STAGE);
+#pragma unroll
+        for (int ch = 0; ch < TILE_M / BOX; ++ch) {
+          wg::tma_load_2d(st + ch * WQ_CHUNK, &dy_map, &full[s], n0 + ch * BOX, ra);
+          wg::tma_load_2d(st + ch * WQ_CHUNK + WQ_CHUNK / 2, &dy_map, &full[s], n0 + ch * BOX, rb);
+        }
+#pragma unroll
+        for (int ch = 0; ch < TILE_N / BOX; ++ch) {
+          wg::tma_load_2d(st + WQ_A + ch * WQ_CHUNK, &x_map, &full[s], k0 + ch * BOX, ra);
+          wg::tma_load_2d(st + WQ_A + ch * WQ_CHUNK + WQ_CHUNK / 2, &x_map, &full[s],
+                          k0 + ch * BOX, rb);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wgi owns dW rows 64 wgi .. 64 wgi + 63 of the tile
+  const int wgi = warp / 4, q = warp % 4;
+  const int g = lane >> 2, tq = lane & 3;
+  float acc[128], dbacc[4];
+  int it = 0;
+  for (int u = ub; u < ue;) {  // a segment: this block's units of tile t
+    const int t = u / units, k0 = t % ktiles * TILE_N;
+    const int seg_end = min(ue, (t + 1) * units);
+    for (int v = u; v < seg_end; ++v, ++it) {
+      const int s = it % WQ_STAGES;
+      wg::mbar_wait(&full[s], (it / WQ_STAGES) & 1);
+      const unsigned char* a = ring + s * WQ_STAGE + wgi * WQ_CHUNK;
+      const unsigned char* b = ring + s * WQ_STAGE + WQ_A;
+      wg::fence_operand(acc);
+      wg::fence_operand(dbacc);
+      wg::fence();
+#pragma unroll
+      for (int j = 0; j < WQ_UNIT / 16; ++j) {  // k16 steps: 16 rows, 2048 bytes down the chunks
+        const int keep = v > u || j > 0;
+        const uint64_t da = wg::desc_sw128(a + 2048 * j, WQ_CHUNK, 1024);
+        wg::mma_m64n256k16<1, 1>(acc, da, wg::desc_sw128(b + 2048 * j, WQ_CHUNK, 1024), keep);
+        wg::mma_m64n8k16<1, 0>(dbacc, da, wg::desc_plain(ones, 128, 256), keep);
+      }
+      wg::commit();
+      wg::fence_operand(acc);
+      wg::fence_operand(dbacc);
+      if (v > u) {  // the previous unit's products are done: its stage is free
+        wg::wait<1>();
+        if (lane == 0) wg::mbar_arrive(&empty[(it - 1) % WQ_STAGES]);
+      }
+    }
+    wg::wait<0>();
+    if (lane == 0) wg::mbar_arrive(&empty[(it - 1) % WQ_STAGES]);
+    wg::fence_operand(acc);
+    wg::fence_operand(dbacc);
+    u = seg_end;
+
+    // the segment's partial into slot t + block
+    float* p = partial + (size_t)(t + blockIdx.x) * WQ_SLOT;
+#pragma unroll
+    for (int hh = 0; hh < 2 && STORE; ++hh) {
+      const int rl = 64 * wgi + 16 * q + g + 8 * hh;
+#pragma unroll
+      for (int j = 0; j < TILE_N / 8; ++j)
+        *reinterpret_cast<float2*>(p + (size_t)rl * TILE_N + 8 * j + 2 * tq) =
+            make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+    }
+    if (k0 == 0 && tq == 0 && STORE) {  // every column of the ones product holds the sum
+      p[TILE_M * TILE_N + 64 * wgi + 16 * q + g] = dbacc[0];
+      p[TILE_M * TILE_N + 64 * wgi + 16 * q + g + 8] = dbacc[2];
+    }
+  }
+}
+
+// dwb (N K + N) = each tile's segment partials added in block order: four
+// outputs a thread. A tile's units [t C, t C + C) lie in the shares of blocks
+// b(t C) .. b(t C + C - 1), b(u) = ((u + 1) G - 1) / U the block whose share
+// holds unit u; blocks with an empty share are skipped.
+__global__ void __launch_bounds__(256)
+reduce_stream_kernel(const float* __restrict__ partial, float* __restrict__ dwb,
+                     const int* __restrict__ valid_len, int N, int K, int s_pad, int bsz,
+                     int blocks) {
+  __shared__ int n32;
+  if (threadIdx.x < 32) {
+    int n = 0;
+    for (int i = threadIdx.x; i < bsz; i += 32) n += units_of<ROW_TILE>(valid_len[i], s_pad);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(0xffffffffu, n, o);
+    if (threadIdx.x == 0) n32 = n;
+  }
+  __syncthreads();
+  const int e = 4 * (blockIdx.x * 256 + threadIdx.x);
+  if (e >= N * K + N) return;
+  const int ktiles = K / TILE_N;
+  int t, off;
+  if (e < N * K) {
+    const int n = e / K, k = e % K;
+    t = n / TILE_M * ktiles + k / TILE_N;
+    off = n % TILE_M * TILE_N + k % TILE_N;
+  } else {
+    const int n = e - N * K;
+    t = n / TILE_M * ktiles;
+    off = TILE_M * TILE_N + n % TILE_M;
+  }
+  const long long C = (n32 + 1) / 2, G = blocks;
+  const long long U = (long long)(N / TILE_M) * ktiles * C;
+  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (U > 0) {
+    const int bf = (int)(((t * C + 1) * G - 1) / U), bl = (int)(((t * C + C) * G - 1) / U);
+    for (int b = bf; b <= bl; ++b) {
+      if (b * U / G == (b + 1) * U / G) continue;  // a block with no units
+      const float4 v = *reinterpret_cast<const float4*>(partial + (size_t)(t + b) * WQ_SLOT + off);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+  }
+  *reinterpret_cast<float4*>(dwb + e) = sum;
+}
+
+bool rows_ok_wgmma(int M, int s_pad) {
+  return M > 0 && s_pad > 0 && s_pad % ROW_TILE == 0 && M % s_pad == 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// h (M, K) bf16 = LN(x) on the rows of the 32-row tiles that hold a valid
+// row (the others are not written), x (M, K) bf16, K 192 or 768, g and beta
+// (K,) f32. With mean_in and rstd_in (M,) f32 the row stats are read; else
+// they are taken and, where mean_out and rstd_out are not null, written
+// (zeros on the zero-filled tiles). s_pad a multiple of 32.
+int ln_rows_bf16(const bf16* x, const float* g, const float* beta, float eps,
+                 const float* mean_in, const float* rstd_in, bf16* h, float* mean_out,
+                 float* rstd_out, const int* valid_len, int M, int K, int s_pad, void* stream) {
+  if (!rows_ok_wgmma(M, s_pad) || !is_width(K) || (mean_in == nullptr) != (rstd_in == nullptr) ||
+      (mean_out == nullptr) != (rstd_out == nullptr) ||
+      (mean_in != nullptr && mean_out != nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K == D_WIDE)
+    return ln_rows_launch<D_WIDE>(x, g, beta, eps, mean_in, rstd_in, h, mean_out, rstd_out,
+                                  valid_len, M, s_pad, st);
+  return ln_rows_launch<D_MODEL>(x, g, beta, eps, mean_in, rstd_in, h, mean_out, rstd_out,
+                                 valid_len, M, s_pad, st);
+}
+
+// K1a at D 768: x (M, 768), w (2304, 768), bias (2304,), out (M, 2304), bf16;
+// g and beta (768,) f32; h (M, 768) bf16 scratch (LN1(x)). mean_out and
+// rstd_out (M,) f32 get the LN1 row stats when not null (both or neither);
+// zeros on the zero-filled tiles. s_pad a multiple of 64, at most 1024
+// images; every pointer 16-byte aligned (the tensor maps').
+int ln_linear_fwd_wgmma_bf16(const bf16* x, const float* g, const float* beta, float eps,
+                             const bf16* w, const bf16* bias, bf16* out, float* mean_out,
+                             float* rstd_out, bf16* h, const int* valid_len, int M, int K, int N,
+                             int s_pad, void* stream) {
+  if (!rows_ok_wgmma(M, s_pad) || s_pad % LQ_UNIT || M / s_pad > MAX_IMAGES || K != LQ_K ||
+      N != LQ_N || (mean_out == nullptr) != (rstd_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int e = ln_rows_launch<D_WIDE>(x, g, beta, eps, nullptr, nullptr, h, mean_out, rstd_out,
+                                 valid_len, M, s_pad, st, out, N);
+  if (e != 0) return e;
+  CUtensorMap h_map, w_map;
+  if ((e = wg::make_map_2d(&h_map, h, K, M, (uint64_t)K * 2, BOX, LQ_UNIT)) != 0) return e;
+  if ((e = wg::make_map_2d(&w_map, w, K, N, (uint64_t)K * 2, BOX, TILE_N)) != 0) return e;
+  e = (int)cudaFuncSetAttribute(ln_linear_wgmma_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, LQ_SMEM);
+  if (e != 0) return e;
+  const int most = (M / LQ_UNIT + 1) / 2 * LQ_CT;  // the tiles if every row were computed
+  ln_linear_wgmma_kernel<<<min(most, GRID_MAX), LQ_THREADS, LQ_SMEM, st>>>(
+      h_map, w_map, bias, out, valid_len, M, s_pad, M / s_pad);
+  return (int)cudaGetLastError();
+}
+
+// K2c at D 768: dy (M, N), x (M, K) bf16 at the four weight shapes (N, K) of
+// a D 768 layer; dwb (N K + N,) f32 = dW (N, K) row-major, then db (N,). With
+// mean (the QKV site, K 768), x is layer-normed with mean, rstd, g, beta (f32)
+// into h (M, K) bf16 scratch first. partial: (tiles + blocks - 1, 128 x 256 +
+// 128) f32 scratch, tiles = N / 128 x K / 256; blocks the grid (1..1024,
+// ops/fused_block.py::WGRAD_WGMMA_BLOCKS). s_pad a multiple of 32.
+int linear_wgrad_wgmma_bf16(const bf16* dy, const bf16* x, const float* mean, const float* rstd,
+                            const float* g, const float* beta, bf16* h, float* partial,
+                            float* dwb, const int* valid_len, int M, int N, int K, int s_pad,
+                            int blocks, void* stream) {
+  if (!rows_ok_wgmma(M, s_pad) || M / s_pad > MAX_IMAGES || blocks < 1 || blocks > 1024 ||
+      !is_weight_shape_at(N, K, D_WIDE) || (mean != nullptr && (K != D_WIDE || h == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int bsz = M / s_pad;
+  int e;
+  const bf16* xs = x;
+  if (mean != nullptr) {
+    if ((e = ln_rows_launch<D_WIDE>(x, g, beta, 0.f, mean, rstd, h, nullptr, nullptr, valid_len,
+                                    M, s_pad, st)) != 0)
+      return e;
+    xs = h;
+  }
+  CUtensorMap dy_map, x_map;
+  if ((e = wg::make_map_2d(&dy_map, dy, N, M, (uint64_t)N * 2, BOX, ROW_TILE)) != 0) return e;
+  if ((e = wg::make_map_2d(&x_map, xs, K, M, (uint64_t)K * 2, BOX, ROW_TILE)) != 0) return e;
+  e = (int)cudaFuncSetAttribute(linear_wgrad_wgmma_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, WQ_SMEM);
+  if (e != 0) return e;
+  linear_wgrad_wgmma_kernel<<<blocks, WG_THREADS, WQ_SMEM, st>>>(dy_map, x_map, partial,
+                                                                 valid_len, M, N, K, s_pad, bsz);
+  if ((e = (int)cudaGetLastError()) != 0) return e;
+  const int n_out4 = (N * K + N) / 4;
+  reduce_stream_kernel<<<(n_out4 + 255) / 256, 256, 0, st>>>(partial, dwb, valid_len, N, K, s_pad,
+                                                              bsz, blocks);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -3,7 +3,10 @@
 Every ``csrc/*.cu`` is compiled by its own ``nvcc -c``, all started together,
 and one more ``nvcc`` links the objects into one shared library with a plain C
 interface, loaded with :mod:`ctypes`. No PyTorch header, no CUTLASS and no
-``torch.utils.cpp_extension`` take part, so a cold build takes seconds. The
+``torch.utils.cpp_extension`` take part, so a cold build takes seconds; the
+wgmma kernels' TMA tensor maps are encoded through the runtime's
+``cudaGetDriverEntryPoint`` (``csrc/wgmma_bf16.cuh``), so the link needs no
+``-lcuda``. The
 library lands in ``chadavit_tpu_torch/_build/<hash>/``, keyed by a hash of the
 sources, the headers and the flags (``.gitignore`` lists ``_build/``), and is
 built at first use, never at import.
@@ -53,6 +56,15 @@ SIGNATURES = {
 }
 # the bf16 instance of each kernel: the same arguments, bf16 activations
 SIGNATURES.update({f"{name}_bf16": argtypes for name, argtypes in list(SIGNATURES.items())})
+# bf16 only: the wgmma kernels of ChAdaViT-B/16's K1a and K2c and their LN1
+# pre-pass (csrc/linear_wgmma_bf16.cu), each with the pre-pass's h scratch
+SIGNATURES.update({
+    "ln_rows_bf16": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ln_linear_fwd_wgmma_bf16": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _P],
+    "linear_wgrad_wgmma_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _P],
+})
 
 _lib = None
 

@@ -85,15 +85,16 @@ WIDTHS = {192: 2048, 768: 2048}
 # ChAdaViT-moyen's widths: launches at D_MODEL keep the entry point's name
 D_MODEL = 192
 D_FFN = 2048
+# ChAdaViT-B/16's width, where the bfloat16 K1a and K2c are wgmma kernels
+D_WIDE = 768
 # The bfloat16 ln_linear / linear_relu / linear_residual_ln / linear_dgrad /
 # linear_wgrad are tensor-core kernels (csrc/linear_fwd_bf16.cu,
-# csrc/linear_bwd_bf16.cu) that copy 16 bytes at a time. The first four own
-# 64-row blocks, so s_pad must be a multiple of 64 (the chain pads to
-# SEQ_PAD); wgrad's grid is its output tiles (the (TN, TK) of each weight
-# shape (N, K) below, as the kernel has them) times a number of splits of the
-# rows that fills the card's 132 SMs once. The tiles are those of D 192 at
-# both widths (192 of the D-wide side, the whole of it at D 192): at D 768
-# the grid holds four times as many.
+# csrc/linear_bwd_bf16.cu; K1a and K2c at D 768 csrc/linear_wgmma_bf16.cu)
+# that copy 16 bytes at a time. The first four own 64-row blocks, so s_pad
+# must be a multiple of 64 (the chain pads to SEQ_PAD). At D 192 wgrad's grid
+# is its output tiles (the (TN, TK) of each weight shape (N, K) below, as the
+# kernel has them) times a number of splits of the rows that fills the card's
+# 132 SMs once.
 BF16_GEMM_ROWS = 64
 
 
@@ -102,12 +103,19 @@ def _weight_shapes(d: int, f: int, qkv, square, ffn1, ffn2) -> dict:
     return {(3 * d, d): qkv, (d, d): square, (f, d): ffn1, (d, f): ffn2}
 
 
-# (the QKV weight at D 768 takes FFN1's 128-row tiles: its 144 of 64 rows would
-# be more blocks than SMs)
-WGRAD_BF16_TILES = {k: v for d, f in WIDTHS.items() for k, v in _weight_shapes(
-    d, f, (64 if d == D_MODEL else 128, D_MODEL), (64, D_MODEL), (128, D_MODEL),
-    (D_MODEL, 128)).items()}
+WGRAD_BF16_TILES = _weight_shapes(D_MODEL, D_FFN, (64, D_MODEL), (64, D_MODEL), (128, D_MODEL),
+                                  (D_MODEL, 128))
 WGRAD_BF16_BLOCKS = 132
+# At D 768 the bfloat16 linear_wgrad is a stream-K walk (csrc/linear_wgmma_bf16.cu):
+# 128 x 256 output tiles, the units of every tile (WGRAD_WGMMA_UNIT rows: two
+# computed 32-row tiles) cut into WGRAD_WGMMA_BLOCKS near-equal shares in
+# tile-major order, one block each; the partial of each tile segment lands in
+# slot tile + block (wgrad_stream_plan), so the scratch holds tiles +
+# WGRAD_WGMMA_BLOCKS - 1 slots whatever the batch, and a second pass adds
+# each tile's slots in block order (wgrad_stream_fixups).
+WGRAD_WGMMA_TILES = _weight_shapes(D_WIDE, WIDTHS[D_WIDE], *((128, 256),) * 4)
+WGRAD_WGMMA_UNIT = 2 * ROW_BLOCK
+WGRAD_WGMMA_BLOCKS = 132
 # The float32 linear_wgrad (CUDA cores, csrc/fused_block_bwd.cu) takes the same
 # plan with tiles of its own: 192 of the D-wide side of dW and 64 of the
 # other (6 warps of 32 x 64 outputs), two blocks an SM, so the splits fill
@@ -233,6 +241,23 @@ def ln_linear_reference(x, g, b, eps, w, bias, valid_len=None, save: bool = Fals
     return (out, mu[..., 0], rstd[..., 0]) if save else out
 
 
+def layernorm_rows_reference(x, g, b, valid_len, eps: float = 1e-5, stats=None):
+    """The LN1 pre-pass of the bfloat16 K1a and K2c at D 768:
+    ``h = LN(x)`` rounded to x's dtype (the h of :func:`ln_linear_reference`)
+    on the rows the forward computes (:func:`computed_rows`), zeros on the
+    others; the row stats taken here, or given as ``stats = (mean, rstd)``
+    ``(B, S)`` each. Returns ``(h, mean, rstd)``; stats it takes are zeros on
+    the zero-filled tiles."""
+    ok = computed_rows(x, valid_len)
+    if stats is None:
+        mu, rstd = layernorm_stats(x, eps)
+        mu, rstd = torch.where(ok, mu, 0.0)[..., 0], torch.where(ok, rstd, 0.0)[..., 0]
+    else:
+        mu, rstd = stats
+    h = torch.where(ok, _ln(x, mu[..., None], rstd[..., None], g, b), 0.0).to(x.dtype)
+    return h, mu, rstd
+
+
 def linear_relu_reference(x, w, bias, valid_len=None):
     """``relu(x @ w^T + bias)``."""
     return torch.relu(_mm(x, w) + bias)
@@ -350,12 +375,20 @@ def _library_fn(name: str, dtype: torch.dtype):
     return full, getattr(_build.library(), full)
 
 
+def _wgmma(dtype: torch.dtype, d: int) -> bool:
+    """True where a step's bfloat16 kernel at width ``d`` is the wgmma one
+    (K1a and K2c at D 768, csrc/linear_wgmma_bf16.cu)."""
+    return dtype == torch.bfloat16 and d == D_WIDE
+
+
 def ln_linear(x, g, b, eps: float, w, bias, valid_len, save: bool = False):
     """``LN(x) @ w^T + bias`` (kernel ``ln_linear_fwd`` on CUDA; in
     bfloat16 on the tensor cores, S a multiple of :data:`BF16_GEMM_ROWS` and
-    x, w, bias 16-byte aligned); with ``save`` also the LN row mean and rstd.
-    x, w and bias of one dtype (float32 or bfloat16), g and b float32.
-    Forward only: raises where autograd would record the call."""
+    x, w, bias 16-byte aligned; at D 768 in bfloat16 ``ln_linear_fwd_wgmma_bf16``,
+    whose LN1 pre-pass writes h into a scratch of x's shape that the GEMM
+    reads by TMA); with ``save`` also the LN row mean and rstd. x, w and bias
+    of one dtype (float32 or bfloat16), g and b float32. Forward only: raises
+    where autograd would record the call."""
     _launch.refuse_grad("ln_linear", x, g, b, w, bias)
     if _launch.on_cpu(x, g, b, w, bias, valid_len):
         return ln_linear_reference(x, g, b, eps, w, bias, valid_len, save)
@@ -369,16 +402,50 @@ def ln_linear(x, g, b, eps: float, w, bias, valid_len, save: bool = False):
     out = torch.empty((bsz, s, n), dtype=dt, device=x.device)
     mean, rstd = _stats_out(save, bsz, s, x)
     name, fn = _library_fn("ln_linear_fwd", dt)
-    status = fn(
-        _launch.vector_operand(x, "x", dt, tc), _launch.vector_operand(g, "g"),
-        _launch.vector_operand(b, "b"), eps, _launch.vector_operand(w, "w", dt, tc),
-        _launch.vector_operand(bias, "bias", dt, tc),
-        _launch.vector_operand(out, "out", dt, tc),
-        _ptr(mean), _ptr(rstd), _launch.valid_len_operand(valid_len, bsz, x.device),
-        bsz * s, k, n, s, _launch.stream(x.device))
+    args = [_launch.vector_operand(x, "x", dt, tc), _launch.vector_operand(g, "g"),
+            _launch.vector_operand(b, "b"), eps, _launch.vector_operand(w, "w", dt, tc),
+            _launch.vector_operand(bias, "bias", dt, tc),
+            _launch.vector_operand(out, "out", dt, tc), _ptr(mean), _ptr(rstd)]
+    if _wgmma(dt, d):
+        fn = _build.library().ln_linear_fwd_wgmma_bf16
+        h = torch.empty_like(x)  # the pre-pass's scratch, held until the launch is queued
+        args.append(h.data_ptr())
+    status = fn(*args, _launch.valid_len_operand(valid_len, bsz, x.device), bsz * s, k, n, s,
+                _launch.stream(x.device))
     _build.check(status, name)
     _launch.counted(instance(name, d))
     return (out, mean, rstd) if save else out
+
+
+def layernorm_rows(x, g, b, valid_len, eps: float = 1e-5, stats=None):
+    """The LN1 pre-pass of the bfloat16 K1a and K2c at D 768 on its own
+    (kernel ``ln_rows_bf16``, bfloat16 x of width 192 or 768, 16-byte
+    aligned): ``(h, mean, rstd)`` as :func:`layernorm_rows_reference`, the
+    stats taken by the kernel or given as ``stats = (mean, rstd)`` (then
+    returned as they are)."""
+    if _launch.on_cpu(x, g, b, valid_len):
+        return layernorm_rows_reference(x, g, b, valid_len, eps, stats)
+    d = _built_width("layernorm_rows", x.shape[-1])
+    if x.dim() != 3 or x.shape[1] % ROW_BLOCK or g.shape != (d,) or b.shape != (d,):
+        raise ValueError(f"layernorm_rows: x {tuple(x.shape)} (S a multiple of {ROW_BLOCK}), "
+                         f"g {tuple(g.shape)}, b {tuple(b.shape)}")
+    bsz, s, _ = x.shape
+    h = torch.zeros_like(x)  # the kernel writes the computed rows only
+    if stats is None:
+        mean, rstd = _stats_out(True, bsz, s, x)
+        ins, outs = (None, None), (mean.data_ptr(), rstd.data_ptr())
+    else:
+        mean, rstd = stats
+        ins, outs = (_row_stats("mean", mean, bsz, s), _row_stats("rstd", rstd, bsz, s)), (None,
+                                                                                           None)
+    status = _build.library().ln_rows_bf16(
+        _launch.vector_operand(x, "x", torch.bfloat16, 16), _launch.vector_operand(g, "g"),
+        _launch.vector_operand(b, "b"), eps, *ins, h.data_ptr(), *outs,
+        _launch.valid_len_operand(valid_len, bsz, x.device), bsz * s, d, s,
+        _launch.stream(x.device))
+    _build.check(status, "ln_rows_bf16")
+    _launch.counted("ln_rows_bf16")
+    return h, mean, rstd
 
 
 def linear_relu(x, w, bias, valid_len):
@@ -564,7 +631,8 @@ def linear_dgrad(dy, w, valid_len, relu_of=None, residual=None):
     return out
 
 
-_WGRAD_SHAPES = set(WGRAD_BF16_TILES)  # the four weight shapes of a layer of each width
+# the four weight shapes of a layer of each width
+_WGRAD_SHAPES = set(WGRAD_BF16_TILES) | set(WGRAD_WGMMA_TILES)
 
 
 def wgrad_splits(bsz: int, s_pad: int, n: int, k: int, dtype=torch.bfloat16) -> int:
@@ -584,6 +652,59 @@ def wgrad_splits(bsz: int, s_pad: int, n: int, k: int, dtype=torch.bfloat16) -> 
     return max(1, min(most, bsz * s_pad // ROW_BLOCK))
 
 
+def wgrad_stream_tiles(n: int, k: int) -> int:
+    """Output tiles of the bfloat16 ``linear_wgrad`` at D 768 at weight
+    shape ``(n, k)`` (:data:`WGRAD_WGMMA_TILES`)."""
+    tn, tk = WGRAD_WGMMA_TILES[(n, k)]
+    return (n // tn) * (k // tk)
+
+
+def wgrad_stream_slots(n: int, k: int) -> int:
+    """Partial slots of the bfloat16 ``linear_wgrad`` at D 768: tiles +
+    :data:`WGRAD_WGMMA_BLOCKS` - 1, whatever the batch; each slot holds a
+    tile's partial dW and db, ``tn * tk + tn`` float32."""
+    return wgrad_stream_tiles(n, k) + WGRAD_WGMMA_BLOCKS - 1
+
+
+def wgrad_stream_plan(valid_len, s_pad: int, n: int, k: int) -> list:
+    """What each block of the bfloat16 ``linear_wgrad`` at D 768 sums, as its
+    kernel assigns it: the units (two computed 32-row tiles each, in the
+    order of :func:`wgrad_split_tiles`; an odd last tile alone) of every
+    output tile, tile-major, cut into :data:`WGRAD_WGMMA_BLOCKS` contiguous
+    shares, block b taking units ``[b U // G, (b + 1) U // G)`` of the U.
+    Per block, its segments in order: ``(tile, slot, first rows of the
+    32-row tiles it sums)``, slot = tile + b."""
+    rows = wgrad_split_tiles(valid_len, s_pad, 1)[0]
+    units = [rows[i:i + WGRAD_WGMMA_UNIT // ROW_BLOCK]
+             for i in range(0, len(rows), WGRAD_WGMMA_UNIT // ROW_BLOCK)]
+    blocks, total = WGRAD_WGMMA_BLOCKS, wgrad_stream_tiles(n, k) * len(units)
+    plan = []
+    for blk in range(blocks):
+        segments = []
+        for u in range(blk * total // blocks, (blk + 1) * total // blocks):
+            t = u // len(units)
+            if not segments or segments[-1][0] != t:
+                segments.append((t, t + blk, []))
+            segments[-1][2].extend(units[u % len(units)])
+        plan.append(segments)
+    return plan
+
+
+def wgrad_stream_fixups(tile: int, units: int, tiles: int) -> list:
+    """The slots the second pass of the bfloat16 ``linear_wgrad`` at D 768
+    adds, in order, for output ``tile`` of ``tiles`` when a tile has
+    ``units`` units, by its kernel's arithmetic: its units ``[tile C, tile C +
+    C)`` lie in the shares of blocks ``b(tile C) .. b(tile C + C - 1)``, b(u) =
+    ((u + 1) G - 1) // U, skipping blocks with no units."""
+    blocks, total = WGRAD_WGMMA_BLOCKS, tiles * units
+    if total == 0:
+        return []
+    lo = ((tile * units + 1) * blocks - 1) // total
+    hi = ((tile * units + units) * blocks - 1) // total
+    return [tile + b for b in range(lo, hi + 1)
+            if b * total // blocks < (b + 1) * total // blocks]
+
+
 def wgrad_split_tiles(valid_len, s_pad: int, splits: int) -> list:
     """The first rows of the 32-row tiles each split of ``linear_wgrad`` sums
     (both dtypes), as its kernel assigns them: the computed tiles
@@ -599,11 +720,13 @@ def wgrad_split_tiles(valid_len, s_pad: int, splits: int) -> list:
 def linear_wgrad(dy, x, valid_len, ln=None):
     """``(dW, db) = (dY^T X', colsum dY)`` in float32 over the rows the
     forward computed, with ``X' = LN(X)`` from ``ln = (mean, rstd, g, beta)``
-    applied as X is staged (kernel ``linear_wgrad`` on CUDA, at the layer's
-    four weight shapes only, its rows split by :func:`wgrad_splits`; in
-    bfloat16 on the tensor cores). dy and x of one dtype, 16-byte aligned;
-    the partial sums, their fixed-order reduce and the result are float32 for
-    both dtypes. See :func:`linear_wgrad_reference`."""
+    (kernel ``linear_wgrad`` on CUDA, at the layer's four weight shapes only).
+    At D 192 and in float32 X' is normed as X is staged and the rows split by
+    :func:`wgrad_splits`, in bfloat16 on the tensor cores; at D 768 in
+    bfloat16 ``linear_wgrad_wgmma_bf16`` takes LN1 in a pre-pass into a
+    scratch of x's shape and walks :func:`wgrad_stream_plan`. dy and x of one
+    dtype, 16-byte aligned; the partial sums, their fixed-order reduce and
+    the result are float32 for both dtypes. See :func:`linear_wgrad_reference`."""
     if _launch.on_cpu(dy, x, valid_len):
         return linear_wgrad_reference(dy, x, valid_len, ln)
     if dy.dim() != 3 or x.dim() != 3 or dy.shape[:2] != x.shape[:2] \
@@ -612,10 +735,16 @@ def linear_wgrad(dy, x, valid_len, ln=None):
                          "weight shape the kernel is built for")
     bsz, s, n = dy.shape
     k, dt = x.shape[2], dy.dtype
-    # both instances split the rows by a plan that does not grow with the batch
-    splits = wgrad_splits(bsz, s, n, k, dt)
+    wgmma = _wgmma(dt, _layer_width(n, k))
+    # every instance's partial sums are bounded whatever the batch
+    if wgmma:
+        tn, tk = WGRAD_WGMMA_TILES[(n, k)]
+        partial = torch.empty((wgrad_stream_slots(n, k), tn * tk + tn), dtype=torch.float32,
+                              device=dy.device)
+    else:
+        splits = wgrad_splits(bsz, s, n, k, dt)
+        partial = torch.empty((splits, n * k + n), dtype=torch.float32, device=dy.device)
     dwb = torch.empty(n * k + n, dtype=torch.float32, device=dy.device)
-    partial = torch.empty((splits, n * k + n), dtype=torch.float32, device=dy.device)
     if ln is None:
         ln_ptrs = (None,) * 4
     else:
@@ -626,16 +755,19 @@ def linear_wgrad(dy, x, valid_len, ln=None):
         ln_ptrs = (_row_stats("mean", mean, bsz, s), _row_stats("rstd", rstd, bsz, s),
                    _launch.vector_operand(g, "g"), _launch.vector_operand(b, "b"))
     name, fn = _library_fn("linear_wgrad", dt)
-    status = fn(
-        _rows("dy", dy, bsz, s, n, dt, 16), _rows("x", x, bsz, s, k, dt, 16), *ln_ptrs,
-        partial.data_ptr(), dwb.data_ptr(),
-        _launch.valid_len_operand(valid_len, bsz, dy.device), bsz * s, n, k, s, splits,
-        _launch.stream(dy.device))
+    operands = (_rows("dy", dy, bsz, s, n, dt, 16), _rows("x", x, bsz, s, k, dt, 16), *ln_ptrs)
+    vl = _launch.valid_len_operand(valid_len, bsz, dy.device)
+    if wgmma:
+        h = None if ln is None else torch.empty_like(x)  # the pre-pass's scratch
+        status = _build.library().linear_wgrad_wgmma_bf16(
+            *operands, _ptr(h), partial.data_ptr(), dwb.data_ptr(), vl, bsz * s, n, k, s,
+            WGRAD_WGMMA_BLOCKS, _launch.stream(dy.device))
+    else:
+        status = fn(*operands, partial.data_ptr(), dwb.data_ptr(), vl, bsz * s, n, k, s, splits,
+                    _launch.stream(dy.device))
     _build.check(status, name)
     _launch.counted(instance(name, _layer_width(n, k)))
     return dwb[:n * k].view(n, k), dwb[n * k:]
-
-
 
 
 # ------------------------------------------------------------- the layer ----

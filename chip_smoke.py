@@ -23,7 +23,8 @@ Phases, each printed with its elapsed seconds at its start and end:
 1. build: nvcc compiles csrc/*.cu (layernorm.cu among them), one process per
    source, into one library (cold build seconds); beside it, nvcc -Xptxas -v
    on csrc/linear_fwd_bf16.cu, csrc/linear_bwd_bf16.cu,
-   csrc/prefix_attention_bf16.cu, csrc/prefix_attention.cu,
+   csrc/linear_wgmma_bf16.cu (the wgmma K1a and K2c of ChAdaViT-B/16 and
+   their LN1 pre-pass), csrc/prefix_attention_bf16.cu, csrc/prefix_attention.cu,
    csrc/prefix_attention_bwd.cu, csrc/fused_block.cu, csrc/fused_block_bwd.cu
    and csrc/layernorm.cu prints the registers, shared memory and spills of
    the tensor-core kernels, of the float32 attention forward and of the
@@ -73,7 +74,8 @@ Phases, each printed with its elapsed seconds at its start and end:
    bfloat16 at B 8, S_pad 1408 (channels 1, 3, 5, 7, 2, 7, 4, 6) on each of
    BF16_SEEDS, float32 at S_pad 640 (channels 3, 1, 2, 3, 1, 2, 3, 2): phase
    2's check_chain at D 768 and phase 2's bounds, launches counted under the
-   _d768 names.
+   _d768 names (the bfloat16 K1a and K2c there are the wgmma kernels of
+   csrc/linear_wgmma_bf16.cu).
 3. the JAX fixtures: the depth-2, full-width model's CLS embeddings
    (tests/goldens/torch_port_cls_depth2.npz) and three DINO train steps of
    that backbone with the canonical head (tests/goldens/torch_port_dino_depth2.npz),
@@ -180,8 +182,13 @@ Phases, each printed with its elapsed seconds at its start and end:
    function (a yardstick the port never calls), its bound (ln_fwd and ln_bwd
    at the final norm's site, over every row: they take no valid_len), and
    the profiler's device time of every kernel of the calls (small calls
-   CUDA events time by the host's launch rate), each site on its own where
-   an entry point has several; ln_bwd also with the L2 cold (a buffer
+   CUDA events time by the host's launch rate) with each kernel's launches
+   per round in the trace, each site on its own where an entry point has
+   several; the D 768 rows also by CUDA events behind a 0.1 s spin of the
+   card (the device's time, free of the host's launch rate), and the layer
+   forward at D 768 beside its library layer; linear_wgrad's library call
+   is dW and db (at the QKV site of LN1(x)), the product alone printed
+   beside it; ln_bwd also with the L2 cold (a buffer
    larger than the 50 MB L2 written before each call); K3 and K4 run twice
    for the same bits; the whole layer forward and backward; the served
    batch and the train step, in both dtypes; the multicrop's device time per
@@ -371,7 +378,8 @@ CHAIN_ENTRIES = ("ln_linear_fwd", "linear_relu_fwd", "linear_residual_ln_fwd", "
 # phase 1: the layer chain's D 768 instances that must be among the kernels
 # built (demangled names, without the anonymous namespace)
 D768_KERNELS = [
-    "ln_linear_wide_bf16_kernel(", "linear_relu_bf16_kernel<768>(",
+    "ln_linear_wgmma_kernel(", "linear_wgrad_wgmma_kernel(", "ln_rows_kernel<768>(",
+    "reduce_stream_kernel(", "linear_relu_bf16_kernel<768>(",
     "linear_residual_ln_bf16_kernel<768, 4>(", "linear_residual_ln_bf16_kernel<2048, 4>(",
     "linear_dgrad_bf16_kernel<128, 768, 4, 1, false>(",
     "linear_dgrad_bf16_kernel<192, 768, 1, 0, false>(",
@@ -1283,6 +1291,7 @@ def main() -> int:
     fbb_cu = "chadavit_tpu_torch/csrc/fused_block_bwd.cu"
     tc_cu = "chadavit_tpu_torch/csrc/linear_bwd_bf16.cu"
     fwd_tc_cu = "chadavit_tpu_torch/csrc/linear_fwd_bf16.cu"
+    wgmma_cu = "chadavit_tpu_torch/csrc/linear_wgmma_bf16.cu"
     attn_cu = "chadavit_tpu_torch/csrc/prefix_attention.cu"
     attn_bwd_cu = "chadavit_tpu_torch/csrc/prefix_attention_bwd.cu"
     k1, k2 = "chadavit_tpu/ops/fused_block.py:91", "chadavit_tpu/ops/fused_block.py:211"
@@ -1328,6 +1337,9 @@ def main() -> int:
     for name in CHAIN_ENTRIES:
         for tag in ("", "_bf16"):
             instances[fused_block.instance(name + tag, D16)] = instances[name + tag]
+    for name in ("ln_linear_fwd_bf16", "linear_wgrad_bf16"):  # wgmma and TMA at D 768
+        wrapper, _, replaces, dt = instances[name]
+        instances[fused_block.instance(name, D16)] = (wrapper, wgmma_cu, replaces, dt)
     stats = {name: {"max_abs_err": 0.0} for name in instances}
 
     def reset_launches():
@@ -1346,7 +1358,8 @@ def main() -> int:
         # fused_block.cu, the two passes of layernorm_bwd (K2a) and of the
         # float32 linear_wgrad (K2c) and the float32 linear_dgrad (K2b) of
         # fused_block_bwd.cu, and the instances of ln_bwd (K6, layernorm.cu)
-        ptxas_sources = {fwd_tc_cu: (), tc_cu: (), attn_tc_cu: (), attn_cu: (), attn_bwd_cu: (),
+        ptxas_sources = {fwd_tc_cu: (), tc_cu: (), wgmma_cu: (), attn_tc_cu: (), attn_cu: (),
+                         attn_bwd_cu: (),
                          fb_cu: ("ln_linear", "linear_relu", "linear_residual_ln"),
                          fbb_cu: ("layernorm_bwd", "reduce_ln_splits", "linear_wgrad",
                                   "reduce_wgrad_splits", "linear_dgrad"),
@@ -1875,7 +1888,13 @@ def main() -> int:
                                  ("", torch.float32, (2 * TRAIN_B, 2 * TRAIN_BF16_B))):
             for seqs in batches:
                 scratch = []
-                for n, k in fused_block.WGRAD_BF16_TILES:
+                for n, k in fused_block.WGRAD_F32_TILES:  # every weight shape
+                    if dt == bf16 and (n, k) in fused_block.WGRAD_WGMMA_TILES:  # D 768
+                        tn, tk = fused_block.WGRAD_WGMMA_TILES[(n, k)]
+                        slots = fused_block.wgrad_stream_slots(n, k)
+                        scratch.append(f"({n}, {k}) {slots} stream-K slots "
+                                       f"{slots * (tn * tk + tn) * 4 / 1e6:.2f} MB")
+                        continue
                     splits = fused_block.wgrad_splits(seqs, s_max, n, k, dt)
                     scratch.append(f"({n}, {k}) {splits} splits "
                                    f"{splits * (n * k + n) * 4 / 1e6:.2f} MB")
@@ -2560,9 +2579,19 @@ def main() -> int:
             return lambda: torch.mm(dy_.reshape(-1, dy_.shape[-1]), wmat)
 
         def wgrad_library(args, kwargs):
+            """(the same function: LN1 with the site's parameters at the QKV
+            site, then dW and db; the earlier reading: the product alone on
+            the pre-LN x)"""
             dy_, xin = args[0], args[1]
-            return lambda: torch.mm(dy_.reshape(-1, dy_.shape[-1]).t(),
-                                    xin.reshape(-1, xin.shape[-1]))
+            dyf, xf_ = dy_.reshape(-1, dy_.shape[-1]), xin.reshape(-1, xin.shape[-1])
+            ln_ = kwargs.get("ln")
+            if ln_ is None:
+                return (lambda: (torch.mm(dyf.t(), xf_), dyf.sum(0)),
+                        lambda: torch.mm(dyf.t(), xf_))
+            g_, b_ = (t.to(xin.dtype) for t in ln_[2:])
+            return (lambda: (torch.mm(dyf.t(), F.layer_norm(xf_, (xf_.shape[-1],), g_, b_, EPS1)),
+                             dyf.sum(0)),
+                    lambda: torch.mm(dyf.t(), xf_))
 
         def attention_bwd_library(args, kwargs):
             q_, k_, v_ = (heads(t.detach()).requires_grad_(True) for t in args[:3])
@@ -2576,23 +2605,63 @@ def main() -> int:
 
         prof_reps = 20
 
-        def device_ms(fns, attempts=3):
+        def device_ms(fns, attempts=3, counts=None):
             """The profiler's device time of each kernel the calls ``fns``
-            launch, per round of them. A trace can come back without device
-            events (one of 24 such traces in one run on an H100): it is taken
-            again."""
+            launch, per round of them (and in ``counts``, when given, each
+            kernel's launches per round as the trace holds them). A trace
+            without device events (one of 24 such traces in one run on an
+            H100) or whose launches per round are not whole is taken again;
+            the last with events is kept. In this process a trace can lose
+            launches of a kernel (up to 8 of 20; with a warm-up step that the
+            trace drops, three traces in a row came back empty; a fresh
+            process lost none, scripts/profiler_counts.py), so the rows that
+            time_entry also times after a head start print that time where
+            the trace lost launches."""
+            kept = None
             for _ in range(attempts):
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     for _ in range(prof_reps):
                         for fn in fns:
                             fn()
                     torch.cuda.synchronize()
-                found = {e.key: e.self_device_time_total / 1e3 / prof_reps
-                         for e in prof.key_averages()
-                         if e.device_type == torch.autograd.DeviceType.CUDA}
-                if found:
-                    return found
-            raise RuntimeError(f"the profiler recorded no device time in {attempts} traces")
+                events = [e for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA]
+                if events:
+                    kept = events
+                    if all(e.count % prof_reps == 0 for e in events):
+                        break
+            if kept is None:
+                raise RuntimeError(f"the profiler recorded no device time in {attempts} traces")
+            if counts is not None:
+                counts.update({e.key: e.count / prof_reps for e in kept})
+            return {e.key: e.self_device_time_total / 1e3 / prof_reps for e in kept}
+
+        def lost_launches(counts):
+            """' lost launches' where a kernel's launches per round in a
+            trace are not whole, else ''."""
+            return " lost launches" if any(c != round(c) for c in counts.values()) else ""
+
+        def head_start_ms(fns, iters=20):
+            """CUDA events around ``iters`` rounds of the calls ``fns`` queued
+            behind a 0.1 s spin of the card (torch.cuda._sleep), so that the
+            host has queued every launch before the first runs: the device's
+            time, without the host's launch rate."""
+            for fn in fns:
+                fn()
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(200_000_000)
+            t = time.perf_counter()
+            start.record()
+            for _ in range(iters):
+                for fn in fns:
+                    fn()
+            end.record()
+            queued = time.perf_counter() - t
+            torch.cuda.synchronize()
+            if queued > 0.08:  # the spin did not cover the queueing
+                log(f"    (head start too short: {queued * 1e3:.1f} ms to queue)")
+            return start.elapsed_time(end) / iters
 
         def step_cost(name, args, kwargs, es, rows_, m_):
             """(operations, bytes) a backward GEMM or layernorm_bwd call must do
@@ -2669,40 +2738,60 @@ def main() -> int:
                                  else (a[0].shape[-1], a[1].shape[-1]) for a, _ in calls]
             return runs, weights
 
-        def time_entry(iname, sites, peak, what, weights=None):
+        def time_entry(iname, sites, peak, what, weights=None, head_start=False):
             """An entry point's sites of one layer on the card, kept in
             stats[iname]: CUDA events (kernel, plain, plain, kernel: two
-            readings each, in turns), one library call, the bound (the larger
-            of the operations over the dtype's peak and the bytes over the
-            memory rate, summed over the sites), and the profiler's device
-            time of every kernel the calls launch; where there are several
-            sites, each site also on its own."""
+            readings each, in turns), one library call (a pair: the call for
+            the same function, then an earlier yardstick, printed beside it),
+            the bound (the larger of the operations over the dtype's peak and
+            the bytes over the memory rate, summed over the sites), and the
+            profiler's device time of every kernel the calls launch, with
+            each kernel's launches per round in the trace; where there are
+            several sites, each site also on its own. With ``head_start``
+            also CUDA events behind a spin of the card (head_start_ms), the
+            device's time free of the host's launch rate, which is the row's
+            device time where the trace lost launches."""
             ms = plain_ms = lib_ms = bound = ops_bound = bytes_bound = 0.0
             for i_site, (kernel_fn, plain_fn, lib_fn, ops, nbytes) in enumerate(sites):
                 t1, p1, p2, t2 = (time_ms(fn) for fn in (kernel_fn, plain_fn, plain_fn,
                                                          kernel_fn))
+                lib_old = None
+                if isinstance(lib_fn, tuple):
+                    lib_fn, lib_old = lib_fn[0], time_ms(lib_fn[1])
                 lib = time_ms(lib_fn)
                 t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
                 if len(sites) > 1:
-                    site_dev = sum(device_ms([kernel_fn]).values())
+                    site_counts = {}
+                    site_dev = sum(device_ms([kernel_fn], counts=site_counts).values())
+                    site_hs = (f", after a head start {head_start_ms([kernel_fn]):.4f} ms"
+                               if head_start else "")
                     log(f"    {iname} site, weight {weights[i_site]}: kernel "
-                        f"{(t1 + t2) / 2:.4f} ms, device {site_dev:.4f} ms (profiler), "
-                        f"library {lib:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms")
+                        f"{(t1 + t2) / 2:.4f} ms, device {site_dev:.4f} ms (profiler"
+                        f"{lost_launches(site_counts)}){site_hs}, library {lib:.4f} ms"
+                        + (f" (the product alone {lib_old:.4f} ms)" if lib_old is not None else "")
+                        + f", bound {max(t_ops, t_bytes):.4f} ms")
                 ms += (t1 + t2) / 2
                 plain_ms += (p1 + p2) / 2
                 lib_ms += lib
                 bound += max(t_ops, t_bytes)
                 ops_bound += t_ops
                 bytes_bound += t_bytes
-            per_kernel = device_ms([kernel_fn for kernel_fn, *_ in sites])
+            counts = {}
+            per_kernel = device_ms([kernel_fn for kernel_fn, *_ in sites], counts=counts)
             dev_ms = sum(per_kernel.values())
             stats[iname].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                                 bound_by="operations" if ops_bound >= bytes_bound else "bytes")
+            hs, source = "", "profiler" + lost_launches(counts)
+            if head_start:  # the device's time where the trace lost launches
+                hs_ms = head_start_ms([k_ for k_, *_ in sites])
+                if lost_launches(counts):
+                    dev_ms, source = hs_ms, "events after a head start: the trace lost launches"
+                hs = f", after a head start {hs_ms:.4f} ms"
             log(f"  {iname} ({what}, {len(sites)} site{'s' * (len(sites) > 1)} of a layer): "
-                f"kernel {ms:.4f} ms, device {dev_ms:.4f} ms (profiler; {100 * bound / dev_ms:.1f} "
-                f"% of its bound), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                f"kernel {ms:.4f} ms, device {dev_ms:.4f} ms ({source}; {100 * bound / dev_ms:.1f} "
+                f"% of its bound){hs}, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
                 f"{bound:.4f} ms ({stats[iname]['bound_by']}); "
-                + ", ".join(f"{k_[:60]} {v_:.4f}" for k_, v_ in
+                + ", ".join(f"{k_[:60]} {v_:.4f} (x{counts[k_]:g} a round)" for k_, v_ in
                             sorted(per_kernel.items(), key=lambda kv: -kv[1])))
 
         for tag, dt in (("", torch.float32), ("_bf16", bf16)):
@@ -2783,16 +2872,18 @@ def main() -> int:
             layer_plain_ms = time_ms(
                 lambda: fused_block.fused_encoder_block_reference(xd, vl, *w, H, EPS1, EPS2))
 
-            def library_layer(x_, ws):  # addmm / SDPA / layer_norm, the yardstick
+            def library_layer(x_, ws, nh=H, mask=key_ok):  # addmm / SDPA / layer_norm
                 wqkv_, bqkv_, wout_, bout_, g1_, b1_, g2_, b2_, w1_, b1f_, w2_, b2f_ = ws
-                xf_ = x_.reshape(-1, D)
-                qkv_ = torch.addmm(bqkv_, F.layer_norm(xf_, (D,), g1_, b1_, EPS1), wqkv_.t())
-                qh_, kh_, vh_ = (heads(t) for t in qkv_.reshape(B, S_PAD, 3 * D).split(D, -1))
-                a_ = F.scaled_dot_product_attention(qh_, kh_, vh_, attn_mask=key_ok)
-                a_ = a_.transpose(1, 2).reshape(-1, D)
-                x2_ = F.layer_norm(torch.addmm(bout_, a_, wout_.t()) + xf_, (D,), g1_, b1_, EPS1)
+                b_, s_, d_ = x_.shape
+                xf_ = x_.reshape(-1, d_)
+                qkv_ = torch.addmm(bqkv_, F.layer_norm(xf_, (d_,), g1_, b1_, EPS1), wqkv_.t())
+                qh_, kh_, vh_ = (t.reshape(b_, s_, nh, d_ // nh).transpose(1, 2)
+                                 for t in qkv_.reshape(b_, s_, 3 * d_).split(d_, -1))
+                a_ = F.scaled_dot_product_attention(qh_, kh_, vh_, attn_mask=mask)
+                a_ = a_.transpose(1, 2).reshape(-1, d_)
+                x2_ = F.layer_norm(torch.addmm(bout_, a_, wout_.t()) + xf_, (d_,), g1_, b1_, EPS1)
                 h_ = torch.relu(torch.addmm(b1f_, x2_, w1_.t()))
-                return F.layer_norm(torch.addmm(b2f_, h_, w2_.t()) + x2_, (D,), g2_, b2_, EPS2)
+                return F.layer_norm(torch.addmm(b2f_, h_, w2_.t()) + x2_, (d_,), g2_, b2_, EPS2)
 
             lib_ws = (wqkv, bqkv, wout, bout, gl1, bl1, gl2, bl2, w1, b1f, w2, b2f)
             layer_lib_ms = time_ms(lambda: library_layer(xd, lib_ws))
@@ -2869,15 +2960,23 @@ def main() -> int:
             bsz7, s7 = i7["x"].shape[:2]
             for name, sites in runs7.items():
                 time_entry(fused_block.instance(name + tag, D16), sites, peak,
-                           f"B {bsz7}, S_pad {s7}, D {D16}", weights7.get(name))
+                           f"B {bsz7}, S_pad {s7}, D {D16}", weights7.get(name), head_start=True)
             layer7_ms = time_ms(lambda: fused_block.fused_encoder_block(
                 i7["x"], i7["vl"], *i7["w"], H16, EPS1, EPS2))
             layer7_plain = time_ms(lambda: fused_block.fused_encoder_block_reference(
                 i7["x"], i7["vl"], *i7["w"], H16, EPS1, EPS2))
+            steps7 = [fused_block.instance(n + tag, D16) for n in (
+                "ln_linear_fwd", "linear_relu_fwd", "linear_residual_ln_fwd")]
+            vl7 = i7["vl"]
+            key_ok7 = (torch.arange(s7, device=dev)[None, :] < vl7[:, None])[:, None, None, :]
+            wd7 = i7["wd"]
+            lib_ws7 = (*wd7[:4], *(t.to(dt) for t in wd7[4:8]), *wd7[8:])
+            layer7_lib = time_ms(lambda: library_layer(i7["x"], lib_ws7, H16, key_ok7))
             log(f"  fused_encoder_block{tag} at D {D16} forward (B {bsz7}, S_pad {s7}): kernels "
-                f"{layer7_ms:.4f} ms, plain {layer7_plain:.4f} ms, bound of its chain steps "
-                f"{sum(stats[fused_block.instance(n + tag, D16)]['bound_ms'] for n in ('ln_linear_fwd', 'linear_relu_fwd', 'linear_residual_ln_fwd')):.4f} ms "
-                f"(the attention not counted)")
+                f"{layer7_ms:.4f} ms, plain {layer7_plain:.4f} ms, library: its chain steps' "
+                f"calls {sum(stats[n]['library_ms'] for n in steps7):.4f} ms, the addmm/SDPA/"
+                f"layer_norm layer {layer7_lib:.4f} ms; bound of its chain steps "
+                f"{sum(stats[n]['bound_ms'] for n in steps7):.4f} ms (the attention not counted)")
             del runs7, i7
             torch.cuda.empty_cache()
 
@@ -2994,7 +3093,8 @@ def main() -> int:
                                                         "linear_residual_ln", "layernorm_bwd",
                                                         "linear_dgrad", "linear_wgrad",
                                                         "reduce_ln_splits", "reduce_splits",
-                                                        "reduce_wgrad"))) / 1e3
+                                                        "reduce_wgrad", "ln_rows",
+                                                        "reduce_stream"))) / 1e3
             log(f"  profiled B/16 bf16 step{what}, {B16_TRAIN_B} raw images of {int(cc_[0])} "
                 f"channels, the layer chain's kernels {chain16:.2f} ms, the "
                 f"multicrop inside: wall {wall16 * 1e3:.2f} ms, device busy {busy16:.2f} ms "

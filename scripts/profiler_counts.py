@@ -1,0 +1,105 @@
+#!/usr/bin/env python3
+"""Whether torch.profiler's device times hold on one NVIDIA GPU: the bf16 K1a
+and K2c QKV site of ChAdaViT-B/16 (D 768) at chip_smoke.py's narrow hub shapes
+(8 images of 1-7 channels, S_pad 1408), each traced in several ways and held
+against CUDA events queued behind a 0.1 s spin of the card (the device's
+time). Run from the root of the repository:
+
+    python3 scripts/profiler_counts.py
+
+Each trace runs 20 rounds of the call; for every kernel it prints the launches
+per round the trace holds (a whole number when no record is lost) and the
+device time per round. The ways: ``cuda`` (activities CUDA only, as
+chip_smoke.py's device_ms had it), ``cuda+cpu`` (CPU and CUDA), ``warm-up``
+(CUDA, a schedule whose first step, one round, is dropped), each three times,
+after 40 traces taken first (phase 5 of chip_smoke.py takes many in one
+process). Prints the card's name and power limit first.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+REPS = 20
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from chadavit_tpu_torch.ops import fused_block
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    d, s_pad = 768, 1408
+    valid = [1 + 196 * c for c in (1, 3, 5, 7, 2, 7, 4, 6)]
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    x = randn(len(valid), s_pad, d).bfloat16()
+    g, b = 1 + randn(d, scale=0.1), randn(d, scale=0.05)
+    w, bias = randn(3 * d, d, scale=d ** -0.5).bfloat16(), randn(3 * d, scale=0.02).bfloat16()
+    dy = randn(len(valid), s_pad, 3 * d).bfloat16()
+    mean, rstd = (t[..., 0] for t in fused_block.layernorm_stats(x, 1e-5))
+    calls = {"K1a d768": lambda: fused_block.ln_linear(x, g, b, 1e-5, w, bias, vl),
+             "K2c QKV d768": lambda: fused_block.linear_wgrad(dy, x, vl, ln=(mean, rstd, g, b))}
+
+    def head_start(fn):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000_000)
+        start.record()
+        for _ in range(REPS):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / REPS
+
+    def trace(fn, way):
+        kw = {"activities": [ProfilerActivity.CUDA]}
+        if way == "cuda+cpu":
+            kw["activities"] = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        if way == "warm-up":
+            kw["schedule"] = schedule(wait=0, warmup=1, active=1, repeat=1)
+        fn()
+        torch.cuda.synchronize()
+        with profile(**kw) as prof:
+            if way == "warm-up":
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
+            if way == "warm-up":
+                prof.step()
+        return {e.key: (e.count / REPS, e.self_device_time_total / 1e3 / REPS)
+                for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA}
+
+    with torch.no_grad():
+        for _ in range(40):  # earlier traces in the same process, as in phase 5
+            trace(calls["K1a d768"], "cuda")
+        for name, fn in calls.items():
+            print(f"{name}: CUDA events after a head start {head_start(fn):.4f} ms a call",
+                  flush=True)
+            for way in ("cuda", "cuda+cpu", "warm-up"):
+                for attempt in range(3):
+                    got = trace(fn, way)
+                    total = sum(t for _, t in got.values())
+                    print(f"  {way:9s} #{attempt}: {total:.4f} ms a round; " + ", ".join(
+                        f"{k[:40]} x{c:g} {t:.4f}" for k, (c, t) in sorted(got.items())),
+                        flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -367,11 +367,36 @@ def test_wgrad_split_plan_covers_every_computed_tile_once_in_order(s_pad, valid_
 
 WGRAD_TILES = {torch.bfloat16: (fused_block.WGRAD_BF16_TILES, fused_block.WGRAD_BF16_BLOCKS),
                torch.float32: (fused_block.WGRAD_F32_TILES, fused_block.WGRAD_F32_BLOCKS)}
+# the four weight shapes of a layer of each width: D 192's in WGRAD_BF16_TILES,
+# D 768's in the bfloat16 stream-K walk's WGRAD_WGMMA_TILES
+WGRAD_SHAPES = sorted(set(fused_block.WGRAD_BF16_TILES) | set(fused_block.WGRAD_WGMMA_TILES))
 
 
-@pytest.mark.parametrize("n, k", sorted(fused_block.WGRAD_BF16_TILES))
+def _stream(n, k, dtype):
+    """True where linear_wgrad is the bfloat16 stream-K walk (D 768)."""
+    return dtype == torch.bfloat16 and (n, k) in fused_block.WGRAD_WGMMA_TILES
+
+
+@pytest.mark.parametrize("n, k", WGRAD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_wgrad_splits_stay_bounded_as_the_batch_grows(n, k, dtype):
+    if _stream(n, k, dtype):
+        # the same slots at every batch; every block busy once the batch has
+        # a unit for each, the shares within one unit (two 32-row tiles)
+        tn, tk = fused_block.WGRAD_WGMMA_TILES[(n, k)]
+        assert n % tn == 0 and k % tk == 0
+        tiles, blocks = fused_block.wgrad_stream_tiles(n, k), fused_block.WGRAD_WGMMA_BLOCKS
+        assert fused_block.wgrad_stream_slots(n, k) == tiles + blocks - 1
+        for bsz in (1, 8, 64):
+            plan = fused_block.wgrad_stream_plan([2048] * bsz, 2048, n, k)
+            rows = [sum(len(r) for _, _, r in segments) for segments in plan]
+            assert len(plan) == blocks and min(rows) > 0  # every SM has work
+            assert max(rows) - min(rows) <= fused_block.WGRAD_WGMMA_UNIT // fused_block.ROW_BLOCK
+            assert max(slot for segments in plan for _, slot, _ in segments) < tiles + blocks - 1
+        # one 32-row tile: no block sums more than the one unit of each tile
+        plan = fused_block.wgrad_stream_plan([1], 32, n, k)
+        assert all(len(r) == 1 for segments in plan for _, _, r in segments)
+        return
     table, blocks = WGRAD_TILES[dtype]
     tn, tk = table[(n, k)]
     assert n % tn == 0 and k % tk == 0
@@ -383,6 +408,33 @@ def test_wgrad_splits_stay_bounded_as_the_batch_grows(n, k, dtype):
     assert fused_block.wgrad_splits(1, 32, n, k, dtype) == 1  # no more splits than 32-row tiles
 
 
+@pytest.mark.parametrize("n, k", sorted(fused_block.WGRAD_WGMMA_TILES))
+@pytest.mark.parametrize("s_pad, valid_len", [
+    (1408, [1 + 196 * c for c in (1, 3, 5, 7, 2, 7, 4, 6)]),  # the narrow hub shapes
+    (384, [1, 0, 33, 127, 129, 383, 200, 65]),  # ragged, a padded image, an odd tile count
+    (128, [0, 0, 0]),  # nothing to sum
+    (64, [64, 1]),  # fewer units than blocks
+])
+def test_wgrad_stream_plan_covers_every_computed_tile_once_in_order(s_pad, valid_len, n, k):
+    tiles = fused_block.wgrad_stream_tiles(n, k)
+    plan = fused_block.wgrad_stream_plan(valid_len, s_pad, n, k)
+    computed = _computed_tiles(valid_len, s_pad)
+    units = -(-len(computed) // 2)
+    by_tile = {t: [] for t in range(tiles)}
+    slots = []
+    for segments in plan:
+        assert [t for t, _, _ in segments] == sorted({t for t, _, _ in segments})
+        for t, slot, rows in segments:
+            by_tile[t].append((slot, rows))
+            slots.append(slot)
+    assert len(slots) == len(set(slots)) and all(s < tiles + 131 for s in slots)
+    for t in range(tiles):
+        # every computed tile once, in order, in the blocks' order
+        assert [r for _, rows in by_tile[t] for r in rows] == (computed if units else [])
+        # and the second pass adds exactly those slots, in that order
+        assert fused_block.wgrad_stream_fixups(t, units, tiles) == [s for s, _ in by_tile[t]]
+
+
 @pytest.mark.parametrize("n, k", sorted(fused_block.WGRAD_F32_TILES))
 def test_wgrad_f32_tiles_span_the_192_wide_side(n, k):
     """The float32 kernel's tile takes the 192-wide side of dW whole and 64 of
@@ -391,22 +443,30 @@ def test_wgrad_f32_tiles_span_the_192_wide_side(n, k):
     d = fused_block.D_MODEL
     assert (tn, tk) == ((d, 64) if k == fused_block.D_FFN else (64, d))
     assert (tn // 32) * (tk // 64) == 6 and n % tn == 0 and k % tk == 0
-    assert set(fused_block.WGRAD_F32_TILES) == set(fused_block.WGRAD_BF16_TILES)
+    assert sorted(fused_block.WGRAD_F32_TILES) == WGRAD_SHAPES
 
 
-@pytest.mark.parametrize("n, k", sorted(fused_block.WGRAD_BF16_TILES))
+@pytest.mark.parametrize("n, k", WGRAD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wgrad_passes_its_row_plan_to_the_kernel(fake_cuda, n, k, dtype):
     bsz, s = 3, 640
     vl = torch.tensor([640, 3, 100], dtype=torch.int32)
     z = torch.zeros(bsz, s, dtype=torch.float32)
     ln = (z, z, torch.ones(k), torch.zeros(k)) if n == 3 * k else None  # the QKV site
-    fused_block.linear_wgrad(torch.zeros(bsz, s, n, dtype=dtype),
-                             torch.zeros(bsz, s, k, dtype=dtype), vl, ln=ln)
+    dy, x = torch.zeros(bsz, s, n, dtype=dtype), torch.zeros(bsz, s, k, dtype=dtype)
+    fused_block.linear_wgrad(dy, x, vl, ln=ln)
     (name,), (args,) = fake_cuda.calls, fake_cuda.args
+    assert args[:2] == (dy.data_ptr(), x.data_ptr()) and args[-6:-2] == (bsz * s, n, k, s)
+    if _stream(n, k, dtype):
+        # the wgmma entry point: the pre-pass's h scratch at the QKV site only,
+        # the stream-K walk's grid
+        assert name == "linear_wgrad_wgmma_bf16"
+        assert (args[6] is not None) == (ln is not None) and args[6] not in args[:2]
+        assert args[-2] == fused_block.WGRAD_WGMMA_BLOCKS
+        return
     plan = fused_block.wgrad_splits(bsz, s, n, k, dtype)
     assert name == _launch.entry_point("linear_wgrad", dtype)
-    assert args[-2] == plan and args[-6:-2] == (bsz * s, n, k, s)
+    assert args[-2] == plan
 
 
 # ---- the split plan of layernorm_bwd (both dtypes) ----------------------------

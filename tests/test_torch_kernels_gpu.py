@@ -1348,3 +1348,116 @@ def test_d768_layer_gradient_through_the_function(dev, batch, dtype, seed):
         _assert_bf16_close(y.detach(), y_plain, valid)
     else:
         _assert_valid_rows_close(y.detach(), y_plain, valid)
+
+
+# ---- ChAdaViT-B/16's bf16 K1a and K2c on wgmma (csrc/linear_wgmma_bf16.cu) ------
+# K1a (ln_linear at D 768) and the four K2c sites against their plain bf16
+# versions (bf16_err's bounds) on D768_BATCHES and three seeds: a second call
+# repeats the bits (fixed-order sums, the stream-K partials added in block
+# order), the 32-row tiles past the prefix are zeros in qkv and its stats.
+WGRAD_D768_SITES = {"qkv": (3 * D16, D16), "out": (D16, D16), "ffn1": (F, D16),
+                    "ffn2": (D16, F)}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("save", [False, True])
+@pytest.mark.parametrize("batch", list(D768_BATCHES))
+def test_d768_wgmma_ln_linear(dev, batch, save, seed):
+    s, valid = D768_BATCHES[batch]
+    rng = np.random.default_rng(300 + seed)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    x = _randn(rng, dev, len(valid), s, D16).bfloat16()
+    w = _randn(rng, dev, 3 * D16, D16, scale=D16 ** -0.5).bfloat16()
+    b = _randn(rng, dev, 3 * D16, scale=0.1).bfloat16()
+    g, beta = 1 + _randn(rng, dev, D16, scale=0.1), _randn(rng, dev, D16, scale=0.05)
+    name = "ln_linear_fwd_bf16_d768"
+    before = _launch.LAUNCHES[name]
+    with torch.no_grad():
+        out = fused_block.ln_linear(x, g, beta, 1e-5, w, b, vl, save=save)
+        again = fused_block.ln_linear(x, g, beta, 1e-5, w, b, vl, save=save)
+    assert _launch.LAUNCHES[name] == before + 2
+    ref = fused_block.ln_linear_reference(x, g, beta, 1e-5, w, b, save=save)
+    outs, agains, refs = (out, again, ref) if save else ((out,), (again,), (ref,))
+    for o, ag in zip(outs, agains):
+        assert torch.equal(o, ag), "a second call gives other bits"
+    if save:  # qkv, then the LN1 stats (mean, rstd) as one f32 tensor
+        outs, refs = (outs[0], torch.stack(outs[1:], -1)), (refs[0], torch.stack(refs[1:], -1))
+    rows = [min(-(-n // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK, s) for n in valid]
+    for o, r in zip(outs, refs):
+        _assert_bf16_close(o, r, rows)
+        for i, n in enumerate(rows):  # the zero-filled tiles get exact zeros
+            assert not o[i, n:].any().item()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("site", list(WGRAD_D768_SITES))
+@pytest.mark.parametrize("batch", list(D768_BATCHES))
+def test_d768_wgmma_wgrad(dev, batch, site, seed):
+    s, valid = D768_BATCHES[batch]
+    n, k = WGRAD_D768_SITES[site]
+    rng = np.random.default_rng(400 + seed)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    dy = _tail_cotangent(_randn(rng, dev, len(valid), s, n), valid,
+                         fused_block.ROW_BLOCK).bfloat16()
+    x = _randn(rng, dev, len(valid), s, k).bfloat16()
+    ln = None
+    if site == "qkv":
+        ln = (_randn(rng, dev, len(valid), s, scale=0.1),
+              1 + _randn(rng, dev, len(valid), s, scale=0.1).abs(),
+              1 + _randn(rng, dev, k, scale=0.1), _randn(rng, dev, k, scale=0.1))
+    name = "linear_wgrad_bf16_d768"
+    before = _launch.LAUNCHES[name]
+    out, again = (fused_block.linear_wgrad(dy, x, vl, ln=ln) for _ in range(2))
+    assert _launch.LAUNCHES[name] == before + 2
+    ref = fused_block.linear_wgrad_reference(dy, x, vl, ln=ln)
+    for o, a, r in zip(out, again, ref):
+        assert torch.equal(o, a), "a second call gives other bits"
+        assert o.dtype == torch.float32
+        _assert_bf16_close(o, r)
+
+
+@pytest.mark.parametrize("batch", list(TC_BATCHES))
+def test_ln_rows_prepass_is_the_old_ln_staging(dev, batch):
+    # the pre-pass's h from the saved stats, bit for bit the h that the D 192
+    # wgrad's LN staging makes in shared memory: the same D 192 kernel on h
+    # without LN gives the same dW and db as on x with it
+    s, valid = TC_BATCHES[batch]
+    rng = np.random.default_rng(77)
+    bsz = len(valid)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    dy = _randn(rng, dev, bsz, s, 3 * D).bfloat16()
+    x = _randn(rng, dev, bsz, s, D).bfloat16()
+    mean, rstd = _randn(rng, dev, bsz, s, scale=0.1), 1 + _randn(rng, dev, bsz, s, scale=0.1).abs()
+    g, beta = 1 + _randn(rng, dev, D, scale=0.1), _randn(rng, dev, D, scale=0.1)
+    h, *_ = fused_block.layernorm_rows(x, g, beta, vl, stats=(mean, rstd))
+    staged = fused_block.linear_wgrad(dy, x, vl, ln=(mean, rstd, g, beta))
+    prepass = fused_block.linear_wgrad(dy, h, vl)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(staged, prepass))
+    # and h itself is the plain version's on the computed rows, zeros elsewhere
+    ref, *_ = fused_block.layernorm_rows_reference(x, g, beta, vl, stats=(mean, rstd))
+    rows = [min(-(-n // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK, s) for n in valid]
+    _assert_bf16_close(h, ref, rows)
+    assert all(not h[i, n:].any().item() for i, n in enumerate(rows))
+
+
+@pytest.mark.parametrize("batch", list(D768_BATCHES))
+def test_ln_rows_prepass_takes_k1as_stats(dev, batch):
+    # at D 768 the pre-pass that takes the stats gives the stats and h of the
+    # plain version (bf16_err's bounds), zeros on the zero-filled tiles, and
+    # the same h again from the stats it wrote
+    s, valid = D768_BATCHES[batch]
+    rng = np.random.default_rng(78)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    x = (_randn(rng, dev, len(valid), s, D16) * 2 + 0.5).bfloat16()
+    g, beta = 1 + _randn(rng, dev, D16, scale=0.1), _randn(rng, dev, D16, scale=0.1)
+    h, mean, rstd = fused_block.layernorm_rows(x, g, beta, vl)
+    ref = fused_block.layernorm_rows_reference(x, g, beta, vl)
+    rows = [min(-(-n // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK, s) for n in valid]
+    _assert_bf16_close(h, ref[0], rows)
+    _assert_bf16_close(torch.stack((mean, rstd), -1), torch.stack(ref[1:], -1), rows)
+    for t in (h, mean, rstd):
+        assert all(not t[i, n:].any().item() for i, n in enumerate(rows))
+    h2, *_ = fused_block.layernorm_rows(x, g, beta, vl, stats=(mean, rstd))
+    torch.cuda.synchronize()
+    assert torch.equal(h, h2)
