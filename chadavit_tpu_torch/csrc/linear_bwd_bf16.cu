@@ -41,15 +41,10 @@
 //   tensor-core product (a B fragment of ones) in the blocks of the first K
 //   tile.
 //
-// dgrad is built for the layer's two widths, D 192 (ChAdaViT-moyen) and D
-// 768 (ChAdaViT-B/16), FFN 2048: the tiles stay those of D 192 and the grid
-// holds more of them at D 768 (the N 768 sites four column slices of 192),
-// so most D 768 sites run the D 192 sites' own instances; the FFN site at D
-// 768 streams dY through the ring with W (its (64, 768) rows would leave one
-// block an SM). At D 768 every product has 768 or more on both sides, 380 to
-// 580 operations a byte, over the 295 at which the bf16 tensor cores become
-// the limit: these instances are bound by operations. wgrad here takes D
-// 192's four weight shapes only; at D 768 it is linear_wgmma_bf16.cu's
+// Both take D 192's four sites only (ChAdaViT-moyen). At D 768 (ChAdaViT-B/16)
+// every product has 768 or more on both sides, 380 to 580 operations a byte,
+// over the 295 at which the bf16 tensor cores become the limit: there dgrad
+// and wgrad are linear_wgmma_bf16.cu's linear_dgrad_wgmma_bf16 and
 // linear_wgrad_wgmma_bf16 (wgmma and TMA).
 //
 // Plain C interface (loaded with ctypes); each launcher returns
@@ -504,9 +499,9 @@ extern "C" {
 
 // dy (M, K), w (K, N) (the forward's Linear weight, out x in), out (M, N),
 // all bf16; epilogue and aux as linear_dgrad's (fused_block_bwd.cu). The
-// four sites of a layer of width D (192 or 768) only: K D -> N 2048 (mask),
-// K 2048 -> N D (residual), K D -> N D and K 3 D -> N D (none); s_pad a
-// multiple of 64, the block's rows.
+// four sites of a D 192 layer only: K 192 -> N 2048 (mask), K 2048 -> N 192
+// (residual), K 192 -> N 192 and K 576 -> N 192 (none); s_pad a multiple of
+// 64, the block's rows.
 int linear_dgrad_bf16(const bf16* dy, const bf16* w, const bf16* aux, bf16* out, int epilogue,
                       const int* valid_len, int M, int K, int N, int s_pad, void* stream) {
   if (M <= 0 || s_pad <= 0 || s_pad % DG_BM || M % s_pad ||
@@ -525,19 +520,6 @@ int linear_dgrad_bf16(const bf16* dy, const bf16* w, const bf16* aux, bf16* out,
   if (K == 3 * D_MODEL && N == D_MODEL && epilogue == EPI_NONE)
     return dgrad_launch<D_MODEL, 3 * D_MODEL, 1, EPI_NONE, false>(dy, w, aux, out, valid_len, M,
                                                                   N, s_pad, st);
-  // D 768: the FFN site streams dY; the N 768 sites take four slices of 192
-  if (K == D_WIDE && N == D_FFN && epilogue == EPI_RELU_MASK)
-    return dgrad_launch<128, D_WIDE, 4, EPI_RELU_MASK, false>(dy, w, aux, out, valid_len, M, N,
-                                                              s_pad, st);
-  if (K == D_FFN && N == D_WIDE && epilogue == EPI_RESIDUAL)
-    return dgrad_launch<D_MODEL, D_FFN, 1, EPI_RESIDUAL, false>(dy, w, aux, out, valid_len, M,
-                                                                N, s_pad, st);
-  if (K == D_WIDE && N == D_WIDE && epilogue == EPI_NONE)
-    return dgrad_launch<D_MODEL, D_WIDE, 1, EPI_NONE, false>(dy, w, aux, out, valid_len, M, N,
-                                                             s_pad, st);
-  if (K == 3 * D_WIDE && N == D_WIDE && epilogue == EPI_NONE)
-    return dgrad_launch<D_MODEL, 3 * D_WIDE, 1, EPI_NONE, false>(dy, w, aux, out, valid_len, M,
-                                                                 N, s_pad, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -56,16 +56,16 @@
 //   holds a valid row is computed for real. No atomics: the same bits on
 //   every run.
 //
-// At D 768 (ChAdaViT-B/16, FFN 2048) K1c and K1b have instances of their
-// own: K1c is the same template with the (64, 768) x rows resident (160 KB,
-// one block an SM); K1b is a cluster of four blocks along the columns, each
-// the D 192 tile, that add their rows' partial LayerNorm sums through
-// distributed shared memory (layernorm_cols). Every product then has 768 or
-// more on both sides, 380 to 580 operations a byte: the D 768 instances are
-// bound by the tensor cores' operations, which mma.sync reaches only a share
-// of. K1a at D 768 is linear_wgmma_bf16.cu's ln_linear_fwd_wgmma_bf16 (wgmma
-// and TMA); this file's ln_linear_fwd_bf16 takes D 192 only. The D 192
-// instances compile to the code they had.
+// At D 768 (ChAdaViT-B/16, FFN 2048) K1b has instances of its own: a
+// cluster of four blocks along the columns, each the D 192 tile, that add
+// their rows' partial LayerNorm sums through distributed shared memory
+// (layernorm_cols). Every product then has 768 or more on both sides, 380 to
+// 580 operations a byte: the D 768 instances are bound by the tensor cores'
+// operations, which mma.sync reaches only a share of. K1a and K1c at D 768
+// are linear_wgmma_bf16.cu's ln_linear_fwd_wgmma_bf16 and
+// linear_relu_fwd_wgmma_bf16 (wgmma and TMA); this file's ln_linear_fwd_bf16
+// and linear_relu_fwd_bf16 take D 192 only. The D 192 instances compile to
+// the code they had.
 //
 // Plain C interface (loaded with ctypes); each launcher returns
 // cudaGetLastError() so that the Python wrapper can raise on a refused launch.
@@ -281,8 +281,8 @@ ln_linear_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ gamm
 // ---- linear_relu_fwd_bf16 -----------------------------------------------------
 // Grid (M / FW_BM, D_FFN / (RELU_SLICES * RELU_BN)). A block owns FW_BM rows
 // and RELU_SLICES column slices of RELU_BN, walked in order; each warp a
-// 32 x 32 tile of the slice. K = D: at D 768 the resident x rows take 96 KB
-// and the block 160 KB, one block an SM.
+// 32 x 32 tile of the slice. K = D, 192 (a template on it, as when it was
+// also built for D 768, so that the D 192 kernel keeps its name and code).
 constexpr int RELU_BN = 128;
 constexpr int RELU_SLICES = 4;
 
@@ -758,21 +758,21 @@ int ln_linear_fwd_bf16(const bf16* x, const float* g, const float* beta, float e
   return (int)cudaGetLastError();
 }
 
-// x (M, D), w (2048, D), bias (2048,), out (M, 2048), all bf16, D 192 or 768;
-// s_pad a multiple of 64, the block's rows. The float32 instance is
-// fused_block.cu's.
+// x (M, 192), w (2048, 192), bias (2048,), out (M, 2048), all bf16; s_pad a
+// multiple of 64, the block's rows. The float32 instance is fused_block.cu's;
+// at D 768 the bf16 one is linear_wgmma_bf16.cu's linear_relu_fwd_wgmma_bf16.
 int linear_relu_fwd_bf16(const bf16* x, const bf16* w, const bf16* bias, bf16* out,
                          const int* valid_len, int M, int K, int N, int s_pad, void* stream) {
-  if (!rows_ok_bf16(M, s_pad) || !is_width(K) || N != D_FFN) return (int)cudaErrorInvalidValue;
-  auto run = [&](auto kernel, int smem) {
-    int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != 0) return e;
-    kernel<<<dim3(M / FW_BM, D_FFN / (RELU_SLICES * RELU_BN)), TC_THREADS, smem,
-             static_cast<cudaStream_t>(stream)>>>(x, w, bias, out, valid_len, s_pad);
-    return (int)cudaGetLastError();
-  };
-  if (K == D_MODEL) return run(linear_relu_bf16_kernel<D_MODEL>, Relu<D_MODEL>::SMEM);
-  return run(linear_relu_bf16_kernel<D_WIDE>, Relu<D_WIDE>::SMEM);
+  if (!rows_ok_bf16(M, s_pad) || K != D_MODEL || N != D_FFN) return (int)cudaErrorInvalidValue;
+  int e = (int)cudaFuncSetAttribute(linear_relu_bf16_kernel<D_MODEL>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    Relu<D_MODEL>::SMEM);
+  if (e != 0) return e;
+  linear_relu_bf16_kernel<D_MODEL><<<dim3(M / FW_BM, D_FFN / (RELU_SLICES * RELU_BN)),
+                                     TC_THREADS, Relu<D_MODEL>::SMEM,
+                                     static_cast<cudaStream_t>(stream)>>>(x, w, bias, out,
+                                                                          valid_len, s_pad);
+  return (int)cudaGetLastError();
 }
 
 // a (M, K) with K = N (out projection) or 2048 (FFN2), w (N, K), bias (N,),

@@ -1,8 +1,11 @@
-// The bf16 LN1 + QKV forward (K1a, ln_linear_fwd_wgmma_bf16) and the bf16
-// weight gradient (K2c, linear_wgrad_wgmma_bf16) of a ChAdaViT-B/16 encoder
-// layer (D 768, FFN 2048) on Hopper's warpgroup products: TMA tiles through an
-// mbarrier ring, one producer thread and two consumer warpgroups, wgmma
-// m64n256k16 from 128-byte-swizzled shared memory (wgmma_bf16.cuh). The
+// The bf16 GEMM steps of a ChAdaViT-B/16 encoder layer (D 768, FFN 2048) on
+// Hopper's warpgroup products: the LN1 + QKV forward (K1a,
+// ln_linear_fwd_wgmma_bf16), the FFN1 + ReLU forward (K1c,
+// linear_relu_fwd_wgmma_bf16), the data gradient at the layer's four sites
+// (K2b, linear_dgrad_wgmma_bf16) and the weight gradient (K2c,
+// linear_wgrad_wgmma_bf16): TMA tiles through an mbarrier ring, one producer
+// thread and two consumer warpgroups, wgmma m64n256k16 (m64n192k16 at K2b's
+// N 768 sites) from 128-byte-swizzled shared memory (wgmma_bf16.cuh). The
 // functions, sites, rounding points and row contract are those of the D 192
 // instances (linear_fwd_bf16.cu, linear_bwd_bf16.cu), which stay as they are.
 //
@@ -12,25 +15,31 @@
 //
 // What bounds them on an H100: at D 768 every product has 768 or more on both
 // sides, 380 to 580 operations a byte of device memory, over the 295 at which
-// the bf16 tensor cores become the limit: both are bound by operations, which
+// the bf16 tensor cores become the limit: all are bound by operations, which
 // only wgmma reaches. The design:
 //
-// - One warp a row takes LN1 (ln_rows_kernel, shared by both): h =
+// - One warp a row takes LN1 (ln_rows_kernel, shared by K1a and K2c): h =
 //   bf16((x - mean) rstd g + b) on the rows of the 32-row tiles that hold a
 //   valid row, with the row stats taken here (K1a, f32 fast variance with the
 //   max(0, .) clamp, written where asked; zeros on the zero-filled tiles) or
 //   read from the forward's saved stats (K2c's QKV site: the forward's h,
 //   exactly). The GEMMs then read h by TMA: the LayerNorm runs once a row,
-//   not once for each column block. K1a's pre-pass also writes the zeros of
-//   qkv's rows on the zero-filled tiles.
-// - K1a: out = bf16(bf16(h W^T) + b) on tiles of two 64-row units (one a
-//   warpgroup) by 256 columns, 12 K slices of 64 through a three-stage ring.
-//   The units are the 64-row blocks that hold a valid row, listed image by
-//   image, so a persistent grid of at most 132 blocks walks computed rows
-//   only and every block gets the same share of tiles. The epilogue stages
-//   each warpgroup's rows in shared memory and stores the rows of the unit's
-//   computed 32-row tiles 16 bytes a thread (stored from the fragments, 4
-//   bytes a thread, the stores took 60 % of the kernel on an H100).
+//   not once for each column block.
+// - K1a, K1c and K2b are one kernel (linear_wgmma_kernel), a template on the
+//   shape, the column tile and the epilogue: out = epilogue(A B) on tiles of
+//   two 64-row units (one a warpgroup) by 256 (or 192) columns, K in slices of
+//   64 through a three- or four-stage ring. A is the activations (h, x2, dY),
+//   K-major; B is W, K-major for the forward (W (N, K)) and MN-major for the
+//   data gradient (W (K, N) as it lies). The units are the 64-row blocks that
+//   hold a valid row, listed image by image, so a persistent grid of at most
+//   132 blocks walks computed rows only and every block gets the same share
+//   of tiles. The epilogue stages each warpgroup's rows in shared memory and
+//   stores the rows of the unit's computed 32-row tiles 16 bytes a thread
+//   (stored from the fragments, 4 bytes a thread, K1a's stores took 60 % of
+//   the kernel on an H100). K2b's mask (hid, 30 MB at 2c's shapes) or
+//   residual comes by TMA into that staging while the tile's later slices
+//   multiply. The producer warpgroup's three idle warps write the rows of the
+//   zero-filled 32-row tiles meanwhile.
 // - K2c: dW = dY^T X' and db = colsum dY summed over the computed 32-row
 //   tiles, two a unit (64 rows; an odd last tile pairs with a box past the
 //   tensor's end, which TMA fills with zeros). dY and X' stay as they are in
@@ -87,16 +96,14 @@ __device__ __forceinline__ float ln_one(float v, float mu, float rs, float g, fl
 // One warp a row, rows strided over the grid. Each lane holds its 16-byte
 // chunks (lane, lane + 32, ...) of the row; the stats sum them in the order of
 // the D 192 K1a (per lane, then warp_sum), and h = bf16((x - mean) rstd g + b)
-// as the D 192 K2c's staging computes it (ln_one). K1a's pre-pass also writes
-// the zeros of its output's rows on the zero-filled tiles (zero_out, n_out
-// columns), so that its GEMM walks the computed rows alone.
+// as the D 192 K2c's staging computes it (ln_one).
 template <int K>
 __global__ void __launch_bounds__(256)
 ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                const float* __restrict__ beta, float eps, const float* __restrict__ mean_in,
                const float* __restrict__ rstd_in, bf16* __restrict__ h,
                float* __restrict__ mean_out, float* __restrict__ rstd_out,
-               bf16* __restrict__ zero_out, int n_out, const int* __restrict__ valid_len, int M,
+               const int* __restrict__ valid_len, int M,
                int s_pad) {
   constexpr int CHUNKS = K / 8;
   constexpr int PER_LANE = (CHUNKS + 31) / 32;
@@ -109,10 +116,6 @@ ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
         mean_out[row] = 0.f;
         rstd_out[row] = 0.f;
       }
-      if (zero_out != nullptr)
-        for (int c = lane; c < n_out / 8; c += 32)
-          *reinterpret_cast<uint4*>(zero_out + (size_t)row * n_out + c * 8) =
-              make_uint4(0, 0, 0, 0);
       continue;
     }
     uint4 u[PER_LANE];
@@ -171,11 +174,10 @@ ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
 template <int K>
 int ln_rows_launch(const bf16* x, const float* g, const float* beta, float eps,
                    const float* mean_in, const float* rstd_in, bf16* h, float* mean_out,
-                   float* rstd_out, const int* valid_len, int M, int s_pad, cudaStream_t st,
-                   bf16* zero_out = nullptr, int n_out = 0) {
+                   float* rstd_out, const int* valid_len, int M, int s_pad, cudaStream_t st) {
   const int blocks = min((M + 7) / 8, 132 * 16);  // 8 warps a block
   ln_rows_kernel<K><<<blocks, 256, 0, st>>>(x, g, beta, eps, mean_in, rstd_in, h, mean_out,
-                                            rstd_out, zero_out, n_out, valid_len, M, s_pad);
+                                            rstd_out, valid_len, M, s_pad);
   return (int)cudaGetLastError();
 }
 
@@ -220,73 +222,142 @@ __device__ __forceinline__ int unit_row(const int* first, int bsz, int s_pad, in
   return lo * s_pad + (idx - first[lo]) * UNIT;
 }
 
-// ---- K1a: qkv = bf16(bf16(h Wqkv^T) + bqkv) --------------------------------------
-// A tile is two units of 64 rows (a warpgroup each, consecutive in the list,
-// so maybe of two images) by 256 of the 2304 columns: a persistent grid walks
-// the tiles of the computed units only, so every block gets the same share of
-// products; the rows of the zero-filled 32-row tiles are the pre-pass's.
-constexpr int LQ_K = D_WIDE, LQ_N = 3 * D_WIDE;
-constexpr int LQ_UNIT = 64;                         // rows of a unit: a warpgroup's
-constexpr int LQ_KT = LQ_K / BOX;                   // K slices of a tile
-constexpr int LQ_CT = LQ_N / TILE_N;                // column tiles
-constexpr int LQ_STAGES = 3;
-constexpr int LQ_HALF = LQ_UNIT * BOX * 2;          // a unit's rows of h, 64 K
-constexpr int LQ_A = 2 * LQ_HALF;
-constexpr int LQ_B = TILE_N * BOX * 2;              // 256 rows of W, 64 K
-constexpr int LQ_STAGE = LQ_A + LQ_B;
-// a warpgroup's output rows staged for 16-byte stores; rows of 264 bf16, so
-// that the eight rows of a fragment's store fall in different banks
-constexpr int LQ_OUT_LD = TILE_N + 8;
-constexpr int LQ_OUT = LQ_UNIT * LQ_OUT_LD * 2;
-constexpr int LQ_SMEM = LQ_STAGES * LQ_STAGE + CONSUMERS * LQ_OUT + 1024;
-// K1a's block: the two consumer warpgroups and a whole producer warpgroup
-// (one thread of it works), so that setmaxnreg can give the consumers 232
-// registers a thread and the producers 40: at the launch's 168 (65 536 over
-// three warpgroups) the staged epilogue spilled
-constexpr int LQ_THREADS = 128 * (CONSUMERS + 1);
-constexpr int GRID_MAX = 132;                       // the card's SMs: a block each
+// ---- K1a, K1c and K2b: out = epilogue(A B) on 128-row tiles ---------------------------
+// A (M, K) is the activations, K-major, read in units of 64 rows (a warpgroup
+// each); B is W, either (N, K) in Linear layout (K-major: the forward's
+// out = A W^T) or (K, N) (MN-major: the data gradient's dX = dY W). A tile is
+// two units, consecutive in the list of computed units (so maybe of two
+// images), by BN of the N columns: a persistent grid walks the tiles of the
+// computed units only, so every block gets the same share of products; K is
+// staged 64 at a time through the ring. The epilogue stages each warpgroup's
+// rows in shared memory and stores the rows of the unit's computed 32-row
+// tiles 16 bytes a thread. The producer warpgroup's three idle warps write
+// the zeros of the 32-row tiles past valid_len while the consumers multiply.
+//
+// The epilogues, rounding as the D 192 kernels: EPI_BIAS (K1a) bf16(bf16(s) +
+// b); EPI_BIAS_RELU (K1c) relu of that; the data gradient's (gemm_common.cuh)
+// bf16(s), bf16(s [aux > 0]) and bf16(aux + s), s the f32 sums. The mask or
+// residual tile is TMA'd into the warpgroup's staging while the tile's later K
+// slices multiply (the staging is free once both warpgroups have passed the
+// tile's first slice), in the 128-byte swizzle of its boxes; the epilogue
+// turns it into the output in place.
+constexpr int EPI_BIAS = 3, EPI_BIAS_RELU = 4;  // after gemm_common.cuh's Epilogue
+constexpr int UNIT = 64;                        // rows of a unit: a warpgroup's
+constexpr int GRID_MAX = 132;                   // the card's SMs: a block each
+// the block: the two consumer warpgroups and a whole producer warpgroup (one
+// thread of it loads, three warps write the zero tiles), so that setmaxnreg
+// can give the consumers 232 registers a thread and the producers 40: at the
+// launch's 168 (65 536 over three warpgroups) K1a's staged epilogue spilled
+constexpr int GEMM_THREADS = 128 * (CONSUMERS + 1);
+constexpr int ZERO_THREADS = 96;                // the producer warpgroup's other three warps
+constexpr int DG_NARROW_N = 192;                // K2b's column tile at its N 768 sites
 
-__global__ void __launch_bounds__(LQ_THREADS, 1)
-ln_linear_wgmma_kernel(const __grid_constant__ CUtensorMap h_map,
-                       const __grid_constant__ CUtensorMap w_map, const bf16* __restrict__ bias,
-                       bf16* __restrict__ out, const int* __restrict__ valid_len, int M,
-                       int s_pad, int bsz) {
+template <int N_, int K_, int BN_, int EPI_>
+struct Gemm {
+  static constexpr int N = N_, K = K_, BN = BN_, EPI = EPI_;
+  static constexpr bool FWD = EPI == EPI_BIAS || EPI == EPI_BIAS_RELU;  // B = W (N, K)
+  static constexpr bool AUX = EPI == EPI_RELU_MASK || EPI == EPI_RESIDUAL;
+  static constexpr int KT = K / BOX;                // K slices of a tile
+  static constexpr int CT = N / BN;                 // column tiles
+  static constexpr int STAGES = BN == TILE_N ? 3 : 4;
+  static constexpr int HALF = UNIT * BOX * 2;       // a unit's rows of A, 64 K
+  static constexpr int A = 2 * HALF;
+  static constexpr int B = BN * BOX * 2;            // BN columns of W, 64 K
+  static constexpr int STAGE = A + B;
+  // a warpgroup's output rows, in the 128-byte swizzle of the boxes (64
+  // columns of 64 rows) that TMA writes the aux operand in: the eight rows of
+  // a fragment's 4-byte stores fall in different banks, and a 16-byte chunk
+  // of a row stays whole
+  static constexpr int OUT = UNIT * BN * 2;
+  static constexpr int SMEM = STAGES * STAGE + CONSUMERS * OUT + 1024;
+  static_assert(K % BOX == 0 && N % BN == 0 && BN % BOX == 0 && KT > STAGES &&
+                    SMEM + 4 * (MAX_IMAGES + 1) + 128 <= 227 * 1024,
+                "wgmma GEMM tile shape");
+};
+
+// the staged output's element (r, c) of a warpgroup's rows
+__device__ __forceinline__ int staged_at(int r, int c) {
+  return c / BOX * (UNIT * BOX) + r * BOX + ((c % BOX / 8) ^ (r % 8)) * 8 + c % 8;
+}
+
+template <int N, int K, int BN, int EPI>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+linear_wgmma_kernel(const __grid_constant__ CUtensorMap a_map,
+                    const __grid_constant__ CUtensorMap b_map, const bf16* __restrict__ bias,
+                    bf16* __restrict__ out, const int* __restrict__ valid_len, int M, int s_pad,
+                    int bsz, const __grid_constant__ CUtensorMap aux_map) {
+  using G = Gemm<N, K, BN, EPI>;
   __shared__ int first[MAX_IMAGES + 1];  // index of each image's first computed unit
-  __shared__ __align__(8) uint64_t full[LQ_STAGES], empty[LQ_STAGES];
+  __shared__ __align__(8) uint64_t full[G::STAGES], empty[G::STAGES], aux_full[CONSUMERS];
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = align_1024(smem_raw);
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  if (warp == 0) list_units<LQ_UNIT>(first, valid_len, bsz, s_pad);
+  if (warp == 0) list_units<UNIT>(first, valid_len, bsz, s_pad);
   if (threadIdx.x == 0) {
-    for (int s = 0; s < LQ_STAGES; ++s) {
+    for (int s = 0; s < G::STAGES; ++s) {
       wg::mbar_init(&full[s], 1);
       wg::mbar_init(&empty[s], RELEASES);
     }
+    if constexpr (G::AUX)
+      for (int c = 0; c < CONSUMERS; ++c) wg::mbar_init(&aux_full[c], 1);
     wg::mbar_fence_init();
   }
   __syncthreads();
-  const int units = first[bsz], tiles = (units + 1) / 2 * LQ_CT;
+  const int units = first[bsz], tiles = (units + 1) / 2 * G::CT;
 
-  if (warp >= PRODUCER_WARP) {  // one thread keeps the ring's loads in flight
+  if (warp >= PRODUCER_WARP) {
     wg::setmaxnreg_dec<40>();
-    if (warp == PRODUCER_WARP && lane == 0) {
-      wg::tma_prefetch(&h_map);
-      wg::tma_prefetch(&w_map);
+    if (warp == PRODUCER_WARP && lane == 0) {  // one thread keeps the ring's loads in flight
+      wg::tma_prefetch(&a_map);
+      wg::tma_prefetch(&b_map);
+      if constexpr (G::AUX) wg::tma_prefetch(&aux_map);
       int it = 0;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int p = t / LQ_CT, n0 = t % LQ_CT * TILE_N;
+        const int p = t / G::CT, n0 = t % G::CT * BN;
         // the tile's two units; an odd last one pairs with rows past M (zeros)
-        const int ra = unit_row<LQ_UNIT>(first, bsz, s_pad, 2 * p);
-        const int rb = 2 * p + 1 < units ? unit_row<LQ_UNIT>(first, bsz, s_pad, 2 * p + 1) : M;
-        for (int kt = 0; kt < LQ_KT; ++kt, ++it) {
-          const int s = it % LQ_STAGES;
-          wg::mbar_wait(&empty[s], ((it / LQ_STAGES) & 1) ^ 1);
-          unsigned char* st = ring + s * LQ_STAGE;
-          wg::mbar_expect_tx(&full[s], LQ_STAGE);
-          wg::tma_load_2d(st, &h_map, &full[s], kt * BOX, ra);
-          wg::tma_load_2d(st + LQ_HALF, &h_map, &full[s], kt * BOX, rb);
-          wg::tma_load_2d(st + LQ_A, &w_map, &full[s], kt * BOX, n0);
+        const int ra = unit_row<UNIT>(first, bsz, s_pad, 2 * p);
+        const int rb = 2 * p + 1 < units ? unit_row<UNIT>(first, bsz, s_pad, 2 * p + 1) : M;
+        for (int kt = 0; kt < G::KT; ++kt, ++it) {
+          const int s = it % G::STAGES;
+          wg::mbar_wait(&empty[s], ((it / G::STAGES) & 1) ^ 1);
+          unsigned char* st = ring + s * G::STAGE;
+          wg::mbar_expect_tx(&full[s], G::STAGE);
+          wg::tma_load_2d(st, &a_map, &full[s], kt * BOX, ra);
+          wg::tma_load_2d(st + G::HALF, &a_map, &full[s], kt * BOX, rb);
+          if constexpr (G::FWD) {
+            wg::tma_load_2d(st + G::A, &b_map, &full[s], kt * BOX, n0);
+          } else {
+#pragma unroll
+            for (int c = 0; c < BN / BOX; ++c)
+              wg::tma_load_2d(st + G::A + c * (BOX * BOX * 2), &b_map, &full[s], n0 + c * BOX,
+                              kt * BOX);
+          }
+          if constexpr (G::AUX) {
+            // the wait above saw both warpgroups release the tile's first
+            // slice, so both are done with their staging: the aux tiles go there
+            if (kt == G::STAGES) {
+#pragma unroll
+              for (int c = 0; c < CONSUMERS; ++c) {
+                unsigned char* stg = ring + G::STAGES * G::STAGE + c * G::OUT;
+                wg::mbar_expect_tx(&aux_full[c], G::OUT);
+#pragma unroll
+                for (int b = 0; b < BN / BOX; ++b)
+                  wg::tma_load_2d(stg + b * (UNIT * BOX * 2), &aux_map, &aux_full[c],
+                                  n0 + b * BOX, c == 0 ? ra : rb);
+              }
+            }
+          }
         }
+      }
+    }
+    if (warp > PRODUCER_WARP) {  // the rows of the 32-row tiles past valid_len
+      const int zt = threadIdx.x - (PRODUCER_WARP + 1) * 32;
+      for (int tile = blockIdx.x; tile < M / ROW_TILE; tile += gridDim.x) {
+        const int r0 = tile * ROW_TILE, b = r0 / s_pad;
+        if (r0 - b * s_pad < valid_len[b]) continue;
+        for (int c = zt; c < ROW_TILE * (N / 8); c += ZERO_THREADS)
+          *reinterpret_cast<uint4*>(out + (size_t)(r0 + c / (N / 8)) * N + c % (N / 8) * 8) =
+              make_uint4(0, 0, 0, 0);
       }
     }
     return;
@@ -296,61 +367,119 @@ ln_linear_wgmma_kernel(const __grid_constant__ CUtensorMap h_map,
   wg::setmaxnreg_inc<232>();
   const int wgi = warp / 4, q = warp % 4;
   const int g = lane >> 2, tq = lane & 3;
-  float acc[128];
-  int it = 0;
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int unit = t / LQ_CT * 2 + wgi, n0 = t % LQ_CT * TILE_N;
-    for (int kt = 0; kt < LQ_KT; ++kt, ++it) {
-      const int s = it % LQ_STAGES;
-      wg::mbar_wait(&full[s], (it / LQ_STAGES) & 1);
-      const unsigned char* a = ring + s * LQ_STAGE + wgi * LQ_HALF;
-      const unsigned char* b = ring + s * LQ_STAGE + LQ_A;
+  float acc[BN / 2];
+  int it = 0, done = 0;  // done: the tiles this block has finished
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++done) {
+    const int unit = t / G::CT * 2 + wgi, n0 = t % G::CT * BN;
+    for (int kt = 0; kt < G::KT; ++kt, ++it) {
+      const int s = it % G::STAGES;
+      wg::mbar_wait(&full[s], (it / G::STAGES) & 1);
+      const unsigned char* a = ring + s * G::STAGE + wgi * G::HALF;
+      const unsigned char* b = ring + s * G::STAGE + G::A;
       wg::fence_operand(acc);
       wg::fence();
 #pragma unroll
-      for (int j = 0; j < BOX / 16; ++j)  // k16 steps: 32 bytes along the swizzled rows
-        wg::mma_m64n256k16<0, 0>(acc, wg::desc_sw128(a + 32 * j, 16, 1024),
-                                 wg::desc_sw128(b + 32 * j, 16, 1024), (kt | j) != 0);
+      for (int j = 0; j < BOX / 16; ++j) {  // k16 steps
+        // A: 32 bytes along the swizzled rows; B: the same (K-major), or 16
+        // rows down its 64-column boxes, LBO the step from box to box (MN-major)
+        const uint64_t da = wg::desc_sw128(a + 32 * j, 16, 1024);
+        if constexpr (G::FWD)
+          wg::mma_m64k16<BN, 0, 0>(acc, da, wg::desc_sw128(b + 32 * j, 16, 1024), (kt | j) != 0);
+        else
+          wg::mma_m64k16<BN, 0, 1>(acc, da, wg::desc_sw128(b + 2048 * j, BOX * BOX * 2, 1024),
+                                   (kt | j) != 0);
+      }
       wg::commit();
       wg::fence_operand(acc);
       if (kt > 0) {  // the previous slice's products are done: its stage is free
         wg::wait<1>();
-        if (lane == 0) wg::mbar_arrive(&empty[(it - 1) % LQ_STAGES]);
+        if (lane == 0) wg::mbar_arrive(&empty[(it - 1) % G::STAGES]);
       }
     }
     wg::wait<0>();
-    if (lane == 0) wg::mbar_arrive(&empty[(it - 1) % LQ_STAGES]);
+    if (lane == 0) wg::mbar_arrive(&empty[(it - 1) % G::STAGES]);
     wg::fence_operand(acc);
+    if constexpr (G::AUX) wg::mbar_wait(&aux_full[wgi], done & 1);
     if (unit >= units) continue;  // the odd last tile's empty half
 
-    // epilogue: sums -> bf16 -> + bias -> bf16, staged in shared memory, then
-    // stored 16 bytes a thread on the rows of the unit's computed 32-row tiles
-    // (the pre-pass wrote the others' zeros)
-    bf16* staged = reinterpret_cast<bf16*>(ring + LQ_STAGES * LQ_STAGE + wgi * LQ_OUT);
-    wg::bar_sync(1 + wgi, 128);  // the warpgroup is done with its previous tile's rows
+    // epilogue: the sums through the epilogue into bf16, staged in shared
+    // memory, then stored 16 bytes a thread on the rows of the unit's
+    // computed 32-row tiles
+    bf16* staged = reinterpret_cast<bf16*>(ring + G::STAGES * G::STAGE + wgi * G::OUT);
+    // the warpgroup is done with its previous tile's rows (with an aux operand,
+    // it was before the producer's wait that let its TMA write them)
+    if constexpr (!G::AUX) wg::bar_sync(1 + wgi, 128);
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int rl = 16 * q + g + 8 * hh;
 #pragma unroll
-      for (int j = 0; j < TILE_N / 8; ++j) {
-        const float2 bb = unpack_bf16x2(
-            __ldg(reinterpret_cast<const unsigned int*>(bias + n0 + 8 * j + 2 * tq)));
-        *reinterpret_cast<uint32_t*>(staged + rl * LQ_OUT_LD + 8 * j + 2 * tq) =
-            pack_bf16x2(rnd<bf16>(rnd<bf16>(acc[4 * j + 2 * hh]) + bb.x),
-                        rnd<bf16>(rnd<bf16>(acc[4 * j + 2 * hh + 1]) + bb.y));
+      for (int j = 0; j < BN / 8; ++j) {
+        uint32_t* at = reinterpret_cast<uint32_t*>(staged + staged_at(rl, 8 * j + 2 * tq));
+        float v0 = acc[4 * j + 2 * hh], v1 = acc[4 * j + 2 * hh + 1];
+        if constexpr (G::FWD) {
+          const float2 bb = unpack_bf16x2(
+              __ldg(reinterpret_cast<const unsigned int*>(bias + n0 + 8 * j + 2 * tq)));
+          v0 = rnd<bf16>(rnd<bf16>(v0) + bb.x);
+          v1 = rnd<bf16>(rnd<bf16>(v1) + bb.y);
+          if constexpr (EPI == EPI_BIAS_RELU) {
+            v0 = fmaxf(v0, 0.f);
+            v1 = fmaxf(v1, 0.f);
+          }
+        }
+        if constexpr (EPI == EPI_RELU_MASK) {
+          const float2 m = unpack_bf16x2(*at);
+          v0 = m.x > 0.f ? v0 : 0.f;
+          v1 = m.y > 0.f ? v1 : 0.f;
+        }
+        if constexpr (EPI == EPI_RESIDUAL) {
+          const float2 r = unpack_bf16x2(*at);
+          v0 = r.x + v0;
+          v1 = r.y + v1;
+        }
+        *at = pack_bf16x2(v0, v1);
       }
     }
     wg::bar_sync(1 + wgi, 128);
-    const int r0 = unit_row<LQ_UNIT>(first, bsz, s_pad, unit);
+    const int r0 = unit_row<UNIT>(first, bsz, s_pad, unit);
     const int img = r0 / s_pad;
-    const int live = min(LQ_UNIT, (valid_len[img] - (r0 - img * s_pad) + ROW_TILE - 1) /
-                                      ROW_TILE * ROW_TILE);
-    for (int c = threadIdx.x % 128; c < live * (TILE_N / 8) && STORE; c += 128) {
-      const int r = c / (TILE_N / 8), ch = c % (TILE_N / 8);
-      *reinterpret_cast<uint4*>(out + (size_t)(r0 + r) * LQ_N + n0 + ch * 8) =
-          *reinterpret_cast<const uint4*>(staged + r * LQ_OUT_LD + ch * 8);
+    const int live = min(UNIT, (valid_len[img] - (r0 - img * s_pad) + ROW_TILE - 1) /
+                                   ROW_TILE * ROW_TILE);
+    for (int c = threadIdx.x % 128; c < live * (BN / 8) && STORE; c += 128) {
+      const int r = c / (BN / 8), ch = c % (BN / 8);
+      *reinterpret_cast<uint4*>(out + (size_t)(r0 + r) * N + n0 + ch * 8) =
+          *reinterpret_cast<const uint4*>(staged + staged_at(r, ch * 8));
     }
+    // the staging's next aux tile comes by TMA (the async proxy)
+    if constexpr (G::AUX) wg::fence_proxy_async();
   }
+}
+
+// one launch of linear_wgmma_kernel: a (M, K) K-major; w (N, K) (forward) or
+// (K, N) (data gradient); aux (M, N) with the mask and residual epilogues;
+// bias (N,) with the forward's
+template <int N, int K, int BN, int EPI>
+int gemm_launch(const bf16* a, const bf16* w, const bf16* aux, const bf16* bias, bf16* out,
+                const int* valid_len, int M, int s_pad, cudaStream_t st) {
+  using G = Gemm<N, K, BN, EPI>;
+  CUtensorMap a_map, b_map, aux_map;
+  int e;
+  if ((e = wg::make_map_2d(&a_map, a, K, M, (uint64_t)K * 2, BOX, UNIT)) != 0) return e;
+  if (G::FWD)
+    e = wg::make_map_2d(&b_map, w, K, N, (uint64_t)K * 2, BOX, BN);
+  else
+    e = wg::make_map_2d(&b_map, w, N, K, (uint64_t)N * 2, BOX, BOX);
+  if (e != 0) return e;
+  aux_map = a_map;  // a placeholder where there is no aux operand
+  if (G::AUX && (e = wg::make_map_2d(&aux_map, aux, N, M, (uint64_t)N * 2, BOX, UNIT)) != 0)
+    return e;
+  auto kernel = linear_wgmma_kernel<N, K, BN, EPI>;
+  if ((e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     G::SMEM)) != 0)
+    return e;
+  const int most = (M / UNIT + 1) / 2 * G::CT;  // the tiles if every row were computed
+  kernel<<<min(most, GRID_MAX), GEMM_THREADS, G::SMEM, st>>>(
+      a_map, b_map, bias, out, valid_len, M, s_pad, M / s_pad, aux_map);
+  return (int)cudaGetLastError();
 }
 
 // ---- K2c: dW = dY^T X', db = colsum dY ----------------------------------------------
@@ -563,23 +692,60 @@ int ln_linear_fwd_wgmma_bf16(const bf16* x, const float* g, const float* beta, f
                              const bf16* w, const bf16* bias, bf16* out, float* mean_out,
                              float* rstd_out, bf16* h, const int* valid_len, int M, int K, int N,
                              int s_pad, void* stream) {
-  if (!rows_ok_wgmma(M, s_pad) || s_pad % LQ_UNIT || M / s_pad > MAX_IMAGES || K != LQ_K ||
-      N != LQ_N || (mean_out == nullptr) != (rstd_out == nullptr))
+  if (!rows_ok_wgmma(M, s_pad) || s_pad % UNIT || M / s_pad > MAX_IMAGES || K != D_WIDE ||
+      N != 3 * D_WIDE || (mean_out == nullptr) != (rstd_out == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int e = ln_rows_launch<D_WIDE>(x, g, beta, eps, nullptr, nullptr, h, mean_out, rstd_out,
-                                 valid_len, M, s_pad, st, out, N);
+  const int e = ln_rows_launch<D_WIDE>(x, g, beta, eps, nullptr, nullptr, h, mean_out, rstd_out,
+                                       valid_len, M, s_pad, st);
   if (e != 0) return e;
-  CUtensorMap h_map, w_map;
-  if ((e = wg::make_map_2d(&h_map, h, K, M, (uint64_t)K * 2, BOX, LQ_UNIT)) != 0) return e;
-  if ((e = wg::make_map_2d(&w_map, w, K, N, (uint64_t)K * 2, BOX, TILE_N)) != 0) return e;
-  e = (int)cudaFuncSetAttribute(ln_linear_wgmma_kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize, LQ_SMEM);
-  if (e != 0) return e;
-  const int most = (M / LQ_UNIT + 1) / 2 * LQ_CT;  // the tiles if every row were computed
-  ln_linear_wgmma_kernel<<<min(most, GRID_MAX), LQ_THREADS, LQ_SMEM, st>>>(
-      h_map, w_map, bias, out, valid_len, M, s_pad, M / s_pad);
-  return (int)cudaGetLastError();
+  return gemm_launch<3 * D_WIDE, D_WIDE, TILE_N, EPI_BIAS>(h, w, nullptr, bias, out, valid_len,
+                                                           M, s_pad, st);
+}
+
+// K1c at D 768: x (M, 768), w (2048, 768), bias (2048,), out (M, 2048), bf16;
+// out = relu(bf16(bf16(x w^T) + bias)) on the rows of the 32-row tiles that
+// hold a valid row, zeros on the others. s_pad a multiple of 64, at most 1024
+// images; every pointer 16-byte aligned. The D 192 instance and the float32
+// ones are linear_relu_fwd_bf16's and linear_relu_fwd's.
+int linear_relu_fwd_wgmma_bf16(const bf16* x, const bf16* w, const bf16* bias, bf16* out,
+                               const int* valid_len, int M, int K, int N, int s_pad,
+                               void* stream) {
+  if (!rows_ok_wgmma(M, s_pad) || s_pad % UNIT || M / s_pad > MAX_IMAGES || K != D_WIDE ||
+      N != D_FFN)
+    return (int)cudaErrorInvalidValue;
+  return gemm_launch<D_FFN, D_WIDE, TILE_N, EPI_BIAS_RELU>(
+      x, w, nullptr, bias, out, valid_len, M, s_pad, static_cast<cudaStream_t>(stream));
+}
+
+// K2b at D 768: dy (M, K), w (K, N) (the forward's Linear weight, out x in),
+// out (M, N), bf16; epilogue and aux as linear_dgrad_bf16's, at a D 768
+// layer's four sites: K 768 -> N 2048 (mask, 256-column tiles), K 2048 -> N
+// 768 (residual), K 768 -> N 768 and K 2304 -> N 768 (none; the N 768 sites
+// on 192-column tiles: four a row of tiles, so that the tiles of a batch fill
+// the card's 132 SMs more evenly than three would). Zeros on the rows of the
+// 32-row tiles past valid_len. s_pad a multiple of 64, at most 1024 images;
+// every pointer 16-byte aligned.
+int linear_dgrad_wgmma_bf16(const bf16* dy, const bf16* w, const bf16* aux, bf16* out,
+                            int epilogue, const int* valid_len, int M, int K, int N, int s_pad,
+                            void* stream) {
+  if (!rows_ok_wgmma(M, s_pad) || s_pad % UNIT || M / s_pad > MAX_IMAGES ||
+      (epilogue != EPI_NONE) != (aux != nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K == D_WIDE && N == D_FFN && epilogue == EPI_RELU_MASK)
+    return gemm_launch<D_FFN, D_WIDE, TILE_N, EPI_RELU_MASK>(dy, w, aux, nullptr, out,
+                                                             valid_len, M, s_pad, st);
+  if (K == D_FFN && N == D_WIDE && epilogue == EPI_RESIDUAL)
+    return gemm_launch<D_WIDE, D_FFN, DG_NARROW_N, EPI_RESIDUAL>(dy, w, aux, nullptr, out,
+                                                                 valid_len, M, s_pad, st);
+  if (K == D_WIDE && N == D_WIDE && epilogue == EPI_NONE)
+    return gemm_launch<D_WIDE, D_WIDE, DG_NARROW_N, EPI_NONE>(dy, w, nullptr, nullptr, out,
+                                                              valid_len, M, s_pad, st);
+  if (K == 3 * D_WIDE && N == D_WIDE && epilogue == EPI_NONE)
+    return gemm_launch<D_WIDE, 3 * D_WIDE, DG_NARROW_N, EPI_NONE>(dy, w, nullptr, nullptr, out,
+                                                                  valid_len, M, s_pad, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K2c at D 768: dy (M, N), x (M, K) bf16 at the four weight shapes (N, K) of

@@ -56,12 +56,15 @@ SIGNATURES = {
 }
 # the bf16 instance of each kernel: the same arguments, bf16 activations
 SIGNATURES.update({f"{name}_bf16": argtypes for name, argtypes in list(SIGNATURES.items())})
-# bf16 only: the wgmma kernels of ChAdaViT-B/16's K1a and K2c and their LN1
-# pre-pass (csrc/linear_wgmma_bf16.cu), each with the pre-pass's h scratch
+# bf16 only: the wgmma kernels of ChAdaViT-B/16's K1a, K1c, K2b and K2c and the
+# LN1 pre-pass of K1a and K2c (csrc/linear_wgmma_bf16.cu); K1a and K2c take
+# the pre-pass's h scratch, K1c and K2b the arguments of their D 192 twins
 SIGNATURES.update({
     "ln_rows_bf16": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ln_linear_fwd_wgmma_bf16": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _P],
+    "linear_relu_fwd_wgmma_bf16": SIGNATURES["linear_relu_fwd_bf16"],
+    "linear_dgrad_wgmma_bf16": SIGNATURES["linear_dgrad_bf16"],
     "linear_wgrad_wgmma_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _P],
 })

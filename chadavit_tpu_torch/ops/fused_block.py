@@ -85,11 +85,12 @@ WIDTHS = {192: 2048, 768: 2048}
 # ChAdaViT-moyen's widths: launches at D_MODEL keep the entry point's name
 D_MODEL = 192
 D_FFN = 2048
-# ChAdaViT-B/16's width, where the bfloat16 K1a and K2c are wgmma kernels
+# ChAdaViT-B/16's width, where the bfloat16 K1a, K1c, K2b and K2c are wgmma kernels
 D_WIDE = 768
 # The bfloat16 ln_linear / linear_relu / linear_residual_ln / linear_dgrad /
 # linear_wgrad are tensor-core kernels (csrc/linear_fwd_bf16.cu,
-# csrc/linear_bwd_bf16.cu; K1a and K2c at D 768 csrc/linear_wgmma_bf16.cu)
+# csrc/linear_bwd_bf16.cu; K1a, K1c, K2b and K2c at D 768
+# csrc/linear_wgmma_bf16.cu)
 # that copy 16 bytes at a time. The first four own 64-row blocks, so s_pad
 # must be a multiple of 64 (the chain pads to SEQ_PAD). At D 192 wgrad's grid
 # is its output tiles (the (TN, TK) of each weight shape (N, K) below, as the
@@ -377,7 +378,10 @@ def _library_fn(name: str, dtype: torch.dtype):
 
 def _wgmma(dtype: torch.dtype, d: int) -> bool:
     """True where a step's bfloat16 kernel at width ``d`` is the wgmma one
-    (K1a and K2c at D 768, csrc/linear_wgmma_bf16.cu)."""
+    (csrc/linear_wgmma_bf16.cu): at D 768, K1a (``ln_linear_fwd_wgmma_bf16``),
+    K1c (``linear_relu_fwd_wgmma_bf16``), K2b at its four sites
+    (``linear_dgrad_wgmma_bf16``) and K2c (``linear_wgrad_wgmma_bf16``); K1b
+    and K2a keep their entry points."""
     return dtype == torch.bfloat16 and d == D_WIDE
 
 
@@ -451,8 +455,9 @@ def layernorm_rows(x, g, b, valid_len, eps: float = 1e-5, stats=None):
 def linear_relu(x, w, bias, valid_len):
     """``relu(x @ w^T + bias)`` (kernel ``linear_relu_fwd`` on CUDA; in
     bfloat16 on the tensor cores, S a multiple of :data:`BF16_GEMM_ROWS` and
-    x, w 16-byte aligned), all of one dtype. Forward only: raises where
-    autograd would record the call."""
+    x, w 16-byte aligned; at D 768 in bfloat16 ``linear_relu_fwd_wgmma_bf16``,
+    which also writes the zero-filled tiles' rows), all of one dtype. Forward
+    only: raises where autograd would record the call."""
     _launch.refuse_grad("linear_relu", x, w, bias)
     if _launch.on_cpu(x, w, bias, valid_len):
         return linear_relu_reference(x, w, bias, valid_len)
@@ -464,6 +469,8 @@ def linear_relu(x, w, bias, valid_len):
     tc = _copy_align("linear_relu", dt, s)
     out = torch.empty((bsz, s, n), dtype=dt, device=x.device)
     name, fn = _library_fn("linear_relu_fwd", dt)
+    if _wgmma(dt, d):
+        fn = _build.library().linear_relu_fwd_wgmma_bf16
     status = fn(
         _launch.vector_operand(x, "x", dt, tc), _launch.vector_operand(w, "w", dt, tc),
         _launch.vector_operand(bias, "bias", dt), _launch.vector_operand(out, "out", dt, tc),
@@ -603,8 +610,8 @@ def linear_dgrad(dy, w, valid_len, relu_of=None, residual=None):
     """``dX = dY @ W`` (W in Linear layout), masked by ``relu_of > 0`` or plus
     ``residual`` (kernel ``linear_dgrad`` on CUDA, at the layer's four sites
     only; in bfloat16 on the tensor cores, S a multiple of
-    :data:`BF16_GEMM_ROWS`), all of one dtype. See
-    :func:`linear_dgrad_reference`."""
+    :data:`BF16_GEMM_ROWS`; at D 768 in bfloat16 ``linear_dgrad_wgmma_bf16``),
+    all of one dtype. See :func:`linear_dgrad_reference`."""
     if _launch.on_cpu(dy, w, valid_len):
         return linear_dgrad_reference(dy, w, valid_len, relu_of, residual)
     if relu_of is not None and residual is not None:
@@ -621,6 +628,8 @@ def linear_dgrad(dy, w, valid_len, relu_of=None, residual=None):
     tc = _copy_align("linear_dgrad", dt, s)
     out = torch.empty((bsz, s, n), dtype=dt, device=dy.device)
     name, fn = _library_fn("linear_dgrad", dt)
+    if _wgmma(dt, _layer_width(k, n)):
+        fn = _build.library().linear_dgrad_wgmma_bf16
     status = fn(
         _rows("dy", dy, bsz, s, k, dt, tc), _launch.vector_operand(w, "w", dt, tc),
         None if aux is None else _rows("aux", aux, bsz, s, n, dt, tc), out.data_ptr(), epilogue,

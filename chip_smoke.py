@@ -23,8 +23,9 @@ Phases, each printed with its elapsed seconds at its start and end:
 1. build: nvcc compiles csrc/*.cu (layernorm.cu among them), one process per
    source, into one library (cold build seconds); beside it, nvcc -Xptxas -v
    on csrc/linear_fwd_bf16.cu, csrc/linear_bwd_bf16.cu,
-   csrc/linear_wgmma_bf16.cu (the wgmma K1a and K2c of ChAdaViT-B/16 and
-   their LN1 pre-pass), csrc/prefix_attention_bf16.cu, csrc/prefix_attention.cu,
+   csrc/linear_wgmma_bf16.cu (the wgmma K1a, K1c, K2b and K2c of
+   ChAdaViT-B/16 and the LN1 pre-pass of K1a and K2c),
+   csrc/prefix_attention_bf16.cu, csrc/prefix_attention.cu,
    csrc/prefix_attention_bwd.cu, csrc/fused_block.cu, csrc/fused_block_bwd.cu
    and csrc/layernorm.cu prints the registers, shared memory and spills of
    the tensor-core kernels, of the float32 attention forward and of the
@@ -74,8 +75,9 @@ Phases, each printed with its elapsed seconds at its start and end:
    bfloat16 at B 8, S_pad 1408 (channels 1, 3, 5, 7, 2, 7, 4, 6) on each of
    BF16_SEEDS, float32 at S_pad 640 (channels 3, 1, 2, 3, 1, 2, 3, 2): phase
    2's check_chain at D 768 and phase 2's bounds, launches counted under the
-   _d768 names (the bfloat16 K1a and K2c there are the wgmma kernels of
-   csrc/linear_wgmma_bf16.cu).
+   _d768 names (the bfloat16 K1a, K1c, K2b and K2c there are the wgmma
+   kernels of csrc/linear_wgmma_bf16.cu; the GEMM of the first three writes
+   the zeros of the 32-row tiles past valid_len itself).
 3. the JAX fixtures: the depth-2, full-width model's CLS embeddings
    (tests/goldens/torch_port_cls_depth2.npz) and three DINO train steps of
    that backbone with the canonical head (tests/goldens/torch_port_dino_depth2.npz),
@@ -378,12 +380,14 @@ CHAIN_ENTRIES = ("ln_linear_fwd", "linear_relu_fwd", "linear_residual_ln_fwd", "
 # phase 1: the layer chain's D 768 instances that must be among the kernels
 # built (demangled names, without the anonymous namespace)
 D768_KERNELS = [
-    "ln_linear_wgmma_kernel(", "linear_wgrad_wgmma_kernel(", "ln_rows_kernel<768>(",
-    "reduce_stream_kernel(", "linear_relu_bf16_kernel<768>(",
+    # bf16 on wgmma (csrc/linear_wgmma_bf16.cu): K1a, K1c, the four K2b sites
+    # (linear_wgmma_kernel<N, K, column tile, epilogue>), K2c and its second
+    # pass, the LN1 pre-pass
+    "linear_wgmma_kernel<2304, 768, 256, 3>(", "linear_wgmma_kernel<2048, 768, 256, 4>(",
+    "linear_wgmma_kernel<2048, 768, 256, 1>(", "linear_wgmma_kernel<768, 2048, 192, 2>(",
+    "linear_wgmma_kernel<768, 768, 192, 0>(", "linear_wgmma_kernel<768, 2304, 192, 0>(",
+    "linear_wgrad_wgmma_kernel(", "reduce_stream_kernel(", "ln_rows_kernel<768>(",
     "linear_residual_ln_bf16_kernel<768, 4>(", "linear_residual_ln_bf16_kernel<2048, 4>(",
-    "linear_dgrad_bf16_kernel<128, 768, 4, 1, false>(",
-    "linear_dgrad_bf16_kernel<192, 768, 1, 0, false>(",
-    "linear_dgrad_bf16_kernel<192, 2304, 1, 0, false>(",
     "ln_linear_kernel<768>(", "linear_relu_kernel<768>(", "linear_residual_ln_kernel<1, 4>(",
     "layernorm_bwd_kernel<768, float>(", "layernorm_bwd_kernel<768, __nv_bfloat16>(",
     "reduce_ln_splits_kernel<768>("]
@@ -1337,7 +1341,8 @@ def main() -> int:
     for name in CHAIN_ENTRIES:
         for tag in ("", "_bf16"):
             instances[fused_block.instance(name + tag, D16)] = instances[name + tag]
-    for name in ("ln_linear_fwd_bf16", "linear_wgrad_bf16"):  # wgmma and TMA at D 768
+    for name in ("ln_linear_fwd_bf16", "linear_relu_fwd_bf16", "linear_dgrad_bf16",
+                 "linear_wgrad_bf16"):  # wgmma and TMA at D 768
         wrapper, _, replaces, dt = instances[name]
         instances[fused_block.instance(name, D16)] = (wrapper, wgmma_cu, replaces, dt)
     stats = {name: {"max_abs_err": 0.0} for name in instances}
@@ -3094,7 +3099,7 @@ def main() -> int:
                                                         "linear_dgrad", "linear_wgrad",
                                                         "reduce_ln_splits", "reduce_splits",
                                                         "reduce_wgrad", "ln_rows",
-                                                        "reduce_stream"))) / 1e3
+                                                        "reduce_stream", "linear_wgmma"))) / 1e3
             log(f"  profiled B/16 bf16 step{what}, {B16_TRAIN_B} raw images of {int(cc_[0])} "
                 f"channels, the layer chain's kernels {chain16:.2f} ms, the "
                 f"multicrop inside: wall {wall16 * 1e3:.2f} ms, device busy {busy16:.2f} ms "

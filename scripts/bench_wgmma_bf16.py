@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Times ChAdaViT-B/16's bf16 K1a (``ln_linear`` at D 768) and its four K2c
-sites (``linear_wgrad`` at D 768) on one NVIDIA GPU, at chip_smoke.py's narrow
-hub shapes (phase 2c: 8 images of 1-7 channels, S_pad 1408, 6 868 valid rows),
-through the port's wrappers, and says whether the D 192 bf16 instances of the
-same two steps give the same bits as another tree's. Run from the root of the
+"""Times ChAdaViT-B/16's bf16 wgmma kernels at D 768 (K1a ``ln_linear``, K1c
+``linear_relu``, the four K2b sites of ``linear_dgrad`` and the four K2c sites
+of ``linear_wgrad``) on one NVIDIA GPU, at chip_smoke.py's narrow hub shapes
+(phase 2c: 8 images of 1-7 channels, S_pad 1408, 6 868 valid rows), through
+the port's wrappers, and says whether the D 192 bf16 instances of the same
+steps give the same bits as another tree's. Run from the root of the
 repository:
 
     python3 scripts/bench_wgmma_bf16.py [--parent DIR | --builds]
@@ -14,7 +15,10 @@ another commit, e.g. ``git archive`` of the parent into a directory that
 change, parent, each in a process of its own that builds its tree's kernels,
 and compares, between the trees, (a) the SASS of every kernel both libraries
 hold (``cuobjdump -sass``: the D 192 instances must compile to the code they
-had) and (b) a hash of the D 192 bf16 K1a and K2c outputs on seeded inputs.
+had) and (b) hashes of the D 192 bf16 K1a and K2c outputs and of the D 192
+bf16 K1c and K2b outputs on seeded inputs (``d192_digests``, which
+``tests/test_torch_kernels_gpu.py`` also reads), and of the D 768 bf16 K1a's
+qkv and row stats at the timed shapes.
 
 With ``--builds`` it times this tree's kernels as built and in three
 diagnostic builds of ``csrc/linear_wgmma_bf16.cu`` (compiled in parallel):
@@ -29,11 +33,13 @@ Each time is read three ways: CUDA events over 20 calls after 3 of warm-up
 the same calls queued behind a 0.1 s spin of the card (torch.cuda._sleep: the
 device's time), and the profiler's device time of the kernels the call
 launches. Beside them: one PyTorch call for the same function (K1a:
-``F.layer_norm`` then ``addmm``; K2c: ``mm`` of dY^T and X' and ``dy.sum(0)``,
-at the QKV site X' = ``F.layer_norm(x)``), never made by the port, and the
-bound (operations over 989 TFLOP/s or bytes over 3.35 TB/s, the larger, on
-the valid rows). Prints one JSON line per process and, with ``--parent``, a
-table of the turns; the card's name and power limit first.
+``F.layer_norm`` then ``addmm``; K1c: ``relu`` of ``addmm``; K2b: ``mm`` of dY
+and W, ``addmm`` onto the residual at FFN1, the product alone at the mask
+site; K2c: ``mm`` of dY^T and X' and ``dy.sum(0)``, at the QKV site X' =
+``F.layer_norm(x)``), never made by the port, and the bound (operations over
+989 TFLOP/s or bytes over 3.35 TB/s, the larger, on the valid rows). Prints
+one JSON line per process and, with ``--parent``, a table of the turns; the
+card's name and power limit first.
 """
 
 import argparse
@@ -49,12 +55,63 @@ ROOT = Path(__file__).resolve().parent.parent
 CHANNELS, S_PAD = [1, 3, 5, 7, 2, 7, 4, 6], 1408  # chip_smoke.NARROW_BF16
 D, F, EPS = 768, 2048, 1e-5
 SITES = {"qkv": (3 * D, D), "out": (D, D), "ffn1": (F, D), "ffn2": (D, F)}
+# K2b's sites: dY's width K, dX's N and the epilogue's operand
+DGRAD_SITES = {"ffn2": (D, F, "relu_of"), "ffn1": (F, D, "residual"), "out": (D, D, None),
+               "qkv": (3 * D, D, None)}
+ROWS = ("k1a", "k1c", *(f"k2b_{s}" for s in DGRAD_SITES), "k2b", *(f"k2c_{s}" for s in SITES),
+        "k2c")
+
+
+def d192_digests(fused_block, dev) -> dict:
+    """SHA-256 of the D 192 bf16 K1a and K2c outputs (``k1a_k2c``) and of the
+    D 192 bf16 K1c and K2b outputs (``k1c_k2b``) on inputs drawn from seed
+    201 at phase 2's hub shapes, through ``fused_block``'s wrappers."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(201)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    def digest(outs):
+        h = hashlib.sha256()
+        for t in outs:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    d, bsz, s = 192, 8, 2048
+    vl = torch.tensor([1 + 196 * c for c in (1, 3, 5, 10, 2, 7, 9, 10)], dtype=torch.int32,
+                      device=dev)
+    x = randn(bsz, s, d).bfloat16()
+    g, b = 1 + randn(d, scale=0.1), randn(d, scale=0.05)
+    outs = []
+    with torch.no_grad():
+        outs += fused_block.ln_linear(x, g, b, EPS, randn(3 * d, d).bfloat16(),
+                                      randn(3 * d).bfloat16(), vl, save=True)
+        mu, rs = (t[..., 0] for t in fused_block.layernorm_stats(x, EPS))
+    for n, k in ((3 * d, d), (d, d), (F, d), (d, F)):
+        dy = randn(bsz, s, n).bfloat16()
+        xs = x if n == 3 * d else randn(bsz, s, k).bfloat16()
+        outs += fused_block.linear_wgrad(dy, xs, vl, ln=(mu, rs, g, b) if n == 3 * d else None)
+    out = {"k1a_k2c": digest(outs)}
+    outs = []
+    with torch.no_grad():
+        outs.append(fused_block.linear_relu(x, randn(F, d, scale=d ** -0.5).bfloat16(),
+                                            randn(F, scale=0.1).bfloat16(), vl))
+    for k, n, aux in ((d, F, "relu_of"), (F, d, "residual"), (d, d, None), (3 * d, d, None)):
+        dy = randn(bsz, s, k).bfloat16()
+        kw = {} if aux is None else {aux: randn(bsz, s, n).bfloat16()}
+        outs.append(fused_block.linear_dgrad(dy, randn(k, n, scale=k ** -0.5).bfloat16(), vl,
+                                             **kw))
+    out["k1c_k2b"] = digest(outs)
+    return out
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
 
 def worker(root: Path) -> dict:
-    """This process's tree: the times of K1a and the K2c sites, and the hash of
-    the D 192 outputs."""
+    """This process's tree: the times of K1a, K1c and the K2b and K2c sites,
+    and the hashes of the D 192 outputs."""
     sys.path.insert(0, str(root))
     import numpy as np
     import torch
@@ -117,6 +174,30 @@ def worker(root: Path) -> dict:
             lambda: torch.addmm(bias, Fn.layer_norm(xf, (D,), gl, bl, EPS), w.t()),
             2 * rows * D * 3 * D, 2 * (rows * D + 3 * D * D + 3 * D + bsz * S_PAD * 3 * D))
         mean, rstd = (t[..., 0] for t in fused_block.layernorm_stats(x, EPS))
+        h = hashlib.sha256()  # K1a's qkv and stats, whose bits a redesign keeps
+        for t in fused_block.ln_linear(x, g, b, EPS, w, bias, vl, save=True):
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        out["k1a_sha256"] = h.hexdigest()
+        x2 = randn(bsz, S_PAD, D).bfloat16()
+        w1, b1 = randn(F, D, scale=D ** -0.5).bfloat16(), randn(F, scale=0.02).bfloat16()
+        x2f = x2.reshape(-1, D)
+        out["k1c"] = reading(
+            lambda: fused_block.linear_relu(x2, w1, b1, vl),
+            lambda: torch.relu(torch.addmm(b1, x2f, w1.t())),
+            2 * rows * D * F, 2 * (rows * D + F * D + F + bsz * S_PAD * F))
+    for site, (k, n, aux) in DGRAD_SITES.items():
+        dy = randn(bsz, S_PAD, k).bfloat16()
+        for i, t in enumerate(tiles):
+            dy[i, t:] = 0
+        wk = randn(k, n, scale=k ** -0.5).bfloat16()
+        kw = {} if aux is None else {aux: randn(bsz, S_PAD, n).bfloat16()}
+        dyf = dy.reshape(-1, k)
+        lib = ((lambda: torch.addmm(kw["residual"].reshape(-1, n), dyf, wk))
+               if aux == "residual" else (lambda: torch.mm(dyf, wk)))
+        out[f"k2b_{site}"] = reading(
+            lambda: fused_block.linear_dgrad(dy, wk, vl, **kw), lib,
+            2 * rows * k * n, 2 * (rows * k + k * n + (aux is not None) * rows * n
+                                   + bsz * S_PAD * n))
     for site, (n, k) in SITES.items():
         dy = randn(bsz, S_PAD, n).bfloat16()
         for i, t in enumerate(tiles):
@@ -130,28 +211,11 @@ def worker(root: Path) -> dict:
             lambda: fused_block.linear_wgrad(dy, xs, vl, ln=ln), lib,
             2 * rows * n * k + rows * n, 2 * rows * (n + k) + 4 * (n * k + n))
         out[f"k2c_{site}"]["library_mm_only_ms"] = events(lambda: torch.mm(dyf.t(), xsf))
-    out["k2c"] = {key: sum(out[f"k2c_{s}"][key] for s in SITES)
-                  for key in ("events_ms", "head_start_ms", "device_ms", "library_ms",
-                              "bound_ms")}
-
-    # the D 192 bf16 K1a and K2c on seeded inputs: a hash of their bits
-    d, valid192 = 192, [1 + 196 * c for c in (1, 3, 5, 10, 2, 7, 9, 10)]
-    vl192 = torch.tensor(valid192, dtype=torch.int32, device=dev)
-    x192 = randn(8, 2048, d).bfloat16()
-    g192, b192 = 1 + randn(d, scale=0.1), randn(d, scale=0.05)
-    h = hashlib.sha256()
-    with torch.no_grad():
-        for t in fused_block.ln_linear(x192, g192, b192, EPS, randn(3 * d, d).bfloat16(),
-                                       randn(3 * d).bfloat16(), vl192, save=True):
-            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
-        mu192, rs192 = (t[..., 0] for t in fused_block.layernorm_stats(x192, EPS))
-    for n, k in ((3 * d, d), (d, d), (F, d), (d, F)):
-        dy = randn(8, 2048, n).bfloat16()
-        xs = x192 if n == 3 * d else randn(8, 2048, k).bfloat16()
-        ln = (mu192, rs192, g192, b192) if n == 3 * d else None
-        for t in fused_block.linear_wgrad(dy, xs, vl192, ln=ln):
-            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
-    out["d192_sha256"] = h.hexdigest()
+    for row, sites in (("k2b", DGRAD_SITES), ("k2c", SITES)):
+        out[row] = {key: sum(out[f"{row}_{s}"][key] for s in sites)
+                    for key in ("events_ms", "head_start_ms", "device_ms", "library_ms",
+                                "bound_ms")}
+    out["d192_sha256"] = d192_digests(fused_block, dev)
     out["library"] = str(_build.build())
     return out
 
@@ -167,11 +231,13 @@ def sass(lib: str) -> dict:
         if m:
             name = m.group(1)
             kernels[name] = []
+        elif line.startswith("Fatbin"):  # the next object's header: the last kernel ended
+            name = None
         elif name is not None:
             kernels[name].append(line)
     names = subprocess.run(["/usr/local/cuda/bin/cu++filt"], input="\n".join(kernels),
                            capture_output=True, text=True, check=True).stdout.splitlines()
-    return {n.replace("(anonymous namespace)::", ""): "\n".join(body)
+    return {n.replace("(anonymous namespace)::", ""): "\n".join(body).rstrip()
             for n, body in zip(names, kernels.values())}
 
 
@@ -205,7 +271,8 @@ def builds() -> None:
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
         lib = ctypes.CDLL(str(out_dir / f"{name.replace(' ', '_')}.so"))
-        for fn in ("ln_linear_fwd_wgmma_bf16", "linear_wgrad_wgmma_bf16"):
+        for fn in ("ln_linear_fwd_wgmma_bf16", "linear_relu_fwd_wgmma_bf16",
+                   "linear_dgrad_wgmma_bf16", "linear_wgrad_wgmma_bf16"):
             getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
@@ -228,7 +295,22 @@ def builds() -> None:
     calls = {"k1a": lambda lib: lib.ln_linear_fwd_wgmma_bf16(
         x.data_ptr(), g.data_ptr(), b.data_ptr(), EPS, w.data_ptr(), bias.data_ptr(),
         out.data_ptr(), None, None, h.data_ptr(), vl.data_ptr(), m, D, 3 * D, S_PAD, stream)}
+    w1, b1 = randn(F, D, scale=D ** -0.5).bfloat16(), randn(F, scale=0.02).bfloat16()
+    hid = torch.empty(bsz, S_PAD, F, dtype=torch.bfloat16, device=dev)
+    calls["k1c"] = lambda lib: lib.linear_relu_fwd_wgmma_bf16(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), hid.data_ptr(), vl.data_ptr(), m, D, F, S_PAD,
+        stream)
     keep = []
+    for site, (k, n, aux) in DGRAD_SITES.items():
+        dy, wk = randn(bsz, S_PAD, k).bfloat16(), randn(k, n, scale=k ** -0.5).bfloat16()
+        a = None if aux is None else randn(bsz, S_PAD, n).bfloat16()
+        dx = torch.empty(bsz, S_PAD, n, dtype=torch.bfloat16, device=dev)
+        epilogue = {None: 0, "relu_of": 1, "residual": 2}[aux]
+        keep += [dy, wk, a, dx]
+        calls[f"k2b_{site}"] = (lambda lib, dy=dy, wk=wk, a=a, dx=dx, e=epilogue, k=k, n=n:
+                                lib.linear_dgrad_wgmma_bf16(
+            dy.data_ptr(), wk.data_ptr(), None if a is None else a.data_ptr(), dx.data_ptr(), e,
+            vl.data_ptr(), m, k, n, S_PAD, stream))
     for site, (n, k) in SITES.items():
         dy = randn(bsz, S_PAD, n).bfloat16()
         xs = x if site == "qkv" else randn(bsz, S_PAD, k).bfloat16()
@@ -294,7 +376,7 @@ def main() -> int:
     if args.parent is None:
         return 0
     labels = ["p1", "c1", "c2", "p2"]
-    for item in ("k1a", "k2c_qkv", "k2c_out", "k2c_ffn1", "k2c_ffn2", "k2c"):
+    for item in ROWS:
         cells = ", ".join(f"{lab} {r[item]['events_ms']:.4f} / {r[item]['head_start_ms']:.4f} / "
                           f"{r[item]['device_ms']:.4f}" for lab, r in zip(labels, runs))
         print(f"{item} (events / after a head start / profiler, ms): {cells}; library "
@@ -306,9 +388,20 @@ def main() -> int:
           f"identical; differing: {differ or 'none'}; only the parent's: "
           f"{sorted(set(parent_sass) - set(change_sass))}; only the change's: "
           f"{sorted(set(change_sass) - set(parent_sass))}")
-    same = len({r["d192_sha256"] for r in runs}) == 1
-    print(f"D 192 bf16 K1a and K2c outputs: {'the same bits' if same else 'OTHER BITS'} in "
-          f"every turn")
+    for k in differ:  # where they differ: from the first line that does
+        a, b = parent_sass[k].splitlines(), change_sass[k].splitlines()
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        print(f"  {k[:80]}: {len(a)} / {len(b)} lines, the first {i} the same; then the "
+              f"parent's {' | '.join(x.strip() for x in a[i:i + 6])} ; the change's "
+              f"{' | '.join(y.strip() for y in b[i:i + 6])}")
+    same = True
+    for key, what in (("k1a_k2c", "D 192 bf16 K1a and K2c"), ("k1c_k2b", "D 192 bf16 K1c and K2b"),
+                      (None, "D 768 bf16 K1a")):
+        digests = {r["k1a_sha256"] if key is None else r["d192_sha256"][key] for r in runs}
+        same &= len(digests) == 1
+        print(f"{what} outputs: "
+              f"{'the same bits' if len(digests) == 1 else 'OTHER BITS'} in every turn "
+              f"(sha256 {', '.join(sorted(digests))})")
     return 0 if same and not differ else 1
 
 

@@ -1461,3 +1461,86 @@ def test_ln_rows_prepass_takes_k1as_stats(dev, batch):
     h2, *_ = fused_block.layernorm_rows(x, g, beta, vl, stats=(mean, rstd))
     torch.cuda.synchronize()
     assert torch.equal(h, h2)
+
+
+# ---- ChAdaViT-B/16's bf16 K1c and K2b on wgmma (csrc/linear_wgmma_bf16.cu) ------
+# K1c (linear_relu at D 768) and K2b (linear_dgrad at its four D 768 sites)
+# against their plain bf16 versions (bf16_err's bounds) on D768_BATCHES and
+# three seeds: a second call repeats the bits, and the rows of the 32-row
+# tiles past the prefix, which the kernels write themselves (no pre-pass),
+# are zeros also where the output's memory held NaN before. The cotangent of
+# K2b is on every row of the computed tiles, as the chain's.
+DGRAD_D768_SITES = {"ffn2": (D16, F, "relu_of"), "ffn1": (F, D16, "residual"),
+                    "out": (D16, D16, None), "qkv": (3 * D16, D16, None)}
+
+
+def _nan_block(shape, dev):
+    """Leaves a freed block of NaN of ``shape`` in the caching allocator, which
+    the next allocation of that size takes."""
+    torch.full(shape, float("nan"), dtype=torch.bfloat16, device=dev)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("batch", list(D768_BATCHES))
+def test_d768_wgmma_linear_relu(dev, batch, seed):
+    s, valid = D768_BATCHES[batch]
+    rng = np.random.default_rng(500 + seed)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    x = _randn(rng, dev, len(valid), s, D16).bfloat16()
+    w = _randn(rng, dev, F, D16, scale=D16 ** -0.5).bfloat16()
+    b = _randn(rng, dev, F, scale=0.1).bfloat16()
+    name = "linear_relu_fwd_bf16_d768"
+    before = _launch.LAUNCHES[name]
+    with torch.no_grad():
+        _nan_block((len(valid), s, F), dev)
+        out = fused_block.linear_relu(x, w, b, vl)
+        _nan_block((len(valid), s, F), dev)
+        again = fused_block.linear_relu(x, w, b, vl)
+    assert _launch.LAUNCHES[name] == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(out, again), "a second call gives other bits"
+    rows = [min(-(-n // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK, s) for n in valid]
+    _assert_bf16_close(out, fused_block.linear_relu_reference(x, w, b), rows)
+    for i, n in enumerate(rows):  # the zero-filled tiles get exact zeros
+        assert not out[i, n:].any().item(), (i, n)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("site", list(DGRAD_D768_SITES))
+@pytest.mark.parametrize("batch", list(D768_BATCHES))
+def test_d768_wgmma_dgrad(dev, batch, site, seed):
+    s, valid = D768_BATCHES[batch]
+    k, n, aux = DGRAD_D768_SITES[site]
+    rng = np.random.default_rng(600 + seed)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    dy = _tail_cotangent(_randn(rng, dev, len(valid), s, k), valid,
+                         fused_block.ROW_BLOCK).bfloat16()
+    w = _randn(rng, dev, k, n, scale=k ** -0.5).bfloat16()
+    kw = {} if aux is None else {aux: _randn(rng, dev, len(valid), s, n).bfloat16()}
+    name = "linear_dgrad_bf16_d768"
+    before = _launch.LAUNCHES[name]
+    _nan_block((len(valid), s, n), dev)
+    out = fused_block.linear_dgrad(dy, w, vl, **kw)
+    _nan_block((len(valid), s, n), dev)
+    again = fused_block.linear_dgrad(dy, w, vl, **kw)
+    assert _launch.LAUNCHES[name] == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(out, again), "a second call gives other bits"
+    rows = [min(-(-m // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK, s) for m in valid]
+    _assert_bf16_close(out, fused_block.linear_dgrad_reference(dy, w, vl, **kw), rows)
+    for i, m in enumerate(rows):
+        assert not out[i, m:].any().item(), (i, m)
+
+
+# the D 192 bf16 K1c and K2b outputs on scripts/bench_wgmma_bf16.py's seeded
+# inputs (d192_digests), as the tree before the D 768 instances moved to
+# wgmma computed them on an H100: the D 192 instances keep their bits
+D192_K1C_K2B_SHA256 = "4a6ee6631f9fe68d8df472e48476b9b34a0eacd18c8f916ed7750f2b1f9a3434"
+
+
+def test_d192_bf16_linear_relu_and_dgrad_keep_their_bits(dev):
+    path = Path(__file__).resolve().parent.parent / "scripts" / "bench_wgmma_bf16.py"
+    spec = importlib.util.spec_from_file_location("bench_wgmma_bf16", path)
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    assert bench.d192_digests(fused_block, dev)["k1c_k2b"] == D192_K1C_K2B_SHA256

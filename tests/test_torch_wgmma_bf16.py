@@ -1,9 +1,10 @@
-"""The CUDA route of ChAdaViT-B/16's bfloat16 K1a and K2c (D 768), whose
-kernels are wgmma products fed by TMA (``csrc/linear_wgmma_bf16.cu``), with
-the launch stubbed: ``ln_linear`` and ``linear_wgrad`` hand the wgmma entry
-points their operands, the LN1 pre-pass's scratch and the stream-K walk's
-grid, count the launches under the D 768 instance names, and leave D 192 and
-float32 on their own entry points. Then the pre-pass's plain version
+"""The CUDA route of ChAdaViT-B/16's bfloat16 K1a, K1c, K2b and K2c (D 768),
+whose kernels are wgmma products fed by TMA (``csrc/linear_wgmma_bf16.cu``),
+with the launch stubbed: ``ln_linear``, ``linear_relu``, ``linear_dgrad`` and
+``linear_wgrad`` hand the wgmma entry points their operands, the LN1
+pre-pass's scratch and the stream-K walk's grid, count the launches under the
+D 768 instance names, and leave D 192 and float32 on their own entry points.
+Then the pre-pass's plain version
 (``layernorm_rows_reference``): the h of ``ln_linear_reference``, and JAX's
 LN1 (``chadavit_tpu/ops/fused_block.py``: ``_stats`` and phase A's h) on the
 same seeded numpy inputs. The kernels are held against the plain versions on
@@ -88,20 +89,78 @@ def test_d768_wgrad_counts_under_its_instance(fake_cuda, site):
 
 
 def test_d768_layer_chain_takes_the_wgmma_kernels(fake_cuda):
-    # the bfloat16 layer at D 768: K1a through the wgmma entry point forward,
-    # and in the backward K1a's recompute and the four wgrad sites too
+    # the bfloat16 layer at D 768: K1a and K1c through the wgmma entry points
+    # forward, and in the backward their recomputes, the four K2b and the
+    # four K2c sites too; K1b, K2a and the attention keep theirs
     d = DW
     shapes = [(3 * d, d), (3 * d,), (d, d), (d,), (d,), (d,), (d,), (d,), (F, d), (F,), (d, F),
               (d,)]
     ws = [torch.zeros(sh, requires_grad=True) for sh in shapes]
     x = _z(2, 128, d).requires_grad_(True)
     y = fused_block.fused_encoder_block(x, VL, *ws, 12)
-    assert fake_cuda.calls[0] == "ln_linear_fwd_wgmma_bf16"
+    assert fake_cuda.calls == ["ln_linear_fwd_wgmma_bf16", "prefix_attention_fwd_bf16",
+                               "linear_residual_ln_fwd_bf16", "linear_relu_fwd_wgmma_bf16",
+                               "linear_residual_ln_fwd_bf16"]
     forward = len(fake_cuda.calls)
     y.backward(torch.zeros_like(y))
     backward = fake_cuda.calls[forward:]
     assert backward.count("linear_wgrad_wgmma_bf16") == 4 and "linear_wgrad_bf16" not in backward
+    assert backward.count("linear_dgrad_wgmma_bf16") == 4 and "linear_dgrad_bf16" not in backward
     assert backward.count("ln_linear_fwd_wgmma_bf16") == 1
+    assert backward.count("linear_relu_fwd_wgmma_bf16") == 1
+    assert "linear_relu_fwd_bf16" not in backward
+
+
+def test_d768_linear_relu_takes_the_wgmma_entry_point(fake_cuda):
+    x, w, bias = _z(2, 128, DW), _z(F, DW), _z(F)
+    before = _launch.LAUNCHES["linear_relu_fwd_bf16_d768"]
+    with torch.no_grad():
+        out = fused_block.linear_relu(x, w, bias, VL)
+    (name,), (args,) = fake_cuda.calls, fake_cuda.args
+    assert name == "linear_relu_fwd_wgmma_bf16"
+    assert _launch.LAUNCHES["linear_relu_fwd_bf16_d768"] == before + 1
+    # the D 192 kernel's arguments: no scratch, the kernel writes the zero tiles
+    assert args == (x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), VL.data_ptr(),
+                    2 * 128, DW, F, 128, 0)
+    assert out.shape == (2, 128, F) and out.dtype == BF16
+
+
+DGRAD_SITES = {"ffn2": (DW, F, "relu_of", 1), "ffn1": (F, DW, "residual", 2),
+               "out": (DW, DW, None, 0), "qkv": (3 * DW, DW, None, 0)}
+
+
+@pytest.mark.parametrize("site", list(DGRAD_SITES))
+def test_d768_dgrad_takes_the_wgmma_entry_point(fake_cuda, site):
+    k, n, aux, epilogue = DGRAD_SITES[site]
+    dy, w = _z(2, 128, k), _z(k, n)
+    kw = {} if aux is None else {aux: _z(2, 128, n)}
+    before = _launch.LAUNCHES["linear_dgrad_bf16_d768"]
+    out = fused_block.linear_dgrad(dy, w, VL, **kw)
+    (name,), (args,) = fake_cuda.calls, fake_cuda.args
+    assert name == "linear_dgrad_wgmma_bf16"
+    assert _launch.LAUNCHES["linear_dgrad_bf16_d768"] == before + 1
+    aux_ptr = None if aux is None else kw[aux].data_ptr()
+    assert args == (dy.data_ptr(), w.data_ptr(), aux_ptr, out.data_ptr(), epilogue,
+                    VL.data_ptr(), 2 * 128, k, n, 128, 0)
+    assert out.shape == (2, 128, n) and out.dtype == BF16
+
+
+@pytest.mark.parametrize("d, dtype, entry", [
+    (fused_block.D_MODEL, BF16, "_bf16"),  # D 192: the mma.sync kernels
+    (DW, torch.float32, ""),  # float32: the CUDA-core kernels
+    (fused_block.D_MODEL, torch.float32, "")])
+@pytest.mark.parametrize("step", ["linear_relu", "linear_dgrad"])
+def test_linear_relu_and_dgrad_keep_their_other_entry_points(fake_cuda, d, dtype, entry, step):
+    if step == "linear_relu":
+        with torch.no_grad():
+            fused_block.linear_relu(_z(2, 128, d, dtype=dtype), _z(F, d, dtype=dtype),
+                                    _z(F, dtype=dtype), VL)
+        want = "linear_relu_fwd" + entry
+    else:
+        fused_block.linear_dgrad(_z(2, 128, 3 * d, dtype=dtype), _z(3 * d, d, dtype=dtype), VL)
+        want = "linear_dgrad" + entry
+    assert fake_cuda.calls == [want]
+    assert _launch.LAUNCHES[fused_block.instance(want, d)] > 0
 
 
 def test_layernorm_rows_passes_the_stats_in_or_out(fake_cuda):
