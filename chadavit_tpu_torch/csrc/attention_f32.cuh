@@ -8,9 +8,9 @@
 // recomputed ones are the same bits); and the second product, a thread's 4
 // rows x HD / 8 head columns summed over a tile's 64 rows in order
 // (sgemm::outer). Every piece is a template on the head width HD, one of
-// HEAD_DIMS: 96 (ChAdaViT-moyen, D 192 in 2 heads) and 64 (ChAdaViT-B/16,
-// D 768 in 12 heads). Each including file gets its own copy (anonymous
-// namespace).
+// HEAD_DIMS: 96 (ChAdaViT-moyen, D 192 in 2 heads), 64 (ChAdaViT-B/16, D 768
+// in 12 heads) and 32 (the smoke configs, D 64 in 2 heads). Each including
+// file gets its own copy (anonymous namespace).
 
 #pragma once
 
@@ -20,7 +20,9 @@ namespace {
 
 constexpr int BT = 64;  // query and key tile
 // the head widths the kernels are built for; the entry points refuse others
-__host__ __device__ constexpr bool built_head_dim(int hd) { return hd == 64 || hd == 96; }
+__host__ __device__ constexpr bool built_head_dim(int hd) {
+  return hd == 32 || hd == 64 || hd == 96;
+}
 // a staged head row, padded: rows 4 banks apart (HD a multiple of 32)
 template <int HD>
 constexpr int LDH = HD + 4;

@@ -22,14 +22,17 @@
 // stream the weight through the ring; D = 192 fits one block's columns, so
 // linear_residual_ln_fwd's LayerNorm epilogue stays in the block.
 //
-// Each kernel is built for the layer's two widths, D 192 (ChAdaViT-moyen)
-// and D 768 (ChAdaViT-B/16), FFN 2048 at both: ln_linear_fwd and
-// linear_relu_fwd are templates on K = D (at D 768 the resident rows take
-// 98.8 KB, so one block an SM), and linear_residual_ln_fwd at D 768 is a
-// cluster of four blocks along the columns, each the D 192 tile, that add
-// their rows' partial LayerNorm sums through distributed shared memory. The
-// D 192 instances compile to the code they had. The launchers refuse any
-// other width.
+// Each kernel is built for the layer's three widths, D 192 (ChAdaViT-moyen),
+// D 768 (ChAdaViT-B/16) and D 64 (the smoke configs), FFN 2048 at each:
+// ln_linear_fwd and linear_relu_fwd are templates on K = D (at D 768 the
+// resident rows take 98.8 KB, so one block an SM; at D 64 Wqkv's 192 rows
+// are one slab), linear_residual_ln_fwd at D 768 is a cluster of four blocks
+// along the columns, each the D 192 tile, that add their rows' partial
+// LayerNorm sums through distributed shared memory, and at D 64 a template on
+// its column tile BN = 64, so that one block still owns whole rows. At D 64
+// every product has 64 on one side, so every step is bound by its bytes. The
+// D 192 and D 768 instances compile to the code they had. The launchers
+// refuse any other width.
 //
 // The three kernels here are float32 only. The bf16 path the JAX package
 // trains in (precision "bf16": bf16 activations, f32 parameters cast to bf16
@@ -60,6 +63,7 @@
 #include "sgemm_f32.cuh"
 
 #include <cooperative_groups.h>
+#include <type_traits>
 
 namespace {
 
@@ -128,12 +132,17 @@ struct LnLinearF32 {
   static constexpr int N = 3 * K;     // qkv's columns
   static constexpr int LDX = K + 4;   // a resident x row, padded
   static constexpr int SMEM = (BM * LDX + LL_STAGES * LL_STAGE) * 4;
-  // blocks an SM by shared memory (227 KB, 1 KB of it reserved a block): the
-  // register budget follows from it (D 192: three; D 768: one)
-  static constexpr int BLOCKS_SM = 232448 / (SMEM + 1024) > 0 ? 232448 / (SMEM + 1024) : 1;
-  static_assert(LL_BN % (8 * LL_TN) == 0 && BM == 4 * LL_TM && N % (LL_SLABS * LL_BN) == 0 &&
+  // blocks an SM by shared memory (227 KB, 1 KB of it reserved a block), at
+  // most three: the register budget follows from it (D 192 and D 64: three,
+  // 168 registers a thread; D 768: one)
+  static constexpr int BY_SMEM = 232448 / (SMEM + 1024);
+  static constexpr int BLOCKS_SM = BY_SMEM > 3 ? 3 : BY_SMEM > 0 ? BY_SMEM : 1;
+  static_assert(LL_BN % (8 * LL_TN) == 0 && BM == 4 * LL_TM &&
                     LL_BN * LL_BK / 4 % LL_THREADS == 0,
                 "ln_linear tile shape");
+  // the cut of qkv's columns: a bench build's wider cuts (LL_SLABS, LL_BN)
+  // take D 192's 576 columns but not D 64's 192
+  static constexpr bool CUT_FITS = N % (LL_SLABS * LL_BN) == 0;
 };
 
 template <int K>
@@ -145,6 +154,7 @@ ln_linear_kernel(const float* __restrict__ x, const float* __restrict__ g,
                  const int* __restrict__ valid_len, int s_pad) {
   constexpr int N = LnLinearF32<K>::N, KS = K / LL_BK;  // stages a slab
   constexpr int LL_LDX = LnLinearF32<K>::LDX;
+  static_assert(LnLinearF32<K>::CUT_FITS, "ln_linear tile shape");
   constexpr int COLS = LL_SLABS * LL_BN;                 // the block's columns
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * COLS;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -409,6 +419,10 @@ linear_relu_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // scripts/bench_linear_f32.py can time other splits of the same source; the
 // out-projection (K 192) takes no split.
 //
+// At D 64 (BN = 64) the block owns whole rows of 64 columns: each warp takes
+// 32 rows x 16 columns, a thread 4 rows x 4 columns (rows ty + 8 i, columns
+// tx + 4 j of its warp's), the same ring, K split and LayerNorm epilogue.
+//
 // At D 768 (CB = 4 column blocks) a row is four of the D 192 tiles: a
 // cluster of CB blocks owns one 32-row tile and block `rank` its 192
 // columns [192 rank, 192 (rank + 1)), over all of K (no K split: the four
@@ -430,17 +444,23 @@ constexpr int LRN_BN = D_MODEL;
 constexpr int LRN_BK = 16;
 constexpr int LRN_LD = LRN_BK + 4;  // a staged row, padded
 constexpr int LRN_STAGES = 4;
-constexpr int LRN_WARPS = 4;        // 32 rows x 48 columns a warp
+constexpr int LRN_WARPS = 4;        // 32 rows x BN / 4 columns a warp
 constexpr int LRN_THREADS = LRN_WARPS * 32;
-constexpr int LRN_TM = 4, LRN_TN = 12;  // a thread's rows and columns
-constexpr int LRN_STAGE = (LRN_BM + LRN_BN) * LRN_LD;  // floats
-constexpr int LRN_LDR = LRN_BN + 4;     // the row tile of sums
-constexpr int LRN_SMEM = LRN_STAGES * LRN_STAGE * 4;
-static_assert(LRN_BN == LRN_WARPS * 4 * LRN_TN && LRN_BM == 8 * LRN_TM &&
-                  LRN_BM * LRN_LDR <= LRN_STAGES * LRN_STAGE,
-              "linear_residual_ln tile shape");
+constexpr int LRN_TM = 4;           // a thread's rows
 
-template <int SPLIT, int CB>
+template <int BN>  // the block's columns: D_MODEL (D 192 and D 768) or D_SMALL
+struct ResLnF32 {
+  static constexpr int WC = BN / LRN_WARPS;     // a warp's columns
+  static constexpr int TN = WC / 4;             // a thread's columns
+  static constexpr int STAGE = (LRN_BM + BN) * LRN_LD;  // floats
+  static constexpr int LDR = BN + 4;            // the row tile of sums
+  static constexpr int SMEM = LRN_STAGES * STAGE * 4;
+  static_assert(BN == LRN_WARPS * 4 * TN && LRN_BM == 8 * LRN_TM && BN % 32 == 0 &&
+                    LRN_BM * LDR <= LRN_STAGES * STAGE && BN * LRN_BK / 4 % LRN_THREADS == 0,
+                "linear_residual_ln tile shape");
+};
+
+template <int SPLIT, int CB, int BN>
 __global__ void __launch_bounds__(LRN_THREADS)
 linear_residual_ln_kernel(const float* __restrict__ a, const float* __restrict__ w,
                           const float* __restrict__ bias, const float* __restrict__ res,
@@ -448,8 +468,10 @@ linear_residual_ln_kernel(const float* __restrict__ a, const float* __restrict__
                           float eps, float* __restrict__ out, float* __restrict__ mean_out,
                           float* __restrict__ rstd_out, float* __restrict__ r_out,
                           const int* __restrict__ valid_len, int K, int s_pad) {
-  constexpr int BN = LRN_BN, ROWS = LRN_BM / SPLIT;  // rows a block normalises
-  constexpr int D = CB * BN;                          // a row's columns
+  using C = ResLnF32<BN>;
+  constexpr int ROWS = LRN_BM / SPLIT;  // rows a block normalises
+  constexpr int D = CB * BN;            // a row's columns
+  constexpr int LRN_TN = C::TN, LRN_LDR = C::LDR, LRN_STAGE = C::STAGE;
   static_assert(LRN_BM % SPLIT == 0, "whole rows a block");
   static_assert(CB == 1 || SPLIT == 1, "a cluster splits K or the columns, not both");
   namespace cg = cooperative_groups;
@@ -508,7 +530,7 @@ linear_residual_ln_kernel(const float* __restrict__ a, const float* __restrict__
     for (int j = 0; j < LRN_TN; ++j) acc[i][j] = 0.f;
   sgemm::ring<LRN_STAGES>(kpart / LRN_BK, load, [&](int, int slot) {
     const float* as = lrn_smem + slot * LRN_STAGE + ty * LRN_LD;
-    const float* ws = lrn_smem + slot * LRN_STAGE + (LRN_BM + warp * 48 + tx) * LRN_LD;
+    const float* ws = lrn_smem + slot * LRN_STAGE + (LRN_BM + warp * C::WC + tx) * LRN_LD;
 #pragma unroll
     for (int kk = 0; kk < LRN_BK; kk += 4) {
       float4 av[LRN_TM];
@@ -523,7 +545,7 @@ linear_residual_ln_kernel(const float* __restrict__ a, const float* __restrict__
 #pragma unroll
   for (int i = 0; i < LRN_TM; ++i)
 #pragma unroll
-    for (int j = 0; j < LRN_TN; ++j) rt[(ty + 8 * i) * LRN_LDR + warp * 48 + tx + 4 * j] = acc[i][j];
+    for (int j = 0; j < LRN_TN; ++j) rt[(ty + 8 * i) * LRN_LDR + warp * C::WC + tx + 4 * j] = acc[i][j];
   if constexpr (CB > 1) {
     // D 768: r = res + (a @ W^T + bias) (the JAX order) over the block's
     // columns, one warp a row: its partial sums, then the row after the
@@ -615,13 +637,14 @@ linear_residual_ln_kernel(const float* __restrict__ a, const float* __restrict__
   }
 }
 
-template <int SPLIT, int CB = 1>
+template <int SPLIT, int CB = 1, int BN = LRN_BN>
 int linear_residual_ln_launch(const float* a, const float* w, const float* bias,
                               const float* res, const float* g, const float* beta, float eps,
                               float* out, float* mean_out, float* rstd_out, float* r_out,
                               const int* valid_len, int M, int K, int s_pad,
                               cudaStream_t st) {
-  auto kernel = linear_residual_ln_kernel<SPLIT, CB>;
+  constexpr int LRN_SMEM = ResLnF32<BN>::SMEM;
+  auto kernel = linear_residual_ln_kernel<SPLIT, CB, BN>;
   int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     LRN_SMEM);
   if (e != 0) return e;
@@ -647,7 +670,7 @@ int linear_residual_ln_launch(const float* a, const float* w, const float* bias,
 
 extern "C" {
 
-// x (M, D), w (3 D, D), out (M, 3 D), D 192 or 768. mean_out and rstd_out,
+// x (M, D), w (3 D, D), out (M, 3 D), D 192, 768 or 64. mean_out and rstd_out,
 // (M,) each, are written when not null (both or neither): the LN1 row stats,
 // zeros on skipped tiles.
 int ln_linear_fwd(const float* x, const float* g, const float* beta, float eps,
@@ -656,19 +679,28 @@ int ln_linear_fwd(const float* x, const float* g, const float* beta, float eps,
                   int s_pad, void* stream) {
   if (!rows_ok(M, K, s_pad) || !is_width(K) || N != 3 * K)
     return (int)cudaErrorInvalidValue;
-  auto run = [&](auto kernel, int smem) {
-    int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != 0) return e;
-    kernel<<<dim3(M / BM, N / (LL_SLABS * LL_BN)), LL_THREADS, smem,
-             static_cast<cudaStream_t>(stream)>>>(x, g, beta, eps, w, bias, out, mean_out,
-                                                  rstd_out, valid_len, s_pad);
-    return (int)cudaGetLastError();
+  auto run = [&](auto width) {
+    constexpr int D = decltype(width)::value;
+    if constexpr (!LnLinearF32<D>::CUT_FITS) {
+      return (int)cudaErrorInvalidValue;  // a bench build's cut this width does not admit
+    } else {
+      auto kernel = ln_linear_kernel<D>;
+      constexpr int smem = LnLinearF32<D>::SMEM;
+      int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        smem);
+      if (e != 0) return e;
+      kernel<<<dim3(M / BM, N / (LL_SLABS * LL_BN)), LL_THREADS, smem,
+               static_cast<cudaStream_t>(stream)>>>(x, g, beta, eps, w, bias, out, mean_out,
+                                                    rstd_out, valid_len, s_pad);
+      return (int)cudaGetLastError();
+    }
   };
-  if (K == D_MODEL) return run(ln_linear_kernel<D_MODEL>, LnLinearF32<D_MODEL>::SMEM);
-  return run(ln_linear_kernel<D_WIDE>, LnLinearF32<D_WIDE>::SMEM);
+  if (K == D_MODEL) return run(std::integral_constant<int, D_MODEL>());
+  if (K == D_SMALL) return run(std::integral_constant<int, D_SMALL>());
+  return run(std::integral_constant<int, D_WIDE>());
 }
 
-// x (M, D), w (2048, D), out (M, 2048), D 192 or 768.
+// x (M, D), w (2048, D), out (M, 2048), D 192, 768 or 64.
 int linear_relu_fwd(const float* x, const float* w, const float* bias,
                     float* out, const int* valid_len, int M, int K, int N,
                     int s_pad, void* stream) {
@@ -682,11 +714,12 @@ int linear_relu_fwd(const float* x, const float* w, const float* bias,
     return (int)cudaGetLastError();
   };
   if (K == D_MODEL) return run(linear_relu_kernel<D_MODEL>, LinearReluF32<D_MODEL>::SMEM);
+  if (K == D_SMALL) return run(linear_relu_kernel<D_SMALL>, LinearReluF32<D_SMALL>::SMEM);
   return run(linear_relu_kernel<D_WIDE>, LinearReluF32<D_WIDE>::SMEM);
 }
 
 // a (M, K) with K = N (out-proj) or 2048 (FFN2), w (N, K), res and out (M, N),
-// N = D 192 or 768. When not null: mean_out and rstd_out (M,) get the LN row
+// N = D 192, 768 or 64. When not null: mean_out and rstd_out (M,) get the LN row
 // stats (both or neither), r_out (M, N) the pre-LN sum; zeros on skipped tiles.
 int linear_residual_ln_fwd(const float* a, const float* w, const float* bias,
                            const float* res, const float* g, const float* beta,
@@ -700,6 +733,15 @@ int linear_residual_ln_fwd(const float* a, const float* w, const float* bias,
     return linear_residual_ln_launch<1, D_WIDE / LRN_BN>(a, w, bias, res, g, beta, eps, out,
                                                           mean_out, rstd_out, r_out, valid_len,
                                                           M, K, s_pad, st);
+  if (N == D_SMALL) {  // whole rows of 64 columns a block; FFN2 split as at D 192
+    if (K == D_FFN)
+      return linear_residual_ln_launch<LRN_SPLIT_FFN, 1, D_SMALL>(
+          a, w, bias, res, g, beta, eps, out, mean_out, rstd_out, r_out, valid_len, M, K, s_pad,
+          st);
+    return linear_residual_ln_launch<1, 1, D_SMALL>(a, w, bias, res, g, beta, eps, out,
+                                                    mean_out, rstd_out, r_out, valid_len, M, K,
+                                                    s_pad, st);
+  }
   if (K == D_FFN)
     return linear_residual_ln_launch<LRN_SPLIT_FFN>(a, w, bias, res, g, beta, eps, out,
                                                     mean_out, rstd_out, r_out, valid_len, M,

@@ -41,11 +41,12 @@
 // stats there mean nothing). Every skip decision is uniform per block and
 // taken before the first barrier.
 //
-// Every kernel here is built for both of the layer's widths, D 192
-// (ChAdaViT-moyen) and D 768 (ChAdaViT-B/16, FFN 2048 in both): linear_dgrad
-// and linear_wgrad take the same tiles at both, and at D 768 their grids hold
-// four times as many 192-wide tiles; layernorm_bwd is a template on D. The
-// launchers refuse any other width.
+// Every kernel here is built for the layer's three widths, D 192
+// (ChAdaViT-moyen), D 768 (ChAdaViT-B/16) and D 64 (the smoke configs), FFN
+// 2048 at each: linear_dgrad and linear_wgrad take the same tiles at D 192
+// and D 768, and at D 768 their grids hold four times as many 192-wide tiles;
+// at D 64 they take tiles 64 wide on the D-wide side (their notes below);
+// layernorm_bwd is a template on D. The launchers refuse any other width.
 //
 // The contract, the TPU kernel's (fused_block.py:33-39): the forward computes
 // every row of a 32-row tile that holds a valid row for real, also the rows
@@ -80,9 +81,9 @@ namespace {
 // its tiles; then one partial sum per split, warps in a fixed order. splits is
 // the caller's plan (ops/fused_block.py::layernorm_bwd_splits), a bound that
 // does not grow with the batch, so the scratch and the second pass stay small.
-// D is the width: 192 (6 columns a lane, the warps' sums staged at once) or
-// 768 (24 a lane; dgamma's sums, then dbeta's, so that the staging stays 24 KB
-// of static shared memory).
+// D is the width: 192 (6 columns a lane, the warps' sums staged at once), 64
+// (2 a lane) or 768 (24 a lane; dgamma's sums, then dbeta's, so that the
+// staging stays 24 KB of static shared memory).
 template <int D, typename T>
 __global__ void __launch_bounds__(NT)
 layernorm_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ xin,
@@ -135,7 +136,7 @@ layernorm_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ xin,
     }
   }
   // the split's partial sums, zeros when it summed no tile: warps in a fixed order
-  if constexpr (D == D_MODEL) {
+  if constexpr (D != D_WIDE) {
     __shared__ float red[WARPS][2 * D];
 #pragma unroll
     for (int j = 0; j < LN_COLS; ++j) {
@@ -235,6 +236,8 @@ reduce_ln_splits_kernel(const float* __restrict__ partial, float* __restrict__ o
 //   place until its readers are done;
 // - the epilogue (ReLU mask from the recomputed hid, the residual add) works
 //   on 16-byte loads and stores.
+// At D 64 the three N 64 sites take BN = 64, one warp a block (the FFN2 site
+// keeps its 256-column slices of hid); the K splits are those of D 192.
 // A 32-row tile wholly past valid_len is written as zeros and not read; the
 // decision is the same for every block of a cluster and taken before any
 // barrier. DG_SPLIT_FFN and DG_SPLIT_QKV set the cluster sizes of the FFN1
@@ -390,7 +393,9 @@ linear_dgrad_kernel(const float* __restrict__ dy, const float* __restrict__ w,
 //   dW (K at the QKV, out-projection and FFN1 sites, N at FFN2: the whole
 //   side at D 192, a quarter at D 768) and 64 of
 //   the other, so the 2048-wide operand (dz1 or hid) is read from device
-//   memory once; each of its 6 warps owns 32 x 64 of the tile, a thread 8 x 8
+//   memory once (at D 64 the whole 64-wide side and 192, 64, 128 and 128 of
+//   the other at the QKV, out-projection, FFN1 and FFN2 sites: 6, 2, 4 and 4
+//   warps, WGRAD_F32_TILES); each warp owns 32 x 64 of the tile, a thread 8 x 8
 //   sums (n at 4 ln + {0..3} and 16 + 4 ln + {0..3}, k at 4 lk + {0..3} and
 //   32 + 4 lk + {0..3} of its warp's tile), so each 16-byte shared read feeds
 //   16 FMAs (sgemm::outer) and a quarter warp reads 128 contiguous bytes;
@@ -413,7 +418,6 @@ linear_dgrad_kernel(const float* __restrict__ dy, const float* __restrict__ w,
 // the same bits on every run, no atomics.
 constexpr int WG_TM = 8;         // a thread's sums along n (and 8 along k)
 constexpr int WG_WN = 32;        // a warp's tile: 32 (n) x 64 (k)
-constexpr int WG_THREADS = 192;  // 6 warps
 constexpr int WG_ROWS = BM;      // a stage: one 32-row tile of the contract
 constexpr int WG_STAGES = 3;
 constexpr int WG_MAX_IMAGES = 1024;
@@ -423,18 +427,22 @@ template <int TN, int TK>
 constexpr int wgrad_smem() {  // bytes of the ring: dY tile, X tile, stats
   return WG_STAGES * (WG_ROWS * (TN + TK) + WG_STATS) * 4;
 }
+template <int TN, int TK>
+__host__ __device__ constexpr int wgrad_threads() {  // a warp per 32 x 64 of the tile
+  return TN / WG_WN * (TK / 64) * 32;
+}
 
 template <int TN, int TK, bool LN_X>
-__global__ void __launch_bounds__(WG_THREADS, 2)
+__global__ void __launch_bounds__(wgrad_threads<TN, TK>(), 2)
 linear_wgrad_kernel(const float* __restrict__ dy, const float* __restrict__ x,
                     const float* __restrict__ mean, const float* __restrict__ rstd,
                     const float* __restrict__ g, const float* __restrict__ beta,
                     float* __restrict__ partial, const int* __restrict__ valid_len, int N,
                     int K, int s_pad, int bsz, int splits) {
-  constexpr int WARPS_K = TK / 64;
+  constexpr int WARPS_K = TK / 64, WG_THREADS = wgrad_threads<TN, TK>();
   constexpr int Y_STAGE = WG_ROWS * TN, X_STAGE = WG_ROWS * TK;
   constexpr int STAGE = Y_STAGE + X_STAGE + WG_STATS;
-  static_assert(TN % WG_WN == 0 && TK % 64 == 0 && (TN / WG_WN) * WARPS_K * 32 == WG_THREADS,
+  static_assert(TN % WG_WN == 0 && TK % 64 == 0 && WG_THREADS >= 2 * WG_STATS / 4,
                 "wgrad tile shape");
   extern __shared__ __align__(16) float wg_smem[];
   __shared__ int first[WG_MAX_IMAGES + 1];  // index of each image's first computed tile
@@ -596,6 +604,8 @@ int layernorm_bwd_launch(const T* dy, const T* xin, const float* mean,
   };
   if (N == D_MODEL)
     return run(layernorm_bwd_kernel<D_MODEL, T>, reduce_ln_splits_kernel<D_MODEL>, D_MODEL);
+  if (N == D_SMALL)
+    return run(layernorm_bwd_kernel<D_SMALL, T>, reduce_ln_splits_kernel<D_SMALL>, D_SMALL);
   return run(layernorm_bwd_kernel<D_WIDE, T>, reduce_ln_splits_kernel<D_WIDE>, D_WIDE);
 }
 
@@ -634,8 +644,8 @@ int wgrad_launch(const float* dy, const float* x, const float* mean, const float
     int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                       smem);
     if (e != 0) return e;
-    kernel<<<grid, WG_THREADS, smem, st>>>(dy, x, mean, rstd, g, beta, partial, valid_len, N,
-                                           K, s_pad, bsz, splits);
+    kernel<<<grid, wgrad_threads<TN, TK>(), smem, st>>>(dy, x, mean, rstd, g, beta, partial,
+                                                        valid_len, N, K, s_pad, bsz, splits);
     return (int)cudaGetLastError();
   };
   if (mean != nullptr) return launch(linear_wgrad_kernel<TN, TK, true>);
@@ -650,7 +660,7 @@ int wgrad_launch(const float* dy, const float* x, const float* mean, const float
 // linear_wgrad_bf16 are in linear_bwd_bf16.cu.
 extern "C" {
 
-// dy, xin, dx (and res, when not null): (M, N), N 192 or 768; mean, rstd:
+// dy, xin, dx (and res, when not null): (M, N), N 192, 768 or 64; mean, rstd:
 // (M,); partial: (splits, 2 N) scratch, 1 <= splits <= M / 32; dgb: (2 N,) =
 // dgamma then dbeta, summed into when accumulate is 1, else overwritten.
 int layernorm_bwd(const float* dy, const float* xin, const float* mean,
@@ -671,9 +681,10 @@ int layernorm_bwd_bf16(const bf16* dy, const bf16* xin, const float* mean,
 
 // dy (M, K), w (K, N) (the forward's Linear weight, out x in), out (M, N).
 // epilogue 0: none; 1: out = (dy @ w) [aux > 0]; 2: out = aux + dy @ w; aux is
-// (M, N). The sites of one layer of width D (192 or 768): K D -> N 2048
+// (M, N). The sites of one layer of width D (192, 768 or 64): K D -> N 2048
 // (mask), K 2048 -> N D (residual), K D -> N D and K 3 D -> N D (none); at
-// D 768 the N D sites take four 192-column tiles of the grid.
+// D 768 the N D sites take four 192-column tiles of the grid, at D 64 one
+// 64-column tile.
 int linear_dgrad(const float* dy, const float* w, const float* aux, float* out,
                  int epilogue, const int* valid_len, int M, int K, int N,
                  int s_pad, void* stream) {
@@ -683,6 +694,17 @@ int linear_dgrad(const float* dy, const float* w, const float* aux, float* out,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (N == D_FFN && epilogue == EPI_RELU_MASK)  // FFN2 -> hid
     return dgrad_launch<256, EPI_RELU_MASK, 1>(dy, w, aux, out, valid_len, M, K, N, s_pad, st);
+  if (N == D_SMALL) {  // D 64: tiles of 64 columns
+    if (epilogue == EPI_RESIDUAL)  // FFN1 -> x2
+      return dgrad_launch<D_SMALL, EPI_RESIDUAL, DG_SPLIT_FFN>(dy, w, aux, out, valid_len, M, K,
+                                                               N, s_pad, st);
+    if (K == 3 * N && epilogue == EPI_NONE)  // QKV
+      return dgrad_launch<D_SMALL, EPI_NONE, DG_SPLIT_QKV>(dy, w, aux, out, valid_len, M, K, N,
+                                                           s_pad, st);
+    if (epilogue == EPI_NONE)  // out-projection
+      return dgrad_launch<D_SMALL, EPI_NONE, 1>(dy, w, aux, out, valid_len, M, K, N, s_pad, st);
+    return (int)cudaErrorInvalidValue;
+  }
   if (is_width(N) && epilogue == EPI_RESIDUAL)  // FFN1 -> x2
     return dgrad_launch<D_MODEL, EPI_RESIDUAL, DG_SPLIT_FFN>(dy, w, aux, out, valid_len, M, K,
                                                              N, s_pad, st);
@@ -695,7 +717,7 @@ int linear_dgrad(const float* dy, const float* w, const float* aux, float* out,
 }
 
 // dy (M, N), x (M, K); dwb: (N * K + N,) = dW (N, K) row-major, then db (N,).
-// With mean (not null; K 192 or 768 only), x is layer-normed with mean,
+// With mean (not null; K 192, 768 or 64 only), x is layer-normed with mean,
 // rstd, g, beta as it is staged. partial: (splits, N * K + N) scratch, 1 <= splits
 // <= 1024; the tile shapes and so the grid are those of
 // ops/fused_block.py::WGRAD_F32_TILES. Every operand 16-byte aligned.
@@ -710,7 +732,20 @@ int linear_wgrad(const float* dy, const float* x, const float* mean,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int bsz = M / s_pad;
   int e;
-  if (K == D_FFN)  // FFN2: 192 columns of dY (all of them at D 192), 64 of hid's
+  if (is_weight_shape_at(N, K, D_SMALL)) {  // D 64: the whole 64-wide side
+    if (K == D_FFN)  // FFN2: all 64 columns of dY, 128 of hid's
+      e = wgrad_launch<D_SMALL, 128>(dy, x, mean, rstd, g, beta, partial, valid_len, N, K,
+                                     s_pad, bsz, splits, st);
+    else if (N == D_FFN)  // FFN1: 128 of dz1's columns, all 64 of x2's
+      e = wgrad_launch<128, D_SMALL>(dy, x, mean, rstd, g, beta, partial, valid_len, N, K,
+                                     s_pad, bsz, splits, st);
+    else if (N == 3 * K)  // QKV: all 192 of dqkv's columns, all 64 of X's
+      e = wgrad_launch<3 * D_SMALL, D_SMALL>(dy, x, mean, rstd, g, beta, partial, valid_len, N,
+                                             K, s_pad, bsz, splits, st);
+    else  // out-projection
+      e = wgrad_launch<D_SMALL, D_SMALL>(dy, x, mean, rstd, g, beta, partial, valid_len, N, K,
+                                         s_pad, bsz, splits, st);
+  } else if (K == D_FFN)  // FFN2: 192 columns of dY (all of them at D 192), 64 of hid's
     e = wgrad_launch<D_MODEL, 64>(dy, x, mean, rstd, g, beta, partial, valid_len, N, K, s_pad,
                                   bsz, splits, st);
   else  // QKV, out-projection, FFN1: 64 of dY's columns, 192 of X's (all at D 192)

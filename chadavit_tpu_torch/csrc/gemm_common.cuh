@@ -88,22 +88,28 @@ bool rows_ok(int M, int K, int s_pad) {
          K % BK == 0;
 }
 
-// The widths these kernels are built for: ChAdaViT-moyen's D = 192 and
-// ChAdaViT-B/16's D_WIDE = 768, both with FFN 2048, so qkv has 3 D columns.
-// D_MODEL (192) is also the column tile of the kernels that own whole rows at
-// D 192: at D 768 a row is four such tiles. Other widths are refused.
+// The widths these kernels are built for: ChAdaViT-moyen's D = 192,
+// ChAdaViT-B/16's D_WIDE = 768 and the smoke configs' D_SMALL = 64
+// (scripts/smoke/*.yaml), all with FFN 2048, so qkv has 3 D columns. D_MODEL
+// (192) is also the column tile of the kernels that own whole rows at D 192:
+// at D 768 a row is four such tiles, at D 64 the kernels that own whole rows
+// take a tile of 64 columns. Other widths are refused.
 constexpr int D_MODEL = 192;
 constexpr int D_WIDE = 768;
+constexpr int D_SMALL = 64;
 constexpr int D_FFN = 2048;
 
-__host__ __device__ constexpr bool is_width(int d) { return d == D_MODEL || d == D_WIDE; }
+__host__ __device__ constexpr bool is_width(int d) {
+  return d == D_MODEL || d == D_WIDE || d == D_SMALL;
+}
 
 bool is_weight_shape_at(int N, int K, int d) {  // the four Linear layers of a layer of width d
   return (N == 3 * d && K == d) || (N == d && K == d) || (N == D_FFN && K == d) ||
          (N == d && K == D_FFN);
 }
 bool is_weight_shape(int N, int K) {
-  return is_weight_shape_at(N, K, D_MODEL) || is_weight_shape_at(N, K, D_WIDE);
+  return is_weight_shape_at(N, K, D_MODEL) || is_weight_shape_at(N, K, D_WIDE) ||
+         is_weight_shape_at(N, K, D_SMALL);
 }
 
 // linear_dgrad's epilogues: none; out = (dY @ W) [aux > 0]; out = aux + dY @ W

@@ -41,7 +41,10 @@
 //   tensor-core product (a B fragment of ones) in the blocks of the first K
 //   tile.
 //
-// Both take D 192's four sites only (ChAdaViT-moyen). At D 768 (ChAdaViT-B/16)
+// Both take the four sites of D 192 (ChAdaViT-moyen) and of D 64 (the smoke
+// configs, bound by bytes all the more: every product has 64 on one side;
+// dgrad takes the same templates at BN 64, wgrad tiles of 64 along its
+// 64-wide side). At D 768 (ChAdaViT-B/16)
 // every product has 768 or more on both sides, 380 to 580 operations a byte,
 // over the 295 at which the bf16 tensor cores become the limit: there dgrad
 // and wgrad are linear_wgmma_bf16.cu's linear_dgrad_wgmma_bf16 and
@@ -499,9 +502,9 @@ extern "C" {
 
 // dy (M, K), w (K, N) (the forward's Linear weight, out x in), out (M, N),
 // all bf16; epilogue and aux as linear_dgrad's (fused_block_bwd.cu). The
-// four sites of a D 192 layer only: K 192 -> N 2048 (mask), K 2048 -> N 192
-// (residual), K 192 -> N 192 and K 576 -> N 192 (none); s_pad a multiple of
-// 64, the block's rows.
+// four sites of a layer of width D 192 or 64 only: K D -> N 2048 (mask),
+// K 2048 -> N D (residual), K D -> N D and K 3 D -> N D (none); s_pad a
+// multiple of 64, the block's rows.
 int linear_dgrad_bf16(const bf16* dy, const bf16* w, const bf16* aux, bf16* out, int epilogue,
                       const int* valid_len, int M, int K, int N, int s_pad, void* stream) {
   if (M <= 0 || s_pad <= 0 || s_pad % DG_BM || M % s_pad ||
@@ -520,12 +523,25 @@ int linear_dgrad_bf16(const bf16* dy, const bf16* w, const bf16* aux, bf16* out,
   if (K == 3 * D_MODEL && N == D_MODEL && epilogue == EPI_NONE)
     return dgrad_launch<D_MODEL, 3 * D_MODEL, 1, EPI_NONE, false>(dy, w, aux, out, valid_len, M,
                                                                   N, s_pad, st);
+  // D 64: the same templates at BN 64
+  if (K == D_SMALL && N == D_FFN && epilogue == EPI_RELU_MASK)
+    return dgrad_launch<128, D_SMALL, 4, EPI_RELU_MASK, true>(dy, w, aux, out, valid_len, M, N,
+                                                              s_pad, st);
+  if (K == D_FFN && N == D_SMALL && epilogue == EPI_RESIDUAL)
+    return dgrad_launch<D_SMALL, D_FFN, 1, EPI_RESIDUAL, false>(dy, w, aux, out, valid_len, M,
+                                                                N, s_pad, st);
+  if (K == D_SMALL && N == D_SMALL && epilogue == EPI_NONE)
+    return dgrad_launch<D_SMALL, D_SMALL, 1, EPI_NONE, false>(dy, w, aux, out, valid_len, M, N,
+                                                              s_pad, st);
+  if (K == 3 * D_SMALL && N == D_SMALL && epilogue == EPI_NONE)
+    return dgrad_launch<D_SMALL, 3 * D_SMALL, 1, EPI_NONE, false>(dy, w, aux, out, valid_len, M,
+                                                                  N, s_pad, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// dy (M, N), x (M, K) bf16 at the four weight shapes (N, K) of a D 192
-// layer; dwb: (N * K + N,) f32 = dW (N, K) row-major, then db (N,). With
-// mean (not null; K 192 only), x is layer-normed with mean, rstd, g, beta
+// dy (M, N), x (M, K) bf16 at the four weight shapes (N, K) of a layer of
+// width D 192 or 64; dwb: (N * K + N,) f32 = dW (N, K) row-major, then db
+// (N,). With mean (not null; K = D only), x is layer-normed with mean, rstd, g, beta
 // (f32) and rounded to bf16 as it is staged. partial: (splits, N * K + N) f32
 // scratch, 1 <= splits <= 1024; the tile shapes and so the grid are those of
 // ops/fused_block.py::WGRAD_BF16_TILES.
@@ -534,13 +550,24 @@ int linear_wgrad_bf16(const bf16* dy, const bf16* x, const float* mean, const fl
                       const int* valid_len, int M, int N, int K, int s_pad, int splits,
                       void* stream) {
   if (M <= 0 || s_pad <= 0 || s_pad % ROW_TILE || M % s_pad || M / s_pad > MAX_IMAGES ||
-      splits < 1 || splits > 1024 || !is_weight_shape_at(N, K, D_MODEL) ||
-      (mean != nullptr && K != D_MODEL))
+      splits < 1 || splits > 1024 ||
+      !(is_weight_shape_at(N, K, D_MODEL) || is_weight_shape_at(N, K, D_SMALL)) ||
+      (mean != nullptr && K != D_MODEL && K != D_SMALL))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int bsz = M / s_pad;
   int e;
-  if (N == D_FFN)
+  if (is_weight_shape_at(N, K, D_SMALL)) {  // D 64: tiles of 64 along the 64-wide side
+    if (N == D_FFN)
+      e = wgrad_launch<128, D_SMALL, 4>(dy, x, mean, rstd, g, beta, partial, valid_len, N, K,
+                                        s_pad, bsz, splits, st);
+    else if (K == D_FFN)
+      e = wgrad_launch<D_SMALL, 128, 2>(dy, x, mean, rstd, g, beta, partial, valid_len, N, K,
+                                        s_pad, bsz, splits, st);
+    else  // QKV (three tiles along N) and the out projection
+      e = wgrad_launch<D_SMALL, D_SMALL, 4>(dy, x, mean, rstd, g, beta, partial, valid_len, N,
+                                            K, s_pad, bsz, splits, st);
+  } else if (N == D_FFN)
     e = wgrad_launch<128, D_MODEL, 2>(dy, x, mean, rstd, g, beta, partial, valid_len, N, K,
                                       s_pad, bsz, splits, st);
   else if (K == D_FFN)

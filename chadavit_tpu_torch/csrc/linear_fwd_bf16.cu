@@ -64,8 +64,15 @@
 // operations, which mma.sync reaches only a share of. K1a and K1c at D 768
 // are linear_wgmma_bf16.cu's ln_linear_fwd_wgmma_bf16 and
 // linear_relu_fwd_wgmma_bf16 (wgmma and TMA); this file's ln_linear_fwd_bf16
-// and linear_relu_fwd_bf16 take D 192 only. The D 192 instances compile to
-// the code they had.
+// and linear_relu_fwd_bf16 take D 192 and D 64 only.
+//
+// At D 64 (the smoke configs, FFN 2048) every product has 64 on one side and
+// each kernel is bound by its bytes: K1a and K1b are templates on the width
+// (K1a's block owns a 64-wide third of qkv's 192 columns, its rows and W in
+// one copy group of the 64 K columns; K1b's block owns whole rows of 64
+// columns, 32 x 16 a warp, and at the out projection, whose K is one slice,
+// the residual joins the ring's prologue), K1c is its K template at K 64. The
+// D 192 and D 768 instances compile to the code they had.
 //
 // Plain C interface (loaded with ctypes); each launcher returns
 // cudaGetLastError() so that the Python wrapper can raise on a refused launch.
@@ -94,13 +101,14 @@ __device__ __forceinline__ int live_rows(int m0, int s_pad, const int* valid_len
 
 // ---- ln_linear_fwd_bf16 -------------------------------------------------------
 // Grid (M / FW_BM, 3). A block owns FW_BM rows and one LNL_BN-wide third of
-// the 576 columns; each warp a 32 x 48 tile of it. x's rows and the third's W
-// tile are staged whole, in KG groups of FW_BK K columns (x with the first).
-constexpr int LNL_BN = D_MODEL;
-
+// the 3 D columns (576 at D 192, 192 at D 64); each warp a 32 x D / 4 tile of
+// it. x's rows and the third's W tile are staged whole, in KG groups of
+// FW_BK K columns (x with the first): three at D 192, one at D 64.
+template <int K_>  // K = D, the width
 struct LnLinear {
-  static constexpr int K = D_MODEL;
-  static constexpr int N = 3 * D_MODEL;
+  static constexpr int K = K_;
+  static constexpr int LNL_BN = K;                     // a third of the columns
+  static constexpr int N = 3 * K;
   static constexpr int KG = K / FW_BK;                 // copy groups
   static constexpr int WN = LNL_BN / 4;                // a warp's columns
   static constexpr int NT8 = WN / 8;                   // its n8 blocks
@@ -109,19 +117,20 @@ struct LnLinear {
   static constexpr int SMEM = 2 * (A_ELEMS + W_ELEMS);
   static constexpr int A_CHUNKS = A_ELEMS / 8 / TC_THREADS;           // 16 B of x a thread
   static constexpr int W_CHUNKS = LNL_BN * FW_BK / 8 / TC_THREADS;    // of a group's W
-  static_assert(KG == 3 && NT8 % 2 == 0 && A_CHUNKS * 8 * TC_THREADS == A_ELEMS &&
+  static_assert((KG == 3 || KG == 1) && NT8 % 2 == 0 && A_CHUNKS * 8 * TC_THREADS == A_ELEMS &&
                     W_CHUNKS * 8 * TC_THREADS == LNL_BN * FW_BK && N % LNL_BN == 0,
                 "ln_linear tile shape");
 };
 
+template <int K_>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 ln_linear_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                       const float* __restrict__ beta, float eps, const bf16* __restrict__ w,
                       const bf16* __restrict__ bias, bf16* __restrict__ out,
                       float* __restrict__ mean_out, float* __restrict__ rstd_out,
                       const int* __restrict__ valid_len, int s_pad) {
-  using C = LnLinear;
-  constexpr int K = C::K, N = C::N;
+  using C = LnLinear<K_>;
+  constexpr int K = C::K, N = C::N, LNL_BN = C::LNL_BN;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* As = reinterpret_cast<bf16*>(smem_raw);
   bf16* Ws = As + C::A_ELEMS;
@@ -243,12 +252,14 @@ ln_linear_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ gamm
   };
   __syncthreads();  // h is in place (and group 0's W columns)
   multiply(0);
-  cp_async_wait<C::KG - 2>();
-  __syncthreads();  // group 1 is in
-  multiply(1);
-  cp_async_wait<0>();
-  __syncthreads();  // group 2 is in
-  multiply(2);
+  if constexpr (C::KG == 3) {
+    cp_async_wait<C::KG - 2>();
+    __syncthreads();  // group 1 is in
+    multiply(1);
+    cp_async_wait<0>();
+    __syncthreads();  // group 2 is in
+    multiply(2);
+  }
   __syncthreads();  // every warp is done with h: its tile takes the output rows
 
   // ---- epilogue: sums -> bf16 -> + bias -> bf16, 16-byte rows via the tile ----
@@ -281,8 +292,8 @@ ln_linear_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ gamm
 // ---- linear_relu_fwd_bf16 -----------------------------------------------------
 // Grid (M / FW_BM, D_FFN / (RELU_SLICES * RELU_BN)). A block owns FW_BM rows
 // and RELU_SLICES column slices of RELU_BN, walked in order; each warp a
-// 32 x 32 tile of the slice. K = D, 192 (a template on it, as when it was
-// also built for D 768, so that the D 192 kernel keeps its name and code).
+// 32 x 32 tile of the slice. K = D, 192 or 64 (a template on it, as when it
+// was also built for D 768, so that the D 192 kernel keeps its name and code).
 constexpr int RELU_BN = 128;
 constexpr int RELU_SLICES = 4;
 
@@ -414,9 +425,10 @@ linear_relu_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 }
 
 // ---- linear_residual_ln_fwd_bf16 ------------------------------------------------
-// Grid (M / FW_BM x CB). A block owns FW_BM rows and LN_N = 192 columns; each
-// warp a 32 x 48 tile. The ring's stages hold a's (64, 64) and W's (192, 64)
-// tiles of one K slice. At D 192 (CB = 1) the block owns whole rows. At D 768
+// Grid (M / FW_BM x CB). A block owns FW_BM rows and N = LN_N = 192 columns
+// (N = 64 at D 64); each warp a 32 x N / 4 tile. The ring's stages hold a's
+// (64, 64) and W's (N, 64) tiles of one K slice. At D 192 and D 64 (CB = 1)
+// the block owns whole rows. At D 768
 // a cluster of CB = 4 blocks owns the rows, block `rank` the 192 columns
 // [192 rank, 192 (rank + 1)): each computes the D 192 tile (W's rows and the
 // residual's columns of its slice) up to r, takes each row's partial sums of
@@ -427,19 +439,19 @@ linear_relu_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 // read them. Block 0 of the cluster writes the stats.
 constexpr int LN_N = D_MODEL;
 
-template <int K>
+template <int K, int N = LN_N>  // N: the block's columns
 struct ResLn {
   static constexpr int KT = K / FW_BK;
-  static constexpr int WN = LN_N / 4;
+  static constexpr int WN = N / 4;
   static constexpr int NT8 = WN / 8;
   static constexpr int A_STAGE = FW_BM * FW_BK;
-  static constexpr int STAGE = A_STAGE + LN_N * FW_BK;
+  static constexpr int STAGE = A_STAGE + N * FW_BK;
   static constexpr int SMEM = 2 * STAGES * STAGE;
-  static constexpr int CHUNKS = FW_BM * LN_N / 8 / TC_THREADS;  // 16 B of the rows a thread
-  static_assert(K % FW_BK == 0 && KT >= STAGES - 1 && NT8 % 2 == 0 &&
-                    CHUNKS * 8 * TC_THREADS == FW_BM * LN_N,
+  static constexpr int CHUNKS = FW_BM * N / 8 / TC_THREADS;  // 16 B of the rows a thread
+  static_assert(K % FW_BK == 0 && KT >= 1 && NT8 % 2 == 0 &&
+                    CHUNKS * 8 * TC_THREADS == FW_BM * N,
                 "linear_residual_ln tile shape");
-  static_assert(FW_BM * LN_N <= STAGE, "the residual tile fits a stage");
+  static_assert(FW_BM * N <= STAGE, "the residual tile fits a stage");
 };
 
 // The LayerNorm of K1b at D 768: rows [m0, m0 + FW_BM) of r (bf16, in the
@@ -537,7 +549,7 @@ __device__ __forceinline__ void layernorm_cols(const bf16* Rs, const float* __re
   cg::this_cluster().sync();  // the partials stay until read
 }
 
-template <int K, int CB>
+template <int K, int CB, int N_>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 linear_residual_ln_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
                                const bf16* __restrict__ bias, const bf16* __restrict__ res,
@@ -546,9 +558,9 @@ linear_residual_ln_bf16_kernel(const bf16* __restrict__ a, const bf16* __restric
                                bf16* __restrict__ out, float* __restrict__ mean_out,
                                float* __restrict__ rstd_out, bf16* __restrict__ r_out,
                                const int* __restrict__ valid_len, int s_pad) {
-  using C = ResLn<K>;
-  constexpr int N = LN_N;       // the block's columns
-  constexpr int D = CB * LN_N;  // a row's
+  using C = ResLn<K, N_>;
+  constexpr int N = N_;         // the block's columns
+  constexpr int D = CB * N;     // a row's
   namespace cg = cooperative_groups;
   const int rank = CB > 1 ? (int)cg::this_cluster().block_rank() : 0;
   const int c0 = rank * N;      // the block's first column
@@ -605,9 +617,12 @@ linear_residual_ln_bf16_kernel(const bf16* __restrict__ a, const bf16* __restric
       cp_async_16(Rs + swz<N>(r, cc * 8), res + (size_t)(m0 + r) * D + c0 + cc * 8);
     }
   };
+  // the ring's prologue; a K of one slice (the out projection at D 64) takes
+  // the residual here, into the stage slice KT would take
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    load(s);
+    if (s < C::KT) load(s);
+    else if (s == C::KT) load_residual();
     cp_async_commit();
   }
 
@@ -736,47 +751,50 @@ bool rows_ok_bf16(int M, int s_pad) {
 
 extern "C" {
 
-// x (M, 192), w (576, 192), bias (576,), out (M, 576), bf16; g and beta
-// (192,) f32. mean_out and rstd_out (M,) f32 get the LN1 row stats when not
-// null (both or neither); zeros on the zero-filled tiles. s_pad a multiple
-// of 64, the block's rows. The float32 instance is fused_block.cu's; at D
-// 768 the bf16 one is linear_wgmma_bf16.cu's ln_linear_fwd_wgmma_bf16.
+// x (M, D), w (3 D, D), bias (3 D,), out (M, 3 D), bf16, D 192 or 64; g and
+// beta (D,) f32. mean_out and rstd_out (M,) f32 get the LN1 row stats when
+// not null (both or neither); zeros on the zero-filled tiles. s_pad a
+// multiple of 64, the block's rows. The float32 instance is fused_block.cu's;
+// at D 768 the bf16 one is linear_wgmma_bf16.cu's ln_linear_fwd_wgmma_bf16.
 int ln_linear_fwd_bf16(const bf16* x, const float* g, const float* beta, float eps,
                        const bf16* w, const bf16* bias, bf16* out, float* mean_out,
                        float* rstd_out, const int* valid_len, int M, int K, int N,
                        int s_pad, void* stream) {
-  if (!rows_ok_bf16(M, s_pad) || K != D_MODEL || N != 3 * K ||
+  if (!rows_ok_bf16(M, s_pad) || (K != D_MODEL && K != D_SMALL) || N != 3 * K ||
       (mean_out == nullptr) != (rstd_out == nullptr))
     return (int)cudaErrorInvalidValue;
-  int e = (int)cudaFuncSetAttribute(ln_linear_bf16_kernel,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize, LnLinear::SMEM);
-  if (e != 0) return e;
-  ln_linear_bf16_kernel<<<dim3(M / FW_BM, N / LNL_BN), TC_THREADS, LnLinear::SMEM,
-                          static_cast<cudaStream_t>(stream)>>>(x, g, beta, eps, w, bias, out,
-                                                               mean_out, rstd_out, valid_len,
-                                                               s_pad);
-  return (int)cudaGetLastError();
+  auto run = [&](auto kernel, int smem) {
+    int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != 0) return e;
+    kernel<<<dim3(M / FW_BM, 3), TC_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+        x, g, beta, eps, w, bias, out, mean_out, rstd_out, valid_len, s_pad);
+    return (int)cudaGetLastError();
+  };
+  if (K == D_SMALL) return run(ln_linear_bf16_kernel<D_SMALL>, LnLinear<D_SMALL>::SMEM);
+  return run(ln_linear_bf16_kernel<D_MODEL>, LnLinear<D_MODEL>::SMEM);
 }
 
-// x (M, 192), w (2048, 192), bias (2048,), out (M, 2048), all bf16; s_pad a
-// multiple of 64, the block's rows. The float32 instance is fused_block.cu's;
-// at D 768 the bf16 one is linear_wgmma_bf16.cu's linear_relu_fwd_wgmma_bf16.
+// x (M, D), w (2048, D), bias (2048,), out (M, 2048), all bf16, D 192 or 64;
+// s_pad a multiple of 64, the block's rows. The float32 instance is
+// fused_block.cu's; at D 768 the bf16 one is linear_wgmma_bf16.cu's
+// linear_relu_fwd_wgmma_bf16.
 int linear_relu_fwd_bf16(const bf16* x, const bf16* w, const bf16* bias, bf16* out,
                          const int* valid_len, int M, int K, int N, int s_pad, void* stream) {
-  if (!rows_ok_bf16(M, s_pad) || K != D_MODEL || N != D_FFN) return (int)cudaErrorInvalidValue;
-  int e = (int)cudaFuncSetAttribute(linear_relu_bf16_kernel<D_MODEL>,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    Relu<D_MODEL>::SMEM);
-  if (e != 0) return e;
-  linear_relu_bf16_kernel<D_MODEL><<<dim3(M / FW_BM, D_FFN / (RELU_SLICES * RELU_BN)),
-                                     TC_THREADS, Relu<D_MODEL>::SMEM,
-                                     static_cast<cudaStream_t>(stream)>>>(x, w, bias, out,
-                                                                          valid_len, s_pad);
-  return (int)cudaGetLastError();
+  if (!rows_ok_bf16(M, s_pad) || (K != D_MODEL && K != D_SMALL) || N != D_FFN)
+    return (int)cudaErrorInvalidValue;
+  auto run = [&](auto kernel, int smem) {
+    int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != 0) return e;
+    kernel<<<dim3(M / FW_BM, D_FFN / (RELU_SLICES * RELU_BN)), TC_THREADS, smem,
+             static_cast<cudaStream_t>(stream)>>>(x, w, bias, out, valid_len, s_pad);
+    return (int)cudaGetLastError();
+  };
+  if (K == D_SMALL) return run(linear_relu_bf16_kernel<D_SMALL>, Relu<D_SMALL>::SMEM);
+  return run(linear_relu_bf16_kernel<D_MODEL>, Relu<D_MODEL>::SMEM);
 }
 
 // a (M, K) with K = N (out projection) or 2048 (FFN2), w (N, K), bias (N,),
-// res and out (M, N), bf16, N = D 192 or 768; g and beta (N,) f32. When not
+// res and out (M, N), bf16, N = D 192, 768 or 64; g and beta (N,) f32. When not
 // null: mean_out and rstd_out (M,) f32 get the LN row stats (both or
 // neither), r_out (M, N) bf16 the pre-LN sum; zeros on the zero-filled tiles.
 // s_pad a multiple of 64.
@@ -821,13 +839,20 @@ int linear_residual_ln_fwd_bf16(const bf16* a, const bf16* w, const bf16* bias,
   };
   if (N == D_WIDE) {
     if (K == D_WIDE)
-      return run_cluster(linear_residual_ln_bf16_kernel<D_WIDE, D_WIDE / LN_N>,
+      return run_cluster(linear_residual_ln_bf16_kernel<D_WIDE, D_WIDE / LN_N, LN_N>,
                          ResLn<D_WIDE>::SMEM);
-    return run_cluster(linear_residual_ln_bf16_kernel<D_FFN, D_WIDE / LN_N>, ResLn<D_FFN>::SMEM);
+    return run_cluster(linear_residual_ln_bf16_kernel<D_FFN, D_WIDE / LN_N, LN_N>,
+                       ResLn<D_FFN>::SMEM);
+  }
+  if (N == D_SMALL) {  // whole rows of 64 columns a block
+    if (K == D_SMALL)
+      return run(linear_residual_ln_bf16_kernel<D_SMALL, 1, D_SMALL>,
+                 ResLn<D_SMALL, D_SMALL>::SMEM);
+    return run(linear_residual_ln_bf16_kernel<D_FFN, 1, D_SMALL>, ResLn<D_FFN, D_SMALL>::SMEM);
   }
   if (K == D_MODEL)
-    return run(linear_residual_ln_bf16_kernel<D_MODEL, 1>, ResLn<D_MODEL>::SMEM);
-  return run(linear_residual_ln_bf16_kernel<D_FFN, 1>, ResLn<D_FFN>::SMEM);
+    return run(linear_residual_ln_bf16_kernel<D_MODEL, 1, LN_N>, ResLn<D_MODEL>::SMEM);
+  return run(linear_residual_ln_bf16_kernel<D_FFN, 1, LN_N>, ResLn<D_FFN>::SMEM);
 }
 
 }  // extern "C"

@@ -671,7 +671,8 @@ extern "C" {
 int ln_rows_bf16(const bf16* x, const float* g, const float* beta, float eps,
                  const float* mean_in, const float* rstd_in, bf16* h, float* mean_out,
                  float* rstd_out, const int* valid_len, int M, int K, int s_pad, void* stream) {
-  if (!rows_ok_wgmma(M, s_pad) || !is_width(K) || (mean_in == nullptr) != (rstd_in == nullptr) ||
+  if (!rows_ok_wgmma(M, s_pad) || (K != D_MODEL && K != D_WIDE) ||
+      (mean_in == nullptr) != (rstd_in == nullptr) ||
       (mean_out == nullptr) != (rstd_out == nullptr) ||
       (mean_in != nullptr && mean_out != nullptr))
     return (int)cudaErrorInvalidValue;

@@ -20,7 +20,8 @@
 // c ^ (r % 8) inside its group of eight. Eight rows read at one logical chunk
 // (an ldmatrix matrix) then hit eight different chunks, all 32 banks, and a
 // warp's 16-byte copies of consecutive chunks stay conflict-free too.
-// A row of an odd multiple of 32 bf16 (the attention's head of 96: 12 chunks)
+// A row of an odd multiple of 32 bf16 (the attention's heads of 96 and 32: 12
+// and 4 chunks)
 // starts 4 chunks further along the 8 chunks of a 128-byte line than the row
 // before it, so rows r and r + 2 share their chunks' banks; there chunk c is
 // stored at c ^ ((r / 2) % 4), inside its aligned group of four (so it stays

@@ -69,8 +69,9 @@
 // q, k, v and out are float32, so nothing rounds where the JAX kernel's
 // dtype-generic body (flash_attention.py:103-138) casts to the input dtype.
 //
-// The kernel is a template on the head width HD, built for 96 (ChAdaViT-moyen)
-// and 64 (ChAdaViT-B/16, D 768 in 12 heads): one launch covers every head, as
+// The kernel is a template on the head width HD, built for 96 (ChAdaViT-moyen),
+// 64 (ChAdaViT-B/16, D 768 in 12 heads) and 32 (the smoke configs, D 64 in 2
+// heads: one float4 of head columns a thread): one launch covers every head, as
 // the grid's y; the JAX kernel's walk over groups of at most 384 lanes
 // (flash_attention.py:29, :275) bounds its VMEM and is not part of the
 // function, so it has no counterpart here.
@@ -102,7 +103,8 @@ constexpr int SPLIT = ATTN_FWD_SPLIT;  // blocks a cluster, each a share of the 
 template <int HD>
 constexpr int PART = 4 + 4 + 4 * (HD / 8);  // a thread's m, l and acc, handed between them
 static_assert(SPLIT == 1 || SPLIT == 2, "one block, or two splitting the walk");
-static_assert(PART<64> * THREADS <= STAGES * TILE_F<64> &&
+static_assert(PART<32> * THREADS <= STAGES * TILE_F<32> &&
+                  PART<64> * THREADS <= STAGES * TILE_F<64> &&
                   PART<96> * THREADS <= STAGES * TILE_F<96>,
               "the partials fit the ring");
 
@@ -328,7 +330,7 @@ extern "C" {
 // q, k, v: (batch * s_pad) rows of ld elements (they may be column slices of
 // one packed qkv buffer); out: (batch * s_pad) rows of ldo elements. lse, when
 // not null: (batch, heads, s_pad) f32, the base-2 log-sum-exp of each query
-// row. valid_len is clamped to [0, s_pad]. head_dim is 64 or 96 (any other
+// row. valid_len is clamped to [0, s_pad]. head_dim is 32, 64 or 96 (any other
 // is refused); ld and ldo are multiples of 4 and q, k, v and out are 16-byte
 // aligned (the 16-byte copies and stores). qscale = log2(e) / sqrt(head_dim).
 int prefix_attention_fwd(const float* q, const float* k, const float* v, int ld,
@@ -340,6 +342,8 @@ int prefix_attention_fwd(const float* q, const float* k, const float* v, int ld,
       !aligned16(out))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim == 32)
+    return launch<32>(q, k, v, ld, valid_len, out, ldo, lse, batch, heads, s_pad, qscale, st);
   return head_dim == 64
              ? launch<64>(q, k, v, ld, valid_len, out, ldo, lse, batch, heads, s_pad, qscale, st)
              : launch<96>(q, k, v, ld, valid_len, out, ldo, lse, batch, heads, s_pad, qscale, st);

@@ -50,9 +50,12 @@
 //
 // Every kernel is a template on the head width HD, built for 96
 // (ChAdaViT-moyen, D 192 in 2 heads: 6 k16 steps and 12 n8 blocks over a
-// head) and 64 (ChAdaViT-B/16, D 768 in 12 heads: 4 and 8); every head is in
-// one launch, with no counterpart of the JAX kernels' walk over groups of at
-// most 384 lanes (a bound of their VMEM, not part of the function).
+// head), 64 (ChAdaViT-B/16, D 768 in 12 heads: 4 and 8) and 32 (the smoke
+// configs, D 64 in 2 heads: 2 and 4; a head row is 4 chunks of 16 bytes,
+// which take the swizzle of an odd multiple of 32 bf16, mma_bf16.cuh); every
+// head is in one launch, with no counterpart of the JAX kernels' walk over
+// groups of at most 384 lanes (a bound of their VMEM, not part of the
+// function).
 //
 // Every decision to skip a tile is uniform across its block and taken before
 // the first barrier. Plain C interface (loaded with ctypes); each launcher
@@ -68,7 +71,7 @@ namespace {
 constexpr int TILE = 64;      // the contract's query and key tile
 constexpr int THREADS = 128;  // 4 warps of 16 rows
 // the head widths HD the kernels are built for; the entry points refuse others
-constexpr bool built_head_dim(int hd) { return hd == 64 || hd == 96; }
+constexpr bool built_head_dim(int hd) { return hd == 32 || hd == 64 || hd == 96; }
 template <int HD>
 constexpr int KSTEPS = HD / 16;  // k16 steps over a head
 template <int HD>
@@ -85,7 +88,8 @@ constexpr int TILE_COPIES = TILE * ROW_CHUNKS<HD> / THREADS;  // 16-byte copies 
 constexpr int FWD_STAGES = 2;
 constexpr int BWD_STAGES = 3;
 constexpr float INV_LOG2E = 0.6931471805599453f;
-static_assert(TILE_COPIES<64> * THREADS == TILE * ROW_CHUNKS<64> &&
+static_assert(TILE_COPIES<32> * THREADS == TILE * ROW_CHUNKS<32> &&
+                  TILE_COPIES<64> * THREADS == TILE * ROW_CHUNKS<64> &&
                   TILE_COPIES<96> * THREADS == TILE * ROW_CHUNKS<96>,
               "tile copies");
 
@@ -620,7 +624,7 @@ extern "C" {
 // q, k, v: (batch * s_pad) rows of ld elements (they may be column slices of
 // one packed qkv buffer); out: rows of ldo elements; lse, when not null:
 // (batch, heads, s_pad) f32, the base-2 log-sum-exp of each query row.
-// valid_len is clamped to [0, s_pad]. head_dim is 64 or 96 (any other is
+// valid_len is clamped to [0, s_pad]. head_dim is 32, 64 or 96 (any other is
 // refused) and s_pad a multiple of 64; ld and ldo are multiples of 8 and q,
 // k, v and out 16-byte aligned (the 16-byte copies and stores). qscale =
 // log2(e) / sqrt(head_dim) rounded to bf16.
@@ -631,6 +635,8 @@ int prefix_attention_fwd_bf16(const bf16* q, const bf16* k, const bf16* v, int l
       ld % 8 || ldo % 8 || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim == 32)
+    return launch_fwd<32>(q, k, v, ld, valid_len, out, ldo, lse, batch, heads, s_pad, qscale, st);
   return head_dim == 64
              ? launch_fwd<64>(q, k, v, ld, valid_len, out, ldo, lse, batch, heads, s_pad, qscale,
                               st)
@@ -644,7 +650,7 @@ int prefix_attention_fwd_bf16(const bf16* q, const bf16* k, const bf16* v, int l
 // scratch of batch * heads * s_pad f32 (delta), followed by batch * s_pad *
 // heads * head_dim bf16 (the scaled q, rows of heads * head_dim). dq, dk, dv:
 // rows of ldg elements (they may be column slices of one packed dqkv
-// buffer). head_dim is 64 or 96 (any other is refused) and s_pad a multiple
+// buffer). head_dim is 32, 64 or 96 (any other is refused) and s_pad a multiple
 // of 64; ld, ldo and ldg are multiples of 8 and every bf16 pointer and delta
 // 16-byte aligned. qscale = log2(e) / sqrt(head_dim) rounded to bf16, scale =
 // 1 / sqrt(head_dim). Three launches: the prep pass, dk/dv, dq.
@@ -659,6 +665,9 @@ int prefix_attention_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, int l
       !aligned16(dq) || !aligned16(dk) || !aligned16(dv))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim == 32)
+    return launch_bwd<32>(q, k, v, ld, o, dout, ldo, lse, delta, valid_len, dq, dk, dv, ldg,
+                          batch, heads, s_pad, qscale, scale, st);
   return head_dim == 64 ? launch_bwd<64>(q, k, v, ld, o, dout, ldo, lse, delta, valid_len, dq,
                                          dk, dv, ldg, batch, heads, s_pad, qscale, scale, st)
                         : launch_bwd<96>(q, k, v, ld, o, dout, ldo, lse, delta, valid_len, dq,

@@ -78,7 +78,8 @@
 // dtype.
 //
 // Every kernel is a template on the head width HD, built for 96
-// (ChAdaViT-moyen) and 64 (ChAdaViT-B/16, D 768 in 12 heads); every head is
+// (ChAdaViT-moyen), 64 (ChAdaViT-B/16, D 768 in 12 heads) and 32 (the smoke
+// configs, D 64 in 2 heads); every head is
 // in one launch, with no counterpart of the JAX kernel's walk over groups of
 // at most 384 lanes (a bound of its VMEM, not part of the function).
 
@@ -431,7 +432,7 @@ extern "C" {
 // scratch of batch * heads * s_pad f32 (delta), followed by batch * s_pad *
 // heads * head_dim f32 (the scaled q) and batch int32 (the images' order). dq, dk,
 // dv: rows of ldg elements (they may be column slices of one packed dqkv
-// buffer). head_dim is 64 or 96 (any other is refused); ld, ldo and ldg are
+// buffer). head_dim is 32, 64 or 96 (any other is refused); ld, ldo and ldg are
 // multiples of 4 and every pointer, delta included, is 16-byte aligned (the
 // 16-byte copies). qscale = log2(e) / sqrt(head_dim), scale = 1 /
 // sqrt(head_dim). Two launches: the prep pass, then dk/dv and dq in one.
@@ -445,6 +446,9 @@ int prefix_attention_bwd(const float* q, const float* k, const float* v, int ld,
       ld % 4 != 0 || ldo % 4 != 0 || ldg % 4 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim == 32)
+    return launch<32>(q, k, v, ld, o, dout, ldo, lse, delta, valid_len, dq, dk, dv, ldg, batch,
+                      heads, s_pad, qscale, scale, st);
   return head_dim == 64 ? launch<64>(q, k, v, ld, o, dout, ldo, lse, delta, valid_len, dq, dk,
                                      dv, ldg, batch, heads, s_pad, qscale, scale, st)
                         : launch<96>(q, k, v, ld, o, dout, ldo, lse, delta, valid_len, dq, dk,

@@ -118,7 +118,7 @@ class EncoderLayer(nn.Module):
     :func:`fused_block.jax_layer_fused` says the JAX layer runs its fused
     kernel (``valid_len`` given, no weights asked, the kernel's VMEM estimate
     within budget), :func:`fused_block.fused_encoder_block`, on CUDA the
-    kernel chain, built for D 192 and 768 (``fused_block.WIDTHS``), which
+    kernel chain, built for D 64, 192 and 768 (``fused_block.WIDTHS``), which
     raises ``NotImplementedError`` at other widths; elsewhere the unfused
     layer below, as JAX: plain LayerNorms
     (or the LayerNorm kernels under ``ln_impl="pallas"``), library products

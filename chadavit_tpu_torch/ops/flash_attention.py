@@ -41,15 +41,16 @@ time too (rows of a stride that is a multiple of 4, starts 16-byte aligned:
 for the scaled q (:func:`_bwd_scratch`).
 
 Every kernel is built for the head widths :data:`HEAD_DIMS`: 96
-(ChAdaViT-moyen, D 192 in 2 heads) and 64 (ChAdaViT-B/16, D 768 in 12
-heads), one C entry point each that takes the head width as an argument; on
-CUDA tensors the wrappers raise ``ValueError`` at any other width (JAX pads
-a head width that is not a multiple of 8 to 128 lanes; no such instance is
-built). One launch covers every head: the JAX kernels' walk over groups of at
-most ``MAX_GROUP_LANES`` = 384 lanes (``flash_attention.py:29``, ``:275``)
-bounds their VMEM and is not part of the function. Launches are counted
-per instance (:func:`instance`): the head-96 ones under the entry point's
-name, the head-64 ones with ``_hd64`` after it.
+(ChAdaViT-moyen, D 192 in 2 heads), 64 (ChAdaViT-B/16, D 768 in 12 heads)
+and 32 (the smoke configs, D 64 in 2 heads), one C entry point each that
+takes the head width as an argument; on CUDA tensors the wrappers raise
+``ValueError`` at any other width (JAX pads a head width that is not a
+multiple of 8 to 128 lanes; no such instance is built). One launch covers
+every head: the JAX kernels' walk over groups of at most
+``MAX_GROUP_LANES`` = 384 lanes (``flash_attention.py:29``, ``:275``) bounds
+their VMEM and is not part of the function. Launches are counted per
+instance (:func:`instance`): the head-96 ones under the entry point's name,
+the head-64 and head-32 ones with ``_hd64`` and ``_hd32`` after it.
 """
 
 from __future__ import annotations
@@ -63,15 +64,15 @@ from chadavit_tpu_torch.ops import _build, _launch
 
 _LOG2E = 1.4426950408889634
 SEQ_BLOCK = 64  # the kernels' query and key tile
-# the head widths the kernels are built for: ChAdaViT-moyen's (D 192, 2 heads)
-# and ChAdaViT-B/16's (D 768, 12 heads)
-HEAD_DIMS = (64, 96)
+# the head widths the kernels are built for: the smoke configs' (D 64, 2
+# heads), ChAdaViT-B/16's (D 768, 12 heads) and ChAdaViT-moyen's (D 192, 2 heads)
+HEAD_DIMS = (32, 64, 96)
 
 
 def instance(entry_point: str, head_dim: int) -> str:
     """The name a launch of C entry point ``entry_point`` at ``head_dim`` is
     counted under (``_launch.LAUNCHES``): the entry point's own at head 96,
-    with ``_hd64`` after it at head 64."""
+    with ``_hd64`` or ``_hd32`` after it at head 64 or 32."""
     return entry_point if head_dim == 96 else f"{entry_point}_hd{head_dim}"
 
 

@@ -42,16 +42,18 @@ gradients equal autograd through the plain forward; rows of the zero-filled
 tiles give nothing and get dx = 0. Keys past ``valid_len`` stay masked.
 
 The chain's kernels are built for the widths of :data:`WIDTHS`:
-ChAdaViT-moyen's (D 192, FFN 2048, 2 heads of 96) and ChAdaViT-B/16's (D
-768, FFN 2048, 12 heads of 64). Launches at D 192 are counted under the C
-entry point's name, those at D 768 with ``_d768`` after it
-(:func:`instance`). Which layers take the chain at all is the JAX layer's
-choice (:func:`jax_layer_fused`, a copy of its VMEM gate): ChAdaViT-B/16 at
-a sequence the gate sends to the unfused layer runs ``models/chada_vit.py``'s
-unfused body with the attention kernels, and the chain where the gate says
-fused (1-7 channels in bfloat16, 1-3 in float32). At any other width the
-chain raises ``NotImplementedError`` on CUDA tensors (on CPU tensors it
-runs its plain versions, which take any width).
+ChAdaViT-moyen's (D 192, FFN 2048, 2 heads of 96), ChAdaViT-B/16's (D 768,
+FFN 2048, 12 heads of 64) and the smoke configs' (``scripts/smoke/*.yaml``:
+D 64, FFN 2048, 2 heads of 32). Launches at D 192 are counted under the C
+entry point's name, those at D 768 and D 64 with ``_d768`` and ``_d64``
+after it (:func:`instance`). Which layers take the chain at all is the JAX
+layer's choice (:func:`jax_layer_fused`, a copy of its VMEM gate):
+ChAdaViT-B/16 at a sequence the gate sends to the unfused layer runs
+``models/chada_vit.py``'s unfused body with the attention kernels, and the
+chain where the gate says fused (1-7 channels in bfloat16, 1-3 in float32);
+the smoke width takes the chain at every sequence up to 10 channels of 224
+px. At any other width the chain raises ``NotImplementedError`` on CUDA
+tensors (on CPU tensors it runs its plain versions, which take any width).
 
 Precision follows the JAX kernels, not ``torch.autocast``: the layer takes
 float32 or bfloat16 activations. The parameters stay float32; the matrices
@@ -79,14 +81,17 @@ from chadavit_tpu_torch.ops.layernorm import layernorm_stats
 
 ROW_BLOCK = 32  # the GEMM kernels' row tile and K slice
 SEQ_PAD = 128   # the chain pads sequences to this multiple, as the model does
-# The widths the kernels are built for, D -> FFN: ChAdaViT-moyen's and
-# ChAdaViT-B/16's; on CUDA tensors the wrappers raise on any other.
-WIDTHS = {192: 2048, 768: 2048}
+# The widths the kernels are built for, D -> FFN: the smoke configs',
+# ChAdaViT-moyen's and ChAdaViT-B/16's; on CUDA tensors the wrappers raise on
+# any other.
+WIDTHS = {64: 2048, 192: 2048, 768: 2048}
 # ChAdaViT-moyen's widths: launches at D_MODEL keep the entry point's name
 D_MODEL = 192
 D_FFN = 2048
 # ChAdaViT-B/16's width, where the bfloat16 K1a, K1c, K2b and K2c are wgmma kernels
 D_WIDE = 768
+# the smoke configs' width (scripts/smoke/*.yaml: 2 heads of 32)
+D_SMALL = 64
 # The bfloat16 ln_linear / linear_relu / linear_residual_ln / linear_dgrad /
 # linear_wgrad are tensor-core kernels (csrc/linear_fwd_bf16.cu,
 # csrc/linear_bwd_bf16.cu; K1a, K1c, K2b and K2c at D 768
@@ -104,8 +109,10 @@ def _weight_shapes(d: int, f: int, qkv, square, ffn1, ffn2) -> dict:
     return {(3 * d, d): qkv, (d, d): square, (f, d): ffn1, (d, f): ffn2}
 
 
-WGRAD_BF16_TILES = _weight_shapes(D_MODEL, D_FFN, (64, D_MODEL), (64, D_MODEL), (128, D_MODEL),
-                                  (D_MODEL, 128))
+WGRAD_BF16_TILES = {
+    **_weight_shapes(D_MODEL, D_FFN, (64, D_MODEL), (64, D_MODEL), (128, D_MODEL), (D_MODEL, 128)),
+    # D 64: the whole 64-wide side (three tiles along N at the QKV site)
+    **_weight_shapes(D_SMALL, D_FFN, (64, D_SMALL), (64, D_SMALL), (128, D_SMALL), (D_SMALL, 128))}
 WGRAD_BF16_BLOCKS = 132
 # At D 768 the bfloat16 linear_wgrad is a stream-K walk (csrc/linear_wgmma_bf16.cu):
 # 128 x 256 output tiles, the units of every tile (WGRAD_WGMMA_UNIT rows: two
@@ -120,13 +127,19 @@ WGRAD_WGMMA_BLOCKS = 132
 # The float32 linear_wgrad (CUDA cores, csrc/fused_block_bwd.cu) takes the same
 # plan with tiles of its own: 192 of the D-wide side of dW and 64 of the
 # other (6 warps of 32 x 64 outputs), two blocks an SM, so the splits fill
-# 264 blocks once, and never more than WGRAD_F32_SPLITS: the out-projection's
+# 264 blocks once, and never more than WGRAD_SPLITS: the out-projection's
 # 3 tiles would take 88, whose partials (13 MB) the second pass would read
-# for a product of 0.7 GFLOP at hub shapes.
-WGRAD_F32_TILES = {k: v for d, f in WIDTHS.items() for k, v in _weight_shapes(
-    d, f, (64, D_MODEL), (64, D_MODEL), (64, D_MODEL), (D_MODEL, 64)).items()}
+# for a product of 0.7 GFLOP at hub shapes. At D 64 a tile takes the whole
+# 64-wide side and 192, 64, 128 and 128 of the other (6, 2, 4 and 4 warps).
+# The bfloat16 plan takes the same cap, which it reaches only at D 64's
+# out-projection (one tile, 132 splits uncapped).
+WGRAD_F32_TILES = {
+    **{k: v for d in (D_MODEL, D_WIDE) for k, v in _weight_shapes(
+        d, WIDTHS[d], (64, D_MODEL), (64, D_MODEL), (64, D_MODEL), (D_MODEL, 64)).items()},
+    **_weight_shapes(D_SMALL, D_FFN, (3 * D_SMALL, D_SMALL), (D_SMALL, D_SMALL), (128, D_SMALL),
+                     (D_SMALL, 128))}
 WGRAD_F32_BLOCKS = 264
-WGRAD_F32_SPLITS = 64
+WGRAD_SPLITS = 64
 # layernorm_bwd (both dtypes) cuts the batch's 32-row tiles into at most this
 # many contiguous shares at D 192 (a quarter as many at D 768), one block
 # each, whatever the batch: its partial sums are (splits, 2 D) float32
@@ -139,7 +152,7 @@ LN_BWD_SPLITS = 2048
 def instance(entry_point: str, d: int) -> str:
     """The name a launch of C entry point ``entry_point`` at width ``d`` is
     counted under (``_launch.LAUNCHES``): the entry point's own at D 192,
-    with ``_d768`` after it at D 768."""
+    with ``_d768`` or ``_d64`` after it at D 768 or D 64."""
     return entry_point if d == D_MODEL else f"{entry_point}_d{d}"
 
 
@@ -429,7 +442,9 @@ def layernorm_rows(x, g, b, valid_len, eps: float = 1e-5, stats=None):
     returned as they are)."""
     if _launch.on_cpu(x, g, b, valid_len):
         return layernorm_rows_reference(x, g, b, valid_len, eps, stats)
-    d = _built_width("layernorm_rows", x.shape[-1])
+    d = x.shape[-1]
+    if d not in (D_MODEL, D_WIDE):
+        raise ValueError(f"layernorm_rows: the kernel is built for D 192 and 768, got {d}")
     if x.dim() != 3 or x.shape[1] % ROW_BLOCK or g.shape != (d,) or b.shape != (d,):
         raise ValueError(f"layernorm_rows: x {tuple(x.shape)} (S a multiple of {ROW_BLOCK}), "
                          f"g {tuple(g.shape)}, b {tuple(b.shape)}")
@@ -648,17 +663,17 @@ def wgrad_splits(bsz: int, s_pad: int, n: int, k: int, dtype=torch.bfloat16) -> 
     """Row splits of ``linear_wgrad`` at weight shape ``(n, k)`` for
     activations of ``dtype``: output tiles (:data:`WGRAD_BF16_TILES` or
     :data:`WGRAD_F32_TILES`) x splits fill :data:`WGRAD_BF16_BLOCKS` or
-    :data:`WGRAD_F32_BLOCKS` blocks once (float32: at most
-    :data:`WGRAD_F32_SPLITS`), and no split is planned beyond the batch's
+    :data:`WGRAD_F32_BLOCKS` blocks once (at most :data:`WGRAD_SPLITS`), and
+    no split is planned beyond the batch's
     32-row tiles. Its partial sums are ``(splits, n * k + n)`` float32,
     bounded whatever the batch."""
     if dtype == torch.float32:
         tn, tk = WGRAD_F32_TILES[(n, k)]
-        most = min(WGRAD_F32_BLOCKS // ((n // tn) * (k // tk)), WGRAD_F32_SPLITS)
+        most = WGRAD_F32_BLOCKS // ((n // tn) * (k // tk))
     else:
         tn, tk = WGRAD_BF16_TILES[(n, k)]
         most = WGRAD_BF16_BLOCKS // ((n // tn) * (k // tk))
-    return max(1, min(most, bsz * s_pad // ROW_BLOCK))
+    return max(1, min(most, WGRAD_SPLITS, bsz * s_pad // ROW_BLOCK))
 
 
 def wgrad_stream_tiles(n: int, k: int) -> int:
@@ -731,7 +746,8 @@ def linear_wgrad(dy, x, valid_len, ln=None):
     forward computed, with ``X' = LN(X)`` from ``ln = (mean, rstd, g, beta)``
     (kernel ``linear_wgrad`` on CUDA, at the layer's four weight shapes only).
     At D 192 and in float32 X' is normed as X is staged and the rows split by
-    :func:`wgrad_splits`, in bfloat16 on the tensor cores; at D 768 in
+    :func:`wgrad_splits`, in bfloat16 on the tensor cores; at D 64 the same
+    with tiles of their own (:data:`WGRAD_F32_TILES`, :data:`WGRAD_BF16_TILES`); at D 768 in
     bfloat16 ``linear_wgrad_wgmma_bf16`` takes LN1 in a pre-pass into a
     scratch of x's shape and walks :func:`wgrad_stream_plan`. dy and x of one
     dtype, 16-byte aligned; the partial sums, their fixed-order reduce and
@@ -919,7 +935,8 @@ def fused_encoder_block(x, valid_len, wqkv, bqkv, wout, bout, g1, b1, g2, b2,
     w1 ``(F, D)``, w2 ``(D, F)``, float32. x is float32 or bfloat16, and the
     layer computes in x's dtype (module docstring). On CUDA every step is a
     kernel launch, at the widths (D, F) of :data:`WIDTHS` only (ChAdaViT-moyen's
-    192/2048 and ChAdaViT-B/16's 768/2048): at any other width it raises
+    192/2048, ChAdaViT-B/16's 768/2048 and the smoke configs' 64/2048): at any
+    other width it raises
     ``NotImplementedError`` (the chain's instances at that width are not
     ported). When autograd records the call (grad mode on and an input that
     requires grad) it runs :class:`FusedEncoderBlock`; otherwise (the teacher,

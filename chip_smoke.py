@@ -6,10 +6,14 @@ pretrain precision: float32 parameters, bfloat16 activations), then the same
 paths of ChAdaViT-B/16 (D 768, 12 heads of 64, FFN 2048) on both of its
 routes: the unfused layer, where the attention kernels run at head width 64,
 and, where the JAX gate takes the fused layer (1-7 channels in bfloat16, 1-3
-in float32), the layer chain's D 768 instances. Every kernel has a float32
-and a bfloat16 instance (C entry points ``name`` and ``name_bf16``); the
-attention kernels' head-64 instances are counted as ``name_hd64``, the layer
-chain's D 768 instances as ``name_d768``.
+in float32), the layer chain's D 768 instances; and the smoke configs' width
+(``scripts/smoke/*.yaml``: D 64, 2 heads of 32, FFN 2048), where the JAX gate
+always takes the fused layer: the layer chain's D 64 instances and the
+attention's head-32 ones, up to the smoke YAML through the port's entry point.
+Every kernel has a float32 and a bfloat16 instance (C entry points ``name``
+and ``name_bf16``); the attention kernels' head-64 and head-32 instances are
+counted as ``name_hd64`` and ``name_hd32``, the layer chain's D 768 and D 64
+instances as ``name_d768`` and ``name_d64``.
 
 Run from the root of the repository, with no arguments:
 
@@ -35,7 +39,8 @@ Phases, each printed with its elapsed seconds at its start and end:
    model's width), none of which may spill; among them the attention's
    head-64 instances (the float32 forward, prep and backward; the bfloat16
    forward, prep, dk/dv and dq) and the layer chain's D 768 instances, none of
-   which may spill.
+   which may spill; and the head-32 instances and the layer chain's D 64
+   instances (D64_KERNELS), none of which may spill.
 2. each kernel instance against its plain PyTorch version at hub shapes (B 8,
    S_pad 2048, D 192, F 2048, 2 heads, 1..10 channels), float32 on the
    inputs of seed 0, then bfloat16 on those of each of BF16_SEEDS (the worst
@@ -78,6 +83,15 @@ Phases, each printed with its elapsed seconds at its start and end:
    _d768 names (the bfloat16 K1a, K1c, K2b and K2c there are the wgmma
    kernels of csrc/linear_wgmma_bf16.cu; the GEMM of the first three writes
    the zeros of the 32-row tiles past valid_len itself).
+2d. the layer chain's D 64 instances and the attention's head-32 ones (the
+   smoke configs' widths: D 64, 2 heads of 32, FFN 2048) against their plain
+   versions: phase 2's check_chain at phase 2's bounds, float32 on seed 0
+   and bfloat16 on each of BF16_SEEDS, at the hub's channel counts (B 8,
+   S_pad 2048, which the JAX gate fuses at D 64) and at the smoke crop (B 16,
+   S_pad 128: 32 px crops of 1-4 channels, 5-17 tokens); then K3 and its lse
+   and K4 at head 32 on the layer's own q, k, v (column slices of qkv) and on
+   the inputs the layer's backward gives K4, each call twice for the same
+   bits, with zeros (and lse 1e30) on the 64-query tiles past valid_len.
 3. the JAX fixtures: the depth-2, full-width model's CLS embeddings
    (tests/goldens/torch_port_cls_depth2.npz) and three DINO train steps of
    that backbone with the canonical head (tests/goldens/torch_port_dino_depth2.npz),
@@ -177,6 +191,16 @@ Phases, each printed with its elapsed seconds at its start and end:
    channel buckets as written, 2 steps (batches of 4 and 8 channels, from the
    loader's plan): finite loss, the layer chain's launches at the first and
    the unfused layer's at the second, printed by route.
+4f. the smoke YAML through the port's entry point on the card:
+   python -m chadavit_tpu_torch.main_pretrain on scripts/smoke/dino_synthetic.yaml
+   with tests/torch_port_loop_fixture.py's OVERRIDES, resumed from the JAX
+   loop's initial state (the fixture's), 3 steps: its logged metrics against
+   the JAX loop's (tests/goldens/torch_port_loop_smoke.npz) within
+   SMOKE_METRIC_REL (the host crops, cv2's as the fixture's were); then 3
+   steps with precision=bf16 from the port's seeded init: finite losses, and
+   step 1 against the same state and batch through the plain chains at 4b's
+   bf16 bounds. Both runs print the launches of every _d64 and _hd32
+   instance: each above 0, and no other instance launched.
 5. times, entry point by entry point (time_entry), at phase 2's shapes for
    D 192, 2b's for the head-64 attention and 2c's for the D 768 chain
    (chain_runs builds the chain's sites at either width): CUDA events of the
@@ -197,8 +221,10 @@ Phases, each printed with its elapsed seconds at its start and end:
    step (bf16, B 32) beside the step's; and the B/16 bf16 step of 4e by the
    profiler, on 10 channels and on a 7-channel bucket: the attention
    kernels' and the layer chain's share of its device time against the
-   library's GEMMs.
-6. one JSON line with every kernel instance, then the last line
+   library's GEMMs; the D 64 and head-32 instances at 2d's hub shapes (B 8,
+   S_pad 2048), by CUDA events and after a head start.
+6. the run's wall time (under WATCHDOG_S), one JSON line with every kernel
+   instance, then the last line
    {"ok": true, "device": {...}}. A failed phase prints no last line and
    exits 1.
 """
@@ -374,6 +400,17 @@ B16_ENTRY_STEPS = 2
 # S_pad 640 (up to 3: 3 520 computed rows) on seed 0
 NARROW_BF16 = (1408, [1, 3, 5, 7, 2, 7, 4, 6])
 NARROW_F32 = (640, [3, 1, 2, 3, 1, 2, 3, 2])
+# 2d and 4f, the smoke configs' widths (scripts/smoke/*.yaml: D 64, 2 heads of
+# 32, FFN 2048; 32 px crops of 16 px patches, 1-4 channels): the hub's channel
+# counts (B 8, S_pad 2048) and the smoke crop (B 16, S_pad 128, 4 tokens a
+# channel); the entry point on the smoke YAML with the JAX loop fixture's
+# overrides, its metrics against that fixture's within SMOKE_METRIC_REL (the
+# CPU test's bound, tests/test_torch_loop.py)
+D64, H64 = 64, 2
+D64_HUB = (S_PAD, [1 + N_PATCHES * c for c in COUNTS])
+D64_CROP = (128, [1 + 4 * (1 + i % 4) for i in range(16)])
+SMOKE_YAML = CANONICAL.parent.parent / "smoke" / "dino_synthetic.yaml"
+SMOKE_METRIC_REL = 1e-5
 CHAIN_ENTRIES = ("ln_linear_fwd", "linear_relu_fwd", "linear_residual_ln_fwd", "layernorm_bwd",
                  "linear_dgrad", "linear_wgrad")
 
@@ -387,10 +424,31 @@ D768_KERNELS = [
     "linear_wgmma_kernel<2048, 768, 256, 1>(", "linear_wgmma_kernel<768, 2048, 192, 2>(",
     "linear_wgmma_kernel<768, 768, 192, 0>(", "linear_wgmma_kernel<768, 2304, 192, 0>(",
     "linear_wgrad_wgmma_kernel(", "reduce_stream_kernel(", "ln_rows_kernel<768>(",
-    "linear_residual_ln_bf16_kernel<768, 4>(", "linear_residual_ln_bf16_kernel<2048, 4>(",
-    "ln_linear_kernel<768>(", "linear_relu_kernel<768>(", "linear_residual_ln_kernel<1, 4>(",
+    "linear_residual_ln_bf16_kernel<768, 4, 192>(", "linear_residual_ln_bf16_kernel<2048, 4, 192>(",
+    "ln_linear_kernel<768>(", "linear_relu_kernel<768>(", "linear_residual_ln_kernel<1, 4, 192>(",
     "layernorm_bwd_kernel<768, float>(", "layernorm_bwd_kernel<768, __nv_bfloat16>(",
     "reduce_ln_splits_kernel<768>("]
+# and its D 64 instances (the smoke configs' width)
+D64_KERNELS = [
+    # float32 (fused_block.cu, fused_block_bwd.cu): K1a, K1c, K1b at both sites,
+    # K2a and its second pass, K2b at the three N 64 sites (its FFN2 site is
+    # the D 192 instance), K2c at the four weight shapes
+    "ln_linear_kernel<64>(", "linear_relu_kernel<64>(", "linear_residual_ln_kernel<1, 1, 64>(",
+    "linear_residual_ln_kernel<2, 1, 64>(", "layernorm_bwd_kernel<64, float>(",
+    "layernorm_bwd_kernel<64, __nv_bfloat16>(", "reduce_ln_splits_kernel<64>(",
+    "linear_dgrad_kernel<64, 2, 2>(", "linear_dgrad_kernel<64, 0, 2>(",
+    "linear_dgrad_kernel<64, 0, 1>(", "linear_wgrad_kernel<192, 64, true>(",
+    "linear_wgrad_kernel<64, 64, false>(", "linear_wgrad_kernel<128, 64, false>(",
+    "linear_wgrad_kernel<64, 128, false>(",
+    # bfloat16 on mma.sync (linear_fwd_bf16.cu, linear_bwd_bf16.cu)
+    "ln_linear_bf16_kernel<64>(", "linear_relu_bf16_kernel<64>(",
+    "linear_residual_ln_bf16_kernel<64, 1, 64>(", "linear_residual_ln_bf16_kernel<2048, 1, 64>(",
+    "linear_dgrad_bf16_kernel<128, 64, 4, 1, true>(",
+    "linear_dgrad_bf16_kernel<64, 2048, 1, 2, false>(",
+    "linear_dgrad_bf16_kernel<64, 64, 1, 0, false>(",
+    "linear_dgrad_bf16_kernel<64, 192, 1, 0, false>(",
+    "linear_wgrad_bf16_kernel<64, 64, 4, true>(", "linear_wgrad_bf16_kernel<128, 64, 4, false>(",
+    "linear_wgrad_bf16_kernel<64, 128, 2, false>("]
 
 # the card's peaks (NVIDIA H100 SXM data sheet): f32 outside the tensor cores,
 # dense bf16 on the tensor cores, and HBM3 bandwidth. The bound of a float32
@@ -1345,6 +1403,15 @@ def main() -> int:
                  "linear_wgrad_bf16"):  # wgmma and TMA at D 768
         wrapper, _, replaces, dt = instances[name]
         instances[fused_block.instance(name, D16)] = (wrapper, wgmma_cu, replaces, dt)
+    # the smoke configs' width: the attention's head-32 instances and the layer
+    # chain's D 64 ones, the same entry points and sources as at head 96 and
+    # D 192, counted as name_hd32 and name_d64
+    smoke_instances = [fa.instance(name + tag, 32) for tag in ("", "_bf16")
+                       for name in ("prefix_attention_fwd", "prefix_attention_bwd")]
+    smoke_instances += [fused_block.instance(name + tag, D64) for tag in ("", "_bf16")
+                        for name in CHAIN_ENTRIES]
+    for name in smoke_instances:
+        instances[name] = instances[name.removesuffix("_hd32").removesuffix("_d64")]
     stats = {name: {"max_abs_err": 0.0} for name in instances}
 
     def reset_launches():
@@ -1371,7 +1438,7 @@ def main() -> int:
                          ln_cu: ("ln_bwd",)}
         ptxas = [_build.ptxas_report(Path(src).name)  # beside the build
                  for src in ptxas_sources]
-        hd64_kernels = {  # the attention kernels' head-64 instances (ChAdaViT-B/16)
+        head_kernels = {  # the attention kernels' head-64 and head-32 instances
             attn_cu: ["prefix_attention_kernel"],
             attn_bwd_cu: ["attention_bwd_prep_kernel", "attention_bwd_kernel"],
             attn_tc_cu: ["attention_fwd_bf16_kernel", "attention_bwd_prep_kernel",
@@ -1380,7 +1447,7 @@ def main() -> int:
         ph.check(True, f"{'cold' if cold else 'warm'} build of {len(_build.sources())} "
                        f"sources: {time.perf_counter() - t:.2f} s")
         # registers, shared memory and spills of those kernels
-        seen768 = []
+        seen768, seen64 = [], []
         for (src, only), proc in zip(ptxas_sources.items(), ptxas):
             report = _build.ptxas_lines(proc)
             names = demangle([k["name"] for k in report])
@@ -1401,19 +1468,25 @@ def main() -> int:
             short_names = [n.replace("(anonymous namespace)::", "").removeprefix("void ")
                            for n in names]
             seen768.extend(p_ for p_ in D768_KERNELS if any(n.startswith(p_) for n in short_names))
-            if src in hd64_kernels:  # the attention's head-64 instances among them
+            seen64.extend(p_ for p_ in D64_KERNELS if any(n.startswith(p_) for n in short_names))
+            # the attention's head-64 and head-32 instances among them
+            for hd in (64, 32) if src in head_kernels else ():
                 # (mangled, a template argument 64 reads ILi64E)
-                found = [k_ for k_ in hd64_kernels[src]
-                         if any(k_ + "ILi64E" in k["name"] for k in report)]
-                ph.check(found == hd64_kernels[src],
-                         f"{Path(src).name}: head-64 instances "
-                         f"{[k_ + '<64>' for k_ in found]} (want {len(hd64_kernels[src])}), "
+                found = [k_ for k_ in head_kernels[src]
+                         if any(f"{k_}ILi{hd}E" in k["name"] for k in report)]
+                ph.check(found == head_kernels[src],
+                         f"{Path(src).name}: head-{hd} instances "
+                         f"{[f'{k_}<{hd}>' for k_ in found]} (want {len(head_kernels[src])}), "
                          f"none spills")
 
         ph.check(sorted(seen768) == sorted(D768_KERNELS),
                  f"the layer chain's D 768 instances built, none spills: {len(seen768)} of "
                  f"{len(D768_KERNELS)} (the others share a D 192 instance: "
                  f"{sorted(set(D768_KERNELS) - set(seen768)) or 'none missing'})")
+        ph.check(sorted(seen64) == sorted(D64_KERNELS),
+                 f"the layer chain's D 64 instances built, none spills: {len(seen64)} of "
+                 f"{len(D64_KERNELS)} (missing: "
+                 f"{sorted(set(D64_KERNELS) - set(seen64)) or 'none'})")
 
     # ---- 2. kernels against their plain versions at hub shapes --------------
     valid_len = [1 + N_PATCHES * c for c in COUNTS]
@@ -1713,6 +1786,81 @@ def main() -> int:
             torch.cuda.empty_cache()
         log("  bf16 D 768 instances, worst readings over seeds "
             f"{', '.join(map(str, BF16_SEEDS))}: " + notes768.summary())
+
+    # ---- 2d. the smoke width: the chain's D 64 instances, the head-32 attention
+    inputs64 = {}  # per dtype tag: the hub inputs of seed 0, kept for phase 5
+    with Phase("2d D 64 chain kernels vs plain (smoke widths)", failures) as ph:
+        notes64 = Bf16Notes(ph, stats)
+
+        def note64(name, out, ref, rows, what, f32, scale_tol=False):
+            """Phase 2b's reading: float32 within KERNEL_TOL (GRAD_REL of the
+            output's largest entry with scale_tol), bfloat16 bf16_err's bounds."""
+            torch.cuda.synchronize()
+            if not f32:
+                notes64.note(name, out, ref, what, rows)
+                return
+            err = valid_rows_err(out, ref, rows)[0]
+            mag = max(ref[i, :n].abs().max().item() for i, n in enumerate(rows) if n)
+            tol = GRAD_REL * max(1.0, mag) if scale_tol else KERNEL_TOL
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+            ph.check(err <= tol, f"{name}{what}: max abs {err:.3e} (tolerance {tol:.3g})")
+
+        def check_head32(inp, dt, what):
+            """K3 and its lse on the layer's own q, k, v (column slices of the
+            plain chain's qkv), K4 on the inputs the layer's backward gives it:
+            each twice for the same bits, zeros and lse 1e30 on the 64-query
+            tiles past valid_len, counted under the head-32 names."""
+            f32 = dt == torch.float32
+            qkv, vl_, valid_ = inp["qkv"], inp["vl"], inp["valid_len"]
+            q, k, v = qkv[..., :D64], qkv[..., D64:2 * D64], qkv[..., 2 * D64:]
+            query_rows = [min(-(-n // fa.SEQ_BLOCK) * fa.SEQ_BLOCK, qkv.shape[1])
+                          for n in valid_]
+            fwd, bwd = (fa.instance(_launch.entry_point(n, dt), D64 // H64)
+                        for n in ("prefix_attention_fwd", "prefix_attention_bwd"))
+            before = (_launch.LAUNCHES[fwd], _launch.LAUNCHES[bwd])
+            out, lse = fa.attention_forward(q, k, v, vl_, H64, with_lse=True)
+            again, lse_again = fa.attention_forward(q, k, v, vl_, H64, with_lse=True)
+            torch.cuda.synchronize()
+            ph.check(torch.equal(out, again) and torch.equal(lse, lse_again) and out.dtype == dt
+                     and all(not out[i, n:].any().item() and (lse[i, :, n:] == 1e30).all().item()
+                             for i, n in enumerate(query_rows)),
+                     f"{fwd}{what}: the same bits on a second call, zeros and lse 1e30 on the "
+                     f"64-query tiles past valid_len")
+            ref, rlse = fa.prefix_flash_attention_reference(q, k, v, vl_, H64, return_lse=True)
+            note64(fwd, out, ref, valid_, "", f32)
+            note64(fwd, lse.transpose(1, 2), rlse.transpose(1, 2), valid_, " save output lse", f32)
+            del again, lse_again, ref, rlse
+            for args, kwargs in inp["bwd_inputs"]["attention_bwd"]:
+                got, again = (fa.prefix_attention_bwd(*args, **kwargs) for _ in range(2))
+                torch.cuda.synchronize()
+                ph.check(torch.equal(got, again) and got.dtype == dt
+                         and all(not got[i, n:].any().item() for i, n in enumerate(valid_)),
+                         f"{bwd} ({tuple(got.shape)}){what}: the same bits on a second call, "
+                         f"rows past valid_len zero")
+                gref = fa.prefix_flash_attention_backward_reference(*args, **kwargs)
+                note64(bwd, got, gref, valid_, f" ({tuple(got.shape)})", f32, scale_tol=True)
+                del got, again, gref
+            ph.check((_launch.LAUNCHES[fwd], _launch.LAUNCHES[bwd]) == (before[0] + 2,
+                                                                      before[1] + 2),
+                     f"{fwd} and {bwd} counted under the head-32 instances' names")
+
+        for seed, tag, dt in ((0, "", torch.float32),
+                              *((s_, "_bf16", bf16) for s_ in BF16_SEEDS)):
+            notes64.where = f", seed {seed}"
+            for label, (s_pad, valid64) in (("hub", D64_HUB), ("crop", D64_CROP)):
+                x, w, dy, dy_tail = draw_layer(np.random.default_rng(300 + seed), dev,
+                                               len(valid64), s_pad, D64, FFN, valid64)
+                what = (f" (D {D64}, {label}: B {len(valid64)}, S_pad {s_pad}, valid_len "
+                        f"{min(valid64)}-{max(valid64)}, seed {seed})")
+                inp = check_chain(ph, stats, notes64.note, x.to(dt), w, dy.to(dt),
+                                  dy_tail.to(dt), valid64, H64, what)
+                check_head32(inp, dt, what)
+                if seed == 0 and label == "hub":
+                    inputs64[tag] = inp
+                del inp, x, w, dy, dy_tail
+                torch.cuda.empty_cache()
+        log("  bf16 D 64 and head-32 instances, worst readings over seeds "
+            f"{', '.join(map(str, BF16_SEEDS))}: " + notes64.summary())
 
     # ---- 3. the JAX fixtures --------------------------------------------------
     with Phase("3 JAX fixtures", failures) as ph:
@@ -2543,6 +2691,124 @@ def main() -> int:
                 f"{n} {launches[n]}" for n in hd64["_bf16"]))
         torch.cuda.empty_cache()
 
+    # ---- 4f. the smoke YAML through the port's entry point ------------------------
+    with Phase("4f smoke YAML through the entry point", failures) as ph, \
+            tempfile.TemporaryDirectory() as tmp:
+        from chadavit_tpu_torch import main_pretrain
+        from chadavit_tpu_torch.cli import apply_overrides
+        from chadavit_tpu_torch.config import load_yaml, parse_pretrain_cfg
+        from chadavit_tpu_torch.train import loop as train_loop
+        from chadavit_tpu_torch.utils import checkpoint as port_checkpoint
+        from tests import torch_port_loop_fixture as loop_fixture
+
+        for name in smoke_instances:  # the main path of the smoke instances
+            stats[name]["launches"] = 0
+        argv = ["--config-path", str(SMOKE_YAML.parent), "--config-name", SMOKE_YAML.stem,
+                *loop_fixture.OVERRIDES, f"max_steps={loop_fixture.STEPS}"]
+
+        def smoke_launches(what, tag, launches, runs):
+            """The run's launches: those of a train path of ``runs`` layer runs
+            on the dtype's D 64 and head-32 instances, no other."""
+            want = {n: 0 for n in instances}
+            for name, n in chain_launches(runs).items():
+                want[fa.instance(name + tag, 32) if name.startswith("prefix_attention")
+                     else fused_block.instance(name + tag, D64)] = n
+            mine = [n for n in smoke_instances if want[n]]
+            log(f"  {what} launches: " + ", ".join(f"{n} {launches[n]}" for n in mine))
+            ph.check(launches == want and all(launches[n] > 0 for n in mine),
+                     f"{what}: every launch on the {len(mine)} D 64 and head-32 instances of "
+                     f"its dtype, each above 0, none elsewhere: launches == expected "
+                     f"({runs} layer runs: {loop_fixture.STEPS} steps x 2 layers, teacher "
+                     f"forward, student forward and backward)")
+            for n in mine:
+                stats[n]["launches"] = launches[n]
+
+        # (a) float32 from the JAX loop's initial state, held to its metrics
+        init, want_metrics = loop_fixture.load()
+        cfg = parse_pretrain_cfg(apply_overrides(load_yaml(str(SMOKE_YAML)),
+                                                 list(loop_fixture.OVERRIDES)))
+        seed = train_loop.resolve_seed(cfg)
+        spec = train_loop.spec_from_cfg(cfg, len(train_loop.build_pretrain_loader(cfg, seed=seed)))
+        state0, _, smoke_backbone, _ = build_dino(spec, seed=seed)
+        depth = len(smoke_backbone.blocks)
+        for side in (state0.student, state0.teacher):
+            for part, module in side.items():
+                module.load_state_dict({k: torch.from_numpy(v) for k, v in init[part].items()})
+        port_checkpoint.save_state(f"{tmp}/init", state0)
+        del state0, smoke_backbone
+        reset_launches()
+        t = time.perf_counter()
+        main_pretrain.main([*argv, "checkpoint.enabled=true", f"checkpoint.dir={tmp}/f32",
+                            f"resume_from_checkpoint={tmp}/init"])
+        torch.cuda.synchronize()
+        smoke_s = time.perf_counter() - t
+        launches = read_launches()
+        logs = read_logs(f"{tmp}/f32")
+        steps = sorted(logs)
+        rels = {k: max(abs(logs[st][k] - w_) / max(abs(w_), 1e-30)
+                       for st, w_ in zip(steps, want_metrics[k].tolist()))
+                for k in loop_fixture.METRICS}
+        ph.check(steps == list(range(1, loop_fixture.STEPS + 1))
+                 and max(rels.values()) <= SMOKE_METRIC_REL,
+                 f"python -m chadavit_tpu_torch.main_pretrain --config-path scripts/smoke "
+                 f"--config-name {SMOKE_YAML.stem} {' '.join(loop_fixture.OVERRIDES)} "
+                 f"max_steps={loop_fixture.STEPS} (cuda, float32, from the JAX loop's initial "
+                 f"state): dino_loss {[logs[st]['dino_loss'] for st in steps]}; each metric's "
+                 f"largest relative distance from the JAX loop's "
+                 + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
+                 + f" (<= {SMOKE_METRIC_REL:g}) ({smoke_s:.2f} s with set-up)")
+        smoke_launches("float32 run", "", launches, depth * loop_fixture.STEPS)
+
+        # (b) bfloat16 from the port's seeded init: finite losses, and step 1
+        # against the same state and batch through the plain chains
+        first = {}
+        real_build = train_loop.build_dino
+
+        def recording_build(*args, **kwargs):
+            first["build"] = (args, kwargs)
+            state, step, model, head = real_build(*args, **kwargs)
+
+            def recording_step(state, batch):
+                if "batch" not in first:
+                    first["batch"] = {k: v.clone() for k, v in batch.items()}
+                state, metrics = step(state, batch)
+                if "loss" not in first:
+                    first["loss"] = float(metrics["dino_loss"])
+                    first["dirs"] = [b.clone() for b in state.opt_state.momentum]
+                return state, metrics
+            return state, recording_step, model, head
+
+        train_loop.build_dino = recording_build
+        try:
+            reset_launches()
+            t = time.perf_counter()
+            main_pretrain.main([*argv, "precision=bf16", "checkpoint.enabled=true",
+                                f"checkpoint.dir={tmp}/bf16"])
+            torch.cuda.synchronize()
+            smoke_b_s = time.perf_counter() - t
+            launches = read_launches()
+        finally:
+            train_loop.build_dino = real_build
+        logs_b = read_logs(f"{tmp}/bf16")
+        losses_b = [logs_b[st]["dino_loss"] for st in sorted(logs_b)]
+        ph.check(first["batch"]["crops"].dtype == bf16 and sorted(logs_b) == steps
+                 and all(math.isfinite(v) for v in losses_b),
+                 f"the same with precision=bf16, from the port's seeded init: dino_loss "
+                 f"{losses_b}, finite ({smoke_b_s:.2f} s with set-up)")
+        smoke_launches("bfloat16 run", "_bf16", launches, depth * loop_fixture.STEPS)
+        args_b, kwargs_b = first["build"]
+        pstate, pstep, _, _ = real_build(*args_b, **{**kwargs_b,
+                                                     "backbone_apply": plain_chain_backbone})
+        pstate, pm = pstep(pstate, first["batch"])
+        loss_rel = abs(float(pm["dino_loss"]) / first["loss"] - 1)
+        ph.check(loss_rel <= TRAIN_BF16_LOSS_REL,
+                 f"bf16 step 1 of the entry point, kernels against the plain chains: loss "
+                 f"{first['loss']:.6f}, rel {loss_rel:.2e} (<= {TRAIN_BF16_LOSS_REL:g})")
+        check_updates(ph, "bf16 step 1 of the entry point", [n for n, _ in pstate.trainable()],
+                      first["dirs"], pstate.opt_state.momentum, args_b[0], TRAIN_BF16_UPDATE_COS)
+        del pstate, pstep, first
+        torch.cuda.empty_cache()
+
     # ---- 5. times -------------------------------------------------------------
     with Phase("5 times", failures) as ph:
         rows = sum(valid_len)  # rows the kernels must compute
@@ -2985,6 +3251,57 @@ def main() -> int:
             del runs7, i7
             torch.cuda.empty_cache()
 
+            # the smoke width's D 64 chain instances and head-32 attention at
+            # 2d's hub shapes (B 8, S_pad 2048, D 64 in 2 heads), on its
+            # inputs of seed 0; device times after a head start too
+            i64 = inputs64[tag]
+            runs64, weights64 = chain_runs(i64, dt)
+            bsz64, s64 = i64["x"].shape[:2]
+            vl64, valid64 = i64["vl"], i64["valid_len"]
+            rows64, m64 = sum(valid64), bsz64 * s64
+            key_ok64 = (torch.arange(s64, device=dev)[None, :] < vl64[:, None])[:, None, None, :]
+
+            def heads64(t):
+                return t.reshape(bsz64, s64, H64, D64 // H64).transpose(1, 2)
+
+            q64, k64, v64 = (i64["qkv"][..., j * D64:(j + 1) * D64] for j in range(3))
+
+            def sdpa_bwd64(args):  # the library's backward of the same attention
+                qs_, ks_, vs_ = (heads64(t.detach()).requires_grad_(True) for t in args[:3])
+                out_ = F.scaled_dot_product_attention(qs_, ks_, vs_, attn_mask=key_ok64)
+                do_ = heads64(args[5])
+                return lambda: torch.autograd.grad(out_, (qs_, ks_, vs_), do_, retain_graph=True)
+
+            runs64["prefix_attention_fwd"] = [site(
+                lambda: fa.prefix_flash_attention(q64, k64, v64, vl64, H64),
+                lambda: fa.prefix_flash_attention_reference(q64, k64, v64, vl64, H64),
+                lambda: F.scaled_dot_product_attention(heads64(q64), heads64(k64), heads64(v64),
+                                                       attn_mask=key_ok64),
+                sum(4 * n * n * D64 for n in valid64), es * (3 * rows64 * D64 + m64 * D64))]
+            runs64["prefix_attention_bwd"] = [site(
+                (lambda a=a, kw=kw: fa.prefix_attention_bwd(*a, **kw)),
+                (lambda a=a, kw=kw: fa.prefix_flash_attention_backward_reference(*a, **kw)),
+                sdpa_bwd64(a), sum(10 * n * n * D64 for n in valid64),
+                es * (5 * rows64 * D64 + 3 * m64 * D64) + 4 * (2 * H64 * rows64))
+                for a, kw in i64["bwd_inputs"]["attention_bwd"]]
+            for name, sites in runs64.items():
+                iname = (fa.instance(name + tag, D64 // H64) if name.startswith("prefix_attention")
+                         else fused_block.instance(name + tag, D64))
+                time_entry(iname, sites, peak, f"B {bsz64}, S_pad {s64}, D {D64}",
+                           weights64.get(name), head_start=True)
+            layer64_ms = time_ms(lambda: fused_block.fused_encoder_block(
+                i64["x"], vl64, *i64["w"], H64, EPS1, EPS2))
+            layer64_plain = time_ms(lambda: fused_block.fused_encoder_block_reference(
+                i64["x"], vl64, *i64["w"], H64, EPS1, EPS2))
+            wd64 = i64["wd"]
+            lib_ws64 = (*wd64[:4], *(t.to(dt) for t in wd64[4:8]), *wd64[8:])
+            layer64_lib = time_ms(lambda: library_layer(i64["x"], lib_ws64, H64, key_ok64))
+            log(f"  fused_encoder_block{tag} at D {D64} forward (B {bsz64}, S_pad {s64}): "
+                f"kernels {layer64_ms:.4f} ms, plain {layer64_plain:.4f} ms, the addmm/SDPA/"
+                f"layer_norm layer {layer64_lib:.4f} ms")
+            del runs64, i64
+            torch.cuda.empty_cache()
+
         xb, cb = hub.collate_images(images[:batch])
         xb, cb = xb.to(dev), cb.to(dev)
         for served_model, tag in ((model, ""), (model_b, " bf16")):
@@ -3121,6 +3438,11 @@ def main() -> int:
                  "all kernel instances timed")
 
     # ---- 6. report ------------------------------------------------------------
+    wall = time.perf_counter() - T0
+    ok_wall = wall < WATCHDOG_S
+    log(f"{'ok  ' if ok_wall else 'FAIL'} the whole run: {wall:.2f} s (watchdog {WATCHDOG_S} s)")
+    if not ok_wall:
+        failures.append(f"6 report: the run took {wall:.2f} s, past {WATCHDOG_S} s")
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": stats[name]["launches"], "max_abs_err": stats[name]["max_abs_err"],

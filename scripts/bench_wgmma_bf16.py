@@ -220,27 +220,6 @@ def worker(root: Path) -> dict:
     return out
 
 
-def sass(lib: str) -> dict:
-    """{kernel name: its SASS} of a built library; names demangled and without
-    the anonymous namespace, whose mangled form differs from file to file."""
-    text = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", lib], capture_output=True,
-                          text=True, check=True).stdout
-    kernels, name = {}, None
-    for line in text.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            kernels[name] = []
-        elif line.startswith("Fatbin"):  # the next object's header: the last kernel ended
-            name = None
-        elif name is not None:
-            kernels[name].append(line)
-    names = subprocess.run(["/usr/local/cuda/bin/cu++filt"], input="\n".join(kernels),
-                           capture_output=True, text=True, check=True).stdout.splitlines()
-    return {n.replace("(anonymous namespace)::", ""): "\n".join(body).rstrip()
-            for n, body in zip(names, kernels.values())}
-
-
 BUILDS = {"as built": [], "no_load": ["-DWGMMA_NO_LOAD"], "no_mma": ["-DWGMMA_NO_MMA"],
           "no_store": ["-DWGMMA_NO_STORE"]}
 
@@ -381,19 +360,9 @@ def main() -> int:
                           f"{r[item]['device_ms']:.4f}" for lab, r in zip(labels, runs))
         print(f"{item} (events / after a head start / profiler, ms): {cells}; library "
               f"{runs[1][item]['library_ms']:.4f}, bound {runs[1][item]['bound_ms']:.4f}")
-    parent_sass, change_sass = sass(runs[0]["library"]), sass(runs[1]["library"])
-    common = sorted(set(parent_sass) & set(change_sass))
-    differ = [k for k in common if parent_sass[k] != change_sass[k]]
-    print(f"SASS: {len(common)} kernels in both libraries, {len(common) - len(differ)} "
-          f"identical; differing: {differ or 'none'}; only the parent's: "
-          f"{sorted(set(parent_sass) - set(change_sass))}; only the change's: "
-          f"{sorted(set(change_sass) - set(parent_sass))}")
-    for k in differ:  # where they differ: from the first line that does
-        a, b = parent_sass[k].splitlines(), change_sass[k].splitlines()
-        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
-        print(f"  {k[:80]}: {len(a)} / {len(b)} lines, the first {i} the same; then the "
-              f"parent's {' | '.join(x.strip() for x in a[i:i + 6])} ; the change's "
-              f"{' | '.join(y.strip() for y in b[i:i + 6])}")
+    from compare_sass import compare  # beside this script
+
+    differ = compare(runs[0]["library"], runs[1]["library"])
     same = True
     for key, what in (("k1a_k2c", "D 192 bf16 K1a and K2c"), ("k1c_k2b", "D 192 bf16 K1c and K2b"),
                       (None, "D 768 bf16 K1a")):

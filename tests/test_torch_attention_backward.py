@@ -114,8 +114,8 @@ def test_cuda_route_without_grad_takes_the_save_free_launch(fake_cuda):
     assert out.grad_fn is None and fake_cuda.calls == ["prefix_attention_fwd"]
 
 
-# head widths 16, 128 and 32: none is built (the kernels take 64 and 96)
-@pytest.mark.parametrize("d", [D, 2 * 128, 2 * 32])
+# head widths 16, 128 and 48: none is built (the kernels take 32, 64 and 96)
+@pytest.mark.parametrize("d", [D, 2 * 128, 2 * 48])
 def test_cuda_route_backward_refuses_other_head_widths(fake_cuda, d):
     q, k, v = _qkv(d, False)
     lse = torch.zeros(2, 2, 128)

@@ -367,8 +367,8 @@ def test_wgrad_split_plan_covers_every_computed_tile_once_in_order(s_pad, valid_
 
 WGRAD_TILES = {torch.bfloat16: (fused_block.WGRAD_BF16_TILES, fused_block.WGRAD_BF16_BLOCKS),
                torch.float32: (fused_block.WGRAD_F32_TILES, fused_block.WGRAD_F32_BLOCKS)}
-# the four weight shapes of a layer of each width: D 192's in WGRAD_BF16_TILES,
-# D 768's in the bfloat16 stream-K walk's WGRAD_WGMMA_TILES
+# the four weight shapes of a layer of each width: D 192's and D 64's in
+# WGRAD_BF16_TILES, D 768's in the bfloat16 stream-K walk's WGRAD_WGMMA_TILES
 WGRAD_SHAPES = sorted(set(fused_block.WGRAD_BF16_TILES) | set(fused_block.WGRAD_WGMMA_TILES))
 
 
@@ -435,11 +435,22 @@ def test_wgrad_stream_plan_covers_every_computed_tile_once_in_order(s_pad, valid
         assert fused_block.wgrad_stream_fixups(t, units, tiles) == [s for s, _ in by_tile[t]]
 
 
+# the float32 wgrad tiles at D 64, (N, K) -> (TN, TK): the 64-wide side whole
+F32_D64_TILES = {(192, 64): (192, 64), (64, 64): (64, 64), (2048, 64): (128, 64),
+                 (64, 2048): (64, 128)}
+
+
 @pytest.mark.parametrize("n, k", sorted(fused_block.WGRAD_F32_TILES))
 def test_wgrad_f32_tiles_span_the_192_wide_side(n, k):
     """The float32 kernel's tile takes the 192-wide side of dW whole and 64 of
-    the other, so the 2048-wide operand is read once; six warps of 32 x 64."""
+    the other, so the 2048-wide operand is read once; six warps of 32 x 64.
+    At D 64 it takes the 64-wide side whole (F32_D64_TILES), a warp each 32 x
+    64 of the tile."""
     tn, tk = fused_block.WGRAD_F32_TILES[(n, k)]
+    if min(n, k) == fused_block.D_SMALL:
+        assert (tn, tk) == F32_D64_TILES[(n, k)] and n % tn == 0 and k % tk == 0
+        assert sorted(fused_block.WGRAD_F32_TILES) == WGRAD_SHAPES
+        return
     d = fused_block.D_MODEL
     assert (tn, tk) == ((d, 64) if k == fused_block.D_FFN else (64, d))
     assert (tn // 32) * (tk // 64) == 6 and n % tn == 0 and k % tk == 0

@@ -1,5 +1,6 @@
 """Each CUDA kernel of chadavit_tpu_torch against its plain PyTorch version,
-on the card, at the widths of ChAdaViT-moyen (D 192, 2 heads of 96, FFN 2048)
+on the card, at the widths of ChAdaViT-moyen (D 192, 2 heads of 96, FFN 2048;
+ChAdaViT-B/16's D 768 and the smoke configs' D 64 as cases of the same tests)
 with ragged prefixes (single-token, partial and full, row tiles past the
 prefix), the forward kernels and the backward kernels (each on the inputs
 the layer's backward chain gives it), and the gradients of the layer and of
@@ -112,13 +113,16 @@ def test_wrappers_refuse_other_dtypes(dev):
 
 
 def test_wrappers_refuse_other_widths(dev):
-    x = torch.zeros((1, 64, 64), device=dev)
+    # built: D 64, 192 and 768 (FFN 2048), head widths 32, 64 and 96
+    x = torch.zeros((1, 64, 128), device=dev)
     vl = torch.ones((1,), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
-        fa.prefix_flash_attention(x, x, x, vl, 2)  # head width 32
+        fa.prefix_flash_attention(x[..., :32], x[..., :32], x[..., :32], vl, 2)  # head width 16
     with pytest.raises(ValueError):
-        fused_block.linear_relu(x, torch.zeros((128, 64), device=dev),
-                                torch.zeros((128,), device=dev), vl)
+        fa.prefix_flash_attention(x, x, x, vl, 1)  # head width 128
+    with pytest.raises(ValueError):
+        fused_block.linear_relu(x, torch.zeros((2048, 128), device=dev),
+                                torch.zeros((2048,), device=dev), vl)  # D 128
 
 
 def _layer_inputs(rng, dev, valid):
@@ -155,8 +159,8 @@ D768_BATCHES = {"narrow": (640, [589, 197, 1, 393, 64, 33]),
 TRUTH_GAP = 1.1
 
 
-def _d768_inputs(rng, dev, valid, s, dtype):
-    d, f = D16, fused_block.WIDTHS[D16]
+def _d768_inputs(rng, dev, valid, s, dtype, d=D16):
+    f = fused_block.WIDTHS[d]
     x = _randn(rng, dev, len(valid), s, d)
     w = [_randn(rng, dev, 3 * d, d, scale=d ** -0.5), _randn(rng, dev, 3 * d, scale=0.02),
          _randn(rng, dev, d, d, scale=d ** -0.5), _randn(rng, dev, d, scale=0.02),
@@ -168,13 +172,26 @@ def _d768_inputs(rng, dev, valid, s, dtype):
     return x.to(dtype), w, dy.to(dtype), torch.tensor(valid, dtype=torch.int32, device=dev)
 
 
-# the layer chain's cases at both widths it is built for: ChAdaViT-moyen's
-# VALIDS, ChAdaViT-B/16's D768_BATCHES
-LAYER_CASES = [("moyen", i) for i in range(len(VALIDS))] + [("b16", b) for b in D768_BATCHES]
+# ---- the layer chain at D 64 (the smoke configs: FFN 2048, 2 heads of 32) ------
+# The D 64 instances of both dtypes, at the same bounds, on the smoke crop's
+# sequences (32 px, 1-4 channels: S 17 at most, padded to 128) and at the hub's
+# channel counts (S_pad 2048, where the JAX gate fuses the layer at D 64 too):
+# cases of the tests of every width (LAYER_CASES, LAYER_GRAD_CASES), and of
+# the attention's (HD64_WIDTHS: D 64 in 2 heads of 32).
+D64, H64 = fused_block.D_SMALL, 2
+D64_BATCHES = {"crop": (128, [17, 5, 9, 13, 1, 17, 9, 5, 13, 17, 1, 9, 17, 13, 5, 17]),
+               "hub": (2048, [1 + 196 * c for c in (1, 3, 5, 10, 2, 7, 9, 10)])}
+
+# the layer chain's cases at every width it is built for: ChAdaViT-moyen's
+# VALIDS, ChAdaViT-B/16's D768_BATCHES, the smoke width's D64_BATCHES
+LAYER_CASES = ([("moyen", i) for i in range(len(VALIDS))] + [("b16", b) for b in D768_BATCHES]
+               + [("smoke", b) for b in D64_BATCHES])
 
 
 def _case_valid(width, case):
-    return VALIDS[case] if width == "moyen" else D768_BATCHES[case][1]
+    if width == "moyen":
+        return VALIDS[case]
+    return (D768_BATCHES if width == "b16" else D64_BATCHES)[case][1]
 
 
 def _layer_case(width, case, rng, dev, dtype):
@@ -186,6 +203,9 @@ def _layer_case(width, case, rng, dev, dtype):
         x, w, dy, vl = _layer_inputs(rng, dev, valid)
         dy = _tail_cotangent(_randn(rng, dev, *dy.shape), valid, fused_block.ROW_BLOCK)
         return x.to(dtype), w, dy.to(dtype), vl, HEADS
+    if width == "smoke":
+        x, w, dy, vl = _d768_inputs(rng, dev, valid, D64_BATCHES[case][0], dtype, D64)
+        return x, w, dy, vl, H64
     x, w, dy, vl = _d768_inputs(rng, dev, valid, D768_BATCHES[case][0], dtype)
     return x, w, dy, vl, H16
 
@@ -1181,7 +1201,8 @@ def test_ln_bwd_splits_on_the_card(dev, shape, dtype, residual):
 # the backward with a cotangent on every row of the computed tiles (exact
 # zeros past them), each call twice for the same bits, and the launches
 # counted under the head-64 instance's name.
-HD64_WIDTHS = {"b16": (768, 12), "narrow": (128, 2)}
+# (D, heads): the head-64 widths, and the smoke width's head of 32
+HD64_WIDTHS = {"b16": (768, 12), "narrow": (128, 2), "smoke_hd32": (D64, H64)}
 HD64_BATCHES = {"ragged": (2048, ATTN_VALID), "hub": (2048, _HUB)}
 
 
@@ -1196,8 +1217,8 @@ def test_head_64_attention_forward_and_backward(dev, batch, width, dtype):
     qkv = _randn(rng, dev, len(valid), s, 3 * d).to(dtype)
     q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
     rows = [min(-(-n // fa.SEQ_BLOCK) * fa.SEQ_BLOCK, s) for n in valid]
-    fwd = fa.instance(_launch.entry_point("prefix_attention_fwd", dtype), 64)
-    bwd = fa.instance(_launch.entry_point("prefix_attention_bwd", dtype), 64)
+    fwd = fa.instance(_launch.entry_point("prefix_attention_fwd", dtype), d // heads)
+    bwd = fa.instance(_launch.entry_point("prefix_attention_bwd", dtype), d // heads)
     before = (_launch.LAUNCHES[fwd], _launch.LAUNCHES[bwd])
     out, lse = fa.attention_forward(q, k, v, vl, heads, with_lse=True)
     again, lse_again = fa.attention_forward(q, k, v, vl, heads, with_lse=True)
@@ -1282,24 +1303,29 @@ def test_forward_steps_twice_with_save_outputs(dev, width, case, step, dtype):
             _assert_valid_rows_close(o, r, rows)
 
 
+# the layer's gradient at D 768 and, as cases of the same test, at D 64
+LAYER_GRAD_CASES = {**{b: (D16, H16) + D768_BATCHES[b] for b in D768_BATCHES},
+                    **{f"d64_{b}": (D64, H64) + D64_BATCHES[b] for b in D64_BATCHES}}
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("batch", list(D768_BATCHES))
+@pytest.mark.parametrize("batch", list(LAYER_GRAD_CASES))
 def test_d768_layer_gradient_through_the_function(dev, batch, dtype, seed):
-    s, valid = D768_BATCHES[batch]
+    d, heads, s, valid = LAYER_GRAD_CASES[batch]
     rng = np.random.default_rng(len(valid) + 12 + 100 * seed)
-    x, w, dy, vl = _d768_inputs(rng, dev, valid, s, dtype)
+    x, w, dy, vl = _d768_inputs(rng, dev, valid, s, dtype, d)
     rows = [-(-n // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK for n in valid]
     xg = x.clone().requires_grad_(True)
     wg = [t.clone().requires_grad_(True) for t in w]
-    y = fused_block.fused_encoder_block(xg, vl, *wg, H16)
+    y = fused_block.fused_encoder_block(xg, vl, *wg, heads)
     assert type(y.grad_fn).__name__ == "FusedEncoderBlockBackward"
     got = torch.autograd.grad(y, [xg, *wg], dy)
     with torch.no_grad():
-        _, res = fused_block.layer_forward(fused_block.KERNEL_STEPS, x, vl, tuple(w), H16,
+        _, res = fused_block.layer_forward(fused_block.KERNEL_STEPS, x, vl, tuple(w), heads,
                                            1e-5, 1e-5, save=True)
-        ref = backward_reference(dy, x, vl, res, w, H16, 1e-5)
-        y_plain = fused_block.fused_encoder_block_reference(x, vl, *w, H16)
+        ref = backward_reference(dy, x, vl, res, w, heads, 1e-5)
+        y_plain = fused_block.fused_encoder_block_reference(x, vl, *w, heads)
     names = ["dx", "wqkv", "bqkv", "wout", "bout", "g1", "b1", "g2", "b2", "w1", "b1f", "w2",
              "b2f"]
     if dtype == torch.bfloat16:
@@ -1316,10 +1342,10 @@ def test_d768_layer_gradient_through_the_function(dev, batch, dtype, seed):
         # at its hub shapes). Each reading is printed (pytest -s)
         xf = x.float()
         with torch.no_grad():
-            _, resf = fused_block.layer_forward(fused_block.PLAIN_STEPS, xf, vl, tuple(w), H16,
+            _, resf = fused_block.layer_forward(fused_block.PLAIN_STEPS, xf, vl, tuple(w), heads,
                                                 1e-5, 1e-5, save=True)
             truth = fused_block.layer_backward(fused_block.PLAIN_STEPS, dy.float(), xf, vl,
-                                               *resf, w, H16, 1e-5)
+                                               *resf, w, heads, 1e-5)
     for i_t, (name, o, r) in enumerate(zip(names, got, ref)):
         r = r.reshape(o.shape)
         if dtype == torch.bfloat16:
