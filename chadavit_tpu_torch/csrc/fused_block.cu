@@ -24,15 +24,16 @@
 //
 // Each kernel is built for the layer's three widths, D 192 (ChAdaViT-moyen),
 // D 768 (ChAdaViT-B/16) and D 64 (the smoke configs), FFN 2048 at each:
-// ln_linear_fwd and linear_relu_fwd are templates on K = D (at D 768 the
-// resident rows take 98.8 KB, so one block an SM; at D 64 Wqkv's 192 rows
-// are one slab), linear_residual_ln_fwd at D 768 is a cluster of four blocks
-// along the columns, each the D 192 tile, that add their rows' partial
-// LayerNorm sums through distributed shared memory, and at D 64 a template on
-// its column tile BN = 64, so that one block still owns whole rows. At D 64
-// every product has 64 on one side, so every step is bound by its bytes. The
-// D 192 and D 768 instances compile to the code they had. The launchers
-// refuse any other width.
+// linear_relu_fwd is a template on K = D, ln_linear_fwd on K = D at D 192 and
+// D 64 (at D 64 Wqkv's 192 rows are one slab), linear_residual_ln_fwd at D 64
+// a template on its column tile BN = 64, so that one block still owns whole
+// rows. At D 64 every product has 64 on one side, so every step is bound by
+// its bytes. At D 768 the LN1 + QKV step (ln_linear_fwd_d768) and both
+// linear_residual_ln_fwd sites are a GEMM on 128-row tiles (gemm128_kernel)
+// with the LayerNorm in a row pass of its own, one warp a row: LN1 before
+// the product, the residual's LayerNorm after it (notes below). The D 192
+// and D 64 instances compile to the code they had. The launchers refuse any
+// other width.
 //
 // The three kernels here are float32 only. The bf16 path the JAX package
 // trains in (precision "bf16": bf16 activations, f32 parameters cast to bf16
@@ -134,7 +135,7 @@ struct LnLinearF32 {
   static constexpr int SMEM = (BM * LDX + LL_STAGES * LL_STAGE) * 4;
   // blocks an SM by shared memory (227 KB, 1 KB of it reserved a block), at
   // most three: the register budget follows from it (D 192 and D 64: three,
-  // 168 registers a thread; D 768: one)
+  // 168 registers a thread)
   static constexpr int BY_SMEM = 232448 / (SMEM + 1024);
   static constexpr int BLOCKS_SM = BY_SMEM > 3 ? 3 : BY_SMEM > 0 ? BY_SMEM : 1;
   static_assert(LL_BN % (8 * LL_TN) == 0 && BM == 4 * LL_TM &&
@@ -423,19 +424,7 @@ linear_relu_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // 32 rows x 16 columns, a thread 4 rows x 4 columns (rows ty + 8 i, columns
 // tx + 4 j of its warp's), the same ring, K split and LayerNorm epilogue.
 //
-// At D 768 (CB = 4 column blocks) a row is four of the D 192 tiles: a
-// cluster of CB blocks owns one 32-row tile and block `rank` its 192
-// columns [192 rank, 192 (rank + 1)), over all of K (no K split: the four
-// column blocks already give the FFN2 site four times the blocks, and the
-// cluster stays at 4, under the portable 8). Each block computes the D 192
-// tile (the same ring, warps and sums, with W's rows and the residual's
-// columns of its slice), adds bias and residual, and takes each row's
-// partial sums of r and r^2 over its columns, one warp a row; after a
-// cluster barrier every block adds the CB partials in rank order through
-// distributed shared memory (the same bits in every block and on every run),
-// forms the stats with the max(0, .) clamp and normalises its own columns; a
-// second cluster barrier keeps the partials in place until every block has
-// read them. Block 0 of the cluster writes the stats.
+// At D 768 both sites are gemm128_kernel and res_ln_rows_kernel below.
 #ifndef LRN_SPLIT_FFN
 #define LRN_SPLIT_FFN 2
 #endif
@@ -448,7 +437,7 @@ constexpr int LRN_WARPS = 4;        // 32 rows x BN / 4 columns a warp
 constexpr int LRN_THREADS = LRN_WARPS * 32;
 constexpr int LRN_TM = 4;           // a thread's rows
 
-template <int BN>  // the block's columns: D_MODEL (D 192 and D 768) or D_SMALL
+template <int BN>  // the block's columns: D_MODEL or D_SMALL
 struct ResLnF32 {
   static constexpr int WC = BN / LRN_WARPS;     // a warp's columns
   static constexpr int TN = WC / 4;             // a thread's columns
@@ -460,7 +449,7 @@ struct ResLnF32 {
                 "linear_residual_ln tile shape");
 };
 
-template <int SPLIT, int CB, int BN>
+template <int SPLIT, int BN>
 __global__ void __launch_bounds__(LRN_THREADS)
 linear_residual_ln_kernel(const float* __restrict__ a, const float* __restrict__ w,
                           const float* __restrict__ bias, const float* __restrict__ res,
@@ -470,43 +459,28 @@ linear_residual_ln_kernel(const float* __restrict__ a, const float* __restrict__
                           const int* __restrict__ valid_len, int K, int s_pad) {
   using C = ResLnF32<BN>;
   constexpr int ROWS = LRN_BM / SPLIT;  // rows a block normalises
-  constexpr int D = CB * BN;            // a row's columns
   constexpr int LRN_TN = C::TN, LRN_LDR = C::LDR, LRN_STAGE = C::STAGE;
   static_assert(LRN_BM % SPLIT == 0, "whole rows a block");
-  static_assert(CB == 1 || SPLIT == 1, "a cluster splits K or the columns, not both");
   namespace cg = cooperative_groups;
-  const int rank = SPLIT * CB > 1 ? (int)cg::this_cluster().block_rank() : 0;
-  const int m0 = blockIdx.x / (SPLIT * CB) * LRN_BM;
-  const int c0 = CB > 1 ? rank * BN : 0;  // the block's first column
+  const int rank = SPLIT > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int m0 = blockIdx.x / SPLIT * LRN_BM;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (tile_is_padding(m0, s_pad, valid_len)) {  // the whole cluster, before any barrier
     const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-    if constexpr (CB > 1) {
-      for (int c = tid; c < LRN_BM * BN / 4; c += LRN_THREADS) {
-        const size_t o = (size_t)(m0 + c / (BN / 4)) * D + c0 + c % (BN / 4) * 4;
-        *reinterpret_cast<float4*>(out + o) = z;
-        if (r_out != nullptr) *reinterpret_cast<float4*>(r_out + o) = z;
-      }
-      if (mean_out != nullptr && rank == 0 && tid < LRN_BM) {
-        mean_out[m0 + tid] = 0.f;
-        rstd_out[m0 + tid] = 0.f;
-      }
-    } else {
-      const int r0 = m0 + rank * ROWS;
-      for (int c = tid; c < ROWS * BN / 4; c += LRN_THREADS) {
-        reinterpret_cast<float4*>(out + (size_t)r0 * BN)[c] = z;
-        if (r_out != nullptr) reinterpret_cast<float4*>(r_out + (size_t)r0 * BN)[c] = z;
-      }
-      if (mean_out != nullptr && tid < ROWS) {
-        mean_out[r0 + tid] = 0.f;
-        rstd_out[r0 + tid] = 0.f;
-      }
+    const int r0 = m0 + rank * ROWS;
+    for (int c = tid; c < ROWS * BN / 4; c += LRN_THREADS) {
+      reinterpret_cast<float4*>(out + (size_t)r0 * BN)[c] = z;
+      if (r_out != nullptr) reinterpret_cast<float4*>(r_out + (size_t)r0 * BN)[c] = z;
+    }
+    if (mean_out != nullptr && tid < ROWS) {
+      mean_out[r0 + tid] = 0.f;
+      rstd_out[r0 + tid] = 0.f;
     }
     return;
   }
   extern __shared__ __align__(16) float lrn_smem[];
   const int ty = lane >> 2, tx = lane & 3;
-  const int kpart = K / SPLIT, kbase = (CB > 1 ? 0 : rank) * kpart;
+  const int kpart = K / SPLIT, kbase = rank * kpart;
 
   auto load = [&](int s, int slot) {  // K columns [s BK, (s + 1) BK) of the block's range
     float* as = lrn_smem + slot * LRN_STAGE;
@@ -520,7 +494,7 @@ linear_residual_ln_kernel(const float* __restrict__ a, const float* __restrict__
     for (int q = 0; q < BN * LRN_BK / 4 / LRN_THREADS; ++q) {
       const int idx = tid + q * LRN_THREADS;
       const int r = idx / (LRN_BK / 4), c = idx % (LRN_BK / 4) * 4;
-      sgemm::cp_async_16(ws + r * LRN_LD + c, w + (size_t)(c0 + r) * K + k0 + c);
+      sgemm::cp_async_16(ws + r * LRN_LD + c, w + (size_t)r * K + k0 + c);
     }
   };
   float acc[LRN_TM][LRN_TN];
@@ -546,116 +520,64 @@ linear_residual_ln_kernel(const float* __restrict__ a, const float* __restrict__
   for (int i = 0; i < LRN_TM; ++i)
 #pragma unroll
     for (int j = 0; j < LRN_TN; ++j) rt[(ty + 8 * i) * LRN_LDR + warp * C::WC + tx + 4 * j] = acc[i][j];
-  if constexpr (CB > 1) {
-    // D 768: r = res + (a @ W^T + bias) (the JAX order) over the block's
-    // columns, one warp a row: its partial sums, then the row after the
-    // cluster barrier, with the CB blocks' partials added in rank order
-    __shared__ float2 part[LRN_BM];  // each row's sum of r and of r^2 over the block's columns
-    __syncthreads();
-    auto r_of = [&](int r, int c) {
+  if constexpr (SPLIT > 1) cg::this_cluster().sync();  // every block's sums are in place
+  else __syncthreads();
+  const float* tiles[SPLIT] = {rt};  // every block's row tile, by rank
+  if constexpr (SPLIT > 1)
+#pragma unroll
+    for (int q = 0; q < SPLIT; ++q) tiles[q] = cg::this_cluster().map_shared_rank(rt, q);
+  for (int rr = warp; rr < ROWS; rr += LRN_WARPS) {  // one warp a row
+    const int r = rank * ROWS + rr;
+    const size_t o = (size_t)(m0 + r) * BN;
+    float v[BN / 32], s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int c = 0; c < BN / 32; ++c) {
       const int n = lane + 32 * c;
-      return res[(size_t)(m0 + r) * D + c0 + n] + (rt[r * LRN_LDR + n] + bias[c0 + n]);
-    };
-    for (int r = warp; r < LRN_BM; r += LRN_WARPS) {
-      float s = 0.f, ss = 0.f;
+      float p = tiles[0][r * LRN_LDR + n];
 #pragma unroll
-      for (int c = 0; c < BN / 32; ++c) {
-        const float v = r_of(r, c);
-        s += v;
-        ss += v * v;
-      }
-      s = warp_sum(s);
-      ss = warp_sum(ss);
-      if (lane == 0) part[r] = make_float2(s, ss);
+      for (int q = 1; q < SPLIT; ++q) p += tiles[q][r * LRN_LDR + n];  // in rank order
+      // (a @ W^T + bias) first, then the residual: the JAX order
+      v[c] = res[o + n] + (p + bias[n]);
+      s += v[c];
+      ss += v[c] * v[c];
     }
-    cg::this_cluster().sync();  // every block's partials are in place
-    const float2* parts[CB];
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    const float mu = s / BN;
+    const float rstd = rsqrtf(fmaxf(ss / BN - mu * mu, 0.f) + eps);
 #pragma unroll
-    for (int q = 0; q < CB; ++q) parts[q] = cg::this_cluster().map_shared_rank(part, q);
-    for (int r = warp; r < LRN_BM; r += LRN_WARPS) {
-      float2 t = parts[0][r];
-#pragma unroll
-      for (int q = 1; q < CB; ++q) {  // in rank order
-        const float2 u = parts[q][r];
-        t.x += u.x;
-        t.y += u.y;
-      }
-      const float mu = t.x / D;
-      const float rstd = rsqrtf(fmaxf(t.y / D - mu * mu, 0.f) + eps);
-      const size_t o = (size_t)(m0 + r) * D + c0;
-#pragma unroll
-      for (int c = 0; c < BN / 32; ++c) {
-        const int n = lane + 32 * c;
-        const float v = r_of(r, c);
-        out[o + n] = (v - mu) * rstd * g[c0 + n] + beta[c0 + n];
-        if (r_out != nullptr) r_out[o + n] = v;
-      }
-      if (mean_out != nullptr && rank == 0 && lane == 0) {
-        mean_out[m0 + r] = mu;
-        rstd_out[m0 + r] = rstd;
-      }
+    for (int c = 0; c < BN / 32; ++c) {
+      const int n = lane + 32 * c;
+      out[o + n] = (v[c] - mu) * rstd * g[n] + beta[n];
+      if (r_out != nullptr) r_out[o + n] = v[c];
     }
-    cg::this_cluster().sync();  // the partials stay until read
-  } else {
-    if constexpr (SPLIT > 1) cg::this_cluster().sync();  // every block's sums are in place
-    else __syncthreads();
-    const float* tiles[SPLIT] = {rt};  // every block's row tile, by rank
-    if constexpr (SPLIT > 1)
-#pragma unroll
-      for (int q = 0; q < SPLIT; ++q) tiles[q] = cg::this_cluster().map_shared_rank(rt, q);
-    for (int rr = warp; rr < ROWS; rr += LRN_WARPS) {  // one warp a row
-      const int r = rank * ROWS + rr;
-      const size_t o = (size_t)(m0 + r) * BN;
-      float v[BN / 32], s = 0.f, ss = 0.f;
-#pragma unroll
-      for (int c = 0; c < BN / 32; ++c) {
-        const int n = lane + 32 * c;
-        float p = tiles[0][r * LRN_LDR + n];
-#pragma unroll
-        for (int q = 1; q < SPLIT; ++q) p += tiles[q][r * LRN_LDR + n];  // in rank order
-        // (a @ W^T + bias) first, then the residual: the JAX order
-        v[c] = res[o + n] + (p + bias[n]);
-        s += v[c];
-        ss += v[c] * v[c];
-      }
-      s = warp_sum(s);
-      ss = warp_sum(ss);
-      const float mu = s / BN;
-      const float rstd = rsqrtf(fmaxf(ss / BN - mu * mu, 0.f) + eps);
-#pragma unroll
-      for (int c = 0; c < BN / 32; ++c) {
-        const int n = lane + 32 * c;
-        out[o + n] = (v[c] - mu) * rstd * g[n] + beta[n];
-        if (r_out != nullptr) r_out[o + n] = v[c];
-      }
-      if (mean_out != nullptr && lane == 0) {
-        mean_out[m0 + r] = mu;
-        rstd_out[m0 + r] = rstd;
-      }
+    if (mean_out != nullptr && lane == 0) {
+      mean_out[m0 + r] = mu;
+      rstd_out[m0 + r] = rstd;
     }
-    if constexpr (SPLIT > 1) cg::this_cluster().sync();  // the tiles stay until read
   }
+  if constexpr (SPLIT > 1) cg::this_cluster().sync();  // the tiles stay until read
 }
 
-template <int SPLIT, int CB = 1, int BN = LRN_BN>
+template <int SPLIT, int BN = LRN_BN>
 int linear_residual_ln_launch(const float* a, const float* w, const float* bias,
                               const float* res, const float* g, const float* beta, float eps,
                               float* out, float* mean_out, float* rstd_out, float* r_out,
                               const int* valid_len, int M, int K, int s_pad,
                               cudaStream_t st) {
   constexpr int LRN_SMEM = ResLnF32<BN>::SMEM;
-  auto kernel = linear_residual_ln_kernel<SPLIT, CB, BN>;
+  auto kernel = linear_residual_ln_kernel<SPLIT, BN>;
   int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     LRN_SMEM);
   if (e != 0) return e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(M / LRN_BM * SPLIT * CB);
+  cfg.gridDim = dim3(M / LRN_BM * SPLIT);
   cfg.blockDim = dim3(LRN_THREADS);
   cfg.dynamicSmemBytes = LRN_SMEM;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = SPLIT * CB;
+  attr[0].val.clusterDim.x = SPLIT;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -666,18 +588,296 @@ int linear_residual_ln_launch(const float* a, const float* w, const float* bias,
   return (int)cudaGetLastError();
 }
 
+// ---- D 768: a GEMM on 128-row tiles, the LayerNorms in row passes ----------
+// The float32 LN1 + QKV step (ln_linear_fwd_d768) and both
+// linear_residual_ln_fwd sites at ChAdaViT-B/16's D 768. They replace, at
+// that width, the same lines of the TPU kernel as the D 192 kernels above
+// (_fwd_kernel :111-124 and :162-186).
+//
+// What bounds them: operations (at chip_smoke.py's narrow f32 shapes, 3 340
+// valid rows, 11.8 and 14.4 GFLOP: 0.18 and 0.22 ms at 67 TFLOP/s of f32
+// FMA). A block that owns one 32-row tile of the contract, as the D 192
+// kernels' do, reads all of W from L2 for every 32 rows (7 MB of Wqkv, 8.7
+// MB of Wout and W2 a layer): at D 768 that L2 traffic is of the order of
+// the FMA time, and K1a's resident 32 x 768 rows left one block of 4 warps
+// an SM. So:
+// - the LayerNorm leaves the GEMM. K1a: ln_rows_f32_kernel, one warp a row,
+//   takes the row stats in row_stats' order and writes h = LN1(x) into a
+//   scratch of x's shape (rows of the zero-filled tiles are neither read nor
+//   written, their stats are zeros). K1b: the GEMM's epilogue writes the
+//   pre-LN sum r = res + (a W^T + bias) (into r_out, or into out when the
+//   caller saves no r), and res_ln_rows_kernel, one warp a row, normalises it
+//   in the order of the column-cluster kernel this replaces: four partial
+//   sums over 192 columns (lane l sums columns 192 q + l + 32 c, c < 6, then
+//   the xor butterfly), added for q = 0 .. 3 in order; then the max(0, .)
+//   clamp and out = (r - mu) rstd g + beta;
+// - gemm128_kernel: a block owns 128 rows (four 32-row tiles of the
+//   contract, each tested on its own: they may lie in two images, and the
+//   last block may hold fewer) and BN columns, 8 warps of 32 rows x BN / 2
+//   columns, a thread 8 x BN / 16 sums (rows ty + 4 i, columns tx + 8 j of
+//   its warp's) by sgemm::dot4, A and W staged as they lie (K contiguous),
+//   16 columns of K a stage, through a ring of 4 slots (rows padded to 20
+//   floats); two blocks an SM. W is read from L2 once for 128 rows, a
+//   quarter of the D 192 design's traffic. A warp whose 32-row tile holds no
+//   valid row skips its FMAs and writes zeros; the block copies only the
+//   rows of its computed tiles, and a block with none writes its zeros and
+//   returns before any barrier;
+// - BN is 96 (8 x 6 sums a thread), or 64 where the 96-column grid would
+//   leave some SMs two blocks and others one or none while the 64-column
+//   grid fits in one wave of two an SM (gemm128_launch): a call then takes
+//   about the time of the SMs that hold two blocks, and 64 columns make
+//   those blocks lighter. At the narrow shapes (40 row blocks) both steps
+//   take BN 96: 744 computed K1a blocks (2.8 waves) and 248 K1b blocks
+//   (0.94 of a wave); K1b at 4e (b)'s bucket rows (20 row blocks) takes BN
+//   64. Other tiles, rings and warp shapes timed no better (PERF.md
+//   section 6);
+// - the bits are those of the kernels this replaces: each sum from k = 0
+//   upward with fmaf, then the bias (then the residual); the row passes
+//   spell out with intrinsics the products nvcc fused there (the sums of
+//   squares, the LayerNorm's * g + beta, K1b's mu * mu) and the one it did
+//   not (K1a's mu * mu, after a division by a runtime width).
+constexpr int G_BM = 4 * BM;      // rows a block: four tiles of the contract
+constexpr int G_BK = 16;
+constexpr int G_LD = G_BK + 4;    // a staged row, padded
+constexpr int G_STAGES = 4;
+constexpr int G_THREADS = 256;    // 4 warps along the rows x 2 along the columns
+constexpr int G_TM = 8;           // a thread's rows: 4 x 8 lanes a warp
+constexpr int ROWS_THREADS = 256; // the row passes: 8 warps a block, one a row
+enum GemmEpilogue { G_BIAS = 0, G_RESIDUAL = 1 };
+static_assert(BM == 4 * G_TM && G_BM * G_BK / 4 == 2 * G_THREADS, "gemm128 tile shape");
+
+template <int BN>
+constexpr int gemm128_smem() { return G_STAGES * (G_BM + BN) * G_LD * 4; }
+
+// out = a W^T + bias (G_BIAS) or res + (a W^T + bias) (G_RESIDUAL); a (M, K),
+// W (N, K), res and out (M, N), M a multiple of 32.
+template <int N, int K, int BN, int EPI>
+__global__ void __launch_bounds__(G_THREADS, 2)
+gemm128_kernel(const float* __restrict__ a, const float* __restrict__ w,
+               const float* __restrict__ bias, const float* __restrict__ res,
+               float* __restrict__ out, const int* __restrict__ valid_len, int M, int s_pad) {
+  constexpr int TN = BN / 16, STAGE = (G_BM + BN) * G_LD, W_COPIES = BN * G_BK / 4;
+  static_assert(BN % 16 == 0 && N % BN == 0 && K % G_BK == 0, "gemm128 shape");
+  const int m0 = blockIdx.x * G_BM, n0 = blockIdx.y * BN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tiles = min(4, (M - m0) / BM);  // the block's 32-row tiles
+  unsigned live = 0;                        // bit t: tile t holds a valid row
+  for (int t = 0; t < tiles; ++t)
+    live |= (unsigned)!tile_is_padding(m0 + t * BM, s_pad, valid_len) << t;
+  if (live == 0) {  // uniform, before any barrier
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = tid; c < tiles * BM * BN / 4; c += G_THREADS)
+      *reinterpret_cast<float4*>(out + (size_t)(m0 + c / (BN / 4)) * N + n0 + c % (BN / 4) * 4) = z;
+    return;
+  }
+  extern __shared__ __align__(16) float g_smem[];
+  const int tile = warp % 4, wc = warp / 4 * (BN / 2);  // the warp's 32-row tile, columns
+  const int ty = lane / 8, tx = lane % 8;
+  const bool computed = live >> tile & 1;
+  auto load = [&](int s, int slot) {  // K columns [s BK, (s + 1) BK)
+    float* as = g_smem + slot * STAGE;
+    float* ws = as + G_BM * G_LD;
+    const int k0 = s * G_BK;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {  // the rows of the computed tiles
+      const int c = tid + q * G_THREADS, r = c >> 2;
+      if (live >> (r / BM) & 1)
+        sgemm::cp_async_16(as + r * G_LD + (c & 3) * 4,
+                           a + (size_t)(m0 + r) * K + k0 + (c & 3) * 4);
+    }
+#pragma unroll
+    for (int q = 0; q < (W_COPIES + G_THREADS - 1) / G_THREADS; ++q) {
+      const int c = tid + q * G_THREADS;
+      if (W_COPIES % G_THREADS == 0 || c < W_COPIES)
+        sgemm::cp_async_16(ws + (c >> 2) * G_LD + (c & 3) * 4,
+                           w + (size_t)(n0 + (c >> 2)) * K + k0 + (c & 3) * 4);
+    }
+  };
+  float acc[G_TM][TN];
+#pragma unroll
+  for (int i = 0; i < G_TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  sgemm::ring<G_STAGES>(K / G_BK, load, [&](int, int slot) {
+    if (!computed) return;  // uniform in the warp
+    const float* as = g_smem + slot * STAGE + (tile * BM + ty) * G_LD;
+    const float* ws = g_smem + slot * STAGE + (G_BM + wc + tx) * G_LD;
+#pragma unroll
+    for (int kk = 0; kk < G_BK; kk += 4) {
+      float4 av[G_TM];
+#pragma unroll
+      for (int i = 0; i < G_TM; ++i) av[i] = load4(as + i * 4 * G_LD + kk);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) sgemm::dot4(acc, j, av, load4(ws + j * 8 * G_LD + kk));
+    }
+  });
+  if (tile >= tiles) return;  // past M
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const int n = n0 + wc + tx + 8 * j;
+    const float bj = bias[n];
+#pragma unroll
+    for (int i = 0; i < G_TM; ++i) {
+      const size_t o = (size_t)(m0 + tile * BM + ty + 4 * i) * N + n;
+      float v = 0.f;
+      if (computed) {
+        v = acc[i][j] + bj;
+        if constexpr (EPI == G_RESIDUAL) v = res[o] + v;  // the JAX order
+      }
+      out[o] = v;
+    }
+  }
+}
+
+// gemm128_kernel with BN 64 where the 96-column grid would exceed one block
+// an SM and the 64-column grid fits in two, else with BN 96.
+template <int N, int K, int EPI>
+int gemm128_launch(const float* a, const float* w, const float* bias, const float* res,
+                   float* out, const int* valid_len, int M, int s_pad, cudaStream_t st) {
+  int dev = 0, sms = 0;
+  int e = (int)cudaGetDevice(&dev);
+  if (e == 0) e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != 0) return e;
+  const int row_blocks = (M + G_BM - 1) / G_BM;
+  auto run = [&](auto kernel, int bn, int smem) {
+    const int status =
+        (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (status != 0) return status;
+    kernel<<<dim3(row_blocks, N / bn), G_THREADS, smem, st>>>(a, w, bias, res, out, valid_len,
+                                                              M, s_pad);
+    return (int)cudaGetLastError();
+  };
+  if (row_blocks * (N / 96) > sms && row_blocks * (N / 64) <= 2 * sms)
+    return run(gemm128_kernel<N, K, 64, EPI>, 64, gemm128_smem<64>());
+  return run(gemm128_kernel<N, K, 96, EPI>, 96, gemm128_smem<96>());
+}
+
+__device__ __forceinline__ bool row_is_padding(int row, int s_pad, const int* valid_len) {
+  const int b = row / s_pad, local = row - b * s_pad;
+  return local / BM * BM >= valid_len[b];
+}
+
+// LN1 of K1a at width K, one warp a row: the stats in row_stats' order (lane
+// l sums columns l, l + 32, ... in order, then warp_sum; the fast variance
+// with the max(0, .) clamp), written where asked, and h = (x - mu) rstd g +
+// beta with the product by g fused, as the kernel this replaces normalised
+// its resident rows. The zero-filled tiles' rows: stats zeros, h not written.
+template <int K>
+__global__ void __launch_bounds__(ROWS_THREADS)
+ln_rows_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
+                   const float* __restrict__ beta, float eps, float* __restrict__ h,
+                   float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                   const int* __restrict__ valid_len, int M, int s_pad) {
+  constexpr int C = K / 32;
+  const int lane = threadIdx.x & 31, per_block = ROWS_THREADS / 32;
+  const int warps = gridDim.x * per_block;
+  for (int row = blockIdx.x * per_block + threadIdx.x / 32; row < M; row += warps) {
+    if (row_is_padding(row, s_pad, valid_len)) {  // uniform in the warp
+      if (mean_out != nullptr && lane == 0) {
+        mean_out[row] = 0.f;
+        rstd_out[row] = 0.f;
+      }
+      continue;
+    }
+    const float* xr = x + (size_t)row * K;
+    float v[C], s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      v[c] = xr[lane + 32 * c];
+      s += v[c];
+      ss = fmaf(v[c], v[c], ss);
+    }
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    const float mu = s / K;
+    const float rs = rsqrtf(fmaxf(__fsub_rn(ss / K, __fmul_rn(mu, mu)), 0.f) + eps);
+    if (mean_out != nullptr && lane == 0) {
+      mean_out[row] = mu;
+      rstd_out[row] = rs;
+    }
+    float* hr = h + (size_t)row * K;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int k = lane + 32 * c;
+      hr[k] = fmaf(__fmul_rn(__fsub_rn(v[c], mu), rs), gamma[k], beta[k]);
+    }
+  }
+}
+
+// K1b's LayerNorm at width D (a multiple of 192), one warp a row, on the
+// pre-LN sum r: D / 192 partial sums of r and r^2 over 192 columns each (lane
+// l sums columns 192 q + l + 32 c, c < 6, in order; then warp_sum), added for
+// q = 0, 1, ... in order; mu, the clamped fast variance (mu * mu fused into
+// its difference, as nvcc compiled the cluster kernel's constant-width
+// division) and out = (r - mu) rstd g + beta. r may be out itself (a lane
+// reads its columns of the row before it writes them). The zero-filled
+// tiles' rows: out and the stats zeros (r holds the GEMM's zeros there).
+template <int D>
+__global__ void __launch_bounds__(ROWS_THREADS)
+res_ln_rows_kernel(const float* r, const float* __restrict__ gamma,
+                   const float* __restrict__ beta, float eps, float* out,
+                   float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                   const int* __restrict__ valid_len, int M, int s_pad) {
+  constexpr int Q = D / D_MODEL, C = D_MODEL / 32;
+  const int lane = threadIdx.x & 31, per_block = ROWS_THREADS / 32;
+  const int warps = gridDim.x * per_block;
+  for (int row = blockIdx.x * per_block + threadIdx.x / 32; row < M; row += warps) {
+    float* orow = out + (size_t)row * D;
+    if (row_is_padding(row, s_pad, valid_len)) {  // uniform in the warp
+#pragma unroll
+      for (int c = 0; c < D / 32; ++c) orow[lane + 32 * c] = 0.f;
+      if (mean_out != nullptr && lane == 0) {
+        mean_out[row] = 0.f;
+        rstd_out[row] = 0.f;
+      }
+      continue;
+    }
+    const float* rr = r + (size_t)row * D;
+    float v[Q][C], ts = 0.f, tss = 0.f;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      float s = 0.f, ss = 0.f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        v[q][c] = rr[D_MODEL * q + lane + 32 * c];
+        s += v[q][c];
+        ss = fmaf(v[q][c], v[q][c], ss);
+      }
+      s = warp_sum(s);
+      ss = warp_sum(ss);
+      ts = q == 0 ? s : ts + s;  // in q order
+      tss = q == 0 ? ss : tss + ss;
+    }
+    const float mu = ts / D;
+    const float rstd = rsqrtf(fmaxf(fmaf(-mu, mu, tss / D), 0.f) + eps);
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int n = D_MODEL * q + lane + 32 * c;
+        orow[n] = fmaf(__fmul_rn(__fsub_rn(v[q][c], mu), rstd), gamma[n], beta[n]);
+      }
+    if (mean_out != nullptr && lane == 0) {
+      mean_out[row] = mu;
+      rstd_out[row] = rstd;
+    }
+  }
+}
+
+int rows_blocks(int M) { return min((M + ROWS_THREADS / 32 - 1) / (ROWS_THREADS / 32), 132 * 16); }
+
 }  // namespace
 
 extern "C" {
 
-// x (M, D), w (3 D, D), out (M, 3 D), D 192, 768 or 64. mean_out and rstd_out,
-// (M,) each, are written when not null (both or neither): the LN1 row stats,
-// zeros on skipped tiles.
+// x (M, D), w (3 D, D), out (M, 3 D), D 192 or 64 (D 768: ln_linear_fwd_d768).
+// mean_out and rstd_out, (M,) each, are written when not null (both or
+// neither): the LN1 row stats, zeros on skipped tiles.
 int ln_linear_fwd(const float* x, const float* g, const float* beta, float eps,
                   const float* w, const float* bias, float* out, float* mean_out,
                   float* rstd_out, const int* valid_len, int M, int K, int N,
                   int s_pad, void* stream) {
-  if (!rows_ok(M, K, s_pad) || !is_width(K) || N != 3 * K)
+  if (!rows_ok(M, K, s_pad) || (K != D_MODEL && K != D_SMALL) || N != 3 * K)
     return (int)cudaErrorInvalidValue;
   auto run = [&](auto width) {
     constexpr int D = decltype(width)::value;
@@ -696,8 +896,24 @@ int ln_linear_fwd(const float* x, const float* g, const float* beta, float eps,
     }
   };
   if (K == D_MODEL) return run(std::integral_constant<int, D_MODEL>());
-  if (K == D_SMALL) return run(std::integral_constant<int, D_SMALL>());
-  return run(std::integral_constant<int, D_WIDE>());
+  return run(std::integral_constant<int, D_SMALL>());
+}
+
+// ln_linear_fwd at D 768: x (M, 768), w (2304, 768), out (M, 2304); h (M, 768)
+// is the scratch of LN1(x) (its rows on the zero-filled tiles are not
+// written). The row pass, then the GEMM.
+int ln_linear_fwd_d768(const float* x, const float* g, const float* beta, float eps,
+                       const float* w, const float* bias, float* out, float* mean_out,
+                       float* rstd_out, float* h, const int* valid_len, int M, int K, int N,
+                       int s_pad, void* stream) {
+  if (!rows_ok(M, K, s_pad) || K != D_WIDE || N != 3 * K) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  ln_rows_f32_kernel<D_WIDE><<<rows_blocks(M), ROWS_THREADS, 0, st>>>(
+      x, g, beta, eps, h, mean_out, rstd_out, valid_len, M, s_pad);
+  const int e = (int)cudaGetLastError();
+  if (e != 0) return e;
+  return gemm128_launch<3 * D_WIDE, D_WIDE, G_BIAS>(h, w, bias, nullptr, out, valid_len, M,
+                                                    s_pad, st);
 }
 
 // x (M, D), w (2048, D), out (M, 2048), D 192, 768 or 64.
@@ -719,8 +935,9 @@ int linear_relu_fwd(const float* x, const float* w, const float* bias,
 }
 
 // a (M, K) with K = N (out-proj) or 2048 (FFN2), w (N, K), res and out (M, N),
-// N = D 192, 768 or 64. When not null: mean_out and rstd_out (M,) get the LN row
-// stats (both or neither), r_out (M, N) the pre-LN sum; zeros on skipped tiles.
+// N = D 192, 768 or 64. When not null: mean_out and rstd_out (M,) get the LN
+// row stats (both or neither), r_out (M, N) the pre-LN sum; zeros on skipped
+// tiles.
 int linear_residual_ln_fwd(const float* a, const float* w, const float* bias,
                            const float* res, const float* g, const float* beta,
                            float eps, float* out, float* mean_out,
@@ -729,16 +946,23 @@ int linear_residual_ln_fwd(const float* a, const float* w, const float* bias,
   if (!rows_ok(M, K, s_pad) || !is_width(N) || (K != N && K != D_FFN))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N == D_WIDE)  // both sites: four column blocks a cluster, no K split
-    return linear_residual_ln_launch<1, D_WIDE / LRN_BN>(a, w, bias, res, g, beta, eps, out,
-                                                          mean_out, rstd_out, r_out, valid_len,
-                                                          M, K, s_pad, st);
+  if (N == D_WIDE) {  // both sites: the GEMM writes r (into out unless saved), then the row pass
+    float* r = r_out != nullptr ? r_out : out;
+    const int e = K == D_FFN ? gemm128_launch<D_WIDE, D_FFN, G_RESIDUAL>(
+                                   a, w, bias, res, r, valid_len, M, s_pad, st)
+                             : gemm128_launch<D_WIDE, D_WIDE, G_RESIDUAL>(
+                                   a, w, bias, res, r, valid_len, M, s_pad, st);
+    if (e != 0) return e;
+    res_ln_rows_kernel<D_WIDE><<<rows_blocks(M), ROWS_THREADS, 0, st>>>(
+        r, g, beta, eps, out, mean_out, rstd_out, valid_len, M, s_pad);
+    return (int)cudaGetLastError();
+  }
   if (N == D_SMALL) {  // whole rows of 64 columns a block; FFN2 split as at D 192
     if (K == D_FFN)
-      return linear_residual_ln_launch<LRN_SPLIT_FFN, 1, D_SMALL>(
+      return linear_residual_ln_launch<LRN_SPLIT_FFN, D_SMALL>(
           a, w, bias, res, g, beta, eps, out, mean_out, rstd_out, r_out, valid_len, M, K, s_pad,
           st);
-    return linear_residual_ln_launch<1, 1, D_SMALL>(a, w, bias, res, g, beta, eps, out,
+    return linear_residual_ln_launch<1, D_SMALL>(a, w, bias, res, g, beta, eps, out,
                                                     mean_out, rstd_out, r_out, valid_len, M, K,
                                                     s_pad, st);
   }

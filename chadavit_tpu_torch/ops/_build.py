@@ -56,6 +56,10 @@ SIGNATURES = {
 }
 # the bf16 instance of each kernel: the same arguments, bf16 activations
 SIGNATURES.update({f"{name}_bf16": argtypes for name, argtypes in list(SIGNATURES.items())})
+# float32 only: ChAdaViT-B/16's K1a (csrc/fused_block.cu), ln_linear_fwd's
+# arguments and the scratch of LN1(x) after the row stats
+SIGNATURES["ln_linear_fwd_d768"] = [_P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _P]
 # bf16 only: the wgmma kernels of ChAdaViT-B/16's K1a, K1c, K2b and K2c and the
 # LN1 pre-pass of K1a and K2c (csrc/linear_wgmma_bf16.cu); K1a and K2c take
 # the pre-pass's h scratch, K1c and K2b the arguments of their D 192 twins

@@ -403,9 +403,10 @@ def ln_linear(x, g, b, eps: float, w, bias, valid_len, save: bool = False):
     bfloat16 on the tensor cores, S a multiple of :data:`BF16_GEMM_ROWS` and
     x, w, bias 16-byte aligned; at D 768 in bfloat16 ``ln_linear_fwd_wgmma_bf16``,
     whose LN1 pre-pass writes h into a scratch of x's shape that the GEMM
-    reads by TMA); with ``save`` also the LN row mean and rstd. x, w and bias
-    of one dtype (float32 or bfloat16), g and b float32. Forward only: raises
-    where autograd would record the call."""
+    reads by TMA, and in float32 ``ln_linear_fwd_d768``, whose row pass does
+    the same for its GEMM on 128-row blocks); with ``save`` also the LN row
+    mean and rstd. x, w and bias of one dtype (float32 or bfloat16), g and b
+    float32. Forward only: raises where autograd would record the call."""
     _launch.refuse_grad("ln_linear", x, g, b, w, bias)
     if _launch.on_cpu(x, g, b, w, bias, valid_len):
         return ln_linear_reference(x, g, b, eps, w, bias, valid_len, save)
@@ -423,8 +424,9 @@ def ln_linear(x, g, b, eps: float, w, bias, valid_len, save: bool = False):
             _launch.vector_operand(b, "b"), eps, _launch.vector_operand(w, "w", dt, tc),
             _launch.vector_operand(bias, "bias", dt, tc),
             _launch.vector_operand(out, "out", dt, tc), _ptr(mean), _ptr(rstd)]
-    if _wgmma(dt, d):
-        fn = _build.library().ln_linear_fwd_wgmma_bf16
+    if d == D_WIDE:  # LN1 in a row pass into h, then the GEMM
+        fn = (_build.library().ln_linear_fwd_wgmma_bf16 if dt == torch.bfloat16 else
+              _build.library().ln_linear_fwd_d768)
         h = torch.empty_like(x)  # the pre-pass's scratch, held until the launch is queued
         args.append(h.data_ptr())
     status = fn(*args, _launch.valid_len_operand(valid_len, bsz, x.device), bsz * s, k, n, s,
@@ -500,10 +502,12 @@ def linear_residual_ln(a, w, bias, residual, g, b, eps: float, valid_len,
                        save: bool = False):
     """``LN(residual + (a @ w^T + bias))`` (kernel ``linear_residual_ln_fwd``
     on CUDA; one block owns whole output rows, so the LayerNorm is local; in
-    bfloat16 on the tensor cores, S a multiple of :data:`BF16_GEMM_ROWS` and
-    a, w, residual 16-byte aligned). With ``save`` also the LN row mean and
-    rstd and the pre-LN sum r. a, w, bias and residual of one dtype, g and b
-    float32. Forward only: raises where autograd would record the call."""
+    float32 at D 768 a GEMM writes the pre-LN sum and a row pass normalises
+    it; in bfloat16 on the tensor cores, S a multiple of
+    :data:`BF16_GEMM_ROWS` and a, w, residual 16-byte aligned). With
+    ``save`` also the LN row mean and rstd and the pre-LN sum r. a, w, bias
+    and residual of one dtype, g and b float32. Forward only: raises where
+    autograd would record the call."""
     _launch.refuse_grad("linear_residual_ln", a, w, bias, residual, g, b)
     if _launch.on_cpu(a, w, bias, residual, g, b, valid_len):
         return linear_residual_ln_reference(a, w, bias, residual, g, b, eps, valid_len,

@@ -82,7 +82,11 @@ Phases, each printed with its elapsed seconds at its start and end:
    2's check_chain at D 768 and phase 2's bounds, launches counted under the
    _d768 names (the bfloat16 K1a, K1c, K2b and K2c there are the wgmma
    kernels of csrc/linear_wgmma_bf16.cu; the GEMM of the first three writes
-   the zeros of the 32-row tiles past valid_len itself).
+   the zeros of the 32-row tiles past valid_len itself). Then the float32
+   K1a and K1b (128-row GEMMs with LayerNorm row passes) bit for bit against
+   the summation orders they keep (tests/torch_f32_order.py), with and
+   without their save outputs, at the float32 narrow shapes drawn from each
+   of BF16_SEEDS (check_f32_d768_bits).
 2d. the layer chain's D 64 instances and the attention's head-32 ones (the
    smoke configs' widths: D 64, 2 heads of 32, FFN 2048) against their plain
    versions: phase 2's check_chain at phase 2's bounds, float32 on seed 0
@@ -221,8 +225,10 @@ Phases, each printed with its elapsed seconds at its start and end:
    step (bf16, B 32) beside the step's; and the B/16 bf16 step of 4e by the
    profiler, on 10 channels and on a 7-channel bucket: the attention
    kernels' and the layer chain's share of its device time against the
-   library's GEMMs; the D 64 and head-32 instances at 2d's hub shapes (B 8,
-   S_pad 2048), by CUDA events and after a head start.
+   library's GEMMs; the float32 B/16 step 1 on 4e (b)'s 3-channel bucket by
+   the profiler, the layer chain's share of its device time; the D 64 and
+   head-32 instances at 2d's hub shapes (B 8, S_pad 2048), by CUDA events and
+   after a head start.
 6. the run's wall time (under WATCHDOG_S), one JSON line with every kernel
    instance, then the last line
    {"ok": true, "device": {...}}. A failed phase prints no last line and
@@ -400,6 +406,10 @@ B16_ENTRY_STEPS = 2
 # S_pad 640 (up to 3: 3 520 computed rows) on seed 0
 NARROW_BF16 = (1408, [1, 3, 5, 7, 2, 7, 4, 6])
 NARROW_F32 = (640, [3, 1, 2, 3, 1, 2, 3, 2])
+# and at the sequences of 4e (b)'s float32 step (B16_BUCKET_F32's images, two
+# crops each, 640 rows: 20 row blocks of 128), where K1b's GEMM takes its
+# 64-column tile
+BUCKET_F32_SEQ = (640, B16_BUCKET_F32[1] * 2)
 # 2d and 4f, the smoke configs' widths (scripts/smoke/*.yaml: D 64, 2 heads of
 # 32, FFN 2048; 32 px crops of 16 px patches, 1-4 channels): the hub's channel
 # counts (B 8, S_pad 2048) and the smoke crop (B 16, S_pad 128, 4 tokens a
@@ -411,6 +421,11 @@ D64_HUB = (S_PAD, [1 + N_PATCHES * c for c in COUNTS])
 D64_CROP = (128, [1 + 4 * (1 + i % 4) for i in range(16)])
 SMOKE_YAML = CANONICAL.parent.parent / "smoke" / "dino_synthetic.yaml"
 SMOKE_METRIC_REL = 1e-5
+# the layer chain's kernels in a profiler trace, by a piece of their names
+CHAIN_KERNEL_KEYS = ("ln_linear", "linear_relu", "linear_residual_ln", "layernorm_bwd",
+                     "linear_dgrad", "linear_wgrad", "reduce_ln_splits", "reduce_splits",
+                     "reduce_wgrad", "ln_rows", "reduce_stream", "linear_wgmma", "gemm128",
+                     "res_ln_rows")
 CHAIN_ENTRIES = ("ln_linear_fwd", "linear_relu_fwd", "linear_residual_ln_fwd", "layernorm_bwd",
                  "linear_dgrad", "linear_wgrad")
 
@@ -425,7 +440,14 @@ D768_KERNELS = [
     "linear_wgmma_kernel<768, 768, 192, 0>(", "linear_wgmma_kernel<768, 2304, 192, 0>(",
     "linear_wgrad_wgmma_kernel(", "reduce_stream_kernel(", "ln_rows_kernel<768>(",
     "linear_residual_ln_bf16_kernel<768, 4, 192>(", "linear_residual_ln_bf16_kernel<2048, 4, 192>(",
-    "ln_linear_kernel<768>(", "linear_relu_kernel<768>(", "linear_residual_ln_kernel<1, 4, 192>(",
+    # float32 (fused_block.cu): K1a's LN1 row pass and GEMM, K1b's GEMM at both
+    # sites (the GEMMs in their 96- and 64-column tiles) and its LayerNorm row
+    # pass, K1c
+    "ln_rows_f32_kernel<768>(", "gemm128_kernel<2304, 768, 96, 0>(",
+    "gemm128_kernel<768, 768, 96, 1>(", "gemm128_kernel<768, 2048, 96, 1>(",
+    "gemm128_kernel<2304, 768, 64, 0>(", "gemm128_kernel<768, 768, 64, 1>(",
+    "gemm128_kernel<768, 2048, 64, 1>(",
+    "res_ln_rows_kernel<768>(", "linear_relu_kernel<768>(",
     "layernorm_bwd_kernel<768, float>(", "layernorm_bwd_kernel<768, __nv_bfloat16>(",
     "reduce_ln_splits_kernel<768>("]
 # and its D 64 instances (the smoke configs' width)
@@ -433,8 +455,8 @@ D64_KERNELS = [
     # float32 (fused_block.cu, fused_block_bwd.cu): K1a, K1c, K1b at both sites,
     # K2a and its second pass, K2b at the three N 64 sites (its FFN2 site is
     # the D 192 instance), K2c at the four weight shapes
-    "ln_linear_kernel<64>(", "linear_relu_kernel<64>(", "linear_residual_ln_kernel<1, 1, 64>(",
-    "linear_residual_ln_kernel<2, 1, 64>(", "layernorm_bwd_kernel<64, float>(",
+    "ln_linear_kernel<64>(", "linear_relu_kernel<64>(", "linear_residual_ln_kernel<1, 64>(",
+    "linear_residual_ln_kernel<2, 64>(", "layernorm_bwd_kernel<64, float>(",
     "layernorm_bwd_kernel<64, __nv_bfloat16>(", "reduce_ln_splits_kernel<64>(",
     "linear_dgrad_kernel<64, 2, 2>(", "linear_dgrad_kernel<64, 0, 2>(",
     "linear_dgrad_kernel<64, 0, 1>(", "linear_wgrad_kernel<192, 64, true>(",
@@ -1029,6 +1051,55 @@ def check_chain(ph, stats, note_bf16, x, w, dy, dy_tail, valid_len, heads, what_
     return out
 
 
+def check_f32_d768_bits(ph, x, w, valid_len, heads, what_shape):
+    """The float32 K1a and K1b at D 768 against the summation orders they keep
+    (tests/torch_f32_order.py: the first port's K1a, the four-block column
+    cluster's K1b), bit for bit, with and without their save outputs: K1a on
+    x, K1b at the out-projection on the attention output of the model's qkv
+    and at FFN2 on the FFN hidden of the model's x2 (the plain attention and
+    FFN1 between them). Zeros on the tiles past valid_len are part of the
+    models."""
+    import torch
+
+    from chadavit_tpu_torch.ops import fused_block
+    from chadavit_tpu_torch.ops import flash_attention as fa
+    from tests import torch_f32_order as order
+
+    d = x.shape[-1]
+    wqkv, bqkv, wout, bout, g1, b1, g2, b2, w1, b1f, w2, b2f = w
+    vl = torch.tensor(valid_len, dtype=torch.int32, device=x.device)
+    with torch.no_grad():
+        k1a = order.ln_linear_order(x, g1, b1, EPS1, wqkv, bqkv, valid_len)
+        qkv = k1a[0]
+        attn = fa.prefix_flash_attention_reference(qkv[..., :d], qkv[..., d:2 * d],
+                                                   qkv[..., 2 * d:], vl, heads)
+        k1b_out = order.linear_residual_ln_order(attn, wout, bout, x, g1, b1, EPS1, valid_len)
+        hid = fused_block.linear_relu_reference(k1b_out[0], w1, b1f)
+        k1b_ffn2 = order.linear_residual_ln_order(hid, w2, b2f, k1b_out[0], g2, b2, EPS2,
+                                                  valid_len)
+        cases = [("ln_linear_fwd", "", lambda sv: fused_block.ln_linear(
+            x, g1, b1, EPS1, wqkv, bqkv, vl, save=sv), k1a)]
+        for site, args, eps, ref in ((" out projection", (attn, wout, bout, x, g1, b1), EPS1,
+                                      k1b_out),
+                                     (" FFN2", (hid, w2, b2f, k1b_out[0], g2, b2), EPS2,
+                                      k1b_ffn2)):
+            cases.append(("linear_residual_ln_fwd", site, (
+                lambda sv, a=args, e=eps: fused_block.linear_residual_ln(*a, e, vl, save=sv)),
+                ref))
+        for entry, site, fn, ref in cases:
+            for save in (False, True):
+                got = fn(save)
+                got = got if save else (got,)
+                torch.cuda.synchronize()
+                same = [torch.equal(o, r) for o, r in zip(got, ref)]
+                worst = max((o - r).abs().max().item() for o, r in zip(got, ref))
+                ph.check(all(same), f"{fused_block.instance(entry, d)}{site}{' save' * save}"
+                                    f"{what_shape}: the bits of its order model "
+                                    f"(tests/torch_f32_order.py), outputs equal {same}, max abs "
+                                    f"{worst:.3e}")
+                del got
+
+
 def plain_attention_function():
     """An autograd Function of the attention's plain forward and backward
     (flash_attention's reference versions), saving only q, k, v, o and the
@@ -1427,12 +1498,14 @@ def main() -> int:
         # every kernel of the tensor-core sources and of the float32
         # attention forward and backward (K3, K4), the float32 ln_linear
         # (K1a), linear_relu (K1c) and linear_residual_ln (K1b) of
-        # fused_block.cu, the two passes of layernorm_bwd (K2a) and of the
-        # float32 linear_wgrad (K2c) and the float32 linear_dgrad (K2b) of
-        # fused_block_bwd.cu, and the instances of ln_bwd (K6, layernorm.cu)
+        # fused_block.cu (at D 768 the 128-row GEMM and the two row passes),
+        # the two passes of layernorm_bwd (K2a) and of the float32 linear_wgrad
+        # (K2c) and the float32 linear_dgrad (K2b) of fused_block_bwd.cu, and
+        # the instances of ln_bwd (K6, layernorm.cu)
         ptxas_sources = {fwd_tc_cu: (), tc_cu: (), wgmma_cu: (), attn_tc_cu: (), attn_cu: (),
                          attn_bwd_cu: (),
-                         fb_cu: ("ln_linear", "linear_relu", "linear_residual_ln"),
+                         fb_cu: ("ln_linear", "linear_relu", "linear_residual_ln", "gemm128",
+                                 "ln_rows_f32", "res_ln_rows"),
                          fbb_cu: ("layernorm_bwd", "reduce_ln_splits", "linear_wgrad",
                                   "reduce_wgrad_splits", "linear_dgrad"),
                          ln_cu: ("ln_bwd",)}
@@ -1771,7 +1844,7 @@ def main() -> int:
     with Phase("2c D 768 chain kernels vs plain (B/16 fused route)", failures) as ph:
         notes768 = Bf16Notes(ph, stats)
         for seed, tag, dt, (s_pad, counts) in (
-                (0, "", torch.float32, NARROW_F32),
+                (0, "", torch.float32, NARROW_F32), (0, "_bucket", torch.float32, BUCKET_F32_SEQ),
                 *((s_, "_bf16", bf16, NARROW_BF16) for s_ in BF16_SEEDS)):
             notes768.where = f", seed {seed}"
             valid7 = [1 + N_PATCHES * c for c in counts]
@@ -1780,9 +1853,21 @@ def main() -> int:
             inp = check_chain(ph, stats, notes768.note, x.to(dt), w, dy.to(dt), dy_tail.to(dt),
                               valid7, H16, f" (B {len(counts)}, S_pad {s_pad}, channels "
                                            f"{counts}, seed {seed})")
-            if seed == 0:
+            if seed == 0 and tag != "_bucket":  # phase 5 times the narrow shapes
                 inputs768[tag] = inp
             del inp, x, w, dy, dy_tail
+            torch.cuda.empty_cache()
+        # the float32 K1a and K1b bit for bit against their order models, on
+        # the float32 narrow and bucket shapes drawn from each of the phase's
+        # seeds
+        for seed, (s_pad, counts) in ((s_, shape) for shape in (NARROW_F32, BUCKET_F32_SEQ)
+                                      for s_ in BF16_SEEDS):
+            valid7 = [1 + N_PATCHES * c for c in counts]
+            x, w, _, _ = draw_layer(np.random.default_rng(200 + seed), dev, len(counts), s_pad,
+                                    D16, FFN, valid7)
+            check_f32_d768_bits(ph, x, w, valid7, H16, f" (B {len(counts)}, S_pad {s_pad}, "
+                                                        f"channels {counts}, seed {seed})")
+            del x, w
             torch.cuda.empty_cache()
         log("  bf16 D 768 instances, worst readings over seeds "
             f"{', '.join(map(str, BF16_SEEDS))}: " + notes768.summary())
@@ -2887,7 +2972,7 @@ def main() -> int:
             trace drops, three traces in a row came back empty; a fresh
             process lost none, scripts/profiler_counts.py), so the rows that
             time_entry also times after a head start print that time where
-            the trace lost launches."""
+            the trace lost launches. Empty where every trace was."""
             kept = None
             for _ in range(attempts):
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2902,7 +2987,7 @@ def main() -> int:
                     if all(e.count % prof_reps == 0 for e in events):
                         break
             if kept is None:
-                raise RuntimeError(f"the profiler recorded no device time in {attempts} traces")
+                return {}
             if counts is not None:
                 counts.update({e.key: e.count / prof_reps for e in kept})
             return {e.key: e.self_device_time_total / 1e3 / prof_reps for e in kept}
@@ -3033,12 +3118,14 @@ def main() -> int:
                 t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
                 if len(sites) > 1:
                     site_counts = {}
-                    site_dev = sum(device_ms([kernel_fn], counts=site_counts).values())
+                    site_dev = device_ms([kernel_fn], counts=site_counts)
+                    site_dev = (f"device {sum(site_dev.values()):.4f} ms (profiler"
+                                f"{lost_launches(site_counts)})" if site_dev else
+                                "device not read (the profiler's traces were empty)")
                     site_hs = (f", after a head start {head_start_ms([kernel_fn]):.4f} ms"
                                if head_start else "")
                     log(f"    {iname} site, weight {weights[i_site]}: kernel "
-                        f"{(t1 + t2) / 2:.4f} ms, device {site_dev:.4f} ms (profiler"
-                        f"{lost_launches(site_counts)}){site_hs}, library {lib:.4f} ms"
+                        f"{(t1 + t2) / 2:.4f} ms, {site_dev}{site_hs}, library {lib:.4f} ms"
                         + (f" (the product alone {lib_old:.4f} ms)" if lib_old is not None else "")
                         + f", bound {max(t_ops, t_bytes):.4f} ms")
                 ms += (t1 + t2) / 2
@@ -3049,13 +3136,17 @@ def main() -> int:
                 bytes_bound += t_bytes
             counts = {}
             per_kernel = device_ms([kernel_fn for kernel_fn, *_ in sites], counts=counts)
+            if not per_kernel and not head_start:
+                raise RuntimeError(f"{iname}: the profiler recorded no device time")
             dev_ms = sum(per_kernel.values())
             stats[iname].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                                 bound_by="operations" if ops_bound >= bytes_bound else "bytes")
             hs, source = "", "profiler" + lost_launches(counts)
             if head_start:  # the device's time where the trace lost launches
                 hs_ms = head_start_ms([k_ for k_, *_ in sites])
-                if lost_launches(counts):
+                if not per_kernel:
+                    dev_ms, source = hs_ms, "events after a head start: the traces were empty"
+                elif lost_launches(counts):
                     dev_ms, source = hs_ms, "events after a head start: the trace lost launches"
                 hs = f", after a head start {hs_ms:.4f} ms"
             log(f"  {iname} ({what}, {len(sites)} site{'s' * (len(sites) > 1)} of a layer): "
@@ -3411,12 +3502,7 @@ def main() -> int:
                                                                  "ampere", "nvjet"))) / 1e3
             useful = bench.model_flops_per_image(int(cc_[0]), d=D16, f=FFN) * B16_TRAIN_B
             chain16 = sum(e.self_device_time_total for e in events16
-                          if any(k_ in e.key for k_ in ("ln_linear", "linear_relu",
-                                                        "linear_residual_ln", "layernorm_bwd",
-                                                        "linear_dgrad", "linear_wgrad",
-                                                        "reduce_ln_splits", "reduce_splits",
-                                                        "reduce_wgrad", "ln_rows",
-                                                        "reduce_stream", "linear_wgmma"))) / 1e3
+                          if any(k_ in e.key for k_ in CHAIN_KERNEL_KEYS)) / 1e3
             log(f"  profiled B/16 bf16 step{what}, {B16_TRAIN_B} raw images of {int(cc_[0])} "
                 f"channels, the layer chain's kernels {chain16:.2f} ms, the "
                 f"multicrop inside: wall {wall16 * 1e3:.2f} ms, device busy {busy16:.2f} ms "
@@ -3432,6 +3518,45 @@ def main() -> int:
                     f"{e.key[:90]}")
         del state_ln, fused_ln, st16, fn16
         del b16_step, state16, fused16
+        # the float32 B/16 step 1 on 4e (b)'s 3-channel bucket (the layer
+        # chain's D 768 instances): its device time and the chain's share
+        width, counts = B16_BUCKET_F32
+        spec3 = dataclasses.replace(bench.b16_spec(torch.float32), max_channels=width)
+        st3, step3, _, _ = build_dino(spec3)
+        batch3 = synthetic_dino_batch(spec3, len(counts), seed=6, channel_counts=counts)
+        st3, _ = step3(st3, dict(batch3))  # a step that warms the allocator
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            st3, m = step3(st3, dict(batch3))
+            float(m["dino_loss"])
+            torch.cuda.synchronize()
+            wall3 = time.perf_counter() - t
+        events3 = [e for e in prof.key_averages() if e.self_device_time_total > 0
+                   and e.device_type == torch.autograd.DeviceType.CUDA]
+        if not events3:  # the profiler in this long process can come back empty
+            log(f"  profiled B/16 f32 step 1 on a {width}-channel bucket: wall "
+                f"{wall3 * 1e3:.2f} ms, the profiler's trace was empty")
+        else:
+            busy3 = sum(e.self_device_time_total for e in events3) / 1e3
+            k1ab3 = sum(e.self_device_time_total for e in events3
+                        if any(k_ in e.key for k_ in ("gemm128", "ln_rows_f32", "res_ln_rows")))
+            chain3 = sum(e.self_device_time_total for e in events3
+                         if any(k_ in e.key for k_ in CHAIN_KERNEL_KEYS)) / 1e3
+            attn3 = sum(e.self_device_time_total for e in events3 if "attention" in e.key) / 1e3
+            log(f"  profiled B/16 f32 step 1 on a {width}-channel bucket of {len(counts)} "
+                f"images x 2 crops (channels {counts}), the layer chain: wall "
+                f"{wall3 * 1e3:.2f} ms, device busy {busy3:.2f} ms "
+                f"({100 * busy3 / (wall3 * 1e3):.1f} %); the layer chain's kernels "
+                f"{chain3:.2f} ms ({100 * chain3 / busy3:.1f} %), of them K1a and K1b "
+                f"{k1ab3 / 1e3:.2f} ms, the attention kernels {attn3:.2f} ms "
+                f"({100 * attn3 / busy3:.1f} %), the rest {busy3 - chain3 - attn3:.2f} ms ({smi}); "
+                "by device time:")
+            for rank, e in enumerate(sorted(events3,
+                                            key=lambda e: -e.self_device_time_total)[:12]):
+                ms = e.self_device_time_total / 1e3
+                log(f"    {ms:9.3f} ms {100 * ms / busy3:5.1f} % x{e.count:<5d} #{rank + 1:<3d} "
+                    f"{e.key[:90]}")
+        del st3, step3, batch3
         _launch.LAUNCHES.clear()
         _launch.LAUNCHES.update(saved)
         ph.check(all(math.isfinite(stats[n]["ms"]) for n in instances),

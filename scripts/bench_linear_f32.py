@@ -34,8 +34,27 @@ the same sources:
   stats take).
 
 A site near ``no_copy`` is held by its loop, one near ``no_fma`` by its
-loads. Each build also prints the registers and spills of the two kernels
-(``nvcc -Xptxas -v``). The diagnostic builds compute nothing meaningful; only their times are
+loads.
+
+``d768`` times ChAdaViT-B/16's float32 K1a (``ln_linear_fwd_d768``: the LN1
+row pass, then ``gemm128_kernel``) and K1b at both sites
+(``linear_residual_ln_fwd`` at N 768: ``gemm128_kernel``, then the LayerNorm
+row pass), without saves, as built, in ``no_copy`` and in ``no_fma``, at two
+sets of shapes: chip_smoke.py's narrow f32 shapes (phase 2c: 8 images of 1-3
+channels, S_pad 640, 3 340 valid rows) and the rows of the f32 B/16 step on
+chip_smoke.py's 3-channel bucket (phase 4e (b): 2 images of 3 and 2
+channels x 2 crops, S_pad 640, 1 964 valid rows, where K1b's GEMM takes
+its 64-column tile); one PyTorch call for the same function
+(``layer_norm`` and ``addmm``, on all rows) and the bound (operations on
+the valid rows at 67 TFLOP/s). With ``--parent DIR`` (an
+unpacked checkout of another commit, e.g. ``git archive`` of the parent into
+a directory that ``.gitignore`` lists) it also builds that tree's
+``fused_block.cu`` as built, ``no_copy`` and ``no_fma``, times its K1a and K1b
+in turns with this tree's in one process (parent, change, change, parent),
+and says whether the two trees' K1a (qkv, mean, rstd) and K1b (out, mean,
+rstd, r) outputs are the same bits on seeded inputs. Each build also prints
+the registers and spills of the two kernels (``nvcc -Xptxas -v``). The
+diagnostic builds compute nothing meaningful; only their times are
 read. It also times each wgrad site at other split counts than the plan
 (``ops/fused_block.py::wgrad_splits``), one PyTorch call for the same function
 per site (``torch.mm``; ``addmm``, with ``layer_norm`` for K1a and K1b and
@@ -44,6 +63,7 @@ wgrad partial scratch at 8, 16 and 64 sequences. Run from the root of the
 repository:
 
     python3 scripts/bench_linear_f32.py [train|hub]
+    python3 scripts/bench_linear_f32.py d768 [--parent DIR]
 
 ``train`` (the default): the float32 train batch, 8 images x 2 crops (the
 first 8 channel counts of chip_smoke.py's bf16 train batch) padded to 2048
@@ -81,7 +101,14 @@ BUILDS = {"as built": [], "no_copy": ["-DSGEMM_NO_COPY"], "no_fma": ["-DSGEMM_NO
           "k1a_no_stats": ["-DLL_NO_STATS"]}
 PEAK_F32_FLOPS = 67e12  # f32 FMA outside the tensor cores, NVIDIA H100 SXM data sheet
 PEAK_BYTES = 3.35e12    # HBM3, the same data sheet
-KERNELS = ("ln_linear", "linear_relu", "linear_residual_ln", "linear_wgrad", "linear_dgrad")
+KERNELS = ("ln_linear", "linear_relu", "linear_residual_ln", "linear_wgrad", "linear_dgrad",
+           "gemm128", "ln_rows_f32", "res_ln_rows")
+# d768: (S_pad, channel counts) of chip_smoke.py's NARROW_F32 and of the
+# sequences of its B16_BUCKET_F32 step (2 images of 3 and 2 channels, 2
+# crops each), and the builds of the D 768 instances
+D768_SHAPES = {"narrow": (640, [3, 1, 2, 3, 1, 2, 3, 2]), "bucket": (640, [3, 2, 3, 2])}
+D768_BUILDS = {"as built": [], "no_copy": ["-DSGEMM_NO_COPY"], "no_fma": ["-DSGEMM_NO_FMA"]}
+FORWARD = ("ln_linear_fwd", "ln_linear_fwd_d768", "linear_relu_fwd", "linear_residual_ln_fwd")
 
 
 def forward_only(name: str) -> bool:
@@ -89,22 +116,25 @@ def forward_only(name: str) -> bool:
     return name.startswith(("k1a", "k1c"))
 
 
-def build(out_dir: Path, names=None) -> dict:
-    """One library of the two sources per build (the K1a and K1c builds: of
-    fused_block.cu alone), all compiled at once; ``names`` picks builds of
-    BUILDS (all by default)."""
+def build(out_dir: Path, names=None, builds=None, csrc=None, forward=False) -> dict:
+    """One library of the two sources per build (the K1a and K1c builds, and
+    every build with ``forward``: of fused_block.cu alone), all compiled at
+    once; ``names`` picks builds of ``builds`` (BUILDS, all by default), from
+    the sources in ``csrc`` (this tree's by default)."""
     from chadavit_tpu_torch.ops import _build
 
+    builds = BUILDS if builds is None else builds
+    csrc = _build.CSRC if csrc is None else Path(csrc)
     procs = {}
-    for name, flags in BUILDS.items():
+    for name, flags in builds.items():
         if names is not None and name not in names:
             continue
         d = out_dir / name.replace(" ", "_")
         d.mkdir(parents=True, exist_ok=True)
         for src in SOURCES:
-            (d / src).write_text((_build.CSRC / src).read_text())
-        files = ("fused_block.cu",) if forward_only(name) else ("fused_block.cu",
-                                                                 "fused_block_bwd.cu")
+            (d / src).write_text((csrc / src).read_text())
+        files = ("fused_block.cu",) if forward or forward_only(name) else (
+            "fused_block.cu", "fused_block_bwd.cu")
         procs[name] = (d / "lib.so", subprocess.Popen(
             [_build.find_nvcc(), *_build.NVCC_FLAGS, *flags, "-Xptxas", "-v", "-shared", "-o",
              str(d / "lib.so"), *(str(d / f) for f in files)],
@@ -120,12 +150,137 @@ def build(out_dir: Path, names=None) -> dict:
             f" {k.get('registers')} regs {k.get('spill_stores')}/{k.get('spill_loads')} B spilled"
             for k in report if any(n in k["name"] for n in KERNELS)), flush=True)
         lib = ctypes.CDLL(str(path))
-        for fn in ("ln_linear_fwd", "linear_relu_fwd", "linear_residual_ln_fwd") + (
-                () if forward_only(name) else ("linear_wgrad", "linear_dgrad")):
+        for fn in FORWARD + (() if forward or forward_only(name) else ("linear_wgrad",
+                                                                        "linear_dgrad")):
+            if not hasattr(lib, fn):  # ln_linear_fwd_d768: not in an older tree
+                continue
             getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     return libs
+
+
+def time_ms(fn, iters=20):
+    """CUDA events over ``iters`` calls after 3 of warm-up."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def main_d768(parent) -> int:
+    """The ``d768`` mode: ChAdaViT-B/16's float32 K1a and K1b (module doc)."""
+    import torch
+    import torch.nn.functional as F
+
+    from chadavit_tpu_torch.ops._build import BUILD_DIR
+
+    dev = torch.device("cuda")
+    libs = build(BUILD_DIR / "bench_linear_f32_d768", builds=D768_BUILDS, forward=True)
+    if parent is not None:
+        libs.update({f"parent {n}": lib for n, lib in build(
+            BUILD_DIR / "bench_linear_f32_d768_parent", builds=D768_BUILDS,
+            csrc=Path(parent) / "chadavit_tpu_torch" / "csrc", forward=True).items()})
+    for shapes, (s_pad, channels) in D768_SHAPES.items():
+        valid = [1 + 196 * c for c in channels]
+        bsz, m, d, f = len(valid), len(valid) * s_pad, 768, 2048
+        vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def rn(*shape, scale=1.0):
+            return torch.randn(*shape, device=dev, generator=gen) * scale
+
+        x = rn(m, d) * 2 + 0.5
+        g, beta = 1 + rn(d, scale=0.1), rn(d, scale=0.05)
+        wqkv, bqkv = rn(3 * d, d, scale=d ** -0.5), rn(3 * d, scale=0.02)
+        sites = [(k, rn(m, k), rn(d, k, scale=k ** -0.5), rn(d, scale=0.02), rn(m, d))
+                 for k in (d, f)]  # K1b: (K, a, W, bias, residual)
+        stream = torch.cuda.current_stream().cuda_stream
+        h = torch.empty(m, d, device=dev)
+
+        def k1a(lib, save=False):
+            out = torch.empty(m, 3 * d, device=dev)
+            st = torch.empty(2, m, device=dev) if save else None
+            args = [x.data_ptr(), g.data_ptr(), beta.data_ptr(), 1e-5, wqkv.data_ptr(),
+                    bqkv.data_ptr(), out.data_ptr(), None if st is None else st[0].data_ptr(),
+                    None if st is None else st[1].data_ptr()]
+            if hasattr(lib, "ln_linear_fwd_d768"):
+                fn = lib.ln_linear_fwd_d768
+                args.append(h.data_ptr())
+            else:
+                fn = lib.ln_linear_fwd
+            args += [vl.data_ptr(), m, d, 3 * d, s_pad, stream]
+            return (lambda: fn(*args)), (out,) + (() if st is None else (st[0], st[1]))
+
+        def k1b(lib, site, save=False):
+            k, a, w, bias, res = site
+            out = torch.empty(m, d, device=dev)
+            st = torch.empty(2, m, device=dev) if save else None
+            r = torch.empty(m, d, device=dev) if save else None
+            args = (a.data_ptr(), w.data_ptr(), bias.data_ptr(), res.data_ptr(), g.data_ptr(),
+                    beta.data_ptr(), 1e-5, out.data_ptr(),
+                    None if st is None else st[0].data_ptr(),
+                    None if st is None else st[1].data_ptr(), None if r is None else r.data_ptr(),
+                    vl.data_ptr(), m, k, d, s_pad, stream)
+            return (lambda: lib.linear_residual_ln_fwd(*args)), (out,) + (
+                () if st is None else (st[0], st[1], r))
+
+        rows = sum(-(-n // 32) * 32 for n in valid)
+        print(f"d768 {shapes}: {bsz} sequences of {s_pad} rows, {sum(valid)} valid, {rows} in "
+              "computed 32-row tiles", flush=True)
+        steps = {"K1a": lambda lib, save=False: k1a(lib, save),
+                 **{f"K1b K {s[0]}": (lambda lib, save=False, s=s: k1b(lib, s, save))
+                    for s in sites}}
+
+        def row(name, lib):
+            cells = []
+            for step, make in steps.items():
+                fn, keep = make(lib)  # keep: the outputs the launches write
+                assert fn() == 0, (name, step)
+                cells.append(f"{step} {time_ms(fn):.4f}")
+            print(f"{name}: " + ", ".join(cells) + " (ms)", flush=True)
+
+        if parent is not None:  # as built, in turns
+            for name in ("parent as built", "as built", "as built", "parent as built"):
+                row(name, libs[name])
+            for step, make in steps.items():  # the two trees' bits on the same inputs
+                outs = []
+                for name in ("parent as built", "as built"):
+                    fn, o = make(libs[name], save=True)
+                    assert fn() == 0
+                    torch.cuda.synchronize()
+                    outs.append(o)
+                differ = [int((p != c).sum()) for p, c in zip(*outs)]
+                print(f"bits {step} (with saves), parent against this tree: "
+                      + ("the same" if not any(differ) else
+                         f"DIFFER in {differ} of {[p.numel() for p in outs[0]]} entries"),
+                      flush=True)
+        for name, lib in libs.items():
+            if name not in ("as built", "parent as built"):
+                row(name, lib)
+        if parent is None:
+            row("as built", libs["as built"])
+        lib = time_ms(lambda: torch.addmm(bqkv, F.layer_norm(x, (d,), g, beta), wqkv.t()))
+        cells = [f"K1a {lib:.4f}"]
+        for _, a, w, bias, res in sites:
+            lib = time_ms(lambda: F.layer_norm(torch.addmm(bias, a, w.t()) + res, (d,), g, beta))
+            cells.append(f"K1b K {a.shape[1]} {lib:.4f}")
+        print("library: " + ", ".join(cells) + " (ms; all rows)", flush=True)
+        ops = {"K1a": 2 * sum(valid) * d * 3 * d, "K1b K 768": 2 * sum(valid) * d * d,
+               "K1b K 2048": 2 * sum(valid) * d * f}
+        print("bound (operations on the valid rows at 67 TFLOP/s): " + ", ".join(
+            f"{k} {v / PEAK_F32_FLOPS * 1e3:.4f}" for k, v in ops.items()) + " (ms)", flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -139,7 +294,15 @@ def main() -> int:
         print("bench_linear_f32: needs a CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    which = sys.argv[1] if len(sys.argv) > 1 else "train"
+    args = sys.argv[1:]
+    parent = None
+    if "--parent" in args:
+        i = args.index("--parent")
+        parent = args[i + 1]
+        del args[i:i + 2]
+    which = args[0] if args else "train"
+    if which == "d768":
+        return main_d768(parent)
     channels = TRAIN_CHANNELS[:8] * 2 if which == "train" else HUB_CHANNELS
     valid = [1 + 196 * c for c in channels]
     dev = torch.device("cuda")
@@ -156,18 +319,6 @@ def main() -> int:
     mean, rstd = torch.zeros(m, device=dev), torch.ones(m, device=dev)
     g, beta = torch.ones(d, device=dev), torch.zeros(d, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
-
-    def time_ms(fn, iters=20):
-        for _ in range(3):
-            fn()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        a.record()
-        for _ in range(iters):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / iters
 
     rows = sum(-(-n // 32) * 32 for n in valid)
     print(f"{which}: {bsz} sequences of {S_PAD} rows, {sum(valid)} valid, {rows} in computed "

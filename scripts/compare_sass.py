@@ -10,13 +10,14 @@ repository, on a machine with the CUDA toolkit:
 
     python3 scripts/compare_sass.py --parent DIR [--rename OLD=NEW ...]
 
-A kernel whose template gained a parameter has another name in this tree;
-``--rename OLD=NEW`` (repeatable) maps a name prefix of the other tree's
-kernels, as ``cu++filt`` prints them (``void
-<unnamed>::linear_residual_ln_kernel<(int)1, (int)1>(``), to this tree's
-before the compare. Prints how many kernels both hold, how many are
-identical, the ones that differ (with the first lines where they do), and
-the kernels only one tree holds; exits 1 when a kernel both hold differs.
+A kernel whose template gained or lost a parameter has another name in this
+tree; ``--rename OLD=NEW`` (repeatable) replaces OLD by NEW in the other
+tree's kernel names, as ``cu++filt`` prints them (e.g.
+``linear_residual_ln_kernel<(int)1, (int)1, `` by
+``linear_residual_ln_kernel<(int)1, ``), before the compare. Prints how
+many kernels both hold, how many are identical, the ones that differ (with
+the first lines where they do), and the kernels only one tree holds; exits
+1 when a kernel both hold differs.
 """
 
 import argparse
@@ -51,11 +52,11 @@ def sass(lib: str) -> dict:
 
 def compare(parent_lib: str, change_lib: str, renames=()) -> list:
     """Prints the comparison of the two libraries' SASS (``renames``: pairs
-    of name prefixes, the parent's and this tree's); returns the names of
-    the kernels both hold whose SASS differs."""
+    of name pieces, the parent's and this tree's); returns the names of the
+    kernels both hold whose SASS differs."""
     parent, change = sass(parent_lib), sass(change_lib)
     for old, new in renames:
-        parent = {(new + k[len(old):] if k.startswith(old) else k): v for k, v in parent.items()}
+        parent = {k.replace(old, new): v for k, v in parent.items()}
     common = sorted(set(parent) & set(change))
     differ = [k for k in common if parent[k] != change[k]]
     print(f"SASS: {len(common)} kernels in both libraries, {len(common) - len(differ)} "

@@ -19,7 +19,6 @@ gradients, 1e-4 times the largest entry of the reference where that exceeds 1
 
 import functools
 import importlib.util
-import math
 from pathlib import Path
 
 import numpy as np
@@ -29,6 +28,7 @@ import torch
 from chadavit_tpu_torch.ops import _launch, fused_block
 from chadavit_tpu_torch.ops import flash_attention as fa
 from chip_smoke import BF16_COS, Recorder, backward_reference, bf16_err
+from tests import torch_f32_order as f32_order
 
 pytestmark = pytest.mark.gpu
 TOL = 1e-4
@@ -1036,65 +1036,39 @@ def test_f32_attention_forward_lse_feeds_the_backward(dev):
 
 # ---- the float32 LN1 + QKV (K1a) redesigned on csrc/sgemm_f32.cuh ----------------
 # Its qkv, mean and rstd are the bits of the first port's kernel (gemm_tile):
-# the plain version below repeats that kernel's arithmetic step by step in
-# float32 (row_stats' lane-strided sums and warp butterfly, the prologue, every
-# sum from k = 0 upward with fmaf, then the bias), and the kernel must equal it
-# exactly, in every column cut that scripts/bench_linear_f32.py builds (as
-# built 192 columns a block of 4 warps of 8 x 6 sums; 3 slabs of 192 walked by
-# one block; 192 columns a block of 3 warps of 8 x 8 sums; 288 columns a block
-# of 4 warps of 8 x 9 sums), at prefixes on either side of a 32-row tile edge
-# and at the hub's shapes. The tiles past the prefix get exact zeros, stats
-# included.
-def _fmaf(a, b, c):
-    """CUDA's fmaf on float32 tensors: a * b + c rounded once, computed exactly
-    in float64 (the product is exact there; the sum's rounding error is
-    recovered by TwoSum, and a float64 sum that lies halfway between two
-    float32 values is rounded to the side that error lies on)."""
-    p, cd = a.double() * b.double(), c.double()
-    s = p + cd
-    bb = s - p
-    e = (p - (s - bb)) + (cd - bb)
-    f = s.float()
-    back = f.double()
-    other = torch.nextafter(f, torch.where(s > back, math.inf, -math.inf).float())
-    tie = (s != back) & (s - back == (other.double() - back) / 2)
-    return torch.where(tie & (e != 0) & ((e > 0) == (other.double() > back)), other, f)
-
-
-def _ln_linear_first_port_order(x, g, b, eps, w, bias):
-    """``(qkv, mean, rstd)`` in the order of the first port's ln_linear_fwd
-    as nvcc compiles it: lane l sums columns l, l + 32, ... in order (s += v;
-    ss = fmaf(v, v, ss)), the warp adds the lanes by the xor butterfly 16, 8,
-    4, 2, 1, mu = s / K, var = max(ss / K - mu * mu, 0) with the product
-    rounded on its own (nvcc fuses no fmaf there), rstd = rsqrtf(var + eps);
-    h = fmaf((x - mu) * rstd, g, beta); qkv = the fmaf chain over k from 0,
-    then + bias. (Which products nvcc fuses was read on the card, against
-    the first port's own kernel.)"""
-    bsz, s_pad, k = x.shape
-    m, n = bsz * s_pad, w.shape[0]
-    xr = x.reshape(m, k)
-    lanes = xr.reshape(m, k // 32, 32)  # column lane + 32 c
-    s = torch.zeros(m, 32, device=x.device)
-    ss = torch.zeros_like(s)
-    for c in range(k // 32):
-        s = s + lanes[:, c]
-        ss = _fmaf(lanes[:, c], lanes[:, c], ss)
-    idx = torch.arange(32, device=x.device)
-    for o in (16, 8, 4, 2, 1):
-        s, ss = s + s[:, idx ^ o], ss + ss[:, idx ^ o]
-    kk = torch.full((m,), float(k), device=x.device)
-    mu = s[:, 0] / kk
-    rstd = torch.rsqrt(torch.clamp(ss[:, 0] / kk - mu * mu, min=0.0) + eps)
-    h = _fmaf((xr - mu[:, None]) * rstd[:, None], g.expand(m, k), b.expand(m, k))
-    acc = torch.zeros(m, n, device=x.device)
-    for j in range(k):
-        acc = _fmaf(h[:, j:j + 1].expand(m, n), w[:, j].expand(m, n), acc)
-    return ((acc + bias).reshape(bsz, s_pad, n), mu.reshape(bsz, s_pad),
-            rstd.reshape(bsz, s_pad))
-
-
-K1A_BATCHES = {"edges": (256, [0, 1, 31, 32, 33, 63, 64, 65, 255, 256]), "hub": (2048, _HUB)}
+# the plain model tests/torch_f32_order.py::ln_linear_order repeats that
+# kernel's arithmetic step by step in float32 (row_stats' lane-strided sums
+# and warp butterfly, the prologue, every sum from k = 0 upward with fmaf,
+# then the bias), and the kernel must equal it exactly: at D 192 in every
+# column cut that scripts/bench_linear_f32.py builds (as built 192 columns a
+# block of 4 warps of 8 x 6 sums; 3 slabs of 192 walked by one block; 192
+# columns a block of 3 warps of 8 x 8 sums; 288 columns a block of 4 warps of
+# 8 x 9 sums), at prefixes on either side of a 32-row tile edge and at the
+# hub's shapes; at D 768 (ln_linear_fwd_d768: the LN1 row pass, then the
+# 128-row GEMM) at those prefixes, at chip_smoke.py's narrow f32 batch and at
+# an S that is no multiple of 128 (5 sequences of 160 rows, M 800: 128-row
+# blocks that hold rows of two images, computed tiles of both among them, and
+# a last block of one tile, computed). On a card of 132 SMs K1a's GEMM takes
+# its 64-column tile at the straddle batch and K1b's at the edges, the 96-column
+# one elsewhere (gemm128_launch), so the bit tests hold both tiles.
+# The tiles past the prefix get exact zeros, stats included; the rows of x
+# there are NaN, which no output may show (they are not read).
+K1A_BATCHES = {"edges": (256, [0, 1, 31, 32, 33, 63, 64, 65, 255, 256]), "hub": (2048, _HUB),
+               # chip_smoke.py's NARROW_F32 (phase 2c: B/16 on the layer chain)
+               "narrow": (640, [1 + 196 * c for c in (3, 1, 2, 3, 1, 2, 3, 2)]),
+               "straddle": (160, [1, 33, 97, 160, 129])}
 K1A_CUTS = ["as built", "k1a_slabs3", "k1a_tn8", "k1a_tn9_bn288"]  # the bench's column cuts
+D768_BIT_BATCHES = ["edges", "narrow", "straddle"]
+# D 192 in every cut at the edges and the hub; D 768 as built at D768_BIT_BATCHES
+K1A_CASES = ([(D, b, c) for b in ("edges", "hub") for c in K1A_CUTS]
+             + [(D16, b, "as built") for b in D768_BIT_BATCHES])
+
+
+def _poison_padding(t, valid):
+    """NaN into the rows of the 32-row tiles that hold no valid row."""
+    for i, n in enumerate(valid):
+        t[i, -(-n // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK:] = float("nan")
+    return t
 
 
 @functools.lru_cache(maxsize=None)
@@ -1110,9 +1084,10 @@ def _bench_builds():
 
 def _ln_linear_cut(cut, x, g, b, eps, w, bias, vl, save):
     if cut == "as built":
-        before = _launch.LAUNCHES["ln_linear_fwd"]
+        name = fused_block.instance("ln_linear_fwd", x.shape[-1])
+        before = _launch.LAUNCHES[name]
         got = fused_block.ln_linear(x, g, b, eps, w, bias, vl, save=save)
-        assert _launch.LAUNCHES["ln_linear_fwd"] == before + 1
+        assert _launch.LAUNCHES[name] == before + 1
         return got if save else (got,)
     bsz, s, k = x.shape
     n = w.shape[0]
@@ -1129,26 +1104,65 @@ def _ln_linear_cut(cut, x, g, b, eps, w, bias, vl, save):
 
 
 @pytest.mark.parametrize("save", [False, True])
-@pytest.mark.parametrize("cut", K1A_CUTS)
-@pytest.mark.parametrize("batch", list(K1A_BATCHES))
-def test_f32_ln_linear_keeps_the_first_port_bits(dev, batch, cut, save):
+@pytest.mark.parametrize("case", K1A_CASES)
+def test_f32_ln_linear_keeps_the_first_port_bits(dev, case, save):
+    d, batch, cut = case
     s, valid = K1A_BATCHES[batch]
     rng = np.random.default_rng(len(valid) + 29)
     vl = torch.tensor(valid, dtype=torch.int32, device=dev)
-    x = _randn(rng, dev, len(valid), s, D) * 2 + 0.5
-    w, bias = _randn(rng, dev, 3 * D, D, scale=D ** -0.5), _randn(rng, dev, 3 * D, scale=0.02)
-    g, b = 1 + _randn(rng, dev, D, scale=0.1), _randn(rng, dev, D, scale=0.05)
+    x = _poison_padding(_randn(rng, dev, len(valid), s, d) * 2 + 0.5, valid)
+    w, bias = _randn(rng, dev, 3 * d, d, scale=d ** -0.5), _randn(rng, dev, 3 * d, scale=0.02)
+    g, b = 1 + _randn(rng, dev, d, scale=0.1), _randn(rng, dev, d, scale=0.05)
     with torch.no_grad():
         got = _ln_linear_cut(cut, x, g, b, 1e-5, w, bias, vl, save)
         again = _ln_linear_cut(cut, x, g, b, 1e-5, w, bias, vl, save)
     torch.cuda.synchronize()
-    ref = _ln_linear_first_port_order(x, g, b, 1e-5, w, bias)
+    ref = f32_order.ln_linear_order(x, g, b, 1e-5, w, bias, valid)
     rows = [min(-(-n // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK, s) for n in valid]
     for o, ag, r, what in zip(got, again, ref, ("qkv", "mean", "rstd")):
         assert torch.equal(o, ag), f"{what}: a second call gives other bits"
         for i, n in enumerate(rows):
             assert torch.equal(o[i, :n], r[i, :n]), (what, i, n)
             assert not o[i, n:].any().item(), (what, "past the computed tiles", i, n)
+
+
+# ---- the float32 K1b at D 768 keeps the bits of its first kernel ------------------
+# linear_residual_ln at N 768 (the 128-row GEMM writes r, a row pass takes the
+# LayerNorm) at both sites (K 768 and K 2048), with and without its save
+# outputs, against tests/torch_f32_order.py::linear_residual_ln_order, the
+# order of the four-block column cluster it replaces: equal bit for bit, zeros
+# (out, stats, r) on the tiles past the prefix, whose rows of a and of the
+# residual are NaN (not read); a second call gives the same bits. The
+# batches of K1a's test above, the straddling blocks among them.
+K1B_D768_SITES = {"out": (D16, 1e-5), "ffn2": (F, 1e-6)}
+
+
+@pytest.mark.parametrize("save", [False, True])
+@pytest.mark.parametrize("site", list(K1B_D768_SITES))
+@pytest.mark.parametrize("batch", D768_BIT_BATCHES)
+def test_f32_d768_linear_residual_ln_keeps_its_bits(dev, batch, site, save):
+    s, valid = K1A_BATCHES[batch]
+    k, eps = K1B_D768_SITES[site]
+    rng = np.random.default_rng(len(valid) + k)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    a = _poison_padding(_randn(rng, dev, len(valid), s, k), valid)
+    if site == "ffn2":
+        a = torch.relu(a)  # the FFN hidden
+    res = _poison_padding(_randn(rng, dev, len(valid), s, D16), valid)
+    w, bias = _randn(rng, dev, D16, k, scale=k ** -0.5), _randn(rng, dev, D16, scale=0.02)
+    g, b = 1 + _randn(rng, dev, D16, scale=0.1), _randn(rng, dev, D16, scale=0.05)
+    name = "linear_residual_ln_fwd_d768"
+    before = _launch.LAUNCHES[name]
+    with torch.no_grad():
+        got, again = (fused_block.linear_residual_ln(a, w, bias, res, g, b, eps, vl, save=save)
+                      for _ in range(2))
+    torch.cuda.synchronize()
+    assert _launch.LAUNCHES[name] == before + 2
+    got, again = (t if save else (t,) for t in (got, again))
+    ref = f32_order.linear_residual_ln_order(a, w, bias, res, g, b, eps, valid)
+    for o, ag, r, what in zip(got, again, ref, ("out", "mean", "rstd", "r")):
+        assert torch.equal(o, ag), f"{what}: a second call gives other bits"
+        assert torch.equal(o, r), (what, (o - r).abs().max().item())
 
 
 # ---- K6, ln_bwd redesigned: a split plan of M alone, half a warp a row at D 192 ----

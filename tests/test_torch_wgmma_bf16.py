@@ -63,14 +63,21 @@ def test_d768_ln_linear_takes_the_wgmma_entry_point(fake_cuda, save):
 
 @pytest.mark.parametrize("d, dtype, entry", [
     (fused_block.D_MODEL, BF16, "ln_linear_fwd_bf16"),  # D 192: the mma.sync kernel
-    (DW, torch.float32, "ln_linear_fwd"),  # float32: the CUDA-core kernel
+    (DW, torch.float32, "ln_linear_fwd"),  # float32: the CUDA-core kernels
     (fused_block.D_MODEL, torch.float32, "ln_linear_fwd")])
 def test_ln_linear_keeps_its_other_entry_points(fake_cuda, d, dtype, entry):
+    # (counted under entry's instance; the float32 D 768 launch goes to
+    # ln_linear_fwd_d768, whose LN1 row pass writes h into a scratch of x's
+    # shape for its 128-row GEMM)
     ops = _ln_operands(d, dtype)
     with torch.no_grad():
         fused_block.ln_linear(ops["x"], ops["g"], ops["b"], 1e-5, ops["w"], ops["bias"], VL)
     (name,), (args,) = fake_cuda.calls, fake_cuda.args
-    assert name == entry and len(args) == 15  # no scratch
+    if d == DW:
+        assert name == "ln_linear_fwd_d768" and len(args) == 16
+        assert args[9] is not None and args[9] not in (ops["x"].data_ptr(), args[6])
+    else:
+        assert name == entry and len(args) == 15  # no scratch
     assert _launch.LAUNCHES[fused_block.instance(entry, d)] > 0
 
 
