@@ -20,8 +20,9 @@
 //                   with a ReLU mask read from the recomputed hidden
 //                   (dz1 = dhid [hid > 0]) or a residual add (dx2 = dr2 + ...)
 //   linear_wgrad    dW = dY^T X' and db = colsum(dY), X' = X or LN(X) with the
-//                   saved row stats applied while the X tile is staged (the QKV
-//                   site, where X' = h = LN1(x) is not saved)
+//                   saved row stats applied while the X tile is staged (at D
+//                   768 in a row pass first; the QKV site, where X' = h =
+//                   LN1(x) is not saved)
 //
 // What bounds them on an H100: the four weight-gradient and four data-gradient
 // GEMMs of a layer do about 2 x the forward's operations on the same rows, so
@@ -43,10 +44,12 @@
 //
 // Every kernel here is built for the layer's three widths, D 192
 // (ChAdaViT-moyen), D 768 (ChAdaViT-B/16) and D 64 (the smoke configs), FFN
-// 2048 at each: linear_dgrad and linear_wgrad take the same tiles at D 192
-// and D 768, and at D 768 their grids hold four times as many 192-wide tiles;
-// at D 64 they take tiles 64 wide on the D-wide side (their notes below);
-// layernorm_bwd is a template on D. The launchers refuse any other width.
+// 2048 at each: linear_dgrad takes the same tiles at D 192 and D 768, and at
+// D 768 its grid holds four times as many 192-wide tiles; linear_wgrad at D
+// 768 is a stream-K walk of those tiles over a persistent grid
+// (linear_wgrad_d768, its note below); at D 64 both take tiles 64 wide on
+// the D-wide side (their notes below); layernorm_bwd is a template on D. The
+// launchers refuse any other width.
 //
 // The contract, the TPU kernel's (fused_block.py:33-39): the forward computes
 // every row of a 32-row tile that holds a valid row for real, also the rows
@@ -585,6 +588,229 @@ reduce_wgrad_splits_kernel(const float4* __restrict__ partial, float4* __restric
   out[i] = s;
 }
 
+// ---- linear_wgrad at D 768 (float32): a stream-K walk over the card --------
+// The same products as linear_wgrad_kernel (the same lines of the TPU kernel),
+// at ChAdaViT-B/16's four weight shapes. There the split plan above leaves
+// the card half idle: at the QKV site the 144 output tiles of 64 x 192 take
+// one split each, 144 blocks for 264 places of two an SM, and each block
+// walks every computed 32-row tile of the batch alone. So the work is cut
+// along the rows as well as the tiles:
+// - a unit is one computed 32-row tile of one output tile; the units of every
+//   output tile, tile-major (a tile's units in the order of the list of
+//   computed tiles), are cut into gridDim.x (two an SM, WGRAD_F32_BLOCKS)
+//   contiguous, near-equal shares, one a block, so every SM holds two blocks
+//   of the same work whatever the tile count and the batch;
+// - a block walks its share through the ring of linear_wgrad_kernel (the same
+//   tiles, 8 x 8 sums a thread, the same staging and loop body), its stages
+//   running on across a change of output tile; at the last unit of each tile
+//   segment it writes the segment's partial dW tile (and db, in the segments
+//   of the first K tile) into slot tile + block, then starts from zero;
+// - the QKV site's X' = LN1(x) comes from a row pass (ln_rows_saved_f32_kernel)
+//   that applies the saved stats by the forward's expression (fused_block.cu's
+//   ln_rows_f32_kernel: fmaf((x - mu) rstd, g, beta)) into a scratch of x's
+//   shape, so X' is the forward's h, bit for bit (normalising the staged tile
+//   in place, a second barrier a stage, cost the site 18 % a FLOP, PERF.md);
+// - reduce_wgrad_stream_kernel adds each tile's slots in block order, four
+//   outputs a thread: no atomics, the same bits on every run. The scratch is
+//   tiles + blocks - 1 slots whatever the batch.
+// The rows of dW sum in another order than the split plan's (each share in
+// tile order, the shares in block order), which no contract fixes.
+template <int TN, int TK>
+__host__ __device__ constexpr int wgrad_slot() {  // a partial: the dW tile, then TN of db
+  return TN * TK + TN;
+}
+template <int TN, int TK>
+constexpr int wgrad_stream_smem() { return WG_STAGES * WG_ROWS * (TN + TK) * 4; }
+
+// The list of computed 32-row tiles (those that hold a valid row), image by
+// image, as warp 0 of a block builds it in shared memory: image i's first
+// tile is list entry first[i], first[bsz] the count.
+__device__ __forceinline__ void list_tiles(int* first, const int* __restrict__ valid_len,
+                                           int bsz, int s_pad) {
+  const int lane = threadIdx.x & 31;
+  const int per = (bsz + 31) / 32, lo = min(bsz, lane * per), hi = min(bsz, lo + per);
+  const int most = s_pad / WG_ROWS;
+  auto count = [&](int i) { return min(most, (max(valid_len[i], 0) + WG_ROWS - 1) / WG_ROWS); };
+  int mine = 0;
+  for (int i = lo; i < hi; ++i) mine += count(i);
+  int incl = mine;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  int run = incl - mine;
+  for (int i = lo; i < hi; ++i) {
+    first[i] = run;
+    run += count(i);
+  }
+  if (lane == 31) first[bsz] = incl;
+}
+
+// first row of computed tile idx of the list (first[lo] <= idx < first[lo + 1])
+__device__ __forceinline__ size_t tile_row(const int* first, int bsz, int s_pad, int idx) {
+  int lo = 0, hi = bsz;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (first[mid] <= idx) lo = mid;
+    else hi = mid;
+  }
+  return (size_t)lo * s_pad + (size_t)(idx - first[lo]) * WG_ROWS;
+}
+
+template <int TN, int TK>
+__global__ void __launch_bounds__(wgrad_threads<TN, TK>(), 2)
+linear_wgrad_stream_kernel(const float* __restrict__ dy, const float* __restrict__ x,
+                           float* __restrict__ partial, const int* __restrict__ valid_len,
+                           int N, int K, int s_pad, int bsz) {
+  constexpr int WARPS_K = TK / 64, WG_THREADS = wgrad_threads<TN, TK>();
+  constexpr int Y_STAGE = WG_ROWS * TN, X_STAGE = WG_ROWS * TK, STAGE = Y_STAGE + X_STAGE;
+  static_assert(TN % WG_WN == 0 && TK % 64 == 0 && TN <= WG_THREADS, "wgrad tile shape");
+  extern __shared__ __align__(16) float wg_smem[];
+  __shared__ int first[WG_MAX_IMAGES + 1];  // index of each image's first computed tile
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wn = warp / WARPS_K, wk = warp % WARPS_K, ln = lane >> 3, lk = lane & 7;
+  const int na = wn * WG_WN + ln * 4, ka = wk * 64 + lk * 4;  // the thread's first n, k
+  if (warp == 0) list_tiles(first, valid_len, bsz, s_pad);
+  __syncthreads();
+  // this block's share [ub, ub + units) of the T x C units, C the computed tiles
+  const int n32 = first[bsz], ktiles = K / TK;
+  const long long total = (long long)(N / TN) * ktiles * n32;
+  const int ub = (int)(blockIdx.x * total / gridDim.x);
+  const int units = (int)((blockIdx.x + 1) * total / gridDim.x) - ub;
+  auto load = [&](int s, int slot) {  // unit ub + s: dY's and X's columns of its tile
+    const int u = ub + s, t = u / n32, n0 = t / ktiles * TN, k0 = t % ktiles * TK;
+    const size_t row0 = tile_row(first, bsz, s_pad, u - t * n32);
+    float* ys = wg_smem + slot * STAGE;
+    float* xs = ys + Y_STAGE;
+    for (int c = tid; c < Y_STAGE / 4; c += WG_THREADS) {
+      const int r = c / (TN / 4), cc = c % (TN / 4) * 4;
+      sgemm::cp_async_16(ys + r * TN + cc, dy + (row0 + r) * N + n0 + cc);
+    }
+    for (int c = tid; c < X_STAGE / 4; c += WG_THREADS) {
+      const int r = c / (TK / 4), cc = c % (TK / 4) * 4;
+      sgemm::cp_async_16(xs + r * TK + cc, x + (row0 + r) * K + k0 + cc);
+    }
+  };
+
+  float acc[WG_TM][8], db = 0.f;
+#pragma unroll
+  for (int i = 0; i < WG_TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  sgemm::ring<WG_STAGES>(units, load, [&](int s, int slot) {
+    const int u = ub + s, t = u / n32;
+    const float* ys = wg_smem + slot * STAGE;
+    const float* xs = ys + Y_STAGE;
+    const bool col_sums = t % ktiles == 0;  // db, in the segments of the first K tile
+    if (col_sums && tid < TN)
+#pragma unroll 8
+      for (int m = 0; m < WG_ROWS; ++m) db += ys[m * TN + tid];
+#pragma unroll 8
+    for (int m = 0; m < WG_ROWS; ++m) {
+      float yv[WG_TM], xv[8];
+      *reinterpret_cast<float4*>(yv) = load4(ys + m * TN + na);
+      *reinterpret_cast<float4*>(yv + 4) = load4(ys + m * TN + na + 16);
+      *reinterpret_cast<float4*>(xv) = load4(xs + m * TK + ka);
+      *reinterpret_cast<float4*>(xv + 4) = load4(xs + m * TK + ka + 32);
+      sgemm::outer(acc, yv, xv);
+    }
+    if (s + 1 < units && (u + 1) % n32 != 0) return;  // the segment goes on
+    // the segment's last unit: its partial into slot tile + block, then zeros
+    float* p = partial + (size_t)(t + blockIdx.x) * wgrad_slot<TN, TK>();
+#pragma unroll
+    for (int i = 0; i < WG_TM; ++i) {
+      const int n = na + (i & 3) + (i >> 2) * 16;
+      *reinterpret_cast<float4*>(p + n * TK + ka) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      *reinterpret_cast<float4*>(p + n * TK + ka + 32) =
+          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    }
+    if (col_sums && tid < TN) p[TN * TK + tid] = db;
+    db = 0.f;
+  });
+}
+
+// X' = LN1(x) of the QKV site at width K from the saved row stats, into h:
+// one warp a row, four columns a lane at a time, h = fmaf((x - mean) rstd, g,
+// beta) as the forward's h. The zero-filled tiles' rows are not written.
+template <int K>
+__global__ void __launch_bounds__(NT)
+ln_rows_saved_f32_kernel(const float* __restrict__ x, const float* __restrict__ mean,
+                         const float* __restrict__ rstd, const float* __restrict__ g,
+                         const float* __restrict__ beta, float* __restrict__ h,
+                         const int* __restrict__ valid_len, int M, int s_pad) {
+  const int lane = threadIdx.x & 31, warps = gridDim.x * (NT / 32);
+  for (int row = blockIdx.x * (NT / 32) + threadIdx.x / 32; row < M; row += warps) {
+    if (tile_is_padding(row / BM * BM, s_pad, valid_len)) continue;  // uniform in the warp
+    const float mu = mean[row], rs = rstd[row];
+#pragma unroll
+    for (int c = lane * 4; c < K; c += 128) {
+      const float4 v = *reinterpret_cast<const float4*>(x + (size_t)row * K + c);
+      const float4 gg = *reinterpret_cast<const float4*>(g + c);
+      const float4 bb = *reinterpret_cast<const float4*>(beta + c);
+      float4 o;
+      o.x = fmaf(__fmul_rn(__fsub_rn(v.x, mu), rs), gg.x, bb.x);
+      o.y = fmaf(__fmul_rn(__fsub_rn(v.y, mu), rs), gg.y, bb.y);
+      o.z = fmaf(__fmul_rn(__fsub_rn(v.z, mu), rs), gg.z, bb.z);
+      o.w = fmaf(__fmul_rn(__fsub_rn(v.w, mu), rs), gg.w, bb.w);
+      *reinterpret_cast<float4*>(h + (size_t)row * K + c) = o;
+    }
+  }
+}
+
+// dwb (N K + N) = each tile's segment partials added in block order, four
+// outputs a thread. Tile t's units [t C, t C + C) lie in the shares of blocks
+// b(t C) .. b(t C + C - 1), b(u) = ((u + 1) G - 1) / U the block whose share
+// holds unit u (U = T C units, G blocks); blocks with an empty share are
+// skipped. No units (C = 0): zeros.
+template <int TN, int TK>
+__global__ void __launch_bounds__(NT)
+reduce_wgrad_stream_kernel(const float* __restrict__ partial, float* __restrict__ dwb,
+                           const int* __restrict__ valid_len, int N, int K, int s_pad, int bsz,
+                           int blocks) {
+  __shared__ int n32;
+  if (threadIdx.x < 32) {
+    int n = 0;
+    for (int i = threadIdx.x; i < bsz; i += 32)
+      n += min(s_pad / WG_ROWS, (max(valid_len[i], 0) + WG_ROWS - 1) / WG_ROWS);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(0xffffffffu, n, o);
+    if (threadIdx.x == 0) n32 = n;
+  }
+  __syncthreads();
+  const int e = 4 * (blockIdx.x * NT + threadIdx.x);
+  if (e >= N * K + N) return;
+  const int ktiles = K / TK;
+  int t, off;
+  if (e < N * K) {
+    const int n = e / K, k = e % K;
+    t = n / TN * ktiles + k / TK;
+    off = n % TN * TK + k % TK;
+  } else {
+    const int n = e - N * K;
+    t = n / TN * ktiles;
+    off = TN * TK + n % TN;
+  }
+  const long long C = n32, G = blocks, U = (long long)(N / TN) * ktiles * C;
+  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (U > 0) {
+    const int bf = (int)(((t * C + 1) * G - 1) / U), bl = (int)(((t * C + C) * G - 1) / U);
+    for (int b = bf; b <= bl; ++b) {
+      if (b * U / G == (b + 1) * U / G) continue;  // a block with no units
+      const float4 v = *reinterpret_cast<const float4*>(
+          partial + (size_t)(t + b) * wgrad_slot<TN, TK>() + off);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+  }
+  *reinterpret_cast<float4*>(dwb + e) = sum;
+}
+
 template <typename T>
 int layernorm_bwd_launch(const T* dy, const T* xin, const float* mean,
                          const float* rstd, const float* g, const T* res, T* dx,
@@ -652,6 +878,24 @@ int wgrad_launch(const float* dy, const float* x, const float* mean, const float
   return launch(linear_wgrad_kernel<TN, TK, false>);
 }
 
+// both passes of the stream-K walk at D 768 over a grid of `blocks`
+template <int TN, int TK>
+int wgrad_stream_launch(const float* dy, const float* x, float* partial, float* dwb,
+                        const int* valid_len, int N, int K, int s_pad, int bsz, int blocks,
+                        cudaStream_t st) {
+  constexpr int smem = wgrad_stream_smem<TN, TK>();
+  auto kernel = linear_wgrad_stream_kernel<TN, TK>;
+  int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != 0) return e;
+  kernel<<<blocks, wgrad_threads<TN, TK>(), smem, st>>>(dy, x, partial, valid_len, N, K, s_pad,
+                                                        bsz);
+  if ((e = (int)cudaGetLastError()) != 0) return e;
+  const int n_out4 = (N * K + N) / 4;
+  reduce_wgrad_stream_kernel<TN, TK><<<(n_out4 + NT - 1) / NT, NT, 0, st>>>(
+      partial, dwb, valid_len, N, K, s_pad, bsz, blocks);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The float entry points keep their names; layernorm_bwd_bf16 takes the same
@@ -717,17 +961,18 @@ int linear_dgrad(const float* dy, const float* w, const float* aux, float* out,
 }
 
 // dy (M, N), x (M, K); dwb: (N * K + N,) = dW (N, K) row-major, then db (N,).
-// With mean (not null; K 192, 768 or 64 only), x is layer-normed with mean,
-// rstd, g, beta as it is staged. partial: (splits, N * K + N) scratch, 1 <= splits
+// With mean (not null; K 192 or 64 only), x is layer-normed with mean, rstd,
+// g, beta as it is staged. partial: (splits, N * K + N) scratch, 1 <= splits
 // <= 1024; the tile shapes and so the grid are those of
-// ops/fused_block.py::WGRAD_F32_TILES. Every operand 16-byte aligned.
+// ops/fused_block.py::WGRAD_F32_TILES. Every operand 16-byte aligned. The D
+// 768 shapes are linear_wgrad_d768's.
 int linear_wgrad(const float* dy, const float* x, const float* mean,
                  const float* rstd, const float* g, const float* beta,
                  float* partial, float* dwb, const int* valid_len, int M, int N,
                  int K, int s_pad, int splits, void* stream) {
   if (M <= 0 || s_pad <= 0 || s_pad % WG_ROWS || M % s_pad || M / s_pad > WG_MAX_IMAGES ||
       splits < 1 || splits > 1024 || !is_weight_shape(N, K) ||
-      (mean != nullptr && !is_width(K)))
+      is_weight_shape_at(N, K, D_WIDE) || (mean != nullptr && !is_width(K)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int bsz = M / s_pad;
@@ -745,10 +990,10 @@ int linear_wgrad(const float* dy, const float* x, const float* mean,
     else  // out-projection
       e = wgrad_launch<D_SMALL, D_SMALL>(dy, x, mean, rstd, g, beta, partial, valid_len, N, K,
                                          s_pad, bsz, splits, st);
-  } else if (K == D_FFN)  // FFN2: 192 columns of dY (all of them at D 192), 64 of hid's
+  } else if (K == D_FFN)  // FFN2: all 192 columns of dY, 64 of hid's
     e = wgrad_launch<D_MODEL, 64>(dy, x, mean, rstd, g, beta, partial, valid_len, N, K, s_pad,
                                   bsz, splits, st);
-  else  // QKV, out-projection, FFN1: 64 of dY's columns, 192 of X's (all at D 192)
+  else  // QKV, out-projection, FFN1: 64 of dY's columns, all 192 of X's
     e = wgrad_launch<64, D_MODEL>(dy, x, mean, rstd, g, beta, partial, valid_len, N, K, s_pad,
                                   bsz, splits, st);
   if (e != 0) return e;
@@ -756,6 +1001,40 @@ int linear_wgrad(const float* dy, const float* x, const float* mean,
   reduce_wgrad_splits_kernel<<<(n_out4 + NT - 1) / NT, NT, 0, st>>>(
       reinterpret_cast<const float4*>(partial), reinterpret_cast<float4*>(dwb), n_out4, splits);
   return (int)cudaGetLastError();
+}
+
+// linear_wgrad at ChAdaViT-B/16's four weight shapes (D 768), the stream-K
+// walk over a grid of `blocks` (1..1024; ops/fused_block.py::WGRAD_F32_BLOCKS,
+// two an SM); dy, x, mean, rstd, g, beta and dwb as linear_wgrad's, with
+// mean (the QKV site) K 768 only: x is layer-normed into h (M, K) scratch
+// first. Tiles: 192 of the D-wide side, 64 of the other
+// (ops/fused_block.py::WGRAD_F32_STREAM_TILES); partial: (tiles + blocks - 1,
+// TN x TK + TN) scratch, tiles = N / TN x K / TK. Every operand 16-byte
+// aligned.
+int linear_wgrad_d768(const float* dy, const float* x, const float* mean, const float* rstd,
+                      const float* g, const float* beta, float* h, float* partial, float* dwb,
+                      const int* valid_len, int M, int N, int K, int s_pad, int blocks,
+                      void* stream) {
+  if (M <= 0 || s_pad <= 0 || s_pad % WG_ROWS || M % s_pad || M / s_pad > WG_MAX_IMAGES ||
+      blocks < 1 || blocks > 1024 || !is_weight_shape_at(N, K, D_WIDE) ||
+      (mean != nullptr && (K != D_WIDE || h == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int bsz = M / s_pad;
+  const float* xs = x;
+  if (mean != nullptr) {  // the QKV site: X' = LN1(x) from the saved stats
+    ln_rows_saved_f32_kernel<D_WIDE><<<min((M + 7) / 8, 132 * 16), NT, 0, st>>>(
+        x, mean, rstd, g, beta, h, valid_len, M, s_pad);
+    const int e = (int)cudaGetLastError();
+    if (e != 0) return e;
+    xs = h;
+  }
+  if (K == D_FFN)  // FFN2: 192 of dY's columns, 64 of hid's
+    return wgrad_stream_launch<D_MODEL, 64>(dy, xs, partial, dwb, valid_len, N, K, s_pad, bsz,
+                                            blocks, st);
+  // QKV, out-projection, FFN1: 64 of dY's columns, 192 of X's
+  return wgrad_stream_launch<64, D_MODEL>(dy, xs, partial, dwb, valid_len, N, K, s_pad, bsz,
+                                          blocks, st);
 }
 
 }  // extern "C"

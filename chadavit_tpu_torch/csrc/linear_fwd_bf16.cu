@@ -56,15 +56,12 @@
 //   holds a valid row is computed for real. No atomics: the same bits on
 //   every run.
 //
-// At D 768 (ChAdaViT-B/16, FFN 2048) K1b has instances of its own: a
-// cluster of four blocks along the columns, each the D 192 tile, that add
-// their rows' partial LayerNorm sums through distributed shared memory
-// (layernorm_cols). Every product then has 768 or more on both sides, 380 to
-// 580 operations a byte: the D 768 instances are bound by the tensor cores'
-// operations, which mma.sync reaches only a share of. K1a and K1c at D 768
-// are linear_wgmma_bf16.cu's ln_linear_fwd_wgmma_bf16 and
-// linear_relu_fwd_wgmma_bf16 (wgmma and TMA); this file's ln_linear_fwd_bf16
-// and linear_relu_fwd_bf16 take D 192 and D 64 only.
+// At D 768 (ChAdaViT-B/16, FFN 2048) every product has 768 or more on both
+// sides, 380 to 580 operations a byte, bound by the tensor cores' operations,
+// which mma.sync reaches only a share of: K1a, K1b and K1c there are
+// linear_wgmma_bf16.cu's ln_linear_fwd_wgmma_bf16,
+// linear_residual_ln_fwd_wgmma_bf16 and linear_relu_fwd_wgmma_bf16 (wgmma and
+// TMA); this file's entry points take D 192 and D 64 only.
 //
 // At D 64 (the smoke configs, FFN 2048) every product has 64 on one side and
 // each kernel is bound by its bytes: K1a and K1b are templates on the width
@@ -72,15 +69,13 @@
 // one copy group of the 64 K columns; K1b's block owns whole rows of 64
 // columns, 32 x 16 a warp, and at the out projection, whose K is one slice,
 // the residual joins the ring's prologue), K1c is its K template at K 64. The
-// D 192 and D 768 instances compile to the code they had.
+// D 192 instances compile to the code they had.
 //
 // Plain C interface (loaded with ctypes); each launcher returns
 // cudaGetLastError() so that the Python wrapper can raise on a refused launch.
 
 #include "gemm_common.cuh"
 #include "mma_bf16.cuh"
-
-#include <cooperative_groups.h>
 
 namespace {
 
@@ -425,18 +420,9 @@ linear_relu_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 }
 
 // ---- linear_residual_ln_fwd_bf16 ------------------------------------------------
-// Grid (M / FW_BM x CB). A block owns FW_BM rows and N = LN_N = 192 columns
+// Grid (M / FW_BM). A block owns FW_BM rows, whole: N = LN_N = 192 columns
 // (N = 64 at D 64); each warp a 32 x N / 4 tile. The ring's stages hold a's
-// (64, 64) and W's (N, 64) tiles of one K slice. At D 192 and D 64 (CB = 1)
-// the block owns whole rows. At D 768
-// a cluster of CB = 4 blocks owns the rows, block `rank` the 192 columns
-// [192 rank, 192 (rank + 1)): each computes the D 192 tile (W's rows and the
-// residual's columns of its slice) up to r, takes each row's partial sums of
-// r and r^2 over its columns, one warp a row, and after a cluster barrier
-// adds the CB partials in rank order through distributed shared memory (the
-// same bits in every block and on every run) for the stats with the
-// max(0, .) clamp; a second barrier keeps the partials until every block has
-// read them. Block 0 of the cluster writes the stats.
+// (64, 64) and W's (N, 64) tiles of one K slice.
 constexpr int LN_N = D_MODEL;
 
 template <int K, int N = LN_N>  // N: the block's columns
@@ -454,102 +440,7 @@ struct ResLn {
   static_assert(FW_BM * N <= STAGE, "the residual tile fits a stage");
 };
 
-// The LayerNorm of K1b at D 768: rows [m0, m0 + FW_BM) of r (bf16, in the
-// swizzled tile Rs), the block's columns [c0, c0 + LN_N) of D = CB LN_N.
-// One warp a row, lanes 0..23 8 columns each: the row's partial sums over
-// the block's columns, then after a cluster barrier the CB partials in rank
-// order, the stats, and the block's columns of out and r. Rows at and past
-// live (zero-filled 32-row tiles) are written as zeros. Every block of the
-// cluster calls it.
-template <int CB>
-__device__ __forceinline__ void layernorm_cols(const bf16* Rs, const float* __restrict__ gamma,
-                                               const float* __restrict__ beta, float eps,
-                                               bf16* __restrict__ out, float* __restrict__ mean_out,
-                                               float* __restrict__ rstd_out,
-                                               bf16* __restrict__ r_out, int m0, int c0, int rank,
-                                               int live) {
-  namespace cg = cooperative_groups;
-  constexpr int N = LN_N, D = CB * LN_N, LANES = N / 8;
-  __shared__ float2 part[FW_BM];  // each row's sum of r and of r^2 over the block's columns
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, c8 = lane * 8;
-  auto row_values = [&](int row, float (&v)[8]) {  // zeros on lanes past the columns
-    uint4 u = make_uint4(0, 0, 0, 0);
-    if (lane < LANES) u = *reinterpret_cast<const uint4*>(Rs + swz<N>(row, c8));
-    const uint32_t* uw = reinterpret_cast<const uint32_t*>(&u);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = unpack_bf16x2(uw[e]);
-      v[2 * e] = f.x;
-      v[2 * e + 1] = f.y;
-    }
-    return u;
-  };
-  for (int row = warp; row < live; row += TC_THREADS / 32) {
-    float v[8], s = 0.f, ss = 0.f;
-    row_values(row, v);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      s += v[e];
-      ss += v[e] * v[e];
-    }
-    s = warp_sum(s);
-    ss = warp_sum(ss);
-    if (lane == 0) part[row] = make_float2(s, ss);
-  }
-  cg::this_cluster().sync();  // every block's partials are in place
-  const float2* parts[CB];
-#pragma unroll
-  for (int q = 0; q < CB; ++q) parts[q] = cg::this_cluster().map_shared_rank(part, q);
-  float ga[8], ba[8];
-  if (lane < LANES) {
-    *reinterpret_cast<float4*>(ga) = __ldg(reinterpret_cast<const float4*>(gamma + c0 + c8));
-    *reinterpret_cast<float4*>(ga + 4) = __ldg(reinterpret_cast<const float4*>(gamma + c0 + c8 + 4));
-    *reinterpret_cast<float4*>(ba) = __ldg(reinterpret_cast<const float4*>(beta + c0 + c8));
-    *reinterpret_cast<float4*>(ba + 4) = __ldg(reinterpret_cast<const float4*>(beta + c0 + c8 + 4));
-  }
-  for (int row = warp; row < FW_BM; row += TC_THREADS / 32) {
-    const size_t o = (size_t)(m0 + row) * D + c0 + c8;
-    if (row >= live) {  // a zero-filled 32-row tile: uniform across the cluster
-      if (lane < LANES) {
-        *reinterpret_cast<uint4*>(out + o) = make_uint4(0, 0, 0, 0);
-        if (r_out != nullptr) *reinterpret_cast<uint4*>(r_out + o) = make_uint4(0, 0, 0, 0);
-      }
-      if (mean_out != nullptr && rank == 0 && lane == 0) {
-        mean_out[m0 + row] = 0.f;
-        rstd_out[m0 + row] = 0.f;
-      }
-      continue;
-    }
-    float2 t = parts[0][row];
-#pragma unroll
-    for (int q = 1; q < CB; ++q) {  // in rank order
-      const float2 p = parts[q][row];
-      t.x += p.x;
-      t.y += p.y;
-    }
-    const float mu = t.x / D;
-    const float rstd = rsqrtf(fmaxf(t.y / D - mu * mu, 0.f) + eps);
-    float v[8];
-    const uint4 u = row_values(row, v);
-    if (lane < LANES) {
-      uint4 y;
-      uint32_t* yw = reinterpret_cast<uint32_t*>(&y);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        yw[e] = pack_bf16x2((v[2 * e] - mu) * rstd * ga[2 * e] + ba[2 * e],
-                            (v[2 * e + 1] - mu) * rstd * ga[2 * e + 1] + ba[2 * e + 1]);
-      *reinterpret_cast<uint4*>(out + o) = y;
-      if (r_out != nullptr) *reinterpret_cast<uint4*>(r_out + o) = u;
-    }
-    if (mean_out != nullptr && rank == 0 && lane == 0) {
-      mean_out[m0 + row] = mu;
-      rstd_out[m0 + row] = rstd;
-    }
-  }
-  cg::this_cluster().sync();  // the partials stay until read
-}
-
-template <int K, int CB, int N_>
+template <int K, int N_>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 linear_residual_ln_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
                                const bf16* __restrict__ bias, const bf16* __restrict__ res,
@@ -559,37 +450,23 @@ linear_residual_ln_bf16_kernel(const bf16* __restrict__ a, const bf16* __restric
                                float* __restrict__ rstd_out, bf16* __restrict__ r_out,
                                const int* __restrict__ valid_len, int s_pad) {
   using C = ResLn<K, N_>;
-  constexpr int N = N_;         // the block's columns
-  constexpr int D = CB * N;     // a row's
-  namespace cg = cooperative_groups;
-  const int rank = CB > 1 ? (int)cg::this_cluster().block_rank() : 0;
-  const int c0 = rank * N;      // the block's first column
+  constexpr int N = N_;         // the block's columns: the row's
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);
   // the residual, then r in its place: the stage that slice KT would take
   bf16* Rs = ring + (C::KT % STAGES) * C::STAGE;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.x / CB * FW_BM;
+  const int m0 = blockIdx.x * FW_BM;
   const int live = live_rows(m0, s_pad, valid_len);
   if (live == 0) {  // both 32-row tiles are padding: uniform, before any barrier
-    if constexpr (CB == 1) {
 #pragma unroll
-      for (int q = 0; q < C::CHUNKS; ++q) {
-        const size_t o = (size_t)m0 * N + (tid + q * TC_THREADS) * 8;
-        *reinterpret_cast<uint4*>(out + o) = make_uint4(0, 0, 0, 0);
-        if (r_out != nullptr) *reinterpret_cast<uint4*>(r_out + o) = make_uint4(0, 0, 0, 0);
-      }
-    } else {
-#pragma unroll
-      for (int q = 0; q < C::CHUNKS; ++q) {
-        const int c = tid + q * TC_THREADS;
-        const size_t o = (size_t)(m0 + c / (N / 8)) * D + c0 + c % (N / 8) * 8;
-        *reinterpret_cast<uint4*>(out + o) = make_uint4(0, 0, 0, 0);
-        if (r_out != nullptr) *reinterpret_cast<uint4*>(r_out + o) = make_uint4(0, 0, 0, 0);
-      }
+    for (int q = 0; q < C::CHUNKS; ++q) {
+      const size_t o = (size_t)m0 * N + (tid + q * TC_THREADS) * 8;
+      *reinterpret_cast<uint4*>(out + o) = make_uint4(0, 0, 0, 0);
+      if (r_out != nullptr) *reinterpret_cast<uint4*>(r_out + o) = make_uint4(0, 0, 0, 0);
     }
-    if (mean_out != nullptr && rank == 0 && tid < FW_BM) {
+    if (mean_out != nullptr && tid < FW_BM) {
       mean_out[m0 + tid] = 0.f;
       rstd_out[m0 + tid] = 0.f;
     }
@@ -607,14 +484,14 @@ linear_residual_ln_bf16_kernel(const bf16* __restrict__ a, const bf16* __restric
 #pragma unroll
     for (int q = 0; q < N * FW_BK / 8 / TC_THREADS; ++q) {
       const int c = tid + q * TC_THREADS, r = c / (FW_BK / 8), cc = c % (FW_BK / 8);
-      cp_async_16(bs + swz<FW_BK>(r, cc * 8), w + (size_t)(c0 + r) * K + i * FW_BK + cc * 8);
+      cp_async_16(bs + swz<FW_BK>(r, cc * 8), w + (size_t)r * K + i * FW_BK + cc * 8);
     }
   };
   auto load_residual = [&]() {
 #pragma unroll
     for (int q = 0; q < C::CHUNKS; ++q) {
       const int c = tid + q * TC_THREADS, r = c / (N / 8), cc = c % (N / 8);
-      cp_async_16(Rs + swz<N>(r, cc * 8), res + (size_t)(m0 + r) * D + c0 + cc * 8);
+      cp_async_16(Rs + swz<N>(r, cc * 8), res + (size_t)(m0 + r) * N + cc * 8);
     }
   };
   // the ring's prologue; a K of one slice (the out projection at D 64) takes
@@ -669,7 +546,7 @@ linear_residual_ln_bf16_kernel(const bf16* __restrict__ a, const bf16* __restric
   for (int nt = 0; nt < C::NT8; ++nt) {
     const int col = wn * C::WN + nt * 8 + 2 * t;
     const float2 bb =
-        unpack_bf16x2(__ldg(reinterpret_cast<const unsigned int*>(bias + c0 + col)));
+        unpack_bf16x2(__ldg(reinterpret_cast<const unsigned int*>(bias + col)));
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -681,10 +558,6 @@ linear_residual_ln_bf16_kernel(const bf16* __restrict__ a, const bf16* __restric
       }
   }
   __syncthreads();
-  if constexpr (CB > 1) {
-    layernorm_cols<CB>(Rs, gamma, beta, eps, out, mean_out, rstd_out, r_out, m0, c0, rank, live);
-    return;
-  }
 
   // ---- the LayerNorm: one warp a row; lanes 0..23 own 8 columns each ----------
   constexpr int LANES = N / 8;
@@ -794,16 +667,17 @@ int linear_relu_fwd_bf16(const bf16* x, const bf16* w, const bf16* bias, bf16* o
 }
 
 // a (M, K) with K = N (out projection) or 2048 (FFN2), w (N, K), bias (N,),
-// res and out (M, N), bf16, N = D 192, 768 or 64; g and beta (N,) f32. When not
+// res and out (M, N), bf16, N = D 192 or 64; g and beta (N,) f32. When not
 // null: mean_out and rstd_out (M,) f32 get the LN row stats (both or
 // neither), r_out (M, N) bf16 the pre-LN sum; zeros on the zero-filled tiles.
-// s_pad a multiple of 64.
+// s_pad a multiple of 64. At D 768 the bf16 one is linear_wgmma_bf16.cu's
+// linear_residual_ln_fwd_wgmma_bf16.
 int linear_residual_ln_fwd_bf16(const bf16* a, const bf16* w, const bf16* bias,
                                 const bf16* res, const float* g, const float* beta,
                                 float eps, bf16* out, float* mean_out, float* rstd_out,
                                 bf16* r_out, const int* valid_len, int M, int K, int N,
                                 int s_pad, void* stream) {
-  if (!rows_ok_bf16(M, s_pad) || !is_width(N) || (K != N && K != D_FFN) ||
+  if (!rows_ok_bf16(M, s_pad) || (N != D_MODEL && N != D_SMALL) || (K != N && K != D_FFN) ||
       (mean_out == nullptr) != (rstd_out == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -815,44 +689,14 @@ int linear_residual_ln_fwd_bf16(const bf16* a, const bf16* w, const bf16* bias,
                                                       s_pad);
     return (int)cudaGetLastError();
   };
-  // D 768: a cluster of four column blocks a row block
-  auto run_cluster = [&](auto kernel, int smem) {
-    constexpr int CB = D_WIDE / LN_N;
-    int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != 0) return e;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(M / FW_BM * CB);
-    cfg.blockDim = dim3(TC_THREADS);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = st;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = CB;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    e = (int)cudaLaunchKernelEx(&cfg, kernel, a, w, bias, res, g, beta, eps, out, mean_out,
-                                rstd_out, r_out, valid_len, s_pad);
-    if (e != 0) return e;
-    return (int)cudaGetLastError();
-  };
-  if (N == D_WIDE) {
-    if (K == D_WIDE)
-      return run_cluster(linear_residual_ln_bf16_kernel<D_WIDE, D_WIDE / LN_N, LN_N>,
-                         ResLn<D_WIDE>::SMEM);
-    return run_cluster(linear_residual_ln_bf16_kernel<D_FFN, D_WIDE / LN_N, LN_N>,
-                       ResLn<D_FFN>::SMEM);
-  }
   if (N == D_SMALL) {  // whole rows of 64 columns a block
     if (K == D_SMALL)
-      return run(linear_residual_ln_bf16_kernel<D_SMALL, 1, D_SMALL>,
-                 ResLn<D_SMALL, D_SMALL>::SMEM);
-    return run(linear_residual_ln_bf16_kernel<D_FFN, 1, D_SMALL>, ResLn<D_FFN, D_SMALL>::SMEM);
+      return run(linear_residual_ln_bf16_kernel<D_SMALL, D_SMALL>, ResLn<D_SMALL, D_SMALL>::SMEM);
+    return run(linear_residual_ln_bf16_kernel<D_FFN, D_SMALL>, ResLn<D_FFN, D_SMALL>::SMEM);
   }
   if (K == D_MODEL)
-    return run(linear_residual_ln_bf16_kernel<D_MODEL, 1, LN_N>, ResLn<D_MODEL>::SMEM);
-  return run(linear_residual_ln_bf16_kernel<D_FFN, 1, LN_N>, ResLn<D_FFN>::SMEM);
+    return run(linear_residual_ln_bf16_kernel<D_MODEL, LN_N>, ResLn<D_MODEL>::SMEM);
+  return run(linear_residual_ln_bf16_kernel<D_FFN, LN_N>, ResLn<D_FFN>::SMEM);
 }
 
 }  // extern "C"

@@ -1,11 +1,12 @@
 // The bf16 GEMM steps of a ChAdaViT-B/16 encoder layer (D 768, FFN 2048) on
 // Hopper's warpgroup products: the LN1 + QKV forward (K1a,
-// ln_linear_fwd_wgmma_bf16), the FFN1 + ReLU forward (K1c,
-// linear_relu_fwd_wgmma_bf16), the data gradient at the layer's four sites
-// (K2b, linear_dgrad_wgmma_bf16) and the weight gradient (K2c,
+// ln_linear_fwd_wgmma_bf16), the out-projection / FFN2 + residual + LayerNorm
+// forward (K1b, linear_residual_ln_fwd_wgmma_bf16), the FFN1 + ReLU forward
+// (K1c, linear_relu_fwd_wgmma_bf16), the data gradient at the layer's four
+// sites (K2b, linear_dgrad_wgmma_bf16) and the weight gradient (K2c,
 // linear_wgrad_wgmma_bf16): TMA tiles through an mbarrier ring, one producer
-// thread and two consumer warpgroups, wgmma m64n256k16 (m64n192k16 at K2b's
-// N 768 sites) from 128-byte-swizzled shared memory (wgmma_bf16.cuh). The
+// thread and two consumer warpgroups, wgmma m64n256k16 (m64n192k16 at the
+// N 768 sites of K1b and K2b) from 128-byte-swizzled shared memory (wgmma_bf16.cuh). The
 // functions, sites, rounding points and row contract are those of the D 192
 // instances (linear_fwd_bf16.cu, linear_bwd_bf16.cu), which stay as they are.
 //
@@ -25,7 +26,7 @@
 //   read from the forward's saved stats (K2c's QKV site: the forward's h,
 //   exactly). The GEMMs then read h by TMA: the LayerNorm runs once a row,
 //   not once for each column block.
-// - K1a, K1c and K2b are one kernel (linear_wgmma_kernel), a template on the
+// - K1a, K1b, K1c and K2b are one kernel (linear_wgmma_kernel), a template on the
 //   shape, the column tile and the epilogue: out = epilogue(A B) on tiles of
 //   two 64-row units (one a warpgroup) by 256 (or 192) columns, K in slices of
 //   64 through a three- or four-stage ring. A is the activations (h, x2, dY),
@@ -40,6 +41,17 @@
 //   residual comes by TMA into that staging while the tile's later slices
 //   multiply. The producer warpgroup's three idle warps write the rows of the
 //   zero-filled 32-row tiles meanwhile.
+// - K1b: the GEMM's epilogue takes the residual the same way and writes the
+//   pre-LN sum r = bf16(res + bf16(bf16(s) + b)), the JAX order
+//   (chadavit_tpu/ops/fused_block.py:162-186: r is a bf16 tensor there too),
+//   into r_out or, when the caller saves no r, into out; then one warp a row
+//   (res_ln_rows_bf16_kernel) takes the LayerNorm of r in the order of the
+//   four-block column cluster it replaces (a row's four 192-column partial
+//   sums, each over lanes of eight columns, added in order), so that given
+//   the same r, out and the row stats keep their bits. A column cluster that
+//   adds partial sums through distributed shared memory read all of W for
+//   each 64 rows on mma.sync and waited at two cluster barriers; the row
+//   pass reads r once, 10.7 MB each way at chip_smoke.py's narrow bf16 rows.
 // - K2c: dW = dY^T X' and db = colsum dY summed over the computed 32-row
 //   tiles, two a unit (64 rows; an odd last tile pairs with a box past the
 //   tensor's end, which TMA fills with zeros). dY and X' stay as they are in
@@ -235,13 +247,14 @@ __device__ __forceinline__ int unit_row(const int* first, int bsz, int s_pad, in
 // the zeros of the 32-row tiles past valid_len while the consumers multiply.
 //
 // The epilogues, rounding as the D 192 kernels: EPI_BIAS (K1a) bf16(bf16(s) +
-// b); EPI_BIAS_RELU (K1c) relu of that; the data gradient's (gemm_common.cuh)
-// bf16(s), bf16(s [aux > 0]) and bf16(aux + s), s the f32 sums. The mask or
+// b); EPI_BIAS_RELU (K1c) relu of that; EPI_BIAS_RESIDUAL (K1b) bf16(aux +
+// that); the data gradient's (gemm_common.cuh) bf16(s), bf16(s [aux > 0])
+// and bf16(aux + s), s the f32 sums. The mask or
 // residual tile is TMA'd into the warpgroup's staging while the tile's later K
 // slices multiply (the staging is free once both warpgroups have passed the
 // tile's first slice), in the 128-byte swizzle of its boxes; the epilogue
 // turns it into the output in place.
-constexpr int EPI_BIAS = 3, EPI_BIAS_RELU = 4;  // after gemm_common.cuh's Epilogue
+constexpr int EPI_BIAS = 3, EPI_BIAS_RELU = 4, EPI_BIAS_RESIDUAL = 5;  // after gemm_common.cuh's
 constexpr int UNIT = 64;                        // rows of a unit: a warpgroup's
 constexpr int GRID_MAX = 132;                   // the card's SMs: a block each
 // the block: the two consumer warpgroups and a whole producer warpgroup (one
@@ -250,13 +263,14 @@ constexpr int GRID_MAX = 132;                   // the card's SMs: a block each
 // launch's 168 (65 536 over three warpgroups) K1a's staged epilogue spilled
 constexpr int GEMM_THREADS = 128 * (CONSUMERS + 1);
 constexpr int ZERO_THREADS = 96;                // the producer warpgroup's other three warps
-constexpr int DG_NARROW_N = 192;                // K2b's column tile at its N 768 sites
+constexpr int NARROW_N = 192;                   // K1b's and K2b's column tile at N 768
 
 template <int N_, int K_, int BN_, int EPI_>
 struct Gemm {
   static constexpr int N = N_, K = K_, BN = BN_, EPI = EPI_;
-  static constexpr bool FWD = EPI == EPI_BIAS || EPI == EPI_BIAS_RELU;  // B = W (N, K)
-  static constexpr bool AUX = EPI == EPI_RELU_MASK || EPI == EPI_RESIDUAL;
+  static constexpr bool FWD =  // B = W (N, K)
+      EPI == EPI_BIAS || EPI == EPI_BIAS_RELU || EPI == EPI_BIAS_RESIDUAL;
+  static constexpr bool AUX = EPI == EPI_RELU_MASK || EPI == EPI_RESIDUAL || EPI == EPI_BIAS_RESIDUAL;
   static constexpr int KT = K / BOX;                // K slices of a tile
   static constexpr int CT = N / BN;                 // column tiles
   static constexpr int STAGES = BN == TILE_N ? 3 : 4;
@@ -431,7 +445,7 @@ linear_wgmma_kernel(const __grid_constant__ CUtensorMap a_map,
           v0 = m.x > 0.f ? v0 : 0.f;
           v1 = m.y > 0.f ? v1 : 0.f;
         }
-        if constexpr (EPI == EPI_RESIDUAL) {
+        if constexpr (EPI == EPI_RESIDUAL || EPI == EPI_BIAS_RESIDUAL) {
           const float2 r = unpack_bf16x2(*at);
           v0 = r.x + v0;
           v1 = r.y + v1;
@@ -480,6 +494,92 @@ int gemm_launch(const bf16* a, const bf16* w, const bf16* aux, const bf16* bias,
   kernel<<<min(most, GRID_MAX), GEMM_THREADS, G::SMEM, st>>>(
       a_map, b_map, bias, out, valid_len, M, s_pad, M / s_pad, aux_map);
   return (int)cudaGetLastError();
+}
+
+// ---- K1b's LayerNorm of r --------------------------------------------------------------
+// One warp a row, rows strided over the grid: lanes 0..23 hold the 8 columns
+// 192 q + 8 lane .. + 7 of each 192-column part q of the row; for each part
+// the lane sums its columns in order (s += v, ss = fmaf(v, v, ss)) and the
+// warp adds the lanes (warp_sum), then the parts' sums are added for q = 0,
+// 1, ... in order; mu = s / D, rstd = rsqrtf(max(fmaf(-mu, mu, ss / D), 0) +
+// eps) and out = bf16(fmaf((r - mu) rstd, g, beta)): the column cluster's
+// arithmetic as nvcc compiled it (tests/torch_bf16_order.py). r may be out
+// itself (a lane reads its columns of the row before it writes them). The
+// zero-filled tiles' rows: out and the stats zeros (r holds the GEMM's zeros).
+constexpr int LN_PART = D_MODEL;        // the columns of one partial sum
+constexpr int LN_LANES = LN_PART / 8;   // the lanes that hold a part's columns
+
+template <int D>
+__global__ void __launch_bounds__(256)
+res_ln_rows_bf16_kernel(const bf16* r, const float* __restrict__ gamma,
+                        const float* __restrict__ beta, float eps, bf16* out,
+                        float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                        const int* __restrict__ valid_len, int M, int s_pad) {
+  constexpr int Q = D / LN_PART;
+  const int lane = threadIdx.x & 31, c8 = lane * 8;
+  const int warps = gridDim.x * (blockDim.x / 32);
+  for (int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32; row < M; row += warps) {
+    bf16* orow = out + (size_t)row * D;
+    const int b = row / s_pad, local = row - b * s_pad;
+    if (local / ROW_TILE * ROW_TILE >= valid_len[b]) {  // a zero-filled tile: uniform
+      if (lane < LN_LANES)
+#pragma unroll
+        for (int q = 0; q < Q; ++q)
+          *reinterpret_cast<uint4*>(orow + LN_PART * q + c8) = make_uint4(0, 0, 0, 0);
+      if (mean_out != nullptr && lane == 0) {
+        mean_out[row] = 0.f;
+        rstd_out[row] = 0.f;
+      }
+      continue;
+    }
+    uint4 u[Q];
+    float ts = 0.f, tss = 0.f;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      u[q] = make_uint4(0, 0, 0, 0);
+      if (lane < LN_LANES)
+        u[q] = *reinterpret_cast<const uint4*>(r + (size_t)row * D + LN_PART * q + c8);
+      const uint32_t* uw = reinterpret_cast<const uint32_t*>(&u[q]);
+      float s = 0.f, ss = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = unpack_bf16x2(uw[e]);
+        s += f.x;
+        ss = fmaf(f.x, f.x, ss);
+        s += f.y;
+        ss = fmaf(f.y, f.y, ss);
+      }
+      s = warp_sum(s);
+      ss = warp_sum(ss);
+      ts = q == 0 ? s : ts + s;  // in q order
+      tss = q == 0 ? ss : tss + ss;
+    }
+    const float mu = ts / D;
+    const float rstd = rsqrtf(fmaxf(fmaf(-mu, mu, tss / D), 0.f) + eps);
+    if (lane < LN_LANES)
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        float ga[8], ba[8];
+        const int c = LN_PART * q + c8;
+        *reinterpret_cast<float4*>(ga) = __ldg(reinterpret_cast<const float4*>(gamma + c));
+        *reinterpret_cast<float4*>(ga + 4) = __ldg(reinterpret_cast<const float4*>(gamma + c + 4));
+        *reinterpret_cast<float4*>(ba) = __ldg(reinterpret_cast<const float4*>(beta + c));
+        *reinterpret_cast<float4*>(ba + 4) = __ldg(reinterpret_cast<const float4*>(beta + c + 4));
+        uint32_t* uw = reinterpret_cast<uint32_t*>(&u[q]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = unpack_bf16x2(uw[e]);
+          uw[e] = pack_bf16x2(
+              fmaf(__fmul_rn(__fsub_rn(f.x, mu), rstd), ga[2 * e], ba[2 * e]),
+              fmaf(__fmul_rn(__fsub_rn(f.y, mu), rstd), ga[2 * e + 1], ba[2 * e + 1]));
+        }
+        *reinterpret_cast<uint4*>(orow + c) = u[q];
+      }
+    if (mean_out != nullptr && lane == 0) {
+      mean_out[row] = mu;
+      rstd_out[row] = rstd;
+    }
+  }
 }
 
 // ---- K2c: dW = dY^T X', db = colsum dY ----------------------------------------------
@@ -719,6 +819,35 @@ int linear_relu_fwd_wgmma_bf16(const bf16* x, const bf16* w, const bf16* bias, b
       x, w, nullptr, bias, out, valid_len, M, s_pad, static_cast<cudaStream_t>(stream));
 }
 
+// K1b at D 768: a (M, K) with K 768 (out-projection) or 2048 (FFN2), w (768,
+// K), bias (768,), res and out (M, 768), bf16; g and beta (768,) f32. The
+// GEMM writes r = bf16(res + bf16(bf16(a w^T) + bias)) into r_out, or into
+// out when r_out is null, zeros on the zero-filled tiles; the row pass writes
+// out = LN(r) (g, beta, eps) and, when not null (both or neither), mean_out
+// and rstd_out (M,) f32, zeros on the zero-filled tiles. 192-column tiles
+// (m64n192k16): four a row of tiles, for the same wave count as K2b's N 768
+// sites. s_pad a multiple of 64, at most 1024 images; every pointer 16-byte
+// aligned. The D 192 and D 64 instances are linear_residual_ln_fwd_bf16's.
+int linear_residual_ln_fwd_wgmma_bf16(const bf16* a, const bf16* w, const bf16* bias,
+                                      const bf16* res, const float* g, const float* beta,
+                                      float eps, bf16* out, float* mean_out, float* rstd_out,
+                                      bf16* r_out, const int* valid_len, int M, int K, int N,
+                                      int s_pad, void* stream) {
+  if (!rows_ok_wgmma(M, s_pad) || s_pad % UNIT || M / s_pad > MAX_IMAGES || N != D_WIDE ||
+      (K != D_WIDE && K != D_FFN) || (mean_out == nullptr) != (rstd_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bf16* r = r_out != nullptr ? r_out : out;
+  const int e = K == D_FFN ? gemm_launch<D_WIDE, D_FFN, NARROW_N, EPI_BIAS_RESIDUAL>(
+                                 a, w, res, bias, r, valid_len, M, s_pad, st)
+                           : gemm_launch<D_WIDE, D_WIDE, NARROW_N, EPI_BIAS_RESIDUAL>(
+                                 a, w, res, bias, r, valid_len, M, s_pad, st);
+  if (e != 0) return e;
+  res_ln_rows_bf16_kernel<D_WIDE><<<min((M + 7) / 8, 132 * 16), 256, 0, st>>>(
+      r, g, beta, eps, out, mean_out, rstd_out, valid_len, M, s_pad);
+  return (int)cudaGetLastError();
+}
+
 // K2b at D 768: dy (M, K), w (K, N) (the forward's Linear weight, out x in),
 // out (M, N), bf16; epilogue and aux as linear_dgrad_bf16's, at a D 768
 // layer's four sites: K 768 -> N 2048 (mask, 256-column tiles), K 2048 -> N
@@ -738,13 +867,13 @@ int linear_dgrad_wgmma_bf16(const bf16* dy, const bf16* w, const bf16* aux, bf16
     return gemm_launch<D_FFN, D_WIDE, TILE_N, EPI_RELU_MASK>(dy, w, aux, nullptr, out,
                                                              valid_len, M, s_pad, st);
   if (K == D_FFN && N == D_WIDE && epilogue == EPI_RESIDUAL)
-    return gemm_launch<D_WIDE, D_FFN, DG_NARROW_N, EPI_RESIDUAL>(dy, w, aux, nullptr, out,
+    return gemm_launch<D_WIDE, D_FFN, NARROW_N, EPI_RESIDUAL>(dy, w, aux, nullptr, out,
                                                                  valid_len, M, s_pad, st);
   if (K == D_WIDE && N == D_WIDE && epilogue == EPI_NONE)
-    return gemm_launch<D_WIDE, D_WIDE, DG_NARROW_N, EPI_NONE>(dy, w, nullptr, nullptr, out,
+    return gemm_launch<D_WIDE, D_WIDE, NARROW_N, EPI_NONE>(dy, w, nullptr, nullptr, out,
                                                               valid_len, M, s_pad, st);
   if (K == 3 * D_WIDE && N == D_WIDE && epilogue == EPI_NONE)
-    return gemm_launch<D_WIDE, 3 * D_WIDE, DG_NARROW_N, EPI_NONE>(dy, w, nullptr, nullptr, out,
+    return gemm_launch<D_WIDE, 3 * D_WIDE, NARROW_N, EPI_NONE>(dy, w, nullptr, nullptr, out,
                                                                   valid_len, M, s_pad, st);
   return (int)cudaErrorInvalidValue;
 }

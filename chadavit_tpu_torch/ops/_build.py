@@ -57,16 +57,22 @@ SIGNATURES = {
 # the bf16 instance of each kernel: the same arguments, bf16 activations
 SIGNATURES.update({f"{name}_bf16": argtypes for name, argtypes in list(SIGNATURES.items())})
 # float32 only: ChAdaViT-B/16's K1a (csrc/fused_block.cu), ln_linear_fwd's
-# arguments and the scratch of LN1(x) after the row stats
+# arguments and the scratch of LN1(x) after the row stats; its K2c
+# (csrc/fused_block_bwd.cu), linear_wgrad's arguments with the scratch of
+# LN1(x) after beta and the stream-K walk's grid in place of the split count
 SIGNATURES["ln_linear_fwd_d768"] = [_P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _P]
-# bf16 only: the wgmma kernels of ChAdaViT-B/16's K1a, K1c, K2b and K2c and the
-# LN1 pre-pass of K1a and K2c (csrc/linear_wgmma_bf16.cu); K1a and K2c take
-# the pre-pass's h scratch, K1c and K2b the arguments of their D 192 twins
+SIGNATURES["linear_wgrad_d768"] = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _P]
+# bf16 only: the wgmma kernels of ChAdaViT-B/16's K1a, K1b, K1c, K2b and K2c
+# and the LN1 pre-pass of K1a and K2c (csrc/linear_wgmma_bf16.cu); K1a and K2c
+# take the pre-pass's h scratch, K1b, K1c and K2b the arguments of their D 192
+# twins
 SIGNATURES.update({
     "ln_rows_bf16": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ln_linear_fwd_wgmma_bf16": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _P],
+    "linear_residual_ln_fwd_wgmma_bf16": SIGNATURES["linear_residual_ln_fwd_bf16"],
     "linear_relu_fwd_wgmma_bf16": SIGNATURES["linear_relu_fwd_bf16"],
     "linear_dgrad_wgmma_bf16": SIGNATURES["linear_dgrad_bf16"],
     "linear_wgrad_wgmma_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

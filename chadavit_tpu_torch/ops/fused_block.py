@@ -88,14 +88,13 @@ WIDTHS = {64: 2048, 192: 2048, 768: 2048}
 # ChAdaViT-moyen's widths: launches at D_MODEL keep the entry point's name
 D_MODEL = 192
 D_FFN = 2048
-# ChAdaViT-B/16's width, where the bfloat16 K1a, K1c, K2b and K2c are wgmma kernels
+# ChAdaViT-B/16's width, where the bfloat16 K1a, K1b, K1c, K2b and K2c are wgmma kernels
 D_WIDE = 768
 # the smoke configs' width (scripts/smoke/*.yaml: 2 heads of 32)
 D_SMALL = 64
 # The bfloat16 ln_linear / linear_relu / linear_residual_ln / linear_dgrad /
 # linear_wgrad are tensor-core kernels (csrc/linear_fwd_bf16.cu,
-# csrc/linear_bwd_bf16.cu; K1a, K1c, K2b and K2c at D 768
-# csrc/linear_wgmma_bf16.cu)
+# csrc/linear_bwd_bf16.cu; at D 768 csrc/linear_wgmma_bf16.cu)
 # that copy 16 bytes at a time. The first four own 64-row blocks, so s_pad
 # must be a multiple of 64 (the chain pads to SEQ_PAD). At D 192 wgrad's grid
 # is its output tiles (the (TN, TK) of each weight shape (N, K) below, as the
@@ -114,30 +113,36 @@ WGRAD_BF16_TILES = {
     # D 64: the whole 64-wide side (three tiles along N at the QKV site)
     **_weight_shapes(D_SMALL, D_FFN, (64, D_SMALL), (64, D_SMALL), (128, D_SMALL), (D_SMALL, 128))}
 WGRAD_BF16_BLOCKS = 132
-# At D 768 the bfloat16 linear_wgrad is a stream-K walk (csrc/linear_wgmma_bf16.cu):
-# 128 x 256 output tiles, the units of every tile (WGRAD_WGMMA_UNIT rows: two
-# computed 32-row tiles) cut into WGRAD_WGMMA_BLOCKS near-equal shares in
-# tile-major order, one block each; the partial of each tile segment lands in
-# slot tile + block (wgrad_stream_plan), so the scratch holds tiles +
-# WGRAD_WGMMA_BLOCKS - 1 slots whatever the batch, and a second pass adds
-# each tile's slots in block order (wgrad_stream_fixups).
+# At D 768 linear_wgrad is a stream-K walk in both dtypes: the units of every
+# output tile (the computed 32-row tiles, in bfloat16 two at a time) are cut
+# into as many near-equal shares in tile-major order as the grid has blocks,
+# one block each; the partial of each tile segment lands in slot tile + block
+# (wgrad_stream_plan), so the scratch holds tiles + blocks - 1 slots whatever
+# the batch, and a second pass adds each tile's slots in block order
+# (wgrad_stream_fixups). bfloat16 (csrc/linear_wgmma_bf16.cu): 128 x 256
+# output tiles, WGRAD_WGMMA_UNIT rows a unit, WGRAD_WGMMA_BLOCKS blocks, one
+# an SM.
 WGRAD_WGMMA_TILES = _weight_shapes(D_WIDE, WIDTHS[D_WIDE], *((128, 256),) * 4)
 WGRAD_WGMMA_UNIT = 2 * ROW_BLOCK
 WGRAD_WGMMA_BLOCKS = 132
-# The float32 linear_wgrad (CUDA cores, csrc/fused_block_bwd.cu) takes the same
-# plan with tiles of its own: 192 of the D-wide side of dW and 64 of the
-# other (6 warps of 32 x 64 outputs), two blocks an SM, so the splits fill
-# 264 blocks once, and never more than WGRAD_SPLITS: the out-projection's
-# 3 tiles would take 88, whose partials (13 MB) the second pass would read
-# for a product of 0.7 GFLOP at hub shapes. At D 64 a tile takes the whole
-# 64-wide side and 192, 64, 128 and 128 of the other (6, 2, 4 and 4 warps).
-# The bfloat16 plan takes the same cap, which it reaches only at D 64's
-# out-projection (one tile, 132 splits uncapped).
+# The float32 linear_wgrad (CUDA cores, csrc/fused_block_bwd.cu) at D 192 and
+# D 64 splits the rows by a plan of its own (wgrad_splits): tiles of 192 of
+# the D-wide side of dW and 64 of the other at D 192 (6 warps of 32 x 64
+# outputs), the whole 64-wide side and 192, 64, 128 and 128 of the other at
+# D 64 (6, 2, 4 and 4 warps), two blocks an SM, so the splits fill
+# WGRAD_F32_BLOCKS blocks once, and never more than WGRAD_SPLITS: the
+# out-projection's 3 tiles would take 88, whose partials (13 MB) the second
+# pass would read for a product of 0.7 GFLOP at hub shapes. The bfloat16
+# plan takes the same cap, which it reaches only at D 64's out-projection
+# (one tile, 132 splits uncapped). At D 768 the float32 walk takes D 192's
+# tiles (WGRAD_F32_STREAM_TILES), one 32-row tile a unit, over
+# WGRAD_F32_BLOCKS blocks.
 WGRAD_F32_TILES = {
-    **{k: v for d in (D_MODEL, D_WIDE) for k, v in _weight_shapes(
-        d, WIDTHS[d], (64, D_MODEL), (64, D_MODEL), (64, D_MODEL), (D_MODEL, 64)).items()},
+    **_weight_shapes(D_MODEL, D_FFN, (64, D_MODEL), (64, D_MODEL), (64, D_MODEL), (D_MODEL, 64)),
     **_weight_shapes(D_SMALL, D_FFN, (3 * D_SMALL, D_SMALL), (D_SMALL, D_SMALL), (128, D_SMALL),
                      (D_SMALL, 128))}
+WGRAD_F32_STREAM_TILES = _weight_shapes(D_WIDE, WIDTHS[D_WIDE], (64, D_MODEL), (64, D_MODEL),
+                                        (64, D_MODEL), (D_MODEL, 64))
 WGRAD_F32_BLOCKS = 264
 WGRAD_SPLITS = 64
 # layernorm_bwd (both dtypes) cuts the batch's 32-row tiles into at most this
@@ -392,9 +397,10 @@ def _library_fn(name: str, dtype: torch.dtype):
 def _wgmma(dtype: torch.dtype, d: int) -> bool:
     """True where a step's bfloat16 kernel at width ``d`` is the wgmma one
     (csrc/linear_wgmma_bf16.cu): at D 768, K1a (``ln_linear_fwd_wgmma_bf16``),
-    K1c (``linear_relu_fwd_wgmma_bf16``), K2b at its four sites
-    (``linear_dgrad_wgmma_bf16``) and K2c (``linear_wgrad_wgmma_bf16``); K1b
-    and K2a keep their entry points."""
+    K1b at both sites (``linear_residual_ln_fwd_wgmma_bf16``), K1c
+    (``linear_relu_fwd_wgmma_bf16``), K2b at its four sites
+    (``linear_dgrad_wgmma_bf16``) and K2c (``linear_wgrad_wgmma_bf16``); K2a
+    keeps its entry point."""
     return dtype == torch.bfloat16 and d == D_WIDE
 
 
@@ -501,10 +507,12 @@ def linear_relu(x, w, bias, valid_len):
 def linear_residual_ln(a, w, bias, residual, g, b, eps: float, valid_len,
                        save: bool = False):
     """``LN(residual + (a @ w^T + bias))`` (kernel ``linear_residual_ln_fwd``
-    on CUDA; one block owns whole output rows, so the LayerNorm is local; in
-    float32 at D 768 a GEMM writes the pre-LN sum and a row pass normalises
-    it; in bfloat16 on the tensor cores, S a multiple of
-    :data:`BF16_GEMM_ROWS` and a, w, residual 16-byte aligned). With
+    on CUDA; one block owns whole output rows, so the LayerNorm is local; at
+    D 768 a GEMM writes the pre-LN sum r (into the saved r, else into the
+    output) and a row pass normalises it, in bfloat16
+    ``linear_residual_ln_fwd_wgmma_bf16``; in bfloat16 on the tensor cores, S
+    a multiple of :data:`BF16_GEMM_ROWS` and a, w, residual 16-byte
+    aligned). With
     ``save`` also the LN row mean and rstd and the pre-LN sum r. a, w, bias
     and residual of one dtype, g and b float32. Forward only: raises where
     autograd would record the call."""
@@ -524,6 +532,8 @@ def linear_residual_ln(a, w, bias, residual, g, b, eps: float, valid_len,
     mean, rstd = _stats_out(save, bsz, s, a)
     r = torch.empty_like(out) if save else None
     name, fn = _library_fn("linear_residual_ln_fwd", dt)
+    if _wgmma(dt, n):
+        fn = _build.library().linear_residual_ln_fwd_wgmma_bf16
     status = fn(
         _launch.vector_operand(a, "a", dt, tc), _launch.vector_operand(w, "w", dt, tc),
         _launch.vector_operand(bias, "bias", dt),
@@ -680,32 +690,40 @@ def wgrad_splits(bsz: int, s_pad: int, n: int, k: int, dtype=torch.bfloat16) -> 
     return max(1, min(most, WGRAD_SPLITS, bsz * s_pad // ROW_BLOCK))
 
 
-def wgrad_stream_tiles(n: int, k: int) -> int:
-    """Output tiles of the bfloat16 ``linear_wgrad`` at D 768 at weight
-    shape ``(n, k)`` (:data:`WGRAD_WGMMA_TILES`)."""
-    tn, tk = WGRAD_WGMMA_TILES[(n, k)]
+def _stream_walk(dtype) -> tuple:
+    """``(tiles, unit rows, blocks)`` of the stream-K walk of ``linear_wgrad``
+    at D 768 for activations of ``dtype``."""
+    if dtype == torch.float32:
+        return WGRAD_F32_STREAM_TILES, ROW_BLOCK, WGRAD_F32_BLOCKS
+    return WGRAD_WGMMA_TILES, WGRAD_WGMMA_UNIT, WGRAD_WGMMA_BLOCKS
+
+
+def wgrad_stream_tiles(n: int, k: int, dtype=torch.bfloat16) -> int:
+    """Output tiles of ``linear_wgrad`` at D 768 at weight shape ``(n, k)``
+    (:data:`WGRAD_WGMMA_TILES` or :data:`WGRAD_F32_STREAM_TILES`)."""
+    tn, tk = _stream_walk(dtype)[0][(n, k)]
     return (n // tn) * (k // tk)
 
 
-def wgrad_stream_slots(n: int, k: int) -> int:
-    """Partial slots of the bfloat16 ``linear_wgrad`` at D 768: tiles +
-    :data:`WGRAD_WGMMA_BLOCKS` - 1, whatever the batch; each slot holds a
-    tile's partial dW and db, ``tn * tk + tn`` float32."""
-    return wgrad_stream_tiles(n, k) + WGRAD_WGMMA_BLOCKS - 1
+def wgrad_stream_slots(n: int, k: int, dtype=torch.bfloat16) -> int:
+    """Partial slots of ``linear_wgrad`` at D 768: tiles + blocks - 1,
+    whatever the batch; each slot holds a tile's partial dW and db, ``tn * tk
+    + tn`` float32."""
+    return wgrad_stream_tiles(n, k, dtype) + _stream_walk(dtype)[2] - 1
 
 
-def wgrad_stream_plan(valid_len, s_pad: int, n: int, k: int) -> list:
-    """What each block of the bfloat16 ``linear_wgrad`` at D 768 sums, as its
-    kernel assigns it: the units (two computed 32-row tiles each, in the
-    order of :func:`wgrad_split_tiles`; an odd last tile alone) of every
-    output tile, tile-major, cut into :data:`WGRAD_WGMMA_BLOCKS` contiguous
-    shares, block b taking units ``[b U // G, (b + 1) U // G)`` of the U.
-    Per block, its segments in order: ``(tile, slot, first rows of the
+def wgrad_stream_plan(valid_len, s_pad: int, n: int, k: int, dtype=torch.bfloat16) -> list:
+    """What each block of ``linear_wgrad`` at D 768 sums, as its kernel
+    assigns it: the units (in bfloat16 two computed 32-row tiles each, in the
+    order of :func:`wgrad_split_tiles`, an odd last tile alone; in float32 one)
+    of every output tile, tile-major, cut into the walk's G blocks'
+    contiguous shares, block b taking units ``[b U // G, (b + 1) U // G)`` of
+    the U. Per block, its segments in order: ``(tile, slot, first rows of the
     32-row tiles it sums)``, slot = tile + b."""
+    _, unit, blocks = _stream_walk(dtype)
     rows = wgrad_split_tiles(valid_len, s_pad, 1)[0]
-    units = [rows[i:i + WGRAD_WGMMA_UNIT // ROW_BLOCK]
-             for i in range(0, len(rows), WGRAD_WGMMA_UNIT // ROW_BLOCK)]
-    blocks, total = WGRAD_WGMMA_BLOCKS, wgrad_stream_tiles(n, k) * len(units)
+    units = [rows[i:i + unit // ROW_BLOCK] for i in range(0, len(rows), unit // ROW_BLOCK)]
+    total = wgrad_stream_tiles(n, k, dtype) * len(units)
     plan = []
     for blk in range(blocks):
         segments = []
@@ -718,13 +736,14 @@ def wgrad_stream_plan(valid_len, s_pad: int, n: int, k: int) -> list:
     return plan
 
 
-def wgrad_stream_fixups(tile: int, units: int, tiles: int) -> list:
-    """The slots the second pass of the bfloat16 ``linear_wgrad`` at D 768
-    adds, in order, for output ``tile`` of ``tiles`` when a tile has
-    ``units`` units, by its kernel's arithmetic: its units ``[tile C, tile C +
-    C)`` lie in the shares of blocks ``b(tile C) .. b(tile C + C - 1)``, b(u) =
-    ((u + 1) G - 1) // U, skipping blocks with no units."""
-    blocks, total = WGRAD_WGMMA_BLOCKS, tiles * units
+def wgrad_stream_fixups(tile: int, units: int, tiles: int,
+                        blocks: int = WGRAD_WGMMA_BLOCKS) -> list:
+    """The slots the second pass of ``linear_wgrad`` at D 768 adds, in order,
+    for output ``tile`` of ``tiles`` when a tile has ``units`` units and the
+    walk ``blocks`` blocks (G), by its kernel's arithmetic: its units ``[tile
+    C, tile C + C)`` lie in the shares of blocks ``b(tile C) .. b(tile C + C -
+    1)``, b(u) = ((u + 1) G - 1) // U, skipping blocks with no units."""
+    total = tiles * units
     if total == 0:
         return []
     lo = ((tile * units + 1) * blocks - 1) // total
@@ -751,9 +770,10 @@ def linear_wgrad(dy, x, valid_len, ln=None):
     (kernel ``linear_wgrad`` on CUDA, at the layer's four weight shapes only).
     At D 192 and in float32 X' is normed as X is staged and the rows split by
     :func:`wgrad_splits`, in bfloat16 on the tensor cores; at D 64 the same
-    with tiles of their own (:data:`WGRAD_F32_TILES`, :data:`WGRAD_BF16_TILES`); at D 768 in
-    bfloat16 ``linear_wgrad_wgmma_bf16`` takes LN1 in a pre-pass into a
-    scratch of x's shape and walks :func:`wgrad_stream_plan`. dy and x of one
+    with tiles of their own (:data:`WGRAD_F32_TILES`, :data:`WGRAD_BF16_TILES`); at D 768
+    the walk of :func:`wgrad_stream_plan` (``linear_wgrad_d768`` in float32,
+    ``linear_wgrad_wgmma_bf16`` in bfloat16), with LN1 in a pre-pass into a
+    scratch of x's shape. dy and x of one
     dtype, 16-byte aligned; the partial sums, their fixed-order reduce and
     the result are float32 for both dtypes. See :func:`linear_wgrad_reference`."""
     if _launch.on_cpu(dy, x, valid_len):
@@ -764,11 +784,11 @@ def linear_wgrad(dy, x, valid_len, ln=None):
                          "weight shape the kernel is built for")
     bsz, s, n = dy.shape
     k, dt = x.shape[2], dy.dtype
-    wgmma = _wgmma(dt, _layer_width(n, k))
+    stream = _layer_width(n, k) == D_WIDE
     # every instance's partial sums are bounded whatever the batch
-    if wgmma:
-        tn, tk = WGRAD_WGMMA_TILES[(n, k)]
-        partial = torch.empty((wgrad_stream_slots(n, k), tn * tk + tn), dtype=torch.float32,
+    if stream:
+        tn, tk = _stream_walk(dt)[0][(n, k)]
+        partial = torch.empty((wgrad_stream_slots(n, k, dt), tn * tk + tn), dtype=torch.float32,
                               device=dy.device)
     else:
         splits = wgrad_splits(bsz, s, n, k, dt)
@@ -786,11 +806,12 @@ def linear_wgrad(dy, x, valid_len, ln=None):
     name, fn = _library_fn("linear_wgrad", dt)
     operands = (_rows("dy", dy, bsz, s, n, dt, 16), _rows("x", x, bsz, s, k, dt, 16), *ln_ptrs)
     vl = _launch.valid_len_operand(valid_len, bsz, dy.device)
-    if wgmma:
+    if stream:
         h = None if ln is None else torch.empty_like(x)  # the pre-pass's scratch
-        status = _build.library().linear_wgrad_wgmma_bf16(
-            *operands, _ptr(h), partial.data_ptr(), dwb.data_ptr(), vl, bsz * s, n, k, s,
-            WGRAD_WGMMA_BLOCKS, _launch.stream(dy.device))
+        fn = (_build.library().linear_wgrad_d768 if dt == torch.float32 else
+              _build.library().linear_wgrad_wgmma_bf16)
+        status = fn(*operands, _ptr(h), partial.data_ptr(), dwb.data_ptr(), vl, bsz * s, n, k, s,
+                    _stream_walk(dt)[2], _launch.stream(dy.device))
     else:
         status = fn(*operands, partial.data_ptr(), dwb.data_ptr(), vl, bsz * s, n, k, s, splits,
                     _launch.stream(dy.device))

@@ -27,8 +27,9 @@ Phases, each printed with its elapsed seconds at its start and end:
 1. build: nvcc compiles csrc/*.cu (layernorm.cu among them), one process per
    source, into one library (cold build seconds); beside it, nvcc -Xptxas -v
    on csrc/linear_fwd_bf16.cu, csrc/linear_bwd_bf16.cu,
-   csrc/linear_wgmma_bf16.cu (the wgmma K1a, K1c, K2b and K2c of
-   ChAdaViT-B/16 and the LN1 pre-pass of K1a and K2c),
+   csrc/linear_wgmma_bf16.cu (the wgmma K1a, K1b, K1c, K2b and K2c of
+   ChAdaViT-B/16, K1b's LayerNorm row pass and the LN1 pre-pass of K1a and
+   K2c),
    csrc/prefix_attention_bf16.cu, csrc/prefix_attention.cu,
    csrc/prefix_attention_bwd.cu, csrc/fused_block.cu, csrc/fused_block_bwd.cu
    and csrc/layernorm.cu prints the registers, shared memory and spills of
@@ -80,9 +81,13 @@ Phases, each printed with its elapsed seconds at its start and end:
    bfloat16 at B 8, S_pad 1408 (channels 1, 3, 5, 7, 2, 7, 4, 6) on each of
    BF16_SEEDS, float32 at S_pad 640 (channels 3, 1, 2, 3, 1, 2, 3, 2): phase
    2's check_chain at D 768 and phase 2's bounds, launches counted under the
-   _d768 names (the bfloat16 K1a, K1c, K2b and K2c there are the wgmma
-   kernels of csrc/linear_wgmma_bf16.cu; the GEMM of the first three writes
-   the zeros of the 32-row tiles past valid_len itself). Then the float32
+   _d768 names (the bfloat16 K1a, K1b, K1c, K2b and K2c there are the wgmma
+   kernels of csrc/linear_wgmma_bf16.cu; the GEMM of the first four writes
+   the zeros of the 32-row tiles past valid_len itself; the float32 K2c is
+   the stream-K walk of csrc/fused_block_bwd.cu). The bfloat16 K1b's out and
+   row stats bit for bit the LayerNorm order it keeps
+   (tests/torch_bf16_order.py) on its own r, at both sites, on each of
+   BF16_SEEDS (check_bf16_d768_ln_order). Then the float32
    K1a and K1b (128-row GEMMs with LayerNorm row passes) bit for bit against
    the summation orders they keep (tests/torch_f32_order.py), with and
    without their save outputs, at the float32 narrow shapes drawn from each
@@ -432,14 +437,21 @@ CHAIN_ENTRIES = ("ln_linear_fwd", "linear_relu_fwd", "linear_residual_ln_fwd", "
 # phase 1: the layer chain's D 768 instances that must be among the kernels
 # built (demangled names, without the anonymous namespace)
 D768_KERNELS = [
-    # bf16 on wgmma (csrc/linear_wgmma_bf16.cu): K1a, K1c, the four K2b sites
-    # (linear_wgmma_kernel<N, K, column tile, epilogue>), K2c and its second
-    # pass, the LN1 pre-pass
+    # bf16 on wgmma (csrc/linear_wgmma_bf16.cu): K1a, K1c, K1b's GEMM at both
+    # sites and the four K2b sites (linear_wgmma_kernel<N, K, column tile,
+    # epilogue>), K1b's LayerNorm row pass, K2c and its second pass, the LN1
+    # pre-pass
     "linear_wgmma_kernel<2304, 768, 256, 3>(", "linear_wgmma_kernel<2048, 768, 256, 4>(",
+    "linear_wgmma_kernel<768, 768, 192, 5>(", "linear_wgmma_kernel<768, 2048, 192, 5>(",
     "linear_wgmma_kernel<2048, 768, 256, 1>(", "linear_wgmma_kernel<768, 2048, 192, 2>(",
     "linear_wgmma_kernel<768, 768, 192, 0>(", "linear_wgmma_kernel<768, 2304, 192, 0>(",
+    "res_ln_rows_bf16_kernel<768>(",
     "linear_wgrad_wgmma_kernel(", "reduce_stream_kernel(", "ln_rows_kernel<768>(",
-    "linear_residual_ln_bf16_kernel<768, 4, 192>(", "linear_residual_ln_bf16_kernel<2048, 4, 192>(",
+    # float32 (fused_block_bwd.cu): K2c's stream-K walk at its two tiles, its
+    # second pass and the QKV site's LN1 from the saved stats
+    "linear_wgrad_stream_kernel<64, 192>(", "linear_wgrad_stream_kernel<192, 64>(",
+    "reduce_wgrad_stream_kernel<64, 192>(", "reduce_wgrad_stream_kernel<192, 64>(",
+    "ln_rows_saved_f32_kernel<768>(",
     # float32 (fused_block.cu): K1a's LN1 row pass and GEMM, K1b's GEMM at both
     # sites (the GEMMs in their 96- and 64-column tiles) and its LayerNorm row
     # pass, K1c
@@ -464,7 +476,7 @@ D64_KERNELS = [
     "linear_wgrad_kernel<64, 128, false>(",
     # bfloat16 on mma.sync (linear_fwd_bf16.cu, linear_bwd_bf16.cu)
     "ln_linear_bf16_kernel<64>(", "linear_relu_bf16_kernel<64>(",
-    "linear_residual_ln_bf16_kernel<64, 1, 64>(", "linear_residual_ln_bf16_kernel<2048, 1, 64>(",
+    "linear_residual_ln_bf16_kernel<64, 64>(", "linear_residual_ln_bf16_kernel<2048, 64>(",
     "linear_dgrad_bf16_kernel<128, 64, 4, 1, true>(",
     "linear_dgrad_bf16_kernel<64, 2048, 1, 2, false>(",
     "linear_dgrad_bf16_kernel<64, 64, 1, 0, false>(",
@@ -1100,6 +1112,34 @@ def check_f32_d768_bits(ph, x, w, valid_len, heads, what_shape):
                 del got
 
 
+def check_bf16_d768_ln_order(ph, inp, what_shape):
+    """The bfloat16 K1b at D 768 (a wgmma GEMM writes r, a row pass takes the
+    LayerNorm): out and the row stats bit for bit the LayerNorm order of the
+    four-block column cluster it replaces (tests/torch_bf16_order.py) applied
+    to the kernel's own r, at both sites, on check_chain's inputs ``inp``
+    (the out-projection on the plain chain's attention output, FFN2 on its
+    FFN hidden)."""
+    import torch
+
+    from chadavit_tpu_torch.ops import fused_block
+    from tests import torch_bf16_order as order
+
+    d = inp["x"].shape[-1]
+    wqkv, bqkv, wout, bout, g1, b1, g2, b2, w1, b1f, w2, b2f = inp["wd"]
+    for site, args, eps in ((" out projection", (inp["attn"], wout, bout, inp["x"], g1, b1),
+                             EPS1),
+                            (" FFN2", (inp["hid"], w2, b2f, inp["x2"], g2, b2), EPS2)):
+        with torch.no_grad():
+            out, mean, rstd, r = fused_block.linear_residual_ln(*args, eps, inp["vl"], save=True)
+            ref = order.residual_ln_rows_order(r, args[4], args[5], eps, inp["valid_len"])
+        torch.cuda.synchronize()
+        same = [torch.equal(o, rf) for o, rf in zip((out, mean, rstd), ref)]
+        ph.check(all(same), f"{fused_block.instance('linear_residual_ln_fwd_bf16', d)}{site}"
+                            f"{what_shape}: out, mean, rstd the bits of its LayerNorm order on "
+                            f"its own r (tests/torch_bf16_order.py): {same}")
+        del out, mean, rstd, r, ref
+
+
 def plain_attention_function():
     """An autograd Function of the attention's plain forward and backward
     (flash_attention's reference versions), saving only q, k, v, o and the
@@ -1470,8 +1510,8 @@ def main() -> int:
     for name in CHAIN_ENTRIES:
         for tag in ("", "_bf16"):
             instances[fused_block.instance(name + tag, D16)] = instances[name + tag]
-    for name in ("ln_linear_fwd_bf16", "linear_relu_fwd_bf16", "linear_dgrad_bf16",
-                 "linear_wgrad_bf16"):  # wgmma and TMA at D 768
+    for name in ("ln_linear_fwd_bf16", "linear_relu_fwd_bf16", "linear_residual_ln_fwd_bf16",
+                 "linear_dgrad_bf16", "linear_wgrad_bf16"):  # wgmma and TMA at D 768
         wrapper, _, replaces, dt = instances[name]
         instances[fused_block.instance(name, D16)] = (wrapper, wgmma_cu, replaces, dt)
     # the smoke configs' width: the attention's head-32 instances and the layer
@@ -1507,7 +1547,8 @@ def main() -> int:
                          fb_cu: ("ln_linear", "linear_relu", "linear_residual_ln", "gemm128",
                                  "ln_rows_f32", "res_ln_rows"),
                          fbb_cu: ("layernorm_bwd", "reduce_ln_splits", "linear_wgrad",
-                                  "reduce_wgrad_splits", "linear_dgrad"),
+                                  "reduce_wgrad_splits", "linear_wgrad_stream",
+                                  "reduce_wgrad_stream", "ln_rows_saved_f32", "linear_dgrad"),
                          ln_cu: ("ln_bwd",)}
         ptxas = [_build.ptxas_report(Path(src).name)  # beside the build
                  for src in ptxas_sources]
@@ -1853,6 +1894,9 @@ def main() -> int:
             inp = check_chain(ph, stats, notes768.note, x.to(dt), w, dy.to(dt), dy_tail.to(dt),
                               valid7, H16, f" (B {len(counts)}, S_pad {s_pad}, channels "
                                            f"{counts}, seed {seed})")
+            if dt == bf16:  # the bfloat16 K1b's LayerNorm against its order model
+                check_bf16_d768_ln_order(ph, inp, f" (B {len(counts)}, S_pad {s_pad}, seed "
+                                                  f"{seed})")
             if seed == 0 and tag != "_bucket":  # phase 5 times the narrow shapes
                 inputs768[tag] = inp
             del inp, x, w, dy, dy_tail
@@ -2126,10 +2170,11 @@ def main() -> int:
                                  ("", torch.float32, (2 * TRAIN_B, 2 * TRAIN_BF16_B))):
             for seqs in batches:
                 scratch = []
-                for n, k in fused_block.WGRAD_F32_TILES:  # every weight shape
-                    if dt == bf16 and (n, k) in fused_block.WGRAD_WGMMA_TILES:  # D 768
-                        tn, tk = fused_block.WGRAD_WGMMA_TILES[(n, k)]
-                        slots = fused_block.wgrad_stream_slots(n, k)
+                for n, k in fused_block.WGRAD_BF16_TILES | fused_block.WGRAD_WGMMA_TILES:
+                    if (n, k) in fused_block.WGRAD_WGMMA_TILES:  # D 768: the stream-K walk
+                        tn, tk = (fused_block.WGRAD_WGMMA_TILES if dt == bf16 else
+                                  fused_block.WGRAD_F32_STREAM_TILES)[(n, k)]
+                        slots = fused_block.wgrad_stream_slots(n, k, dt)
                         scratch.append(f"({n}, {k}) {slots} stream-K slots "
                                        f"{slots * (tn * tk + tn) * 4 / 1e6:.2f} MB")
                         continue
@@ -3447,7 +3492,7 @@ def main() -> int:
             for rank, e in enumerate(ranked):
                 if rank < top or any(k in e.key for k in (
                         "ln_linear", "linear_residual_ln", "layernorm_bwd", "reduce_ln_splits",
-                        "linear_wgrad", "reduce_wgrad_splits")):
+                        "linear_wgrad", "reduce_wgrad_splits", "reduce_wgrad_stream")):
                     ms = e.self_device_time_total / 1e3
                     log(f"    {ms:9.3f} ms {100 * ms / busy:5.1f} % x{e.count:<5d} "
                         f"#{rank + 1:<3d} {e.key[:90]}")

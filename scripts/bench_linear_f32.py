@@ -37,22 +37,31 @@ A site near ``no_copy`` is held by its loop, one near ``no_fma`` by its
 loads.
 
 ``d768`` times ChAdaViT-B/16's float32 K1a (``ln_linear_fwd_d768``: the LN1
-row pass, then ``gemm128_kernel``) and K1b at both sites
+row pass, then ``gemm128_kernel``), K1b at both sites
 (``linear_residual_ln_fwd`` at N 768: ``gemm128_kernel``, then the LayerNorm
-row pass), without saves, as built, in ``no_copy`` and in ``no_fma``, at two
+row pass), without saves, and K2c at its four sites (``linear_wgrad_d768``:
+at QKV the LN1 row pass, then both passes of the stream-K walk over
+``fused_block.WGRAD_F32_BLOCKS`` blocks; in a tree without that entry point
+``linear_wgrad`` over its split plan, the D 192 tiles over a grid of output
+tiles x splits), as built, in
+``no_copy`` and in ``no_fma``, at two
 sets of shapes: chip_smoke.py's narrow f32 shapes (phase 2c: 8 images of 1-3
 channels, S_pad 640, 3 340 valid rows) and the rows of the f32 B/16 step on
 chip_smoke.py's 3-channel bucket (phase 4e (b): 2 images of 3 and 2
 channels x 2 crops, S_pad 640, 1 964 valid rows, where K1b's GEMM takes
-its 64-column tile); one PyTorch call for the same function
-(``layer_norm`` and ``addmm``, on all rows) and the bound (operations on
-the valid rows at 67 TFLOP/s). With ``--parent DIR`` (an
+its 64-column tile); the blocks each K2c site's grid holds and the waves of
+the card's two blocks an SM that they make; one PyTorch call for the same
+function (``layer_norm`` and ``addmm``, on all rows; K2c ``mm`` of dY^T and
+X' and ``sum`` of dY, X' = ``layer_norm(x)`` at QKV) and the bound
+(operations on the valid rows at 67 TFLOP/s). With ``--parent DIR`` (an
 unpacked checkout of another commit, e.g. ``git archive`` of the parent into
 a directory that ``.gitignore`` lists) it also builds that tree's
-``fused_block.cu`` as built, ``no_copy`` and ``no_fma``, times its K1a and K1b
-in turns with this tree's in one process (parent, change, change, parent),
-and says whether the two trees' K1a (qkv, mean, rstd) and K1b (out, mean,
-rstd, r) outputs are the same bits on seeded inputs. Each build also prints
+``fused_block.cu`` and ``fused_block_bwd.cu`` as built, ``no_copy`` and
+``no_fma``, times its K1a, K1b and K2c in turns with this tree's in one
+process (parent, change, change, parent), and says whether the two trees'
+K1a (qkv, mean, rstd) and K1b (out, mean, rstd, r) outputs are the same bits
+on seeded inputs, and how far apart their K2c outputs are (each K2c twice
+for the same bits). Each build also prints
 the registers and spills of the two kernels (``nvcc -Xptxas -v``). The
 diagnostic builds compute nothing meaningful; only their times are
 read. It also times each wgrad site at other split counts than the plan
@@ -109,6 +118,17 @@ KERNELS = ("ln_linear", "linear_relu", "linear_residual_ln", "linear_wgrad", "li
 D768_SHAPES = {"narrow": (640, [3, 1, 2, 3, 1, 2, 3, 2]), "bucket": (640, [3, 2, 3, 2])}
 D768_BUILDS = {"as built": [], "no_copy": ["-DSGEMM_NO_COPY"], "no_fma": ["-DSGEMM_NO_FMA"]}
 FORWARD = ("ln_linear_fwd", "ln_linear_fwd_d768", "linear_relu_fwd", "linear_residual_ln_fwd")
+BACKWARD = ("linear_wgrad", "linear_wgrad_d768", "linear_dgrad")
+# K2c's four weight shapes (N, K) at D 768
+WGRAD_D768 = {"qkv": (2304, 768), "out": (768, 768), "ffn1": (2048, 768), "ffn2": (768, 2048)}
+
+
+def split_plan(bsz: int, s_pad: int, n: int, k: int) -> int:
+    """The split count of a float32 D 768 K2c before its stream-K walk: D
+    192's tiles (192 of the D-wide side, 64 of the other), splits that fill
+    264 blocks once, at most 64 and at most the batch's 32-row tiles."""
+    tn, tk = (768 // 4, 64) if k == 2048 else (64, 768 // 4)
+    return max(1, min(264 // ((n // tn) * (k // tk)), 64, bsz * s_pad // 32))
 
 
 def forward_only(name: str) -> bool:
@@ -150,9 +170,8 @@ def build(out_dir: Path, names=None, builds=None, csrc=None, forward=False) -> d
             f" {k.get('registers')} regs {k.get('spill_stores')}/{k.get('spill_loads')} B spilled"
             for k in report if any(n in k["name"] for n in KERNELS)), flush=True)
         lib = ctypes.CDLL(str(path))
-        for fn in FORWARD + (() if forward or forward_only(name) else ("linear_wgrad",
-                                                                        "linear_dgrad")):
-            if not hasattr(lib, fn):  # ln_linear_fwd_d768: not in an older tree
+        for fn in FORWARD + (() if forward or forward_only(name) else BACKWARD):
+            if not hasattr(lib, fn):  # the D 768 entry points: not in an older tree
                 continue
             getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
@@ -177,18 +196,20 @@ def time_ms(fn, iters=20):
 
 
 def main_d768(parent) -> int:
-    """The ``d768`` mode: ChAdaViT-B/16's float32 K1a and K1b (module doc)."""
+    """The ``d768`` mode: ChAdaViT-B/16's float32 K1a, K1b and K2c (module doc)."""
     import torch
     import torch.nn.functional as F
 
+    from chadavit_tpu_torch.ops import fused_block
     from chadavit_tpu_torch.ops._build import BUILD_DIR
+    from chadavit_tpu_torch.ops.layernorm import layernorm_stats
 
     dev = torch.device("cuda")
-    libs = build(BUILD_DIR / "bench_linear_f32_d768", builds=D768_BUILDS, forward=True)
+    libs = build(BUILD_DIR / "bench_linear_f32_d768", builds=D768_BUILDS)
     if parent is not None:
         libs.update({f"parent {n}": lib for n, lib in build(
             BUILD_DIR / "bench_linear_f32_d768_parent", builds=D768_BUILDS,
-            csrc=Path(parent) / "chadavit_tpu_torch" / "csrc", forward=True).items()})
+            csrc=Path(parent) / "chadavit_tpu_torch" / "csrc").items()})
     for shapes, (s_pad, channels) in D768_SHAPES.items():
         valid = [1 + 196 * c for c in channels]
         bsz, m, d, f = len(valid), len(valid) * s_pad, 768, 2048
@@ -236,17 +257,60 @@ def main_d768(parent) -> int:
         rows = sum(-(-n // 32) * 32 for n in valid)
         print(f"d768 {shapes}: {bsz} sequences of {s_pad} rows, {sum(valid)} valid, {rows} in "
               "computed 32-row tiles", flush=True)
+        # K2c: dY (M, N) and X (M, K) of each weight shape; X' = LN1(x) at QKV
+        mean, rstd = (t[..., 0].contiguous() for t in layernorm_stats(x, 1e-5))
+        wg_in = {site: (rn(m, n), x if site == "qkv" else rn(m, k))
+                 for site, (n, k) in WGRAD_D768.items()}
+        n32 = rows // 32
+
+        def k2c(lib, site):
+            n, k = WGRAD_D768[site]
+            dy, xs = wg_in[site]
+            ln = ((mean.data_ptr(), rstd.data_ptr(), g.data_ptr(), beta.data_ptr())
+                  if site == "qkv" else (None,) * 4)
+            if hasattr(lib, "linear_wgrad_d768"):  # the stream-K walk, LN1 in a pre-pass
+                fn, grid = lib.linear_wgrad_d768, fused_block.WGRAD_F32_BLOCKS
+                tn, tk = fused_block.WGRAD_F32_STREAM_TILES[(n, k)]
+                partial = torch.empty(fused_block.wgrad_stream_slots(n, k, torch.float32),
+                                      tn * tk + tn, device=dev)
+                ln += (h.data_ptr() if site == "qkv" else None,)
+            else:  # the split plan
+                fn, grid = lib.linear_wgrad, split_plan(bsz, s_pad, n, k)
+                partial = torch.empty(grid, n * k + n, device=dev)
+            dwb = torch.empty(n * k + n, device=dev)
+            args = (dy.data_ptr(), xs.data_ptr(), *ln, partial.data_ptr(), dwb.data_ptr(),
+                    vl.data_ptr(), m, n, k, s_pad, grid, stream)
+            return (lambda: fn(*args)), (dwb, partial)
+
         steps = {"K1a": lambda lib, save=False: k1a(lib, save),
                  **{f"K1b K {s[0]}": (lambda lib, save=False, s=s: k1b(lib, s, save))
-                    for s in sites}}
+                    for s in sites},
+                 **{f"K2c {site}": (lambda lib, save=False, site=site: k2c(lib, site))
+                    for site in WGRAD_D768}}
+        cells = []
+        for site, (n, k) in WGRAD_D768.items():
+            tn, tk = (192, 64) if k == 2048 else (64, 192)
+            blocks = (n // tn) * (k // tk) * split_plan(bsz, s_pad, n, k)
+            cells.append(f"{site} split plan {blocks} blocks ({blocks / 264:.2f} of the 264 two "
+                         "an SM)")
+            if hasattr(fused_block, "WGRAD_F32_STREAM_TILES"):
+                tn, tk = fused_block.WGRAD_F32_STREAM_TILES[(n, k)]
+                units = (n // tn) * (k // tk) * n32
+                cells[-1] += (f", stream-K {units} units of 32 rows over "
+                              f"{fused_block.WGRAD_F32_BLOCKS} blocks "
+                              f"({units / fused_block.WGRAD_F32_BLOCKS:.1f} a block)")
+        print("K2c grids: " + "; ".join(cells), flush=True)
 
         def row(name, lib):
-            cells = []
+            cells, k2c_ms = [], 0.0
             for step, make in steps.items():
                 fn, keep = make(lib)  # keep: the outputs the launches write
                 assert fn() == 0, (name, step)
-                cells.append(f"{step} {time_ms(fn):.4f}")
-            print(f"{name}: " + ", ".join(cells) + " (ms)", flush=True)
+                t = time_ms(fn)
+                k2c_ms += t if step.startswith("K2c") else 0.0
+                cells.append(f"{step} {t:.4f}")
+            print(f"{name}: " + ", ".join(cells) + f", K2c four sites {k2c_ms:.4f} (ms)",
+                  flush=True)
 
         if parent is not None:  # as built, in turns
             for name in ("parent as built", "as built", "as built", "parent as built"):
@@ -257,7 +321,19 @@ def main_d768(parent) -> int:
                     fn, o = make(libs[name], save=True)
                     assert fn() == 0
                     torch.cuda.synchronize()
+                    if step.startswith("K2c"):  # a second call: the same bits
+                        first = o[0].clone()
+                        assert fn() == 0
+                        torch.cuda.synchronize()
+                        print(f"bits {step} {name}: the same on a second call "
+                              f"{torch.equal(first, o[0])}", flush=True)
                     outs.append(o)
+                if step.startswith("K2c"):  # another order of the rows: other bits
+                    p, c = outs[0][0], outs[1][0]
+                    print(f"{step}: this tree against the parent's max abs "
+                          f"{(c - p).abs().max().item():.3e}, max |parent| "
+                          f"{p.abs().max().item():.3e}", flush=True)
+                    continue
                 differ = [int((p != c).sum()) for p, c in zip(*outs)]
                 print(f"bits {step} (with saves), parent against this tree: "
                       + ("the same" if not any(differ) else
@@ -273,9 +349,20 @@ def main_d768(parent) -> int:
         for _, a, w, bias, res in sites:
             lib = time_ms(lambda: F.layer_norm(torch.addmm(bias, a, w.t()) + res, (d,), g, beta))
             cells.append(f"K1b K {a.shape[1]} {lib:.4f}")
+        total = 0.0
+        for site, (dy, xs) in wg_in.items():
+            xl = F.layer_norm(xs, (d,), g, beta) if site == "qkv" else xs
+            lib = time_ms(lambda: (torch.mm(dy.t(), F.layer_norm(xs, (d,), g, beta)), dy.sum(0))
+                          if site == "qkv" else (torch.mm(dy.t(), xl), dy.sum(0)))
+            total += lib
+            cells.append(f"K2c {site} {lib:.4f}")
+        cells.append(f"K2c four sites {total:.4f}")
         print("library: " + ", ".join(cells) + " (ms; all rows)", flush=True)
         ops = {"K1a": 2 * sum(valid) * d * 3 * d, "K1b K 768": 2 * sum(valid) * d * d,
-               "K1b K 2048": 2 * sum(valid) * d * f}
+               "K1b K 2048": 2 * sum(valid) * d * f,
+               **{f"K2c {site}": 2 * sum(valid) * n * k + sum(valid) * n
+                  for site, (n, k) in WGRAD_D768.items()}}
+        ops["K2c four sites"] = sum(v for k_, v in ops.items() if k_.startswith("K2c"))
         print("bound (operations on the valid rows at 67 TFLOP/s): " + ", ".join(
             f"{k} {v / PEAK_F32_FLOPS * 1e3:.4f}" for k, v in ops.items()) + " (ms)", flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

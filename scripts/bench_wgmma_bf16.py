@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Times ChAdaViT-B/16's bf16 wgmma kernels at D 768 (K1a ``ln_linear``, K1c
-``linear_relu``, the four K2b sites of ``linear_dgrad`` and the four K2c sites
-of ``linear_wgrad``) on one NVIDIA GPU, at chip_smoke.py's narrow hub shapes
+``linear_relu``, K1b ``linear_residual_ln`` at its two sites, with and
+without its save outputs, the four K2b sites of ``linear_dgrad`` and the four
+K2c sites of ``linear_wgrad``) on one NVIDIA GPU, at chip_smoke.py's narrow hub shapes
 (phase 2c: 8 images of 1-7 channels, S_pad 1408, 6 868 valid rows), through
 the port's wrappers, and says whether the D 192 bf16 instances of the same
 steps give the same bits as another tree's. Run from the root of the
@@ -18,7 +19,9 @@ hold (``cuobjdump -sass``: the D 192 instances must compile to the code they
 had) and (b) hashes of the D 192 bf16 K1a and K2c outputs and of the D 192
 bf16 K1c and K2b outputs on seeded inputs (``d192_digests``, which
 ``tests/test_torch_kernels_gpu.py`` also reads), and of the D 768 bf16 K1a's
-qkv and row stats at the timed shapes.
+qkv and row stats at the timed shapes. Each tree also says whether its D 768
+bf16 K1b's out and row stats are the bits of the LayerNorm order it keeps
+(``tests/torch_bf16_order.py``) applied to its own pre-LN sum r.
 
 With ``--builds`` it times this tree's kernels as built and in three
 diagnostic builds of ``csrc/linear_wgmma_bf16.cu`` (compiled in parallel):
@@ -33,7 +36,8 @@ Each time is read three ways: CUDA events over 20 calls after 3 of warm-up
 the same calls queued behind a 0.1 s spin of the card (torch.cuda._sleep: the
 device's time), and the profiler's device time of the kernels the call
 launches. Beside them: one PyTorch call for the same function (K1a:
-``F.layer_norm`` then ``addmm``; K1c: ``relu`` of ``addmm``; K2b: ``mm`` of dY
+``F.layer_norm`` then ``addmm``; K1c: ``relu`` of ``addmm``; K1b:
+``F.layer_norm`` of ``addmm`` plus the residual; K2b: ``mm`` of dY
 and W, ``addmm`` onto the residual at FFN1, the product alone at the mask
 site; K2c: ``mm`` of dY^T and X' and ``dy.sum(0)``, at the QKV site X' =
 ``F.layer_norm(x)``), never made by the port, and the bound (operations over
@@ -58,8 +62,22 @@ SITES = {"qkv": (3 * D, D), "out": (D, D), "ffn1": (F, D), "ffn2": (D, F)}
 # K2b's sites: dY's width K, dX's N and the epilogue's operand
 DGRAD_SITES = {"ffn2": (D, F, "relu_of"), "ffn1": (F, D, "residual"), "out": (D, D, None),
                "qkv": (3 * D, D, None)}
-ROWS = ("k1a", "k1c", *(f"k2b_{s}" for s in DGRAD_SITES), "k2b", *(f"k2c_{s}" for s in SITES),
+# K1b's sites: the product's K (the out-projection's a, FFN2's hid)
+RES_LN_SITES = {"out": D, "ffn2": F}
+ROWS = ("k1a", "k1c", *(f"k1b_{s}{v}" for v in ("", "_save") for s in RES_LN_SITES), "k1b",
+        "k1b_save", *(f"k2b_{s}" for s in DGRAD_SITES), "k2b", *(f"k2c_{s}" for s in SITES),
         "k2c")
+
+
+def bf16_order():
+    """This tree's tests/torch_bf16_order.py (a parent tree may lack it)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_bf16_order",
+                                                  ROOT / "tests" / "torch_bf16_order.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def d192_digests(fused_block, dev) -> dict:
@@ -185,6 +203,25 @@ def worker(root: Path) -> dict:
             lambda: fused_block.linear_relu(x2, w1, b1, vl),
             lambda: torch.relu(torch.addmm(b1, x2f, w1.t())),
             2 * rows * D * F, 2 * (rows * D + F * D + F + bsz * S_PAD * F))
+        order = bf16_order()
+        for site, k in RES_LN_SITES.items():
+            a = randn(bsz, S_PAD, k).bfloat16()
+            wk, bk = randn(D, k, scale=k ** -0.5).bfloat16(), randn(D, scale=0.02).bfloat16()
+            res = randn(bsz, S_PAD, D).bfloat16()
+            af, resf = a.reshape(-1, k), res.reshape(-1, D)
+            for save in (False, True):
+                out[f"k1b_{site}{'_save' * save}"] = reading(
+                    (lambda a=a, wk=wk, bk=bk, res=res, sv=save: fused_block.linear_residual_ln(
+                        a, wk, bk, res, g, b, EPS, vl, save=sv)),
+                    (lambda af=af, wk=wk, bk=bk, resf=resf: Fn.layer_norm(
+                        torch.addmm(bk, af, wk.t()) + resf, (D,), gl, bl, EPS)),
+                    2 * rows * k * D,
+                    2 * (rows * (k + D) + D * k + D + (1 + save) * bsz * S_PAD * D)
+                    + 4 * (2 * D + 2 * save * bsz * S_PAD))
+            # the LayerNorm of the kernel's own r in the order it keeps
+            got = fused_block.linear_residual_ln(a, wk, bk, res, g, b, EPS, vl, save=True)
+            ref = order.residual_ln_rows_order(got[3], g, b, EPS, valid)
+            out[f"k1b_{site}_order"] = [bool(torch.equal(o_, r_)) for o_, r_ in zip(got, ref)]
     for site, (k, n, aux) in DGRAD_SITES.items():
         dy = randn(bsz, S_PAD, k).bfloat16()
         for i, t in enumerate(tiles):
@@ -211,8 +248,9 @@ def worker(root: Path) -> dict:
             lambda: fused_block.linear_wgrad(dy, xs, vl, ln=ln), lib,
             2 * rows * n * k + rows * n, 2 * rows * (n + k) + 4 * (n * k + n))
         out[f"k2c_{site}"]["library_mm_only_ms"] = events(lambda: torch.mm(dyf.t(), xsf))
-    for row, sites in (("k2b", DGRAD_SITES), ("k2c", SITES)):
-        out[row] = {key: sum(out[f"{row}_{s}"][key] for s in sites)
+    for row, sites in (("k1b", RES_LN_SITES), ("k1b_save", [f"{s}_save" for s in RES_LN_SITES]),
+                       ("k2b", DGRAD_SITES), ("k2c", SITES)):
+        out[row] = {key: sum(out[f"{row[:3]}_{s}"][key] for s in sites)
                     for key in ("events_ms", "head_start_ms", "device_ms", "library_ms",
                                 "bound_ms")}
     out["d192_sha256"] = d192_digests(fused_block, dev)
@@ -364,6 +402,11 @@ def main() -> int:
 
     differ = compare(runs[0]["library"], runs[1]["library"])
     same = True
+    for site in RES_LN_SITES:
+        print(f"D 768 bf16 K1b at {site}: out, mean, rstd equal the LayerNorm order it keeps on "
+              f"its own r (tests/torch_bf16_order.py): "
+              + ", ".join(f"{lab} {r[f'k1b_{site}_order']}" for lab, r in zip(labels, runs)))
+        same &= all(all(r[f"k1b_{site}_order"]) for r in runs)
     for key, what in (("k1a_k2c", "D 192 bf16 K1a and K2c"), ("k1c_k2b", "D 192 bf16 K1c and K2b"),
                       (None, "D 768 bf16 K1a")):
         digests = {r["k1a_sha256"] if key is None else r["d192_sha256"][key] for r in runs}

@@ -373,8 +373,16 @@ WGRAD_SHAPES = sorted(set(fused_block.WGRAD_BF16_TILES) | set(fused_block.WGRAD_
 
 
 def _stream(n, k, dtype):
-    """True where linear_wgrad is the bfloat16 stream-K walk (D 768)."""
-    return dtype == torch.bfloat16 and (n, k) in fused_block.WGRAD_WGMMA_TILES
+    """True where linear_wgrad is a stream-K walk: at D 768, in both dtypes."""
+    return (n, k) in fused_block.WGRAD_WGMMA_TILES
+
+
+# the stream-K walk of each dtype: (tiles, 32-row tiles a unit, blocks)
+STREAM_WALKS = {
+    torch.bfloat16: (fused_block.WGRAD_WGMMA_TILES,
+                     fused_block.WGRAD_WGMMA_UNIT // fused_block.ROW_BLOCK,
+                     fused_block.WGRAD_WGMMA_BLOCKS),
+    torch.float32: (fused_block.WGRAD_F32_STREAM_TILES, 1, fused_block.WGRAD_F32_BLOCKS)}
 
 
 @pytest.mark.parametrize("n, k", WGRAD_SHAPES)
@@ -382,19 +390,22 @@ def _stream(n, k, dtype):
 def test_wgrad_splits_stay_bounded_as_the_batch_grows(n, k, dtype):
     if _stream(n, k, dtype):
         # the same slots at every batch; every block busy once the batch has
-        # a unit for each, the shares within one unit (two 32-row tiles)
-        tn, tk = fused_block.WGRAD_WGMMA_TILES[(n, k)]
+        # a unit for each, the shares within one unit (two 32-row tiles in
+        # bfloat16, one in float32)
+        table, unit, blocks = STREAM_WALKS[dtype]
+        tn, tk = table[(n, k)]
         assert n % tn == 0 and k % tk == 0
-        tiles, blocks = fused_block.wgrad_stream_tiles(n, k), fused_block.WGRAD_WGMMA_BLOCKS
-        assert fused_block.wgrad_stream_slots(n, k) == tiles + blocks - 1
+        tiles = fused_block.wgrad_stream_tiles(n, k, dtype)
+        assert tiles == (n // tn) * (k // tk)
+        assert fused_block.wgrad_stream_slots(n, k, dtype) == tiles + blocks - 1
         for bsz in (1, 8, 64):
-            plan = fused_block.wgrad_stream_plan([2048] * bsz, 2048, n, k)
+            plan = fused_block.wgrad_stream_plan([2048] * bsz, 2048, n, k, dtype)
             rows = [sum(len(r) for _, _, r in segments) for segments in plan]
             assert len(plan) == blocks and min(rows) > 0  # every SM has work
-            assert max(rows) - min(rows) <= fused_block.WGRAD_WGMMA_UNIT // fused_block.ROW_BLOCK
+            assert max(rows) - min(rows) <= unit
             assert max(slot for segments in plan for _, slot, _ in segments) < tiles + blocks - 1
         # one 32-row tile: no block sums more than the one unit of each tile
-        plan = fused_block.wgrad_stream_plan([1], 32, n, k)
+        plan = fused_block.wgrad_stream_plan([1], 32, n, k, dtype)
         assert all(len(r) == 1 for segments in plan for _, _, r in segments)
         return
     table, blocks = WGRAD_TILES[dtype]
@@ -435,26 +446,89 @@ def test_wgrad_stream_plan_covers_every_computed_tile_once_in_order(s_pad, valid
         assert fused_block.wgrad_stream_fixups(t, units, tiles) == [s for s, _ in by_tile[t]]
 
 
+# the float32 plan at the stream-K walk's block count and tiles: every
+# computed tile once, in order, a unit each
+@pytest.mark.parametrize("n, k", sorted(fused_block.WGRAD_F32_STREAM_TILES))
+@pytest.mark.parametrize("s_pad, valid_len", [
+    (640, [1 + 196 * c for c in (3, 1, 2, 3, 1, 2, 3, 2)]),  # the narrow float32 rows
+    (160, [1, 33, 0, 97, 160, 129]),  # ragged, a padded image, shares across images
+    (128, [0, 0, 0]),  # nothing to sum
+    (64, [64, 1]),  # fewer units than blocks
+])
+def test_f32_wgrad_stream_plan_covers_every_computed_tile_once_in_order(s_pad, valid_len, n,
+                                                                        k):
+    f32 = torch.float32
+    tiles, blocks = fused_block.wgrad_stream_tiles(n, k, f32), fused_block.WGRAD_F32_BLOCKS
+    plan = fused_block.wgrad_stream_plan(valid_len, s_pad, n, k, f32)
+    computed = _computed_tiles(valid_len, s_pad)
+    assert len(plan) == blocks
+    by_tile = {t: [] for t in range(tiles)}
+    slots = []
+    for segments in plan:
+        assert [t for t, _, _ in segments] == sorted({t for t, _, _ in segments})
+        for t, slot, rows in segments:
+            by_tile[t].append((slot, rows))
+            slots.append(slot)
+    assert len(slots) == len(set(slots)) and all(s < tiles + blocks - 1 for s in slots)
+    shares = [sum(len(r) for _, _, r in segments) for segments in plan]
+    assert max(shares) - min(shares) <= 1  # near-equal shares of single tiles
+    for t in range(tiles):
+        assert [r for _, rows in by_tile[t] for r in rows] == computed
+        assert fused_block.wgrad_stream_fixups(t, len(computed), tiles, blocks) == [
+            s for s, _ in by_tile[t]]
+
+
+def _bf16_stream_plan_before(valid_len, s_pad, n, k):
+    """The bfloat16 plan as written before the float32 walk took it over."""
+    rows = fused_block.wgrad_split_tiles(valid_len, s_pad, 1)[0]
+    units = [rows[i:i + 2] for i in range(0, len(rows), 2)]
+    tn, tk = fused_block.WGRAD_WGMMA_TILES[(n, k)]
+    blocks, total = 132, (n // tn) * (k // tk) * len(units)
+    plan = []
+    for blk in range(blocks):
+        segments = []
+        for u in range(blk * total // blocks, (blk + 1) * total // blocks):
+            t = u // len(units)
+            if not segments or segments[-1][0] != t:
+                segments.append((t, t + blk, []))
+            segments[-1][2].extend(units[u % len(units)])
+        plan.append(segments)
+    return plan
+
+
+@pytest.mark.parametrize("n, k", sorted(fused_block.WGRAD_WGMMA_TILES))
+def test_bf16_wgrad_stream_plan_is_what_it_was(n, k):
+    for s_pad, valid_len in ((1408, [1 + 196 * c for c in (1, 3, 5, 7, 2, 7, 4, 6)]),
+                             (384, [1, 0, 33, 127, 129, 383, 200, 65]), (64, [64, 1])):
+        assert fused_block.wgrad_stream_plan(valid_len, s_pad, n, k) == _bf16_stream_plan_before(
+            valid_len, s_pad, n, k)
+    assert fused_block.wgrad_stream_slots(n, k) == fused_block.wgrad_stream_tiles(n, k) + 131
+
+
 # the float32 wgrad tiles at D 64, (N, K) -> (TN, TK): the 64-wide side whole
 F32_D64_TILES = {(192, 64): (192, 64), (64, 64): (64, 64), (2048, 64): (128, 64),
                  (64, 2048): (64, 128)}
 
 
-@pytest.mark.parametrize("n, k", sorted(fused_block.WGRAD_F32_TILES))
+F32_TILES = {**fused_block.WGRAD_F32_TILES, **fused_block.WGRAD_F32_STREAM_TILES}
+
+
+@pytest.mark.parametrize("n, k", sorted(F32_TILES))
 def test_wgrad_f32_tiles_span_the_192_wide_side(n, k):
-    """The float32 kernel's tile takes the 192-wide side of dW whole and 64 of
-    the other, so the 2048-wide operand is read once; six warps of 32 x 64.
-    At D 64 it takes the 64-wide side whole (F32_D64_TILES), a warp each 32 x
-    64 of the tile."""
-    tn, tk = fused_block.WGRAD_F32_TILES[(n, k)]
+    """The float32 kernel's tile takes 192 of the D-wide side of dW (the
+    whole side at D 192, a quarter at D 768, where the stream-K walk takes
+    the same tiles) and 64 of the other, so the 2048-wide operand is read
+    once; six warps of 32 x 64. At D 64 it takes the 64-wide side whole
+    (F32_D64_TILES), a warp each 32 x 64 of the tile."""
+    assert sorted(F32_TILES) == WGRAD_SHAPES
+    assert not set(fused_block.WGRAD_F32_TILES) & set(fused_block.WGRAD_F32_STREAM_TILES)
+    tn, tk = F32_TILES[(n, k)]
     if min(n, k) == fused_block.D_SMALL:
         assert (tn, tk) == F32_D64_TILES[(n, k)] and n % tn == 0 and k % tk == 0
-        assert sorted(fused_block.WGRAD_F32_TILES) == WGRAD_SHAPES
         return
     d = fused_block.D_MODEL
     assert (tn, tk) == ((d, 64) if k == fused_block.D_FFN else (64, d))
     assert (tn // 32) * (tk // 64) == 6 and n % tn == 0 and k % tk == 0
-    assert sorted(fused_block.WGRAD_F32_TILES) == WGRAD_SHAPES
 
 
 @pytest.mark.parametrize("n, k", WGRAD_SHAPES)
@@ -469,11 +543,13 @@ def test_wgrad_passes_its_row_plan_to_the_kernel(fake_cuda, n, k, dtype):
     (name,), (args,) = fake_cuda.calls, fake_cuda.args
     assert args[:2] == (dy.data_ptr(), x.data_ptr()) and args[-6:-2] == (bsz * s, n, k, s)
     if _stream(n, k, dtype):
-        # the wgmma entry point: the pre-pass's h scratch at the QKV site only,
-        # the stream-K walk's grid
-        assert name == "linear_wgrad_wgmma_bf16"
+        # the stream-K entry point of the dtype: the pre-pass's h scratch at
+        # the QKV site only, the walk's grid
+        assert name == ("linear_wgrad_d768" if dtype == torch.float32 else
+                        "linear_wgrad_wgmma_bf16")
+        assert len(args) == 16 and (args[2] is not None) == (ln is not None)
         assert (args[6] is not None) == (ln is not None) and args[6] not in args[:2]
-        assert args[-2] == fused_block.WGRAD_WGMMA_BLOCKS
+        assert args[-2] == STREAM_WALKS[dtype][2]
         return
     plan = fused_block.wgrad_splits(bsz, s, n, k, dtype)
     assert name == _launch.entry_point("linear_wgrad", dtype)

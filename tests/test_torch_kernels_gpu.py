@@ -28,6 +28,7 @@ import torch
 from chadavit_tpu_torch.ops import _launch, fused_block
 from chadavit_tpu_torch.ops import flash_attention as fa
 from chip_smoke import BF16_COS, Recorder, backward_reference, bf16_err
+from tests import torch_bf16_order as bf16_order
 from tests import torch_f32_order as f32_order
 
 pytestmark = pytest.mark.gpu
@@ -1570,6 +1571,126 @@ def test_d768_wgmma_dgrad(dev, batch, site, seed):
     _assert_bf16_close(out, fused_block.linear_dgrad_reference(dy, w, vl, **kw), rows)
     for i, m in enumerate(rows):
         assert not out[i, m:].any().item(), (i, m)
+
+
+# ---- ChAdaViT-B/16's float32 K2c: the stream-K walk (csrc/fused_block_bwd.cu) ----
+# linear_wgrad at D 768 in float32 at its four sites, the QKV site with and
+# without LN1 (qkv_ln, qkv), against the plain float32 version (the gradient
+# tolerance) at chip_smoke.py's narrow float32 rows (phase 2c), at the rows
+# of 4e (b)'s 3-channel bucket, and at S 160 with images of no valid row,
+# one row and whole sequences (its units of one image run into the next's
+# within a block's share); the rows of the tiles past the prefix are NaN in dy
+# and x (never read). One launch a call, under linear_wgrad_d768; a second
+# call repeats the bits (the partials added in block order). At qkv_ln the
+# pre-pass's X' is the forward's h bit for bit: the walk on x with LN1 gives
+# the bits it gives without LN1 on h = fmaf((x - mean) rstd, g, beta).
+F32_WGRAD_D768_BATCHES = {"narrow": K1A_BATCHES["narrow"],
+                          "bucket": (640, [1 + 196 * c for c in (3, 2, 3, 2)]),
+                          "straddle": (160, [1, 33, 0, 97, 160, 129])}
+F32_WGRAD_D768_SITES = {"qkv": (3 * D16, D16), "qkv_ln": (3 * D16, D16), "out": (D16, D16),
+                        "ffn1": (F, D16), "ffn2": (D16, F)}
+
+
+@pytest.mark.parametrize("site", list(F32_WGRAD_D768_SITES))
+@pytest.mark.parametrize("batch", list(F32_WGRAD_D768_BATCHES))
+def test_f32_d768_stream_wgrad_at_every_site(dev, batch, site):
+    s, valid = F32_WGRAD_D768_BATCHES[batch]
+    n, k = F32_WGRAD_D768_SITES[site]
+    rng = np.random.default_rng(700 + list(F32_WGRAD_D768_SITES).index(site))
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    bsz = len(valid)
+    dy = _poison_padding(_randn(rng, dev, bsz, s, n), valid)
+    x = _poison_padding(_randn(rng, dev, bsz, s, k), valid)
+    ln = None
+    if site == "qkv_ln":
+        ln = (_randn(rng, dev, bsz, s, scale=0.1), 1 + _randn(rng, dev, bsz, s, scale=0.1).abs(),
+              1 + _randn(rng, dev, k, scale=0.1), _randn(rng, dev, k, scale=0.1))
+    name = "linear_wgrad_d768"
+    before = _launch.LAUNCHES[name]
+    out, again = (fused_block.linear_wgrad(dy, x, vl, ln=ln) for _ in range(2))
+    assert _launch.LAUNCHES[name] == before + 2
+    ref = fused_block.linear_wgrad_reference(dy, x, vl, ln=ln)
+    for o, ag, r in zip(out, again, ref):
+        assert torch.equal(o, ag), "a second call gives other bits"
+        assert o.dtype == torch.float32 and o.shape == r.shape
+        assert torch.isfinite(o).all().item()
+        _assert_grad_close(o, r, valid)
+    if ln is not None:
+        mean, rstd, g, b = ln
+        h = f32_order.fmaf((x - mean[..., None]) * rstd[..., None], g.expand_as(x),
+                           b.expand_as(x))
+        on_h = fused_block.linear_wgrad(dy, h, vl)
+        assert all(torch.equal(o, oh) for o, oh in zip(out, on_h))
+
+
+# ---- ChAdaViT-B/16's bf16 K1b on wgmma with a row pass (csrc/linear_wgmma_bf16.cu) --
+# linear_residual_ln at D 768 in bfloat16 at both sites, with and without its
+# save outputs, against the plain bf16 version (bf16_err's bounds) at the
+# narrow batch and at S 192 with images of no valid row, one row and whole
+# sequences, whose odd counts of 64-row units pair units of two images in one
+# 128-row tile of the GEMM; the rows of the 32-row tiles past the prefix are
+# NaN in a and the residual (never stored: out, r and the stats are zeros
+# there). One launch a call, under linear_residual_ln_fwd_bf16_d768; a
+# second call repeats the bits. Then the LayerNorm bit for bit: out, mean and
+# rstd equal tests/torch_bf16_order.py's order (the four-block column
+# cluster's) applied to the kernel's own r.
+BF16_K1B_D768_BATCHES = {"narrow": D768_BATCHES["narrow"],
+                         "straddle": (192, [1, 65, 0, 129, 192, 33])}
+BF16_K1B_D768_SITES = {"out": (D16, 1e-5), "ffn2": (F, 1e-6)}
+
+
+def _bf16_k1b_d768_inputs(dev, batch, site):
+    s, valid = BF16_K1B_D768_BATCHES[batch]
+    k, eps = BF16_K1B_D768_SITES[site]
+    rng = np.random.default_rng(800 + k)
+    a = _poison_padding(_randn(rng, dev, len(valid), s, k), valid)
+    if site == "ffn2":
+        a = torch.relu(a)  # the FFN hidden
+    res = _poison_padding(_randn(rng, dev, len(valid), s, D16), valid)
+    w, bias = _randn(rng, dev, D16, k, scale=k ** -0.5), _randn(rng, dev, D16, scale=0.02)
+    g, b = 1 + _randn(rng, dev, D16, scale=0.1), _randn(rng, dev, D16, scale=0.05)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    return (a.bfloat16(), w.bfloat16(), bias.bfloat16(), res.bfloat16(), g, b, eps), vl, valid, s
+
+
+@pytest.mark.parametrize("save", [False, True])
+@pytest.mark.parametrize("site", list(BF16_K1B_D768_SITES))
+@pytest.mark.parametrize("batch", list(BF16_K1B_D768_BATCHES))
+def test_d768_wgmma_linear_residual_ln(dev, batch, site, save):
+    args, vl, valid, s = _bf16_k1b_d768_inputs(dev, batch, site)
+    name = "linear_residual_ln_fwd_bf16_d768"
+    before = _launch.LAUNCHES[name]
+    with torch.no_grad():
+        out, again = (fused_block.linear_residual_ln(*args, vl, save=save) for _ in range(2))
+    assert _launch.LAUNCHES[name] == before + 2
+    torch.cuda.synchronize()
+    outs, agains = (out, again) if save else ((out,), (again,))
+    for o, ag in zip(outs, agains):
+        assert torch.equal(o, ag), "a second call gives other bits"
+    ref = fused_block.linear_residual_ln_reference(*args, save=save)
+    refs = ref if save else (ref,)
+    if save:  # out, the LN stats (mean, rstd) as one f32 tensor, r
+        outs = (outs[0], torch.stack(outs[1:3], -1), outs[3])
+        refs = (refs[0], torch.stack(refs[1:3], -1), refs[3])
+    rows = [min(-(-n // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK, s) for n in valid]
+    some = [i for i, n in enumerate(rows) if n]  # images with a computed tile
+    for o, r in zip(outs, refs):
+        _assert_bf16_close(o[some], r[some], [rows[i] for i in some])
+        for i, n in enumerate(rows):  # the zero-filled tiles get exact zeros
+            assert not o[i, n:].any().item(), (i, n)
+
+
+@pytest.mark.parametrize("site", list(BF16_K1B_D768_SITES))
+@pytest.mark.parametrize("batch", list(BF16_K1B_D768_BATCHES))
+def test_d768_wgmma_linear_residual_ln_keeps_its_layernorm_order(dev, batch, site):
+    args, vl, valid, s = _bf16_k1b_d768_inputs(dev, batch, site)
+    with torch.no_grad():
+        out, mean, rstd, r = fused_block.linear_residual_ln(*args, vl, save=True)
+    torch.cuda.synchronize()
+    g, b, eps = args[4:]
+    ref = bf16_order.residual_ln_rows_order(r, g, b, eps, valid)
+    for o, rf, what in zip((out, mean, rstd), ref, ("out", "mean", "rstd")):
+        assert torch.equal(o, rf), (what, (o.float() - rf.float()).abs().max().item())
 
 
 # the D 192 bf16 K1c and K2b outputs on scripts/bench_wgmma_bf16.py's seeded

@@ -1,20 +1,25 @@
-"""The CUDA route of ChAdaViT-B/16's bfloat16 K1a, K1c, K2b and K2c (D 768),
-whose kernels are wgmma products fed by TMA (``csrc/linear_wgmma_bf16.cu``),
-with the launch stubbed: ``ln_linear``, ``linear_relu``, ``linear_dgrad`` and
+"""The CUDA route of ChAdaViT-B/16's bfloat16 K1a, K1b, K1c, K2b and K2c (D
+768), whose kernels are wgmma products fed by TMA
+(``csrc/linear_wgmma_bf16.cu``), with the launch stubbed: ``ln_linear``,
+``linear_residual_ln``, ``linear_relu``, ``linear_dgrad`` and
 ``linear_wgrad`` hand the wgmma entry points their operands, the LN1
 pre-pass's scratch and the stream-K walk's grid, count the launches under the
-D 768 instance names, and leave D 192 and float32 on their own entry points.
-Then the pre-pass's plain version
+D 768 instance names, and leave D 192, D 64 and float32 on their own entry
+points. Then the pre-pass's plain version
 (``layernorm_rows_reference``): the h of ``ln_linear_reference``, and JAX's
 LN1 (``chadavit_tpu/ops/fused_block.py``: ``_stats`` and phase A's h) on the
-same seeded numpy inputs. The kernels are held against the plain versions on
+same seeded numpy inputs; and the order that K1b's LayerNorm row pass keeps
+(``tests/torch_bf16_order.py``) against JAX's LayerNorm of a bfloat16 pre-LN
+sum r (``_fwd_kernel`` :162-186: ``_stats`` of r in float32, the LN output
+rounded to bfloat16). The kernels are held against the plain versions on
 the card (``test_torch_kernels_gpu.py``, ``chip_smoke.py`` phase 2c).
 
 Tolerances against JAX, a few times the readings on the CPU: float32 h within
 4e-6 absolute (read: 9.5e-7), the row stats within 1e-6 of their largest
 entry (read: 2.2e-7); bfloat16 h within one bfloat16 step of its entry (a
 float32 difference of an ulp can round to the neighbouring bfloat16; read: 2
-of 98 304 entries one step off at D 768, none at D 192).
+of 98 304 entries one step off at D 768, none at D 192). K1b's LayerNorm of
+r: the same bounds for its out and row stats.
 """
 
 import jax.numpy as jnp
@@ -24,6 +29,7 @@ import torch
 
 from chadavit_tpu.ops.fused_block import _stats as jax_stats
 from chadavit_tpu_torch.ops import _launch, fused_block
+from tests import torch_bf16_order as bf16_order
 from tests.test_torch_fused_block_backward import fake_cuda  # noqa: F401 (a fixture)
 
 DW, F = fused_block.D_WIDE, fused_block.D_FFN
@@ -96,9 +102,9 @@ def test_d768_wgrad_counts_under_its_instance(fake_cuda, site):
 
 
 def test_d768_layer_chain_takes_the_wgmma_kernels(fake_cuda):
-    # the bfloat16 layer at D 768: K1a and K1c through the wgmma entry points
-    # forward, and in the backward their recomputes, the four K2b and the
-    # four K2c sites too; K1b, K2a and the attention keep theirs
+    # the bfloat16 layer at D 768: K1a, K1b and K1c through the wgmma entry
+    # points forward, and in the backward their recomputes, the four K2b and
+    # the four K2c sites too; K2a and the attention keep theirs
     d = DW
     shapes = [(3 * d, d), (3 * d,), (d, d), (d,), (d,), (d,), (d,), (d,), (F, d), (F,), (d, F),
               (d,)]
@@ -106,8 +112,8 @@ def test_d768_layer_chain_takes_the_wgmma_kernels(fake_cuda):
     x = _z(2, 128, d).requires_grad_(True)
     y = fused_block.fused_encoder_block(x, VL, *ws, 12)
     assert fake_cuda.calls == ["ln_linear_fwd_wgmma_bf16", "prefix_attention_fwd_bf16",
-                               "linear_residual_ln_fwd_bf16", "linear_relu_fwd_wgmma_bf16",
-                               "linear_residual_ln_fwd_bf16"]
+                               "linear_residual_ln_fwd_wgmma_bf16", "linear_relu_fwd_wgmma_bf16",
+                               "linear_residual_ln_fwd_wgmma_bf16"]
     forward = len(fake_cuda.calls)
     y.backward(torch.zeros_like(y))
     backward = fake_cuda.calls[forward:]
@@ -116,6 +122,42 @@ def test_d768_layer_chain_takes_the_wgmma_kernels(fake_cuda):
     assert backward.count("ln_linear_fwd_wgmma_bf16") == 1
     assert backward.count("linear_relu_fwd_wgmma_bf16") == 1
     assert "linear_relu_fwd_bf16" not in backward
+    assert backward.count("linear_residual_ln_fwd_wgmma_bf16") == 1
+    assert "linear_residual_ln_fwd_bf16" not in backward
+
+
+@pytest.mark.parametrize("save", [False, True])
+@pytest.mark.parametrize("k", [DW, F])
+def test_d768_linear_residual_ln_takes_the_wgmma_entry_point(fake_cuda, k, save):
+    # both sites: the GEMM writes r into the saved r or into out, the row pass
+    # normalises it; the D 192 kernel's arguments, no scratch
+    a, w, bias, res = _z(2, 128, k), _z(DW, k), _z(DW), _z(2, 128, DW)
+    g, b = torch.ones(DW), torch.zeros(DW)
+    before = _launch.LAUNCHES["linear_residual_ln_fwd_bf16_d768"]
+    with torch.no_grad():
+        out = fused_block.linear_residual_ln(a, w, bias, res, g, b, 1e-5, VL, save=save)
+    (name,), (args,) = fake_cuda.calls, fake_cuda.args
+    assert name == "linear_residual_ln_fwd_wgmma_bf16"
+    assert _launch.LAUNCHES["linear_residual_ln_fwd_bf16_d768"] == before + 1
+    outs = out if save else (out,)
+    assert args[:8] == (a.data_ptr(), w.data_ptr(), bias.data_ptr(), res.data_ptr(),
+                        g.data_ptr(), b.data_ptr(), 1e-5, outs[0].data_ptr())
+    assert args[8:11] == (tuple(t.data_ptr() for t in outs[1:]) if save else (None,) * 3)
+    assert args[11:] == (VL.data_ptr(), 2 * 128, k, DW, 128, 0)
+    assert outs[0].shape == (2, 128, DW) and outs[0].dtype == BF16
+
+
+@pytest.mark.parametrize("d, dtype, entry", [
+    (fused_block.D_MODEL, BF16, "linear_residual_ln_fwd_bf16"),  # D 192: mma.sync
+    (fused_block.D_SMALL, BF16, "linear_residual_ln_fwd_bf16"),  # D 64: mma.sync
+    (DW, torch.float32, "linear_residual_ln_fwd")])  # float32: the 128-row GEMM
+def test_linear_residual_ln_keeps_its_other_entry_points(fake_cuda, d, dtype, entry):
+    with torch.no_grad():
+        fused_block.linear_residual_ln(_z(2, 128, d, dtype=dtype), _z(d, d, dtype=dtype),
+                                       _z(d, dtype=dtype), _z(2, 128, d, dtype=dtype),
+                                       torch.ones(d), torch.zeros(d), 1e-5, VL)
+    assert fake_cuda.calls == [entry]
+    assert _launch.LAUNCHES[fused_block.instance(entry, d)] > 0
 
 
 def test_d768_linear_relu_takes_the_wgmma_entry_point(fake_cuda):
@@ -232,3 +274,34 @@ def test_layernorm_rows_reference_matches_jax_ln1(d, dtype):
     else:
         step = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(hj), 1e-30))) - 7)
         assert (diff <= step).all(), (diff / step).max()
+
+
+@pytest.mark.parametrize("eps", [1e-5, 1e-6])
+def test_k1b_layernorm_order_matches_jax_ln_of_a_bf16_r(eps):
+    # a bfloat16 pre-LN sum r (JAX: r = x + o in bfloat16), its LayerNorm in
+    # float32 as JAX takes it (rf = r.astype(f32), _stats, (rf - mu) rstd g +
+    # b rounded to bfloat16), against the order K1b's row pass keeps, with
+    # zeros on the 32-row tiles past the prefix
+    rng = np.random.default_rng(9)
+    r = (rng.standard_normal((2, 96, DW)) * 2 + 0.3).astype(np.float32)
+    g = (1 + 0.1 * rng.standard_normal(DW)).astype(np.float32)
+    b = (0.05 * rng.standard_normal(DW)).astype(np.float32)
+    rj = jnp.asarray(r).astype(jnp.bfloat16)
+    rf = rj.astype(jnp.float32)
+    mu, rstd = jax_stats(rf, eps)
+    yj = np.asarray(((rf - mu) * rstd * jnp.asarray(g) + jnp.asarray(b)).astype(jnp.bfloat16)
+                    .astype(jnp.float32))
+    valid = [96, 33]
+    rt = torch.from_numpy(np.array(rf)).to(BF16)
+    out, mean, rs = bf16_order.residual_ln_rows_order(rt, torch.from_numpy(g),
+                                                      torch.from_numpy(b), eps, valid)
+    assert out.dtype == BF16 and mean.dtype == rs.dtype == torch.float32
+    rows = [96, 64]  # the rows of the computed 32-row tiles
+    for i, n in enumerate(rows):
+        for ours, ref in ((mean[i, :n], np.asarray(mu)[i, :n, 0]),
+                          (rs[i, :n], np.asarray(rstd)[i, :n, 0])):
+            assert np.abs(ours.numpy() - ref).max() <= 1e-6 * np.abs(ref).max()
+        diff = np.abs(out[i, :n].float().numpy() - yj[i, :n])
+        step = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(yj[i, :n]), 1e-30))) - 7)
+        assert (diff <= step).all(), (diff / step).max()
+        assert not out[i, n:].any() and not mean[i, n:].any() and not rs[i, n:].any()
