@@ -44,10 +44,9 @@
 //
 // Every kernel here is built for the layer's three widths, D 192
 // (ChAdaViT-moyen), D 768 (ChAdaViT-B/16) and D 64 (the smoke configs), FFN
-// 2048 at each: linear_dgrad takes the same tiles at D 192 and D 768, and at
-// D 768 its grid holds four times as many 192-wide tiles; linear_wgrad at D
-// 768 is a stream-K walk of those tiles over a persistent grid
-// (linear_wgrad_d768, its note below); at D 64 both take tiles 64 wide on
+// 2048 at each: at D 768 linear_dgrad and linear_wgrad are stream-K walks of
+// D 192's tiles over a persistent grid (linear_dgrad_d768,
+// linear_wgrad_d768, their notes below); at D 64 both take tiles 64 wide on
 // the D-wide side (their notes below); layernorm_bwd is a template on D. The
 // launchers refuse any other width.
 //
@@ -214,9 +213,7 @@ reduce_ln_splits_kernel(const float* __restrict__ partial, float* __restrict__ o
 // so 67 TFLOP/s of f32 FMA is the limit. The design:
 // - a block owns one 32-row tile of the contract and BN output columns: all
 //   192 at the out-projection, QKV and FFN1 sites, 256 of hid's 2048 at FFN2
-//   (so that site's grid is 8 column slices a row tile; at D 768 the three
-//   N 768 sites take 4 slices of 192, the epilogues being elementwise, and
-//   the D 192 instances run as they did); each warp takes 32
+//   (so that site's grid is 8 column slices a row tile); each warp takes 32
 //   rows x 64 columns, a thread 8 rows x 8 columns (64 sums: rows ty + 4 i,
 //   columns 4 tx + {0..3} and 32 + 4 tx + {0..3} of its warp's);
 // - dY (K contiguous) and W (read as (K, N): N contiguous) are staged as they
@@ -811,6 +808,265 @@ reduce_wgrad_stream_kernel(const float* __restrict__ partial, float* __restrict_
   *reinterpret_cast<float4*>(dwb + e) = sum;
 }
 
+// ---- linear_dgrad at D 768 (float32): a stream-K walk over the card --------
+// The same products as linear_dgrad_kernel (the same lines of the TPU kernel),
+// at ChAdaViT-B/16's four sites. There a grid of one block a (32-row tile,
+// column slice) leaves the card partly empty: three blocks an SM make 396
+// places, and at the narrow B/16 rows the out-projection's 110 x 4 computed
+// tiles take 1.11 waves (at the 3-channel bucket's rows its 64 x 4 fill 0.65
+// of the card). So the work is cut along K as well:
+// - a unit is one computed 32-row tile x one column slice (BN = 192, or 256
+//   of hid's 2048 at the mask site) x one slab of DG_SLAB columns of K; the
+//   units of every output tile (tile t = computed tile i x slices + slice),
+//   tile-major, are cut into gridDim.x contiguous, near-equal shares, one a
+//   block, the grid being as many blocks as the card holds at the kernel's
+//   occupancy (dgrad_stream_blocks);
+// - a block walks its share through linear_dgrad_kernel's ring and loop (8 x
+//   8 sums a thread, sgemm::outer4), one stage of DG_BK columns of K at a
+//   time, the stages running on across a change of output tile; at the end of
+//   each tile segment it applies the epilogue and writes dX when its segment
+//   is the whole tile, and otherwise writes the segment's sums into slot tile
+//   + block, then starts from zero;
+// - reduce_dgrad_stream_kernel adds each split tile's slots in block order,
+//   applies the epilogue and writes dX, and writes the zero-filled tiles'
+//   zeros: no atomics, the same bits on every run. The scratch is at most
+//   tiles + blocks - 1 slots of 32 x BN;
+// - the list of computed 32-row tiles (dgrad_list_kernel) is built once, into
+//   a small scratch that both passes read; each block keeps a cursor over
+//   its stages for its copies and one for its products, so that no stage
+//   waits on the list or divides (reading the list at every stage made the
+//   four sites 7 % slower, PERF.md).
+// dX's sums run in another order than linear_dgrad_kernel's where a tile is
+// split (each segment in K order, the segments in block order). Measured and
+// not kept (scripts/bench_linear_f32.py d768, PERF.md): whole waves of tiles
+// before a walk of the rest, the slices' tiles in turn, and the split tiles
+// added by the block whose part arrives last were each slower; slabs of 16
+// columns of K ran 1 % faster than 32 or 64.
+constexpr int DG_SLAB = 16;  // columns of K a unit (fused_block.DGRAD_F32_SLAB)
+
+constexpr int DG_STREAM_WAVES = 3;  // blocks an SM the loop is built for
+
+// list[0 .. bsz]: image i's first entry in the list of computed 32-row tiles
+// (list[bsz] their count); list[bsz + 1 + j]: the first row of entry j
+__global__ void __launch_bounds__(NT)
+dgrad_list_kernel(const int* __restrict__ valid_len, int* __restrict__ list, int bsz,
+                  int s_pad) {
+  __shared__ int first[WG_MAX_IMAGES + 1];
+  if (threadIdx.x < 32) list_tiles(first, valid_len, bsz, s_pad);
+  __syncthreads();
+  for (int i = threadIdx.x; i <= bsz; i += NT) list[i] = first[i];
+  for (int i = threadIdx.x; i < bsz; i += NT)
+    for (int j = first[i]; j < first[i + 1]; ++j)
+      list[bsz + 1 + j] = i * s_pad + (j - first[i]) * BM;
+}
+
+template <int EPI>
+__device__ __forceinline__ void dgrad_finish(float4 v, const float* __restrict__ aux,
+                                             float* __restrict__ out, size_t o) {
+  if constexpr (EPI == EPI_RELU_MASK) {
+    const float4 h = load4(aux + o);
+    v.x = h.x > 0.f ? v.x : 0.f;
+    v.y = h.y > 0.f ? v.y : 0.f;
+    v.z = h.z > 0.f ? v.z : 0.f;
+    v.w = h.w > 0.f ? v.w : 0.f;
+  } else if constexpr (EPI == EPI_RESIDUAL) {
+    const float4 r = load4(aux + o);
+    v = make_float4(r.x + v.x, r.y + v.y, r.z + v.z, r.w + v.w);
+  }
+  *reinterpret_cast<float4*>(out + o) = v;
+}
+
+template <int BN, int EPI>
+__global__ void __launch_bounds__(BN / DG_WN * 32, DG_STREAM_WAVES)
+linear_dgrad_stream_kernel(const float* __restrict__ dy, const float* __restrict__ w,
+                           const float* __restrict__ aux, float* __restrict__ out,
+                           float* __restrict__ partial, const int* __restrict__ list, int bsz,
+                           int K, int N) {
+  constexpr int THREADS = BN / DG_WN * 32, STAGE = dgrad_stage<BN>();
+  constexpr int PER_UNIT = DG_SLAB / DG_BK;  // ring stages a unit
+  static_assert(BN % DG_WN == 0 && BM == 4 * DG_TM && DG_SLAB % DG_BK == 0,
+                "linear_dgrad tile shape");
+  extern __shared__ __align__(16) float dg_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ty = lane >> 3, tx = lane & 7, wc = warp * DG_WN;
+  const int* rows = list + bsz + 1;
+  const int slices = N / BN, per_tile = K / DG_BK;  // ring stages a tile
+  const int tiles = list[bsz] * slices;
+  const long long total = (long long)tiles * (K / DG_SLAB);
+  const int ub = (int)(blockIdx.x * total / gridDim.x);
+  const int units = (int)((blockIdx.x + 1) * total / gridDim.x) - ub;
+  const int s0 = ub * PER_UNIT, n = units * PER_UNIT;  // the share's first stage, its stages
+  // Two cursors over the block's stages, one for the copies and one for the
+  // products, each moved one stage a call (the ring calls load and compute
+  // with s in order): stage kk of output tile t (row entry t / slices, slice
+  // t % slices), whose first row m0 is read from the list once a tile
+  struct Cursor {
+    int kk, t, n0;
+    size_t m0;
+  };
+  auto at = [&](Cursor& c, int t, int kk) {
+    c.t = t;
+    c.kk = kk;
+    if (t < tiles) {
+      const int i = t / slices;
+      c.m0 = rows[i];
+      c.n0 = (t - i * slices) * BN;
+    }
+  };
+  Cursor cl;
+  at(cl, s0 / per_tile, s0 % per_tile);
+  Cursor cc = cl;
+  auto advance = [&](Cursor& c) {
+    if (++c.kk < per_tile) return;
+    at(c, c.t + 1, 0);
+  };
+  auto load = [&](int, int slot) {  // the copy cursor's stage: K columns [k0, k0 + BK) of its tile
+    const int k0 = cl.kk * DG_BK, n0 = cl.n0;
+    const size_t m0 = cl.m0;
+    advance(cl);
+    float* as = dg_smem + slot * STAGE;
+    float* ws = as + BM * DG_LDA;
+    for (int c = tid; c < BM * DG_BK / 4; c += THREADS) {
+      const int r = c / (DG_BK / 4), cc = c % (DG_BK / 4) * 4;
+      sgemm::cp_async_16(as + r * DG_LDA + cc, dy + (m0 + r) * K + k0 + cc);
+    }
+#pragma unroll
+    for (int q = 0; q < DG_BK * BN / 4 / THREADS; ++q) {
+      const int c = tid + q * THREADS;
+      const int r = c / (BN / 4), cc = c % (BN / 4) * 4;
+      sgemm::cp_async_16(ws + r * BN + cc, w + (size_t)(k0 + r) * N + n0 + cc);
+    }
+  };
+  float acc[DG_TM][DG_TN];
+#pragma unroll
+  for (int i = 0; i < DG_TM; ++i)
+#pragma unroll
+    for (int j = 0; j < DG_TN; ++j) acc[i][j] = 0.f;
+  sgemm::ring<DG_STAGES>(n, load, [&](int s, int slot) {
+    const float* as = dg_smem + slot * STAGE + ty * DG_LDA;
+    const float* ws = dg_smem + slot * STAGE + BM * DG_LDA + wc + 4 * tx;
+#pragma unroll
+    for (int kk = 0; kk < DG_BK; kk += 4) {
+      float4 av[DG_TM];
+      float bv[4][DG_TN];
+#pragma unroll
+      for (int i = 0; i < DG_TM; ++i) av[i] = load4(as + i * 4 * DG_LDA + kk);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        *reinterpret_cast<float4*>(bv[q]) = load4(ws + (kk + q) * BN);
+        *reinterpret_cast<float4*>(bv[q] + 4) = load4(ws + (kk + q) * BN + 32);
+      }
+      sgemm::outer4(acc, av, bv);
+    }
+    const Cursor c = cc;
+    advance(cc);
+    const bool last = c.kk == per_tile - 1;  // the tile's last stage
+    if (!last && s + 1 < n) return;  // the segment goes on
+    const int t = c.t;
+    if (last && t * per_tile >= s0) {  // the whole tile: dX
+      const size_t m0 = c.m0;
+      const int n0 = c.n0;
+#pragma unroll
+      for (int i2 = 0; i2 < DG_TM; ++i2)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          dgrad_finish<EPI>(make_float4(acc[i2][4 * h], acc[i2][4 * h + 1], acc[i2][4 * h + 2],
+                                        acc[i2][4 * h + 3]),
+                            aux, out, (m0 + ty + 4 * i2) * N + n0 + wc + 4 * tx + 32 * h);
+    } else {  // a part of it: its sums into slot t + block
+      float* p = partial + (size_t)(t + blockIdx.x) * BM * BN;
+#pragma unroll
+      for (int i2 = 0; i2 < DG_TM; ++i2)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float4*>(p + (ty + 4 * i2) * BN + wc + 4 * tx + 32 * h) =
+              make_float4(acc[i2][4 * h], acc[i2][4 * h + 1], acc[i2][4 * h + 2],
+                          acc[i2][4 * h + 3]);
+    }
+#pragma unroll
+    for (int i2 = 0; i2 < DG_TM; ++i2)
+#pragma unroll
+      for (int j = 0; j < DG_TN; ++j) acc[i2][j] = 0.f;
+  });
+}
+
+// dX of the tiles the walk split, grid (M / 32, N / BN): each split tile's
+// slots added in block order, four outputs a thread, then the epilogue;
+// zeros on the zero-filled tiles. Tile t's units [t S, t S + S) (S slabs a
+// tile) lie in the shares of blocks b(t S) .. b(t S + S - 1), b(u) = ((u + 1)
+// G - 1) / U the block whose share holds unit u (U units, G blocks); one
+// block: the walk wrote the tile. Blocks with an empty share are skipped.
+template <int BN, int EPI>
+__global__ void __launch_bounds__(NT)
+reduce_dgrad_stream_kernel(const float* __restrict__ partial, const float* __restrict__ aux,
+                           float* __restrict__ out, const int* __restrict__ list,
+                           const int* __restrict__ valid_len, int bsz, int K, int N, int s_pad,
+                           int blocks) {
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  if (tile_is_padding(m0, s_pad, valid_len)) {
+    for (int c = threadIdx.x; c < BM * BN / 4; c += NT)
+      *reinterpret_cast<float4*>(out + (size_t)(m0 + c / (BN / 4)) * N + n0 + c % (BN / 4) * 4) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
+  }
+  const int b = m0 / s_pad, slices = N / BN;
+  const long long S = K / DG_SLAB, G = blocks;
+  const long long t = (long long)(list[b] + (m0 - b * s_pad) / BM) * slices + blockIdx.y;
+  const long long U = (long long)list[bsz] * slices * S;
+  const int bf = (int)(((t * S + 1) * G - 1) / U), bl = (int)(((t * S + S) * G - 1) / U);
+  if (bf == bl) return;
+  for (int c = threadIdx.x; c < BM * BN / 4; c += NT) {
+    const int r = c / (BN / 4), cc = c % (BN / 4) * 4;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int q = bf; q <= bl; ++q) {
+      if (q * U / G == (q + 1) * U / G) continue;  // a block with no units
+      const float4 v = load4(partial + (size_t)(t + q) * BM * BN + r * BN + cc);
+      sum = make_float4(sum.x + v.x, sum.y + v.y, sum.z + v.z, sum.w + v.w);
+    }
+    dgrad_finish<EPI>(sum, aux, out, (size_t)(m0 + r) * N + n0 + cc);
+  }
+}
+
+// The walk's grid: as many blocks as the card holds at the kernel's occupancy
+// (the SMs of the current device times the blocks an SM, as the runtime
+// reports them for this kernel, block and shared memory); or minus a
+// cudaError.
+template <int BN, int EPI>
+int dgrad_stream_blocks() {
+  constexpr int smem = dgrad_smem<BN>();
+  auto kernel = linear_dgrad_stream_kernel<BN, EPI>;
+  int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == 0) e = (int)cudaGetDevice(&dev);
+  if (e == 0) e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == 0)
+    e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BN / DG_WN * 32,
+                                                           smem);
+  return e != 0 ? -e : sms * per_sm;
+}
+
+// the three passes of the walk at one site: the tile list, the walk over the
+// card, the split tiles' sums
+template <int BN, int EPI>
+int dgrad_stream_launch(const float* dy, const float* w, const float* aux, float* out,
+                        float* partial, int slots, int* list, const int* valid_len, int M, int K,
+                        int N, int s_pad, cudaStream_t st) {
+  constexpr int smem = dgrad_smem<BN>();
+  const int blocks = dgrad_stream_blocks<BN, EPI>(), bsz = M / s_pad;
+  if (blocks < 0) return -blocks;
+  if (blocks == 0 || (long long)(M / BM) * (N / BN) + blocks - 1 > slots || bsz > WG_MAX_IMAGES)
+    return (int)cudaErrorInvalidValue;
+  dgrad_list_kernel<<<1, NT, 0, st>>>(valid_len, list, bsz, s_pad);
+  int e = (int)cudaGetLastError();
+  if (e != 0) return e;
+  linear_dgrad_stream_kernel<BN, EPI><<<blocks, BN / DG_WN * 32, smem, st>>>(
+      dy, w, aux, out, partial, list, bsz, K, N);
+  if ((e = (int)cudaGetLastError()) != 0) return e;
+  reduce_dgrad_stream_kernel<BN, EPI><<<dim3(M / BM, N / BN), NT, 0, st>>>(
+      partial, aux, out, list, valid_len, bsz, K, N, s_pad, blocks);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int layernorm_bwd_launch(const T* dy, const T* xin, const float* mean,
                          const float* rstd, const float* g, const T* res, T* dx,
@@ -925,14 +1181,14 @@ int layernorm_bwd_bf16(const bf16* dy, const bf16* xin, const float* mean,
 
 // dy (M, K), w (K, N) (the forward's Linear weight, out x in), out (M, N).
 // epilogue 0: none; 1: out = (dy @ w) [aux > 0]; 2: out = aux + dy @ w; aux is
-// (M, N). The sites of one layer of width D (192, 768 or 64): K D -> N 2048
+// (M, N). The sites of one layer of width D (192 or 64): K D -> N 2048
 // (mask), K 2048 -> N D (residual), K D -> N D and K 3 D -> N D (none); at
-// D 768 the N D sites take four 192-column tiles of the grid, at D 64 one
-// 64-column tile.
+// D 64 the N D sites take one 64-column tile. The D 768 sites are
+// linear_dgrad_d768's.
 int linear_dgrad(const float* dy, const float* w, const float* aux, float* out,
                  int epilogue, const int* valid_len, int M, int K, int N,
                  int s_pad, void* stream) {
-  if (!rows_ok(M, K, s_pad) || !is_weight_shape(K, N) ||
+  if (!rows_ok(M, K, s_pad) || !is_weight_shape(K, N) || is_weight_shape_at(K, N, D_WIDE) ||
       (epilogue != EPI_NONE) != (aux != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -949,15 +1205,54 @@ int linear_dgrad(const float* dy, const float* w, const float* aux, float* out,
       return dgrad_launch<D_SMALL, EPI_NONE, 1>(dy, w, aux, out, valid_len, M, K, N, s_pad, st);
     return (int)cudaErrorInvalidValue;
   }
-  if (is_width(N) && epilogue == EPI_RESIDUAL)  // FFN1 -> x2
+  if (N == D_MODEL && epilogue == EPI_RESIDUAL)  // FFN1 -> x2
     return dgrad_launch<D_MODEL, EPI_RESIDUAL, DG_SPLIT_FFN>(dy, w, aux, out, valid_len, M, K,
                                                              N, s_pad, st);
-  if (is_width(N) && K == 3 * N && epilogue == EPI_NONE)  // QKV
+  if (N == D_MODEL && K == 3 * N && epilogue == EPI_NONE)  // QKV
     return dgrad_launch<D_MODEL, EPI_NONE, DG_SPLIT_QKV>(dy, w, aux, out, valid_len, M, K, N,
                                                          s_pad, st);
-  if (is_width(N) && epilogue == EPI_NONE)  // out-projection
+  if (N == D_MODEL && epilogue == EPI_NONE)  // out-projection
     return dgrad_launch<D_MODEL, EPI_NONE, 1>(dy, w, aux, out, valid_len, M, K, N, s_pad, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// linear_dgrad at ChAdaViT-B/16's four sites (D 768), the stream-K walk over
+// as many blocks as the card holds (linear_dgrad_d768_blocks); dy, w, aux,
+// out and epilogue as linear_dgrad's. partial: (slots, 32 x BN) scratch, BN
+// 256 at the mask site (N 2048) and 192 at the others, slots >= M / 32 x N /
+// BN + blocks - 1; list: (M / s_pad + 1 + M / 32) int32 scratch. Every
+// operand 16-byte aligned. Three launches: the tile list, the walk, the sums
+// of the split tiles.
+int linear_dgrad_d768(const float* dy, const float* w, const float* aux, float* out,
+                      int epilogue, float* partial, int slots, int* list, const int* valid_len,
+                      int M, int K, int N, int s_pad, void* stream) {
+  if (!rows_ok(M, K, s_pad) || !is_weight_shape_at(K, N, D_WIDE) || K % DG_SLAB ||
+      (epilogue != EPI_NONE) != (aux != nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N == D_FFN && epilogue == EPI_RELU_MASK)  // FFN2 -> hid
+    return dgrad_stream_launch<256, EPI_RELU_MASK>(dy, w, aux, out, partial, slots, list,
+                                                   valid_len, M, K, N, s_pad, st);
+  if (N == D_WIDE && K == D_FFN && epilogue == EPI_RESIDUAL)  // FFN1 -> x2
+    return dgrad_stream_launch<D_MODEL, EPI_RESIDUAL>(dy, w, aux, out, partial, slots, list,
+                                                      valid_len, M, K, N, s_pad, st);
+  if (N == D_WIDE && K != D_FFN && epilogue == EPI_NONE)  // out-projection, QKV
+    return dgrad_stream_launch<D_MODEL, EPI_NONE>(dy, w, aux, out, partial, slots, list,
+                                                  valid_len, M, K, N, s_pad, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The grid of linear_dgrad_d768 at a site (K, N, epilogue as its): the SMs
+// of the current device times the blocks an SM its walk holds; or minus a
+// cudaError.
+int linear_dgrad_d768_blocks(int K, int N, int epilogue) {
+  if (N == D_FFN && K == D_WIDE && epilogue == EPI_RELU_MASK)
+    return dgrad_stream_blocks<256, EPI_RELU_MASK>();
+  if (N == D_WIDE && K == D_FFN && epilogue == EPI_RESIDUAL)
+    return dgrad_stream_blocks<D_MODEL, EPI_RESIDUAL>();
+  if (N == D_WIDE && (K == D_WIDE || K == 3 * D_WIDE) && epilogue == EPI_NONE)
+    return dgrad_stream_blocks<D_MODEL, EPI_NONE>();
+  return -(int)cudaErrorInvalidValue;
 }
 
 // dy (M, N), x (M, K); dwb: (N * K + N,) = dW (N, K) row-major, then db (N,).

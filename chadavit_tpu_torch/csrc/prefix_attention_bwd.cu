@@ -1,5 +1,7 @@
-// Prefix-masked multi-head attention, backward, on CUDA cores, in float32. The
-// bf16 instance is a tensor-core kernel of its own (prefix_attention_bf16.cu).
+// Prefix-masked multi-head attention, backward, in float32: on CUDA cores at
+// head widths 96 and 32, on the tensor cores in 3xTF32 at head 64 (the
+// blocks "head 64" below). The bf16 instance is a tensor-core kernel of its
+// own (prefix_attention_bf16.cu).
 //
 // Replaces the TPU kernel chadavit_tpu/ops/flash_attention.py::_bwd_kernel
 // (reached through _vjp_bwd, the custom VJP of prefix_flash_attention), and the
@@ -30,7 +32,8 @@
 // After the prep pass, one launch (attention_bwd_kernel) runs both kinds of
 // block: dkdv_block owns BT = 64 keys of one head and walks the query tiles
 // below valid_len[b]; dq_block owns BT = 64 queries and walks the key tiles
-// below valid_len[b]. The design, for the CUDA cores:
+// below valid_len[b] (at head 64 dkdv_block_tc and dq_block_tc, the same
+// walks on the tensor cores). The design, for the CUDA cores:
 // - the walked tiles (qs, dO, lse and delta in dkdv; K and V in dq) come
 //   through a two-slot ring of 16-byte cp.async copies (sgemm_f32.cuh), one
 //   barrier a tile, the next tile in flight while this one is multiplied; the
@@ -375,11 +378,264 @@ __device__ __forceinline__ void dq_block(Item it, float* smem, const float* __re
   if (role == 1) store_rows<HD>(dqb, ldg, qr, kg, acc, scale);
 }
 
+// ---- head 64: the five products on the tensor cores, in 3xTF32 ------------
+// At HD 64 the products above run on the CUDA cores' own ceiling: the kernel
+// does 14 vl^2 hd FMAs for the 10 the function needs, a thread's 4 x 8 score
+// tiles read 0.094 float4 a FMA, and a share of 59 % of the FMA pipe holds it
+// at 42 % of its bound. The blocks below keep the kernel's design (the prep
+// pass, the items longest first, dk/dv and dq in blocks of their own, the
+// ring of walked tiles, warp w < 4 handing P to warp w + 4 through a named
+// barrier, the masks and the zero tiles) and form S, dP, dV, dK and dq on the
+// tensor cores (attention_f32.cuh: scores_tf32, second_tf32), every operand
+// split into two TF32 values and each product three TF32 products into a
+// float32 sum (mma_tf32.cuh), so the error stays float32's. A warp owns 16
+// rows of the block's 64 (keys in dkdv, queries in dq) against the tile's
+// 64, in eight m16n8k8 C fragments; dS = P (dP - delta) is formed on the
+// CUDA cores in the C fragments of dP, which then serve as the A fragments
+// of dK += dS^T qs (or dq += dS K) with no trip through shared memory: the
+// fragment's columns 2 t, 2 t + 1 take the places of A's t, t + 4, and the
+// B tile is read at the same permuted rows. P goes from warp w to warp w + 4
+// in fragment order (a float a lane, 32 consecutive floats a register), so
+// neither side's shared accesses conflict. In dq the dS fragments go back
+// from warp w + 4 to warp w the same way, and each of the two warps sums
+// half of dq's 64 head columns, so that the two share the dq block's three
+// products a tile evenly, as they share dkdv's four.
+constexpr int FRAG_F = 4 * 8 * 4 * 32;  // a 64 x 64 tile in C fragments: 4 pairs, 8 x 4 x 32
+
+// register r of C fragment j of a warp's 16 x 64 tile in its pair's part of a
+// fragment buffer, at lane 0 (a lane adds its index)
+__device__ __forceinline__ int frag_at(int pair, int j, int r) {
+  return ((pair * 8 + j) * 4 + r) * 32;
+}
+
+// the C fragments of a warp's 16 x 64 tile into (or out of) its pair's part of buf
+__device__ __forceinline__ void put_frags(float* buf, int pair, int lane, const float (&c)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) buf[frag_at(pair, j, r) + lane] = c[j][r];
+}
+__device__ __forceinline__ void get_frags(float (&c)[8][4], const float* buf, int pair, int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) c[j][r] = buf[frag_at(pair, j, r) + lane];
+}
+
+// Warp w + 4 hands dS to warp w through named barrier 5 + w (dq): the
+// direction opposite to pair_arrive / pair_sync's.
+__device__ __forceinline__ void back_arrive(int pair) {
+  asm volatile("bar.arrive %0, 64;\n" ::"r"(pair + 5) : "memory");
+}
+__device__ __forceinline__ void back_sync(int pair) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(pair + 5) : "memory");
+}
+
+// a warp's NT x 8 head columns from column 8 n0, rows r0 + g and r0 + g + 8
+// (C fragments), times mul into dst (rows of ld)
+template <int NT>
+__device__ __forceinline__ void store_frags(float* dst, int ld, int r0, int n0, int lane,
+                                            const float (&acc)[NT][4], float mul) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(dst + (size_t)(r0 + g + 8 * h) * ld + 8 * (n0 + j) + 2 * t) =
+          make_float2(acc[j][2 * h] * mul, acc[j][2 * h + 1] * mul);
+}
+
+template <int HD>
+constexpr int DKDV_TC_SMEM =
+    (2 * TILE_F<HD> + STAGES * DKDV_STAGE<HD> + FRAG_F) * (int)sizeof(float);
+template <int HD>
+constexpr int DQ_TC_SMEM =
+    (2 * TILE_F<HD> + 2 * BT + STAGES * DQ_STAGE<HD> + FRAG_F) * (int)sizeof(float);
+
+// dk and dv of BT keys of one head, on the tensor cores. Shared memory: K, V
+// (resident), the ring's STAGES slots of (qs, dO, lse, delta) of a query
+// tile, then P in fragments. Warp w < 4: S^T = K qs^T, P, dV += P^T dO; warp
+// w + 4: dP^T = V dO^T, dS, dK += dS^T qs; of keys 16 (w % 4) .. + 16.
+template <int HD>
+__device__ __forceinline__ void dkdv_block_tc(Item it, float* smem, const float* __restrict__ qs,
+                                              const float* __restrict__ k,
+                                              const float* __restrict__ v, int ld,
+                                              const float* __restrict__ dout, int ldo,
+                                              const float* __restrict__ lse,
+                                              const float* __restrict__ delta, int vl,
+                                              float* __restrict__ dk, float* __restrict__ dv,
+                                              int ldg, int heads, int s_pad) {
+  constexpr int TF = TILE_F<HD>, STAGE = DKDV_STAGE<HD>;
+  const int b = it.b, h = it.h, k0 = it.t0;
+  const size_t row0 = (size_t)b * s_pad;
+  float* dkb = dk + (row0 + k0) * ldg + h * HD;
+  float* dvb = dv + (row0 + k0) * ldg + h * HD;
+  if (k0 >= vl) {  // uniform across the block, before any barrier
+    zero_rows<HD>(dkb, ldg);
+    zero_rows<HD>(dvb, ldg);
+    return;
+  }
+  float* Ks = smem;
+  float* Vs = Ks + TF;
+  float* ring = Vs + TF;
+  float* Pf = ring + STAGES * STAGE;  // P in C fragments
+  const int ldq = heads * HD;
+  const float* lse_h = lse + ((size_t)b * heads + h) * s_pad;
+  const float* delta_h = delta + ((size_t)b * heads + h) * s_pad;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int role = warp >> 2, pair = warp & 3, r0 = 16 * pair;
+  const int g = lane >> 2, t = lane & 3;
+  const bool key_ok = k0 + r0 + g < vl, key8_ok = k0 + r0 + g + 8 < vl;
+
+  copy_tile<THREADS, HD>(Ks, k + (row0 + k0) * ld + h * HD, ld);  // with query tile 0's copies
+  copy_tile<THREADS, HD>(Vs, v + (row0 + k0) * ld + h * HD, ld);
+  auto load = [&](int s, int slot) {
+    float* st = ring + slot * STAGE;
+    copy_tile<THREADS, HD>(st, qs + (row0 + s * BT) * ldq + h * HD, ldq);
+    copy_tile<THREADS, HD>(st + TF, dout + (row0 + s * BT) * ldo + h * HD, ldo);
+    if (tid < 2 * BT / 4)  // 64 lse, then 64 delta
+      sgemm::cp_async_16(st + 2 * TF + 4 * tid,
+                         (tid < BT / 4 ? lse_h : delta_h - BT) + s * BT + 4 * tid);
+  };
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[j][r] = 0.f;
+
+  // every query tile the forward computed, all 64 rows of it
+  sgemm::ring<STAGES>((vl + BT - 1) / BT, load, [&](int, int slot) {
+    const float* st = ring + slot * STAGE;
+    const float* lse_s = st + 2 * TF;
+    const float* delta_s = lse_s + BT;
+    // S^T = K qs^T (role 0) or dP^T = V dO^T (role 1), keys x queries
+    float sc[8][4];
+    scores_tf32<HD>(sc, role == 0 ? Ks : Vs, r0, st + role * TF, lane);
+    if (role == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {  // queries 8 j + 2 t, 8 j + 2 t + 1
+        const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+        sc[j][0] = key_ok ? exp2f(sc[j][0] - l.x) : 0.f;
+        sc[j][1] = key_ok ? exp2f(sc[j][1] - l.y) : 0.f;
+        sc[j][2] = key8_ok ? exp2f(sc[j][2] - l.x) : 0.f;
+        sc[j][3] = key8_ok ? exp2f(sc[j][3] - l.y) : 0.f;
+      }
+      put_frags(Pf, pair, lane, sc);
+      pair_arrive(pair);  // warp pair + 4 may read them
+      second_tf32<HD, HD / 8>(acc, sc, st + TF, 0, lane);  // dV += P^T dO
+    } else {
+      pair_sync(pair);  // P of these keys is in place
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(delta_s + 8 * j + 2 * t);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          sc[j][r] = Pf[frag_at(pair, j, r) + lane] * (sc[j][r] - (r & 1 ? dl.y : dl.x));
+      }
+      second_tf32<HD, HD / 8>(acc, sc, st, 0, lane);  // dK += dS^T qs
+    }
+  });
+  if (role == 0) store_frags<HD / 8>(dvb, ldg, r0, 0, lane, acc, 1.f);
+  else store_frags<HD / 8>(dkb, ldg, r0, 0, lane, acc, INV_LOG2E);
+}
+
+// dq of BT queries of one head, on the tensor cores. Shared memory: qs, dO,
+// lse, delta (resident), the ring's STAGES slots of (K, V) of a key tile,
+// then P in fragments, which warp w + 4 overwrites with dS (each lane its own
+// entries). Warp w < 4: S = qs K^T, P, then dq's head columns 0 .. HD / 2
+// from the dS that warp w + 4 hands back; warp w + 4: dP = dO V^T, dS, dq's
+// columns HD / 2 .. HD; of queries 16 (w % 4) .. + 16.
+template <int HD>
+__device__ __forceinline__ void dq_block_tc(Item it, float* smem, const float* __restrict__ qs,
+                                            const float* __restrict__ k,
+                                            const float* __restrict__ v, int ld,
+                                            const float* __restrict__ dout, int ldo,
+                                            const float* __restrict__ lse,
+                                            const float* __restrict__ delta, int vl,
+                                            float* __restrict__ dq, int ldg, int heads, int s_pad,
+                                            float scale) {
+  constexpr int TF = TILE_F<HD>, STAGE = DQ_STAGE<HD>, NT = HD / 16;
+  const int b = it.b, h = it.h, q0 = it.t0;
+  const size_t row0 = (size_t)b * s_pad;
+  float* dqb = dq + (row0 + q0) * ldg + h * HD;
+  if (q0 >= vl) {  // uniform across the block, before any barrier
+    zero_rows<HD>(dqb, ldg);
+    return;
+  }
+  float* Qs = smem;
+  float* dOs = Qs + TF;
+  float* lse_s = dOs + TF;
+  float* delta_s = lse_s + BT;
+  float* ring = delta_s + BT;
+  float* Pf = ring + STAGES * STAGE;  // P, then dS, in C fragments
+  const int ldq = heads * HD;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int role = warp >> 2, pair = warp & 3, r0 = 16 * pair;
+  const int g = lane >> 2, t = lane & 3;
+
+  // the block's qs, dO, lse and delta, with key tile 0's copies
+  copy_tile<THREADS, HD>(Qs, qs + (row0 + q0) * ldq + h * HD, ldq);
+  copy_tile<THREADS, HD>(dOs, dout + (row0 + q0) * ldo + h * HD, ldo);
+  if (tid < 2 * BT / 4)
+    sgemm::cp_async_16(lse_s + 4 * tid,
+                       (tid < BT / 4 ? lse : delta - BT) + ((size_t)b * heads + h) * s_pad + q0 +
+                           4 * tid);
+  auto load = [&](int s, int slot) {
+    float* st = ring + slot * STAGE;
+    copy_tile<THREADS, HD>(st, k + (row0 + s * BT) * ld + h * HD, ld);
+    copy_tile<THREADS, HD>(st + TF, v + (row0 + s * BT) * ld + h * HD, ld);
+  };
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[j][r] = 0.f;
+
+  // every key tile below valid_len
+  sgemm::ring<STAGES>((vl + BT - 1) / BT, load, [&](int s, int slot) {
+    const float* st = ring + slot * STAGE;
+    const int k0 = s * BT;
+    // S = qs K^T (role 0) or dP = dO V^T (role 1), queries x keys
+    float sc[8][4];
+    scores_tf32<HD>(sc, role == 0 ? Qs : dOs, r0, st + role * TF, lane);
+    if (role == 0) {
+      const float l0 = lse_s[r0 + g], l8 = lse_s[r0 + g + 8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {  // keys k0 + 8 j + 2 t, k0 + 8 j + 2 t + 1
+        const bool ok = k0 + 8 * j + 2 * t < vl, ok1 = k0 + 8 * j + 2 * t + 1 < vl;
+        sc[j][0] = ok ? exp2f(sc[j][0] - l0) : 0.f;
+        sc[j][1] = ok1 ? exp2f(sc[j][1] - l0) : 0.f;
+        sc[j][2] = ok ? exp2f(sc[j][2] - l8) : 0.f;
+        sc[j][3] = ok1 ? exp2f(sc[j][3] - l8) : 0.f;
+      }
+      put_frags(Pf, pair, lane, sc);
+      pair_arrive(pair);  // warp pair + 4 may read them
+      back_sync(pair);    // and hands dS back in their place
+      get_frags(sc, Pf, pair, lane);
+      second_tf32<HD, NT>(acc, sc, st, 0, lane);  // dq += dS K, columns 0 .. HD / 2
+    } else {
+      const float d0 = delta_s[r0 + g], d8 = delta_s[r0 + g + 8];
+      pair_sync(pair);  // P of these queries is in place
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          sc[j][r] = Pf[frag_at(pair, j, r) + lane] * (sc[j][r] - (r < 2 ? d0 : d8));
+      put_frags(Pf, pair, lane, sc);
+      back_arrive(pair);  // warp pair may read them
+      second_tf32<HD, NT>(acc, sc, st, NT, lane);  // dq += dS K, columns HD / 2 .. HD
+    }
+  });
+  store_frags<NT>(dqb, ldg, r0, role * NT, lane, acc, scale);
+}
+
 // dk/dv and dq in one launch, so that each fills the other's tail: blocks
 // 2 i and 2 i + 1 take the dk/dv and the dq of item i of the longest-first
 // order (image, head, tile). Grid (2 * batch * heads * s_pad / BT).
 template <int HD>
-constexpr int BWD_SMEM = DKDV_SMEM<HD> > DQ_SMEM<HD> ? DKDV_SMEM<HD> : DQ_SMEM<HD>;
+constexpr int BWD_SMEM = HD == 64 ? (DKDV_TC_SMEM<HD> > DQ_TC_SMEM<HD> ? DKDV_TC_SMEM<HD>
+                                                                      : DQ_TC_SMEM<HD>)
+                                  : (DKDV_SMEM<HD> > DQ_SMEM<HD> ? DKDV_SMEM<HD> : DQ_SMEM<HD>);
 
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -393,10 +649,21 @@ attention_bwd_kernel(const float* __restrict__ qs, const float* __restrict__ k,
   const int nt = s_pad / BT, per_image = heads * nt, item = blockIdx.x / 2;
   const Item it = {order[item / per_image], item % per_image / nt, item % nt * BT};
   const int vl = min(max(valid_len[it.b], 0), s_pad);
-  if (blockIdx.x % 2 == 0)
-    dkdv_block<HD>(it, smem, qs, k, v, ld, dout, ldo, lse, delta, vl, dk, dv, ldg, heads, s_pad);
-  else
-    dq_block<HD>(it, smem, qs, k, v, ld, dout, ldo, lse, delta, vl, dq, ldg, heads, s_pad, scale);
+  if constexpr (HD == 64) {  // the tensor cores
+    if (blockIdx.x % 2 == 0)
+      dkdv_block_tc<HD>(it, smem, qs, k, v, ld, dout, ldo, lse, delta, vl, dk, dv, ldg, heads,
+                        s_pad);
+    else
+      dq_block_tc<HD>(it, smem, qs, k, v, ld, dout, ldo, lse, delta, vl, dq, ldg, heads, s_pad,
+                      scale);
+  } else {
+    if (blockIdx.x % 2 == 0)
+      dkdv_block<HD>(it, smem, qs, k, v, ld, dout, ldo, lse, delta, vl, dk, dv, ldg, heads,
+                     s_pad);
+    else
+      dq_block<HD>(it, smem, qs, k, v, ld, dout, ldo, lse, delta, vl, dq, ldg, heads, s_pad,
+                   scale);
+  }
 }
 
 template <int HD>

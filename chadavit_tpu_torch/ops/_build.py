@@ -62,6 +62,11 @@ SIGNATURES.update({f"{name}_bf16": argtypes for name, argtypes in list(SIGNATURE
 # LN1(x) after beta and the stream-K walk's grid in place of the split count
 SIGNATURES["ln_linear_fwd_d768"] = [_P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _P]
+# its K2b (csrc/fused_block_bwd.cu), linear_dgrad's arguments with the
+# stream-K walk's partial scratch, its slot count and the tile list's int32
+# scratch after the epilogue, and the walk's grid at a site (K, N, epilogue)
+SIGNATURES["linear_dgrad_d768"] = [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P]
+SIGNATURES["linear_dgrad_d768_blocks"] = [_I, _I, _I]
 SIGNATURES["linear_wgrad_d768"] = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _P]
 # bf16 only: the wgmma kernels of ChAdaViT-B/16's K1a, K1b, K1c, K2b and K2c

@@ -145,6 +145,21 @@ WGRAD_F32_STREAM_TILES = _weight_shapes(D_WIDE, WIDTHS[D_WIDE], (64, D_MODEL), (
                                         (64, D_MODEL), (D_MODEL, 64))
 WGRAD_F32_BLOCKS = 264
 WGRAD_SPLITS = 64
+# The float32 linear_dgrad at D 768 (csrc/fused_block_bwd.cu,
+# linear_dgrad_d768) is a stream-K walk too: a unit is one computed 32-row
+# tile x one column slice (DGRAD_F32_COLUMNS of the output's N) x one slab of
+# DGRAD_F32_SLAB columns of K; the units of every output tile (computed tile
+# i x slices + slice), tile-major, are cut into as many near-equal shares as
+# the card holds blocks of the walk (the C side reads that from the runtime's
+# occupancy, linear_dgrad_d768_blocks), one block each. A block's segment that
+# is a whole tile writes dX; the others land in slot tile + block, and a
+# second pass adds each split tile's slots in block order (dgrad_stream_plan,
+# dgrad_stream_fixups). The wrapper asks the C side for the grid once a site
+# and device (dgrad_stream_blocks) and sizes the scratch as every 32-row tile
+# of the batch plus blocks - 1 slots; the kernel refuses a smaller scratch.
+DGRAD_F32_SLAB = 16
+DGRAD_F32_COLUMNS = {D_FFN: 256, D_WIDE: D_MODEL}
+_DGRAD_F32_BLOCKS = {}  # (device, K, N, epilogue) -> the walk's grid there
 # layernorm_bwd (both dtypes) cuts the batch's 32-row tiles into at most this
 # many contiguous shares at D 192 (a quarter as many at D 768), one block
 # each, whatever the batch: its partial sums are (splits, 2 D) float32
@@ -639,8 +654,10 @@ def linear_dgrad(dy, w, valid_len, relu_of=None, residual=None):
     """``dX = dY @ W`` (W in Linear layout), masked by ``relu_of > 0`` or plus
     ``residual`` (kernel ``linear_dgrad`` on CUDA, at the layer's four sites
     only; in bfloat16 on the tensor cores, S a multiple of
-    :data:`BF16_GEMM_ROWS`; at D 768 in bfloat16 ``linear_dgrad_wgmma_bf16``),
-    all of one dtype. See :func:`linear_dgrad_reference`."""
+    :data:`BF16_GEMM_ROWS`; at D 768 in bfloat16 ``linear_dgrad_wgmma_bf16``,
+    in float32 the stream-K walk ``linear_dgrad_d768``,
+    :func:`dgrad_stream_plan`), all of one dtype. See
+    :func:`linear_dgrad_reference`."""
     if _launch.on_cpu(dy, w, valid_len):
         return linear_dgrad_reference(dy, w, valid_len, relu_of, residual)
     if relu_of is not None and residual is not None:
@@ -657,16 +674,84 @@ def linear_dgrad(dy, w, valid_len, relu_of=None, residual=None):
     tc = _copy_align("linear_dgrad", dt, s)
     out = torch.empty((bsz, s, n), dtype=dt, device=dy.device)
     name, fn = _library_fn("linear_dgrad", dt)
+    operands = (_rows("dy", dy, bsz, s, k, dt, tc), _launch.vector_operand(w, "w", dt, tc),
+                None if aux is None else _rows("aux", aux, bsz, s, n, dt, tc), out.data_ptr(),
+                epilogue)
+    rows = (_launch.valid_len_operand(valid_len, bsz, dy.device), bsz * s, k, n, s,
+            _launch.stream(dy.device))
     if _wgmma(dt, _layer_width(k, n)):
-        fn = _build.library().linear_dgrad_wgmma_bf16
-    status = fn(
-        _rows("dy", dy, bsz, s, k, dt, tc), _launch.vector_operand(w, "w", dt, tc),
-        None if aux is None else _rows("aux", aux, bsz, s, n, dt, tc), out.data_ptr(), epilogue,
-        _launch.valid_len_operand(valid_len, bsz, dy.device), bsz * s, k, n, s,
-        _launch.stream(dy.device))
+        status = _build.library().linear_dgrad_wgmma_bf16(*operands, *rows)
+    elif _layer_width(k, n) == D_WIDE:  # the float32 stream-K walk
+        slots = dgrad_stream_slots(bsz * s, n, dgrad_stream_blocks(k, n, epilogue, dy.device))
+        partial = torch.empty((slots, ROW_BLOCK * DGRAD_F32_COLUMNS[n]), dtype=torch.float32,
+                              device=dy.device)
+        # the images' first entries and the count, then the computed 32-row tiles' first rows
+        tile_list = torch.empty(bsz + 1 + bsz * s // ROW_BLOCK, dtype=torch.int32,
+                                device=dy.device)
+        status = _build.library().linear_dgrad_d768(*operands, partial.data_ptr(), slots,
+                                                    tile_list.data_ptr(), *rows)
+    else:
+        status = fn(*operands, *rows)
     _build.check(status, name)
     _launch.counted(instance(name, _layer_width(k, n)))
     return out
+
+
+def dgrad_stream_blocks(k: int, n: int, epilogue: int, device) -> int:
+    """The grid of the float32 ``linear_dgrad`` at D 768 at site ``(k, n,
+    epilogue)`` on ``device``: as many blocks as the card holds at the walk's
+    occupancy, as its C side reads them from the runtime
+    (``linear_dgrad_d768_blocks``), asked once a site and device."""
+    key = (device, k, n, epilogue)
+    if key not in _DGRAD_F32_BLOCKS:
+        blocks = _build.library().linear_dgrad_d768_blocks(k, n, epilogue)
+        if blocks <= 0:  # minus a cudaError, or no block of the walk fits an SM
+            raise RuntimeError(f"linear_dgrad_d768_blocks: {blocks}")
+        _DGRAD_F32_BLOCKS[key] = blocks
+    return _DGRAD_F32_BLOCKS[key]
+
+
+def dgrad_stream_slots(m: int, n: int, blocks: int) -> int:
+    """Partial slots of the float32 ``linear_dgrad`` at D 768 for ``m`` rows,
+    output width ``n`` and a walk of ``blocks`` blocks: one a 32-row tile and
+    column slice, plus ``blocks`` - 1 (slot tile + block); each holds 32 x
+    ``DGRAD_F32_COLUMNS[n]`` float32."""
+    return m // ROW_BLOCK * (n // DGRAD_F32_COLUMNS[n]) + blocks - 1
+
+
+def dgrad_stream_plan(valid_len, s_pad: int, k: int, n: int, blocks: int) -> list:
+    """What each of the ``blocks`` blocks of the float32 ``linear_dgrad`` at D
+    768 (``dY (M, k) @ W (k, n)``) sums, as its kernel assigns it: the units
+    (first row of a computed 32-row tile, column slice, slab of
+    :data:`DGRAD_F32_SLAB` columns of K) of every output tile t = (computed
+    tile i, slice j), t = i x slices + j, its slabs in order, cut into
+    contiguous shares, block b taking units ``[b U // G, (b + 1) U // G)`` of
+    the U. Per block, its segments in order: ``(tile, slot, units)``, slot
+    None where the segment is the whole tile (the block writes dX), else tile
+    + b."""
+    rows = wgrad_split_tiles(valid_len, s_pad, 1)[0]
+    slices, slabs = n // DGRAD_F32_COLUMNS[n], k // DGRAD_F32_SLAB
+    units = [(r, j, q) for r in rows for j in range(slices) for q in range(slabs)]
+    total = len(units)
+    plan = []
+    for blk in range(blocks):
+        segments = []
+        for u in range(blk * total // blocks, (blk + 1) * total // blocks):
+            if not segments or segments[-1][0] != u // slabs:
+                segments.append((u // slabs, []))
+            segments[-1][1].append(units[u])
+        plan.append([(t, None if len(us) == slabs else t + blk, us) for t, us in segments])
+    return plan
+
+
+def dgrad_stream_fixups(tile: int, slabs: int, tiles: int, blocks: int) -> list:
+    """The slots the second pass of the float32 ``linear_dgrad`` at D 768 adds,
+    in order, for output ``tile`` of ``tiles`` when a tile has ``slabs`` units
+    and the walk ``blocks`` blocks, by its kernel's arithmetic (that of
+    :func:`wgrad_stream_fixups`); none when one block's share holds the whole
+    tile (that block wrote it)."""
+    slots = wgrad_stream_fixups(tile, slabs, tiles, blocks)
+    return slots if len(slots) > 1 else []
 
 
 # the four weight shapes of a layer of each width

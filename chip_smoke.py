@@ -430,7 +430,7 @@ SMOKE_METRIC_REL = 1e-5
 CHAIN_KERNEL_KEYS = ("ln_linear", "linear_relu", "linear_residual_ln", "layernorm_bwd",
                      "linear_dgrad", "linear_wgrad", "reduce_ln_splits", "reduce_splits",
                      "reduce_wgrad", "ln_rows", "reduce_stream", "linear_wgmma", "gemm128",
-                     "res_ln_rows")
+                     "res_ln_rows", "reduce_dgrad", "dgrad_list")
 CHAIN_ENTRIES = ("ln_linear_fwd", "linear_relu_fwd", "linear_residual_ln_fwd", "layernorm_bwd",
                  "linear_dgrad", "linear_wgrad")
 
@@ -448,10 +448,16 @@ D768_KERNELS = [
     "res_ln_rows_bf16_kernel<768>(",
     "linear_wgrad_wgmma_kernel(", "reduce_stream_kernel(", "ln_rows_kernel<768>(",
     # float32 (fused_block_bwd.cu): K2c's stream-K walk at its two tiles, its
-    # second pass and the QKV site's LN1 from the saved stats
+    # second pass and the QKV site's LN1 from the saved stats; K2b's stream-K
+    # walk at its three (column tile, epilogue) instances, its second pass
+    # and its tile list
     "linear_wgrad_stream_kernel<64, 192>(", "linear_wgrad_stream_kernel<192, 64>(",
     "reduce_wgrad_stream_kernel<64, 192>(", "reduce_wgrad_stream_kernel<192, 64>(",
     "ln_rows_saved_f32_kernel<768>(",
+    "linear_dgrad_stream_kernel<256, 1>(", "linear_dgrad_stream_kernel<192, 2>(",
+    "linear_dgrad_stream_kernel<192, 0>(", "reduce_dgrad_stream_kernel<256, 1>(",
+    "reduce_dgrad_stream_kernel<192, 2>(", "reduce_dgrad_stream_kernel<192, 0>(",
+    "dgrad_list_kernel(",
     # float32 (fused_block.cu): K1a's LN1 row pass and GEMM, K1b's GEMM at both
     # sites (the GEMMs in their 96- and 64-column tiles) and its LayerNorm row
     # pass, K1c
@@ -486,9 +492,12 @@ D64_KERNELS = [
 
 # the card's peaks (NVIDIA H100 SXM data sheet): f32 outside the tensor cores,
 # dense bf16 on the tensor cores, and HBM3 bandwidth. The bound of a float32
-# instance is taken at the f32 rate, of a bfloat16 instance at the bf16 rate.
+# instance is taken at the f32 rate, of a bfloat16 instance at the bf16 rate;
+# the float32 attention backward at head 64, whose products run on the
+# tensor cores in 3xTF32, at the TF32 rate (three products a product).
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 494.7e12  # dense TF32 on the tensor cores, the same data sheet
 PEAK_BYTES = 3.35e12
 
 T0 = time.perf_counter()
@@ -1548,7 +1557,8 @@ def main() -> int:
                                  "ln_rows_f32", "res_ln_rows"),
                          fbb_cu: ("layernorm_bwd", "reduce_ln_splits", "linear_wgrad",
                                   "reduce_wgrad_splits", "linear_wgrad_stream",
-                                  "reduce_wgrad_stream", "ln_rows_saved_f32", "linear_dgrad"),
+                                  "reduce_wgrad_stream", "ln_rows_saved_f32", "linear_dgrad",
+                                  "linear_dgrad_stream", "reduce_dgrad_stream", "dgrad_list"),
                          ln_cu: ("ln_bwd",)}
         ptxas = [_build.ptxas_report(Path(src).name)  # beside the build
                  for src in ptxas_sources]
@@ -3347,11 +3357,19 @@ def main() -> int:
                         q16, k16, v16, o16, lse16, do16, vl, H16),
                     lambda: torch.autograd.grad(sdpa16, (ql16, kl16, vl16), heads16(do16),
                                                 retain_graph=True),
-                    sum(10 * n * n * D16 for n in valid_len),
+                    # in float32 its five products run on the tensor cores in 3xTF32,
+                    # three TF32 products a product (csrc/mma_tf32.cuh)
+                    sum((30 if f32 else 10) * n * n * D16 for n in valid_len),
                     es * (5 * rows * D16 + 3 * m_all * D16) + 4 * (2 * H16 * rows))}
             for name, one in runs16.items():
                 iname = fa.instance(name + tag, 64)
-                time_entry(iname, [one], peak, f"B {B}, S_pad {S_PAD}, D {D16}, {H16} heads of 64")
+                tf32 = f32 and name == "prefix_attention_bwd"
+                time_entry(iname, [one], PEAK_TF32_FLOPS if tf32 else peak,
+                           f"B {B}, S_pad {S_PAD}, D {D16}, {H16} heads of 64")
+                if tf32:
+                    log(f"  {iname}: bound in 3xTF32 {stats[iname]['bound_ms']:.4f} ms; its "
+                        "products at the float32 FMA peak "
+                        f"{sum(10 * n * n * D16 for n in valid_len) / PEAK_F32_FLOPS * 1e3:.4f} ms")
                 first, again = one[0](), one[0]()
                 torch.cuda.synchronize()
                 ph.check(torch.equal(first, again),

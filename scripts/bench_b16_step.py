@@ -7,7 +7,7 @@ spec, the multicrop inside the step) and the float32 step on 4e (b)'s
 warms the allocator, then 3 steps under the profiler (device busy: the sum of
 the kernels' device times a step, the multicrop's range left out) and the
 host clock around them (wall a step, after a synchronize), and the device
-time a step of the chain's K1b and K2c kernels. Run from the root of the
+time a step of the chain's K1b, K2c and K2b kernels. Run from the root of the
 repository:
 
     python3 scripts/bench_b16_step.py [--parent DIR]
@@ -32,6 +32,11 @@ STEPS = 3
 # wgmma GEMM's epilogue 5) and of K2c (both passes, the f32 QKV site's LN1)
 K1B_KEYS = ("linear_residual_ln", "res_ln_rows", "gemm128_kernel<768", ", 5>(")
 K2C_KEYS = ("linear_wgrad", "reduce_wgrad", "reduce_stream", "ln_rows_saved")
+# and of K2b (the f32 walk with its second pass and tile list; the bf16
+# wgmma GEMM at its four sites)
+K2B_KEYS = ("linear_dgrad", "reduce_dgrad", "dgrad_list", "linear_wgmma_kernel<2048, 768, 256, 1>",
+            "linear_wgmma_kernel<768, 2048, 192, 2>", "linear_wgmma_kernel<768, 768, 192, 0>",
+            "linear_wgmma_kernel<768, 2304, 192, 0>")
 
 
 def worker(root: Path) -> dict:
@@ -71,7 +76,7 @@ def worker(root: Path) -> dict:
                        if keys is None or any(k in e.key for k in keys)) / 1e3 / STEPS
 
         return {"device_busy_ms": ms(), "wall_ms": wall * 1e3, "k1b_ms": ms(K1B_KEYS),
-                "k2c_ms": ms(K2C_KEYS)}
+                "k2c_ms": ms(K2C_KEYS), "k2b_ms": ms(K2B_KEYS)}
 
     out = {"tree": str(root)}
     state, fused, _, _ = build_dino(bench.b16_spec(), device_augmentations=bench.ASYMMETRIC_AUGS)
@@ -123,7 +128,7 @@ def main() -> int:
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
     for step in ("bf16_7ch", "f32_3ch"):
-        for key in ("device_busy_ms", "wall_ms", "k1b_ms", "k2c_ms"):
+        for key in ("device_busy_ms", "wall_ms", "k1b_ms", "k2c_ms", "k2b_ms"):
             print(f"{step} {key}: " + ", ".join(f"{lab} {r[step][key]:.2f}"
                                                 for lab, r in zip(labels, runs)), flush=True)
     return 0

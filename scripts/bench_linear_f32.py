@@ -43,16 +43,20 @@ row pass), without saves, and K2c at its four sites (``linear_wgrad_d768``:
 at QKV the LN1 row pass, then both passes of the stream-K walk over
 ``fused_block.WGRAD_F32_BLOCKS`` blocks; in a tree without that entry point
 ``linear_wgrad`` over its split plan, the D 192 tiles over a grid of output
-tiles x splits), as built, in
+tiles x splits) and K2b at its four sites (``linear_dgrad_d768``: the
+tile list, the stream-K walk over the blocks the card holds, the sums of the
+split tiles; in a tree without that entry point ``linear_dgrad``, a block a
+32-row tile, column slice and K half), as built, in
 ``no_copy`` and in ``no_fma``, at two
 sets of shapes: chip_smoke.py's narrow f32 shapes (phase 2c: 8 images of 1-3
 channels, S_pad 640, 3 340 valid rows) and the rows of the f32 B/16 step on
 chip_smoke.py's 3-channel bucket (phase 4e (b): 2 images of 3 and 2
 channels x 2 crops, S_pad 640, 1 964 valid rows, where K1b's GEMM takes
-its 64-column tile); the blocks each K2c site's grid holds and the waves of
-the card's two blocks an SM that they make; one PyTorch call for the same
+its 64-column tile); the blocks each K2c and K2b site's grid holds and the
+waves they make; one PyTorch call for the same
 function (``layer_norm`` and ``addmm``, on all rows; K2c ``mm`` of dY^T and
-X' and ``sum`` of dY, X' = ``layer_norm(x)`` at QKV) and the bound
+X' and ``sum`` of dY, X' = ``layer_norm(x)`` at QKV; K2b ``mm`` with the
+mask by ``where`` or the residual by ``addmm``) and the bound
 (operations on the valid rows at 67 TFLOP/s). With ``--parent DIR`` (an
 unpacked checkout of another commit, e.g. ``git archive`` of the parent into
 a directory that ``.gitignore`` lists) it also builds that tree's
@@ -60,8 +64,8 @@ a directory that ``.gitignore`` lists) it also builds that tree's
 ``no_fma``, times its K1a, K1b and K2c in turns with this tree's in one
 process (parent, change, change, parent), and says whether the two trees'
 K1a (qkv, mean, rstd) and K1b (out, mean, rstd, r) outputs are the same bits
-on seeded inputs, and how far apart their K2c outputs are (each K2c twice
-for the same bits). Each build also prints
+on seeded inputs, and how far apart their K2c and K2b outputs are (each K2c
+and K2b twice for the same bits). Each build also prints
 the registers and spills of the two kernels (``nvcc -Xptxas -v``). The
 diagnostic builds compute nothing meaningful; only their times are
 read. It also times each wgrad site at other split counts than the plan
@@ -118,9 +122,14 @@ KERNELS = ("ln_linear", "linear_relu", "linear_residual_ln", "linear_wgrad", "li
 D768_SHAPES = {"narrow": (640, [3, 1, 2, 3, 1, 2, 3, 2]), "bucket": (640, [3, 2, 3, 2])}
 D768_BUILDS = {"as built": [], "no_copy": ["-DSGEMM_NO_COPY"], "no_fma": ["-DSGEMM_NO_FMA"]}
 FORWARD = ("ln_linear_fwd", "ln_linear_fwd_d768", "linear_relu_fwd", "linear_residual_ln_fwd")
-BACKWARD = ("linear_wgrad", "linear_wgrad_d768", "linear_dgrad")
+BACKWARD = ("linear_wgrad", "linear_wgrad_d768", "linear_dgrad", "linear_dgrad_d768",
+            "linear_dgrad_d768_blocks")
 # K2c's four weight shapes (N, K) at D 768
 WGRAD_D768 = {"qkv": (2304, 768), "out": (768, 768), "ffn1": (2048, 768), "ffn2": (768, 2048)}
+# K2b's four sites at D 768: (K, N, epilogue: 1 the ReLU mask of hid, 2 the
+# residual dr2, 0 none), dX (M, N) = dY (M, K) @ W (K, N)
+DGRAD_D768 = {"mask": (768, 2048, 1), "ffn1": (2048, 768, 2), "out": (768, 768, 0),
+              "qkv": (2304, 768, 0)}
 
 
 def split_plan(bsz: int, s_pad: int, n: int, k: int) -> int:
@@ -205,6 +214,7 @@ def main_d768(parent) -> int:
     from chadavit_tpu_torch.ops.layernorm import layernorm_stats
 
     dev = torch.device("cuda")
+    walk = hasattr(fused_block, "dgrad_stream_plan")  # this tree has K2b's stream-K walk
     libs = build(BUILD_DIR / "bench_linear_f32_d768", builds=D768_BUILDS)
     if parent is not None:
         libs.update({f"parent {n}": lib for n, lib in build(
@@ -282,11 +292,34 @@ def main_d768(parent) -> int:
                     vl.data_ptr(), m, n, k, s_pad, grid, stream)
             return (lambda: fn(*args)), (dwb, partial)
 
+        # K2b: dY (M, K), W (K, N), the epilogue's hid or dr2 (M, N)
+        dg_in = {site: (rn(m, k), rn(k, n, scale=k ** -0.5), rn(m, n) if epi else None)
+                 for site, (k, n, epi) in DGRAD_D768.items()}
+        tile_list = torch.empty(bsz + 1 + m // 32, dtype=torch.int32, device=dev)
+
+        def k2b(lib, site):
+            k, n, epi = DGRAD_D768[site]
+            dy, w, aux = dg_in[site]
+            out = torch.empty(m, n, device=dev)
+            head = (dy.data_ptr(), w.data_ptr(), None if aux is None else aux.data_ptr(),
+                    out.data_ptr(), epi)
+            tail = (vl.data_ptr(), m, k, n, s_pad, stream)
+            if hasattr(lib, "linear_dgrad_d768"):  # the stream-K walk
+                slots = fused_block.dgrad_stream_slots(
+                    m, n, lib.linear_dgrad_d768_blocks(k, n, epi))
+                partial = torch.empty(slots, 32 * fused_block.DGRAD_F32_COLUMNS[n], device=dev)
+                args = head + (partial.data_ptr(), slots, tile_list.data_ptr()) + tail
+                return (lambda: lib.linear_dgrad_d768(*args)), (out, partial)
+            args = head + tail
+            return (lambda: lib.linear_dgrad(*args)), (out,)
+
         steps = {"K1a": lambda lib, save=False: k1a(lib, save),
                  **{f"K1b K {s[0]}": (lambda lib, save=False, s=s: k1b(lib, s, save))
                     for s in sites},
                  **{f"K2c {site}": (lambda lib, save=False, site=site: k2c(lib, site))
-                    for site in WGRAD_D768}}
+                    for site in WGRAD_D768},
+                 **{f"K2b {site}": (lambda lib, save=False, site=site: k2b(lib, site))
+                    for site in DGRAD_D768}}
         cells = []
         for site, (n, k) in WGRAD_D768.items():
             tn, tk = (192, 64) if k == 2048 else (64, 192)
@@ -300,17 +333,32 @@ def main_d768(parent) -> int:
                               f"{fused_block.WGRAD_F32_BLOCKS} blocks "
                               f"({units / fused_block.WGRAD_F32_BLOCKS:.1f} a block)")
         print("K2c grids: " + "; ".join(cells), flush=True)
+        cells = []
+        lib = libs["as built"]
+        for site, (k, n, epi) in DGRAD_D768.items():
+            bn = 256 if n == 2048 else 192
+            split = 2 if site in ("ffn1", "qkv") else 1
+            old = m // 32 * split * (n // bn)  # a block a (32-row tile, K half, column slice)
+            cells.append(f"{site} one block a tile {old} blocks ({old / 396:.2f} waves of the "
+                         "396 three an SM)")
+            if walk:
+                blocks = lib.linear_dgrad_d768_blocks(k, n, epi)
+                units = n32 * (n // bn) * (k // fused_block.DGRAD_F32_SLAB)
+                cells[-1] += (f", stream-K {units} units over {blocks} blocks "
+                              f"({units / blocks:.1f} a block)")
+        print("K2b grids: " + "; ".join(cells), flush=True)
 
         def row(name, lib):
-            cells, k2c_ms = [], 0.0
+            cells, k2c_ms, k2b_ms = [], 0.0, 0.0
             for step, make in steps.items():
                 fn, keep = make(lib)  # keep: the outputs the launches write
                 assert fn() == 0, (name, step)
                 t = time_ms(fn)
                 k2c_ms += t if step.startswith("K2c") else 0.0
+                k2b_ms += t if step.startswith("K2b") else 0.0
                 cells.append(f"{step} {t:.4f}")
-            print(f"{name}: " + ", ".join(cells) + f", K2c four sites {k2c_ms:.4f} (ms)",
-                  flush=True)
+            print(f"{name}: " + ", ".join(cells) + f", K2c four sites {k2c_ms:.4f}, K2b four "
+                  f"sites {k2b_ms:.4f} (ms)", flush=True)
 
         if parent is not None:  # as built, in turns
             for name in ("parent as built", "as built", "as built", "parent as built"):
@@ -321,13 +369,25 @@ def main_d768(parent) -> int:
                     fn, o = make(libs[name], save=True)
                     assert fn() == 0
                     torch.cuda.synchronize()
-                    if step.startswith("K2c"):  # a second call: the same bits
+                    if step.startswith(("K2c", "K2b")):  # a second call: the same bits
                         first = o[0].clone()
                         assert fn() == 0
                         torch.cuda.synchronize()
                         print(f"bits {step} {name}: the same on a second call "
                               f"{torch.equal(first, o[0])}", flush=True)
                     outs.append(o)
+                if step.startswith("K2b"):  # another order of the sums where a tile is split
+                    p, c = outs[0][0], outs[1][0]
+                    computed = torch.cat([torch.arange(i * s_pad, i * s_pad + -(-n // 32) * 32,
+                                                       device=dev)
+                                          for i, n in enumerate(valid)])
+                    pad = torch.ones(m, dtype=torch.bool, device=dev)
+                    pad[computed] = False
+                    print(f"{step}: this tree against the parent's max abs "
+                          f"{(c - p).abs().max().item():.3e}, max |parent| "
+                          f"{p.abs().max().item():.3e}; zeros past the computed tiles "
+                          f"{not c[pad].any().item()}", flush=True)
+                    continue
                 if step.startswith("K2c"):  # another order of the rows: other bits
                     p, c = outs[0][0], outs[1][0]
                     print(f"{step}: this tree against the parent's max abs "
@@ -357,12 +417,25 @@ def main_d768(parent) -> int:
             total += lib
             cells.append(f"K2c {site} {lib:.4f}")
         cells.append(f"K2c four sites {total:.4f}")
+        total = 0.0
+        for site, (dy, w, aux) in dg_in.items():
+            epi = DGRAD_D768[site][2]
+            fn = ((lambda: torch.where(aux > 0, torch.mm(dy, w), 0.0)) if epi == 1 else
+                  (lambda: torch.addmm(aux, dy, w)) if epi == 2 else (lambda: torch.mm(dy, w)))
+            lib = time_ms(fn)
+            total += lib
+            cells.append(f"K2b {site} {lib:.4f}")
+        cells.append(f"K2b four sites {total:.4f}")
         print("library: " + ", ".join(cells) + " (ms; all rows)", flush=True)
         ops = {"K1a": 2 * sum(valid) * d * 3 * d, "K1b K 768": 2 * sum(valid) * d * d,
                "K1b K 2048": 2 * sum(valid) * d * f,
                **{f"K2c {site}": 2 * sum(valid) * n * k + sum(valid) * n
                   for site, (n, k) in WGRAD_D768.items()}}
         ops["K2c four sites"] = sum(v for k_, v in ops.items() if k_.startswith("K2c"))
+        ops.update({f"K2b {site}": 2 * sum(valid) * k * n
+                    for site, (k, n, _) in DGRAD_D768.items()})
+        ops["K2b four sites"] = sum(v for k_, v in ops.items()
+                                    if k_.startswith("K2b") and k_ != "K2b four sites")
         print("bound (operations on the valid rows at 67 TFLOP/s): " + ", ".join(
             f"{k} {v / PEAK_F32_FLOPS * 1e3:.4f}" for k, v in ops.items()) + " (ms)", flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

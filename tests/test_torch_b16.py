@@ -130,12 +130,12 @@ CHAIN_BWD = {"layernorm_bwd": 3, "linear_dgrad": 4, "linear_wgrad": 4, "prefix_a
 def _c_entry(name, dtype):
     """The C entry point a launch of chain entry ``name`` at D 768 goes to:
     the bfloat16 K1a, K1b, K1c, K2b and K2c there are the wgmma kernels, the
-    float32 K1a the 128-row GEMM behind its LN1 row pass and the float32 K2c
-    the stream-K walk."""
+    float32 K1a the 128-row GEMM behind its LN1 row pass and the float32 K2b
+    and K2c the stream-K walks."""
     if dtype == torch.bfloat16 and name in ("ln_linear_fwd", "linear_residual_ln_fwd",
                                             "linear_relu_fwd", "linear_dgrad", "linear_wgrad"):
         return name + "_wgmma_bf16"
-    if dtype == torch.float32 and name in ("ln_linear_fwd", "linear_wgrad"):
+    if dtype == torch.float32 and name in ("ln_linear_fwd", "linear_wgrad", "linear_dgrad"):
         return name + "_d768"
     return name + _tag(dtype)
 

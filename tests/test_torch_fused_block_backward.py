@@ -170,12 +170,17 @@ def test_unfused_port_layer_trains_through_the_attention_function():
 class FakeLibrary:
     """Stands in for the kernel library: every launch succeeds, writes
     nothing and is recorded by name (``calls``) and with its arguments
-    (``args``)."""
+    (``args``); a grid query (``*_blocks``) is no launch and answers
+    ``blocks``."""
 
     def __init__(self):
         self.calls, self.args = [], []
+        self.blocks = 3 * 132  # three blocks on each of the H100's 132 SMs
 
     def __getattr__(self, name):
+        if name.endswith("_blocks"):
+            return lambda *args: self.blocks
+
         def launch(*args):
             self.calls.append(name)
             self.args.append(args)
@@ -193,6 +198,7 @@ def fake_cuda(monkeypatch):
     monkeypatch.setattr(_launch, "on_cpu", lambda *tensors: False)
     monkeypatch.setattr(_launch, "stream", lambda device: 0)
     monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(fused_block, "_DGRAD_F32_BLOCKS", {})  # no grid of another library
     return lib
 
 

@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from chadavit_tpu_torch.ops import _launch, fused_block
+from chadavit_tpu_torch.ops import _build, _launch, fused_block
 from chadavit_tpu_torch.ops import flash_attention as fa
 from chip_smoke import BF16_COS, Recorder, backward_reference, bf16_err
 from tests import torch_bf16_order as bf16_order
@@ -1705,3 +1705,104 @@ def test_d192_bf16_linear_relu_and_dgrad_keep_their_bits(dev):
     bench = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(bench)
     assert bench.d192_digests(fused_block, dev)["k1c_k2b"] == D192_K1C_K2B_SHA256
+
+
+# ---- ChAdaViT-B/16's float32 K2b: the stream-K walk (csrc/fused_block_bwd.cu) ----
+# linear_dgrad at D 768 in float32 at its four sites (the ReLU mask of hid,
+# the residual dr2, the out-projection, QKV), on three seeds, against the
+# plain float32 version (the gradient tolerance on the rows of the computed
+# tiles, exact zeros past them) at chip_smoke.py's narrow float32 rows (phase
+# 2c), at the rows of 4e (b)'s 3-channel bucket and at S 160 with images of
+# no valid row, one row and whole sequences (shares that run from one image
+# into the next); the rows of the tiles past the prefix are NaN in dy and in
+# hid or dr2 (never read). One launch a call, under linear_dgrad_d768; a
+# second call repeats the bits (a split tile's partials added in block
+# order). The walk's grid is the blocks the card holds, as the runtime
+# reports them.
+F32_DGRAD_D768_BATCHES = {"narrow": K1A_BATCHES["narrow"],
+                          "bucket": (640, [1 + 196 * c for c in (3, 2, 3, 2)]),
+                          "straddle": (160, [1, 33, 0, 97, 160, 129])}
+F32_DGRAD_D768_SITES = {"mask": (D16, F, "relu_of"), "ffn1": (F, D16, "residual"),
+                        "out": (D16, D16, None), "qkv": (3 * D16, D16, None)}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("site", list(F32_DGRAD_D768_SITES))
+@pytest.mark.parametrize("batch", list(F32_DGRAD_D768_BATCHES))
+def test_f32_d768_stream_dgrad_at_every_site(dev, batch, site, seed):
+    s, valid = F32_DGRAD_D768_BATCHES[batch]
+    k, n, epi = F32_DGRAD_D768_SITES[site]
+    rng = np.random.default_rng(800 + 10 * seed + list(F32_DGRAD_D768_SITES).index(site))
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    bsz = len(valid)
+    rows = [min(-(-m // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK, s) for m in valid]
+    dy = _poison_padding(_randn(rng, dev, bsz, s, k), valid)
+    w = _randn(rng, dev, k, n, scale=k ** -0.5)
+    kw = {} if epi is None else {epi: _poison_padding(_randn(rng, dev, bsz, s, n), valid)}
+    name = "linear_dgrad_d768"
+    before = _launch.LAUNCHES[name]
+    out, again = (fused_block.linear_dgrad(dy, w, vl, **kw) for _ in range(2))
+    assert _launch.LAUNCHES[name] == before + 2
+    assert out.dtype == torch.float32 and torch.equal(out, again), "a second call gives other bits"
+    code = {None: 0, "relu_of": 1, "residual": 2}[epi]
+    blocks = _build.library().linear_dgrad_d768_blocks(k, n, code)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert blocks >= sms and blocks % sms == 0, blocks  # whole SMs, as the runtime reports
+    assert fused_block.dgrad_stream_blocks(k, n, code, out.device) == blocks  # the wrapper's grid
+    _assert_computed_rows_close(out, fused_block.linear_dgrad_reference(dy, w, vl, **kw), rows)
+
+
+# ---- ChAdaViT-B/16's float32 K4 on the tensor cores in 3xTF32 ---------------------
+# prefix_attention_bwd at head 64 in float32 (csrc/prefix_attention_bwd.cu's
+# tensor-core blocks, csrc/mma_tf32.cuh) at B/16's width (12 heads of 64,
+# packed qkv rows of 2304) on the hub shapes and on ragged prefixes (1, 63,
+# 64, 65, 197, 1961 and 2048 rows), against the plain float32 version (TF32
+# off) with the gradient tolerance on the rows of the computed 64-row tiles,
+# exact zeros past them, a second call repeating the bits; and its error
+# against a float64 backward on the same inputs within three times that of
+# the plain float32 version (the f32 class: one TF32 product alone misses it
+# by 2^9).
+def _backward_f64(q, k, v, o, lse, dout, vl, heads):
+    b, s, d = q.shape
+    hd = d // heads
+
+    def split(t):
+        return t.double().reshape(b, s, heads, hd).transpose(1, 2)
+
+    qh, kh, vh, oh = map(split, (q, k, v, o))
+    rows = fa.computed_rows(s, vl, q.device)[:, None, :, None]
+    doh = torch.where(rows, split(dout), 0.0)
+    key_ok = (torch.arange(s, device=q.device)[None, :] < vl[:, None])[:, None, None, :]
+    p = torch.where(rows & key_ok, torch.exp2(qh @ kh.transpose(-1, -2) * (
+        1.4426950408889634 / hd ** 0.5) - lse.double()[..., None]), 0.0)
+    ds = p * (doh @ vh.transpose(-1, -2) - (doh * oh).sum(-1, keepdim=True))
+    grads = (ds @ kh / hd ** 0.5, ds.transpose(-1, -2) @ qh / hd ** 0.5, p.transpose(-1, -2) @ doh)
+    return torch.cat([t.transpose(1, 2).reshape(b, s, d) for t in grads], dim=-1)
+
+
+@pytest.mark.parametrize("batch", ["hub", "ragged"])
+def test_f32_head_64_backward_on_the_tensor_cores(dev, batch):
+    s, valid = {"hub": (2048, _HUB), "ragged": (ATTN_S, ATTN_VALID)}[batch]
+    d, heads = D16, H16
+    rng = np.random.default_rng(64 + len(valid))
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    qkv = _randn(rng, dev, len(valid), s, 3 * d)
+    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    rows = [min(-(-n // fa.SEQ_BLOCK) * fa.SEQ_BLOCK, s) for n in valid]
+    out, lse = fa.attention_forward(q, k, v, vl, heads, with_lse=True)
+    dout = _tail_cotangent(_randn(rng, dev, len(valid), s, d), valid, fa.SEQ_BLOCK)
+    name = "prefix_attention_bwd_hd64"
+    before = _launch.LAUNCHES[name]
+    got, again = (fa.prefix_attention_bwd(q, k, v, out, lse, dout, vl, heads) for _ in range(2))
+    assert _launch.LAUNCHES[name] == before + 2
+    assert got.dtype == torch.float32 and torch.equal(got, again), "a second call gives other bits"
+    ref = fa.prefix_flash_attention_backward_reference(q, k, v, out, lse, dout, vl, heads)
+    exact = _backward_f64(q, k, v, out, lse, dout, vl, heads)
+    for j in range(3):  # dq, dk, dv
+        cols = slice(j * d, (j + 1) * d)
+        _assert_computed_rows_close(got[..., cols], ref[..., cols], rows)
+        err = max((got[i, :m, cols].double() - exact[i, :m, cols]).abs().max().item()
+                  for i, m in enumerate(rows) if m)
+        plain = max((ref[i, :m, cols].double() - exact[i, :m, cols]).abs().max().item()
+                    for i, m in enumerate(rows) if m)
+        assert err <= 3 * plain, ("dq dk dv"[3 * j:3 * j + 2], err, plain)
