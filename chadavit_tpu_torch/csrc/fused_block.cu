@@ -28,12 +28,12 @@
 // D 64 (at D 64 Wqkv's 192 rows are one slab), linear_residual_ln_fwd at D 64
 // a template on its column tile BN = 64, so that one block still owns whole
 // rows. At D 64 every product has 64 on one side, so every step is bound by
-// its bytes. At D 768 the LN1 + QKV step (ln_linear_fwd_d768) and both
-// linear_residual_ln_fwd sites are a GEMM on 128-row tiles (gemm128_kernel)
-// with the LayerNorm in a row pass of its own, one warp a row: LN1 before
-// the product, the residual's LayerNorm after it (notes below). The D 192
-// and D 64 instances compile to the code they had. The launchers refuse any
-// other width.
+// its bytes. At D 768 the LN1 + QKV step (ln_linear_fwd_d768), the FFN1 +
+// ReLU step and both linear_residual_ln_fwd sites are a GEMM on 128-row
+// tiles (gemm128_kernel) with the LayerNorms in row passes of their own, one
+// warp a row: LN1 before the product, the residual's LayerNorm after it
+// (notes below). The D 192 and D 64 instances compile to the code they had.
+// The launchers refuse any other width.
 //
 // The three kernels here are float32 only. The bf16 path the JAX package
 // trains in (precision "bf16": bf16 activations, f32 parameters cast to bf16
@@ -252,7 +252,9 @@ ln_linear_kernel(const float* __restrict__ x, const float* __restrict__ g,
 
 // ---- linear_relu_fwd: out = relu(x @ W^T + bias) ----------------------------
 // float32 only (the bf16 instance is linear_fwd_bf16.cu's). Redesigned for
-// Hopper's CUDA cores on the shared main loop of sgemm_f32.cuh.
+// Hopper's CUDA cores on the shared main loop of sgemm_f32.cuh. At D 192 and
+// D 64; D 768 takes gemm128_kernel's ReLU epilogue (below), which sums in
+// this kernel's order.
 //
 // Replaces the FFN1 step of the TPU kernel
 // chadavit_tpu/ops/fused_block.py::_fwd_kernel (:91), lines :172-173:
@@ -305,10 +307,10 @@ static_assert(LR_BN == LR_THREADS / 32 * 8 * LR_TN && BM == 4 * LR_TM &&
                   D_FFN % (LR_SLABS * LR_BN) == 0,
               "linear_relu tile shape");
 
-template <int K>  // K = D, the width
+template <int K>  // K = D, the width: 192 or 64 (D 768 takes gemm128_kernel)
 struct LinearReluF32 {
   static constexpr int LDX = K + 4;  // a resident x row, padded
-  // D 192: 84.5 KB, two blocks an SM; D 768: 156.5 KB, one
+  // D 192: 84.5 KB, two blocks an SM
   static constexpr int SMEM = (BM * LDX + LR_STAGES * LR_STAGE) * 4;
 };
 
@@ -589,10 +591,11 @@ int linear_residual_ln_launch(const float* a, const float* w, const float* bias,
 }
 
 // ---- D 768: a GEMM on 128-row tiles, the LayerNorms in row passes ----------
-// The float32 LN1 + QKV step (ln_linear_fwd_d768) and both
-// linear_residual_ln_fwd sites at ChAdaViT-B/16's D 768. They replace, at
-// that width, the same lines of the TPU kernel as the D 192 kernels above
-// (_fwd_kernel :111-124 and :162-186).
+// The float32 LN1 + QKV step (ln_linear_fwd_d768), the FFN1 + ReLU step
+// (linear_relu_fwd at K 768) and both linear_residual_ln_fwd sites at
+// ChAdaViT-B/16's D 768. They replace, at that width, the same lines of the
+// TPU kernel as the D 192 kernels above (_fwd_kernel :111-124, :172-173 and
+// :162-186).
 //
 // What bounds them: operations (at chip_smoke.py's narrow f32 shapes, 3 340
 // valid rows, 11.8 and 14.4 GFLOP: 0.18 and 0.22 ms at 67 TFLOP/s of f32
@@ -611,6 +614,9 @@ int linear_residual_ln_launch(const float* a, const float* w, const float* bias,
 //   sums over 192 columns (lane l sums columns 192 q + l + 32 c, c < 6, then
 //   the xor butterfly), added for q = 0 .. 3 in order; then the max(0, .)
 //   clamp and out = (r - mu) rstd g + beta;
+// - K1c (FFN1 + ReLU) is the same GEMM with a ReLU epilogue (G_BIAS_RELU):
+//   linear_relu_kernel at D 768 kept a 32 x 768 x tile resident (156.5 KB),
+//   one block of 4 warps an SM, and read all of W1 for every 32 rows;
 // - gemm128_kernel: a block owns 128 rows (four 32-row tiles of the
 //   contract, each tested on its own: they may lie in two images, and the
 //   last block may hold fewer) and BN columns, 8 warps of 32 rows x BN / 2
@@ -630,7 +636,8 @@ int linear_residual_ln_launch(const float* a, const float* w, const float* bias,
 //   take BN 96: 744 computed K1a blocks (2.8 waves) and 248 K1b blocks
 //   (0.94 of a wave); K1b at 4e (b)'s bucket rows (20 row blocks) takes BN
 //   64. Other tiles, rings and warp shapes timed no better (PERF.md
-//   section 6);
+//   section 6). K1c's N 2048 is no multiple of 96: it takes BN 64
+//   (G_RELU_BN);
 // - the bits are those of the kernels this replaces: each sum from k = 0
 //   upward with fmaf, then the bias (then the residual); the row passes
 //   spell out with intrinsics the products nvcc fused there (the sums of
@@ -643,14 +650,16 @@ constexpr int G_STAGES = 4;
 constexpr int G_THREADS = 256;    // 4 warps along the rows x 2 along the columns
 constexpr int G_TM = 8;           // a thread's rows: 4 x 8 lanes a warp
 constexpr int ROWS_THREADS = 256; // the row passes: 8 warps a block, one a row
-enum GemmEpilogue { G_BIAS = 0, G_RESIDUAL = 1 };
+enum GemmEpilogue { G_BIAS = 0, G_RESIDUAL = 1, G_BIAS_RELU = 2 };
 static_assert(BM == 4 * G_TM && G_BM * G_BK / 4 == 2 * G_THREADS, "gemm128 tile shape");
 
 template <int BN>
 constexpr int gemm128_smem() { return G_STAGES * (G_BM + BN) * G_LD * 4; }
 
-// out = a W^T + bias (G_BIAS) or res + (a W^T + bias) (G_RESIDUAL); a (M, K),
-// W (N, K), res and out (M, N), M a multiple of 32.
+// out = a W^T + bias (G_BIAS), res + (a W^T + bias) (G_RESIDUAL) or
+// max(a W^T + bias, 0) (G_BIAS_RELU: the sum, then the bias, then the max, as
+// linear_relu_kernel); a (M, K), W (N, K), res and out (M, N), M a multiple
+// of 32.
 template <int N, int K, int BN, int EPI>
 __global__ void __launch_bounds__(G_THREADS, 2)
 gemm128_kernel(const float* __restrict__ a, const float* __restrict__ w,
@@ -723,14 +732,23 @@ gemm128_kernel(const float* __restrict__ a, const float* __restrict__ w,
       if (computed) {
         v = acc[i][j] + bj;
         if constexpr (EPI == G_RESIDUAL) v = res[o] + v;  // the JAX order
+        if constexpr (EPI == G_BIAS_RELU) v = fmaxf(v, 0.f);
       }
       out[o] = v;
     }
   }
 }
 
+// K1c's column tile at N 2048, which 96 does not divide. 64: at 128 (8 x 8
+// sums a thread) the two blocks an SM leave 128 registers and the tile
+// spills; at 32 (8 x 2) each block reads its A rows for half the columns.
+// Both timed slower at both of chip_smoke.py's f32 D 768 row counts, 32
+// also where its grid makes fuller waves (PERF.md section 6)
+constexpr int G_RELU_BN = 64;
+
 // gemm128_kernel with BN 64 where the 96-column grid would exceed one block
-// an SM and the 64-column grid fits in two, else with BN 96.
+// an SM and the 64-column grid fits in two, else with BN 96; at N 2048 (K1c)
+// with G_RELU_BN.
 template <int N, int K, int EPI>
 int gemm128_launch(const float* a, const float* w, const float* bias, const float* res,
                    float* out, const int* valid_len, int M, int s_pad, cudaStream_t st) {
@@ -747,9 +765,13 @@ int gemm128_launch(const float* a, const float* w, const float* bias, const floa
                                                               M, s_pad);
     return (int)cudaGetLastError();
   };
-  if (row_blocks * (N / 96) > sms && row_blocks * (N / 64) <= 2 * sms)
-    return run(gemm128_kernel<N, K, 64, EPI>, 64, gemm128_smem<64>());
-  return run(gemm128_kernel<N, K, 96, EPI>, 96, gemm128_smem<96>());
+  if constexpr (N % 96 != 0) {
+    return run(gemm128_kernel<N, K, G_RELU_BN, EPI>, G_RELU_BN, gemm128_smem<G_RELU_BN>());
+  } else {
+    if (row_blocks * (N / 96) > sms && row_blocks * (N / 64) <= 2 * sms)
+      return run(gemm128_kernel<N, K, 64, EPI>, 64, gemm128_smem<64>());
+    return run(gemm128_kernel<N, K, 96, EPI>, 96, gemm128_smem<96>());
+  }
 }
 
 __device__ __forceinline__ bool row_is_padding(int row, int s_pad, const int* valid_len) {
@@ -916,12 +938,16 @@ int ln_linear_fwd_d768(const float* x, const float* g, const float* beta, float 
                                                     s_pad, st);
 }
 
-// x (M, D), w (2048, D), out (M, 2048), D 192, 768 or 64.
+// x (M, D), w (2048, D), out (M, 2048), D 192, 768 or 64 (D 768: the 128-row
+// GEMM with its ReLU epilogue).
 int linear_relu_fwd(const float* x, const float* w, const float* bias,
                     float* out, const int* valid_len, int M, int K, int N,
                     int s_pad, void* stream) {
   if (!rows_ok(M, K, s_pad) || !is_width(K) || N != D_FFN)
     return (int)cudaErrorInvalidValue;
+  if (K == D_WIDE)
+    return gemm128_launch<D_FFN, D_WIDE, G_BIAS_RELU>(x, w, bias, nullptr, out, valid_len, M,
+                                                      s_pad, static_cast<cudaStream_t>(stream));
   auto run = [&](auto kernel, int smem) {
     int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != 0) return e;
@@ -930,8 +956,7 @@ int linear_relu_fwd(const float* x, const float* w, const float* bias,
     return (int)cudaGetLastError();
   };
   if (K == D_MODEL) return run(linear_relu_kernel<D_MODEL>, LinearReluF32<D_MODEL>::SMEM);
-  if (K == D_SMALL) return run(linear_relu_kernel<D_SMALL>, LinearReluF32<D_SMALL>::SMEM);
-  return run(linear_relu_kernel<D_WIDE>, LinearReluF32<D_WIDE>::SMEM);
+  return run(linear_relu_kernel<D_SMALL>, LinearReluF32<D_SMALL>::SMEM);
 }
 
 // a (M, K) with K = N (out-proj) or 2048 (FFN2), w (N, K), res and out (M, N),

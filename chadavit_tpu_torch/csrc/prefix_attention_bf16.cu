@@ -47,6 +47,12 @@
 //   walking the computed query tiles) and dq (a block per 64 queries,
 //   walking the key tiles below valid_len). Every sum has one owner and a
 //   fixed order, with no atomics: the same inputs give the same bits.
+// - At head 64 (ChAdaViT-B/16) the backward's dk/dv and dq are warpgroup
+//   kernels instead (attention_dkdv_wgmma_kernel, attention_dq_wgmma_kernel,
+//   notes below): a head row of 64 bf16 is one 128-byte line, the native
+//   TMA / wgmma swizzle (wgmma_bf16.cuh), and a warpgroup-wide wgmma reads
+//   each B tile from shared memory once for 64 rows where mma.sync's warps of
+//   16 rows read it four times: ldmatrix traffic held the mma.sync kernel.
 //
 // Every kernel is a template on the head width HD, built for 96
 // (ChAdaViT-moyen, D 192 in 2 heads: 6 k16 steps and 12 n8 blocks over a
@@ -65,6 +71,7 @@
 #include <math.h>
 
 #include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -575,6 +582,380 @@ attention_dq_bf16_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ k
   store_rows<HD>(acc, scale, scale, Qs, dqb, ldg);
 }
 
+// ---- K4 at head 64: dk/dv and dq on wgmma, fed by TMA --------------------------
+// What bounds it on an H100: operations (10 vl^2 64 a head and image on 5 vl
+// 64 bf16 inputs), which only wgmma reaches. The design, for HD = 64 only:
+// - a block owns 128 keys (dk/dv) or 128 queries (dq): two 64-row tiles of
+//   the contract, one a consumer warpgroup, each tested against valid_len on
+//   its own. One producer thread (a whole producer warpgroup, so that
+//   setmaxnreg gives the consumers 232 registers a thread and it 40) loads
+//   the block's resident tiles (K and V, or qs and dO) and streams each
+//   tile of the walk (qs, dO and the tile's lse and delta for dk/dv; K and V
+//   for dq) through a ring of STAGES mbarrier stages by TMA, the tiles in
+//   the 128-byte swizzle (one 64 x 64 box each), lse and delta by bulk copy;
+// - dk/dv, a consumer warpgroup's 64 keys against each computed query tile:
+//   S^T = K qs^T and dP^T = V dO^T (SS m64n64k16, both K-major), P^T =
+//   exp2(S^T - lse) (0 on keys past valid_len), dS^T = P^T (dP^T - delta);
+//   then dV += bf16(P^T) dO and dK += bf16(dS^T) qs (RS: P^T and dS^T as A
+//   straight from the accumulator registers, a_from_acc; dO and qs read
+//   MN-major as the transposed B). dq, a consumer warpgroup's 64 queries
+//   against each key tile below valid_len: S = qs K^T, dP = dO V^T (SS), P
+//   (0 on the ragged tile's keys past valid_len), dS, dQ += bf16(dS) K (RS,
+//   K MN-major);
+// - dk/dv: a tile's score products are one commit group and its two RS
+//   products another, each waited for before the next starts (with a
+//   tile's RS products still running under the next tile's score products,
+//   160 sums and operands a thread, ptxas serialized every wgmma for want
+//   of registers, C7512); the two warpgroups take turns issuing their score
+//   products (named barriers TURN, TURN + 1, warpgroup 0 first), so that
+//   one's exp and dS overlap the other's products. dq (112 registers of
+//   sums and operands): S and dP are two groups, the exp of P runs while
+//   dP's products do, and a tile's score products run under the previous
+//   tile's dQ product, whose wait frees the previous stage. Every wgmma is
+//   outside any branch (a skipped tile is still walked and written as
+//   zeros), so ptxas keeps them asynchronous;
+// - the rounding points are the mma.sync kernels' (p and ds to bf16 before
+//   their products, scores, lse, delta and every sum in f32), every sum has
+//   one owner and a fixed order, and the outputs are staged through the
+//   warpgroup's own resident tile for 16-byte stores.
+namespace wk4 {
+
+constexpr int HD = 64;
+constexpr int CONSUMERS = 2;                      // consumer warpgroups, a 64-row tile each
+constexpr int PRODUCER_WARP = 4 * CONSUMERS;
+constexpr int WG_THREADS = 128 * (CONSUMERS + 1);    // and a producer warpgroup
+constexpr int SPAN = TILE * CONSUMERS;            // a block's keys (dk/dv) or queries (dq)
+constexpr int BOX = TILE * HD * 2;                // a 64 x 64 bf16 tile: 8 KB
+constexpr int STAGES = 4;
+constexpr int RELEASES = 4 * CONSUMERS;           // a consumer warp each frees a stage
+constexpr int ACC = TILE * TILE / 128;            // a m64n64 sum: 32 floats a thread
+constexpr int TURN = 1;                           // named barriers TURN, TURN + 1: dk/dv's turns
+// resident tiles, the ring's tiles, the ring's stats (lse, delta), alignment
+constexpr int DKDV_WG_SMEM = 2 * CONSUMERS * BOX + STAGES * 2 * BOX + STAGES * 2 * TILE * 4 + 1024;
+constexpr int DQ_WG_SMEM = 2 * CONSUMERS * BOX + STAGES * 2 * BOX + 1024;
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (wg::smem_u32(p) & 1023)) & 1023);
+}
+
+// zeros into the rows of the block's 64-row tiles that lie below s_pad, rows
+// of ld elements from dst (the block's first row); all WG_THREADS threads
+__device__ __forceinline__ void zero_tiles(bf16* dst, int ld, int tiles) {
+  for (int c = threadIdx.x; c < tiles * TILE * 8; c += WG_THREADS)
+    *reinterpret_cast<uint4*>(dst + (size_t)(c / 8) * ld + c % 8 * 8) = make_uint4(0, 0, 0, 0);
+}
+
+// a consumer warpgroup's 64 x 64 sums times mul, rounded to bf16, written to
+// rows of ld elements from dst through the warpgroup's own resident tile
+// (stage: the 128-byte swizzle), or zeros where `dead`
+__device__ __forceinline__ void store_tile(const float (&acc)[ACC], float mul, bf16* stage,
+                                           bf16* dst, int ld, bool dead) {
+  const int lane = threadIdx.x & 31, q = (threadIdx.x >> 5) & 3, g = lane >> 2, t = lane & 3;
+  unsigned char* st = reinterpret_cast<unsigned char*>(stage);
+#pragma unroll
+  for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = 16 * q + g + 8 * half;
+      *reinterpret_cast<uint32_t*>(st + r * 128 + ((j ^ (r & 7)) << 4) + 4 * t) =
+          dead ? 0u : pack_bf16x2(acc[4 * j + 2 * half] * mul, acc[4 * j + 2 * half + 1] * mul);
+    }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // the warp's 16 rows, 8 chunks each
+    const int c = lane + 32 * i, r = 16 * q + c / 8, cc = c % 8;
+    *reinterpret_cast<uint4*>(dst + (size_t)r * ld + cc * 8) =
+        *reinterpret_cast<const uint4*>(st + r * 128 + ((cc ^ (r & 7)) << 4));
+  }
+}
+
+}  // namespace wk4
+
+// dK and dV of the keys k0 .. k0 + 127 of head h of image b. Grid (s_pad /
+// 128 rounded up, heads, B). k_map, v_map: (B s_pad, heads HD) views of k and
+// v (rows of ld); qs_map: of the prep pass's scaled q; do_map: of dout.
+__global__ void __launch_bounds__(wk4::WG_THREADS, 1)
+attention_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            const __grid_constant__ CUtensorMap qs_map,
+                            const __grid_constant__ CUtensorMap do_map,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            const int* __restrict__ valid_len, bf16* __restrict__ dk,
+                            bf16* __restrict__ dv, int ldg, int s_pad) {
+  using namespace wk4;
+  const int k0 = blockIdx.x * SPAN, h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
+  const int vl = min(max(valid_len[b], 0), s_pad);
+  const int row0 = b * s_pad;
+  bf16* dkb = dk + ((size_t)row0 + k0) * ldg + h * HD;
+  bf16* dvb = dv + ((size_t)row0 + k0) * ldg + h * HD;
+  const int in_image = min(CONSUMERS, (s_pad - k0) / TILE);  // the tiles below s_pad
+  if (k0 >= vl) {  // uniform across the block, before any barrier
+    zero_tiles(dkb, ldg, in_image);
+    zero_tiles(dvb, ldg, in_image);
+    return;
+  }
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], kv_full;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_1024(smem_raw);
+  unsigned char* Ks = base;                            // the consumers' K tiles
+  unsigned char* Vs = Ks + CONSUMERS * BOX;            // and V tiles
+  unsigned char* ring = Vs + CONSUMERS * BOX;          // a stage: qs, then dO
+  float* stats = reinterpret_cast<float*>(ring + STAGES * 2 * BOX);  // a stage: lse, delta
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      wg::mbar_init(&full[s], 1);
+      wg::mbar_init(&empty[s], RELEASES);
+    }
+    wg::mbar_init(&kv_full, 1);
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+  const int n_qt = (vl + TILE - 1) / TILE;  // every query tile the forward computed
+  const size_t stat0 = ((size_t)b * heads + h) * s_pad;
+
+  if (warp >= PRODUCER_WARP) {
+    wg::setmaxnreg_dec<40>();
+    if (warp == PRODUCER_WARP && lane == 0) {
+      wg::tma_prefetch(&k_map);
+      wg::tma_prefetch(&v_map);
+      wg::tma_prefetch(&qs_map);
+      wg::tma_prefetch(&do_map);
+      wg::mbar_expect_tx(&kv_full, 2 * CONSUMERS * BOX);
+      for (int c = 0; c < CONSUMERS; ++c) {  // a tile past the image: its rows are not stored
+        wg::tma_load_2d(Ks + c * BOX, &k_map, &kv_full, h * HD, row0 + k0 + c * TILE);
+        wg::tma_load_2d(Vs + c * BOX, &v_map, &kv_full, h * HD, row0 + k0 + c * TILE);
+      }
+      for (int qt = 0; qt < n_qt; ++qt) {
+        const int s = qt % STAGES;
+        wg::mbar_wait(&empty[s], ((qt / STAGES) & 1) ^ 1);
+        unsigned char* st = ring + s * 2 * BOX;
+        wg::mbar_expect_tx(&full[s], 2 * BOX + 2 * TILE * 4);
+        wg::tma_load_2d(st, &qs_map, &full[s], h * HD, row0 + qt * TILE);
+        wg::tma_load_2d(st + BOX, &do_map, &full[s], h * HD, row0 + qt * TILE);
+        wg::bulk_load(stats + s * 2 * TILE, lse + stat0 + qt * TILE, TILE * 4, &full[s]);
+        wg::bulk_load(stats + s * 2 * TILE + TILE, delta + stat0 + qt * TILE, TILE * 4, &full[s]);
+      }
+    }
+    return;
+  }
+
+  wg::setmaxnreg_inc<232>();
+  const int wgi = warp / 4, q = warp % 4, g = lane >> 2, t = lane & 3;
+  const int kt0 = k0 + wgi * TILE;  // the warpgroup's first key
+  const unsigned char* ks = Ks + wgi * BOX;
+  const unsigned char* vs = Vs + wgi * BOX;
+  // keys past valid_len give p = 0, so their dk and dv are zeros
+  const bool key_ok[2] = {kt0 + 16 * q + g < vl, kt0 + 16 * q + g + 8 < vl};
+  float acc_k[ACC], acc_v[ACC], sc[ACC], dp[ACC];
+  uint32_t pa[TILE / 16][4], da[TILE / 16][4];  // bf16(P^T), bf16(dS^T): the RS A operands
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) acc_k[i] = acc_v[i] = 0.f;
+  wg::mbar_wait(&kv_full, 0);
+  for (int qt = 0; qt < n_qt; ++qt) {  // n_qt is uniform: every wgmma outside a branch
+    const int s = qt % STAGES;
+    wg::mbar_wait(&full[s], (qt / STAGES) & 1);
+    const unsigned char* qs_s = ring + s * 2 * BOX;
+    const unsigned char* do_s = qs_s + BOX;
+    wg::fence_operand(sc);
+    wg::fence_operand(dp);
+    // the warpgroups take turns issuing their score products, warpgroup 0
+    // first, so that one's exp and dS overlap the other's products
+    if (qt > 0 || wgi == 1) wg::bar_sync(TURN + wgi, 2 * 128);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)  // S^T = K qs^T
+      wg::mma_m64n64k16<0, 0>(sc, wg::desc_k64(ks, kk), wg::desc_k64(qs_s, kk), kk != 0);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)  // dP^T = V dO^T
+      wg::mma_m64n64k16<0, 0>(dp, wg::desc_k64(vs, kk), wg::desc_k64(do_s, kk), kk != 0);
+    wg::commit();
+    if (qt < n_qt - 1 || wgi == 0) wg::bar_arrive(TURN + 1 - wgi, 2 * 128);
+    wg::wait<0>();
+    wg::fence_operand(sc);
+    wg::fence_operand(dp);
+    const float* lse_s = stats + s * 2 * TILE;
+    const float* delta_s = lse_s + TILE;
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j) {  // queries 8 j + 2 t, + 1
+      const float2 ls = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+      const float2 dl = *reinterpret_cast<const float2*>(delta_s + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = key_ok[e >> 1] ? exp2f(sc[4 * j + e] - ((e & 1) ? ls.y : ls.x)) : 0.f;
+        sc[4 * j + e] = p;                                              // P^T
+        dp[4 * j + e] = p * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x));  // dS^T
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk) {
+      wg::a_from_acc(pa[kk], sc, kk);
+      wg::a_from_acc(da[kk], dp, kk);
+    }
+    wg::fence_operand(pa);
+    wg::fence_operand(da);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk)  // dV += bf16(P^T) dO
+      wg::mma_m64n64k16_rs<1>(acc_v, pa[kk], wg::desc_mn64(do_s, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk)  // dK += bf16(dS^T) qs
+      wg::mma_m64n64k16_rs<1>(acc_k, da[kk], wg::desc_mn64(qs_s, kk), 1);
+    wg::commit();
+    // done before the next tile's score products: with both in flight (160
+    // sums and operands a thread) ptxas serializes every wgmma (C7512)
+    wg::wait<0>();
+    wg::fence_operand(pa);
+    wg::fence_operand(da);
+    wg::fence_operand(acc_k);
+    wg::fence_operand(acc_v);
+    if (lane == 0) wg::mbar_arrive(&empty[s]);
+  }
+  if (kt0 >= s_pad) return;  // the second tile of a block that ends the image
+  // each warpgroup stages its rows in its own K and V tiles, which only it read
+  const bool dead = kt0 >= vl;
+  store_tile(acc_k, INV_LOG2E, reinterpret_cast<bf16*>(Ks + wgi * BOX),
+             dkb + (size_t)wgi * TILE * ldg, ldg, dead);
+  store_tile(acc_v, 1.f, reinterpret_cast<bf16*>(Vs + wgi * BOX),
+             dvb + (size_t)wgi * TILE * ldg, ldg, dead);
+}
+
+// dQ of the queries q0 .. q0 + 127 of head h of image b. Grid (s_pad / 128
+// rounded up, heads, B); the tensor maps as attention_dkdv_wgmma_kernel's.
+// dq = dQ scale at write-out.
+__global__ void __launch_bounds__(wk4::WG_THREADS, 1)
+attention_dq_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap qs_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          const int* __restrict__ valid_len, bf16* __restrict__ dq, int ldg,
+                          int s_pad, float scale) {
+  using namespace wk4;
+  const int q0 = blockIdx.x * SPAN, h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
+  const int vl = min(max(valid_len[b], 0), s_pad);
+  const int row0 = b * s_pad;
+  bf16* dqb = dq + ((size_t)row0 + q0) * ldg + h * HD;
+  const int in_image = min(CONSUMERS, (s_pad - q0) / TILE);
+  if (q0 >= vl) {  // uniform across the block, before any barrier
+    zero_tiles(dqb, ldg, in_image);
+    return;
+  }
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], res_full;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_1024(smem_raw);
+  unsigned char* Qs = base;                     // the consumers' qs tiles
+  unsigned char* dOs = Qs + CONSUMERS * BOX;    // and dO tiles
+  unsigned char* ring = dOs + CONSUMERS * BOX;  // a stage: K, then V
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      wg::mbar_init(&full[s], 1);
+      wg::mbar_init(&empty[s], RELEASES);
+    }
+    wg::mbar_init(&res_full, 1);
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+  const int n_kt = (vl + TILE - 1) / TILE;
+
+  if (warp >= PRODUCER_WARP) {
+    wg::setmaxnreg_dec<40>();
+    if (warp == PRODUCER_WARP && lane == 0) {
+      wg::tma_prefetch(&k_map);
+      wg::tma_prefetch(&v_map);
+      wg::tma_prefetch(&qs_map);
+      wg::tma_prefetch(&do_map);
+      wg::mbar_expect_tx(&res_full, 2 * CONSUMERS * BOX);
+      for (int c = 0; c < CONSUMERS; ++c) {
+        wg::tma_load_2d(Qs + c * BOX, &qs_map, &res_full, h * HD, row0 + q0 + c * TILE);
+        wg::tma_load_2d(dOs + c * BOX, &do_map, &res_full, h * HD, row0 + q0 + c * TILE);
+      }
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % STAGES;
+        wg::mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+        unsigned char* st = ring + s * 2 * BOX;
+        wg::mbar_expect_tx(&full[s], 2 * BOX);
+        wg::tma_load_2d(st, &k_map, &full[s], h * HD, row0 + kt * TILE);
+        wg::tma_load_2d(st + BOX, &v_map, &full[s], h * HD, row0 + kt * TILE);
+      }
+    }
+    return;
+  }
+
+  wg::setmaxnreg_inc<232>();
+  const int wgi = warp / 4, q = warp % 4, g = lane >> 2, t = lane & 3;
+  const int qt0 = q0 + wgi * TILE;  // the warpgroup's first query
+  const unsigned char* qs = Qs + wgi * BOX;
+  const unsigned char* dos = dOs + wgi * BOX;
+  // the rows' lse and delta; a tile past the image reads none (p = 0)
+  float lse_r[2] = {1e30f, 1e30f}, delta_r[2] = {0.f, 0.f};
+  if (qt0 < s_pad) {
+    const size_t stat = ((size_t)b * heads + h) * s_pad + qt0 + 16 * q + g;
+    lse_r[0] = lse[stat];
+    lse_r[1] = lse[stat + 8];
+    delta_r[0] = delta[stat];
+    delta_r[1] = delta[stat + 8];
+  }
+  float acc[ACC], sc[ACC], dp[ACC];
+  uint32_t da[TILE / 16][4];  // bf16(dS): the RS A operand
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
+  wg::mbar_wait(&res_full, 0);
+  for (int kt = 0; kt < n_kt; ++kt) {  // n_kt is uniform: every wgmma outside a branch
+    const int s = kt % STAGES;
+    wg::mbar_wait(&full[s], (kt / STAGES) & 1);
+    const unsigned char* ks = ring + s * 2 * BOX;
+    const unsigned char* vs = ks + BOX;
+    wg::fence_operand(sc);
+    wg::fence_operand(dp);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)  // S = qs K^T
+      wg::mma_m64n64k16<0, 0>(sc, wg::desc_k64(qs, kk), wg::desc_k64(ks, kk), kk != 0);
+    wg::commit();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)  // dP = dO V^T
+      wg::mma_m64n64k16<0, 0>(dp, wg::desc_k64(dos, kk), wg::desc_k64(vs, kk), kk != 0);
+    wg::commit();
+    wg::wait<1>();  // S, and the previous tile's dQ products; dP may run on
+    wg::fence_operand(sc);
+    wg::fence_operand(da);
+    wg::fence_operand(acc);
+    if (kt > 0 && lane == 0) wg::mbar_arrive(&empty[(kt - 1) % STAGES]);
+    const bool ragged = (kt + 1) * TILE > vl;
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)  // P, kept in sc
+        sc[4 * j + e] = ragged && kt * TILE + 8 * j + 2 * t + (e & 1) >= vl
+                            ? 0.f
+                            : exp2f(sc[4 * j + e] - lse_r[e >> 1]);
+    wg::wait<0>();  // dP
+    wg::fence_operand(dp);
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)  // dS, kept in dp
+        dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - delta_r[e >> 1]);
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk) wg::a_from_acc(da[kk], dp, kk);
+    wg::fence_operand(da);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk)  // dQ += bf16(dS) K
+      wg::mma_m64n64k16_rs<1>(acc, da[kk], wg::desc_mn64(ks, kk), 1);
+    wg::commit();
+  }
+  wg::wait<0>();
+  wg::fence_operand(da);
+  wg::fence_operand(acc);
+  if (qt0 >= s_pad) return;  // the second tile of a block that ends the image
+  // each warpgroup stages its rows in its own qs tile, which only it read
+  store_tile(acc, scale, reinterpret_cast<bf16*>(Qs + wgi * BOX),
+             dqb + (size_t)wgi * TILE * ldg, ldg, qt0 >= vl);
+}
+
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 template <int HD>
@@ -586,6 +967,44 @@ int launch_fwd(const bf16* q, const bf16* k, const bf16* v, int ld, const int* v
   if (e != cudaSuccess) return (int)e;
   attention_fwd_bf16_kernel<HD><<<dim3(s_pad / TILE, heads, batch), THREADS, FWD_SMEM<HD>, st>>>(
       q, k, v, ld, valid_len, out, ldo, lse, s_pad, qscale);
+  return (int)cudaGetLastError();
+}
+
+// K4 at head 64: the prep pass, then the wgmma dk/dv and dq. The tensor maps
+// are (B s_pad, heads HD) views of k, v (rows of ld), the scaled q (rows of
+// heads HD) and dout (rows of ldo), 64 x 64 boxes.
+int launch_bwd_wgmma(const bf16* q, const bf16* k, const bf16* v, int ld, const bf16* o,
+                     const bf16* dout, int ldo, const float* lse, float* delta,
+                     const int* valid_len, bf16* dq, bf16* dk, bf16* dv, int ldg, int batch,
+                     int heads, int s_pad, float qscale, float scale, cudaStream_t st) {
+  using namespace wk4;
+  bf16* qs = reinterpret_cast<bf16*>(delta + (size_t)batch * heads * s_pad);
+  const int total = batch * s_pad * heads;
+  attention_bwd_prep_kernel<HD><<<(total + PREP_THREADS / 16 - 1) / (PREP_THREADS / 16),
+                                  PREP_THREADS, 0, st>>>(q, ld, o, dout, ldo, valid_len, delta,
+                                                         qs, heads, s_pad, total, qscale);
+  int e = (int)cudaGetLastError();
+  if (e != 0) return e;
+  const uint64_t rows = (uint64_t)batch * s_pad, inner = (uint64_t)heads * HD;
+  CUtensorMap k_map, v_map, qs_map, do_map;
+  e = wg::make_map_2d(&k_map, k, inner, rows, (uint64_t)ld * 2, HD, TILE);
+  if (e == 0) e = wg::make_map_2d(&v_map, v, inner, rows, (uint64_t)ld * 2, HD, TILE);
+  if (e == 0) e = wg::make_map_2d(&qs_map, qs, inner, rows, inner * 2, HD, TILE);
+  if (e == 0) e = wg::make_map_2d(&do_map, dout, inner, rows, (uint64_t)ldo * 2, HD, TILE);
+  if (e == 0)
+    e = (int)cudaFuncSetAttribute(attention_dkdv_wgmma_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, DKDV_WG_SMEM);
+  if (e == 0)
+    e = (int)cudaFuncSetAttribute(attention_dq_wgmma_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_WG_SMEM);
+  if (e != 0) return e;
+  const dim3 grid((s_pad + SPAN - 1) / SPAN, heads, batch);
+  attention_dkdv_wgmma_kernel<<<grid, WG_THREADS, DKDV_WG_SMEM, st>>>(
+      k_map, v_map, qs_map, do_map, lse, delta, valid_len, dk, dv, ldg, s_pad);
+  e = (int)cudaGetLastError();
+  if (e != 0) return e;
+  attention_dq_wgmma_kernel<<<grid, WG_THREADS, DQ_WG_SMEM, st>>>(
+      k_map, v_map, qs_map, do_map, lse, delta, valid_len, dq, ldg, s_pad, scale);
   return (int)cudaGetLastError();
 }
 
@@ -653,7 +1072,8 @@ int prefix_attention_fwd_bf16(const bf16* q, const bf16* k, const bf16* v, int l
 // buffer). head_dim is 32, 64 or 96 (any other is refused) and s_pad a multiple
 // of 64; ld, ldo and ldg are multiples of 8 and every bf16 pointer and delta
 // 16-byte aligned. qscale = log2(e) / sqrt(head_dim) rounded to bf16, scale =
-// 1 / sqrt(head_dim). Three launches: the prep pass, dk/dv, dq.
+// 1 / sqrt(head_dim). Three launches: the prep pass, dk/dv, dq (at head 64
+// the wgmma kernels, whose tensor maps are built here).
 int prefix_attention_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, int ld,
                               const bf16* o, const bf16* dout, int ldo, const float* lse,
                               float* delta, const int* valid_len, bf16* dq, bf16* dk, bf16* dv,
@@ -668,8 +1088,8 @@ int prefix_attention_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, int l
   if (head_dim == 32)
     return launch_bwd<32>(q, k, v, ld, o, dout, ldo, lse, delta, valid_len, dq, dk, dv, ldg,
                           batch, heads, s_pad, qscale, scale, st);
-  return head_dim == 64 ? launch_bwd<64>(q, k, v, ld, o, dout, ldo, lse, delta, valid_len, dq,
-                                         dk, dv, ldg, batch, heads, s_pad, qscale, scale, st)
+  return head_dim == 64 ? launch_bwd_wgmma(q, k, v, ld, o, dout, ldo, lse, delta, valid_len, dq,
+                                           dk, dv, ldg, batch, heads, s_pad, qscale, scale, st)
                         : launch_bwd<96>(q, k, v, ld, o, dout, ldo, lse, delta, valid_len, dq,
                                          dk, dv, ldg, batch, heads, s_pad, qscale, scale, st);
 }

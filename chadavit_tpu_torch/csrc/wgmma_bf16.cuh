@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks for the port's wgmma kernels
-// (linear_wgmma_bf16.cu): TMA tile loads into shared memory that complete on
-// an mbarrier, the mbarrier ring between one producer warp and the consumer
-// warpgroups, and warpgroup matrix products (wgmma.mma_async, bf16 in, f32
-// sums) read from shared memory through descriptors of the 128-byte swizzle.
+// (linear_wgmma_bf16.cu, and the head-64 attention backward of
+// prefix_attention_bf16.cu): TMA tile loads into shared memory that complete
+// on an mbarrier, the mbarrier ring between one producer warp and the
+// consumer warpgroups, and warpgroup matrix products (wgmma.mma_async, bf16
+// in, f32 sums) read from shared memory through descriptors of the 128-byte
+// swizzle, or with A from registers.
 //
 // Shared-memory tiles are what a TMA box of 64 bf16 (128 bytes) a row and
 // CU_TENSOR_MAP_SWIZZLE_128B writes: rows of 128 bytes, the 16-byte chunk c
@@ -22,7 +24,14 @@
 // The wgmma accumulator of m64nNk16 lies as mma.sync's m16n8 C fragments:
 // warp q of the warpgroup owns rows 16 q .. 16 q + 15; lane l (g = l / 4,
 // t = l % 4) holds d[4 j + 0..1] at row 16 q + g, columns 8 j + 2 t, + 1,
-// and d[4 j + 2..3] at row 16 q + g + 8, the same columns.
+// and d[4 j + 2..3] at row 16 q + g + 8, the same columns. An A operand from
+// registers (the RS form) lies per warp as mma.sync m16n8k16's A fragment of
+// the warp's 16 rows: a[0] (row g, k 2 t, + 1), a[1] (row g + 8, the same k),
+// a[2] (row g, k 2 t + 8, + 9), a[3] (row g + 8, those k). So the sums of
+// two adjacent n8 blocks 2 kk and 2 kk + 1, rounded to bf16 and packed in
+// pairs (a_from_acc), are the A operand of the k16 step kk of a product that
+// contracts over the accumulator's columns: a tile of scores feeds the next
+// product without leaving the registers.
 //
 // The tensor maps are built on the host by cuTensorMapEncodeTiled, reached
 // through cudaGetDriverEntryPoint, so the library links no libcuda, and are
@@ -107,7 +116,26 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// arrives at named barrier `id` without waiting: with a bar_sync of the
+// same count, one warpgroup hands the other its turn
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---- TMA ------------------------------------------------------------------
+// `bytes` (a multiple of 16) from global memory at src (16-byte aligned) into
+// shared memory at dst, counted on bar's transactions (a bulk copy: no tensor
+// map, no swizzle)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+#ifdef WGMMA_NO_LOAD
+  return;
+#endif
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
 // the box of `map` at (c0 inner, c1 outer) into shared memory at dst, counted
 // on bar's transactions; boxes past the tensor's edge are filled with zeros
 // (and still count their full size)
@@ -148,6 +176,17 @@ __device__ __forceinline__ uint64_t desc_plain(const void* p, uint32_t lbo_bytes
          ((uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32);
 }
+// the descriptors of the k16 step kk of a 64 x 64 tile in the 128-byte
+// swizzle (one TMA box: 64 rows of 64 bf16): read K-major, a row is 64 K
+// values of one M or N index (the step moves 32 bytes along the rows); read
+// MN-major (the transposed B), a row is 64 N values of one K index (the step
+// moves 16 rows; one 64-wide atom, so LBO is never stepped)
+__device__ __forceinline__ uint64_t desc_k64(const void* tile, int kk) {
+  return desc_sw128(static_cast<const unsigned char*>(tile) + 32 * kk, 16, 1024);
+}
+__device__ __forceinline__ uint64_t desc_mn64(const void* tile, int kk) {
+  return desc_sw128(static_cast<const unsigned char*>(tile) + 2048 * kk, 8192, 1024);
+}
 // orders register accesses of the accumulators before the wgmma that follow
 __device__ __forceinline__ void fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void commit() {
@@ -163,6 +202,15 @@ template <int R>
 __device__ __forceinline__ void fence_operand(float (&r)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+// and of an A operand in registers: its values stay where the asynchronous
+// products read them until the wait that follows this fence
+template <int R, int C>
+__device__ __forceinline__ void fence_operand(uint32_t (&r)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
 // d (+)= a b, 64 x 256 x 16: a and b shared-memory descriptors, TA / TB their
@@ -241,6 +289,56 @@ __device__ __forceinline__ void mma_m64k16(float (&d)[N / 2], uint64_t a, uint64
   static_assert(N == 192 || N == 256, "m64n192k16 or m64n256k16");
   if constexpr (N == 256) mma_m64n256k16<TA, TB>(d, a, b, scale_d);
   else mma_m64n192k16<TA, TB>(d, a, b, scale_d);
+}
+// d (+)= a b, 64 x 64 x 16, a and b shared-memory descriptors
+template <int TA, int TB>
+__device__ __forceinline__ void mma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b,
+                                              int scale_d) {
+#ifdef WGMMA_NO_MMA
+  return;
+#endif
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+// d (+)= a b, 64 x 64 x 16, a in registers (the RS form: a warp's A fragment
+// of its 16 rows, as the header's notes lay it out), b a shared-memory
+// descriptor with transpose bit TB
+template <int TB>
+__device__ __forceinline__ void mma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                 uint64_t b, int scale_d) {
+#ifdef WGMMA_NO_MMA
+  return;
+#endif
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
+}
+// the A operand of the k16 step kk from the sums of a m64n64 (or wider)
+// accumulator, n8 blocks 2 kk and 2 kk + 1, each pair rounded to bf16
+template <int R>
+__device__ __forceinline__ void a_from_acc(uint32_t (&a)[4], const float (&d)[R], int kk) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+    a[i] = *reinterpret_cast<const uint32_t*>(&v);
+  }
 }
 // d (+)= a b, 64 x 8 x 16
 template <int TA, int TB>

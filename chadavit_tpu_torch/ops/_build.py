@@ -172,7 +172,10 @@ def ptxas_report(source: str) -> subprocess.Popen:
 def ptxas_lines(proc: subprocess.Popen) -> list[dict]:
     """Wait for a :func:`ptxas_report` and parse it: one dict per kernel
     (``name``, mangled, then ``registers``, ``smem`` bytes, ``spill_stores``,
-    ``spill_loads`` bytes). Raises if nvcc failed."""
+    ``spill_loads`` bytes, and ``serialized``: ptxas's lines that say its
+    wgmma products are serialized, C7510-C7520, for whatever cause; one that
+    names no kernel is put on every kernel of the report). Raises if nvcc
+    failed."""
     out = proc.communicate()[0]
     proc.obj.unlink(missing_ok=True)
     if proc.returncode != 0:
@@ -194,6 +197,11 @@ def ptxas_lines(proc: subprocess.Popen) -> list[dict]:
             cur["registers"] = int(m.group(1))
             sm = re.search(r"(\d+) bytes smem", line)
             cur["smem"] = int(sm.group(1)) if sm else 0
+    serialized = [line.strip() for line in out.splitlines()
+                  if "wgmma" in line and "serialized" in line]
+    for k in kernels:
+        k["serialized"] = [w for w in serialized
+                           if k["name"] in w or not any(o["name"] in w for o in kernels)]
     return kernels
 
 

@@ -39,9 +39,14 @@ Phases, each printed with its elapsed seconds at its start and end:
    linear_wgrad's two passes and of ln_bwd's four instances at D 192 (the
    model's width), none of which may spill; among them the attention's
    head-64 instances (the float32 forward, prep and backward; the bfloat16
-   forward, prep, dk/dv and dq) and the layer chain's D 768 instances, none of
+   forward and prep, and its dk/dv and dq on wgmma with TMA,
+   attention_dkdv_wgmma_kernel and attention_dq_wgmma_kernel) and the layer
+   chain's D 768 instances (the float32 K1c among them: the 128-row GEMM
+   with its ReLU epilogue, gemm128_kernel<2048, 768, 64, 2>), none of
    which may spill; and the head-32 instances and the layer chain's D 64
-   instances (D64_KERNELS), none of which may spill.
+   instances (D64_KERNELS), none of which may spill. No kernel may have
+   its wgmma products serialized by ptxas (C7510-C7520, whatever the cause:
+   a branch around a product, too few registers).
 2. each kernel instance against its plain PyTorch version at hub shapes (B 8,
    S_pad 2048, D 192, F 2048, 2 heads, 1..10 channels), float32 on the
    inputs of seed 0, then bfloat16 on those of each of BF16_SEEDS (the worst
@@ -88,10 +93,11 @@ Phases, each printed with its elapsed seconds at its start and end:
    row stats bit for bit the LayerNorm order it keeps
    (tests/torch_bf16_order.py) on its own r, at both sites, on each of
    BF16_SEEDS (check_bf16_d768_ln_order). Then the float32
-   K1a and K1b (128-row GEMMs with LayerNorm row passes) bit for bit against
-   the summation orders they keep (tests/torch_f32_order.py), with and
-   without their save outputs, at the float32 narrow shapes drawn from each
-   of BF16_SEEDS (check_f32_d768_bits).
+   K1a, K1c and K1b (128-row GEMMs, K1a and K1b with LayerNorm row passes)
+   bit for bit against the summation orders they keep
+   (tests/torch_f32_order.py), with and without their save outputs, at the
+   float32 narrow and bucket shapes drawn from each of BF16_SEEDS
+   (check_f32_d768_bits).
 2d. the layer chain's D 64 instances and the attention's head-32 ones (the
    smoke configs' widths: D 64, 2 heads of 32, FFN 2048) against their plain
    versions: phase 2's check_chain at phase 2's bounds, float32 on seed 0
@@ -214,7 +220,9 @@ Phases, each printed with its elapsed seconds at its start and end:
    D 192, 2b's for the head-64 attention and 2c's for the D 768 chain
    (chain_runs builds the chain's sites at either width): CUDA events of the
    kernel and its plain version in turns, one PyTorch call for the same
-   function (a yardstick the port never calls), its bound (ln_fwd and ln_bwd
+   function (a yardstick the port never calls; where CUDA events read the
+   host's launch rate, K2a at every width, K5, K6 and the bf16 K2b and K2c
+   at D 64, also by the profiler's device time), its bound (ln_fwd and ln_bwd
    at the final norm's site, over every row: they take no valid_len), and
    the profiler's device time of every kernel of the calls (small calls
    CUDA events time by the host's launch rate) with each kernel's launches
@@ -465,7 +473,9 @@ D768_KERNELS = [
     "gemm128_kernel<768, 768, 96, 1>(", "gemm128_kernel<768, 2048, 96, 1>(",
     "gemm128_kernel<2304, 768, 64, 0>(", "gemm128_kernel<768, 768, 64, 1>(",
     "gemm128_kernel<768, 2048, 64, 1>(",
-    "res_ln_rows_kernel<768>(", "linear_relu_kernel<768>(",
+    "res_ln_rows_kernel<768>(",
+    # K1c: the 128-row GEMM with its ReLU epilogue, in its 64-column tile
+    "gemm128_kernel<2048, 768, 64, 2>(",
     "layernorm_bwd_kernel<768, float>(", "layernorm_bwd_kernel<768, __nv_bfloat16>(",
     "reduce_ln_splits_kernel<768>("]
 # and its D 64 instances (the smoke configs' width)
@@ -1073,13 +1083,13 @@ def check_chain(ph, stats, note_bf16, x, w, dy, dy_tail, valid_len, heads, what_
 
 
 def check_f32_d768_bits(ph, x, w, valid_len, heads, what_shape):
-    """The float32 K1a and K1b at D 768 against the summation orders they keep
-    (tests/torch_f32_order.py: the first port's K1a, the four-block column
-    cluster's K1b), bit for bit, with and without their save outputs: K1a on
-    x, K1b at the out-projection on the attention output of the model's qkv
-    and at FFN2 on the FFN hidden of the model's x2 (the plain attention and
-    FFN1 between them). Zeros on the tiles past valid_len are part of the
-    models."""
+    """The float32 K1a, K1c and K1b at D 768 against the summation orders they
+    keep (tests/torch_f32_order.py: the first port's K1a and K1c, the
+    four-block column cluster's K1b), bit for bit, with and without their save
+    outputs: K1a on x, K1b at the out-projection on the attention output of
+    the model's qkv, K1c on the model's x2 and K1b at FFN2 on K1c's hid (the
+    plain attention between them). Zeros on the tiles past valid_len are part
+    of the models."""
     import torch
 
     from chadavit_tpu_torch.ops import fused_block
@@ -1095,11 +1105,13 @@ def check_f32_d768_bits(ph, x, w, valid_len, heads, what_shape):
         attn = fa.prefix_flash_attention_reference(qkv[..., :d], qkv[..., d:2 * d],
                                                    qkv[..., 2 * d:], vl, heads)
         k1b_out = order.linear_residual_ln_order(attn, wout, bout, x, g1, b1, EPS1, valid_len)
-        hid = fused_block.linear_relu_reference(k1b_out[0], w1, b1f)
+        hid = order.linear_relu_order(k1b_out[0], w1, b1f, valid_len)
         k1b_ffn2 = order.linear_residual_ln_order(hid, w2, b2f, k1b_out[0], g2, b2, EPS2,
                                                   valid_len)
         cases = [("ln_linear_fwd", "", lambda sv: fused_block.ln_linear(
-            x, g1, b1, EPS1, wqkv, bqkv, vl, save=sv), k1a)]
+            x, g1, b1, EPS1, wqkv, bqkv, vl, save=sv), k1a),
+                 ("linear_relu_fwd", "", lambda sv: (fused_block.linear_relu(
+                     k1b_out[0], w1, b1f, vl),), (hid,))]
         for site, args, eps, ref in ((" out projection", (attn, wout, bout, x, g1, b1), EPS1,
                                       k1b_out),
                                      (" FFN2", (hid, w2, b2f, k1b_out[0], g2, b2), EPS2,
@@ -1108,9 +1120,9 @@ def check_f32_d768_bits(ph, x, w, valid_len, heads, what_shape):
                 lambda sv, a=args, e=eps: fused_block.linear_residual_ln(*a, e, vl, save=sv)),
                 ref))
         for entry, site, fn, ref in cases:
-            for save in (False, True):
+            for save in (False, True) if entry != "linear_relu_fwd" else (False,):
                 got = fn(save)
-                got = got if save else (got,)
+                got = got if save or entry == "linear_relu_fwd" else (got,)
                 torch.cuda.synchronize()
                 same = [torch.equal(o, r) for o, r in zip(got, ref)]
                 worst = max((o - r).abs().max().item() for o, r in zip(got, ref))
@@ -1567,6 +1579,9 @@ def main() -> int:
             attn_bwd_cu: ["attention_bwd_prep_kernel", "attention_bwd_kernel"],
             attn_tc_cu: ["attention_fwd_bf16_kernel", "attention_bwd_prep_kernel",
                          "attention_dkdv_bf16_kernel", "attention_dq_bf16_kernel"]}
+        # the bf16 K4's dk/dv and dq at head 64: wgmma kernels of their own,
+        # not templates on the head width
+        head64_wgmma = ["attention_dkdv_wgmma_kernel", "attention_dq_wgmma_kernel"]
         _build.library()
         ph.check(True, f"{'cold' if cold else 'warm'} build of {len(_build.sources())} "
                        f"sources: {time.perf_counter() - t:.2f} s")
@@ -1589,6 +1604,9 @@ def main() -> int:
                                              for k in report),
                      f"{Path(src).name}: {len(report)} kernels"
                      f"{' (' + ', '.join(only) + ')' if only else ''}, none spills")
+            serialized = [n for k, n in zip(report, names) if k.get("serialized")]
+            ph.check(not serialized, f"{Path(src).name}: no wgmma serialized by ptxas "
+                                     f"(C7510-C7520){': ' + ', '.join(serialized) if serialized else ''}")
             short_names = [n.replace("(anonymous namespace)::", "").removeprefix("void ")
                            for n in names]
             seen768.extend(p_ for p_ in D768_KERNELS if any(n.startswith(p_) for n in short_names))
@@ -1596,12 +1614,17 @@ def main() -> int:
             # the attention's head-64 and head-32 instances among them
             for hd in (64, 32) if src in head_kernels else ():
                 # (mangled, a template argument 64 reads ILi64E)
-                found = [k_ for k_ in head_kernels[src]
-                         if any(f"{k_}ILi{hd}E" in k["name"] for k in report)]
-                ph.check(found == head_kernels[src],
+                want = head_kernels[src]
+                if src == attn_tc_cu and hd == 64:
+                    want = want[:2] + head64_wgmma
+                found = [k_ for k_ in want
+                         if any(f"{k_}ILi{hd}E" in k["name"] or (k_ in head64_wgmma and
+                                                                 k_ in k["name"])
+                                for k in report)]
+                ph.check(found == want,
                          f"{Path(src).name}: head-{hd} instances "
-                         f"{[f'{k_}<{hd}>' for k_ in found]} (want {len(head_kernels[src])}), "
-                         f"none spills")
+                         f"{[k_ if k_ in head64_wgmma else f'{k_}<{hd}>' for k_ in found]} "
+                         f"(want {len(want)}), none spills")
 
         ph.check(sorted(seen768) == sorted(D768_KERNELS),
                  f"the layer chain's D 768 instances built, none spills: {len(seen768)} of "
@@ -3012,6 +3035,14 @@ def main() -> int:
 
         library_of = {"layernorm_bwd": ln_bwd_library, "linear_dgrad": dgrad_library,
                       "linear_wgrad": wgrad_library, "attention_bwd": attention_bwd_library}
+
+        def library_device(iname):
+            """The rows whose library call CUDA events time by the host's
+            launch rate, or whose events exceed their library's at D 64: their
+            library call also by the profiler's device time (K2a at every
+            width, K5, K6, the bf16 K2b and K2c at D 64)."""
+            return (iname.startswith(("layernorm_bwd", "ln_fwd", "ln_bwd"))
+                    or iname in ("linear_wgrad_bf16_d64", "linear_dgrad_bf16_d64"))
         from torch.profiler import ProfilerActivity, profile
 
         prof_reps = 20
@@ -3025,9 +3056,9 @@ def main() -> int:
             the last with events is kept. In this process a trace can lose
             launches of a kernel (up to 8 of 20; with a warm-up step that the
             trace drops, three traces in a row came back empty; a fresh
-            process lost none, scripts/profiler_counts.py), so the rows that
-            time_entry also times after a head start print that time where
-            the trace lost launches. Empty where every trace was."""
+            process lost none, scripts/profiler_counts.py), so read_device
+            takes the time after a head start where the trace lost launches.
+            Empty where every trace was."""
             kept = None
             for _ in range(attempts):
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3056,7 +3087,8 @@ def main() -> int:
             """CUDA events around ``iters`` rounds of the calls ``fns`` queued
             behind a 0.1 s spin of the card (torch.cuda._sleep), so that the
             host has queued every launch before the first runs: the device's
-            time, without the host's launch rate."""
+            time, without the host's launch rate. None where the spin ended
+            before the host had queued them."""
             for fn in fns:
                 fn()
             torch.cuda.synchronize()
@@ -3072,7 +3104,28 @@ def main() -> int:
             torch.cuda.synchronize()
             if queued > 0.08:  # the spin did not cover the queueing
                 log(f"    (head start too short: {queued * 1e3:.1f} ms to queue)")
+                return None
             return start.elapsed_time(end) / iters
+
+        def read_device(fns):
+            """The device time of a round of the calls ``fns``: the profiler's
+            where its trace holds whole launches a round, else CUDA events
+            after a head start, else None (the kernels line then says null).
+            Returns (ms or None, where it came from, the head start's reading
+            or None, the profiler's time of each kernel, each kernel's
+            launches a round in the trace)."""
+            counts = {}
+            per_kernel = device_ms(fns, counts=counts)
+            hs_ms = head_start_ms(fns)
+            if per_kernel and not lost_launches(counts):
+                return sum(per_kernel.values()), "profiler", hs_ms, per_kernel, counts
+            why = "the trace lost launches" if per_kernel else "the traces were empty"
+            if hs_ms is not None:
+                return hs_ms, f"events after a head start: {why}", hs_ms, per_kernel, counts
+            return None, f"not read: {why}, the head start too short", hs_ms, per_kernel, counts
+
+        def fmt_ms(ms):
+            return "not read" if ms is None else f"{ms:.4f} ms"
 
         def step_cost(name, args, kwargs, es, rows_, m_):
             """(operations, bytes) a backward GEMM or layernorm_bwd call must do
@@ -3149,20 +3202,21 @@ def main() -> int:
                                  else (a[0].shape[-1], a[1].shape[-1]) for a, _ in calls]
             return runs, weights
 
-        def time_entry(iname, sites, peak, what, weights=None, head_start=False):
+        def time_entry(iname, sites, peak, what, weights=None):
             """An entry point's sites of one layer on the card, kept in
             stats[iname]: CUDA events (kernel, plain, plain, kernel: two
             readings each, in turns), one library call (a pair: the call for
             the same function, then an earlier yardstick, printed beside it),
             the bound (the larger of the operations over the dtype's peak and
             the bytes over the memory rate, summed over the sites), and the
-            profiler's device time of every kernel the calls launch, with
-            each kernel's launches per round in the trace; where there are
-            several sites, each site also on its own. With ``head_start``
-            also CUDA events behind a spin of the card (head_start_ms), the
+            device time (read_device): the profiler's time of every kernel the
+            calls launch, with each kernel's launches per round in the trace,
+            and CUDA events behind a spin of the card (head_start_ms), the
             device's time free of the host's launch rate, which is the row's
-            device time where the trace lost launches."""
+            device time where the trace lost launches; where there are
+            several sites, each site also on its own."""
             ms = plain_ms = lib_ms = bound = ops_bound = bytes_bound = 0.0
+            lib_fns = []
             for i_site, (kernel_fn, plain_fn, lib_fn, ops, nbytes) in enumerate(sites):
                 t1, p1, p2, t2 = (time_ms(fn) for fn in (kernel_fn, plain_fn, plain_fn,
                                                          kernel_fn))
@@ -3170,17 +3224,13 @@ def main() -> int:
                 if isinstance(lib_fn, tuple):
                     lib_fn, lib_old = lib_fn[0], time_ms(lib_fn[1])
                 lib = time_ms(lib_fn)
+                lib_fns.append(lib_fn)
                 t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
                 if len(sites) > 1:
-                    site_counts = {}
-                    site_dev = device_ms([kernel_fn], counts=site_counts)
-                    site_dev = (f"device {sum(site_dev.values()):.4f} ms (profiler"
-                                f"{lost_launches(site_counts)})" if site_dev else
-                                "device not read (the profiler's traces were empty)")
-                    site_hs = (f", after a head start {head_start_ms([kernel_fn]):.4f} ms"
-                               if head_start else "")
+                    site_dev, site_source, site_hs, *_ = read_device([kernel_fn])
                     log(f"    {iname} site, weight {weights[i_site]}: kernel "
-                        f"{(t1 + t2) / 2:.4f} ms, {site_dev}{site_hs}, library {lib:.4f} ms"
+                        f"{(t1 + t2) / 2:.4f} ms, device {fmt_ms(site_dev)} ({site_source}), "
+                        f"after a head start {fmt_ms(site_hs)}, library {lib:.4f} ms"
                         + (f" (the product alone {lib_old:.4f} ms)" if lib_old is not None else "")
                         + f", bound {max(t_ops, t_bytes):.4f} ms")
                 ms += (t1 + t2) / 2
@@ -3189,25 +3239,22 @@ def main() -> int:
                 bound += max(t_ops, t_bytes)
                 ops_bound += t_ops
                 bytes_bound += t_bytes
-            counts = {}
-            per_kernel = device_ms([kernel_fn for kernel_fn, *_ in sites], counts=counts)
-            if not per_kernel and not head_start:
-                raise RuntimeError(f"{iname}: the profiler recorded no device time")
-            dev_ms = sum(per_kernel.values())
+            dev_ms, source, hs_ms, per_kernel, counts = read_device(
+                [kernel_fn for kernel_fn, *_ in sites])
             stats[iname].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                                bound_by="operations" if ops_bound >= bytes_bound else "bytes")
-            hs, source = "", "profiler" + lost_launches(counts)
-            if head_start:  # the device's time where the trace lost launches
-                hs_ms = head_start_ms([k_ for k_, *_ in sites])
-                if not per_kernel:
-                    dev_ms, source = hs_ms, "events after a head start: the traces were empty"
-                elif lost_launches(counts):
-                    dev_ms, source = hs_ms, "events after a head start: the trace lost launches"
-                hs = f", after a head start {hs_ms:.4f} ms"
+                                bound_by="operations" if ops_bound >= bytes_bound else "bytes",
+                                device_ms=dev_ms, device_ms_source=source)
+            lib_dev = ""
+            if library_device(iname):  # events read the host's launch rate there
+                lib_dev_ms, lib_source, *_ = read_device(lib_fns)
+                stats[iname].update(library_device_ms=lib_dev_ms,
+                                    library_device_ms_source=lib_source)
+                lib_dev = f" (device {fmt_ms(lib_dev_ms)}, {lib_source})"
+            share = "" if dev_ms is None else f"; {100 * bound / dev_ms:.1f} % of its bound"
             log(f"  {iname} ({what}, {len(sites)} site{'s' * (len(sites) > 1)} of a layer): "
-                f"kernel {ms:.4f} ms, device {dev_ms:.4f} ms ({source}; {100 * bound / dev_ms:.1f} "
-                f"% of its bound){hs}, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-                f"{bound:.4f} ms ({stats[iname]['bound_by']}); "
+                f"kernel {ms:.4f} ms, device {fmt_ms(dev_ms)} ({source}{share}), after a head "
+                f"start {fmt_ms(hs_ms)}, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms"
+                f"{lib_dev}, bound {bound:.4f} ms ({stats[iname]['bound_by']}); "
                 + ", ".join(f"{k_[:60]} {v_:.4f} (x{counts[k_]:g} a round)" for k_, v_ in
                             sorted(per_kernel.items(), key=lambda kv: -kv[1])))
 
@@ -3385,7 +3432,7 @@ def main() -> int:
             bsz7, s7 = i7["x"].shape[:2]
             for name, sites in runs7.items():
                 time_entry(fused_block.instance(name + tag, D16), sites, peak,
-                           f"B {bsz7}, S_pad {s7}, D {D16}", weights7.get(name), head_start=True)
+                           f"B {bsz7}, S_pad {s7}, D {D16}", weights7.get(name))
             layer7_ms = time_ms(lambda: fused_block.fused_encoder_block(
                 i7["x"], i7["vl"], *i7["w"], H16, EPS1, EPS2))
             layer7_plain = time_ms(lambda: fused_block.fused_encoder_block_reference(
@@ -3442,7 +3489,7 @@ def main() -> int:
                 iname = (fa.instance(name + tag, D64 // H64) if name.startswith("prefix_attention")
                          else fused_block.instance(name + tag, D64))
                 time_entry(iname, sites, peak, f"B {bsz64}, S_pad {s64}, D {D64}",
-                           weights64.get(name), head_start=True)
+                           weights64.get(name))
             layer64_ms = time_ms(lambda: fused_block.fused_encoder_block(
                 i64["x"], vl64, *i64["w"], H64, EPS1, EPS2))
             layer64_plain = time_ms(lambda: fused_block.fused_encoder_block_reference(
@@ -3636,7 +3683,9 @@ def main() -> int:
          "launches": stats[name]["launches"], "max_abs_err": stats[name]["max_abs_err"],
          "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
          "bound_ms": stats[name]["bound_ms"], "bound_by": stats[name]["bound_by"],
-         "library_ms": stats[name]["library_ms"]}
+         "library_ms": stats[name]["library_ms"],
+         **{k_: stats[name][k_] for k_ in ("device_ms", "device_ms_source", "library_device_ms",
+                                          "library_device_ms_source") if k_ in stats[name]}}
         for name, (_, src, replaces, _) in instances.items()]}
     if failures:
         for f in failures:

@@ -7,7 +7,8 @@ spec, the multicrop inside the step) and the float32 step on 4e (b)'s
 warms the allocator, then 3 steps under the profiler (device busy: the sum of
 the kernels' device times a step, the multicrop's range left out) and the
 host clock around them (wall a step, after a synchronize), and the device
-time a step of the chain's K1b, K2c and K2b kernels. Run from the root of the
+time a step of the chain's K1b, K2c and K2b kernels, of K1c and of the
+attention (K3 and K4, and K4's three launches alone). Run from the root of the
 repository:
 
     python3 scripts/bench_b16_step.py [--parent DIR]
@@ -37,6 +38,13 @@ K2C_KEYS = ("linear_wgrad", "reduce_wgrad", "reduce_stream", "ln_rows_saved")
 K2B_KEYS = ("linear_dgrad", "reduce_dgrad", "dgrad_list", "linear_wgmma_kernel<2048, 768, 256, 1>",
             "linear_wgmma_kernel<768, 2048, 192, 2>", "linear_wgmma_kernel<768, 768, 192, 0>",
             "linear_wgmma_kernel<768, 2304, 192, 0>")
+# K1c (the f32 GEMM's ReLU epilogue or the old kernel; the bf16 wgmma GEMM's
+# epilogue 4), the attention's kernels (both dtypes) and K4's alone
+K1C_KEYS = ("linear_relu", "gemm128_kernel<2048", "linear_wgmma_kernel<2048, 768, 256, 4>")
+ATTN_KEYS = ("attention_fwd_bf16", "prefix_attention_kernel", "attention_bwd", "attention_dkdv",
+             "attention_dq")
+K4_KEYS = ("attention_bwd", "attention_dkdv", "attention_dq")
+KEYS = ("device_busy_ms", "wall_ms", "k1b_ms", "k1c_ms", "k2c_ms", "k2b_ms", "attn_ms", "k4_ms")
 
 
 def worker(root: Path) -> dict:
@@ -76,7 +84,8 @@ def worker(root: Path) -> dict:
                        if keys is None or any(k in e.key for k in keys)) / 1e3 / STEPS
 
         return {"device_busy_ms": ms(), "wall_ms": wall * 1e3, "k1b_ms": ms(K1B_KEYS),
-                "k2c_ms": ms(K2C_KEYS), "k2b_ms": ms(K2B_KEYS)}
+                "k1c_ms": ms(K1C_KEYS), "k2c_ms": ms(K2C_KEYS), "k2b_ms": ms(K2B_KEYS),
+                "attn_ms": ms(ATTN_KEYS), "k4_ms": ms(K4_KEYS)}
 
     out = {"tree": str(root)}
     state, fused, _, _ = build_dino(bench.b16_spec(), device_augmentations=bench.ASYMMETRIC_AUGS)
@@ -128,9 +137,12 @@ def main() -> int:
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
     for step in ("bf16_7ch", "f32_3ch"):
-        for key in ("device_busy_ms", "wall_ms", "k1b_ms", "k2c_ms", "k2b_ms"):
+        for key in KEYS:
             print(f"{step} {key}: " + ", ".join(f"{lab} {r[step][key]:.2f}"
                                                 for lab, r in zip(labels, runs)), flush=True)
+        print(f"{step} attention share of device time: " + ", ".join(
+            f"{lab} {100 * r[step]['attn_ms'] / r[step]['device_busy_ms']:.1f} %"
+            for lab, r in zip(labels, runs)), flush=True)
     return 0
 
 

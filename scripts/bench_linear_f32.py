@@ -37,7 +37,8 @@ A site near ``no_copy`` is held by its loop, one near ``no_fma`` by its
 loads.
 
 ``d768`` times ChAdaViT-B/16's float32 K1a (``ln_linear_fwd_d768``: the LN1
-row pass, then ``gemm128_kernel``), K1b at both sites
+row pass, then ``gemm128_kernel``), K1c (``linear_relu_fwd`` at K 768),
+K1b at both sites
 (``linear_residual_ln_fwd`` at N 768: ``gemm128_kernel``, then the LayerNorm
 row pass), without saves, and K2c at its four sites (``linear_wgrad_d768``:
 at QKV the LN1 row pass, then both passes of the stream-K walk over
@@ -53,17 +54,18 @@ channels, S_pad 640, 3 340 valid rows) and the rows of the f32 B/16 step on
 chip_smoke.py's 3-channel bucket (phase 4e (b): 2 images of 3 and 2
 channels x 2 crops, S_pad 640, 1 964 valid rows, where K1b's GEMM takes
 its 64-column tile); the blocks each K2c and K2b site's grid holds and the
-waves they make; one PyTorch call for the same
-function (``layer_norm`` and ``addmm``, on all rows; K2c ``mm`` of dY^T and
-X' and ``sum`` of dY, X' = ``layer_norm(x)`` at QKV; K2b ``mm`` with the
+waves they make; one PyTorch call for the same function (``layer_norm``
+and ``addmm``, on all rows; K1c ``relu`` of ``addmm``; K2c ``mm`` of dY^T
+and X' and ``sum`` of dY, X' = ``layer_norm(x)`` at QKV; K2b ``mm`` with the
 mask by ``where`` or the residual by ``addmm``) and the bound
 (operations on the valid rows at 67 TFLOP/s). With ``--parent DIR`` (an
 unpacked checkout of another commit, e.g. ``git archive`` of the parent into
 a directory that ``.gitignore`` lists) it also builds that tree's
 ``fused_block.cu`` and ``fused_block_bwd.cu`` as built, ``no_copy`` and
-``no_fma``, times its K1a, K1b and K2c in turns with this tree's in one
-process (parent, change, change, parent), and says whether the two trees'
-K1a (qkv, mean, rstd) and K1b (out, mean, rstd, r) outputs are the same bits
+``no_fma``, times its K1a, K1c, K1b, K2c and K2b in turns with this tree's
+in one process (parent, change, change, parent), and says whether the two
+trees' K1a (qkv, mean, rstd), K1c (hid) and K1b (out, mean, rstd, r)
+outputs are the same bits
 on seeded inputs, and how far apart their K2c and K2b outputs are (each K2c
 and K2b twice for the same bits). Each build also prints
 the registers and spills of the two kernels (``nvcc -Xptxas -v``). The
@@ -251,6 +253,14 @@ def main_d768(parent) -> int:
             args += [vl.data_ptr(), m, d, 3 * d, s_pad, stream]
             return (lambda: fn(*args)), (out,) + (() if st is None else (st[0], st[1]))
 
+        x2, w1, b1f = rn(m, d), rn(f, d, scale=d ** -0.5), rn(f, scale=0.02)  # K1c
+
+        def k1c(lib):
+            out = torch.empty(m, f, device=dev)
+            args = (x2.data_ptr(), w1.data_ptr(), b1f.data_ptr(), out.data_ptr(), vl.data_ptr(),
+                    m, d, f, s_pad, stream)
+            return (lambda: lib.linear_relu_fwd(*args)), (out,)
+
         def k1b(lib, site, save=False):
             k, a, w, bias, res = site
             out = torch.empty(m, d, device=dev)
@@ -314,6 +324,7 @@ def main_d768(parent) -> int:
             return (lambda: lib.linear_dgrad(*args)), (out,)
 
         steps = {"K1a": lambda lib, save=False: k1a(lib, save),
+                 "K1c": lambda lib, save=False: k1c(lib),
                  **{f"K1b K {s[0]}": (lambda lib, save=False, s=s: k1b(lib, s, save))
                     for s in sites},
                  **{f"K2c {site}": (lambda lib, save=False, site=site: k2c(lib, site))
@@ -406,6 +417,8 @@ def main_d768(parent) -> int:
             row("as built", libs["as built"])
         lib = time_ms(lambda: torch.addmm(bqkv, F.layer_norm(x, (d,), g, beta), wqkv.t()))
         cells = [f"K1a {lib:.4f}"]
+        lib = time_ms(lambda: torch.relu(torch.addmm(b1f, x2, w1.t())))
+        cells.append(f"K1c {lib:.4f}")
         for _, a, w, bias, res in sites:
             lib = time_ms(lambda: F.layer_norm(torch.addmm(bias, a, w.t()) + res, (d,), g, beta))
             cells.append(f"K1b K {a.shape[1]} {lib:.4f}")
@@ -427,7 +440,8 @@ def main_d768(parent) -> int:
             cells.append(f"K2b {site} {lib:.4f}")
         cells.append(f"K2b four sites {total:.4f}")
         print("library: " + ", ".join(cells) + " (ms; all rows)", flush=True)
-        ops = {"K1a": 2 * sum(valid) * d * 3 * d, "K1b K 768": 2 * sum(valid) * d * d,
+        ops = {"K1a": 2 * sum(valid) * d * 3 * d, "K1c": 2 * sum(valid) * d * f,
+               "K1b K 768": 2 * sum(valid) * d * d,
                "K1b K 2048": 2 * sum(valid) * d * f,
                **{f"K2c {site}": 2 * sum(valid) * n * k + sum(valid) * n
                   for site, (n, k) in WGRAD_D768.items()}}

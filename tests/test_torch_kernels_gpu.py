@@ -1166,6 +1166,37 @@ def test_f32_d768_linear_residual_ln_keeps_its_bits(dev, batch, site, save):
         assert torch.equal(o, r), (what, (o - r).abs().max().item())
 
 
+# ---- the float32 K1c at D 768 keeps the first port's bits --------------------------
+# linear_relu at K 768 (the 128-row GEMM with its ReLU epilogue) against
+# tests/torch_f32_order.py::linear_relu_order, the order of the first port's
+# kernel: equal bit for bit, zeros on the tiles past the prefix, whose rows
+# of x are NaN (not read); a second call gives the same bits. At chip_smoke.py's
+# narrow f32 rows and at its 3-channel bucket's (B16_BUCKET_F32's two images,
+# two crops each), and at K1a's edges and straddle batches (a last 128-row
+# block of one tile, blocks that hold rows of two images).
+K1C_D768_BATCHES = {"narrow": K1A_BATCHES["narrow"],
+                    "bucket": (640, [1 + 196 * c for c in (3, 2, 3, 2)]),
+                    "edges": K1A_BATCHES["edges"], "straddle": K1A_BATCHES["straddle"]}
+
+
+@pytest.mark.parametrize("batch", list(K1C_D768_BATCHES))
+def test_f32_d768_linear_relu_keeps_the_first_port_bits(dev, batch):
+    s, valid = K1C_D768_BATCHES[batch]
+    rng = np.random.default_rng(len(valid) + 37)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    x = _poison_padding(_randn(rng, dev, len(valid), s, D16), valid)
+    w, bias = _randn(rng, dev, F, D16, scale=D16 ** -0.5), _randn(rng, dev, F, scale=0.02)
+    name = "linear_relu_fwd_d768"
+    before = _launch.LAUNCHES[name]
+    with torch.no_grad():
+        got, again = (fused_block.linear_relu(x, w, bias, vl) for _ in range(2))
+    torch.cuda.synchronize()
+    assert _launch.LAUNCHES[name] == before + 2
+    assert torch.equal(got, again), "a second call gives other bits"
+    ref = f32_order.linear_relu_order(x, w, bias, valid)
+    assert torch.equal(got, ref), (got - ref).abs().max().item()
+
+
 # ---- K6, ln_bwd redesigned: a split plan of M alone, half a warp a row at D 192 ----
 # Both dtypes, with and without the residual: M smaller than one split, M no
 # multiple of the split's rows, M past the most splits (LN_BWD_MAX_SPLITS
@@ -1211,23 +1242,27 @@ def test_ln_bwd_splits_on_the_card(dev, shape, dtype, residual):
 # The head-64 instances of both dtypes against their plain versions (the
 # bounds above: float32 1e-4, the gradients 1e-4 of their largest entry;
 # bfloat16 bf16_err) on the column slices of one packed qkv (rows of 3 D), at
-# every kind of prefix and at the hub's shapes, B/16's 12 heads and a narrow
-# model's 2: the lse, zeros and lse 1e30 on the query tiles past the prefix,
-# the backward with a cotangent on every row of the computed tiles (exact
-# zeros past them), each call twice for the same bits, and the launches
-# counted under the head-64 instance's name.
+# every kind of prefix, at the hub's shapes and at an S of three 64-row tiles
+# (the bf16 K4's 128-row blocks then end an image on one tile), B/16's 12
+# heads and a narrow model's 2, on three seeds: the lse, zeros and lse 1e30 on
+# the query tiles past the prefix, the backward with a cotangent on the valid
+# rows and with one on every row of the computed tiles (exact zeros past
+# them), each call twice for the same bits, and the launches counted under
+# the head-64 instance's name.
 # (D, heads): the head-64 widths, and the smoke width's head of 32
 HD64_WIDTHS = {"b16": (768, 12), "narrow": (128, 2), "smoke_hd32": (D64, H64)}
-HD64_BATCHES = {"ragged": (2048, ATTN_VALID), "hub": (2048, _HUB)}
+HD64_BATCHES = {"ragged": (2048, ATTN_VALID), "hub": (2048, _HUB),
+                "odd_tiles": (192, [1, 64, 65, 129, 192])}
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("width", list(HD64_WIDTHS))
 @pytest.mark.parametrize("batch", list(HD64_BATCHES))
-def test_head_64_attention_forward_and_backward(dev, batch, width, dtype):
+def test_head_64_attention_forward_and_backward(dev, batch, width, dtype, seed):
     d, heads = HD64_WIDTHS[width]
     s, valid = HD64_BATCHES[batch]
-    rng = np.random.default_rng(len(valid) + d)
+    rng = np.random.default_rng(len(valid) + d + 1000 * seed)
     vl = torch.tensor(valid, dtype=torch.int32, device=dev)
     qkv = _randn(rng, dev, len(valid), s, 3 * d).to(dtype)
     q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
@@ -1245,19 +1280,24 @@ def test_head_64_attention_forward_and_backward(dev, batch, width, dtype):
     close(lse.transpose(1, 2), rlse.transpose(1, 2), rows)
     for i, n in enumerate(rows):  # the query tiles past the prefix: zeros, lse 1e30
         assert not out[i, n:].any().item() and (lse[i, :, n:] == 1e30).all().item()
-    dout = _tail_cotangent(_randn(rng, dev, len(valid), s, d), valid, fa.SEQ_BLOCK).to(dtype)
-    got = fa.prefix_attention_bwd(q, k, v, out, lse, dout, vl, heads)
-    assert torch.equal(got, fa.prefix_attention_bwd(q, k, v, out, lse, dout, vl, heads))
-    assert (_launch.LAUNCHES[fwd], _launch.LAUNCHES[bwd]) == (before[0] + 2, before[1] + 2)
-    gref = fa.prefix_flash_attention_backward_reference(q, k, v, out, lse, dout, vl, heads)
-    for j in range(3):  # dq, dk, dv
-        if dtype == torch.float32:
-            _assert_computed_rows_close(got[..., j * d:(j + 1) * d],
-                                        gref[..., j * d:(j + 1) * d], rows)
-        else:
-            _assert_bf16_close(got[..., j * d:(j + 1) * d], gref[..., j * d:(j + 1) * d], rows)
-    for i, n in enumerate(rows):  # the zero-filled tiles get exact zeros
-        assert not got[i, n:].any().item()
+    tail = _tail_cotangent(_randn(rng, dev, len(valid), s, d), valid, fa.SEQ_BLOCK)
+    on_valid = tail.clone()
+    for i, n in enumerate(valid):
+        on_valid[i, n:] = 0
+    for dout in (tail.to(dtype), on_valid.to(dtype)):
+        got = fa.prefix_attention_bwd(q, k, v, out, lse, dout, vl, heads)
+        assert torch.equal(got, fa.prefix_attention_bwd(q, k, v, out, lse, dout, vl, heads))
+        gref = fa.prefix_flash_attention_backward_reference(q, k, v, out, lse, dout, vl, heads)
+        for j in range(3):  # dq, dk, dv
+            if dtype == torch.float32:
+                _assert_computed_rows_close(got[..., j * d:(j + 1) * d],
+                                            gref[..., j * d:(j + 1) * d], rows)
+            else:
+                _assert_bf16_close(got[..., j * d:(j + 1) * d], gref[..., j * d:(j + 1) * d],
+                                   rows)
+        for i, n in enumerate(rows):  # the zero-filled tiles get exact zeros
+            assert not got[i, n:].any().item()
+    assert (_launch.LAUNCHES[fwd], _launch.LAUNCHES[bwd]) == (before[0] + 2, before[1] + 4)
 
 
 FWD_STEPS = ["ln_linear", "ln_linear_save", "linear_relu", "residual_ln_out",
@@ -1333,9 +1373,16 @@ def test_d768_layer_gradient_through_the_function(dev, batch, dtype, seed):
     rows = [-(-n // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK for n in valid]
     xg = x.clone().requires_grad_(True)
     wg = [t.clone().requires_grad_(True) for t in w]
+    # the layer's K1c and its attention backward at this width (at D 768 the
+    # 128-row GEMM and, in bf16, the wgmma K4), counted under their instances
+    k1c = fused_block.instance(_launch.entry_point("linear_relu_fwd", dtype), d)
+    k4 = fa.instance(_launch.entry_point("prefix_attention_bwd", dtype), d // heads)
+    before = (_launch.LAUNCHES[k1c], _launch.LAUNCHES[k4])
     y = fused_block.fused_encoder_block(xg, vl, *wg, heads)
     assert type(y.grad_fn).__name__ == "FusedEncoderBlockBackward"
     got = torch.autograd.grad(y, [xg, *wg], dy)
+    # the forward's K1c and the backward's recompute of hid; one K4
+    assert (_launch.LAUNCHES[k1c], _launch.LAUNCHES[k4]) == (before[0] + 2, before[1] + 1)
     with torch.no_grad():
         _, res = fused_block.layer_forward(fused_block.KERNEL_STEPS, x, vl, tuple(w), heads,
                                            1e-5, 1e-5, save=True)

@@ -8,6 +8,10 @@ in float32 where the kernel rounds and in float64 where it fuses (fmaf).
 - :func:`ln_linear_order`: the LN1 + QKV step (K1a) as the first port's
   kernel summed it, which every float32 K1a since keeps: row_stats' lane
   sums and warp butterfly, the prologue, the fmaf chain over k, the bias.
+- :func:`linear_relu_order`: the FFN1 + ReLU step (K1c) as the first port's
+  kernel summed it, which every float32 K1c since keeps (the D 768 one on
+  the 128-row GEMM with a ReLU epilogue): the fmaf chain over k, the bias,
+  then the max with 0.
 - :func:`linear_residual_ln_order`: the out-projection / FFN2 + residual +
   LayerNorm step (K1b) at D 768 as its first kernel summed it (a cluster of
   four 192-column blocks whose partial LayerNorm sums were added in rank
@@ -109,6 +113,21 @@ def ln_linear_order(x, g, b, eps, w, bias, valid_len=None):
                      torch.zeros(m, device=x.device))
     qkv[keep], mean[keep], rs[keep] = product(h, w) + bias, mu, rstd
     return qkv.reshape(bsz, s_pad, n), mean.reshape(bsz, s_pad), rs.reshape(bsz, s_pad)
+
+
+def linear_relu_order(x, w, bias, valid_len=None):
+    """hid = max(the fmaf chain over k from 0 + bias, 0), ``(B, S, N)``, in
+    the order of the first port's linear_relu_fwd, which the float32 K1c
+    keeps at every width (hid sits on the ReLU kink, and the layer's backward
+    reads its mask from it). With ``valid_len`` only the rows of the 32-row
+    tiles that hold a valid row are computed, the others are zeros."""
+    bsz, s_pad, k = x.shape
+    m, n = bsz * s_pad, w.shape[0]
+    keep = (torch.ones(m, dtype=torch.bool, device=x.device) if valid_len is None
+            else computed(valid_len, bsz, s_pad, x.device))
+    hid = torch.zeros(m, n, device=x.device)
+    hid[keep] = torch.clamp(product(x.reshape(m, k)[keep], w) + bias, min=0.0)
+    return hid.reshape(bsz, s_pad, n)
 
 
 def linear_residual_ln_order(a, w, bias, res, g, beta, eps, valid_len=None):
