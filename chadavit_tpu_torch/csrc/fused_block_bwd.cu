@@ -73,6 +73,7 @@
 #include "sgemm_f32.cuh"
 
 #include <cooperative_groups.h>
+#include <type_traits>
 
 namespace {
 
@@ -167,6 +168,178 @@ layernorm_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ xin,
         partial[(size_t)split * 2 * D + half * D + c] = s;
       }
     }
+  }
+}
+
+// ---- layernorm_bwd at D 768 in bf16: a 16-byte row pass ----------------------
+// The first pass of layernorm_bwd for ChAdaViT-B/16's bf16 layer (D 768, T =
+// bf16), in place of layernorm_bwd_kernel<768, bf16>, which read its three
+// tensors one 2-byte element a load with one row of a warp in flight. Bound
+// by bytes (it reads dy, x and res once and writes dx), so the design moves
+// them at the memory's rate: a lane reads and writes 16-byte chunks (8
+// columns; lane l holds the chunks l, l + 32, l + 64 of a row), a warp holds
+// LNW_ROWS rows in flight with their stats, so that one row's loads overlap
+// the other's warp sums, and a block holds no resident gamma or partials in
+// registers (gamma and the warps' partials live in shared memory, in the
+// lanes' order), which leaves registers for two or three blocks an SM.
+// dgamma and dbeta keep layernorm_bwd_kernel's bits: a warp takes the rows
+// w, w + 8, w + 16, w + 24 of each of its split's tiles in order, its partial
+// of a column adds d xh (fmaf) and d row by row in that order, and the split's
+// partial adds the warps' in warp order; the splits are the plan's and the
+// second pass reduce_ln_splits_kernel<768>. dx's two row sums add the lane's
+// columns chunk by chunk, then the warp's lanes: another order than the old
+// kernel's, within the bf16 bounds of the plain version.
+constexpr int LNW_CHUNKS = D_WIDE / 8 / 32;  // a lane's 16-byte chunks of a row
+constexpr int LNW_ROWS = 2;                  // rows a warp holds in flight
+constexpr int LNW_Q = D_WIDE / 4;            // float4 of a 768-float row
+// shared memory: the warps' dgamma, then dbeta partials, then gamma, each as
+// [chunk k][half][lane] float4 (columns 8 (lane + 32 k) + 4 half ..)
+constexpr int LNW_SMEM = (WARPS * 2 + 1) * D_WIDE * 4;
+
+__device__ __forceinline__ int lnw_slot(int k, int half, int lane) {
+  return (k * 2 + half) * 32 + lane;
+}
+
+template <bool RES>
+__global__ void __launch_bounds__(NT, 2)
+layernorm_bwd_wide_bf16_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ xin,
+                               const float* __restrict__ mean, const float* __restrict__ rstd,
+                               const float* __restrict__ g, const bf16* __restrict__ res,
+                               bf16* __restrict__ dx, float* __restrict__ partial,
+                               const int* __restrict__ valid_len, int s_pad, int n_tiles,
+                               int splits) {
+  constexpr int D = D_WIDE;
+  extern __shared__ float4 lnw_smem[];
+  const int split = blockIdx.x;
+  const int t0 = (int)((long long)split * n_tiles / splits);
+  const int t1 = (int)((long long)(split + 1) * n_tiles / splits);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float4* pgb = lnw_smem + warp * 2 * LNW_Q;  // this warp's dgamma, then dbeta partials
+  const float4* gs = lnw_smem + WARPS * 2 * LNW_Q;
+  for (int i = threadIdx.x; i < LNW_Q; i += NT) {
+    const int ln = i % 32, kh = i / 32;
+    lnw_smem[WARPS * 2 * LNW_Q + i] =
+        *reinterpret_cast<const float4*>(g + 8 * (ln + 32 * (kh / 2)) + 4 * (kh % 2));
+  }
+  for (int i = lane; i < 2 * LNW_Q; i += 32) pgb[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();  // gamma is in
+  for (int tile = t0; tile < t1; ++tile) {
+    const int m0 = tile * BM;
+    if (tile_is_padding(m0, s_pad, valid_len)) {  // uniform across the block
+      for (int c = threadIdx.x; c < BM * D / 8; c += NT)
+        reinterpret_cast<uint4*>(dx + (size_t)m0 * D)[c] = make_uint4(0, 0, 0, 0);
+      continue;  // adds nothing to the sums
+    }
+#pragma unroll 1
+    for (int r0 = warp; r0 < BM; r0 += LNW_ROWS * WARPS) {  // rows r0, r0 + 8
+      uint4 dv[LNW_ROWS][LNW_CHUNKS], xv[LNW_ROWS][LNW_CHUNKS], rv[LNW_ROWS][LNW_CHUNKS];
+      float mu[LNW_ROWS], rs[LNW_ROWS];
+#pragma unroll
+      for (int i = 0; i < LNW_ROWS; ++i) {
+        const size_t row = (size_t)m0 + r0 + i * WARPS;
+        mu[i] = mean[row];
+        rs[i] = rstd[row];
+        const uint4* dyr = reinterpret_cast<const uint4*>(dy + row * D);
+        const uint4* xr = reinterpret_cast<const uint4*>(xin + row * D);
+#pragma unroll
+        for (int k = 0; k < LNW_CHUNKS; ++k) {
+          dv[i][k] = __ldg(dyr + lane + 32 * k);
+          xv[i][k] = __ldg(xr + lane + 32 * k);
+          if constexpr (RES)
+            rv[i][k] = __ldg(reinterpret_cast<const uint4*>(res + row * D) + lane + 32 * k);
+        }
+      }
+      float s1[LNW_ROWS] = {}, s2[LNW_ROWS] = {};
+#pragma unroll
+      for (int k = 0; k < LNW_CHUNKS; ++k) {
+        const float4 ga = gs[lnw_slot(k, 0, lane)], gb = gs[lnw_slot(k, 1, lane)];
+        const float gc[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+#pragma unroll
+        for (int i = 0; i < LNW_ROWS; ++i) {
+          const uint32_t* du = reinterpret_cast<const uint32_t*>(&dv[i][k]);
+          const uint32_t* xu = reinterpret_cast<const uint32_t*>(&xv[i][k]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 d = unpack_bf16x2(du[e]), x = unpack_bf16x2(xu[e]);
+            const float dyg0 = d.x * gc[2 * e], dyg1 = d.y * gc[2 * e + 1];
+            s1[i] += dyg0;
+            s2[i] += dyg0 * ((x.x - mu[i]) * rs[i]);
+            s1[i] += dyg1;
+            s2[i] += dyg1 * ((x.y - mu[i]) * rs[i]);
+          }
+        }
+      }
+      // without the residual, the second pass unpacks the rows again from
+      // their 16-byte chunks, rather than the compiler keeping the first
+      // pass's floats live (which spilled)
+      if constexpr (!RES) {
+#pragma unroll
+        for (int i = 0; i < LNW_ROWS; ++i)
+#pragma unroll
+          for (int k = 0; k < LNW_CHUNKS; ++k)
+            asm volatile("" : "+r"(dv[i][k].x), "+r"(dv[i][k].y), "+r"(dv[i][k].z),
+                         "+r"(dv[i][k].w), "+r"(xv[i][k].x), "+r"(xv[i][k].y), "+r"(xv[i][k].z),
+                         "+r"(xv[i][k].w));
+      }
+      float m1[LNW_ROWS], m2[LNW_ROWS];
+#pragma unroll
+      for (int i = 0; i < LNW_ROWS; ++i) {
+        m1[i] = warp_sum(s1[i]) / D;
+        m2[i] = warp_sum(s2[i]) / D;
+      }
+#pragma unroll
+      for (int k = 0; k < LNW_CHUNKS; ++k) {
+        uint32_t ou[LNW_ROWS][4];  // the rows' dx chunks, packed
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {  // columns 8 c + 4 half .. + 3
+          const float4 g4 = gs[lnw_slot(k, half, lane)];
+          const float gc[4] = {g4.x, g4.y, g4.z, g4.w};
+          float4 pg = pgb[lnw_slot(k, half, lane)], pb = pgb[LNW_Q + lnw_slot(k, half, lane)];
+          float* pgv = reinterpret_cast<float*>(&pg);
+          float* pbv = reinterpret_cast<float*>(&pb);
+#pragma unroll
+          for (int i = 0; i < LNW_ROWS; ++i) {  // the rows in the warp's order
+            const uint32_t* du = reinterpret_cast<const uint32_t*>(&dv[i][k]) + 2 * half;
+            const uint32_t* xu = reinterpret_cast<const uint32_t*>(&xv[i][k]) + 2 * half;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float2 d = unpack_bf16x2(du[e]), x = unpack_bf16x2(xu[e]);
+              const float xh0 = (x.x - mu[i]) * rs[i], xh1 = (x.y - mu[i]) * rs[i];
+              float v0 = rs[i] * (d.x * gc[2 * e] - m1[i] - xh0 * m2[i]);
+              float v1 = rs[i] * (d.y * gc[2 * e + 1] - m1[i] - xh1 * m2[i]);
+              if constexpr (RES) {
+                const float2 rr =
+                    unpack_bf16x2(reinterpret_cast<const uint32_t*>(&rv[i][k])[2 * half + e]);
+                v0 += rr.x;
+                v1 += rr.y;
+              }
+              ou[i][2 * half + e] = pack_bf16x2(v0, v1);
+              pgv[2 * e] = fmaf(d.x, xh0, pgv[2 * e]);
+              pgv[2 * e + 1] = fmaf(d.y, xh1, pgv[2 * e + 1]);
+              pbv[2 * e] += d.x;
+              pbv[2 * e + 1] += d.y;
+            }
+          }
+          pgb[lnw_slot(k, half, lane)] = pg;
+          pgb[LNW_Q + lnw_slot(k, half, lane)] = pb;
+        }
+#pragma unroll
+        for (int i = 0; i < LNW_ROWS; ++i)
+          reinterpret_cast<uint4*>(dx + ((size_t)m0 + r0 + i * WARPS) * D)[lane + 32 * k] =
+              make_uint4(ou[i][0], ou[i][1], ou[i][2], ou[i][3]);
+      }
+    }
+  }
+  // the split's partial sums, zeros when it summed no tile: warps in a fixed order
+  __syncthreads();
+  const float* red = reinterpret_cast<const float*>(lnw_smem);
+  for (int c = threadIdx.x; c < 2 * D; c += NT) {
+    const int kind = c / D, col = c % D, chunk = col / 8;
+    const int at = kind * D + 4 * lnw_slot(chunk / 32, col % 8 / 4, chunk % 32) + col % 4;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) s += red[w * 2 * D + at];
+    partial[(size_t)split * 2 * D + c] = s;
   }
 }
 
@@ -1088,7 +1261,24 @@ int layernorm_bwd_launch(const T* dy, const T* xin, const float* mean,
     return run(layernorm_bwd_kernel<D_MODEL, T>, reduce_ln_splits_kernel<D_MODEL>, D_MODEL);
   if (N == D_SMALL)
     return run(layernorm_bwd_kernel<D_SMALL, T>, reduce_ln_splits_kernel<D_SMALL>, D_SMALL);
-  return run(layernorm_bwd_kernel<D_WIDE, T>, reduce_ln_splits_kernel<D_WIDE>, D_WIDE);
+  if constexpr (std::is_same<T, bf16>::value) {  // the 16-byte row pass
+    const void* ptrs[5] = {dy, xin, g, res, dx};
+    for (const void* ptr : ptrs)
+      if (reinterpret_cast<uintptr_t>(ptr) % 16) return (int)cudaErrorInvalidValue;
+    auto kernel = res != nullptr ? layernorm_bwd_wide_bf16_kernel<true>
+                                 : layernorm_bwd_wide_bf16_kernel<false>;
+    int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      LNW_SMEM);
+    if (e != 0) return e;
+    kernel<<<splits, NT, LNW_SMEM, st>>>(dy, xin, mean, rstd, g, res, dx, partial, valid_len,
+                                          s_pad, M / BM, splits);
+    if ((e = (int)cudaGetLastError()) != 0) return e;
+    reduce_ln_splits_kernel<D_WIDE><<<2 * D_WIDE / 32, LN_RED_WARPS * 32, 0, st>>>(
+        partial, dgb, splits, accumulate);
+    return (int)cudaGetLastError();
+  } else {
+    return run(layernorm_bwd_kernel<D_WIDE, T>, reduce_ln_splits_kernel<D_WIDE>, D_WIDE);
+  }
 }
 
 template <int BN, int EPI, int SPLIT>

@@ -119,13 +119,4 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// two floats rounded to bf16 (nearest even) and packed, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ float2 unpack_bf16x2(uint32_t u) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
-}
-
 }  // namespace

@@ -47,16 +47,18 @@
 //   walking the computed query tiles) and dq (a block per 64 queries,
 //   walking the key tiles below valid_len). Every sum has one owner and a
 //   fixed order, with no atomics: the same inputs give the same bits.
-// - At head 64 (ChAdaViT-B/16) the backward's dk/dv and dq are warpgroup
-//   kernels instead (attention_dkdv_wgmma_kernel, attention_dq_wgmma_kernel,
-//   notes below): a head row of 64 bf16 is one 128-byte line, the native
-//   TMA / wgmma swizzle (wgmma_bf16.cuh), and a warpgroup-wide wgmma reads
-//   each B tile from shared memory once for 64 rows where mma.sync's warps of
-//   16 rows read it four times: ldmatrix traffic held the mma.sync kernel.
+// - At head 64 (ChAdaViT-B/16) the forward and the backward's dk/dv and dq
+//   are warpgroup kernels instead (attention_fwd_wgmma_kernel,
+//   attention_dkdv_wgmma_kernel, attention_dq_wgmma_kernel, notes below): a
+//   head row of 64 bf16 is one 128-byte line, the native TMA / wgmma swizzle
+//   (wgmma_bf16.cuh), and a warpgroup-wide wgmma reads each B tile from
+//   shared memory once for 64 rows where mma.sync's warps of 16 rows read it
+//   four times: ldmatrix traffic held the mma.sync kernels.
 //
-// Every kernel is a template on the head width HD, built for 96
+// Every mma.sync kernel is a template on the head width HD, built for 96
 // (ChAdaViT-moyen, D 192 in 2 heads: 6 k16 steps and 12 n8 blocks over a
-// head), 64 (ChAdaViT-B/16, D 768 in 12 heads: 4 and 8) and 32 (the smoke
+// head), 64 (ChAdaViT-B/16, D 768 in 12 heads: 4 and 8; the prep pass only,
+// the rest runs on the wgmma kernels) and 32 (the smoke
 // configs, D 64 in 2 heads: 2 and 4; a head row is 4 chunks of 16 bytes,
 // which take the swizzle of an odd multiple of 32 bf16, mma_bf16.cuh); every
 // head is in one launch, with no counterpart of the JAX kernels' walk over
@@ -629,7 +631,7 @@ constexpr int BOX = TILE * HD * 2;                // a 64 x 64 bf16 tile: 8 KB
 constexpr int STAGES = 4;
 constexpr int RELEASES = 4 * CONSUMERS;           // a consumer warp each frees a stage
 constexpr int ACC = TILE * TILE / 128;            // a m64n64 sum: 32 floats a thread
-constexpr int TURN = 1;                           // named barriers TURN, TURN + 1: dk/dv's turns
+constexpr int TURN = 1;                           // named barriers from TURN: the warpgroups' turns
 // resident tiles, the ring's tiles, the ring's stats (lse, delta), alignment
 constexpr int DKDV_WG_SMEM = 2 * CONSUMERS * BOX + STAGES * 2 * BOX + STAGES * 2 * TILE * 4 + 1024;
 constexpr int DQ_WG_SMEM = 2 * CONSUMERS * BOX + STAGES * 2 * BOX + 1024;
@@ -645,11 +647,12 @@ __device__ __forceinline__ void zero_tiles(bf16* dst, int ld, int tiles) {
     *reinterpret_cast<uint4*>(dst + (size_t)(c / 8) * ld + c % 8 * 8) = make_uint4(0, 0, 0, 0);
 }
 
-// a consumer warpgroup's 64 x 64 sums times mul, rounded to bf16, written to
-// rows of ld elements from dst through the warpgroup's own resident tile
-// (stage: the 128-byte swizzle), or zeros where `dead`
-__device__ __forceinline__ void store_tile(const float (&acc)[ACC], float mul, bf16* stage,
-                                           bf16* dst, int ld, bool dead) {
+// a consumer warpgroup's 64 x 64 sums, the thread's rows 16 q + g times mul0
+// and 16 q + g + 8 times mul1, rounded to bf16, written to rows of ld elements
+// from dst through the warpgroup's own resident tile (stage: the 128-byte
+// swizzle), or zeros where `dead`
+__device__ __forceinline__ void store_tile(const float (&acc)[ACC], float mul0, float mul1,
+                                           bf16* stage, bf16* dst, int ld, bool dead) {
   const int lane = threadIdx.x & 31, q = (threadIdx.x >> 5) & 3, g = lane >> 2, t = lane & 3;
   unsigned char* st = reinterpret_cast<unsigned char*>(stage);
 #pragma unroll
@@ -657,6 +660,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[ACC], float mul, b
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int r = 16 * q + g + 8 * half;
+      const float mul = half ? mul1 : mul0;
       *reinterpret_cast<uint32_t*>(st + r * 128 + ((j ^ (r & 7)) << 4) + 4 * t) =
           dead ? 0u : pack_bf16x2(acc[4 * j + 2 * half] * mul, acc[4 * j + 2 * half + 1] * mul);
     }
@@ -667,6 +671,10 @@ __device__ __forceinline__ void store_tile(const float (&acc)[ACC], float mul, b
     *reinterpret_cast<uint4*>(dst + (size_t)r * ld + cc * 8) =
         *reinterpret_cast<const uint4*>(st + r * 128 + ((cc ^ (r & 7)) << 4));
   }
+}
+__device__ __forceinline__ void store_tile(const float (&acc)[ACC], float mul, bf16* stage,
+                                           bf16* dst, int ld, bool dead) {
+  store_tile(acc, mul, mul, stage, dst, ld, dead);
 }
 
 }  // namespace wk4
@@ -956,6 +964,267 @@ attention_dq_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
              dqb + (size_t)wgi * TILE * ldg, ldg, qt0 >= vl);
 }
 
+// ---- K3 at head 64: the forward on wgmma, fed by TMA ---------------------------
+// What bounds it on an H100: operations (4 vl^2 64 a head and image on 3 vl
+// 64 bf16 inputs), which only wgmma reaches; the mma.sync forward's four
+// warps each read every K and V fragment from shared memory for their own 16
+// rows, four reads of each B tile for 64 rows. The design, for HD = 64 only,
+// in the style of the backward's kernels above (wk4's warpgroups, ring,
+// turns and epilogue):
+// - a block owns FWD_SPAN queries, FWD_CONSUMERS (3) 64-row tiles of the
+//   contract, one a consumer warpgroup, each tested against valid_len on its
+//   own; the producer thread TMAs the q tiles, then streams the K and V
+//   tiles below valid_len through the ring of STAGES mbarrier stages (a
+//   stage: the K tile, then the V tile, 64 x 64 boxes in the 128-byte
+//   swizzle);
+// - a consumer multiplies its q tile by qscale and rounds it to bf16 in
+//   place (the async proxy then sees the plain stores: fence.proxy.async and
+//   a barrier of the warpgroup), which is then the SS A operand, K-major;
+// - per key tile: S = qs K^T (SS m64n64k16, K K-major), the ragged last
+//   tile's keys past valid_len -inf in registers, the online softmax on the
+//   accumulator in the mma.sync kernel's order (its s[nt][e] is d[4 nt + e]:
+//   the max over the tile, the quad's shuffles, exp2f(s - m), the thread's
+//   share of l over the unrounded p in the same order, l = l alpha + sum, O
+//   times alpha before the tile's P V), then O += bf16(P) V (RS: P from the
+//   accumulator by a_from_acc, V read MN-major). So out and lse keep the
+//   mma.sync kernel's bits: the same bf16 products, f32 sums in the same
+//   k16 order, the same scalar steps;
+// - a tile's P V runs under the next tile's scores and softmax (S of tile
+//   kt and P V of tile kt - 1 are two commit groups; the softmax waits for
+//   the first, O's rescale and bf16(P) into the RS registers for the second:
+//   a register of an RS operand written while a product is in flight, even
+//   for the next product, made ptxas serialize every wgmma, C7513), and the
+//   warpgroups take turns issuing their products (named barriers TURN ..),
+//   so that one's softmax overlaps the others' products. The softmax's
+//   instructions, not the products, bound it (its no_mma build takes most of
+//   its time), so a block holds three consumer warpgroups, twelve warps to
+//   hide their latencies, in 128 registers a thread: 80 of sums and
+//   operands (O, S, P). Every wgmma is outside any branch (a dead tile of a
+//   live block is walked and written as zeros);
+// - the epilogue: O / l rounded to bf16 through the warpgroup's own q tile
+//   (store_tile), lse = m + log2 l; a query tile wholly past valid_len writes
+//   zeros and lse 1e30; a tile of a block that ends the image past s_pad
+//   (s_pad a multiple of 64) stores nothing.
+namespace wk4 {
+constexpr int FWD_CONSUMERS = 3;  // consumer warpgroups, a 64-query tile each
+constexpr int FWD_THREADS = 128 * (FWD_CONSUMERS + 1);  // and a producer warpgroup
+constexpr int FWD_PRODUCER_WARP = 4 * FWD_CONSUMERS;
+constexpr int FWD_SPAN = TILE * FWD_CONSUMERS;  // a block's queries
+constexpr int FWD_RELEASES = 4 * FWD_CONSUMERS;
+// the registers a thread at launch (65 536 over the block), the producer's
+// after setmaxnreg, and the consumers' with what the producer gave up
+constexpr int FWD_PRODUCER_REGS = 24;
+constexpr int FWD_CONSUMER_REGS = 160;
+constexpr int FWD_WG_SMEM = FWD_CONSUMERS * BOX + STAGES * 2 * BOX + 1024;
+// named barriers TURN .. TURN + FWD_CONSUMERS - 1: the turns; then Q_READY ..:
+// a warpgroup's scaled q
+constexpr int Q_READY = TURN + FWD_CONSUMERS;
+}  // namespace wk4
+
+// out and lse of the FWD_SPAN queries from q0 of head h of image b. Grid
+// (s_pad / FWD_SPAN rounded up, heads, B). q_map, k_map, v_map: (B s_pad,
+// heads HD) views of q, k and v (rows of ld); out: rows of ldo; lse: (B,
+// heads, s_pad) f32 or null.
+__global__ void __launch_bounds__(wk4::FWD_THREADS, 1)
+attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const int* __restrict__ valid_len, bf16* __restrict__ out, int ldo,
+                           float* __restrict__ lse, int s_pad, float qscale) {
+  using namespace wk4;
+  const int q0 = blockIdx.x * FWD_SPAN, h = blockIdx.y, b = blockIdx.z;
+  const int vl = min(max(valid_len[b], 0), s_pad);
+  const int row0 = b * s_pad;
+  bf16* ob = out + ((size_t)row0 + q0) * ldo + h * HD;
+  float* lse_row = lse == nullptr ? nullptr : lse + ((size_t)b * gridDim.y + h) * s_pad + q0;
+  const int in_image = min(FWD_CONSUMERS, (s_pad - q0) / TILE);  // the tiles below s_pad
+  if (q0 >= vl) {  // uniform across the block, before any barrier
+    for (int c = threadIdx.x; c < in_image * TILE * 8; c += FWD_THREADS)
+      *reinterpret_cast<uint4*>(ob + (size_t)(c / 8) * ldo + c % 8 * 8) = make_uint4(0, 0, 0, 0);
+    if (lse_row != nullptr && (int)threadIdx.x < in_image * TILE) lse_row[threadIdx.x] = 1e30f;
+    return;
+  }
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], q_full;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_1024(smem_raw);
+  unsigned char* Qs = base;                    // the consumers' q tiles
+  unsigned char* ring = Qs + FWD_CONSUMERS * BOX;  // a stage: K, then V
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      wg::mbar_init(&full[s], 1);
+      wg::mbar_init(&empty[s], FWD_RELEASES);
+    }
+    wg::mbar_init(&q_full, 1);
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+  const int n_kt = (vl + TILE - 1) / TILE;  // key 0 is valid: n_kt >= 1
+
+  if (warp >= FWD_PRODUCER_WARP) {
+    wg::setmaxnreg_dec<FWD_PRODUCER_REGS>();
+    if (warp == FWD_PRODUCER_WARP && lane == 0) {
+      wg::tma_prefetch(&q_map);
+      wg::tma_prefetch(&k_map);
+      wg::tma_prefetch(&v_map);
+      wg::mbar_expect_tx(&q_full, FWD_CONSUMERS * BOX);
+      for (int c = 0; c < FWD_CONSUMERS; ++c)  // a tile past the image: its rows are not stored
+        wg::tma_load_2d(Qs + c * BOX, &q_map, &q_full, h * HD, row0 + q0 + c * TILE);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % STAGES;
+        wg::mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+        unsigned char* st = ring + s * 2 * BOX;
+        wg::mbar_expect_tx(&full[s], 2 * BOX);
+        wg::tma_load_2d(st, &k_map, &full[s], h * HD, row0 + kt * TILE);
+        wg::tma_load_2d(st + BOX, &v_map, &full[s], h * HD, row0 + kt * TILE);
+      }
+    }
+    return;
+  }
+
+  wg::setmaxnreg_inc<FWD_CONSUMER_REGS>();
+  const int wgi = warp / 4, q = warp % 4, g = lane >> 2, t = lane & 3;
+  const int qt0 = q0 + wgi * TILE;  // the warpgroup's first query
+  unsigned char* qs = Qs + wgi * BOX;
+  wg::mbar_wait(&q_full, 0);
+  {  // q times qscale, rounded to bf16 in place (the swizzle moves whole chunks)
+    uint4* chunks = reinterpret_cast<uint4*>(qs);
+#pragma unroll
+    for (int i = 0; i < BOX / 16 / 128; ++i) {
+      uint4 u = chunks[(threadIdx.x & 127) + 128 * i];
+      uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = unpack_bf16x2(w[e]);
+        w[e] = pack_bf16x2(f.x * qscale, f.y * qscale);
+      }
+      chunks[(threadIdx.x & 127) + 128 * i] = u;
+    }
+    wg::fence_proxy_async();  // the plain stores, before the products read them
+    wg::bar_sync(Q_READY + wgi, 128);
+  }
+  float o[ACC], sc[ACC];
+  uint32_t pa[TILE / 16][4];  // bf16(P): the RS A operand
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) o[i] = 0.f;
+  // running max and the thread's share of the running sum, rows 16 q + g and
+  // 16 q + g + 8; key 0 is valid, so the max is finite from the first tile on
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+  // the online softmax of key tile kt on sc, p left in sc; alpha: O's factor
+  auto softmax = [&](int kt) {
+    if ((kt + 1) * TILE > vl)  // the ragged last tile
+#pragma unroll
+      for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (kt * TILE + 8 * j + 2 * t + (e & 1) >= vl) sc[4 * j + e] = -INFINITY;
+    float mx[2] = {m[0], m[1]}, sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = exp2f(m[i] - mx[i]);
+      m[i] = mx[i];
+    }
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[4 * j + e] = exp2f(sc[4 * j + e] - m[e >> 1]);
+        sum[e >> 1] += sc[4 * j + e];  // l sums p unrounded; P V takes it in bf16
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
+  };
+
+  // the warpgroups take turns issuing their products, warpgroup 0's tile 0,
+  // warpgroup 1's, ..., warpgroup 0's tile 1, ...: each waits at its own
+  // barrier for its predecessor's arrival and arrives at its successor's
+  // (all but the last turn of all)
+  const int next = TURN + (wgi + 1) % FWD_CONSUMERS;
+  const bool last_wg = wgi == FWD_CONSUMERS - 1;
+  // key tile 0: its scores and softmax (O is zero: no rescale)
+  wg::mbar_wait(&full[0], 0);
+  if (wgi > 0) wg::bar_sync(TURN + wgi, 2 * 128);
+  wg::fence_operand(sc);
+  wg::fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)  // S = qs K^T
+    wg::mma_m64n64k16<0, 0>(sc, wg::desc_k64(qs, kk), wg::desc_k64(ring, kk), kk != 0);
+  wg::commit();
+  if (!last_wg || n_kt > 1) wg::bar_arrive(next, 2 * 128);
+  wg::wait<0>();
+  wg::fence_operand(sc);
+  softmax(0);
+#pragma unroll
+  for (int kk = 0; kk < TILE / 16; ++kk) wg::a_from_acc(pa[kk], sc, kk);
+  for (int kt = 1; kt < n_kt; ++kt) {  // n_kt is uniform: every wgmma outside a branch
+    const int s = kt % STAGES;
+    const unsigned char* ks = ring + s * 2 * BOX;
+    const unsigned char* vp = ring + ((kt - 1) % STAGES) * 2 * BOX + BOX;  // tile kt - 1's V
+    wg::mbar_wait(&full[s], (kt / STAGES) & 1);
+    wg::bar_sync(TURN + wgi, 2 * 128);  // its turn
+    wg::fence_operand(sc);
+    wg::fence_operand(o);
+    wg::fence_operand(pa);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)  // S = qs K^T
+      wg::mma_m64n64k16<0, 0>(sc, wg::desc_k64(qs, kk), wg::desc_k64(ks, kk), kk != 0);
+    wg::commit();
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk)  // O += bf16(P) V, tile kt - 1
+      wg::mma_m64n64k16_rs<1>(o, pa[kk], wg::desc_mn64(vp, kk), 1);
+    wg::commit();
+    if (!last_wg || kt < n_kt - 1) wg::bar_arrive(next, 2 * 128);
+    wg::wait<1>();  // S; the P V products may run on
+    wg::fence_operand(sc);
+    softmax(kt);
+    wg::wait<0>();  // P V: pa and the stage of tile kt - 1 are free
+    wg::fence_operand(o);
+    wg::fence_operand(pa);
+    if (lane == 0) wg::mbar_arrive(&empty[(kt - 1) % STAGES]);
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e >> 1];
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk) wg::a_from_acc(pa[kk], sc, kk);
+  }
+  // the last tile's P V
+  const unsigned char* v_last = ring + ((n_kt - 1) % STAGES) * 2 * BOX + BOX;
+  wg::fence_operand(o);
+  wg::fence_operand(pa);
+  wg::fence();
+#pragma unroll
+  for (int kk = 0; kk < TILE / 16; ++kk)
+    wg::mma_m64n64k16_rs<1>(o, pa[kk], wg::desc_mn64(v_last, kk), 1);
+  wg::commit();
+  wg::wait<0>();
+  wg::fence_operand(o);
+  wg::fence_operand(pa);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {  // the quad's shares of the row sum
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  if (qt0 >= s_pad) return;  // a tile past the image, in a block that ends it
+  // each warpgroup stages its rows in its own q tile, which only it read
+  const bool dead = qt0 >= vl;
+  store_tile(o, 1.f / l[0], 1.f / l[1], reinterpret_cast<bf16*>(qs),
+             ob + (size_t)wgi * TILE * ldo, ldo, dead);
+  if (lse_row != nullptr && t == 0) {
+    const int r = wgi * TILE + 16 * q + g;
+    lse_row[r] = dead ? 1e30f : m[0] + log2f(l[0]);
+    lse_row[r + 8] = dead ? 1e30f : m[1] + log2f(l[1]);
+  }
+}
+
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 template <int HD>
@@ -967,6 +1236,27 @@ int launch_fwd(const bf16* q, const bf16* k, const bf16* v, int ld, const int* v
   if (e != cudaSuccess) return (int)e;
   attention_fwd_bf16_kernel<HD><<<dim3(s_pad / TILE, heads, batch), THREADS, FWD_SMEM<HD>, st>>>(
       q, k, v, ld, valid_len, out, ldo, lse, s_pad, qscale);
+  return (int)cudaGetLastError();
+}
+
+// K3 at head 64: the wgmma forward. The tensor maps are (B s_pad, heads HD)
+// views of q, k and v (rows of ld), 64 x 64 boxes.
+int launch_fwd_wgmma(const bf16* q, const bf16* k, const bf16* v, int ld, const int* valid_len,
+                     bf16* out, int ldo, float* lse, int batch, int heads, int s_pad,
+                     float qscale, cudaStream_t st) {
+  using namespace wk4;
+  const uint64_t rows = (uint64_t)batch * s_pad, inner = (uint64_t)heads * HD;
+  CUtensorMap q_map, k_map, v_map;
+  int e = wg::make_map_2d(&q_map, q, inner, rows, (uint64_t)ld * 2, HD, TILE);
+  if (e == 0) e = wg::make_map_2d(&k_map, k, inner, rows, (uint64_t)ld * 2, HD, TILE);
+  if (e == 0) e = wg::make_map_2d(&v_map, v, inner, rows, (uint64_t)ld * 2, HD, TILE);
+  if (e == 0)
+    e = (int)cudaFuncSetAttribute(attention_fwd_wgmma_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_WG_SMEM);
+  if (e != 0) return e;
+  attention_fwd_wgmma_kernel<<<dim3((s_pad + FWD_SPAN - 1) / FWD_SPAN, heads, batch),
+                               FWD_THREADS, FWD_WG_SMEM, st>>>(q_map, k_map, v_map, valid_len,
+                                                               out, ldo, lse, s_pad, qscale);
   return (int)cudaGetLastError();
 }
 
@@ -1057,8 +1347,8 @@ int prefix_attention_fwd_bf16(const bf16* q, const bf16* k, const bf16* v, int l
   if (head_dim == 32)
     return launch_fwd<32>(q, k, v, ld, valid_len, out, ldo, lse, batch, heads, s_pad, qscale, st);
   return head_dim == 64
-             ? launch_fwd<64>(q, k, v, ld, valid_len, out, ldo, lse, batch, heads, s_pad, qscale,
-                              st)
+             ? launch_fwd_wgmma(q, k, v, ld, valid_len, out, ldo, lse, batch, heads, s_pad,
+                                qscale, st)
              : launch_fwd<96>(q, k, v, ld, valid_len, out, ldo, lse, batch, heads, s_pad, qscale,
                               st);
 }

@@ -44,4 +44,13 @@ __device__ __forceinline__ float4 load4(const bf16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
+// two floats rounded to bf16 (nearest even) and packed, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ float2 unpack_bf16x2(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
 }  // namespace

@@ -39,12 +39,14 @@ Phases, each printed with its elapsed seconds at its start and end:
    linear_wgrad's two passes and of ln_bwd's four instances at D 192 (the
    model's width), none of which may spill; among them the attention's
    head-64 instances (the float32 forward, prep and backward; the bfloat16
-   forward and prep, and its dk/dv and dq on wgmma with TMA,
-   attention_dkdv_wgmma_kernel and attention_dq_wgmma_kernel) and the layer
-   chain's D 768 instances (the float32 K1c among them: the 128-row GEMM
-   with its ReLU epilogue, gemm128_kernel<2048, 768, 64, 2>), none of
-   which may spill; and the head-32 instances and the layer chain's D 64
-   instances (D64_KERNELS), none of which may spill. No kernel may have
+   prep, and its forward, dk/dv and dq on wgmma with TMA,
+   attention_fwd_wgmma_kernel, attention_dkdv_wgmma_kernel and
+   attention_dq_wgmma_kernel, whose SASS must hold HGMMA and no HMMA) and
+   the layer chain's D 768 instances (the float32 K1c among them: the
+   128-row GEMM with its ReLU epilogue, gemm128_kernel<2048, 768, 64, 2>;
+   the bfloat16 K2a's 16-byte row pass, layernorm_bwd_wide_bf16_kernel),
+   none of which may spill; and the head-32 instances and the layer chain's
+   D 64 instances (D64_KERNELS), none of which may spill. No kernel may have
    its wgmma products serialized by ptxas (C7510-C7520, whatever the cause:
    a branch around a product, too few registers).
 2. each kernel instance against its plain PyTorch version at hub shapes (B 8,
@@ -231,7 +233,9 @@ Phases, each printed with its elapsed seconds at its start and end:
    card (the device's time, free of the host's launch rate), and the layer
    forward at D 768 beside its library layer; linear_wgrad's library call
    is dW and db (at the QKV site of LN1(x)), the product alone printed
-   beside it; ln_bwd also with the L2 cold (a buffer
+   beside it; linear_dgrad's at the ReLU-mask site is the product then the
+   mask of hid > 0 (masked_fill_), the product alone printed beside it (both
+   also by device time at D 64); ln_bwd also with the L2 cold (a buffer
    larger than the 50 MB L2 written before each call); K3 and K4 run twice
    for the same bits; the whole layer forward and backward; the served
    batch and the train step, in both dtypes; the multicrop's device time per
@@ -253,6 +257,7 @@ import dataclasses
 import faulthandler
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -476,8 +481,10 @@ D768_KERNELS = [
     "res_ln_rows_kernel<768>(",
     # K1c: the 128-row GEMM with its ReLU epilogue, in its 64-column tile
     "gemm128_kernel<2048, 768, 64, 2>(",
-    "layernorm_bwd_kernel<768, float>(", "layernorm_bwd_kernel<768, __nv_bfloat16>(",
-    "reduce_ln_splits_kernel<768>("]
+    # K2a: float32 the D 192 template, bfloat16 the 16-byte row pass (with
+    # and without the residual); both take the second pass at D 768
+    "layernorm_bwd_kernel<768, float>(", "layernorm_bwd_wide_bf16_kernel<true>(",
+    "layernorm_bwd_wide_bf16_kernel<false>(", "reduce_ln_splits_kernel<768>("]
 # and its D 64 instances (the smoke configs' width)
 D64_KERNELS = [
     # float32 (fused_block.cu, fused_block_bwd.cu): K1a, K1c, K1b at both sites,
@@ -1567,7 +1574,8 @@ def main() -> int:
                          attn_bwd_cu: (),
                          fb_cu: ("ln_linear", "linear_relu", "linear_residual_ln", "gemm128",
                                  "ln_rows_f32", "res_ln_rows"),
-                         fbb_cu: ("layernorm_bwd", "reduce_ln_splits", "linear_wgrad",
+                         fbb_cu: ("layernorm_bwd", "layernorm_bwd_wide_bf16",
+                                  "reduce_ln_splits", "linear_wgrad",
                                   "reduce_wgrad_splits", "linear_wgrad_stream",
                                   "reduce_wgrad_stream", "ln_rows_saved_f32", "linear_dgrad",
                                   "linear_dgrad_stream", "reduce_dgrad_stream", "dgrad_list"),
@@ -1579,9 +1587,10 @@ def main() -> int:
             attn_bwd_cu: ["attention_bwd_prep_kernel", "attention_bwd_kernel"],
             attn_tc_cu: ["attention_fwd_bf16_kernel", "attention_bwd_prep_kernel",
                          "attention_dkdv_bf16_kernel", "attention_dq_bf16_kernel"]}
-        # the bf16 K4's dk/dv and dq at head 64: wgmma kernels of their own,
-        # not templates on the head width
-        head64_wgmma = ["attention_dkdv_wgmma_kernel", "attention_dq_wgmma_kernel"]
+        # the bf16 K3 and K4's dk/dv and dq at head 64: wgmma kernels of their
+        # own, not templates on the head width
+        head64_wgmma = ["attention_fwd_wgmma_kernel", "attention_dkdv_wgmma_kernel",
+                        "attention_dq_wgmma_kernel"]
         _build.library()
         ph.check(True, f"{'cold' if cold else 'warm'} build of {len(_build.sources())} "
                        f"sources: {time.perf_counter() - t:.2f} s")
@@ -1615,8 +1624,8 @@ def main() -> int:
             for hd in (64, 32) if src in head_kernels else ():
                 # (mangled, a template argument 64 reads ILi64E)
                 want = head_kernels[src]
-                if src == attn_tc_cu and hd == 64:
-                    want = want[:2] + head64_wgmma
+                if src == attn_tc_cu and hd == 64:  # the prep pass, then the wgmma kernels
+                    want = want[1:2] + head64_wgmma
                 found = [k_ for k_ in want
                          if any(f"{k_}ILi{hd}E" in k["name"] or (k_ in head64_wgmma and
                                                                  k_ in k["name"])
@@ -1626,6 +1635,26 @@ def main() -> int:
                          f"{[k_ if k_ in head64_wgmma else f'{k_}<{hd}>' for k_ in found]} "
                          f"(want {len(want)}), none spills")
 
+        # the head-64 wgmma kernels in the library's SASS: warpgroup products
+        # (HGMMA), none of mma.sync's (HMMA)
+        dump = subprocess.run([str(Path(_build.find_nvcc()).parent / "cuobjdump"), "-sass",
+                               str(_build.build())], capture_output=True, text=True).stdout
+        bodies, current = {}, None
+        for line in dump.splitlines():
+            m_ = re.match(r"\s*Function : (\S+)", line)
+            if m_:
+                current = next((k_ for k_ in head64_wgmma if k_ in m_.group(1)), None)
+                if current is not None:
+                    bodies[current] = []
+            elif line.startswith("Fatbin"):
+                current = None
+            elif current is not None:
+                bodies[current].append(line)
+        for k_ in head64_wgmma:
+            body = "\n".join(bodies.get(k_, []))
+            n_hgmma, n_hmma = len(re.findall(r"\bHGMMA\.", body)), len(re.findall(r"\bHMMA\.", body))
+            ph.check(n_hgmma > 0 and n_hmma == 0,
+                     f"SASS of {k_}: {n_hgmma} HGMMA, {n_hmma} HMMA instructions")
         ph.check(sorted(seen768) == sorted(D768_KERNELS),
                  f"the layer chain's D 768 instances built, none spills: {len(seen768)} of "
                  f"{len(D768_KERNELS)} (the others share a D 192 instance: "
@@ -3005,12 +3034,18 @@ def main() -> int:
             return lambda: torch.ops.aten.native_layer_norm_backward(*args2)
 
         def dgrad_library(args, kwargs):
+            """(at the ReLU-mask site: the same function, the product then
+            the mask of hid > 0; the earlier reading: the product alone)"""
             dy_, wmat = args[0], args[1]
-            res = kwargs.get("residual")
+            dyf = dy_.reshape(-1, dy_.shape[-1])
+            res, hid_ = kwargs.get("residual"), kwargs.get("relu_of")
             if res is not None:
-                return lambda: torch.addmm(res.reshape(-1, res.shape[-1]),
-                                           dy_.reshape(-1, dy_.shape[-1]), wmat)
-            return lambda: torch.mm(dy_.reshape(-1, dy_.shape[-1]), wmat)
+                return lambda: torch.addmm(res.reshape(-1, res.shape[-1]), dyf, wmat)
+            if hid_ is not None:  # the mask read from hid in the call, as the kernel reads it
+                hidf = hid_.reshape(-1, hid_.shape[-1])
+                return (lambda: torch.mm(dyf, wmat).masked_fill_(hidf <= 0, 0.0),
+                        lambda: torch.mm(dyf, wmat))
+            return lambda: torch.mm(dyf, wmat)
 
         def wgrad_library(args, kwargs):
             """(the same function: LN1 with the site's parameters at the QKV
@@ -3056,9 +3091,11 @@ def main() -> int:
             the last with events is kept. In this process a trace can lose
             launches of a kernel (up to 8 of 20; with a warm-up step that the
             trace drops, three traces in a row came back empty; a fresh
-            process lost none, scripts/profiler_counts.py), so read_device
-            takes the time after a head start where the trace lost launches.
-            Empty where every trace was."""
+            process lost none, scripts/profiler_counts.py) or hold whole
+            launches a round at about half their time (12 of 96 traces in
+            one run, the head-64 K3 among them: 0.0715 against 0.1443 ms
+            after a head start), so read_device then takes the time after a
+            head start. Empty where every trace was."""
             kept = None
             for _ in range(attempts):
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3109,7 +3146,8 @@ def main() -> int:
 
         def read_device(fns):
             """The device time of a round of the calls ``fns``: the profiler's
-            where its trace holds whole launches a round, else CUDA events
+            where its trace holds whole launches a round and reads no less
+            than two thirds of the time after a head start, else CUDA events
             after a head start, else None (the kernels line then says null).
             Returns (ms or None, where it came from, the head start's reading
             or None, the profiler's time of each kernel, each kernel's
@@ -3117,9 +3155,15 @@ def main() -> int:
             counts = {}
             per_kernel = device_ms(fns, counts=counts)
             hs_ms = head_start_ms(fns)
-            if per_kernel and not lost_launches(counts):
-                return sum(per_kernel.values()), "profiler", hs_ms, per_kernel, counts
-            why = "the trace lost launches" if per_kernel else "the traces were empty"
+            prof_ms = sum(per_kernel.values())
+            if not per_kernel:
+                why = "the traces were empty"
+            elif lost_launches(counts):
+                why = "the trace lost launches"
+            elif hs_ms is not None and prof_ms < 2 / 3 * hs_ms:
+                why = f"the profiler read {prof_ms:.4f} ms"
+            else:
+                return prof_ms, "profiler", hs_ms, per_kernel, counts
             if hs_ms is not None:
                 return hs_ms, f"events after a head start: {why}", hs_ms, per_kernel, counts
             return None, f"not read: {why}, the head start too short", hs_ms, per_kernel, counts
@@ -3216,23 +3260,31 @@ def main() -> int:
             device time where the trace lost launches; where there are
             several sites, each site also on its own."""
             ms = plain_ms = lib_ms = bound = ops_bound = bytes_bound = 0.0
-            lib_fns = []
+            lib_fns, old_fns = [], []
             for i_site, (kernel_fn, plain_fn, lib_fn, ops, nbytes) in enumerate(sites):
                 t1, p1, p2, t2 = (time_ms(fn) for fn in (kernel_fn, plain_fn, plain_fn,
                                                          kernel_fn))
-                lib_old = None
+                lib_old = old_fn = None
                 if isinstance(lib_fn, tuple):
-                    lib_fn, lib_old = lib_fn[0], time_ms(lib_fn[1])
+                    lib_fn, old_fn = lib_fn
+                    lib_old = time_ms(old_fn)
                 lib = time_ms(lib_fn)
                 lib_fns.append(lib_fn)
+                old_fns.append(lib_fn if old_fn is None else old_fn)
                 t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
                 if len(sites) > 1:
                     site_dev, site_source, site_hs, *_ = read_device([kernel_fn])
+                    lib_site_dev = ""
+                    if library_device(iname) and old_fn is not None:  # both by device time
+                        new_dev, new_src, *_ = read_device([lib_fn])
+                        old_dev, old_src, *_ = read_device([old_fn])
+                        lib_site_dev = (f"; library device {fmt_ms(new_dev)} ({new_src}), the "
+                                        f"product alone {fmt_ms(old_dev)} ({old_src})")
                     log(f"    {iname} site, weight {weights[i_site]}: kernel "
                         f"{(t1 + t2) / 2:.4f} ms, device {fmt_ms(site_dev)} ({site_source}), "
                         f"after a head start {fmt_ms(site_hs)}, library {lib:.4f} ms"
                         + (f" (the product alone {lib_old:.4f} ms)" if lib_old is not None else "")
-                        + f", bound {max(t_ops, t_bytes):.4f} ms")
+                        + lib_site_dev + f", bound {max(t_ops, t_bytes):.4f} ms")
                 ms += (t1 + t2) / 2
                 plain_ms += (p1 + p2) / 2
                 lib_ms += lib
@@ -3249,7 +3301,11 @@ def main() -> int:
                 lib_dev_ms, lib_source, *_ = read_device(lib_fns)
                 stats[iname].update(library_device_ms=lib_dev_ms,
                                     library_device_ms_source=lib_source)
-                lib_dev = f" (device {fmt_ms(lib_dev_ms)}, {lib_source})"
+                lib_dev = f" (device {fmt_ms(lib_dev_ms)}, {lib_source}"
+                if old_fns != lib_fns:  # and with the earlier reading at its sites
+                    old_dev_ms, old_source, *_ = read_device(old_fns)
+                    lib_dev += f"; with the product alone {fmt_ms(old_dev_ms)}, {old_source}"
+                lib_dev += ")"
             share = "" if dev_ms is None else f"; {100 * bound / dev_ms:.1f} % of its bound"
             log(f"  {iname} ({what}, {len(sites)} site{'s' * (len(sites) > 1)} of a layer): "
                 f"kernel {ms:.4f} ms, device {fmt_ms(dev_ms)} ({source}{share}), after a head "

@@ -14,7 +14,11 @@ diagnostic builds of the same source:
 
 The two bracket what bounds each kernel: one near ``no_copy`` is held by its
 loop, one near ``no_mma`` by its loads. The diagnostic builds compute nothing
-meaningful; only their times are read. Run from the root of the repository:
+meaningful; only their times are read. One more computes the same
+function: ``no_turns`` drops the named-barrier turns of the head-64
+``wgmma`` kernels' warpgroups (a tree without them builds as it is). Each
+build prints what ptxas says of the head-64 forward's registers and spills.
+Run from the root of the repository:
 
     python3 scripts/bench_attention_bf16.py [train|hub]
 
@@ -34,16 +38,19 @@ column slices of one packed qkv with rows of 2304) at two shapes: the hub
 of ``scripts/bench_b16_step.py`` (16 images x 2 global crops of 7 channels:
 32 sequences of 1 373 valid rows padded to 1 408). There it also times one
 PyTorch call for the same backward (``scaled_dot_product_attention``'s
-backward with the key mask, by autograd; the port never calls it), by CUDA
-events and by the profiler's device time. The head-64 backward's dk/dv and
+backward with the key mask, by autograd; the port never calls it) and one
+for the same forward (``scaled_dot_product_attention`` with the key mask), by
+CUDA events and by the profiler's device time, and the forward by the
+profiler's device time too. The head-64 forward and the backward's dk/dv and
 dq are ``wgmma`` kernels fed by TMA, whose diagnostic builds are
 ``-DWGMMA_NO_LOAD`` (in ``no_copy``) and ``-DWGMMA_NO_MMA`` (in ``no_mma``);
 an older tree's ``mma.sync`` kernels take the header patches above. With
 ``--parent DIR`` (an unpacked checkout of another commit, e.g. ``git
 archive`` of the parent into a directory that ``.gitignore`` lists) it also
-builds that tree's kernels, times the two trees' backward in turns
-(parent, change, change, parent) in one process, and prints how far each
-tree's dq, dk and dv lie from the plain bf16 version and from each other::
+builds that tree's kernels, times the two trees' forward and backward in
+turns (parent, change, change, parent) in one process, prints whether the
+two trees' forward out and lse are the same bits, and how far each tree's
+out, dq, dk and dv lie from the plain bf16 version and from each other::
 
     python3 scripts/bench_attention_bf16.py b16 [--parent DIR]
 """
@@ -83,9 +90,14 @@ def _no_mma(header: str) -> str:
                   header, flags=re.S)
 
 
-# build -> (the patch of mma_bf16.cuh, the flags of the wgmma kernels)
-BUILDS = {"as built": (None, []), "no_copy": (_no_copy, ["-DWGMMA_NO_LOAD"]),
-          "no_mma": (_no_mma, ["-DWGMMA_NO_MMA"])}
+def _no_turns(source: str) -> str:
+    return re.sub(r".*wg::bar_(sync|arrive)\(TURN.*\n", "", source)
+
+
+# build -> (the patch of mma_bf16.cuh, the flags of the wgmma kernels, the
+# patch of prefix_attention_bf16.cu)
+BUILDS = {"as built": (None, [], None), "no_copy": (_no_copy, ["-DWGMMA_NO_LOAD"], None),
+          "no_mma": (_no_mma, ["-DWGMMA_NO_MMA"], None), "no_turns": (None, [], _no_turns)}
 
 
 def build(out_dir: Path, csrc=None) -> dict:
@@ -95,22 +107,32 @@ def build(out_dir: Path, csrc=None) -> dict:
 
     csrc = _build.CSRC if csrc is None else Path(csrc)
     procs = {}
-    for name, (patch, flags) in BUILDS.items():
+    for name, (patch, flags, cu_patch) in BUILDS.items():
         d = out_dir / name.replace(" ", "_")
         d.mkdir(parents=True, exist_ok=True)
         for src in [csrc / "prefix_attention_bf16.cu", *csrc.glob("*.cuh")]:
             text = src.read_text()
-            (d / src.name).write_text(patch(text) if patch and src.name == "mma_bf16.cuh"
-                                      else text)
+            if patch and src.name == "mma_bf16.cuh":
+                text = patch(text)
+            if cu_patch and src.name == "prefix_attention_bf16.cu":
+                text = cu_patch(text)
+            (d / src.name).write_text(text)
         procs[name] = (d / "lib.so", subprocess.Popen(
-            [_build.find_nvcc(), *_build.NVCC_FLAGS, *flags, "-shared", "-o", str(d / "lib.so"),
-             str(d / "prefix_attention_bf16.cu")], stdout=subprocess.PIPE,
+            [_build.find_nvcc(), *_build.NVCC_FLAGS, *flags, "-Xptxas", "-v", "-shared", "-o",
+             str(d / "lib.so"), str(d / "prefix_attention_bf16.cu")], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (path, proc) in procs.items():
         out = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{out}")
+        lines = out.splitlines()  # ptxas on the head-64 forward: registers, spills
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and "attention_fwd_wgmma" in line:
+                said = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                        if "registers" in x or "spill" in x or "serialized" in x]
+                print(f"{csrc.parent.parent.name} {name}: ptxas on the head-64 forward: "
+                      + "; ".join(said), flush=True)
         lib = ctypes.CDLL(str(path))
         for fn in ("prefix_attention_fwd_bf16", "prefix_attention_bwd_bf16"):
             getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
@@ -211,6 +233,17 @@ class Shapes:
         self.out.copy_(self.ref_out)
         self.lse.copy_(self.ref_lse)
 
+    def forward(self, lib):
+        """The forward's out and lse of ``lib`` (clones); the buffers then
+        hold the forward as built again."""
+        import torch
+
+        assert lib.prefix_attention_fwd_bf16(*self.fwd_args) == 0
+        torch.cuda.synchronize()
+        got = self.out.clone(), self.lse.clone()
+        self.restore()
+        return got
+
     def backward(self, lib):
         """The backward's dqkv of ``lib`` (a clone)."""
         import torch
@@ -221,7 +254,8 @@ class Shapes:
         return self.dqkv.clone()
 
     def library(self):
-        """SDPA's backward with the key mask, by autograd (events, device)."""
+        """SDPA's backward with the key mask, by autograd (events, device),
+        then its forward (events, device)."""
         import torch
         import torch.nn.functional as F
 
@@ -237,22 +271,53 @@ class Shapes:
         def fn():
             return torch.autograd.grad(o, (qh, kh, vh), do, retain_graph=True)
 
-        return time_ms(fn), device_ms(fn, None)
+        def fwd():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=key_ok)
+
+        return time_ms(fn), device_ms(fn, None), time_ms(fwd), device_ms(fwd, None)
 
 
 def row(name, lib, sh):
-    """Times one build on one shape: the forward, the whole backward by
-    events, each backward kernel by the profiler."""
+    """Times one build on one shape: the forward by events and by the
+    profiler, the whole backward by events, each backward kernel by the
+    profiler."""
     fwd_ms = time_ms(lambda: lib.prefix_attention_fwd_bf16(*sh.fwd_args))
+    fwd_dev = device_ms(lambda: lib.prefix_attention_fwd_bf16(*sh.fwd_args), None)
     sh.restore()
     assert lib.prefix_attention_bwd_bf16(*sh.bwd_args) == 0
     bwd_ms = time_ms(lambda: lib.prefix_attention_bwd_bf16(*sh.bwd_args))
     dev_ms = device_ms(lambda: lib.prefix_attention_bwd_bf16(*sh.bwd_args), KERNELS)
     total = sum(dev_ms.values())
-    print(f"{name}: forward {fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms (prep "
+    print(f"{name}: forward {fwd_ms:.4f} ms (device {fwd_dev:.4f} ms; "
+          f"{100 * 4 * sh.sq / PEAK_BF16_FLOPS * 1e3 / fwd_dev:.1f} % of the bound), "
+          f"backward {bwd_ms:.4f} ms (prep "
           f"{dev_ms[KERNELS[0]]:.4f}, dkdv {dev_ms[KERNELS[1]]:.4f}, dq "
           f"{dev_ms[KERNELS[2]]:.4f}, sum {total:.4f} ms device time; "
           f"{100 * 10 * sh.sq / PEAK_BF16_FLOPS * 1e3 / total:.1f} % of the bound)", flush=True)
+
+
+def forward_errors(sh, outs: dict):
+    """Each tree's forward out against the plain bf16 version (max abs on the
+    computed query tiles), and whether the trees' out and lse are the same
+    bits."""
+    import torch
+
+    from chadavit_tpu_torch.ops import flash_attention as fa
+
+    ref = fa.prefix_flash_attention_reference(sh.q, sh.k, sh.v, sh.vl, sh.heads)
+    keep = torch.zeros(sh.bsz, sh.s_pad, 1, dtype=torch.bool, device=ref.device)
+    for i, n in enumerate(sh.valid):
+        keep[i, :-(-n // 64) * 64] = True
+    cells = []
+    for name, (out, _) in outs.items():
+        err = torch.where(keep, out.float() - ref.float(), 0.0).abs().max().item()
+        cells.append(f"{name} out {err:.3e} ({err / ref.float().abs().max().item():.2e} of max)")
+    print("forward against the plain bf16 version: " + ", ".join(cells), flush=True)
+    if len(outs) == 2:
+        (oa, la), (ob, lb) = outs.values()
+        print(f"forward: out the same bits in both trees {torch.equal(oa, ob)}, lse "
+              f"{torch.equal(la, lb)} (max apart {(oa.float() - ob.float()).abs().max().item():.3e}"
+              f", {(la - lb).abs().max().item():.3e})", flush=True)
 
 
 def errors(sh, outs: dict):
@@ -301,14 +366,20 @@ def main_b16(parent) -> int:
         for name in libs:
             if not name.endswith("as built"):
                 row(name, libs[name], sh)
+        fwd_outs = {name: sh.forward(libs[name]) for name in libs if name.endswith("as built")}
+        fwd_again = sh.forward(libs["as built"])
+        print(f"as built: the forward's same bits on a second call "
+              f"{all(torch.equal(a, b) for a, b in zip(fwd_again, fwd_outs['as built']))}",
+              flush=True)
+        forward_errors(sh, fwd_outs)
         outs = {name: sh.backward(libs[name]) for name in libs if name.endswith("as built")}
         again = sh.backward(libs["as built"])
         print(f"as built: the same bits on a second call {torch.equal(again, outs['as built'])}",
               flush=True)
         errors(sh, outs)
-        lib_ms, lib_dev = sh.library()
-        print(f"library (SDPA backward, autograd): {lib_ms:.4f} ms, device {lib_dev:.4f} ms",
-              flush=True)
+        lib_ms, lib_dev, lib_fwd_ms, lib_fwd_dev = sh.library()
+        print(f"library (SDPA backward, autograd): {lib_ms:.4f} ms, device {lib_dev:.4f} ms; "
+              f"SDPA forward {lib_fwd_ms:.4f} ms, device {lib_fwd_dev:.4f} ms", flush=True)
         del sh
         torch.cuda.empty_cache()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -7,9 +7,9 @@ spec, the multicrop inside the step) and the float32 step on 4e (b)'s
 warms the allocator, then 3 steps under the profiler (device busy: the sum of
 the kernels' device times a step, the multicrop's range left out) and the
 host clock around them (wall a step, after a synchronize), and the device
-time a step of the chain's K1b, K2c and K2b kernels, of K1c and of the
-attention (K3 and K4, and K4's three launches alone). Run from the root of the
-repository:
+time a step of the chain's K1b, K2c and K2b kernels, of K1c, of K2a (both
+passes) and of the attention (K3 and K4, K3's forward alone and K4's three
+launches alone). Run from the root of the repository:
 
     python3 scripts/bench_b16_step.py [--parent DIR]
 
@@ -41,15 +41,20 @@ K2B_KEYS = ("linear_dgrad", "reduce_dgrad", "dgrad_list", "linear_wgmma_kernel<2
 # K1c (the f32 GEMM's ReLU epilogue or the old kernel; the bf16 wgmma GEMM's
 # epilogue 4), the attention's kernels (both dtypes) and K4's alone
 K1C_KEYS = ("linear_relu", "gemm128_kernel<2048", "linear_wgmma_kernel<2048, 768, 256, 4>")
-ATTN_KEYS = ("attention_fwd_bf16", "prefix_attention_kernel", "attention_bwd", "attention_dkdv",
+ATTN_KEYS = ("attention_fwd", "prefix_attention_kernel", "attention_bwd", "attention_dkdv",
              "attention_dq")
 K4_KEYS = ("attention_bwd", "attention_dkdv", "attention_dq")
-KEYS = ("device_busy_ms", "wall_ms", "k1b_ms", "k1c_ms", "k2c_ms", "k2b_ms", "attn_ms", "k4_ms")
+# K3 alone (the bf16 mma.sync forward, the head-64 wgmma forward, the f32
+# forward) and K2a (its row pass and the splits' second pass)
+K3_KEYS = ("attention_fwd", "prefix_attention_kernel")
+K2A_KEYS = ("layernorm_bwd", "reduce_ln_splits")
+KEYS = ("device_busy_ms", "wall_ms", "k1b_ms", "k1c_ms", "k2c_ms", "k2b_ms", "k2a_ms", "attn_ms",
+        "k3_ms", "k4_ms")
 
 
 def worker(root: Path) -> dict:
-    """This process's tree: device busy, wall and K1b / K2c device time a
-    step of the two B/16 steps."""
+    """This process's tree: device busy, wall and the kernels' device time
+    a step of the two B/16 steps."""
     sys.path.insert(0, str(root))
     import dataclasses
     import time
@@ -85,7 +90,8 @@ def worker(root: Path) -> dict:
 
         return {"device_busy_ms": ms(), "wall_ms": wall * 1e3, "k1b_ms": ms(K1B_KEYS),
                 "k1c_ms": ms(K1C_KEYS), "k2c_ms": ms(K2C_KEYS), "k2b_ms": ms(K2B_KEYS),
-                "attn_ms": ms(ATTN_KEYS), "k4_ms": ms(K4_KEYS)}
+                "k2a_ms": ms(K2A_KEYS), "attn_ms": ms(ATTN_KEYS), "k3_ms": ms(K3_KEYS),
+                "k4_ms": ms(K4_KEYS)}
 
     out = {"tree": str(root)}
     state, fused, _, _ = build_dino(bench.b16_spec(), device_augmentations=bench.ASYMMETRIC_AUGS)

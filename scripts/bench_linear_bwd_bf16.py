@@ -13,7 +13,7 @@ The two bracket what bounds each site: a site near ``no_copy`` is held by its
 loop, one near ``no_mma`` by its loads. The diagnostic builds compute nothing
 meaningful; only their times are read. Run from the root of the repository:
 
-    python3 scripts/bench_linear_bwd_bf16.py [train|hub]
+    python3 scripts/bench_linear_bwd_bf16.py [train|hub|d64]
 
 ``train`` (the default): 64 sequences (32 images x 2 crops of the channel
 counts of chip_smoke.py's bf16 train batch) padded to 2048 rows; ``hub``:
@@ -21,6 +21,14 @@ chip_smoke.py's hub shapes (8 images, 2048 rows). Times are CUDA events over
 20 calls after 3 of warm-up, each call one launch of the C entry point (and
 wgrad's second pass), without the Python wrapper. Prints one line per build
 and the card's name and power limit.
+
+``d64``: the four data-gradient sites of the smoke width (D 64, FFN 2048) at
+the hub shapes, as built, each by CUDA events and by the profiler's device
+time, beside one PyTorch call for the same function: ``torch.addmm`` with the
+residual, ``torch.mm`` elsewhere, and at the ReLU-mask site (K 64 -> N 2048)
+two readings, ``torch.mm`` then ``masked_fill_`` where ``hid <= 0`` (the
+kernel's function) and ``torch.mm`` alone (the mask left out); the sites'
+sums at the end. The port never calls these library functions.
 """
 
 import ctypes
@@ -91,6 +99,8 @@ def main() -> int:
         print("bench_linear_bwd_bf16: needs a CUDA device", file=sys.stderr)
         return 1
     which = sys.argv[1] if len(sys.argv) > 1 else "train"
+    if which == "d64":
+        return main_d64()
     channels = TRAIN_CHANNELS * 2 if which == "train" else HUB_CHANNELS
     valid = [1 + 196 * c for c in channels]
     dev = torch.device("cuda")
@@ -143,6 +153,86 @@ def main() -> int:
             assert lib.linear_dgrad_bf16(*args) == 0
             cells.append(f"dgrad {k}->{n} {time_ms(lambda: lib.linear_dgrad_bf16(*args)):.4f}")
         print(f"{name}: " + ", ".join(cells) + " (ms)", flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    return 0
+
+
+def main_d64() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chadavit_tpu_torch.ops import fused_block
+    from chadavit_tpu_torch.ops._build import BUILD_DIR
+
+    valid = [1 + 196 * c for c in HUB_CHANNELS]
+    dev = torch.device("cuda")
+    lib = build(BUILD_DIR / "bench_linear_bwd_bf16")["as built"]
+    bsz, m = len(valid), len(valid) * S_PAD
+    d, f = fused_block.D_SMALL, fused_block.D_FFN
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def bf(*shape):
+        return torch.randn(*shape, device=dev, generator=gen).bfloat16()
+
+    def events(fn, iters=20):
+        for _ in range(3):
+            fn()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / iters
+
+    def device(fn, iters=20):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
+
+    print(f"d64 hub: {bsz} sequences of {S_PAD} rows, {sum(valid)} valid, D {d}, FFN {f}",
+          flush=True)
+    totals = {"kernel": [0.0, 0.0], "library": [0.0, 0.0], "library, mask left out": [0.0, 0.0]}
+    for k, n, epi in ((d, f, 1), (f, d, 2), (d, d, 0), (3 * d, d, 0)):  # K -> N
+        dy, w = bf(m, k), bf(k, n)
+        aux = bf(m, n) if epi else None
+        out = torch.empty(m, n, dtype=torch.bfloat16, device=dev)
+        args = (dy.data_ptr(), w.data_ptr(), None if aux is None else aux.data_ptr(),
+                out.data_ptr(), epi, vl.data_ptr(), m, k, n, S_PAD, stream)
+
+        def kernel(args=args):
+            assert lib.linear_dgrad_bf16(*args) == 0
+
+        if epi == 1:  # the ReLU mask of hid = aux
+            readings = {"library": lambda dy=dy, w=w, aux=aux: torch.mm(dy, w).masked_fill_(
+                            aux <= 0, 0.0),
+                        "library, mask left out": lambda dy=dy, w=w: torch.mm(dy, w)}
+        elif epi == 2:
+            readings = {"library": lambda dy=dy, w=w, aux=aux: torch.addmm(aux, dy, w)}
+        else:
+            readings = {"library": lambda dy=dy, w=w: torch.mm(dy, w)}
+        if epi != 1:
+            readings["library, mask left out"] = readings["library"]
+        cells = []
+        for name, fn in (("kernel", kernel), *readings.items()):
+            ev, dv = events(fn), device(fn)
+            totals[name][0] += ev
+            totals[name][1] += dv
+            if epi == 1 or name != "library, mask left out":
+                cells.append(f"{name} {ev:.4f} ms (device {dv:.4f})")
+        print(f"dgrad {k}->{n}" + (" (ReLU mask)" if epi == 1 else " (residual)" if epi == 2
+                                   else "") + ": " + ", ".join(cells), flush=True)
+    print("the four sites: " + ", ".join(f"{name} {ev:.4f} ms (device {dv:.4f})"
+                                         for name, (ev, dv) in totals.items()), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     return 0

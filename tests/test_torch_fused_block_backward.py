@@ -711,3 +711,27 @@ def test_f32_dgrad_refuses_operands_its_copies_cannot_take(fake_cuda, which):
         fused_block.linear_dgrad(ops["dy"], ops["w"], torch.tensor([128, 3], dtype=torch.int32),
                                  residual=ops["residual"])
     assert fake_cuda.calls == []
+
+
+@pytest.mark.parametrize("which", ["dy", "xin", "residual", "g"])
+def test_bf16_d768_layernorm_bwd_refuses_operands_its_row_pass_cannot_take(fake_cuda, which):
+    # the bfloat16 row pass at D 768 loads dy, xin, residual and gamma 16
+    # bytes at a time: an operand 8 bytes past a 16-byte boundary is refused,
+    # by name, before the launch
+    d, s = fused_block.D_WIDE, 32
+    shapes = {"dy": (1, s, d), "xin": (1, s, d), "residual": (1, s, d), "g": (d,)}
+    dtypes = {"dy": torch.bfloat16, "xin": torch.bfloat16, "residual": torch.bfloat16,
+              "g": torch.float32}
+    ops = {}
+    for n, sh in shapes.items():
+        dt = dtypes[n]
+        if n == which:  # 8 bytes past the boundary: 4 bf16 or 2 float32 elements
+            skip = 8 // torch.empty(0, dtype=dt).element_size()
+            ops[n] = torch.zeros(math.prod(sh) + skip, dtype=dt)[skip:].view(sh)
+        else:
+            ops[n] = torch.zeros(sh, dtype=dt)
+    with pytest.raises(ValueError, match=f"{which}: must be aligned to 16 bytes"):
+        fused_block.layernorm_bwd(ops["dy"], ops["xin"], torch.zeros(1, s), torch.ones(1, s),
+                                  ops["g"], torch.tensor([s], dtype=torch.int32),
+                                  residual=ops["residual"])
+    assert fake_cuda.calls == []

@@ -30,6 +30,7 @@ from chadavit_tpu_torch.ops import flash_attention as fa
 from chip_smoke import BF16_COS, Recorder, backward_reference, bf16_err
 from tests import torch_bf16_order as bf16_order
 from tests import torch_f32_order as f32_order
+from tests import torch_ln_bwd_order as ln_bwd_order
 
 pytestmark = pytest.mark.gpu
 TOL = 1e-4
@@ -1853,3 +1854,99 @@ def test_f32_head_64_backward_on_the_tensor_cores(dev, batch):
         plain = max((ref[i, :m, cols].double() - exact[i, :m, cols]).abs().max().item()
                     for i, m in enumerate(rows) if m)
         assert err <= 3 * plain, ("dq dk dv"[3 * j:3 * j + 2], err, plain)
+
+
+# ---- ChAdaViT-B/16's bf16 K3 at head 64 on wgmma with TMA ----------------------------
+# attention_forward at head 64 in bfloat16 (csrc/prefix_attention_bf16.cu,
+# attention_fwd_wgmma_kernel) at B/16's width (12 heads of 64, q, k, v the
+# column slices of one packed qkv with rows of 2304) on the hub shapes, the
+# 7-channel bucket (32 sequences of 1 373 valid rows padded to 1 408: 8
+# blocks of three 64-query tiles, the last one a tile and two past the
+# image) and odd tiles (S 320: two blocks, the second with a tile past the
+# image; prefixes that leave a block with live and dead tiles, and an image
+# with no valid row), with the lse and without (the route that writes none): out and lse
+# against the plain bf16 version (bf16_err) on the computed 64-query tiles,
+# zeros and lse 1e30 past them, a second call repeating the bits, one launch
+# a call under prefix_attention_fwd_bf16_hd64.
+K3_HD64_BATCHES = {"hub": (2048, _HUB), "bucket7": (1408, [1 + 196 * 7] * 32),
+                   "odd_tiles": (320, [1, 60, 64, 65, 129, 193, 257, 320, 0])}
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("batch", list(K3_HD64_BATCHES))
+def test_bf16_head_64_wgmma_forward(dev, batch, with_lse):
+    s, valid = K3_HD64_BATCHES[batch]
+    d, heads = D16, H16
+    rng = np.random.default_rng(640 + len(valid) + with_lse)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    qkv = _randn(rng, dev, len(valid), s, 3 * d).bfloat16()
+    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    rows = [min(-(-n // fa.SEQ_BLOCK) * fa.SEQ_BLOCK, s) for n in valid]
+    name = "prefix_attention_fwd_bf16_hd64"
+    before = _launch.LAUNCHES[name]
+    (out, lse), (again, lse_again) = (fa.attention_forward(q, k, v, vl, heads, with_lse)
+                                      for _ in range(2))
+    assert _launch.LAUNCHES[name] == before + 2
+    assert torch.equal(out, again), "a second call gives other bits"
+    some = [i for i, n in enumerate(rows) if n]
+    ref, rlse = fa.prefix_flash_attention_reference(q, k, v, vl, heads, return_lse=True)
+    _assert_bf16_close(out[some], ref[some], [rows[i] for i in some])
+    for i, n in enumerate(rows):  # the query tiles past the prefix: zeros
+        assert not out[i, n:].any().item()
+    if with_lse:
+        assert torch.equal(lse, lse_again) and lse.shape == (len(valid), heads, s)
+        _assert_bf16_close(lse[some].transpose(1, 2), rlse[some].transpose(1, 2),
+                           [rows[i] for i in some])
+        for i, n in enumerate(rows):
+            assert (lse[i, :, n:] == 1e30).all().item()
+    else:
+        assert lse is None and lse_again is None
+
+
+# ---- ChAdaViT-B/16's bf16 K2a: the 16-byte row pass at D 768 ----------------------
+# layernorm_bwd at D 768 in bfloat16 (layernorm_bwd_wide_bf16_kernel, then
+# reduce_ln_splits_kernel<768>) at phase 2c's narrow bf16 rows, at the
+# 7-channel bucket's and at S 160 with an image of no valid row (splits of
+# one tile, of several, of none computed), with the site-1 residual and dgb
+# summed into and without: dx against the plain version (bf16_err) on the
+# rows of the computed 32-row tiles, exact zeros past them; dgamma and dbeta
+# bit for bit the order that layernorm_bwd_kernel sums them in
+# (tests/torch_ln_bwd_order.py::param_sums_order at the wrapper's split
+# count), and a second call repeating every bit.
+K2A_D768_BATCHES = {"narrow": (1408, [1 + 196 * c for c in (1, 3, 5, 7, 2, 7, 4, 6)]),
+                    "bucket7": (1408, [1 + 196 * 7] * 32),
+                    "straddle": (160, [1, 33, 0, 97, 160, 129])}
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("batch", list(K2A_D768_BATCHES))
+def test_bf16_d768_layernorm_bwd_row_pass(dev, batch, residual):
+    from chadavit_tpu_torch.ops.layernorm import layernorm_stats
+
+    s, valid = K2A_D768_BATCHES[batch]
+    d, bsz = D16, len(valid)
+    rng = np.random.default_rng(768 + len(valid) + residual)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    xin = (_randn(rng, dev, bsz, s, d) * 2 + 0.5).bfloat16()
+    dy = _tail_cotangent(_randn(rng, dev, bsz, s, d), valid, fused_block.ROW_BLOCK).bfloat16()
+    res = _randn(rng, dev, bsz, s, d).bfloat16() if residual else None
+    g = 1 + _randn(rng, dev, d, scale=0.1)
+    mean, rstd = (t[..., 0].contiguous() for t in layernorm_stats(xin, 1e-5))
+    dgb0 = _randn(rng, dev, 2 * d) if residual else None
+    name = "layernorm_bwd_bf16_d768"
+    before = _launch.LAUNCHES[name]
+    runs = [fused_block.layernorm_bwd(dy, xin, mean, rstd, g, vl, residual=res,
+                                      dgb=None if dgb0 is None else dgb0.clone())
+            for _ in range(2)]
+    assert _launch.LAUNCHES[name] == before + 2
+    (dx, dgb), (dx2, dgb2) = runs
+    assert torch.equal(dx, dx2) and torch.equal(dgb, dgb2), "a second call gives other bits"
+    splits = fused_block.layernorm_bwd_splits(bsz, s, d)
+    model = ln_bwd_order.param_sums_order(dy, xin, mean, rstd, vl, splits, dgb0)
+    assert torch.equal(dgb, model), (dgb - model).abs().max().item()
+    rdx, _ = fused_block.layernorm_bwd_reference(dy, xin, mean, rstd, g, vl, residual=res)
+    rows = [-(-n // fused_block.ROW_BLOCK) * fused_block.ROW_BLOCK for n in valid]
+    some = [i for i, n in enumerate(rows) if n]
+    _assert_bf16_close(dx[some], rdx[some], [rows[i] for i in some])
+    for i, n in enumerate(rows):
+        assert not dx[i, n:].any().item()

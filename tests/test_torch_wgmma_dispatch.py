@@ -1,10 +1,11 @@
-"""Which kernels the bf16 attention backward and the float32 FFN1 + ReLU step
-reach, on the CUDA route with the library stubbed (``FakeLibrary``). The
-Python wrappers call one C entry point a step
-(``prefix_attention_bwd_bf16``, ``linear_relu_fwd``), which picks the kernel
-by head width or model width: each launch is counted under its instance's
-name, with the C arguments of its width. The instances the new kernels
-replaced (the ``mma.sync`` backward at head 64, ``launch_bwd<64>``, and
+"""Which kernels the bf16 attention forward and backward and the float32 FFN1
++ ReLU step reach, on the CUDA route with the library stubbed
+(``FakeLibrary``). The Python wrappers call one C entry point a step
+(``prefix_attention_fwd_bf16``, ``prefix_attention_bwd_bf16``,
+``linear_relu_fwd``), which picks the kernel by head width or model width:
+each launch is counted under its instance's name, with the C arguments of
+its width. The instances the new kernels replaced (the ``mma.sync`` forward
+and backward at head 64, ``launch_fwd<64>`` and ``launch_bwd<64>``, and
 ``linear_relu_kernel`` at D 768) are gone from the sources; which kernels run
 at each width, and that head 64 runs no ``mma.sync``, the card shows
 (``chip_smoke.py`` phase 1's instances and SASS, and the launch counts of
@@ -41,6 +42,26 @@ def test_bf16_attention_backward_reaches_its_head_width_launch(fake_cuda, hd):
     assert _launch.LAUNCHES[name] == before + 1
 
 
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("hd", [32, 64, 96])
+def test_bf16_attention_forward_reaches_its_head_width_launch(fake_cuda, hd, with_lse):
+    heads, b, s = 2, 2, 128
+    d = heads * hd
+    qkv = torch.zeros(b, s, 3 * d, dtype=torch.bfloat16)
+    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    vl = torch.tensor([s, 70], dtype=torch.int32)
+    name = fa.instance("prefix_attention_fwd_bf16", hd)
+    before = _launch.LAUNCHES[name]
+    out, lse = fa.attention_forward(q, k, v, vl, heads, with_lse)
+    assert fake_cuda.calls == ["prefix_attention_fwd_bf16"]
+    args = fake_cuda.args[0]
+    assert args[3] == 3 * d and args[6] == d  # ld (the packed rows), ldo
+    assert (args[7] is None) == (not with_lse) and (lse is None) == (not with_lse)
+    assert args[8:12] == (b, heads, hd, s)  # batch, heads, head_dim, s_pad
+    assert args[12] == fa._qscale(hd, torch.bfloat16)
+    assert out.shape == (b, s, d) and _launch.LAUNCHES[name] == before + 1
+
+
 @pytest.mark.parametrize("d", [64, 192, 768])
 def test_f32_linear_relu_reaches_its_width_kernel(fake_cuda, d):
     b, s, n = 2, 64, fused_block.WIDTHS[d]
@@ -56,6 +77,7 @@ def test_f32_linear_relu_reaches_its_width_kernel(fake_cuda, d):
 
 @pytest.mark.parametrize("source, gone", [
     ("prefix_attention_bf16.cu", r"launch_bwd<\s*64\s*>"),
+    ("prefix_attention_bf16.cu", r"launch_fwd<\s*64\s*>"),
     ("fused_block.cu", r"linear_relu_kernel<\s*(D_WIDE|768)\s*>")])
 def test_replaced_instances_are_gone(source, gone):
     assert not re.search(gone, (CSRC / source).read_text())
