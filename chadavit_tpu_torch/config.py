@@ -1,9 +1,10 @@
 """Config system: the reference's YAML schema, parsed without Hydra/OmegaConf.
 
-Counterpart of ``chadavit_tpu/config.py`` for the pretrain entry point
-(``Config`` :67, ``select`` :104, ``load_yaml`` :122, ``_common_defaults``
-:146, the ``_*_defaults`` and ``parse_pretrain_cfg`` :273, ``save_args_json``
-:388), with the same defaulting rules, the lr scaling rule
+Counterpart of ``chadavit_tpu/config.py`` for the pretrain and evaluation
+entry points (``Config`` :67, ``select`` :104, ``load_yaml`` :122,
+``_common_defaults`` :146, the ``_*_defaults``, ``parse_pretrain_cfg`` :273,
+``parse_linear_cfg`` :321, ``parse_regression_cfg`` :343, ``parse_knn_cfg``
+:351, ``save_args_json`` :388), with the same defaulting rules, the lr scaling rule
 ``lr *= batch_size * num_devices * num_nodes / 256`` among them (reference
 ``args/pretrain.py:204-214``), so the same YAML files give the same config.
 
@@ -320,6 +321,51 @@ def parse_pretrain_cfg(cfg: Config) -> Config:
     _optimizer_defaults(cfg)
     _scheduler_defaults(cfg)
     _accumulate_defaults(cfg)
+    return cfg
+
+
+def parse_linear_cfg(cfg: Config) -> Config:
+    """Linear-probe defaults (reference ``args/linear.py:127+``)."""
+    cfg = _common_defaults(cfg)
+    select(cfg, "backbone.kwargs.return_all_tokens", False)
+    select(cfg, "pretrain_method", None)
+    select(cfg, "pretrained_feature_extractor", None)
+    select(cfg, "finetune", False)
+    select(cfg, "auto_augment", False)
+    select(cfg, "label_smoothing", 0.0)
+    select(cfg, "mixup", 0.0)
+    select(cfg, "cutmix", 0.0)
+    select(cfg, "layer_decay", 0.0)
+    select(cfg, "data.augmentations.crop_size", 224)
+    select(cfg, "data.augmentations.mean", [0.485, 0.456, 0.406])
+    select(cfg, "data.augmentations.std", [0.228, 0.224, 0.225])
+    _num_classes(cfg)
+    _scale_lrs(cfg)
+    _optimizer_defaults(cfg)
+    _scheduler_defaults(cfg)
+    _accumulate_defaults(cfg)
+    return cfg
+
+
+def parse_regression_cfg(cfg: Config) -> Config:
+    """Regression defaults (reference ``args/regression.py``); the linear
+    skeleton with a 1-output regressor."""
+    cfg = parse_linear_cfg(cfg)
+    cfg.data.num_classes = 1
+    return cfg
+
+
+def parse_knn_cfg(cfg: Config) -> Config:
+    """Offline kNN defaults (reference ``args/knn.py:133-136``)."""
+    cfg = _common_defaults(cfg)
+    select(cfg, "backbone.kwargs.return_all_tokens", False)
+    select(cfg, "knn_eval_offline.enabled", True)
+    select(cfg, "knn_eval_offline.k", [1, 2, 5, 10, 20, 50, 100, 200])
+    select(cfg, "knn_eval_offline.temperature", [0.01, 0.02, 0.05, 0.07, 0.1, 0.2, 0.5, 1])
+    select(cfg, "knn_eval_offline.feature_type", ["backbone"])
+    select(cfg, "knn_eval_offline.distance_function", ["cosine", "euclidean"])
+    select(cfg, "optimizer.batch_size", 64)
+    _num_classes(cfg)
     return cfg
 
 

@@ -20,9 +20,11 @@ index) alone. The raw path of the on-device augmentation has no random host
 op, so its batches equal the JAX loader's bit for bit: ``channels_last``
 and ``dtype`` collate the decoder's HWC integer planes as they are, and
 ``native_batch_fn`` decodes a whole batch in the C++ thread pool
-(:func:`chadavit_tpu_torch.data.native.make_dense_batch_fn`). The JAX
-loader's ``collate_fn``, ``emit_index`` and multi-host ``shard`` (for the
-evaluation and parallel paths) are not ported yet.
+(:func:`chadavit_tpu_torch.data.native.make_dense_batch_fn`). The offline
+evaluation (``data/classification.py``) runs on this loader as it is: its
+batches keep each image's features beside its target, so it needs no index.
+The JAX loader's ``collate_fn`` and ``emit_index`` (the loop's online kNN,
+``one_channel_flatten``) and multi-host ``shard`` are not ported yet.
 
 :func:`device_prefetch` replaces the JAX upload thread: it pins each host
 batch and copies it to the device with ``non_blocking=True`` from a

@@ -7,7 +7,11 @@ reference torch layout, so importing is the ``encoder -> backbone -> strip``
 key remap alone. :func:`state_dict_from_jax_params` goes the other way from
 the JAX importer ``chada_vit_params_from_torch`` (:59): flax params (nested
 numpy) to the port's state dict; :func:`head_state_dict_from_jax_params` does
-the same for the DINO head (inverse of ``dino_head_params_from_torch`` :123).
+the same for the DINO head (inverse of ``dino_head_params_from_torch`` :123),
+:func:`linear_state_dict_from_jax_params` for a flax ``nn.Dense`` (the
+probes' classifier). :func:`load_jax_npz` reads the JAX package's compact
+backbone export (a ``.npz`` of flat ``a/b/c`` keys, as
+``chadavit_tpu/cli.py:145-159`` reads it) into nested numpy params.
 """
 
 from __future__ import annotations
@@ -53,6 +57,20 @@ def import_backbone_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     """Load a Lightning or bare checkpoint and remap it to a bare ChAdaViT
     state dict for :class:`chadavit_tpu_torch.models.chada_vit.ChAdaViT`."""
     return remap_backbone_keys(load_torch_state_dict(path))
+
+
+def load_jax_npz(path: str) -> Dict[str, Any]:
+    """A ``.npz`` of flat ``a/b/c``-keyed JAX params -> the nested params
+    tree (numpy arrays)."""
+    params: Dict[str, Any] = {}
+    with np.load(path) as z:
+        for flat_key in z.files:
+            node = params
+            *parents, leaf = flat_key.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = np.asarray(z[flat_key])
+    return params
 
 
 def state_dict_from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -109,3 +127,10 @@ def head_state_dict_from_jax_params(params: Mapping[str, Any]) -> Dict[str, torc
     sd["last_layer.weight_v"] = t(_np(params["last_layer_v"]).T)
     sd["last_layer.weight_g"] = t(_np(params["last_layer_g"]).reshape(-1, 1))
     return sd
+
+
+def linear_state_dict_from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``nn.Dense`` params (``kernel`` ``(in, out)``, ``bias``) -> the
+    state dict of ``torch.nn.Linear`` (``weight`` ``(out, in)``, ``bias``)."""
+    return {"weight": torch.from_numpy(np.array(_np(params["kernel"]).T, dtype=np.float32)),
+            "bias": torch.from_numpy(np.array(_np(params["bias"]), dtype=np.float32))}

@@ -13,7 +13,8 @@ crop size, the raw uint8/uint16 planes go to the card as they are, and the
 step draws its views there from a generator of the step's own index.
 
 Not ported yet, each raising ``NotImplementedError`` with its key: online
-kNN (``knn_eval``), the training-time UMAP (``auto_umap``), tensor
+kNN (``knn_eval``; the offline kNN of a checkpoint is the port's
+``main_knn``), the training-time UMAP (``auto_umap``), tensor
 parallelism (``model_parallel``), ``fsdp``, more than one device
 (``devices``) and more than one host (``num_nodes``).
 """
@@ -42,13 +43,14 @@ from chadavit_tpu_torch.data import (
 from chadavit_tpu_torch.data import native
 from chadavit_tpu_torch.data.device_augment import aug_generator
 from chadavit_tpu_torch.data.transforms import RawResize
-from chadavit_tpu_torch.train.pretrain import DinoPretrainSpec, _device, build_dino
+from chadavit_tpu_torch.train.pretrain import DinoPretrainSpec, build_dino
 from chadavit_tpu_torch.utils.checkpoint import AutoResumer, Checkpointer, restore_state
 from chadavit_tpu_torch.utils.logging import MetricLogger
 from chadavit_tpu_torch.utils.misc import (
     HostMemGuard,
     host_rss_bytes,
     pretty_param_summary,
+    resolve_device,
     resolve_seed,
     seed_everything,
 )
@@ -124,9 +126,11 @@ def unported_keys(cfg: Config) -> None:
     ]
     for key, asked in asks:
         if asked:
+            hint = ("; the offline kNN of a checkpoint is ported: "
+                    "python -m chadavit_tpu_torch.main_knn" if key == "knn_eval" else "")
             raise NotImplementedError(
                 f"{key}={cfg.get(key)!r}: not ported yet; the port's pretrain loop runs "
-                "on one device of one host")
+                f"on one device of one host{hint}")
 
 
 def build_pretrain_loader(cfg: Config, seed: int = 0) -> HostLoader:
@@ -230,7 +234,7 @@ def run_dino_pretrain(cfg: Config, max_steps: Optional[int] = None,
     torch device, ``None`` meaning ``"cuda"`` (raising where CUDA is
     absent)."""
     unported_keys(cfg)
-    dev = _device(device)
+    dev = resolve_device(device)
     seed = resolve_seed(cfg)
     # seed host RNGs BEFORE dataset construction (reference main_pretrain.py:80)
     seed_everything(seed)

@@ -31,6 +31,7 @@ from chadavit_tpu_torch.train.dino_step import DinoStepConfig, make_dino_train_s
 from chadavit_tpu_torch.train.optim import build_group_tx
 from chadavit_tpu_torch.train.schedules import warmup_cosine_lr
 from chadavit_tpu_torch.train.state import DinoState
+from chadavit_tpu_torch.utils.misc import resolve_device
 
 
 @dataclass
@@ -87,15 +88,6 @@ class DinoPretrainSpec:
         return self.max_epochs * self.steps_per_epoch
 
 
-def _device(device: Optional[str]) -> torch.device:
-    """``None`` means the card, and raises where there is none."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
-        device = "cuda"
-    return torch.device(device)
-
-
 def build_dino(spec: DinoPretrainSpec, device: Optional[str] = None, seed: int = 0,
                mesh=None, fsdp: bool = False, device_augmentations=None,
                backbone_apply: Optional[Callable] = None
@@ -123,7 +115,7 @@ def build_dino(spec: DinoPretrainSpec, device: Optional[str] = None, seed: int =
     if spec.dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
             f"dtype {spec.dtype}: the port trains in float32 or bfloat16")
-    dev = _device(device)
+    dev = resolve_device(device)
     bk = dict(spec.backbone_kwargs)
     bk.setdefault("img_size", spec.img_size)
     bk["dtype"] = spec.dtype  # as the JAX build_dino (pretrain.py:124)
@@ -197,6 +189,6 @@ def synthetic_dino_batch(spec: DinoPretrainSpec, batch_size: int, seed: int = 0,
         counts = np.asarray(channel_counts, np.int32)
     for i, c in enumerate(counts):
         crops[:, i, c:] = 0.0
-    dev = _device(device)
+    dev = resolve_device(device)
     return {"crops": torch.from_numpy(crops).to(device=dev, dtype=spec.dtype),
             "channel_counts": torch.from_numpy(counts).to(dev)}

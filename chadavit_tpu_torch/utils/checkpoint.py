@@ -10,16 +10,19 @@ the previous checkpoint is deleted unless ``keep_prev``. Auto-resume scans
 every run's ``args.json`` for the 12 ``SHOULD_MATCH`` keys and returns the
 newest checkpoint younger than ``max_hours``.
 
-A checkpoint directory holds ``state.pt``, a ``torch.save`` of the whole DINO
-train state (the orbax tree of the JAX package): the student and the teacher
-state dicts, the optimizer state (LARS step count, the names of the trainable
-tensors and their momentum buffers), the center and the step, all on the
-CPU. Restoring loads it in place into a state built for the same config, so
-an exact-step resume continues the run bit for bit.
+A checkpoint directory holds ``state.pt``, a ``torch.save`` of the whole
+train state (the orbax tree of the JAX package), DINO's or a probe's, in one
+layout (:func:`state_to_dict`): each field of the state, modules as state
+dicts, the optimizer state by its fields' names, and the names of the tensors
+it trains, all on the CPU; a loop's own numbers (the probe's ``lr_scale`` and
+epoch, JAX ``main_linear.py:130-147``'s payload) go under ``extra``.
+Restoring loads it in place into a state built for the same config, so an
+exact-step resume continues the run bit for bit.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import random
@@ -31,6 +34,7 @@ from pathlib import Path
 from typing import Any, Optional, Tuple
 
 import torch
+from torch import nn
 
 SHOULD_MATCH = [
     "name",
@@ -66,56 +70,103 @@ def _cpu(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True)
 
 
+def _plain(obj):
+    """``obj`` in plain containers of CPU tensors and numbers: a module as its
+    state dict, a NamedTuple (an optimizer state) as a dict of its fields, a
+    tuple as a list, so that the file names every buffer."""
+    if isinstance(obj, torch.Tensor):
+        return _cpu(obj)
+    if isinstance(obj, nn.Module):
+        return {n: _cpu(t) for n, t in obj.state_dict().items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return {k: _plain(v) for k, v in obj._asdict().items()}
+    if isinstance(obj, dict):
+        return {k: _plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_plain(v) for v in obj]
+    return obj
+
+
+def _restore(obj, saved, where: str):
+    """``obj`` with the tensors and counts of ``saved`` (its :func:`_plain`
+    form) copied in, in place where they are tensors. The flags and the
+    structure are the config's: a field, a key, a length, a flag or a
+    tensor's shape that differs raises ``ValueError`` naming ``where``."""
+    def mismatch():
+        return ValueError(f"checkpoint: {where} does not match this run's")
+
+    if isinstance(obj, nn.Module):
+        try:
+            obj.load_state_dict(saved)
+        except RuntimeError as e:  # a missing, unexpected or reshaped tensor
+            raise mismatch() from e
+        return obj
+    if isinstance(obj, torch.Tensor):
+        if not isinstance(saved, torch.Tensor) or saved.shape != obj.shape:
+            raise mismatch()
+        return obj.copy_(saved)
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        if not isinstance(saved, dict) or list(saved) != list(obj._fields):
+            raise mismatch()
+        return type(obj)(*(_restore(getattr(obj, k), saved[k], f"{where}.{k}")
+                           for k in obj._fields))
+    if isinstance(obj, dict):
+        if not isinstance(saved, dict) or list(saved) != list(obj):
+            raise mismatch()
+        return {k: _restore(v, saved[k], f"{where}.{k}") for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        if not isinstance(saved, list) or len(saved) != len(obj):
+            raise mismatch()
+        return type(obj)(_restore(v, s, f"{where}[{i}]")
+                         for i, (v, s) in enumerate(zip(obj, saved)))
+    if isinstance(obj, int) and not isinstance(obj, bool):
+        return int(saved)
+    if saved != obj:
+        raise mismatch()
+    return obj
+
+
 def state_to_dict(state) -> dict:
-    """The DINO train state (``train/state.py::DinoState``) as a dict of CPU
-    tensors and numbers."""
-    opt = state.opt_state
-    return {
-        "step": int(state.step),
-        "student": {k: {n: _cpu(t) for n, t in m.state_dict().items()}
-                    for k, m in state.student.items()},
-        "teacher": {k: {n: _cpu(t) for n, t in m.state_dict().items()}
-                    for k, m in state.teacher.items()},
-        # the momentum buffers follow the student's trainable tensors, named here
-        "opt_state": {"count": int(opt.count), "one_d": list(opt.one_d),
-                      "names": [n for n, _ in state.trainable()],
-                      "momentum": None if opt.momentum is None
-                      else [_cpu(b) for b in opt.momentum]},
-        "center": _cpu(state.center),
-    }
+    """A train state (``train/state.py``: ``DinoState`` or ``ProbeState``) as
+    a dict of CPU tensors and numbers, one entry per field in its
+    :func:`_plain` form (modules as state dicts, the optimizer state by its
+    fields' names), and ``trainable``: the names of the tensors the optimizer
+    state follows, in its order."""
+    out = {f.name: _plain(getattr(state, f.name)) for f in dataclasses.fields(state)}
+    out["trainable"] = [n for n, _ in state.trainable()]
+    return out
 
 
 def load_state_dict_into(state, saved: dict):
     """Copy a dict of :func:`state_to_dict` into ``state`` in place; returns
-    ``state``. The structure must match (same config)."""
+    ``state``. The structure must match (same config): other trained
+    tensors, optimizer fields, flags or shapes raise ``ValueError``."""
+    if saved["trainable"] != [n for n, _ in state.trainable()]:
+        raise ValueError("checkpoint: the trained tensors do not match this run's")
     with torch.no_grad():
-        for side in ("student", "teacher"):
-            for k, m in getattr(state, side).items():
-                m.load_state_dict(saved[side][k])
-        opt = saved["opt_state"]
-        mom = state.opt_state.momentum
-        if (opt["names"] != [n for n, _ in state.trainable()]
-                or (mom is None) != (opt["momentum"] is None)
-                or (mom is not None and len(mom) != len(opt["momentum"]))):
-            raise ValueError("checkpoint: the optimizer state does not match this run's")
-        if mom is not None:
-            for b, s in zip(mom, opt["momentum"]):
-                b.copy_(s)
-        state.opt_state = state.opt_state._replace(count=int(opt["count"]),
-                                                   one_d=list(opt["one_d"]))
-        state.center = saved["center"].to(state.center.device)
-        state.step = int(saved["step"])
+        for f in dataclasses.fields(state):
+            setattr(state, f.name, _restore(getattr(state, f.name), saved[f.name], f.name))
     return state
 
 
-def save_state(path: str, state) -> None:
-    """Write ``state`` to the checkpoint directory ``path`` (replaced if it
-    exists; written under a temporary name, then renamed)."""
+def load_payload(path: str) -> dict:
+    """The dict saved in the checkpoint directory ``path``."""
+    return torch.load(os.path.join(os.path.abspath(path), STATE_FILE), map_location="cpu",
+                      weights_only=True)
+
+
+def save_state(path: str, state, extra: Optional[dict] = None) -> None:
+    """Write the train state ``state``, and the loop's own numbers ``extra``
+    under the key ``"extra"``, to the checkpoint directory ``path`` (replaced
+    if it exists; written under a temporary name, then renamed)."""
     path = os.path.abspath(path)
     tmp = path + ".tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    torch.save(state_to_dict(state), os.path.join(tmp, STATE_FILE))
+    payload = state_to_dict(state)
+    if extra is not None:
+        payload["extra"] = dict(extra)
+    torch.save(payload, os.path.join(tmp, STATE_FILE))
     if os.path.exists(path):
         shutil.rmtree(path)
     os.replace(tmp, path)
@@ -123,9 +174,7 @@ def save_state(path: str, state) -> None:
 
 def restore_state(path: str, state):
     """Load the checkpoint directory ``path`` into ``state`` in place."""
-    saved = torch.load(os.path.join(os.path.abspath(path), STATE_FILE), map_location="cpu",
-                       weights_only=True)
-    return load_state_dict_into(state, saved)
+    return load_state_dict_into(state, load_payload(path))
 
 
 class Checkpointer:
@@ -157,21 +206,21 @@ class Checkpointer:
     def step_ckpt_path(self, step: int) -> Path:
         return self.path / f"{self.name}-{self.run_id}-step={step}"
 
-    def _save(self, state: Any, ckpt: Path):
-        save_state(str(ckpt), state)
+    def _save(self, state: Any, ckpt: Path, extra: Optional[dict]):
+        save_state(str(ckpt), state, extra)
         if self.last_ckpt and self.last_ckpt != ckpt and not self.keep_prev:
             shutil.rmtree(self.last_ckpt, ignore_errors=True)
         self.last_ckpt = ckpt
 
-    def save(self, state: Any, epoch: int):
+    def save(self, state: Any, epoch: int, extra: Optional[dict] = None):
         if epoch % self.frequency != 0:
             return
-        self._save(state, self.ckpt_path(epoch))
+        self._save(state, self.ckpt_path(epoch), extra)
 
-    def save_step(self, state: Any, step: int):
+    def save_step(self, state: Any, step: int, extra: Optional[dict] = None):
         """Mid-epoch checkpoint at an exact global step (preemption safety; the
         reference requeues via ``SLURMEnvironment(requeue_signal=SIGUSR1)``)."""
-        self._save(state, self.step_ckpt_path(step))
+        self._save(state, self.step_ckpt_path(step), extra)
 
 
 class AutoResumer:

@@ -2,7 +2,8 @@
 
 Counterpart of the parts of ``chadavit_tpu/utils/misc.py`` the pretrain loop
 uses: ``seed_everything`` (:237), ``resolve_seed`` (:245), ``host_rss_bytes``
-(:254), ``HostMemGuard`` (:324) and ``pretty_param_summary`` (:377).
+(:254), ``HostMemGuard`` (:324) and ``pretty_param_summary`` (:377); and
+:func:`resolve_device`, the port's rule for its entry points' ``device``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,16 @@ def resolve_seed(cfg, default: int = 5) -> int:
     None means ``default`` (5, the value every shipped config uses)."""
     seed = cfg.get("seed")
     return default if seed is None else int(seed)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card, and raises where there is none: no entry
+    point carries on on the CPU unless asked to (``device="cpu"``)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+        device = "cuda"
+    return torch.device(device)
 
 
 def host_rss_bytes() -> int:

@@ -218,6 +218,28 @@ Phases, each printed with its elapsed seconds at its start and end:
    step 1 against the same state and batch through the plain chains at 4b's
    bf16 bounds. Both runs print the launches of every _d64 and _hd32
    instance: each above 0, and no other instance launched.
+4g. the offline evaluation through the port's entry points, on the
+   ChAdaViT-moyen the JAX package pretrained
+   (studies/collapse_scale/checkpoints/idr10k_tau994_lrquarter_ep6.npz, D 192,
+   depth 12, float32 as the JAX eval path builds it), over a manifest of 160
+   train and 64 test images written by the port's generator: (a)
+   python -m chadavit_tpu_torch.main_knn's command line on
+   scripts/knn/idr100k_synth/dino_idr10k_study.yaml (batch 64, bucket_round
+   10: every batch 10 channels wide, S_pad 2048): the CSV's header and one row
+   for each (k, T) of the grid, accuracies in [0, 100], only the D 192
+   forward instances launched, 12 layers x the batches, the bank's and the
+   queries' features against the same model through the plain versions at
+   phase 4's SERVED_COS, embeddings/s with the host loader and on the card
+   alone. (b) main_linear on scripts/linear/bbbc048/dino_chada_vit_moyen.yaml
+   (adamw, batch 32): 4 frozen steps (finite losses, the backbone bit for bit
+   the .npz's, the validation suite, the forward's launches), then
+   finetune=true layer_decay=0.75 for 2 steps (K2 and K4 12 a step); step 1
+   again from one state against the plain chains at 4b's float32 bounds
+   (the loss, and the per-tensor cosine of Adam's first moments, zero
+   failing); the frozen and finetuned ms a step. (c) main_regression on
+   scripts/regression/transloc/dino_chada_vit_moyen.yaml with
+   data.dataset=synthetic, 4 steps: finite losses and suite. Each part's
+   wall time.
 5. times, entry point by entry point (time_entry), at phase 2's shapes for
    D 192, 2b's for the head-64 attention and 2c's for the D 768 chain
    (chain_runs builds the chain's sites at either width): CUDA events of the
@@ -257,6 +279,7 @@ import dataclasses
 import faulthandler
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -439,6 +462,21 @@ D64_HUB = (S_PAD, [1 + N_PATCHES * c for c in COUNTS])
 D64_CROP = (128, [1 + 4 * (1 + i % 4) for i in range(16)])
 SMOKE_YAML = CANONICAL.parent.parent / "smoke" / "dino_synthetic.yaml"
 SMOKE_METRIC_REL = 1e-5
+# 4g, the offline evaluation of a ChAdaViT-moyen the JAX package pretrained
+# (the collapse study's epoch-6 backbone, D 192, depth 12, an .npz of JAX
+# params) through the port's entry points: the kNN study YAML (batch 64,
+# bucket_round 10: every batch 10 channels wide, S_pad 2048), the bbbc048
+# linear probe (adamw, batch 32 here, 4 frozen steps and 2 finetuned ones with
+# layer decay) and the transloc regression probe on synthetic data (4 steps),
+# over a manifest of EVAL_BANK train and EVAL_QUERIES test images written by
+# the port's generator (7 classes, 1-10 channels)
+ROOT = Path(__file__).resolve().parent
+STUDY_NPZ = ROOT / "studies" / "collapse_scale" / "checkpoints" / "idr10k_tau994_lrquarter_ep6.npz"
+KNN_YAML = ROOT / "scripts" / "knn" / "idr100k_synth" / "dino_idr10k_study.yaml"
+LINEAR_YAML = ROOT / "scripts" / "linear" / "bbbc048" / "dino_chada_vit_moyen.yaml"
+REGRESSION_YAML = ROOT / "scripts" / "regression" / "transloc" / "dino_chada_vit_moyen.yaml"
+EVAL_BANK, EVAL_QUERIES = 160, 64
+PROBE_FROZEN_STEPS, PROBE_FINETUNE_STEPS = 4, 2
 # the layer chain's kernels in a profiler trace, by a piece of their names
 CHAIN_KERNEL_KEYS = ("ln_linear", "linear_relu", "linear_residual_ln", "layernorm_bwd",
                      "linear_dgrad", "linear_wgrad", "reduce_ln_splits", "reduce_splits",
@@ -670,10 +708,11 @@ def layer_gaps(spec_bf16, spec_f32, counts, seed=6):
     return gaps
 
 
-def check_updates(ph, what, names, kernel_dirs, plain_dirs, spec, bound):
+def check_updates(ph, what, names, kernel_dirs, plain_dirs, spec, bound, of="the updates"):
     """Step 1's update of every trainable tensor (``names``, in the train
     state's order), the kernels' run against the plain run from the same
-    state: a cosine of at least bound per tensor.
+    state: a cosine of at least bound per tensor; ``of`` names the buffer
+    read in the printed line.
     The update is read from the LARS momentum buffer, which after the first
     step holds the step's direction (the update over -lr) before it meets
     the parameter (an update below half an ulp of a parameter near 1 leaves
@@ -697,7 +736,7 @@ def check_updates(ph, what, names, kernel_dirs, plain_dirs, spec, bound):
             cosines.append((torch.nn.functional.cosine_similarity(dk, dp, 0).item(), n))
     cosines.sort()
     ph.check(not bad and bool(cosines) and cosines[0][0] >= bound,
-             f"{what}, per-tensor cosine of the updates, kernels against plain, "
+             f"{what}, per-tensor cosine of {of}, kernels against plain, "
              f"{len(cosines)} tensors: worst "
              + ", ".join(f"1 - {1 - c:.2e} ({n})" for c, n in cosines[:4])
              + f"; median 1 - {1 - cosines[len(cosines) // 2][0]:.2e} (>= 1 - {1 - bound:.0e}); "
@@ -1455,6 +1494,251 @@ class Recorder:
             self.calls.append((name, saved, clone(out)))
             return out
         return call
+
+
+# the launches of each layer-chain kernel in one encoder layer run: a forward
+# without grad, and a finetuned step's forward with its save outputs and its
+# backward with the three recomputes (chain_launches less the teacher)
+FORWARD_LAUNCHES = {"ln_linear_fwd": 1, "prefix_attention_fwd": 1, "linear_relu_fwd": 1,
+                    "linear_residual_ln_fwd": 2}
+FINETUNE_LAUNCHES = {"ln_linear_fwd": 2, "prefix_attention_fwd": 1, "linear_relu_fwd": 2,
+                     "linear_residual_ln_fwd": 3, "prefix_attention_bwd": 1,
+                     "layernorm_bwd": 3, "linear_dgrad": 4, "linear_wgrad": 4}
+
+
+def eval_phase(ph, tmp: str, smi: str, instances, reset_launches, read_launches) -> None:
+    """Phase 4g: the port's offline evaluation on the card (the module
+    docstring's 4g)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from chadavit_tpu_torch import main_knn, main_linear
+    from chadavit_tpu_torch.cli import apply_overrides, load_backbone_for_eval
+    from chadavit_tpu_torch.config import load_yaml, parse_knn_cfg, parse_linear_cfg, \
+        parse_regression_cfg
+    from chadavit_tpu_torch.data.disk_dataset import generate
+    from chadavit_tpu_torch.data.pipeline import to_device
+    from chadavit_tpu_torch.eval.features import extract_features, make_feature_fn
+    from chadavit_tpu_torch.models.import_torch import load_jax_npz, state_dict_from_jax_params
+    from chadavit_tpu_torch.utils.misc import resolve_device
+
+    t_phase = time.perf_counter()
+    if not STUDY_NPZ.is_file():
+        ph.check(False, f"{STUDY_NPZ} is in the checkout")
+        return
+    root = f"{tmp}/manifest"
+    generate(root, EVAL_BANK + EVAL_QUERIES, num_classes=7, seed=5, workers=4, image_subdir="",
+             val_fraction=EVAL_QUERIES / (EVAL_BANK + EVAL_QUERIES))
+    data = [f"data.train_path={root}", f"data.val_path={root}",
+            f"pretrained_feature_extractor={STUDY_NPZ}"]
+    log(f"  wrote {EVAL_BANK} + {EVAL_QUERIES} images in {time.perf_counter() - t_phase:.2f} s")
+
+    def expected(*runs) -> dict:
+        """The launches of ``(per-layer launches, layer runs)`` pairs."""
+        want = {name: 0 for name in instances}
+        for per_run, n_runs in runs:
+            for name, n in per_run.items():
+                want[name] += n * n_runs
+        return want
+
+    # (a) the kNN study YAML through main_knn's command line
+    knn_over = [*data, "data.sample_ratio=1.0"]
+    cfg_k = parse_knn_cfg(apply_overrides(load_yaml(str(KNN_YAML)), list(knn_over)))
+    bank_loader, query_loader = main_knn.knn_loaders(cfg_k)
+    n_batches = len(bank_loader) + len(query_loader)
+    t = time.perf_counter()
+    reset_launches()
+    with contextlib.chdir(tmp):
+        out = main_knn.main(["--config-path", str(KNN_YAML.parent), "--config-name",
+                             KNN_YAML.name, *knn_over])
+    torch.cuda.synchronize()
+    knn_s = time.perf_counter() - t
+    launches = read_launches()
+    model = out["model"]
+    depth = len(model.blocks)
+    rows = out["rows"]
+    grid = cfg_k.knn_eval_offline
+    want_rows = [[f, d, k, T] for f in grid.feature_type for k in grid.k
+                 for d in grid.distance_function
+                 for T in (grid.temperature if d == "cosine" else [None])]
+    with open(os.path.join(tmp, out["csv"]), newline="") as f:
+        header = f.readline().strip().split(",")
+    ph.check(header == main_knn.CSV_HEADER and [r[:4] for r in rows] == want_rows
+             and all(0.0 <= r[4] <= 100.0 and 0.0 <= r[5] <= 100.0 for r in rows),
+             f"(a) main_knn on {KNN_YAML.name} from {STUDY_NPZ.name}: "
+             + "; ".join(f"k={r[2]} T={r[3]}: acc@1 {r[4]:.2f} acc@5 {r[5]:.2f}" for r in rows)
+             + f" ({EVAL_BANK} bank, {EVAL_QUERIES} queries, {knn_s:.2f} s with set-up)")
+    want = expected((FORWARD_LAUNCHES, depth * n_batches))
+    ph.check(launches == want,
+             f"kNN launches: only the D 192 forward instances, {depth} layers x {n_batches} "
+             f"batches: {dict((k, v) for k, v in launches.items() if v)}")
+    widths = []
+
+    def plain_fn(m, x, c):
+        widths.append(x.shape[1])
+        return plain_backbone(m, x, c)
+
+    for what, loader, feats in (("bank", bank_loader, out["features"]["backbone"][0]),
+                                ("queries", query_loader, out["features"]["backbone"][1])):
+        plain, _ = extract_features(loader, plain_fn, model)
+        cos = cosine_rows(torch.from_numpy(feats), torch.from_numpy(plain))
+        err = float(np.abs(feats - plain).max())
+        ph.check(feats.shape == plain.shape == (len(loader.dataset), D)
+                 and cos.min().item() >= SERVED_COS,
+                 f"kNN {what} features {feats.shape}, kernels against the plain versions: min "
+                 f"cosine 1 - {1 - cos.min().item():.2e} (>= 1 - {1 - SERVED_COS:.0e}), "
+                 f"max abs {err:.3e}")
+    ph.check(set(widths) == {10}, f"bucket_round 10: every batch 10 channels wide: {sorted(set(widths))}")
+    feature_fn = make_feature_fn(model, "multi_channels")
+    t = time.perf_counter()
+    extract_features(bank_loader, feature_fn, model)
+    extract_features(query_loader, feature_fn, model)
+    wall_rate = (EVAL_BANK + EVAL_QUERIES) / (time.perf_counter() - t)
+    # the card alone: the bank's batches as the loader pads them (bucket_round
+    # 10), and a batch whose images all hold 10 channels
+    dev = next(model.parameters()).device
+    bank_ms, valid = 0.0, []
+    with torch.inference_mode():
+        for b in bank_loader:
+            xb = torch.from_numpy(b["images"]).to(dev)
+            cb = torch.from_numpy(b["channel_counts"]).to(dev)
+            bank_ms += time_ms(lambda: model(xb, cb), iters=3, warmup=1)
+            valid += b["channel_counts"].tolist()
+        bsz = cfg_k.optimizer.batch_size
+        x = torch.rand((bsz, 10, model.img_size, model.img_size),
+                       generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+        c = torch.full((bsz,), 10, dtype=torch.int32, device=dev)
+        full_ms = time_ms(lambda: model(x, c), iters=3, warmup=1)
+    log(f"  kNN embeddings/s, f32, batch {bsz}, every batch padded to 10 channels (S_pad "
+        f"2048): {wall_rate:.1f} with the host loader (decode, resize, upload: the bank and "
+        f"the queries); on the card alone {1e3 * len(valid) / bank_ms:.1f} over the bank "
+        f"({len(valid)} images of {np.mean(valid):.2f} channels on average, {bank_ms:.2f} ms), "
+        f"{1e3 * bsz / full_ms:.1f} at 10 channels each ({full_ms:.2f} ms a batch) ({smi})")
+    del out, model, x, c, xb, cb
+    torch.cuda.empty_cache()
+
+    # (b) the bbbc048 linear probe through main_linear's command line
+    def probe(yaml, parse, over):
+        args = main_linear.parse_args(["--config-path", str(yaml.parent), "--config-name",
+                                       yaml.name, *over])
+        cfg = parse(main_linear.load_cfg(args))
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.chdir(tmp):
+            run = main_linear.run_probe(cfg, task="regression" if parse is parse_regression_cfg
+                                        else "classification")
+        torch.cuda.synchronize()
+        return cfg, run, read_launches(), time.perf_counter() - t0
+
+    lin = [*data, "optimizer.batch_size=32"]
+    cfg_z, run, launches, lin_s = probe(LINEAR_YAML, parse_linear_cfg,
+                                        [*lin, f"max_steps={PROBE_FROZEN_STEPS}"])
+    ref_sd = state_dict_from_jax_params(load_jax_npz(str(STUDY_NPZ)))
+    moved = [k for k, v in run.state.backbone.state_dict().items()
+             if not torch.equal(v.cpu(), ref_sd[k])]
+    suite = ("acc1", "acc5", "precision", "recall", "f1")
+    ph.check(run.steps == PROBE_FROZEN_STEPS and all(math.isfinite(v) for v in run.losses)
+             and not moved and all(k in run.results and math.isfinite(run.results[k])
+                                   for k in suite),
+             f"(b) main_linear on {LINEAR_YAML.parent.name}/{LINEAR_YAML.name}, frozen, "
+             f"{run.steps} steps of {cfg_z.optimizer.batch_size}: losses {run.losses}, the "
+             f"backbone bit for bit the .npz's (tensors moved: {moved[:3]}); validation "
+             f"{ {k: round(v, 4) for k, v in run.results.items()} } ({lin_s:.2f} s with set-up)")
+    want = expected((FORWARD_LAUNCHES, depth * (run.steps + run.val_batches)))
+    ph.check(launches == want, f"frozen probe launches: the forward instances, {depth} layers "
+             f"x ({run.steps} steps + {run.val_batches} validation batches): "
+             f"{dict((k, v) for k, v in launches.items() if v)}")
+    del run
+    ft = [*lin, "finetune=true", "layer_decay=0.75"]
+    cfg_f, run, launches, ft_s = probe(LINEAR_YAML, parse_linear_cfg,
+                                       [*ft, f"max_steps={PROBE_FINETUNE_STEPS}"])
+    ph.check(run.steps == PROBE_FINETUNE_STEPS and all(math.isfinite(v) for v in run.losses),
+             f"finetune with layer_decay 0.75, {run.steps} steps: losses {run.losses}, "
+             f"validation { {k: round(v, 4) for k, v in run.results.items()} } "
+             f"({ft_s:.2f} s with set-up)")
+    want = expected((FINETUNE_LAUNCHES, depth * run.steps),
+                    (FORWARD_LAUNCHES, depth * run.val_batches))
+    ph.check(launches == want, f"finetune launches: K2 and K4 {depth} a step, with the "
+             f"forward's, and {run.val_batches} validation batches' forward: "
+             f"{dict((k, v) for k, v in launches.items() if v)}")
+    del run
+
+    # step 1 again from one state, kernels against the plain chains
+    train_loader, _ = main_linear.probe_loaders(cfg_f)
+    batch = to_device({k: next(iter(train_loader))[k]
+                       for k in ("images", "channel_counts", "labels")}, resolve_device())
+    states = []
+    for plain in (False, True):
+        model = load_backbone_for_eval(cfg_f)
+        if plain:
+            model.forward = types.MethodType(plain_chain_backbone, model)
+        states.append(main_linear.build_probe(cfg_f, model, len(train_loader))[:2])
+    (st_k, step_k), (st_p, step_p) = states
+    reset_launches()
+    st_k, m_k = step_k(st_k, batch)
+    torch.cuda.synchronize()
+    after_k = read_launches()
+    st_p, m_p = step_p(st_p, batch)
+    torch.cuda.synchronize()
+    ph.check(after_k == expected((FINETUNE_LAUNCHES, depth)) and read_launches() == after_k,
+             f"finetune step 1: K2 and K4 {depth} times, the plain step none")
+    loss_rel = abs(float(m_p["loss"]) / float(m_k["loss"]) - 1)
+    ph.check(loss_rel <= TRAIN_LOSS_REL,
+             f"finetune step 1, kernels against the plain chains: loss {float(m_k['loss']):.6f}, "
+             f"rel {loss_rel:.2e} (<= {TRAIN_LOSS_REL:g})")
+
+    def first_moments(st):
+        """Each trainable tensor's Adam first moment, (1 - b1) g after one
+        step: the step's direction before Adam's normalisation, as 4b reads
+        LARS's momentum."""
+        names = [n for n, _ in st.trainable()]
+        out_ = {}
+        for group, gs in st.opt_state.items():
+            gs = gs[0] if not hasattr(gs, "mu") else gs  # the layer-decay chain
+            out_.update(zip([n for n in names if n.split(".", 1)[0] == group], gs.mu))
+        return [out_[n] for n in names]
+
+    check_updates(ph, "finetune step 1", [n for n, _ in st_k.trainable()], first_moments(st_k),
+                  first_moments(st_p), types.SimpleNamespace(freeze_last_layer=0),
+                  TRAIN_UPDATE_COS, of="Adam's first moments")
+
+    def step_ms(step, st, n=3):
+        step(st, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(st, batch)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    ft_ms = step_ms(step_k, st_k)
+    st_z, step_z = main_linear.build_probe(cfg_z, st_k.backbone, len(train_loader))[:2]
+    frozen_ms = step_ms(step_z, st_z)
+    log(f"  probe steps at batch {batch['images'].shape[0]}, 10 channels wide (S_pad 2048), "
+        f"f32, host clock: frozen {frozen_ms:.2f} ms, finetune {ft_ms:.2f} ms a step ({smi})")
+    del states, st_k, st_p, st_z, step_k, step_p, step_z, batch
+    torch.cuda.empty_cache()
+
+    # (c) the transloc regression probe on synthetic data
+    cfg_r, run, launches, reg_s = probe(
+        REGRESSION_YAML, parse_regression_cfg,
+        [f"pretrained_feature_extractor={STUDY_NPZ}", "data.dataset=synthetic",
+         f"max_steps={PROBE_FROZEN_STEPS}"])
+    ph.check(run.steps == PROBE_FROZEN_STEPS and all(math.isfinite(v) for v in run.losses)
+             and set(run.results) == {"mse", "mae", "r2", "pearson"}
+             and all(math.isfinite(v) for v in run.results.values())
+             and launches == expected((FORWARD_LAUNCHES, depth * (run.steps + run.val_batches))),
+             f"(c) main_regression on {REGRESSION_YAML.parent.name}/{REGRESSION_YAML.name}, "
+             f"synthetic, {run.steps} steps of {cfg_r.optimizer.batch_size}: losses "
+             f"{[round(v, 4) for v in run.losses]}, "
+             f"{ {k: round(v, 4) for k, v in run.results.items()} }, forward launches "
+             f"{depth} x ({run.steps} + {run.val_batches}) ({reg_s:.2f} s with set-up)")
+    del run
+    torch.cuda.empty_cache()
+    log(f"  phase 4g: kNN {knn_s:.1f} s, frozen probe {lin_s:.1f} s, finetune {ft_s:.1f} s, "
+        f"regression {reg_s:.1f} s; {time.perf_counter() - t_phase:.1f} s in all")
 
 
 def main() -> int:
@@ -2383,9 +2667,9 @@ def main() -> int:
         st_x, st_y = (torch.load(step_ckpt(f"{tmp}/{d}", 1) / STATE_FILE, weights_only=True)
                       for d in ("x", "y"))
         spec_x = loop.spec_from_cfg(cfg_x, 1)
-        ph.check(st_x["opt_state"]["names"] == st_y["opt_state"]["names"],
+        ph.check(st_x["trainable"] == st_y["trainable"],
                  "the two runs train the same tensors")
-        check_updates(ph, "block_impl=xla step 1", st_x["opt_state"]["names"],
+        check_updates(ph, "block_impl=xla step 1", st_x["trainable"],
                           st_x["opt_state"]["momentum"], st_y["opt_state"]["momentum"],
                           spec_x, TRAIN_UPDATE_COS)
         del st_x, st_y
@@ -3000,6 +3284,10 @@ def main() -> int:
                       first["dirs"], pstate.opt_state.momentum, args_b[0], TRAIN_BF16_UPDATE_COS)
         del pstate, pstep, first
         torch.cuda.empty_cache()
+
+    # ---- 4g. the offline evaluation -------------------------------------------------
+    with Phase("4g evaluation", failures) as ph, tempfile.TemporaryDirectory() as tmp:
+        eval_phase(ph, tmp, smi, instances, reset_launches, read_launches)
 
     # ---- 5. times -------------------------------------------------------------
     with Phase("5 times", failures) as ph:

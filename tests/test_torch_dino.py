@@ -187,8 +187,14 @@ def test_backbone_clip_matches_jax():
 # ---- what is not ported raises -------------------------------------------------
 @pytest.mark.parametrize("name", ["sgd", "adam", "adamw"])
 def test_other_optimizers_raise(name):
-    with pytest.raises(NotImplementedError):
-        build_group_tx(name, lambda s: 0.1, 0.0)
+    """sgd, adam and adamw are ported (tests/test_torch_eval.py holds them
+    against optax); a name outside the reference's registry raises."""
+    tx = build_group_tx(name, lambda s: 0.1, 0.0)
+    p = [torch.ones(3)]
+    updates, _ = tx.update([torch.ones(3)], tx.init(p), p)
+    assert torch.all(updates[0] < 0)
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        build_group_tx(name + "_v2", lambda s: 0.1, 0.0)
 
 
 @pytest.mark.parametrize("kwargs", [dict(mesh=object()), dict(fsdp=True)])
