@@ -4,7 +4,8 @@ Counterpart of ``chadavit_tpu/config.py`` for the pretrain and evaluation
 entry points (``Config`` :67, ``select`` :104, ``load_yaml`` :122,
 ``_common_defaults`` :146, the ``_*_defaults``, ``parse_pretrain_cfg`` :273,
 ``parse_linear_cfg`` :321, ``parse_regression_cfg`` :343, ``parse_knn_cfg``
-:351, ``save_args_json`` :388), with the same defaulting rules, the lr scaling rule
+:351, ``parse_umap_cfg`` :366, ``parse_attn_cfg`` :375, ``save_args_json``
+:388), with the same defaulting rules, the lr scaling rule
 ``lr *= batch_size * num_devices * num_nodes / 256`` among them (reference
 ``args/pretrain.py:204-214``), so the same YAML files give the same config.
 
@@ -366,6 +367,28 @@ def parse_knn_cfg(cfg: Config) -> Config:
     select(cfg, "knn_eval_offline.distance_function", ["cosine", "euclidean"])
     select(cfg, "optimizer.batch_size", 64)
     _num_classes(cfg)
+    return cfg
+
+
+def parse_umap_cfg(cfg: Config) -> Config:
+    """UMAP defaults (reference ``args/umap.py``)."""
+    cfg = _common_defaults(cfg)
+    select(cfg, "backbone.kwargs.return_all_tokens", False)
+    select(cfg, "data.multi_labels", False)
+    select(cfg, "optimizer.batch_size", 64)
+    _num_classes(cfg)
+    return cfg
+
+
+def parse_attn_cfg(cfg: Config) -> Config:
+    """Attention-map defaults (reference ``args/attn.py:6-51``)."""
+    cfg = _common_defaults(cfg)
+    select(cfg, "backbone.kwargs.return_all_tokens", False)
+    select(cfg, "image_path", None)
+    select(cfg, "image_size", 224)  # reference args/attn.py:37
+    select(cfg, "output_dir", "attn_maps")
+    select(cfg, "threshold", None)
+    select(cfg, "patch_size", 16)
     return cfg
 
 

@@ -8,15 +8,16 @@ Counterpart of ``chadavit_tpu/data/classification.py`` (``EVAL_PROTOCOLS``
 transforms. The loaders' batch order is the JAX loaders'. The probe's train
 loader draws each sample's augmentation from a generator of its own
 (``data/pipeline.py``), where the JAX loader draws from the pipeline's one
-generator; the validation transforms draw nothing. The JAX package's
-``native_loader`` (its C++ ``NativeEvalLoader``) is not ported: asking for it
-raises ``NotImplementedError``.
+generator; the validation transforms draw nothing. ``native_loader`` takes
+the C++ :class:`~chadavit_tpu_torch.data.native.NativeEvalLoader` for the
+evaluation loaders, as JAX ``classification.py:157-180`` does.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+from chadavit_tpu_torch.data import native
 from chadavit_tpu_torch.data.datasets import DATASETS, prepare_datasets
 from chadavit_tpu_torch.data.pipeline import HostLoader
 from chadavit_tpu_torch.data.transforms import AugmentationPipeline
@@ -142,13 +143,23 @@ def prepare_data(
     (``max_channels`` pads every batch to one width; padded channels are
     masked, so features are unchanged).
 
-    ``native_loader=True`` where JAX takes its C++ ``NativeEvalLoader``
-    (``val_transform_for_train``, a dataset on disk) raises
-    ``NotImplementedError``: that loader is not ported yet."""
+    ``native_loader=True`` with ``val_transform_for_train`` (the evaluation
+    paths: a deterministic transform) takes the C++
+    :class:`~chadavit_tpu_torch.data.native.NativeEvalLoader` where the
+    native decoder builds and the dataset is not ``synthetic``: decode, the
+    protocol's resize and centre crop (bilinear, as the host path) and
+    [0, 1] normalisation in the thread pool, batches in file order padded to
+    ``max_channels``, no validation loader without ``val_path``. It prints
+    which decoder the loaders use. A file whose codec the build lacks raises
+    :class:`~chadavit_tpu_torch.data.native.MissingCodecError`."""
     if native_loader and val_transform_for_train and dataset != "synthetic":
-        raise NotImplementedError(
-            "native_loader=True: the C++ NativeEvalLoader is not ported yet; "
-            "set native_loader=false for the host loader")
+        batched = native.is_available()
+        print("eval decoder: " + native.describe() + (
+            ", whole batches in the C++ thread pool (NativeEvalLoader)" if batched
+            else ", one sample at a time (the host loader)"))
+        if batched:
+            return _native_loaders(dataset, train_path, val_path, batch_size, max_channels,
+                                   crop_size, sample_ratio, subset_seed)
 
     t_train, t_val = prepare_transforms(dataset, crop_size, auto_augment=auto_augment)
     if val_transform_for_train:
@@ -175,6 +186,24 @@ def prepare_data(
                                 num_workers=num_workers, seed=0,
                                 shuffle=False, drop_last=False, **bk)
     return train_loader, val_loader
+
+
+def _native_loaders(dataset, train_path, val_path, batch_size, max_channels, crop_size,
+                    sample_ratio, subset_seed):
+    """(train, val or None) native eval loaders over the protocol's
+    validation geometry: resize mode 0 (square), 1 (square then centre crop)
+    or 2 (shorter side then centre crop) to ``crop_size * 256 / 224``."""
+    mode = {"none": 0, "square": 0, "square_crop": 1, "shorter_crop": 2}[
+        EVAL_PROTOCOLS.get(dataset, _DEFAULT_PROTOCOL)["val"]]
+    nk = dict(batch_size=batch_size, max_channels=max_channels, size=crop_size,
+              resize_mode=mode, resize_size=int(round(crop_size * 256 / 224)) if mode else 0)
+    train_ds = prepare_datasets(dataset, transform=None, train_path=train_path, train=True,
+                                sample_ratio=sample_ratio, subset_seed=subset_seed)
+    val = None
+    if val_path is not None:
+        val = native.NativeEvalLoader(
+            prepare_datasets(dataset, transform=None, train_path=val_path, train=False), **nk)
+    return native.NativeEvalLoader(train_ds, **nk), val
 
 
 def dataset_img_channels(dataset: str, default: int = 3) -> int:

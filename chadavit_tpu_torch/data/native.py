@@ -4,9 +4,10 @@
 Counterpart of ``chadavit_tpu/data/native.py`` (``decode_plane`` :116,
 ``decode_plane_raw`` :134, ``load_dense_batch`` :155,
 ``load_dense_batch_raw`` :182, ``DecodedPlaneCache`` :223,
-``make_dense_batch_fn`` :257). The library is built with ``g++`` at first
-use, never at import, into ``chadavit_tpu_torch/_build/native-<hash>/``
-(git-ignored), keyed by a hash of the source, the flags and the codecs found.
+``make_dense_batch_fn`` :257, ``NativeEvalLoader`` :307). The library is
+built with ``g++`` at first use, never at import, into
+``chadavit_tpu_torch/_build/native-<hash>/`` (git-ignored), keyed by a hash
+of the source, the flags and the codecs found.
 
 Each codec is compiled in only where its header is found: inflate from
 libdeflate or else zlib (the grayscale 8/16-bit PNG planes that microscopy
@@ -341,3 +342,43 @@ def make_dense_batch_fn(dataset, size: int, num_threads: int = 4, out_depth: int
         return {"images": images, "channel_counts": counts, "labels": labels}
 
     return batch_fn
+
+
+class NativeEvalLoader:
+    """The evaluation loaders' batches with the whole decode, resize, centre
+    crop and [0, 1] normalisation in the C++ thread pool: the fast path of
+    the online kNN, ``main_knn`` and ``main_umap``'s feature extraction.
+
+    Over ``dataset.file_list`` rows ``(name, target, plane_paths)`` in file
+    order, each batch padded to ``max_channels`` as the JAX loader pads it;
+    batches are ``{"images": (B, max_channels, size, size) float32,
+    "channel_counts", "labels"}``, labels float where ``dataset.task`` is
+    ``"regression"``, else int. ``resize_mode``/``resize_size`` as
+    :func:`load_dense_batch`."""
+
+    NUM_THREADS = 8
+
+    def __init__(self, dataset, batch_size: int, max_channels: int, size: int,
+                 resize_mode: int = 0, resize_size: int = 0):
+        self.dataset = dataset
+        self.rows = list(dataset.file_list)
+        self.task = getattr(dataset, "task", "classification")
+        self.batch_size = batch_size
+        self.max_channels = max_channels
+        self.size = size
+        self.resize_mode = resize_mode
+        self.resize_size = resize_size
+
+    def __len__(self) -> int:
+        return -(-len(self.rows) // self.batch_size)
+
+    def __iter__(self):
+        cast = float if self.task == "regression" else int
+        for s in range(0, len(self.rows), self.batch_size):
+            rows = self.rows[s:s + self.batch_size]
+            images, counts = load_dense_batch(
+                [r[2] for r in rows], self.max_channels, self.size, self.size,
+                self.NUM_THREADS, resize_mode=self.resize_mode,
+                resize_size=self.resize_size, normalize=True)
+            yield {"images": images, "channel_counts": counts,
+                   "labels": np.asarray([cast(r[1]) for r in rows])}

@@ -4,7 +4,10 @@ Counterpart of ``chadavit_tpu/train/loop.py`` (``spec_from_cfg`` :39,
 ``build_pretrain_loader`` :91, ``run_dino_pretrain`` :196), on one device: a
 plain Python loop around the DINO step, with the host loader feeding pinned
 copies to the card a few batches ahead, checkpoints and exact-step
-auto-resume, the SIGTERM/SIGUSR1 preemption hook and offline metric logging.
+auto-resume, the SIGTERM/SIGUSR1 preemption hook, offline metric logging,
+and validation after each ``knn_eval.frequency``-th epoch's checkpoint
+(:class:`Validation`, JAX ``loop.py:296-420``): the online kNN, the SSL
+validation loss and the training-time UMAP.
 
 The loader is the host multicrop loader, or with ``device_augmentations:
 true`` the raw loader of JAX ``loop.py:95-104``/``:128-170``: the host decodes
@@ -12,9 +15,7 @@ true`` the raw loader of JAX ``loop.py:95-104``/``:128-170``: the host decodes
 crop size, the raw uint8/uint16 planes go to the card as they are, and the
 step draws its views there from a generator of the step's own index.
 
-Not ported yet, each raising ``NotImplementedError`` with its key: online
-kNN (``knn_eval``; the offline kNN of a checkpoint is the port's
-``main_knn``), the training-time UMAP (``auto_umap``), tensor
+Not ported yet, each raising ``NotImplementedError`` with its key: tensor
 parallelism (``model_parallel``), ``fsdp``, more than one device
 (``devices``) and more than one host (``num_nodes``).
 """
@@ -41,9 +42,14 @@ from chadavit_tpu_torch.data import (
     to_device,
 )
 from chadavit_tpu_torch.data import native
-from chadavit_tpu_torch.data.device_augment import aug_generator
+from chadavit_tpu_torch.data.classification import prepare_data
+from chadavit_tpu_torch.data.device_augment import aug_generator, make_multicrop_fn
 from chadavit_tpu_torch.data.transforms import RawResize
+from chadavit_tpu_torch.eval.features import extract_features
+from chadavit_tpu_torch.eval.knn import knn_classify
+from chadavit_tpu_torch.train.dino_step import DinoStepConfig, make_dino_eval_loss
 from chadavit_tpu_torch.train.pretrain import DinoPretrainSpec, build_dino
+from chadavit_tpu_torch.utils.auto_umap import AutoUMAP
 from chadavit_tpu_torch.utils.checkpoint import AutoResumer, Checkpointer, restore_state
 from chadavit_tpu_torch.utils.logging import MetricLogger
 from chadavit_tpu_torch.utils.misc import (
@@ -117,8 +123,6 @@ def unported_keys(cfg: Config) -> None:
     devices = cfg.get("devices", 1)
     n_devices = len(devices) if isinstance(devices, (list, tuple)) else int(devices or 1)
     asks = [
-        ("knn_eval", bool((cfg.get("knn_eval") or {}).get("enabled", False))),
-        ("auto_umap", bool((cfg.get("auto_umap") or {}).get("enabled", False))),
         ("model_parallel", int(cfg.get("model_parallel", 1) or 1) > 1),
         ("fsdp", bool(cfg.get("fsdp", False))),
         ("devices", n_devices > 1),
@@ -126,11 +130,9 @@ def unported_keys(cfg: Config) -> None:
     ]
     for key, asked in asks:
         if asked:
-            hint = ("; the offline kNN of a checkpoint is ported: "
-                    "python -m chadavit_tpu_torch.main_knn" if key == "knn_eval" else "")
             raise NotImplementedError(
                 f"{key}={cfg.get(key)!r}: not ported yet; the port's pretrain loop runs "
-                f"on one device of one host{hint}")
+                "on one device of one host")
 
 
 def build_pretrain_loader(cfg: Config, seed: int = 0) -> HostLoader:
@@ -215,6 +217,127 @@ def build_pretrain_loader(cfg: Config, seed: int = 0) -> HostLoader:
     )
 
 
+# JAX loop.py:359-364: the two views of the SSL validation loss where the
+# config has no augmentation list
+DEFAULT_VAL_AUGS = [{"crop_size": 224, "num_crops": 2,
+                     "rrc": {"enabled": True, "crop_min_scale": 0.3, "crop_max_scale": 1.0},
+                     "horizontal_flip": {"prob": 0.5}}]
+
+
+def validation_loaders(cfg: Config, seed: int):
+    """(kNN bank loader, validation loader) of JAX ``loop.py:305-343``: the
+    validation transform for both splits, the bank's train split subsampled
+    by ``knn_eval.train_sample_ratio`` (else ``data.sample_ratio``), and the
+    C++ eval loader unless ``data.native_loader`` is false. ``(None, None)``
+    where there is no validation split."""
+    if not (cfg.data.get("val_path") or cfg.data.dataset == "synthetic"):
+        return None, None
+    knn = cfg.get("knn_eval") or {}
+    return prepare_data(
+        cfg.data.dataset,
+        train_path=cfg.data.get("train_path"),
+        val_path=cfg.data.get("val_path"),
+        batch_size=cfg.optimizer.batch_size,
+        max_channels=(cfg.backbone.get("kwargs", {}).get("max_number_channels")
+                      or cfg.data.get("max_img_channels", 10)),
+        num_workers=cfg.data.get("num_workers", 4),
+        crop_size=cfg["augmentations"][0]["crop_size"] if cfg.get("augmentations") else 224,
+        val_transform_for_train=True,
+        native_loader=bool(cfg.data.get("native_loader", True)),
+        sample_ratio=float(knn.get("train_sample_ratio",
+                                   cfg.data.get("sample_ratio", 1.0)) or 1.0),
+        subset_seed=seed,
+    )
+
+
+class Validation:
+    """Validation during pretraining (JAX ``loop.py:296-420``), built where
+    ``knn_eval.enabled`` or ``auto_umap.enabled`` asks for it and the data
+    has a validation split. Calling it with ``(state, epoch)`` after every
+    ``knn_eval.frequency``-th epoch returns:
+
+    - ``val_knn_top1`` / ``val_knn_top5``: the weighted kNN (``knn_eval.k``,
+      ``knn_eval.distance_func``) of the validation split's features over
+      the bank's, both the student backbone's CLS in ``spec.dtype``, targets
+      of -1 left out;
+    - with ``ssl_val_loss``, ``dino_loss_val``: the mean over the validation
+      batches of the DINO loss (:func:`make_dino_eval_loss`) on two views of
+      each image drawn on the device (:func:`make_multicrop_fn`, the train
+      augmentations or :data:`DEFAULT_VAL_AUGS`) from one
+      ``torch.Generator`` seeded with ``10_000 + epoch``, in batch order;
+    - with ``auto_umap``, ``umap_ep={epoch}.png`` of the validation features
+      in ``out_dir`` (:class:`AutoUMAP`); without ``knn_eval`` nothing else.
+    """
+
+    def __init__(self, cfg: Config, spec: DinoPretrainSpec, steps_per_epoch: int, device,
+                 seed: int, out_dir: str):
+        knn = cfg.get("knn_eval") or {}
+        self.knn = bool(knn.get("enabled", False))
+        self.k = int(knn.get("k", 20))
+        self.distance = knn.get("distance_func", "cosine")
+        self.every = max(int(knn.get("frequency", 1) or 1), 1)
+        self.seed, self.device, self.dtype = seed, torch.device(device), spec.dtype
+        self.bank_loader, self.val_loader = validation_loaders(cfg, seed)
+        self.step_cfg = DinoStepConfig(
+            num_large_crops=2, student_temp=spec.student_temperature,
+            warmup_teacher_temp=spec.warmup_teacher_temperature,
+            teacher_temp=spec.teacher_temperature,
+            warmup_teacher_temp_epochs=spec.warmup_teacher_temperature_epochs,
+            steps_per_epoch=steps_per_epoch, total_steps=spec.total_steps)
+        self.eval_loss = self.views = None
+        if cfg.get("ssl_val_loss") and self.val_loader is not None:
+            self.eval_loss = make_dino_eval_loss(lambda m, x, c: m(x, c), lambda h, f: h(f),
+                                                 self.step_cfg)
+            self.views = make_multicrop_fn(
+                [dict(a) for a in cfg.get("augmentations", [])] or DEFAULT_VAL_AUGS,
+                dtype=spec.dtype, device=str(self.device))
+        umap = cfg.get("auto_umap") or {}
+        self.auto_umap = (AutoUMAP(out_dir, int(umap.get("frequency", 1)), self.device)
+                          if umap.get("enabled", False) and self.val_loader is not None
+                          else None)
+
+    def features(self, state, loader):
+        """(features, targets) of the student backbone over ``loader``."""
+        return extract_features(loader, lambda m, x, c: m(x, c), state.student["backbone"])
+
+    def ssl_loss(self, state, epoch: int, eval_loss=None) -> float:
+        """``dino_loss_val`` of ``state`` at ``epoch``; ``eval_loss`` (of
+        :func:`make_dino_eval_loss` on ``self.step_cfg``) in place of the
+        built one gives a reference on the same views."""
+        gen = torch.Generator(device=self.device).manual_seed(10_000 + epoch)
+        losses = []
+        for vb in self.val_loader:
+            images = torch.from_numpy(np.asarray(vb["images"])).to(self.device, self.dtype)
+            counts = torch.from_numpy(np.asarray(vb["channel_counts"])).to(self.device)
+            views = self.views(images, counts, generator=gen)
+            batch = {"crops": views["crops"][:2].to(self.dtype), "channel_counts": counts}
+            losses.append(float((eval_loss or self.eval_loss)(state, batch)))
+        return float(np.mean(losses))
+
+    def __call__(self, state, epoch: int) -> Dict[str, float]:
+        if self.val_loader is None or (epoch + 1) % self.every != 0:
+            return {}
+        te_f, te_t = self.features(state, self.val_loader)
+        mask_te = te_t != -1
+        out = {}
+        if self.auto_umap is not None and mask_te.any():
+            path = self.auto_umap.maybe_plot(epoch, te_f[mask_te], te_t[mask_te], seed=self.seed)
+            if path:
+                print(f"auto-umap: {path}")
+        if not self.knn:
+            return out
+        tr_f, tr_t = self.features(state, self.bank_loader)
+        mask_tr = tr_t != -1
+        if not mask_tr.any() or not mask_te.any():
+            return out
+        top1, top5 = knn_classify(tr_f[mask_tr], tr_t[mask_tr], te_f[mask_te], te_t[mask_te],
+                                  k=self.k, distance_fx=self.distance, device=self.device)
+        out.update({"val_knn_top1": top1, "val_knn_top5": top5})
+        if self.eval_loss is not None:
+            out["dino_loss_val"] = self.ssl_loss(state, epoch)
+        return out
+
+
 def _timed(iterable):
     """Yield ``(seconds the consumer waited for the item, item)``."""
     it = iter(iterable)
@@ -292,10 +415,14 @@ def run_dino_pretrain(cfg: Config, max_steps: Optional[int] = None,
                 previous[_sig] = signal.signal(_sig, _on_preempt)
             except (ValueError, OSError):  # pragma: no cover
                 pass
+    validation = None
+    if (cfg.get("knn_eval") or {}).get("enabled") or (cfg.get("auto_umap") or {}).get("enabled"):
+        validation = Validation(cfg, spec, steps_per_epoch, dev, seed,
+                                str(ckptr.path) if ckptr else "auto_umap")
     try:
         return _train(cfg, loader, spec, state, train_step, ckptr, dev, start_epoch,
                       start_step, steps_per_epoch, max_steps, preempted, seed,
-                      device_augs is not None)
+                      device_augs is not None, validation)
     finally:
         for _sig, handler in previous.items():
             # None: the handler was not installed from Python
@@ -303,7 +430,7 @@ def run_dino_pretrain(cfg: Config, max_steps: Optional[int] = None,
 
 
 def _train(cfg, loader, spec, state, train_step, ckptr, dev, start_epoch, start_step,
-           steps_per_epoch, max_steps, preempted, seed, device_augs) -> Dict:
+           steps_per_epoch, max_steps, preempted, seed, device_augs, validation) -> Dict:
     step_ckpt_every = int(cfg.checkpoint.get("step_frequency", 0) or 0) \
         if cfg.checkpoint.enabled else 0
     log_every = cfg.get("log_every", 50)
@@ -360,4 +487,8 @@ def _train(cfg, loader, spec, state, train_step, ckptr, dev, start_epoch, start_
         if ckptr:
             ckptr.save(state, epoch)
         metrics = {k: float(v) for k, v in metrics.items()}
+        val = validation(state, epoch) if validation is not None else {}
+        if val.get("val_knn_top1") is not None:
+            logger.log(val, step=gstep)
+        metrics.update(val)
     return dict(metrics)

@@ -240,6 +240,29 @@ Phases, each printed with its elapsed seconds at its start and end:
    scripts/regression/transloc/dino_chada_vit_moyen.yaml with
    data.dataset=synthetic, 4 steps: finite losses and suite. Each part's
    wall time.
+4h. validation during pretraining, main_umap and main_attn, over 4g's
+   manifest: (a) python -m chadavit_tpu_torch.main_pretrain on
+   scripts/pretrain/dino_idr10k.yaml with VAL_ENTRY (knn_eval on, every
+   epoch, the whole train split as the bank, ssl_val_loss, one epoch): 5
+   bf16 steps of 32, then one validation through the C++ eval loader
+   (NativeEvalLoader, every batch 10 channels wide); the run logs
+   val_knn_top1, val_knn_top5 and dino_loss_val, the decoder line names the
+   native decoder, the launches are the train steps' chain and the forward of
+   every validation batch; from the final checkpoint, the port's offline
+   knn_classify over the same loaders gives the logged accuracies, the bank's
+   and the queries' features hold to phase 4's bf16 served bound against the
+   plain versions, dino_loss_val repeats bit for bit on the same views and
+   holds to 4b's bf16 loss bound against the plain chains' eval loss; the C++
+   eval loader's embeddings/s beside the host eval loader's over 4g's bank on
+   the study checkpoint, and each of its batches within NATIVE_TOL of the host
+   path's in file order. (b) main_umap on the study checkpoint over the bank
+   (the C++ eval loader): the t-SNE on the card, its seconds and its
+   trustworthiness at k 5, the PNG where matplotlib imports, the forward's
+   launches. (c) main_attn on one of the manifest's 224 px planes with a
+   threshold: every map file, the last layer's attention weights against the
+   plain route (every layer through the plain versions) per row at ATTN_COS,
+   the launches of the first depth - 1 layers. Which of matplotlib, sklearn
+   and umap-learn import.
 5. times, entry point by entry point (time_entry), at phase 2's shapes for
    D 192, 2b's for the head-64 attention and 2c's for the D 768 chain
    (chain_runs builds the chain's sites at either width): CUDA events of the
@@ -391,7 +414,8 @@ AUG_B, AUG_TOL = 32, 1e-4
 IDR10K = Path(__file__).resolve().parent / "scripts" / "pretrain" / "dino_idr10k.yaml"
 # dino_idr10k.yaml on a manifest of IDR_IMAGES images with 7 classes written
 # by the port's generator (5 batches of 32): data.sample_ratio=1.0 (its 0.1
-# would leave less than a batch), the online kNN off (not ported yet)
+# would leave less than a batch), the online kNN off (phase 4h runs it, over
+# a manifest with a validation split)
 IDR_IMAGES = 160
 IDR_ENTRY = ["data.sample_ratio=1.0", "knn_eval.enabled=false", "log_every=1"]
 BENCH_STEPS = 8
@@ -477,6 +501,21 @@ LINEAR_YAML = ROOT / "scripts" / "linear" / "bbbc048" / "dino_chada_vit_moyen.ya
 REGRESSION_YAML = ROOT / "scripts" / "regression" / "transloc" / "dino_chada_vit_moyen.yaml"
 EVAL_BANK, EVAL_QUERIES = 160, 64
 PROBE_FROZEN_STEPS, PROBE_FINETUNE_STEPS = 4, 2
+# 4h, validation during pretraining: dino_idr10k.yaml over 4g's manifest (its
+# EVAL_BANK train images make 5 bf16 steps of 32, its EVAL_QUERIES test images
+# the validation split), one epoch, then the online kNN and the SSL validation
+# loss through the C++ eval loader; the features held to phase 4's bf16
+# served bound, the loss to 4b's bf16 loss bound. Then main_umap over 4g's bank
+# and main_attn on one of its 224 px planes, both on the study checkpoint; the
+# attention weights against the plain route, per row, in float32. The C++
+# eval loader's batches against the host eval loader's within NATIVE_TOL (the
+# bound of tests/test_native_loader.py)
+VAL_ENTRY = ["data.sample_ratio=1.0", "log_every=1", "knn_eval.enabled=true",
+             "knn_eval.frequency=1", "knn_eval.train_sample_ratio=1.0", "ssl_val_loss=true",
+             "max_epochs=1"]
+VAL_METRICS = ("val_knn_top1", "val_knn_top5", "dino_loss_val")
+NATIVE_TOL = 1e-2
+ATTN_THRESHOLD, ATTN_COS = 0.6, 1 - 1e-5
 # the layer chain's kernels in a profiler trace, by a piece of their names
 CHAIN_KERNEL_KEYS = ("ln_linear", "linear_relu", "linear_residual_ln", "layernorm_bwd",
                      "linear_dgrad", "linear_wgrad", "reduce_ln_splits", "reduce_splits",
@@ -1506,6 +1545,34 @@ FINETUNE_LAUNCHES = {"ln_linear_fwd": 2, "prefix_attention_fwd": 1, "linear_relu
                      "layernorm_bwd": 3, "linear_dgrad": 4, "linear_wgrad": 4}
 
 
+def expected_launches(instances, *runs) -> dict:
+    """Each instance's launches in ``(per-layer launches, layer runs)``
+    pairs, 0 for the others."""
+    want = {name: 0 for name in instances}
+    for per_run, n_runs in runs:
+        for name, n in per_run.items():
+            want[name] += n * n_runs
+    return want
+
+
+class Tee:
+    """A stdout that also keeps what was written (``text``)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    @property
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
 def eval_phase(ph, tmp: str, smi: str, instances, reset_launches, read_launches) -> None:
     """Phase 4g: the port's offline evaluation on the card (the module
     docstring's 4g)."""
@@ -1536,12 +1603,7 @@ def eval_phase(ph, tmp: str, smi: str, instances, reset_launches, read_launches)
     log(f"  wrote {EVAL_BANK} + {EVAL_QUERIES} images in {time.perf_counter() - t_phase:.2f} s")
 
     def expected(*runs) -> dict:
-        """The launches of ``(per-layer launches, layer runs)`` pairs."""
-        want = {name: 0 for name in instances}
-        for per_run, n_runs in runs:
-            for name, n in per_run.items():
-                want[name] += n * n_runs
-        return want
+        return expected_launches(instances, *runs)
 
     # (a) the kNN study YAML through main_knn's command line
     knn_over = [*data, "data.sample_ratio=1.0"]
@@ -1739,6 +1801,235 @@ def eval_phase(ph, tmp: str, smi: str, instances, reset_launches, read_launches)
     torch.cuda.empty_cache()
     log(f"  phase 4g: kNN {knn_s:.1f} s, frozen probe {lin_s:.1f} s, finetune {ft_s:.1f} s, "
         f"regression {reg_s:.1f} s; {time.perf_counter() - t_phase:.1f} s in all")
+
+
+def validation_phase(ph, tmp: str, smi: str, instances, reset_launches, read_launches) -> None:
+    """Phase 4h: validation during pretraining, main_umap and main_attn on
+    the card (the module docstring's 4h), over phase 4g's manifest."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from chadavit_tpu_torch import main_attn, main_knn, main_pretrain, main_umap
+    from chadavit_tpu_torch.cli import apply_overrides, load_backbone_for_eval
+    from chadavit_tpu_torch.config import load_yaml, parse_knn_cfg, parse_pretrain_cfg
+    from chadavit_tpu_torch.data.classification import prepare_transforms
+    from chadavit_tpu_torch.data.datasets import prepare_datasets
+    from chadavit_tpu_torch.data.pipeline import HostLoader
+    from chadavit_tpu_torch.eval.features import extract_features, make_feature_fn
+    from chadavit_tpu_torch.eval.knn import knn_classify
+    from chadavit_tpu_torch.ops.fused_block import fused_encoder_block_reference
+    from chadavit_tpu_torch.train import loop
+    from chadavit_tpu_torch.train.dino_step import make_dino_eval_loss
+    from chadavit_tpu_torch.train.pretrain import build_dino
+    from chadavit_tpu_torch.utils import auto_umap
+    from chadavit_tpu_torch.utils.checkpoint import restore_state
+    from chadavit_tpu_torch.utils.misc import resolve_device, resolve_seed
+
+    t_phase = time.perf_counter()
+    root = f"{tmp}/manifest"
+    if not os.path.isfile(f"{root}/test.csv"):
+        ph.check(False, f"phase 4g's manifest is at {root}")
+        return
+    dev = resolve_device()
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("matplotlib", "sklearn", "umap")}
+    log(f"  on this machine: {', '.join(f'{m} {have[m]}' for m in have)}")
+
+    def bf16_names(per_run):
+        return {f"{k}_bf16": v for k, v in per_run.items()}
+
+    # (a) dino_idr10k.yaml, one epoch, then its validation
+    over = [f"data.train_path={root}", f"data.val_path={root}", *VAL_ENTRY,
+            f"checkpoint.dir={tmp}/v"]
+    cfg = parse_pretrain_cfg(apply_overrides(load_yaml(str(IDR10K)), list(over)))
+    seed = resolve_seed(cfg)
+    tee = Tee(sys.stdout)
+    reset_launches()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        metrics = main_pretrain.main(["--config-path", str(IDR10K.parent), "--config-name",
+                                      IDR10K.name, *over])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    launches = read_launches()
+    with open(run_dir(f"{tmp}/v") / "training_logs.txt") as f:
+        records = [json.loads(line) for line in f]
+    steps = [r for r in records if "dino_loss" in r]
+    (logged,) = [r for r in records if "val_knn_top1" in r] or [{}]
+    ph.check(len(steps) == EVAL_BANK // cfg.optimizer.batch_size
+             and all(math.isfinite(r["dino_loss"]) for r in steps)
+             and all(k in logged and math.isfinite(logged[k]) and metrics[k] == logged[k]
+                     for k in VAL_METRICS) and logged.get("step") == len(steps),
+             f"(a) main_pretrain on {IDR10K.name} with {' '.join(VAL_ENTRY[2:])}: "
+             f"{len(steps)} bf16 steps (dino_loss {[round(r['dino_loss'], 4) for r in steps]}), "
+             f"then at step {logged.get('step')}: "
+             + ", ".join(f"{k} {logged.get(k)}" for k in VAL_METRICS)
+             + f" ({run_s:.2f} s with set-up)")
+    ph.check("eval decoder: native" in tee.text and "NativeEvalLoader" in tee.text,
+             "the decoder lines: " + "; ".join(
+                 ln for ln in tee.text.splitlines() if "decoder" in ln))
+
+    steps_per_epoch = len(loop.build_pretrain_loader(cfg, seed=seed))
+    spec = loop.spec_from_cfg(cfg, steps_per_epoch)
+    state, _, _, _ = build_dino(spec, device=str(dev), seed=seed,
+                                device_augmentations=[dict(a) for a in cfg.augmentations])
+    restore_state(str(final_ckpt(f"{tmp}/v")), state)
+    val = loop.Validation(cfg, spec, steps_per_epoch, dev, seed, f"{tmp}/v_umap")
+    loaders = (("bank", val.bank_loader), ("queries", val.val_loader))
+    ph.check(all(type(ld).__name__ == "NativeEvalLoader" for _, ld in loaders),
+             "the validation reads through the C++ eval loader: "
+             + ", ".join(f"{w} {type(ld).__name__} of {len(ld)} batches" for w, ld in loaders))
+    depth = len(state.student["backbone"].blocks)
+    n_fwd = len(val.bank_loader) + 3 * len(val.val_loader)  # bank, queries, two ssl sides
+    want = expected_launches(instances, (bf16_names(chain_launches(depth * len(steps))), 1),
+                             (bf16_names(FORWARD_LAUNCHES), depth * n_fwd))
+    ph.check(launches == want,
+             f"(a) launches: {len(steps)} train steps' chain and {n_fwd} forward batches x "
+             f"{depth} layers (bank, queries, the SSL loss's student and teacher): "
+             f"{dict((k, v) for k, v in launches.items() if v)}")
+
+    feats = {w: val.features(state, ld) for w, ld in loaders}
+    top = knn_classify(feats["bank"][0], feats["bank"][1], feats["queries"][0],
+                       feats["queries"][1], k=val.k, distance_fx=val.distance, device=dev)
+    ph.check(top == (logged.get("val_knn_top1"), logged.get("val_knn_top5")),
+             f"the offline knn_classify on the final checkpoint's student over the same "
+             f"loaders: top1 {top[0]}, top5 {top[1]}, equal to the logged")
+    backbone = state.student["backbone"]
+    for w, ld in loaders:
+        plain, _ = extract_features(ld, plain_backbone, backbone)
+        got = feats[w][0]
+        cos = cosine_rows(torch.from_numpy(got), torch.from_numpy(plain))
+        ph.check(got.shape == plain.shape == (len(ld.rows), D)
+                 and cos.min().item() >= SERVED_BF16_COS,
+                 f"bf16 {w} features {got.shape} against the plain versions: min cosine 1 - "
+                 f"{1 - cos.min().item():.2e} (>= 1 - {1 - SERVED_BF16_COS:.0e}), max abs "
+                 f"{float(np.abs(got - plain).max()):.3e}")
+    again = val.ssl_loss(state, 0)
+    plain_loss = val.ssl_loss(state, 0, eval_loss=make_dino_eval_loss(
+        plain_backbone, lambda h, f: h(f), val.step_cfg))
+    rel = abs(plain_loss / logged.get("dino_loss_val", float("nan")) - 1)
+    ph.check(again == logged.get("dino_loss_val") and rel <= TRAIN_BF16_LOSS_REL,
+             f"dino_loss_val {logged.get('dino_loss_val')}: recomputed on the same views "
+             f"{again}; the plain chains' {plain_loss}, rel {rel:.2e} (<= "
+             f"{TRAIN_BF16_LOSS_REL:g})")
+    del state, val, feats, backbone
+    torch.cuda.empty_cache()
+
+    # the C++ eval loader against the host eval loader, on the study checkpoint
+    cfg_k = parse_knn_cfg(apply_overrides(load_yaml(str(KNN_YAML)), [
+        f"data.train_path={root}", f"data.val_path={root}",
+        f"pretrained_feature_extractor={STUDY_NPZ}", "data.sample_ratio=1.0"]))
+    study = load_backbone_for_eval(cfg_k)
+    host_bank, _ = main_knn.knn_loaders(cfg_k)
+    cfg_k.native_loader = True
+    native_bank, _ = main_knn.knn_loaders(cfg_k)
+    fn = make_feature_fn(study, "multi_channels")
+    rates = {}
+    for what, ld in (("host", host_bank), ("native", native_bank)):
+        t = time.perf_counter()
+        extract_features(ld, fn, study)
+        rates[what] = EVAL_BANK / (time.perf_counter() - t)
+    crop = cfg_k.data.get("augmentations", {}).get("crop_size", 224)
+    _, t_val = prepare_transforms(cfg_k.data.dataset, crop)
+    host_in_order = HostLoader(
+        prepare_datasets(cfg_k.data.dataset, transform=t_val, train_path=root),
+        batch_size=cfg_k.optimizer.batch_size,
+        max_channels=cfg_k.backbone.kwargs.max_number_channels,
+        num_workers=cfg_k.data.num_workers, shuffle=False, drop_last=False,
+        bucket_by_channels=False)
+    worst, same = 0.0, True
+    for nb, hb in zip(native_bank, host_in_order, strict=True):
+        same &= (np.array_equal(nb["channel_counts"], hb["channel_counts"])
+                 and np.array_equal(nb["labels"], hb["labels"]))
+        worst = max(worst, float(np.abs(nb["images"] - hb["images"]).max()))
+    ph.check(same and worst <= NATIVE_TOL,
+             f"the C++ eval loader's {len(native_bank)} bank batches against the host "
+             f"path's in file order ({crop} px, {native_bank.max_channels} channels wide): "
+             f"counts and labels equal "
+             f"{same}, max abs {worst:.2e} (<= {NATIVE_TOL:g})")
+    log(f"  eval embeddings/s over 4g's bank ({EVAL_BANK} images, f32 study checkpoint, batch "
+        f"{cfg_k.optimizer.batch_size}, {native_bank.max_channels} channels wide): C++ eval loader "
+        f"{rates['native']:.1f}, host eval loader {rates['host']:.1f} "
+        f"({rates['native'] / rates['host']:.2f}x) ({smi})")
+    del study, host_bank, native_bank, host_in_order
+    torch.cuda.empty_cache()
+
+    # (b) main_umap on the study checkpoint over 4g's bank
+    reset_launches()
+    t = time.perf_counter()
+    with contextlib.chdir(tmp):
+        out = main_umap.main(["--config-path", str(KNN_YAML.parent), "--config-name",
+                              KNN_YAML.name, f"data.train_path={root}",
+                              f"pretrained_feature_extractor={STUDY_NPZ}",
+                              "data.sample_ratio=1.0", "native_loader=true", "name=study"])
+    torch.cuda.synchronize()
+    umap_s = time.perf_counter() - t
+    launches = read_launches()
+    n_batches = -(-EVAL_BANK // cfg_k.optimizer.batch_size)
+    t = time.perf_counter()
+    emb = auto_umap.tsne(out["features"], device=dev)
+    tsne_s = time.perf_counter() - t
+    trust = auto_umap.trustworthiness(out["features"], emb, 5)
+    png = Path(tmp) / "study_umap.png"
+    ph.check(emb.shape == (EVAL_BANK, 2) and np.isfinite(emb).all() and 0 < trust <= 1
+             and (have["umap"] or np.array_equal(emb, out["embedding"]))
+             and png.is_file() == have["matplotlib"] and launches == expected_launches(
+                 instances, (FORWARD_LAUNCHES, len(out["model"].blocks) * n_batches)),
+             f"(b) main_umap on {STUDY_NPZ.name} over the bank: the t-SNE on the card "
+             f"{tsne_s:.2f} s for {EVAL_BANK} points (the run {umap_s:.2f} s with set-up), "
+             f"trustworthiness at k 5 {trust:.4f}; wrote {out['written']}; forward launches "
+             f"{dict((k, v) for k, v in launches.items() if v)} ({smi})")
+    del out
+    torch.cuda.empty_cache()
+
+    # (c) main_attn on one generated plane
+    plane = prepare_datasets("bbbc048", train_path=root).file_list[0][2][0]
+    reset_launches()
+    t = time.perf_counter()
+    with contextlib.chdir(tmp):
+        res = main_attn.main(["--config-path", str(KNN_YAML.parent), "--config-name",
+                              KNN_YAML.name, f"image_path={plane}",
+                              f"pretrained_feature_extractor={STUDY_NPZ}",
+                              f"output_dir={tmp}/attn", f"threshold={ATTN_THRESHOLD}"])
+    torch.cuda.synchronize()
+    attn_s = time.perf_counter() - t
+    launches = read_launches()
+    model = res["model"]
+    heads = res["attention"].shape[1]
+    want_files = sorted(["img.png", "attn-mean.png"]
+                        + [f"attn-head{j}.png" for j in range(heads)]
+                        + [f"mask_th{ATTN_THRESHOLD}_head{j}.png" for j in range(heads)])
+    with torch.inference_mode():
+        x = torch.from_numpy(main_attn.load_image(plane, model.img_size, model.patch_size))
+        x = x[None, None].to(dev)
+        emb_, mask = model.tokenize(x, torch.ones(1, dtype=torch.int32, device=dev),
+                                    max_channels=1)
+        vl = torch.full((1,), emb_.shape[1], dtype=torch.int32, device=dev)
+        for blk in model.blocks[:-1]:
+            emb_ = fused_encoder_block_reference(emb_, vl, *blk.weights(), blk.num_heads,
+                                                 blk.layer_norm_eps, blk.layer_norm_eps)
+        ref = model.blocks[-1](emb_, mask, valid_len=vl, return_attention=True).float().cpu()
+    got = torch.from_numpy(res["attention"])
+    cos = cosine_rows(got.reshape(-1, got.shape[-1]), ref.reshape(-1, ref.shape[-1]))
+    ph.check(sorted(os.listdir(f"{tmp}/attn")) == want_files
+             and cos.min().item() >= ATTN_COS
+             and launches == expected_launches(instances,
+                                               (FORWARD_LAUNCHES, len(model.blocks) - 1)),
+             f"(c) main_attn on {Path(plane).name} at {x.shape[-1]} px, threshold "
+             f"{ATTN_THRESHOLD}: wrote {sorted(os.listdir(f'{tmp}/attn'))}; the {heads} heads' "
+             f"weights {tuple(got.shape)} against the plain route: min row cosine 1 - "
+             f"{1 - cos.min().item():.2e} (>= 1 - {1 - ATTN_COS:.0e}), max abs "
+             f"{(got - ref).abs().max().item():.2e}; launches "
+             f"{dict((k, v) for k, v in launches.items() if v)} (the first "
+             f"{len(model.blocks) - 1} "
+             f"layers' forward; the last returns its weights through the plain attention) "
+             f"({attn_s:.2f} s with set-up)")
+    del res, model
+    torch.cuda.empty_cache()
+    log(f"  phase 4h: validation run {run_s:.1f} s, main_umap {umap_s:.1f} s, main_attn "
+        f"{attn_s:.1f} s; {time.perf_counter() - t_phase:.1f} s in all")
 
 
 def main() -> int:
@@ -3286,8 +3577,13 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ---- 4g. the offline evaluation -------------------------------------------------
-    with Phase("4g evaluation", failures) as ph, tempfile.TemporaryDirectory() as tmp:
-        eval_phase(ph, tmp, smi, instances, reset_launches, read_launches)
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase("4g evaluation", failures) as ph:
+            eval_phase(ph, tmp, smi, instances, reset_launches, read_launches)
+
+        # ---- 4h. validation during pretraining, main_umap, main_attn ------------------
+        with Phase("4h validation", failures) as ph:
+            validation_phase(ph, tmp, smi, instances, reset_launches, read_launches)
 
     # ---- 5. times -------------------------------------------------------------
     with Phase("5 times", failures) as ph:

@@ -7,7 +7,9 @@
 - ``args.json`` carries the 12 ``SHOULD_MATCH`` keys, as the JAX
   ``Checkpointer`` writes them.
 - Each config key the port does not honour yet raises, naming the key; no
-  device and no CUDA raises.
+  device and no CUDA raises. The validation keys (``knn_eval``,
+  ``auto_umap``) run: one epoch logs the online kNN, or writes the epoch's
+  UMAP.
 - The JAX loop fixture (``tests/torch_port_loop_fixture.py``): the port's
   loop, started from the JAX loop's initial state through its own checkpoint
   restore, logs the JAX loop's metrics for 3 steps, float32 on both sides, to
@@ -175,8 +177,6 @@ def test_args_json_carries_the_should_match_keys(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("override, key", [
-    ("knn_eval={'enabled': True}", "knn_eval"),
-    ("auto_umap.enabled=true", "auto_umap"),
     ("model_parallel=2", "model_parallel"),
     ("fsdp=true", "fsdp"),
     ("devices=[0,1]", "devices"),
@@ -186,6 +186,36 @@ def test_args_json_carries_the_should_match_keys(tmp_path, monkeypatch):
 def test_each_unported_key_raises(override, key):
     with pytest.raises(NotImplementedError, match=key):
         loop.run_dino_pretrain(_cfg([override]), device="cpu")
+
+
+@pytest.mark.parametrize("override, key", [
+    ("knn_eval={'enabled': True}", "knn_eval"),
+    ("auto_umap.enabled=true", "auto_umap"),
+])
+def test_each_validation_key_runs(override, key, tmp_path):
+    """The keys the port once refused: a one-epoch run logs the online kNN,
+    or writes the epoch's UMAP where matplotlib is. Two torch threads: the
+    t-SNE's small products are slower on eight, the more so beside other
+    test processes."""
+    cfg = _cfg([override, "data.size=32", "max_epochs=1", "log_every=1", "seed=3",
+                "checkpoint.enabled=true", f"checkpoint.dir={tmp_path}"])
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        metrics = loop.run_dino_pretrain(cfg, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    run = _run_dir(tmp_path)
+    if key == "knn_eval":
+        logs = _logs(run)
+        assert 0.0 <= logs[2]["val_knn_top1"] <= logs[2]["val_knn_top5"] <= 100.0
+        assert metrics["val_knn_top1"] == logs[2]["val_knn_top1"]
+        return
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return
+    assert (run / "umap_ep=0.png").is_file()
 
 
 def test_no_device_and_no_cuda_raises(monkeypatch):
